@@ -1,0 +1,418 @@
+#!/usr/bin/env python3
+"""GPU smoke run of the PyTorch/CUDA port (`viditq_tpu_torch`).
+
+Run from the root of a checkout on a machine with one NVIDIA H100:
+
+    python3 chip_smoke.py
+
+Phases (any failure exits non-zero):
+  1. device: require CUDA; print the card's name and power limit;
+  2. build: compile every CUDA kernel from `viditq_tpu_torch/csrc`;
+  3. kernels: each kernel against its plain PyTorch version at the
+     STDiT-XL/2 main-path shapes (16x512x512 video, CFG batch 2), with
+     code mismatch, max code difference, relative error and the median
+     time of both, from CUDA events;
+  4. reference: a tiny sm8 model on the card (kernels) against the same
+     model on the CPU (plain versions);
+  5. slice: full-width STDiT-XL/2 (28 blocks, C=1152, random weights from
+     a seed), bf16 and W8A8-sm8 arms over the whole 20-step CFG DDIM
+     schedule, with ms/step, peak memory, sm8-vs-bf16 error and the launch
+     count of every kernel.
+The second-to-last line is a JSON object with one entry per kernel; the
+last line is {"ok": true, "device": {...}}.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+ROOT = Path(__file__).resolve().parent
+SM8_PLAN = ROOT / "configs/opensora/w8a8_tpu_fused_sm8.yaml"
+STEPS = 20  # DDIM steps per arm (bench.py's n_steps): the whole schedule
+
+# tolerances (acceptance criteria of the port): int8 codes differ by at
+# most 1 at no more than 0.1% of entries (a float reduction precedes every
+# rounding, in another order than the plain version's); float outputs agree
+# to a relative error of 1e-2 (bf16 outputs round at 2^-8)
+CODE_MAX_DIFF = 1
+CODE_MISMATCH_FRAC = 1e-3
+REL_ERR = 1e-2
+SLICE_REL_ERR = 0.1        # sm8 vs bf16 final latent: 8-bit sanity bound
+# tiny sm8 model, card vs CPU: bf16 activations in both, summed in another
+# order by cuBLAS and the CPU; this model's bf16 output is 1e-2 away from
+# its own float32 output (measured on the CPU), so 3e-2 bounds the
+# rounding and flags any kernel that computes something else (O(1))
+TINY_REL_ERR = 3e-2
+
+# file:line of the TPU kernel each port kernel replaces
+REPLACES = {
+    "ln_modulate_quantize": "viditq_tpu/kernels/fused_matmul.py:673",
+    "int8_consumer_matmul": "viditq_tpu/kernels/fused_matmul.py:394",
+    "attention_bnhd": "viditq_tpu/kernels/attention.py:599",
+    "quantize_rows": "viditq_tpu/kernels/fused_matmul.py:606",
+    "fused_dynq_int8_matmul": "viditq_tpu/kernels/fused_matmul.py:209",
+}
+SOURCES = {
+    "ln_modulate_quantize": "viditq_tpu_torch/csrc/ln_mod_quant.cu",
+    "int8_consumer_matmul": "viditq_tpu_torch/csrc/int8_gemm.cu",
+    "attention_bnhd": "viditq_tpu_torch/csrc/attention.cu",
+    "quantize_rows": "viditq_tpu_torch/csrc/quant_rows.cu",
+    "fused_dynq_int8_matmul": "viditq_tpu_torch/kernels/fused_matmul.py",
+}
+
+
+def fail(msg: str):
+    raise SystemExit(f"chip_smoke: FAILED: {msg}")
+
+
+def nvidia_smi_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, reps: int = 10) -> float:
+    """Median time of fn() in ms from CUDA events, after one warm-up."""
+    import torch
+    fn()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return float(np.median(times))
+
+
+def compare(got, want, is_codes: bool):
+    """(max abs diff, mismatch fraction, relative error)."""
+    import torch
+    g = got.float()
+    w = want.float()
+    diff = (g - w).abs()
+    rel = float((g - w).norm() / max(float(w.norm()), 1e-30))
+    frac = float((diff > 0).float().mean()) if is_codes else 0.0
+    if not torch.isfinite(g).all():
+        fail("non-finite kernel output")
+    return float(diff.max()), frac, rel
+
+
+def check_case(name, case, kernel_fn, plain_fn, records):
+    """Run kernel and plain version on the same inputs, compare every
+    output, time both; append the result."""
+    import torch
+    got = kernel_fn()
+    want = plain_fn()
+    torch.cuda.synchronize()
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    max_abs, worst_frac, worst_rel = 0.0, 0.0, 0.0
+    parts = []
+    for i, (g, w) in enumerate(zip(got, want)):
+        if g.shape != w.shape or g.dtype != w.dtype:
+            fail(f"{name}/{case}: output {i} {tuple(g.shape)} {g.dtype} != "
+                 f"plain {tuple(w.shape)} {w.dtype}")
+        is_codes = g.dtype == torch.int8
+        mx, frac, rel = compare(g, w, is_codes)
+        parts.append(f"out{i}: max_abs {mx:.3g} mismatch {frac:.3g} "
+                     f"rel {rel:.3g}")
+        if is_codes:
+            if mx > CODE_MAX_DIFF or frac > CODE_MISMATCH_FRAC:
+                fail(f"{name}/{case}: codes differ (max {mx}, frac {frac})")
+            max_abs = max(max_abs, mx)
+        else:
+            if rel > REL_ERR:
+                fail(f"{name}/{case}: relative error {rel} > {REL_ERR}")
+            max_abs = max(max_abs, mx)
+        worst_frac = max(worst_frac, frac)
+        worst_rel = max(worst_rel, rel)
+    ms = cuda_ms(kernel_fn)
+    plain_ms = cuda_ms(plain_fn, reps=3)
+    print(f"  {name:24s} {case:34s} kernel {ms:9.3f} ms  plain "
+          f"{plain_ms:9.3f} ms  | {'; '.join(parts)}", flush=True)
+    records.setdefault(name, []).append(
+        {"case": case, "max_abs_err": max_abs, "ms": ms,
+         "plain_ms": plain_ms})
+
+
+def phase_kernels(records):
+    import torch
+    from viditq_tpu_torch.kernels import attention as A
+    from viditq_tpu_torch.kernels import fused_matmul as FM
+    dev = "cuda"
+    g = torch.Generator(device=dev).manual_seed(0)
+
+    def randn(*shape, dtype=torch.bfloat16, scale=1.0):
+        return (torch.randn(shape, generator=g, device=dev) * scale).to(dtype)
+
+    def randi8(*shape):
+        return torch.randint(-127, 128, shape, generator=g, device=dev,
+                             dtype=torch.int8)
+
+    def rands(*shape, lo=1e-3, hi=2e-2):
+        return lo + (hi - lo) * torch.rand(shape, generator=g, device=dev)
+
+    B, T, S, C, H, D, P = 2, 16, 1024, 1152, 16, 72, 120
+    M = B * T * S
+    print("phase kernels (main-path shapes)", flush=True)
+
+    # K1: norm1 -> q/k/v and norm2 -> fc1
+    x = randn(B, T * S, C)
+    sh, sc = randn(B, 1, C, scale=0.1), randn(B, 1, C, scale=0.1)
+    check_case("ln_modulate_quantize", "[2,16384,1152]",
+               lambda: FM.ln_modulate_quantize(x, sh, sc),
+               lambda: FM.ln_modulate_quantize_plain(x, sh, sc), records)
+
+    # K4: the shared attn_temp q/k/v prequant
+    x2 = x.reshape(M, C)
+    check_case("quantize_rows", "[32768,1152]",
+               lambda: FM.quantize_rows(x2),
+               lambda: FM.quantize_rows_plain(x2), records)
+
+    # K2: q/k/v/proj, fc1 emit (G=3), fc2 gw_x
+    xq, xs = randi8(M, C), rands(M, 1)
+    w, ws, b = randi8(C, C), rands(1, C, lo=1e-4, hi=1e-3), randn(
+        C, dtype=torch.float32, scale=0.1)
+    check_case("int8_consumer_matmul", "plain [32768,1152]x[1152,1152]",
+               lambda: FM.int8_consumer_matmul(xq, xs, w, ws, b),
+               lambda: FM.int8_consumer_matmul_plain(xq, xs, w, ws, b),
+               records)
+    w1, ws1 = randi8(C, 4 * C), rands(1, 4 * C, lo=1e-4, hi=1e-3)
+    b1 = randn(4 * C, dtype=torch.float32, scale=0.1)
+    emit = {"gelu": True}
+    check_case("int8_consumer_matmul", "emit [32768,1152]x[1152,4608]",
+               lambda: FM.int8_consumer_matmul(xq, xs, w1, ws1, b1, emit=emit),
+               lambda: FM.int8_consumer_matmul_plain(xq, xs, w1, ws1, b1,
+                                                     emit=emit), records)
+    xq2, xs2 = randi8(M, 4 * C), rands(M, 3)
+    w2, ws2 = randi8(4 * C, C), rands(1, C, lo=1e-5, hi=1e-4)
+    check_case("int8_consumer_matmul", "gw_x [32768,4608]x[4608,1152]",
+               lambda: FM.int8_consumer_matmul(xq2, xs2, w2, ws2, b,
+                                               group_scales=True),
+               lambda: FM.int8_consumer_matmul_plain(xq2, xs2, w2, ws2, b,
+                                                     group_scales=True),
+               records)
+
+    # K3: spatial / temporal / cross, in the bf16 arm's and sm8's modes
+    sc_attn = D ** -0.5
+    sites = {
+        "spatial": (randn(B * T, S, H, D), randn(B * T, S, H, D),
+                    randn(B * T, S, H, D), 0, None, False),
+        "temporal": (randn(B, T * S, H, D), randn(B, T * S, H, D),
+                     randn(B, T * S, H, D), T, None, True),
+    }
+    mask = torch.ones((B, P), dtype=torch.int32, device=dev)
+    mask[1, 100:] = 0  # one padded prompt
+    sites["cross"] = (randn(B, T * S, H, D), randn(B, P, H, D),
+                      randn(B, P, H, D), 0, mask, True)
+    for site, (q, k, v, seg, m, sm8_int8) in sites.items():
+        for arm, int8_pv, emit_out in (("bf16", False, False),
+                                       ("sm8", sm8_int8, True)):
+            kw = dict(seg_len=seg, kv_mask=m, int8_pv=int8_pv, emit=emit_out)
+            vb = A.seg_v_block(q.shape[1], seg) if (seg and int8_pv) else None
+            check_case(
+                "attention_bnhd",
+                f"{site} {arm}{' int8_pv' if int8_pv else ''}"
+                f"{' emit' if emit_out else ''}",
+                lambda: A.attention_bnhd(q, k, v, sc_attn, v_block=vb, **kw),
+                lambda: A.attention_bnhd_plain(q, k, v, sc_attn, v_block=vb,
+                                               **kw), records)
+
+    # K5 (K4 -> K2): cross_attn.kv_linear and cross_attn.q_linear
+    for case, (m_rows, n) in (("kv_linear [240,1152]x[1152,2304]", (B * P, 2 * C)),
+                              ("q_linear [32768,1152]x[1152,1152]", (M, C))):
+        xa = randn(m_rows, C)
+        wa, wsa = randi8(C, n), rands(1, n, lo=1e-4, hi=1e-3)
+        ba = randn(n, dtype=torch.float32, scale=0.1)
+        check_case("fused_dynq_int8_matmul", case,
+                   lambda: FM.fused_dynq_int8_matmul(xa, wa, wsa, ba),
+                   lambda: FM.fused_dynq_int8_matmul_plain(xa, wa, wsa, ba),
+                   records)
+
+
+def random_init_(model, seed: int, scale: float):
+    """normal x scale for every float parameter and table (bench.py:149-152
+    uses 0.02), from a seeded generator on the model's device."""
+    import torch
+    dev = next(model.parameters()).device
+    g = torch.Generator(device=dev).manual_seed(seed)
+    with torch.no_grad():
+        for t in model.state_dict().values():
+            if t.is_floating_point():
+                t.copy_(torch.randn(t.shape, generator=g, device=dev) * scale)
+
+
+def build_model(input_size, resolver, dtype, device, scale=0.02, **kw):
+    import torch
+    from viditq_tpu_torch.models.stdit import STDiT, STDiT_XL_2
+    from viditq_tpu_torch.quant.calibrate import calibrate_weight_tables
+    from viditq_tpu_torch.quant.native_pack import pack_native_weights
+    with torch.device(device):
+        model = (STDiT(input_size=input_size, resolver=resolver, dtype=dtype,
+                       **kw) if kw else
+                 STDiT_XL_2(input_size=input_size, resolver=resolver,
+                            dtype=dtype))
+    model.to(device)  # the static sincos tables are built on the host
+    random_init_(model, 0, scale)
+    calibrate_weight_tables(model)
+    pack_native_weights(model)
+    return model.eval()
+
+
+def phase_reference():
+    """Tiny sm8 model: the card's kernels against the CPU's plain versions
+    on the same weights and inputs, for one forward (float32 output) and a
+    3-step CFG denoise. Weights are drawn at 0.1 so activations are O(1)."""
+    import copy
+    import torch
+    from viditq_tpu_torch.pipelines.inference import quant_sample
+    from viditq_tpu_torch.quant.qlinear import QuantCtx
+    from viditq_tpu_torch.samplers.iddpm import IDDPM
+    from viditq_tpu_torch.utils.config import load_quant_config
+    resolver = load_quant_config(str(SM8_PLAN)).resolver()
+    latent = (2, 16, 32)
+    cpu = build_model(latent, resolver, torch.bfloat16, "cpu", scale=0.1,
+                      hidden_size=64, depth=2, num_heads=4,
+                      caption_channels=32, model_max_length=8)
+    gpu = copy.deepcopy(cpu).to("cuda")
+    rng = np.random.default_rng(1)
+    x = torch.tensor(rng.standard_normal((2, 4, *latent))).bfloat16()
+    t = torch.tensor([500, 500])
+    y = torch.tensor(rng.standard_normal((2, 1, 8, 32))).bfloat16()
+    mask = torch.ones((2, 8), dtype=torch.int32)
+    mask[1, 6:] = 0
+    q = QuantCtx(mode="quant")
+    with torch.no_grad():
+        want = cpu(x, t, y, mask, qctx=q)
+        got = gpu(x.cuda(), t.cuda(), y.cuda(), mask.cuda(), qctx=q).cpu()
+    rel_fwd = float((got - want).norm() / want.norm())
+    sampler = IDDPM(num_sampling_steps=3, cfg_scale=4.0)
+    want = quant_sample(cpu, sampler, x[:1], y, mask[:1]).float()
+    got = quant_sample(gpu, sampler, x[:1].cuda(), y.cuda(),
+                       mask[:1].cuda()).float().cpu()
+    rel_dn = float((got - want).norm() / want.norm())
+    print(f"phase reference: tiny sm8 model, card vs CPU plain versions: "
+          f"forward rel err {rel_fwd:.3g}, 3-step CFG denoise rel err "
+          f"{rel_dn:.3g} (limit {TINY_REL_ERR})", flush=True)
+    for rel in (rel_fwd, rel_dn):
+        if not np.isfinite(rel) or rel > TINY_REL_ERR:
+            fail(f"tiny sm8 model disagrees with its CPU reference: {rel}")
+
+
+def phase_slice():
+    import torch
+    from viditq_tpu_torch.kernels import _counters
+    from viditq_tpu_torch.pipelines.inference import fp_sample, quant_sample
+    from viditq_tpu_torch.samplers.iddpm import IDDPM
+    from viditq_tpu_torch.utils.config import load_quant_config
+    latent = (16, 64, 64)
+    resolver = load_quant_config(str(SM8_PLAN)).resolver()
+    t0 = time.time()
+    model = build_model(latent, resolver, torch.bfloat16, "cuda")
+    torch.cuda.synchronize()
+    print(f"phase slice: STDiT-XL/2 at latent {latent}, CFG batch 2, "
+          f"built + calibrated + packed in {time.time() - t0:.1f} s",
+          flush=True)
+    rng = np.random.default_rng(0)
+    z = torch.tensor(rng.standard_normal((1, 4, *latent)) * 0.5,
+                     dtype=torch.bfloat16, device="cuda")
+    y = torch.tensor(rng.standard_normal((2, 1, 120, 4096)) * 0.1,
+                     dtype=torch.bfloat16, device="cuda")
+    mask = torch.ones((1, 120), dtype=torch.int32, device="cuda")
+    sampler = IDDPM(num_sampling_steps=STEPS, cfg_scale=4.0)
+    counts, outs, ms = {}, {}, {}
+    for arm, run in (("bf16", fp_sample), ("sm8", quant_sample)):
+        # warm-up: the schedule's first step only
+        run(model, sampler, z, y, mask, step_indices=[STEPS - 1])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _counters.reset()
+        t0 = time.time()
+        out = run(model, sampler, z, y, mask)
+        torch.cuda.synchronize()
+        ms[arm] = (time.time() - t0) * 1e3 / STEPS
+        counts[arm] = _counters.snapshot()
+        outs[arm] = out.float()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        print(f"  {arm}: {STEPS} steps, {ms[arm]:.1f} ms/step, peak memory "
+              f"{peak:.2f} GiB, launches "
+              f"{ {k: v['launches'] for k, v in counts[arm].items()} }, "
+              f"plain calls on CUDA "
+              f"{ {k: v['plain_cuda'] for k, v in counts[arm].items()} }",
+              flush=True)
+        if tuple(out.shape) != (1, 4, *latent):
+            fail(f"{arm} output shape {tuple(out.shape)}")
+        if not torch.isfinite(outs[arm]).all():
+            fail(f"{arm} output is not finite")
+        if any(v["plain_cuda"] for v in counts[arm].values()):
+            fail(f"{arm}: a plain version ran on CUDA tensors")
+    rel = float((outs["sm8"] - outs["bf16"]).norm() / outs["bf16"].norm())
+    print(f"  {STEPS} steps; bf16 {ms['bf16']:.1f} ms/step, sm8 "
+          f"{ms['sm8']:.1f} ms/step; sm8 vs bf16 final-latent rel err "
+          f"{rel:.4g} (limit {SLICE_REL_ERR})", flush=True)
+    if rel > SLICE_REL_ERR:
+        fail(f"sm8 vs bf16 relative error {rel}")
+    for name, c in counts["sm8"].items():
+        if c["launches"] == 0:
+            fail(f"sm8 arm never launched {name}")
+    if counts["bf16"]["attention_bnhd"]["launches"] == 0:
+        fail("bf16 arm never launched attention_bnhd")
+    return {k: counts["bf16"][k]["launches"] + counts["sm8"][k]["launches"]
+            for k in counts["sm8"]}
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        fail("CUDA is not available")
+    sys.path.insert(0, str(ROOT))
+    from viditq_tpu_torch.kernels import _build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = nvidia_smi_line()
+    print(f"phase device: {smi}; torch {torch.__version__} cuda "
+          f"{torch.version.cuda}", flush=True)
+
+    t0 = time.time()
+    _build.lib()
+    print(f"phase build: {time.time() - t0:.1f} s "
+          f"({_build.library_path().name})", flush=True)
+
+    records = {}
+    phase_kernels(records)
+    phase_reference()
+    launches = phase_slice()
+
+    kernels = []
+    for name, recs in records.items():
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": SOURCES[name],
+            "replaces": REPLACES[name],
+            "launches": launches[name],
+            "max_abs_err": max(r["max_abs_err"] for r in recs),
+            "ms": recs[0]["ms"],
+            "plain_ms": recs[0]["plain_ms"],
+        })
+    print(json.dumps({"kernels": kernels}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,132 @@
+"""Rules of the PyTorch port (`viditq_tpu_torch`) that hold without a GPU:
+it never imports jax/flax, its wrappers run their plain versions on CPU
+tensors without counting kernel launches, and the modes the port does not
+implement raise instead of computing something else."""
+
+import ast
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from viditq_tpu_torch.kernels import _counters
+from viditq_tpu_torch.kernels import attention as A
+from viditq_tpu_torch.kernels import fused_matmul as FM
+
+PKG = Path(__file__).resolve().parent.parent / "viditq_tpu_torch"
+
+
+def _imported_roots(src: str):
+    for node in ast.walk(ast.parse(src)):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.module and \
+                node.level == 0:
+            yield node.module.split(".")[0]
+
+
+def test_port_never_imports_jax_or_flax():
+    # an import check cannot work here: the image preloads jax
+    files = sorted(PKG.rglob("*.py")) + [PKG.parent / "chip_smoke.py"]
+    assert len(files) > 10
+    bad = {str(f.relative_to(PKG.parent)): sorted(
+        r for r in set(_imported_roots(f.read_text()))
+        if r in ("jax", "flax", "jaxlib", "optax", "viditq_tpu"))
+        for f in files}
+    assert not {k: v for k, v in bad.items() if v}, bad
+
+
+def _inputs(seed=0):
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(2, 32, 64, generator=g)
+    sh, sc = torch.randn(2, 1, 64, generator=g), torch.randn(2, 1, 64,
+                                                             generator=g)
+    w = torch.randint(-127, 128, (64, 128), generator=g, dtype=torch.int8)
+    ws = torch.rand(1, 128, generator=g) * 1e-3
+    return x, sh, sc, w, ws
+
+
+def test_cpu_tensors_run_plain_versions_and_count_no_launch():
+    _counters.reset()
+    x, sh, sc, w, ws = _inputs()
+    q, s = FM.ln_modulate_quantize(x, sh, sc)
+    FM.int8_consumer_matmul(q, s, w, ws)
+    FM.int8_consumer_matmul(q, s, w, ws, emit={"gelu": True})
+    FM.quantize_rows(x.reshape(-1, 64))
+    FM.fused_dynq_int8_matmul(x.reshape(-1, 64), w, ws)
+    qh = x.reshape(2, 32, 4, 16)
+    A.attention_bnhd(qh, qh, qh, 0.25, seg_len=4, int8_pv=True, emit=True)
+    A.attention_bnhd(qh, qh, qh, 0.25)
+    snap = _counters.snapshot()
+    assert all(v == {"launches": 0, "plain_cuda": 0} for v in snap.values()), \
+        snap
+
+
+def test_cpu_plain_results_match_direct_plain_calls():
+    x, sh, sc, w, ws = _inputs(1)
+    q1, s1 = FM.ln_modulate_quantize(x, sh, sc)
+    q2, s2 = FM.ln_modulate_quantize_plain(x, sh, sc)
+    assert torch.equal(q1, q2) and torch.equal(s1, s2)
+
+
+@pytest.mark.parametrize("call", [
+    lambda x, sh, sc, w, ws: FM.ln_modulate_quantize(x, sh, sc, sym=False),
+    lambda x, sh, sc, w, ws: FM.quantize_rows(x[0], sym=False),
+    lambda x, sh, sc, w, ws: FM.quantize_rows(x[0], gelu=True),
+    lambda x, sh, sc, w, ws: FM.quantize_rows(x[0], col_scale=ws[0, :64]),
+    lambda x, sh, sc, w, ws: FM.int8_consumer_matmul(
+        *FM.quantize_rows(x[0]), w, ws, x_zp=ws[:, :32].T),
+    lambda x, sh, sc, w, ws: FM.int8_consumer_matmul(
+        *FM.quantize_rows(x[0]), w, ws, w_zp=ws),
+    lambda x, sh, sc, w, ws: FM.int8_consumer_matmul(
+        *FM.quantize_rows(x[0]), w, ws, residual=torch.zeros(32, 128)),
+    lambda x, sh, sc, w, ws: FM.int8_consumer_matmul(
+        *FM.quantize_rows(x[0]), w, ws,
+        emit={"gelu": True, "col_scale": torch.ones(128)}),
+    lambda x, sh, sc, w, ws: FM.fused_dynq_int8_matmul(x[0], w, ws,
+                                                       sym=False),
+    lambda x, sh, sc, w, ws: FM.fused_dynq_int8_matmul(
+        x[0], w, ws, gate=torch.ones(1, 128)),
+    lambda x, sh, sc, w, ws: A.attention_bnhd(
+        *(x.reshape(2, 32, 4, 16),) * 3, 0.25, int8_qk=True),
+    lambda x, sh, sc, w, ws: A.attention_bnhd(
+        *(x.reshape(2, 32, 4, 16),) * 3, 0.25, emit=True, emit_sym=False),
+    lambda x, sh, sc, w, ws: A.attention_bnhd(
+        *(x.reshape(2, 32, 4, 16),) * 3, 0.25, emit=True,
+        col_scale=torch.ones(64)),
+], ids=["k1-asym", "k4-asym", "k4-gelu", "k4-col_scale", "k2-asym-act",
+        "k2-asym-weight", "k2-residual", "k2-emit-col_scale", "k5-asym",
+        "k5-gate", "k3-int8_qk", "k3-asym-emit", "k3-col_scale"])
+def test_unported_modes_raise(call):
+    with pytest.raises(NotImplementedError):
+        call(*_inputs())
+
+
+def test_unported_plans_raise_at_model_construction():
+    import dataclasses
+    from viditq_tpu_torch.quant.qlinear import QuantLinear
+    from viditq_tpu_torch.utils.config import load_quant_config
+    spec = load_quant_config(
+        "configs/opensora/w8a8_tpu_fused_sm8.yaml").default_layer
+    for bad in (dataclasses.replace(spec, backend="simulate"),
+                dataclasses.replace(spec, impl=None),
+                dataclasses.replace(spec, act_quant=False)):
+        with pytest.raises(NotImplementedError):
+            QuantLinear(64, 64, bad)
+    QuantLinear(64, 64, spec)  # the sm8 layer spec is ported
+
+
+def test_hybrid_plan_overrides_raise_at_load():
+    from viditq_tpu_torch.utils.config import load_quant_config
+    with pytest.raises(NotImplementedError):
+        load_quant_config("configs/opensora/w8a8_tpu_hybrid_sym.yaml")
+
+
+def test_emission_group_rule_matches_runtime_call():
+    # C1: fc1 at STDiT-XL ([*, 1152] x [1152, 4608]) emits 3 groups of 1536
+    assert FM.emit_groups(4608, 1152) == 1536
+    assert FM.emission_block_n(4608, 512, 1152) == 1536
+    assert np.all([FM.select_block_k(k, 2304) == min(k, 2304)
+                   for k in (1152, 2304, 4608)])

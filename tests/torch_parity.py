@@ -1,0 +1,105 @@
+"""Shared set-up of the PyTorch-port parity tests: a tiny STDiT built in
+both packages on the same weights.
+
+The JAX model is initialised, its parameters are replaced by numpy draws
+from a seed, and its tables are calibrated and packed by the JAX package;
+the port's model of the same configuration loads those through
+`viditq_tpu_torch.utils.bridge`. The size is chosen so the JAX package
+really takes its kernel path: T*S = 256 tokens (the producer's N % 256),
+S = 128 spatial tokens (the attention's n % 128), hidden*mlp_ratio = 256.
+"""
+
+import contextlib
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import torch
+from jax.experimental.pallas import tpu as pltpu
+
+from viditq_tpu.models.stdit import STDiT as JSTDiT
+from viditq_tpu.quant import QuantCtx as JQuantCtx
+from viditq_tpu.quant import calibrate_weight_tables as j_calibrate
+from viditq_tpu.quant.native_pack import pack_native_weights as j_pack
+from viditq_tpu.utils.config import load_quant_config as j_load
+from viditq_tpu_torch.models.stdit import STDiT
+from viditq_tpu_torch.utils.bridge import state_dict_from_flax
+from viditq_tpu_torch.utils.config import load_quant_config
+
+SM8 = "configs/opensora/w8a8_tpu_fused_sm8.yaml"
+SYM = "configs/opensora/w8a8_tpu_fused_sym.yaml"
+LATENT = (2, 16, 32)
+TINY = dict(input_size=LATENT, hidden_size=64, depth=2, num_heads=4,
+            caption_channels=32, model_max_length=8)
+
+
+@contextlib.contextmanager
+def jax_kernel_path():
+    """Drive the JAX package's kernel dispatch on the CPU (Pallas interpret
+    mode), as tests/test_attention_model_dispatch.py does."""
+    keys = ("VIDITQ_FORCE_FUSED", "VIDITQ_FORCE_ATTN_KERNEL")
+    old = {k: os.environ.get(k) for k in keys}
+    os.environ.update({k: "1" for k in keys})
+    try:
+        with pltpu.force_tpu_interpret_mode():
+            yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def inputs(batch: int = 2, seed: int = 0):
+    """x [B, 4, T, H, W], t [B], y [B, 1, L, 32], mask [B, L] (one padded
+    prompt) as numpy arrays."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((batch, 4, *LATENT)).astype(np.float32)
+    t = np.full((batch,), 500, np.int32)
+    y = rng.standard_normal((batch, 1, 8, 32)).astype(np.float32)
+    mask = np.ones((batch, 8), np.int32)
+    mask[-1, 5:] = 0
+    return x, t, y, mask
+
+
+def randomize(params, seed: int = 0, scale: float = 0.1):
+    rng = np.random.default_rng(seed)
+    return jax.tree.map(
+        lambda a: (rng.standard_normal(a.shape) * scale).astype(np.float32),
+        params)
+
+
+def build_jax(plan_path=SM8, scan_blocks: bool = False, seed: int = 0):
+    """(JAX model, variables as numpy trees) with calibrated, packed
+    tables."""
+    resolver = j_load(plan_path).resolver()
+    model = JSTDiT(resolver=resolver, dtype=jnp.float32,
+                   scan_blocks=scan_blocks, **TINY)
+    x, t, y, mask = inputs()
+    v = dict(model.init(jax.random.PRNGKey(0), x, t, y, mask,
+                        JQuantCtx(mode="fp")))
+    params = randomize(v["params"], seed)
+    quant = j_pack(params, j_calibrate(params, v["quant"], resolver),
+                   resolver)
+    return model, {"params": params,
+                   "quant": jax.tree.map(np.asarray, quant)}
+
+
+def build_port(plan_path=SM8, variables=None, fp_only: bool = False):
+    """The port's model; loads the JAX variables through the bridge
+    (params only with fp_only, to calibrate and pack in the port)."""
+    model = STDiT(resolver=load_quant_config(plan_path).resolver(),
+                  dtype=torch.float32, **TINY)
+    if variables is not None:
+        sd = state_dict_from_flax(variables["params"],
+                                  None if fp_only else variables["quant"])
+        model.load_state_dict(sd, strict=not fp_only)
+    return model.eval()
+
+
+def rel_err(got, want) -> float:
+    got = np.asarray(got, np.float64)
+    want = np.asarray(want, np.float64)
+    return float(np.linalg.norm(got - want) / np.linalg.norm(want))

@@ -1,0 +1,45 @@
+// Shared helpers for the port's hand-written Hopper kernels.
+//
+// Every kernel file exposes plain C entry points (extern "C") that launch
+// on the stream they are given and return cudaGetLastError() as an int;
+// the Python wrappers load the library with ctypes and raise on non-zero.
+//
+// Numerics: the library is compiled with -fmad=false so that a*b+c stays a
+// rounded multiply then a rounded add, as in the JAX reference and the
+// plain PyTorch versions; division and sqrt are IEEE (no fast-math).
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#define VQ_EXPORT extern "C" __attribute__((visibility("default")))
+
+namespace vq {
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// round half to even, then saturate to int8 (jnp.clip(jnp.round(.), -128, 127))
+__device__ __forceinline__ int8_t round_sat_s8(float v) {
+  float r = rintf(v);
+  r = fminf(fmaxf(r, -128.0f), 127.0f);
+  return static_cast<int8_t>(static_cast<int>(r));
+}
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+}  // namespace vq

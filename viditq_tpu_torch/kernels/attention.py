@@ -1,0 +1,256 @@
+"""Layout-native attention (K3): port of `viditq_tpu/kernels/attention.py`.
+
+`attention_bnhd` takes q/k/v in the projection's layout [B, N, H, D] and
+runs the one-shot kernel's semantics (`_attn_kernel`, attention.py:80-234):
+an f32 base-2 softmax over bf16-cast scores, block-diagonal (seg_len),
+full, or kv-masked, with a float PV or the int8 PV, and optionally emits
+its output row-quantized across all heads for the proj linear.
+
+On CPU tensors it runs `attention_bnhd_plain`; on CUDA tensors it launches
+csrc/attention.cu (bf16 inputs) or raises. `int8_qk` is not ported.
+
+The oracles `attention_bnhd_xla` / `attention_bnhd_xla_quant`
+(attention.py:409-478) are ported too; the tests hold both packages'
+oracles and kernel paths against each other.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from viditq_tpu_torch.kernels import _build
+from viditq_tpu_torch.kernels._counters import COUNTERS, count_plain
+from viditq_tpu_torch.kernels.fused_matmul import on_cuda, rdiv, require
+
+LOG2E = float(math.log2(math.e))
+KERNEL_HEAD_DIMS = (16, 72)  # instantiations in csrc/attention.cu
+INT8_PV_MAX_KV = 1040                # 127 * 127 * 1040 < 2^24
+
+
+def seg_v_block(n: int, seg_len: int) -> int:
+    """Token group of the per-channel v scales in block-diagonal int8 PV.
+
+    The TPU kernel quantizes v per (q-block x channel) in VMEM, and its
+    q-block comes from `select_block_q` (attention.py:511-519): the largest
+    multiple of seg_len not above max(seg_len, 256) that divides n. That
+    tiling choice fixes the numerics (C2), so the port keeps the rule as an
+    explicit parameter: 256 at the main path (n = 16384, seg_len = 16)."""
+    cap = max(seg_len, 256)
+    return next(k * seg_len for k in range(cap // seg_len, 0, -1)
+                if n % (k * seg_len) == 0)
+
+
+def _v_quant(v: torch.Tensor, v_block: int):
+    """Per-(v_block tokens x channel) sym int8 codes of v [B, M, C] (float
+    values) and scales [B, M // v_block, C]."""
+    B, M, C = v.shape
+    vg = v.float().reshape(B, M // v_block, v_block, C)
+    vs = torch.clamp(vg.abs().amax(dim=2, keepdim=True), min=1e-6)
+    vq = torch.round(vg * rdiv(127.0, vs))
+    return vq.reshape(B, M, C), vs.reshape(B, M // v_block, C)
+
+
+def _row_quant_emit(of: torch.Tensor):
+    """Emission row quantize, the attention site's form (attention.py:
+    218-221): smax = max(absmax, 1e-6), codes = round(o * (127/smax))."""
+    smax = torch.clamp(of.abs().amax(dim=-1, keepdim=True), min=1e-6)
+    codes = torch.clamp(torch.round(of * rdiv(127.0, smax)), -128, 127)
+    return codes.to(torch.int8), smax / 127.0
+
+
+def attention_bnhd_plain(q, k, v, scale: float, seg_len: int = 0,
+                         kv_mask: Optional[torch.Tensor] = None,
+                         int8_pv: bool = False, v_block: Optional[int] = None,
+                         emit: bool = False):
+    count_plain("attention_bnhd", q)
+    B, N, H, D = q.shape
+    M = k.shape[1]
+    C = H * D
+    qf = (q.float() * (scale * LOG2E)).to(torch.bfloat16).float()
+    kf = k.to(torch.bfloat16).float()
+    if seg_len > 0:
+        G = N // seg_len
+        s = torch.einsum("bgnhd,bgmhd->bghnm",
+                         qf.reshape(B, G, seg_len, H, D),
+                         kf.reshape(B, G, seg_len, H, D))
+    else:
+        s = torch.einsum("bnhd,bmhd->bhnm", qf, kf)
+        if kv_mask is not None:
+            s = s + torch.where(kv_mask[:, None, None, :] != 0, 0.0,
+                                float("-inf"))
+    m = s.amax(dim=-1, keepdim=True)
+    e = torch.exp2(s - m)
+    r = e.sum(dim=-1, keepdim=True)
+    if int8_pv:
+        pq = torch.round(e * 127.0).double()
+        vb = v_block if seg_len > 0 else M
+        vq, vs = _v_quant(v.reshape(B, M, C), vb)
+        vq = vq.reshape(B, M, H, D).double()
+        t = rdiv(1.0 / (127.0 * 127.0), r)
+        if seg_len > 0:
+            acc = torch.einsum("bghnm,bgmhd->bghnd", pq,
+                               vq.reshape(B, G, seg_len, H, D)).float()
+            # v scale of each row's group: rows of one segment share it
+            vsr = vs.reshape(B, N // vb, 1, H, D).expand(
+                B, N // vb, vb // seg_len, H, D).reshape(B, G, H, 1, D)
+            o = (acc * t) * vsr                       # [B, G, H, seg, D]
+            o = o.permute(0, 1, 3, 2, 4).reshape(B, N, H, D)
+        else:
+            acc = torch.einsum("bhnm,bmhd->bhnd", pq, vq).float()
+            o = (acc * t) * vs.reshape(B, H, 1, D)
+            o = o.permute(0, 2, 1, 3)
+    else:
+        p = (e * rdiv(1.0, r)).to(v.dtype).float()
+        vf = v.float()
+        if seg_len > 0:
+            o = torch.einsum("bghnm,bgmhd->bgnhd", p,
+                             vf.reshape(B, G, seg_len, H, D))
+            o = o.reshape(B, N, H, D)
+        else:
+            o = torch.einsum("bhnm,bmhd->bnhd", p, vf)
+    if emit:
+        codes, scales = _row_quant_emit(o.reshape(B, N, C))
+        return codes, scales
+    return o.to(q.dtype)
+
+
+def attention_bnhd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   scale: float, seg_len: int = 0,
+                   kv_mask: Optional[torch.Tensor] = None,
+                   int8_pv: bool = False, v_block: Optional[int] = None,
+                   emit: bool = False, int8_qk: bool = False,
+                   emit_sym: bool = True, col_scale=None):
+    """Softmax attention over [B, N, H, D] -> [B, N, H, D] (q's dtype), or
+    with emit=True (int8 codes [B, N, H*D], scales [B, N, 1] f32).
+
+    seg_len > 0: block-diagonal attention in segments of seg_len tokens
+    (k/v co-indexed with q). kv_mask [B, M] (1 = attend) masks kv tokens.
+    int8_pv: round(e*127) softmax codes times per-channel int8 v, dequant
+    folded into the output; v is grouped per `v_block` tokens in seg mode
+    (default `seg_v_block(N, seg_len)`) and over the whole kv axis
+    otherwise."""
+    if int8_qk:
+        raise NotImplementedError("int8_qk is not ported")
+    if not emit_sym:
+        raise NotImplementedError("asymmetric emission is not ported")
+    if col_scale is not None:
+        raise NotImplementedError("emission col_scale is not ported")
+    B, N, H, D = q.shape
+    M = k.shape[1]
+    C = H * D
+    require(seg_len == 0 or (M == N and N % seg_len == 0),
+            "seg mode needs k/v co-indexed with q and N % seg_len == 0")
+    require(seg_len == 0 or kv_mask is None, "seg mode takes no kv_mask")
+    if seg_len > 0 and int8_pv:
+        v_block = seg_v_block(N, seg_len) if v_block is None else v_block
+        require(v_block % seg_len == 0 and N % v_block == 0,
+                f"v_block {v_block} must hold whole segments and divide N")
+    if not on_cuda(q, k, v, kv_mask):
+        return attention_bnhd_plain(q, k, v, scale, seg_len, kv_mask,
+                                    int8_pv, v_block, emit)
+    require(q.dtype == k.dtype == v.dtype == torch.bfloat16,
+            "the CUDA attention kernel takes bfloat16 q/k/v")
+    require(D in KERNEL_HEAD_DIMS, f"head dim {D} not in {KERNEL_HEAD_DIMS}")
+    # the int8 PV sums integer products on the bf16 tensor cores in f32,
+    # exact while a row's kv range stays within 2^24 / 127^2 tokens
+    require(not int8_pv or (M if seg_len == 0 else 64 + 2 * seg_len)
+            <= INT8_PV_MAX_KV, f"int8 PV kv range above {INT8_PV_MAX_KV}")
+    q3 = q.reshape(B, N, C).contiguous()
+    k3 = k.reshape(B, M, C).contiguous()
+    v3 = v.reshape(B, M, C).contiguous()
+    lib = _build.lib()
+    stream = _build.stream_ptr(q)
+    vs = None
+    vgroup, n_vgroups = M, 1
+    v_arg = v3
+    if int8_pv:
+        if seg_len > 0:
+            vgroup, n_vgroups = v_block, N // v_block
+        v_arg = torch.empty((B, M, C), dtype=torch.int8, device=q.device)
+        vs = torch.empty((B, n_vgroups, C), dtype=torch.float32,
+                         device=q.device)
+        _build.check(lib.vq_attn_vquant(
+            v3.data_ptr(), v_arg.data_ptr(), vs.data_ptr(), B, M, C, vgroup,
+            stream), "vq_attn_vquant")
+    mask = None
+    if kv_mask is not None:
+        mask = kv_mask.to(torch.int32).reshape(B, M).contiguous()
+    out = torch.empty((B, N, C), dtype=torch.float32 if emit else q.dtype,
+                      device=q.device)
+    _build.check(lib.vq_attention(
+        q3.data_ptr(), k3.data_ptr(), v_arg.data_ptr(),
+        None if vs is None else vs.data_ptr(), vgroup, n_vgroups,
+        None if mask is None else mask.data_ptr(), out.data_ptr(), int(emit),
+        B, N, M, H, D, seg_len, float(scale * LOG2E), int(int8_pv), stream),
+        "vq_attention")
+    COUNTERS["attention_bnhd"].launches += 1
+    if not emit:
+        return out.reshape(B, N, H, D)
+    codes = torch.empty((B, N, C), dtype=torch.int8, device=q.device)
+    scales = torch.empty((B, N, 1), dtype=torch.float32, device=q.device)
+    _build.check(lib.vq_attn_row_quant(
+        out.data_ptr(), codes.data_ptr(), scales.data_ptr(), B * N, C,
+        stream), "vq_attn_row_quant")
+    return codes, scales
+
+
+# ---------------------------------------------------------------------------
+# oracles (attention.py:409-478)
+# ---------------------------------------------------------------------------
+
+def attention_bnhd_xla(q, k, v, scale: float, seg_len: int = 0,
+                       kv_mask: Optional[torch.Tensor] = None):
+    """Reference attention with an f32 softmax (no bf16 score casts)."""
+    B, N, H, D = q.shape
+    if seg_len > 0:
+        G = N // seg_len
+        qs = q.reshape(B, G, seg_len, H, D)
+        ks = k.reshape(B, G, seg_len, H, D)
+        vs = v.reshape(B, G, seg_len, H, D)
+        attn = torch.einsum("bgnhd,bgmhd->bghnm", (qs * scale).float(),
+                            ks.float())
+        attn = torch.softmax(attn, dim=-1).to(q.dtype)
+        out = torch.einsum("bghnm,bgmhd->bgnhd", attn, vs)
+        return out.reshape(B, N, H, D)
+    attn = torch.einsum("bnhd,bmhd->bhnm", (q * scale).float(), k.float())
+    if kv_mask is not None:
+        attn = attn + torch.where(kv_mask[:, None, None, :] != 0, 0.0,
+                                  float("-inf"))
+    attn = torch.softmax(attn, dim=-1).to(q.dtype)
+    return torch.einsum("bhnm,bmhd->bnhd", attn, v)
+
+
+def attention_bnhd_xla_quant(q, k, v, scale: float, seg_len: int = 0,
+                             kv_mask: Optional[torch.Tensor] = None,
+                             int8_pv: bool = False,
+                             v_block: Optional[int] = None):
+    """Oracle of the int8-PV math (round(e*127) codes, per-channel v over
+    v_block-token groups). int8_qk is not ported."""
+    if not int8_pv:
+        return attention_bnhd_xla(q, k, v, scale, seg_len, kv_mask)
+    B, N, H, D = q.shape
+    qh = q.permute(0, 2, 1, 3).float()
+    kh = k.permute(0, 2, 1, 3).float()
+    vh = v.permute(0, 2, 1, 3).float()
+    s = torch.einsum("bhnd,bhmd->bhnm", qh * scale, kh)
+    if kv_mask is not None:
+        s = s + torch.where(kv_mask[:, None, None, :] != 0, 0.0,
+                            float("-inf"))
+    if seg_len > 0:
+        ri = torch.arange(s.shape[2]) // seg_len
+        ci = torch.arange(s.shape[3]) // seg_len
+        s = torch.where(ri[:, None] == ci[None, :], s, float("-inf"))
+    e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    r = e.sum(dim=-1, keepdim=True)
+    pq = torch.round(e * 127.0)
+    M = vh.shape[2]
+    vb = M if v_block is None else v_block
+    vg = vh.reshape(B, H, M // vb, vb, D)
+    vqs = torch.clamp(vg.abs().amax(dim=3, keepdim=True), min=1e-6)
+    vq = (torch.round(vg * rdiv(127.0, vqs)) * (vqs / 127.0)).reshape(vh.shape)
+    o = torch.einsum("bhnm,bhmd->bhnd", pq, vq)
+    o = o * rdiv(1.0 / 127.0, r)
+    return o.permute(0, 2, 1, 3).to(q.dtype)

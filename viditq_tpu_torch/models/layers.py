@@ -1,0 +1,381 @@
+"""DiT layers on the STDiT path (port of `viditq_tpu/models/layers.py`).
+
+Linear layers that a plan may quantize are `QuantLinear`s built with the
+spec their dotted name resolves to, exactly as in the JAX package, so the
+same plan files and layer lists apply. The attention layers keep the
+layout-native dataflow of the JAX kernel path: q/k/v stay [B, N, H, D] and
+go to `attention_bnhd` (K3); under a fused plan the input quantize runs
+once in a producer (K1 or K4) and the attention emits int8 for its proj
+(K2). The port has this one dataflow; the JAX package's CPU fallbacks and
+the TPU-only shape gates have no counterpart.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from viditq_tpu_torch.kernels.attention import attention_bnhd, seg_v_block
+from viditq_tpu_torch.kernels.fused_matmul import (emission_block_n,
+                                                   ln_modulate_quantize)
+from viditq_tpu_torch.quant.qlinear import (Prequant, QuantCtx, QuantLinear,
+                                            is_fused_dynamic,
+                                            shared_prequant)
+from viditq_tpu_torch.quant.spec import LayerQuantSpec
+
+Resolver = Callable[[str], Optional[LayerQuantSpec]]
+
+
+def no_quant(name: str) -> Optional[LayerQuantSpec]:
+    return None
+
+
+def t2i_modulate(x, shift, scale):
+    """blocks.py:51."""
+    return x * (1 + scale) + shift
+
+
+def layer_norm(x: torch.Tensor, dtype, eps: float = 1e-6) -> torch.Tensor:
+    """Non-affine LayerNorm in f32, cast to dtype (layers.py:43-54)."""
+    xf = x.float()
+    mean = xf.mean(dim=-1, keepdim=True)
+    var = xf.var(dim=-1, unbiased=False, keepdim=True)
+    return ((xf - mean) * torch.rsqrt(var + eps)).to(dtype)
+
+
+def approx_gelu(x: torch.Tensor) -> torch.Tensor:
+    """tanh-GELU as flax computes it, in x's dtype."""
+    cdf = 0.5 * (1.0 + torch.tanh(0.7978845608028654
+                                  * (x + 0.044715 * (x * x * x))))
+    return x * cdf
+
+
+def attn_quant_exec_flags(spec, qctx):
+    """(int8_qk, int8_pv, kernel_ok) for one attention site's internal
+    quantizers (layers.py:280-307)."""
+    int8_qk = int8_pv = False
+    ok = True
+    if qctx is None or qctx.mode != "quant" or spec is None:
+        return int8_qk, int8_pv, ok
+    sm = spec.softmax
+    aa = spec.attn_act
+    if sm is not None:
+        if (spec.impl == "fused" and sm.n_bits == 8
+                and sm.always_zero and sm.dynamic):
+            int8_pv = True
+        else:
+            ok = False
+    if aa is not None:
+        if (spec.impl == "fused" and aa.n_bits == 8
+                and aa.dynamic and aa.sym and int8_pv):
+            int8_qk = True
+        else:
+            ok = False
+    return int8_qk, int8_pv, ok
+
+
+def _exec_flags(spec, qctx):
+    int8_qk, int8_pv, ok = attn_quant_exec_flags(spec, qctx)
+    if not ok:
+        raise NotImplementedError(
+            "this attention quantizer combination runs only as fake quant "
+            "in the JAX package, which is not ported")
+    return int8_qk, int8_pv
+
+
+def ln_mod_prequant(resolver: Resolver, prefix: str, inp, shift, scale,
+                    spec_names, qctx) -> Optional[Prequant]:
+    """Fused LN + adaLN modulate + row quantize producer (layers.py:310-359):
+    one K1 pass emits the int8 codes every consumer linear of `spec_names`
+    takes. None when the consumers are not one fused-dynamic spec."""
+    specs = [resolver(f"{prefix}.{n}") for n in spec_names]
+    s0 = specs[0]
+    if (s0 is None or any(s != s0 for s in specs)
+            or s0.backend != "native" or s0.impl != "fused"
+            or s0.act is None or not s0.act.dynamic
+            or not s0.act_quant or not s0.weight_quant):
+        return None
+    if s0.smooth_quant.enable:
+        raise NotImplementedError("smooth-quant producer fold")
+    if qctx is None or qctx.mode != "quant":
+        return None
+    q, s = ln_modulate_quantize(inp, shift, scale, sym=s0.act.sym)
+    return Prequant(q, s)
+
+
+def attn_emit_int8_ok(pspec, qctx) -> bool:
+    """Whether the attention emits its output int8 for the proj linear
+    (layers.py:362-384, without the TPU device check)."""
+    return not (qctx is None or qctx.mode != "quant"
+                or pspec is None or pspec.backend != "native"
+                or pspec.impl != "fused" or pspec.act is None
+                or not pspec.act.dynamic
+                or pspec.act.n_bits != 8 or pspec.weight is None
+                or not pspec.act_quant or not pspec.weight_quant
+                or pspec.smooth_quant.enable or pspec.split)
+
+
+class Mlp(nn.Module):
+    """fc1 -> tanh-GELU -> fc2 (layers.py:76-168). Under a fused sym plan
+    with a producer prequant, fc1's epilogue applies the GELU and emits
+    int8 codes with group-wise scales that fc2 consumes (K2 emit, K2 gw_x)."""
+
+    def __init__(self, in_features: int, hidden_features: int,
+                 resolver: Resolver = no_quant, prefix: str = "",
+                 dtype=torch.bfloat16):
+        super().__init__()
+        self.hidden_features = hidden_features
+        self.spec1 = resolver(f"{prefix}.fc1")
+        self.spec2 = resolver(f"{prefix}.fc2")
+        self.fc1 = QuantLinear(in_features, hidden_features, self.spec1,
+                               dtype=dtype)
+        self.fc2 = QuantLinear(hidden_features, in_features, self.spec2,
+                               dtype=dtype)
+
+    def forward(self, x, qctx: Optional[QuantCtx] = None, prequant=None):
+        spec1, spec2 = self.spec1, self.spec2
+        fused2 = (is_fused_dynamic(spec2) and qctx is not None
+                  and qctx.mode == "quant")
+        if fused2:
+            emit1 = (prequant is not None and spec2.act.sym
+                     and spec2.weight.sym and is_fused_dynamic(spec1)
+                     and not spec1.split and spec1.act.n_bits == 8
+                     and emission_block_n(self.hidden_features) > 0)
+            if not emit1:
+                raise NotImplementedError(
+                    "the fc1 -> fc2 handoff without fc1 emission needs "
+                    "K4's gelu mode, which is not ported")
+            pre = self.fc1(None, qctx, prequant=prequant,
+                           emit={"gelu": True})
+            return self.fc2(None, qctx, prequant=pre)
+        x = approx_gelu(self.fc1(x, qctx, prequant=prequant))
+        return self.fc2(x, qctx)
+
+
+class SelfAttention(nn.Module):
+    """Separate-q/k/v multi-head self-attention (layers.py:387-576, the
+    layout-native branch). seg_len > 0: block-diagonal attention in
+    segments of seg_len tokens (STDiT temporal attention)."""
+
+    def __init__(self, dim: int, num_heads: int, resolver: Resolver = no_quant,
+                 prefix: str = "", dtype=torch.bfloat16, seg_len: int = 0):
+        super().__init__()
+        self.num_heads = num_heads
+        self.seg_len = seg_len
+        self.specs = [resolver(f"{prefix}.{n}") for n in ("q", "k", "v")]
+        self.pspec = resolver(f"{prefix}.proj")
+        self.q = QuantLinear(dim, dim, self.specs[0], dtype=dtype)
+        self.k = QuantLinear(dim, dim, self.specs[1], dtype=dtype)
+        self.v = QuantLinear(dim, dim, self.specs[2], dtype=dtype)
+        self.proj = QuantLinear(dim, dim, self.pspec, dtype=dtype)
+
+    def forward(self, x, qctx: Optional[QuantCtx] = None,
+                prequant: Optional[Prequant] = None, shape=None):
+        """x [B, N, C]; with a producer `prequant` x may be None and
+        `shape` gives (B, N, C)."""
+        B, N, C = x.shape if x is not None else shape
+        H = self.num_heads
+        D = C // H
+        pre = prequant
+        if (pre is None and all(s == self.specs[0] for s in self.specs)
+                and qctx is not None and qctx.mode == "quant"):
+            pre = shared_prequant(x, self.specs[0])
+        q = self.q(x, qctx, prequant=pre).reshape(B, N, H, D)
+        k = self.k(x, qctx, prequant=pre).reshape(B, N, H, D)
+        v = self.v(x, qctx, prequant=pre).reshape(B, N, H, D)
+        int8_qk, int8_pv = _exec_flags(self.specs[0], qctx)
+        v_block = (seg_v_block(N, self.seg_len)
+                   if int8_pv and self.seg_len > 0 else None)
+        if attn_emit_int8_ok(self.pspec, qctx):
+            codes, xs = attention_bnhd(
+                q, k, v, scale=D ** -0.5, seg_len=self.seg_len,
+                int8_qk=int8_qk, int8_pv=int8_pv, v_block=v_block, emit=True,
+                emit_sym=self.pspec.act.sym)
+            out = self.proj(None, qctx, prequant=Prequant(
+                codes.reshape(-1, C), xs.reshape(-1, 1)))
+            return out.reshape(B, N, C)
+        out = attention_bnhd(q, k, v, scale=D ** -0.5, seg_len=self.seg_len,
+                             int8_qk=int8_qk, int8_pv=int8_pv,
+                             v_block=v_block)
+        return self.proj(out.reshape(B, N, C), qctx)
+
+
+class CrossAttention(nn.Module):
+    """Multi-head cross-attention to 0-masked prompt tokens
+    (layers.py:656-740, the layout-native branch)."""
+
+    def __init__(self, dim: int, num_heads: int, resolver: Resolver = no_quant,
+                 prefix: str = "", dtype=torch.bfloat16):
+        super().__init__()
+        self.num_heads = num_heads
+        self.qspec = resolver(f"{prefix}.q_linear")
+        self.pspec = resolver(f"{prefix}.proj")
+        self.q_linear = QuantLinear(dim, dim, self.qspec, dtype=dtype)
+        self.kv_linear = QuantLinear(dim, 2 * dim,
+                                     resolver(f"{prefix}.kv_linear"),
+                                     dtype=dtype)
+        self.proj = QuantLinear(dim, dim, self.pspec, dtype=dtype)
+
+    def forward(self, x, cond, mask=None, qctx: Optional[QuantCtx] = None):
+        B, N, C = x.shape
+        P = cond.shape[-2]
+        H, D = self.num_heads, C // self.num_heads
+        q = self.q_linear(x, qctx)
+        kv = self.kv_linear(cond, qctx)
+        k, v = torch.split(kv, C, dim=-1)
+        kv_mask = (mask.to(torch.int32) if mask is not None
+                   else torch.ones((B, P), dtype=torch.int32,
+                                   device=x.device))
+        int8_qk, int8_pv = _exec_flags(self.qspec, qctx)
+        args = (q.reshape(B, N, H, D), k.reshape(B, P, H, D),
+                v.reshape(B, P, H, D))
+        if attn_emit_int8_ok(self.pspec, qctx):
+            codes, xs = attention_bnhd(
+                *args, scale=D ** -0.5, kv_mask=kv_mask, int8_qk=int8_qk,
+                int8_pv=int8_pv, emit=True, emit_sym=self.pspec.act.sym)
+            out = self.proj(None, qctx, prequant=Prequant(
+                codes.reshape(-1, C), xs.reshape(-1, 1)))
+            return out.reshape(B, N, C)
+        out = attention_bnhd(*args, scale=D ** -0.5, kv_mask=kv_mask,
+                             int8_qk=int8_qk, int8_pv=int8_pv)
+        return self.proj(out.reshape(B, N, C), qctx)
+
+
+# ---------------- embedders ----------------
+
+def timestep_embedding(t: torch.Tensor, dim: int, max_period: int = 10000
+                       ) -> torch.Tensor:
+    """Sinusoidal embedding, cos-first (blocks.py:419-437)."""
+    half = dim // 2
+    freqs = torch.exp(-math.log(max_period)
+                      * torch.arange(half, dtype=torch.float32,
+                                     device=t.device) / half)
+    args = t.float()[:, None] * freqs[None]
+    emb = torch.cat([torch.cos(args), torch.sin(args)], dim=-1)
+    if dim % 2:
+        emb = torch.cat([emb, torch.zeros_like(emb[:, :1])], dim=-1)
+    return emb
+
+
+class TimestepEmbedder(nn.Module):
+    """blocks.py:405-444 (fp: remain_fp.txt lists t_embedder)."""
+
+    def __init__(self, hidden_size: int, freq_size: int = 256,
+                 dtype=torch.bfloat16):
+        super().__init__()
+        self.freq_size = freq_size
+        self.dtype = dtype
+        self.fc1 = QuantLinear(freq_size, hidden_size, dtype=dtype)
+        self.fc2 = QuantLinear(hidden_size, hidden_size, dtype=dtype)
+
+    def forward(self, t):
+        emb = timestep_embedding(t, self.freq_size).to(self.dtype)
+        return self.fc2(F.silu(self.fc1(emb)))
+
+
+class TBlock(nn.Module):
+    """SiLU -> Linear(6*hidden) adaLN-single table head (stdit.py:189)."""
+
+    def __init__(self, hidden_size: int, dtype=torch.bfloat16):
+        super().__init__()
+        self.linear = QuantLinear(hidden_size, 6 * hidden_size, dtype=dtype)
+
+    def forward(self, t):
+        return self.linear(F.silu(t))
+
+
+class CaptionEmbedder(nn.Module):
+    """blocks.py:511-542; `y_embedding` is the learned null prompt."""
+
+    def __init__(self, in_channels: int, hidden_size: int,
+                 token_num: int = 120, dtype=torch.bfloat16):
+        super().__init__()
+        self.dtype = dtype
+        self.y_embedding = nn.Parameter(torch.zeros(token_num, in_channels))
+        self.fc1 = QuantLinear(in_channels, hidden_size, dtype=dtype)
+        self.fc2 = QuantLinear(hidden_size, hidden_size, dtype=dtype)
+
+    def forward(self, caption):
+        return self.fc2(approx_gelu(self.fc1(caption.to(self.dtype))))
+
+
+class PatchEmbed3D(nn.Module):
+    """3D patchify conv (blocks.py:60-110) as a reshape plus a linear layer:
+    the stride equals the kernel, so each patch is one row of
+    pt*ph*pw*C_in values in the conv kernel's (*k, C_in) flatten order — the
+    JAX package's QuantConv lowering (qlinear.py:895-910). `proj.kernel`:
+    [pt*ph*pw*C_in, embed_dim]."""
+
+    def __init__(self, patch_size, in_channels: int, embed_dim: int,
+                 resolver: Resolver = no_quant, prefix: str = "x_embedder",
+                 dtype=torch.bfloat16):
+        super().__init__()
+        self.patch_size = tuple(patch_size)
+        self.proj = QuantLinear(int(np.prod(patch_size)) * in_channels,
+                                embed_dim, resolver(f"{prefix}.proj"),
+                                dtype=dtype)
+
+    def forward(self, x, qctx: Optional[QuantCtx] = None):
+        # x: [B, C, T, H, W] -> [B, t*h*w, D]
+        B, C, T, Hh, W = x.shape
+        pt, ph, pw = self.patch_size
+        x = x.reshape(B, C, T // pt, pt, Hh // ph, ph, W // pw, pw)
+        x = x.permute(0, 2, 4, 6, 3, 5, 7, 1).reshape(
+            B, (T // pt) * (Hh // ph) * (W // pw), pt * ph * pw * C)
+        return self.proj(x, qctx)
+
+
+class T2IFinalLayer(nn.Module):
+    """blocks.py:381-397 (scale_shift_table variant)."""
+
+    def __init__(self, hidden_size: int, num_patch: int, out_channels: int,
+                 resolver: Resolver = no_quant, prefix: str = "final_layer",
+                 dtype=torch.bfloat16):
+        super().__init__()
+        self.dtype = dtype
+        self.scale_shift_table = nn.Parameter(torch.zeros(2, hidden_size))
+        self.linear = QuantLinear(hidden_size, num_patch * out_channels,
+                                  resolver(f"{prefix}.linear"), dtype=dtype)
+
+    def forward(self, x, t, qctx: Optional[QuantCtx] = None):
+        mods = (self.scale_shift_table[None].to(self.dtype)
+                + t[:, None].to(self.dtype))
+        shift, scale = mods[:, 0:1], mods[:, 1:2]
+        x = t2i_modulate(layer_norm(x, self.dtype), shift, scale)
+        return self.linear(x, qctx)
+
+
+# ---------------- sincos position embeddings (numpy, static) ----------------
+
+def get_1d_sincos_pos_embed(embed_dim, length, scale=1.0):
+    pos = np.arange(0, length)[..., None] / scale
+    return _sincos_from_grid(embed_dim, pos)
+
+
+def _sincos_from_grid(embed_dim, pos):
+    omega = np.arange(embed_dim // 2, dtype=np.float64)
+    omega /= embed_dim / 2.0
+    omega = 1.0 / 10000 ** omega
+    out = np.einsum("m,d->md", pos.reshape(-1), omega)
+    return np.concatenate([np.sin(out), np.cos(out)], axis=1)
+
+
+def get_2d_sincos_pos_embed(embed_dim, grid_size, scale=1.0, base_size=None):
+    """blocks.py:551-583 — note w-first meshgrid."""
+    if not isinstance(grid_size, tuple):
+        grid_size = (grid_size, grid_size)
+    grid_h = np.arange(grid_size[0], dtype=np.float32) / scale
+    grid_w = np.arange(grid_size[1], dtype=np.float32) / scale
+    if base_size is not None:
+        grid_h *= base_size / grid_size[0]
+        grid_w *= base_size / grid_size[1]
+    grid = np.meshgrid(grid_w, grid_h)
+    grid = np.stack(grid, axis=0).reshape([2, 1, grid_size[1], grid_size[0]])
+    emb_h = _sincos_from_grid(embed_dim // 2, grid[0])
+    emb_w = _sincos_from_grid(embed_dim // 2, grid[1])
+    return np.concatenate([emb_h, emb_w], axis=1)

@@ -1,0 +1,170 @@
+"""Quantization-aware linear layer (port of `viditq_tpu/quant/qlinear.py`).
+
+`QuantLinear` holds its fp kernel in the JAX layout [K, N] and, for a layer
+the plan quantizes, the calibrated tables as buffers: `w_delta`/`w_zp`
+[n_bitwidth, n_timerange, 1, N] and the packed `w_int` [n_timerange, K, N]
+int8 slab with `w_colsum` [n_timerange, 1, N] (qlinear.py:412-421,
+584-591). It runs two paths:
+
+  * fp (no spec, an fp-listed layer, `qctx is None` or mode 'fp'):
+    `x @ kernel + bias` in the model dtype;
+  * native fused (mode 'quant'): symmetric dynamic per-token int8 acts x
+    per-channel int8 weights through the fused kernels — with a
+    `Prequant` input from a producer kernel, the int8 consumer matmul (K2,
+    optionally emitting int8 for the next layer); otherwise the
+    quantize-in matmul (K5).
+
+Other backends (simulate fake quant, weight-only, static acts) and
+smooth-quant are not ported and raise NotImplementedError at construction.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple, Optional
+
+import torch
+from torch import nn
+
+from viditq_tpu_torch.kernels.fused_matmul import (fused_dynq_int8_matmul,
+                                                   int8_consumer_matmul,
+                                                   quantize_rows)
+from viditq_tpu_torch.quant.spec import LayerQuantSpec
+
+MODES = ("fp", "quant")
+
+
+@dataclasses.dataclass(frozen=True)
+class QuantCtx:
+    """Per-call quantization context (qlinear.py:47-76): the diffusion
+    timestep and the execution mode. Calibration and capture modes and the
+    static-act table slot are not ported."""
+
+    t_id: int = 0
+    mode: str = "quant"
+
+    def __post_init__(self):
+        if self.mode not in MODES:
+            raise NotImplementedError(f"QuantCtx mode {self.mode!r}")
+
+
+class Prequant(NamedTuple):
+    """An input quantized once by a producer kernel: int8 codes [M, K] and
+    float32 scales, one per row ([M, 1]) or, from K2's emission, one per
+    row and k-group ([M, G], group_wise=True)."""
+
+    codes: torch.Tensor
+    scale: torch.Tensor
+    group_wise: bool = False
+
+
+def is_quantized(lspec: Optional[LayerQuantSpec]) -> bool:
+    return lspec is not None and (lspec.weight_quant or lspec.act_quant
+                                  or lspec.smooth_quant.enable)
+
+
+def is_fused_dynamic(lspec: Optional[LayerQuantSpec]) -> bool:
+    """The fused-native dynamic-act dataflow (qlinear.py:387-388 with
+    impl 'fused')."""
+    return (lspec is not None and lspec.backend == "native"
+            and lspec.impl == "fused" and lspec.act is not None
+            and lspec.act.dynamic and lspec.act_quant
+            and lspec.weight is not None and lspec.weight_quant)
+
+
+def _check_ported(lspec: LayerQuantSpec) -> None:
+    if lspec.smooth_quant.enable:
+        raise NotImplementedError("smooth-quant channel balancing")
+    if lspec.split:
+        raise NotImplementedError("q-diffusion channel split")
+    if not is_fused_dynamic(lspec):
+        raise NotImplementedError(
+            f"only the fused native dynamic-act path is ported "
+            f"(backend={lspec.backend!r}, impl={lspec.impl!r})")
+    if lspec.act.n_bits != 8:
+        raise ValueError(
+            f"native dynamic-act backend requires 8-bit acts, got "
+            f"{lspec.act.n_bits}")
+
+
+def shared_prequant(x: torch.Tensor, lspec: Optional[LayerQuantSpec],
+                    col_scale: Optional[torch.Tensor] = None
+                    ) -> Optional[Prequant]:
+    """Quantize an input ONCE for sibling native linears (q/k/v share their
+    input; qlinear.py:79-110) with K4. None when the spec is not
+    representable as one shared pass."""
+    if (lspec is None or lspec.backend != "native" or lspec.act is None
+            or not lspec.act.dynamic or not lspec.act_quant
+            or not lspec.weight_quant
+            or (lspec.smooth_quant.enable and col_scale is None)):
+        return None
+    _check_ported(lspec)
+    q, s = quantize_rows(x.reshape(-1, x.shape[-1]), sym=lspec.act.sym,
+                         col_scale=col_scale)
+    return Prequant(q, s)
+
+
+class QuantLinear(nn.Module):
+    """Dense layer [K] -> [features] with the native int8 path."""
+
+    def __init__(self, in_features: int, features: int,
+                 lspec: Optional[LayerQuantSpec] = None,
+                 use_bias: bool = True, dtype=torch.bfloat16):
+        super().__init__()
+        self.in_features = in_features
+        self.features = features
+        self.lspec = lspec
+        self.dtype = dtype
+        self.kernel = nn.Parameter(torch.zeros(in_features, features))
+        self.bias = (nn.Parameter(torch.zeros(features)) if use_bias
+                     else None)
+        self.native = is_quantized(lspec)
+        if self.native:
+            _check_ported(lspec)
+            n_bw = lspec.weight.n_bitwidth
+            wshape = (n_bw, 1, 1, features)
+            self.register_buffer("w_delta", torch.full(wshape, -1.0))
+            self.register_buffer("w_zp", torch.full(wshape, -1.0))
+            self.register_buffer(
+                "w_int", torch.zeros((1, in_features, features),
+                                     dtype=torch.int8))
+            self.register_buffer("w_colsum", torch.zeros((1, 1, features)))
+
+    def dense(self, x: torch.Tensor) -> torch.Tensor:
+        y = torch.matmul(x.to(self.dtype), self.kernel.to(self.dtype))
+        if self.bias is not None:
+            y = y + self.bias.to(self.dtype)
+        return y
+
+    def forward(self, x: Optional[torch.Tensor],
+                qctx: Optional[QuantCtx] = None,
+                prequant: Optional[Prequant] = None,
+                emit: Optional[dict] = None):
+        """x [..., K]. `prequant`: the input already quantized by a producer
+        (x may then be None; the output is [M, features]). `emit`:
+        {'gelu': bool} — return the output as a group-wise `Prequant` for
+        the next linear instead (K2's int8-emitting epilogue)."""
+        quant = self.native and qctx is not None and qctx.mode == "quant"
+        if emit is not None and not (quant and prequant is not None):
+            raise ValueError(
+                "emit requires the fused-native consumer path in quant mode")
+        if not quant:
+            return self.dense(x)
+        w_q = self.w_int[0]
+        w_scale = self.w_delta[self.lspec.weight.bit_idx, 0].reshape(1, -1)
+        if prequant is not None:
+            if emit is not None:
+                codes, scales = int8_consumer_matmul(
+                    prequant.codes, prequant.scale, w_q, w_scale, self.bias,
+                    out_dtype=self.dtype, group_scales=prequant.group_wise,
+                    emit=emit)
+                return Prequant(codes, scales, group_wise=True)
+            out = int8_consumer_matmul(
+                prequant.codes, prequant.scale, w_q, w_scale, self.bias,
+                out_dtype=self.dtype, group_scales=prequant.group_wise)
+            return out if x is None else out.reshape(*x.shape[:-1], -1)
+        out = fused_dynq_int8_matmul(
+            x.reshape(-1, self.in_features), w_q, w_scale, self.bias,
+            out_dtype=self.dtype, sym=self.lspec.act.sym,
+            sym_w=self.lspec.weight.sym)
+        return out.reshape(*x.shape[:-1], self.features)
