@@ -1,0 +1,118 @@
+#!/usr/bin/env python3
+"""Where the time of one denoise step goes, per slice and arm, on one
+NVIDIA H100.
+
+Run from the root of a checkout on a machine with one card:
+
+    python3 chip_profile.py
+
+For each slice of `chip_smoke.py` (STDiT-XL/2 16x512x512 and PixArt-Σ
+1024, full width, random weights, sm8 tables) and each arm (bf16, sm8) it
+runs one warm-up CFG forward at batch 2, then one more under
+`torch.profiler`, and prints the host wall time, the device time (the sum
+of CUDA kernel time), the device's idle share (1 - device / wall) and the
+device time by kernel group and by kernel. Needs CUDA; builds the kernels
+as `chip_smoke.py` does.
+"""
+
+from __future__ import annotations
+
+import sys
+import time
+from collections import defaultdict
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+
+# kernel-name fragments -> group (first match wins)
+GROUPS = (
+    ("attn_stream_kernel", "K6 attention (stream)"),
+    ("attn_kernel", "K3 attention (one-shot)"),
+    ("vquant_kernel", "K3/K6 v quantize"),
+    ("row_quant_kernel", "K3 emission row quantize"),
+    ("int8_gemm", "K2 int8 GEMM"),
+    ("group_quant", "K2 emission group quantize"),
+    ("ln_mod_quant", "K1 LN+modulate+quantize"),
+    ("quant_rows", "K4 row quantize"),
+    ("flash", "SDPA (KV-compressed attention)"),
+    ("fmha", "SDPA (KV-compressed attention)"),
+    ("nvjet", "cuBLAS GEMM"),
+    ("gemm", "cuBLAS GEMM"),
+    ("xmma", "cuBLAS GEMM"),
+    ("cutlass", "cuBLAS GEMM"),
+)
+
+
+def group_of(name: str) -> str:
+    low = name.lower()
+    for frag, grp in GROUPS:
+        if frag in low:
+            return grp
+    return "PyTorch elementwise / other"
+
+
+def profile_forward(model, args, qctx):
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with torch.no_grad():
+        model(*args, qctx=qctx)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.time()
+            model(*args, qctx=qctx)
+            torch.cuda.synchronize()
+            wall = (time.time() - t0) * 1e3
+    by_kernel = defaultdict(float)
+    for ev in prof.key_averages():
+        if ev.device_type.name == "CUDA" and ev.self_device_time_total > 0:
+            by_kernel[ev.key] += ev.self_device_time_total / 1e3  # us -> ms
+    return wall, by_kernel
+
+
+def main() -> int:
+    import numpy as np
+    import torch
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_profile: CUDA is not available")
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke as cs
+    from viditq_tpu_torch.kernels import _build
+    from viditq_tpu_torch.quant.qlinear import QuantCtx
+    from viditq_tpu_torch.utils.workload import latent_size
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(cs.nvidia_smi_line(), flush=True)
+    _build.lib()
+    for name, cfg, n_prompt in (("stdit", cs.STDIT_CFG, 120),
+                                ("sigma", cs.SIGMA_CFG, 300)):
+        model = cs.build_model(cfg, "cuda")
+        latent = latent_size(cfg)
+        rng = np.random.default_rng(0)
+        x = torch.tensor(rng.standard_normal((2, 4, *latent)),
+                         dtype=torch.bfloat16, device="cuda")
+        t = torch.tensor([500.0, 500.0], device="cuda")
+        y = torch.tensor(rng.standard_normal((2, 1, n_prompt, 4096)) * 0.1,
+                         dtype=torch.bfloat16, device="cuda")
+        mask = torch.ones((1, n_prompt), dtype=torch.int32, device="cuda")
+        for arm, qctx in (("bf16", None), ("sm8", QuantCtx(mode="quant"))):
+            wall, by_kernel = profile_forward(model, (x, t, y, mask), qctx)
+            device = sum(by_kernel.values())
+            groups = defaultdict(float)
+            for k, ms in by_kernel.items():
+                groups[group_of(k)] += ms
+            print(f"{name} {arm}: one CFG forward, wall {wall:.1f} ms, "
+                  f"device {device:.1f} ms, idle share "
+                  f"{max(0.0, 1 - device / wall):.3f}", flush=True)
+            for grp, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
+                print(f"    {ms:9.2f} ms  {grp}")
+            print("  top kernels:")
+            for k, ms in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]:
+                print(f"    {ms:9.2f} ms  {k[:110]}")
+        del model
+        torch.cuda.empty_cache()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -7,19 +7,28 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
 
 Phases (any failure exits non-zero):
   1. device: require CUDA; print the card's name and power limit;
-  2. build: compile every CUDA kernel from `viditq_tpu_torch/csrc`;
+  2. build: compile every CUDA kernel from `viditq_tpu_torch/csrc` (one
+     nvcc per source, in parallel);
   3. kernels: each kernel against its plain PyTorch version at the
-     STDiT-XL/2 main-path shapes (16x512x512 video, CFG batch 2), with
-     code mismatch, max code difference, relative error and the median
-     time of both, from CUDA events;
-  4. reference: a tiny sm8 model on the card (kernels) against the same
-     model on the CPU (plain versions);
+     main-path shapes of both slices (STDiT-XL/2 16x512x512 video and
+     PixArt-Σ 1024x1024, CFG batch 2), with code mismatch, max code
+     difference, relative error, the median time of both from CUDA
+     events, the least time the card could take (bound) and, where one
+     PyTorch call computes the same function, that call's time;
+  4. reference: tiny sm8 STDiT and PixArt-Σ models on the card (kernels)
+     against the same models on the CPU (plain versions);
   5. slice: full-width STDiT-XL/2 (28 blocks, C=1152, random weights from
      a seed), bf16 and W8A8-sm8 arms over the whole 20-step CFG DDIM
      schedule, with ms/step, peak memory, sm8-vs-bf16 error and the launch
-     count of every kernel.
-The second-to-last line is a JSON object with one entry per kernel; the
-last line is {"ok": true, "device": {...}}.
+     count of every kernel;
+  6. slice_sigma: full-width PixArt-Σ 1024 (28 blocks, C=1152, KV
+     compression x2 on blocks 14-27, caption 300x4096), bf16 and sm8 arms
+     over the whole 20-step DPM-Solver++ CFG schedule, built through
+     `utils/workload`, with the same readings.
+Each slice resets the launch counts just before its run and reads them
+just after. The third-to-last line is the card's name and power limit, the
+second-to-last a JSON object with one entry per kernel (launches summed
+over both slices), the last {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -34,7 +43,25 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 SM8_PLAN = ROOT / "configs/opensora/w8a8_tpu_fused_sm8.yaml"
-STEPS = 20  # DDIM steps per arm (bench.py's n_steps): the whole schedule
+STEPS = 20  # sampler steps per arm (bench.py's n_steps): the whole schedule
+# PixArt-Σ 1024 as benchmarks/bench_configs.py:388-391 builds it; the
+# sampler of the t2i workloads (configs/workload/pixart_alpha_512.py)
+SIGMA_CFG = {
+    "model": dict(type="PixArtMS-XL/2", caption_channels=4096,
+                  model_max_length=300, kv_compress_sampling="conv",
+                  kv_compress_scale=2,
+                  kv_compress_layers=tuple(range(14, 28))),
+    "image_size": 1024,
+    "scheduler": dict(type="dpm-solver", num_sampling_steps=STEPS,
+                      cfg_scale=4.5),
+    "dtype": "bf16",
+}
+
+# published peaks of one H100 SXM (dense; NVIDIA's data sheet) for the
+# bound: the larger of bytes / HBM rate and the sum over operation types
+# of operations / peak rate
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12}
 
 # tolerances (acceptance criteria of the port): int8 codes differ by at
 # most 1 at no more than 0.1% of entries (a float reduction precedes every
@@ -57,6 +84,7 @@ REPLACES = {
     "attention_bnhd": "viditq_tpu/kernels/attention.py:599",
     "quantize_rows": "viditq_tpu/kernels/fused_matmul.py:606",
     "fused_dynq_int8_matmul": "viditq_tpu/kernels/fused_matmul.py:209",
+    "attention_bnhd_stream": "viditq_tpu/kernels/attention.py:236",
 }
 SOURCES = {
     "ln_modulate_quantize": "viditq_tpu_torch/csrc/ln_mod_quant.cu",
@@ -64,6 +92,16 @@ SOURCES = {
     "attention_bnhd": "viditq_tpu_torch/csrc/attention.cu",
     "quantize_rows": "viditq_tpu_torch/csrc/quant_rows.cu",
     "fused_dynq_int8_matmul": "viditq_tpu_torch/kernels/fused_matmul.py",
+    "attention_bnhd_stream": "viditq_tpu_torch/csrc/attention_stream.cu",
+}
+# kernels each slice's main path must launch, per arm
+SLICE_KERNELS = {
+    "stdit": {"bf16": ("attention_bnhd",),
+              "sm8": ("ln_modulate_quantize", "int8_consumer_matmul",
+                      "attention_bnhd", "quantize_rows",
+                      "fused_dynq_int8_matmul")},
+    "sigma": {"bf16": ("attention_bnhd", "attention_bnhd_stream"),
+              "sm8": tuple(REPLACES)},
 }
 
 
@@ -107,9 +145,35 @@ def compare(got, want, is_codes: bool):
     return float(diff.max()), frac, rel
 
 
-def check_case(name, case, kernel_fn, plain_fn, records):
+def bound(nbytes: float, ops: dict):
+    """(least ms on the card, what bounds it) for a function that moves
+    nbytes (each input read once, each output written once) and does
+    ops[type] operations of each tensor-core type. Elementwise arithmetic
+    (a few f32 flops per element at 67 TFLOP/s) is far below the byte
+    time of the kernels here and is not counted."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = sum(n / PEAK_OPS_PER_S[k] for k, n in ops.items()) * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def attn_bound(B, N, H, D, kv_rows, int8_pv, emit, kv_total):
+    """Bound of one attention call: q/k/v in bf16 (k/v over kv_total rows,
+    the mask as int32), the output in bf16 or as codes + scales, and
+    2*N*D multiply-adds per head for QK^T and for PV over the kv rows a
+    query needs (kv_rows: per batch row, after masking)."""
+    C = H * D
+    nbytes = 2 * B * N * C + 2 * 2 * B * kv_total * C
+    nbytes += B * N * (C + 4) if emit else 2 * B * N * C
+    qk = 2 * H * N * D * sum(kv_rows)
+    ops = {"bf16": qk, "int8": qk} if int8_pv else {"bf16": 2 * qk}
+    return nbytes, ops
+
+
+def check_case(name, case, kernel_fn, plain_fn, records, cost=None,
+               library_fn=None, library_note=""):
     """Run kernel and plain version on the same inputs, compare every
-    output, time both; append the result."""
+    output, time both and the library call; append the result with its
+    bound (cost = (bytes, ops))."""
     import torch
     got = kernel_fn()
     want = plain_fn()
@@ -138,15 +202,24 @@ def check_case(name, case, kernel_fn, plain_fn, records):
         worst_rel = max(worst_rel, rel)
     ms = cuda_ms(kernel_fn)
     plain_ms = cuda_ms(plain_fn, reps=3)
+    bound_ms, bound_by = bound(*cost)
+    library_ms = None
+    if library_fn is not None:
+        library_ms = cuda_ms(library_fn)
+    lib = ("" if library_ms is None
+           else f" library {library_ms:.3f} ms{library_note}")
     print(f"  {name:24s} {case:34s} kernel {ms:9.3f} ms  plain "
-          f"{plain_ms:9.3f} ms  | {'; '.join(parts)}", flush=True)
+          f"{plain_ms:9.3f} ms  bound {bound_ms:.4f} ms ({bound_by}){lib}"
+          f"  | {'; '.join(parts)}", flush=True)
     records.setdefault(name, []).append(
         {"case": case, "max_abs_err": max_abs, "ms": ms,
-         "plain_ms": plain_ms})
+         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+         "library_ms": library_ms})
 
 
 def phase_kernels(records):
     import torch
+    import torch.nn.functional as F
     from viditq_tpu_torch.kernels import attention as A
     from viditq_tpu_torch.kernels import fused_matmul as FM
     dev = "cuda"
@@ -171,29 +244,39 @@ def phase_kernels(records):
     sh, sc = randn(B, 1, C, scale=0.1), randn(B, 1, C, scale=0.1)
     check_case("ln_modulate_quantize", "[2,16384,1152]",
                lambda: FM.ln_modulate_quantize(x, sh, sc),
-               lambda: FM.ln_modulate_quantize_plain(x, sh, sc), records)
+               lambda: FM.ln_modulate_quantize_plain(x, sh, sc), records,
+               cost=(2 * M * C + 2 * 2 * B * C + M * C + 4 * M, {}))
 
     # K4: the shared attn_temp q/k/v prequant
     x2 = x.reshape(M, C)
     check_case("quantize_rows", "[32768,1152]",
                lambda: FM.quantize_rows(x2),
-               lambda: FM.quantize_rows_plain(x2), records)
+               lambda: FM.quantize_rows_plain(x2), records,
+               cost=(2 * M * C + M * C + 4 * M, {}))
 
     # K2: q/k/v/proj, fc1 emit (G=3), fc2 gw_x
     xq, xs = randi8(M, C), rands(M, 1)
     w, ws, b = randi8(C, C), rands(1, C, lo=1e-4, hi=1e-3), randn(
         C, dtype=torch.float32, scale=0.1)
+
+    def k2_cost(m, k, n, x_scales, out_bytes):
+        return (m * k + k * n + 4 * m * x_scales + 8 * n + out_bytes,
+                {"int8": 2 * m * n * k})
     check_case("int8_consumer_matmul", "plain [32768,1152]x[1152,1152]",
                lambda: FM.int8_consumer_matmul(xq, xs, w, ws, b),
                lambda: FM.int8_consumer_matmul_plain(xq, xs, w, ws, b),
-               records)
+               records, cost=k2_cost(M, C, C, 1, 2 * M * C),
+               library_fn=lambda: torch._int_mm(xq, w),
+               library_note=" (torch._int_mm: int32 product only, no "
+                            "epilogue)")
     w1, ws1 = randi8(C, 4 * C), rands(1, 4 * C, lo=1e-4, hi=1e-3)
     b1 = randn(4 * C, dtype=torch.float32, scale=0.1)
     emit = {"gelu": True}
     check_case("int8_consumer_matmul", "emit [32768,1152]x[1152,4608]",
                lambda: FM.int8_consumer_matmul(xq, xs, w1, ws1, b1, emit=emit),
                lambda: FM.int8_consumer_matmul_plain(xq, xs, w1, ws1, b1,
-                                                     emit=emit), records)
+                                                     emit=emit), records,
+               cost=k2_cost(M, C, 4 * C, 1, M * 4 * C + 4 * M * 3))
     xq2, xs2 = randi8(M, 4 * C), rands(M, 3)
     w2, ws2 = randi8(4 * C, C), rands(1, C, lo=1e-5, hi=1e-4)
     check_case("int8_consumer_matmul", "gw_x [32768,4608]x[4608,1152]",
@@ -201,7 +284,24 @@ def phase_kernels(records):
                                                group_scales=True),
                lambda: FM.int8_consumer_matmul_plain(xq2, xs2, w2, ws2, b,
                                                      group_scales=True),
-               records)
+               records, cost=k2_cost(M, 4 * C, C, 3, 2 * M * C))
+
+    def sdpa_call(q, k, v, seg, m):
+        """One PyTorch call computing the bf16-PV attention on [B,H,N,D]
+        copies made here (the transposes are not timed)."""
+        if seg:
+            n_b, n = q.shape[0] * q.shape[1] // seg, seg
+            qh, kh, vh = (t.reshape(n_b, n, H, D).transpose(1, 2).contiguous()
+                          for t in (q, k, v))
+        else:
+            qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        am = None if m is None else (m != 0)[:, None, None, :]
+        return lambda: F.scaled_dot_product_attention(
+            qh, kh, vh, attn_mask=am, scale=D ** -0.5)
+
+    def kv_rows(m, n_b, kv):
+        return ([kv] * n_b if m is None
+                else [int(r) for r in (m != 0).sum(dim=1).tolist()])
 
     # K3: spatial / temporal / cross, in the bf16 arm's and sm8's modes
     sc_attn = D ** -0.5
@@ -215,29 +315,79 @@ def phase_kernels(records):
     mask[1, 100:] = 0  # one padded prompt
     sites["cross"] = (randn(B, T * S, H, D), randn(B, P, H, D),
                       randn(B, P, H, D), 0, mask, True)
+    # PixArt-Σ 1024 cross-attention: 4096 queries, 300 prompt tokens
+    mask_s = torch.ones((B, 300), dtype=torch.int32, device=dev)
+    mask_s[1, 200:] = 0
+    sites["Σ cross"] = (randn(B, 4096, H, D), randn(B, 300, H, D),
+                        randn(B, 300, H, D), 0, mask_s, True)
     for site, (q, k, v, seg, m, sm8_int8) in sites.items():
+        nb, nq, kv = q.shape[0], q.shape[1], k.shape[1]
         for arm, int8_pv, emit_out in (("bf16", False, False),
                                        ("sm8", sm8_int8, True)):
             kw = dict(seg_len=seg, kv_mask=m, int8_pv=int8_pv, emit=emit_out)
             vb = A.seg_v_block(q.shape[1], seg) if (seg and int8_pv) else None
+            cost = attn_bound(nb, nq, H, D,
+                              [seg] * nb if seg else kv_rows(m, nb, kv),
+                              int8_pv, emit_out, kv)
+            if m is not None:
+                cost = (cost[0] + 4 * nb * kv, cost[1])
             check_case(
                 "attention_bnhd",
                 f"{site} {arm}{' int8_pv' if int8_pv else ''}"
                 f"{' emit' if emit_out else ''}",
                 lambda: A.attention_bnhd(q, k, v, sc_attn, v_block=vb, **kw),
                 lambda: A.attention_bnhd_plain(q, k, v, sc_attn, v_block=vb,
-                                               **kw), records)
+                                               **kw), records, cost=cost,
+                library_fn=None if int8_pv or emit_out
+                else sdpa_call(q, k, v, seg, m),
+                library_note=" (scaled_dot_product_attention)")
+
+    # K6: Σ-1024 self-attention, N = M = 4096, kv blocks of 1024
+    Ns = 4096
+    bkv = A.stream_kv_block(Ns, Ns, C)
+    q, k, v = randn(B, Ns, H, D), randn(B, Ns, H, D), randn(B, Ns, H, D)
+    smask = torch.ones((B, Ns), dtype=torch.int32, device=dev)
+    smask[1, 1500:] = 0  # later kv blocks fully masked in one batch row
+    for case, m, int8_pv, emit_out in (("bf16_pv", None, False, False),
+                                       ("bf16_pv emit (K6->K4)", None, False,
+                                        True),
+                                       ("int8_pv", None, True, False),
+                                       ("bf16_pv masked", smask, False,
+                                        False)):
+        def plain(m=m, int8_pv=int8_pv, emit_out=emit_out):
+            o = A.attention_bnhd_stream_plain(q, k, v, sc_attn, bkv, m,
+                                              int8_pv)
+            if not emit_out:
+                return o
+            codes, scales = FM.quantize_rows_plain(o.reshape(B * Ns, C))
+            return codes.reshape(B, Ns, C), scales.reshape(B, Ns, 1)
+        cost = attn_bound(B, Ns, H, D, kv_rows(m, B, Ns), int8_pv, emit_out,
+                          Ns)
+        if m is not None:
+            cost = (cost[0] + 4 * B * Ns, cost[1])
+        check_case(
+            "attention_bnhd_stream", f"[2,4096,16,72] bkv {bkv} {case}",
+            lambda m=m, int8_pv=int8_pv, emit_out=emit_out:
+                A.attention_bnhd_stream(q, k, v, sc_attn, m, int8_pv,
+                                        emit_out),
+            plain, records, cost=cost,
+            library_fn=None if int8_pv or emit_out
+            else sdpa_call(q, k, v, 0, m),
+            library_note=" (scaled_dot_product_attention)")
 
     # K5 (K4 -> K2): cross_attn.kv_linear and cross_attn.q_linear
-    for case, (m_rows, n) in (("kv_linear [240,1152]x[1152,2304]", (B * P, 2 * C)),
-                              ("q_linear [32768,1152]x[1152,1152]", (M, C))):
+    for case, (m_rows, n) in (
+            ("kv_linear [240,1152]x[1152,2304]", (B * P, 2 * C)),
+            ("q_linear [32768,1152]x[1152,1152]", (M, C))):
         xa = randn(m_rows, C)
         wa, wsa = randi8(C, n), rands(1, n, lo=1e-4, hi=1e-3)
         ba = randn(n, dtype=torch.float32, scale=0.1)
         check_case("fused_dynq_int8_matmul", case,
                    lambda: FM.fused_dynq_int8_matmul(xa, wa, wsa, ba),
                    lambda: FM.fused_dynq_int8_matmul_plain(xa, wa, wsa, ba),
-                   records)
+                   records, cost=(2 * m_rows * C + C * n + 8 * n
+                                  + 2 * m_rows * n,
+                                  {"int8": 2 * m_rows * n * C}))
 
 
 def random_init_(model, seed: int, scale: float):
@@ -252,17 +402,31 @@ def random_init_(model, seed: int, scale: float):
                 t.copy_(torch.randn(t.shape, generator=g, device=dev) * scale)
 
 
-def build_model(input_size, resolver, dtype, device, scale=0.02, **kw):
-    import torch
-    from viditq_tpu_torch.models.stdit import STDiT, STDiT_XL_2
+STDIT_CFG = {"model": dict(type="STDiT-XL/2"), "num_frames": 16,
+             "image_size": (512, 512), "scheduler": dict(
+                 type="iddpm", num_sampling_steps=STEPS, cfg_scale=4.0),
+             "dtype": "bf16"}
+TINY = dict(hidden_size=64, depth=2, num_heads=4, caption_channels=32,
+            model_max_length=8)
+TINY_STDIT_CFG = {"model": dict(type="STDiT", **TINY), "num_frames": 2,
+                  "image_size": (128, 256), "dtype": "bf16"}
+# 96x96 latent: 2304 tokens, so block 0 streams its kv (9 blocks of 256)
+TINY_SIGMA_CFG = {"model": dict(type="PixArt", kv_compress_sampling="conv",
+                                kv_compress_scale=2, kv_compress_layers=(1,),
+                                **TINY),
+                  "image_size": 768, "dtype": "bf16"}
+
+
+def build_model(cfg, device, scale=0.02):
+    """The workload's model through `utils/workload.build_model` under the
+    sm8 plan, random weights (normal x scale, seed 0), min-max tables,
+    packed int8 slabs."""
     from viditq_tpu_torch.quant.calibrate import calibrate_weight_tables
     from viditq_tpu_torch.quant.native_pack import pack_native_weights
-    with torch.device(device):
-        model = (STDiT(input_size=input_size, resolver=resolver, dtype=dtype,
-                       **kw) if kw else
-                 STDiT_XL_2(input_size=input_size, resolver=resolver,
-                            dtype=dtype))
-    model.to(device)  # the static sincos tables are built on the host
+    from viditq_tpu_torch.utils.config import load_quant_config
+    from viditq_tpu_torch.utils.workload import build_model as wl_build
+    resolver = load_quant_config(str(SM8_PLAN)).resolver()
+    model = wl_build(cfg, resolver, device=device)
     random_init_(model, 0, scale)
     calibrate_weight_tables(model)
     pack_native_weights(model)
@@ -270,70 +434,81 @@ def build_model(input_size, resolver, dtype, device, scale=0.02, **kw):
 
 
 def phase_reference():
-    """Tiny sm8 model: the card's kernels against the CPU's plain versions
+    """Tiny sm8 models: the card's kernels against the CPU's plain versions
     on the same weights and inputs, for one forward (float32 output) and a
-    3-step CFG denoise. Weights are drawn at 0.1 so activations are O(1)."""
+    3-step CFG denoise (DDIM for STDiT, DPM-Solver++ for PixArt-Σ).
+    Weights are drawn at 0.1 so activations are O(1)."""
     import copy
     import torch
     from viditq_tpu_torch.pipelines.inference import quant_sample
     from viditq_tpu_torch.quant.qlinear import QuantCtx
+    from viditq_tpu_torch.samplers.dpm_solver import DPMSolverSampler
     from viditq_tpu_torch.samplers.iddpm import IDDPM
-    from viditq_tpu_torch.utils.config import load_quant_config
-    resolver = load_quant_config(str(SM8_PLAN)).resolver()
-    latent = (2, 16, 32)
-    cpu = build_model(latent, resolver, torch.bfloat16, "cpu", scale=0.1,
-                      hidden_size=64, depth=2, num_heads=4,
-                      caption_channels=32, model_max_length=8)
-    gpu = copy.deepcopy(cpu).to("cuda")
-    rng = np.random.default_rng(1)
-    x = torch.tensor(rng.standard_normal((2, 4, *latent))).bfloat16()
-    t = torch.tensor([500, 500])
-    y = torch.tensor(rng.standard_normal((2, 1, 8, 32))).bfloat16()
-    mask = torch.ones((2, 8), dtype=torch.int32)
-    mask[1, 6:] = 0
-    q = QuantCtx(mode="quant")
-    with torch.no_grad():
-        want = cpu(x, t, y, mask, qctx=q)
-        got = gpu(x.cuda(), t.cuda(), y.cuda(), mask.cuda(), qctx=q).cpu()
-    rel_fwd = float((got - want).norm() / want.norm())
-    sampler = IDDPM(num_sampling_steps=3, cfg_scale=4.0)
-    want = quant_sample(cpu, sampler, x[:1], y, mask[:1]).float()
-    got = quant_sample(gpu, sampler, x[:1].cuda(), y.cuda(),
-                       mask[:1].cuda()).float().cpu()
-    rel_dn = float((got - want).norm() / want.norm())
-    print(f"phase reference: tiny sm8 model, card vs CPU plain versions: "
-          f"forward rel err {rel_fwd:.3g}, 3-step CFG denoise rel err "
-          f"{rel_dn:.3g} (limit {TINY_REL_ERR})", flush=True)
-    for rel in (rel_fwd, rel_dn):
-        if not np.isfinite(rel) or rel > TINY_REL_ERR:
-            fail(f"tiny sm8 model disagrees with its CPU reference: {rel}")
+    from viditq_tpu_torch.utils.workload import latent_size
+    for name, cfg, sampler in (
+            ("STDiT", TINY_STDIT_CFG, IDDPM(num_sampling_steps=3,
+                                            cfg_scale=4.0)),
+            ("PixArt-Σ", TINY_SIGMA_CFG,
+             DPMSolverSampler(num_sampling_steps=3, cfg_scale=4.5))):
+        latent = latent_size(cfg)
+        cpu = build_model(cfg, "cpu", scale=0.1)
+        gpu = copy.deepcopy(cpu).to("cuda")
+        rng = np.random.default_rng(1)
+        x = torch.tensor(rng.standard_normal((2, 4, *latent))).bfloat16()
+        t = torch.tensor([500, 500])
+        y = torch.tensor(rng.standard_normal((2, 1, 8, 32))).bfloat16()
+        mask = torch.ones((2, 8), dtype=torch.int32)
+        mask[1, 6:] = 0
+        q = QuantCtx(mode="quant")
+        with torch.no_grad():
+            want = cpu(x, t, y, mask, qctx=q)
+            got = gpu(x.cuda(), t.cuda(), y.cuda(), mask.cuda(),
+                      qctx=q).cpu()
+        rel_fwd = float((got - want).norm() / want.norm())
+        want = quant_sample(cpu, sampler, x[:1], y, mask[:1]).float()
+        got = quant_sample(gpu, sampler, x[:1].cuda(), y.cuda(),
+                           mask[:1].cuda()).float().cpu()
+        rel_dn = float((got - want).norm() / want.norm())
+        print(f"phase reference: tiny sm8 {name} {tuple(latent)}, card vs "
+              f"CPU plain versions: forward rel err {rel_fwd:.3g}, 3-step "
+              f"CFG denoise rel err {rel_dn:.3g} (limit {TINY_REL_ERR})",
+              flush=True)
+        for rel in (rel_fwd, rel_dn):
+            if not np.isfinite(rel) or rel > TINY_REL_ERR:
+                fail(f"tiny sm8 {name} disagrees with its CPU reference: "
+                     f"{rel}")
 
 
-def phase_slice():
+def run_slice(name, cfg, z_scale, n_prompt):
+    """Both arms of one slice over the whole schedule: ms/step, peak
+    memory, launches, plain calls on CUDA (must be 0), sm8 vs bf16 error.
+    Returns each kernel's launches over both arms."""
     import torch
     from viditq_tpu_torch.kernels import _counters
     from viditq_tpu_torch.pipelines.inference import fp_sample, quant_sample
-    from viditq_tpu_torch.samplers.iddpm import IDDPM
-    from viditq_tpu_torch.utils.config import load_quant_config
-    latent = (16, 64, 64)
-    resolver = load_quant_config(str(SM8_PLAN)).resolver()
+    from viditq_tpu_torch.quant.qlinear import QuantCtx
+    from viditq_tpu_torch.utils.workload import build_sampler, latent_size
+    latent = latent_size(cfg)
     t0 = time.time()
-    model = build_model(latent, resolver, torch.bfloat16, "cuda")
+    model = build_model(cfg, "cuda")
     torch.cuda.synchronize()
-    print(f"phase slice: STDiT-XL/2 at latent {latent}, CFG batch 2, "
-          f"built + calibrated + packed in {time.time() - t0:.1f} s",
-          flush=True)
+    print(f"phase slice {name}: {cfg['model']['type']} at latent {latent}, "
+          f"CFG batch 2, built + calibrated + packed in "
+          f"{time.time() - t0:.1f} s", flush=True)
     rng = np.random.default_rng(0)
-    z = torch.tensor(rng.standard_normal((1, 4, *latent)) * 0.5,
+    z = torch.tensor(rng.standard_normal((1, 4, *latent)) * z_scale,
                      dtype=torch.bfloat16, device="cuda")
-    y = torch.tensor(rng.standard_normal((2, 1, 120, 4096)) * 0.1,
+    y = torch.tensor(rng.standard_normal((2, 1, n_prompt, 4096)) * 0.1,
                      dtype=torch.bfloat16, device="cuda")
-    mask = torch.ones((1, 120), dtype=torch.int32, device="cuda")
-    sampler = IDDPM(num_sampling_steps=STEPS, cfg_scale=4.0)
+    mask = torch.ones((1, n_prompt), dtype=torch.int32, device="cuda")
+    sampler = build_sampler(cfg)
     counts, outs, ms = {}, {}, {}
     for arm, run in (("bf16", fp_sample), ("sm8", quant_sample)):
-        # warm-up: the schedule's first step only
-        run(model, sampler, z, y, mask, step_indices=[STEPS - 1])
+        # warm-up: one CFG forward
+        with torch.no_grad():
+            model(torch.cat([z, z]), torch.tensor([999.0, 999.0],
+                                                   device="cuda"), y, mask,
+                  qctx=QuantCtx(mode="quant") if arm == "sm8" else None)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         _counters.reset()
@@ -351,22 +526,22 @@ def phase_slice():
               f"{ {k: v['plain_cuda'] for k, v in counts[arm].items()} }",
               flush=True)
         if tuple(out.shape) != (1, 4, *latent):
-            fail(f"{arm} output shape {tuple(out.shape)}")
+            fail(f"{name} {arm} output shape {tuple(out.shape)}")
         if not torch.isfinite(outs[arm]).all():
-            fail(f"{arm} output is not finite")
+            fail(f"{name} {arm} output is not finite")
         if any(v["plain_cuda"] for v in counts[arm].values()):
-            fail(f"{arm}: a plain version ran on CUDA tensors")
+            fail(f"{name} {arm}: a plain version ran on CUDA tensors")
+        for k in SLICE_KERNELS[name][arm]:
+            if counts[arm][k]["launches"] == 0:
+                fail(f"{name} {arm} arm never launched {k}")
     rel = float((outs["sm8"] - outs["bf16"]).norm() / outs["bf16"].norm())
-    print(f"  {STEPS} steps; bf16 {ms['bf16']:.1f} ms/step, sm8 "
+    print(f"  {name}: {STEPS} steps; bf16 {ms['bf16']:.1f} ms/step, sm8 "
           f"{ms['sm8']:.1f} ms/step; sm8 vs bf16 final-latent rel err "
           f"{rel:.4g} (limit {SLICE_REL_ERR})", flush=True)
     if rel > SLICE_REL_ERR:
-        fail(f"sm8 vs bf16 relative error {rel}")
-    for name, c in counts["sm8"].items():
-        if c["launches"] == 0:
-            fail(f"sm8 arm never launched {name}")
-    if counts["bf16"]["attention_bnhd"]["launches"] == 0:
-        fail("bf16 arm never launched attention_bnhd")
+        fail(f"{name}: sm8 vs bf16 relative error {rel}")
+    del model
+    torch.cuda.empty_cache()
     return {k: counts["bf16"][k]["launches"] + counts["sm8"][k]["launches"]
             for k in counts["sm8"]}
 
@@ -392,10 +567,13 @@ def main() -> int:
     records = {}
     phase_kernels(records)
     phase_reference()
-    launches = phase_slice()
+    launches = run_slice("stdit", STDIT_CFG, 0.5, 120)
+    for k, n in run_slice("sigma", SIGMA_CFG, 1.0, 300).items():
+        launches[k] += n
 
     kernels = []
     for name, recs in records.items():
+        head = recs[0]
         kernels.append({
             "name": name,
             "route": "cuda",
@@ -403,11 +581,14 @@ def main() -> int:
             "replaces": REPLACES[name],
             "launches": launches[name],
             "max_abs_err": max(r["max_abs_err"] for r in recs),
-            "ms": recs[0]["ms"],
-            "plain_ms": recs[0]["plain_ms"],
+            "ms": head["ms"],
+            "plain_ms": head["plain_ms"],
+            "bound_ms": head["bound_ms"],
+            "bound_by": head["bound_by"],
+            "library_ms": head["library_ms"],
         })
-    print(json.dumps({"kernels": kernels}))
     print(smi)
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -29,7 +29,8 @@ def _imported_roots(src: str):
 
 def test_port_never_imports_jax_or_flax():
     # an import check cannot work here: the image preloads jax
-    files = sorted(PKG.rglob("*.py")) + [PKG.parent / "chip_smoke.py"]
+    files = sorted(PKG.rglob("*.py")) + [PKG.parent / "chip_smoke.py",
+                                         PKG.parent / "chip_profile.py"]
     assert len(files) > 10
     bad = {str(f.relative_to(PKG.parent)): sorted(
         r for r in set(_imported_roots(f.read_text()))
@@ -130,3 +131,58 @@ def test_emission_group_rule_matches_runtime_call():
     assert FM.emission_block_n(4608, 512, 1152) == 1536
     assert np.all([FM.select_block_k(k, 2304) == min(k, 2304)
                    for k in (1152, 2304, 4608)])
+
+
+TINY_SIGMA_CFG = {
+    "model": dict(type="PixArt", hidden_size=64, depth=2,
+                  num_heads=4, caption_channels=32, model_max_length=8,
+                  kv_compress_sampling="conv", kv_compress_scale=2,
+                  kv_compress_layers=(1,)),
+    "image_size": 256,
+    "scheduler": dict(type="dpm-solver", num_sampling_steps=20,
+                      cfg_scale=4.5),
+    "dtype": "fp32",
+}
+
+
+def test_workload_build_model_defaults_to_cuda_and_never_falls_back(
+        monkeypatch):
+    import inspect
+    from viditq_tpu_torch.utils import workload
+    assert (inspect.signature(workload.build_model).parameters["device"]
+            .default == "cuda")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        workload.build_model(TINY_SIGMA_CFG)
+    model = workload.build_model(TINY_SIGMA_CFG, device="cpu")
+    assert next(model.parameters()).device.type == "cpu"
+    assert model.input_size == 32 and len(model.blocks) == 2
+    assert model.blocks[1].kv_compress and not model.blocks[0].kv_compress
+
+
+def test_workload_build_sampler():
+    from viditq_tpu_torch.samplers.dpm_solver import DPMSolverSampler
+    from viditq_tpu_torch.samplers.iddpm import IDDPM
+    from viditq_tpu_torch.utils import workload
+    s = workload.build_sampler(TINY_SIGMA_CFG, cfg_split=True)
+    assert isinstance(s, DPMSolverSampler)
+    assert s.cfg_split and s.cfg_scale == 4.5 and s.steps == 20
+    s = workload.build_sampler({"scheduler": dict(type="iddpm",
+                                                  num_sampling_steps=3)})
+    assert isinstance(s, IDDPM) and not s.cfg_split
+    assert workload.latent_size({"image_size": 1024}) == (128, 128)
+    assert workload.latent_size({"num_frames": 16,
+                                 "image_size": (512, 512)}) == (16, 64, 64)
+
+
+@pytest.mark.parametrize("kw", [dict(micro_condition=True),
+                                dict(qk_norm=True),
+                                dict(kv_compress_sampling="ave",
+                                     kv_compress_scale=2,
+                                     kv_compress_layers=(0,))],
+                         ids=["micro_condition", "qk_norm", "kv-ave"])
+def test_unported_pixart_options_raise(kw):
+    from viditq_tpu_torch.models.pixart import PixArt
+    with pytest.raises(NotImplementedError):
+        PixArt(input_size=8, hidden_size=32, depth=1, num_heads=2,
+               caption_channels=8, **kw)

@@ -1,5 +1,5 @@
-"""Shared set-up of the PyTorch-port parity tests: a tiny STDiT built in
-both packages on the same weights.
+"""Shared set-up of the PyTorch-port parity tests: a tiny STDiT and a tiny
+PixArt-Σ built in both packages on the same weights.
 
 The JAX model is initialised, its parameters are replaced by numpy draws
 from a seed, and its tables are calibrated and packed by the JAX package;
@@ -7,6 +7,9 @@ the port's model of the same configuration loads those through
 `viditq_tpu_torch.utils.bridge`. The size is chosen so the JAX package
 really takes its kernel path: T*S = 256 tokens (the producer's N % 256),
 S = 128 spatial tokens (the attention's n % 128), hidden*mlp_ratio = 256.
+The tiny Σ takes a 96x96 latent: N = 48*48 = 2304 tokens, above the
+one-shot kv range, so block 0's self-attention streams its kv in 9 blocks
+of 256 (K6); block 1 compresses k/v with the 2x2 `sr` conv.
 """
 
 import contextlib
@@ -18,11 +21,13 @@ import numpy as np
 import torch
 from jax.experimental.pallas import tpu as pltpu
 
+from viditq_tpu.models.pixart import PixArt as JPixArt
 from viditq_tpu.models.stdit import STDiT as JSTDiT
 from viditq_tpu.quant import QuantCtx as JQuantCtx
 from viditq_tpu.quant import calibrate_weight_tables as j_calibrate
 from viditq_tpu.quant.native_pack import pack_native_weights as j_pack
 from viditq_tpu.utils.config import load_quant_config as j_load
+from viditq_tpu_torch.models.pixart import PixArt
 from viditq_tpu_torch.models.stdit import STDiT
 from viditq_tpu_torch.utils.bridge import state_dict_from_flax
 from viditq_tpu_torch.utils.config import load_quant_config
@@ -32,6 +37,14 @@ SYM = "configs/opensora/w8a8_tpu_fused_sym.yaml"
 LATENT = (2, 16, 32)
 TINY = dict(input_size=LATENT, hidden_size=64, depth=2, num_heads=4,
             caption_channels=32, model_max_length=8)
+SIGMA_LATENT = (96, 96)
+TINY_SIGMA = dict(input_size=96, hidden_size=64, depth=2, num_heads=4,
+                  caption_channels=32, model_max_length=8,
+                  kv_compress_sampling="conv", kv_compress_scale=2,
+                  kv_compress_layers=(1,))
+# (JAX class, port class, configuration, latent) of each tiny model
+KINDS = {"stdit": (JSTDiT, STDiT, TINY, LATENT),
+         "sigma": (JPixArt, PixArt, TINY_SIGMA, SIGMA_LATENT)}
 
 
 @contextlib.contextmanager
@@ -52,11 +65,11 @@ def jax_kernel_path():
                 os.environ[k] = v
 
 
-def inputs(batch: int = 2, seed: int = 0):
-    """x [B, 4, T, H, W], t [B], y [B, 1, L, 32], mask [B, L] (one padded
+def inputs(batch: int = 2, seed: int = 0, kind: str = "stdit"):
+    """x [B, 4, *latent], t [B], y [B, 1, L, 32], mask [B, L] (one padded
     prompt) as numpy arrays."""
     rng = np.random.default_rng(seed)
-    x = rng.standard_normal((batch, 4, *LATENT)).astype(np.float32)
+    x = rng.standard_normal((batch, 4, *KINDS[kind][3])).astype(np.float32)
     t = np.full((batch,), 500, np.int32)
     y = rng.standard_normal((batch, 1, 8, 32)).astype(np.float32)
     mask = np.ones((batch, 8), np.int32)
@@ -71,15 +84,19 @@ def randomize(params, seed: int = 0, scale: float = 0.1):
         params)
 
 
-def build_jax(plan_path=SM8, scan_blocks: bool = False, seed: int = 0):
+def build_jax(plan_path=SM8, scan_blocks: bool = False, seed: int = 0,
+              kind: str = "stdit", **overrides):
     """(JAX model, variables as numpy trees) with calibrated, packed
     tables."""
+    jcls, _, cfg, _ = KINDS[kind]
     resolver = j_load(plan_path).resolver()
-    model = JSTDiT(resolver=resolver, dtype=jnp.float32,
-                   scan_blocks=scan_blocks, **TINY)
-    x, t, y, mask = inputs()
+    model = jcls(resolver=resolver, dtype=jnp.float32,
+                 scan_blocks=scan_blocks, **{**cfg, **overrides})
+    x, t, y, mask = inputs(kind=kind)
+    if "input_size" in overrides:
+        x = x[..., :overrides["input_size"], :overrides["input_size"]]
     v = dict(model.init(jax.random.PRNGKey(0), x, t, y, mask,
-                        JQuantCtx(mode="fp")))
+                        qctx=JQuantCtx(mode="fp")))
     params = randomize(v["params"], seed)
     quant = j_pack(params, j_calibrate(params, v["quant"], resolver),
                    resolver)
@@ -87,11 +104,13 @@ def build_jax(plan_path=SM8, scan_blocks: bool = False, seed: int = 0):
                    "quant": jax.tree.map(np.asarray, quant)}
 
 
-def build_port(plan_path=SM8, variables=None, fp_only: bool = False):
+def build_port(plan_path=SM8, variables=None, fp_only: bool = False,
+               kind: str = "stdit", **overrides):
     """The port's model; loads the JAX variables through the bridge
     (params only with fp_only, to calibrate and pack in the port)."""
-    model = STDiT(resolver=load_quant_config(plan_path).resolver(),
-                  dtype=torch.float32, **TINY)
+    _, pcls, cfg, _ = KINDS[kind]
+    model = pcls(resolver=load_quant_config(plan_path).resolver(),
+                 dtype=torch.float32, **{**cfg, **overrides})
     if variables is not None:
         sd = state_dict_from_flax(variables["params"],
                                   None if fp_only else variables["quant"])

@@ -1,8 +1,9 @@
 """Build and load the hand-written CUDA kernels (`viditq_tpu_torch/csrc`).
 
-All `.cu` sources are compiled by `nvcc` into one shared library with a
-plain C interface, loaded with ctypes. The build runs on first use (never
-at import, so the package imports on machines without `nvcc`), lands in
+Each `.cu` source is compiled by its own `nvcc` process, all started
+together, and the objects are linked into one shared library with a plain
+C interface, loaded with ctypes. The build runs on first use (never at
+import, so the package imports on machines without `nvcc`), lands in
 `build/kernels/` at the root of the checkout, and is cached by a hash of
 the sources and the compiler flags. Each C entry point returns
 `cudaGetLastError()`; `check` raises on a non-zero code.
@@ -22,9 +23,9 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-fmad=false",
-              "-lineinfo"]
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-fmad=false", "-lineinfo"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -40,6 +41,8 @@ SIGNATURES = {
                      _I, _I, _F, _I, _P],
     "vq_attn_vquant": [_P, _P, _P, _I, _I, _I, _I, _P],
     "vq_attn_row_quant": [_P, _P, _P, _I, _I, _P],
+    "vq_attention_stream": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                            _F, _I, _P],
 }
 
 
@@ -68,23 +71,43 @@ def library_path() -> Path:
 
 def build() -> Path:
     """Compile the library unless an identical build exists; returns its
-    path. Writes to a temporary name first so a cut build never leaves a
-    library that looks finished."""
+    path. One `nvcc -c` per source runs in parallel, then one link; the
+    library is written under a temporary name first so a cut build never
+    leaves a library that looks finished."""
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cu = [str(s) for s in sources() if s.suffix == ".cu"]
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp, *cu]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, out)
+    nvcc = _nvcc()
+    work = Path(tempfile.mkdtemp(dir=BUILD_DIR))
+    try:
+        jobs = []
+        for src in (s for s in sources() if s.suffix == ".cu"):
+            obj = work / f"{src.stem}.o"
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-I", str(CSRC), "-o", str(obj),
+                   str(src)]
+            jobs.append((cmd, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True)))
+        errors = []
+        for cmd, _, proc in jobs:
+            stdout, stderr = proc.communicate()
+            if proc.returncode != 0:
+                errors.append(f"nvcc failed ({proc.returncode}):\n"
+                              f"{' '.join(cmd)}\n{stdout}\n{stderr}")
+        if errors:
+            raise RuntimeError("\n".join(errors))
+        tmp = work / out.name
+        cmd = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp),
+               *(str(obj) for _, obj, _ in jobs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                               f"{' '.join(cmd)}\n{proc.stdout}\n"
+                               f"{proc.stderr}")
+        os.replace(tmp, out)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     return out
 
 

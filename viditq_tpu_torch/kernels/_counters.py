@@ -26,6 +26,7 @@ COUNTERS: Dict[str, Counter] = {
         "attention_bnhd",            # K3
         "quantize_rows",             # K4
         "fused_dynq_int8_matmul",    # K5 (served as K4 -> K2)
+        "attention_bnhd_stream",     # K6
     )
 }
 

@@ -1,13 +1,25 @@
-"""Layout-native attention (K3): port of `viditq_tpu/kernels/attention.py`.
+"""Layout-native attention (K3, K6): port of `viditq_tpu/kernels/attention.py`.
 
 `attention_bnhd` takes q/k/v in the projection's layout [B, N, H, D] and
-runs the one-shot kernel's semantics (`_attn_kernel`, attention.py:80-234):
-an f32 base-2 softmax over bf16-cast scores, block-diagonal (seg_len),
-full, or kv-masked, with a float PV or the int8 PV, and optionally emits
-its output row-quantized across all heads for the proj linear.
+dispatches as the JAX package does (attention.py:643):
 
-On CPU tensors it runs `attention_bnhd_plain`; on CUDA tensors it launches
-csrc/attention.cu (bf16 inputs) or raises. `int8_qk` is not ported.
+  * K3, the one-shot kernel (`_attn_kernel`, attention.py:80-234), for
+    block-diagonal attention and for kv lengths M <= ONESHOT_MAX_M: an f32
+    base-2 softmax over bf16-cast scores against the row's global max, a
+    float PV or the int8 PV, and optionally its output row-quantized
+    across all heads for the proj linear (the attention's own formula);
+  * K6, the kv-streaming kernel (`_attn_stream_kernel`, attention.py:
+    236-368), for full or kv-masked attention with M > ONESHOT_MAX_M: an
+    online softmax whose running max updates once per kv block of
+    `stream_kv_block` rows, unnormalised `e` in v's dtype, a `corr`
+    rescale of the accumulator, int8-PV codes rounded against the running
+    max (C3), and emission through K4's row quantize of the q-dtype output
+    (attention.py:705-713).
+
+On CPU tensors each runs its plain version (`attention_bnhd_plain`,
+`attention_bnhd_stream_plain`); on CUDA tensors it launches
+csrc/attention.cu or csrc/attention_stream.cu (bf16 inputs) or raises.
+`int8_qk` is not ported.
 
 The oracles `attention_bnhd_xla` / `attention_bnhd_xla_quant`
 (attention.py:409-478) are ported too; the tests hold both packages'
@@ -23,11 +35,39 @@ import torch
 
 from viditq_tpu_torch.kernels import _build
 from viditq_tpu_torch.kernels._counters import COUNTERS, count_plain
-from viditq_tpu_torch.kernels.fused_matmul import on_cuda, rdiv, require
+from viditq_tpu_torch.kernels.fused_matmul import (on_cuda, quantize_rows,
+                                                   rdiv, require)
 
 LOG2E = float(math.log2(math.e))
-KERNEL_HEAD_DIMS = (16, 72)  # instantiations in csrc/attention.cu
+KERNEL_HEAD_DIMS = (16, 72)  # instantiations in csrc/attention*.cu
 INT8_PV_MAX_KV = 1040                # 127 * 127 * 1040 < 2^24
+# full/masked attention over more kv rows than this streams them (K6)
+ONESHOT_MAX_M = 2048
+STREAM_TILE = 64  # kv rows per tile of csrc/attention_stream.cu
+
+
+def stream_kv_block(n: int, m: int, c: int, v_int8_in: bool = False) -> int:
+    """Kv rows per online-softmax step of K6 (`select_stream_blocks`,
+    attention.py:371-406, without its environment overrides).
+
+    The running max updates once per block, so the block fixes the bf16
+    rounding of `e` and the int8-PV codes (C3): like `seg_v_block` it is a
+    numerics rule, kept as an explicit parameter. 1024 at PixArt-Σ 1024
+    (N = M = 4096, C = 1152), 256 at N = M = 2304. The TPU rule picks the
+    largest power-of-two q block (<= 512) and kv block (<= 1024) dividing
+    the lengths whose VMEM estimate fits 16 MB."""
+    def vmem(bq, bkv):
+        return (bq * c * 2 + 2 * bkv * c * 2
+                + 2 * bkv * c * (1 if v_int8_in else 2)
+                + bq * c * 4 + bq * bkv * 4 + 2 * bq * 128 * 4)
+
+    for bq in (512, 256, 128):
+        if n % bq:
+            continue
+        for bkv in (1024, 512, 256, 128):
+            if m % bkv == 0 and vmem(bq, bkv) <= 16e6:
+                return bkv
+    raise ValueError(f"no kv-streaming block for N={n}, M={m}, C={c}")
 
 
 def seg_v_block(n: int, seg_len: int) -> int:
@@ -117,6 +157,111 @@ def attention_bnhd_plain(q, k, v, scale: float, seg_len: int = 0,
     return o.to(q.dtype)
 
 
+def attention_bnhd_stream_plain(q, k, v, scale: float, bkv: int,
+                                kv_mask: Optional[torch.Tensor] = None,
+                                int8_pv: bool = False):
+    """K6's recurrence (attention.py:267-368) over kv blocks of exactly bkv
+    rows; [B, N, H, D] -> [B, N, H, D] in q's dtype (no emission: the
+    wrapper quantizes the rounded output with K4, as attention.py:705-713
+    does). int8_pv quantizes v per channel over the whole kv axis
+    (attention.py:636-642)."""
+    count_plain("attention_bnhd_stream", q)
+    B, N, H, D = q.shape
+    M = k.shape[1]
+    require(M % bkv == 0, f"kv length {M} is not a multiple of {bkv}")
+    qf = (q.float() * (scale * LOG2E)).to(torch.bfloat16).float()
+    kf = k.to(torch.bfloat16).float()
+    if int8_pv:
+        vq, vs = _v_quant(v.reshape(B, M, H * D), M)
+        vq = vq.reshape(B, M, H, D).double()
+        vsd = (vs * (1.0 / (127.0 * 127.0))).reshape(B, H, 1, D)
+    m = torch.full((B, H, N, 1), float("-inf"), device=q.device)
+    r = torch.zeros((B, H, N, 1), device=q.device)
+    acc = torch.zeros((B, H, N, D), device=q.device)
+    for j in range(0, M, bkv):
+        s = torch.einsum("bnhd,bmhd->bhnm", qf, kf[:, j:j + bkv])
+        if kv_mask is not None:
+            s = s + torch.where(kv_mask[:, None, None, j:j + bkv] != 0, 0.0,
+                                float("-inf"))
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        # rows masked so far keep m = -inf; exp2(-inf - 0) is exactly 0
+        m_safe = torch.where(m_new == float("-inf"), 0.0, m_new)
+        e = torch.exp2(s - m_safe)
+        corr = torch.exp2(m - m_safe)
+        r = r * corr + e.sum(dim=-1, keepdim=True)
+        if int8_pv:
+            pq = torch.round(e * 127.0).double()
+            pv = torch.einsum("bhnm,bmhd->bhnd", pq,
+                              vq[:, j:j + bkv]).float() * vsd
+        else:
+            pv = torch.einsum("bhnm,bmhd->bhnd", e.to(v.dtype).float(),
+                              v[:, j:j + bkv].float())
+        acc = acc * corr + pv
+        m = m_new
+    o = acc * rdiv(1.0, torch.clamp(r, min=1e-30))
+    return o.permute(0, 2, 1, 3).to(q.dtype)
+
+
+def attention_bnhd_stream(q, k, v, scale: float,
+                          kv_mask: Optional[torch.Tensor] = None,
+                          int8_pv: bool = False, emit: bool = False,
+                          bkv: Optional[int] = None):
+    """K6: kv-streaming attention for M > ONESHOT_MAX_M (see the module
+    docstring). bkv defaults to `stream_kv_block`. With emit=True returns
+    (int8 codes [B, N, H*D], scales [B, N, 1]) from K4."""
+    B, N, H, D = q.shape
+    M = k.shape[1]
+    C = H * D
+    if bkv is None:
+        bkv = stream_kv_block(N, M, C, v_int8_in=int8_pv)
+    if not on_cuda(q, k, v, kv_mask):
+        out = attention_bnhd_stream_plain(q, k, v, scale, bkv, kv_mask,
+                                          int8_pv)
+    else:
+        out = _attention_stream_cuda(q, k, v, scale, bkv, kv_mask, int8_pv)
+    if not emit:
+        return out
+    codes, scales = quantize_rows(out.reshape(B * N, C))
+    return codes.reshape(B, N, C), scales.reshape(B, N, 1)
+
+
+def _attention_stream_cuda(q, k, v, scale, bkv, kv_mask, int8_pv):
+    B, N, H, D = q.shape
+    M = k.shape[1]
+    C = H * D
+    require(q.dtype == k.dtype == v.dtype == torch.bfloat16,
+            "the CUDA attention kernel takes bfloat16 q/k/v")
+    require(D in KERNEL_HEAD_DIMS, f"head dim {D} not in {KERNEL_HEAD_DIMS}")
+    require(M % bkv == 0 and bkv % STREAM_TILE == 0,
+            f"kv block {bkv} must divide M={M} and be a multiple of "
+            f"{STREAM_TILE}")
+    q3 = q.reshape(B, N, C).contiguous()
+    k3 = k.reshape(B, M, C).contiguous()
+    v3 = v.reshape(B, M, C).contiguous()
+    lib = _build.lib()
+    stream = _build.stream_ptr(q)
+    vs = None
+    v_arg = v3
+    if int8_pv:
+        v_arg = torch.empty((B, M, C), dtype=torch.int8, device=q.device)
+        vs = torch.empty((B, 1, C), dtype=torch.float32, device=q.device)
+        _build.check(lib.vq_attn_vquant(
+            v3.data_ptr(), v_arg.data_ptr(), vs.data_ptr(), B, M, C, M,
+            stream), "vq_attn_vquant")
+    mask = None
+    if kv_mask is not None:
+        mask = kv_mask.to(torch.int32).reshape(B, M).contiguous()
+    out = torch.empty((B, N, C), dtype=q.dtype, device=q.device)
+    _build.check(lib.vq_attention_stream(
+        q3.data_ptr(), k3.data_ptr(), v_arg.data_ptr(),
+        None if vs is None else vs.data_ptr(),
+        None if mask is None else mask.data_ptr(), out.data_ptr(),
+        B, N, M, H, D, bkv, float(scale * LOG2E), int(int8_pv), stream),
+        "vq_attention_stream")
+    COUNTERS["attention_bnhd_stream"].launches += 1
+    return out.reshape(B, N, H, D)
+
+
 def attention_bnhd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    scale: float, seg_len: int = 0,
                    kv_mask: Optional[torch.Tensor] = None,
@@ -131,7 +276,8 @@ def attention_bnhd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     int8_pv: round(e*127) softmax codes times per-channel int8 v, dequant
     folded into the output; v is grouped per `v_block` tokens in seg mode
     (default `seg_v_block(N, seg_len)`) and over the whole kv axis
-    otherwise."""
+    otherwise. Without seg_len and with M > ONESHOT_MAX_M the call goes to
+    K6 (`attention_bnhd_stream`), as in the JAX package."""
     if int8_qk:
         raise NotImplementedError("int8_qk is not ported")
     if not emit_sym:
@@ -144,6 +290,8 @@ def attention_bnhd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     require(seg_len == 0 or (M == N and N % seg_len == 0),
             "seg mode needs k/v co-indexed with q and N % seg_len == 0")
     require(seg_len == 0 or kv_mask is None, "seg mode takes no kv_mask")
+    if seg_len == 0 and M > ONESHOT_MAX_M:
+        return attention_bnhd_stream(q, k, v, scale, kv_mask, int8_pv, emit)
     if seg_len > 0 and int8_pv:
         v_block = seg_v_block(N, seg_len) if v_block is None else v_block
         require(v_block % seg_len == 0 and N % v_block == 0,

@@ -1,4 +1,5 @@
-"""DiT layers on the STDiT path (port of `viditq_tpu/models/layers.py`).
+"""DiT layers on the STDiT and PixArt paths (port of
+`viditq_tpu/models/layers.py`).
 
 Linear layers that a plan may quantize are `QuantLinear`s built with the
 spec their dotted name resolves to, exactly as in the JAX package, so the
@@ -7,7 +8,11 @@ layout-native dataflow of the JAX kernel path: q/k/v stay [B, N, H, D] and
 go to `attention_bnhd` (K3); under a fused plan the input quantize runs
 once in a producer (K1 or K4) and the attention emits int8 for its proj
 (K2). The port has this one dataflow; the JAX package's CPU fallbacks and
-the TPU-only shape gates have no counterpart.
+the TPU-only shape gates have no counterpart. PixArt-Σ's KV-compressed
+self-attention keeps the JAX package's `sdpa` route: PyTorch's
+`scaled_dot_product_attention` on CUDA tensors, where the JAX package
+called the stock Pallas flash kernel (not a kernel of its own), and a copy
+of `sdpa_xla` on CPU tensors.
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ from torch import nn
 from viditq_tpu_torch.kernels.attention import attention_bnhd, seg_v_block
 from viditq_tpu_torch.kernels.fused_matmul import (emission_block_n,
                                                    ln_modulate_quantize)
+from viditq_tpu_torch.quant import core as qcore
 from viditq_tpu_torch.quant.qlinear import (Prequant, QuantCtx, QuantLinear,
                                             is_fused_dynamic,
                                             shared_prequant)
@@ -46,6 +52,25 @@ def layer_norm(x: torch.Tensor, dtype, eps: float = 1e-6) -> torch.Tensor:
     mean = xf.mean(dim=-1, keepdim=True)
     var = xf.var(dim=-1, unbiased=False, keepdim=True)
     return ((xf - mean) * torch.rsqrt(var + eps)).to(dtype)
+
+
+class AffineLayerNorm(nn.Module):
+    """LayerNorm with learned scale and bias, eps 1e-6, in f32
+    (layers.py:57-69)."""
+
+    def __init__(self, dim: int, eps: float = 1e-6, dtype=torch.bfloat16):
+        super().__init__()
+        self.eps = eps
+        self.dtype = dtype
+        self.scale = nn.Parameter(torch.ones(dim))
+        self.bias = nn.Parameter(torch.zeros(dim))
+
+    def forward(self, x):
+        xf = x.float()
+        mean = xf.mean(dim=-1, keepdim=True)
+        var = xf.var(dim=-1, unbiased=False, keepdim=True)
+        y = (xf - mean) * torch.rsqrt(var + self.eps)
+        return (y * self.scale.float() + self.bias.float()).to(self.dtype)
 
 
 def approx_gelu(x: torch.Tensor) -> torch.Tensor:
@@ -205,6 +230,117 @@ class SelfAttention(nn.Module):
         return self.proj(out.reshape(B, N, C), qctx)
 
 
+def sdpa_xla(q, k, v, scale: float):
+    """Attention over [B, H, N, D] with an f32 softmax (layers.py:171-184):
+    scores in f32, probabilities cast to q's dtype before the PV."""
+    attn = torch.einsum("bhnd,bhmd->bhnm", (q * scale).float(), k.float())
+    attn = torch.softmax(attn, dim=-1).to(q.dtype)
+    return torch.einsum("bhnm,bhmd->bhnd", attn, v)
+
+
+def sdpa(q, k, v, scale: float):
+    """layers.py:206-236 without a mask (its one caller here, the
+    KV-compressed attention, has none): PyTorch's fused attention on CUDA
+    tensors (the JAX package's stock flash kernel there is not its own
+    kernel), the f32 softmax oracle on CPU tensors."""
+    if not q.is_cuda:
+        return sdpa_xla(q, k, v, scale)
+    return F.scaled_dot_product_attention(q, k, v, scale=scale)
+
+
+class DepthwiseQuantConv(nn.Module):
+    """Depthwise conv with kernel = stride = ratio, the PixArt-Σ KV-compress
+    `sr` layer (layers.py:239-277). `kernel` keeps the JAX layout
+    [r, r, 1, C]; the conv is a reshape and a per-channel weighted sum of
+    each r x r patch in f32. Under a plan it always runs simulate
+    semantics, whatever the backend: min-max fake quant of the kernel per
+    its weight spec and dynamic fake quant of the input per its act spec."""
+
+    def __init__(self, dim: int, ratio: int,
+                 lspec: Optional[LayerQuantSpec] = None,
+                 dtype=torch.bfloat16):
+        super().__init__()
+        self.ratio = ratio
+        self.lspec = lspec
+        self.dtype = dtype
+        self.kernel = nn.Parameter(torch.full((ratio, ratio, 1, dim),
+                                              1.0 / ratio ** 2))
+        self.bias = nn.Parameter(torch.zeros(dim))
+
+    def forward(self, x, qctx: Optional[QuantCtx] = None):
+        """x [B, H, W, C] -> [B, H/r, W/r, C]."""
+        r = self.ratio
+        w = self.kernel
+        spec = self.lspec
+        if spec is not None and qctx is not None and qctx.mode == "quant":
+            if spec.weight is not None and spec.weight_quant:
+                w2 = w.reshape(-1, w.shape[-1])
+                d, z = qcore.compute_qparams(w2, spec.weight)
+                w = qcore.fake_quant(w2, d, z, spec.weight).reshape(w.shape)
+            if spec.act is not None and spec.act_quant:
+                x = qcore.fake_quant_dynamic(x, spec.act)
+        B, H, W, C = x.shape
+        xg = x.to(self.dtype).float().reshape(B, H // r, r, W // r, r, C)
+        wg = w.to(self.dtype).float().reshape(1, 1, r, 1, r, C)
+        out = (xg * wg).sum(dim=(2, 4)).to(self.dtype)
+        return out + self.bias.to(self.dtype)
+
+
+class KVCompressSelfAttention(nn.Module):
+    """PixArt-Σ self-attention with KV compression (layers.py:579-653):
+    q/k/v/proj linears (each quantizes its own input under a fused plan:
+    K5), k and v downsampled on the token grid, and `sdpa` over N queries
+    and N / r^2 keys. Sampling 'conv' (the released Σ config: the shared
+    depthwise `sr` conv, then the affine `norm`) and 'uniform' are ported;
+    'ave' and 'uniform_every' raise NotImplementedError."""
+
+    SAMPLINGS = ("conv", "uniform")
+
+    def __init__(self, dim: int, num_heads: int, sampling: Optional[str],
+                 sr_ratio: int, resolver: Resolver = no_quant,
+                 prefix: str = "", dtype=torch.bfloat16):
+        super().__init__()
+        if sr_ratio > 1 and sampling not in self.SAMPLINGS:
+            raise NotImplementedError(
+                f"KV-compress sampling {sampling!r} is not ported")
+        self.num_heads = num_heads
+        self.sampling = sampling
+        self.sr_ratio = sr_ratio
+        self.q, self.k, self.v, self.proj = (
+            QuantLinear(dim, dim, resolver(f"{prefix}.{n}"), dtype=dtype)
+            for n in ("q", "k", "v", "proj"))
+        if sr_ratio > 1 and sampling == "conv":
+            self.sr = DepthwiseQuantConv(dim, sr_ratio,
+                                         resolver(f"{prefix}.sr"), dtype)
+            self.norm = AffineLayerNorm(dim, dtype=dtype)
+
+    def _downsample(self, t, H, W, qctx):
+        B, N, C = t.shape
+        r = self.sr_ratio
+        if self.sampling is None or r == 1:
+            return t
+        grid = t.reshape(B, H, W, C)
+        if self.sampling == "uniform":
+            grid = grid[:, ::r, ::r]
+        else:
+            grid = self.norm(self.sr(grid, qctx))
+        return grid.reshape(B, -1, C)
+
+    def forward(self, x, qctx: Optional[QuantCtx] = None, HW=None):
+        B, N, C = x.shape
+        H, D = self.num_heads, C // self.num_heads
+        h, w = HW if HW is not None else (math.isqrt(N),) * 2
+        q = self.q(x, qctx)
+        k = self._downsample(self.k(x, qctx), h, w, qctx)
+        v = self._downsample(self.v(x, qctx), h, w, qctx)
+        M = k.shape[1]
+        out = sdpa(q.reshape(B, N, H, D).transpose(1, 2),
+                   k.reshape(B, M, H, D).transpose(1, 2),
+                   v.reshape(B, M, H, D).transpose(1, 2), scale=D ** -0.5)
+        out = out.transpose(1, 2).reshape(B, N, C)
+        return self.proj(out, qctx)
+
+
 class CrossAttention(nn.Module):
     """Multi-head cross-attention to 0-masked prompt tokens
     (layers.py:656-740, the layout-native branch)."""
@@ -302,6 +438,30 @@ class CaptionEmbedder(nn.Module):
 
     def forward(self, caption):
         return self.fc2(approx_gelu(self.fc1(caption.to(self.dtype))))
+
+
+class PatchEmbed(nn.Module):
+    """2D patchify conv (layers.py:881-913) lowered like PatchEmbed3D: each
+    p x p patch is one row of p*p*C_in values in the conv kernel's
+    (ph, pw, C_in) flatten order. `proj.kernel`: [p*p*C_in, embed_dim]."""
+
+    def __init__(self, patch_size: int, in_channels: int, embed_dim: int,
+                 resolver: Resolver = no_quant, prefix: str = "x_embedder",
+                 dtype=torch.bfloat16):
+        super().__init__()
+        self.patch_size = patch_size
+        self.proj = QuantLinear(patch_size * patch_size * in_channels,
+                                embed_dim, resolver(f"{prefix}.proj"),
+                                dtype=dtype)
+
+    def forward(self, x, qctx: Optional[QuantCtx] = None):
+        # x: [B, C, H, W] -> [B, h*w, D]
+        B, C, Hh, W = x.shape
+        p = self.patch_size
+        x = x.reshape(B, C, Hh // p, p, W // p, p)
+        x = x.permute(0, 2, 4, 3, 5, 1).reshape(
+            B, (Hh // p) * (W // p), p * p * C)
+        return self.proj(x, qctx)
 
 
 class PatchEmbed3D(nn.Module):

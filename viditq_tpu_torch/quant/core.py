@@ -1,8 +1,10 @@
 """Quantizer math: min-max qparams (port of `viditq_tpu/quant/core.py`).
 
-Only what the weight tables of an inference plan need: group-wise min/max
-with the reference's sign clamps and the 'min_max' scale init
-(reference `qdiff/quantizer/base_quantizer.py:168-228`). Same formulas,
+What the weight tables of an inference plan and the simulate-semantics
+PixArt-Σ `sr` conv need: group-wise min/max with the reference's sign
+clamps, the 'min_max' scale init (reference
+`qdiff/quantizer/base_quantizer.py:168-228`), and fake quant with
+nearest rounding, static or dynamic. Same formulas,
 same float32 arithmetic order as the JAX package, so the tables are equal
 bit for bit on equal inputs.
 """
@@ -71,3 +73,30 @@ def compute_qparams(x: torch.Tensor, spec: QuantSpec,
             f"scale_method {spec.scale_method!r} is not ported")
     x_min, x_max = minmax(x, spec)
     return qparams_minmax(x_min, x_max, spec, n_bits)
+
+
+def fake_quant(x: torch.Tensor, delta: torch.Tensor,
+               zero_point: torch.Tensor, spec: QuantSpec,
+               n_bits: Optional[int] = None) -> torch.Tensor:
+    """Quantize-dequantize with given parameters, in float32, returned in
+    x's dtype (core.py:260-280). Rounding 'nearest' and 'nearest_ste' (the
+    same forward; the port has no training path); code x / delta as a
+    division."""
+    if spec.round_mode not in ("nearest", "nearest_ste"):
+        raise NotImplementedError(
+            f"round_mode {spec.round_mode!r} is not ported")
+    n_levels = spec.n_levels(n_bits)
+    delta = delta.float()
+    zero_point = zero_point.float()
+    x_int = torch.round(x.float() / delta) + zero_point
+    if spec.sym:
+        x_quant = torch.clamp(x_int, -n_levels - 1, n_levels)
+    else:
+        x_quant = torch.clamp(x_int, 0, n_levels - 1)
+    return ((x_quant - zero_point) * delta).to(x.dtype)
+
+
+def fake_quant_dynamic(x: torch.Tensor, spec: QuantSpec) -> torch.Tensor:
+    """Calibrate from the live tensor, then fake-quant (core.py:283-291)."""
+    delta, zero_point = compute_qparams(x, spec)
+    return fake_quant(x, delta, zero_point, spec)

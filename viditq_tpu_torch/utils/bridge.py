@@ -7,12 +7,18 @@ returns the tensors the port's model of the same configuration loads with
 
   * module paths become the port's dotted names: a list container named
     `blocks_3` becomes `blocks.3` (calibrate.py:30-45's rule);
-  * the scanned layout (`scan_blocks=True`: one `blocks` container whose
-    every leaf has a leading depth axis, stdit.py:267-286) is split into
-    `blocks.{d}`;
+  * the scanned layouts (`scan_blocks=True`) are split into `blocks.{i}`:
+    one `blocks` container (stdit.py:267-286), or PixArt-Σ's runs of
+    uniform blocks, one container per run named by its first block,
+    `blocks_0` and `blocks_14` (pixart.py:203-242). A container is scanned
+    when its `scale_shift_table` has a leading depth axis (3 dims; a
+    block's own table is [6, C]); run `blocks_{s}` holds blocks s, s+1, ...;
   * flax Dense kernels stay [K, N] (the port keeps that layout);
-  * a conv kernel (`x_embedder.proj`, [pt, ph, pw, C_in, D]) becomes the
-    port's 2D patch matrix [pt*ph*pw*C_in, D] (the same flatten order);
+  * a patchify conv kernel (`x_embedder.proj`, [pt, ph, pw, C_in, D] or
+    [ph, pw, C_in, D]) becomes the port's patch matrix [pt*ph*pw*C_in, D]
+    (the same flatten order); the depthwise KV-compress conv kernel
+    (`attn.sr.kernel`, [r, r, 1, C]) keeps its layout, which
+    `DepthwiseQuantConv` uses as it is;
   * the packed quant leaves (`w_delta`, `w_zp`, `w_int`, `w_colsum`)
     become buffers of the same names and shapes.
 """
@@ -46,21 +52,40 @@ def _dotted(path: tuple) -> str:
 
 
 def _convert(name: str, arr: np.ndarray) -> tuple:
-    if name.endswith(".kernel") and arr.ndim > 2:
+    if (name.endswith(".kernel") and arr.ndim > 2
+            and not name.endswith(".sr.kernel")):
         arr = arr.reshape(-1, arr.shape[-1])
     return name, torch.from_numpy(np.array(arr, copy=True))
+
+
+def scanned_runs(params: Mapping) -> Dict[str, int]:
+    """Scanned block containers of a params tree -> their first block."""
+    runs = {}
+    for key, sub in params.items():
+        base, sep, tail = key.rpartition("_")
+        if key == "blocks":
+            start = 0
+        elif base == "blocks" and sep and tail.isdigit():
+            start = int(tail)
+        else:
+            continue
+        if np.ndim(sub.get("scale_shift_table")) == 3:
+            runs[key] = start
+    return runs
 
 
 def state_dict_from_flax(params: Mapping,
                          quant: Optional[Mapping] = None
                          ) -> Dict[str, torch.Tensor]:
+    runs = scanned_runs(params)
     out: Dict[str, torch.Tensor] = {}
     for tree in (params, quant or {}):
         for path, arr in _flatten(tree).items():
-            if path[0] == "blocks":
-                # scanned stack: leading depth axis on every leaf
+            if path[0] in runs:
+                # scanned run: leading depth axis on every leaf
                 for d in range(arr.shape[0]):
-                    name = _dotted(("blocks", str(d)) + path[1:])
+                    name = _dotted(("blocks", str(runs[path[0]] + d))
+                                   + path[1:])
                     k, v = _convert(name, arr[d])
                     out[k] = v
                 continue
