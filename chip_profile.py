@@ -7,8 +7,10 @@ Run from the root of a checkout on a machine with one card:
     python3 chip_profile.py
 
 For each slice of `chip_smoke.py` (STDiT-XL/2 16x512x512 and PixArt-Σ
-1024, full width, random weights, sm8 tables) and each arm (bf16, sm8) it
-runs one warm-up CFG forward at batch 2, then one more under
+1024, full width, random weights) and each of its arms (bf16 and sm8 on the
+sm8 plan's model; for STDiT also w8a8, the reference W8A8 plan on the
+native backend, on its own model) it runs one warm-up CFG forward at
+batch 2, then one more under
 `torch.profiler`, and prints the host wall time, the device time (the sum
 of CUDA kernel time), the device's idle share (1 - device / wall) and the
 device time by kernel group and by kernel. Needs CUDA; builds the kernels
@@ -33,6 +35,8 @@ GROUPS = (
     ("int8_gemm", "K2 int8 GEMM"),
     ("group_quant", "K2 emission group quantize"),
     ("ln_mod_quant", "K1 LN+modulate+quantize"),
+    ("dyn_quant_rows", "K7a row quantize (native)"),
+    ("int8_matmul", "K7b int8 GEMM (native)"),
     ("quant_rows", "K4 row quantize"),
     ("flash", "SDPA (KV-compressed attention)"),
     ("fmha", "SDPA (KV-compressed attention)"),
@@ -86,7 +90,6 @@ def main() -> int:
     _build.lib()
     for name, cfg, n_prompt in (("stdit", cs.STDIT_CFG, 120),
                                 ("sigma", cs.SIGMA_CFG, 300)):
-        model = cs.build_model(cfg, "cuda")
         latent = latent_size(cfg)
         rng = np.random.default_rng(0)
         x = torch.tensor(rng.standard_normal((2, 4, *latent)),
@@ -95,7 +98,14 @@ def main() -> int:
         y = torch.tensor(rng.standard_normal((2, 1, n_prompt, 4096)) * 0.1,
                          dtype=torch.bfloat16, device="cuda")
         mask = torch.ones((1, n_prompt), dtype=torch.int32, device="cuda")
-        for arm, qctx in (("bf16", None), ("sm8", QuantCtx(mode="quant"))):
+        model, model_plan = None, None
+        for arm in cs.SLICE_KERNELS[name]:
+            plan = cs.ARM_PLANS.get(arm, cs.SM8_PLAN)
+            if plan != model_plan:
+                model = None
+                torch.cuda.empty_cache()
+                model, model_plan = cs.build_model(cfg, "cuda", plan=plan), plan
+            qctx = None if arm == "bf16" else QuantCtx(mode="quant")
             wall, by_kernel = profile_forward(model, (x, t, y, mask), qctx)
             device = sum(by_kernel.values())
             groups = defaultdict(float)
@@ -109,7 +119,7 @@ def main() -> int:
             print("  top kernels:")
             for k, ms in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]:
                 print(f"    {ms:9.2f} ms  {k[:110]}")
-        del model
+        model = None
         torch.cuda.empty_cache()
     return 0
 

@@ -15,20 +15,23 @@ Phases (any failure exits non-zero):
      difference, relative error, the median time of both from CUDA
      events, the least time the card could take (bound) and, where one
      PyTorch call computes the same function, that call's time;
-  4. reference: tiny sm8 STDiT and PixArt-Σ models on the card (kernels)
-     against the same models on the CPU (plain versions);
+  4. reference: tiny STDiT (sm8 and the reference W8A8 on the native
+     backend) and tiny sm8 PixArt-Σ models on the card (kernels) against
+     the same models on the CPU (plain versions);
   5. slice: full-width STDiT-XL/2 (28 blocks, C=1152, random weights from
-     a seed), bf16 and W8A8-sm8 arms over the whole 20-step CFG DDIM
-     schedule, with ms/step, peak memory, sm8-vs-bf16 error and the launch
-     count of every kernel;
+     a seed), bf16, W8A8-sm8 and reference W8A8 (`w8a8_dynamic.yaml` on
+     the native backend: K7a/K7b) arms over the whole 20-step CFG DDIM
+     schedule, with ms/step, peak memory, quantized-vs-bf16 error and the
+     launch count of every kernel;
   6. slice_sigma: full-width PixArt-Σ 1024 (28 blocks, C=1152, KV
      compression x2 on blocks 14-27, caption 300x4096), bf16 and sm8 arms
      over the whole 20-step DPM-Solver++ CFG schedule, built through
      `utils/workload`, with the same readings.
-Each slice resets the launch counts just before its run and reads them
-just after. The third-to-last line is the card's name and power limit, the
+Each arm resets the launch counts just before its run and reads them just
+after; an arm that launches a kernel outside its list, or none of one in
+it, fails. The third-to-last line is the card's name and power limit, the
 second-to-last a JSON object with one entry per kernel (launches summed
-over both slices), the last {"ok": true, "device": {...}}.
+over all arms of both slices), the last {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -43,6 +46,8 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 SM8_PLAN = ROOT / "configs/opensora/w8a8_tpu_fused_sm8.yaml"
+# the reference ViDiT-Q W8A8 (asym weights and acts), native backend
+W8A8_PLAN = ROOT / "configs/opensora/w8a8_dynamic.yaml"
 STEPS = 20  # sampler steps per arm (bench.py's n_steps): the whole schedule
 # PixArt-Σ 1024 as benchmarks/bench_configs.py:388-391 builds it; the
 # sampler of the t2i workloads (configs/workload/pixart_alpha_512.py)
@@ -70,7 +75,7 @@ PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12}
 CODE_MAX_DIFF = 1
 CODE_MISMATCH_FRAC = 1e-3
 REL_ERR = 1e-2
-SLICE_REL_ERR = 0.1        # sm8 vs bf16 final latent: 8-bit sanity bound
+SLICE_REL_ERR = 0.1        # int8 vs bf16 final latent: 8-bit sanity bound
 # tiny sm8 model, card vs CPU: bf16 activations in both, summed in another
 # order by cuBLAS and the CPU; this model's bf16 output is 1e-2 away from
 # its own float32 output (measured on the CPU), so 3e-2 bounds the
@@ -85,6 +90,8 @@ REPLACES = {
     "quantize_rows": "viditq_tpu/kernels/fused_matmul.py:606",
     "fused_dynq_int8_matmul": "viditq_tpu/kernels/fused_matmul.py:209",
     "attention_bnhd_stream": "viditq_tpu/kernels/attention.py:236",
+    "dynamic_quant_rows": "viditq_tpu/kernels/int_matmul.py:72",
+    "int8_matmul": "viditq_tpu/kernels/int_matmul.py:142",
 }
 SOURCES = {
     "ln_modulate_quantize": "viditq_tpu_torch/csrc/ln_mod_quant.cu",
@@ -93,16 +100,23 @@ SOURCES = {
     "quantize_rows": "viditq_tpu_torch/csrc/quant_rows.cu",
     "fused_dynq_int8_matmul": "viditq_tpu_torch/kernels/fused_matmul.py",
     "attention_bnhd_stream": "viditq_tpu_torch/csrc/attention_stream.cu",
+    "dynamic_quant_rows": "viditq_tpu_torch/csrc/int_matmul.cu",
+    "int8_matmul": "viditq_tpu_torch/csrc/int_matmul.cu",
 }
-# kernels each slice's main path must launch, per arm
+# kernels each slice's main path launches, per arm (and no other)
+FUSED_KERNELS = ("ln_modulate_quantize", "int8_consumer_matmul",
+                 "attention_bnhd", "quantize_rows", "fused_dynq_int8_matmul")
 SLICE_KERNELS = {
     "stdit": {"bf16": ("attention_bnhd",),
-              "sm8": ("ln_modulate_quantize", "int8_consumer_matmul",
-                      "attention_bnhd", "quantize_rows",
-                      "fused_dynq_int8_matmul")},
+              "sm8": FUSED_KERNELS,
+              "w8a8": ("dynamic_quant_rows", "int8_matmul",
+                       "attention_bnhd")},
     "sigma": {"bf16": ("attention_bnhd", "attention_bnhd_stream"),
-              "sm8": tuple(REPLACES)},
+              "sm8": FUSED_KERNELS + ("attention_bnhd_stream",)},
 }
+# the plan of each quantized arm (the bf16 arm runs the sm8 arm's model
+# in fp mode)
+ARM_PLANS = {"sm8": SM8_PLAN, "w8a8": W8A8_PLAN}
 
 
 def fail(msg: str):
@@ -170,10 +184,10 @@ def attn_bound(B, N, H, D, kv_rows, int8_pv, emit, kv_total):
 
 
 def check_case(name, case, kernel_fn, plain_fn, records, cost=None,
-               library_fn=None, library_note=""):
+               library_fn=None, library_note="", exact=False):
     """Run kernel and plain version on the same inputs, compare every
-    output, time both and the library call; append the result with its
-    bound (cost = (bytes, ops))."""
+    output (identical with exact), time both and the library call; append
+    the result with its bound (cost = (bytes, ops))."""
     import torch
     got = kernel_fn()
     want = plain_fn()
@@ -190,6 +204,8 @@ def check_case(name, case, kernel_fn, plain_fn, records, cost=None,
         mx, frac, rel = compare(g, w, is_codes)
         parts.append(f"out{i}: max_abs {mx:.3g} mismatch {frac:.3g} "
                      f"rel {rel:.3g}")
+        if exact and not torch.equal(g, w):
+            fail(f"{name}/{case}: output {i} differs (max abs {mx})")
         if is_codes:
             if mx > CODE_MAX_DIFF or frac > CODE_MISMATCH_FRAC:
                 fail(f"{name}/{case}: codes differ (max {mx}, frac {frac})")
@@ -222,6 +238,7 @@ def phase_kernels(records):
     import torch.nn.functional as F
     from viditq_tpu_torch.kernels import attention as A
     from viditq_tpu_torch.kernels import fused_matmul as FM
+    from viditq_tpu_torch.kernels import int_matmul as IM
     dev = "cuda"
     g = torch.Generator(device=dev).manual_seed(0)
 
@@ -389,6 +406,48 @@ def phase_kernels(records):
                                   + 2 * m_rows * n,
                                   {"int8": 2 * m_rows * n * C}))
 
+    # K7a (the native backend's act quantize): every step is exact or
+    # correctly rounded, so codes, scales, zp and rowsum are identical
+    for case, (m_rows, k, sym) in (
+            ("asym [32768,1152]", (M, C, False)),
+            ("asym [32768,4608] (fc2 input)", (M, 4 * C, False)),
+            ("sym [32768,1152]", (M, C, True)),
+            ("asym [19,72] (ragged row)", (19, 72, False))):
+        xa = randn(m_rows, k) + 0.2
+        check_case("dynamic_quant_rows", case,
+                   lambda: IM.dynamic_quant_rows(xa, sym),
+                   lambda: IM.dynamic_quant_rows_plain(xa, sym), records,
+                   cost=(3 * m_rows * k + 12 * m_rows, {}), exact=True)
+
+    # K7b at the w8a8 arm's four shapes (asym x asym, bf16 out, bias), and
+    # one ragged shape that takes the byte-wise loader
+    def k7b_inputs(m_rows, k, n):
+        xq_, xs_, xz_, xr_ = IM.dynamic_quant_rows(randn(m_rows, k))
+        wq_ = randi8(k, n)
+        return (xq_, wq_, xs_, xz_, xr_,
+                rands(1, n, lo=1e-4, hi=1e-3),
+                torch.randint(-20, 20, (1, n), generator=g,
+                              device=dev).float(),
+                wq_.float().sum(dim=0, keepdim=True),
+                randn(n, dtype=torch.float32, scale=0.1))
+    for i, (case, (m_rows, k, n)) in enumerate((
+            ("q/k/v/proj [32768,1152]x[1152,1152]", (M, C, C)),
+            ("fc1 [32768,1152]x[1152,4608]", (M, C, 4 * C)),
+            ("fc2 [32768,4608]x[4608,1152]", (M, 4 * C, C)),
+            ("kv_linear [240,1152]x[1152,2304]", (B * P, C, 2 * C)),
+            ("ragged [19,72]x[72,40]", (19, 72, 40)))):
+        *tabs, bb = k7b_inputs(m_rows, k, n)
+        xq_, wq_ = tabs[0], tabs[1]
+        check_case("int8_matmul", case,
+                   lambda: IM.int8_matmul(*tabs, bias=bb),
+                   lambda: IM.int8_matmul_plain(*tabs, bias=bb), records,
+                   cost=(m_rows * k + k * n + 12 * m_rows + 16 * n
+                         + 2 * m_rows * n, {"int8": 2 * m_rows * n * k}),
+                   library_fn=(lambda: torch._int_mm(xq_, wq_)) if i == 0
+                   else None,
+                   library_note=" (torch._int_mm: int32 product only, no "
+                                "epilogue)")
+
 
 def random_init_(model, seed: int, scale: float):
     """normal x scale for every float parameter and table (bench.py:149-152
@@ -417,15 +476,19 @@ TINY_SIGMA_CFG = {"model": dict(type="PixArt", kv_compress_sampling="conv",
                   "image_size": 768, "dtype": "bf16"}
 
 
-def build_model(cfg, device, scale=0.02):
-    """The workload's model through `utils/workload.build_model` under the
-    sm8 plan, random weights (normal x scale, seed 0), min-max tables,
-    packed int8 slabs."""
+def build_model(cfg, device, scale=0.02, plan=SM8_PLAN):
+    """The workload's model through `utils/workload.build_model` under a
+    plan (the sm8 plan, or the reference W8A8 on the native backend),
+    random weights (normal x scale, seed 0: the same fp weights under
+    either plan), min-max tables, packed int8 slabs."""
     from viditq_tpu_torch.quant.calibrate import calibrate_weight_tables
     from viditq_tpu_torch.quant.native_pack import pack_native_weights
     from viditq_tpu_torch.utils.config import load_quant_config
     from viditq_tpu_torch.utils.workload import build_model as wl_build
-    resolver = load_quant_config(str(SM8_PLAN)).resolver()
+    qplan = load_quant_config(str(plan))
+    if plan == W8A8_PLAN:
+        qplan = qplan.with_backend("native")
+    resolver = qplan.resolver()
     model = wl_build(cfg, resolver, device=device)
     random_init_(model, 0, scale)
     calibrate_weight_tables(model)
@@ -434,10 +497,11 @@ def build_model(cfg, device, scale=0.02):
 
 
 def phase_reference():
-    """Tiny sm8 models: the card's kernels against the CPU's plain versions
-    on the same weights and inputs, for one forward (float32 output) and a
-    3-step CFG denoise (DDIM for STDiT, DPM-Solver++ for PixArt-Σ).
-    Weights are drawn at 0.1 so activations are O(1)."""
+    """Tiny models (STDiT under sm8 and under the native W8A8, PixArt-Σ
+    under sm8): the card's kernels against the CPU's plain versions on the
+    same weights and inputs, for one forward (float32 output) and a 3-step
+    CFG denoise (DDIM for STDiT, DPM-Solver++ for PixArt-Σ). Weights are
+    drawn at 0.1 so activations are O(1)."""
     import copy
     import torch
     from viditq_tpu_torch.pipelines.inference import quant_sample
@@ -445,13 +509,16 @@ def phase_reference():
     from viditq_tpu_torch.samplers.dpm_solver import DPMSolverSampler
     from viditq_tpu_torch.samplers.iddpm import IDDPM
     from viditq_tpu_torch.utils.workload import latent_size
-    for name, cfg, sampler in (
-            ("STDiT", TINY_STDIT_CFG, IDDPM(num_sampling_steps=3,
-                                            cfg_scale=4.0)),
-            ("PixArt-Σ", TINY_SIGMA_CFG,
-             DPMSolverSampler(num_sampling_steps=3, cfg_scale=4.5))):
+    for name, cfg, sampler, plan in (
+            ("sm8 STDiT", TINY_STDIT_CFG, IDDPM(num_sampling_steps=3,
+                                                cfg_scale=4.0), SM8_PLAN),
+            ("w8a8 STDiT", TINY_STDIT_CFG, IDDPM(num_sampling_steps=3,
+                                                 cfg_scale=4.0), W8A8_PLAN),
+            ("sm8 PixArt-Σ", TINY_SIGMA_CFG,
+             DPMSolverSampler(num_sampling_steps=3, cfg_scale=4.5),
+             SM8_PLAN)):
         latent = latent_size(cfg)
-        cpu = build_model(cfg, "cpu", scale=0.1)
+        cpu = build_model(cfg, "cpu", scale=0.1, plan=plan)
         gpu = copy.deepcopy(cpu).to("cuda")
         rng = np.random.default_rng(1)
         x = torch.tensor(rng.standard_normal((2, 4, *latent))).bfloat16()
@@ -469,32 +536,28 @@ def phase_reference():
         got = quant_sample(gpu, sampler, x[:1].cuda(), y.cuda(),
                            mask[:1].cuda()).float().cpu()
         rel_dn = float((got - want).norm() / want.norm())
-        print(f"phase reference: tiny sm8 {name} {tuple(latent)}, card vs "
+        print(f"phase reference: tiny {name} {tuple(latent)}, card vs "
               f"CPU plain versions: forward rel err {rel_fwd:.3g}, 3-step "
               f"CFG denoise rel err {rel_dn:.3g} (limit {TINY_REL_ERR})",
               flush=True)
         for rel in (rel_fwd, rel_dn):
             if not np.isfinite(rel) or rel > TINY_REL_ERR:
-                fail(f"tiny sm8 {name} disagrees with its CPU reference: "
+                fail(f"tiny {name} disagrees with its CPU reference: "
                      f"{rel}")
 
 
 def run_slice(name, cfg, z_scale, n_prompt):
-    """Both arms of one slice over the whole schedule: ms/step, peak
-    memory, launches, plain calls on CUDA (must be 0), sm8 vs bf16 error.
-    Returns each kernel's launches over both arms."""
+    """Every arm of one slice over the whole schedule: ms/step, peak
+    memory, launches, plain calls on CUDA (must be 0), each quantized arm's
+    error against bf16. The bf16 and sm8 arms share the sm8 plan's model;
+    another plan's arm gets its own model, built from the same seed.
+    Returns each kernel's launches summed over the arms."""
     import torch
     from viditq_tpu_torch.kernels import _counters
     from viditq_tpu_torch.pipelines.inference import fp_sample, quant_sample
     from viditq_tpu_torch.quant.qlinear import QuantCtx
     from viditq_tpu_torch.utils.workload import build_sampler, latent_size
     latent = latent_size(cfg)
-    t0 = time.time()
-    model = build_model(cfg, "cuda")
-    torch.cuda.synchronize()
-    print(f"phase slice {name}: {cfg['model']['type']} at latent {latent}, "
-          f"CFG batch 2, built + calibrated + packed in "
-          f"{time.time() - t0:.1f} s", flush=True)
     rng = np.random.default_rng(0)
     z = torch.tensor(rng.standard_normal((1, 4, *latent)) * z_scale,
                      dtype=torch.bfloat16, device="cuda")
@@ -502,18 +565,34 @@ def run_slice(name, cfg, z_scale, n_prompt):
                      dtype=torch.bfloat16, device="cuda")
     mask = torch.ones((1, n_prompt), dtype=torch.int32, device="cuda")
     sampler = build_sampler(cfg)
+    arms = tuple(SLICE_KERNELS[name])
     counts, outs, ms = {}, {}, {}
-    for arm, run in (("bf16", fp_sample), ("sm8", quant_sample)):
+    model, model_plan = None, None
+    for arm in arms:
+        plan = ARM_PLANS.get(arm, SM8_PLAN)
+        if plan != model_plan:
+            model = None
+            torch.cuda.empty_cache()
+            t0 = time.time()
+            model = build_model(cfg, "cuda", plan=plan)
+            torch.cuda.synchronize()
+            model_plan = plan
+            print(f"phase slice {name}: {cfg['model']['type']} at latent "
+                  f"{latent}, CFG batch 2, plan {plan.name}, built + "
+                  f"calibrated + packed in {time.time() - t0:.1f} s",
+                  flush=True)
+        qctx = None if arm == "bf16" else QuantCtx(mode="quant")
         # warm-up: one CFG forward
         with torch.no_grad():
             model(torch.cat([z, z]), torch.tensor([999.0, 999.0],
                                                    device="cuda"), y, mask,
-                  qctx=QuantCtx(mode="quant") if arm == "sm8" else None)
+                  qctx=qctx)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         _counters.reset()
         t0 = time.time()
-        out = run(model, sampler, z, y, mask)
+        out = (fp_sample if arm == "bf16" else quant_sample)(
+            model, sampler, z, y, mask)
         torch.cuda.synchronize()
         ms[arm] = (time.time() - t0) * 1e3 / STEPS
         counts[arm] = _counters.snapshot()
@@ -531,19 +610,20 @@ def run_slice(name, cfg, z_scale, n_prompt):
             fail(f"{name} {arm} output is not finite")
         if any(v["plain_cuda"] for v in counts[arm].values()):
             fail(f"{name} {arm}: a plain version ran on CUDA tensors")
-        for k in SLICE_KERNELS[name][arm]:
-            if counts[arm][k]["launches"] == 0:
-                fail(f"{name} {arm} arm never launched {k}")
-    rel = float((outs["sm8"] - outs["bf16"]).norm() / outs["bf16"].norm())
-    print(f"  {name}: {STEPS} steps; bf16 {ms['bf16']:.1f} ms/step, sm8 "
-          f"{ms['sm8']:.1f} ms/step; sm8 vs bf16 final-latent rel err "
-          f"{rel:.4g} (limit {SLICE_REL_ERR})", flush=True)
-    if rel > SLICE_REL_ERR:
-        fail(f"{name}: sm8 vs bf16 relative error {rel}")
-    del model
+        for k, v in counts[arm].items():
+            if (v["launches"] > 0) != (k in SLICE_KERNELS[name][arm]):
+                fail(f"{name} {arm} arm launched {k} {v['launches']} times")
+    model = None
     torch.cuda.empty_cache()
-    return {k: counts["bf16"][k]["launches"] + counts["sm8"][k]["launches"]
-            for k in counts["sm8"]}
+    for arm in arms[1:]:
+        rel = float((outs[arm] - outs["bf16"]).norm() / outs["bf16"].norm())
+        print(f"  {name}: {STEPS} steps; bf16 {ms['bf16']:.1f} ms/step, "
+              f"{arm} {ms[arm]:.1f} ms/step; {arm} vs bf16 final-latent rel "
+              f"err {rel:.4g} (limit {SLICE_REL_ERR})", flush=True)
+        if rel > SLICE_REL_ERR:
+            fail(f"{name}: {arm} vs bf16 relative error {rel}")
+    return {k: sum(counts[arm][k]["launches"] for arm in arms)
+            for k in counts[arms[0]]}
 
 
 def main() -> int:

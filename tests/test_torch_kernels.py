@@ -149,8 +149,9 @@ def test_k2_consumer_group_wise_x():
 
 @pytest.mark.parametrize("sym", [True, False])
 def test_int8_oracles_match_jax(sym):
-    # pack_weight / dynamic_quant_rows_ref / int8_matmul_ref: the round(x/s)
-    # oracle form; codes and integer sums exact, floats to rounding
+    # pack_weight / dynamic_quant_rows_plain / int8_matmul_plain: the
+    # round(x/s) oracle form; codes and integer sums exact, floats to
+    # rounding
     rng = np.random.default_rng(10)
     w = rng.standard_normal((96, 64)).astype(np.float32) * 0.1
     d = np.abs(w).max(0, keepdims=True) / (127.0 if sym else 255.0)
@@ -162,13 +163,13 @@ def test_int8_oracles_match_jax(sym):
         np.testing.assert_array_equal(pp[k].numpy(), np.asarray(jp[k]))
     x = rng.standard_normal((32, 96)).astype(np.float32)
     jq = jim.dynamic_quant_rows_ref(jnp.asarray(x), sym=sym)
-    pq = IM.dynamic_quant_rows_ref(t(x), sym=sym)
+    pq = IM.dynamic_quant_rows_plain(t(x), sym=sym)
     for a, b in zip(pq, jq):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=2.5e-7)
     want = jim.int8_matmul_ref(jq[0], jp["w_q"], *jq[1:], jp["w_scale"],
                                jp["w_zp"], jp["w_colsum"])
-    got = IM.int8_matmul_ref(pq[0], pp["w_q"], *pq[1:], pp["w_scale"],
-                             pp["w_zp"], pp["w_colsum"])
+    got = IM.int8_matmul_plain(pq[0], pp["w_q"], *pq[1:], pp["w_scale"],
+                               pp["w_zp"], pp["w_colsum"], torch.float32)
     assert rel_err(got, want) < 1e-6
 
 

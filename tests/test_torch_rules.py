@@ -1,18 +1,21 @@
 """Rules of the PyTorch port (`viditq_tpu_torch`) that hold without a GPU:
 it never imports jax/flax, its wrappers run their plain versions on CPU
-tensors without counting kernel launches, and the modes the port does not
-implement raise instead of computing something else."""
+tensors without counting kernel launches, the modes the port does not
+implement raise instead of computing something else, plans resolve as in
+the JAX package, and every CUDA source is bound and checked on the card."""
 
 import ast
+import dataclasses
 from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
-from viditq_tpu_torch.kernels import _counters
+from viditq_tpu_torch.kernels import _build, _counters
 from viditq_tpu_torch.kernels import attention as A
 from viditq_tpu_torch.kernels import fused_matmul as FM
+from viditq_tpu_torch.kernels import int_matmul as IM
 
 PKG = Path(__file__).resolve().parent.parent / "viditq_tpu_torch"
 
@@ -60,6 +63,10 @@ def test_cpu_tensors_run_plain_versions_and_count_no_launch():
     qh = x.reshape(2, 32, 4, 16)
     A.attention_bnhd(qh, qh, qh, 0.25, seg_len=4, int8_pv=True, emit=True)
     A.attention_bnhd(qh, qh, qh, 0.25)
+    q = IM.dynamic_quant_rows(x.reshape(-1, 64))
+    IM.int8_matmul(q[0], w, *q[1:], ws, ws, ws)
+    IM.quantized_linear_native(x, {"w_q": w, "w_scale": ws, "w_zp": ws,
+                                   "w_colsum": ws})
     snap = _counters.snapshot()
     assert all(v == {"launches": 0, "plain_cuda": 0} for v in snap.values()), \
         snap
@@ -106,23 +113,80 @@ def test_unported_modes_raise(call):
 
 
 def test_unported_plans_raise_at_model_construction():
-    import dataclasses
     from viditq_tpu_torch.quant.qlinear import QuantLinear
     from viditq_tpu_torch.utils.config import load_quant_config
     spec = load_quant_config(
         "configs/opensora/w8a8_tpu_fused_sm8.yaml").default_layer
-    for bad in (dataclasses.replace(spec, backend="simulate"),
-                dataclasses.replace(spec, impl=None),
-                dataclasses.replace(spec, act_quant=False)):
+    static = dataclasses.replace(spec, act=dataclasses.replace(
+        spec.act, dynamic=False))
+    for bad in (dataclasses.replace(spec, backend="simulate"), static,
+                dataclasses.replace(spec, act_quant=False),
+                dataclasses.replace(spec, split=2)):
         with pytest.raises(NotImplementedError):
             QuantLinear(64, 64, bad)
     QuantLinear(64, 64, spec)  # the sm8 layer spec is ported
+    # so is the native backend with any other impl
+    for impl in (None, "xla", "mixed", "pallas"):
+        assert not QuantLinear(64, 64, dataclasses.replace(
+            spec, impl=impl)).fused
+
+
+def test_with_backend_resolves_like_jax():
+    from test_torch_quant import LAYERS
+    from viditq_tpu.utils.config import load_quant_config as j_load
+    from viditq_tpu_torch.utils.config import load_quant_config
+    for plan in ("configs/opensora/w8a8_dynamic.yaml",
+                 "configs/opensora/w8a8_tpu_fused_sm8.yaml"):
+        for backend in ("native", "fused"):
+            jres = j_load(plan).with_backend(backend).resolver()
+            pres = load_quant_config(plan).with_backend(backend).resolver()
+            for name in LAYERS:
+                assert (dataclasses.asdict(pres(name))
+                        == dataclasses.asdict(jres(name))), (plan, name)
+    with pytest.raises(NotImplementedError):
+        load_quant_config(plan).with_backend("simulate")
+
+
+def test_fused_asymmetric_plan_still_raises():
+    # the asym modes of K1/K2/K4 are not ported: `backend: fused` with the
+    # reference's asymmetric quantizers raises at the first quant call
+    from viditq_tpu_torch.quant.qlinear import QuantCtx, QuantLinear
+    from viditq_tpu_torch.utils.config import load_quant_config
+    plan = load_quant_config("configs/opensora/w8a8_tpu_fused.yaml")
+    spec = plan.resolver()("blocks.0.mlp.fc1")
+    assert spec.impl == "fused" and not spec.act.sym
+    lin = QuantLinear(64, 128, spec, dtype=torch.float32)
+    with pytest.raises(NotImplementedError):
+        lin(torch.randn(8, 64), QuantCtx())
+    with pytest.raises(NotImplementedError):
+        FM.ln_modulate_quantize(*_inputs()[:3], sym=False)
 
 
 def test_hybrid_plan_overrides_raise_at_load():
     from viditq_tpu_torch.utils.config import load_quant_config
     with pytest.raises(NotImplementedError):
         load_quant_config("configs/opensora/w8a8_tpu_hybrid_sym.yaml")
+
+
+def test_every_kernel_source_is_bound_and_checked_on_the_card():
+    import re
+    import chip_smoke
+    exported = set()
+    for src in _build.CSRC.glob("*.cu"):
+        names = re.findall(r"VQ_EXPORT int (\w+)\(", src.read_text())
+        assert names, src.name
+        exported |= set(names)
+        rel = f"viditq_tpu_torch/csrc/{src.name}"
+        assert rel in chip_smoke.SOURCES.values(), rel
+    assert exported == set(_build.SIGNATURES)
+    assert set(chip_smoke.SOURCES) == set(chip_smoke.REPLACES) == set(
+        _counters.COUNTERS)
+    assert chip_smoke.SOURCES["dynamic_quant_rows"] == \
+        chip_smoke.SOURCES["int8_matmul"] == \
+        "viditq_tpu_torch/csrc/int_matmul.cu"
+    assert chip_smoke.REPLACES["dynamic_quant_rows"].endswith(
+        "int_matmul.py:72")
+    assert chip_smoke.REPLACES["int8_matmul"].endswith("int_matmul.py:142")
 
 
 def test_emission_group_rule_matches_runtime_call():

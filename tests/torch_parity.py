@@ -13,6 +13,7 @@ of 256 (K6); block 1 compresses k/v with the 2x2 `sr` conv.
 """
 
 import contextlib
+import dataclasses
 import os
 
 import jax
@@ -34,6 +35,9 @@ from viditq_tpu_torch.utils.config import load_quant_config
 
 SM8 = "configs/opensora/w8a8_tpu_fused_sm8.yaml"
 SYM = "configs/opensora/w8a8_tpu_fused_sym.yaml"
+# the reference ViDiT-Q W8A8 (asym per-channel weights, asym dynamic
+# per-token acts); it runs on the native backend (`native_plan`)
+DYN = "configs/opensora/w8a8_dynamic.yaml"
 LATENT = (2, 16, 32)
 TINY = dict(input_size=LATENT, hidden_size=64, depth=2, num_heads=4,
             caption_channels=32, model_max_length=8)
@@ -65,6 +69,17 @@ def jax_kernel_path():
                 os.environ[k] = v
 
 
+def native_plan(impl=None):
+    """Plan transform of both packages: the native backend, and the JAX
+    impl to take ('pallas' runs K7a/K7b in interpret mode; the port runs
+    every impl but 'fused' as the one K7a -> K7b dataflow)."""
+    def transform(plan):
+        plan = plan.with_backend("native")
+        return dataclasses.replace(plan, default_layer=dataclasses.replace(
+            plan.default_layer, impl=impl))
+    return transform
+
+
 def inputs(batch: int = 2, seed: int = 0, kind: str = "stdit"):
     """x [B, 4, *latent], t [B], y [B, 1, L, 32], mask [B, L] (one padded
     prompt) as numpy arrays."""
@@ -85,11 +100,12 @@ def randomize(params, seed: int = 0, scale: float = 0.1):
 
 
 def build_jax(plan_path=SM8, scan_blocks: bool = False, seed: int = 0,
-              kind: str = "stdit", **overrides):
+              kind: str = "stdit", plan_fn=None, **overrides):
     """(JAX model, variables as numpy trees) with calibrated, packed
-    tables."""
+    tables. plan_fn: a transform of the loaded plan (`native_plan`)."""
     jcls, _, cfg, _ = KINDS[kind]
-    resolver = j_load(plan_path).resolver()
+    plan = j_load(plan_path)
+    resolver = (plan_fn(plan) if plan_fn else plan).resolver()
     model = jcls(resolver=resolver, dtype=jnp.float32,
                  scan_blocks=scan_blocks, **{**cfg, **overrides})
     x, t, y, mask = inputs(kind=kind)
@@ -105,11 +121,12 @@ def build_jax(plan_path=SM8, scan_blocks: bool = False, seed: int = 0,
 
 
 def build_port(plan_path=SM8, variables=None, fp_only: bool = False,
-               kind: str = "stdit", **overrides):
+               kind: str = "stdit", plan_fn=None, **overrides):
     """The port's model; loads the JAX variables through the bridge
     (params only with fp_only, to calibrate and pack in the port)."""
     _, pcls, cfg, _ = KINDS[kind]
-    model = pcls(resolver=load_quant_config(plan_path).resolver(),
+    plan = load_quant_config(plan_path)
+    model = pcls(resolver=(plan_fn(plan) if plan_fn else plan).resolver(),
                  dtype=torch.float32, **{**cfg, **overrides})
     if variables is not None:
         sd = state_dict_from_flax(variables["params"],

@@ -12,31 +12,16 @@
 //
 // Bound on the card: the int8 tensor cores at the main path's shapes
 // (M = 32768, K/N in 1152..4608: ~100-300 int8 ops per byte moved). This
-// kernel is a simple form: 128x128x64 block tiles, two shared-memory
-// buffers filled from registers (the next tile's global loads are in flight
-// while the tensor cores run on the current one; no cp.async/TMA), 8 warps
-// each computing 64x32 with mma.sync m16n8k32 s8 (int32 sums, exact). The
-// weight tile arrives [K, N] (the JAX layout) and is transposed 4x4 bytes
-// at a time (__byte_perm) into shared memory as [N][K], so each B fragment
-// is one 32-bit load. The emission's row max spans a whole 1536-column
+// kernel is a simple form: the main loop of int8_mma.cuh (128x128x64 block
+// tiles, register-staged double buffering, mma.sync m16n8k32 s8) with this
+// kernel's epilogues. The emission's row max spans a whole 1536-column
 // group, wider than a block, hence the f32 scratch and the second pass.
-#include "common.cuh"
+#include "int8_mma.cuh"
 
 namespace {
 
-constexpr int BM = 128;
-constexpr int BN = 128;
-constexpr int BK = 64;
-constexpr int LDS = BK + 16;  // padded shared row stride in bytes
-
-__device__ __forceinline__ void mma_s8(int* c, const uint32_t* a,
-                                       const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
+using vq::i8mma::BM;
+using vq::i8mma::BN;
 
 __device__ __forceinline__ float gelu_tanh(float o) {
   // 0.5 * o * (1 + tanh(sqrt(2/pi) * (o + 0.044715 * o^3))), o^3 = (o*o)*o
@@ -52,13 +37,12 @@ __global__ void __launch_bounds__(256)
                      const float* __restrict__ ws,
                      const float* __restrict__ bias, void* __restrict__ out,
                      int M, int N, int K, int kg) {
-  __shared__ __align__(16) int8_t As[2][BM * LDS];
-  __shared__ __align__(16) int8_t Bs[2][BN * LDS];
+  __shared__ vq::i8mma::Smem sm;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int wm = warp >> 2;  // 2 warps along M, 64 rows each
-  const int wn = warp & 3;   // 4 warps along N, 32 columns each
+  const int wm = warp >> 2;
+  const int wn = warp & 3;
   const int g = lane >> 2;
   const int t = lane & 3;
   const int m0 = blockIdx.y * BM;
@@ -81,101 +65,12 @@ __global__ void __launch_bounds__(256)
         for (int e = 0; e < 4; ++e) facc[i][j][e] = 0.0f;
   }
 
-  // the next tile is fetched into registers while the tensor cores work on
-  // the current one, then stored into the other shared-memory buffer
-  int4 a_reg[2];
-  uint32_t b_reg[2][4];
-  auto load_global = [&](int k0) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int v = tid + i * 256;  // A: BM rows x BK bytes, 16-byte vectors
-      const int gm = m0 + (v >> 2);
-      a_reg[i] = gm < M ? *reinterpret_cast<const int4*>(
-                              A + static_cast<size_t>(gm) * K + k0 + (v & 3) * 16)
-                        : make_int4(0, 0, 0, 0);
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      // W: 4 k-rows x 4 n-columns per item; a warp covers 8 k-quads x 4
-      // n-quads (16-byte row segments, spread shared-memory banks)
-      const int blk = tid + i * 256;
-      const int kq = ((blk >> 2) & 7) | (((blk >> 5) & 1) << 3);
-      const int gn = n0 + ((blk & 3) | ((blk >> 6) << 2)) * 4;
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        b_reg[i][j] = gn < N ? *reinterpret_cast<const uint32_t*>(
-                                   W + static_cast<size_t>(k0 + kq * 4 + j) * N + gn)
-                             : 0u;
-    }
-  };
-  auto store_smem = [&](int buf) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int v = tid + i * 256;
-      *reinterpret_cast<int4*>(As[buf] + (v >> 2) * LDS + (v & 3) * 16) =
-          a_reg[i];
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int blk = tid + i * 256;
-      const int kq = ((blk >> 2) & 7) | (((blk >> 5) & 1) << 3);
-      const int cn = ((blk & 3) | ((blk >> 6) << 2)) * 4;
-      // 4x4 byte transpose: word j holds 4 n-values at k-row j; word c of
-      // the result holds 4 k-values at n-column c
-      const uint32_t* w = b_reg[i];
-      const uint32_t lo01 = __byte_perm(w[0], w[1], 0x5140);
-      const uint32_t hi01 = __byte_perm(w[0], w[1], 0x7362);
-      const uint32_t lo23 = __byte_perm(w[2], w[3], 0x5140);
-      const uint32_t hi23 = __byte_perm(w[2], w[3], 0x7362);
-      int8_t* dst = Bs[buf] + cn * LDS + kq * 4;
-      *reinterpret_cast<uint32_t*>(dst) = __byte_perm(lo01, lo23, 0x5410);
-      *reinterpret_cast<uint32_t*>(dst + LDS) = __byte_perm(lo01, lo23, 0x7632);
-      *reinterpret_cast<uint32_t*>(dst + 2 * LDS) =
-          __byte_perm(hi01, hi23, 0x5410);
-      *reinterpret_cast<uint32_t*>(dst + 3 * LDS) =
-          __byte_perm(hi01, hi23, 0x7632);
-    }
-  };
-
-  const int nk = K / BK;
-  load_global(0);
-  store_smem(0);
-  __syncthreads();
-  for (int kt = 0; kt < nk; ++kt) {
-    const int buf = kt & 1;
-    if (kt + 1 < nk) load_global((kt + 1) * BK);
-    const int8_t* as = As[buf];
-    const int8_t* bs = Bs[buf];
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 32) {
-      uint32_t af[4][4];
-      uint32_t bfr[4][2];
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi) {
-        const int8_t* ap = as + (wm * 64 + mi * 16 + g) * LDS + kk + t * 4;
-        af[mi][0] = *reinterpret_cast<const uint32_t*>(ap);
-        af[mi][1] = *reinterpret_cast<const uint32_t*>(ap + 8 * LDS);
-        af[mi][2] = *reinterpret_cast<const uint32_t*>(ap + 16);
-        af[mi][3] = *reinterpret_cast<const uint32_t*>(ap + 8 * LDS + 16);
-      }
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        const int8_t* bp = bs + (wn * 32 + ni * 8 + g) * LDS + kk + t * 4;
-        bfr[ni][0] = *reinterpret_cast<const uint32_t*>(bp);
-        bfr[ni][1] = *reinterpret_cast<const uint32_t*>(bp + 16);
-      }
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni) mma_s8(acc[mi][ni], af[mi], bfr[ni]);
-    }
-    if (kt + 1 < nk) store_smem(buf ^ 1);
-    __syncthreads();
+  vq::i8mma::mainloop<false>(A, W, M, N, K, m0, n0, sm, acc, [&](int kt) {
     if constexpr (GW) {
-      if (((kt + 1) * BK) % kg == 0) {
+      if (((kt + 1) * vq::i8mma::BK) % kg == 0) {
         // group boundary: dequantize this k-group's partial sums by the
         // group's per-row scale and fold into the f32 accumulator
-        const int grp = kt * BK / kg;
+        const int grp = kt * vq::i8mma::BK / kg;
 #pragma unroll
         for (int mi = 0; mi < 4; ++mi)
 #pragma unroll
@@ -192,7 +87,7 @@ __global__ void __launch_bounds__(256)
           }
       }
     }
-  }
+  });
 
 #pragma unroll
   for (int mi = 0; mi < 4; ++mi)

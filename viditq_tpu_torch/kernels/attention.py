@@ -34,9 +34,9 @@ from typing import Optional
 import torch
 
 from viditq_tpu_torch.kernels import _build
+from viditq_tpu_torch.kernels._common import on_cuda, rdiv, require
 from viditq_tpu_torch.kernels._counters import COUNTERS, count_plain
-from viditq_tpu_torch.kernels.fused_matmul import (on_cuda, quantize_rows,
-                                                   rdiv, require)
+from viditq_tpu_torch.kernels.fused_matmul import quantize_rows
 
 LOG2E = float(math.log2(math.e))
 KERNEL_HEAD_DIMS = (16, 72)  # instantiations in csrc/attention*.cu

@@ -29,8 +29,9 @@ from typing import Optional, Tuple
 import torch
 
 from viditq_tpu_torch.kernels import _build
+from viditq_tpu_torch.kernels._common import (exact_int_matmul, is_bf16,
+                                              on_cuda, rdiv, require)
 from viditq_tpu_torch.kernels._counters import COUNTERS, count_plain
-from viditq_tpu_torch.kernels.int_matmul import exact_int_matmul
 
 _SQRT_2_OVER_PI = 0.7978845608028654
 
@@ -63,31 +64,6 @@ def select_block_k(k: int, block_k: int) -> int:
 # shared helpers
 # ---------------------------------------------------------------------------
 
-def on_cuda(*tensors: torch.Tensor) -> bool:
-    """True for CUDA tensors, False for CPU tensors; raises on a mix or on
-    any other device."""
-    devs = {t.device for t in tensors if t is not None}
-    if len(devs) != 1:
-        raise ValueError(f"tensors on several devices: {devs}")
-    dev = devs.pop()
-    if dev.type == "cpu":
-        return False
-    if dev.type == "cuda":
-        return True
-    raise ValueError(f"unsupported device {dev}")
-
-
-def require(cond: bool, msg: str) -> None:
-    if not cond:
-        raise ValueError(msg)
-
-
-def rdiv(c: float, t: torch.Tensor) -> torch.Tensor:
-    """c / t as a correctly rounded division (`c / tensor` in PyTorch is
-    `tensor.reciprocal() * c`, a different rounding)."""
-    return torch.full_like(t, c) / t
-
-
 def quantize_rows_f32(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """`_quantize_rows_f32` (sym): float codes and [.., 1] scales."""
     absmax = x.abs().amax(dim=-1, keepdim=True)
@@ -110,12 +86,6 @@ def _sym_only(sym: bool = True, sym_w: bool = True, **unsupported):
     for name, val in unsupported.items():
         if val is not None and val is not False:
             raise NotImplementedError(f"{name} is not ported")
-
-
-def _is_bf16(t: torch.Tensor) -> int:
-    require(t.dtype in (torch.bfloat16, torch.float32),
-            f"expected bfloat16 or float32, got {t.dtype}")
-    return int(t.dtype == torch.bfloat16)
 
 
 # ---------------------------------------------------------------------------
@@ -157,7 +127,7 @@ def ln_modulate_quantize(x: torch.Tensor, shift: torch.Tensor,
     qs = torch.empty((B * N, 1), dtype=torch.float32, device=x.device)
     _build.check(_build.lib().vq_ln_mod_quant(
         x.data_ptr(), shift.data_ptr(), scale.data_ptr(), q.data_ptr(),
-        qs.data_ptr(), B, N, C, float(eps), _is_bf16(x),
+        qs.data_ptr(), B, N, C, float(eps), is_bf16(x),
         _build.stream_ptr(x)), "vq_ln_mod_quant")
     COUNTERS["ln_modulate_quantize"].launches += 1
     return q, qs
@@ -184,7 +154,7 @@ def quantize_rows(x: torch.Tensor, sym: bool = True, gelu: bool = False,
     q = torch.empty((M, K), dtype=torch.int8, device=x.device)
     qs = torch.empty((M, 1), dtype=torch.float32, device=x.device)
     _build.check(_build.lib().vq_quant_rows(
-        x.data_ptr(), q.data_ptr(), qs.data_ptr(), M, K, _is_bf16(x),
+        x.data_ptr(), q.data_ptr(), qs.data_ptr(), M, K, is_bf16(x),
         _build.stream_ptr(x)), "vq_quant_rows")
     COUNTERS["quantize_rows"].launches += 1
     return q, qs

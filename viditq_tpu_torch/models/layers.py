@@ -7,7 +7,9 @@ same plan files and layer lists apply. The attention layers keep the
 layout-native dataflow of the JAX kernel path: q/k/v stay [B, N, H, D] and
 go to `attention_bnhd` (K3); under a fused plan the input quantize runs
 once in a producer (K1 or K4) and the attention emits int8 for its proj
-(K2). The port has this one dataflow; the JAX package's CPU fallbacks and
+(K2); on the native backend's other impls q/k/v share one K7a pass, each
+runs K7b, and the attention output goes to its proj in bf16. The port has
+this one dataflow per impl; the JAX package's CPU fallbacks and
 the TPU-only shape gates have no counterpart. PixArt-Σ's KV-compressed
 self-attention keeps the JAX package's `sdpa` route: PyTorch's
 `scaled_dot_product_attention` on CUDA tensors, where the JAX package

@@ -4,18 +4,24 @@
 the plan quantizes, the calibrated tables as buffers: `w_delta`/`w_zp`
 [n_bitwidth, n_timerange, 1, N] and the packed `w_int` [n_timerange, K, N]
 int8 slab with `w_colsum` [n_timerange, 1, N] (qlinear.py:412-421,
-584-591). It runs two paths:
+584-591). It runs three paths:
 
   * fp (no spec, an fp-listed layer, `qctx is None` or mode 'fp'):
     `x @ kernel + bias` in the model dtype;
-  * native fused (mode 'quant'): symmetric dynamic per-token int8 acts x
-    per-channel int8 weights through the fused kernels — with a
-    `Prequant` input from a producer kernel, the int8 consumer matmul (K2,
-    optionally emitting int8 for the next layer); otherwise the
-    quantize-in matmul (K5).
+  * native fused (mode 'quant', impl 'fused'): symmetric dynamic
+    per-token int8 acts x per-channel int8 weights through the fused
+    kernels — with a `Prequant` input from a producer kernel, the int8
+    consumer matmul (K2, optionally emitting int8 for the next layer);
+    otherwise the quantize-in matmul (K5);
+  * native (mode 'quant', any other impl): sym or asym dynamic per-token
+    int8 acts x sym or asym per-channel int8 weights — with a `Prequant`
+    input from `shared_prequant` (K7a), the int8 matmul with the
+    zero-point-corrected epilogue (K7b); otherwise
+    `quantized_linear_native` (K7a then K7b).
 
-Other backends (simulate fake quant, weight-only, static acts) and
-smooth-quant are not ported and raise NotImplementedError at construction.
+Other backends (simulate fake quant, weight-only, static acts), the
+q-diffusion split and smooth quant are not ported and raise
+NotImplementedError at construction.
 """
 
 from __future__ import annotations
@@ -29,6 +35,9 @@ from torch import nn
 from viditq_tpu_torch.kernels.fused_matmul import (fused_dynq_int8_matmul,
                                                    int8_consumer_matmul,
                                                    quantize_rows)
+from viditq_tpu_torch.kernels.int_matmul import (dynamic_quant_rows,
+                                                 int8_matmul,
+                                                 quantized_linear_native)
 from viditq_tpu_torch.quant.spec import LayerQuantSpec
 
 MODES = ("fp", "quant")
@@ -51,11 +60,15 @@ class QuantCtx:
 class Prequant(NamedTuple):
     """An input quantized once by a producer kernel: int8 codes [M, K] and
     float32 scales, one per row ([M, 1]) or, from K2's emission, one per
-    row and k-group ([M, G], group_wise=True)."""
+    row and k-group ([M, G], group_wise=True). From K7a also the per-row
+    zero points and code sums [M, 1] (None from the symmetric fused
+    producers)."""
 
     codes: torch.Tensor
     scale: torch.Tensor
     group_wise: bool = False
+    zp: Optional[torch.Tensor] = None
+    rowsum: Optional[torch.Tensor] = None
 
 
 def is_quantized(lspec: Optional[LayerQuantSpec]) -> bool:
@@ -63,13 +76,17 @@ def is_quantized(lspec: Optional[LayerQuantSpec]) -> bool:
                                   or lspec.smooth_quant.enable)
 
 
-def is_fused_dynamic(lspec: Optional[LayerQuantSpec]) -> bool:
-    """The fused-native dynamic-act dataflow (qlinear.py:387-388 with
-    impl 'fused')."""
+def is_native_dynamic(lspec: Optional[LayerQuantSpec]) -> bool:
+    """The native dynamic-act int8 backend, any impl (qlinear.py:387-388)."""
     return (lspec is not None and lspec.backend == "native"
-            and lspec.impl == "fused" and lspec.act is not None
-            and lspec.act.dynamic and lspec.act_quant
-            and lspec.weight is not None and lspec.weight_quant)
+            and lspec.act is not None and lspec.act.dynamic
+            and lspec.act_quant and lspec.weight is not None
+            and lspec.weight_quant)
+
+
+def is_fused_dynamic(lspec: Optional[LayerQuantSpec]) -> bool:
+    """The fused-native dynamic-act dataflow (impl 'fused')."""
+    return is_native_dynamic(lspec) and lspec.impl == "fused"
 
 
 def _check_ported(lspec: LayerQuantSpec) -> None:
@@ -77,31 +94,31 @@ def _check_ported(lspec: LayerQuantSpec) -> None:
         raise NotImplementedError("smooth-quant channel balancing")
     if lspec.split:
         raise NotImplementedError("q-diffusion channel split")
-    if not is_fused_dynamic(lspec):
+    if not is_native_dynamic(lspec):
         raise NotImplementedError(
-            f"only the fused native dynamic-act path is ported "
-            f"(backend={lspec.backend!r}, impl={lspec.impl!r})")
+            f"only the native dynamic-act backend is ported "
+            f"(backend={lspec.backend!r}, act_quant={lspec.act_quant})")
     if lspec.act.n_bits != 8:
         raise ValueError(
             f"native dynamic-act backend requires 8-bit acts, got "
             f"{lspec.act.n_bits}")
 
 
-def shared_prequant(x: torch.Tensor, lspec: Optional[LayerQuantSpec],
-                    col_scale: Optional[torch.Tensor] = None
+def shared_prequant(x: torch.Tensor, lspec: Optional[LayerQuantSpec]
                     ) -> Optional[Prequant]:
     """Quantize an input ONCE for sibling native linears (q/k/v share their
-    input; qlinear.py:79-110) with K4. None when the spec is not
-    representable as one shared pass."""
-    if (lspec is None or lspec.backend != "native" or lspec.act is None
-            or not lspec.act.dynamic or not lspec.act_quant
-            or not lspec.weight_quant
-            or (lspec.smooth_quant.enable and col_scale is None)):
+    input; qlinear.py:79-110): K4 under impl 'fused', K7a otherwise. None
+    when the spec is not one shared pass (not the native dynamic-act
+    backend, or smooth quant, whose per-layer rescale precedes the
+    quantize)."""
+    if not is_native_dynamic(lspec) or lspec.smooth_quant.enable:
         return None
     _check_ported(lspec)
-    q, s = quantize_rows(x.reshape(-1, x.shape[-1]), sym=lspec.act.sym,
-                         col_scale=col_scale)
-    return Prequant(q, s)
+    x2 = x.reshape(-1, x.shape[-1])
+    if lspec.impl == "fused":
+        return Prequant(*quantize_rows(x2, sym=lspec.act.sym))
+    q, s, zp, rowsum = dynamic_quant_rows(x2.contiguous(), sym=lspec.act.sym)
+    return Prequant(q, s, zp=zp, rowsum=rowsum)
 
 
 class QuantLinear(nn.Module):
@@ -119,6 +136,7 @@ class QuantLinear(nn.Module):
         self.bias = (nn.Parameter(torch.zeros(features)) if use_bias
                      else None)
         self.native = is_quantized(lspec)
+        self.fused = self.native and is_fused_dynamic(lspec)
         if self.native:
             _check_ported(lspec)
             n_bw = lspec.weight.n_bitwidth
@@ -145,13 +163,17 @@ class QuantLinear(nn.Module):
         {'gelu': bool} — return the output as a group-wise `Prequant` for
         the next linear instead (K2's int8-emitting epilogue)."""
         quant = self.native and qctx is not None and qctx.mode == "quant"
-        if emit is not None and not (quant and prequant is not None):
+        if emit is not None and not (quant and self.fused
+                                     and prequant is not None):
             raise ValueError(
                 "emit requires the fused-native consumer path in quant mode")
         if not quant:
             return self.dense(x)
+        wspec = self.lspec.weight
         w_q = self.w_int[0]
-        w_scale = self.w_delta[self.lspec.weight.bit_idx, 0].reshape(1, -1)
+        w_scale = self.w_delta[wspec.bit_idx, 0].reshape(1, -1)
+        if not self.fused:
+            return self._native(x, prequant, w_q, w_scale)
         if prequant is not None:
             if emit is not None:
                 codes, scales = int8_consumer_matmul(
@@ -166,5 +188,29 @@ class QuantLinear(nn.Module):
         out = fused_dynq_int8_matmul(
             x.reshape(-1, self.in_features), w_q, w_scale, self.bias,
             out_dtype=self.dtype, sym=self.lspec.act.sym,
-            sym_w=self.lspec.weight.sym)
+            sym_w=wspec.sym)
+        return out.reshape(*x.shape[:-1], self.features)
+
+    def _native(self, x, prequant, w_q, w_scale):
+        """The native int8 path of impl None/'xla'/'mixed'/'pallas'
+        (qlinear.py:572-643): K7b on a prequant input, else K7a -> K7b.
+        Asym weight codes are stored shifted into signed int8, so their
+        zero point shifts with them; sym codes have zero point 0."""
+        wspec, aspec = self.lspec.weight, self.lspec.act
+        shift = 0.0 if wspec.sym else float(2 ** (wspec.n_bits - 1))
+        w_zp = self.w_zp[wspec.bit_idx, 0].reshape(1, -1) - shift
+        w_colsum = self.w_colsum[0]
+        if prequant is not None:
+            if prequant.zp is None or prequant.group_wise:
+                raise ValueError("the native path takes a K7a prequant")
+            out = int8_matmul(prequant.codes, w_q, prequant.scale,
+                              prequant.zp, prequant.rowsum, w_scale, w_zp,
+                              w_colsum, out_dtype=self.dtype, bias=self.bias)
+            return out if x is None else out.reshape(*x.shape[:-1], -1)
+        packed = {"w_q": w_q, "w_scale": w_scale, "w_zp": w_zp,
+                  "w_colsum": w_colsum}
+        out = quantized_linear_native(x, packed, bias=self.bias,
+                                      act_sym=aspec.sym, w_sym=wspec.sym,
+                                      out_dtype=self.dtype,
+                                      impl=self.lspec.impl)
         return out.reshape(*x.shape[:-1], self.features)

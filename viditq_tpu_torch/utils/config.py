@@ -119,6 +119,21 @@ class QuantPlanConfig:
             return spec
         return resolve
 
+    def with_backend(self, backend: str) -> "QuantPlanConfig":
+        """The plan with another default backend
+        (viditq_tpu/utils/config.py:223-234): 'native' (the int8 execution
+        of the layer's impl) or 'fused' (native with impl 'fused', as the
+        YAML `backend: fused`). 'simulate' (fake quant) is not ported."""
+        if backend == "simulate":
+            raise NotImplementedError("the simulate backend is not ported")
+        if backend == "fused":
+            return dataclasses.replace(
+                self, default_layer=dataclasses.replace(
+                    self.default_layer, backend="native", impl="fused"))
+        return dataclasses.replace(
+            self, default_layer=dataclasses.replace(
+                self.default_layer, backend=backend))
+
 
 def load_quant_config(path: str) -> QuantPlanConfig:
     """Load a reference-format quant YAML (t2v/scripts/ptq.py:60-148)."""
