@@ -14,7 +14,9 @@ Phases (any failure exits non-zero):
      PixArt-Σ 1024x1024, CFG batch 2), with code mismatch, max code
      difference, relative error, the median time of both from CUDA
      events, the least time the card could take (bound) and, where one
-     PyTorch call computes the same function, that call's time;
+     PyTorch call computes the same function, that call's time; then K3
+     and K6 at the edge cases of their shared core (`EDGE_CASES`: ragged
+     q and kv tiles, a kv block masked whole, head dim 16);
   4. reference: tiny STDiT (sm8 and the reference W8A8 on the native
      backend) and tiny sm8 PixArt-Σ models on the card (kernels) against
      the same models on the CPU (plain versions);
@@ -81,6 +83,33 @@ SLICE_REL_ERR = 0.1        # int8 vs bf16 final latent: 8-bit sanity bound
 # its own float32 output (measured on the CPU), so 3e-2 bounds the
 # rounding and flags any kernel that computes something else (O(1))
 TINY_REL_ERR = 3e-2
+
+# K3 / K6 cases the main path does not reach (phase kernels, after the
+# main-path cases): (kernel, case, shape and mode). `masked` zeroes kv rows
+# [lo, hi) of the last batch row.
+EDGE_CASES = (
+    ("attention_bnhd", "full N=M=1000 bf16 (ragged q and kv tiles)",
+     dict(B=2, N=1000, M=1000, H=16, D=72, int8_pv=False, emit=False)),
+    ("attention_bnhd", "full N=M=1000 int8_pv emit",
+     dict(B=2, N=1000, M=1000, H=16, D=72, int8_pv=True, emit=True)),
+    ("attention_bnhd_stream",
+     "N=M=2304 bkv 256 bf16, kv block 1 masked whole",
+     dict(B=2, N=2304, M=2304, H=16, D=72, bkv=256, masked=(256, 512),
+          int8_pv=False, emit=False)),
+    ("attention_bnhd_stream",
+     "N=M=2304 bkv 256 int8_pv emit, kv block 1 masked whole",
+     dict(B=2, N=2304, M=2304, H=16, D=72, bkv=256, masked=(256, 512),
+          int8_pv=True, emit=True)),
+    ("attention_bnhd", "D=16 N=200 M=72 masked bf16",
+     dict(B=2, N=200, M=72, H=4, D=16, masked=(50, 72), int8_pv=False,
+          emit=False)),
+    ("attention_bnhd", "D=16 N=200 M=72 masked int8_pv emit",
+     dict(B=2, N=200, M=72, H=4, D=16, masked=(50, 72), int8_pv=True,
+          emit=True)),
+    ("attention_bnhd_stream", "D=16 N=M=2304 bkv 256 int8_pv",
+     dict(B=2, N=2304, M=2304, H=4, D=16, bkv=256, int8_pv=True,
+          emit=False)),
+)
 
 # file:line of the TPU kernel each port kernel replaces
 REPLACES = {
@@ -392,6 +421,8 @@ def phase_kernels(records):
             else sdpa_call(q, k, v, 0, m),
             library_note=" (scaled_dot_product_attention)")
 
+    attention_edge_cases(records, randn)
+
     # K5 (K4 -> K2): cross_attn.kv_linear and cross_attn.q_linear
     for case, (m_rows, n) in (
             ("kv_linear [240,1152]x[1152,2304]", (B * P, 2 * C)),
@@ -447,6 +478,51 @@ def phase_kernels(records):
                    else None,
                    library_note=" (torch._int_mm: int32 product only, no "
                                 "epilogue)")
+
+
+def attention_edge_cases(records, randn):
+    """K3 and K6 at shapes the main path does not reach (EDGE_CASES), with
+    the main cases' tolerances: ragged q and kv tiles of the attention core,
+    a kv block masked whole, the tiny models' head dim."""
+    import torch
+    from viditq_tpu_torch.kernels import attention as A
+    from viditq_tpu_torch.kernels import fused_matmul as FM
+    for name, case, p in EDGE_CASES:
+        B, N, M, H, D = p["B"], p["N"], p["M"], p["H"], p["D"]
+        q, k, v = randn(B, N, H, D), randn(B, M, H, D), randn(B, M, H, D)
+        m = None
+        if "masked" in p:
+            lo, hi = p["masked"]
+            m = torch.ones((B, M), dtype=torch.int32, device=q.device)
+            m[B - 1, lo:hi] = 0
+        int8_pv, emit, sc = p["int8_pv"], p["emit"], D ** -0.5
+        rows = [M] * B if m is None else [int(r) for r in (m != 0).sum(1)]
+        cost = attn_bound(B, N, H, D, rows, int8_pv, emit, M)
+        if m is not None:
+            cost = (cost[0] + 4 * B * M, cost[1])
+        if name == "attention_bnhd":
+            kw = dict(kv_mask=m, int8_pv=int8_pv, emit=emit)
+            kernel = (lambda q=q, k=k, v=v, kw=kw:
+                      A.attention_bnhd(q, k, v, sc, **kw))
+            plain = (lambda q=q, k=k, v=v, kw=kw:
+                     A.attention_bnhd_plain(q, k, v, sc, **kw))
+        else:
+            bkv = p["bkv"]
+
+            def kernel(q=q, k=k, v=v, m=m, int8_pv=int8_pv, emit=emit,
+                       bkv=bkv):
+                return A.attention_bnhd_stream(q, k, v, sc, m, int8_pv, emit,
+                                               bkv=bkv)
+
+            def plain(q=q, k=k, v=v, m=m, int8_pv=int8_pv, emit=emit,
+                      bkv=bkv, B=B, N=N, C=H * D):
+                o = A.attention_bnhd_stream_plain(q, k, v, sc, bkv, m,
+                                                  int8_pv)
+                if not emit:
+                    return o
+                codes, scales = FM.quantize_rows_plain(o.reshape(B * N, C))
+                return codes.reshape(B, N, C), scales.reshape(B, N, 1)
+        check_case(name, f"edge {case}", kernel, plain, records, cost=cost)
 
 
 def random_init_(model, seed: int, scale: float):

@@ -26,6 +26,7 @@ from jax.experimental.pallas import tpu as pltpu
 from viditq_tpu.kernels import attention as jattn
 from viditq_tpu.kernels import fused_matmul as jfm
 from viditq_tpu.kernels import int_matmul as jim
+from viditq_tpu_torch.kernels import _build
 from viditq_tpu_torch.kernels import attention as A
 from viditq_tpu_torch.kernels import fused_matmul as FM
 from viditq_tpu_torch.kernels import int_matmul as IM
@@ -288,3 +289,54 @@ def test_k3_plain_matches_port_oracle():
     got = A.attention_bnhd(t(q), t(k), t(v), 0.25, seg_len=seg, int8_pv=True)
     assert rel_err(want, np.asarray(jwant)) < 2e-3
     assert rel_err(got, want) < 2e-2
+
+
+def test_kv_perm_is_the_s8_fragment_order():
+    # k index 4*t4 + j (+16) of the s8 wgmma's register operand, packed
+    # from the score registers, holds score column {2t4, 2t4+1, 8+2t4,
+    # 9+2t4}[j] (+16) of its 32-row chunk; csrc/attention.cu's kv_perm
+    # writes v^T in the same order
+    want = [half * 16 + (2 * t4, 2 * t4 + 1, 8 + 2 * t4, 9 + 2 * t4)[j]
+            for half in (0, 1) for t4 in range(4) for j in range(4)]
+    assert list(A.KV_PERM) == want
+    src = (_build.CSRC / "attention.cu").read_text()
+    assert ("(k >> 4) * 16 + ((k & 3) >> 1) * 8 + ((k & 15) >> 2) * 2 + "
+            "(k & 1)") in src
+    assert [(k >> 4) * 16 + ((k & 3) >> 1) * 8 + ((k & 15) >> 2) * 2
+            + (k & 1) for k in range(32)] == want
+
+
+@pytest.mark.parametrize("m", [24, 64, 120, 300, 1000])
+def test_v_codes_transposed_layout(m):
+    # the full modes' v codes: [B, H, D, Mp] per head, kv rows of each
+    # 32-row chunk in KV_PERM order, zero past M
+    rng = np.random.default_rng(20)
+    B, H, D = 2, 3, 16
+    vq = rng.integers(-127, 128, (B, m, H * D)).astype(np.float32)
+    vt = A.v_codes_transposed(t(vq), H).numpy()
+    mp = A.kv_padded(m)
+    assert mp % A.KV_TILE == 0 and m <= mp < m + A.KV_TILE
+    assert vt.shape == (B, H, D, mp) and vt.dtype == np.int8
+    padded = np.zeros((B, mp, H, D), np.int8)
+    padded[:, :m] = vq.reshape(B, m, H, D)
+    rows = (np.arange(mp) // 32) * 32 + np.asarray(A.KV_PERM)[np.arange(mp)
+                                                             % 32]
+    np.testing.assert_array_equal(vt, padded[:, rows].transpose(0, 2, 3, 1))
+
+
+def test_int8_pv_from_permuted_operands_equals_plain_sum():
+    # the s8 product of the kernels: byte k of a 32-row chunk of the
+    # register operand (codes from the score layout) against byte k of v^T;
+    # with both in KV_PERM order it is the plain int8 PV sum, exactly
+    rng = np.random.default_rng(21)
+    rows, m, H, D = 16, 120, 2, 72
+    codes = rng.integers(0, 128, (rows, m)).astype(np.int64)
+    vq = rng.integers(-127, 128, (1, m, H * D)).astype(np.float32)
+    vt = A.v_codes_transposed(t(vq), H).numpy()[0].astype(np.int64)
+    mp = vt.shape[-1]
+    a = np.zeros((rows, mp), np.int64)
+    a[:, :m] = codes
+    a = a.reshape(rows, mp // 32, 32)[:, :, list(A.KV_PERM)].reshape(rows, mp)
+    for h in range(H):
+        want = codes @ vq[0, :, h * D:(h + 1) * D].astype(np.int64)
+        np.testing.assert_array_equal(a @ vt[h].T, want)

@@ -250,3 +250,33 @@ def test_unported_pixart_options_raise(kw):
     with pytest.raises(NotImplementedError):
         PixArt(input_size=8, hidden_size=32, depth=1, num_heads=2,
                caption_channels=8, **kw)
+
+
+def test_chip_smoke_carries_the_attention_edge_cases():
+    import chip_smoke
+    cases = [(name, p) for name, _, p in chip_smoke.EDGE_CASES]
+    one_shot = [p for name, p in cases if name == "attention_bnhd"]
+    stream = [p for name, p in cases if name == "attention_bnhd_stream"]
+    # ragged q and kv tiles: full attention at N = M = 1000, bf16 PV and
+    # int8 PV with emission
+    assert any(p["N"] == p["M"] == 1000 and not p["int8_pv"]
+               for p in one_shot)
+    assert any(p["N"] == p["M"] == 1000 and p["int8_pv"] and p["emit"]
+               for p in one_shot)
+    # K6 at N = M = 2304, kv blocks of 256, one of them masked whole
+    assert any(p["N"] == p["M"] == 2304 and p["bkv"] == 256
+               and "masked" in p and p["masked"][0] % 256 == 0
+               and p["masked"][1] - p["masked"][0] >= 256 for p in stream)
+    # the tiny models' head dim, in both kernels
+    assert any(p["D"] == 16 for p in one_shot)
+    assert any(p["D"] == 16 for p in stream)
+    assert "attention_edge_cases(records" in Path(
+        chip_smoke.__file__).read_text()
+
+
+def test_attention_kernels_share_the_wgmma_core():
+    core = (_build.CSRC / "attn_core.cuh").read_text()
+    assert "wgmma.mma_async" in core and "cp.async" in core
+    for name in ("attention.cu", "attention_stream.cu"):
+        assert '#include "attn_core.cuh"' in (_build.CSRC / name).read_text()
+    assert "mma.sync" not in (_build.CSRC / "attention_stream.cu").read_text()

@@ -124,3 +124,91 @@ def test_k6_dispatch_counts_stream_plain_version():
     finally:
         A.attention_bnhd_stream_plain = orig
     assert calls == [torch.Size([B, N, H, D])]
+
+
+def _k6_tiled(q, k, v, scale, bkv, mask, int8_pv):
+    """K6 in the order the kernel runs it (csrc/attention_stream.cu): per
+    kv block of bkv rows, pass 1 over KV_TILE-row tiles for the block's row
+    max, pass 2 over the same tiles for e, its row sum and PV; bf16 PV adds
+    the tiles' products to the corr-rescaled accumulator, int8 PV sums the
+    s8 products of codes and transposed v codes (both in KV_PERM order)
+    exactly per block."""
+    B, N, H, D = q.shape
+    M = k.shape[1]
+    tile = A.KV_TILE
+    qf = (q.float() * (scale * A.LOG2E)).to(torch.bfloat16).float()
+    kf = k.float()
+    perm = torch.tensor(A.KV_PERM)
+    if int8_pv:
+        vq, vs = A._v_quant(v.reshape(B, M, H * D), M)
+        vt = A.v_codes_transposed(vq, H).long()          # [B, H, D, M]
+        vsd = (vs * (1.0 / (127.0 * 127.0))).reshape(B, H, 1, D)
+    m = torch.full((B, H, N, 1), float("-inf"))
+    r = torch.zeros((B, H, N, 1))
+    acc = torch.zeros((B, H, N, D))
+    for j in range(0, M, bkv):
+        tiles = range(j, j + bkv, tile)
+
+        def scores(t0):
+            s = torch.einsum("bnhd,bmhd->bhnm", qf, kf[:, t0:t0 + tile])
+            if mask is not None:
+                s = s.masked_fill(mask[:, None, None, t0:t0 + tile] == 0,
+                                  float("-inf"))
+            return s
+        bm = torch.full_like(m, float("-inf"))
+        for t0 in tiles:
+            bm = torch.maximum(bm, scores(t0).amax(dim=-1, keepdim=True))
+        m_new = torch.maximum(m, bm)
+        m_safe = torch.where(m_new == float("-inf"), 0.0, m_new)
+        corr = torch.exp2(m - m_safe)
+        rs = torch.zeros_like(r)
+        if not int8_pv:
+            acc = acc * corr
+        pvi = torch.zeros((B, H, N, D), dtype=torch.long)
+        for t0 in tiles:
+            e = torch.exp2(scores(t0) - m_safe)
+            rs = rs + e.sum(dim=-1, keepdim=True)
+            if int8_pv:
+                codes = torch.round(e * 127.0).long()
+                a = codes.reshape(B, H, N, tile // 32, 32)[..., perm]
+                b = vt[..., t0:t0 + tile].reshape(B, H, D, tile // 32, 32)
+                pvi += torch.einsum("bhnck,bhdck->bhnd", a, b)
+            else:
+                acc = acc + torch.einsum(
+                    "bhnm,bmhd->bhnd", e.to(torch.bfloat16).float(),
+                    v[:, t0:t0 + tile].float())
+        if int8_pv:
+            acc = acc * corr + pvi.float() * vsd
+        r = r * corr + rs
+        m = m_new
+    o = acc * (1.0 / torch.clamp(r, min=1e-30))
+    return o.permute(0, 2, 1, 3).to(q.dtype)
+
+
+@pytest.mark.parametrize("masked", [False, True], ids=["full", "block_masked"])
+@pytest.mark.parametrize("int8_pv", [False, True], ids=["bf16_pv", "int8_pv"])
+def test_k6_tile_schedule_matches_plain(masked, int8_pv):
+    # the kernel's tile schedule (two passes of KV_TILE-row tiles per kv
+    # block, the corr rescale folded into the bf16 accumulator, exact s8
+    # block sums over the permuted operands) against the plain version's
+    # whole-block recurrence; f32 sums in another order, bf16 outputs: at
+    # most a few outputs one bf16 ulp (2^-8 relative) apart
+    rng = np.random.default_rng(15)
+    b, n, m, h, d, bkv = 2, 96, 512, 2, 16, 128
+    q, k, v = (t(rng.standard_normal((b, x, h, d)).astype(np.float32))
+               .to(torch.bfloat16) for x in (n, m, m))
+    mask = None
+    if masked:
+        mask = torch.ones((b, m), dtype=torch.int32)
+        mask[1, bkv:2 * bkv] = 0   # kv block 1 masked whole
+        mask[0, 300:] = 0
+    got = _k6_tiled(q, k, v, d ** -0.5, bkv, mask, int8_pv)
+    want = A.attention_bnhd_stream_plain(q, k, v, d ** -0.5, bkv, mask,
+                                         int8_pv)
+    assert rel_err(got.float(), want.float()) < 2e-3
+
+
+def test_k6_wrapper_takes_kv_blocks_of_whole_tiles():
+    # the core's kv tile divides every stream_kv_block choice
+    for n, m, c in ((4096, 4096, 1152), (2304, 2304, 64), (256, 2304, 144)):
+        assert A.stream_kv_block(n, m, c) % A.KV_TILE == 0

@@ -14,90 +14,38 @@
 //   int8 PV: pv = float(sum(round(e*127) * vq)) * (vs * (1/127^2))
 //   acc    = acc * corr + pv
 // and at the end o = acc * (1 / max(r, 1e-30)), written in bf16. The int8
-// codes round against the RUNNING max (C3), so the max must be the whole
-// block's, not a 64-row tile's: the kernel walks each block twice, once
-// over QK^T for the block's row max and once for e, the row sum and PV.
-// Emission is not done here: the wrapper quantizes the bf16 output with
-// K4, as the JAX package does (attention.py:705-713).
+// codes and the bf16 rounding of e are taken against the RUNNING max (C3),
+// which must be the whole block's, not a tile's: each block is walked
+// twice, pass 1 over QK^T for the block's row max only, pass 2 for e, the
+// row sum and PV (one exp2 per score). A one-pass form would round e
+// against a per-tile max and move the result (ROADMAP C9). Emission is not
+// done here: the wrapper quantizes the bf16 output with K4, as the JAX
+// package does (attention.py:705-713).
 //
-// Bound on the card: tensor-core compute (4*B*H*N*M*D flops; at Σ-1024
-// 154.6 GFLOP against 75 MB of q/k/v/o, about 0.16 ms at 989 TFLOP/s),
-// plus B*H*N*M exp2, here computed once (scores are computed twice).
-// Design (simple first): one block of 4 warps per (64 q rows, head,
-// batch); each warp owns 16 q rows with q in registers; k (and v,
-// transposed) tiles of 64 rows go through shared memory; QK^T and the bf16
-// PV run on mma.sync m16n8k16 bf16 (f32 sums, D padded to a multiple of 16
-// with zeros), the int8 PV on mma.sync m16n8k32 s8 with exact int32 sums
-// per block. The s8 A operand comes straight from the QK^T accumulators:
-// a thread's score columns are not the k32 fragment's, so the contraction
-// index is permuted (a sum over kv rows does not depend on their order)
-// and v is read from shared memory under the same permutation. D is a
-// template parameter: 72 (PixArt/STDiT-XL) and 16 (the tiny models).
-#include <math.h>
-
-#include "common.cuh"
+// Bound on the card: tensor-core work (4*B*H*N*M*D flops; at Σ-1024 154.6
+// GFLOP, about 0.16 ms at 989 TFLOP/s; with the second QK^T pass and D
+// padded to 80 for the k16 steps, 0.26 ms) and the B*H*N*M exp2 on the
+// MUFU pipe (about 0.15 ms); q/k/v/o are 75 MB (0.02 ms).
+// Design: the shared core (attn_core.cuh): 128 q rows per block in two
+// wgmma warpgroups, k/v tiles of 64 rows through a 3-slot cp.async ring,
+// QK^T and PV on wgmma (bf16 PV with the probabilities as the register
+// operand and v as the MN-major operand; int8 PV on s8 wgmma with exact
+// int32 sums per block over v^T codes from the transposing v-quantize
+// pass). The ring runs over the schedule block 0 pass 1 (k only), block 0
+// pass 2 (k and v), block 1 pass 1, ..., so the copies of the next block's
+// first tiles overlap the last tiles of this one. In bf16 PV the `corr`
+// rescale is applied to the accumulator before the block's PV tiles are
+// added to it (acc * corr + pv with pv summed into acc, one f32 register
+// set fewer); the int8 PV keeps its block sum apart, exact, and adds
+// float(sum) * vs/127^2 once per block.
+#include "attn_core.cuh"
 
 namespace {
 
-constexpr int BQ = 64;  // q rows per block: 4 warps x 16
-constexpr int TK = 64;  // kv rows per shared-memory tile
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// two int8 pairs (each two adjacent bytes) -> one 4-byte operand register
-__device__ __forceinline__ uint32_t ld_pairs(const int8_t* lo,
-                                             const int8_t* hi) {
-  return static_cast<uint32_t>(*reinterpret_cast<const uint16_t*>(lo)) |
-         (static_cast<uint32_t>(*reinterpret_cast<const uint16_t*>(hi))
-          << 16);
-}
-
-// softmax codes round(e*127) in 0..127, lowest k index in the lowest byte
-__device__ __forceinline__ uint32_t codes4(float e0, float e1, float e2,
-                                           float e3) {
-  return static_cast<uint32_t>(static_cast<int>(rintf(e0 * 127.0f))) |
-         (static_cast<uint32_t>(static_cast<int>(rintf(e1 * 127.0f))) << 8) |
-         (static_cast<uint32_t>(static_cast<int>(rintf(e2 * 127.0f))) << 16) |
-         (static_cast<uint32_t>(static_cast<int>(rintf(e3 * 127.0f))) << 24);
-}
-
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void mma_s8(int* c, const uint32_t* a,
-                                       uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
+using namespace vq::attn;
 
 template <int D, bool INT8>
-__global__ void __launch_bounds__(128)
+__global__ void __launch_bounds__(THREADS, 2)
     attn_stream_kernel(const __nv_bfloat16* __restrict__ q,
                        const __nv_bfloat16* __restrict__ k,
                        const void* __restrict__ v,
@@ -105,273 +53,160 @@ __global__ void __launch_bounds__(128)
                        const int* __restrict__ mask,
                        __nv_bfloat16* __restrict__ out, int N, int M, int H,
                        int bkv, float scale2) {
-  constexpr int DP = (D + 15) / 16 * 16;  // QK contraction, zero padded
-  constexpr int KS = DP / 16;             // k16 steps of QK^T
-  constexpr int NT = (D + 7) / 8;         // n8 tiles of the PV output
-  constexpr int DV = NT * 8;
-  constexpr int LDK = DP + 8;             // bf16 row strides (bank spread)
-  constexpr int LDV = TK + 8;             // bf16 v^T row stride
-  constexpr int LDV8 = TK + 16;           // int8 v^T row stride (bytes)
-  constexpr int VBYTES = INT8 ? DV * LDV8 : DV * LDV * 2;
-  __shared__ __align__(16) __nv_bfloat16 Qs[BQ * LDK];
-  __shared__ __align__(16) __nv_bfloat16 Ks[TK * LDK];
-  __shared__ __align__(16) unsigned char Vbuf[VBYTES];
-  __nv_bfloat16* Vt = reinterpret_cast<__nv_bfloat16*>(Vbuf);
-  int8_t* Vt8 = reinterpret_cast<int8_t*>(Vbuf);
-
+  using T = Tile<D>;
+  extern __shared__ __align__(128) uint8_t smem[];
+  uint8_t* qs = smem;
+  uint8_t* ring = smem + T::Q_BYTES;
+  const Lane ln;
   const int b = blockIdx.z;
   const int h = blockIdx.y;
   const int q0 = blockIdx.x * BQ;
   const int C = H * D;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int row_lo = q0 + warp * 16 + g;  // accumulator rows g and g+8
-  const int rows[2] = {row_lo, row_lo + 8};
+  const bool masked = mask != nullptr;
+  zero_pads<D, INT8>(ring);
+  load_q<D>(qs, q, b, h, q0, N, C, scale2);
 
-  for (int idx = tid; idx < BQ * DP; idx += 128) {
-    const int r = idx / DP;
-    const int d = idx - r * DP;
-    const int n = q0 + r;
-    float val = 0.0f;
-    if (n < N && d < D) {
-      const float qf =
-          __bfloat162float(q[(static_cast<size_t>(b) * N + n) * C + h * D + d]);
-      val = qf * scale2;
-    }
-    Qs[r * LDK + d] = __float2bfloat16_rn(val);
-  }
-  __syncthreads();
-  uint32_t qa[KS][4];
-#pragma unroll
-  for (int ks = 0; ks < KS; ++ks) {
-    const __nv_bfloat16* p = Qs + (warp * 16 + g) * LDK + ks * 16 + t * 2;
-    qa[ks][0] = ld32(p);
-    qa[ks][1] = ld32(p + 8 * LDK);
-    qa[ks][2] = ld32(p + 8);
-    qa[ks][3] = ld32(p + 8 * LDK + 8);
-  }
-
-  // int8 PV: the dequant factor vs * (1/127^2) of this thread's columns
-  float vsd[NT][2];
-#pragma unroll
-  for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int d = nt * 8 + t * 2 + j;
-      vsd[nt][j] = 0.0f;
-      if (INT8 && d < D)
-        vsd[nt][j] = vscale[static_cast<size_t>(b) * C + h * D + d] *
-                     static_cast<float>(1.0 / (127.0 * 127.0));
-    }
-
-  auto load_k = [&](int kv0) {
-    for (int idx = tid; idx < TK * DP; idx += 128) {
-      const int c = idx / DP;
-      const int d = idx - c * DP;
-      Ks[c * LDK + d] =
-          d < D ? k[(static_cast<size_t>(b) * M + kv0 + c) * C + h * D + d]
-                : __float2bfloat16_rn(0.0f);
-    }
+  const int nb = bkv / BKV;         // tiles per kv block
+  const int steps = 2 * (M / BKV);  // every block walked twice
+  auto slot_of = [&](int step) {
+    return Slot<D>(ring + (step % STAGES) * T::STAGE_BYTES);
   };
-  auto load_v = [&](int kv0) {
-    for (int idx = tid; idx < TK * DV; idx += 128) {
-      const int c = idx / DV;
-      const int d = idx - c * DV;
-      const size_t gi = (static_cast<size_t>(b) * M + kv0 + c) * C + h * D + d;
-      if constexpr (INT8)
-        Vt8[d * LDV8 + c] = d < D ? static_cast<const int8_t*>(v)[gi] : 0;
-      else
-        Vt[d * LDV + c] = d < D ? static_cast<const __nv_bfloat16*>(v)[gi]
-                                : __float2bfloat16_rn(0.0f);
-    }
+  auto kv_of = [&](int step) {
+    return ((step / (2 * nb)) * nb + (step % (2 * nb)) % nb) * BKV;
   };
-  // s[nt][e]: row rows[e >> 1], column kv0 + nt*8 + t*2 + (e & 1)
-  auto scores = [&](int kv0, float (&s)[TK / 8][4]) {
-#pragma unroll
-    for (int nt = 0; nt < TK / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[nt][e] = 0.0f;
-      const __nv_bfloat16* kp = Ks + (nt * 8 + g) * LDK + t * 2;
-#pragma unroll
-      for (int ks = 0; ks < KS; ++ks)
-        mma_bf16(s[nt], qa[ks], ld32(kp + ks * 16), ld32(kp + ks * 16 + 8));
-      if (mask != nullptr) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int col = kv0 + nt * 8 + t * 2 + (e & 1);
-          if (mask[static_cast<size_t>(b) * M + col] == 0) s[nt][e] = -INFINITY;
-        }
-      }
-    }
+  auto prefetch = [&](int step) {
+    if (step < steps)
+      load_tile<D, INT8>(slot_of(step), k, v, mask, b, h, kv_of(step), M, M,
+                         M, C, H, step % (2 * nb) >= nb);
+    cp_async_commit();
   };
+#pragma unroll
+  for (int i = 0; i < STAGES - 1; ++i) prefetch(i);
 
   float m_run[2] = {-INFINITY, -INFINITY};
   float r_run[2] = {0.0f, 0.0f};
-  float acc[NT][4];
+  float bm[2] = {-INFINITY, -INFINITY};
+  float m_new[2], m_safe[2], corr[2], rs[2];
+  float acc[T::NO];
 #pragma unroll
-  for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[nt][e] = 0.0f;
+  for (int i = 0; i < T::NO; ++i) acc[i] = 0.0f;
+  int pvi[INT8 ? T::NO8 : 1];
 
-  for (int kb = 0; kb < M; kb += bkv) {
-    // pass 1: the row max over the whole kv block
-    float bm[2] = {-INFINITY, -INFINITY};
-    for (int kv0 = kb; kv0 < kb + bkv; kv0 += TK) {
-      __syncthreads();
-      load_k(kv0);
-      __syncthreads();
-      float s[TK / 8][4];
-      scores(kv0, s);
+  for (int step = 0; step < steps; ++step) {
+    cp_async_wait<STAGES - 2>();
+    fence_proxy_async();
+    __syncthreads();
+    prefetch(step + STAGES - 1);
+    const Slot<D> slot = slot_of(step);
+    const int w = step % (2 * nb);
+    float s[32];
+    scores<D>(s, qs, slot, ln, kv_of(step), M, masked);
+    if (w < nb) {
+      // pass 1: the row max over the whole kv block
+      if (w == 0) bm[0] = bm[1] = -INFINITY;
 #pragma unroll
-      for (int nt = 0; nt < TK / 8; ++nt)
+      for (int i = 0; i < 32; ++i)
+        bm[(i >> 1) & 1] = fmaxf(bm[(i >> 1) & 1], s[i]);
+      if (w == nb - 1) {
 #pragma unroll
-        for (int hh = 0; hh < 2; ++hh)
-          bm[hh] = fmaxf(bm[hh], fmaxf(s[nt][2 * hh], s[nt][2 * hh + 1]));
+        for (int hh = 0; hh < 2; ++hh) {
+          m_new[hh] = fmaxf(m_run[hh], quad_max(bm[hh]));
+          m_safe[hh] = m_new[hh] == -INFINITY ? 0.0f : m_new[hh];
+          corr[hh] = exp2f(m_run[hh] - m_safe[hh]);
+          rs[hh] = 0.0f;
+        }
+        if constexpr (!INT8) {
+#pragma unroll
+          for (int i = 0; i < T::NO; ++i) acc[i] *= corr[(i >> 1) & 1];
+        }
+      }
+      continue;
     }
-    float m_new[2], m_safe[2], corr[2];
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      m_new[hh] = fmaxf(m_run[hh], quad_max(bm[hh]));
-      m_safe[hh] = m_new[hh] == -INFINITY ? 0.0f : m_new[hh];
-      corr[hh] = exp2f(m_run[hh] - m_safe[hh]);
-    }
-
     // pass 2: e, its row sum and the block's PV
-    float rs[2] = {0.0f, 0.0f};
-    float pv[NT][4];
-    int pvi[NT][4];
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
+    for (int i = 0; i < 32; ++i) {
+      s[i] = exp2f(s[i] - m_safe[(i >> 1) & 1]);
+      rs[(i >> 1) & 1] += s[i];
+    }
+    if constexpr (INT8) {
+      uint32_t a[BKV / 32][4];
+      pack_codes(a, s);
+      pv_s8<D>(pvi, a, slot, w > nb ? 1 : 0);
+    } else {
+      uint32_t p[BKV / 16][4];
+      pack_p(p, s, [](float x, int) { return x; });
+      pv_bf16<D>(acc, p, slot, 1);
+    }
+    if (w == 2 * nb - 1) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        pv[nt][e] = 0.0f;
-        pvi[nt][e] = 0;
+      for (int hh = 0; hh < 2; ++hh) {
+        r_run[hh] = r_run[hh] * corr[hh] + quad_sum(rs[hh]);
+        m_run[hh] = m_new[hh];
       }
-    for (int kv0 = kb; kv0 < kb + bkv; kv0 += TK) {
-      __syncthreads();
-      load_k(kv0);
-      load_v(kv0);
-      __syncthreads();
-      float s[TK / 8][4];
-      scores(kv0, s);
-#pragma unroll
-      for (int nt = 0; nt < TK / 8; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          s[nt][e] = exp2f(s[nt][e] - m_safe[e >> 1]);
-          rs[e >> 1] += s[nt][e];
-        }
       if constexpr (INT8) {
-        // k32 chunk c: fragment k index t*4+j (+16) holds kv column
-        // c*32 + {t*2, t*2+1, 8+t*2, 8+t*2+1}[j] (+16)
+        const float* vsr = vscale + static_cast<size_t>(b) * C + h * D;
 #pragma unroll
-        for (int ch = 0; ch < TK / 32; ++ch) {
-          const int n0 = ch * 4;
-          const uint32_t pa[4] = {
-              codes4(s[n0][0], s[n0][1], s[n0 + 1][0], s[n0 + 1][1]),
-              codes4(s[n0][2], s[n0][3], s[n0 + 1][2], s[n0 + 1][3]),
-              codes4(s[n0 + 2][0], s[n0 + 2][1], s[n0 + 3][0], s[n0 + 3][1]),
-              codes4(s[n0 + 2][2], s[n0 + 2][3], s[n0 + 3][2], s[n0 + 3][3])};
-#pragma unroll
-          for (int nt = 0; nt < NT; ++nt) {
-            const int8_t* vp = Vt8 + (nt * 8 + g) * LDV8 + ch * 32 + t * 2;
-            mma_s8(pvi[nt], pa, ld_pairs(vp, vp + 8),
-                   ld_pairs(vp + 16, vp + 24));
-          }
-        }
-      } else {
-#pragma unroll
-        for (int kk = 0; kk < TK / 16; ++kk) {
-          const uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                                  pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                                  pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                                  pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-          for (int nt = 0; nt < NT; ++nt) {
-            const __nv_bfloat16* vp = Vt + (nt * 8 + g) * LDV + kk * 16 + t * 2;
-            mma_bf16(pv[nt], pa, ld32(vp), ld32(vp + 8));
-          }
+        for (int i = 0; i < T::NO; ++i) {
+          const int d = 8 * (i >> 2) + 2 * ln.t4 + (i & 1);
+          const float vsd =
+              vsr[d] * static_cast<float>(1.0 / (127.0 * 127.0));
+          acc[i] = acc[i] * corr[(i >> 1) & 1] +
+                   static_cast<float>(pvi[i]) * vsd;
         }
       }
     }
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      r_run[hh] = r_run[hh] * corr[hh] + quad_sum(rs[hh]);
-      m_run[hh] = m_new[hh];
-    }
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = INT8 ? static_cast<float>(pvi[nt][e]) * vsd[nt][e & 1]
-                             : pv[nt][e];
-        acc[nt][e] = acc[nt][e] * corr[e >> 1] + p;
-      }
   }
-
-#pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-    const int n = rows[hh];
-    if (n >= N) continue;
-    const float inv = 1.0f / fmaxf(r_run[hh], 1e-30f);
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int d = nt * 8 + t * 2 + j;
-        if (d >= D) continue;
-        out[(static_cast<size_t>(b) * N + n) * C + h * D + d] =
-            __float2bfloat16_rn(acc[nt][2 * hh + j] * inv);
-      }
-  }
+  cp_async_wait<0>();
+  const float inv[2] = {1.0f / fmaxf(r_run[0], 1e-30f),
+                        1.0f / fmaxf(r_run[1], 1e-30f)};
+  store_out<D>(ring, out, ln, b, h, q0, N, C,
+               [&](int i) { return acc[i] * inv[(i >> 1) & 1]; });
 }
 
-template <int D>
-cudaError_t launch_stream(const void* q, const void* k, const void* v,
-                          const float* vs, const int* mask, void* out, int B,
-                          int N, int M, int H, int bkv, float scale2,
-                          int int8_pv, cudaStream_t st) {
+template <int D, bool INT8>
+cudaError_t launch(const void* q, const void* k, const void* v,
+                   const float* vs, const int* mask, void* out, int B, int N,
+                   int M, int H, int bkv, float scale2, cudaStream_t st) {
+  auto kernel = attn_stream_kernel<D, INT8>;
+  const int smem = Tile<D>::SMEM_BYTES;
+  cudaError_t err = set_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
   dim3 grid((N + BQ - 1) / BQ, H, B);
-  const __nv_bfloat16* qp = static_cast<const __nv_bfloat16*>(q);
-  const __nv_bfloat16* kp = static_cast<const __nv_bfloat16*>(k);
-  __nv_bfloat16* op = static_cast<__nv_bfloat16*>(out);
-  if (int8_pv)
-    attn_stream_kernel<D, true><<<grid, 128, 0, st>>>(qp, kp, v, vs, mask, op,
-                                                      N, M, H, bkv, scale2);
-  else
-    attn_stream_kernel<D, false><<<grid, 128, 0, st>>>(qp, kp, v, vs, mask, op,
-                                                       N, M, H, bkv, scale2);
+  kernel<<<grid, THREADS, smem, st>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k), v, vs, mask,
+      static_cast<__nv_bfloat16*>(out), N, M, H, bkv, scale2);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// q [B, N, H*D], k [B, M, H*D] bf16; v bf16, or (int8_pv) int8 codes from
-// vq_attn_vquant at vgroup = M with scales vs [B, 1, H*D]; mask [B, M]
-// int32 or null; out [B, N, H*D] bf16. D in {16, 72}; bkv a multiple of 64
-// dividing M.
+// q [B, N, H*D], k [B, M, H*D] bf16; v bf16 [B, M, H*D], or (int8_pv) the
+// codes from vq_attn_vquant_t at Mp = M ([B, H, D, M] int8, kv_perm order)
+// with scales vs [B, 1, H*D]; mask [B, M] int32 or null; out [B, N, H*D]
+// bf16. D in {16, 72}; bkv a multiple of 64 dividing M; every pointer
+// 16-byte aligned.
 VQ_EXPORT int vq_attention_stream(const void* q, const void* k, const void* v,
                                   const void* vs, const void* mask, void* out,
                                   int B, int N, int M, int H, int D, int bkv,
                                   float scale2, int int8_pv, void* stream) {
-  if (bkv <= 0 || bkv % TK != 0 || M % bkv != 0)
+  if (bkv <= 0 || bkv % BKV != 0 || M % bkv != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* vsp = static_cast<const float*>(vs);
   const int* mp = static_cast<const int*>(mask);
   cudaError_t err;
-  switch (D) {
-    case 16:
-      err = launch_stream<16>(q, k, v, vsp, mp, out, B, N, M, H, bkv, scale2,
-                              int8_pv, st);
-      break;
-    case 72:
-      err = launch_stream<72>(q, k, v, vsp, mp, out, B, N, M, H, bkv, scale2,
-                              int8_pv, st);
-      break;
+  switch (D * 2 + (int8_pv ? 1 : 0)) {
+#define VQ_STREAM_CASE(DD, I8)                                              \
+  case DD * 2 + I8:                                                         \
+    err = launch<DD, I8 != 0>(q, k, v, vsp, mp, out, B, N, M, H, bkv,       \
+                              scale2, st);                                  \
+    break;
+    VQ_STREAM_CASE(16, 0)
+    VQ_STREAM_CASE(16, 1)
+    VQ_STREAM_CASE(72, 0)
+    VQ_STREAM_CASE(72, 1)
+#undef VQ_STREAM_CASE
     default:
       err = cudaErrorInvalidValue;
   }

@@ -40,6 +40,7 @@ SIGNATURES = {
     "vq_attention": [_P, _P, _P, _P, _I, _I, _P, _P, _I, _I, _I, _I, _I,
                      _I, _I, _F, _I, _P],
     "vq_attn_vquant": [_P, _P, _P, _I, _I, _I, _I, _P],
+    "vq_attn_vquant_t": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     "vq_attn_row_quant": [_P, _P, _P, _I, _I, _P],
     "vq_attention_stream": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                             _F, _I, _P],

@@ -19,7 +19,10 @@ dispatches as the JAX package does (attention.py:643):
 On CPU tensors each runs its plain version (`attention_bnhd_plain`,
 `attention_bnhd_stream_plain`); on CUDA tensors it launches
 csrc/attention.cu or csrc/attention_stream.cu (bf16 inputs) or raises.
-`int8_qk` is not ported.
+Both kernels' full and kv-masked modes run on one core
+(csrc/attn_core.cuh: wgmma products over kv tiles of `KV_TILE` rows fed
+by a cp.async ring); their int8 PV reads v's codes transposed per head in
+the order `KV_PERM` (`v_codes_transposed`). `int8_qk` is not ported.
 
 The oracles `attention_bnhd_xla` / `attention_bnhd_xla_quant`
 (attention.py:409-478) are ported too; the tests hold both packages'
@@ -40,10 +43,17 @@ from viditq_tpu_torch.kernels.fused_matmul import quantize_rows
 
 LOG2E = float(math.log2(math.e))
 KERNEL_HEAD_DIMS = (16, 72)  # instantiations in csrc/attention*.cu
-INT8_PV_MAX_KV = 1040                # 127 * 127 * 1040 < 2^24
+# seg mode sums the int8 PV exactly in f32 on bf16 tensor cores while the
+# kv range of a 64-row q tile stays within 127 * 127 * 1040 < 2^24
+INT8_PV_MAX_KV = 1040
 # full/masked attention over more kv rows than this streams them (K6)
 ONESHOT_MAX_M = 2048
-STREAM_TILE = 64  # kv rows per tile of csrc/attention_stream.cu
+KV_TILE = 64  # kv rows per tile of csrc/attn_core.cuh
+# kv row (within its 32-row chunk) of byte k of a chunk of the transposed
+# v codes: the k index of the s8 wgmma's register operand packed from the
+# score registers holds that column (csrc/attn_core.cuh pack_codes)
+KV_PERM = tuple((k // 16) * 16 + (k % 4 // 2) * 8 + (k % 16 // 4) * 2
+                + k % 2 for k in range(32))
 
 
 def stream_kv_block(n: int, m: int, c: int, v_int8_in: bool = False) -> int:
@@ -91,6 +101,45 @@ def _v_quant(v: torch.Tensor, v_block: int):
     vs = torch.clamp(vg.abs().amax(dim=2, keepdim=True), min=1e-6)
     vq = torch.round(vg * rdiv(127.0, vs))
     return vq.reshape(B, M, C), vs.reshape(B, M // v_block, C)
+
+
+def kv_padded(m: int) -> int:
+    """Kv length of the transposed v codes: m rounded up to a whole tile."""
+    return -(-m // KV_TILE) * KV_TILE
+
+
+def v_codes_transposed(vq: torch.Tensor, heads: int) -> torch.Tensor:
+    """The full modes' v-code layout (csrc/attention.cu vquant_kernel_t),
+    plain version: codes [B, M, H*D] -> int8 [B, H, D, kv_padded(M)], zero
+    past M, the rows of every 32-row chunk in KV_PERM order."""
+    B, M, C = vq.shape
+    D = C // heads
+    Mp = kv_padded(M)
+    vt = torch.zeros((B, Mp, heads, D), dtype=torch.int8, device=vq.device)
+    vt[:, :M] = vq.reshape(B, M, heads, D).to(torch.int8)
+    perm = torch.tensor(KV_PERM, device=vq.device)
+    vt = vt.reshape(B, Mp // 32, 32, heads, D)[:, :, perm]
+    return vt.reshape(B, Mp, heads, D).permute(0, 2, 3, 1).contiguous()
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """t itself if contiguous and 16-byte aligned (the kernels' vector
+    loads), else a fresh copy."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _v_codes_cuda(v3: torch.Tensor, heads: int, lib, stream):
+    """Scales [B, 1, C] and transposed codes of v [B, M, C] on the card."""
+    B, M, C = v3.shape
+    Mp = kv_padded(M)
+    vt = torch.empty((B, heads, C // heads, Mp), dtype=torch.int8,
+                     device=v3.device)
+    vs = torch.empty((B, 1, C), dtype=torch.float32, device=v3.device)
+    _build.check(lib.vq_attn_vquant_t(
+        v3.data_ptr(), vt.data_ptr(), vs.data_ptr(), B, M, heads, C // heads,
+        Mp, stream), "vq_attn_vquant_t")
+    return vt, vs
 
 
 def _row_quant_emit(of: torch.Tensor):
@@ -232,22 +281,18 @@ def _attention_stream_cuda(q, k, v, scale, bkv, kv_mask, int8_pv):
     require(q.dtype == k.dtype == v.dtype == torch.bfloat16,
             "the CUDA attention kernel takes bfloat16 q/k/v")
     require(D in KERNEL_HEAD_DIMS, f"head dim {D} not in {KERNEL_HEAD_DIMS}")
-    require(M % bkv == 0 and bkv % STREAM_TILE == 0,
+    require(M % bkv == 0 and bkv % KV_TILE == 0,
             f"kv block {bkv} must divide M={M} and be a multiple of "
-            f"{STREAM_TILE}")
-    q3 = q.reshape(B, N, C).contiguous()
-    k3 = k.reshape(B, M, C).contiguous()
-    v3 = v.reshape(B, M, C).contiguous()
+            f"{KV_TILE}")
+    q3 = _aligned(q.reshape(B, N, C))
+    k3 = _aligned(k.reshape(B, M, C))
+    v3 = _aligned(v.reshape(B, M, C))
     lib = _build.lib()
     stream = _build.stream_ptr(q)
     vs = None
     v_arg = v3
     if int8_pv:
-        v_arg = torch.empty((B, M, C), dtype=torch.int8, device=q.device)
-        vs = torch.empty((B, 1, C), dtype=torch.float32, device=q.device)
-        _build.check(lib.vq_attn_vquant(
-            v3.data_ptr(), v_arg.data_ptr(), vs.data_ptr(), B, M, C, M,
-            stream), "vq_attn_vquant")
+        v_arg, vs = _v_codes_cuda(v3, H, lib, stream)
     mask = None
     if kv_mask is not None:
         mask = kv_mask.to(torch.int32).reshape(B, M).contiguous()
@@ -302,27 +347,29 @@ def attention_bnhd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     require(q.dtype == k.dtype == v.dtype == torch.bfloat16,
             "the CUDA attention kernel takes bfloat16 q/k/v")
     require(D in KERNEL_HEAD_DIMS, f"head dim {D} not in {KERNEL_HEAD_DIMS}")
-    # the int8 PV sums integer products on the bf16 tensor cores in f32,
-    # exact while a row's kv range stays within 2^24 / 127^2 tokens
-    require(not int8_pv or (M if seg_len == 0 else 64 + 2 * seg_len)
-            <= INT8_PV_MAX_KV, f"int8 PV kv range above {INT8_PV_MAX_KV}")
-    q3 = q.reshape(B, N, C).contiguous()
-    k3 = k.reshape(B, M, C).contiguous()
-    v3 = v.reshape(B, M, C).contiguous()
+    # seg mode sums the int8 PV on the bf16 tensor cores in f32, exact
+    # while a q tile's kv range stays within 2^24 / 127^2 tokens; the full
+    # modes sum it in int32
+    require(not int8_pv or seg_len == 0 or 64 + 2 * seg_len <= INT8_PV_MAX_KV,
+            f"int8 PV kv range above {INT8_PV_MAX_KV}")
+    q3 = _aligned(q.reshape(B, N, C))
+    k3 = _aligned(k.reshape(B, M, C))
+    v3 = _aligned(v.reshape(B, M, C))
     lib = _build.lib()
     stream = _build.stream_ptr(q)
     vs = None
     vgroup, n_vgroups = M, 1
     v_arg = v3
-    if int8_pv:
-        if seg_len > 0:
-            vgroup, n_vgroups = v_block, N // v_block
+    if int8_pv and seg_len > 0:
+        vgroup, n_vgroups = v_block, N // v_block
         v_arg = torch.empty((B, M, C), dtype=torch.int8, device=q.device)
         vs = torch.empty((B, n_vgroups, C), dtype=torch.float32,
                          device=q.device)
         _build.check(lib.vq_attn_vquant(
             v3.data_ptr(), v_arg.data_ptr(), vs.data_ptr(), B, M, C, vgroup,
             stream), "vq_attn_vquant")
+    elif int8_pv:
+        v_arg, vs = _v_codes_cuda(v3, H, lib, stream)
     mask = None
     if kv_mask is not None:
         mask = kv_mask.to(torch.int32).reshape(B, M).contiguous()
