@@ -14,9 +14,14 @@ Phases (any failure exits non-zero):
      PixArt-Σ 1024x1024, CFG batch 2), with code mismatch, max code
      difference, relative error, the median time of both from CUDA
      events, the least time the card could take (bound) and, where one
-     PyTorch call computes the same function, that call's time; then K3
-     and K6 at the edge cases of their shared core (`EDGE_CASES`: ragged
-     q and kv tiles, a kv block masked whole, head dim 16);
+     PyTorch call computes the same function, that call's time (for the
+     int8 GEMMs also torch._int_mm on a row-major weight and cuBLAS bf16
+     at the same shape, and K2's emission split into its GEMM and its
+     group quantize); then K3 and K6 at the edge cases of their shared
+     core (`EDGE_CASES`: ragged q and kv tiles, a kv block masked whole,
+     head dim 16), and K2 and K7b at theirs (`GEMM_EDGE_CASES`: ragged M
+     and N, K tails, a gw_x group boundary inside a k-tile, the byte-wise
+     kernel), every K2 and K7b case identical to its plain version;
   4. reference: tiny STDiT (sm8 and the reference W8A8 on the native
      backend) and tiny sm8 PixArt-Σ models on the card (kernels) against
      the same models on the CPU (plain versions);
@@ -111,6 +116,29 @@ EDGE_CASES = (
           emit=False)),
 )
 
+# K2 / K7b cases the main path does not reach (phase kernels): (kernel,
+# case, shape). Every one is held identical to its plain version.
+GEMM_EDGE_CASES = (
+    ("int8_consumer_matmul", "M=240 (ragged M tile)",
+     dict(M=240, K=1152, N=2304)),
+    ("int8_consumer_matmul", "N=1040 (ragged N tile), f32 out",
+     dict(M=1000, K=1152, N=1040, out="f32")),
+    ("int8_consumer_matmul", "K=576 (k tail of 64 bytes)",
+     dict(M=1000, K=576, N=1152)),
+    ("int8_consumer_matmul", "gw_x G=3, K=576 (group boundary inside a "
+     "k-tile)", dict(M=1000, K=576, N=1152, G=3)),
+    ("int8_matmul", "M=19 K=72 N=40 (byte-wise kernel)",
+     dict(M=19, K=72, N=40)),
+    ("int8_matmul", "N=1004 (ragged N tile, unaligned output rows)",
+     dict(M=1000, K=1152, N=1004)),
+    ("int8_matmul", "K=1168 (k tail of 16 bytes), f32 out",
+     dict(M=1000, K=1168, N=1152, out="f32")),
+    ("int8_matmul", "A at an odd address (byte-wise kernel)",
+     dict(M=300, K=256, N=192, offset=1)),
+)
+INT_MM_NOTE = (" (torch._int_mm on the K-major weight: int32 product only, "
+               "no epilogue)")
+
 # file:line of the TPU kernel each port kernel replaces
 REPLACES = {
     "ln_modulate_quantize": "viditq_tpu/kernels/fused_matmul.py:673",
@@ -173,6 +201,21 @@ def cuda_ms(fn, reps: int = 10) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return float(np.median(times))
+
+
+def cuda_ms_back_to_back(fn, n: int = 20) -> float:
+    """ms per call of n calls enqueued back to back between two CUDA events:
+    the device's time where it exceeds the caller's host time per call."""
+    import torch
+    fn()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(n):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / n
 
 
 def compare(got, want, is_codes: bool):
@@ -281,6 +324,10 @@ def phase_kernels(records):
     def rands(*shape, lo=1e-3, hi=2e-2):
         return lo + (hi - lo) * torch.rand(shape, generator=g, device=dev)
 
+    def randw(k, n):
+        """int8 weight [k, n], K-major (a view of [n, k] storage)"""
+        return randi8(n, k).t()
+
     B, T, S, C, H, D, P = 2, 16, 1024, 1152, 16, 72, 120
     M = B * T * S
     print("phase kernels (main-path shapes)", flush=True)
@@ -300,9 +347,11 @@ def phase_kernels(records):
                lambda: FM.quantize_rows_plain(x2), records,
                cost=(2 * M * C + M * C + 4 * M, {}))
 
-    # K2: q/k/v/proj, fc1 emit (G=3), fc2 gw_x
+    # K2: q/k/v/proj, fc1 emit (G=3), fc2 gw_x; every output identical to
+    # the plain version (exact int32 sums, the same f32 operation order).
+    # Weights K-major, as QuantLinear holds them.
     xq, xs = randi8(M, C), rands(M, 1)
-    w, ws, b = randi8(C, C), rands(1, C, lo=1e-4, hi=1e-3), randn(
+    w, ws, b = randw(C, C), rands(1, C, lo=1e-4, hi=1e-3), randn(
         C, dtype=torch.float32, scale=0.1)
 
     def k2_cost(m, k, n, x_scales, out_bytes):
@@ -313,24 +362,41 @@ def phase_kernels(records):
                lambda: FM.int8_consumer_matmul_plain(xq, xs, w, ws, b),
                records, cost=k2_cost(M, C, C, 1, 2 * M * C),
                library_fn=lambda: torch._int_mm(xq, w),
-               library_note=" (torch._int_mm: int32 product only, no "
-                            "epilogue)")
-    w1, ws1 = randi8(C, 4 * C), rands(1, 4 * C, lo=1e-4, hi=1e-3)
+               library_note=INT_MM_NOTE, exact=True)
+    yardsticks("int8_consumer_matmul plain", xq, w,
+               lambda: FM.int8_consumer_matmul(xq, xs, w, ws, b))
+    w1, ws1 = randw(C, 4 * C), rands(1, 4 * C, lo=1e-4, hi=1e-3)
     b1 = randn(4 * C, dtype=torch.float32, scale=0.1)
     emit = {"gelu": True}
     check_case("int8_consumer_matmul", "emit [32768,1152]x[1152,4608]",
                lambda: FM.int8_consumer_matmul(xq, xs, w1, ws1, b1, emit=emit),
                lambda: FM.int8_consumer_matmul_plain(xq, xs, w1, ws1, b1,
                                                      emit=emit), records,
-               cost=k2_cost(M, C, 4 * C, 1, M * 4 * C + 4 * M * 3))
+               cost=k2_cost(M, C, 4 * C, 1, M * 4 * C + 4 * M * 3),
+               exact=True)
+    # the emission's two passes apart: GEMM + GELU into the f32 scratch,
+    # then the group quantize (scratch written and read: 2 x 604 MB)
+    gemm_ms = cuda_ms(lambda: FM.k2_gemm(xq, xs, w1, ws1, b1, False, 2))
+    scratch = FM.k2_gemm(xq, xs, w1, ws1, b1, False, 2)
+    bn = FM.emit_groups(4 * C, C)
+    gq_ms = cuda_ms(lambda: FM.group_quant(scratch, bn))
+    print(f"  emission split: GEMM + GELU to f32 scratch {gemm_ms:.3f} ms, "
+          f"group_quant {gq_ms:.3f} ms (scratch bound "
+          f"{2 * 4 * M * 4 * C / HBM_BYTES_PER_S * 1e3:.3f} ms)", flush=True)
+    del scratch
+    yardsticks("int8_consumer_matmul emit", xq, w1,
+               lambda: FM.int8_consumer_matmul(xq, xs, w1, ws1, b1, emit=emit))
     xq2, xs2 = randi8(M, 4 * C), rands(M, 3)
-    w2, ws2 = randi8(4 * C, C), rands(1, C, lo=1e-5, hi=1e-4)
+    w2, ws2 = randw(4 * C, C), rands(1, C, lo=1e-5, hi=1e-4)
     check_case("int8_consumer_matmul", "gw_x [32768,4608]x[4608,1152]",
                lambda: FM.int8_consumer_matmul(xq2, xs2, w2, ws2, b,
                                                group_scales=True),
                lambda: FM.int8_consumer_matmul_plain(xq2, xs2, w2, ws2, b,
                                                      group_scales=True),
-               records, cost=k2_cost(M, 4 * C, C, 3, 2 * M * C))
+               records, cost=k2_cost(M, 4 * C, C, 3, 2 * M * C), exact=True)
+    yardsticks("int8_consumer_matmul gw_x", xq2, w2,
+               lambda: FM.int8_consumer_matmul(xq2, xs2, w2, ws2, b,
+                                               group_scales=True))
 
     def sdpa_call(q, k, v, seg, m):
         """One PyTorch call computing the bf16-PV attention on [B,H,N,D]
@@ -428,7 +494,7 @@ def phase_kernels(records):
             ("kv_linear [240,1152]x[1152,2304]", (B * P, 2 * C)),
             ("q_linear [32768,1152]x[1152,1152]", (M, C))):
         xa = randn(m_rows, C)
-        wa, wsa = randi8(C, n), rands(1, n, lo=1e-4, hi=1e-3)
+        wa, wsa = randw(C, n), rands(1, n, lo=1e-4, hi=1e-3)
         ba = randn(n, dtype=torch.float32, scale=0.1)
         check_case("fused_dynq_int8_matmul", case,
                    lambda: FM.fused_dynq_int8_matmul(xa, wa, wsa, ba),
@@ -450,11 +516,11 @@ def phase_kernels(records):
                    lambda: IM.dynamic_quant_rows_plain(xa, sym), records,
                    cost=(3 * m_rows * k + 12 * m_rows, {}), exact=True)
 
-    # K7b at the w8a8 arm's four shapes (asym x asym, bf16 out, bias), and
-    # one ragged shape that takes the byte-wise loader
+    # K7b at the w8a8 arm's four shapes (asym x asym, bf16 out, bias),
+    # identical to the plain version
     def k7b_inputs(m_rows, k, n):
         xq_, xs_, xz_, xr_ = IM.dynamic_quant_rows(randn(m_rows, k))
-        wq_ = randi8(k, n)
+        wq_ = randw(k, n)
         return (xq_, wq_, xs_, xz_, xr_,
                 rands(1, n, lo=1e-4, hi=1e-3),
                 torch.randint(-20, 20, (1, n), generator=g,
@@ -465,19 +531,98 @@ def phase_kernels(records):
             ("q/k/v/proj [32768,1152]x[1152,1152]", (M, C, C)),
             ("fc1 [32768,1152]x[1152,4608]", (M, C, 4 * C)),
             ("fc2 [32768,4608]x[4608,1152]", (M, 4 * C, C)),
-            ("kv_linear [240,1152]x[1152,2304]", (B * P, C, 2 * C)),
-            ("ragged [19,72]x[72,40]", (19, 72, 40)))):
+            ("kv_linear [240,1152]x[1152,2304]", (B * P, C, 2 * C)))):
         *tabs, bb = k7b_inputs(m_rows, k, n)
         xq_, wq_ = tabs[0], tabs[1]
         check_case("int8_matmul", case,
                    lambda: IM.int8_matmul(*tabs, bias=bb),
                    lambda: IM.int8_matmul_plain(*tabs, bias=bb), records,
-                   cost=(m_rows * k + k * n + 12 * m_rows + 16 * n
-                         + 2 * m_rows * n, {"int8": 2 * m_rows * n * k}),
+                   cost=k7b_cost(m_rows, k, n, 2),
                    library_fn=(lambda: torch._int_mm(xq_, wq_)) if i == 0
-                   else None,
-                   library_note=" (torch._int_mm: int32 product only, no "
-                                "epilogue)")
+                   else None, library_note=INT_MM_NOTE, exact=True)
+        yardsticks(f"int8_matmul {case.split()[0]}", xq_, wq_,
+                   lambda: IM.int8_matmul(*tabs, bias=bb))
+
+    gemm_edge_cases(records, randn, randi8, rands)
+
+
+def k7b_cost(m, k, n, out_bytes):
+    return (m * k + k * n + 12 * m + 16 * n + out_bytes * m * n,
+            {"int8": 2 * m * n * k})
+
+
+def yardsticks(name, xq, w, kernel_fn):
+    """The kernel's time per call back to back (its device time: the host's
+    time per call is smaller at these shapes), and the PyTorch calls that
+    compute this GEMM's product: torch._int_mm on the K-major weight (the
+    port's layout) and on a row-major copy (int32 product only, no
+    epilogue), and cuBLAS bf16 torch.matmul at the same shape. Printed only;
+    none of them is used by the port."""
+    import torch
+    w_rm = w.contiguous()
+    xb, wb = xq.to(torch.bfloat16), w.to(torch.bfloat16)
+    parts = [f"kernel back to back {cuda_ms_back_to_back(kernel_fn):.3f} ms"]
+    for label, fn in (("_int_mm K-major", lambda: torch._int_mm(xq, w)),
+                      ("_int_mm row-major", lambda: torch._int_mm(xq, w_rm)),
+                      ("bf16 matmul", lambda: torch.matmul(xb, wb))):
+        try:
+            parts.append(f"{label} {cuda_ms(fn):.3f} ms (back to back "
+                         f"{cuda_ms_back_to_back(fn):.3f})")
+        except RuntimeError as e:  # a layout cuBLASLt refuses
+            parts.append(f"{label} refused ({str(e).splitlines()[0][:80]})")
+    print(f"  yardsticks {name} {list(xq.shape)}x{list(w.shape)}: "
+          f"{'; '.join(parts)}", flush=True)
+
+
+def gemm_edge_cases(records, randn, randi8, rands):
+    """K2 and K7b at the shapes GEMM_EDGE_CASES lists, each identical to its
+    plain version: ragged M, the byte-wise kernel, N past the last whole
+    N-tile, a K tail inside a 128-byte k-tile, gw_x with a group boundary
+    inside a k-tile, an unaligned base."""
+    import torch
+    from viditq_tpu_torch.kernels import fused_matmul as FM
+    from viditq_tpu_torch.kernels import int_matmul as IM
+    dev = "cuda"
+    for name, case, p in GEMM_EDGE_CASES:
+        m, k, n = p["M"], p["K"], p["N"]
+        w = randi8(n, k).t()
+        out_dtype = torch.float32 if p.get("out") == "f32" else torch.bfloat16
+        if name == "int8_consumer_matmul":
+            G = p.get("G", 1)
+            xq, xs = randi8(m, k), rands(m, G)
+            ws = rands(1, n, lo=1e-4, hi=1e-3)
+            b = randn(n, dtype=torch.float32, scale=0.1)
+            kw = dict(group_scales=G > 1, out_dtype=out_dtype)
+            kernel = (lambda xq=xq, xs=xs, w=w, ws=ws, b=b, kw=kw:
+                      FM.int8_consumer_matmul(xq, xs, w, ws, b, **kw))
+            plain = (lambda xq=xq, xs=xs, w=w, ws=ws, b=b, kw=kw:
+                     FM.int8_consumer_matmul_plain(xq, xs, w, ws, b, **kw))
+            out_bytes = torch.empty((), dtype=out_dtype).element_size()
+            cost = (m * k + k * n + 4 * m * G + 8 * n + out_bytes * m * n,
+                    {"int8": 2 * m * n * k})
+        else:
+            x = randn(m, k)
+            if p.get("offset"):
+                # codes at an odd address: the byte-wise kernel
+                buf = torch.empty(m * k + p["offset"], dtype=torch.int8,
+                                  device=dev)
+                xq = buf[p["offset"]:].view(m, k)
+                q, xs, xz, xr = IM.dynamic_quant_rows(x)
+                xq.copy_(q)
+            else:
+                xq, xs, xz, xr = IM.dynamic_quant_rows(x)
+            tabs = (xq, w, xs, xz, xr, rands(1, n, lo=1e-4, hi=1e-3),
+                    torch.randint(-20, 20, (1, n), device=dev).float(),
+                    w.float().sum(dim=0, keepdim=True))
+            b = randn(n, dtype=torch.float32, scale=0.1)
+            kernel = (lambda tabs=tabs, b=b, o=out_dtype:
+                      IM.int8_matmul(*tabs, out_dtype=o, bias=b))
+            plain = (lambda tabs=tabs, b=b, o=out_dtype:
+                     IM.int8_matmul_plain(*tabs, out_dtype=o, bias=b))
+            cost = k7b_cost(m, k, n,
+                            torch.empty((), dtype=out_dtype).element_size())
+        check_case(name, f"edge {case}", kernel, plain, records, cost=cost,
+                   exact=True)
 
 
 def attention_edge_cases(records, randn):
@@ -572,6 +717,20 @@ def build_model(cfg, device, scale=0.02, plan=SM8_PLAN):
     return model.eval()
 
 
+def check_k_major(model) -> int:
+    """Every native QuantLinear's packed weight is K-major on the card (the
+    layout the int8 GEMM kernels take); returns how many there are."""
+    from viditq_tpu_torch.quant.qlinear import QuantLinear
+    native = [m for m in model.modules()
+              if isinstance(m, QuantLinear) and m.native]
+    bad = [m for m in native
+           if not (m.w_int.is_cuda and m.w_int[0].t().is_contiguous())]
+    if bad:
+        fail(f"{len(bad)} of {len(native)} packed weights are not K-major "
+             f"on the card")
+    return len(native)
+
+
 def phase_reference():
     """Tiny models (STDiT under sm8 and under the native W8A8, PixArt-Σ
     under sm8): the card's kernels against the CPU's plain versions on the
@@ -596,6 +755,7 @@ def phase_reference():
         latent = latent_size(cfg)
         cpu = build_model(cfg, "cpu", scale=0.1, plan=plan)
         gpu = copy.deepcopy(cpu).to("cuda")
+        check_k_major(gpu)
         rng = np.random.default_rng(1)
         x = torch.tensor(rng.standard_normal((2, 4, *latent))).bfloat16()
         t = torch.tensor([500, 500])
@@ -655,8 +815,8 @@ def run_slice(name, cfg, z_scale, n_prompt):
             model_plan = plan
             print(f"phase slice {name}: {cfg['model']['type']} at latent "
                   f"{latent}, CFG batch 2, plan {plan.name}, built + "
-                  f"calibrated + packed in {time.time() - t0:.1f} s",
-                  flush=True)
+                  f"calibrated + packed in {time.time() - t0:.1f} s, "
+                  f"{check_k_major(model)} K-major int8 weights", flush=True)
         qctx = None if arm == "bf16" else QuantCtx(mode="quant")
         # warm-up: one CFG forward
         with torch.no_grad():

@@ -26,7 +26,7 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_kernels import interp, rel_err, t
+from test_torch_kernels import LAYOUTS, interp, rel_err, t
 from torch_parity import jax_kernel_path
 from viditq_tpu.kernels import int_matmul as jim
 from viditq_tpu_torch.kernels import _counters
@@ -102,18 +102,22 @@ def _tables(rng, M, K, N):
     return x_q, w_q, xs, xzp, xrs, ws, wzp, wcs
 
 
+@pytest.mark.parametrize("layout", list(LAYOUTS))
 @pytest.mark.parametrize("out_dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("mkn", [(96, 384, 256), (19, 72, 40)],
                          ids=["96x384x256", "19x72x40"])
-def test_k7b_int8_matmul(mkn, out_dtype):
+def test_k7b_int8_matmul(mkn, out_dtype, layout):
     rng = np.random.default_rng(12)
     args = _tables(rng, *mkn)
     jd = jnp.dtype(out_dtype)
     want = interp(jim.int8_matmul, *(jnp.asarray(a) for a in args),
                   out_dtype=jd, block_m=32, block_n=128, block_k=128)
-    got = IM.int8_matmul(*(t(a) for a in args),
+    pargs = [t(a) for a in args]
+    got = IM.int8_matmul(pargs[0], LAYOUTS[layout](pargs[1]), *pargs[2:],
                          out_dtype=getattr(torch, out_dtype))
     assert got.shape == mkn[::2] and got.dtype == getattr(torch, out_dtype)
+    assert torch.equal(got, IM.int8_matmul(
+        *pargs, out_dtype=getattr(torch, out_dtype)))
     got = got.float().numpy()
     if out_dtype == "float32":
         np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-3)

@@ -30,6 +30,7 @@ from viditq_tpu_torch.kernels import _build
 from viditq_tpu_torch.kernels import attention as A
 from viditq_tpu_torch.kernels import fused_matmul as FM
 from viditq_tpu_torch.kernels import int_matmul as IM
+from viditq_tpu_torch.kernels._common import k_major
 
 CODE_FRAC = 1e-3
 
@@ -97,7 +98,14 @@ def _i8(rng, shape):
     return rng.integers(-127, 128, shape).astype(np.int8)
 
 
-def test_k2_consumer_plain():
+# the weight as the CUDA kernels take it (K-major: a [K, N] view of [N, K]
+# storage, QuantLinear.w_int's layout) and as a row-major copy; the plain
+# versions give identical results on both
+LAYOUTS = {"row-major": lambda w: w, "k-major": k_major}
+
+
+@pytest.mark.parametrize("layout", list(LAYOUTS))
+def test_k2_consumer_plain(layout):
     rng = np.random.default_rng(2)
     M, K, N = 64, 256, 192
     xq, w = _i8(rng, (M, K)), _i8(rng, (K, N))
@@ -107,12 +115,15 @@ def test_k2_consumer_plain():
     want = interp(jfm.int8_consumer_matmul, jnp.asarray(xq), jnp.asarray(xs),
                   jnp.asarray(w), jnp.asarray(ws), bias=jnp.asarray(b),
                   out_dtype=jnp.float32)
-    got = FM.int8_consumer_matmul(t(xq), t(xs), t(w), t(ws), t(b),
-                                  out_dtype=torch.float32)
+    got = FM.int8_consumer_matmul(t(xq), t(xs), LAYOUTS[layout](t(w)), t(ws),
+                                  t(b), out_dtype=torch.float32)
     assert rel_err(got, want) < 1e-6
+    assert torch.equal(got, FM.int8_consumer_matmul(
+        t(xq), t(xs), t(w), t(ws), t(b), out_dtype=torch.float32))
 
 
-def test_k2_consumer_emit_three_groups():
+@pytest.mark.parametrize("layout", list(LAYOUTS))
+def test_k2_consumer_emit_three_groups(layout):
     # fc1's shape class: K=1152 -> N=4608 emits G=3 groups of 1536 (C1)
     rng = np.random.default_rng(3)
     M, K, N = 16, 1152, 4608
@@ -123,15 +134,19 @@ def test_k2_consumer_emit_three_groups():
     codes, scales = interp(jfm.int8_consumer_matmul, jnp.asarray(xq),
                            jnp.asarray(xs), jnp.asarray(w), jnp.asarray(ws),
                            bias=jnp.asarray(b), emit={"gelu": True})
-    pc, pscale = FM.int8_consumer_matmul(t(xq), t(xs), t(w), t(ws), t(b),
+    pc, pscale = FM.int8_consumer_matmul(t(xq), t(xs), LAYOUTS[layout](t(w)),
+                                         t(ws), t(b), emit={"gelu": True})
+    rc, rscale = FM.int8_consumer_matmul(t(xq), t(xs), t(w), t(ws), t(b),
                                          emit={"gelu": True})
+    assert torch.equal(pc, rc) and torch.equal(pscale, rscale)
     assert pscale.shape == (M, 3) and scales.shape == (M, 3 * 128)
     # the TPU layout pads each group's scale across 128 lanes
     np.testing.assert_allclose(pscale.numpy(), scales[:, ::128], rtol=1e-6)
     assert_codes_close(pc, codes)
 
 
-def test_k2_consumer_group_wise_x():
+@pytest.mark.parametrize("layout", list(LAYOUTS))
+def test_k2_consumer_group_wise_x(layout):
     # fc2's shape class: K=4608 in 3 groups of 1536 with one scale each
     rng = np.random.default_rng(4)
     M, K, N, G = 16, 4608, 128, 3
@@ -143,9 +158,13 @@ def test_k2_consumer_group_wise_x():
                   jnp.asarray(np.repeat(xs, 128, axis=1)), jnp.asarray(w),
                   jnp.asarray(ws), bias=jnp.asarray(b),
                   out_dtype=jnp.float32)
-    got = FM.int8_consumer_matmul(t(xq), t(xs), t(w), t(ws), t(b),
-                                  out_dtype=torch.float32, group_scales=True)
+    got = FM.int8_consumer_matmul(t(xq), t(xs), LAYOUTS[layout](t(w)), t(ws),
+                                  t(b), out_dtype=torch.float32,
+                                  group_scales=True)
     assert rel_err(got, want) < 1e-6
+    assert torch.equal(got, FM.int8_consumer_matmul(
+        t(xq), t(xs), t(w), t(ws), t(b), out_dtype=torch.float32,
+        group_scales=True))
 
 
 @pytest.mark.parametrize("sym", [True, False])

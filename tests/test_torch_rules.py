@@ -280,3 +280,95 @@ def test_attention_kernels_share_the_wgmma_core():
     for name in ("attention.cu", "attention_stream.cu"):
         assert '#include "attn_core.cuh"' in (_build.CSRC / name).read_text()
     assert "mma.sync" not in (_build.CSRC / "attention_stream.cu").read_text()
+
+
+def test_int8_gemms_share_the_tma_wgmma_core():
+    core = (_build.CSRC / "int8_mma.cuh").read_text()
+    assert "wgmma.mma_async" in core and ".s32.s8.s8" in core
+    assert "cp.async.bulk.tensor" in core and "mbarrier" in core
+    assert "setmaxnreg" in core
+    for name in ("int8_gemm.cu", "int_matmul.cu"):
+        src = (_build.CSRC / name).read_text()
+        assert '#include "int8_mma.cuh"' in src
+        assert "mma.sync" not in src
+    # the weight arrives K-major: no byte transpose is left anywhere
+    assert not [s.name for s in _build.sources()
+                if "__byte_perm" in s.read_text()]
+
+
+class _OnCard(torch.Tensor):
+    """A CPU tensor that reports itself on the card, so a wrapper takes its
+    CUDA path up to the launch (no device is touched: see _no_launch)."""
+
+    @property
+    def device(self):
+        return torch.device("cuda", 0)
+
+    @property
+    def is_cuda(self):
+        return True
+
+
+@pytest.fixture
+def _no_launch(monkeypatch):
+    class Launched(Exception):
+        pass
+
+    def lib():
+        raise Launched()
+    monkeypatch.setattr(_build, "lib", lib)
+    return Launched
+
+
+def _gemm_calls(k_major):
+    g = torch.Generator().manual_seed(0)
+    M, K, N = 32, 128, 64
+    xq = torch.randint(-127, 128, (M, K), generator=g, dtype=torch.int8)
+    w = torch.randint(-127, 128, (K, N), generator=g, dtype=torch.int8)
+    w = w.t().contiguous().t() if k_major else w.contiguous()
+    xs, ws = torch.rand(M, 1, generator=g), torch.rand(1, N, generator=g)
+    wz, wc = torch.zeros(1, N), w.float().sum(0, keepdim=True)
+    card = [t.as_subclass(_OnCard) for t in (xq, w, xs, ws, wz, wc)]
+    xq, w, xs, ws, wz, wc = card
+    return {
+        "k2": lambda: FM.int8_consumer_matmul(xq, xs, w, ws),
+        "k2-emit": lambda: FM.int8_consumer_matmul(xq, xs, w, ws,
+                                                   emit={"gelu": False}),
+        "k2-gw_x": lambda: FM.int8_consumer_matmul(
+            xq, torch.cat([xs, xs], 1), w, ws, group_scales=True),
+        "k7b": lambda: IM.int8_matmul(xq, w, xs, xs, xs, ws, wz, wc),
+    }
+
+
+@pytest.mark.parametrize("call", ["k2", "k2-emit", "k2-gw_x", "k7b"])
+def test_cuda_gemm_wrappers_take_only_k_major_weights(call, _no_launch):
+    # a row-major w_q raises before any launch (no per-call transpose on
+    # the card); a K-major one passes every check and reaches the launch
+    with pytest.raises(ValueError, match="K-major"):
+        _gemm_calls(False)[call]()
+    with pytest.raises(_no_launch):
+        _gemm_calls(True)[call]()
+
+
+def test_chip_smoke_carries_the_gemm_edge_cases():
+    import chip_smoke
+    cases = chip_smoke.GEMM_EDGE_CASES
+    k2 = [p for name, _, p in cases if name == "int8_consumer_matmul"]
+    k7b = [p for name, _, p in cases if name == "int8_matmul"]
+    assert any(p["M"] == 240 for p in k2)                       # kv_linear
+    assert any((p["M"], p["K"], p["N"]) == (19, 72, 40) for p in k7b)
+    assert any(p["N"] % 192 for p in k2) and any(p["N"] % 192 for p in k7b)
+    assert any(p["K"] % 128 for p in k2) and any(p["K"] % 128 for p in k7b)
+    assert any(p.get("G") == 3 and (p["K"] // 3) % 128 for p in k2)
+    assert any(p.get("offset") for p in k7b)
+    src = Path(chip_smoke.__file__).read_text()
+    assert "gemm_edge_cases(records" in src
+    # every K2 and K7b case is held identical to its plain version
+    body = src[src.index("def gemm_edge_cases"):]
+    assert "exact=True" in body[:body.index("\ndef ")]
+    for case in ('"plain [32768,1152]x[1152,1152]"',
+                 '"emit [32768,1152]x[1152,4608]"',
+                 '"gw_x [32768,4608]x[4608,1152]"',
+                 'check_case("int8_matmul", case,'):
+        call = src[src.index(case):]
+        assert "exact=True" in call[:call.index("\n\n")], case

@@ -49,6 +49,7 @@
 
 namespace {
 
+using namespace vq;
 using namespace vq::attn;
 
 // ---------------------------------------------------------------- full modes

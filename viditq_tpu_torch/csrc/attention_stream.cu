@@ -42,6 +42,7 @@
 
 namespace {
 
+using namespace vq;
 using namespace vq::attn;
 
 template <int D, bool INT8>

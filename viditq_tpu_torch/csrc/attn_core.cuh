@@ -93,10 +93,6 @@ struct Desc {
   static constexpr uint32_t V8_LBO = Tile<D>::DP * 16;
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
 // no-swizzle wgmma matrix descriptor
 __device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
                                               uint32_t sbo) {
@@ -126,24 +122,6 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// make this thread's generic-proxy shared writes (st.shared, cp.async)
-// visible to the async proxy that wgmma reads through
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_wait0() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 }
 
 // wgmma wrappers: _ss both operands in shared memory, _rs A in registers;
@@ -432,7 +410,7 @@ __device__ __forceinline__ void scores(float (&s)[32], const uint8_t* qs,
         make_desc(ka + ks * 2 * Desc<D>::K_LBO, Desc<D>::K_LBO, ROW8),
         ks > 0 ? 1 : 0);
   wgmma_commit();
-  wgmma_wait0();
+  wgmma_wait<0>();
   if (masked || kv0 + BKV > hi) {
     const int* mk = slot.mask();
 #pragma unroll
@@ -463,7 +441,7 @@ __device__ __forceinline__ void pv_bf16(float (&o)[Tile<D>::NO],
         o, p[kk], make_desc(va + kk * 16 * 16, Desc<D>::V_LBO, Desc<D>::V_SBO),
         kk > 0 ? 1 : scale_d);
   wgmma_commit();
-  wgmma_wait0();
+  wgmma_wait<0>();
 }
 
 // p fragments of the score layout: p[kk] covers score groups 2kk, 2kk+1
@@ -509,7 +487,7 @@ __device__ __forceinline__ void pv_s8(int (&acc)[Tile<D>::NO8],
                 make_desc(va + ch * 2 * Desc<D>::V8_LBO, Desc<D>::V8_LBO, ROW8),
                 ch > 0 ? 1 : scale_d);
   wgmma_commit();
-  wgmma_wait0();
+  wgmma_wait<0>();
 }
 
 // Write the block's [BQ, D] output tile (rows at or past N dropped) to out

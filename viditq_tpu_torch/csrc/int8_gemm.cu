@@ -11,17 +11,17 @@
 //          s = max(absmax * (1/127), 1e-6); codes = round(y * (1/s))
 //
 // Bound on the card: the int8 tensor cores at the main path's shapes
-// (M = 32768, K/N in 1152..4608: ~100-300 int8 ops per byte moved). This
-// kernel is a simple form: the main loop of int8_mma.cuh (128x128x64 block
-// tiles, register-staged double buffering, mma.sync m16n8k32 s8) with this
-// kernel's epilogues. The emission's row max spans a whole 1536-column
-// group, wider than a block, hence the f32 scratch and the second pass.
+// (M = 32768, K/N in 1152..4608: ~100-300 int8 ops per byte moved). The
+// product is the TMA + s8 wgmma core of int8_mma.cuh (K-major weight,
+// 128x192 tiles; 128x128 in gw_x, whose f32 accumulator doubles the
+// registers a thread holds); this file holds the epilogues. The emission's
+// row max spans a whole 1536-column group, wider than a tile, hence the f32
+// scratch and the second pass.
+#include <type_traits>
+
 #include "int8_mma.cuh"
 
 namespace {
-
-using vq::i8mma::BM;
-using vq::i8mma::BN;
 
 __device__ __forceinline__ float gelu_tanh(float o) {
   // 0.5 * o * (1 + tanh(sqrt(2/pi) * (o + 0.044715 * o^3))), o^3 = (o*o)*o
@@ -29,95 +29,72 @@ __device__ __forceinline__ float gelu_tanh(float o) {
   return 0.5f * o * (1.0f + tanhf(0.7978845608028654f * (o + 0.044715f * o3)));
 }
 
-// OUT_KIND: 0 = bf16 out, 1 = f32 out, 2 = f32 gelu(out) (emission scratch)
-template <bool GW, int OUT_KIND>
-__global__ void __launch_bounds__(256)
-    int8_gemm_kernel(const int8_t* __restrict__ A, const int8_t* __restrict__ W,
-                     const float* __restrict__ xs, int G,
-                     const float* __restrict__ ws,
-                     const float* __restrict__ bias, void* __restrict__ out,
-                     int M, int N, int K, int kg) {
-  __shared__ vq::i8mma::Smem sm;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int wm = warp >> 2;
-  const int wn = warp & 3;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int m0 = blockIdx.y * BM;
-  const int n0 = blockIdx.x * BN;
+// The epilogue of int8_mma.cuh's kernel. OUT_KIND: 0 = bf16 out, 1 = f32
+// out, 2 = f32 gelu(out) (emission scratch).
+template <bool GW_, int OUT_KIND>
+struct int8_gemm_epilogue {
+  using Out = typename std::conditional<OUT_KIND == 0, __nv_bfloat16,
+                                        float>::type;
+  static constexpr bool GW = GW_;
+  static constexpr int BN = GW ? 128 : 192;
+  struct Row {
+    float xs;  // the row's scale (G == 1)
+  };
+  const float* xs;
+  int G;
+  const float* ws;
+  const float* bias;
+  void* out;
+  int M, N;
 
-  int acc[4][4][4];
-  float facc[GW ? 4 : 1][GW ? 4 : 1][GW ? 4 : 1];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
-  if constexpr (GW) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) facc[i][j][e] = 0.0f;
+  __device__ __forceinline__ Row row(int r) const {
+    return {(GW || r >= M) ? 0.0f : xs[r]};
   }
-
-  vq::i8mma::mainloop<false>(A, W, M, N, K, m0, n0, sm, acc, [&](int kt) {
+  struct alignas(8) Col {
+    float ws, b;  // b: the bias, 0 without one (never added then)
+  };
+  __device__ __forceinline__ Col col(int c) const {
+    if (c >= N) return {0.0f, 0.0f};
+    return {ws[c], bias != nullptr ? bias[c] : 0.0f};
+  }
+  __device__ __forceinline__ float group_scale(int r, int grp) const {
+    return r < M ? xs[static_cast<size_t>(r) * G + grp] : 0.0f;
+  }
+  __device__ __forceinline__ Out value(int acc, float facc, const Row& r,
+                                       const Col& c) const {
+    float o;
     if constexpr (GW) {
-      if (((kt + 1) * vq::i8mma::BK) % kg == 0) {
-        // group boundary: dequantize this k-group's partial sums by the
-        // group's per-row scale and fold into the f32 accumulator
-        const int grp = kt * vq::i8mma::BK / kg;
-#pragma unroll
-        for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int row = m0 + wm * 64 + mi * 16 + g + (e >= 2 ? 8 : 0);
-            const float s =
-                row < M ? xs[static_cast<size_t>(row) * G + grp] : 0.0f;
-#pragma unroll
-            for (int ni = 0; ni < 4; ++ni) {
-              facc[mi][ni][e] =
-                  facc[mi][ni][e] + static_cast<float>(acc[mi][ni][e]) * s;
-              acc[mi][ni][e] = 0;
-            }
-          }
-      }
+      o = facc * c.ws;
+    } else {
+      o = static_cast<float>(acc) * (r.xs * c.ws);
     }
-  });
+    if (bias != nullptr) o = o + c.b;
+    if constexpr (OUT_KIND == 0) {
+      return __float2bfloat16_rn(o);
+    } else if constexpr (OUT_KIND == 1) {
+      return o;
+    } else {
+      return gelu_tanh(o);
+    }
+  }
+};
 
-#pragma unroll
-  for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int row = m0 + wm * 64 + mi * 16 + g + (e >= 2 ? 8 : 0);
-        const int col = n0 + wn * 32 + ni * 8 + t * 2 + (e & 1);
-        if (row >= M || col >= N) continue;
-        float o;
-        if constexpr (GW) {
-          o = facc[mi][ni][e] * ws[col];
-        } else {
-          o = static_cast<float>(acc[mi][ni][e]) * (xs[row] * ws[col]);
-        }
-        if (bias != nullptr) o = o + bias[col];
-        const size_t idx = static_cast<size_t>(row) * N + col;
-        if constexpr (OUT_KIND == 0) {
-          static_cast<__nv_bfloat16*>(out)[idx] = __float2bfloat16_rn(o);
-        } else if constexpr (OUT_KIND == 1) {
-          static_cast<float*>(out)[idx] = o;
-        } else {
-          static_cast<float*>(out)[idx] = gelu_tanh(o);
-        }
-      }
+// float4 vectors a lane of group_quant_kernel holds: groups of up to
+// 32 * 18 * 4 = 2304 columns (emit_groups' widest)
+constexpr int GQ_VECS = 18;
+
+__device__ __forceinline__ uint32_t pack_codes(float4 v, float inv) {
+  const auto b = [&](float f, int sh) {
+    return static_cast<uint32_t>(static_cast<uint8_t>(vq::round_sat_s8(f * inv)))
+           << sh;
+  };
+  return b(v.x, 0) | b(v.y, 8) | b(v.z, 16) | b(v.w, 24);
 }
 
-// One warp per (row, group): s = max(absmax * (1/127), 1e-6),
-// codes = clip(round(y * (1/s))) (fused_matmul.py:375-378).
+// One warp per (row, group): the group's values are read once, as float4
+// held in registers; s = max(absmax * (1/127), 1e-6), codes =
+// clip(round(y * (1/s))) (fused_matmul.py:375-378), stored 4 to a word.
+// The absmax is a max, so its order changes nothing.
 __global__ void group_quant_kernel(const float* __restrict__ y,
                                    int8_t* __restrict__ q,
                                    float* __restrict__ scales, int M, int N,
@@ -128,64 +105,83 @@ __global__ void group_quant_kernel(const float* __restrict__ y,
   if (item >= M * G) return;
   const int row = item / G;
   const int grp = item % G;
-  const float* p = y + static_cast<size_t>(row) * N + static_cast<size_t>(grp) * gw;
+  const size_t off = static_cast<size_t>(row) * N + static_cast<size_t>(grp) * gw;
+  const float4* p = reinterpret_cast<const float4*>(y + off);
+  const int nv = gw / 4;
+  float4 v[GQ_VECS];
   float am = 0.0f;
-  for (int c = lane; c < gw; c += 32) am = fmaxf(am, fabsf(p[c]));
+#pragma unroll
+  for (int i = 0; i < GQ_VECS; ++i) {
+    const int c = lane + 32 * i;
+    if (c < nv) {
+      v[i] = p[c];
+      am = fmaxf(am, fmaxf(fmaxf(fabsf(v[i].x), fabsf(v[i].y)),
+                           fmaxf(fabsf(v[i].z), fabsf(v[i].w))));
+    }
+  }
   am = vq::warp_max(am);
   const float s = fmaxf(am * static_cast<float>(1.0 / 127.0), 1e-6f);
   const float inv = 1.0f / s;
-  int8_t* qr = q + static_cast<size_t>(row) * N + static_cast<size_t>(grp) * gw;
-  for (int c = lane; c < gw; c += 32) qr[c] = vq::round_sat_s8(p[c] * inv);
+  uint32_t* qr = reinterpret_cast<uint32_t*>(q + off);
+#pragma unroll
+  for (int i = 0; i < GQ_VECS; ++i) {
+    const int c = lane + 32 * i;
+    if (c < nv) qr[c] = pack_codes(v[i], inv);
+  }
   if (lane == 0) scales[static_cast<size_t>(row) * G + grp] = s;
 }
 
 template <bool GW, int OUT_KIND>
-void launch_gemm(const int8_t* A, const int8_t* W, const float* xs, int G,
-                 const float* ws, const float* bias, void* out, int M, int N,
-                 int K, int kg, cudaStream_t st) {
-  dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  int8_gemm_kernel<GW, OUT_KIND><<<grid, 256, 0, st>>>(A, W, xs, G, ws, bias,
-                                                      out, M, N, K, kg);
+cudaError_t launch_gemm(const int8_t* A, const int8_t* Wt, const float* xs,
+                        int G, const float* ws, const float* bias, void* out,
+                        int M, int N, int K, cudaStream_t st) {
+  const int8_gemm_epilogue<GW, OUT_KIND> epi{xs, G, ws, bias, out, M, N};
+  return vq::i8mma::launch_tma(A, Wt, epi, K, K / G, st);
 }
 
 }  // namespace
 
-// A [M, K] int8, W [K, N] int8, xs [M, G] f32 (G == 1 unless group_wise),
-// ws [N] f32, bias [N] f32 or null. out_kind 0: out [M, N] bf16; 1: out
-// [M, N] f32; 2: out [M, N] f32 = gelu(result) (emission scratch).
-// K % 64 == 0, N % 16 == 0, and with group_wise (K / G) % 64 == 0.
-VQ_EXPORT int vq_int8_gemm(const void* A, const void* W, const void* xs,
+// A [M, K] int8, Wt [N, K] int8 (the K-major weight: W [K, N] stored
+// transposed), xs [M, G] f32 (G == 1 unless group_wise), ws [N] f32, bias
+// [N] f32 or null. out_kind 0: out [M, N] bf16; 1: out [M, N] f32; 2: out
+// [M, N] f32 = gelu(result) (emission scratch). K % 64 == 0, N % 16 == 0,
+// 16-byte aligned A and Wt, and with group_wise (K / G) % 64 == 0.
+VQ_EXPORT int vq_int8_gemm(const void* A, const void* Wt, const void* xs,
                            int G, const void* ws, const void* bias, void* out,
                            int M, int N, int K, int group_wise, int out_kind,
                            void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int8_t* a = static_cast<const int8_t*>(A);
-  const int8_t* w = static_cast<const int8_t*>(W);
+  const int8_t* w = static_cast<const int8_t*>(Wt);
+  if (!vq::i8mma::tma_ok(a, w, K)) return cudaErrorInvalidValue;
   const float* x_s = static_cast<const float*>(xs);
   const float* w_s = static_cast<const float*>(ws);
   const float* b = static_cast<const float*>(bias);
-  const int kg = K / G;
+  cudaError_t e;
   if (group_wise) {
     if (out_kind == 0)
-      launch_gemm<true, 0>(a, w, x_s, G, w_s, b, out, M, N, K, kg, st);
+      e = launch_gemm<true, 0>(a, w, x_s, G, w_s, b, out, M, N, K, st);
     else if (out_kind == 1)
-      launch_gemm<true, 1>(a, w, x_s, G, w_s, b, out, M, N, K, kg, st);
+      e = launch_gemm<true, 1>(a, w, x_s, G, w_s, b, out, M, N, K, st);
     else
-      launch_gemm<true, 2>(a, w, x_s, G, w_s, b, out, M, N, K, kg, st);
+      e = launch_gemm<true, 2>(a, w, x_s, G, w_s, b, out, M, N, K, st);
   } else {
     if (out_kind == 0)
-      launch_gemm<false, 0>(a, w, x_s, G, w_s, b, out, M, N, K, kg, st);
+      e = launch_gemm<false, 0>(a, w, x_s, 1, w_s, b, out, M, N, K, st);
     else if (out_kind == 1)
-      launch_gemm<false, 1>(a, w, x_s, G, w_s, b, out, M, N, K, kg, st);
+      e = launch_gemm<false, 1>(a, w, x_s, 1, w_s, b, out, M, N, K, st);
     else
-      launch_gemm<false, 2>(a, w, x_s, G, w_s, b, out, M, N, K, kg, st);
+      e = launch_gemm<false, 2>(a, w, x_s, 1, w_s, b, out, M, N, K, st);
   }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(e);
 }
 
-// y [M, N] f32 -> q [M, N] int8, scales [M, N / gw] f32.
+// y [M, N] f32 -> q [M, N] int8, scales [M, N / gw] f32; gw a multiple of
+// 16 that divides N, at most 32 * GQ_VECS * 4; y and q 16-byte aligned.
 VQ_EXPORT int vq_group_quant(const void* y, void* q, void* scales, int M,
                              int N, int gw, void* stream) {
+  if (gw <= 0 || gw % 16 != 0 || N % gw != 0 || gw > 32 * GQ_VECS * 4)
+    return cudaErrorInvalidValue;
   const int items = M * (N / gw);
   const int threads = 256;
   const int blocks = (items * 32 + threads - 1) / threads;

@@ -1,35 +1,524 @@
-// The int8 x int8 -> int32 main loop shared by the int8 GEMMs (K2 in
-// int8_gemm.cu, K7b in int_matmul.cu).
+// The int8 x int8 -> int32 GEMM core shared by K2 (int8_gemm.cu) and K7b
+// (int_matmul.cu): out[M, N] = epilogue(A[M, K] . W[K, N]).
 //
-// A block of 256 threads computes a 128x128 tile of A [M, K] x W [K, N]
-// over k-tiles of 64: two shared-memory buffers filled from registers (the
-// next tile's global loads are in flight while the tensor cores run on the
-// current one; no cp.async/TMA), 8 warps each computing 64x32 with
-// mma.sync m16n8k32 s8 (int32 sums, exact). The weight tile arrives [K, N]
-// (the JAX layout) and is transposed 4x4 bytes at a time (__byte_perm) into
-// shared memory as [N][K], so each B fragment is one 32-bit load.
+// The weight arrives K-major: the codes of W[K, N] lie in memory as W^T
+// [N, K] (QuantLinear.w_int is a [K, N] view of [N, K] storage). The s8
+// wgmma reads both operands K-major from shared memory (only 16-bit types
+// may be transposed) and TMA moves bytes without transposing them, so this
+// layout is the one both take as it is.
 //
-// EDGE = false takes K % 64 == 0, N % 4 == 0, 16-byte aligned A rows and
-// 4-byte aligned W rows (rows past M and columns past N read as zero).
-// EDGE = true takes any M, N, K and alignment: every byte is loaded on its
-// own, and bytes past M, N or K are zero, which is exact for the product.
+// What bounds it on this card: the int8 tensor cores at the main path's
+// shapes (M = 32768, K and N in 1152..4608: 2*M*N*K operations against
+// M*K + K*N + 2*M*N bytes, hundreds of operations a byte).
+//
+// Design (`tma_gemm_kernel`, the path of every aligned shape):
+// - A persistent grid of one block per SM walks the output tiles of BM x BN
+//   (BM = 128; BN = 192, or 128 where the epilogue holds a second
+//   accumulator), so the producer's loads of the next tile overlap this
+//   tile's epilogue.
+// - Three warpgroups: two consumers of 64 rows each, one producer. One
+//   producer thread issues cp.async.bulk.tensor loads of A [BM, 128] and
+//   W^T [BN, 128] k-tiles (128 bytes of k: one 128-byte swizzle row) into a
+//   ring of STAGES slots, each guarded by a full and an empty mbarrier.
+//   setmaxnreg gives the consumers the producer's registers.
+// - The consumers run wgmma m64nBNk32 s32.s8.s8 on both operands in shared
+//   memory (128-byte swizzle descriptors, the k32 step advancing the start
+//   address by 32 bytes), int32 sums in registers, exact. Tile kt's wgmmas
+//   stay in flight while the consumer waits for tile kt+1; a slot is
+//   released once the wgmmas that read it have completed.
+// - Ragged M and N and a K tail (K % 16 == 0) are exact: TMA zero-fills
+//   outside the tensor, and zero codes add nothing.
+// - The epilogue (a functor of the including kernel: `Epi`) maps each int32
+//   sum (and, with Epi::GW, the f32 accumulator of the group-wise mode) to
+//   the output type in the kernel's own operation order. Its row and column
+//   parameters are read into registers and shared memory before the main
+//   loop; the tile is staged per warpgroup in 128-byte-swizzled boxes and
+//   leaves by TMA stores that overlap the next tile's main loop (element
+//   stores where the output rows fit no tensor map: N * size % 16 != 0).
+// - What bounds it now: the epilogue does not overlap the tensor cores (both
+//   consumer warpgroups finish a tile together), which costs most where K
+//   is short (K = 1152: nine k-tiles a tile), and the ring's depth (with a
+//   slot fewer the loop is markedly slower). A second accumulator set
+//   spills at BN = 192, BN = 128 tiles slowed the main loop, and the two
+//   warpgroups taking turns on tiles of 64 rows (ping-pong: each alone on
+//   the tensor cores, 1.6x the loads) made every case slower.
+// - GW folds a k-group that ends at a k-tile's start before that k-tile's
+//   wgmmas, so such k-tiles run the plain body; only a k-tile with a group
+//   boundary inside it (K / G % 128 != 0) takes a stepwise body.
+// - The accumulator fragment of wgmma m64nN: register 4*nt + e of the
+//   thread with lane quad g = lane/4, t4 = lane%4, in warp w of its
+//   warpgroup holds row 16*w + g + 8*(e >> 1), column 8*nt + 2*t4 + (e & 1)
+//   (`acc_row`, `acc_col`; tests/test_torch_gemm.py checks it covers the
+//   tile once).
+//
+// `edge_gemm_kernel` takes what TMA cannot: K not a multiple of 16 (a row
+// stride TMA refuses) or a base that is not 16-byte aligned. 128x128 tiles,
+// every byte loaded on its own (zero past M, N and K) from A and the
+// K-major W^T alike, mma.sync m16n8k32 s8.
 #pragma once
+
+#include <cuda.h>  // CUtensorMap and its enums; the encoder comes from libcuda
 
 #include "common.cuh"
 
 namespace vq {
 namespace i8mma {
 
-constexpr int BM = 128;
-constexpr int BN = 128;
-constexpr int BK = 64;
-constexpr int LDS = BK + 16;  // padded shared row stride in bytes
-constexpr int THREADS = 256;
+constexpr int BM = 128;       // rows per tile: two consumer warpgroups of 64
+constexpr int BK = 128;       // k bytes per ring slot: one 128-byte swizzle row
+constexpr int THREADS = 384;  // consumer warpgroups 0 and 1, producer 2
+constexpr int SMEM_LIMIT = 232448;
+constexpr int CONSUMER_REGS = 232;  // setmaxnreg: 2 x 128 x 232 +
+constexpr int PRODUCER_REGS = 40;   // 128 x 40 = 384 x 168 registers
+constexpr int LAUNCH_REGS = 168;    // per thread at launch (384 threads)
 
-struct Smem {
-  __align__(16) int8_t a[2][BM * LDS];
-  __align__(16) int8_t b[2][BN * LDS];
+template <int BN, typename Out>
+struct Layout {
+  static constexpr int A_BYTES = BM * BK;
+  static constexpr int STAGE_BYTES = A_BYTES + BN * BK;
+  // output staging, per consumer warpgroup 64 rows x BN columns as boxes
+  // of 64 rows x 128 bytes in the 128-byte swizzle: the TMA store's source
+  // layout, and conflict-free for the fragment's 4- and 8-byte writes
+  static constexpr int BOXC = 128 / static_cast<int>(sizeof(Out));
+  static constexpr int BOXES = BN / BOXC;
+  static constexpr int BOX_BYTES = 64 * 128;
+  static constexpr int STG_BYTES = 2 * BOXES * BOX_BYTES;
+  static_assert(BN % BOXC == 0, "BN must fill whole output boxes");
+  // each consumer warpgroup's copy of the tile's per-column epilogue
+  // parameters (Epi::Col, at most 16 bytes a column)
+  static constexpr int COL_BYTES = 2 * BN * 16;
+  static constexpr int BAR_BYTES = 128;
+  static constexpr int FIT =
+      (SMEM_LIMIT - 1024 - COL_BYTES - BAR_BYTES - STG_BYTES) / STAGE_BYTES;
+  static constexpr int STAGES = FIT < 4 ? FIT : 4;
+  // + 1024: the dynamic shared memory base is aligned up to 1024 bytes
+  // (the 128-byte swizzle atom)
+  static constexpr int SMEM_BYTES =
+      1024 + STAGES * STAGE_BYTES + STG_BYTES + COL_BYTES + BAR_BYTES;
+  static_assert(STAGES >= 2, "ring too shallow");
+  static_assert(STAGE_BYTES % 1024 == 0 && A_BYTES % 1024 == 0,
+                "swizzled tiles must stay 1024-byte aligned");
 };
+
+// ---- mbarrier, TMA and wgmma primitives ----------------------------------
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+// Wait for the phase of `parity` to complete. A barrier that does not
+// complete within ~10 s is a fault of the kernel: trap (a launch error the
+// wrapper reports) rather than hang the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  long long start = 0;
+  while (true) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    const long long now = clock64();
+    if (start == 0) {
+      start = now;
+    } else if (now - start > 20000000000ll) {
+      __trap();
+    }
+  }
+}
+
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int k0, int row0) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(k0), "r"(row0)
+      : "memory");
+}
+
+// shared -> global tile store of one box; completion tracked by bulk group
+__device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src,
+                                          int col0, int row0) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], "
+      "[%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(col0), "r"(row0)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// wait until the committed stores have read their shared memory
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// K-major operand of 8-row x 128-byte swizzled core groups: stride between
+// 8-row groups 1024 bytes; the leading offset is unused by this layout
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(1) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) |
+         (static_cast<uint64_t>(1) << 62);
+}
+
+// pin the accumulators after a wgmma wait, so no read of them is scheduled
+// before it. Only where no wgmma is in flight: touching registers an
+// in-flight wgmma writes makes ptxas wait for it (serializing the loop)
+template <int R>
+__device__ __forceinline__ void fence_regs(int (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+// d (+)= a . b^T over k32, both from shared memory; scale_d = 0 overwrites
+__device__ __forceinline__ void wgmma_s8(int (&d)[64], uint64_t a,
+                                         uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, "
+      "%64, %65, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+        "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]),
+        "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]),
+        "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]),
+        "+r"(d[54]), "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_s8(int (&d)[96], uint64_t a,
+                                         uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %98, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k32.s32.s8.s8 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95"
+      "}, "
+      "%96, %97, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+        "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]),
+        "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]),
+        "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]),
+        "+r"(d[54]), "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63]), "+r"(d[64]), "+r"(d[65]),
+        "+r"(d[66]), "+r"(d[67]), "+r"(d[68]), "+r"(d[69]), "+r"(d[70]), "+r"(d[71]),
+        "+r"(d[72]), "+r"(d[73]), "+r"(d[74]), "+r"(d[75]), "+r"(d[76]), "+r"(d[77]),
+        "+r"(d[78]), "+r"(d[79]), "+r"(d[80]), "+r"(d[81]), "+r"(d[82]), "+r"(d[83]),
+        "+r"(d[84]), "+r"(d[85]), "+r"(d[86]), "+r"(d[87]), "+r"(d[88]), "+r"(d[89]),
+        "+r"(d[90]), "+r"(d[91]), "+r"(d[92]), "+r"(d[93]), "+r"(d[94]), "+r"(d[95])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+// accumulator register i of a thread: its row in the warpgroup's 64, and
+// its column in the tile
+__device__ __forceinline__ int acc_row(int warp, int g, int i) {
+  return 16 * warp + g + 8 * ((i >> 1) & 1);
+}
+__device__ __forceinline__ int acc_col(int t4, int i) {
+  return 8 * (i >> 2) + 2 * t4 + (i & 1);
+}
+
+__device__ __forceinline__ void store2(__nv_bfloat16* p, __nv_bfloat16 a,
+                                       __nv_bfloat16 b) {
+  __nv_bfloat162 v;
+  v.x = a;
+  v.y = b;
+  *reinterpret_cast<__nv_bfloat162*>(p) = v;
+}
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+
+// GW: fold the finished k-group grp into the f32 accumulator,
+// facc + float(acc) * xs[row, grp], in the plain version's order
+template <typename Epi, int R>
+__device__ __forceinline__ void fold_group(const Epi& epi, float (&facc)[R],
+                                           const int (&acc)[R], int r0,
+                                           int grp) {
+  const float s0 = epi.group_scale(r0, grp);
+  const float s1 = epi.group_scale(r0 + 8, grp);
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+    facc[i] = facc[i] + static_cast<float>(acc[i]) * ((i & 2) ? s1 : s0);
+}
+
+// ---- the TMA + wgmma kernel ----------------------------------------------
+//
+// Epi provides: `Out` (bf16 or float), `BN`, `GW` (group-wise activation
+// scales: an f32 accumulator folded at every k-group boundary), fields
+// `out`, `M`, `N`, a per-row context `Row row(int r)` (r may be >= M),
+// a per-column context `Col col(int c)` (c may be >= N),
+// `float group_scale(int r, int grp)` (GW) and
+// `Out value(int acc, float facc, const Row&, const Col&)`.
+// kg: the k-group width (GW; a multiple of 32). tma_out: map_out is the
+// output's map (rows of 16-byte multiples at a 16-byte aligned base) and
+// the tiles leave by TMA stores; else by element stores.
+template <typename Epi>
+__global__ void __launch_bounds__(THREADS, 1)
+    tma_gemm_kernel(const __grid_constant__ CUtensorMap map_a,
+                    const __grid_constant__ CUtensorMap map_w,
+                    const __grid_constant__ CUtensorMap map_out, const Epi epi,
+                    int K, int kg, int tma_out) {
+  using Out = typename Epi::Out;
+  constexpr int BN = Epi::BN;
+  constexpr int R = BN / 2;  // accumulator registers a thread
+  using L = Layout<BN, Out>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const uint32_t ring = smem_u32(smem);
+  uint8_t* col_base = smem + L::STAGES * L::STAGE_BYTES + L::STG_BYTES;
+  const uint32_t bars = smem_u32(col_base + L::COL_BYTES);
+  auto full = [&](int s) { return bars + 8 * s; };
+  auto empty = [&](int s) { return bars + 8 * (L::STAGES + s); };
+  const int M = epi.M;
+  const int N = epi.N;
+  const int tiles_n = (N + BN - 1) / BN;
+  const int tiles = (M + BM - 1) / BM * tiles_n;
+  const int nk = (K + BK - 1) / BK;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < L::STAGES; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), 2);  // one arrival per consumer warpgroup
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x >> 7;
+  if (wg == 2) {
+    // ---- producer: one thread keeps the ring full ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
+    if (threadIdx.x == 2 * 128) {
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        const int m0 = tile / tiles_n * BM;
+        const int n0 = tile % tiles_n * BN;
+        for (int kt = 0; kt < nk; ++kt) {
+          mbar_wait(empty(stage), phase ^ 1);
+          mbar_expect_tx(full(stage), L::STAGE_BYTES);
+          const uint32_t slot = ring + stage * L::STAGE_BYTES;
+          tma_load(slot, &map_a, full(stage), kt * BK, m0);
+          tma_load(slot + L::A_BYTES, &map_w, full(stage), kt * BK, n0);
+          if (++stage == L::STAGES) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+      }
+    }
+  } else {
+    // ---- consumers: warpgroup wg owns rows 64*wg .. 64*wg+63 ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
+    const int tid = threadIdx.x & 127;
+    const int warp = tid >> 5;
+    const int g = (tid & 31) >> 2;
+    const int t4 = tid & 3;
+    const bool leader = tid == 0;
+    uint8_t* stg =
+        smem + L::STAGES * L::STAGE_BYTES + wg * L::BOXES * L::BOX_BYTES;
+    // the staging place of local row lr, column c (128-byte swizzle: the
+    // 16-byte chunk index XOR the row's index in its 8-row group)
+    auto stg_at = [&](int lr, int c) {
+      const int byte = c * static_cast<int>(sizeof(Out));
+      const int in = byte & 127;
+      return reinterpret_cast<Out*>(
+          stg + (byte >> 7) * L::BOX_BYTES + lr * 128 +
+          ((((in >> 4) ^ (lr & 7)) << 4) | (in & 15)));
+    };
+    using Col = typename Epi::Col;
+    static_assert(sizeof(Col) <= 16, "column parameters above 16 bytes");
+    Col* cols = reinterpret_cast<Col*>(col_base) + wg * BN;
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      const int m0 = tile / tiles_n * BM;
+      const int n0 = tile % tiles_n * BN;
+      const int r0 = m0 + 64 * wg + acc_row(warp, g, 0);  // and r0 + 8
+      // the epilogue's row and column parameters, loaded now so their
+      // latency hides behind the main loop (the previous tile's epilogue
+      // has read cols: its second barrier)
+      const typename Epi::Row row_lo = epi.row(r0);
+      const typename Epi::Row row_hi = epi.row(r0 + 8);
+      for (int c = tid; c < BN; c += 128) cols[c] = epi.col(n0 + c);
+      int acc[R];
+      float facc[Epi::GW ? R : 1];
+      if constexpr (Epi::GW) {
+#pragma unroll
+        for (int i = 0; i < R; ++i) facc[i] = 0.0f;
+      }
+      bool fresh = true;  // the next wgmma overwrites acc
+      int prev = -1;      // the slot whose wgmmas may still be in flight
+      for (int kt = 0; kt < nk; ++kt) {
+        const int k0 = kt * BK;
+        // GW: a k-group that ends where this k-tile starts is folded before
+        // its first wgmma (once the previous k-tile's are done); one that
+        // ends inside it (kg % BK != 0) takes the k-tile's stepwise body
+        bool inner = false;
+        if constexpr (Epi::GW) {
+          if (k0 > 0 && k0 % kg == 0) {
+            wgmma_wait<0>();
+            fence_regs(acc);
+            fold_group(epi, facc, acc, r0, k0 / kg - 1);
+            fresh = true;
+          }
+          inner = k0 / kg != (min(k0 + BK, K) - 1) / kg;
+        }
+        mbar_wait(full(stage), phase);
+        const uint32_t a = ring + stage * L::STAGE_BYTES + wg * 64 * BK;
+        const uint32_t b = ring + stage * L::STAGE_BYTES + L::A_BYTES;
+        wgmma_fence();
+        if (!inner) {
+#pragma unroll
+          for (int s = 0; s < BK / 32; ++s) {
+            if (k0 + s * 32 >= K) break;
+            wgmma_s8(acc, sw128_desc(a + s * 32), sw128_desc(b + s * 32),
+                     fresh ? 0 : 1);
+            fresh = false;
+          }
+        } else if constexpr (Epi::GW) {
+#pragma unroll
+          for (int s = 0; s < BK / 32; ++s) {
+            const int kk = k0 + s * 32;
+            if (kk >= K) break;
+            if (s > 0 && kk % kg == 0) {
+              wgmma_commit();
+              wgmma_wait<0>();
+              fence_regs(acc);
+              fold_group(epi, facc, acc, r0, kk / kg - 1);
+              fresh = true;
+              wgmma_fence();
+            }
+            wgmma_s8(acc, sw128_desc(a + s * 32), sw128_desc(b + s * 32),
+                     fresh ? 0 : 1);
+            fresh = false;
+          }
+        }
+        wgmma_commit();
+        wgmma_wait<1>();  // the previous slot's wgmmas are done
+        if (prev >= 0 && leader) mbar_arrive(empty(prev));
+        prev = stage;
+        if (++stage == L::STAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+      wgmma_wait<0>();
+      fence_regs(acc);
+      if (leader) mbar_arrive(empty(prev));
+      if constexpr (Epi::GW) fold_group(epi, facc, acc, r0, (K - 1) / kg);
+
+      // ---- epilogue: values into the staging boxes, then TMA stores
+      if (leader && tma_out) bulk_wait_read();  // the last stores read stg
+      named_sync(1 + wg, 128);  // ... and cols are written
+#pragma unroll
+      for (int nt = 0; nt < BN / 8; ++nt) {
+        // registers 4nt .. 4nt+3: columns c, c+1 of rows r0 and r0 + 8
+        const int c = acc_col(t4, 4 * nt);
+        const Col c0 = cols[c];
+        const Col c1 = cols[c + 1];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int i = 4 * nt + 2 * h;
+          const typename Epi::Row& rw = h ? row_hi : row_lo;
+          const float f0 = Epi::GW ? facc[Epi::GW ? i : 0] : 0.0f;
+          const float f1 = Epi::GW ? facc[Epi::GW ? i + 1 : 0] : 0.0f;
+          store2(stg_at(acc_row(warp, g, i), c),
+                 epi.value(acc[i], f0, rw, c0),
+                 epi.value(acc[i + 1], f1, rw, c1));
+        }
+      }
+      fence_proxy_async();  // the staging writes, visible to TMA
+      named_sync(1 + wg, 128);
+      const int row0 = m0 + 64 * wg;
+      if (tma_out) {
+        if (leader) {
+#pragma unroll
+          for (int b = 0; b < L::BOXES; ++b)
+            tma_store(&map_out, smem_u32(stg + b * L::BOX_BYTES),
+                      n0 + b * L::BOXC, row0);
+          bulk_commit();
+        }
+      } else {
+        Out* out = static_cast<Out*>(epi.out);
+        for (int idx = tid; idx < 64 * BN; idx += 128) {
+          const int lr = idx / BN;
+          const int c = idx % BN;
+          if (row0 + lr < M && n0 + c < N)
+            out[static_cast<size_t>(row0 + lr) * N + n0 + c] = *stg_at(lr, c);
+        }
+      }
+    }
+    if (leader && tma_out) bulk_wait();
+  }
+}
+
+// ---- the byte-wise kernel ------------------------------------------------
+
+constexpr int EDGE_TILE = 128;
+constexpr int EDGE_BK = 64;
+constexpr int EDGE_LDS = EDGE_BK + 16;  // padded shared row, bytes
+constexpr int EDGE_THREADS = 256;
 
 __device__ __forceinline__ void mma_s8(int* c, const uint32_t* a,
                                        const uint32_t* b) {
@@ -40,135 +529,63 @@ __device__ __forceinline__ void mma_s8(int* c, const uint32_t* a,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-__device__ __forceinline__ uint32_t load_byte(const int8_t* p, bool ok,
-                                              int shift) {
-  return ok ? (static_cast<uint32_t>(static_cast<uint8_t>(*p)) << shift) : 0u;
-}
-
-// The tile at block (m0, n0): acc[mi][ni][e] of warp (wm, wn) holds row
-// m0 + wm*64 + mi*16 + g + (e >= 2 ? 8 : 0), column
-// n0 + wn*32 + ni*8 + t*2 + (e & 1), with g = lane/4, t = lane%4, wm =
-// warp/4, wn = warp%4. after_tile(kt) runs after k-tile kt has been
-// accumulated (all threads, after a barrier).
-template <bool EDGE, typename AfterTile>
-__device__ __forceinline__ void mainloop(const int8_t* __restrict__ A,
-                                         const int8_t* __restrict__ W, int M,
-                                         int N, int K, int m0, int n0,
-                                         Smem& sm, int (&acc)[4][4][4],
-                                         AfterTile after_tile) {
+// One 128x128 tile a block (8 warps of 64x32); acc[mi][ni][e] of warp
+// (wm = warp/4, wn = warp%4) is row wm*64 + mi*16 + g + 8*(e >= 2), column
+// wn*32 + ni*8 + 2*t4 + (e & 1). Epi as above (GW not taken).
+template <typename Epi>
+__global__ void __launch_bounds__(EDGE_THREADS)
+    edge_gemm_kernel(const int8_t* __restrict__ A,
+                     const int8_t* __restrict__ Wt, const Epi epi, int K) {
+  static_assert(!Epi::GW, "the byte-wise kernel has no group-wise mode");
+  __shared__ __align__(16) int8_t as[EDGE_TILE * EDGE_LDS];
+  __shared__ __align__(16) int8_t bs[EDGE_TILE * EDGE_LDS];
+  const int M = epi.M;
+  const int N = epi.N;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int wm = warp >> 2;  // 2 warps along M, 64 rows each
-  const int wn = warp & 3;   // 4 warps along N, 32 columns each
+  const int wm = warp >> 2;
+  const int wn = warp & 3;
   const int g = lane >> 2;
-  const int t = lane & 3;
+  const int t4 = lane & 3;
+  const int m0 = blockIdx.y * EDGE_TILE;
+  const int n0 = blockIdx.x * EDGE_TILE;
 
-  int4 a_reg[2];
-  uint32_t b_reg[2][4];
-  auto load_global = [&](int k0) {
+  int acc[4][4][4];
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int v = tid + i * THREADS;  // A: BM rows x BK bytes, 16-byte vectors
-      const int gm = m0 + (v >> 2);
-      const int gk = k0 + (v & 3) * 16;
-      if constexpr (EDGE) {
-        uint32_t w[4];
-        const int8_t* p = A + static_cast<size_t>(gm) * K + gk;
+  for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          w[j] = 0u;
+    for (int j = 0; j < 4; ++j)
 #pragma unroll
-          for (int b = 0; b < 4; ++b)
-            w[j] |= load_byte(p + j * 4 + b, gm < M && gk + j * 4 + b < K,
-                              8 * b);
-        }
-        a_reg[i] = make_int4(static_cast<int>(w[0]), static_cast<int>(w[1]),
-                             static_cast<int>(w[2]), static_cast<int>(w[3]));
-      } else {
-        a_reg[i] = gm < M ? *reinterpret_cast<const int4*>(
-                                A + static_cast<size_t>(gm) * K + gk)
-                          : make_int4(0, 0, 0, 0);
-      }
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
+  for (int k0 = 0; k0 < K; k0 += EDGE_BK) {
+    for (int idx = tid; idx < EDGE_TILE * EDGE_BK; idx += EDGE_THREADS) {
+      const int r = idx / EDGE_BK;
+      const int k = idx % EDGE_BK;
+      const bool kin = k0 + k < K;
+      as[r * EDGE_LDS + k] =
+          (m0 + r < M && kin) ? A[static_cast<size_t>(m0 + r) * K + k0 + k]
+                              : int8_t(0);
+      bs[r * EDGE_LDS + k] =
+          (n0 + r < N && kin) ? Wt[static_cast<size_t>(n0 + r) * K + k0 + k]
+                              : int8_t(0);
     }
+    __syncthreads();
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      // W: 4 k-rows x 4 n-columns per item; a warp covers 8 k-quads x 4
-      // n-quads (16-byte row segments, spread shared-memory banks)
-      const int blk = tid + i * THREADS;
-      const int kq = ((blk >> 2) & 7) | (((blk >> 5) & 1) << 3);
-      const int gn = n0 + ((blk & 3) | ((blk >> 6) << 2)) * 4;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int gk = k0 + kq * 4 + j;
-        if constexpr (EDGE) {
-          const int8_t* p = W + static_cast<size_t>(gk) * N + gn;
-          uint32_t w = 0u;
-#pragma unroll
-          for (int b = 0; b < 4; ++b)
-            w |= load_byte(p + b, gk < K && gn + b < N, 8 * b);
-          b_reg[i][j] = w;
-        } else {
-          b_reg[i][j] = gn < N ? *reinterpret_cast<const uint32_t*>(
-                                     W + static_cast<size_t>(gk) * N + gn)
-                               : 0u;
-        }
-      }
-    }
-  };
-  auto store_smem = [&](int buf) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int v = tid + i * THREADS;
-      *reinterpret_cast<int4*>(sm.a[buf] + (v >> 2) * LDS + (v & 3) * 16) =
-          a_reg[i];
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int blk = tid + i * THREADS;
-      const int kq = ((blk >> 2) & 7) | (((blk >> 5) & 1) << 3);
-      const int cn = ((blk & 3) | ((blk >> 6) << 2)) * 4;
-      // 4x4 byte transpose: word j holds 4 n-values at k-row j; word c of
-      // the result holds 4 k-values at n-column c
-      const uint32_t* w = b_reg[i];
-      const uint32_t lo01 = __byte_perm(w[0], w[1], 0x5140);
-      const uint32_t hi01 = __byte_perm(w[0], w[1], 0x7362);
-      const uint32_t lo23 = __byte_perm(w[2], w[3], 0x5140);
-      const uint32_t hi23 = __byte_perm(w[2], w[3], 0x7362);
-      int8_t* dst = sm.b[buf] + cn * LDS + kq * 4;
-      *reinterpret_cast<uint32_t*>(dst) = __byte_perm(lo01, lo23, 0x5410);
-      *reinterpret_cast<uint32_t*>(dst + LDS) = __byte_perm(lo01, lo23, 0x7632);
-      *reinterpret_cast<uint32_t*>(dst + 2 * LDS) =
-          __byte_perm(hi01, hi23, 0x5410);
-      *reinterpret_cast<uint32_t*>(dst + 3 * LDS) =
-          __byte_perm(hi01, hi23, 0x7632);
-    }
-  };
-
-  const int nk = EDGE ? (K + BK - 1) / BK : K / BK;
-  load_global(0);
-  store_smem(0);
-  __syncthreads();
-  for (int kt = 0; kt < nk; ++kt) {
-    const int buf = kt & 1;
-    if (kt + 1 < nk) load_global((kt + 1) * BK);
-    const int8_t* as = sm.a[buf];
-    const int8_t* bs = sm.b[buf];
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 32) {
+    for (int kk = 0; kk < EDGE_BK; kk += 32) {
       uint32_t af[4][4];
       uint32_t bfr[4][2];
 #pragma unroll
       for (int mi = 0; mi < 4; ++mi) {
-        const int8_t* ap = as + (wm * 64 + mi * 16 + g) * LDS + kk + t * 4;
+        const int8_t* ap = as + (wm * 64 + mi * 16 + g) * EDGE_LDS + kk + t4 * 4;
         af[mi][0] = *reinterpret_cast<const uint32_t*>(ap);
-        af[mi][1] = *reinterpret_cast<const uint32_t*>(ap + 8 * LDS);
+        af[mi][1] = *reinterpret_cast<const uint32_t*>(ap + 8 * EDGE_LDS);
         af[mi][2] = *reinterpret_cast<const uint32_t*>(ap + 16);
-        af[mi][3] = *reinterpret_cast<const uint32_t*>(ap + 8 * LDS + 16);
+        af[mi][3] = *reinterpret_cast<const uint32_t*>(ap + 8 * EDGE_LDS + 16);
       }
 #pragma unroll
       for (int ni = 0; ni < 4; ++ni) {
-        const int8_t* bp = bs + (wn * 32 + ni * 8 + g) * LDS + kk + t * 4;
+        const int8_t* bp = bs + (wn * 32 + ni * 8 + g) * EDGE_LDS + kk + t4 * 4;
         bfr[ni][0] = *reinterpret_cast<const uint32_t*>(bp);
         bfr[ni][1] = *reinterpret_cast<const uint32_t*>(bp + 16);
       }
@@ -177,10 +594,142 @@ __device__ __forceinline__ void mainloop(const int8_t* __restrict__ A,
 #pragma unroll
         for (int ni = 0; ni < 4; ++ni) mma_s8(acc[mi][ni], af[mi], bfr[ni]);
     }
-    if (kt + 1 < nk) store_smem(buf ^ 1);
     __syncthreads();
-    after_tile(kt);
   }
+  using Out = typename Epi::Out;
+#pragma unroll
+  for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int row = m0 + wm * 64 + mi * 16 + g + (e >= 2 ? 8 : 0);
+      if (row >= M) continue;
+      const typename Epi::Row rw = epi.row(row);
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni) {
+        const int col = n0 + wn * 32 + ni * 8 + t4 * 2 + (e & 1);
+        if (col < N)
+          static_cast<Out*>(epi.out)[static_cast<size_t>(row) * N + col] =
+              epi.value(acc[mi][ni][e], 0.0f, rw, epi.col(col));
+      }
+    }
+}
+
+// ---- host side -----------------------------------------------------------
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from libcuda through the runtime's entry-point
+// query, so the library links nothing beyond the CUDA runtime
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// the map of a row-major int8 [rows, K] matrix in boxes of [box_rows, BK]
+// bytes, 128-byte swizzle, zero fill outside
+inline bool encode_map(CUtensorMap* map, const void* base, int rows, int K,
+                       int box_rows) {
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(K),
+                              static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(K)};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(BK),
+                             static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t elem[2] = {1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(base),
+            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// the map of the row-major output [M, N] in boxes of 64 rows x 128 bytes
+template <typename Out>
+bool encode_out_map(CUtensorMap* map, void* out, int M, int N) {
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  constexpr int E = static_cast<int>(sizeof(Out));
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(N),
+                              static_cast<cuuint64_t>(M)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(N) * E};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(128 / E), 64};
+  const cuuint32_t elem[2] = {1, 1};
+  return fn(map, E == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                        : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+            2, out, dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_NONE,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// TMA takes 16-byte aligned bases and row strides
+inline bool tma_ok(const void* A, const void* Wt, int K) {
+  return K % 16 == 0 && reinterpret_cast<uintptr_t>(A) % 16 == 0 &&
+         reinterpret_cast<uintptr_t>(Wt) % 16 == 0;
+}
+
+// A [M, K] int8 row-major, Wt [N, K] int8 (the K-major weight); M, N in epi
+template <typename Epi>
+cudaError_t launch_tma(const int8_t* A, const int8_t* Wt, const Epi& epi,
+                       int K, int kg, cudaStream_t st) {
+  using L = Layout<Epi::BN, typename Epi::Out>;
+  auto kernel = tma_gemm_kernel<Epi>;
+  static cudaError_t prepared = cudaErrorNotReady;
+  if (prepared == cudaErrorNotReady) {
+    cudaFuncAttributes fa;
+    prepared = cudaFuncGetAttributes(&fa, kernel);
+    // setmaxnreg only moves registers within the block's launch
+    // allocation, which must hold the consumers' and producer's shares
+    if (prepared == cudaSuccess && fa.numRegs < LAUNCH_REGS)
+      prepared = cudaErrorInvalidDeviceFunction;
+    if (prepared == cudaSuccess)
+      prepared = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::SMEM_BYTES);
+  }
+  if (prepared != cudaSuccess) return prepared;
+  CUtensorMap map_a, map_w;
+  if (!encode_map(&map_a, A, epi.M, K, BM) ||
+      !encode_map(&map_w, Wt, epi.N, K, Epi::BN))
+    return cudaErrorInvalidValue;
+  using Out = typename Epi::Out;
+  CUtensorMap map_out;
+  const int tma_out =
+      (static_cast<size_t>(epi.N) * sizeof(Out)) % 16 == 0 &&
+      reinterpret_cast<uintptr_t>(epi.out) % 16 == 0 &&
+      encode_out_map<Out>(&map_out, epi.out, epi.M, epi.N);
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const int tiles = (epi.M + BM - 1) / BM * ((epi.N + Epi::BN - 1) / Epi::BN);
+  kernel<<<tiles < sms ? tiles : sms, THREADS, L::SMEM_BYTES, st>>>(
+      map_a, map_w, map_out, epi, K, kg, tma_out);
+  return cudaGetLastError();
+}
+
+template <typename Epi>
+cudaError_t launch_edge(const int8_t* A, const int8_t* Wt, const Epi& epi,
+                        int K, cudaStream_t st) {
+  dim3 grid((epi.N + EDGE_TILE - 1) / EDGE_TILE,
+            (epi.M + EDGE_TILE - 1) / EDGE_TILE);
+  edge_gemm_kernel<Epi><<<grid, EDGE_THREADS, 0, st>>>(A, Wt, epi, K);
+  return cudaGetLastError();
 }
 
 }  // namespace i8mma

@@ -16,17 +16,20 @@
 // one shared-memory step, and the codes leave as 8- or 4-byte stores.
 //
 // K7b replaces `int8_matmul` / `_int8_matmul_kernel`
-// (int_matmul.py:115-217). The product is the main loop of int8_mma.cuh
-// (K2's); the epilogue is the JAX one, in f32 and in its order:
+// (int_matmul.py:115-217). The product is the TMA + s8 wgmma core of
+// int8_mma.cuh (K2's; the weight K-major); the epilogue is the JAX one, in
+// f32 and in its order:
 //   c = (float)acc - xzp[m]*wcs[n] - wzp[n]*xrs[m] + ((float)K*xzp[m])*wzp[n]
 //   out = (c * xs[m]) * ws[n], rounded to the output type, then
 //   out = round(out + round(bias[n])) (the caller's bias add, fused)
-// with K the true K. There is no padding contract: rows past M and columns
-// past N are masked, and a K that is not a multiple of 64 (or unaligned
-// rows) takes the byte-wise loader, which zero-fills the tail; zero codes
-// add nothing to acc, and the corrections use the true K and the true row
-// and column sums. Bound on the card: the int8 tensor cores,
-// 2*M*N*K / 1979e12 s at the main path's shapes.
+// with K the true K. There is no padding contract: TMA zero-fills rows past
+// M, columns past N and a K tail; a K that is not a multiple of 16 (or an
+// unaligned base) takes the core's byte-wise kernel, which zero-fills the
+// same way. Zero codes add nothing to acc, and the corrections use the true
+// K and the true row and column sums. Bound on the card: the int8 tensor
+// cores, 2*M*N*K / 1979e12 s at the main path's shapes.
+#include <type_traits>
+
 #include "int8_mma.cuh"
 
 namespace {
@@ -148,65 +151,58 @@ __global__ void __launch_bounds__(DQ_THREADS)
   }
 }
 
-template <bool EDGE, bool F32_OUT>
-__global__ void __launch_bounds__(vq::i8mma::THREADS)
-    int8_matmul_kernel(const int8_t* __restrict__ A,
-                       const int8_t* __restrict__ W,
-                       const float* __restrict__ xs,
-                       const float* __restrict__ xzp,
-                       const float* __restrict__ xrs,
-                       const float* __restrict__ ws,
-                       const float* __restrict__ wzp,
-                       const float* __restrict__ wcs,
-                       const float* __restrict__ bias, void* __restrict__ out,
-                       int M, int N, int K) {
-  __shared__ vq::i8mma::Smem sm;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int wm = warp >> 2;
-  const int wn = warp & 3;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int m0 = blockIdx.y * vq::i8mma::BM;
-  const int n0 = blockIdx.x * vq::i8mma::BN;
+// The epilogue of int8_mma.cuh's kernels.
+template <bool F32_OUT>
+struct int8_matmul_epilogue {
+  using Out = typename std::conditional<F32_OUT, float, __nv_bfloat16>::type;
+  static constexpr bool GW = false;
+  static constexpr int BN = 192;
+  struct alignas(16) Row {
+    float xs, xz, xr, kx;  // kx = (float)K * xz, the JAX order's product
+  };
+  const float* xs;
+  const float* xzp;
+  const float* xrs;
+  const float* ws;
+  const float* wzp;
+  const float* wcs;
+  const float* bias;
+  void* out;
+  int M, N;
+  float kf;  // the true K
 
-  int acc[4][4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
-  vq::i8mma::mainloop<EDGE>(A, W, M, N, K, m0, n0, sm, acc, [](int) {});
-
-  const float kf = static_cast<float>(K);
-#pragma unroll
-  for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int row = m0 + wm * 64 + mi * 16 + g + (e >= 2 ? 8 : 0);
-        const int col = n0 + wn * 32 + ni * 8 + t * 2 + (e & 1);
-        if (row >= M || col >= N) continue;
-        const float xz = xzp[row];
-        const float wz = wzp[col];
-        float c = static_cast<float>(acc[mi][ni][e]) - xz * wcs[col];
-        c = c - wz * xrs[row];
-        c = c + (kf * xz) * wz;
-        const float o = c * xs[row] * ws[col];
-        const size_t idx = static_cast<size_t>(row) * N + col;
-        if constexpr (F32_OUT) {
-          static_cast<float*>(out)[idx] = bias != nullptr ? o + bias[col] : o;
-        } else {
-          __nv_bfloat16 r = __float2bfloat16_rn(o);
-          if (bias != nullptr)
-            r = __float2bfloat16_rn(__bfloat162float(r) +
-                                    __bfloat162float(__float2bfloat16_rn(bias[col])));
-          static_cast<__nv_bfloat16*>(out)[idx] = r;
-        }
-      }
-}
+  __device__ __forceinline__ Row row(int r) const {
+    if (r >= M) return {0.0f, 0.0f, 0.0f, 0.0f};
+    return {xs[r], xzp[r], xrs[r], kf * xzp[r]};
+  }
+  // b: the bias as the add takes it (rounded to bf16 first for a bf16
+  // output); 0 without one (never added then)
+  struct alignas(16) Col {
+    float ws, wz, wcs, b;
+  };
+  __device__ __forceinline__ Col col(int c) const {
+    if (c >= N) return {0.0f, 0.0f, 0.0f, 0.0f};
+    float b = 0.0f;
+    if (bias != nullptr)
+      b = F32_OUT ? bias[c] : __bfloat162float(__float2bfloat16_rn(bias[c]));
+    return {ws[c], wzp[c], wcs[c], b};
+  }
+  __device__ __forceinline__ Out value(int acc, float, const Row& r,
+                                       const Col& col) const {
+    float c = static_cast<float>(acc) - r.xz * col.wcs;
+    c = c - col.wz * r.xr;
+    c = c + r.kx * col.wz;
+    const float o = c * r.xs * col.ws;
+    if constexpr (F32_OUT) {
+      return bias != nullptr ? o + col.b : o;
+    } else {
+      __nv_bfloat16 v = __float2bfloat16_rn(o);
+      if (bias != nullptr)
+        v = __float2bfloat16_rn(__bfloat162float(v) + col.b);
+      return v;
+    }
+  }
+};
 
 template <typename T>
 void launch_dyn_quant(const void* x, void* q, void* scale, void* zp,
@@ -222,20 +218,15 @@ void launch_dyn_quant(const void* x, void* q, void* scale, void* zp,
     dyn_quant_rows_kernel<T, false><<<M, DQ_THREADS, 0, st>>>(xt, qt, s, z, r, K);
 }
 
-template <bool EDGE>
-void launch_matmul(const int8_t* A, const int8_t* W, const float* xs,
-                   const float* xzp, const float* xrs, const float* ws,
-                   const float* wzp, const float* wcs, const float* bias,
-                   void* out, int M, int N, int K, int f32_out,
-                   cudaStream_t st) {
-  dim3 grid((N + vq::i8mma::BN - 1) / vq::i8mma::BN,
-            (M + vq::i8mma::BM - 1) / vq::i8mma::BM);
-  if (f32_out)
-    int8_matmul_kernel<EDGE, true><<<grid, vq::i8mma::THREADS, 0, st>>>(
-        A, W, xs, xzp, xrs, ws, wzp, wcs, bias, out, M, N, K);
-  else
-    int8_matmul_kernel<EDGE, false><<<grid, vq::i8mma::THREADS, 0, st>>>(
-        A, W, xs, xzp, xrs, ws, wzp, wcs, bias, out, M, N, K);
+template <bool F32_OUT>
+cudaError_t launch_matmul(const int8_t* A, const int8_t* Wt, const float* const* f,
+                          void* out, int M, int N, int K, cudaStream_t st) {
+  const int8_matmul_epilogue<F32_OUT> epi{f[0], f[1], f[2], f[3], f[4], f[5],
+                                          f[6], out, M, N,
+                                          static_cast<float>(K)};
+  if (vq::i8mma::tma_ok(A, Wt, K))
+    return vq::i8mma::launch_tma(A, Wt, epi, K, K, st);
+  return vq::i8mma::launch_edge(A, Wt, epi, K, st);
 }
 
 }  // namespace
@@ -254,10 +245,11 @@ VQ_EXPORT int vq_dyn_quant_rows(const void* x, void* q, void* scale, void* zp,
   return static_cast<int>(cudaGetLastError());
 }
 
-// A [M, K] int8, W [K, N] int8; xs, xzp, xrs [M] f32; ws, wzp, wcs [N] f32;
-// bias [N] f32 (rounded to the output type before the add) or null;
-// out [M, N] f32 when f32_out, else bf16.
-VQ_EXPORT int vq_int8_matmul(const void* A, const void* W, const void* xs,
+// A [M, K] int8, Wt [N, K] int8 (the K-major weight: W [K, N] stored
+// transposed); xs, xzp, xrs [M] f32; ws, wzp, wcs [N] f32; bias [N] f32
+// (rounded to the output type before the add) or null; out [M, N] f32 when
+// f32_out, else bf16.
+VQ_EXPORT int vq_int8_matmul(const void* A, const void* Wt, const void* xs,
                              const void* xzp, const void* xrs, const void* ws,
                              const void* wzp, const void* wcs,
                              const void* bias, void* out, int M, int N, int K,
@@ -265,10 +257,7 @@ VQ_EXPORT int vq_int8_matmul(const void* A, const void* W, const void* xs,
   if (M <= 0 || N <= 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int8_t* a = static_cast<const int8_t*>(A);
-  const int8_t* w = static_cast<const int8_t*>(W);
-  const bool edge = (K % vq::i8mma::BK) != 0 || (N % 4) != 0 ||
-                    reinterpret_cast<uintptr_t>(a) % 16 != 0 ||
-                    reinterpret_cast<uintptr_t>(w) % 4 != 0;
+  const int8_t* w = static_cast<const int8_t*>(Wt);
   const float* f[7] = {static_cast<const float*>(xs),
                        static_cast<const float*>(xzp),
                        static_cast<const float*>(xrs),
@@ -276,11 +265,7 @@ VQ_EXPORT int vq_int8_matmul(const void* A, const void* W, const void* xs,
                        static_cast<const float*>(wzp),
                        static_cast<const float*>(wcs),
                        static_cast<const float*>(bias)};
-  if (edge)
-    launch_matmul<true>(a, w, f[0], f[1], f[2], f[3], f[4], f[5], f[6], out,
-                        M, N, K, f32_out, st);
-  else
-    launch_matmul<false>(a, w, f[0], f[1], f[2], f[3], f[4], f[5], f[6], out,
-                         M, N, K, f32_out, st);
-  return static_cast<int>(cudaGetLastError());
+  const cudaError_t e = f32_out ? launch_matmul<true>(a, w, f, out, M, N, K, st)
+                                : launch_matmul<false>(a, w, f, out, M, N, K, st);
+  return static_cast<int>(e);
 }

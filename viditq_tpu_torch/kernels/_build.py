@@ -73,6 +73,30 @@ def library_path() -> Path:
     return BUILD_DIR / f"libviditq_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _compile(work: Path, extra=()) -> list:
+    """One `nvcc -c` per source into work/, all started together; returns
+    (object path, compiler output) pairs, or raises with every failure."""
+    nvcc = _nvcc()
+    jobs = []
+    for src in (s for s in sources() if s.suffix == ".cu"):
+        obj = work / f"{src.stem}.o"
+        cmd = [nvcc, *NVCC_FLAGS, *extra, "-c", "-I", str(CSRC), "-o",
+               str(obj), str(src)]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    errors, done = [], []
+    for cmd, obj, proc in jobs:
+        output, _ = proc.communicate()
+        if proc.returncode != 0:
+            errors.append(f"nvcc failed ({proc.returncode}):\n"
+                          f"{' '.join(cmd)}\n{output}")
+        done.append((obj, output))
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return done
+
+
 def build() -> Path:
     """Compile the library unless an identical build exists; returns its
     path. One `nvcc -c` per source runs in parallel, then one link; the
@@ -82,28 +106,12 @@ def build() -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = _nvcc()
     work = Path(tempfile.mkdtemp(dir=BUILD_DIR))
     try:
-        jobs = []
-        for src in (s for s in sources() if s.suffix == ".cu"):
-            obj = work / f"{src.stem}.o"
-            cmd = [nvcc, *NVCC_FLAGS, "-c", "-I", str(CSRC), "-o", str(obj),
-                   str(src)]
-            jobs.append((cmd, obj, subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                text=True)))
-        errors = []
-        for cmd, _, proc in jobs:
-            stdout, stderr = proc.communicate()
-            if proc.returncode != 0:
-                errors.append(f"nvcc failed ({proc.returncode}):\n"
-                              f"{' '.join(cmd)}\n{stdout}\n{stderr}")
-        if errors:
-            raise RuntimeError("\n".join(errors))
+        objs = [obj for obj, _ in _compile(work)]
         tmp = work / out.name
-        cmd = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp),
-               *(str(obj) for _, obj, _ in jobs)]
+        cmd = [_nvcc(), *ARCH_FLAGS, "-shared", "-o", str(tmp),
+               *(str(obj) for obj in objs)]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
@@ -126,11 +134,38 @@ def lib() -> ctypes.CDLL:
     return handle
 
 
+def ptxas_report() -> str:
+    """Registers, spills and shared memory of every kernel of every source,
+    as ptxas reports them (`-Xptxas -v`; the library's own flags)."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    work = Path(tempfile.mkdtemp(dir=BUILD_DIR))
+    try:
+        lines = []
+        for obj, output in _compile(work, ["-Xptxas", "-v"]):
+            lines.append(f"== {obj.stem}.cu")
+            lines += [ln.strip() for ln in output.splitlines()
+                      if "Compiling entry" in ln or "Used" in ln
+                      or "spill" in ln]
+        return "\n".join(lines)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def check(code: int, name: str) -> None:
     if code != 0:
         raise RuntimeError(f"{name}: CUDA error {code}")
 
 
 def stream_ptr(t) -> int:
+    """The current CUDA stream of t's device, as a raw pointer: the query
+    PyTorch's generated kernel launchers use. `torch.cuda.current_stream()`
+    builds a Stream object on every call, a cost every kernel wrapper paid
+    once a launch."""
     import torch
-    return torch.cuda.current_stream(t.device).cuda_stream
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
+
+
+if __name__ == "__main__":
+    # python3 -m viditq_tpu_torch.kernels._build: the ptxas report (needs
+    # nvcc; on the machine with the card)
+    print(ptxas_report())

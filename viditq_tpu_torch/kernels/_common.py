@@ -44,6 +44,32 @@ def is_bf16(t: torch.Tensor) -> int:
     return int(t.dtype == torch.bfloat16)
 
 
+def k_major(w: torch.Tensor) -> torch.Tensor:
+    """The same [K, N] values as a view of [N, K] storage: the layout the
+    int8 GEMM kernels read (the s8 wgmma and TMA take the weight K-major)."""
+    return w.t().contiguous().t()
+
+
+def require_k_major(w_q: torch.Tensor) -> None:
+    """The CUDA int8 GEMMs read w_q [K, N] as its [N, K] storage; a
+    row-major weight raises (no per-call transpose on the card)."""
+    if w_q.dim() == 2 and (w_q.stride() == (1, w_q.shape[0])
+                           or w_q.t().is_contiguous()):
+        return
+    raise ValueError(
+        f"w_q must be K-major, a [K, N] view of [N, K] storage "
+        f"(QuantLinear.w_int's layout; `k_major(w)` makes one), got shape "
+        f"{tuple(w_q.shape)} strides {w_q.stride()}")
+
+
+def f32_flat(t: torch.Tensor) -> torch.Tensor:
+    """t as contiguous float32 (its elements in order, for a kernel that
+    reads them as a flat array); t itself when it already is."""
+    if t.dtype == torch.float32 and t.is_contiguous():
+        return t
+    return t.float().contiguous()
+
+
 def exact_int_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Exact integer product of two int8 matrices as float32-convertible
     values: float64 is exact below 2^53, which covers any K the models use

@@ -29,8 +29,9 @@ from typing import Optional, Tuple
 import torch
 
 from viditq_tpu_torch.kernels import _build
-from viditq_tpu_torch.kernels._common import (exact_int_matmul, is_bf16,
-                                              on_cuda, rdiv, require)
+from viditq_tpu_torch.kernels._common import (exact_int_matmul, f32_flat,
+                                              is_bf16, on_cuda, rdiv,
+                                              require, require_k_major)
 from viditq_tpu_torch.kernels._counters import COUNTERS, count_plain
 
 _SQRT_2_OVER_PI = 0.7978845608028654
@@ -217,6 +218,9 @@ def int8_consumer_matmul(x_q: torch.Tensor, x_scale: torch.Tensor,
     one scale per row and k-group [M, G], as K2's emission writes them);
     w_q [K, N] int8 with per-column scales. Returns [M, N] out_dtype.
 
+    On the card w_q must be K-major (`_common.k_major`, QuantLinear's
+    `w_int`); the plain version takes either layout.
+
     emit {'gelu': bool}: instead of the output, apply tanh-GELU and
     quantize each row per group of `emit_groups(N, K)` columns; returns
     (codes [M, N] int8, scales [M, G] f32). The TPU kernel's lane-padded
@@ -226,13 +230,29 @@ def int8_consumer_matmul(x_q: torch.Tensor, x_scale: torch.Tensor,
     if not on_cuda(x_q, x_scale, w_q, w_scale, bias):
         return int8_consumer_matmul_plain(x_q, x_scale, w_q, w_scale, bias,
                                           out_dtype, group_scales, emit)
+    if emit is None:
+        require(out_dtype in (torch.bfloat16, torch.float32),
+                f"unsupported out_dtype {out_dtype}")
+        kind = 0 if out_dtype == torch.bfloat16 else 1
+    else:
+        bn = emit_groups(w_q.shape[1], x_q.shape[1])
+        kind = 2 if emit.get("gelu") else 1
+    out = k2_gemm(x_q, x_scale, w_q, w_scale, bias, group_scales, kind)
+    COUNTERS["int8_consumer_matmul"].launches += 1
+    return out if emit is None else group_quant(out, bn)
+
+
+def k2_gemm(x_q, x_scale, w_q, w_scale, bias, group_scales: bool,
+            kind: int) -> torch.Tensor:
+    """The GEMM launch of K2 on CUDA tensors (no count): kind 0 bf16 out, 1
+    f32 out, 2 f32 tanh-GELU out (the emission's scratch)."""
     M, K = x_q.shape
     K2, N = w_q.shape
     require(K == K2, f"K mismatch {K} != {K2}")
     require(x_q.dtype == torch.int8 and w_q.dtype == torch.int8,
             "x_q and w_q must be int8")
-    require(x_q.is_contiguous() and w_q.is_contiguous(),
-            "x_q and w_q must be contiguous")
+    require_k_major(w_q)
+    require(x_q.is_contiguous(), "x_q must be contiguous")
     G = x_scale.shape[1] if group_scales else 1
     require(x_scale.shape == (M, G) and x_scale.dtype == torch.float32,
             f"x_scale must be float32 [{M}, {G}]")
@@ -241,33 +261,31 @@ def int8_consumer_matmul(x_q: torch.Tensor, x_scale: torch.Tensor,
             f"(K={K}, G={G}, N={N})")
     require(x_q.data_ptr() % 16 == 0 and w_q.data_ptr() % 16 == 0,
             "x_q and w_q must be 16-byte aligned")
-    xs = x_scale.contiguous()
-    ws = w_scale.reshape(N).float().contiguous()
-    b = None if bias is None else bias.reshape(N).float().contiguous()
+    require(w_scale.numel() == N and (bias is None or bias.numel() == N),
+            "w_scale and bias must have N elements")
     lib = _build.lib()
-    stream = _build.stream_ptr(x_q)
-    if emit is None:
-        require(out_dtype in (torch.bfloat16, torch.float32),
-                f"unsupported out_dtype {out_dtype}")
-        out = torch.empty((M, N), dtype=out_dtype, device=x_q.device)
-        kind = 0 if out_dtype == torch.bfloat16 else 1
-    else:
-        bn = emit_groups(N, K)
-        out = torch.empty((M, N), dtype=torch.float32, device=x_q.device)
-        kind = 2 if emit.get("gelu") else 1
+    xs = x_scale.contiguous()
+    ws = f32_flat(w_scale)
+    b = None if bias is None else f32_flat(bias)
+    out = torch.empty((M, N), dtype=torch.bfloat16 if kind == 0
+                      else torch.float32, device=x_q.device)
     _build.check(lib.vq_int8_gemm(
         x_q.data_ptr(), w_q.data_ptr(), xs.data_ptr(), G, ws.data_ptr(),
         None if b is None else b.data_ptr(), out.data_ptr(), M, N, K,
-        int(group_scales), kind, stream), "vq_int8_gemm")
-    COUNTERS["int8_consumer_matmul"].launches += 1
-    if emit is None:
-        return out
-    codes = torch.empty((M, N), dtype=torch.int8, device=x_q.device)
-    scales = torch.empty((M, N // bn), dtype=torch.float32,
-                         device=x_q.device)
-    _build.check(lib.vq_group_quant(
-        out.data_ptr(), codes.data_ptr(), scales.data_ptr(), M, N, bn,
-        stream), "vq_group_quant")
+        int(group_scales), kind, _build.stream_ptr(x_q)), "vq_int8_gemm")
+    return out
+
+
+def group_quant(y: torch.Tensor, bn: int):
+    """The emission's second pass on CUDA tensors (no count): f32 [M, N]
+    -> (codes [M, N] int8, scales [M, N / bn] f32), one scale per row and
+    group of bn columns."""
+    M, N = y.shape
+    codes = torch.empty((M, N), dtype=torch.int8, device=y.device)
+    scales = torch.empty((M, N // bn), dtype=torch.float32, device=y.device)
+    _build.check(_build.lib().vq_group_quant(
+        y.data_ptr(), codes.data_ptr(), scales.data_ptr(), M, N, bn,
+        _build.stream_ptr(y)), "vq_group_quant")
     return codes, scales
 
 

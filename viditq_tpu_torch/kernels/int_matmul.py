@@ -22,7 +22,9 @@ import torch
 
 from viditq_tpu_torch.kernels import _build
 from viditq_tpu_torch.kernels._common import (divc, exact_int_matmul,
-                                              is_bf16, on_cuda, require)
+                                              f32_flat, is_bf16, k_major,
+                                              on_cuda, require,
+                                              require_k_major)
 from viditq_tpu_torch.kernels._counters import COUNTERS, count_plain
 from viditq_tpu_torch.kernels.fused_matmul import fused_dynq_int8_matmul
 
@@ -34,9 +36,10 @@ DQ_MAX_ROW_BYTES = 128 * 8 * 16
 
 def pack_weight(kernel: torch.Tensor, delta: torch.Tensor, zp: torch.Tensor,
                 n_bits: int = 8, sym: bool = False) -> dict:
-    """Quantize a [K, N] kernel offline into the int8 layout; delta/zp
-    broadcast as [1, N]. Asym codes are shifted by -2^(b-1) into signed
-    int8; sym codes are signed with zero point 0."""
+    """Quantize a [K, N] kernel offline into the int8 layout (w_q K-major,
+    as the kernels read it); delta/zp broadcast as [1, N]. Asym codes are
+    shifted by -2^(b-1) into signed int8; sym codes are signed with zero
+    point 0."""
     kernel = kernel.float()
     delta = delta.reshape(1, -1).float()
     zp = zp.reshape(1, -1).float()
@@ -51,7 +54,8 @@ def pack_weight(kernel: torch.Tensor, delta: torch.Tensor, zp: torch.Tensor,
                            n_levels - 1) - shift
         w_zp = zp - shift
     colsum = code.sum(dim=0, keepdim=True)
-    return {"w_q": code.to(torch.int8), "w_scale": delta, "w_zp": w_zp,
+    return {"w_q": k_major(code.to(torch.int8)), "w_scale": delta,
+            "w_zp": w_zp,
             "w_colsum": colsum}
 
 
@@ -123,7 +127,9 @@ def int8_matmul(x_q: torch.Tensor, w_q: torch.Tensor, x_scale: torch.Tensor,
                 w_scale: torch.Tensor, w_zp: torch.Tensor,
                 w_colsum: torch.Tensor, out_dtype=torch.bfloat16,
                 bias: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """[M, K] int8 @ [K, N] int8 -> [M, N] out_dtype (bf16 or f32).
+    """[M, K] int8 @ [K, N] int8 -> [M, N] out_dtype (bf16 or f32). On the
+    card w_q must be K-major (`_common.k_major`); the plain version takes
+    either layout.
 
     x_scale/x_zp/x_rowsum: [M, 1] f32; w_scale/w_zp/w_colsum: [1, N] f32.
     `out = ((acc - xzp*wcs - wzp*xrs + (K*xzp)*wzp) * xs) * ws` in f32,
@@ -138,22 +144,25 @@ def int8_matmul(x_q: torch.Tensor, w_q: torch.Tensor, x_scale: torch.Tensor,
     require(K == K2, f"K mismatch {K} != {K2}")
     require(x_q.dtype == torch.int8 and w_q.dtype == torch.int8,
             "x_q and w_q must be int8")
-    require(x_q.is_contiguous() and w_q.is_contiguous(),
-            "x_q and w_q must be contiguous")
+    require_k_major(w_q)
+    require(x_q.is_contiguous(), "x_q must be contiguous")
     for name, t, shape in (("x_scale", x_scale, (M, 1)),
                            ("x_zp", x_zp, (M, 1)),
                            ("x_rowsum", x_rowsum, (M, 1)),
                            ("w_scale", w_scale, (1, N)),
                            ("w_zp", w_zp, (1, N)),
                            ("w_colsum", w_colsum, (1, N))):
-        require(tuple(t.shape) == shape and t.dtype == torch.float32
-                and t.is_contiguous(),
-                f"{name} must be contiguous float32 {list(shape)}")
+        if not (t.shape == shape and t.dtype == torch.float32
+                and t.is_contiguous()):
+            raise ValueError(f"{name} must be contiguous float32 "
+                             f"{list(shape)}")
     require(out_dtype in (torch.bfloat16, torch.float32),
             f"unsupported out_dtype {out_dtype}")
+    require(bias is None or bias.numel() == N, "bias must have N elements")
+    lib = _build.lib()
     out = torch.empty((M, N), dtype=out_dtype, device=x_q.device)
-    b = None if bias is None else bias.reshape(N).float().contiguous()
-    _build.check(_build.lib().vq_int8_matmul(
+    b = None if bias is None else f32_flat(bias)
+    _build.check(lib.vq_int8_matmul(
         x_q.data_ptr(), w_q.data_ptr(), x_scale.data_ptr(), x_zp.data_ptr(),
         x_rowsum.data_ptr(), w_scale.data_ptr(), w_zp.data_ptr(),
         w_colsum.data_ptr(), None if b is None else b.data_ptr(),

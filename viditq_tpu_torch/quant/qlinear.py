@@ -4,7 +4,8 @@
 the plan quantizes, the calibrated tables as buffers: `w_delta`/`w_zp`
 [n_bitwidth, n_timerange, 1, N] and the packed `w_int` [n_timerange, K, N]
 int8 slab with `w_colsum` [n_timerange, 1, N] (qlinear.py:412-421,
-584-591). It runs three paths:
+584-591). `w_int` is stored K-major ([n_timerange, N, K] in memory), the
+layout the int8 GEMM kernels read. It runs three paths:
 
   * fp (no spec, an fp-listed layer, `qctx is None` or mode 'fp'):
     `x @ kernel + bias` in the model dtype;
@@ -143,9 +144,12 @@ class QuantLinear(nn.Module):
             wshape = (n_bw, 1, 1, features)
             self.register_buffer("w_delta", torch.full(wshape, -1.0))
             self.register_buffer("w_zp", torch.full(wshape, -1.0))
+            # [1, K, N] view of [1, N, K] storage: the K-major weight the
+            # int8 GEMM kernels read; load_state_dict, pack_native_weights
+            # and .to() copy into it and keep its strides
             self.register_buffer(
-                "w_int", torch.zeros((1, in_features, features),
-                                     dtype=torch.int8))
+                "w_int", torch.zeros((1, features, in_features),
+                                     dtype=torch.int8).transpose(1, 2))
             self.register_buffer("w_colsum", torch.zeros((1, 1, features)))
 
     def dense(self, x: torch.Tensor) -> torch.Tensor:
