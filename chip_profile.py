@@ -9,8 +9,9 @@ Run from the root of a checkout on a machine with one card:
 For each slice of `chip_smoke.py` (STDiT-XL/2 16x512x512 and PixArt-Σ
 1024, full width, random weights) and each of its arms (bf16 and sm8 on the
 sm8 plan's model; for STDiT also w8a8, the reference W8A8 plan on the
-native backend, on its own model) it runs one warm-up CFG forward at
-batch 2, then one more under
+native backend, fused, the same plan through the fused kernels
+(`w8a8_tpu_fused.yaml`), and sym (`w8a8_tpu_fused_sym.yaml`), each on its
+own model) it runs one warm-up CFG forward at batch 2, then one more under
 `torch.profiler`, and prints the host wall time, the device time (the sum
 of CUDA kernel time), the device's idle share (1 - device / wall) and the
 device time by kernel group and by kernel. Needs CUDA; builds the kernels

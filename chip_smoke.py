@@ -22,14 +22,21 @@ Phases (any failure exits non-zero):
      head dim 16), and K2 and K7b at theirs (`GEMM_EDGE_CASES`: ragged M
      and N, K tails, a gw_x group boundary inside a k-tile, the byte-wise
      kernel), every K2 and K7b case identical to its plain version;
-  4. reference: tiny STDiT (sm8 and the reference W8A8 on the native
-     backend) and tiny sm8 PixArt-Σ models on the card (kernels) against
-     the same models on the CPU (plain versions);
+     The asymmetric modes (K1/K4 asym with row sums, K4's GELU, K2's
+     zero-point epilogues, K5 asym, K3's and K6's asym emission) run at
+     the fused reference plan's main-path shapes;
+  4. reference: tiny STDiT (sm8, the fused reference W8A8 and the
+     reference W8A8 on the native backend) and tiny sm8 PixArt-Σ models on
+     the card (kernels) against the same models on the CPU (plain
+     versions);
   5. slice: full-width STDiT-XL/2 (28 blocks, C=1152, random weights from
-     a seed), bf16, W8A8-sm8 and reference W8A8 (`w8a8_dynamic.yaml` on
-     the native backend: K7a/K7b) arms over the whole 20-step CFG DDIM
-     schedule, with ms/step, peak memory, quantized-vs-bf16 error and the
-     launch count of every kernel;
+     a seed), bf16, W8A8-sm8, reference W8A8 (`w8a8_dynamic.yaml` on the
+     native backend: K7a/K7b), the fused reference W8A8
+     (`w8a8_tpu_fused.yaml`: K1-K5 asym) and fused sym W8A8
+     (`w8a8_tpu_fused_sym.yaml`) arms over the whole 20-step CFG DDIM
+     schedule, with ms/step, peak memory, quantized-vs-bf16 error, the
+     fused arm's distance to the native one and the launch count of every
+     kernel (the fused arm's held to its per-block count);
   6. slice_sigma: full-width PixArt-Σ 1024 (28 blocks, C=1152, KV
      compression x2 on blocks 14-27, caption 300x4096), bf16 and sm8 arms
      over the whole 20-step DPM-Solver++ CFG schedule, built through
@@ -55,6 +62,9 @@ ROOT = Path(__file__).resolve().parent
 SM8_PLAN = ROOT / "configs/opensora/w8a8_tpu_fused_sm8.yaml"
 # the reference ViDiT-Q W8A8 (asym weights and acts), native backend
 W8A8_PLAN = ROOT / "configs/opensora/w8a8_dynamic.yaml"
+# the same semantics through the fused int8 dataflow, and its sym ablation
+FUSED_PLAN = ROOT / "configs/opensora/w8a8_tpu_fused.yaml"
+SYM_PLAN = ROOT / "configs/opensora/w8a8_tpu_fused_sym.yaml"
 STEPS = 20  # sampler steps per arm (bench.py's n_steps): the whole schedule
 # PixArt-Σ 1024 as benchmarks/bench_configs.py:388-391 builds it; the
 # sampler of the t2i workloads (configs/workload/pixart_alpha_512.py)
@@ -82,6 +92,30 @@ PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12}
 CODE_MAX_DIFF = 1
 CODE_MISMATCH_FRAC = 1e-3
 REL_ERR = 1e-2
+# asym row quantizers (codes, scale, zp, rowsum), every row compared by
+# `compare_asym_rows`: per producer, the largest relative error of a row's
+# scale and the largest share of rows whose scale or zero point differ at
+# all from the plain version's. K4 (bf16 in: its row min and max are exact)
+# is held identical instead.
+ASYM_TOL = {
+    # K1: the LN mean and variance summed in another order (readings:
+    # 3.3e-7, 0.37 of the rows)
+    "ln": (1e-6, 0.5),
+    # K3: the f32 attention output, its bf16 probabilities rounded at
+    # another point (readings: spatial 3.6e-4 with nearly every row's scale
+    # moved, temporal's 16 keys 1.4e-3); the scale limit is the check
+    "attn": (2.0 ** -8, 1.0),
+    # K6 -> K4: K4 on K6's bf16 output, whose rounding can move a row's max
+    # and min by one bf16 step each, at most 2^-7 of the range (readings:
+    # 3.7e-3, 0.35% of the rows)
+    "stream": (2.0 ** -7, 0.01),
+}
+# and every asym case's dequantized rows, (q - zp) * scale, to 2e-3
+# relative (readings: 3.0e-5 at K1 to 6.0e-4 at K6 -> K4): a shift of the
+# whole output that moves each scale by less than its limit shows here
+ASYM_DEQ_REL = 2e-3
+# C12: draws of the temporal int8-PV emission held to `int8_pv_slack`
+C12_DRAWS = 64
 SLICE_REL_ERR = 0.1        # int8 vs bf16 final latent: 8-bit sanity bound
 # tiny sm8 model, card vs CPU: bf16 activations in both, summed in another
 # order by cuBLAS and the CPU; this model's bf16 output is 1e-2 away from
@@ -114,6 +148,14 @@ EDGE_CASES = (
     ("attention_bnhd_stream", "D=16 N=M=2304 bkv 256 int8_pv",
      dict(B=2, N=2304, M=2304, H=4, D=16, bkv=256, int8_pv=True,
           emit=False)),
+    # K6's emission through K4 in the asym mode (emit_sym=False, row sums)
+    ("attention_bnhd_stream", "N=M=2304 bkv 256 bf16 asym emit (K6->K4)",
+     dict(B=2, N=2304, M=2304, H=16, D=72, bkv=256, int8_pv=False,
+          emit=True, emit_sym=False)),
+    # C11: the one-shot int8 PV above 1040 kv rows (its s8 wgmma sums in
+    # int32), at the one-shot kernel's largest kv length
+    ("attention_bnhd", "full N=M=2048 int8_pv emit (C11)",
+     dict(B=2, N=2048, M=2048, H=16, D=72, int8_pv=True, emit=True)),
 )
 
 # K2 / K7b cases the main path does not reach (phase kernels): (kernel,
@@ -167,13 +209,25 @@ SLICE_KERNELS = {
     "stdit": {"bf16": ("attention_bnhd",),
               "sm8": FUSED_KERNELS,
               "w8a8": ("dynamic_quant_rows", "int8_matmul",
-                       "attention_bnhd")},
+                       "attention_bnhd"),
+              "fused": FUSED_KERNELS,
+              "sym": FUSED_KERNELS},
     "sigma": {"bf16": ("attention_bnhd", "attention_bnhd_stream"),
               "sm8": FUSED_KERNELS + ("attention_bnhd_stream",)},
 }
 # the plan of each quantized arm (the bf16 arm runs the sm8 arm's model
 # in fp mode)
-ARM_PLANS = {"sm8": SM8_PLAN, "w8a8": W8A8_PLAN}
+ARM_PLANS = {"sm8": SM8_PLAN, "w8a8": W8A8_PLAN, "fused": FUSED_PLAN,
+             "sym": SYM_PLAN}
+# launches per block and CFG forward of an arm held to its exact count:
+# the fused reference plan's (K1 at norm1 and norm2; K2 at the 9 linears
+# on a prequant, fc1 and the two inside K5; K3 at the three sites; K4 for
+# the temporal q/k/v, inside the two K5s and at the GELU handoff; K5 at
+# cross q_linear and kv_linear): tests/test_torch_fused.py audits the same
+# counts on the CPU
+BLOCK_LAUNCHES = {("stdit", "fused"): {
+    "ln_modulate_quantize": 2, "int8_consumer_matmul": 13,
+    "attention_bnhd": 3, "quantize_rows": 4, "fused_dynq_int8_matmul": 2}}
 
 
 def fail(msg: str):
@@ -255,11 +309,79 @@ def attn_bound(B, N, H, D, kv_rows, int8_pv, emit, kv_total):
     return nbytes, ops
 
 
+def compare_asym_rows(got, want):
+    """An asym row quantizer's outputs (codes, scale, zp, rowsum) against
+    its plain version's, every row compared. A zero point one off shifts
+    the whole row's codes with it, so codes are compared unshifted, q - zp
+    (= round(x / scale), which moves only where x / scale lies near a
+    half); the zero points to one; the kernel's row sums must equal the
+    sums of its own codes exactly. Returns (max abs diff of q - zp, its
+    mismatch fraction, the dequantized rel err, the share of rows whose
+    scale or zero point differ, the largest relative error of a scale)."""
+    import torch
+    (q, s, z, r), (jq, js, jz, _) = got, want
+    rows = q.reshape(-1, q.shape[-1]).float()
+    jrows = jq.reshape(-1, jq.shape[-1]).float()
+    s, js, z, jz = (t.reshape(-1, 1) for t in (s, js, z, jz))
+    if float((z - jz).abs().max()) > 1:
+        fail("zero points differ by more than one")
+    own = q.reshape(rows.shape).to(torch.int32).sum(-1).float()
+    if r is not None and not torch.equal(r.reshape(-1), own):
+        fail("row sums differ from the sums of the kernel's own codes")
+    diff = ((rows - z) - (jrows - jz)).abs()
+    deq, jdeq = (rows - z) * s, (jrows - jz) * js
+    rel = float((deq - jdeq).norm() / max(float(jdeq.norm()), 1e-30))
+    other = float(((s != js) | (z != jz)).float().mean())
+    srel = float(((s - js).abs() / js).max())
+    return (float(diff.max()), float((diff > 0).float().mean()), rel, other,
+            srel)
+
+
+def int8_pv_slack(q, k, v, sc, seg_len, kv_mask, v_block, scales):
+    """Per emitted entry [B*N, C] of an int8-PV attention: how many codes
+    one softmax code flipped at its rounding tie moves it (C12). The code
+    round(e * 127) moves by one, so the output moves by vs_c * |vq| /
+    (127^2 * r) <= vs_c / (127 * r), and its code by that over the row's
+    emission scale: vs_c / (127 * r * scale). r: the plain version's
+    softmax denominator of the entry's head (>= 1); vs_c: v's channel scale
+    in the entry's token group."""
+    import torch
+    from viditq_tpu_torch.kernels import attention as A
+    B, N, H, D = q.shape
+    M, C = k.shape[1], H * D
+    qf = (q.float() * (sc * A.LOG2E)).to(torch.bfloat16).float()
+    kf = k.float()
+    if seg_len:
+        G = N // seg_len
+        s = torch.einsum("bgnhd,bgmhd->bgnhm",
+                         qf.reshape(B, G, seg_len, H, D),
+                         kf.reshape(B, G, seg_len, H, D)).reshape(
+                             B, N, H, seg_len)
+    else:
+        s = torch.einsum("bnhd,bmhd->bnhm", qf, kf)
+        if kv_mask is not None:
+            s = s + torch.where(kv_mask[:, None, None, :] != 0, 0.0,
+                                float("-inf"))
+    r = torch.exp2(s - s.amax(dim=-1, keepdim=True)).sum(dim=-1)
+    del s
+    vb = v_block if seg_len else M
+    _, vs = A._v_quant(v.reshape(B, M, C), vb)
+    vs_rows = (vs.repeat_interleave(vb, dim=1) if seg_len
+               else vs.expand(B, N, C))
+    return (vs_rows / (127.0 * r.repeat_interleave(D, dim=-1)
+                       * scales.reshape(B, N, 1))).reshape(B * N, C)
+
+
 def check_case(name, case, kernel_fn, plain_fn, records, cost=None,
-               library_fn=None, library_note="", exact=False):
+               library_fn=None, library_note="", exact=False, asym=None,
+               slack_fn=None):
     """Run kernel and plain version on the same inputs, compare every
-    output (identical with exact), time both and the library call; append
-    the result with its bound (cost = (bytes, ops))."""
+    output (identical with exact; asym = ASYM_TOL[producer]: the outputs
+    of an asym row quantizer by `compare_asym_rows`, its row sums
+    unshifted; slack_fn(plain outputs): per-entry codes an int8-PV
+    emission may differ beyond one, `int8_pv_slack`), time both and the
+    library call; append the result with its bound (cost = (bytes,
+    ops))."""
     import torch
     got = kernel_fn()
     want = plain_fn()
@@ -268,18 +390,51 @@ def check_case(name, case, kernel_fn, plain_fn, records, cost=None,
     want = want if isinstance(want, tuple) else (want,)
     max_abs, worst_frac, worst_rel = 0.0, 0.0, 0.0
     parts = []
+    if len(got) != len(want) or [g is None for g in got] != [
+            w is None for w in want]:
+        fail(f"{name}/{case}: outputs {len(got)} (None at "
+             f"{[g is None for g in got]}) != plain {len(want)} (None at "
+             f"{[w is None for w in want]})")
     for i, (g, w) in enumerate(zip(got, want)):
+        if g is None:  # an output this mode does not write
+            continue
         if g.shape != w.shape or g.dtype != w.dtype:
             fail(f"{name}/{case}: output {i} {tuple(g.shape)} {g.dtype} != "
                  f"plain {tuple(w.shape)} {w.dtype}")
         is_codes = g.dtype == torch.int8
+        if asym and i == 3:  # row sums of the unshifted codes, sum(q - zp)
+            C = got[0].shape[-1]
+            g, w = g - C * got[2], w - C * want[2]
         mx, frac, rel = compare(g, w, is_codes)
+        if asym and i == 0:
+            mx, frac, rel, other, srel = compare_asym_rows(got, want)
+            parts.append(f"rows with another scale or zp {other:.3g} (limit "
+                         f"{asym[1]:.3g}), scale rel err {srel:.3g} (limit "
+                         f"{asym[0]:.3g}), q - zp")
+            if rel > ASYM_DEQ_REL:
+                fail(f"{name}/{case}: dequantized rel err {rel} > "
+                     f"{ASYM_DEQ_REL}")
+            if srel > asym[0] or other > asym[1]:
+                fail(f"{name}/{case}: scale rel err {srel}, rows with "
+                     f"another scale or zp {other}: limits {asym}")
+        slack = slack_fn(want) if slack_fn is not None and i == 0 else None
         parts.append(f"out{i}: max_abs {mx:.3g} mismatch {frac:.3g} "
                      f"rel {rel:.3g}")
         if exact and not torch.equal(g, w):
             fail(f"{name}/{case}: output {i} differs (max abs {mx})")
         if is_codes:
-            if mx > CODE_MAX_DIFF or frac > CODE_MISMATCH_FRAC:
+            if slack is not None:  # beyond one code: by one softmax flip
+                d = (g.float() - w.float()).abs().reshape(slack.shape)
+                over = d > CODE_MAX_DIFF
+                excess = float((d - CODE_MAX_DIFF - slack)[over].max()) if (
+                    over.any()) else 0.0
+                parts.append(f"{int(over.sum())} beyond {CODE_MAX_DIFF} "
+                             f"(slack there {float(slack[over].max()) if over.any() else 0.0:.3g}, "
+                             f"largest slack {float(slack.max()):.3g})")
+                if excess > 0 or frac > CODE_MISMATCH_FRAC:
+                    fail(f"{name}/{case}: codes differ beyond one softmax "
+                         f"flip (by {excess}) or too often ({frac})")
+            elif mx > CODE_MAX_DIFF or frac > CODE_MISMATCH_FRAC:
                 fail(f"{name}/{case}: codes differ (max {mx}, frac {frac})")
             max_abs = max(max_abs, mx)
         else:
@@ -339,7 +494,6 @@ def phase_kernels(records):
                lambda: FM.ln_modulate_quantize(x, sh, sc),
                lambda: FM.ln_modulate_quantize_plain(x, sh, sc), records,
                cost=(2 * M * C + 2 * 2 * B * C + M * C + 4 * M, {}))
-
     # K4: the shared attn_temp q/k/v prequant
     x2 = x.reshape(M, C)
     check_case("quantize_rows", "[32768,1152]",
@@ -452,7 +606,11 @@ def phase_kernels(records):
                                                **kw), records, cost=cost,
                 library_fn=None if int8_pv or emit_out
                 else sdpa_call(q, k, v, seg, m),
-                library_note=" (scaled_dot_product_attention)")
+                library_note=" (scaled_dot_product_attention)",
+                slack_fn=(lambda want, q=q, k=k, v=v, seg=seg, m=m, vb=vb:
+                          int8_pv_slack(q, k, v, sc_attn, seg, m, vb,
+                                        want[1]))
+                if int8_pv and emit_out else None)
 
     # K6: Σ-1024 self-attention, N = M = 4096, kv blocks of 1024
     Ns = 4096
@@ -471,8 +629,8 @@ def phase_kernels(records):
                                               int8_pv)
             if not emit_out:
                 return o
-            codes, scales = FM.quantize_rows_plain(o.reshape(B * Ns, C))
-            return codes.reshape(B, Ns, C), scales.reshape(B, Ns, 1)
+            return A._bn1(B, Ns, *FM.quantize_rows_plain(
+                o.reshape(B * Ns, C)))
         cost = attn_bound(B, Ns, H, D, kv_rows(m, B, Ns), int8_pv, emit_out,
                           Ns)
         if m is not None:
@@ -544,6 +702,213 @@ def phase_kernels(records):
                    lambda: IM.int8_matmul(*tabs, bias=bb))
 
     gemm_edge_cases(records, randn, randi8, rands)
+    asym_cases(records)
+    int8_pv_draws()
+
+
+def asym_cases(records):
+    """The asymmetric modes at the fused reference plan's main-path shapes
+    (`w8a8_tpu_fused.yaml`), on draws of their own generator: K1 asym with
+    zero points and row sums, K4 asym and its GELU handoff and K2's
+    zero-point epilogues (each identical to its plain version), K5 asym at
+    kv_linear and K3's asym emission with row sums at STDiT's three sites
+    (bf16 PV)."""
+    import torch
+    from viditq_tpu_torch.kernels import attention as A
+    from viditq_tpu_torch.kernels import fused_matmul as FM
+    dev = "cuda"
+    g = torch.Generator(device=dev).manual_seed(1)
+
+    def randn(*shape, dtype=torch.bfloat16, scale=1.0):
+        return (torch.randn(shape, generator=g, device=dev) * scale).to(dtype)
+
+    def rands(*shape, lo=1e-4, hi=1e-3):
+        return lo + (hi - lo) * torch.rand(shape, generator=g, device=dev)
+
+    def randw(k, n):
+        """int8 weight [k, n], K-major, with zero points and column sums"""
+        w = torch.randint(-128, 128, (n, k), generator=g, device=dev,
+                          dtype=torch.int8).t()
+        wz = torch.randint(-20, 20, (1, n), generator=g, device=dev).float()
+        return w, wz, w.float().sum(dim=0, keepdim=True)
+
+    B, T, S, C, H, D, P = 2, 16, 1024, 1152, 16, 72, 120
+    M = B * T * S
+    print("phase kernels: asymmetric modes (w8a8_tpu_fused.yaml shapes)",
+          flush=True)
+    x = randn(B, T * S, C) + 0.2
+    sh, sc = randn(B, 1, C, scale=0.1), randn(B, 1, C, scale=0.1)
+    check_case("ln_modulate_quantize", "asym [2,16384,1152]",
+               lambda: FM.ln_modulate_quantize(x, sh, sc, sym=False),
+               lambda: FM.ln_modulate_quantize_plain(x, sh, sc, sym=False),
+               records, cost=(2 * M * C + 2 * 2 * B * C + M * C + 12 * M, {}),
+               asym=ASYM_TOL["ln"])
+    x2 = x.reshape(M, C)
+    check_case("quantize_rows", "asym [32768,1152]",
+               lambda: FM.quantize_rows(x2, sym=False),
+               lambda: FM.quantize_rows_plain(x2, sym=False), records,
+               cost=(2 * M * C + M * C + 12 * M, {}), exact=True)
+    h = randn(M, 4 * C)
+    check_case("quantize_rows", "gelu asym [32768,4608] (fc1 -> fc2)",
+               lambda: FM.quantize_rows(h, sym=False, gelu=True),
+               lambda: FM.quantize_rows_plain(h, sym=False, gelu=True),
+               records, cost=(2 * M * 4 * C + M * 4 * C + 12 * M, {}),
+               exact=True)
+    del h
+
+    # K2: asym acts x asym weights at q/k/v/proj, fc1 (bf16 out) and fc2
+    # (on K4's GELU codes), sym acts x asym weights at q/k/v; bf16 out
+    # with bias, each identical to its plain version
+    for case, (k, n, sym) in (
+            ("asym q/k/v/proj [32768,1152]x[1152,1152]", (C, C, False)),
+            ("asym fc1 [32768,1152]x[1152,4608]", (C, 4 * C, False)),
+            ("asym fc2 [32768,4608]x[4608,1152]", (4 * C, C, False)),
+            ("sym x asym-weight [32768,1152]x[1152,1152]", (C, C, True))):
+        xq, xs, xz, xr = FM.quantize_rows(randn(M, k) + 0.2, sym=sym,
+                                          need_rowsum=True)
+        w, wz, wc = randw(k, n)
+        ws, b = rands(1, n), randn(n, dtype=torch.float32, scale=0.1)
+        kw = dict(x_zp=xz, x_rowsum=xr, w_zp=wz, w_colsum=wc)
+        check_case("int8_consumer_matmul", case,
+                   lambda: FM.int8_consumer_matmul(xq, xs, w, ws, b, **kw),
+                   lambda: FM.int8_consumer_matmul_plain(xq, xs, w, ws, b,
+                                                         **kw),
+                   records, cost=k7b_cost(M, k, n, 2), exact=True)
+        if not sym:
+            yardsticks(f"int8_consumer_matmul {case.split()[1]}", xq, w,
+                       lambda: FM.int8_consumer_matmul(xq, xs, w, ws, b,
+                                                       **kw))
+        del xq, xs, xz, xr
+
+    # K5 (K4 -> K2): cross_attn.kv_linear, asym acts x asym weights
+    xa = randn(B * P, C)
+    wa, wza, wca = randw(C, 2 * C)
+    wsa, ba = rands(1, 2 * C), randn(2 * C, dtype=torch.float32, scale=0.1)
+    kw5 = dict(sym=False, sym_w=False, w_zp=wza, w_colsum=wca)
+    check_case("fused_dynq_int8_matmul",
+               "asym kv_linear [240,1152]x[1152,2304]",
+               lambda: FM.fused_dynq_int8_matmul(xa, wa, wsa, ba, **kw5),
+               lambda: FM.fused_dynq_int8_matmul_plain(xa, wa, wsa, ba,
+                                                       **kw5), records,
+               cost=(2 * B * P * C + C * 2 * C + 16 * 2 * C
+                     + 2 * B * P * 2 * C, {"int8": 2 * B * P * 2 * C * C}))
+
+    # K3: asym emission with row sums, bf16 PV, at the three STDiT sites
+    mask = torch.ones((B, P), dtype=torch.int32, device=dev)
+    mask[1, 100:] = 0
+    for site, (nb, nq, kv, seg, m) in (
+            ("spatial", (B * T, S, S, 0, None)),
+            ("temporal", (B, T * S, T * S, T, None)),
+            ("cross", (B, T * S, P, 0, mask))):
+        q, k, v = randn(nb, nq, H, D), randn(nb, kv, H, D), randn(nb, kv, H, D)
+        kw = dict(seg_len=seg, kv_mask=m, emit=True, emit_sym=False,
+                  need_rowsum=True)
+        rows = ([seg] * nb if seg else [kv] * nb if m is None
+                else [int(r) for r in (m != 0).sum(dim=1).tolist()])
+        nbytes, ops = attn_bound(nb, nq, H, D, rows, False, True, kv)
+        nbytes += 8 * nb * nq + (0 if m is None else 4 * nb * kv)
+        check_case("attention_bnhd", f"{site} fused asym emit",
+                   lambda: A.attention_bnhd(q, k, v, D ** -0.5, **kw),
+                   lambda: A.attention_bnhd_plain(q, k, v, D ** -0.5, **kw),
+                   records, cost=(nbytes, ops), asym=ASYM_TOL["attn"])
+        del q, k, v
+
+
+def int8_pv_draws():
+    """C12: K3's seg-mode int8-PV emission at the temporal sm8 site on
+    C12_DRAWS draws of its own generator, each held to the per-entry
+    tolerance of `int8_pv_slack` (and the mismatch fraction). For the first
+    entry more than one code off, `flip_witness` shows its cause."""
+    import torch
+    from viditq_tpu_torch.kernels import attention as A
+    g = torch.Generator(device="cuda").manual_seed(2)
+    B, N, H, D, seg = 2, 16 * 1024, 16, 72, 16
+    C, vb, sc = H * D, A.seg_v_block(16 * 1024, 16), 72 ** -0.5
+    kw = dict(seg_len=seg, int8_pv=True, v_block=vb, emit=True)
+    n_over, worst_frac, ratio, witness = 0, 0.0, 0.0, None
+    for draw in range(C12_DRAWS):
+        q, k, v = (torch.randn((B, N, H, D), generator=g, device="cuda")
+                   .to(torch.bfloat16) for _ in range(3))
+        got = A.attention_bnhd(q, k, v, sc, **kw)
+        want = A.attention_bnhd_plain(q, k, v, sc, **kw)
+        d = (got[0].float() - want[0].float()).abs().reshape(B * N, C)
+        slack = int8_pv_slack(q, k, v, sc, seg, None, vb, want[1])
+        over = d > CODE_MAX_DIFF
+        frac = float((d > 0).float().mean())
+        worst_frac = max(worst_frac, frac)
+        if over.any():
+            n_over += int(over.sum())
+            ratio = max(ratio, float(((d - CODE_MAX_DIFF) / slack)[over]
+                                     .max()))
+            if witness is None:
+                row, c = divmod(int(torch.nonzero(over.reshape(-1))[0]), C)
+                witness = f"draw {draw}: " + flip_witness(
+                    q, k, v, sc, seg, vb, row, c, got[0], want[0])
+        if ratio > 1 or frac > CODE_MISMATCH_FRAC:
+            fail(f"C12 draw {draw}: codes beyond one softmax flip (excess "
+                 f"over slack x{ratio:.3g}) or mismatch {frac}")
+    print(f"phase kernels: C12, temporal int8_pv emit over {C12_DRAWS} "
+          f"draws: {n_over} entries beyond {CODE_MAX_DIFF} code, the largest "
+          f"at {ratio:.3g} of its slack; mismatch at most {worst_frac:.3g}",
+          flush=True)
+    print(f"  C12 witness: {witness or 'no entry beyond one code'}",
+          flush=True)
+
+
+def flip_row(q, k, v, sc, seg, vb, row, h):
+    """The plain version's emitted sym int8-PV row (seg mode) recomputed by
+    its formulas for one query `row`, then again with the one softmax code
+    of head h nearest its rounding tie moved to its other rounding.
+    Returns (codes, codes with the flip [1, C], the flipped kv index,
+    its e * 127, the head's softmax denominator r)."""
+    import torch
+    from viditq_tpu_torch.kernels import attention as A
+    from viditq_tpu_torch.kernels._common import rdiv
+    B, N, H, D = q.shape
+    C, b, n = H * D, row // N, row % N
+    g0, v0 = n - n % seg, n - n % vb
+    qf = (q[b:b + 1, n:n + 1].float() * (sc * A.LOG2E)).to(
+        torch.bfloat16).float()
+    kf = k[b:b + 1, g0:g0 + seg].float()
+    s = torch.einsum("bnhd,bmhd->bhnm", qf, kf)[0, :, 0]      # [H, seg]
+    e = torch.exp2(s - s.amax(dim=-1, keepdim=True))
+    r = e.sum(dim=-1, keepdim=True)
+    vq, vs = A._v_quant(v[b:b + 1, v0:v0 + vb].reshape(1, vb, C), vb)
+    vq = vq[0, g0 - v0:g0 - v0 + seg].reshape(seg, H, D).double()
+    t = rdiv(1.0 / (127.0 * 127.0), r)
+
+    def row_codes(pq):
+        acc = torch.einsum("hm,mhd->hd", pq, vq).float()
+        o = ((acc * t) * vs.reshape(H, D)).reshape(1, C)
+        smax = torch.clamp(o.abs().amax(dim=-1, keepdim=True), min=1e-6)
+        return torch.clamp(torch.round(o * rdiv(127.0, smax)), -128, 127)
+    e127 = e[h] * 127.0
+    j = int((e127 - torch.floor(e127) - 0.5).abs().argmin())
+    pq = torch.round(e * 127.0).double()
+    base = row_codes(pq)
+    lo = float(torch.floor(e127[j]))
+    pq[h, j] = lo + 1.0 if float(pq[h, j]) == lo else lo
+    return base, row_codes(pq), j, float(e127[j]), float(r[h])
+
+
+def flip_witness(q, k, v, sc, seg, vb, row, c, codes, plain_codes) -> str:
+    """`flip_row` at entry (row, c): the recomputed row against the plain
+    version's codes, the flipped one against the kernel's."""
+    C = codes.shape[-1]
+    h = c // (C // q.shape[2])
+    base, flipped, j, e127, r = flip_row(q, k, v, sc, seg, vb, row, h)
+    kern = codes.reshape(-1, C)[row].float()
+    plain = plain_codes.reshape(-1, C)[row].float()
+
+    def agree(a, x):
+        return (f"{int((a[0] == x).sum())}/{C} equal, max diff "
+                f"{float((a[0] - x).abs().max()):.0f}")
+    return (f"row {row} channel {c} (head {h}): kernel {kern[c]:.0f}, plain "
+            f"{plain[c]:.0f}; the softmax code nearest its tie is kv {j}, "
+            f"e*127 = {e127:.7f} ({abs(e127 % 1.0 - 0.5):.2e} from it, "
+            f"r = {r:.4g}); recomputed row vs plain: {agree(base, plain)}; "
+            f"with that code on its other rounding, vs kernel: "
+            f"{agree(flipped, kern)}")
 
 
 def k7b_cost(m, k, n, out_bytes):
@@ -641,33 +1006,44 @@ def attention_edge_cases(records, randn):
             m = torch.ones((B, M), dtype=torch.int32, device=q.device)
             m[B - 1, lo:hi] = 0
         int8_pv, emit, sc = p["int8_pv"], p["emit"], D ** -0.5
+        emit_sym = p.get("emit_sym", True)
         rows = [M] * B if m is None else [int(r) for r in (m != 0).sum(1)]
         cost = attn_bound(B, N, H, D, rows, int8_pv, emit, M)
         if m is not None:
             cost = (cost[0] + 4 * B * M, cost[1])
+        if not emit_sym:  # zero points and row sums
+            cost = (cost[0] + 8 * B * N, cost[1])
+        slack_fn = None
         if name == "attention_bnhd":
             kw = dict(kv_mask=m, int8_pv=int8_pv, emit=emit)
             kernel = (lambda q=q, k=k, v=v, kw=kw:
                       A.attention_bnhd(q, k, v, sc, **kw))
             plain = (lambda q=q, k=k, v=v, kw=kw:
                      A.attention_bnhd_plain(q, k, v, sc, **kw))
+            if int8_pv and emit:
+                slack_fn = (lambda want, q=q, k=k, v=v, m=m, sc=sc:
+                            int8_pv_slack(q, k, v, sc, 0, m, None, want[1]))
         else:
             bkv = p["bkv"]
 
             def kernel(q=q, k=k, v=v, m=m, int8_pv=int8_pv, emit=emit,
-                       bkv=bkv):
-                return A.attention_bnhd_stream(q, k, v, sc, m, int8_pv, emit,
-                                               bkv=bkv)
+                       bkv=bkv, emit_sym=emit_sym):
+                return A.attention_bnhd_stream(
+                    q, k, v, sc, m, int8_pv, emit, bkv=bkv,
+                    emit_sym=emit_sym, need_rowsum=not emit_sym)
 
             def plain(q=q, k=k, v=v, m=m, int8_pv=int8_pv, emit=emit,
-                      bkv=bkv, B=B, N=N, C=H * D):
+                      bkv=bkv, B=B, N=N, C=H * D, emit_sym=emit_sym):
                 o = A.attention_bnhd_stream_plain(q, k, v, sc, bkv, m,
                                                   int8_pv)
                 if not emit:
                     return o
-                codes, scales = FM.quantize_rows_plain(o.reshape(B * N, C))
-                return codes.reshape(B, N, C), scales.reshape(B, N, 1)
-        check_case(name, f"edge {case}", kernel, plain, records, cost=cost)
+                return A._bn1(B, N, *FM.quantize_rows_plain(
+                    o.reshape(B * N, C), sym=emit_sym,
+                    need_rowsum=not emit_sym))
+        check_case(name, f"edge {case}", kernel, plain, records, cost=cost,
+                   asym=None if emit_sym else ASYM_TOL["stream"],
+                   slack_fn=slack_fn)
 
 
 def random_init_(model, seed: int, scale: float):
@@ -732,8 +1108,9 @@ def check_k_major(model) -> int:
 
 
 def phase_reference():
-    """Tiny models (STDiT under sm8 and under the native W8A8, PixArt-Σ
-    under sm8): the card's kernels against the CPU's plain versions on the
+    """Tiny models (STDiT under sm8, the fused reference W8A8 and the native
+    W8A8, PixArt-Σ under sm8): the card's kernels against the CPU's plain
+    versions on the
     same weights and inputs, for one forward (float32 output) and a 3-step
     CFG denoise (DDIM for STDiT, DPM-Solver++ for PixArt-Σ). Weights are
     drawn at 0.1 so activations are O(1)."""
@@ -747,6 +1124,8 @@ def phase_reference():
     for name, cfg, sampler, plan in (
             ("sm8 STDiT", TINY_STDIT_CFG, IDDPM(num_sampling_steps=3,
                                                 cfg_scale=4.0), SM8_PLAN),
+            ("fused asym STDiT", TINY_STDIT_CFG,
+             IDDPM(num_sampling_steps=3, cfg_scale=4.0), FUSED_PLAN),
             ("w8a8 STDiT", TINY_STDIT_CFG, IDDPM(num_sampling_steps=3,
                                                  cfg_scale=4.0), W8A8_PLAN),
             ("sm8 PixArt-Σ", TINY_SIGMA_CFG,
@@ -800,9 +1179,18 @@ def run_slice(name, cfg, z_scale, n_prompt):
     y = torch.tensor(rng.standard_normal((2, 1, n_prompt, 4096)) * 0.1,
                      dtype=torch.bfloat16, device="cuda")
     mask = torch.ones((1, n_prompt), dtype=torch.int32, device="cuda")
+    # the latent moved by 1e-3 relative: one bf16 step in some entries
+    z_moved = (z.float() * (1.0 + 1e-3 * torch.tensor(
+        rng.standard_normal(z.shape), dtype=torch.float32,
+        device="cuda"))).to(torch.bfloat16)
     sampler = build_sampler(cfg)
     arms = tuple(SLICE_KERNELS[name])
     counts, outs, ms = {}, {}, {}
+    # the fused and native asym arms and bf16 along the schedule: after
+    # the warm-up CFG forward, after 1 and 5 steps; and that forward on the
+    # moved latent (runs not counted)
+    traced = ("bf16", "w8a8", "fused")
+    along, moved = {}, {}
     model, model_plan = None, None
     for arm in arms:
         plan = ARM_PLANS.get(arm, SM8_PLAN)
@@ -820,9 +1208,9 @@ def run_slice(name, cfg, z_scale, n_prompt):
         qctx = None if arm == "bf16" else QuantCtx(mode="quant")
         # warm-up: one CFG forward
         with torch.no_grad():
-            model(torch.cat([z, z]), torch.tensor([999.0, 999.0],
-                                                   device="cuda"), y, mask,
-                  qctx=qctx)
+            fwd = model(torch.cat([z, z]), torch.tensor([999.0, 999.0],
+                                                         device="cuda"),
+                        y, mask, qctx=qctx)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         _counters.reset()
@@ -849,8 +1237,42 @@ def run_slice(name, cfg, z_scale, n_prompt):
         for k, v in counts[arm].items():
             if (v["launches"] > 0) != (k in SLICE_KERNELS[name][arm]):
                 fail(f"{name} {arm} arm launched {k} {v['launches']} times")
+        per_block = BLOCK_LAUNCHES.get((name, arm), {})
+        want = {k: n * len(model.blocks) * STEPS for k, n in per_block.items()}
+        got = {k: counts[arm][k]["launches"] for k in want}
+        if got != want:
+            fail(f"{name} {arm} launches {got} != {want}")
+        if all(a in arms for a in traced) and arm in traced:
+            sample = fp_sample if arm == "bf16" else quant_sample
+            along[arm] = [fwd.float()] + [
+                sample(model, sampler, z, y, mask, step_indices=range(
+                    STEPS - 1, STEPS - 1 - n, -1)).float() for n in (1, 5)]
+            along[arm].append(outs[arm])
+            with torch.no_grad():
+                fwd_m = model(torch.cat([z_moved, z_moved]), torch.tensor(
+                    [999.0, 999.0], device="cuda"), y, mask, qctx=qctx)
+            moved[arm] = float((fwd_m.float() - fwd.float()).norm()
+                               / fwd.float().norm())
+            del fwd_m
+        del fwd
     model = None
     torch.cuda.empty_cache()
+    if along:
+        # the same asym semantics through the fused and native dataflows
+        def rel(a, b, i):
+            return float((along[a][i] - along[b][i]).norm()
+                         / along[b][i].norm())
+        for i, label in enumerate(("one CFG forward (t=999, model output)",
+                                   "1 step", "5 steps", f"{STEPS} steps")):
+            print(f"  {name}: after {label}: fused vs w8a8 rel err "
+                  f"{rel('fused', 'w8a8', i):.4g}; vs bf16: fused "
+                  f"{rel('fused', 'bf16', i):.4g}, w8a8 "
+                  f"{rel('w8a8', 'bf16', i):.4g}", flush=True)
+        dz = float((z_moved.float() - z.float()).norm() / z.float().norm())
+        print(f"  {name}: one CFG forward on the latent moved by {dz:.3g} "
+              f"(one bf16 step in some entries) moves the output by: "
+              f"{'; '.join(f'{a} {r:.4g}' for a, r in moved.items())}",
+              flush=True)
     for arm in arms[1:]:
         rel = float((outs[arm] - outs["bf16"]).norm() / outs["bf16"].norm())
         print(f"  {name}: {STEPS} steps; bf16 {ms['bf16']:.1f} ms/step, "

@@ -148,7 +148,7 @@ def _packed(rng, K, N, w_sym):
                            sym=w_sym)
 
 
-@pytest.mark.parametrize("impl", ["pallas", "xla"])
+@pytest.mark.parametrize("impl", ["pallas", "xla", "fused"])
 @pytest.mark.parametrize("act_sym,w_sym", [(False, False), (False, True),
                                            (True, False), (True, True)],
                          ids=["asym-asym", "asym-sym", "sym-asym",
@@ -189,9 +189,10 @@ def test_quantized_linear_native_impls_are_one_dataflow():
 @pytest.mark.parametrize("kw,err", [
     (dict(col_scale=torch.ones(64)), NotImplementedError),
     (dict(residual=torch.zeros(48, 32)), AssertionError),
-    (dict(impl="fused"), NotImplementedError),  # asym acts: K5 is sym only
+    (dict(impl="fused", residual=torch.zeros(48, 32)),
+     NotImplementedError),  # K5's residual epilogue is not ported
     (dict(impl="triton"), ValueError),
-], ids=["col_scale", "residual", "fused-asym", "unknown-impl"])
+], ids=["col_scale", "residual", "fused-residual", "unknown-impl"])
 def test_quantized_linear_native_rejects(kw, err):
     rng = np.random.default_rng(16)
     x = t(rng.standard_normal((48, 64)).astype(np.float32))

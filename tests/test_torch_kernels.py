@@ -73,8 +73,8 @@ def test_k1_ln_modulate_quantize(dtype):
     q, s, zp, rs = interp(jfm.ln_modulate_quantize, jx, jsh, jsc, sym=True,
                           need_rowsum=False)
     td = getattr(torch, dtype)
-    pq, ps = FM.ln_modulate_quantize(*(t(np.asarray(a, np.float32)).to(td)
-                                       for a in (jx, jsh, jsc)))
+    pq, ps, _, _ = FM.ln_modulate_quantize(
+        *(t(np.asarray(a, np.float32)).to(td) for a in (jx, jsh, jsc)))
     assert pq.shape == (512, 64) and pq.dtype == torch.int8
     assert_codes_close(pq, q)
     np.testing.assert_allclose(ps.numpy(), s, rtol=1e-5)
@@ -86,7 +86,7 @@ def test_k4_quantize_rows_exact():
     x[5] = 0.0  # all-zero row: the 1e-6 scale floor
     q, s, zp, rs = interp(jfm.quantize_rows_fused, jnp.asarray(x), sym=True,
                           need_rowsum=False)
-    pq, ps = FM.quantize_rows(t(x))
+    pq, ps, _, _ = FM.quantize_rows(t(x))
     assert_codes_close(pq, q, exact=True)
     # XLA on the CPU evaluates absmax / 127 as a multiply by the constant's
     # reciprocal (one ulp apart at some rows); the port divides, as the
@@ -241,8 +241,9 @@ def test_k3_attention(mode, int8_pv, emit):
         codes, scales, _, _ = interp(
             jattn.attention_bnhd_int8out, *jargs, scale=scale, seg_len=seg,
             kv_mask=jm, int8_pv=int8_pv)
-        pc, ps = A.attention_bnhd(*targs, scale, seg_len=seg, kv_mask=tm,
-                                  int8_pv=int8_pv, emit=True)
+        pc, ps, _, _ = A.attention_bnhd(*targs, scale, seg_len=seg,
+                                        kv_mask=tm, int8_pv=int8_pv,
+                                        emit=True)
         assert pc.shape == codes.shape and ps.shape == scales.shape
         assert_codes_close(pc, codes)
         np.testing.assert_allclose(ps.numpy(), scales,
@@ -265,8 +266,9 @@ def test_k3_attention_head_dim_72(int8_pv):
         jattn.attention_bnhd_int8out, jnp.asarray(q), jnp.asarray(k),
         jnp.asarray(v), scale=scale, kv_mask=jnp.asarray(mask),
         int8_pv=int8_pv)
-    pc, ps = A.attention_bnhd(t(q), t(k), t(v), scale, kv_mask=t(mask),
-                              int8_pv=int8_pv, emit=True)
+    pc, ps, _, _ = A.attention_bnhd(t(q), t(k), t(v), scale,
+                                    kv_mask=t(mask), int8_pv=int8_pv,
+                                    emit=True)
     assert_codes_close(pc, codes)
     np.testing.assert_allclose(ps.numpy(), scales, rtol=2e-3)
 

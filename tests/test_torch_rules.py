@@ -55,7 +55,7 @@ def _inputs(seed=0):
 def test_cpu_tensors_run_plain_versions_and_count_no_launch():
     _counters.reset()
     x, sh, sc, w, ws = _inputs()
-    q, s = FM.ln_modulate_quantize(x, sh, sc)
+    q, s, _, _ = FM.ln_modulate_quantize(x, sh, sc)
     FM.int8_consumer_matmul(q, s, w, ws)
     FM.int8_consumer_matmul(q, s, w, ws, emit={"gelu": True})
     FM.quantize_rows(x.reshape(-1, 64))
@@ -74,39 +74,31 @@ def test_cpu_tensors_run_plain_versions_and_count_no_launch():
 
 def test_cpu_plain_results_match_direct_plain_calls():
     x, sh, sc, w, ws = _inputs(1)
-    q1, s1 = FM.ln_modulate_quantize(x, sh, sc)
-    q2, s2 = FM.ln_modulate_quantize_plain(x, sh, sc)
-    assert torch.equal(q1, q2) and torch.equal(s1, s2)
+    for sym in (True, False):
+        got = FM.ln_modulate_quantize(x, sh, sc, sym=sym, need_rowsum=True)
+        want = FM.ln_modulate_quantize_plain(x, sh, sc, sym=sym,
+                                             need_rowsum=True)
+        assert [a is None for a in got] == [False, False, sym, False]
+        assert all(a is b is None or torch.equal(a, b)
+                   for a, b in zip(got, want))
 
 
 @pytest.mark.parametrize("call", [
-    lambda x, sh, sc, w, ws: FM.ln_modulate_quantize(x, sh, sc, sym=False),
-    lambda x, sh, sc, w, ws: FM.quantize_rows(x[0], sym=False),
-    lambda x, sh, sc, w, ws: FM.quantize_rows(x[0], gelu=True),
     lambda x, sh, sc, w, ws: FM.quantize_rows(x[0], col_scale=ws[0, :64]),
     lambda x, sh, sc, w, ws: FM.int8_consumer_matmul(
-        *FM.quantize_rows(x[0]), w, ws, x_zp=ws[:, :32].T),
+        *FM.quantize_rows(x[0])[:2], w, ws, residual=torch.zeros(32, 128)),
     lambda x, sh, sc, w, ws: FM.int8_consumer_matmul(
-        *FM.quantize_rows(x[0]), w, ws, w_zp=ws),
-    lambda x, sh, sc, w, ws: FM.int8_consumer_matmul(
-        *FM.quantize_rows(x[0]), w, ws, residual=torch.zeros(32, 128)),
-    lambda x, sh, sc, w, ws: FM.int8_consumer_matmul(
-        *FM.quantize_rows(x[0]), w, ws,
+        *FM.quantize_rows(x[0])[:2], w, ws,
         emit={"gelu": True, "col_scale": torch.ones(128)}),
-    lambda x, sh, sc, w, ws: FM.fused_dynq_int8_matmul(x[0], w, ws,
-                                                       sym=False),
     lambda x, sh, sc, w, ws: FM.fused_dynq_int8_matmul(
         x[0], w, ws, gate=torch.ones(1, 128)),
     lambda x, sh, sc, w, ws: A.attention_bnhd(
         *(x.reshape(2, 32, 4, 16),) * 3, 0.25, int8_qk=True),
     lambda x, sh, sc, w, ws: A.attention_bnhd(
-        *(x.reshape(2, 32, 4, 16),) * 3, 0.25, emit=True, emit_sym=False),
-    lambda x, sh, sc, w, ws: A.attention_bnhd(
         *(x.reshape(2, 32, 4, 16),) * 3, 0.25, emit=True,
         col_scale=torch.ones(64)),
-], ids=["k1-asym", "k4-asym", "k4-gelu", "k4-col_scale", "k2-asym-act",
-        "k2-asym-weight", "k2-residual", "k2-emit-col_scale", "k5-asym",
-        "k5-gate", "k3-int8_qk", "k3-asym-emit", "k3-col_scale"])
+], ids=["k4-col_scale", "k2-residual", "k2-emit-col_scale", "k5-gate",
+        "k3-int8_qk", "k3-col_scale"])
 def test_unported_modes_raise(call):
     with pytest.raises(NotImplementedError):
         call(*_inputs())
@@ -145,21 +137,6 @@ def test_with_backend_resolves_like_jax():
                         == dataclasses.asdict(jres(name))), (plan, name)
     with pytest.raises(NotImplementedError):
         load_quant_config(plan).with_backend("simulate")
-
-
-def test_fused_asymmetric_plan_still_raises():
-    # the asym modes of K1/K2/K4 are not ported: `backend: fused` with the
-    # reference's asymmetric quantizers raises at the first quant call
-    from viditq_tpu_torch.quant.qlinear import QuantCtx, QuantLinear
-    from viditq_tpu_torch.utils.config import load_quant_config
-    plan = load_quant_config("configs/opensora/w8a8_tpu_fused.yaml")
-    spec = plan.resolver()("blocks.0.mlp.fc1")
-    assert spec.impl == "fused" and not spec.act.sym
-    lin = QuantLinear(64, 128, spec, dtype=torch.float32)
-    with pytest.raises(NotImplementedError):
-        lin(torch.randn(8, 64), QuantCtx())
-    with pytest.raises(NotImplementedError):
-        FM.ln_modulate_quantize(*_inputs()[:3], sym=False)
 
 
 def test_hybrid_plan_overrides_raise_at_load():

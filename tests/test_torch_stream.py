@@ -73,8 +73,9 @@ def test_k6_emission_matches_jax(int8_pv):
     codes, scales, zp, _ = _jax(jattn.attention_bnhd_int8out, q, k, v, mask,
                                 int8_pv=int8_pv)
     assert zp is None
-    pc, ps = A.attention_bnhd(t(q), t(k), t(v), D ** -0.5, kv_mask=t(mask),
-                              int8_pv=int8_pv, emit=True)
+    pc, ps, _, _ = A.attention_bnhd(t(q), t(k), t(v), D ** -0.5,
+                                    kv_mask=t(mask), int8_pv=int8_pv,
+                                    emit=True)
     assert pc.shape == codes.shape and ps.shape == scales.shape
     assert_codes_close(pc, codes)
     np.testing.assert_allclose(ps.numpy(), scales, rtol=2e-6)

@@ -35,6 +35,9 @@ from viditq_tpu_torch.utils.config import load_quant_config
 
 SM8 = "configs/opensora/w8a8_tpu_fused_sm8.yaml"
 SYM = "configs/opensora/w8a8_tpu_fused_sym.yaml"
+# the reference semantics (asym per-channel weights, asym dynamic per-token
+# acts) through the fused int8 dataflow (K1, K2, K3 emission, K4, K5)
+FUSED = "configs/opensora/w8a8_tpu_fused.yaml"
 # the reference ViDiT-Q W8A8 (asym per-channel weights, asym dynamic
 # per-token acts); it runs on the native backend (`native_plan`)
 DYN = "configs/opensora/w8a8_dynamic.yaml"
@@ -100,9 +103,11 @@ def randomize(params, seed: int = 0, scale: float = 0.1):
 
 
 def build_jax(plan_path=SM8, scan_blocks: bool = False, seed: int = 0,
-              kind: str = "stdit", plan_fn=None, **overrides):
+              kind: str = "stdit", plan_fn=None, weight_scale: float = 0.1,
+              **overrides):
     """(JAX model, variables as numpy trees) with calibrated, packed
-    tables. plan_fn: a transform of the loaded plan (`native_plan`)."""
+    tables. plan_fn: a transform of the loaded plan (`native_plan`);
+    weight_scale: the standard deviation of the parameter draws."""
     jcls, _, cfg, _ = KINDS[kind]
     plan = j_load(plan_path)
     resolver = (plan_fn(plan) if plan_fn else plan).resolver()
@@ -113,7 +118,7 @@ def build_jax(plan_path=SM8, scan_blocks: bool = False, seed: int = 0,
         x = x[..., :overrides["input_size"], :overrides["input_size"]]
     v = dict(model.init(jax.random.PRNGKey(0), x, t, y, mask,
                         qctx=JQuantCtx(mode="fp")))
-    params = randomize(v["params"], seed)
+    params = randomize(v["params"], seed, weight_scale)
     quant = j_pack(params, j_calibrate(params, v["quant"], resolver),
                    resolver)
     return model, {"params": params,

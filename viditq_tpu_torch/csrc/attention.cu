@@ -21,8 +21,11 @@
 // of v_block tokens in seg mode (C2), the whole kv axis otherwise, where
 // the codes are stored transposed per head for the s8 wgmma.
 // Emission writes f32 rows to scratch and row_quant_kernel quantizes each
-// row with the attention site's own form (C6):
-//   smax = max(absmax, 1e-6); scale = smax/127; codes = round(o * (127/smax))
+// row with the attention site's own forms (C6; attention.py:217-233):
+//   sym : smax = max(absmax, 1e-6); scale = smax/127;
+//         codes = round(o * (127/smax))
+//   asym: `_quantize_rows_f32`'s (common.cuh RowQuant: inv = 1/scale, zp)
+// and, where asked for (asym proj weights), the code row sum.
 //
 // Bound on the card, full modes: at the spatial site (N = M = 1024, D = 72)
 // the tensor-core work of three 64x64x80 products per 64 q rows and kv tile
@@ -479,20 +482,48 @@ __global__ void vquant_kernel_t(const __nv_bfloat16* __restrict__ v,
 }
 
 // One warp per row of o [rows, C] f32.
+template <bool SYM>
 __global__ void row_quant_kernel(const float* __restrict__ o,
                                  int8_t* __restrict__ q,
-                                 float* __restrict__ scales, int rows, int C) {
+                                 float* __restrict__ scales,
+                                 float* __restrict__ zp,
+                                 float* __restrict__ rowsum, int rows, int C) {
   const int row = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
   if (row >= rows) return;
   const float* orow = o + static_cast<size_t>(row) * C;
-  float am = 0.0f;
-  for (int c = lane; c < C; c += 32) am = fmaxf(am, fabsf(orow[c]));
-  const float smax = fmaxf(vq::warp_max(am), 1e-6f);
-  const float mul = 127.0f / smax;
   int8_t* qr = q + static_cast<size_t>(row) * C;
-  for (int c = lane; c < C; c += 32) qr[c] = vq::round_sat_s8(orow[c] * mul);
-  if (lane == 0) scales[row] = smax / 127.0f;
+  int sum = 0;
+  if constexpr (SYM) {
+    float am = 0.0f;
+    for (int c = lane; c < C; c += 32) am = fmaxf(am, fabsf(orow[c]));
+    const float smax = fmaxf(vq::warp_max(am), 1e-6f);
+    const float mul = 127.0f / smax;
+    for (int c = lane; c < C; c += 32) {
+      const int8_t code = vq::round_sat_s8(orow[c] * mul);
+      sum += code;
+      qr[c] = code;
+    }
+    if (rowsum != nullptr) sum = vq::warp_sum_int(sum);
+    if (lane == 0) {
+      scales[row] = smax / 127.0f;
+      if (rowsum != nullptr) rowsum[row] = static_cast<float>(sum);
+    }
+  } else {
+    float lo = 0.0f, hi = 0.0f;
+    for (int c = lane; c < C; c += 32) {
+      lo = fminf(lo, orow[c]);
+      hi = fmaxf(hi, orow[c]);
+    }
+    const vq::RowQuant rq =
+        vq::RowQuant::asym(vq::warp_min(lo), vq::warp_max(hi));
+    for (int c = lane; c < C; c += 32) {
+      const int8_t code = rq.code<false>(orow[c]);
+      sum += code;
+      qr[c] = code;
+    }
+    rq.store<false>(row, lane, sum, scales, zp, rowsum);
+  }
 }
 
 template <int D, bool INT8>
@@ -599,13 +630,25 @@ VQ_EXPORT int vq_attn_vquant_t(const void* v, void* vt, void* vs, int B,
   return static_cast<int>(cudaGetLastError());
 }
 
-// o [rows, C] f32 -> codes [rows, C] int8, scales [rows] f32.
+// o [rows, C] f32 -> codes [rows, C] int8, scales [rows] f32; zp [rows] f32
+// selects the asymmetric quantizer (null: symmetric); rowsum [rows] f32 or
+// null (not written).
 VQ_EXPORT int vq_attn_row_quant(const void* o, void* q, void* scales,
-                                int rows, int C, void* stream) {
+                                void* zp, void* rowsum, int rows, int C,
+                                void* stream) {
   const int threads = 256;
   const int blocks = (rows * 32 + threads - 1) / threads;
-  row_quant_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(o), static_cast<int8_t*>(q),
-      static_cast<float*>(scales), rows, C);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* op = static_cast<const float*>(o);
+  int8_t* qp = static_cast<int8_t*>(q);
+  float* sp = static_cast<float*>(scales);
+  float* zpp = static_cast<float*>(zp);
+  float* rp = static_cast<float*>(rowsum);
+  if (zpp == nullptr)
+    row_quant_kernel<true><<<blocks, threads, 0, st>>>(op, qp, sp, zpp, rp,
+                                                       rows, C);
+  else
+    row_quant_kernel<false><<<blocks, threads, 0, st>>>(op, qp, sp, zpp, rp,
+                                                        rows, C);
   return static_cast<int>(cudaGetLastError());
 }

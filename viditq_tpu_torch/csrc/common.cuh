@@ -50,6 +50,48 @@ __device__ __forceinline__ int8_t round_sat_s8(float v) {
   return static_cast<int8_t>(static_cast<int>(r));
 }
 
+// The row quantizer of the fused producers (K1, K4, K3's asym emission;
+// `_quantize_rows_f32`, fused_matmul.py:118-137), every division a true
+// IEEE division:
+//   sym : s = max(absmax / 127, 1e-6), inv = 1/s, codes = clip(rint(x*inv))
+//   asym: s = max((hi - lo) / 255, 1e-6) with lo = min(x, 0), hi = max(x, 0),
+//         inv = 1/s, zp = rint(-lo * inv) - 128,
+//         codes = clip(rint(x * inv) + zp, -128, 127)
+struct RowQuant {
+  float s, inv, zp;
+  static __device__ __forceinline__ RowQuant sym(float absmax) {
+    const float s = fmaxf(absmax / 127.0f, 1e-6f);
+    return {s, 1.0f / s, 0.0f};
+  }
+  static __device__ __forceinline__ RowQuant asym(float lo, float hi) {
+    const float s = fmaxf((hi - lo) / 255.0f, 1e-6f);
+    const float inv = 1.0f / s;
+    return {s, inv, rintf(-lo * inv) - 128.0f};
+  }
+  template <bool SYM>
+  __device__ __forceinline__ int8_t code(float x) const {
+    if constexpr (SYM) {
+      return round_sat_s8(x * inv);
+    } else {
+      const float c = fminf(fmaxf(rintf(x * inv) + zp, -128.0f), 127.0f);
+      return static_cast<int8_t>(static_cast<int>(c));
+    }
+  }
+  // one warp's row: lane 0 writes the scale, the zero point (asym) and the
+  // code sum (where rowsum is not null; sum: this lane's partial sum, an
+  // exact integer stored as f32)
+  template <bool SYM>
+  __device__ __forceinline__ void store(int row, int lane, int sum,
+                                        float* qs, float* zps,
+                                        float* rowsum) const {
+    if (rowsum != nullptr) sum = warp_sum_int(sum);
+    if (lane != 0) return;
+    qs[row] = s;
+    if (!SYM) zps[row] = zp;
+    if (rowsum != nullptr) rowsum[row] = static_cast<float>(sum);
+  }
+};
+
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
   return __bfloat162float(v);

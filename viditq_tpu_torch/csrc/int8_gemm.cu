@@ -1,20 +1,30 @@
 // K2: int8 x int8 -> int32 GEMM with the symmetric dequant epilogue, the
-// group-wise activation-scale mode and the GELU + group-quantize emission.
+// group-wise activation-scale mode, the GELU + group-quantize emission and
+// the zero-point-corrected epilogues of asymmetric acts or weights.
 //
 // Replaces the TPU kernel `int8_consumer_matmul` / `_consumer_kernel`
-// (viditq_tpu/kernels/fused_matmul.py:316-571) in its sym x sym modes:
+// (viditq_tpu/kernels/fused_matmul.py:316-571):
 //   plain: out = float(acc) * (xs[m] * ws[n]) + b[n]
 //   gw_x : facc = sum_g float(acc_g) * xs[m, g]  (f32, groups in order)
 //          out  = facc * ws[n] + b[n]
 //   emit : y = gelu_tanh(plain out) written as f32 scratch, then
 //          group_quant_kernel quantizes each (row x group of gw columns):
 //          s = max(absmax * (1/127), 1e-6); codes = round(y * (1/s))
+//   sym acts x asym weights (:357):
+//          out = (float(acc) - wzp[n]*xrs[m]) * (xs[m]*ws[n]) + b[n]
+//   asym acts (:359-362):
+//          c = float(acc) - xzp[m]*wcs[n] - wzp[n]*xrs[m] + (K*xzp[m])*wzp[n]
+//          out = (c * xs[m]) * ws[n] + b[n]
+// every product and sum rounded in f32 in that order (-fmad=false), the
+// bias added in f32 before the output's cast (:363-364; K7b rounds it to
+// the output type first). gw_x and the emission take sym x sym only.
 //
 // Bound on the card: the int8 tensor cores at the main path's shapes
 // (M = 32768, K/N in 1152..4608: ~100-300 int8 ops per byte moved). The
 // product is the TMA + s8 wgmma core of int8_mma.cuh (K-major weight,
 // 128x192 tiles; 128x128 in gw_x, whose f32 accumulator doubles the
-// registers a thread holds); this file holds the epilogues. The emission's
+// registers a thread holds); this file holds the epilogues, the
+// zero-point ones in the core's ZpEpilogue, which K7b's is too. The emission's
 // row max spans a whole 1536-column group, wider than a tile, hence the f32
 // scratch and the second pass.
 #include <type_traits>
@@ -78,6 +88,19 @@ struct int8_gemm_epilogue {
     }
   }
 };
+
+// The zero-point-corrected modes: int8_mma.cuh's ZpEpilogue (shared with
+// K7b), the f32 bias added before the cast. ASYM_X = asym acts (xzp given),
+// else sym acts x asym weights. Out: bf16 or f32.
+template <bool ASYM_X, bool F32_OUT>
+cudaError_t launch_gemm_zp(const int8_t* A, const int8_t* Wt,
+                           const float* const* f, void* out, int M, int N,
+                           int K, cudaStream_t st) {
+  const vq::i8mma::ZpEpilogue<F32_OUT, false, !ASYM_X> epi{
+      f[0], f[1], f[2], f[3], f[4], f[5], f[6], out, M, N,
+      static_cast<float>(K)};
+  return vq::i8mma::launch_tma(A, Wt, epi, K, K, st);
+}
 
 // float4 vectors a lane of group_quant_kernel holds: groups of up to
 // 32 * 18 * 4 = 2304 columns (emit_groups' widest)
@@ -173,6 +196,35 @@ VQ_EXPORT int vq_int8_gemm(const void* A, const void* Wt, const void* xs,
     else
       e = launch_gemm<false, 2>(a, w, x_s, 1, w_s, b, out, M, N, K, st);
   }
+  return static_cast<int>(e);
+}
+
+// The zero-point-corrected modes: A, Wt as vq_int8_gemm; xs [M] f32; xzp
+// [M] f32 (asym acts) or null (sym acts: then wzp is needed); xrs [M] f32
+// or null (zeros); ws [N] f32; wzp [N] f32 or null (sym weights); wcs [N]
+// f32 (needed with xzp) or null; bias [N] f32 or null; out [M, N] f32 when
+// f32_out, else bf16. K % 64 == 0, N % 16 == 0, A and Wt 16-byte aligned.
+VQ_EXPORT int vq_int8_gemm_zp(const void* A, const void* Wt, const void* xs,
+                              const void* xzp, const void* xrs,
+                              const void* ws, const void* wzp,
+                              const void* wcs, const void* bias, void* out,
+                              int M, int N, int K, int f32_out,
+                              void* stream) {
+  const int8_t* a = static_cast<const int8_t*>(A);
+  const int8_t* w = static_cast<const int8_t*>(Wt);
+  if (!vq::i8mma::tma_ok(a, w, K) || (xzp == nullptr && wzp == nullptr) ||
+      (xzp != nullptr && wcs == nullptr))
+    return cudaErrorInvalidValue;
+  const auto p = [](const void* v) { return static_cast<const float*>(v); };
+  const float* f[7] = {p(xs), p(xzp), p(xrs), p(ws), p(wzp), p(wcs), p(bias)};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t e;
+  if (xzp != nullptr)
+    e = f32_out ? launch_gemm_zp<true, true>(a, w, f, out, M, N, K, st)
+                : launch_gemm_zp<true, false>(a, w, f, out, M, N, K, st);
+  else
+    e = f32_out ? launch_gemm_zp<false, true>(a, w, f, out, M, N, K, st)
+                : launch_gemm_zp<false, false>(a, w, f, out, M, N, K, st);
   return static_cast<int>(e);
 }
 

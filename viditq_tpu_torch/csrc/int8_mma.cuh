@@ -57,6 +57,8 @@
 // K-major W^T alike, mma.sync m16n8k32 s8.
 #pragma once
 
+#include <type_traits>
+
 #include <cuda.h>  // CUtensorMap and its enums; the encoder comes from libcuda
 
 #include "common.cuh"
@@ -299,6 +301,80 @@ __device__ __forceinline__ void fold_group(const Epi& epi, float (&facc)[R],
   for (int i = 0; i < R; ++i)
     facc[i] = facc[i] + static_cast<float>(acc[i]) * ((i & 2) ? s1 : s0);
 }
+
+// ---- the zero-point-corrected epilogue ------------------------------------
+//
+// K7b's epilogue and K2's zero-point modes, one struct. Per row: the act
+// scale, zero point, code sum and (float)K * zero point; per column: the
+// weight scale, zero point, code sum and the bias. A null zero-point, sum
+// or bias table reads as zeros, as the JAX wrapper fills a missing one
+// (fused_matmul.py:467-477). Every step rounds in f32 in this order
+// (-fmad=false):
+//   asym acts: c = float(acc) - xz*wcs - wz*xr + kx*wz;  o = (c*xs)*ws
+//   SYM_X    : o = (float(acc) - wz*xr) * (xs*ws)  (K2's sym acts x asym
+//              weights, fused_matmul.py:357)
+// then the bias. BIAS_AFTER_CAST (K7b): a bf16 output rounds o, adds the
+// bias rounded to bf16 and rounds again. Otherwise (K2, :363-364) the f32
+// bias is added before the one cast. An f32 output adds it in f32.
+template <bool F32_OUT, bool BIAS_AFTER_CAST, bool SYM_X>
+struct ZpEpilogue {
+  using Out = typename std::conditional<F32_OUT, float, __nv_bfloat16>::type;
+  static constexpr bool GW = false;
+  static constexpr int BN = 192;
+  const float* xs;
+  const float* xzp;
+  const float* xrs;
+  const float* ws;
+  const float* wzp;
+  const float* wcs;
+  const float* bias;
+  void* out;
+  int M, N;
+  float kf;  // the true K
+
+  struct alignas(16) Row {
+    float xs, xz, xr, kx;  // kx = (float)K * xz, the JAX order's product
+  };
+  struct alignas(16) Col {
+    float ws, wz, wcs, b;  // b: 0 without a bias (never added then)
+  };
+  __device__ __forceinline__ Row row(int r) const {
+    if (r >= M) return {0.0f, 0.0f, 0.0f, 0.0f};
+    const float z = xzp != nullptr ? xzp[r] : 0.0f;
+    return {xs[r], z, xrs != nullptr ? xrs[r] : 0.0f, kf * z};
+  }
+  __device__ __forceinline__ Col col(int c) const {
+    if (c >= N) return {0.0f, 0.0f, 0.0f, 0.0f};
+    float b = 0.0f;
+    if (bias != nullptr)
+      b = (BIAS_AFTER_CAST && !F32_OUT)
+              ? __bfloat162float(__float2bfloat16_rn(bias[c])) : bias[c];
+    return {ws[c], wzp != nullptr ? wzp[c] : 0.0f,
+            wcs != nullptr ? wcs[c] : 0.0f, b};
+  }
+  __device__ __forceinline__ Out value(int acc, float, const Row& r,
+                                       const Col& c) const {
+    float o;
+    if constexpr (SYM_X) {
+      o = (static_cast<float>(acc) - c.wz * r.xr) * (r.xs * c.ws);
+    } else {
+      float v = static_cast<float>(acc) - r.xz * c.wcs;
+      v = v - c.wz * r.xr;
+      v = v + r.kx * c.wz;
+      o = v * r.xs * c.ws;
+    }
+    if constexpr (F32_OUT) {
+      return bias != nullptr ? o + c.b : o;
+    } else if constexpr (BIAS_AFTER_CAST) {
+      __nv_bfloat16 v = __float2bfloat16_rn(o);
+      if (bias != nullptr)
+        v = __float2bfloat16_rn(__bfloat162float(v) + c.b);
+      return v;
+    } else {
+      return __float2bfloat16_rn(bias != nullptr ? o + c.b : o);
+    }
+  }
+};
 
 // ---- the TMA + wgmma kernel ----------------------------------------------
 //

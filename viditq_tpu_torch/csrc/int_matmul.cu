@@ -151,58 +151,10 @@ __global__ void __launch_bounds__(DQ_THREADS)
   }
 }
 
-// The epilogue of int8_mma.cuh's kernels.
+// The epilogue of int8_mma.cuh's kernels: the core's ZpEpilogue (shared
+// with K2's zero-point modes), the bias rounded to the output type first.
 template <bool F32_OUT>
-struct int8_matmul_epilogue {
-  using Out = typename std::conditional<F32_OUT, float, __nv_bfloat16>::type;
-  static constexpr bool GW = false;
-  static constexpr int BN = 192;
-  struct alignas(16) Row {
-    float xs, xz, xr, kx;  // kx = (float)K * xz, the JAX order's product
-  };
-  const float* xs;
-  const float* xzp;
-  const float* xrs;
-  const float* ws;
-  const float* wzp;
-  const float* wcs;
-  const float* bias;
-  void* out;
-  int M, N;
-  float kf;  // the true K
-
-  __device__ __forceinline__ Row row(int r) const {
-    if (r >= M) return {0.0f, 0.0f, 0.0f, 0.0f};
-    return {xs[r], xzp[r], xrs[r], kf * xzp[r]};
-  }
-  // b: the bias as the add takes it (rounded to bf16 first for a bf16
-  // output); 0 without one (never added then)
-  struct alignas(16) Col {
-    float ws, wz, wcs, b;
-  };
-  __device__ __forceinline__ Col col(int c) const {
-    if (c >= N) return {0.0f, 0.0f, 0.0f, 0.0f};
-    float b = 0.0f;
-    if (bias != nullptr)
-      b = F32_OUT ? bias[c] : __bfloat162float(__float2bfloat16_rn(bias[c]));
-    return {ws[c], wzp[c], wcs[c], b};
-  }
-  __device__ __forceinline__ Out value(int acc, float, const Row& r,
-                                       const Col& col) const {
-    float c = static_cast<float>(acc) - r.xz * col.wcs;
-    c = c - col.wz * r.xr;
-    c = c + r.kx * col.wz;
-    const float o = c * r.xs * col.ws;
-    if constexpr (F32_OUT) {
-      return bias != nullptr ? o + col.b : o;
-    } else {
-      __nv_bfloat16 v = __float2bfloat16_rn(o);
-      if (bias != nullptr)
-        v = __float2bfloat16_rn(__bfloat162float(v) + col.b);
-      return v;
-    }
-  }
-};
+using int8_matmul_epilogue = vq::i8mma::ZpEpilogue<F32_OUT, true, false>;
 
 template <typename T>
 void launch_dyn_quant(const void* x, void* q, void* scale, void* zp,

@@ -33,15 +33,18 @@ _F = ctypes.c_float
 # C entry points and their argument types (every pointer and the stream
 # are c_void_p, every size an int)
 SIGNATURES = {
-    "vq_ln_mod_quant": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
-    "vq_quant_rows": [_P, _P, _P, _I, _I, _I, _P],
+    "vq_ln_mod_quant": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I,
+                        _P],
+    "vq_quant_rows": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "vq_int8_gemm": [_P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "vq_int8_gemm_zp": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                        _I, _P],
     "vq_group_quant": [_P, _P, _P, _I, _I, _I, _P],
     "vq_attention": [_P, _P, _P, _P, _I, _I, _P, _P, _I, _I, _I, _I, _I,
                      _I, _I, _F, _I, _P],
     "vq_attn_vquant": [_P, _P, _P, _I, _I, _I, _I, _P],
     "vq_attn_vquant_t": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "vq_attn_row_quant": [_P, _P, _P, _I, _I, _P],
+    "vq_attn_row_quant": [_P, _P, _P, _P, _P, _I, _I, _P],
     "vq_attention_stream": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                             _F, _I, _P],
     "vq_dyn_quant_rows": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],

@@ -7,14 +7,15 @@ dispatches as the JAX package does (attention.py:643):
     block-diagonal attention and for kv lengths M <= ONESHOT_MAX_M: an f32
     base-2 softmax over bf16-cast scores against the row's global max, a
     float PV or the int8 PV, and optionally its output row-quantized
-    across all heads for the proj linear (the attention's own formula);
+    across all heads for the proj linear (the attention's own formulas:
+    sym, or asym with zero point, and the code row sum on request);
   * K6, the kv-streaming kernel (`_attn_stream_kernel`, attention.py:
     236-368), for full or kv-masked attention with M > ONESHOT_MAX_M: an
     online softmax whose running max updates once per kv block of
     `stream_kv_block` rows, unnormalised `e` in v's dtype, a `corr`
     rescale of the accumulator, int8-PV codes rounded against the running
     max (C3), and emission through K4's row quantize of the q-dtype output
-    (attention.py:705-713).
+    (attention.py:705-713), sym or asym.
 
 On CPU tensors each runs its plain version (`attention_bnhd_plain`,
 `attention_bnhd_stream_plain`); on CUDA tensors it launches
@@ -39,7 +40,8 @@ import torch
 from viditq_tpu_torch.kernels import _build
 from viditq_tpu_torch.kernels._common import on_cuda, rdiv, require
 from viditq_tpu_torch.kernels._counters import COUNTERS, count_plain
-from viditq_tpu_torch.kernels.fused_matmul import quantize_rows
+from viditq_tpu_torch.kernels.fused_matmul import (quantize_rows,
+                                                   quantize_rows_f32)
 
 LOG2E = float(math.log2(math.e))
 KERNEL_HEAD_DIMS = (16, 72)  # instantiations in csrc/attention*.cu
@@ -142,18 +144,27 @@ def _v_codes_cuda(v3: torch.Tensor, heads: int, lib, stream):
     return vt, vs
 
 
-def _row_quant_emit(of: torch.Tensor):
-    """Emission row quantize, the attention site's form (attention.py:
-    218-221): smax = max(absmax, 1e-6), codes = round(o * (127/smax))."""
-    smax = torch.clamp(of.abs().amax(dim=-1, keepdim=True), min=1e-6)
-    codes = torch.clamp(torch.round(of * rdiv(127.0, smax)), -128, 127)
-    return codes.to(torch.int8), smax / 127.0
+def _row_quant_emit(of: torch.Tensor, emit_sym: bool = True,
+                    need_rowsum: bool = False):
+    """Emission row quantize, the attention site's forms (attention.py:
+    217-233): sym smax = max(absmax, 1e-6), codes = round(o * (127/smax)),
+    scale smax / 127; asym `_quantize_rows_f32`'s (inv = 1/scale). Returns
+    (codes, scales, zp | None, rowsum | None)."""
+    if emit_sym:
+        smax = torch.clamp(of.abs().amax(dim=-1, keepdim=True), min=1e-6)
+        codes = torch.clamp(torch.round(of * rdiv(127.0, smax)), -128, 127)
+        scale, zp = smax / 127.0, None
+    else:
+        codes, scale, zp = quantize_rows_f32(of, sym=False)
+    rowsum = codes.sum(dim=-1, keepdim=True) if need_rowsum else None
+    return codes.to(torch.int8), scale, zp, rowsum
 
 
 def attention_bnhd_plain(q, k, v, scale: float, seg_len: int = 0,
                          kv_mask: Optional[torch.Tensor] = None,
                          int8_pv: bool = False, v_block: Optional[int] = None,
-                         emit: bool = False):
+                         emit: bool = False, emit_sym: bool = True,
+                         need_rowsum: bool = False):
     count_plain("attention_bnhd", q)
     B, N, H, D = q.shape
     M = k.shape[1]
@@ -201,8 +212,7 @@ def attention_bnhd_plain(q, k, v, scale: float, seg_len: int = 0,
         else:
             o = torch.einsum("bhnm,bmhd->bnhd", p, vf)
     if emit:
-        codes, scales = _row_quant_emit(o.reshape(B, N, C))
-        return codes, scales
+        return _row_quant_emit(o.reshape(B, N, C), emit_sym, need_rowsum)
     return o.to(q.dtype)
 
 
@@ -254,10 +264,12 @@ def attention_bnhd_stream_plain(q, k, v, scale: float, bkv: int,
 def attention_bnhd_stream(q, k, v, scale: float,
                           kv_mask: Optional[torch.Tensor] = None,
                           int8_pv: bool = False, emit: bool = False,
-                          bkv: Optional[int] = None):
+                          bkv: Optional[int] = None, emit_sym: bool = True,
+                          need_rowsum: bool = False):
     """K6: kv-streaming attention for M > ONESHOT_MAX_M (see the module
     docstring). bkv defaults to `stream_kv_block`. With emit=True returns
-    (int8 codes [B, N, H*D], scales [B, N, 1]) from K4."""
+    (int8 codes [B, N, H*D], scales, zp | None, rowsum | None [B, N, 1])
+    from K4 (emit_sym, need_rowsum: its sym and need_rowsum)."""
     B, N, H, D = q.shape
     M = k.shape[1]
     C = H * D
@@ -270,8 +282,14 @@ def attention_bnhd_stream(q, k, v, scale: float,
         out = _attention_stream_cuda(q, k, v, scale, bkv, kv_mask, int8_pv)
     if not emit:
         return out
-    codes, scales = quantize_rows(out.reshape(B * N, C))
-    return codes.reshape(B, N, C), scales.reshape(B, N, 1)
+    return _bn1(B, N, *quantize_rows(out.reshape(B * N, C), sym=emit_sym,
+                                     need_rowsum=need_rowsum))
+
+
+def _bn1(B, N, codes, scales, zp, rowsum):
+    """Emission outputs from [B*N, .] rows to [B, N, .]."""
+    return tuple(None if t is None else t.reshape(B, N, -1)
+                 for t in (codes, scales, zp, rowsum))
 
 
 def _attention_stream_cuda(q, k, v, scale, bkv, kv_mask, int8_pv):
@@ -312,9 +330,14 @@ def attention_bnhd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    kv_mask: Optional[torch.Tensor] = None,
                    int8_pv: bool = False, v_block: Optional[int] = None,
                    emit: bool = False, int8_qk: bool = False,
-                   emit_sym: bool = True, col_scale=None):
+                   emit_sym: bool = True, need_rowsum: bool = False,
+                   col_scale=None):
     """Softmax attention over [B, N, H, D] -> [B, N, H, D] (q's dtype), or
-    with emit=True (int8 codes [B, N, H*D], scales [B, N, 1] f32).
+    with emit=True its output row-quantized for the proj linear, as JAX
+    `attention_bnhd_int8out` returns it: (int8 codes [B, N, H*D], scales,
+    zp | None, rowsum | None, each [B, N, 1] f32). emit_sym: sym codes, or
+    asym ones with their zero point; need_rowsum: the code row sum (asym
+    proj weights).
 
     seg_len > 0: block-diagonal attention in segments of seg_len tokens
     (k/v co-indexed with q). kv_mask [B, M] (1 = attend) masks kv tokens.
@@ -325,8 +348,6 @@ def attention_bnhd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     K6 (`attention_bnhd_stream`), as in the JAX package."""
     if int8_qk:
         raise NotImplementedError("int8_qk is not ported")
-    if not emit_sym:
-        raise NotImplementedError("asymmetric emission is not ported")
     if col_scale is not None:
         raise NotImplementedError("emission col_scale is not ported")
     B, N, H, D = q.shape
@@ -336,14 +357,17 @@ def attention_bnhd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             "seg mode needs k/v co-indexed with q and N % seg_len == 0")
     require(seg_len == 0 or kv_mask is None, "seg mode takes no kv_mask")
     if seg_len == 0 and M > ONESHOT_MAX_M:
-        return attention_bnhd_stream(q, k, v, scale, kv_mask, int8_pv, emit)
+        return attention_bnhd_stream(q, k, v, scale, kv_mask, int8_pv, emit,
+                                     emit_sym=emit_sym,
+                                     need_rowsum=need_rowsum)
     if seg_len > 0 and int8_pv:
         v_block = seg_v_block(N, seg_len) if v_block is None else v_block
         require(v_block % seg_len == 0 and N % v_block == 0,
                 f"v_block {v_block} must hold whole segments and divide N")
     if not on_cuda(q, k, v, kv_mask):
         return attention_bnhd_plain(q, k, v, scale, seg_len, kv_mask,
-                                    int8_pv, v_block, emit)
+                                    int8_pv, v_block, emit, emit_sym,
+                                    need_rowsum)
     require(q.dtype == k.dtype == v.dtype == torch.bfloat16,
             "the CUDA attention kernel takes bfloat16 q/k/v")
     require(D in KERNEL_HEAD_DIMS, f"head dim {D} not in {KERNEL_HEAD_DIMS}")
@@ -384,12 +408,17 @@ def attention_bnhd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     COUNTERS["attention_bnhd"].launches += 1
     if not emit:
         return out.reshape(B, N, H, D)
-    codes = torch.empty((B, N, C), dtype=torch.int8, device=q.device)
-    scales = torch.empty((B, N, 1), dtype=torch.float32, device=q.device)
+    rows = B * N
+    codes = torch.empty((rows, C), dtype=torch.int8, device=q.device)
+    scales = torch.empty((rows, 1), dtype=torch.float32, device=q.device)
+    zp = None if emit_sym else torch.empty_like(scales)
+    rowsum = torch.empty_like(scales) if need_rowsum else None
     _build.check(lib.vq_attn_row_quant(
-        out.data_ptr(), codes.data_ptr(), scales.data_ptr(), B * N, C,
-        stream), "vq_attn_row_quant")
-    return codes, scales
+        out.data_ptr(), codes.data_ptr(), scales.data_ptr(),
+        None if zp is None else zp.data_ptr(),
+        None if rowsum is None else rowsum.data_ptr(), rows, C, stream),
+        "vq_attn_row_quant")
+    return _bn1(B, N, codes, scales, zp, rowsum)
 
 
 # ---------------------------------------------------------------------------

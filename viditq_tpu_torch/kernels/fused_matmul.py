@@ -7,31 +7,34 @@ hand-written kernel from `viditq_tpu_torch/csrc` or raises. There is no
 fallback between the two.
 
   K1 `ln_modulate_quantize`   csrc/ln_mod_quant.cu
-  K2 `int8_consumer_matmul`   csrc/int8_gemm.cu (plain, gw_x, emit)
-  K4 `quantize_rows`          csrc/quant_rows.cu
+  K2 `int8_consumer_matmul`   csrc/int8_gemm.cu (plain, gw_x, emit, and the
+     zero-point-corrected epilogues of asymmetric acts or weights)
+  K4 `quantize_rows`          csrc/quant_rows.cu (optionally tanh-GELU first)
   K5 `fused_dynq_int8_matmul` served as a K4 launch then a K2 launch: it
      computes exactly what K4 followed by K2 computes (same row quantizer,
-     same sym x sym epilogue).
+     same epilogue).
 
-Only the symmetric-act x symmetric-weight modes are ported. The asym zero
-point terms, the residual/gate epilogue, the column scales and K4's GELU
-raise NotImplementedError.
+Both act quantizers are ported, symmetric and asymmetric (shifted-signed
+codes with a zero point and the code row sum), and both weight kinds. The
+residual/gate epilogue, the column scales, and zero points in K2's
+group-wise and emitting modes raise NotImplementedError.
 
 The three quantize forms stay as the JAX sites write them (C6):
-K1/K4/K5 `round(x * (1/s))` with `s = max(absmax/127, 1e-6)`; K2's emit
+K1/K4/K5 `round(x * (1/s))` with `s = max(absmax/127, 1e-6)` or, asym,
+`s = max((max(x, 0) - min(x, 0)) / 255, 1e-6)`; K2's emit
 `s = max(absmax * (1/127), 1e-6)`.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional
 
 import torch
 
 from viditq_tpu_torch.kernels import _build
-from viditq_tpu_torch.kernels._common import (exact_int_matmul, f32_flat,
-                                              is_bf16, on_cuda, rdiv,
-                                              require, require_k_major)
+from viditq_tpu_torch.kernels._common import (divc, exact_int_matmul,
+                                              f32_flat, is_bf16, on_cuda,
+                                              rdiv, require, require_k_major)
 from viditq_tpu_torch.kernels._counters import COUNTERS, count_plain
 
 _SQRT_2_OVER_PI = 0.7978845608028654
@@ -65,12 +68,31 @@ def select_block_k(k: int, block_k: int) -> int:
 # shared helpers
 # ---------------------------------------------------------------------------
 
-def quantize_rows_f32(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """`_quantize_rows_f32` (sym): float codes and [.., 1] scales."""
-    absmax = x.abs().amax(dim=-1, keepdim=True)
-    scale = torch.clamp(absmax / 127.0, min=1e-6)
-    q = torch.clamp(torch.round(x * rdiv(1.0, scale)), -128, 127)
-    return q, scale
+def quantize_rows_f32(x: torch.Tensor, sym: bool = True):
+    """`_quantize_rows_f32` (`fused_matmul.py:118-137`): float codes and
+    [.., 1] scales and zero points (None when sym). Asym codes are shifted
+    into signed int8: `zp = round(-min * (1/s)) - 128`."""
+    if sym:
+        absmax = x.abs().amax(dim=-1, keepdim=True)
+        scale = torch.clamp(absmax / 127.0, min=1e-6)
+        q = torch.clamp(torch.round(x * rdiv(1.0, scale)), -128, 127)
+        return q, scale, None
+    x_min = torch.clamp(x.amin(dim=-1, keepdim=True), max=0.0)
+    x_max = torch.clamp(x.amax(dim=-1, keepdim=True), min=0.0)
+    scale = torch.clamp(divc(x_max - x_min, 255.0), min=1e-6)
+    inv = rdiv(1.0, scale)
+    zp = torch.round(-x_min * inv) - 128.0
+    q = torch.clamp(torch.round(x * inv) + zp, -128, 127)
+    return q, scale, zp
+
+
+def _row_outputs(q, scale, zp, need_rowsum: bool):
+    """(int8 codes, scale, zp | None, rowsum | None) as the JAX producers
+    return them: the code row sum (exact in f32) for asym codes or when
+    asked for (sym acts feeding asym weights)."""
+    rowsum = (q.sum(dim=-1, keepdim=True)
+              if zp is not None or need_rowsum else None)
+    return q.to(torch.int8), scale, zp, rowsum
 
 
 def gelu_tanh(o: torch.Tensor) -> torch.Tensor:
@@ -79,14 +101,18 @@ def gelu_tanh(o: torch.Tensor) -> torch.Tensor:
         _SQRT_2_OVER_PI * (o + 0.044715 * (o * o * o))))
 
 
-def _sym_only(sym: bool = True, sym_w: bool = True, **unsupported):
-    if not sym:
-        raise NotImplementedError("asymmetric activation codes are not ported")
-    if not sym_w:
-        raise NotImplementedError("asymmetric weight codes are not ported")
-    for name, val in unsupported.items():
+def _unsupported(**modes):
+    for name, val in modes.items():
         if val is not None and val is not False:
             raise NotImplementedError(f"{name} is not ported")
+
+
+def _out_ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def _f32_col(n: int, device):
+    return torch.empty((n, 1), dtype=torch.float32, device=device)
 
 
 # ---------------------------------------------------------------------------
@@ -94,7 +120,8 @@ def _sym_only(sym: bool = True, sym_w: bool = True, **unsupported):
 # ---------------------------------------------------------------------------
 
 def ln_modulate_quantize_plain(x: torch.Tensor, shift: torch.Tensor,
-                               scale: torch.Tensor, eps: float = 1e-6):
+                               scale: torch.Tensor, sym: bool = True,
+                               need_rowsum: bool = False, eps: float = 1e-6):
     count_plain("ln_modulate_quantize", x)
     B, N, C = x.shape
     xf = x.float()
@@ -104,20 +131,23 @@ def ln_modulate_quantize_plain(x: torch.Tensor, shift: torch.Tensor,
     y = xc * torch.rsqrt(var + eps)
     y = (y * (1.0 + scale.float().reshape(B, 1, C))
          + shift.float().reshape(B, 1, C))
-    q, s = quantize_rows_f32(y)
-    return q.reshape(B * N, C).to(torch.int8), s.reshape(B * N, 1)
+    q, s, zp = quantize_rows_f32(y.reshape(B * N, C), sym)
+    return _row_outputs(q, s, zp, need_rowsum)
 
 
 def ln_modulate_quantize(x: torch.Tensor, shift: torch.Tensor,
                          scale: torch.Tensor, sym: bool = True,
-                         eps: float = 1e-6):
-    """[B, N, C] -> (int8 codes [B*N, C], scales [B*N, 1] f32).
+                         need_rowsum: bool = False, eps: float = 1e-6):
+    """[B, N, C] -> (int8 codes [B*N, C], scales, zp | None, rowsum | None),
+    each [B*N, 1] f32.
 
     shift/scale: [B, 1, C] per-batch adaLN vectors. Non-affine LN, eps
-    1e-6, then `y*(1+scale)+shift`, then the sym row quantize."""
-    _sym_only(sym=sym)
+    1e-6, then `y*(1+scale)+shift`, then the row quantize (sym, or asym
+    with its zero point). The code row sum comes with asym codes, or with
+    sym ones when need_rowsum (asym consumer weights)."""
     if not on_cuda(x, shift, scale):
-        return ln_modulate_quantize_plain(x, shift, scale, eps)
+        return ln_modulate_quantize_plain(x, shift, scale, sym, need_rowsum,
+                                          eps)
     B, N, C = x.shape
     shift = shift.reshape(B, 1, C).contiguous()
     scale = scale.reshape(B, 1, C).contiguous()
@@ -125,40 +155,51 @@ def ln_modulate_quantize(x: torch.Tensor, shift: torch.Tensor,
     require(shift.dtype == x.dtype and scale.dtype == x.dtype,
             "shift/scale must have x's dtype")
     q = torch.empty((B * N, C), dtype=torch.int8, device=x.device)
-    qs = torch.empty((B * N, 1), dtype=torch.float32, device=x.device)
+    qs = _f32_col(B * N, x.device)
+    zp = None if sym else _f32_col(B * N, x.device)
+    rs = _f32_col(B * N, x.device) if not sym or need_rowsum else None
     _build.check(_build.lib().vq_ln_mod_quant(
         x.data_ptr(), shift.data_ptr(), scale.data_ptr(), q.data_ptr(),
-        qs.data_ptr(), B, N, C, float(eps), is_bf16(x),
-        _build.stream_ptr(x)), "vq_ln_mod_quant")
+        qs.data_ptr(), _out_ptr(zp), _out_ptr(rs), B, N, C, float(eps),
+        is_bf16(x), _build.stream_ptr(x)), "vq_ln_mod_quant")
     COUNTERS["ln_modulate_quantize"].launches += 1
-    return q, qs
+    return q, qs, zp, rs
 
 
 # ---------------------------------------------------------------------------
-# K4: row quantize
+# K4: (tanh-GELU then) row quantize
 # ---------------------------------------------------------------------------
 
-def quantize_rows_plain(x: torch.Tensor):
+def quantize_rows_plain(x: torch.Tensor, sym: bool = True, gelu: bool = False,
+                        need_rowsum: bool = False):
     count_plain("quantize_rows", x)
-    q, s = quantize_rows_f32(x.float())
-    return q.to(torch.int8), s
+    xf = x.float()
+    if gelu:
+        xf = gelu_tanh(xf)
+    return _row_outputs(*quantize_rows_f32(xf, sym), need_rowsum)
 
 
 def quantize_rows(x: torch.Tensor, sym: bool = True, gelu: bool = False,
+                  need_rowsum: bool = False,
                   col_scale: Optional[torch.Tensor] = None):
-    """[M, K] -> (int8 codes [M, K], scales [M, 1] f32)."""
-    _sym_only(sym=sym, gelu=gelu, col_scale=col_scale)
+    """[M, K] -> (int8 codes [M, K], scales, zp | None, rowsum | None), each
+    [M, 1] f32, as `quantize_rows_fused` returns them (`fused_matmul.py:
+    651-653`). gelu: tanh-GELU of the f32 value first (the fc1 -> fc2
+    handoff). The row sum comes with asym codes, or when need_rowsum."""
+    _unsupported(col_scale=col_scale)
     if not on_cuda(x):
-        return quantize_rows_plain(x)
+        return quantize_rows_plain(x, sym, gelu, need_rowsum)
     require(x.dim() == 2 and x.is_contiguous(), "x must be contiguous [M, K]")
     M, K = x.shape
     q = torch.empty((M, K), dtype=torch.int8, device=x.device)
-    qs = torch.empty((M, 1), dtype=torch.float32, device=x.device)
+    qs = _f32_col(M, x.device)
+    zp = None if sym else _f32_col(M, x.device)
+    rs = _f32_col(M, x.device) if not sym or need_rowsum else None
     _build.check(_build.lib().vq_quant_rows(
-        x.data_ptr(), q.data_ptr(), qs.data_ptr(), M, K, is_bf16(x),
-        _build.stream_ptr(x)), "vq_quant_rows")
+        x.data_ptr(), q.data_ptr(), qs.data_ptr(), _out_ptr(zp), _out_ptr(rs),
+        M, K, int(gelu), is_bf16(x), _build.stream_ptr(x)), "vq_quant_rows")
     COUNTERS["quantize_rows"].launches += 1
-    return q, qs
+    return q, qs, zp, rs
 
 
 # ---------------------------------------------------------------------------
@@ -174,10 +215,44 @@ def emit_groups(n: int, k: int) -> int:
     return bn
 
 
+def _zp_epilogue(acc, M, N, K, xs, ws, x_zp, x_rowsum, w_zp, w_colsum):
+    """The zero-point-corrected epilogues of `_consumer_kernel`
+    (`fused_matmul.py:356-362`) in f32 and in its operation order:
+    sym acts x asym weights `(acc - wzp*xrs) * (xs*ws)`; asym acts
+    `((acc - xzp*wcs - wzp*xrs + (K*xzp)*wzp) * xs) * ws`, with a missing
+    weight zero point or act row sum read as zeros, as the JAX wrapper
+    fills them (`:467-477`)."""
+    wz = (torch.zeros((1, N), device=acc.device) if w_zp is None
+          else w_zp.reshape(1, N).float())
+    xr = (torch.zeros((M, 1), device=acc.device) if x_rowsum is None
+          else x_rowsum.reshape(M, 1).float())
+    if x_zp is None:
+        return (acc - wz * xr) * (xs * ws)
+    xz = x_zp.reshape(M, 1).float()
+    corrected = (acc - xz * w_colsum.reshape(1, N).float() - wz * xr
+                 + (float(K) * xz) * wz)
+    return corrected * xs * ws
+
+
+def _check_zero_points(x_zp, x_rowsum, w_zp, w_colsum, group_scales, emit):
+    """The JAX wrapper's preconditions (`fused_matmul.py:437-454`)."""
+    if x_zp is None and w_zp is None:
+        return
+    require(not group_scales, "group-wise x_scale requires sym x sym")
+    _unsupported(**{"emission with zero points": emit is not None})
+    require(x_zp is not None or x_rowsum is not None,
+            "sym acts on asym weights need x_rowsum for the w_zp term")
+    require(x_zp is None or w_colsum is not None,
+            "asym acts require w_colsum")
+
+
 def int8_consumer_matmul_plain(x_q, x_scale, w_q, w_scale, bias=None,
                                out_dtype=torch.bfloat16,
-                               group_scales: bool = False, emit=None):
+                               group_scales: bool = False, emit=None,
+                               x_zp=None, x_rowsum=None, w_zp=None,
+                               w_colsum=None):
     count_plain("int8_consumer_matmul", x_q)
+    _check_zero_points(x_zp, x_rowsum, w_zp, w_colsum, group_scales, emit)
     M, K = x_q.shape
     N = w_q.shape[1]
     ws = w_scale.reshape(1, N).float()
@@ -192,7 +267,12 @@ def int8_consumer_matmul_plain(x_q, x_scale, w_q, w_scale, bias=None,
         out = out * ws
     else:
         acc = exact_int_matmul(x_q, w_q).float()
-        out = acc * (x_scale.reshape(M, 1).float() * ws)
+        xs = x_scale.reshape(M, 1).float()
+        if x_zp is None and w_zp is None:
+            out = acc * (xs * ws)
+        else:
+            out = _zp_epilogue(acc, M, N, K, xs, ws, x_zp, x_rowsum, w_zp,
+                               w_colsum)
     if bias is not None:
         out = out + bias.reshape(1, N).float()
     if emit is None:
@@ -213,7 +293,11 @@ def int8_consumer_matmul(x_q: torch.Tensor, x_scale: torch.Tensor,
                          out_dtype=torch.bfloat16,
                          group_scales: bool = False,
                          emit: Optional[dict] = None,
-                         x_zp=None, w_zp=None, residual=None, gate=None):
+                         x_zp: Optional[torch.Tensor] = None,
+                         x_rowsum: Optional[torch.Tensor] = None,
+                         w_zp: Optional[torch.Tensor] = None,
+                         w_colsum: Optional[torch.Tensor] = None,
+                         residual=None, gate=None):
     """x_q [M, K] int8 with per-row scales [M, 1] (or, with group_scales,
     one scale per row and k-group [M, G], as K2's emission writes them);
     w_q [K, N] int8 with per-column scales. Returns [M, N] out_dtype.
@@ -221,15 +305,29 @@ def int8_consumer_matmul(x_q: torch.Tensor, x_scale: torch.Tensor,
     On the card w_q must be K-major (`_common.k_major`, QuantLinear's
     `w_int`); the plain version takes either layout.
 
+    Zero points, as in the JAX wrapper (`fused_matmul.py:394-407`): x_zp
+    [M, 1] marks asym acts (then w_colsum [1, N] is needed), w_zp [1, N]
+    asym weights (then, with sym acts, x_rowsum [M, 1]); either selects
+    the zero-point-corrected epilogue, bf16 or f32 out, bias added in f32
+    before the cast. Group-wise scales and the emission take sym x sym.
+
     emit {'gelu': bool}: instead of the output, apply tanh-GELU and
     quantize each row per group of `emit_groups(N, K)` columns; returns
     (codes [M, N] int8, scales [M, G] f32). The TPU kernel's lane-padded
     [M, G*128] scale layout is not kept: the port stores [M, G]."""
-    _sym_only(x_zp=x_zp, w_zp=w_zp, residual=residual, gate=gate,
-              col_scale=(emit or {}).get("col_scale"))
-    if not on_cuda(x_q, x_scale, w_q, w_scale, bias):
+    _unsupported(residual=residual, gate=gate,
+                 col_scale=(emit or {}).get("col_scale"))
+    tables = (x_zp, x_rowsum, w_zp, w_colsum)
+    if not on_cuda(x_q, x_scale, w_q, w_scale, bias, *tables):
         return int8_consumer_matmul_plain(x_q, x_scale, w_q, w_scale, bias,
-                                          out_dtype, group_scales, emit)
+                                          out_dtype, group_scales, emit,
+                                          *tables)
+    _check_zero_points(*tables, group_scales, emit)
+    if x_zp is not None or w_zp is not None:
+        out = k2_gemm_zp(x_q, x_scale, w_q, w_scale, bias, out_dtype,
+                         *tables)
+        COUNTERS["int8_consumer_matmul"].launches += 1
+        return out
     if emit is None:
         require(out_dtype in (torch.bfloat16, torch.float32),
                 f"unsupported out_dtype {out_dtype}")
@@ -242,10 +340,7 @@ def int8_consumer_matmul(x_q: torch.Tensor, x_scale: torch.Tensor,
     return out if emit is None else group_quant(out, bn)
 
 
-def k2_gemm(x_q, x_scale, w_q, w_scale, bias, group_scales: bool,
-            kind: int) -> torch.Tensor:
-    """The GEMM launch of K2 on CUDA tensors (no count): kind 0 bf16 out, 1
-    f32 out, 2 f32 tanh-GELU out (the emission's scratch)."""
+def _require_gemm_operands(x_q, w_q):
     M, K = x_q.shape
     K2, N = w_q.shape
     require(K == K2, f"K mismatch {K} != {K2}")
@@ -253,14 +348,48 @@ def k2_gemm(x_q, x_scale, w_q, w_scale, bias, group_scales: bool,
             "x_q and w_q must be int8")
     require_k_major(w_q)
     require(x_q.is_contiguous(), "x_q must be contiguous")
+    require(K % 64 == 0 and N % 16 == 0,
+            f"kernel needs K % 64 == 0 and N % 16 == 0 (K={K}, N={N})")
+    require(x_q.data_ptr() % 16 == 0 and w_q.data_ptr() % 16 == 0,
+            "x_q and w_q must be 16-byte aligned")
+    return M, K, N
+
+
+def k2_gemm_zp(x_q, x_scale, w_q, w_scale, bias, out_dtype, x_zp, x_rowsum,
+               w_zp, w_colsum) -> torch.Tensor:
+    """The launch of K2's zero-point-corrected epilogue on CUDA tensors (no
+    count); a missing table is a null pointer the kernel reads as zeros."""
+    M, K, N = _require_gemm_operands(x_q, w_q)
+    require(out_dtype in (torch.bfloat16, torch.float32),
+            f"unsupported out_dtype {out_dtype}")
+    rows = [f32_flat(t) if t is not None else None
+            for t in (x_scale, x_zp, x_rowsum)]
+    cols = [f32_flat(t) if t is not None else None
+            for t in (w_scale, w_zp, w_colsum, bias)]
+    for name, t, n in zip(("x_scale", "x_zp", "x_rowsum"), rows, (M,) * 3):
+        require(t is None or t.numel() == n, f"{name} must have {n} elements")
+    for name, t in zip(("w_scale", "w_zp", "w_colsum", "bias"), cols):
+        require(t is None or t.numel() == N, f"{name} must have {N} elements")
+    lib = _build.lib()
+    out = torch.empty((M, N), dtype=out_dtype, device=x_q.device)
+    _build.check(lib.vq_int8_gemm_zp(
+        x_q.data_ptr(), w_q.data_ptr(), *(_out_ptr(t) for t in rows),
+        *(_out_ptr(t) for t in cols), out.data_ptr(), M, N, K,
+        int(out_dtype == torch.float32), _build.stream_ptr(x_q)),
+        "vq_int8_gemm_zp")
+    return out
+
+
+def k2_gemm(x_q, x_scale, w_q, w_scale, bias, group_scales: bool,
+            kind: int) -> torch.Tensor:
+    """The GEMM launch of K2 on CUDA tensors (no count): kind 0 bf16 out, 1
+    f32 out, 2 f32 tanh-GELU out (the emission's scratch)."""
+    M, K, N = _require_gemm_operands(x_q, w_q)
     G = x_scale.shape[1] if group_scales else 1
     require(x_scale.shape == (M, G) and x_scale.dtype == torch.float32,
             f"x_scale must be float32 [{M}, {G}]")
-    require(K % 64 == 0 and (K // G) % 64 == 0 and N % 16 == 0,
-            f"kernel needs K % 64 == 0, (K/G) % 64 == 0, N % 16 == 0 "
-            f"(K={K}, G={G}, N={N})")
-    require(x_q.data_ptr() % 16 == 0 and w_q.data_ptr() % 16 == 0,
-            "x_q and w_q must be 16-byte aligned")
+    require((K // G) % 64 == 0,
+            f"kernel needs (K/G) % 64 == 0 (K={K}, G={G})")
     require(w_scale.numel() == N and (bias is None or bias.numel() == N),
             "w_scale and bias must have N elements")
     lib = _build.lib()
@@ -294,26 +423,40 @@ def group_quant(y: torch.Tensor, bn: int):
 # ---------------------------------------------------------------------------
 
 def fused_dynq_int8_matmul_plain(x, w_q, w_scale, bias=None,
-                                 out_dtype=torch.bfloat16):
+                                 out_dtype=torch.bfloat16, sym: bool = True,
+                                 sym_w: bool = True, w_zp=None,
+                                 w_colsum=None):
     count_plain("fused_dynq_int8_matmul", x)
-    q, s = quantize_rows_plain(x)
-    return int8_consumer_matmul_plain(q, s, w_q, w_scale, bias, out_dtype)
+    q, s, zp, rs = quantize_rows_plain(x, sym,
+                                       need_rowsum=not (sym and sym_w))
+    return int8_consumer_matmul_plain(q, s, w_q, w_scale, bias, out_dtype,
+                                      x_zp=zp, x_rowsum=rs,
+                                      w_zp=None if sym_w else w_zp,
+                                      w_colsum=w_colsum)
 
 
 def fused_dynq_int8_matmul(x: torch.Tensor, w_q: torch.Tensor,
                            w_scale: torch.Tensor,
                            bias: Optional[torch.Tensor] = None,
                            out_dtype=torch.bfloat16, sym: bool = True,
-                           sym_w: bool = True, residual=None, gate=None,
+                           sym_w: bool = True,
+                           w_zp: Optional[torch.Tensor] = None,
+                           w_colsum: Optional[torch.Tensor] = None,
+                           residual=None, gate=None,
                            col_scale=None) -> torch.Tensor:
-    """x [M, K] float -> [M, N]: quantize rows (K4), then the int8 matmul
-    with the dequant epilogue and bias (K2). The TPU kernel does both in
-    one pass (`fused_matmul.py:144-309`); a single-pass Hopper kernel is
-    later work."""
-    _sym_only(sym=sym, sym_w=sym_w, residual=residual, gate=gate,
-              col_scale=col_scale)
-    q, s = quantize_rows(x)
-    out = int8_consumer_matmul(q, s, w_q, w_scale, bias, out_dtype)
+    """x [M, K] float -> [M, N]: quantize rows (K4; the code row sum too
+    unless sym and sym_w, `fused_matmul.py:174-175`), then the int8 matmul
+    with the dequant epilogue and bias (K2). sym/sym_w flag act/weight
+    symmetry as in the JAX kernel; asym weights take w_zp [1, N] (the
+    shifted zero point), asym acts w_colsum [1, N]. The TPU kernel does
+    both in one pass (`fused_matmul.py:144-309`); a single-pass Hopper
+    kernel is later work."""
+    _unsupported(residual=residual, gate=gate, col_scale=col_scale)
+    require(sym_w or w_zp is not None, "asym weights need w_zp")
+    q, s, zp, rs = quantize_rows(x, sym, need_rowsum=not (sym and sym_w))
+    out = int8_consumer_matmul(q, s, w_q, w_scale, bias, out_dtype, x_zp=zp,
+                               x_rowsum=rs, w_zp=None if sym_w else w_zp,
+                               w_colsum=w_colsum)
     if x.is_cuda:
         COUNTERS["fused_dynq_int8_matmul"].launches += 1
     return out

@@ -205,8 +205,9 @@ def quantized_linear_native(x: torch.Tensor, packed: dict,
     if impl == "fused":
         out = fused_dynq_int8_matmul(x2, packed["w_q"], packed["w_scale"],
                                      bias, out_dtype, sym=act_sym,
-                                     sym_w=w_sym, residual=residual,
-                                     gate=gate)
+                                     sym_w=w_sym, w_zp=packed["w_zp"],
+                                     w_colsum=packed["w_colsum"],
+                                     residual=residual, gate=gate)
         return out.reshape(*lead, -1)
     x_q, xs, xzp, xrs = dynamic_quant_rows(x2, sym=act_sym)
     out = int8_matmul(x_q, packed["w_q"], xs, xzp, xrs, packed["w_scale"],

@@ -7,8 +7,9 @@ same plan files and layer lists apply. The attention layers keep the
 layout-native dataflow of the JAX kernel path: q/k/v stay [B, N, H, D] and
 go to `attention_bnhd` (K3); under a fused plan the input quantize runs
 once in a producer (K1 or K4) and the attention emits int8 for its proj
-(K2); on the native backend's other impls q/k/v share one K7a pass, each
-runs K7b, and the attention output goes to its proj in bf16. The port has
+(K2), sym or asym as the proj's act spec says; on the native backend's
+other impls q/k/v share one K7a pass, each runs K7b, and the attention
+output goes to its proj in bf16. The port has
 this one dataflow per impl; the JAX package's CPU fallbacks and
 the TPU-only shape gates have no counterpart. PixArt-Σ's KV-compressed
 self-attention keeps the JAX package's `sdpa` route: PyTorch's
@@ -29,7 +30,8 @@ from torch import nn
 
 from viditq_tpu_torch.kernels.attention import attention_bnhd, seg_v_block
 from viditq_tpu_torch.kernels.fused_matmul import (emission_block_n,
-                                                   ln_modulate_quantize)
+                                                   ln_modulate_quantize,
+                                                   quantize_rows)
 from viditq_tpu_torch.quant import core as qcore
 from viditq_tpu_torch.quant.qlinear import (Prequant, QuantCtx, QuantLinear,
                                             is_fused_dynamic,
@@ -118,7 +120,8 @@ def _exec_flags(spec, qctx):
 def ln_mod_prequant(resolver: Resolver, prefix: str, inp, shift, scale,
                     spec_names, qctx) -> Optional[Prequant]:
     """Fused LN + adaLN modulate + row quantize producer (layers.py:310-359):
-    one K1 pass emits the int8 codes every consumer linear of `spec_names`
+    one K1 pass emits the int8 codes (and, for asym acts or weights, the
+    zero points and code row sums) every consumer linear of `spec_names`
     takes. None when the consumers are not one fused-dynamic spec."""
     specs = [resolver(f"{prefix}.{n}") for n in spec_names]
     s0 = specs[0]
@@ -131,8 +134,9 @@ def ln_mod_prequant(resolver: Resolver, prefix: str, inp, shift, scale,
         raise NotImplementedError("smooth-quant producer fold")
     if qctx is None or qctx.mode != "quant":
         return None
-    q, s = ln_modulate_quantize(inp, shift, scale, sym=s0.act.sym)
-    return Prequant(q, s)
+    return Prequant(*ln_modulate_quantize(
+        inp, shift, scale, sym=s0.act.sym,
+        need_rowsum=not (s0.weight is not None and s0.weight.sym)))
 
 
 def attn_emit_int8_ok(pspec, qctx) -> bool:
@@ -147,10 +151,22 @@ def attn_emit_int8_ok(pspec, qctx) -> bool:
                 or pspec.smooth_quant.enable or pspec.split)
 
 
+def emitted_prequant(emitted, C: int) -> Prequant:
+    """The attention's emission (codes [B, N, C], scales, zp | None,
+    rowsum | None [B, N, 1]) as its proj's `Prequant` over B*N rows."""
+    codes, *rows = emitted
+    return Prequant(codes.reshape(-1, C),
+                    *(None if t is None else t.reshape(-1, 1) for t in rows))
+
+
 class Mlp(nn.Module):
-    """fc1 -> tanh-GELU -> fc2 (layers.py:76-168). Under a fused sym plan
-    with a producer prequant, fc1's epilogue applies the GELU and emits
-    int8 codes with group-wise scales that fc2 consumes (K2 emit, K2 gw_x)."""
+    """fc1 -> tanh-GELU -> fc2 (layers.py:76-168). Under a fused plan the
+    handoff stays int8: with a producer prequant and sym acts x sym weights
+    at fc2, fc1's epilogue applies the GELU and emits int8 codes with
+    group-wise scales that fc2 consumes (K2 emit, K2 gw_x); otherwise fc1
+    writes its output in the model dtype and one K4 pass applies the GELU
+    and quantizes it per fc2's act spec (sym or asym, with the code row
+    sum for asym weights), and fc2 consumes that prequant (K2)."""
 
     def __init__(self, in_features: int, hidden_features: int,
                  resolver: Resolver = no_quant, prefix: str = "",
@@ -173,12 +189,14 @@ class Mlp(nn.Module):
                      and spec2.weight.sym and is_fused_dynamic(spec1)
                      and not spec1.split and spec1.act.n_bits == 8
                      and emission_block_n(self.hidden_features) > 0)
-            if not emit1:
-                raise NotImplementedError(
-                    "the fc1 -> fc2 handoff without fc1 emission needs "
-                    "K4's gelu mode, which is not ported")
-            pre = self.fc1(None, qctx, prequant=prequant,
-                           emit={"gelu": True})
+            if emit1:
+                pre = self.fc1(None, qctx, prequant=prequant,
+                               emit={"gelu": True})
+            else:
+                h = self.fc1(x, qctx, prequant=prequant)
+                pre = Prequant(*quantize_rows(
+                    h.reshape(-1, self.hidden_features), sym=spec2.act.sym,
+                    gelu=True, need_rowsum=not spec2.weight.sym))
             return self.fc2(None, qctx, prequant=pre)
         x = approx_gelu(self.fc1(x, qctx, prequant=prequant))
         return self.fc2(x, qctx)
@@ -219,12 +237,12 @@ class SelfAttention(nn.Module):
         v_block = (seg_v_block(N, self.seg_len)
                    if int8_pv and self.seg_len > 0 else None)
         if attn_emit_int8_ok(self.pspec, qctx):
-            codes, xs = attention_bnhd(
-                q, k, v, scale=D ** -0.5, seg_len=self.seg_len,
-                int8_qk=int8_qk, int8_pv=int8_pv, v_block=v_block, emit=True,
-                emit_sym=self.pspec.act.sym)
-            out = self.proj(None, qctx, prequant=Prequant(
-                codes.reshape(-1, C), xs.reshape(-1, 1)))
+            out = self.proj(None, qctx, prequant=emitted_prequant(
+                attention_bnhd(
+                    q, k, v, scale=D ** -0.5, seg_len=self.seg_len,
+                    int8_qk=int8_qk, int8_pv=int8_pv, v_block=v_block,
+                    emit=True, emit_sym=self.pspec.act.sym,
+                    need_rowsum=not self.pspec.weight.sym), C))
             return out.reshape(B, N, C)
         out = attention_bnhd(q, k, v, scale=D ** -0.5, seg_len=self.seg_len,
                              int8_qk=int8_qk, int8_pv=int8_pv,
@@ -373,11 +391,11 @@ class CrossAttention(nn.Module):
         args = (q.reshape(B, N, H, D), k.reshape(B, P, H, D),
                 v.reshape(B, P, H, D))
         if attn_emit_int8_ok(self.pspec, qctx):
-            codes, xs = attention_bnhd(
-                *args, scale=D ** -0.5, kv_mask=kv_mask, int8_qk=int8_qk,
-                int8_pv=int8_pv, emit=True, emit_sym=self.pspec.act.sym)
-            out = self.proj(None, qctx, prequant=Prequant(
-                codes.reshape(-1, C), xs.reshape(-1, 1)))
+            out = self.proj(None, qctx, prequant=emitted_prequant(
+                attention_bnhd(
+                    *args, scale=D ** -0.5, kv_mask=kv_mask, int8_qk=int8_qk,
+                    int8_pv=int8_pv, emit=True, emit_sym=self.pspec.act.sym,
+                    need_rowsum=not self.pspec.weight.sym), C))
             return out.reshape(B, N, C)
         out = attention_bnhd(*args, scale=D ** -0.5, kv_mask=kv_mask,
                              int8_qk=int8_qk, int8_pv=int8_pv)

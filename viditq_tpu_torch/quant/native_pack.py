@@ -1,9 +1,9 @@
 """Offline packing into the native int8 layout (port of
 `pack_native_weights`, `viditq_tpu/quant/native_pack.py:80-286`).
 
-Fills each quantized `QuantLinear`'s `w_int` [1, K, N] int8 slab and its
-`w_colsum` [1, 1, N] in place from the fp kernel and the calibrated
-`w_delta`/`w_zp`. Same code formula as the JAX package (`round(w / d)`,
+Fills each quantized `QuantLinear`'s `w_int` [1, K, N] int8 slab, its
+`w_colsum` [1, 1, N] and the codes' zero points `w_zp_int` from the fp
+kernel and the calibrated `w_delta`/`w_zp`. Same code formula as the JAX package (`round(w / d)`,
 clipped): symmetric codes are signed with zero point 0; asymmetric codes
 are shifted into signed int8. Timerange slabs, mixed precision and int4
 packing are not ported.
@@ -35,4 +35,5 @@ def pack_native_weights(model: nn.Module) -> nn.Module:
                                float(2 ** wspec.n_bits) - 1) - shift
         mod.w_int.copy_(code.to(torch.int8)[None])
         mod.w_colsum.copy_(code.sum(dim=0, keepdim=True)[None])
+        mod.refresh_w_zp_int()
     return model

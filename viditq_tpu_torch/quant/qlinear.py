@@ -5,15 +5,17 @@ the plan quantizes, the calibrated tables as buffers: `w_delta`/`w_zp`
 [n_bitwidth, n_timerange, 1, N] and the packed `w_int` [n_timerange, K, N]
 int8 slab with `w_colsum` [n_timerange, 1, N] (qlinear.py:412-421,
 584-591). `w_int` is stored K-major ([n_timerange, N, K] in memory), the
-layout the int8 GEMM kernels read. It runs three paths:
+layout the int8 GEMM kernels read. `w_zp_int` [1, N], not saved, is the
+zero point of the `w_int` codes as the epilogues take them; the packing
+and `load_state_dict` write it beside the slab. It runs three paths:
 
   * fp (no spec, an fp-listed layer, `qctx is None` or mode 'fp'):
     `x @ kernel + bias` in the model dtype;
-  * native fused (mode 'quant', impl 'fused'): symmetric dynamic
-    per-token int8 acts x per-channel int8 weights through the fused
-    kernels — with a `Prequant` input from a producer kernel, the int8
-    consumer matmul (K2, optionally emitting int8 for the next layer);
-    otherwise the quantize-in matmul (K5);
+  * native fused (mode 'quant', impl 'fused'): sym or asym dynamic
+    per-token int8 acts x sym or asym per-channel int8 weights through the
+    fused kernels — with a `Prequant` input from a producer kernel, the int8
+    consumer matmul (K2, optionally emitting int8 for the next layer when
+    sym x sym); otherwise the quantize-in matmul (K5);
   * native (mode 'quant', any other impl): sym or asym dynamic per-token
     int8 acts x sym or asym per-channel int8 weights — with a `Prequant`
     input from `shared_prequant` (K7a), the int8 matmul with the
@@ -61,15 +63,16 @@ class QuantCtx:
 class Prequant(NamedTuple):
     """An input quantized once by a producer kernel: int8 codes [M, K] and
     float32 scales, one per row ([M, 1]) or, from K2's emission, one per
-    row and k-group ([M, G], group_wise=True). From K7a also the per-row
-    zero points and code sums [M, 1] (None from the symmetric fused
-    producers)."""
+    row and k-group ([M, G], group_wise=True); with asym codes the per-row
+    zero points, and the per-row code sums where a consumer needs them
+    (asym acts or asym weights), [M, 1] f32, else None. The field order
+    is the producers' return order (K1, K4, K7a, the attention emission)."""
 
     codes: torch.Tensor
     scale: torch.Tensor
-    group_wise: bool = False
     zp: Optional[torch.Tensor] = None
     rowsum: Optional[torch.Tensor] = None
+    group_wise: bool = False
 
 
 def is_quantized(lspec: Optional[LayerQuantSpec]) -> bool:
@@ -108,18 +111,22 @@ def _check_ported(lspec: LayerQuantSpec) -> None:
 def shared_prequant(x: torch.Tensor, lspec: Optional[LayerQuantSpec]
                     ) -> Optional[Prequant]:
     """Quantize an input ONCE for sibling native linears (q/k/v share their
-    input; qlinear.py:79-110): K4 under impl 'fused', K7a otherwise. None
-    when the spec is not one shared pass (not the native dynamic-act
-    backend, or smooth quant, whose per-layer rescale precedes the
-    quantize)."""
+    input; qlinear.py:79-110): K4 under impl 'fused' (the code row sum
+    too where the weights are asym), K7a otherwise. None when the spec is
+    not one shared pass (not the native dynamic-act backend, or smooth
+    quant, whose per-layer rescale precedes the quantize)."""
     if not is_native_dynamic(lspec) or lspec.smooth_quant.enable:
         return None
     _check_ported(lspec)
     x2 = x.reshape(-1, x.shape[-1])
     if lspec.impl == "fused":
-        return Prequant(*quantize_rows(x2, sym=lspec.act.sym))
-    q, s, zp, rowsum = dynamic_quant_rows(x2.contiguous(), sym=lspec.act.sym)
-    return Prequant(q, s, zp=zp, rowsum=rowsum)
+        return Prequant(*quantize_rows(x2, sym=lspec.act.sym,
+                                       need_rowsum=not lspec.weight.sym))
+    return Prequant(*dynamic_quant_rows(x2.contiguous(), sym=lspec.act.sym))
+
+
+def _refresh_after_load(mod: "QuantLinear", _incompatible_keys) -> None:
+    mod.refresh_w_zp_int()
 
 
 class QuantLinear(nn.Module):
@@ -151,6 +158,9 @@ class QuantLinear(nn.Module):
                 "w_int", torch.zeros((1, features, in_features),
                                      dtype=torch.int8).transpose(1, 2))
             self.register_buffer("w_colsum", torch.zeros((1, 1, features)))
+            self.register_buffer("w_zp_int", torch.zeros((1, features)),
+                                 persistent=False)
+            self.register_load_state_dict_post_hook(_refresh_after_load)
 
     def dense(self, x: torch.Tensor) -> torch.Tensor:
         y = torch.matmul(x.to(self.dtype), self.kernel.to(self.dtype))
@@ -178,31 +188,41 @@ class QuantLinear(nn.Module):
         w_scale = self.w_delta[wspec.bit_idx, 0].reshape(1, -1)
         if not self.fused:
             return self._native(x, prequant, w_q, w_scale)
+        # sym weights: no zero point (JAX qlinear.py:603-605, 614-616)
+        tables = dict(w_zp=None if wspec.sym else self.w_zp_int,
+                      w_colsum=self.w_colsum[0])
         if prequant is not None:
+            pre = dict(x_zp=prequant.zp, x_rowsum=prequant.rowsum, **tables)
             if emit is not None:
                 codes, scales = int8_consumer_matmul(
                     prequant.codes, prequant.scale, w_q, w_scale, self.bias,
                     out_dtype=self.dtype, group_scales=prequant.group_wise,
-                    emit=emit)
+                    emit=emit, **pre)
                 return Prequant(codes, scales, group_wise=True)
             out = int8_consumer_matmul(
                 prequant.codes, prequant.scale, w_q, w_scale, self.bias,
-                out_dtype=self.dtype, group_scales=prequant.group_wise)
+                out_dtype=self.dtype, group_scales=prequant.group_wise, **pre)
             return out if x is None else out.reshape(*x.shape[:-1], -1)
         out = fused_dynq_int8_matmul(
             x.reshape(-1, self.in_features), w_q, w_scale, self.bias,
-            out_dtype=self.dtype, sym=self.lspec.act.sym,
-            sym_w=wspec.sym)
+            out_dtype=self.dtype, sym=self.lspec.act.sym, sym_w=wspec.sym,
+            **tables)
         return out.reshape(*x.shape[:-1], self.features)
+
+    @torch.no_grad()
+    def refresh_w_zp_int(self) -> None:
+        """Derive `w_zp_int` from the `w_zp` table: asym codes are stored
+        shifted into signed int8, so their zero point shifts with them; sym
+        codes have zero point 0."""
+        wspec = self.lspec.weight
+        shift = 0.0 if wspec.sym else float(2 ** (wspec.n_bits - 1))
+        self.w_zp_int = self.w_zp[wspec.bit_idx, 0].reshape(1, -1) - shift
 
     def _native(self, x, prequant, w_q, w_scale):
         """The native int8 path of impl None/'xla'/'mixed'/'pallas'
-        (qlinear.py:572-643): K7b on a prequant input, else K7a -> K7b.
-        Asym weight codes are stored shifted into signed int8, so their
-        zero point shifts with them; sym codes have zero point 0."""
+        (qlinear.py:572-643): K7b on a prequant input, else K7a -> K7b."""
         wspec, aspec = self.lspec.weight, self.lspec.act
-        shift = 0.0 if wspec.sym else float(2 ** (wspec.n_bits - 1))
-        w_zp = self.w_zp[wspec.bit_idx, 0].reshape(1, -1) - shift
+        w_zp = self.w_zp_int
         w_colsum = self.w_colsum[0]
         if prequant is not None:
             if prequant.zp is None or prequant.group_wise:
