@@ -30,10 +30,14 @@ ROOT = Path(__file__).resolve().parent
 # kernel-name fragments -> group (first match wins)
 GROUPS = (
     ("attn_stream_kernel", "K6 attention (stream)"),
+    ("attn_seg", "K3 attention (seg, temporal)"),
     ("attn_kernel", "K3 attention (one-shot)"),
-    ("vquant_kernel", "K3/K6 v quantize"),
+    ("vquant", "K3/K6 v quantize"),
     ("row_quant_kernel", "K3 emission row quantize"),
     ("int8_gemm", "K2 int8 GEMM"),
+    # the zero-point epilogue of int8_mma.cuh is K7b's in the w8a8 arm and
+    # K2's under the fused reference plan (its kernel names carry no file)
+    ("zpepilogue", "int8 GEMM, zero-point epilogue (K2 fused / K7b w8a8)"),
     ("group_quant", "K2 emission group quantize"),
     ("ln_mod_quant", "K1 LN+modulate+quantize"),
     ("dyn_quant_rows", "K7a row quantize (native)"),

@@ -17,9 +17,12 @@ Phases (any failure exits non-zero):
      PyTorch call computes the same function, that call's time (for the
      int8 GEMMs also torch._int_mm on a row-major weight and cuBLAS bf16
      at the same shape, and K2's emission split into its GEMM and its
-     group quantize); then K3 and K6 at the edge cases of their shared
-     core (`EDGE_CASES`: ragged q and kv tiles, a kv block masked whole,
-     head dim 16), and K2 and K7b at theirs (`GEMM_EDGE_CASES`: ragged M
+     group quantize; K3's seg mode and K7a also back to back); then K3
+     and K6 at the edge cases of their shared core (`EDGE_CASES`: ragged q
+     and kv tiles, a kv block masked whole, head dim 16) and of K3's two
+     seg kernels (seg 2 to 16 with ragged last tiles and asym emission on
+     the tiled kernel; seg 48 and 1088, int8 PV past 1040 kv rows and
+     both emissions, on the row kernel), and K2 and K7b at theirs (`GEMM_EDGE_CASES`: ragged M
      and N, K tails, a gw_x group boundary inside a k-tile, the byte-wise
      kernel), every K2 and K7b case identical to its plain version;
      The asymmetric modes (K1/K4 asym with row sums, K4's GELU, K2's
@@ -156,6 +159,36 @@ EDGE_CASES = (
     # int32), at the one-shot kernel's largest kv length
     ("attention_bnhd", "full N=M=2048 int8_pv emit (C11)",
      dict(B=2, N=2048, M=2048, H=16, D=72, int8_pv=True, emit=True)),
+    # seg mode's tiled kernel (a block per 16-row tile, all heads): the tiny
+    # STDiT's temporal shape (seg 2, D = 16), a ragged last tile with v
+    # groups of 200 rows straddling tiles, asym emission with row sums on a
+    # ragged tile, seg 16 over an odd tile count, D = 16 at seg 16
+    ("attention_bnhd", "seg 2 N=256 H=4 D=16 int8_pv emit (tiny STDiT)",
+     dict(B=2, N=256, M=256, H=4, D=16, seg=2, int8_pv=True, emit=True)),
+    ("attention_bnhd", "seg 8 N=1000 int8_pv emit (ragged last tile)",
+     dict(B=2, N=1000, M=1000, H=16, D=72, seg=8, int8_pv=True, emit=True)),
+    ("attention_bnhd", "seg 4 N=1000 asym emit rowsum (ragged last tile)",
+     dict(B=2, N=1000, M=1000, H=16, D=72, seg=4, int8_pv=False, emit=True,
+          emit_sym=False)),
+    ("attention_bnhd", "seg 16 N=16016 int8_pv emit (1001 tiles)",
+     dict(B=2, N=16016, M=16016, H=16, D=72, seg=16, int8_pv=True,
+          emit=True)),
+    ("attention_bnhd", "seg 16 N=4096 H=4 D=16 bf16",
+     dict(B=2, N=4096, M=4096, H=4, D=16, seg=16, int8_pv=False,
+          emit=False)),
+    # seg mode's row kernel (seg not dividing 16): int8 PV over a kv range
+    # above 1040 rows, summed in int32, with its two-launch emission; bf16
+    # PV, and the asym emission with row sums
+    ("attention_bnhd",
+     "seg 1088 N=2176 int8_pv v_block 1088 emit (row kernel)",
+     dict(B=2, N=2176, M=2176, H=16, D=72, seg=1088, v_block=1088,
+          int8_pv=True, emit=True)),
+    ("attention_bnhd", "seg 48 N=2304 bf16 (row kernel)",
+     dict(B=2, N=2304, M=2304, H=16, D=72, seg=48, int8_pv=False,
+          emit=False)),
+    ("attention_bnhd", "seg 48 N=2304 asym emit rowsum (row kernel)",
+     dict(B=2, N=2304, M=2304, H=16, D=72, seg=48, int8_pv=False,
+          emit=True, emit_sym=False)),
 )
 
 # K2 / K7b cases the main path does not reach (phase kernels): (kernel,
@@ -612,6 +645,24 @@ def phase_kernels(records):
                                         want[1]))
                 if int8_pv and emit_out else None)
 
+    # K3's seg mode at the temporal site back to back (its device time), the
+    # v-quantize pass of its int8 PV alone, and SDPA on the same work
+    q, k, v = sites["temporal"][:3]
+    vb = A.seg_v_block(T * S, T)
+    v3 = v.reshape(B, T * S, C)
+    parts = []
+    for label, fn in (
+            ("bf16", lambda: A.attention_bnhd(q, k, v, sc_attn, seg_len=T)),
+            ("sm8 int8_pv emit", lambda: A.attention_bnhd(
+                q, k, v, sc_attn, seg_len=T, int8_pv=True, v_block=vb,
+                emit=True)),
+            ("its v quantize alone", lambda: A.seg_v_codes_cuda(v3, vb, True)),
+            ("SDPA", sdpa_call(q, k, v, T, None))):
+        parts.append(f"{label} {cuda_ms_back_to_back(fn):.4f} ms")
+    print(f"  attention_bnhd temporal seg {T} back to back: "
+          f"{'; '.join(parts)}", flush=True)
+    del v3
+
     # K6: Σ-1024 self-attention, N = M = 4096, kv blocks of 1024
     Ns = 4096
     bkv = A.stream_kv_block(Ns, Ns, C)
@@ -662,17 +713,32 @@ def phase_kernels(records):
                                   {"int8": 2 * m_rows * n * C}))
 
     # K7a (the native backend's act quantize): every step is exact or
-    # correctly rounded, so codes, scales, zp and rowsum are identical
-    for case, (m_rows, k, sym) in (
-            ("asym [32768,1152]", (M, C, False)),
-            ("asym [32768,4608] (fc2 input)", (M, 4 * C, False)),
-            ("sym [32768,1152]", (M, C, True)),
-            ("asym [19,72] (ragged row)", (19, 72, False))):
-        xa = randn(m_rows, k) + 0.2
+    # correctly rounded, so codes, scales, zp and rowsum are identical. A
+    # warp per row: rows up to 9 chunks of 16 a lane (bf16 K <= 4608, f32
+    # K <= 2560) are read once, longer rows twice (the f32 K = 4608 and
+    # bf16 K = 16384 rows, above the former 16 KB row limit)
+    for case, (m_rows, k, sym, dt) in (
+            ("asym [32768,1152]", (M, C, False, torch.bfloat16)),
+            ("asym [32768,4608] (fc2 input)", (M, 4 * C, False,
+                                               torch.bfloat16)),
+            ("sym [32768,1152]", (M, C, True, torch.bfloat16)),
+            ("asym [19,72] (ragged row)", (19, 72, False, torch.bfloat16)),
+            ("asym [32768,4608] f32 (18 KB rows)", (M, 4 * C, False,
+                                                    torch.float32)),
+            ("sym [4096,16384] (32 KB rows)", (4096, 16384, True,
+                                               torch.bfloat16))):
+        xa = randn(m_rows, k, dtype=dt) + 0.2
+        esize = torch.empty((), dtype=dt).element_size()
         check_case("dynamic_quant_rows", case,
                    lambda: IM.dynamic_quant_rows(xa, sym),
                    lambda: IM.dynamic_quant_rows_plain(xa, sym), records,
-                   cost=(3 * m_rows * k + 12 * m_rows, {}), exact=True)
+                   cost=((esize + 1) * m_rows * k + 12 * m_rows, {}),
+                   exact=True)
+        if case == "asym [32768,1152]":
+            b2b = cuda_ms_back_to_back(lambda: IM.dynamic_quant_rows(xa))
+            print(f"  dynamic_quant_rows {case}: kernel back to back "
+                  f"{b2b:.4f} ms", flush=True)
+        del xa
 
     # K7b at the w8a8 arm's four shapes (asym x asym, bf16 out, bias),
     # identical to the plain version
@@ -993,7 +1059,9 @@ def gemm_edge_cases(records, randn, randi8, rands):
 def attention_edge_cases(records, randn):
     """K3 and K6 at shapes the main path does not reach (EDGE_CASES), with
     the main cases' tolerances: ragged q and kv tiles of the attention core,
-    a kv block masked whole, the tiny models' head dim."""
+    a kv block masked whole, the tiny models' head dim; K3's seg mode in
+    both its kernels (the tiled one at seg 2, 4, 8 and 16 with ragged last
+    tiles and asym emission, the row kernel at seg 48 and 1088)."""
     import torch
     from viditq_tpu_torch.kernels import attention as A
     from viditq_tpu_torch.kernels import fused_matmul as FM
@@ -1007,7 +1075,11 @@ def attention_edge_cases(records, randn):
             m[B - 1, lo:hi] = 0
         int8_pv, emit, sc = p["int8_pv"], p["emit"], D ** -0.5
         emit_sym = p.get("emit_sym", True)
-        rows = [M] * B if m is None else [int(r) for r in (m != 0).sum(1)]
+        seg = p.get("seg", 0)
+        vb = p.get("v_block", A.seg_v_block(N, seg)) if (
+            seg and int8_pv) else None
+        rows = ([seg] * B if seg else [M] * B if m is None
+                else [int(r) for r in (m != 0).sum(1)])
         cost = attn_bound(B, N, H, D, rows, int8_pv, emit, M)
         if m is not None:
             cost = (cost[0] + 4 * B * M, cost[1])
@@ -1015,14 +1087,17 @@ def attention_edge_cases(records, randn):
             cost = (cost[0] + 8 * B * N, cost[1])
         slack_fn = None
         if name == "attention_bnhd":
-            kw = dict(kv_mask=m, int8_pv=int8_pv, emit=emit)
+            kw = dict(kv_mask=m, int8_pv=int8_pv, emit=emit, seg_len=seg,
+                      v_block=vb, emit_sym=emit_sym,
+                      need_rowsum=not emit_sym)
             kernel = (lambda q=q, k=k, v=v, kw=kw:
                       A.attention_bnhd(q, k, v, sc, **kw))
             plain = (lambda q=q, k=k, v=v, kw=kw:
                      A.attention_bnhd_plain(q, k, v, sc, **kw))
             if int8_pv and emit:
-                slack_fn = (lambda want, q=q, k=k, v=v, m=m, sc=sc:
-                            int8_pv_slack(q, k, v, sc, 0, m, None, want[1]))
+                slack_fn = (lambda want, q=q, k=k, v=v, m=m, sc=sc, seg=seg,
+                            vb=vb: int8_pv_slack(q, k, v, sc, seg, m, vb,
+                                                 want[1]))
         else:
             bkv = p["bkv"]
 
@@ -1042,7 +1117,8 @@ def attention_edge_cases(records, randn):
                     o.reshape(B * N, C), sym=emit_sym,
                     need_rowsum=not emit_sym))
         check_case(name, f"edge {case}", kernel, plain, records, cost=cost,
-                   asym=None if emit_sym else ASYM_TOL["stream"],
+                   asym=None if emit_sym else ASYM_TOL[
+                       "attn" if name == "attention_bnhd" else "stream"],
                    slack_fn=slack_fn)
 
 

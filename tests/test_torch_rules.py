@@ -249,6 +249,24 @@ def test_chip_smoke_carries_the_attention_edge_cases():
     assert any(p["D"] == 16 for p in stream)
     assert "attention_edge_cases(records" in Path(
         chip_smoke.__file__).read_text()
+    # seg mode: the tiled kernel at the tiny STDiT's seg 2 (D = 16) and at
+    # seg 16 with D = 16, a ragged last 16-row tile with int8 PV and
+    # emission, asym emission with row sums, seg 16 over an odd tile count;
+    # the row kernel's int8 PV past 1040 kv rows (seg 1088, v_block 1088)
+    # and its two-launch emission, sym and asym
+    seg = [p for p in one_shot if p.get("seg")]
+    tiled = [p for p in seg if A.SEG_TILE % p["seg"] == 0]
+    assert any(p["seg"] == 2 and p["D"] == 16 for p in tiled)
+    assert any(p["seg"] == 16 and p["D"] == 16 for p in tiled)
+    assert any(p["N"] % A.SEG_TILE and p["int8_pv"] and p["emit"]
+               for p in tiled)
+    assert any(p["emit"] and p.get("emit_sym") is False for p in tiled)
+    assert any(p["seg"] == 16 and (p["N"] // A.SEG_TILE) % 2 for p in tiled)
+    assert any(p["seg"] == p.get("v_block") == 1088 and p["int8_pv"]
+               for p in seg)
+    rows = [p for p in seg if A.SEG_TILE % p["seg"]]
+    assert any(p["emit"] and p.get("emit_sym", True) for p in rows)
+    assert any(p["emit"] and p.get("emit_sym") is False for p in rows)
 
 
 def test_attention_kernels_share_the_wgmma_core():

@@ -102,49 +102,7 @@ struct Layout {
                 "swizzled tiles must stay 1024-byte aligned");
 };
 
-// ---- mbarrier, TMA and wgmma primitives ----------------------------------
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-      "r"(bytes)
-      : "memory");
-}
-
-// Wait for the phase of `parity` to complete. A barrier that does not
-// complete within ~10 s is a fault of the kernel: trap (a launch error the
-// wrapper reports) rather than hang the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  long long start = 0;
-  while (true) {
-    uint32_t done;
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    const long long now = clock64();
-    if (start == 0) {
-      start = now;
-    } else if (now - start > 20000000000ll) {
-      __trap();
-    }
-  }
-}
+// ---- TMA and wgmma primitives (the mbarriers are in common.cuh) --------
 
 __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
                                          uint32_t bar, int k0, int row0) {

@@ -10,10 +10,16 @@
 //   rowsum = sum of q (an exact integer sum, stored as f32)
 // Every division is a true IEEE division (the `round(x / s)` form of the
 // JAX site, C6), never x * (1/s). Bound on the card: memory, 3*M*K + 12*M
-// bytes for bf16 x. One block of 128 threads per row reads the row once
-// with 16-byte loads and keeps it in registers (up to 8 vectors a thread,
-// so rows up to 16 KB); min/max and the row sum reduce with shuffles and
-// one shared-memory step, and the codes leave as 8- or 4-byte stores.
+// bytes for bf16 x (0.034 ms at [32768, 1152]). Design: one warp per row,
+// eight rows a block of 256 threads, no shared memory and no block
+// barrier. A lane owns chunks of 16 consecutive elements (two 16-byte
+// vectors of bf16, four of f32), chunk lane + 32*i, so a lane's 16 codes
+// leave in one 16-byte store; min/max and the row sum reduce by shuffles.
+// A row of up to CPL chunks a lane stays in registers from its one read
+// (bf16 K <= 4608); a longer row is read in passes of CPL chunks a lane,
+// once for min/max and again (from L2) for the codes, so K has no limit
+// beyond K * sizeof(x) % 16 == 0. Thousands of independent warps keep some
+// 64 KB of loads in flight per SM.
 //
 // K7b replaces `int8_matmul` / `_int8_matmul_kernel`
 // (int_matmul.py:115-217). The product is the TMA + s8 wgmma core of
@@ -34,8 +40,7 @@
 
 namespace {
 
-constexpr int DQ_THREADS = 128;
-constexpr int DQ_VECS = 8;  // 16-byte vectors a thread holds
+constexpr int DQ_WARPS = 8;  // rows a block
 
 __device__ __forceinline__ uint32_t word(const uint4& r, int i) {
   return i == 0 ? r.x : i == 1 ? r.y : i == 2 ? r.z : r.w;
@@ -54,57 +59,68 @@ __device__ __forceinline__ float elem<float>(const uint4& r, int e) {
   return __uint_as_float(word(r, e));
 }
 
-template <typename T, bool SYM>
-__global__ void __launch_bounds__(DQ_THREADS)
+// One warp per row of x [M, K]; CPL chunks of 16 elements a lane at a time;
+// RESIDENT: the whole row fits them (one read), else two reads in passes.
+template <typename T, bool SYM, int CPL, bool RESIDENT>
+__global__ void __launch_bounds__(DQ_WARPS * 32)
     dyn_quant_rows_kernel(const T* __restrict__ x, int8_t* __restrict__ q,
                           float* __restrict__ scale, float* __restrict__ zp,
-                          float* __restrict__ rowsum, int K) {
-  constexpr int VEC = 16 / sizeof(T);
-  constexpr int WARPS = DQ_THREADS / 32;
-  __shared__ float red_lo[WARPS];
-  __shared__ float red_hi[WARPS];
-  __shared__ int red_sum[WARPS];
-  const int row = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
+                          float* __restrict__ rowsum, int M, int K) {
+  constexpr int VEC = 16 / sizeof(T);  // elements of a 16-byte vector
+  constexpr int VPC = 16 / VEC;        // vectors of a 16-element chunk
+  const int row = blockIdx.x * DQ_WARPS + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (row >= M) return;
   const int nvec = K / VEC;
-  const uint4* xr = reinterpret_cast<const uint4*>(x + static_cast<size_t>(row) * K);
+  const int nchunk = (nvec + VPC - 1) / VPC;
+  const bool wide = K % 16 == 0;  // 16-byte aligned code chunks
+  const uint4* xr =
+      reinterpret_cast<const uint4*>(x + static_cast<size_t>(row) * K);
+  int8_t* qr = q + static_cast<size_t>(row) * K;
+  uint4 raw[CPL * VPC];
 
-  uint4 raw[DQ_VECS];
+  // chunks base + lane + 32*i of the row into raw (vectors past K: unread)
+  auto load = [&](int base) {
+#pragma unroll
+    for (int i = 0; i < CPL; ++i)
+#pragma unroll
+      for (int u = 0; u < VPC; ++u) {
+        const int vi = (base + lane + 32 * i) * VPC + u;
+        if (vi < nvec) raw[i * VPC + u] = xr[vi];
+      }
+  };
   float lo = 0.0f;  // asym: min(x, 0)
   float hi = 0.0f;  // asym: max(x, 0); sym: absmax
+  auto scan = [&](int base) {
 #pragma unroll
-  for (int i = 0; i < DQ_VECS; ++i) {
-    const int v = tid + i * DQ_THREADS;
-    if (v < nvec) {
-      raw[i] = xr[v];
+    for (int i = 0; i < CPL; ++i)
 #pragma unroll
-      for (int e = 0; e < VEC; ++e) {
-        const float f = elem<T>(raw[i], e);
-        if constexpr (SYM) {
-          hi = fmaxf(hi, fabsf(f));
-        } else {
-          lo = fminf(lo, f);
-          hi = fmaxf(hi, f);
+      for (int u = 0; u < VPC; ++u) {
+        if ((base + lane + 32 * i) * VPC + u >= nvec) continue;
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) {
+          const float f = elem<T>(raw[i * VPC + u], e);
+          if constexpr (SYM) {
+            hi = fmaxf(hi, fabsf(f));
+          } else {
+            lo = fminf(lo, f);
+            hi = fmaxf(hi, f);
+          }
         }
       }
+  };
+  const int step = 32 * CPL;  // chunks a pass
+  if constexpr (RESIDENT) {
+    load(0);
+    scan(0);
+  } else {
+    for (int base = 0; base < nchunk; base += step) {
+      load(base);
+      scan(base);
     }
   }
   hi = vq::warp_max(hi);
   lo = vq::warp_min(lo);
-  if (lane == 0) {
-    red_lo[warp] = lo;
-    red_hi[warp] = hi;
-  }
-  __syncthreads();
-  lo = red_lo[0];
-  hi = red_hi[0];
-#pragma unroll
-  for (int w = 1; w < WARPS; ++w) {
-    lo = fminf(lo, red_lo[w]);
-    hi = fmaxf(hi, red_hi[w]);
-  }
   float s, z;
   if constexpr (SYM) {
     s = fmaxf(hi / 127.0f, 1e-6f);
@@ -115,39 +131,56 @@ __global__ void __launch_bounds__(DQ_THREADS)
   }
 
   int sum = 0;
-  int8_t* qr = q + static_cast<size_t>(row) * K;
+  auto emit = [&](int base) {
 #pragma unroll
-  for (int i = 0; i < DQ_VECS; ++i) {
-    const int v = tid + i * DQ_THREADS;
-    if (v < nvec) {
-      uint32_t packed[VEC / 4];
+    for (int i = 0; i < CPL; ++i) {
+      const int ch = base + lane + 32 * i;
+      if (ch >= nchunk) continue;
+      uint32_t packed[4] = {0u, 0u, 0u, 0u};
 #pragma unroll
-      for (int j = 0; j < VEC / 4; ++j) packed[j] = 0u;
+      for (int u = 0; u < VPC; ++u) {
+        if (ch * VPC + u >= nvec) continue;
 #pragma unroll
-      for (int e = 0; e < VEC; ++e) {
-        float c = rintf(elem<T>(raw[i], e) / s);
-        if constexpr (!SYM) c = c + z;
-        const int code = static_cast<int>(fminf(fmaxf(c, -128.0f), 127.0f));
-        sum += code;
-        packed[e >> 2] |= static_cast<uint32_t>(code & 0xff) << (8 * (e & 3));
+        for (int e = 0; e < VEC; ++e) {
+          float c = rintf(elem<T>(raw[i * VPC + u], e) / s);
+          if constexpr (!SYM) c = c + z;
+          const int code = static_cast<int>(fminf(fmaxf(c, -128.0f), 127.0f));
+          sum += code;
+          const int at = u * VEC + e;  // code index in the chunk
+          packed[at >> 2] |= static_cast<uint32_t>(code & 0xff)
+                             << (8 * (at & 3));
+        }
       }
-      if constexpr (VEC == 8) {
-        *reinterpret_cast<uint2*>(qr + v * 8) = make_uint2(packed[0], packed[1]);
-      } else {
-        *reinterpret_cast<uint32_t*>(qr + v * 4) = packed[0];
+      if (wide && (ch + 1) * VPC <= nvec) {
+        *reinterpret_cast<uint4*>(qr + ch * 16) =
+            make_uint4(packed[0], packed[1], packed[2], packed[3]);
+      } else {  // a row of K % 16 != 0 codes: per-vector stores
+#pragma unroll
+        for (int u = 0; u < VPC; ++u) {
+          const int vi = ch * VPC + u;
+          if (vi >= nvec) continue;
+          if constexpr (VEC == 8)
+            *reinterpret_cast<uint2*>(qr + vi * 8) =
+                make_uint2(packed[2 * u], packed[2 * u + 1]);
+          else
+            *reinterpret_cast<uint32_t*>(qr + vi * 4) = packed[u];
+        }
       }
+    }
+  };
+  if constexpr (RESIDENT) {
+    emit(0);
+  } else {
+    for (int base = 0; base < nchunk; base += step) {
+      load(base);
+      emit(base);
     }
   }
   sum = vq::warp_sum_int(sum);
-  if (lane == 0) red_sum[warp] = sum;
-  __syncthreads();
-  if (tid == 0) {
-    int total = 0;
-#pragma unroll
-    for (int w = 0; w < WARPS; ++w) total += red_sum[w];
+  if (lane == 0) {
     scale[row] = s;
     zp[row] = z;
-    rowsum[row] = static_cast<float>(total);
+    rowsum[row] = static_cast<float>(sum);
   }
 }
 
@@ -156,18 +189,30 @@ __global__ void __launch_bounds__(DQ_THREADS)
 template <bool F32_OUT>
 using int8_matmul_epilogue = vq::i8mma::ZpEpilogue<F32_OUT, true, false>;
 
-template <typename T>
+template <typename T, bool SYM, int CPL, bool RESIDENT>
+void launch_dq(const void* x, void* q, void* scale, void* zp, void* rowsum,
+               int M, int K, cudaStream_t st) {
+  dyn_quant_rows_kernel<T, SYM, CPL, RESIDENT>
+      <<<(M + DQ_WARPS - 1) / DQ_WARPS, DQ_WARPS * 32, 0, st>>>(
+          static_cast<const T*>(x), static_cast<int8_t*>(q),
+          static_cast<float*>(scale), static_cast<float*>(zp),
+          static_cast<float*>(rowsum), M, K);
+}
+
+// the instantiation by row length: bf16 rows stay in registers up to 9
+// chunks a lane (K <= 4608), f32 rows up to 5 (K <= 2560); longer rows
+// are read twice
+template <typename T, bool SYM>
 void launch_dyn_quant(const void* x, void* q, void* scale, void* zp,
-                      void* rowsum, int M, int K, int sym, cudaStream_t st) {
-  const T* xt = static_cast<const T*>(x);
-  int8_t* qt = static_cast<int8_t*>(q);
-  float* s = static_cast<float*>(scale);
-  float* z = static_cast<float*>(zp);
-  float* r = static_cast<float*>(rowsum);
-  if (sym)
-    dyn_quant_rows_kernel<T, true><<<M, DQ_THREADS, 0, st>>>(xt, qt, s, z, r, K);
+                      void* rowsum, int M, int K, cudaStream_t st) {
+  constexpr int BIG = sizeof(T) == 2 ? 9 : 5;
+  const int per_lane = ((K + 15) / 16 + 31) / 32;
+  if (per_lane <= 3)
+    launch_dq<T, SYM, 3, true>(x, q, scale, zp, rowsum, M, K, st);
+  else if (per_lane <= BIG)
+    launch_dq<T, SYM, BIG, true>(x, q, scale, zp, rowsum, M, K, st);
   else
-    dyn_quant_rows_kernel<T, false><<<M, DQ_THREADS, 0, st>>>(xt, qt, s, z, r, K);
+    launch_dq<T, SYM, BIG, false>(x, q, scale, zp, rowsum, M, K, st);
 }
 
 template <bool F32_OUT>
@@ -183,17 +228,21 @@ cudaError_t launch_matmul(const int8_t* A, const int8_t* Wt, const float* const*
 
 }  // namespace
 
-// x [M, K] (bf16 when is_bf16, else f32), rows 16-byte aligned and at most
-// DQ_THREADS * DQ_VECS * 16 bytes; q [M, K] int8; scale, zp, rowsum [M] f32.
+// x [M, K] (bf16 when is_bf16, else f32), rows 16-byte aligned (any K);
+// q [M, K] int8; scale, zp, rowsum [M] f32.
 VQ_EXPORT int vq_dyn_quant_rows(const void* x, void* q, void* scale, void* zp,
                                 void* rowsum, int M, int K, int sym,
                                 int is_bf16, void* stream) {
   if (M <= 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    launch_dyn_quant<__nv_bfloat16>(x, q, scale, zp, rowsum, M, K, sym, st);
+  if (is_bf16 && sym)
+    launch_dyn_quant<__nv_bfloat16, true>(x, q, scale, zp, rowsum, M, K, st);
+  else if (is_bf16)
+    launch_dyn_quant<__nv_bfloat16, false>(x, q, scale, zp, rowsum, M, K, st);
+  else if (sym)
+    launch_dyn_quant<float, true>(x, q, scale, zp, rowsum, M, K, st);
   else
-    launch_dyn_quant<float>(x, q, scale, zp, rowsum, M, K, sym, st);
+    launch_dyn_quant<float, false>(x, q, scale, zp, rowsum, M, K, st);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -21,9 +21,13 @@ On CPU tensors each runs its plain version (`attention_bnhd_plain`,
 `attention_bnhd_stream_plain`); on CUDA tensors it launches
 csrc/attention.cu or csrc/attention_stream.cu (bf16 inputs) or raises.
 Both kernels' full and kv-masked modes run on one core
-(csrc/attn_core.cuh: wgmma products over kv tiles of `KV_TILE` rows fed
-by a cp.async ring); their int8 PV reads v's codes transposed per head in
-the order `KV_PERM` (`v_codes_transposed`). `int8_qk` is not ported.
+(csrc/attn_core.cuh: wgmma products over kv tiles of `KV_TILE` rows fed by
+a cp.async ring); their int8 PV reads v's codes transposed per head in the
+order `KV_PERM` (`v_codes_transposed`). K3's seg mode runs a kernel of its
+own: a block per 16-row tile across all heads, its emission inside
+the kernel, its int8 PV on v codes per tile and channel in the order
+`KV_PERM[:16]` (`v_codes_tiles`); shapes that `seg_tiled` refuses take a
+row kernel, whose emission takes two launches. `int8_qk` is not ported.
 
 The oracles `attention_bnhd_xla` / `attention_bnhd_xla_quant`
 (attention.py:409-478) are ported too; the tests hold both packages'
@@ -45,9 +49,14 @@ from viditq_tpu_torch.kernels.fused_matmul import (quantize_rows,
 
 LOG2E = float(math.log2(math.e))
 KERNEL_HEAD_DIMS = (16, 72)  # instantiations in csrc/attention*.cu
-# seg mode sums the int8 PV exactly in f32 on bf16 tensor cores while the
-# kv range of a 64-row q tile stays within 127 * 127 * 1040 < 2^24
-INT8_PV_MAX_KV = 1040
+# seg mode's tiled kernel (csrc/attention.cu attn_seg_tiled): a block
+# holds SEG_TILE rows of all heads (H/2 warps), so seg_len must divide
+# SEG_TILE and H be even, at most SEG_MAX_HEADS; its v-quantize pass holds a
+# v group in shared memory (at most SEG_MAX_V_BLOCK rows). Other shapes run
+# the row kernel (attn_seg_rows).
+SEG_TILE = 16
+SEG_MAX_HEADS = 32
+SEG_MAX_V_BLOCK = 1024
 # full/masked attention over more kv rows than this streams them (K6)
 ONESHOT_MAX_M = 2048
 KV_TILE = 64  # kv rows per tile of csrc/attn_core.cuh
@@ -56,6 +65,15 @@ KV_TILE = 64  # kv rows per tile of csrc/attn_core.cuh
 # score registers holds that column (csrc/attn_core.cuh pack_codes)
 KV_PERM = tuple((k // 16) * 16 + (k % 4 // 2) * 8 + (k % 16 // 4) * 2
                 + k % 2 for k in range(32))
+
+
+def seg_tiled(heads: int, seg_len: int, int8_pv: bool,
+              v_block: Optional[int]) -> bool:
+    """Whether seg mode runs the tiled kernel on the card (else the row
+    kernel): a shape rule, the same for every input."""
+    return (SEG_TILE % seg_len == 0 and heads % 2 == 0
+            and heads <= SEG_MAX_HEADS
+            and (not int8_pv or v_block <= SEG_MAX_V_BLOCK))
 
 
 def stream_kv_block(n: int, m: int, c: int, v_int8_in: bool = False) -> int:
@@ -122,6 +140,21 @@ def v_codes_transposed(vq: torch.Tensor, heads: int) -> torch.Tensor:
     perm = torch.tensor(KV_PERM, device=vq.device)
     vt = vt.reshape(B, Mp // 32, 32, heads, D)[:, :, perm]
     return vt.reshape(B, Mp, heads, D).permute(0, 2, 3, 1).contiguous()
+
+
+def v_codes_tiles(vq: torch.Tensor) -> torch.Tensor:
+    """The tiled seg kernel's v-code layout (csrc/attention.cu
+    vquant_tiles_kernel), plain version: codes [B, N, C] -> int8
+    [B, ceil(N/16), C, 16], per 16-row tile and channel the rows in the
+    order KV_PERM[:16], zero past N."""
+    B, N, C = vq.shape
+    nt = -(-N // SEG_TILE)
+    vt = torch.zeros((B, nt * SEG_TILE, C), dtype=torch.int8,
+                     device=vq.device)
+    vt[:, :N] = vq.to(torch.int8)
+    perm = torch.tensor(KV_PERM[:SEG_TILE], device=vq.device)
+    vt = vt.reshape(B, nt, SEG_TILE, C)[:, :, perm]
+    return vt.permute(0, 1, 3, 2).contiguous()
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
@@ -371,28 +404,18 @@ def attention_bnhd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     require(q.dtype == k.dtype == v.dtype == torch.bfloat16,
             "the CUDA attention kernel takes bfloat16 q/k/v")
     require(D in KERNEL_HEAD_DIMS, f"head dim {D} not in {KERNEL_HEAD_DIMS}")
-    # seg mode sums the int8 PV on the bf16 tensor cores in f32, exact
-    # while a q tile's kv range stays within 2^24 / 127^2 tokens; the full
-    # modes sum it in int32
-    require(not int8_pv or seg_len == 0 or 64 + 2 * seg_len <= INT8_PV_MAX_KV,
-            f"int8 PV kv range above {INT8_PV_MAX_KV}")
     q3 = _aligned(q.reshape(B, N, C))
     k3 = _aligned(k.reshape(B, M, C))
     v3 = _aligned(v.reshape(B, M, C))
+    if seg_len > 0:
+        return _attention_seg_cuda(q3, k3, v3, H, float(scale * LOG2E),
+                                   seg_len, int8_pv, v_block, emit, emit_sym,
+                                   need_rowsum)
     lib = _build.lib()
     stream = _build.stream_ptr(q)
     vs = None
-    vgroup, n_vgroups = M, 1
     v_arg = v3
-    if int8_pv and seg_len > 0:
-        vgroup, n_vgroups = v_block, N // v_block
-        v_arg = torch.empty((B, M, C), dtype=torch.int8, device=q.device)
-        vs = torch.empty((B, n_vgroups, C), dtype=torch.float32,
-                         device=q.device)
-        _build.check(lib.vq_attn_vquant(
-            v3.data_ptr(), v_arg.data_ptr(), vs.data_ptr(), B, M, C, vgroup,
-            stream), "vq_attn_vquant")
-    elif int8_pv:
+    if int8_pv:
         v_arg, vs = _v_codes_cuda(v3, H, lib, stream)
     mask = None
     if kv_mask is not None:
@@ -401,9 +424,9 @@ def attention_bnhd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       device=q.device)
     _build.check(lib.vq_attention(
         q3.data_ptr(), k3.data_ptr(), v_arg.data_ptr(),
-        None if vs is None else vs.data_ptr(), vgroup, n_vgroups,
+        None if vs is None else vs.data_ptr(),
         None if mask is None else mask.data_ptr(), out.data_ptr(), int(emit),
-        B, N, M, H, D, seg_len, float(scale * LOG2E), int(int8_pv), stream),
+        B, N, M, H, D, float(scale * LOG2E), int(int8_pv), stream),
         "vq_attention")
     COUNTERS["attention_bnhd"].launches += 1
     if not emit:
@@ -418,6 +441,78 @@ def attention_bnhd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         None if zp is None else zp.data_ptr(),
         None if rowsum is None else rowsum.data_ptr(), rows, C, stream),
         "vq_attn_row_quant")
+    return _bn1(B, N, codes, scales, zp, rowsum)
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def seg_v_codes_cuda(v3: torch.Tensor, v_block: int, tiled: bool):
+    """Seg mode's v-quantize pass on the card: codes of v [B, N, C] (bf16)
+    in the layout of the kernel they feed (`v_codes_tiles` for the tiled
+    kernel, [B, N, C] for the row kernel) and scales [B, N // v_block, C]."""
+    B, N, C = v3.shape
+    lib = _build.lib()
+    vs = torch.empty((B, N // v_block, C), dtype=torch.float32,
+                     device=v3.device)
+    if tiled:
+        vq = torch.empty((B, -(-N // SEG_TILE), C, SEG_TILE),
+                         dtype=torch.int8, device=v3.device)
+        fn, name = lib.vq_attn_vquant_tiles, "vq_attn_vquant_tiles"
+    else:
+        vq = torch.empty((B, N, C), dtype=torch.int8, device=v3.device)
+        fn, name = lib.vq_attn_vquant, "vq_attn_vquant"
+    _build.check(fn(v3.data_ptr(), vq.data_ptr(), vs.data_ptr(), B, N, C,
+                    v_block, _build.stream_ptr(v3)), name)
+    return vq, vs
+
+
+def _attention_seg_cuda(q3, k3, v3, H, scale2, seg_len, int8_pv, v_block,
+                        emit, emit_sym, need_rowsum):
+    """Seg mode on the card: the tiled kernel (emission inside it), or for
+    other shapes (`seg_tiled`) the row kernel, whose emission takes two
+    launches (each (row, head)'s output range, then the codes). Neither
+    writes an f32 output. Int8 PV first quantizes v per (v_block tokens x
+    channel) in the layout of the kernel it feeds."""
+    B, N, C = q3.shape
+    D = C // H
+    lib = _build.lib()
+    stream = _build.stream_ptr(q3)
+    tiled = seg_tiled(H, seg_len, int8_pv, v_block)
+    vs, v_arg = None, v3
+    vgroup, n_vgroups = N, 1
+    if int8_pv:
+        vgroup, n_vgroups = v_block, N // v_block
+        v_arg, vs = seg_v_codes_cuda(v3, v_block, tiled)
+    out = codes = scales = zp = rowsum = None
+    if emit:
+        codes = torch.empty((B * N, C), dtype=torch.int8, device=q3.device)
+        scales = torch.empty((B * N, 1), dtype=torch.float32,
+                             device=q3.device)
+        zp = None if emit_sym else torch.empty_like(scales)
+        if need_rowsum:  # the row kernel adds each head's code sum
+            rowsum = (torch.empty_like if tiled else torch.zeros_like)(scales)
+    else:
+        out = torch.empty((B, N, C), dtype=q3.dtype, device=q3.device)
+    ins = (q3.data_ptr(), k3.data_ptr(), v_arg.data_ptr(), _ptr(vs), vgroup,
+           n_vgroups, _ptr(out))
+    outs = (_ptr(codes), _ptr(scales), _ptr(zp), _ptr(rowsum), B, N, H, D,
+            seg_len, scale2, int(int8_pv))
+    mode = 0 if not emit else 1 if emit_sym else 2
+    if tiled:
+        _build.check(lib.vq_attention_seg(*ins, *outs, mode, stream),
+                     "vq_attention_seg")
+    else:
+        stats = (torch.empty((B * N, H, 2), dtype=torch.float32,
+                             device=q3.device) if emit else None)
+        for m in ((1, mode + 1) if emit else (0,)):
+            _build.check(lib.vq_attention_seg_rows(*ins, _ptr(stats), *outs,
+                                                   m, stream),
+                         "vq_attention_seg_rows")
+    COUNTERS["attention_bnhd"].launches += 1
+    if not emit:
+        return out.reshape(B, N, H, D)
     return _bn1(B, N, codes, scales, zp, rowsum)
 
 

@@ -30,8 +30,6 @@ from viditq_tpu_torch.kernels.fused_matmul import fused_dynq_int8_matmul
 
 # the implementations `LayerQuantSpec.impl` names (None = the default)
 IMPLS = (None, "xla", "mixed", "pallas", "fused")
-# K7a holds a row in registers: 128 threads x 8 vectors of 16 bytes
-DQ_MAX_ROW_BYTES = 128 * 8 * 16
 
 
 def pack_weight(kernel: torch.Tensor, delta: torch.Tensor, zp: torch.Tensor,
@@ -93,8 +91,6 @@ def dynamic_quant_rows(x: torch.Tensor, sym: bool = False):
     bf16 = is_bf16(x)
     require((K * x.element_size()) % 16 == 0 and x.data_ptr() % 16 == 0,
             f"rows must be 16-byte aligned (K={K}, {x.dtype})")
-    require(K * x.element_size() <= DQ_MAX_ROW_BYTES,
-            f"row of {K} {x.dtype} values above {DQ_MAX_ROW_BYTES} bytes")
     q = torch.empty((M, K), dtype=torch.int8, device=x.device)
     scale, zp, rowsum = (torch.empty((M, 1), dtype=torch.float32,
                                      device=x.device) for _ in range(3))
