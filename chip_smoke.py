@@ -17,8 +17,8 @@ Phases (any failure exits non-zero):
      PyTorch call computes the same function, that call's time (for the
      int8 GEMMs also torch._int_mm on a row-major weight and cuBLAS bf16
      at the same shape, and K2's emission split into its GEMM and its
-     group quantize; K3's seg mode and K7a also back to back); then K3
-     and K6 at the edge cases of their shared core (`EDGE_CASES`: ragged q
+     group quantize; K1, K4, K3's seg mode and K7a also back to back);
+     then K3 and K6 at the edge cases of their shared core (`EDGE_CASES`: ragged q
      and kv tiles, a kv block masked whole, head dim 16) and of K3's two
      seg kernels (seg 2 to 16 with ragged last tiles and asym emission on
      the tiled kernel; seg 48 and 1088, int8 PV past 1040 kv rows and
@@ -27,7 +27,11 @@ Phases (any failure exits non-zero):
      kernel), every K2 and K7b case identical to its plain version;
      The asymmetric modes (K1/K4 asym with row sums, K4's GELU, K2's
      zero-point epilogues, K5 asym, K3's and K6's asym emission) run at
-     the fused reference plan's main-path shapes;
+     the fused reference plan's main-path shapes; then K1 and K4 at the
+     edge cases of their row layouts (`ROW_EDGE_CASES`: f32 input, ragged
+     and unaligned rows, K5's 240 rows, the GELU on 19 rows, rows of
+     zeros, rows read in passes, C = 64, a batch boundary inside a block),
+     each with the main cases' tolerance;
   4. reference: tiny STDiT (sm8, the fused reference W8A8 and the
      reference W8A8 on the native backend) and tiny sm8 PixArt-Σ models on
      the card (kernels) against the same models on the CPU (plain
@@ -210,6 +214,48 @@ GEMM_EDGE_CASES = (
      dict(M=1000, K=1168, N=1152, out="f32")),
     ("int8_matmul", "A at an odd address (byte-wise kernel)",
      dict(M=300, K=256, N=192, offset=1)),
+)
+# K1 / K4 cases the main path does not reach (phase kernels, after the
+# asym cases), held to the main cases' tolerances: (kernel, case, shape and
+# mode). bf16 unless "f32"; `zero_rows` zeroes those rows (the 1e-6 scale
+# floor); K > 12288 (K4) and C > 1152 (K1) read a row in passes; K4 rows
+# that are not 16-byte aligned and K1 rows of any width but 1152 are read
+# element by element
+ROW_EDGE_CASES = (
+    ("quantize_rows", "f32 asym [8192,1152]",
+     dict(M=8192, K=1152, sym=False, f32=True)),
+    ("quantize_rows", "sym [8192,1152] (Σ K6 emission)",
+     dict(M=8192, K=1152, sym=True)),
+    ("quantize_rows", "asym [1000,72] (ragged K)", dict(M=1000, K=72,
+                                                        sym=False)),
+    ("quantize_rows", "asym [1000,1000] (ragged K)",
+     dict(M=1000, K=1000, sym=False)),
+    ("quantize_rows", "asym [64,1001] (unaligned rows)",
+     dict(M=64, K=1001, sym=False)),
+    ("quantize_rows", "asym [240,1152] (K5 kv_linear)",
+     dict(M=240, K=1152, sym=False)),
+    ("quantize_rows", "sym + rowsum [240,1152] (K5 kv_linear)",
+     dict(M=240, K=1152, sym=True, rowsum=True)),
+    ("quantize_rows", "gelu sym [19,4608]", dict(M=19, K=4608, sym=True,
+                                                 gelu=True)),
+    ("quantize_rows", "gelu asym [19,4608]", dict(M=19, K=4608, sym=False,
+                                                  gelu=True)),
+    ("quantize_rows", "asym [256,1152], zero rows",
+     dict(M=256, K=1152, sym=False, zero_rows=(0, 5, 255))),
+    ("quantize_rows", "sym [256,1152], zero rows",
+     dict(M=256, K=1152, sym=True, zero_rows=(0, 5, 255))),
+    ("quantize_rows", "gelu asym [64,16384] (rows in passes)",
+     dict(M=64, K=16384, sym=False, gelu=True)),
+    ("ln_modulate_quantize", "f32 [2,4096,1152]",
+     dict(B=2, N=4096, C=1152, sym=True, f32=True)),
+    ("ln_modulate_quantize", "asym [2,256,64] (C = 64)",
+     dict(B=2, N=256, C=64, sym=False)),
+    ("ln_modulate_quantize", "sym + rowsum [2,19,1152] (batch boundary "
+     "inside a block)", dict(B=2, N=19, C=1152, sym=True, rowsum=True)),
+    ("ln_modulate_quantize", "sym [2,64,70] (C % 4 != 0)",
+     dict(B=2, N=64, C=70, sym=True)),
+    ("ln_modulate_quantize", "asym [2,512,4096] (rows in passes)",
+     dict(B=2, N=512, C=4096, sym=False)),
 )
 INT_MM_NOTE = (" (torch._int_mm on the K-major weight: int32 product only, "
                "no epilogue)")
@@ -407,14 +453,14 @@ def int8_pv_slack(q, k, v, sc, seg_len, kv_mask, v_block, scales):
 
 def check_case(name, case, kernel_fn, plain_fn, records, cost=None,
                library_fn=None, library_note="", exact=False, asym=None,
-               slack_fn=None):
+               slack_fn=None, b2b=False):
     """Run kernel and plain version on the same inputs, compare every
     output (identical with exact; asym = ASYM_TOL[producer]: the outputs
     of an asym row quantizer by `compare_asym_rows`, its row sums
     unshifted; slack_fn(plain outputs): per-entry codes an int8-PV
     emission may differ beyond one, `int8_pv_slack`), time both and the
-    library call; append the result with its bound (cost = (bytes,
-    ops))."""
+    library call (b2b: the kernel also back to back, its device time);
+    append the result with its bound (cost = (bytes, ops))."""
     import torch
     got = kernel_fn()
     want = plain_fn()
@@ -477,6 +523,7 @@ def check_case(name, case, kernel_fn, plain_fn, records, cost=None,
         worst_frac = max(worst_frac, frac)
         worst_rel = max(worst_rel, rel)
     ms = cuda_ms(kernel_fn)
+    b2b_ms = cuda_ms_back_to_back(kernel_fn) if b2b else None
     plain_ms = cuda_ms(plain_fn, reps=3)
     bound_ms, bound_by = bound(*cost)
     library_ms = None
@@ -484,7 +531,8 @@ def check_case(name, case, kernel_fn, plain_fn, records, cost=None,
         library_ms = cuda_ms(library_fn)
     lib = ("" if library_ms is None
            else f" library {library_ms:.3f} ms{library_note}")
-    print(f"  {name:24s} {case:34s} kernel {ms:9.3f} ms  plain "
+    b2b_note = "" if b2b_ms is None else f" (back to back {b2b_ms:.4f})"
+    print(f"  {name:24s} {case:34s} kernel {ms:9.3f} ms{b2b_note}  plain "
           f"{plain_ms:9.3f} ms  bound {bound_ms:.4f} ms ({bound_by}){lib}"
           f"  | {'; '.join(parts)}", flush=True)
     records.setdefault(name, []).append(
@@ -526,13 +574,14 @@ def phase_kernels(records):
     check_case("ln_modulate_quantize", "[2,16384,1152]",
                lambda: FM.ln_modulate_quantize(x, sh, sc),
                lambda: FM.ln_modulate_quantize_plain(x, sh, sc), records,
-               cost=(2 * M * C + 2 * 2 * B * C + M * C + 4 * M, {}))
+               cost=(2 * M * C + 2 * 2 * B * C + M * C + 4 * M, {}),
+               b2b=True)
     # K4: the shared attn_temp q/k/v prequant
     x2 = x.reshape(M, C)
     check_case("quantize_rows", "[32768,1152]",
                lambda: FM.quantize_rows(x2),
                lambda: FM.quantize_rows_plain(x2), records,
-               cost=(2 * M * C + M * C + 4 * M, {}))
+               cost=(2 * M * C + M * C + 4 * M, {}), b2b=True)
 
     # K2: q/k/v/proj, fc1 emit (G=3), fc2 gw_x; every output identical to
     # the plain version (exact int32 sums, the same f32 operation order).
@@ -733,11 +782,7 @@ def phase_kernels(records):
                    lambda: IM.dynamic_quant_rows(xa, sym),
                    lambda: IM.dynamic_quant_rows_plain(xa, sym), records,
                    cost=((esize + 1) * m_rows * k + 12 * m_rows, {}),
-                   exact=True)
-        if case == "asym [32768,1152]":
-            b2b = cuda_ms_back_to_back(lambda: IM.dynamic_quant_rows(xa))
-            print(f"  dynamic_quant_rows {case}: kernel back to back "
-                  f"{b2b:.4f} ms", flush=True)
+                   exact=True, b2b=case == "asym [32768,1152]")
         del xa
 
     # K7b at the w8a8 arm's four shapes (asym x asym, bf16 out, bias),
@@ -769,6 +814,7 @@ def phase_kernels(records):
 
     gemm_edge_cases(records, randn, randi8, rands)
     asym_cases(records)
+    row_edge_cases(records)
     int8_pv_draws()
 
 
@@ -808,18 +854,18 @@ def asym_cases(records):
                lambda: FM.ln_modulate_quantize(x, sh, sc, sym=False),
                lambda: FM.ln_modulate_quantize_plain(x, sh, sc, sym=False),
                records, cost=(2 * M * C + 2 * 2 * B * C + M * C + 12 * M, {}),
-               asym=ASYM_TOL["ln"])
+               asym=ASYM_TOL["ln"], b2b=True)
     x2 = x.reshape(M, C)
     check_case("quantize_rows", "asym [32768,1152]",
                lambda: FM.quantize_rows(x2, sym=False),
                lambda: FM.quantize_rows_plain(x2, sym=False), records,
-               cost=(2 * M * C + M * C + 12 * M, {}), exact=True)
+               cost=(2 * M * C + M * C + 12 * M, {}), exact=True, b2b=True)
     h = randn(M, 4 * C)
     check_case("quantize_rows", "gelu asym [32768,4608] (fc1 -> fc2)",
                lambda: FM.quantize_rows(h, sym=False, gelu=True),
                lambda: FM.quantize_rows_plain(h, sym=False, gelu=True),
                records, cost=(2 * M * 4 * C + M * 4 * C + 12 * M, {}),
-               exact=True)
+               exact=True, b2b=True)
     del h
 
     # K2: asym acts x asym weights at q/k/v/proj, fc1 (bf16 out) and fc2
@@ -1054,6 +1100,53 @@ def gemm_edge_cases(records, randn, randi8, rands):
                             torch.empty((), dtype=out_dtype).element_size())
         check_case(name, f"edge {case}", kernel, plain, records, cost=cost,
                    exact=True)
+
+
+def row_edge_cases(records):
+    """K1 and K4 at the shapes ROW_EDGE_CASES lists, on draws of their own
+    generator, with the main cases' tolerances (K4 asym identical to its
+    plain version, sym codes by the code tolerance, K1 asym rows by
+    ASYM_TOL["ln"]), each timed one call and back to back."""
+    import torch
+    from viditq_tpu_torch.kernels import fused_matmul as FM
+    g = torch.Generator(device="cuda").manual_seed(2)
+
+    def randn(*shape, dtype=torch.bfloat16, scale=1.0):
+        return (torch.randn(shape, generator=g, device="cuda")
+                * scale).to(dtype)
+
+    for name, case, p in ROW_EDGE_CASES:
+        dt = torch.float32 if p.get("f32") else torch.bfloat16
+        esize = torch.empty((), dtype=dt).element_size()
+        sym, need_rowsum = p["sym"], p.get("rowsum", False)
+        # scale, zero point (asym) and row sum (asym or asked for) a row
+        row_floats = 4 * (1 + (not sym) + (not sym or need_rowsum))
+        if name == "quantize_rows":
+            M, K = p["M"], p["K"]
+            x = randn(M, K, dtype=dt, scale=2.0) + 0.2
+            for r in p.get("zero_rows", ()):
+                x[r] = 0
+            kw = dict(sym=sym, gelu=p.get("gelu", False),
+                      need_rowsum=need_rowsum)
+            check_case(name, f"edge {case}",
+                       lambda x=x, kw=kw: FM.quantize_rows(x, **kw),
+                       lambda x=x, kw=kw: FM.quantize_rows_plain(x, **kw),
+                       records, cost=((esize + 1) * M * K + row_floats * M,
+                                      {}), exact=not sym, b2b=True)
+        else:
+            B, N, C = p["B"], p["N"], p["C"]
+            x = randn(B, N, C, dtype=dt) + 0.2
+            sh, sc = (randn(B, 1, C, dtype=dt, scale=0.1) for _ in range(2))
+            kw = dict(sym=sym, need_rowsum=need_rowsum)
+            check_case(name, f"edge {case}",
+                       lambda x=x, sh=sh, sc=sc, kw=kw:
+                       FM.ln_modulate_quantize(x, sh, sc, **kw),
+                       lambda x=x, sh=sh, sc=sc, kw=kw:
+                       FM.ln_modulate_quantize_plain(x, sh, sc, **kw),
+                       records, cost=((esize + 1) * B * N * C
+                                      + 2 * esize * B * C
+                                      + row_floats * B * N, {}),
+                       asym=None if sym else ASYM_TOL["ln"], b2b=True)
 
 
 def attention_edge_cases(records, randn):

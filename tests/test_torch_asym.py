@@ -60,18 +60,23 @@ def check_rows(got, want, sym=False, scale_rtol=ULP):
         np.testing.assert_array_equal(jrs, jq.sum(1, keepdims=True))
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_k1_asym(dtype):
+# the models' full width (C = 1152) on 64 rows beside the narrow cases
+@pytest.mark.parametrize("dtype,N,C", [("float32", 256, 64),
+                                       ("bfloat16", 256, 64),
+                                       ("bfloat16", 32, 1152)],
+                         ids=["float32", "bfloat16", "bfloat16-C1152"])
+def test_k1_asym(dtype, N, C):
     rng = np.random.default_rng(30)
-    x = rng.standard_normal((2, 256, 64)).astype(np.float32) * 2 + 0.3
-    sh = rng.standard_normal((2, 1, 64)).astype(np.float32) * 0.2 + 0.3
-    sc = rng.standard_normal((2, 1, 64)).astype(np.float32) * 0.2
+    x = rng.standard_normal((2, N, C)).astype(np.float32) * 2 + 0.3
+    sh = rng.standard_normal((2, 1, C)).astype(np.float32) * 0.2 + 0.3
+    sc = rng.standard_normal((2, 1, C)).astype(np.float32) * 0.2
     jx, jsh, jsc = (jnp.asarray(a, jnp.dtype(dtype)) for a in (x, sh, sc))
-    want = interp(jfm.ln_modulate_quantize, jx, jsh, jsc, sym=False)
+    want = interp(jfm.ln_modulate_quantize, jx, jsh, jsc, sym=False,
+                  block_m=min(256, N))
     got = FM.ln_modulate_quantize(
         *(t(np.asarray(a, np.float32)).to(getattr(torch, dtype))
           for a in (jx, jsh, jsc)), sym=False)
-    assert got[0].shape == (512, 64)
+    assert got[0].shape == (2 * N, C)
     check_rows(got, want, scale_rtol=1e-5)
 
 
@@ -87,16 +92,23 @@ def test_k1_sym_rowsum():
     check_rows(got, want, sym=True, scale_rtol=1e-5)
 
 
-@pytest.mark.parametrize("sym,gelu", [(False, False), (True, True),
-                                      (False, True)],
-                         ids=["asym", "gelu-sym", "gelu-asym"])
-def test_k4_quantize_rows(sym, gelu):
+# f32 rows of 256, and the fc1 -> fc2 handoff's full width (K = 4608, bf16
+# as fc1 writes it) on 32 rows
+@pytest.mark.parametrize("sym,gelu,M,K,dtype", [
+    (False, False, 96, 256, "float32"), (True, True, 96, 256, "float32"),
+    (False, True, 96, 256, "float32"), (True, True, 32, 4608, "bfloat16"),
+    (False, True, 32, 4608, "bfloat16")],
+    ids=["asym", "gelu-sym", "gelu-asym", "gelu-sym-K4608-bf16",
+         "gelu-asym-K4608-bf16"])
+def test_k4_quantize_rows(sym, gelu, M, K, dtype):
     rng = np.random.default_rng(32)
-    x = (rng.standard_normal((96, 256)) * 2 + 0.4).astype(np.float32)
+    x = (rng.standard_normal((M, K)) * 2 + 0.4).astype(np.float32)
     x[5] = 0.0  # all-zero row: the 1e-6 scale floor
-    want = interp(jfm.quantize_rows_fused, jnp.asarray(x), sym=sym,
+    jx = jnp.asarray(x, jnp.dtype(dtype))
+    want = interp(jfm.quantize_rows_fused, jx, sym=sym,
                   gelu=gelu, need_rowsum=False, block_m=32)
-    got = FM.quantize_rows(t(x), sym=sym, gelu=gelu)
+    got = FM.quantize_rows(t(np.asarray(jx, np.float32)).to(
+        getattr(torch, dtype)), sym=sym, gelu=gelu)
     # the GELU's tanh differs by an ulp between the libraries, and the
     # scale is the row's largest GELU output over 127 or its range / 255
     check_rows(got, want, sym=sym, scale_rtol=1e-6 if gelu else ULP)

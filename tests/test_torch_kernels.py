@@ -62,20 +62,24 @@ def interp(fn, *args, **kw):
         return jax.tree.map(np.asarray, fn(*args, **kw))
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_k1_ln_modulate_quantize(dtype):
+# the models' full width (C = 1152, the kernel's one-read layout) on 64 rows
+@pytest.mark.parametrize("dtype,N,C", [("float32", 256, 64),
+                                       ("bfloat16", 256, 64),
+                                       ("bfloat16", 32, 1152)],
+                         ids=["float32", "bfloat16", "bfloat16-C1152"])
+def test_k1_ln_modulate_quantize(dtype, N, C):
     rng = np.random.default_rng(0)
-    x = rng.standard_normal((2, 256, 64)).astype(np.float32) * 2 + 0.3
-    sh = rng.standard_normal((2, 1, 64)).astype(np.float32) * 0.2
-    sc = rng.standard_normal((2, 1, 64)).astype(np.float32) * 0.2
+    x = rng.standard_normal((2, N, C)).astype(np.float32) * 2 + 0.3
+    sh = rng.standard_normal((2, 1, C)).astype(np.float32) * 0.2
+    sc = rng.standard_normal((2, 1, C)).astype(np.float32) * 0.2
     jd = jnp.dtype(dtype)
     jx, jsh, jsc = (jnp.asarray(a, jd) for a in (x, sh, sc))
     q, s, zp, rs = interp(jfm.ln_modulate_quantize, jx, jsh, jsc, sym=True,
-                          need_rowsum=False)
+                          need_rowsum=False, block_m=min(256, N))
     td = getattr(torch, dtype)
     pq, ps, _, _ = FM.ln_modulate_quantize(
         *(t(np.asarray(a, np.float32)).to(td) for a in (jx, jsh, jsc)))
-    assert pq.shape == (512, 64) and pq.dtype == torch.int8
+    assert pq.shape == (2 * N, C) and pq.dtype == torch.int8
     assert_codes_close(pq, q)
     np.testing.assert_allclose(ps.numpy(), s, rtol=1e-5)
 

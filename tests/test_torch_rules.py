@@ -367,3 +367,38 @@ def test_chip_smoke_carries_the_gemm_edge_cases():
                  'check_case("int8_matmul", case,'):
         call = src[src.index(case):]
         assert "exact=True" in call[:call.index("\n\n")], case
+
+
+def test_chip_smoke_carries_the_row_edge_cases():
+    import chip_smoke
+    cases = chip_smoke.ROW_EDGE_CASES
+    k4 = [p for name, _, p in cases if name == "quantize_rows"]
+    k1 = [p for name, _, p in cases if name == "ln_modulate_quantize"]
+    # K4: f32 and bf16 at Σ's K6 emission shape, ragged K, K5's 240 rows,
+    # the GELU on 19 rows both ways, rows of zeros, rows read in passes and
+    # rows that are not 16-byte aligned
+    assert any(p.get("f32") and (p["M"], p["K"]) == (8192, 1152) for p in k4)
+    assert any(not p.get("f32") and (p["M"], p["K"]) == (8192, 1152)
+               for p in k4)
+    assert {72, 1000} <= {p["K"] for p in k4}
+    assert any((p["M"], p["K"]) == (240, 1152) for p in k4)
+    assert {True, False} <= {p["sym"] for p in k4
+                             if p.get("gelu") and (p["M"], p["K"]) == (19,
+                                                                       4608)}
+    assert any(p.get("zero_rows") for p in k4)
+    assert any(p["K"] > 12288 for p in k4)
+    assert any(p["K"] * 2 % 16 for p in k4)
+    # K1: f32 input, C = 64, rows crossing the batch boundary inside a
+    # block of 8 rows, C % 4 != 0, a row wider than one read
+    assert any(p.get("f32") for p in k1)
+    assert any(p["C"] == 64 for p in k1)
+    assert any(p["B"] == 2 and p["N"] == 19 for p in k1)
+    assert any(p["C"] % 4 for p in k1) and any(p["C"] > 1152 for p in k1)
+    src = Path(chip_smoke.__file__).read_text()
+    assert "row_edge_cases(records)" in src
+    body = src[src.index("def row_edge_cases"):]
+    body = body[:body.index("\ndef ")]
+    # K4 asym identical, K1 asym rows by ASYM_TOL["ln"], each timed back to
+    # back beside one call
+    assert "exact=not sym" in body and 'ASYM_TOL["ln"]' in body
+    assert "b2b=True" in body

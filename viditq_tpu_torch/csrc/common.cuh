@@ -50,6 +50,48 @@ __device__ __forceinline__ int8_t round_sat_s8(float v) {
   return static_cast<int8_t>(static_cast<int>(r));
 }
 
+// four ints saturated to int8 and packed, c0 in the lowest byte
+// (cvt.pack.sat: two instructions for the clamp and the pack of four)
+__device__ __forceinline__ uint32_t pack_sat_s8(int c0, int c1, int c2,
+                                                int c3) {
+  uint32_t hi, out;
+  asm("cvt.pack.sat.s8.s32.b32 %0, %1, %2, 0;\n"
+      : "=r"(hi)
+      : "r"(c3), "r"(c2));
+  asm("cvt.pack.sat.s8.s32.b32 %0, %1, %2, %3;\n"
+      : "=r"(out)
+      : "r"(c1), "r"(c0), "r"(hi));
+  return out;
+}
+
+// the sum of a word's four int8 codes, added to acc
+__device__ __forceinline__ int sum_s8x4(uint32_t w, int acc) {
+  return __dp4a(static_cast<int>(w), 0x01010101, acc);
+}
+
+// --- 16-byte vectors of bf16 or f32 (K1, K4, K7a)
+
+__device__ __forceinline__ uint32_t word(const uint4& r, int i) {
+  return i == 0 ? r.x : i == 1 ? r.y : i == 2 ? r.z : r.w;
+}
+
+// the bf16 value in the low (hi = 0) or high half of a word, as float
+__device__ __forceinline__ float bf16_half(uint32_t w, int hi) {
+  return __uint_as_float(hi ? (w & 0xffff0000u) : (w << 16));
+}
+
+// element e of a 16-byte vector of T, as float (exact)
+template <typename T>
+__device__ __forceinline__ float elem(const uint4& r, int e);
+template <>
+__device__ __forceinline__ float elem<__nv_bfloat16>(const uint4& r, int e) {
+  return bf16_half(word(r, e >> 1), e & 1);
+}
+template <>
+__device__ __forceinline__ float elem<float>(const uint4& r, int e) {
+  return __uint_as_float(word(r, e));
+}
+
 // The row quantizer of the fused producers (K1, K4, K3's asym emission;
 // `_quantize_rows_f32`, fused_matmul.py:118-137), every division a true
 // IEEE division:
@@ -76,6 +118,18 @@ struct RowQuant {
       const float c = fminf(fmaxf(rintf(x * inv) + zp, -128.0f), 127.0f);
       return static_cast<int8_t>(static_cast<int>(c));
     }
+  }
+  // the codes of x[0..3] packed into a word, x[0] in the lowest byte: the
+  // same codes as code<SYM> (rint(x * inv) is an integer, and |x * inv| <=
+  // 255 (asym) or 127 (sym) for finite x, so adding zp in int32 and
+  // saturating is the float clip)
+  template <bool SYM>
+  __device__ __forceinline__ uint32_t pack4(const float* x) const {
+    const int z = SYM ? 0 : static_cast<int>(zp);
+    return pack_sat_s8(__float2int_rn(x[0] * inv) + z,
+                       __float2int_rn(x[1] * inv) + z,
+                       __float2int_rn(x[2] * inv) + z,
+                       __float2int_rn(x[3] * inv) + z);
   }
   // one warp's row: lane 0 writes the scale, the zero point (asym) and the
   // code sum (where rowsum is not null; sum: this lane's partial sum, an

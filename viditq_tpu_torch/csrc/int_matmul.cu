@@ -42,22 +42,7 @@ namespace {
 
 constexpr int DQ_WARPS = 8;  // rows a block
 
-__device__ __forceinline__ uint32_t word(const uint4& r, int i) {
-  return i == 0 ? r.x : i == 1 ? r.y : i == 2 ? r.z : r.w;
-}
-
-// element e of a 16-byte vector of T, as float (exact)
-template <typename T>
-__device__ __forceinline__ float elem(const uint4& r, int e);
-template <>
-__device__ __forceinline__ float elem<__nv_bfloat16>(const uint4& r, int e) {
-  return __uint_as_float(((word(r, e >> 1) >> (16 * (e & 1))) & 0xffffu)
-                         << 16);
-}
-template <>
-__device__ __forceinline__ float elem<float>(const uint4& r, int e) {
-  return __uint_as_float(word(r, e));
-}
+using vq::elem;  // 16-byte vectors of T (common.cuh)
 
 // One warp per row of x [M, K]; CPL chunks of 16 elements a lane at a time;
 // RESIDENT: the whole row fits them (one read), else two reads in passes.

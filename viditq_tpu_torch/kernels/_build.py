@@ -170,7 +170,7 @@ def stream_ptr(t) -> int:
     builds a Stream object on every call, a cost every kernel wrapper paid
     once a launch."""
     import torch
-    return torch._C._cuda_getCurrentRawStream(t.device.index)
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
 if __name__ == "__main__":

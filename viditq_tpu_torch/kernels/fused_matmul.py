@@ -111,8 +111,15 @@ def _out_ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
-def _f32_col(n: int, device):
-    return torch.empty((n, 1), dtype=torch.float32, device=device)
+def _row_tables(n: int, device, sym: bool, need_rowsum: bool):
+    """A row quantizer's [n, 1] f32 outputs as views of one allocation (one
+    allocator call a launch, not three): the scale, the zero point (asym)
+    and the code row sum (asym, or when asked for)."""
+    with_rs = not sym or need_rowsum
+    k = 1 + (not sym) + with_rs
+    buf = torch.empty((k, n, 1), dtype=torch.float32, device=device)
+    return (buf[0], None if sym else buf[1],
+            buf[k - 1] if with_rs else None)
 
 
 # ---------------------------------------------------------------------------
@@ -155,9 +162,7 @@ def ln_modulate_quantize(x: torch.Tensor, shift: torch.Tensor,
     require(shift.dtype == x.dtype and scale.dtype == x.dtype,
             "shift/scale must have x's dtype")
     q = torch.empty((B * N, C), dtype=torch.int8, device=x.device)
-    qs = _f32_col(B * N, x.device)
-    zp = None if sym else _f32_col(B * N, x.device)
-    rs = _f32_col(B * N, x.device) if not sym or need_rowsum else None
+    qs, zp, rs = _row_tables(B * N, x.device, sym, need_rowsum)
     _build.check(_build.lib().vq_ln_mod_quant(
         x.data_ptr(), shift.data_ptr(), scale.data_ptr(), q.data_ptr(),
         qs.data_ptr(), _out_ptr(zp), _out_ptr(rs), B, N, C, float(eps),
@@ -192,9 +197,7 @@ def quantize_rows(x: torch.Tensor, sym: bool = True, gelu: bool = False,
     require(x.dim() == 2 and x.is_contiguous(), "x must be contiguous [M, K]")
     M, K = x.shape
     q = torch.empty((M, K), dtype=torch.int8, device=x.device)
-    qs = _f32_col(M, x.device)
-    zp = None if sym else _f32_col(M, x.device)
-    rs = _f32_col(M, x.device) if not sym or need_rowsum else None
+    qs, zp, rs = _row_tables(M, x.device, sym, need_rowsum)
     _build.check(_build.lib().vq_quant_rows(
         x.data_ptr(), q.data_ptr(), qs.data_ptr(), _out_ptr(zp), _out_ptr(rs),
         M, K, int(gelu), is_bf16(x), _build.stream_ptr(x)), "vq_quant_rows")
