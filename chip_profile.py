@@ -29,6 +29,8 @@ ROOT = Path(__file__).resolve().parent
 
 # kernel-name fragments -> group (first match wins)
 GROUPS = (
+    # K5's kernel names carry its epilogue's (ZpEpilogue, int8_gemm_epilogue)
+    ("dynq_gemm", "K5 quantize-in int8 GEMM"),
     ("attn_stream_kernel", "K6 attention (stream)"),
     ("attn_seg", "K3 attention (seg, temporal)"),
     ("attn_kernel", "K3 attention (one-shot)"),

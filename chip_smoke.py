@@ -31,7 +31,10 @@ Phases (any failure exits non-zero):
      edge cases of their row layouts (`ROW_EDGE_CASES`: f32 input, ragged
      and unaligned rows, K5's 240 rows, the GELU on 19 rows, rows of
      zeros, rows read in passes, C = 64, a batch boundary inside a block),
-     each with the main cases' tolerance;
+     each with the main cases' tolerance; K5 in every mode identical to
+     the K4 -> K2 route composed in the same run, timed beside it and
+     cuBLAS bf16, also at `K5_EDGE_CASES` (ragged tiles, narrow and
+     unaligned K, f32 input, zero rows; the shapes it refuses);
   4. reference: tiny STDiT (sm8, the fused reference W8A8 and the
      reference W8A8 on the native backend) and tiny sm8 PixArt-Σ models on
      the card (kernels) against the same models on the CPU (plain
@@ -257,6 +260,38 @@ ROW_EDGE_CASES = (
     ("ln_modulate_quantize", "asym [2,512,4096] (rows in passes)",
      dict(B=2, N=512, C=4096, sym=False)),
 )
+# K5 cases the main path does not reach (phase kernels, after the row edge
+# cases), each identical to the K4 -> K2 route and held to the main cases'
+# tolerance against the plain version: (case, shape and mode). mode "sym":
+# sym x sym; "symx": sym acts x asym weights; "asym": asym x asym. bf16 x
+# unless "f32". The kernel's codes of one 128-row tile stay in shared
+# memory, so K <= 1152, and it reads x in 16-byte aligned rows: the next
+# wider K and an unaligned row must be refused.
+K5_EDGE_CASES = (
+    ("M=19 sym [19,1152]x[1152,1152]", dict(M=19, K=1152, N=1152)),
+    ("M=240 symx (ragged M tile)", dict(M=240, K=1152, N=2304,
+                                        mode="symx")),
+    ("M=300 asym (three M tiles, the last ragged)",
+     dict(M=300, K=1152, N=1152, mode="asym")),
+    ("N=1008 asym f32 out (ragged N tile)",
+     dict(M=1000, K=1152, N=1008, mode="asym", f32_out=True)),
+    ("K=72 sym (K % 16 != 0: W^T loaded byte-wise)",
+     dict(M=300, K=72, N=192)),
+    ("K=64 asym (one k-tile, the tiny models' width)",
+     dict(M=256, K=64, N=192, mode="asym")),
+    ("f32 x asym [1000,1152]", dict(M=1000, K=1152, N=1152, mode="asym",
+                                    f32=True)),
+    ("asym [256,1152], zero rows", dict(M=256, K=1152, N=1152, mode="asym",
+                                        zero_rows=(0, 5, 255))),
+    ("sym [256,1152], zero rows", dict(M=256, K=1152, N=1152,
+                                       zero_rows=(0, 5, 255))),
+    ("K=1152 symx (the widest K taken)", dict(M=500, K=1152, N=576,
+                                               mode="symx")),
+    ("K=1168 refused (the next K TMA takes)",
+     dict(M=64, K=1168, N=192, refused=True)),
+    ("K=1004 refused (rows not 16-byte aligned)",
+     dict(M=64, K=1004, N=192, refused=True)),
+)
 INT_MM_NOTE = (" (torch._int_mm on the K-major weight: int32 product only, "
                "no epilogue)")
 
@@ -276,7 +311,7 @@ SOURCES = {
     "int8_consumer_matmul": "viditq_tpu_torch/csrc/int8_gemm.cu",
     "attention_bnhd": "viditq_tpu_torch/csrc/attention.cu",
     "quantize_rows": "viditq_tpu_torch/csrc/quant_rows.cu",
-    "fused_dynq_int8_matmul": "viditq_tpu_torch/kernels/fused_matmul.py",
+    "fused_dynq_int8_matmul": "viditq_tpu_torch/csrc/dynq_gemm.cu",
     "attention_bnhd_stream": "viditq_tpu_torch/csrc/attention_stream.cu",
     "dynamic_quant_rows": "viditq_tpu_torch/csrc/int_matmul.cu",
     "int8_matmul": "viditq_tpu_torch/csrc/int_matmul.cu",
@@ -300,13 +335,14 @@ ARM_PLANS = {"sm8": SM8_PLAN, "w8a8": W8A8_PLAN, "fused": FUSED_PLAN,
              "sym": SYM_PLAN}
 # launches per block and CFG forward of an arm held to its exact count:
 # the fused reference plan's (K1 at norm1 and norm2; K2 at the 9 linears
-# on a prequant, fc1 and the two inside K5; K3 at the three sites; K4 for
-# the temporal q/k/v, inside the two K5s and at the GELU handoff; K5 at
-# cross q_linear and kv_linear): tests/test_torch_fused.py audits the same
-# counts on the CPU
+# on a prequant (q/k/v twice, the three projs, fc2) and fc1; K3 at the
+# three sites; K4 for the temporal q/k/v and at the GELU handoff; K5, one
+# launch of its own, at cross q_linear and kv_linear): the CPU audit in
+# tests/test_torch_fused.py counts the plain calls, where the plain K5
+# still calls K4's and K2's plain versions (13 and 4)
 BLOCK_LAUNCHES = {("stdit", "fused"): {
-    "ln_modulate_quantize": 2, "int8_consumer_matmul": 13,
-    "attention_bnhd": 3, "quantize_rows": 4, "fused_dynq_int8_matmul": 2}}
+    "ln_modulate_quantize": 2, "int8_consumer_matmul": 11,
+    "attention_bnhd": 3, "quantize_rows": 2, "fused_dynq_int8_matmul": 2}}
 
 
 def fail(msg: str):
@@ -747,19 +783,16 @@ def phase_kernels(records):
 
     attention_edge_cases(records, randn)
 
-    # K5 (K4 -> K2): cross_attn.kv_linear and cross_attn.q_linear
+    # K5 (one launch of csrc/dynq_gemm.cu): cross_attn.kv_linear and
+    # cross_attn.q_linear, sym x sym (the sm8 and sym arms, Σ sm8)
     for case, (m_rows, n) in (
             ("kv_linear [240,1152]x[1152,2304]", (B * P, 2 * C)),
             ("q_linear [32768,1152]x[1152,1152]", (M, C))):
         xa = randn(m_rows, C)
         wa, wsa = randw(C, n), rands(1, n, lo=1e-4, hi=1e-3)
         ba = randn(n, dtype=torch.float32, scale=0.1)
-        check_case("fused_dynq_int8_matmul", case,
-                   lambda: FM.fused_dynq_int8_matmul(xa, wa, wsa, ba),
-                   lambda: FM.fused_dynq_int8_matmul_plain(xa, wa, wsa, ba),
-                   records, cost=(2 * m_rows * C + C * n + 8 * n
-                                  + 2 * m_rows * n,
-                                  {"int8": 2 * m_rows * n * C}))
+        check_k5(records, case, xa, wa, wsa, ba)
+        del xa
 
     # K7a (the native backend's act quantize): every step is exact or
     # correctly rounded, so codes, scales, zp and rowsum are identical. A
@@ -815,7 +848,115 @@ def phase_kernels(records):
     gemm_edge_cases(records, randn, randi8, rands)
     asym_cases(records)
     row_edge_cases(records)
+    k5_edge_cases(records)
     int8_pv_draws()
+
+
+def k5_route(x, w, ws, b, out_dtype=None, sym=True, sym_w=True, w_zp=None,
+             w_colsum=None):
+    """K5's function as the port served it before its own kernel: K4's row
+    quantize, then K2 on the codes (two launches). K2 takes K % 64 == 0: a
+    narrower sym K runs on codes and weights padded with zero codes, which
+    add nothing to the int32 sums (asym acts would change K's term)."""
+    import torch
+    import torch.nn.functional as F
+    from viditq_tpu_torch.kernels import fused_matmul as FM
+    from viditq_tpu_torch.kernels._common import k_major
+    q, s, zp, rs = FM.quantize_rows(x, sym, need_rowsum=not (sym and sym_w))
+    K = x.shape[1]
+    if K % 64:
+        if not sym:
+            fail("the K4 -> K2 route takes asym acts at K % 64 == 0 only")
+        pad = -K % 64
+        q = F.pad(q, (0, pad))
+        w = k_major(F.pad(w, (0, 0, 0, pad)))
+    return FM.int8_consumer_matmul(
+        q, s, w, ws, b, out_dtype or torch.bfloat16, x_zp=zp, x_rowsum=rs,
+        w_zp=None if sym_w else w_zp, w_colsum=w_colsum)
+
+
+def check_k5(records, case, x, w, ws, b, timed=True, **kw):
+    """K5 at one shape and mode, three ways: (a) identical to the K4 -> K2
+    route (`k5_route`) on the same inputs in this run; (b) against its plain
+    version by `check_case` (float outputs to REL_ERR: the plain sym row
+    quantize divides by 127 as a reciprocal multiply on the card); (c) timed
+    one call and back to back beside the route back to back and cuBLAS bf16
+    x @ W of the same shape (unquantized; the library time)."""
+    import torch
+    from viditq_tpu_torch.kernels import _counters
+    from viditq_tpu_torch.kernels import fused_matmul as FM
+    name = "fused_dynq_int8_matmul"
+    counts = {k: _counters.COUNTERS[k].launches
+              for k in ("quantize_rows", "int8_consumer_matmul", name)}
+    got = FM.fused_dynq_int8_matmul(x, w, ws, b, **kw)
+    moved = {k: _counters.COUNTERS[k].launches - n
+             for k, n in counts.items()}
+    if moved != {"quantize_rows": 0, "int8_consumer_matmul": 0, name: 1}:
+        fail(f"{name}/{case}: one call launched {moved}")
+    want = k5_route(x, w, ws, b, **kw)
+    if not torch.equal(got, want):
+        d = (got.float() - want.float()).abs()
+        fail(f"{name}/{case}: differs from the K4 -> K2 route at "
+             f"{int((d > 0).sum())} entries (max abs {float(d.max())})")
+    m, k = x.shape
+    n = w.shape[1]
+    out_bytes = 4 if kw.get("out_dtype") == torch.float32 else 2
+    tables = 2 + (not kw.get("sym_w", True)) + (not kw.get("sym", True))
+    cost = (x.element_size() * m * k + k * n + 4 * tables * n
+            + out_bytes * m * n, {"int8": 2 * m * n * k})
+    xb, wb = x.to(torch.bfloat16), w.to(torch.bfloat16)
+    check_case(name, case, lambda: FM.fused_dynq_int8_matmul(x, w, ws, b, **kw),
+               lambda: FM.fused_dynq_int8_matmul_plain(x, w, ws, b, **kw),
+               records, cost=cost, library_fn=lambda: xb @ wb,
+               library_note=" (cuBLAS bf16 x @ W, unquantized)", b2b=timed)
+    if timed:
+        route = cuda_ms_back_to_back(lambda: k5_route(x, w, ws, b, **kw))
+        lib = cuda_ms_back_to_back(lambda: xb @ wb)
+        print(f"  yardsticks {name} {case}: identical to the K4 -> K2 route; "
+              f"route back to back {route:.4f} ms; cuBLAS bf16 x @ W back "
+              f"to back {lib:.4f} ms", flush=True)
+
+
+def k5_edge_cases(records):
+    """K5 at the shapes K5_EDGE_CASES lists, on draws of their own
+    generator, each identical to the K4 -> K2 route and within tolerance of
+    its plain version (`check_k5`); a shape the kernel does not take must
+    be refused with ValueError before any launch."""
+    import torch
+    from viditq_tpu_torch.kernels import _counters
+    from viditq_tpu_torch.kernels import fused_matmul as FM
+    g = torch.Generator(device="cuda").manual_seed(3)
+    print("phase kernels: K5 edge cases", flush=True)
+    for case, p in K5_EDGE_CASES:
+        m, k, n, mode = p["M"], p["K"], p["N"], p.get("mode", "sym")
+        dt = torch.float32 if p.get("f32") else torch.bfloat16
+        x = (torch.randn((m, k), generator=g, device="cuda") * 2.0
+             + 0.2).to(dt)
+        for r in p.get("zero_rows", ()):
+            x[r] = 0
+        w = torch.randint(-128, 128, (n, k), generator=g, device="cuda",
+                          dtype=torch.int8).t()
+        ws = 1e-4 + 9e-4 * torch.rand((1, n), generator=g, device="cuda")
+        b = torch.randn(n, generator=g, device="cuda") * 0.1
+        kw = dict(sym=mode != "asym", sym_w=mode == "sym")
+        if mode != "sym":
+            kw.update(w_zp=torch.randint(-20, 20, (1, n), generator=g,
+                                         device="cuda").float(),
+                      w_colsum=w.float().sum(dim=0, keepdim=True))
+        if p.get("f32_out"):
+            kw["out_dtype"] = torch.float32
+        if p.get("refused"):
+            before = _counters.snapshot()
+            try:
+                FM.fused_dynq_int8_matmul(x, w, ws, b, **kw)
+            except ValueError as e:
+                if _counters.snapshot() != before:
+                    fail(f"K5 {case}: a refused call launched a kernel")
+                print(f"  fused_dynq_int8_matmul edge {case}: refused "
+                      f"({e})", flush=True)
+                continue
+            fail(f"K5 {case}: [{m},{k}]x[{k},{n}] was not refused")
+        check_k5(records, f"edge {case}", x, w, ws, b, timed=False, **kw)
 
 
 def asym_cases(records):
@@ -892,18 +1033,19 @@ def asym_cases(records):
                                                        **kw))
         del xq, xs, xz, xr
 
-    # K5 (K4 -> K2): cross_attn.kv_linear, asym acts x asym weights
-    xa = randn(B * P, C)
-    wa, wza, wca = randw(C, 2 * C)
-    wsa, ba = rands(1, 2 * C), randn(2 * C, dtype=torch.float32, scale=0.1)
-    kw5 = dict(sym=False, sym_w=False, w_zp=wza, w_colsum=wca)
-    check_case("fused_dynq_int8_matmul",
-               "asym kv_linear [240,1152]x[1152,2304]",
-               lambda: FM.fused_dynq_int8_matmul(xa, wa, wsa, ba, **kw5),
-               lambda: FM.fused_dynq_int8_matmul_plain(xa, wa, wsa, ba,
-                                                       **kw5), records,
-               cost=(2 * B * P * C + C * 2 * C + 16 * 2 * C
-                     + 2 * B * P * 2 * C, {"int8": 2 * B * P * 2 * C * C}))
+    # K5 (one launch): cross_attn.kv_linear and q_linear, asym acts x asym
+    # weights (the fused arm), and kv_linear with sym acts x asym weights
+    for case, (m_rows, n, sym) in (
+            ("asym kv_linear [240,1152]x[1152,2304]", (B * P, 2 * C, False)),
+            ("asym q_linear [32768,1152]x[1152,1152]", (M, C, False)),
+            ("sym x asym-weight kv_linear [240,1152]x[1152,2304]",
+             (B * P, 2 * C, True))):
+        xa = randn(m_rows, C)
+        wa, wza, wca = randw(C, n)
+        wsa, ba = rands(1, n), randn(n, dtype=torch.float32, scale=0.1)
+        check_k5(records, case, xa, wa, wsa, ba, sym=sym, sym_w=False,
+                 w_zp=wza, w_colsum=wca)
+        del xa
 
     # K3: asym emission with row sums, bf16 PV, at the three STDiT sites
     mask = torch.ones((B, P), dtype=torch.int32, device=dev)

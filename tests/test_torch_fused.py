@@ -125,8 +125,10 @@ def test_cpu_fused_asym_forward_runs_only_the_fused_plain_versions(
     # prequant (q/k/v twice, the three projs, fc1 in bf16, fc2), and for
     # cross q_linear and kv_linear inside K5; K4 for the temporal q/k/v,
     # inside the two K5s and the GELU handoff; K3 with asym emission at
-    # each of the three attention sites
+    # each of the three attention sites; K5's plain version at q_linear and
+    # kv_linear (its wrapper's CPU path, which calls K4's and K2's)
     depth = len(port.blocks)
+    assert calls.pop("fused_dynq_int8_matmul_plain") == 2 * depth
     assert calls.pop("ln_modulate_quantize_plain") == 2 * depth
     assert calls.pop("int8_consumer_matmul_plain") == 13 * depth
     assert calls.pop("quantize_rows_plain") == 4 * depth

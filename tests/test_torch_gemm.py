@@ -263,13 +263,15 @@ def test_group_quantize_lane_order_matches_plain():
 
 
 def test_gemm_tiles_divide_the_main_path_widths():
-    # every tile width of K2 and K7b divides the main path's N (1152, 2304,
-    # 4608): no ragged last tile there. K2's epilogues are in int8_gemm.cu,
-    # the zero-point one (K7b's and K2's) in the core, int8_mma.cuh
-    for name in ("int8_gemm.cu", "int8_mma.cuh"):
+    # every tile width of K2, K5 and K7b divides the main path's N (1152,
+    # 2304, 4608): no ragged last tile there. The epilogues (K2's sym one,
+    # and the zero-point one of K7b and K2) are in the core, int8_mma.cuh;
+    # K5's kernel has its own tile width
+    for name in ("int8_mma.cuh", "dynq_gemm.cu"):
         src = (_build.CSRC / name).read_text()
-        rules = re.findall(r"static constexpr int BN = ([^;]*);", src)
+        rules = re.findall(r"constexpr int BN = ([^;]*);", src)
         assert rules, name
         for width in map(int, re.findall(r"\d+", " ".join(rules))):
             assert all(n % width == 0 for n in (1152, 2304, 4608)), width
     assert "ZpEpilogue" in (_build.CSRC / "int_matmul.cu").read_text()
+    assert "int8_gemm_epilogue" in (_build.CSRC / "int8_gemm.cu").read_text()

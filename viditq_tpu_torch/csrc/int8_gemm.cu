@@ -23,8 +23,8 @@
 // (M = 32768, K/N in 1152..4608: ~100-300 int8 ops per byte moved). The
 // product is the TMA + s8 wgmma core of int8_mma.cuh (K-major weight,
 // 128x192 tiles; 128x128 in gw_x, whose f32 accumulator doubles the
-// registers a thread holds); this file holds the epilogues, the
-// zero-point ones in the core's ZpEpilogue, which K7b's is too. The emission's
+// registers a thread holds); its epilogues are the core's
+// (int8_mma.cuh: int8_gemm_epilogue, and ZpEpilogue, which K7b's is too). The emission's
 // row max spans a whole 1536-column group, wider than a tile, hence the f32
 // scratch and the second pass.
 #include <type_traits>
@@ -33,61 +33,7 @@
 
 namespace {
 
-__device__ __forceinline__ float gelu_tanh(float o) {
-  // 0.5 * o * (1 + tanh(sqrt(2/pi) * (o + 0.044715 * o^3))), o^3 = (o*o)*o
-  const float o3 = o * o * o;
-  return 0.5f * o * (1.0f + tanhf(0.7978845608028654f * (o + 0.044715f * o3)));
-}
-
-// The epilogue of int8_mma.cuh's kernel. OUT_KIND: 0 = bf16 out, 1 = f32
-// out, 2 = f32 gelu(out) (emission scratch).
-template <bool GW_, int OUT_KIND>
-struct int8_gemm_epilogue {
-  using Out = typename std::conditional<OUT_KIND == 0, __nv_bfloat16,
-                                        float>::type;
-  static constexpr bool GW = GW_;
-  static constexpr int BN = GW ? 128 : 192;
-  struct Row {
-    float xs;  // the row's scale (G == 1)
-  };
-  const float* xs;
-  int G;
-  const float* ws;
-  const float* bias;
-  void* out;
-  int M, N;
-
-  __device__ __forceinline__ Row row(int r) const {
-    return {(GW || r >= M) ? 0.0f : xs[r]};
-  }
-  struct alignas(8) Col {
-    float ws, b;  // b: the bias, 0 without one (never added then)
-  };
-  __device__ __forceinline__ Col col(int c) const {
-    if (c >= N) return {0.0f, 0.0f};
-    return {ws[c], bias != nullptr ? bias[c] : 0.0f};
-  }
-  __device__ __forceinline__ float group_scale(int r, int grp) const {
-    return r < M ? xs[static_cast<size_t>(r) * G + grp] : 0.0f;
-  }
-  __device__ __forceinline__ Out value(int acc, float facc, const Row& r,
-                                       const Col& c) const {
-    float o;
-    if constexpr (GW) {
-      o = facc * c.ws;
-    } else {
-      o = static_cast<float>(acc) * (r.xs * c.ws);
-    }
-    if (bias != nullptr) o = o + c.b;
-    if constexpr (OUT_KIND == 0) {
-      return __float2bfloat16_rn(o);
-    } else if constexpr (OUT_KIND == 1) {
-      return o;
-    } else {
-      return gelu_tanh(o);
-    }
-  }
-};
+using vq::i8mma::int8_gemm_epilogue;
 
 // The zero-point-corrected modes: int8_mma.cuh's ZpEpilogue (shared with
 // K7b), the f32 bias added before the cast. ASYM_X = asym acts (xzp given),

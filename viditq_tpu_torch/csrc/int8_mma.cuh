@@ -260,6 +260,65 @@ __device__ __forceinline__ void fold_group(const Epi& epi, float (&facc)[R],
     facc[i] = facc[i] + static_cast<float>(acc[i]) * ((i & 2) ? s1 : s0);
 }
 
+// ---- the symmetric epilogue ----------------------------------------------
+
+__device__ __forceinline__ float gelu_tanh(float o) {
+  // 0.5 * o * (1 + tanh(sqrt(2/pi) * (o + 0.044715 * o^3))), o^3 = (o*o)*o
+  const float o3 = o * o * o;
+  return 0.5f * o * (1.0f + tanhf(0.7978845608028654f * (o + 0.044715f * o3)));
+}
+
+// K2's sym x sym epilogues (int8_gemm.cu: plain, gw_x, the emission's
+// GELU), the plain one also K5's (dynq_gemm.cu). OUT_KIND: 0 = bf16 out,
+// 1 = f32 out, 2 = f32 gelu(out) (emission scratch).
+template <bool GW_, int OUT_KIND>
+struct int8_gemm_epilogue {
+  using Out = typename std::conditional<OUT_KIND == 0, __nv_bfloat16,
+                                        float>::type;
+  static constexpr bool GW = GW_;
+  static constexpr int BN = GW ? 128 : 192;
+  struct Row {
+    float xs;  // the row's scale (G == 1)
+  };
+  const float* xs;
+  int G;
+  const float* ws;
+  const float* bias;
+  void* out;
+  int M, N;
+
+  __device__ __forceinline__ Row row(int r) const {
+    return {(GW || r >= M) ? 0.0f : xs[r]};
+  }
+  struct alignas(8) Col {
+    float ws, b;  // b: the bias, 0 without one (never added then)
+  };
+  __device__ __forceinline__ Col col(int c) const {
+    if (c >= N) return {0.0f, 0.0f};
+    return {ws[c], bias != nullptr ? bias[c] : 0.0f};
+  }
+  __device__ __forceinline__ float group_scale(int r, int grp) const {
+    return r < M ? xs[static_cast<size_t>(r) * G + grp] : 0.0f;
+  }
+  __device__ __forceinline__ Out value(int acc, float facc, const Row& r,
+                                       const Col& c) const {
+    float o;
+    if constexpr (GW) {
+      o = facc * c.ws;
+    } else {
+      o = static_cast<float>(acc) * (r.xs * c.ws);
+    }
+    if (bias != nullptr) o = o + c.b;
+    if constexpr (OUT_KIND == 0) {
+      return __float2bfloat16_rn(o);
+    } else if constexpr (OUT_KIND == 1) {
+      return o;
+    } else {
+      return gelu_tanh(o);
+    }
+  }
+};
+
 // ---- the zero-point-corrected epilogue ------------------------------------
 //
 // K7b's epilogue and K2's zero-point modes, one struct. Per row: the act

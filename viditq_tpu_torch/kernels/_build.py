@@ -40,6 +40,8 @@ SIGNATURES = {
     "vq_int8_gemm_zp": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                         _I, _P],
     "vq_group_quant": [_P, _P, _P, _I, _I, _I, _P],
+    "vq_dynq_gemm": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                     _P],
     "vq_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
                      _I, _P],
     "vq_attention_seg": [_P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _I, _I,

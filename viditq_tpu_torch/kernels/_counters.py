@@ -25,7 +25,7 @@ COUNTERS: Dict[str, Counter] = {
         "int8_consumer_matmul",      # K2
         "attention_bnhd",            # K3
         "quantize_rows",             # K4
-        "fused_dynq_int8_matmul",    # K5 (served as K4 -> K2)
+        "fused_dynq_int8_matmul",    # K5
         "attention_bnhd_stream",     # K6
         "dynamic_quant_rows",        # K7a
         "int8_matmul",               # K7b

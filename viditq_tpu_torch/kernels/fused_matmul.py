@@ -10,9 +10,11 @@ fallback between the two.
   K2 `int8_consumer_matmul`   csrc/int8_gemm.cu (plain, gw_x, emit, and the
      zero-point-corrected epilogues of asymmetric acts or weights)
   K4 `quantize_rows`          csrc/quant_rows.cu (optionally tanh-GELU first)
-  K5 `fused_dynq_int8_matmul` served as a K4 launch then a K2 launch: it
-     computes exactly what K4 followed by K2 computes (same row quantizer,
-     same epilogue).
+  K5 `fused_dynq_int8_matmul` csrc/dynq_gemm.cu: one launch that quantizes
+     each M tile's rows into shared memory and runs K2's GEMM and epilogues
+     on them; its output equals K4 followed by K2 bit for bit (same row
+     quantizer, same epilogue). It takes K <= 1152 (`K5_MAX_K`: the tile's
+     codes stay resident in shared memory) and raises on wider K.
 
 Both act quantizers are ported, symmetric and asymmetric (shifted-signed
 codes with a zero point and the code row sum), and both weight kinds. The
@@ -27,6 +29,7 @@ K1/K4/K5 `round(x * (1/s))` with `s = max(absmax/127, 1e-6)` or, asym,
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -422,8 +425,30 @@ def group_quant(y: torch.Tensor, bn: int):
 
 
 # ---------------------------------------------------------------------------
-# K5: quantize-in matmul, served as K4 -> K2
+# K5: quantize-in matmul
 # ---------------------------------------------------------------------------
+
+# the kernel's tiles (csrc/dynq_gemm.cu BM, BN) and the widest K whose codes
+# of one M tile stay resident in shared memory (MAX_KT k-tiles of 128)
+K5_BM, K5_BN, K5_MAX_K = 128, 192, 1152
+
+
+def k5_split(m: int, n: int, sms: int) -> int:
+    """Runs of N tiles each M tile's work is split into: one run (x read
+    once) where the M tiles fill the card, else about as many runs as make
+    `sms` work units, each of ceil(tiles_n / runs) tiles, none empty. Each
+    run quantizes its M tile again (from L2 after the first)."""
+    m_tiles = -(-m // K5_BM)
+    tiles_n = -(-n // K5_BN)
+    want = min(tiles_n, max(1, sms // m_tiles))
+    run = -(-tiles_n // want)
+    return -(-tiles_n // run)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
 
 def fused_dynq_int8_matmul_plain(x, w_q, w_scale, bias=None,
                                  out_dtype=torch.bfloat16, sym: bool = True,
@@ -447,19 +472,51 @@ def fused_dynq_int8_matmul(x: torch.Tensor, w_q: torch.Tensor,
                            w_colsum: Optional[torch.Tensor] = None,
                            residual=None, gate=None,
                            col_scale=None) -> torch.Tensor:
-    """x [M, K] float -> [M, N]: quantize rows (K4; the code row sum too
+    """x [M, K] float -> [M, N]: quantize each row (the code row sum too
     unless sym and sym_w, `fused_matmul.py:174-175`), then the int8 matmul
-    with the dequant epilogue and bias (K2). sym/sym_w flag act/weight
-    symmetry as in the JAX kernel; asym weights take w_zp [1, N] (the
-    shifted zero point), asym acts w_colsum [1, N]. The TPU kernel does
-    both in one pass (`fused_matmul.py:144-309`); a single-pass Hopper
-    kernel is later work."""
+    with the dequant epilogue and bias, in one pass as the TPU kernel
+    (`fused_matmul.py:144-309`). sym/sym_w flag act/weight symmetry as in
+    the JAX kernel; asym weights take w_zp [1, N] (the shifted zero point),
+    asym acts w_colsum [1, N].
+
+    On the card: one launch of csrc/dynq_gemm.cu (x bf16 or f32 in
+    16-byte aligned rows, w_q K-major, N % 16 == 0), whose output equals
+    `quantize_rows` then `int8_consumer_matmul` bit for bit; K above
+    `K5_MAX_K` (1152) is refused with ValueError (the M tile's codes would
+    not fit in shared memory), as is any other shape it does not take."""
     _unsupported(residual=residual, gate=gate, col_scale=col_scale)
     require(sym_w or w_zp is not None, "asym weights need w_zp")
-    q, s, zp, rs = quantize_rows(x, sym, need_rowsum=not (sym and sym_w))
-    out = int8_consumer_matmul(q, s, w_q, w_scale, bias, out_dtype, x_zp=zp,
-                               x_rowsum=rs, w_zp=None if sym_w else w_zp,
-                               w_colsum=w_colsum)
-    if x.is_cuda:
-        COUNTERS["fused_dynq_int8_matmul"].launches += 1
+    w_zp = None if sym_w else w_zp
+    if not on_cuda(x, w_q, w_scale, bias, w_zp, w_colsum):
+        return fused_dynq_int8_matmul_plain(x, w_q, w_scale, bias, out_dtype,
+                                            sym, sym_w, w_zp, w_colsum)
+    require(sym or w_colsum is not None, "asym acts require w_colsum")
+    require(out_dtype in (torch.bfloat16, torch.float32),
+            f"unsupported out_dtype {out_dtype}")
+    require(x.dim() == 2 and x.is_contiguous(), "x must be contiguous [M, K]")
+    M, K = x.shape
+    K2, N = w_q.shape
+    require(K == K2, f"K mismatch {K} != {K2}")
+    require(w_q.dtype == torch.int8, "w_q must be int8")
+    require_k_major(w_q)
+    bf16 = is_bf16(x)
+    require(0 < K <= K5_MAX_K,
+            f"K5's kernel takes 0 < K <= {K5_MAX_K} (K={K}): the M tile's "
+            f"codes stay in shared memory")
+    require(N % 16 == 0, f"K5's kernel needs N % 16 == 0 (N={N})")
+    require(K * x.element_size() % 16 == 0 and x.data_ptr() % 16 == 0,
+            "K5's kernel reads x in 16-byte aligned rows")
+    cols = [None if t is None else f32_flat(t)
+            for t in (w_scale, w_zp, w_colsum, bias)]
+    for name, t in zip(("w_scale", "w_zp", "w_colsum", "bias"), cols):
+        require(t is None or t.numel() == N, f"{name} must have {N} elements")
+    lib = _build.lib()
+    out = torch.empty((M, N), dtype=out_dtype, device=x.device)
+    _build.check(lib.vq_dynq_gemm(
+        x.data_ptr(), w_q.data_ptr(), *(_out_ptr(t) for t in cols),
+        out.data_ptr(), M, N, K, bf16, int(sym),
+        int(out_dtype == torch.float32),
+        k5_split(M, N, _sm_count(x.get_device())), _build.stream_ptr(x)),
+        "vq_dynq_gemm")
+    COUNTERS["fused_dynq_int8_matmul"].launches += 1
     return out
