@@ -11,7 +11,10 @@ For each slice of `chip_smoke.py` (STDiT-XL/2 16x512x512 and PixArt-Σ
 sm8 plan's model; for STDiT also w8a8, the reference W8A8 plan on the
 native backend, fused, the same plan through the fused kernels
 (`w8a8_tpu_fused.yaml`), and sym (`w8a8_tpu_fused_sym.yaml`), each on its
-own model) it runs one warm-up CFG forward at batch 2, then one more under
+own model; and cb and cb_sym, ViDiT-Q's W4A8 recipe with timestep-aware
+channel balancing on the fused kernels, asym and sym, each calibrated by
+one sq_stat forward in each of its timeranges on the profiled inputs) it
+runs one warm-up CFG forward at batch 2, then one more under
 `torch.profiler`, and prints the host wall time, the device time (the sum
 of CUDA kernel time), the device's idle share (1 - device / wall) and the
 device time by kernel group and by kernel. Needs CUDA; builds the kernels
@@ -107,12 +110,16 @@ def main() -> int:
         mask = torch.ones((1, n_prompt), dtype=torch.int32, device="cuda")
         model, model_plan = None, None
         for arm in cs.SLICE_KERNELS[name]:
-            plan = cs.ARM_PLANS.get(arm, cs.SM8_PLAN)
+            plan = (cs.ARM_PLANS.get(arm, cs.SM8_PLAN),
+                    cs.PLAN_RECIPES.get(arm))
             if plan != model_plan:
                 model = None
                 torch.cuda.empty_cache()
-                model, model_plan = cs.build_model(cfg, "cuda", plan=plan), plan
-            qctx = None if arm == "bf16" else QuantCtx(mode="quant")
+                model = cs.build_model(cfg, "cuda", plan=plan[0],
+                                       recipe=plan[1], calib=(x, y, mask))
+                model_plan = plan
+            qctx = None if arm == "bf16" else QuantCtx(t_id=500,
+                                                       mode="quant")
             wall, by_kernel = profile_forward(model, (x, t, y, mask), qctx)
             device = sum(by_kernel.values())
             groups = defaultdict(float)

@@ -34,19 +34,28 @@ Phases (any failure exits non-zero):
      each with the main cases' tolerance; K5 in every mode identical to
      the K4 -> K2 route composed in the same run, timed beside it and
      cuBLAS bf16, also at `K5_EDGE_CASES` (ragged tiles, narrow and
-     unaligned K, f32 input, zero rows; the shapes it refuses);
-  4. reference: tiny STDiT (sm8, the fused reference W8A8 and the
-     reference W8A8 on the native backend) and tiny sm8 PixArt-Σ models on
-     the card (kernels) against the same models on the CPU (plain
-     versions);
+     unaligned K, f32 input, zero rows; the shapes it refuses); the
+     column-scale modes of channel balancing (CB) at the `cb` arms'
+     shapes (`cb_cases`: K4 and K5 identical, K5 to the K4 -> K2 route,
+     K3's emission at the three sites, K2's emission identical), each
+     timed back to back beside the same call without the column scale;
+  4. reference: tiny STDiT (sm8, the fused reference W8A8, the reference
+     W8A8 on the native backend and the W4A8 CB recipe, asym and sym) and
+     tiny sm8 PixArt-Σ models on the card (kernels) against the same
+     models on the CPU (plain versions);
   5. slice: full-width STDiT-XL/2 (28 blocks, C=1152, random weights from
      a seed), bf16, W8A8-sm8, reference W8A8 (`w8a8_dynamic.yaml` on the
      native backend: K7a/K7b), the fused reference W8A8
-     (`w8a8_tpu_fused.yaml`: K1-K5 asym) and fused sym W8A8
-     (`w8a8_tpu_fused_sym.yaml`) arms over the whole 20-step CFG DDIM
+     (`w8a8_tpu_fused.yaml`: K1-K5 asym), fused sym W8A8
+     (`w8a8_tpu_fused_sym.yaml`) and ViDiT-Q's W4A8 recipe with
+     timestep-aware channel balancing on the fused kernels (`cb`:
+     `w4a8_timestep_aware_cb.yaml`, `qkv_share_cs`, calibrated by one
+     sq_stat forward in each of its two timeranges; `cb_sym`: the same
+     with sym weights and acts) arms over the whole 20-step CFG DDIM
      schedule, with ms/step, peak memory, quantized-vs-bf16 error, the
-     fused arm's distance to the native one and the launch count of every
-     kernel (the fused arm's held to its per-block count);
+     fused arm's distance to the native one, the CB arms' steps in each
+     timerange and the launch count of every kernel (the fused and CB
+     arms' held to their per-block counts);
   6. slice_sigma: full-width PixArt-Σ 1024 (28 blocks, C=1152, KV
      compression x2 on blocks 14-27, caption 300x4096), bf16 and sm8 arms
      over the whole 20-step DPM-Solver++ CFG schedule, built through
@@ -75,6 +84,14 @@ W8A8_PLAN = ROOT / "configs/opensora/w8a8_dynamic.yaml"
 # the same semantics through the fused int8 dataflow, and its sym ablation
 FUSED_PLAN = ROOT / "configs/opensora/w8a8_tpu_fused.yaml"
 SYM_PLAN = ROOT / "configs/opensora/w8a8_tpu_fused_sym.yaml"
+# ViDiT-Q's W4A8 recipe: asym per-channel 4-bit weights, asym dynamic
+# per-token int8 acts, momentum channel balancing over two timeranges
+# (alpha 0.11); the `cb` arms run it on the fused kernels
+CB_PLAN = ROOT / "configs/opensora/w4a8_timestep_aware_cb.yaml"
+# the CB statistic forwards: the midpoints of its timeranges
+# (benchmarks/bench_configs.py:200-219)
+CB_STAT_T = (250, 750)
+CB_ALPHA = 0.11
 STEPS = 20  # sampler steps per arm (bench.py's n_steps): the whole schedule
 # PixArt-Σ 1024 as benchmarks/bench_configs.py:388-391 builds it; the
 # sampler of the t2i workloads (configs/workload/pixart_alpha_512.py)
@@ -325,14 +342,20 @@ SLICE_KERNELS = {
               "w8a8": ("dynamic_quant_rows", "int8_matmul",
                        "attention_bnhd"),
               "fused": FUSED_KERNELS,
-              "sym": FUSED_KERNELS},
+              "sym": FUSED_KERNELS,
+              "cb": FUSED_KERNELS,
+              "cb_sym": FUSED_KERNELS},
     "sigma": {"bf16": ("attention_bnhd", "attention_bnhd_stream"),
               "sm8": FUSED_KERNELS + ("attention_bnhd_stream",)},
 }
 # the plan of each quantized arm (the bf16 arm runs the sm8 arm's model
 # in fp mode)
 ARM_PLANS = {"sm8": SM8_PLAN, "w8a8": W8A8_PLAN, "fused": FUSED_PLAN,
-             "sym": SYM_PLAN}
+             "sym": SYM_PLAN, "cb": CB_PLAN, "cb_sym": CB_PLAN}
+# how an arm changes its loaded plan (`quant_plan`): the native backend, or
+# the CB recipe on the fused kernels with the q/k/v scale pooled
+# (bench_configs.py:153-166), asym or with sym weights and acts (:173-182)
+PLAN_RECIPES = {"w8a8": "native", "cb": "cb", "cb_sym": "cb_sym"}
 # launches per block and CFG forward of an arm held to its exact count:
 # the fused reference plan's (K1 at norm1 and norm2; K2 at the 9 linears
 # on a prequant (q/k/v twice, the three projs, fc2) and fc1; K3 at the
@@ -340,9 +363,16 @@ ARM_PLANS = {"sm8": SM8_PLAN, "w8a8": W8A8_PLAN, "fused": FUSED_PLAN,
 # launch of its own, at cross q_linear and kv_linear): the CPU audit in
 # tests/test_torch_fused.py counts the plain calls, where the plain K5
 # still calls K4's and K2's plain versions (13 and 4)
-BLOCK_LAUNCHES = {("stdit", "fused"): {
-    "ln_modulate_quantize": 2, "int8_consumer_matmul": 11,
-    "attention_bnhd": 3, "quantize_rows": 2, "fused_dynq_int8_matmul": 2}}
+# The CB arms add no launch: every 1/cs folds into a producer (K1's adaLN
+# vectors, K4, the attention emission, K2's emission, K5's quantize), so
+# `cb` holds the fused arm's counts and `cb_sym` the sym arm's (fc1's
+# emission replaces the GELU handoff's K4)
+FUSED_BLOCK = {"ln_modulate_quantize": 2, "int8_consumer_matmul": 11,
+               "attention_bnhd": 3, "quantize_rows": 2,
+               "fused_dynq_int8_matmul": 2}
+BLOCK_LAUNCHES = {("stdit", "fused"): FUSED_BLOCK,
+                  ("stdit", "cb"): FUSED_BLOCK,
+                  ("stdit", "cb_sym"): {**FUSED_BLOCK, "quantize_rows": 1}}
 
 
 def fail(msg: str):
@@ -847,22 +877,25 @@ def phase_kernels(records):
 
     gemm_edge_cases(records, randn, randi8, rands)
     asym_cases(records)
+    cb_cases(records)
     row_edge_cases(records)
     k5_edge_cases(records)
     int8_pv_draws()
 
 
 def k5_route(x, w, ws, b, out_dtype=None, sym=True, sym_w=True, w_zp=None,
-             w_colsum=None):
+             w_colsum=None, col_scale=None):
     """K5's function as the port served it before its own kernel: K4's row
-    quantize, then K2 on the codes (two launches). K2 takes K % 64 == 0: a
-    narrower sym K runs on codes and weights padded with zero codes, which
-    add nothing to the int32 sums (asym acts would change K's term)."""
+    quantize (with the column scale), then K2 on the codes (two launches).
+    K2 takes K % 64 == 0: a narrower sym K runs on codes and weights padded
+    with zero codes, which add nothing to the int32 sums (asym acts would
+    change K's term)."""
     import torch
     import torch.nn.functional as F
     from viditq_tpu_torch.kernels import fused_matmul as FM
     from viditq_tpu_torch.kernels._common import k_major
-    q, s, zp, rs = FM.quantize_rows(x, sym, need_rowsum=not (sym and sym_w))
+    q, s, zp, rs = FM.quantize_rows(x, sym, need_rowsum=not (sym and sym_w),
+                                    col_scale=col_scale)
     K = x.shape[1]
     if K % 64:
         if not sym:
@@ -903,6 +936,7 @@ def check_k5(records, case, x, w, ws, b, timed=True, **kw):
     out_bytes = 4 if kw.get("out_dtype") == torch.float32 else 2
     tables = 2 + (not kw.get("sym_w", True)) + (not kw.get("sym", True))
     cost = (x.element_size() * m * k + k * n + 4 * tables * n
+            + 4 * k * (kw.get("col_scale") is not None)
             + out_bytes * m * n, {"int8": 2 * m * n * k})
     xb, wb = x.to(torch.bfloat16), w.to(torch.bfloat16)
     check_case(name, case, lambda: FM.fused_dynq_int8_matmul(x, w, ws, b, **kw),
@@ -1066,6 +1100,187 @@ def asym_cases(records):
                    lambda: A.attention_bnhd_plain(q, k, v, D ** -0.5, **kw),
                    records, cost=(nbytes, ops), asym=ASYM_TOL["attn"])
         del q, k, v
+
+
+def cb_col_scales(g, k, edge=False):
+    """1/cs as a CB model folds it, f32 [k] on the card: cs =
+    smooth_quant_scale of random act maxima (0.01 to 8) and weight maxima
+    (1e-3 to 0.1) at the recipe's alpha; edge: cs log-uniform over 1e-3 to
+    1e3 with every 7th channel exactly 1."""
+    import torch
+    from viditq_tpu_torch.quant.core import smooth_quant_scale
+    u = torch.rand((2, k), generator=g, device="cuda")
+    if edge:
+        cs = torch.exp((u[0] * 2 - 1) * float(np.log(1e3)))
+        cs[::7] = 1.0
+    else:
+        cs = smooth_quant_scale(0.01 + 7.99 * u[0], 1e-3 + 0.099 * u[1],
+                                CB_ALPHA)
+    return torch.full_like(cs, 1.0) / cs
+
+
+def with_and_without(name, case, fn, fn_without):
+    """One line: the call back to back with its column scale and without
+    it, on the same inputs (device time per call)."""
+    print(f"  back to back {name} {case}: with col_scale "
+          f"{cuda_ms_back_to_back(fn):.4f} ms, without "
+          f"{cuda_ms_back_to_back(fn_without):.4f} ms", flush=True)
+
+
+def cb_cases(records):
+    """The column-scale modes of channel balancing at the shapes of the
+    `cb` and `cb_sym` arms (STDiT-XL/2, W4A8 CB recipe), on draws of their
+    own generator, each timed back to back beside the same call without
+    its column scale: K4 sym and asym (attn_temp's shared q/k/v prequant)
+    and its GELU handoff (fc2's 1/cs after the GELU), asym identical to
+    the plain version, sym to the code tolerance; K5 at q_linear and kv_linear on W4 codes, identical to
+    K4(col_scale) -> K2 in this run (`check_k5`); K3's emission with the
+    proj's 1/cs at the spatial, temporal and cross sites (bf16 PV), asym
+    by `compare_asym_rows`, sym by the code tolerance; K2's GELU emission
+    with fc2's 1/cs (cb_sym's fc1), identical. One edge column scale
+    (1e-3 to 1e3, ones) in K4 and K5."""
+    import torch
+    from viditq_tpu_torch.kernels import attention as A
+    from viditq_tpu_torch.kernels import fused_matmul as FM
+    dev = "cuda"
+    g = torch.Generator(device=dev).manual_seed(4)
+
+    def randn(*shape, dtype=torch.bfloat16, scale=1.0):
+        return (torch.randn(shape, generator=g, device=dev) * scale).to(dtype)
+
+    def rands(*shape, lo=1e-3, hi=1e-2):
+        return lo + (hi - lo) * torch.rand(shape, generator=g, device=dev)
+
+    def randw4(k, n, sym):
+        """W4 codes as the CB slabs hold them, [k, n] K-major: sym in
+        [-8, 7]; asym shifted by 8 into [-8, 7] with zero points in
+        [-8, 7] and column sums"""
+        w = torch.randint(-8, 8, (n, k), generator=g, device=dev,
+                          dtype=torch.int8).t()
+        if sym:
+            return w, None, None
+        wz = torch.randint(-8, 8, (1, n), generator=g, device=dev).float()
+        return w, wz, w.float().sum(dim=0, keepdim=True)
+
+    B, T, S, C, H, D, P = 2, 16, 1024, 1152, 16, 72, 120
+    M = B * T * S
+    print("phase kernels: channel-balancing column scales (cb, cb_sym "
+          "shapes)", flush=True)
+    ics = cb_col_scales(g, C)
+    edge = cb_col_scales(g, C, edge=True)
+    x2 = randn(M, C) + 0.2
+    for case, sym, cs in (("cb_sym col_scale sym [32768,1152]", True, ics),
+                          ("cb col_scale asym [32768,1152]", False, ics),
+                          ("cb col_scale asym [32768,1152] edge scales",
+                           False, edge)):
+        # asym identical; sym by the code tolerance, as the main K4 case:
+        # the plain sym scale's `absmax / 127` is a reciprocal multiply on
+        # the card
+        check_case("quantize_rows", case,
+                   lambda: FM.quantize_rows(x2, sym, col_scale=cs),
+                   lambda: FM.quantize_rows_plain(x2, sym, col_scale=cs),
+                   records, cost=(2 * M * C + M * C + 12 * M + 4 * C, {}),
+                   exact=not sym)
+        if cs is ics:
+            with_and_without("quantize_rows", case,
+                             lambda: FM.quantize_rows(x2, sym, col_scale=cs),
+                             lambda: FM.quantize_rows(x2, sym))
+    ics4 = cb_col_scales(g, 4 * C)
+    h = randn(M, 4 * C)
+    case = "cb col_scale gelu asym [32768,4608] (fc1 -> fc2)"
+    check_case("quantize_rows", case,
+               lambda: FM.quantize_rows(h, sym=False, gelu=True,
+                                        col_scale=ics4),
+               lambda: FM.quantize_rows_plain(h, sym=False, gelu=True,
+                                              col_scale=ics4),
+               records, cost=(2 * M * 4 * C + M * 4 * C + 12 * M + 16 * C,
+                              {}), exact=True)
+    with_and_without("quantize_rows", case,
+                     lambda: FM.quantize_rows(h, sym=False, gelu=True,
+                                              col_scale=ics4),
+                     lambda: FM.quantize_rows(h, sym=False, gelu=True))
+    del h
+
+    # K5: cross_attn.q_linear and kv_linear with their own 1/cs folded
+    # into the quantize (asym acts x asym W4 in cb, sym x sym in cb_sym)
+    for case, (m_rows, n, sym, cs) in (
+            ("cb col_scale asym q_linear [32768,1152]x[1152,1152] W4",
+             (M, C, False, ics)),
+            ("cb col_scale asym kv_linear [240,1152]x[1152,2304] W4",
+             (B * P, 2 * C, False, ics)),
+            ("cb_sym col_scale sym kv_linear [240,1152]x[1152,2304] W4",
+             (B * P, 2 * C, True, ics)),
+            ("cb col_scale asym kv_linear W4 edge scales",
+             (B * P, 2 * C, False, edge))):
+        xa = randn(m_rows, C)
+        wa, wza, wca = randw4(C, n, sym)
+        wsa, ba = rands(1, n), randn(n, dtype=torch.float32, scale=0.1)
+        kw = dict(sym=sym, sym_w=sym, w_zp=wza, w_colsum=wca)
+        check_k5(records, case, xa, wa, wsa, ba, timed=cs is ics,
+                 col_scale=cs, **kw)
+        if cs is ics:
+            with_and_without(
+                "fused_dynq_int8_matmul", case,
+                lambda: FM.fused_dynq_int8_matmul(xa, wa, wsa, ba,
+                                                  col_scale=cs, **kw),
+                lambda: FM.fused_dynq_int8_matmul(xa, wa, wsa, ba, **kw))
+        del xa
+
+    # K3: the emission with the proj's 1/cs at the three sites, bf16 PV:
+    # asym with row sums (cb), sym (cb_sym)
+    mask = torch.ones((B, P), dtype=torch.int32, device=dev)
+    mask[1, 100:] = 0
+    for site, (nb, nq, kv, seg, m) in (
+            ("spatial", (B * T, S, S, 0, None)),
+            ("temporal", (B, T * S, T * S, T, None)),
+            ("cross", (B, T * S, P, 0, mask))):
+        q, k, v = randn(nb, nq, H, D), randn(nb, kv, H, D), randn(nb, kv, H, D)
+        rows = ([seg] * nb if seg else [kv] * nb if m is None
+                else [int(r) for r in (m != 0).sum(dim=1).tolist()])
+        for arm, emit_sym in (("cb", False), ("cb_sym", True)):
+            kw = dict(seg_len=seg, kv_mask=m, emit=True, emit_sym=emit_sym,
+                      need_rowsum=not emit_sym)
+            nbytes, ops = attn_bound(nb, nq, H, D, rows, False, True, kv)
+            nbytes += (4 if emit_sym else 8) * nb * nq + 4 * C + (
+                0 if m is None else 4 * nb * kv)
+            case = (f"{site} {arm} col_scale "
+                    f"{'sym' if emit_sym else 'asym'} emit")
+            check_case("attention_bnhd", case,
+                       lambda: A.attention_bnhd(q, k, v, D ** -0.5,
+                                                col_scale=ics, **kw),
+                       lambda: A.attention_bnhd_plain(q, k, v, D ** -0.5,
+                                                      col_scale=ics, **kw),
+                       records, cost=(nbytes, ops),
+                       asym=None if emit_sym else ASYM_TOL["attn"])
+            with_and_without("attention_bnhd", case,
+                             lambda: A.attention_bnhd(q, k, v, D ** -0.5,
+                                                      col_scale=ics, **kw),
+                             lambda: A.attention_bnhd(q, k, v, D ** -0.5,
+                                                      **kw))
+        del q, k, v
+
+    # K2: fc1's GELU emission with fc2's 1/cs (cb_sym), on W4 codes
+    xq = torch.randint(-127, 128, (M, C), generator=g, device=dev,
+                       dtype=torch.int8)
+    xs = rands(M, 1)
+    w1 = randw4(C, 4 * C, True)[0]
+    ws1 = rands(1, 4 * C, lo=1e-3, hi=1e-2)
+    b1 = randn(4 * C, dtype=torch.float32, scale=0.1)
+    emit = {"gelu": True, "col_scale": ics4}
+    case = "cb_sym col_scale emit [32768,1152]x[1152,4608] W4"
+    check_case("int8_consumer_matmul", case,
+               lambda: FM.int8_consumer_matmul(xq, xs, w1, ws1, b1,
+                                               emit=emit),
+               lambda: FM.int8_consumer_matmul_plain(xq, xs, w1, ws1, b1,
+                                                     emit=emit),
+               records, cost=(M * C + C * 4 * C + 4 * M + 8 * 4 * C
+                              + 16 * C + M * 4 * C + 4 * M * 3,
+                              {"int8": 2 * M * 4 * C * C}), exact=True)
+    with_and_without("int8_consumer_matmul", case,
+                     lambda: FM.int8_consumer_matmul(xq, xs, w1, ws1, b1,
+                                                     emit=emit),
+                     lambda: FM.int8_consumer_matmul(xq, xs, w1, ws1, b1,
+                                                     emit={"gelu": True}))
 
 
 def int8_pv_draws():
@@ -1359,14 +1574,24 @@ def attention_edge_cases(records, randn):
 
 def random_init_(model, seed: int, scale: float):
     """normal x scale for every float parameter and table (bench.py:149-152
-    uses 0.02), from a seeded generator on the model's device."""
+    uses 0.02), from a seeded generator on the model's device. A weight
+    table is drawn at the shape of one bitwidth and one timerange, and CB's
+    act statistics not at all (calibration writes them all), so every plan
+    draws the same fp weights from the same seed."""
     import torch
     dev = next(model.parameters()).device
     g = torch.Generator(device=dev).manual_seed(seed)
     with torch.no_grad():
-        for t in model.state_dict().values():
-            if t.is_floating_point():
-                t.copy_(torch.randn(t.shape, generator=g, device=dev) * scale)
+        for name, t in model.state_dict().items():
+            leaf = name.rsplit(".", 1)[-1]
+            if not t.is_floating_point() or leaf in ("act_scale",
+                                                     "cb_scale"):
+                continue
+            if leaf in ("w_delta", "w_zp"):
+                t = t[:1, :1]
+            elif leaf == "w_colsum":
+                t = t[:1]
+            t.copy_(torch.randn(t.shape, generator=g, device=dev) * scale)
 
 
 STDIT_CFG = {"model": dict(type="STDiT-XL/2"), "num_frames": 16,
@@ -1384,21 +1609,47 @@ TINY_SIGMA_CFG = {"model": dict(type="PixArt", kv_compress_sampling="conv",
                   "image_size": 768, "dtype": "bf16"}
 
 
-def build_model(cfg, device, scale=0.02, plan=SM8_PLAN):
-    """The workload's model through `utils/workload.build_model` under a
-    plan (the sm8 plan, or the reference W8A8 on the native backend),
-    random weights (normal x scale, seed 0: the same fp weights under
-    either plan), min-max tables, packed int8 slabs."""
-    from viditq_tpu_torch.quant.calibrate import calibrate_weight_tables
-    from viditq_tpu_torch.quant.native_pack import pack_native_weights
+def quant_plan(plan=SM8_PLAN, recipe=None):
+    """A plan YAML as an arm runs it (`PLAN_RECIPES`): as it is, on the
+    native backend, or the CB recipe on the fused kernels with the q/k/v
+    balancing scale pooled (`qkv_share_cs`), sym weights and acts for
+    'cb_sym'."""
+    import dataclasses
     from viditq_tpu_torch.utils.config import load_quant_config
-    from viditq_tpu_torch.utils.workload import build_model as wl_build
     qplan = load_quant_config(str(plan))
-    if plan == W8A8_PLAN:
-        qplan = qplan.with_backend("native")
-    resolver = qplan.resolver()
-    model = wl_build(cfg, resolver, device=device)
+    if recipe == "native":
+        return qplan.with_backend("native")
+    if recipe in ("cb", "cb_sym"):
+        qplan = qplan.with_backend("fused")
+        d = qplan.default_layer
+        d = dataclasses.replace(d, smooth_quant=dataclasses.replace(
+            d.smooth_quant, qkv_share_cs=True))
+        if recipe == "cb_sym":
+            d = dataclasses.replace(
+                d, weight=dataclasses.replace(d.weight, sym=True),
+                act=dataclasses.replace(d.act, sym=True))
+        return dataclasses.replace(qplan, default_layer=d)
+    return qplan
+
+
+def build_model(cfg, device, scale=0.02, plan=SM8_PLAN, recipe=None,
+                calib=None):
+    """The workload's model through `utils/workload.build_model` under a
+    plan (`quant_plan(plan, recipe)`), random weights (normal x scale, seed
+    0: the same fp weights under every plan), min-max tables, packed int8
+    slabs. A CB plan is calibrated in the PTQ phase order first: one
+    sq_stat forward on calib = (x, y, mask) at each of CB_STAT_T."""
+    from viditq_tpu_torch.quant.calibrate import (calibrate_weight_tables,
+                                                  smooth_quant_stats)
+    from viditq_tpu_torch.quant.native_pack import pack_native_weights
+    from viditq_tpu_torch.utils.workload import build_model as wl_build
+    qplan = quant_plan(plan, recipe)
+    model = wl_build(cfg, qplan.resolver(), device=device)
     random_init_(model, 0, scale)
+    if qplan.default_layer.smooth_quant.enable:
+        if calib is None:
+            fail("a channel-balancing plan needs calibration inputs")
+        smooth_quant_stats(model, *calib, CB_STAT_T)
     calibrate_weight_tables(model)
     pack_native_weights(model)
     return model.eval()
@@ -1419,12 +1670,13 @@ def check_k_major(model) -> int:
 
 
 def phase_reference():
-    """Tiny models (STDiT under sm8, the fused reference W8A8 and the native
-    W8A8, PixArt-Σ under sm8): the card's kernels against the CPU's plain
-    versions on the
-    same weights and inputs, for one forward (float32 output) and a 3-step
-    CFG denoise (DDIM for STDiT, DPM-Solver++ for PixArt-Σ). Weights are
-    drawn at 0.1 so activations are O(1)."""
+    """Tiny models (STDiT under sm8, the fused reference W8A8, the native
+    W8A8 and the W4A8 CB recipe asym and sym, PixArt-Σ under sm8): the
+    card's kernels against the CPU's plain versions on the same weights and
+    inputs (a CB model calibrated on the CPU first), for one forward
+    (float32 output; t = 700, CB's second timerange) and a 3-step CFG
+    denoise (DDIM for STDiT, through both CB timeranges; DPM-Solver++ for
+    PixArt-Σ). Weights are drawn at 0.1 so activations are O(1)."""
     import copy
     import torch
     from viditq_tpu_torch.pipelines.inference import quant_sample
@@ -1432,27 +1684,28 @@ def phase_reference():
     from viditq_tpu_torch.samplers.dpm_solver import DPMSolverSampler
     from viditq_tpu_torch.samplers.iddpm import IDDPM
     from viditq_tpu_torch.utils.workload import latent_size
-    for name, cfg, sampler, plan in (
-            ("sm8 STDiT", TINY_STDIT_CFG, IDDPM(num_sampling_steps=3,
-                                                cfg_scale=4.0), SM8_PLAN),
-            ("fused asym STDiT", TINY_STDIT_CFG,
-             IDDPM(num_sampling_steps=3, cfg_scale=4.0), FUSED_PLAN),
-            ("w8a8 STDiT", TINY_STDIT_CFG, IDDPM(num_sampling_steps=3,
-                                                 cfg_scale=4.0), W8A8_PLAN),
+    ddim = IDDPM(num_sampling_steps=3, cfg_scale=4.0)
+    for name, cfg, sampler, plan, recipe in (
+            ("sm8 STDiT", TINY_STDIT_CFG, ddim, SM8_PLAN, None),
+            ("fused asym STDiT", TINY_STDIT_CFG, ddim, FUSED_PLAN, None),
+            ("w8a8 STDiT", TINY_STDIT_CFG, ddim, W8A8_PLAN, "native"),
+            ("cb STDiT (W4A8 CB)", TINY_STDIT_CFG, ddim, CB_PLAN, "cb"),
+            ("cb_sym STDiT", TINY_STDIT_CFG, ddim, CB_PLAN, "cb_sym"),
             ("sm8 PixArt-Σ", TINY_SIGMA_CFG,
-             DPMSolverSampler(num_sampling_steps=3, cfg_scale=4.5),
-             SM8_PLAN)):
+             DPMSolverSampler(num_sampling_steps=3, cfg_scale=4.5), SM8_PLAN,
+             None)):
         latent = latent_size(cfg)
-        cpu = build_model(cfg, "cpu", scale=0.1, plan=plan)
-        gpu = copy.deepcopy(cpu).to("cuda")
-        check_k_major(gpu)
         rng = np.random.default_rng(1)
         x = torch.tensor(rng.standard_normal((2, 4, *latent))).bfloat16()
-        t = torch.tensor([500, 500])
+        t = torch.tensor([700, 700])
         y = torch.tensor(rng.standard_normal((2, 1, 8, 32))).bfloat16()
         mask = torch.ones((2, 8), dtype=torch.int32)
         mask[1, 6:] = 0
-        q = QuantCtx(mode="quant")
+        cpu = build_model(cfg, "cpu", scale=0.1, plan=plan, recipe=recipe,
+                          calib=(x, y, mask))
+        gpu = copy.deepcopy(cpu).to("cuda")
+        check_k_major(gpu)
+        q = QuantCtx(t_id=700, mode="quant")
         with torch.no_grad():
             want = cpu(x, t, y, mask, qctx=q)
             got = gpu(x.cuda(), t.cuda(), y.cuda(), mask.cuda(),
@@ -1475,13 +1728,15 @@ def phase_reference():
 def run_slice(name, cfg, z_scale, n_prompt):
     """Every arm of one slice over the whole schedule: ms/step, peak
     memory, launches, plain calls on CUDA (must be 0), each quantized arm's
-    error against bf16. The bf16 and sm8 arms share the sm8 plan's model;
-    another plan's arm gets its own model, built from the same seed.
-    Returns each kernel's launches summed over the arms."""
+    error against bf16; for a CB arm, the steps run in each timerange (each
+    slab must serve some). The bf16 and sm8 arms share the sm8 plan's
+    model; another plan's arm gets its own model, built from the same seed
+    (a CB model calibrated on this run's z, y and mask). Returns each
+    kernel's launches summed over the arms."""
     import torch
     from viditq_tpu_torch.kernels import _counters
     from viditq_tpu_torch.pipelines.inference import fp_sample, quant_sample
-    from viditq_tpu_torch.quant.qlinear import QuantCtx
+    from viditq_tpu_torch.quant.qlinear import QuantCtx, timerange_of
     from viditq_tpu_torch.utils.workload import build_sampler, latent_size
     latent = latent_size(cfg)
     rng = np.random.default_rng(0)
@@ -1504,19 +1759,23 @@ def run_slice(name, cfg, z_scale, n_prompt):
     along, moved = {}, {}
     model, model_plan = None, None
     for arm in arms:
-        plan = ARM_PLANS.get(arm, SM8_PLAN)
+        plan = (ARM_PLANS.get(arm, SM8_PLAN), PLAN_RECIPES.get(arm))
         if plan != model_plan:
             model = None
             torch.cuda.empty_cache()
             t0 = time.time()
-            model = build_model(cfg, "cuda", plan=plan)
+            model = build_model(cfg, "cuda", plan=plan[0], recipe=plan[1],
+                                calib=(torch.cat([z, z]), y, mask))
             torch.cuda.synchronize()
             model_plan = plan
             print(f"phase slice {name}: {cfg['model']['type']} at latent "
-                  f"{latent}, CFG batch 2, plan {plan.name}, built + "
+                  f"{latent}, CFG batch 2, plan {plan[0].name}"
+                  f"{f' ({plan[1]})' if plan[1] else ''}, built + "
                   f"calibrated + packed in {time.time() - t0:.1f} s, "
                   f"{check_k_major(model)} K-major int8 weights", flush=True)
-        qctx = None if arm == "bf16" else QuantCtx(mode="quant")
+        # the warm-up forward's context names its timestep (t = 999: a CB
+        # model's second timerange)
+        qctx = None if arm == "bf16" else QuantCtx(t_id=999, mode="quant")
         # warm-up: one CFG forward
         with torch.no_grad():
             fwd = model(torch.cat([z, z]), torch.tensor([999.0, 999.0],
@@ -1524,6 +1783,16 @@ def run_slice(name, cfg, z_scale, n_prompt):
                         y, mask, qctx=qctx)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+        smooth = quant_plan(*plan).default_layer.smooth_quant
+        tr_steps, hook = None, None
+        if arm != "bf16" and smooth.enable:
+            # the CFG forwards of the run in each CB timerange
+            tr_steps = [0] * smooth.n_timerange
+
+            def count(_mod, args, kwargs):
+                qc = kwargs.get("qctx", args[4] if len(args) > 4 else None)
+                tr_steps[timerange_of(smooth, qc.t_id)] += 1
+            hook = model.register_forward_pre_hook(count, with_kwargs=True)
         _counters.reset()
         t0 = time.time()
         out = (fp_sample if arm == "bf16" else quant_sample)(
@@ -1531,6 +1800,13 @@ def run_slice(name, cfg, z_scale, n_prompt):
         torch.cuda.synchronize()
         ms[arm] = (time.time() - t0) * 1e3 / STEPS
         counts[arm] = _counters.snapshot()
+        if hook is not None:
+            hook.remove()
+            print(f"  {arm}: CFG forwards in each CB timerange "
+                  f"{dict(zip(smooth.timerange, tr_steps))}", flush=True)
+            if min(tr_steps) == 0:
+                fail(f"{name} {arm}: a timerange's slabs served no step "
+                     f"({tr_steps})")
         outs[arm] = out.float()
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         print(f"  {arm}: {STEPS} steps, {ms[arm]:.1f} ms/step, peak memory "

@@ -187,12 +187,11 @@ def test_quantized_linear_native_impls_are_one_dataflow():
 
 
 @pytest.mark.parametrize("kw,err", [
-    (dict(col_scale=torch.ones(64)), NotImplementedError),
     (dict(residual=torch.zeros(48, 32)), AssertionError),
     (dict(impl="fused", residual=torch.zeros(48, 32)),
      NotImplementedError),  # K5's residual epilogue is not ported
     (dict(impl="triton"), ValueError),
-], ids=["col_scale", "residual", "fused-residual", "unknown-impl"])
+], ids=["residual", "fused-residual", "unknown-impl"])
 def test_quantized_linear_native_rejects(kw, err):
     rng = np.random.default_rng(16)
     x = t(rng.standard_normal((48, 64)).astype(np.float32))

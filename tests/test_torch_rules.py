@@ -84,21 +84,13 @@ def test_cpu_plain_results_match_direct_plain_calls():
 
 
 @pytest.mark.parametrize("call", [
-    lambda x, sh, sc, w, ws: FM.quantize_rows(x[0], col_scale=ws[0, :64]),
     lambda x, sh, sc, w, ws: FM.int8_consumer_matmul(
         *FM.quantize_rows(x[0])[:2], w, ws, residual=torch.zeros(32, 128)),
-    lambda x, sh, sc, w, ws: FM.int8_consumer_matmul(
-        *FM.quantize_rows(x[0])[:2], w, ws,
-        emit={"gelu": True, "col_scale": torch.ones(128)}),
     lambda x, sh, sc, w, ws: FM.fused_dynq_int8_matmul(
         x[0], w, ws, gate=torch.ones(1, 128)),
     lambda x, sh, sc, w, ws: A.attention_bnhd(
         *(x.reshape(2, 32, 4, 16),) * 3, 0.25, int8_qk=True),
-    lambda x, sh, sc, w, ws: A.attention_bnhd(
-        *(x.reshape(2, 32, 4, 16),) * 3, 0.25, emit=True,
-        col_scale=torch.ones(64)),
-], ids=["k4-col_scale", "k2-residual", "k2-emit-col_scale", "k5-gate",
-        "k3-int8_qk", "k3-col_scale"])
+], ids=["k2-residual", "k5-gate", "k3-int8_qk"])
 def test_unported_modes_raise(call):
     with pytest.raises(NotImplementedError):
         call(*_inputs())

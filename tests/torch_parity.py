@@ -14,6 +14,7 @@ of 256 (K6); block 1 compresses k/v with the 2x2 `sr` conv.
 
 import contextlib
 import dataclasses
+import functools
 import os
 
 import jax
@@ -41,6 +42,12 @@ FUSED = "configs/opensora/w8a8_tpu_fused.yaml"
 # the reference ViDiT-Q W8A8 (asym per-channel weights, asym dynamic
 # per-token acts); it runs on the native backend (`native_plan`)
 DYN = "configs/opensora/w8a8_dynamic.yaml"
+# ViDiT-Q's W4A8 recipe: asym per-channel 4-bit weights, asym dynamic
+# per-token int8 acts, momentum channel balancing (CB) over two timeranges
+# (`cb_plan` runs it on the fused kernels)
+CB = "configs/opensora/w4a8_timestep_aware_cb.yaml"
+# the CB statistic forwards: one timestep in each of CB's two timeranges
+CB_STAT_T = (100, 900)
 LATENT = (2, 16, 32)
 TINY = dict(input_size=LATENT, hidden_size=64, depth=2, num_heads=4,
             caption_channels=32, model_max_length=8)
@@ -83,6 +90,24 @@ def native_plan(impl=None):
     return transform
 
 
+def cb_plan(share: bool = True, sym: bool = False):
+    """Plan transform of both packages: the CB recipe on the fused kernels
+    (`.with_backend("fused")`), the q/k/v balancing scale pooled when
+    share (`qkv_share_cs`), sym weights and acts when sym
+    (benchmarks/bench_configs.py:153-182)."""
+    def transform(plan):
+        plan = plan.with_backend("fused")
+        d = plan.default_layer
+        d = dataclasses.replace(d, smooth_quant=dataclasses.replace(
+            d.smooth_quant, qkv_share_cs=share))
+        if sym:
+            d = dataclasses.replace(
+                d, weight=dataclasses.replace(d.weight, sym=True),
+                act=dataclasses.replace(d.act, sym=True))
+        return dataclasses.replace(plan, default_layer=d)
+    return transform
+
+
 def inputs(batch: int = 2, seed: int = 0, kind: str = "stdit"):
     """x [B, 4, *latent], t [B], y [B, 1, L, 32], mask [B, L] (one padded
     prompt) as numpy arrays."""
@@ -104,10 +129,14 @@ def randomize(params, seed: int = 0, scale: float = 0.1):
 
 def build_jax(plan_path=SM8, scan_blocks: bool = False, seed: int = 0,
               kind: str = "stdit", plan_fn=None, weight_scale: float = 0.1,
-              **overrides):
+              sq_stat_t=(), act_scales=None, **overrides):
     """(JAX model, variables as numpy trees) with calibrated, packed
     tables. plan_fn: a transform of the loaded plan (`native_plan`);
-    weight_scale: the standard deviation of the parameter draws."""
+    weight_scale: the standard deviation of the parameter draws;
+    sq_stat_t: the timesteps of the CB statistic forwards run first (the
+    PTQ phase order: sq_stat, calibrate, pack), on the kernel path;
+    act_scales: instead, a quant tree whose `act_scale` leaves to take
+    (the statistic of a model on the same weights and inputs)."""
     jcls, _, cfg, _ = KINDS[kind]
     plan = j_load(plan_path)
     resolver = (plan_fn(plan) if plan_fn else plan).resolver()
@@ -116,13 +145,56 @@ def build_jax(plan_path=SM8, scan_blocks: bool = False, seed: int = 0,
     x, t, y, mask = inputs(kind=kind)
     if "input_size" in overrides:
         x = x[..., :overrides["input_size"], :overrides["input_size"]]
-    v = dict(model.init(jax.random.PRNGKey(0), x, t, y, mask,
-                        qctx=JQuantCtx(mode="fp")))
+    # jitted: only the variables' shapes and constant initial tables are
+    # kept (the parameters are drawn below)
+    v = dict(jax.jit(functools.partial(model.init, qctx=JQuantCtx(
+        mode="fp")))(jax.random.PRNGKey(0), x, t, y, mask))
     params = randomize(v["params"], seed, weight_scale)
-    quant = j_pack(params, j_calibrate(params, v["quant"], resolver),
-                   resolver)
-    return model, {"params": params,
-                   "quant": jax.tree.map(np.asarray, quant)}
+    quant = v["quant"]
+    if sq_stat_t:
+        quant = jax_sq_stat(model, {**v, "params": params},
+                            (x, t, y, mask), sq_stat_t)
+    elif act_scales is not None:
+        quant = jax.tree_util.tree_map_with_path(
+            lambda path, a: _leaf(act_scales, path)
+            if path[-1].key == "act_scale" else a, quant)
+    calibrate = (lambda p, q: j_pack(p, j_calibrate(p, q, resolver),
+                                     resolver))
+    if sq_stat_t or act_scales is not None:
+        # CB tables: jitted, as the JAX package's W4A8 bench arm runs them
+        # (benchmarks/bench_configs.py:208-219)
+        calibrate = jax.jit(calibrate)
+    quant = calibrate(params, quant)
+    out = {"params": params, "quant": jax.tree.map(np.asarray, quant)}
+    if "qstats" in v:  # CB: the statistic pass's state, read by apply
+        out["qstats"] = jax.tree.map(np.asarray, v["qstats"])
+    return model, out
+
+
+def _leaf(tree, path):
+    for k in path:
+        tree = tree[k.key]
+    return tree
+
+
+def jax_sq_stat(model, variables, args, t_ids):
+    """The JAX package's 'sq_stat' forwards (one per timestep, the timestep
+    input and t_id both t) on the kernel path; returns the quant tree with
+    the accumulated act_scale."""
+    x = args[0]
+
+    @jax.jit
+    def step(vs, t_id):
+        tt = jnp.full((x.shape[0],), t_id, jnp.float32)
+        _, muts = model.apply(vs, x, tt, *args[2:],
+                              qctx=JQuantCtx(mode="sq_stat", t_id=t_id),
+                              mutable=["quant", "qstats"])
+        return {**vs, **muts}
+    vs = dict(variables)
+    with jax_kernel_path():
+        for t_id in t_ids:
+            vs = step(vs, jnp.asarray(t_id, jnp.int32))
+    return vs["quant"]
 
 
 def build_port(plan_path=SM8, variables=None, fp_only: bool = False,

@@ -25,8 +25,11 @@
 // their per-channel scales over the whole kv axis come from a v-quantize
 // pass that stores the codes transposed per head for the s8 wgmma.
 // Emission quantizes each f32 output row with the attention site's own
-// forms (C6; attention.py:217-233); the full modes write the rows to an
-// f32 scratch that row_quant_kernel quantizes, seg mode in the kernel:
+// forms (C6; attention.py:217-233), after multiplying it by the proj's
+// channel-balancing column scale where one is given (`out_col_scale`,
+// attention.py:213-216: o * cs[c] before the row statistic,
+// RowQuant::balance); the full modes write the rows to an f32 scratch that
+// row_quant_kernel quantizes, seg mode in the kernel:
 //   sym : smax = max(absmax, 1e-6); scale = smax/127;
 //         codes = round(o * (127/smax))
 //   asym: `_quantize_rows_f32`'s (common.cuh RowQuant: inv = 1/scale, zp)
@@ -310,9 +313,10 @@ __global__ void vquant_kernel_t(const __nv_bfloat16* __restrict__ v,
   dst[1] = make_uint4(w[4], w[5], w[6], w[7]);
 }
 
-// One warp per row of o [rows, C] f32.
-template <bool SYM>
+// One warp per row of o [rows, C] f32 (CS: each value times cs[c] first).
+template <bool SYM, bool CS>
 __global__ void row_quant_kernel(const float* __restrict__ o,
+                                 const float* __restrict__ cs,
                                  int8_t* __restrict__ q,
                                  float* __restrict__ scales,
                                  float* __restrict__ zp,
@@ -322,14 +326,18 @@ __global__ void row_quant_kernel(const float* __restrict__ o,
   if (row >= rows) return;
   const float* orow = o + static_cast<size_t>(row) * C;
   int8_t* qr = q + static_cast<size_t>(row) * C;
+  const auto val = [&](int c) {
+    if constexpr (CS) return vq::RowQuant::balance(orow[c], __ldg(cs + c));
+    return orow[c];
+  };
   int sum = 0;
   if constexpr (SYM) {
     float am = 0.0f;
-    for (int c = lane; c < C; c += 32) am = fmaxf(am, fabsf(orow[c]));
+    for (int c = lane; c < C; c += 32) am = fmaxf(am, fabsf(val(c)));
     const float smax = fmaxf(vq::warp_max(am), 1e-6f);
     const float mul = 127.0f / smax;
     for (int c = lane; c < C; c += 32) {
-      const int8_t code = vq::round_sat_s8(orow[c] * mul);
+      const int8_t code = vq::round_sat_s8(val(c) * mul);
       sum += code;
       qr[c] = code;
     }
@@ -341,13 +349,14 @@ __global__ void row_quant_kernel(const float* __restrict__ o,
   } else {
     float lo = 0.0f, hi = 0.0f;
     for (int c = lane; c < C; c += 32) {
-      lo = fminf(lo, orow[c]);
-      hi = fmaxf(hi, orow[c]);
+      const float x = val(c);
+      lo = fminf(lo, x);
+      hi = fmaxf(hi, x);
     }
     const vq::RowQuant rq =
         vq::RowQuant::asym(vq::warp_min(lo), vq::warp_max(hi));
     for (int c = lane; c < C; c += 32) {
-      const int8_t code = rq.code<false>(orow[c]);
+      const int8_t code = rq.code<false>(val(c));
       sum += code;
       qr[c] = code;
     }
@@ -466,7 +475,8 @@ struct SegSmem {
   }
 };
 
-// EMIT: 0 bf16 out, 1 sym codes, 2 asym codes (zp; rowsum where not null)
+// EMIT: 0 bf16 out, 1 sym codes, 2 asym codes (zp; rowsum where not null;
+// the outputs times the column scales cs first where cs is not null)
 template <int D, bool INT8, int EMIT>
 __global__ void __launch_bounds__(MAX_WARPS * 32)
     attn_seg_tiled(const __nv_bfloat16* __restrict__ q,
@@ -474,6 +484,7 @@ __global__ void __launch_bounds__(MAX_WARPS * 32)
                    const void* __restrict__ v,
                    const float* __restrict__ vscale, int vgroup,
                    int n_vgroups, __nv_bfloat16* __restrict__ out,
+                   const float* __restrict__ cs,
                    int8_t* __restrict__ codes, float* __restrict__ scales,
                    float* __restrict__ zps, float* __restrict__ rowsums,
                    int N, int H, int seg_shift, float scale2) {
@@ -679,6 +690,22 @@ __global__ void __launch_bounds__(MAX_WARPS * 32)
     }
     return;
   } else {
+    if (cs != nullptr) {  // the proj's 1/cs, before the row statistic
+#pragma unroll
+      for (int j = 0; j < HPW; ++j)
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          // columns c, c + 1 of the head: c even, so an aligned float2
+          const float2 s = __ldg(reinterpret_cast<const float2*>(
+              cs + (warp * HPW + j) * D + nt * 8 + 2 * t4));
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            o[j][nt][2 * hh] = RowQuant::balance(o[j][nt][2 * hh], s.x);
+            o[j][nt][2 * hh + 1] =
+                RowQuant::balance(o[j][nt][2 * hh + 1], s.y);
+          }
+        }
+    }
     // the row's absmax (sym) or min(o, 0) and max(o, 0) (asym): lane quad,
     // then across warps
     float hi[2] = {0.0f, 0.0f};
@@ -909,6 +936,7 @@ __global__ void __launch_bounds__(128)
                   const void* __restrict__ v,
                   const float* __restrict__ vscale, int vgroup,
                   int n_vgroups, __nv_bfloat16* __restrict__ out,
+                  const float* __restrict__ cs,
                   float2* __restrict__ stats, int8_t* __restrict__ codes,
                   float* __restrict__ scales, float* __restrict__ zps,
                   float* __restrict__ rowsums, int N, int H, int seg,
@@ -1133,6 +1161,19 @@ __global__ void __launch_bounds__(128)
                      nt * 8 + t * 2 + j];
     }
   }
+  if (MODE != 0 && cs != nullptr) {  // the proj's 1/cs, in both emission
+                                     // launches, before the statistic
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      const float2 s = __ldg(
+          reinterpret_cast<const float2*>(cs + h * D + nt * 8 + t * 2));
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        o[nt][2 * hh] = RowQuant::balance(o[nt][2 * hh], s.x);
+        o[nt][2 * hh + 1] = RowQuant::balance(o[nt][2 * hh + 1], s.y);
+      }
+    }
+  }
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
     const int n = rows[hh];
@@ -1204,7 +1245,8 @@ __global__ void __launch_bounds__(128)
 template <int D, bool INT8, int EMIT>
 cudaError_t launch_tiled(const void* q, const void* k, const void* v,
                          const float* vs, int vgroup, int n_vgroups,
-                         void* out, void* codes, void* scales, void* zp,
+                         void* out, const float* cs, void* codes,
+                         void* scales, void* zp,
                          void* rowsum, int B, int N, int H, int seg_shift,
                          float scale2, cudaStream_t st) {
   auto kernel = attn_seg_tiled<D, INT8, EMIT>;
@@ -1215,7 +1257,7 @@ cudaError_t launch_tiled(const void* q, const void* k, const void* v,
   kernel<<<grid, H / HPW * 32, smem, st>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k), v, vs, vgroup, n_vgroups,
-      static_cast<__nv_bfloat16*>(out), static_cast<int8_t*>(codes),
+      static_cast<__nv_bfloat16*>(out), cs, static_cast<int8_t*>(codes),
       static_cast<float*>(scales), static_cast<float*>(zp),
       static_cast<float*>(rowsum), N, H, seg_shift, scale2);
   return cudaGetLastError();
@@ -1224,14 +1266,15 @@ cudaError_t launch_tiled(const void* q, const void* k, const void* v,
 template <int D, bool INT8, int MODE>
 cudaError_t launch_rows(const void* q, const void* k, const void* v,
                         const float* vs, int vgroup, int n_vgroups, void* out,
-                        void* stats, void* codes, void* scales, void* zp,
+                        const float* cs, void* stats, void* codes,
+                        void* scales, void* zp,
                         void* rowsum, int B, int N, int H, int seg,
                         float scale2, cudaStream_t st) {
   dim3 grid((N + SEG_BQ - 1) / SEG_BQ, H, B);
   attn_seg_rows<D, INT8, MODE><<<grid, 128, 0, st>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k), v, vs, vgroup, n_vgroups,
-      static_cast<__nv_bfloat16*>(out), static_cast<float2*>(stats),
+      static_cast<__nv_bfloat16*>(out), cs, static_cast<float2*>(stats),
       static_cast<int8_t*>(codes), static_cast<float*>(scales),
       static_cast<float*>(zp), static_cast<float*>(rowsum), N, H, seg,
       scale2);
@@ -1303,26 +1346,27 @@ VQ_EXPORT int vq_attn_vquant_t(const void* v, void* vt, void* vs, int B,
   return static_cast<int>(cudaGetLastError());
 }
 
-// o [rows, C] f32 -> codes [rows, C] int8, scales [rows] f32; zp [rows] f32
-// selects the asymmetric quantizer (null: symmetric); rowsum [rows] f32 or
-// null (not written).
-VQ_EXPORT int vq_attn_row_quant(const void* o, void* q, void* scales,
-                                void* zp, void* rowsum, int rows, int C,
-                                void* stream) {
+// o [rows, C] f32, cs [C] f32 (the column scales) or null -> codes
+// [rows, C] int8, scales [rows] f32; zp [rows] f32 selects the asymmetric
+// quantizer (null: symmetric); rowsum [rows] f32 or null (not written).
+VQ_EXPORT int vq_attn_row_quant(const void* o, const void* cs, void* q,
+                                void* scales, void* zp, void* rowsum,
+                                int rows, int C, void* stream) {
   const int threads = 256;
   const int blocks = (rows * 32 + threads - 1) / threads;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* op = static_cast<const float*>(o);
+  const float* csp = static_cast<const float*>(cs);
   int8_t* qp = static_cast<int8_t*>(q);
   float* sp = static_cast<float*>(scales);
   float* zpp = static_cast<float*>(zp);
   float* rp = static_cast<float*>(rowsum);
-  if (zpp == nullptr)
-    row_quant_kernel<true><<<blocks, threads, 0, st>>>(op, qp, sp, zpp, rp,
-                                                       rows, C);
-  else
-    row_quant_kernel<false><<<blocks, threads, 0, st>>>(op, qp, sp, zpp, rp,
-                                                        rows, C);
+  const auto kernel =
+      zpp == nullptr ? (csp == nullptr ? row_quant_kernel<true, false>
+                                       : row_quant_kernel<true, true>)
+                     : (csp == nullptr ? row_quant_kernel<false, false>
+                                       : row_quant_kernel<false, true>);
+  kernel<<<blocks, threads, 0, st>>>(op, csp, qp, sp, zpp, rp, rows, C);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1331,10 +1375,12 @@ VQ_EXPORT int vq_attn_row_quant(const void* o, void* q, void* scales,
 // vq_attn_vquant_tiles; seg divides 16 (and N); H even, at most 32; D in
 // {16, 72}. emit 0: out [B, N, H*D] bf16; 1 (sym) or 2 (asym): codes
 // [B*N, H*D] int8, scales [B*N] f32, zp [B*N] f32 (asym), rowsum [B*N] f32
-// or null. Every pointer 16-byte aligned.
+// or null, of the outputs times cs [H*D] f32 (the column scales) where cs
+// is not null. Every pointer 16-byte aligned.
 VQ_EXPORT int vq_attention_seg(const void* q, const void* k, const void* v,
                                const void* vs, int vgroup, int n_vgroups,
-                               void* out, void* codes, void* scales, void* zp,
+                               void* out, const void* cs, void* codes,
+                               void* scales, void* zp,
                                void* rowsum, int B, int N, int H, int D,
                                int seg, float scale2, int int8_pv, int emit,
                                void* stream) {
@@ -1345,13 +1391,14 @@ VQ_EXPORT int vq_attention_seg(const void* q, const void* k, const void* v,
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* vsp = static_cast<const float*>(vs);
+  const float* csp = static_cast<const float*>(cs);
   cudaError_t err;
   switch ((D * 2 + (int8_pv ? 1 : 0)) * 3 + emit) {
 #define VQ_SEG_CASE(DD, I8, EM)                                               \
   case (DD * 2 + I8) * 3 + EM:                                                \
     err = launch_tiled<DD, I8 != 0, EM>(q, k, v, vsp, vgroup, n_vgroups, out, \
-                                        codes, scales, zp, rowsum, B, N, H,   \
-                                        shift, scale2, st);                   \
+                                        csp, codes, scales, zp, rowsum, B, N, \
+                                        H, shift, scale2, st);                \
     break;
     VQ_SEG_CASE(16, 0, 0)
     VQ_SEG_CASE(16, 0, 1)
@@ -1377,10 +1424,12 @@ VQ_EXPORT int vq_attention_seg(const void* q, const void* k, const void* v,
 // N % seg == 0; D in {16, 72}. mode 0: out [B, N, H*D] bf16; 1: stats
 // [B*N, H] float2 (each head's max(o, 0), min(o, 0)); 2 (sym) / 3 (asym),
 // after mode 1 on the same inputs: codes [B*N, H*D] int8, scales [B*N],
-// zp [B*N] (asym), rowsum [B*N] f32 zeroed by the caller, or null.
+// zp [B*N] (asym), rowsum [B*N] f32 zeroed by the caller, or null. cs
+// [H*D] f32 or null: modes 1-3 take the outputs times these column scales.
 VQ_EXPORT int vq_attention_seg_rows(const void* q, const void* k,
                                     const void* v, const void* vs, int vgroup,
-                                    int n_vgroups, void* out, void* stats,
+                                    int n_vgroups, void* out, const void* cs,
+                                    void* stats,
                                     void* codes, void* scales, void* zp,
                                     void* rowsum, int B, int N, int H, int D,
                                     int seg, float scale2, int int8_pv,
@@ -1389,13 +1438,14 @@ VQ_EXPORT int vq_attention_seg_rows(const void* q, const void* k,
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* vsp = static_cast<const float*>(vs);
+  const float* csp = static_cast<const float*>(cs);
   cudaError_t err;
   switch ((D * 2 + (int8_pv ? 1 : 0)) * 4 + mode) {
 #define VQ_ROWS_CASE(DD, I8, MO)                                             \
   case (DD * 2 + I8) * 4 + MO:                                               \
     err = launch_rows<DD, I8 != 0, MO>(q, k, v, vsp, vgroup, n_vgroups, out, \
-                                       stats, codes, scales, zp, rowsum, B,  \
-                                       N, H, seg, scale2, st);               \
+                                       csp, stats, codes, scales, zp,        \
+                                       rowsum, B, N, H, seg, scale2, st);    \
     break;
 #define VQ_ROWS_MODES(DD, I8) \
   VQ_ROWS_CASE(DD, I8, 0)     \

@@ -110,6 +110,27 @@ struct RowQuant {
     const float inv = 1.0f / s;
     return {s, inv, rintf(-lo * inv) - 128.0f};
   }
+  // The channel-balancing fold of the consuming layer (`col_scale`, the
+  // smooth-quant 1/cs): the value times its column's scale, one rounded f32
+  // multiply (-fmad=false keeps it out of any neighbouring FMA), taken
+  // where the JAX kernels take it: after the GELU, before the row statistic
+  // (fused_matmul.py:167-168, :372-374, :593-596; attention.py:213-216).
+  // K2's emission, K3's emissions, K4 and K5 share this one definition.
+  static __device__ __forceinline__ float balance(float x, float cs) {
+    return x * cs;
+  }
+  // cs[col .. col + 3], zeros at and past K; vec: cs 16-byte aligned and
+  // K % 4 == 0 (col a multiple of 4), so one vector load
+  static __device__ __forceinline__ float4 col_scales4(const float* cs,
+                                                      int col, int K,
+                                                      bool vec) {
+    if (col >= K) return make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if (vec) return __ldg(reinterpret_cast<const float4*>(cs + col));
+    return make_float4(__ldg(cs + col),
+                       col + 1 < K ? __ldg(cs + col + 1) : 0.0f,
+                       col + 2 < K ? __ldg(cs + col + 2) : 0.0f,
+                       col + 3 < K ? __ldg(cs + col + 3) : 0.0f);
+  }
   template <bool SYM>
   __device__ __forceinline__ int8_t code(float x) const {
     if constexpr (SYM) {

@@ -3,8 +3,10 @@
 //
 // Replaces the TPU kernel `fused_dynq_int8_matmul` / `_dynq_mm_kernel`
 // (viditq_tpu/kernels/fused_matmul.py:144-309) without its residual/gate
-// epilogue and column scales. Per row: the statistic over the whole K, the
-// codes of K4's quantizer (common.cuh RowQuant: the same IEEE divisions and
+// epilogue. Per row: with a column scale (`has_csc`, :167-168: the layer's
+// channel-balancing 1/cs), x * cs[k] in f32 first (RowQuant::balance, as
+// K4 applies it); the statistic over the whole K, the codes of K4's
+// quantizer (common.cuh RowQuant: the same IEEE divisions and
 // round(x * (1/s)); quant_rows.cu), the code row sum where the epilogue
 // needs it (asym acts, or sym acts on asym weights); then the int8 GEMM with
 // exact int32 sums and K2's epilogues (int8_mma.cuh: int8_gemm_epilogue for
@@ -181,16 +183,48 @@ __device__ __forceinline__ void load_chunk(uint4 (&raw)[CH * sizeof(T) / 16],
 
 // One warp quantizes tile rows lr0 .. lr0 + n - 1 (global rows m0 + lr) into
 // the codes and the row tables (scale, zero point, code sum); rows past M
-// and k past K get zero codes.
-template <typename T, bool SYM, bool ROWSUM>
+// and k past K get zero codes. CS: each value times its column scale cs[k]
+// first, the product formed twice, for the statistic and for the code (the
+// same rounded product both times). A lane's columns are the same in every
+// row: with bf16 x it loads their scales once (CPT * CH registers, free
+// while the accumulators are not live); f32 x, whose rows take twice the
+// registers, reads them from L1 at each use instead (no spills).
+template <typename T, bool SYM, bool ROWSUM, bool CS>
 __device__ __forceinline__ void quantize_rows(
-    const T* __restrict__ x, uint8_t* codes, float* row_s, float* row_z,
-    float* row_r, int m0, int lr0, int n, int M, int K, int nkt,
-    int lane) {
+    const T* __restrict__ x, const float* __restrict__ cs, uint8_t* codes,
+    float* row_s, float* row_z, float* row_r, int m0, int lr0, int n, int M,
+    int K, int nkt, int lane) {
   constexpr int VEC = 16 / sizeof(T);
   constexpr int VPC = CH / VEC;
   const int nchunk = (K + CH - 1) / CH;
   const int tchunk = nkt * (BK / CH);  // chunks the k-tiles hold
+  // this lane's column scales, 0 past K (rows are 16-byte aligned, so
+  // K % 4 == 0 and a float4 never crosses K)
+  constexpr bool CS_REGS = CS && sizeof(T) == 2;
+  float csr[CS_REGS ? CPT : 1][CS_REGS ? CH : 1];
+  if constexpr (CS_REGS) {
+#pragma unroll
+    for (int i = 0; i < CPT; ++i)
+#pragma unroll
+      for (int e = 0; e < CH; e += 4) {
+        const float4 s = vq::RowQuant::col_scales4(
+            cs, (lane + 32 * i) * CH + e, K, true);
+        csr[i][e] = s.x;
+        csr[i][e + 1] = s.y;
+        csr[i][e + 2] = s.z;
+        csr[i][e + 3] = s.w;
+      }
+  }
+  // element e of chunk i of a row, as the quantizer takes it
+  const auto val = [&](const uint4 (&r)[CPT][VPC], int i, int e) {
+    const float v = vq::elem<T>(r[i][e / VEC], e % VEC);
+    if constexpr (CS_REGS) return vq::RowQuant::balance(v, csr[i][e]);
+    if constexpr (CS) {
+      const int col = (lane + 32 * i) * CH + e;
+      return vq::RowQuant::balance(v, col < K ? __ldg(cs + col) : 0.0f);
+    }
+    return v;
+  };
   uint4 next[CPT][VPC];
   auto load_row = [&](int lr) {
     const int row = m0 + lr;
@@ -211,7 +245,20 @@ __device__ __forceinline__ void quantize_rows(
     if (j + 1 < n) load_row(lr + 1);
     float lo = 0.0f;  // asym: min(x, 0)
     float hi = 0.0f;  // asym: max(x, 0); sym: absmax (0 padding moves neither)
-    if constexpr (sizeof(T) == 2) {
+    if constexpr (CS) {
+#pragma unroll
+      for (int i = 0; i < CPT; ++i)
+#pragma unroll
+        for (int e = 0; e < CH; ++e) {
+          const float v = val(raw, i, e);
+          if constexpr (SYM) {
+            hi = fmaxf(hi, fabsf(v));
+          } else {
+            lo = fminf(lo, v);
+            hi = fmaxf(hi, v);
+          }
+        }
+    } else if constexpr (sizeof(T) == 2) {
       // two bf16 at a time: their max, min and |x| are exact, so the
       // statistic is the one of the f32 values (as K4 takes it)
       __nv_bfloat162 l2 = __float2bfloat162_rn(0.0f), h2 = l2;
@@ -264,8 +311,7 @@ __device__ __forceinline__ void quantize_rows(
         for (int q = 0; q < 4; ++q) {
           float f[4];
 #pragma unroll
-          for (int e = 0; e < 4; ++e)
-            f[e] = vq::elem<T>(raw[i][(4 * q + e) / VEC], (4 * q + e) % VEC);
+          for (int e = 0; e < 4; ++e) f[e] = val(raw, i, 4 * q + e);
           w[q] = rq.pack4<SYM>(f);
         }
         const int nv = min(CH, K - c * CH);  // codes of this chunk in the row
@@ -297,9 +343,9 @@ __device__ __forceinline__ void quantize_rows(
 // is M tile u / nsplit and its run u % nsplit of ceil(tiles_n / nsplit) N
 // tiles. ROWSUM: the epilogue reads the code row sums. tma_w: map_w is
 // W^T's map, else the producer warpgroup loads W^T.
-template <typename T, bool SYM, bool ROWSUM, typename Epi>
+template <typename T, bool SYM, bool ROWSUM, bool CS, typename Epi>
 __global__ void __launch_bounds__(THREADS, 1)
-    dynq_gemm_kernel(const T* __restrict__ x,
+    dynq_gemm_kernel(const T* __restrict__ x, const float* __restrict__ cs,
                      const __grid_constant__ CUtensorMap map_w,
                      const int8_t* __restrict__ wt, const Epi epi, int K,
                      int nsplit, int tma_w) {
@@ -401,8 +447,9 @@ __global__ void __launch_bounds__(THREADS, 1)
       const int part = unit % nsplit;
       // this warpgroup's rows of the unit's codes (its own wgmmas of the
       // previous unit, the only readers of them, have completed)
-      quantize_rows<T, SYM, ROWSUM>(x, codes, row_s, row_z, row_r, m0,
-                                    64 * wg + 16 * warp, 16, M, K, nkt, lane);
+      quantize_rows<T, SYM, ROWSUM, CS>(x, cs, codes, row_s, row_z, row_r,
+                                        m0, 64 * wg + 16 * warp, 16, M, K,
+                                        nkt, lane);
       fence_proxy_async();  // the codes, visible to wgmma
       named_sync(1 + wg, 128);
       typename Epi::Row row_lo, row_hi;
@@ -486,10 +533,10 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
 }
 
-template <typename T, bool SYM, bool ROWSUM, typename Epi>
-cudaError_t launch(const T* x, const int8_t* wt, const Epi& epi, int K,
-                   int nsplit, cudaStream_t st) {
-  auto kernel = dynq_gemm_kernel<T, SYM, ROWSUM, Epi>;
+template <typename T, bool SYM, bool ROWSUM, bool CS, typename Epi>
+cudaError_t launch_cs(const T* x, const float* cs, const int8_t* wt,
+                      const Epi& epi, int K, int nsplit, cudaStream_t st) {
+  auto kernel = dynq_gemm_kernel<T, SYM, ROWSUM, CS, Epi>;
   static cudaError_t prepared = cudaErrorNotReady;
   if (prepared == cudaErrorNotReady) {
     cudaFuncAttributes fa;
@@ -514,14 +561,24 @@ cudaError_t launch(const T* x, const int8_t* wt, const Epi& epi, int K,
   const int units = (epi.M + BM - 1) / BM * nsplit;
   const int nkt = (K + BK - 1) / BK;
   kernel<<<units < sms ? units : sms, THREADS, smem_bytes(nkt), st>>>(
-      x, map_w, wt, epi, K, nsplit, tma_w);
+      x, cs, map_w, wt, epi, K, nsplit, tma_w);
   return cudaGetLastError();
+}
+
+// the instantiation with or without column scales (cs null: none)
+template <typename T, bool SYM, bool ROWSUM, typename Epi>
+cudaError_t launch(const T* x, const float* cs, const int8_t* wt,
+                   const Epi& epi, int K, int nsplit, cudaStream_t st) {
+  if (cs != nullptr)
+    return launch_cs<T, SYM, ROWSUM, true>(x, cs, wt, epi, K, nsplit, st);
+  return launch_cs<T, SYM, ROWSUM, false>(x, cs, wt, epi, K, nsplit, st);
 }
 
 // mode 0: sym acts x sym weights; 1: sym acts x asym weights; 2: asym acts
 template <typename T>
-cudaError_t launch_mode(const T* x, const int8_t* wt, const float* ws,
-                        const float* wzp, const float* wcs, const float* b,
+cudaError_t launch_mode(const T* x, const float* cs, const int8_t* wt,
+                        const float* ws, const float* wzp, const float* wcs,
+                        const float* b,
                         void* out, int M, int N, int K, int mode, bool f32,
                         int nsplit, cudaStream_t st) {
   using vq::i8mma::int8_gemm_epilogue;
@@ -530,32 +587,34 @@ cudaError_t launch_mode(const T* x, const int8_t* wt, const float* ws,
   if (mode == 0) {
     if (f32)
       return launch<T, true, false>(
-          x, wt, int8_gemm_epilogue<false, 1>{nullptr, 1, ws, b, out, M, N},
-          K, nsplit, st);
+          x, cs, wt,
+          int8_gemm_epilogue<false, 1>{nullptr, 1, ws, b, out, M, N}, K,
+          nsplit, st);
     return launch<T, true, false>(
-        x, wt, int8_gemm_epilogue<false, 0>{nullptr, 1, ws, b, out, M, N}, K,
+        x, cs, wt,
+        int8_gemm_epilogue<false, 0>{nullptr, 1, ws, b, out, M, N}, K,
         nsplit, st);
   }
   if (mode == 1) {
     if (f32)
-      return launch<T, true, true>(x, wt,
+      return launch<T, true, true>(x, cs, wt,
                              ZpEpilogue<true, false, true>{
                                  nullptr, nullptr, nullptr, ws, wzp, wcs, b,
                                  out, M, N, kf},
                              K, nsplit, st);
-    return launch<T, true, true>(x, wt,
+    return launch<T, true, true>(x, cs, wt,
                            ZpEpilogue<false, false, true>{
                                nullptr, nullptr, nullptr, ws, wzp, wcs, b,
                                out, M, N, kf},
                            K, nsplit, st);
   }
   if (f32)
-    return launch<T, false, true>(x, wt,
+    return launch<T, false, true>(x, cs, wt,
                             ZpEpilogue<true, false, false>{
                                 nullptr, nullptr, nullptr, ws, wzp, wcs, b,
                                 out, M, N, kf},
                             K, nsplit, st);
-  return launch<T, false, true>(x, wt,
+  return launch<T, false, true>(x, cs, wt,
                           ZpEpilogue<false, false, false>{
                               nullptr, nullptr, nullptr, ws, wzp, wcs, b, out,
                               M, N, kf},
@@ -564,20 +623,23 @@ cudaError_t launch_mode(const T* x, const int8_t* wt, const float* ws,
 
 }  // namespace
 
-// x [M, K] (bf16 when is_bf16, else f32), Wt [N, K] int8 (the K-major
-// weight), ws [N] f32, wzp [N] f32 or null (sym weights), wcs [N] f32 (asym
-// acts) or null, bias [N] f32 or null; out [M, N] f32 when f32_out, else
-// bf16. sym_x: sym act codes (else asym with zero points). nsplit: runs of
-// N tiles an M tile's work is split into (>= 1). Takes 0 < K <= 1152,
-// 16-byte aligned rows of x and N % 16 == 0; any M.
-VQ_EXPORT int vq_dynq_gemm(const void* x, const void* Wt, const void* ws,
-                           const void* wzp, const void* wcs, const void* bias,
-                           void* out, int M, int N, int K, int is_bf16,
-                           int sym_x, int f32_out, int nsplit, void* stream) {
+// x [M, K] (bf16 when is_bf16, else f32), cs [K] f32 (the column scales x
+// is multiplied by before the quantize) or null, Wt [N, K] int8 (the
+// K-major weight), ws [N] f32, wzp [N] f32 or null (sym weights), wcs [N]
+// f32 (asym acts) or null, bias [N] f32 or null; out [M, N] f32 when
+// f32_out, else bf16. sym_x: sym act codes (else asym with zero points).
+// nsplit: runs of N tiles an M tile's work is split into (>= 1). Takes
+// 0 < K <= 1152, 16-byte aligned rows of x and cs, and N % 16 == 0; any M.
+VQ_EXPORT int vq_dynq_gemm(const void* x, const void* cs, const void* Wt,
+                           const void* ws, const void* wzp, const void* wcs,
+                           const void* bias, void* out, int M, int N, int K,
+                           int is_bf16, int sym_x, int f32_out, int nsplit,
+                           void* stream) {
   const size_t row_bytes = static_cast<size_t>(K) * (is_bf16 ? 2 : 4);
   if (K <= 0 || K > MAX_KT * BK || N <= 0 || N % 16 != 0 || nsplit < 1 ||
       (!sym_x && wcs == nullptr) || row_bytes % 16 != 0 ||
-      reinterpret_cast<uintptr_t>(x) % 16 != 0)
+      reinterpret_cast<uintptr_t>(x) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(cs) % 16 != 0)
     return cudaErrorInvalidValue;
   if (M <= 0) return 0;
   const int mode = !sym_x ? 2 : wzp != nullptr ? 1 : 0;
@@ -585,11 +647,11 @@ VQ_EXPORT int vq_dynq_gemm(const void* x, const void* Wt, const void* ws,
   const int8_t* w = static_cast<const int8_t*>(Wt);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const cudaError_t e =
-      is_bf16 ? launch_mode(static_cast<const __nv_bfloat16*>(x), w, p(ws),
+      is_bf16 ? launch_mode(static_cast<const __nv_bfloat16*>(x), p(cs), w,
+                            p(ws), p(wzp), p(wcs), p(bias), out, M, N, K,
+                            mode, f32_out != 0, nsplit, st)
+              : launch_mode(static_cast<const float*>(x), p(cs), w, p(ws),
                             p(wzp), p(wcs), p(bias), out, M, N, K, mode,
-                            f32_out != 0, nsplit, st)
-              : launch_mode(static_cast<const float*>(x), w, p(ws), p(wzp),
-                            p(wcs), p(bias), out, M, N, K, mode,
                             f32_out != 0, nsplit, st);
   return static_cast<int>(e);
 }

@@ -8,7 +8,9 @@
 //   gw_x : facc = sum_g float(acc_g) * xs[m, g]  (f32, groups in order)
 //          out  = facc * ws[n] + b[n]
 //   emit : y = gelu_tanh(plain out) written as f32 scratch, then
-//          group_quant_kernel quantizes each (row x group of gw columns):
+//          group_quant_kernel quantizes each (row x group of gw columns),
+//          with the next layer's column scale first where one is given
+//          (has_ecs, :372-374: y = y * cs[n], RowQuant::balance):
 //          s = max(absmax * (1/127), 1e-6); codes = round(y * (1/s))
 //   sym acts x asym weights (:357):
 //          out = (float(acc) - wzp[n]*xrs[m]) * (xs[m]*ws[n]) + b[n]
@@ -61,10 +63,14 @@ __device__ __forceinline__ uint32_t pack_codes(float4 v, float inv) {
 }
 
 // One warp per (row, group): the group's values are read once, as float4
-// held in registers; s = max(absmax * (1/127), 1e-6), codes =
-// clip(round(y * (1/s))) (fused_matmul.py:375-378), stored 4 to a word.
-// The absmax is a max, so its order changes nothing.
+// held in registers (CS: then times the column scales cs, read once all the
+// values' loads are in flight);
+// s = max(absmax * (1/127), 1e-6), codes = clip(round(y * (1/s)))
+// (fused_matmul.py:375-378), stored 4 to a word. The absmax is a max, so
+// its order changes nothing.
+template <bool CS>
 __global__ void group_quant_kernel(const float* __restrict__ y,
+                                   const float* __restrict__ cs,
                                    int8_t* __restrict__ q,
                                    float* __restrict__ scales, int M, int N,
                                    int gw) {
@@ -84,8 +90,26 @@ __global__ void group_quant_kernel(const float* __restrict__ y,
     const int c = lane + 32 * i;
     if (c < nv) {
       v[i] = p[c];
-      am = fmaxf(am, fmaxf(fmaxf(fabsf(v[i].x), fabsf(v[i].y)),
-                           fmaxf(fabsf(v[i].z), fabsf(v[i].w))));
+      if constexpr (!CS)
+        am = fmaxf(am, fmaxf(fmaxf(fabsf(v[i].x), fabsf(v[i].y)),
+                             fmaxf(fabsf(v[i].z), fabsf(v[i].w))));
+    }
+  }
+  if constexpr (CS) {
+    const float4* cp =
+        reinterpret_cast<const float4*>(cs + static_cast<size_t>(grp) * gw);
+#pragma unroll
+    for (int i = 0; i < GQ_VECS; ++i) {
+      const int c = lane + 32 * i;
+      if (c < nv) {
+        const float4 s = __ldg(cp + c);
+        v[i] = make_float4(vq::RowQuant::balance(v[i].x, s.x),
+                           vq::RowQuant::balance(v[i].y, s.y),
+                           vq::RowQuant::balance(v[i].z, s.z),
+                           vq::RowQuant::balance(v[i].w, s.w));
+        am = fmaxf(am, fmaxf(fmaxf(fabsf(v[i].x), fabsf(v[i].y)),
+                             fmaxf(fabsf(v[i].z), fabsf(v[i].w))));
+      }
     }
   }
   am = vq::warp_max(am);
@@ -174,17 +198,22 @@ VQ_EXPORT int vq_int8_gemm_zp(const void* A, const void* Wt, const void* xs,
   return static_cast<int>(e);
 }
 
-// y [M, N] f32 -> q [M, N] int8, scales [M, N / gw] f32; gw a multiple of
-// 16 that divides N, at most 32 * GQ_VECS * 4; y and q 16-byte aligned.
-VQ_EXPORT int vq_group_quant(const void* y, void* q, void* scales, int M,
-                             int N, int gw, void* stream) {
-  if (gw <= 0 || gw % 16 != 0 || N % gw != 0 || gw > 32 * GQ_VECS * 4)
+// y [M, N] f32, cs [N] f32 (the column scales) or null -> q [M, N] int8,
+// scales [M, N / gw] f32; gw a multiple of 16 that divides N, at most
+// 32 * GQ_VECS * 4; y, cs and q 16-byte aligned.
+VQ_EXPORT int vq_group_quant(const void* y, const void* cs, void* q,
+                             void* scales, int M, int N, int gw,
+                             void* stream) {
+  if (gw <= 0 || gw % 16 != 0 || N % gw != 0 || gw > 32 * GQ_VECS * 4 ||
+      reinterpret_cast<uintptr_t>(cs) % 16 != 0)
     return cudaErrorInvalidValue;
   const int items = M * (N / gw);
   const int threads = 256;
   const int blocks = (items * 32 + threads - 1) / threads;
-  group_quant_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(y), static_cast<int8_t*>(q),
-      static_cast<float*>(scales), M, N, gw);
+  const auto kernel =
+      cs != nullptr ? group_quant_kernel<true> : group_quant_kernel<false>;
+  kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(y), static_cast<const float*>(cs),
+      static_cast<int8_t*>(q), static_cast<float*>(scales), M, N, gw);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,10 +1,11 @@
 // K4: per-row dynamic int8 quantize, symmetric or asymmetric, optionally
-// after a tanh-GELU.
+// after a tanh-GELU and a column scale.
 //
 // Replaces the TPU kernel `quantize_rows_fused` / `_quant_rows_kernel`
-// (viditq_tpu/kernels/fused_matmul.py:581-653) without its column-scale
-// mode. Per row of x [M, K]:
+// (viditq_tpu/kernels/fused_matmul.py:581-653). Per row of x [M, K]:
 //   y = gelu ? 0.5*x*(1 + tanh(sqrt(2/pi)*(x + 0.044715*((x*x)*x)))) : x
+//   y = y * cs[k] where a column scale is given (the consuming layer's
+//       channel-balancing 1/cs, after the GELU: RowQuant::balance)
 //   then the row quantizer of `_quantize_rows_f32` (common.cuh RowQuant:
 //   sym, or asym with its zero point), and the code row sum where asked
 //   for (asym codes, or sym codes feeding asym weights).
@@ -44,13 +45,16 @@ __device__ __forceinline__ float gelu_tanh(float o) {
 
 // W warps a row (blockDim.x = 32 * W * rows a block); vec: rows and x
 // 16-byte aligned (K * sizeof(T) % 16 == 0), else element loads and byte
-// stores; RESIDENT: the row fits the block's registers (one read).
-template <typename T, bool SYM, bool GELU, bool RESIDENT>
+// stores; RESIDENT: the row fits the block's registers (one read); CS:
+// cs holds column scales, read (from L1 after the first row) and applied
+// after the GELU. Measured on the card and not kept: their loads issued
+// beside the row's (the registers they hold cost more than their latency).
+template <typename T, bool SYM, bool GELU, bool RESIDENT, bool CS>
 __global__ void __launch_bounds__(MAX_WARPS * 32)
-    quant_rows_kernel(const T* __restrict__ x, int8_t* __restrict__ q,
-                      float* __restrict__ qs, float* __restrict__ zp,
-                      float* __restrict__ rowsum, int M, int K, int W,
-                      bool vec) {
+    quant_rows_kernel(const T* __restrict__ x, const float* __restrict__ cs,
+                      int8_t* __restrict__ q, float* __restrict__ qs,
+                      float* __restrict__ zp, float* __restrict__ rowsum,
+                      int M, int K, int W, bool vec) {
   constexpr int VEC = 16 / sizeof(T);  // elements of a 16-byte vector
   constexpr int VPC = CH / VEC;        // vectors of a chunk
   __shared__ float red_lo[MAX_WARPS], red_hi[MAX_WARPS];
@@ -103,6 +107,19 @@ __global__ void __launch_bounds__(MAX_WARPS * 32)
       for (int i = 0; i < CPT; ++i)
 #pragma unroll
         for (int e = 0; e < CH; ++e) v[i][e] = gelu_tanh(v[i][e]);
+    }
+    if constexpr (CS) {  // the consumer's 1/cs, after the GELU (0 past K)
+#pragma unroll
+      for (int i = 0; i < CPT; ++i)
+#pragma unroll
+        for (int e = 0; e < CH; e += 4) {
+          const float4 s = vq::RowQuant::col_scales4(
+              cs, (base + t + nt * i) * CH + e, K, vec);
+          v[i][e] = vq::RowQuant::balance(v[i][e], s.x);
+          v[i][e + 1] = vq::RowQuant::balance(v[i][e + 1], s.y);
+          v[i][e + 2] = vq::RowQuant::balance(v[i][e + 2], s.z);
+          v[i][e + 3] = vq::RowQuant::balance(v[i][e + 3], s.w);
+        }
     }
   };
   float lo = 0.0f;  // asym: min(y, 0)
@@ -207,55 +224,72 @@ __global__ void __launch_bounds__(MAX_WARPS * 32)
   if (rowsum != nullptr) rowsum[row] = static_cast<float>(sum);
 }
 
-template <typename T, bool SYM, bool GELU>
-void launch_mode(const T* x, int8_t* q, float* qs, float* zp, float* rowsum,
-                 int M, int K, cudaStream_t st) {
+template <typename T, bool SYM, bool GELU, bool CS>
+void launch_cs(const T* x, const float* cs, int8_t* q, float* qs, float* zp,
+               float* rowsum, int M, int K, cudaStream_t st) {
   const int nchunk = (K + CH - 1) / CH;
   const int W = min(MAX_WARPS, (nchunk + 32 * CPT - 1) / (32 * CPT));
   const int rows = MAX_WARPS / W;  // rows a block
   const int blocks = (M + rows - 1) / rows;
+  // vec: 16-byte loads of x (and of cs, whose base is 16-byte aligned:
+  // K % 4 == 0 follows)
   const bool vec = (K * sizeof(T)) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(x) % 16 == 0;
   if (nchunk <= 32 * W * CPT)
-    quant_rows_kernel<T, SYM, GELU, true><<<blocks, 32 * W * rows, 0, st>>>(
-        x, q, qs, zp, rowsum, M, K, W, vec);
+    quant_rows_kernel<T, SYM, GELU, true, CS>
+        <<<blocks, 32 * W * rows, 0, st>>>(x, cs, q, qs, zp, rowsum, M, K, W,
+                                           vec);
   else
-    quant_rows_kernel<T, SYM, GELU, false><<<blocks, 32 * W * rows, 0, st>>>(
-        x, q, qs, zp, rowsum, M, K, W, vec);
+    quant_rows_kernel<T, SYM, GELU, false, CS>
+        <<<blocks, 32 * W * rows, 0, st>>>(x, cs, q, qs, zp, rowsum, M, K, W,
+                                           vec);
+}
+
+template <typename T, bool SYM, bool GELU>
+void launch_mode(const T* x, const float* cs, int8_t* q, float* qs, float* zp,
+                 float* rowsum, int M, int K, cudaStream_t st) {
+  if (cs != nullptr)
+    launch_cs<T, SYM, GELU, true>(x, cs, q, qs, zp, rowsum, M, K, st);
+  else
+    launch_cs<T, SYM, GELU, false>(x, cs, q, qs, zp, rowsum, M, K, st);
 }
 
 template <typename T>
-void launch(const void* x, void* q, void* qs, void* zp, void* rowsum, int M,
-            int K, int gelu, cudaStream_t st) {
+void launch(const void* x, const float* cs, void* q, void* qs, void* zp,
+            void* rowsum, int M, int K, int gelu, cudaStream_t st) {
   const T* xt = static_cast<const T*>(x);
   int8_t* qt = static_cast<int8_t*>(q);
   float* s = static_cast<float*>(qs);
   float* z = static_cast<float*>(zp);
   float* r = static_cast<float*>(rowsum);
   if (z == nullptr && gelu)
-    launch_mode<T, true, true>(xt, qt, s, z, r, M, K, st);
+    launch_mode<T, true, true>(xt, cs, qt, s, z, r, M, K, st);
   else if (z == nullptr)
-    launch_mode<T, true, false>(xt, qt, s, z, r, M, K, st);
+    launch_mode<T, true, false>(xt, cs, qt, s, z, r, M, K, st);
   else if (gelu)
-    launch_mode<T, false, true>(xt, qt, s, z, r, M, K, st);
+    launch_mode<T, false, true>(xt, cs, qt, s, z, r, M, K, st);
   else
-    launch_mode<T, false, false>(xt, qt, s, z, r, M, K, st);
+    launch_mode<T, false, false>(xt, cs, qt, s, z, r, M, K, st);
 }
 
 }  // namespace
 
-// x [M, K] (bf16 when is_bf16, else float32); q [M, K] int8; qs [M]
+// x [M, K] (bf16 when is_bf16, else float32); cs [K] f32 (16-byte aligned)
+// or null: the column scale applied after the GELU; q [M, K] int8; qs [M]
 // float32. zp [M] f32 selects the asymmetric quantizer (null: symmetric);
 // rowsum [M] f32 or null (not written); gelu: tanh-GELU before the
 // quantize.
-VQ_EXPORT int vq_quant_rows(const void* x, void* q, void* qs, void* zp,
-                            void* rowsum, int M, int K, int gelu, int is_bf16,
-                            void* stream) {
+VQ_EXPORT int vq_quant_rows(const void* x, const void* cs, void* q, void* qs,
+                            void* zp, void* rowsum, int M, int K, int gelu,
+                            int is_bf16, void* stream) {
   if (M <= 0 || K <= 0) return 0;
+  if (reinterpret_cast<uintptr_t>(cs) % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* c = static_cast<const float*>(cs);
   if (is_bf16)
-    launch<__nv_bfloat16>(x, q, qs, zp, rowsum, M, K, gelu, st);
+    launch<__nv_bfloat16>(x, c, q, qs, zp, rowsum, M, K, gelu, st);
   else
-    launch<float>(x, q, qs, zp, rowsum, M, K, gelu, st);
+    launch<float>(x, c, q, qs, zp, rowsum, M, K, gelu, st);
   return static_cast<int>(cudaGetLastError());
 }

@@ -35,23 +35,23 @@ _F = ctypes.c_float
 SIGNATURES = {
     "vq_ln_mod_quant": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I,
                         _P],
-    "vq_quant_rows": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "vq_quant_rows": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "vq_int8_gemm": [_P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "vq_int8_gemm_zp": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                         _I, _P],
-    "vq_group_quant": [_P, _P, _P, _I, _I, _I, _P],
-    "vq_dynq_gemm": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                     _P],
+    "vq_group_quant": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "vq_dynq_gemm": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                     _I, _P],
     "vq_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
                      _I, _P],
-    "vq_attention_seg": [_P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _I, _I,
-                         _I, _I, _I, _F, _I, _I, _P],
+    "vq_attention_seg": [_P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _I,
+                         _I, _I, _I, _I, _F, _I, _I, _P],
     "vq_attention_seg_rows": [_P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P,
-                              _P, _I, _I, _I, _I, _I, _F, _I, _I, _P],
+                              _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _P],
     "vq_attn_vquant": [_P, _P, _P, _I, _I, _I, _I, _P],
     "vq_attn_vquant_tiles": [_P, _P, _P, _I, _I, _I, _I, _P],
     "vq_attn_vquant_t": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "vq_attn_row_quant": [_P, _P, _P, _P, _P, _I, _I, _P],
+    "vq_attn_row_quant": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
     "vq_attention_stream": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                             _F, _I, _P],
     "vq_dyn_quant_rows": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],

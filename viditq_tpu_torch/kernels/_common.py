@@ -70,6 +70,18 @@ def f32_flat(t: torch.Tensor) -> torch.Tensor:
     return t.float().contiguous()
 
 
+def col_scale_arg(cs, n: int):
+    """A column scale (the channel-balancing 1/cs of the consuming layer)
+    as the kernels read it: n contiguous float32 values at a 16-byte
+    aligned address (a copy where cs is not), or None."""
+    if cs is None:
+        return None
+    t = f32_flat(cs)
+    require(t.numel() == n, f"col_scale must have {n} elements, got "
+            f"{t.numel()}")
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def exact_int_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Exact integer product of two int8 matrices as float32-convertible
     values: float64 is exact below 2^53, which covers any K the models use

@@ -17,6 +17,10 @@ dispatches as the JAX package does (attention.py:643):
     max (C3), and emission through K4's row quantize of the q-dtype output
     (attention.py:705-713), sym or asym.
 
+An emission may take the proj's channel-balancing column scale
+(`col_scale`, JAX `out_col_scale`, attention.py:213-216): the f32 output
+times it, before the row statistic.
+
 On CPU tensors each runs its plain version (`attention_bnhd_plain`,
 `attention_bnhd_stream_plain`); on CUDA tensors it launches
 csrc/attention.cu or csrc/attention_stream.cu (bf16 inputs) or raises.
@@ -42,9 +46,11 @@ from typing import Optional
 import torch
 
 from viditq_tpu_torch.kernels import _build
-from viditq_tpu_torch.kernels._common import on_cuda, rdiv, require
+from viditq_tpu_torch.kernels._common import (col_scale_arg, on_cuda, rdiv,
+                                              require)
 from viditq_tpu_torch.kernels._counters import COUNTERS, count_plain
-from viditq_tpu_torch.kernels.fused_matmul import (quantize_rows,
+from viditq_tpu_torch.kernels.fused_matmul import (balance_cols,
+                                                   quantize_rows,
                                                    quantize_rows_f32)
 
 LOG2E = float(math.log2(math.e))
@@ -178,11 +184,13 @@ def _v_codes_cuda(v3: torch.Tensor, heads: int, lib, stream):
 
 
 def _row_quant_emit(of: torch.Tensor, emit_sym: bool = True,
-                    need_rowsum: bool = False):
+                    need_rowsum: bool = False, col_scale=None):
     """Emission row quantize, the attention site's forms (attention.py:
-    217-233): sym smax = max(absmax, 1e-6), codes = round(o * (127/smax)),
-    scale smax / 127; asym `_quantize_rows_f32`'s (inv = 1/scale). Returns
-    (codes, scales, zp | None, rowsum | None)."""
+    213-233): the column scales first (where given), then sym smax =
+    max(absmax, 1e-6), codes = round(o * (127/smax)), scale smax / 127;
+    asym `_quantize_rows_f32`'s (inv = 1/scale). Returns (codes, scales,
+    zp | None, rowsum | None)."""
+    of = balance_cols(of, col_scale)
     if emit_sym:
         smax = torch.clamp(of.abs().amax(dim=-1, keepdim=True), min=1e-6)
         codes = torch.clamp(torch.round(of * rdiv(127.0, smax)), -128, 127)
@@ -197,7 +205,7 @@ def attention_bnhd_plain(q, k, v, scale: float, seg_len: int = 0,
                          kv_mask: Optional[torch.Tensor] = None,
                          int8_pv: bool = False, v_block: Optional[int] = None,
                          emit: bool = False, emit_sym: bool = True,
-                         need_rowsum: bool = False):
+                         need_rowsum: bool = False, col_scale=None):
     count_plain("attention_bnhd", q)
     B, N, H, D = q.shape
     M = k.shape[1]
@@ -245,7 +253,8 @@ def attention_bnhd_plain(q, k, v, scale: float, seg_len: int = 0,
         else:
             o = torch.einsum("bhnm,bmhd->bnhd", p, vf)
     if emit:
-        return _row_quant_emit(o.reshape(B, N, C), emit_sym, need_rowsum)
+        return _row_quant_emit(o.reshape(B, N, C), emit_sym, need_rowsum,
+                               col_scale)
     return o.to(q.dtype)
 
 
@@ -298,11 +307,12 @@ def attention_bnhd_stream(q, k, v, scale: float,
                           kv_mask: Optional[torch.Tensor] = None,
                           int8_pv: bool = False, emit: bool = False,
                           bkv: Optional[int] = None, emit_sym: bool = True,
-                          need_rowsum: bool = False):
+                          need_rowsum: bool = False, col_scale=None):
     """K6: kv-streaming attention for M > ONESHOT_MAX_M (see the module
     docstring). bkv defaults to `stream_kv_block`. With emit=True returns
     (int8 codes [B, N, H*D], scales, zp | None, rowsum | None [B, N, 1])
-    from K4 (emit_sym, need_rowsum: its sym and need_rowsum)."""
+    from K4 (emit_sym, need_rowsum, col_scale: its sym, need_rowsum and
+    col_scale; attention.py:705-709)."""
     B, N, H, D = q.shape
     M = k.shape[1]
     C = H * D
@@ -316,7 +326,8 @@ def attention_bnhd_stream(q, k, v, scale: float,
     if not emit:
         return out
     return _bn1(B, N, *quantize_rows(out.reshape(B * N, C), sym=emit_sym,
-                                     need_rowsum=need_rowsum))
+                                     need_rowsum=need_rowsum,
+                                     col_scale=col_scale))
 
 
 def _bn1(B, N, codes, scales, zp, rowsum):
@@ -370,7 +381,8 @@ def attention_bnhd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     `attention_bnhd_int8out` returns it: (int8 codes [B, N, H*D], scales,
     zp | None, rowsum | None, each [B, N, 1] f32). emit_sym: sym codes, or
     asym ones with their zero point; need_rowsum: the code row sum (asym
-    proj weights).
+    proj weights); col_scale [H*D]: the proj's channel-balancing 1/cs, the
+    f32 output times it before the row statistic (emission only).
 
     seg_len > 0: block-diagonal attention in segments of seg_len tokens
     (k/v co-indexed with q). kv_mask [B, M] (1 = attend) masks kv tokens.
@@ -381,8 +393,7 @@ def attention_bnhd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     K6 (`attention_bnhd_stream`), as in the JAX package."""
     if int8_qk:
         raise NotImplementedError("int8_qk is not ported")
-    if col_scale is not None:
-        raise NotImplementedError("emission col_scale is not ported")
+    require(col_scale is None or emit, "col_scale applies to the emission")
     B, N, H, D = q.shape
     M = k.shape[1]
     C = H * D
@@ -392,25 +403,27 @@ def attention_bnhd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if seg_len == 0 and M > ONESHOT_MAX_M:
         return attention_bnhd_stream(q, k, v, scale, kv_mask, int8_pv, emit,
                                      emit_sym=emit_sym,
-                                     need_rowsum=need_rowsum)
+                                     need_rowsum=need_rowsum,
+                                     col_scale=col_scale)
     if seg_len > 0 and int8_pv:
         v_block = seg_v_block(N, seg_len) if v_block is None else v_block
         require(v_block % seg_len == 0 and N % v_block == 0,
                 f"v_block {v_block} must hold whole segments and divide N")
-    if not on_cuda(q, k, v, kv_mask):
+    if not on_cuda(q, k, v, kv_mask, col_scale):
         return attention_bnhd_plain(q, k, v, scale, seg_len, kv_mask,
                                     int8_pv, v_block, emit, emit_sym,
-                                    need_rowsum)
+                                    need_rowsum, col_scale)
     require(q.dtype == k.dtype == v.dtype == torch.bfloat16,
             "the CUDA attention kernel takes bfloat16 q/k/v")
     require(D in KERNEL_HEAD_DIMS, f"head dim {D} not in {KERNEL_HEAD_DIMS}")
     q3 = _aligned(q.reshape(B, N, C))
     k3 = _aligned(k.reshape(B, M, C))
     v3 = _aligned(v.reshape(B, M, C))
+    cs = col_scale_arg(col_scale, C)
     if seg_len > 0:
         return _attention_seg_cuda(q3, k3, v3, H, float(scale * LOG2E),
                                    seg_len, int8_pv, v_block, emit, emit_sym,
-                                   need_rowsum)
+                                   need_rowsum, cs)
     lib = _build.lib()
     stream = _build.stream_ptr(q)
     vs = None
@@ -437,7 +450,7 @@ def attention_bnhd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     zp = None if emit_sym else torch.empty_like(scales)
     rowsum = torch.empty_like(scales) if need_rowsum else None
     _build.check(lib.vq_attn_row_quant(
-        out.data_ptr(), codes.data_ptr(), scales.data_ptr(),
+        out.data_ptr(), _ptr(cs), codes.data_ptr(), scales.data_ptr(),
         None if zp is None else zp.data_ptr(),
         None if rowsum is None else rowsum.data_ptr(), rows, C, stream),
         "vq_attn_row_quant")
@@ -469,12 +482,13 @@ def seg_v_codes_cuda(v3: torch.Tensor, v_block: int, tiled: bool):
 
 
 def _attention_seg_cuda(q3, k3, v3, H, scale2, seg_len, int8_pv, v_block,
-                        emit, emit_sym, need_rowsum):
+                        emit, emit_sym, need_rowsum, cs=None):
     """Seg mode on the card: the tiled kernel (emission inside it), or for
     other shapes (`seg_tiled`) the row kernel, whose emission takes two
-    launches (each (row, head)'s output range, then the codes). Neither
-    writes an f32 output. Int8 PV first quantizes v per (v_block tokens x
-    channel) in the layout of the kernel it feeds."""
+    launches (each (row, head)'s output range, then the codes), both on
+    the outputs times the column scales cs where given. Neither writes an
+    f32 output. Int8 PV first quantizes v per (v_block tokens x channel)
+    in the layout of the kernel it feeds."""
     B, N, C = q3.shape
     D = C // H
     lib = _build.lib()
@@ -496,7 +510,7 @@ def _attention_seg_cuda(q3, k3, v3, H, scale2, seg_len, int8_pv, v_block,
     else:
         out = torch.empty((B, N, C), dtype=q3.dtype, device=q3.device)
     ins = (q3.data_ptr(), k3.data_ptr(), v_arg.data_ptr(), _ptr(vs), vgroup,
-           n_vgroups, _ptr(out))
+           n_vgroups, _ptr(out), _ptr(cs))
     outs = (_ptr(codes), _ptr(scales), _ptr(zp), _ptr(rowsum), B, N, H, D,
             seg_len, scale2, int(int8_pv))
     mode = 0 if not emit else 1 if emit_sym else 2

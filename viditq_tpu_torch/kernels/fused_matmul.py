@@ -17,8 +17,11 @@ fallback between the two.
      codes stay resident in shared memory) and raises on wider K.
 
 Both act quantizers are ported, symmetric and asymmetric (shifted-signed
-codes with a zero point and the code row sum), and both weight kinds. The
-residual/gate epilogue, the column scales, and zero points in K2's
+codes with a zero point and the code row sum), and both weight kinds, and
+the column scales of channel balancing (`col_scale`: the consuming
+layer's smooth-quant 1/cs, multiplied in f32 before the row statistic, and
+after the GELU where there is one): K4's, K5's (`has_csc`) and K2's
+emission (`has_ecs`). The residual/gate epilogue and zero points in K2's
 group-wise and emitting modes raise NotImplementedError.
 
 The three quantize forms stay as the JAX sites write them (C6):
@@ -35,9 +38,10 @@ from typing import Optional
 import torch
 
 from viditq_tpu_torch.kernels import _build
-from viditq_tpu_torch.kernels._common import (divc, exact_int_matmul,
-                                              f32_flat, is_bf16, on_cuda,
-                                              rdiv, require, require_k_major)
+from viditq_tpu_torch.kernels._common import (col_scale_arg, divc,
+                                              exact_int_matmul, f32_flat,
+                                              is_bf16, on_cuda, rdiv, require,
+                                              require_k_major)
 from viditq_tpu_torch.kernels._counters import COUNTERS, count_plain
 
 _SQRT_2_OVER_PI = 0.7978845608028654
@@ -114,6 +118,14 @@ def _out_ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
+def balance_cols(y: torch.Tensor, col_scale) -> torch.Tensor:
+    """y [.., K] f32 times the column scales [K] in f32 (the plain versions'
+    `RowQuant::balance`); y itself without them."""
+    if col_scale is None:
+        return y
+    return y * col_scale.reshape(1, -1).float()
+
+
 def _row_tables(n: int, device, sym: bool, need_rowsum: bool):
     """A row quantizer's [n, 1] f32 outputs as views of one allocation (one
     allocator call a launch, not three): the scale, the zero point (asym)
@@ -179,11 +191,13 @@ def ln_modulate_quantize(x: torch.Tensor, shift: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def quantize_rows_plain(x: torch.Tensor, sym: bool = True, gelu: bool = False,
-                        need_rowsum: bool = False):
+                        need_rowsum: bool = False,
+                        col_scale: Optional[torch.Tensor] = None):
     count_plain("quantize_rows", x)
     xf = x.float()
     if gelu:
         xf = gelu_tanh(xf)
+    xf = balance_cols(xf, col_scale)
     return _row_outputs(*quantize_rows_f32(xf, sym), need_rowsum)
 
 
@@ -193,17 +207,21 @@ def quantize_rows(x: torch.Tensor, sym: bool = True, gelu: bool = False,
     """[M, K] -> (int8 codes [M, K], scales, zp | None, rowsum | None), each
     [M, 1] f32, as `quantize_rows_fused` returns them (`fused_matmul.py:
     651-653`). gelu: tanh-GELU of the f32 value first (the fc1 -> fc2
-    handoff). The row sum comes with asym codes, or when need_rowsum."""
-    _unsupported(col_scale=col_scale)
-    if not on_cuda(x):
-        return quantize_rows_plain(x, sym, gelu, need_rowsum)
+    handoff). col_scale [K] (or [1, K]): the consuming layer's
+    channel-balancing 1/cs, multiplied in f32 after the GELU and before the
+    quantize (`:593-596`). The row sum comes with asym codes, or when
+    need_rowsum."""
+    if not on_cuda(x, col_scale):
+        return quantize_rows_plain(x, sym, gelu, need_rowsum, col_scale)
     require(x.dim() == 2 and x.is_contiguous(), "x must be contiguous [M, K]")
     M, K = x.shape
+    cs = col_scale_arg(col_scale, K)
     q = torch.empty((M, K), dtype=torch.int8, device=x.device)
     qs, zp, rs = _row_tables(M, x.device, sym, need_rowsum)
     _build.check(_build.lib().vq_quant_rows(
-        x.data_ptr(), q.data_ptr(), qs.data_ptr(), _out_ptr(zp), _out_ptr(rs),
-        M, K, int(gelu), is_bf16(x), _build.stream_ptr(x)), "vq_quant_rows")
+        x.data_ptr(), _out_ptr(cs), q.data_ptr(), qs.data_ptr(), _out_ptr(zp),
+        _out_ptr(rs), M, K, int(gelu), is_bf16(x), _build.stream_ptr(x)),
+        "vq_quant_rows")
     COUNTERS["quantize_rows"].launches += 1
     return q, qs, zp, rs
 
@@ -285,6 +303,7 @@ def int8_consumer_matmul_plain(x_q, x_scale, w_q, w_scale, bias=None,
         return out.to(out_dtype)
     if emit.get("gelu"):
         out = gelu_tanh(out)
+    out = balance_cols(out, emit.get("col_scale"))
     bn = emit_groups(N, K)
     y = out.reshape(M, N // bn, bn)
     absmax = y.abs().amax(dim=-1, keepdim=True)
@@ -317,14 +336,16 @@ def int8_consumer_matmul(x_q: torch.Tensor, x_scale: torch.Tensor,
     the zero-point-corrected epilogue, bf16 or f32 out, bias added in f32
     before the cast. Group-wise scales and the emission take sym x sym.
 
-    emit {'gelu': bool}: instead of the output, apply tanh-GELU and
-    quantize each row per group of `emit_groups(N, K)` columns; returns
-    (codes [M, N] int8, scales [M, G] f32). The TPU kernel's lane-padded
-    [M, G*128] scale layout is not kept: the port stores [M, G]."""
-    _unsupported(residual=residual, gate=gate,
-                 col_scale=(emit or {}).get("col_scale"))
+    emit {'gelu': bool, 'col_scale': [N] or None}: instead of the output,
+    apply tanh-GELU, multiply by the next layer's channel-balancing column
+    scales (`has_ecs`, `fused_matmul.py:372-374`) and quantize each row per
+    group of `emit_groups(N, K)` columns; returns (codes [M, N] int8,
+    scales [M, G] f32). The TPU kernel's lane-padded [M, G*128] scale
+    layout is not kept: the port stores [M, G]."""
+    _unsupported(residual=residual, gate=gate)
     tables = (x_zp, x_rowsum, w_zp, w_colsum)
-    if not on_cuda(x_q, x_scale, w_q, w_scale, bias, *tables):
+    ecs = (emit or {}).get("col_scale")
+    if not on_cuda(x_q, x_scale, w_q, w_scale, bias, ecs, *tables):
         return int8_consumer_matmul_plain(x_q, x_scale, w_q, w_scale, bias,
                                           out_dtype, group_scales, emit,
                                           *tables)
@@ -343,7 +364,7 @@ def int8_consumer_matmul(x_q: torch.Tensor, x_scale: torch.Tensor,
         kind = 2 if emit.get("gelu") else 1
     out = k2_gemm(x_q, x_scale, w_q, w_scale, bias, group_scales, kind)
     COUNTERS["int8_consumer_matmul"].launches += 1
-    return out if emit is None else group_quant(out, bn)
+    return out if emit is None else group_quant(out, bn, ecs)
 
 
 def _require_gemm_operands(x_q, w_q):
@@ -411,16 +432,17 @@ def k2_gemm(x_q, x_scale, w_q, w_scale, bias, group_scales: bool,
     return out
 
 
-def group_quant(y: torch.Tensor, bn: int):
+def group_quant(y: torch.Tensor, bn: int, col_scale=None):
     """The emission's second pass on CUDA tensors (no count): f32 [M, N]
-    -> (codes [M, N] int8, scales [M, N / bn] f32), one scale per row and
-    group of bn columns."""
+    (times the column scales [N], where given) -> (codes [M, N] int8,
+    scales [M, N / bn] f32), one scale per row and group of bn columns."""
     M, N = y.shape
+    cs = col_scale_arg(col_scale, N)
     codes = torch.empty((M, N), dtype=torch.int8, device=y.device)
     scales = torch.empty((M, N // bn), dtype=torch.float32, device=y.device)
     _build.check(_build.lib().vq_group_quant(
-        y.data_ptr(), codes.data_ptr(), scales.data_ptr(), M, N, bn,
-        _build.stream_ptr(y)), "vq_group_quant")
+        y.data_ptr(), _out_ptr(cs), codes.data_ptr(), scales.data_ptr(), M,
+        N, bn, _build.stream_ptr(y)), "vq_group_quant")
     return codes, scales
 
 
@@ -453,10 +475,11 @@ def _sm_count(index: int) -> int:
 def fused_dynq_int8_matmul_plain(x, w_q, w_scale, bias=None,
                                  out_dtype=torch.bfloat16, sym: bool = True,
                                  sym_w: bool = True, w_zp=None,
-                                 w_colsum=None):
+                                 w_colsum=None, col_scale=None):
     count_plain("fused_dynq_int8_matmul", x)
     q, s, zp, rs = quantize_rows_plain(x, sym,
-                                       need_rowsum=not (sym and sym_w))
+                                       need_rowsum=not (sym and sym_w),
+                                       col_scale=col_scale)
     return int8_consumer_matmul_plain(q, s, w_q, w_scale, bias, out_dtype,
                                       x_zp=zp, x_rowsum=rs,
                                       w_zp=None if sym_w else w_zp,
@@ -477,19 +500,22 @@ def fused_dynq_int8_matmul(x: torch.Tensor, w_q: torch.Tensor,
     with the dequant epilogue and bias, in one pass as the TPU kernel
     (`fused_matmul.py:144-309`). sym/sym_w flag act/weight symmetry as in
     the JAX kernel; asym weights take w_zp [1, N] (the shifted zero point),
-    asym acts w_colsum [1, N].
+    asym acts w_colsum [1, N]. col_scale [K] (or [1, K]): the layer's
+    channel-balancing 1/cs, x * col_scale in f32 before the row statistic
+    (`has_csc`, `:167-168`).
 
     On the card: one launch of csrc/dynq_gemm.cu (x bf16 or f32 in
     16-byte aligned rows, w_q K-major, N % 16 == 0), whose output equals
     `quantize_rows` then `int8_consumer_matmul` bit for bit; K above
     `K5_MAX_K` (1152) is refused with ValueError (the M tile's codes would
     not fit in shared memory), as is any other shape it does not take."""
-    _unsupported(residual=residual, gate=gate, col_scale=col_scale)
+    _unsupported(residual=residual, gate=gate)
     require(sym_w or w_zp is not None, "asym weights need w_zp")
     w_zp = None if sym_w else w_zp
-    if not on_cuda(x, w_q, w_scale, bias, w_zp, w_colsum):
+    if not on_cuda(x, w_q, w_scale, bias, w_zp, w_colsum, col_scale):
         return fused_dynq_int8_matmul_plain(x, w_q, w_scale, bias, out_dtype,
-                                            sym, sym_w, w_zp, w_colsum)
+                                            sym, sym_w, w_zp, w_colsum,
+                                            col_scale)
     require(sym or w_colsum is not None, "asym acts require w_colsum")
     require(out_dtype in (torch.bfloat16, torch.float32),
             f"unsupported out_dtype {out_dtype}")
@@ -510,10 +536,12 @@ def fused_dynq_int8_matmul(x: torch.Tensor, w_q: torch.Tensor,
             for t in (w_scale, w_zp, w_colsum, bias)]
     for name, t in zip(("w_scale", "w_zp", "w_colsum", "bias"), cols):
         require(t is None or t.numel() == N, f"{name} must have {N} elements")
+    cs = col_scale_arg(col_scale, K)
     lib = _build.lib()
     out = torch.empty((M, N), dtype=out_dtype, device=x.device)
     _build.check(lib.vq_dynq_gemm(
-        x.data_ptr(), w_q.data_ptr(), *(_out_ptr(t) for t in cols),
+        x.data_ptr(), _out_ptr(cs), w_q.data_ptr(),
+        *(_out_ptr(t) for t in cols),
         out.data_ptr(), M, N, K, bf16, int(sym),
         int(out_dtype == torch.float32),
         k5_split(M, N, _sm_count(x.get_device())), _build.stream_ptr(x)),

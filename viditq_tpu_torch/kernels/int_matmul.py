@@ -189,22 +189,27 @@ def quantized_linear_native(x: torch.Tensor, packed: dict,
     package's other impls, None/'xla' (jnp oracles), 'mixed' (K7a + XLA
     dot) and 'pallas' (K7a + K7b), compute the same numbers, so the port
     runs them as one dataflow: K7a, then K7b with the bias added in
-    out_dtype. Smooth quant's `col_scale` is not ported."""
+    out_dtype. col_scale [K] (the smooth-quant 1/cs of channel balancing):
+    folded into K5's quantize under 'fused'; otherwise x times it in one
+    f32 pass, kept in f32 for K7a (`int_matmul.py:307-308`: the JAX package
+    computes it outside its kernels too)."""
     if impl not in IMPLS:
         raise ValueError(f"unknown native impl {impl!r}")
     assert residual is None or impl == "fused", \
         "residual epilogue only on the fused impl"
-    if col_scale is not None:
-        raise NotImplementedError("smooth-quant col_scale is not ported")
     lead = x.shape[:-1]
-    x2 = x.reshape(-1, x.shape[-1]).contiguous()
+    K = x.shape[-1]
+    x2 = x.reshape(-1, K).contiguous()
     if impl == "fused":
         out = fused_dynq_int8_matmul(x2, packed["w_q"], packed["w_scale"],
                                      bias, out_dtype, sym=act_sym,
                                      sym_w=w_sym, w_zp=packed["w_zp"],
                                      w_colsum=packed["w_colsum"],
-                                     residual=residual, gate=gate)
+                                     residual=residual, gate=gate,
+                                     col_scale=col_scale)
         return out.reshape(*lead, -1)
+    if col_scale is not None:
+        x2 = x2.float() * col_scale.reshape(1, K).float()
     x_q, xs, xzp, xrs = dynamic_quant_rows(x2, sym=act_sym)
     out = int8_matmul(x_q, packed["w_q"], xs, xzp, xrs, packed["w_scale"],
                       packed["w_zp"], packed["w_colsum"], out_dtype, bias)

@@ -11,7 +11,12 @@ once in a producer (K1 or K4) and the attention emits int8 for its proj
 other impls q/k/v share one K7a pass, each runs K7b, and the attention
 output goes to its proj in bf16. The port has
 this one dataflow per impl; the JAX package's CPU fallbacks and
-the TPU-only shape gates have no counterpart. PixArt-Σ's KV-compressed
+the TPU-only shape gates have no counterpart. Under channel balancing
+(CB) each producer folds its consumers' 1/cs, read from the consuming
+`QuantLinear` (`inv_balance`), as the JAX package folds it: K1 into the
+adaLN shift/scale vectors, the shared q/k/v K4 pass and fc2's handoff (K4
+or fc1's K2 emission) into the quantize, the attention emission before its
+row statistic. PixArt-Σ's KV-compressed
 self-attention keeps the JAX package's `sdpa` route: PyTorch's
 `scaled_dot_product_attention` on CUDA tensors, where the JAX package
 called the stock Pallas flash kernel (not a kernel of its own), and a copy
@@ -118,11 +123,18 @@ def _exec_flags(spec, qctx):
 
 
 def ln_mod_prequant(resolver: Resolver, prefix: str, inp, shift, scale,
-                    spec_names, qctx) -> Optional[Prequant]:
+                    spec_names, qctx, consumer: QuantLinear
+                    ) -> Optional[Prequant]:
     """Fused LN + adaLN modulate + row quantize producer (layers.py:310-359):
     one K1 pass emits the int8 codes (and, for asym acts or weights, the
     zero points and code row sums) every consumer linear of `spec_names`
-    takes. None when the consumers are not one fused-dynamic spec."""
+    takes. None when the consumers are not one fused-dynamic spec, or,
+    under CB, do not share one cs (several consumers without
+    `qkv_share_cs`). Under CB the consumers' 1/cs (`consumer`: the layer of
+    spec_names[0]) folds into the adaLN vectors, since
+    LN(x)*(1+scale)*ics + shift*ics = LN(x)*((1+scale)*ics) + shift*ics:
+    shift*ics and (1+scale)*ics - 1 in f32, rounded to the vectors' dtype
+    (layers.py:349-354). K1 itself is unchanged."""
     specs = [resolver(f"{prefix}.{n}") for n in spec_names]
     s0 = specs[0]
     if (s0 is None or any(s != s0 for s in specs)
@@ -130,25 +142,33 @@ def ln_mod_prequant(resolver: Resolver, prefix: str, inp, shift, scale,
             or s0.act is None or not s0.act.dynamic
             or not s0.act_quant or not s0.weight_quant):
         return None
-    if s0.smooth_quant.enable:
-        raise NotImplementedError("smooth-quant producer fold")
+    smooth = s0.smooth_quant
+    if smooth.enable and len(spec_names) > 1 and not smooth.qkv_share_cs:
+        return None  # per-layer cs: one shared pass can't serve
     if qctx is None or qctx.mode != "quant":
         return None
+    if smooth.enable:
+        ics = consumer.inv_balance(qctx)
+        shift = (shift.float() * ics).to(shift.dtype)
+        scale = ((1.0 + scale.float()) * ics - 1.0).to(scale.dtype)
     return Prequant(*ln_modulate_quantize(
         inp, shift, scale, sym=s0.act.sym,
         need_rowsum=not (s0.weight is not None and s0.weight.sym)))
 
 
-def attn_emit_int8_ok(pspec, qctx) -> bool:
+def attn_emit_int8_ok(pspec, qctx, has_col_scale: bool = False) -> bool:
     """Whether the attention emits its output int8 for the proj linear
-    (layers.py:362-384, without the TPU device check)."""
+    (layers.py:362-384, without the TPU device check). has_col_scale: the
+    caller holds the proj's 1/cs; a CB proj emits only then, with the
+    rescale folded into the emission."""
     return not (qctx is None or qctx.mode != "quant"
                 or pspec is None or pspec.backend != "native"
                 or pspec.impl != "fused" or pspec.act is None
                 or not pspec.act.dynamic
                 or pspec.act.n_bits != 8 or pspec.weight is None
                 or not pspec.act_quant or not pspec.weight_quant
-                or pspec.smooth_quant.enable or pspec.split)
+                or (pspec.smooth_quant.enable and not has_col_scale)
+                or pspec.split)
 
 
 def emitted_prequant(emitted, C: int) -> Prequant:
@@ -166,7 +186,9 @@ class Mlp(nn.Module):
     group-wise scales that fc2 consumes (K2 emit, K2 gw_x); otherwise fc1
     writes its output in the model dtype and one K4 pass applies the GELU
     and quantizes it per fc2's act spec (sym or asym, with the code row
-    sum for asym weights), and fc2 consumes that prequant (K2)."""
+    sum for asym weights), and fc2 consumes that prequant (K2). Under CB,
+    fc2's 1/cs (fc2 is the handoff's only consumer) is applied after the
+    GELU in either producer."""
 
     def __init__(self, in_features: int, hidden_features: int,
                  resolver: Resolver = no_quant, prefix: str = "",
@@ -182,8 +204,10 @@ class Mlp(nn.Module):
 
     def forward(self, x, qctx: Optional[QuantCtx] = None, prequant=None):
         spec1, spec2 = self.spec1, self.spec2
+        ics2 = self.fc2.inv_balance(qctx)
         fused2 = (is_fused_dynamic(spec2) and qctx is not None
-                  and qctx.mode == "quant")
+                  and qctx.mode == "quant"
+                  and (not spec2.smooth_quant.enable or ics2 is not None))
         if fused2:
             emit1 = (prequant is not None and spec2.act.sym
                      and spec2.weight.sym and is_fused_dynamic(spec1)
@@ -191,12 +215,13 @@ class Mlp(nn.Module):
                      and emission_block_n(self.hidden_features) > 0)
             if emit1:
                 pre = self.fc1(None, qctx, prequant=prequant,
-                               emit={"gelu": True})
+                               emit={"gelu": True, "col_scale": ics2})
             else:
                 h = self.fc1(x, qctx, prequant=prequant)
                 pre = Prequant(*quantize_rows(
                     h.reshape(-1, self.hidden_features), sym=spec2.act.sym,
-                    gelu=True, need_rowsum=not spec2.weight.sym))
+                    gelu=True, need_rowsum=not spec2.weight.sym,
+                    col_scale=ics2))
             return self.fc2(None, qctx, prequant=pre)
         x = approx_gelu(self.fc1(x, qctx, prequant=prequant))
         return self.fc2(x, qctx)
@@ -205,7 +230,8 @@ class Mlp(nn.Module):
 class SelfAttention(nn.Module):
     """Separate-q/k/v multi-head self-attention (layers.py:387-576, the
     layout-native branch). seg_len > 0: block-diagonal attention in
-    segments of seg_len tokens (STDiT temporal attention)."""
+    segments of seg_len tokens (STDiT temporal attention; the CB act
+    statistic of its linears views their input in those segments)."""
 
     def __init__(self, dim: int, num_heads: int, resolver: Resolver = no_quant,
                  prefix: str = "", dtype=torch.bfloat16, seg_len: int = 0):
@@ -214,35 +240,43 @@ class SelfAttention(nn.Module):
         self.seg_len = seg_len
         self.specs = [resolver(f"{prefix}.{n}") for n in ("q", "k", "v")]
         self.pspec = resolver(f"{prefix}.proj")
-        self.q = QuantLinear(dim, dim, self.specs[0], dtype=dtype)
-        self.k = QuantLinear(dim, dim, self.specs[1], dtype=dtype)
-        self.v = QuantLinear(dim, dim, self.specs[2], dtype=dtype)
-        self.proj = QuantLinear(dim, dim, self.pspec, dtype=dtype)
+        kw = dict(dtype=dtype, seg_len=seg_len)
+        self.q = QuantLinear(dim, dim, self.specs[0], **kw)
+        self.k = QuantLinear(dim, dim, self.specs[1], **kw)
+        self.v = QuantLinear(dim, dim, self.specs[2], **kw)
+        self.proj = QuantLinear(dim, dim, self.pspec, **kw)
 
     def forward(self, x, qctx: Optional[QuantCtx] = None,
                 prequant: Optional[Prequant] = None, shape=None):
         """x [B, N, C]; with a producer `prequant` x may be None and
-        `shape` gives (B, N, C)."""
+        `shape` gives (B, N, C). Under CB with `qkv_share_cs` the shared
+        q/k/v quantize takes their pooled 1/cs (layers.py:437-450); the
+        proj's 1/cs goes into the attention's emission (:481-530)."""
         B, N, C = x.shape if x is not None else shape
         H = self.num_heads
         D = C // H
         pre = prequant
-        if (pre is None and all(s == self.specs[0] for s in self.specs)
+        s0 = self.specs[0]
+        if (pre is None and all(s == s0 for s in self.specs)
                 and qctx is not None and qctx.mode == "quant"):
-            pre = shared_prequant(x, self.specs[0])
+            ics = (self.q.inv_balance(qctx) if s0 is not None
+                   and s0.smooth_quant.qkv_share_cs else None)
+            pre = shared_prequant(x, s0, col_scale=ics)
         q = self.q(x, qctx, prequant=pre).reshape(B, N, H, D)
         k = self.k(x, qctx, prequant=pre).reshape(B, N, H, D)
         v = self.v(x, qctx, prequant=pre).reshape(B, N, H, D)
         int8_qk, int8_pv = _exec_flags(self.specs[0], qctx)
         v_block = (seg_v_block(N, self.seg_len)
                    if int8_pv and self.seg_len > 0 else None)
-        if attn_emit_int8_ok(self.pspec, qctx):
+        ics_p = self.proj.inv_balance(qctx)
+        if attn_emit_int8_ok(self.pspec, qctx, ics_p is not None):
             out = self.proj(None, qctx, prequant=emitted_prequant(
                 attention_bnhd(
                     q, k, v, scale=D ** -0.5, seg_len=self.seg_len,
                     int8_qk=int8_qk, int8_pv=int8_pv, v_block=v_block,
                     emit=True, emit_sym=self.pspec.act.sym,
-                    need_rowsum=not self.pspec.weight.sym), C))
+                    need_rowsum=not self.pspec.weight.sym,
+                    col_scale=ics_p), C))
             return out.reshape(B, N, C)
         out = attention_bnhd(q, k, v, scale=D ** -0.5, seg_len=self.seg_len,
                              int8_qk=int8_qk, int8_pv=int8_pv,
@@ -372,9 +406,10 @@ class CrossAttention(nn.Module):
         self.qspec = resolver(f"{prefix}.q_linear")
         self.pspec = resolver(f"{prefix}.proj")
         self.q_linear = QuantLinear(dim, dim, self.qspec, dtype=dtype)
+        # the CB statistic on the reference's packed [1, B*P, C] prompts
         self.kv_linear = QuantLinear(dim, 2 * dim,
                                      resolver(f"{prefix}.kv_linear"),
-                                     dtype=dtype)
+                                     dtype=dtype, stat_layout="packed_prompt")
         self.proj = QuantLinear(dim, dim, self.pspec, dtype=dtype)
 
     def forward(self, x, cond, mask=None, qctx: Optional[QuantCtx] = None):
@@ -390,12 +425,14 @@ class CrossAttention(nn.Module):
         int8_qk, int8_pv = _exec_flags(self.qspec, qctx)
         args = (q.reshape(B, N, H, D), k.reshape(B, P, H, D),
                 v.reshape(B, P, H, D))
-        if attn_emit_int8_ok(self.pspec, qctx):
+        ics_p = self.proj.inv_balance(qctx)
+        if attn_emit_int8_ok(self.pspec, qctx, ics_p is not None):
             out = self.proj(None, qctx, prequant=emitted_prequant(
                 attention_bnhd(
                     *args, scale=D ** -0.5, kv_mask=kv_mask, int8_qk=int8_qk,
                     int8_pv=int8_pv, emit=True, emit_sym=self.pspec.act.sym,
-                    need_rowsum=not self.pspec.weight.sym), C))
+                    need_rowsum=not self.pspec.weight.sym,
+                    col_scale=ics_p), C))
             return out.reshape(B, N, C)
         out = attention_bnhd(*args, scale=D ** -0.5, kv_mask=kv_mask,
                              int8_qk=int8_qk, int8_pv=int8_pv)

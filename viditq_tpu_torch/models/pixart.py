@@ -68,7 +68,7 @@ class PixArtBlock(nn.Module):
         else:
             pre = ln_mod_prequant(self.resolver, self.prefix, x, shift_msa,
                                   scale_msa, ("attn.q", "attn.k", "attn.v"),
-                                  qctx)
+                                  qctx, self.attn.q)
             x_m = None
             if pre is None:
                 x_m = t2i_modulate(layer_norm(x, self.dtype), shift_msa,
@@ -77,7 +77,8 @@ class PixArtBlock(nn.Module):
         x = x + gate_msa * attn_out.reshape(B, N, C)
         x = x + self.cross_attn(x, y, mask, qctx)
         pre_mlp = ln_mod_prequant(self.resolver, self.prefix, x, shift_mlp,
-                                  scale_mlp, ("mlp.fc1",), qctx)
+                                  scale_mlp, ("mlp.fc1",), qctx,
+                                  self.mlp.fc1)
         x_in = None
         if pre_mlp is None:
             x_in = t2i_modulate(layer_norm(x, self.dtype), shift_mlp,

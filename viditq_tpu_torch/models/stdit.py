@@ -61,7 +61,7 @@ class STDiTBlock(nn.Module):
         # the K1 producer replaces LN + modulate + the q/k/v quantize
         pre_attn = ln_mod_prequant(self.resolver, self.prefix, x, shift_msa,
                                    scale_msa, ("attn.q", "attn.k", "attn.v"),
-                                   qctx)
+                                   qctx, self.attn.q)
         x_s = None
         if pre_attn is None:
             x_s = t2i_modulate(layer_norm(x, self.dtype), shift_msa,
@@ -82,7 +82,8 @@ class STDiTBlock(nn.Module):
 
         # MLP
         pre_mlp = ln_mod_prequant(self.resolver, self.prefix, x, shift_mlp,
-                                  scale_mlp, ("mlp.fc1",), qctx)
+                                  scale_mlp, ("mlp.fc1",), qctx,
+                                  self.mlp.fc1)
         x_in = None
         if pre_mlp is None:
             x_in = t2i_modulate(layer_norm(x, self.dtype), shift_mlp,

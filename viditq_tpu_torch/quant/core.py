@@ -3,8 +3,8 @@
 What the weight tables of an inference plan and the simulate-semantics
 PixArt-Σ `sr` conv need: group-wise min/max with the reference's sign
 clamps, the 'min_max' scale init (reference
-`qdiff/quantizer/base_quantizer.py:168-228`), and fake quant with
-nearest rounding, static or dynamic. Same formulas,
+`qdiff/quantizer/base_quantizer.py:168-228`), fake quant with
+nearest rounding, static or dynamic, and the channel-balancing scale. Same formulas,
 same float32 arithmetic order as the JAX package, so the tables are equal
 bit for bit on equal inputs.
 """
@@ -100,3 +100,14 @@ def fake_quant_dynamic(x: torch.Tensor, spec: QuantSpec) -> torch.Tensor:
     """Calibrate from the live tensor, then fake-quant (core.py:283-291)."""
     delta, zero_point = compute_qparams(x, spec)
     return fake_quant(x, delta, zero_point, spec)
+
+
+def smooth_quant_scale(a_absmax: torch.Tensor, w_absmax: torch.Tensor,
+                       alpha: float) -> torch.Tensor:
+    """Per-channel channel-balancing scale cs = a_max^alpha /
+    w_max^(1-alpha) (quant_layer.py:108-140; JAX `core.py:366-378`), with
+    the reference's clamps: act 1e-5 (quant_layer.py:130-134), weight
+    1e-12. The one definition calibration, packing and the forward use."""
+    a = torch.clamp(a_absmax.float(), min=1e-5)
+    w = torch.clamp(w_absmax.float(), min=1e-12)
+    return (a ** alpha) / (w ** (1 - alpha))

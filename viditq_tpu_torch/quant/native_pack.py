@@ -1,12 +1,16 @@
 """Offline packing into the native int8 layout (port of
 `pack_native_weights`, `viditq_tpu/quant/native_pack.py:80-286`).
 
-Fills each quantized `QuantLinear`'s `w_int` [1, K, N] int8 slab, its
-`w_colsum` [1, 1, N] and the codes' zero points `w_zp_int` from the fp
-kernel and the calibrated `w_delta`/`w_zp`. Same code formula as the JAX package (`round(w / d)`,
-clipped): symmetric codes are signed with zero point 0; asymmetric codes
-are shifted into signed int8. Timerange slabs, mixed precision and int4
-packing are not ported.
+Fills each quantized `QuantLinear`'s `w_int` [n_tr, K, N] int8 slabs, its
+`w_colsum` [n_tr, 1, N] and the codes' zero points `w_zp_int` from the fp
+kernel and the calibrated `w_delta`/`w_zp`. One slab per channel-balancing
+timerange, of kernel * cs[tr] (`cb_scale`), quantized with timerange tr's
+tables, or timerange 0's under `frozen_tr0_weights` (native_pack.py:
+208-286). Same code formula as the JAX package (`round(w / d)`, clipped):
+symmetric codes are signed with zero point 0; asymmetric codes are
+shifted by 2^(b-1) into signed int8 (4-bit codes too: one code a byte, as
+the full-native path reads them). Mixed-precision slabs and the int4
+nibble packing of weight-only layers are not ported.
 """
 
 from __future__ import annotations
@@ -26,14 +30,18 @@ def pack_native_weights(model: nn.Module) -> nn.Module:
         bi = wspec.bit_idx
         shift = float(2 ** (wspec.n_bits - 1))
         kernel = mod.kernel.float()
-        d = mod.w_delta[bi, 0].reshape(1, -1)
-        if wspec.sym:
-            code = torch.clamp(torch.round(kernel / d), -shift, shift - 1)
-        else:
-            z = mod.w_zp[bi, 0].reshape(1, -1)
-            code = torch.clamp(torch.round(kernel / d) + z, 0,
-                               float(2 ** wspec.n_bits) - 1) - shift
-        mod.w_int.copy_(code.to(torch.int8)[None])
-        mod.w_colsum.copy_(code.sum(dim=0, keepdim=True)[None])
+        for tr in range(mod.w_int.shape[0]):
+            w_eff = (kernel if mod.smooth is None
+                     else kernel * mod.cb_scale[tr][:, None])
+            tw = mod.table_timerange(tr)
+            d = mod.w_delta[bi, tw].reshape(1, -1)
+            if wspec.sym:
+                code = torch.clamp(torch.round(w_eff / d), -shift, shift - 1)
+            else:
+                z = mod.w_zp[bi, tw].reshape(1, -1)
+                code = torch.clamp(torch.round(w_eff / d) + z, 0,
+                                   float(2 ** wspec.n_bits) - 1) - shift
+            mod.w_int[tr].copy_(code.to(torch.int8))
+            mod.w_colsum[tr].copy_(code.sum(dim=0, keepdim=True))
         mod.refresh_w_zp_int()
     return model

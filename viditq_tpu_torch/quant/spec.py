@@ -105,10 +105,14 @@ class QuantSpec:
 
 @dataclasses.dataclass(frozen=True)
 class SmoothQuantSpec:
-    """Channel-balancing ("smooth quant") config (reference
-    `qdiff/models/quant_layer.py:79-97`). Parsed so plans resolve to the
-    same specs as in the JAX package; a layer that enables it raises at
-    construction, since smooth quant is not ported."""
+    """Channel-balancing ("smooth quant", CB) config (reference
+    `qdiff/models/quant_layer.py:79-97`): per input channel k a balancing
+    scale cs[k] = a_max[k]^alpha / w_max[k]^(1-alpha) divides the layer's
+    input and multiplies its weight rows, one cs per timerange of the
+    diffusion schedule. The port runs the momentum types
+    ('momentum_act_max': a_max is a momentum average of the per-channel
+    input maxima over calibration forwards) on the native backend; the
+    'dynamic' type needs the simulate backend, which is not ported."""
 
     enable: bool = False
     channel_wise_scale_type: str = "momentum_act_max"
@@ -134,6 +138,15 @@ class SmoothQuantSpec:
             prev = hi
         if prev != 1000:
             raise ValueError("smooth-quant timeranges must cover [0, 1000]")
+
+    @property
+    def n_timerange(self) -> int:
+        return len(self.timerange)
+
+    def alpha_for_range(self, idx: int) -> float:
+        if len(self.alpha) == 1:
+            return self.alpha[0]
+        return self.alpha[idx]
 
 
 @dataclasses.dataclass(frozen=True)

@@ -19,8 +19,13 @@ returns the tensors the port's model of the same configuration loads with
     (the same flatten order); the depthwise KV-compress conv kernel
     (`attn.sr.kernel`, [r, r, 1, C]) keeps its layout, which
     `DepthwiseQuantConv` uses as it is;
-  * the packed quant leaves (`w_delta`, `w_zp`, `w_int`, `w_colsum`)
-    become buffers of the same names and shapes.
+  * the packed quant leaves (`w_delta`, `w_zp`, `w_int`, `w_colsum`) and
+    the channel-balancing tables (`act_scale`, `cb_scale`) become buffers
+    of the same names and shapes (one slab per timerange);
+  * a `cbshare__<child>` leaf, the copy of a child layer's `cb_scale` that
+    a flax parent keeps because it cannot read its children's variables
+    (qlinear.py:113-145), must equal that child's table (else ValueError)
+    and is dropped: the port's parents read the child's table.
 """
 
 from __future__ import annotations
@@ -74,13 +79,35 @@ def scanned_runs(params: Mapping) -> Dict[str, int]:
     return runs
 
 
+CBSHARE = "cbshare__"
+
+
+def drop_cbshare(flat: Dict[tuple, np.ndarray]) -> Dict[tuple, np.ndarray]:
+    """The flattened quant tree without its `cbshare__*` leaves, each first
+    held equal to the `cb_scale` of the child it names (its path below the
+    leaf's module, `__` for `.`; qlinear.py:113-145)."""
+    out = {}
+    for path, arr in flat.items():
+        if not path[-1].startswith(CBSHARE):
+            out[path] = arr
+            continue
+        child = (path[:-1] + tuple(path[-1][len(CBSHARE):].split("__"))
+                 + ("cb_scale",))
+        src = flat.get(child)
+        if src is None or not np.array_equal(src, arr):
+            raise ValueError(
+                f"{'.'.join(path)}: not a copy of {'.'.join(child)}"
+                + (" (absent)" if src is None else ""))
+    return out
+
+
 def state_dict_from_flax(params: Mapping,
                          quant: Optional[Mapping] = None
                          ) -> Dict[str, torch.Tensor]:
     runs = scanned_runs(params)
     out: Dict[str, torch.Tensor] = {}
-    for tree in (params, quant or {}):
-        for path, arr in _flatten(tree).items():
+    for flat in (_flatten(params), drop_cbshare(_flatten(quant or {}))):
+        for path, arr in flat.items():
             if path[0] in runs:
                 # scanned run: leading depth axis on every leaf
                 for d in range(arr.shape[0]):
