@@ -8,7 +8,10 @@ Run from the root of a checkout on a machine with one card:
 
 For each slice of `chip_smoke.py` (STDiT-XL/2 16x512x512 and PixArt-Σ
 1024, full width, random weights) and each of its arms (bf16 and sm8 on the
-sm8 plan's model; for STDiT also w8a8, the reference W8A8 plan on the
+sm8 plan's model; for STDiT also sm8_epi, the sm8 plan with the block's
+residual adds in the linears' epilogues (`fuse_epilogue`), attn8
+(`w8a8_tpu_fused_attn8.yaml`: int8 q/k and PV at every attention site),
+w8a8, the reference W8A8 plan on the
 native backend, fused, the same plan through the fused kernels
 (`w8a8_tpu_fused.yaml`), and sym (`w8a8_tpu_fused_sym.yaml`), each on its
 own model; and cb and cb_sym, ViDiT-Q's W4A8 recipe with timestep-aware
@@ -44,6 +47,7 @@ GROUPS = (
     # K2's under the fused reference plan (its kernel names carry no file)
     ("zpepilogue", "int8 GEMM, zero-point epilogue (K2 fused / K7b w8a8)"),
     ("group_quant", "K2 emission group quantize"),
+    ("qk_quant", "K8 q/k headwise quantize"),
     ("ln_mod_quant", "K1 LN+modulate+quantize"),
     ("dyn_quant_rows", "K7a row quantize (native)"),
     ("int8_matmul", "K7b int8 GEMM (native)"),
@@ -110,13 +114,13 @@ def main() -> int:
         mask = torch.ones((1, n_prompt), dtype=torch.int32, device="cuda")
         model, model_plan = None, None
         for arm in cs.SLICE_KERNELS[name]:
-            plan = (cs.ARM_PLANS.get(arm, cs.SM8_PLAN),
-                    cs.PLAN_RECIPES.get(arm))
+            plan = cs.arm_build(arm)
             if plan != model_plan:
                 model = None
                 torch.cuda.empty_cache()
                 model = cs.build_model(cfg, "cuda", plan=plan[0],
-                                       recipe=plan[1], calib=(x, y, mask))
+                                       recipe=plan[1], calib=(x, y, mask),
+                                       model_kw=plan[2])
                 model_plan = plan
             qctx = None if arm == "bf16" else QuantCtx(t_id=500,
                                                        mode="quant")

@@ -39,12 +39,20 @@ Phases (any failure exits non-zero):
      shapes (`cb_cases`: K4 and K5 identical, K5 to the K4 -> K2 route,
      K3's emission at the three sites, K2's emission identical), each
      timed back to back beside the same call without the column scale;
-  4. reference: tiny STDiT (sm8, the fused reference W8A8, the reference
-     W8A8 on the native backend and the W4A8 CB recipe, asym and sym) and
+     the residual (+ gate) epilogue of K2 (every mode it composes with)
+     and K5 (identical to K4 -> K2 with it) at the sm8_epi arm's shapes,
+     and the attn8 arm's K8 (identical) and K3 with int8_qk at its three
+     sites;
+  4. reference: tiny STDiT (sm8, sm8_epi, attn8, the fused reference
+     W8A8, the reference W8A8 on the native backend and the W4A8 CB
+     recipe, asym and sym) and
      tiny sm8 PixArt-Σ models on the card (kernels) against the same
      models on the CPU (plain versions);
   5. slice: full-width STDiT-XL/2 (28 blocks, C=1152, random weights from
-     a seed), bf16, W8A8-sm8, reference W8A8 (`w8a8_dynamic.yaml` on the
+     a seed), bf16, W8A8-sm8, `sm8_epi` (the sm8 plan with the model's
+     `fuse_epilogue`: the block's residual adds in K2's epilogue), `attn8`
+     (`w8a8_tpu_fused_attn8.yaml`: K8's int8 q/k and int8 PV at every
+     attention site), reference W8A8 (`w8a8_dynamic.yaml` on the
      native backend: K7a/K7b), the fused reference W8A8
      (`w8a8_tpu_fused.yaml`: K1-K5 asym), fused sym W8A8
      (`w8a8_tpu_fused_sym.yaml`) and ViDiT-Q's W4A8 recipe with
@@ -54,8 +62,8 @@ Phases (any failure exits non-zero):
      with sym weights and acts) arms over the whole 20-step CFG DDIM
      schedule, with ms/step, peak memory, quantized-vs-bf16 error, the
      fused arm's distance to the native one, the CB arms' steps in each
-     timerange and the launch count of every kernel (the fused and CB
-     arms' held to their per-block counts);
+     timerange and the launch count of every kernel (the fused-kernel
+     STDiT arms held to their per-block counts), and sm8_epi against sm8;
   6. slice_sigma: full-width PixArt-Σ 1024 (28 blocks, C=1152, KV
      compression x2 on blocks 14-27, caption 300x4096), bf16 and sm8 arms
      over the whole 20-step DPM-Solver++ CFG schedule, built through
@@ -79,6 +87,9 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 SM8_PLAN = ROOT / "configs/opensora/w8a8_tpu_fused_sm8.yaml"
+# the sm8 plan plus the reference's per-token int8 q/k quantizers and the
+# int8 PV at every attention site (K8 before each K3)
+ATTN8_PLAN = ROOT / "configs/opensora/w8a8_tpu_fused_attn8.yaml"
 # the reference ViDiT-Q W8A8 (asym weights and acts), native backend
 W8A8_PLAN = ROOT / "configs/opensora/w8a8_dynamic.yaml"
 # the same semantics through the fused int8 dataflow, and its sym ablation
@@ -322,6 +333,8 @@ REPLACES = {
     "attention_bnhd_stream": "viditq_tpu/kernels/attention.py:236",
     "dynamic_quant_rows": "viditq_tpu/kernels/int_matmul.py:72",
     "int8_matmul": "viditq_tpu/kernels/int_matmul.py:142",
+    # an XLA pass outside any pallas_call (`_fake_quant_tokens_headwise`)
+    "qk_headwise_quant": "viditq_tpu/kernels/attention.py:481",
 }
 SOURCES = {
     "ln_modulate_quantize": "viditq_tpu_torch/csrc/ln_mod_quant.cu",
@@ -332,6 +345,7 @@ SOURCES = {
     "attention_bnhd_stream": "viditq_tpu_torch/csrc/attention_stream.cu",
     "dynamic_quant_rows": "viditq_tpu_torch/csrc/int_matmul.cu",
     "int8_matmul": "viditq_tpu_torch/csrc/int_matmul.cu",
+    "qk_headwise_quant": "viditq_tpu_torch/csrc/qk_quant.cu",
 }
 # kernels each slice's main path launches, per arm (and no other)
 FUSED_KERNELS = ("ln_modulate_quantize", "int8_consumer_matmul",
@@ -339,6 +353,8 @@ FUSED_KERNELS = ("ln_modulate_quantize", "int8_consumer_matmul",
 SLICE_KERNELS = {
     "stdit": {"bf16": ("attention_bnhd",),
               "sm8": FUSED_KERNELS,
+              "sm8_epi": FUSED_KERNELS,
+              "attn8": FUSED_KERNELS + ("qk_headwise_quant",),
               "w8a8": ("dynamic_quant_rows", "int8_matmul",
                        "attention_bnhd"),
               "fused": FUSED_KERNELS,
@@ -351,7 +367,11 @@ SLICE_KERNELS = {
 # the plan of each quantized arm (the bf16 arm runs the sm8 arm's model
 # in fp mode)
 ARM_PLANS = {"sm8": SM8_PLAN, "w8a8": W8A8_PLAN, "fused": FUSED_PLAN,
-             "sym": SYM_PLAN, "cb": CB_PLAN, "cb_sym": CB_PLAN}
+             "sym": SYM_PLAN, "cb": CB_PLAN, "cb_sym": CB_PLAN,
+             "attn8": ATTN8_PLAN}
+# model arguments an arm sets in its workload config's `model` dict: the
+# sm8 plan with the block's residual adds in the linears' epilogues
+ARM_MODEL = {"sm8_epi": {"fuse_epilogue": True}}
 # how an arm changes its loaded plan (`quant_plan`): the native backend, or
 # the CB recipe on the fused kernels with the q/k/v scale pooled
 # (bench_configs.py:153-166), asym or with sym weights and acts (:173-182)
@@ -367,12 +387,19 @@ PLAN_RECIPES = {"w8a8": "native", "cb": "cb", "cb_sym": "cb_sym"}
 # vectors, K4, the attention emission, K2's emission, K5's quantize), so
 # `cb` holds the fused arm's counts and `cb_sym` the sym arm's (fc1's
 # emission replaces the GELU handoff's K4)
+# sm8 (and sym, cb_sym) launch K4 once (temporal q/k/v): fc1's emission
+# replaces the GELU handoff's; sm8_epi's epilogues add no launch, and attn8
+# adds K8 at the three attention sites (84 a forward)
 FUSED_BLOCK = {"ln_modulate_quantize": 2, "int8_consumer_matmul": 11,
                "attention_bnhd": 3, "quantize_rows": 2,
                "fused_dynq_int8_matmul": 2}
-BLOCK_LAUNCHES = {("stdit", "fused"): FUSED_BLOCK,
+SM8_BLOCK = {**FUSED_BLOCK, "quantize_rows": 1}
+BLOCK_LAUNCHES = {("stdit", "sm8"): SM8_BLOCK,
+                  ("stdit", "sm8_epi"): SM8_BLOCK,
+                  ("stdit", "attn8"): {**SM8_BLOCK, "qk_headwise_quant": 3},
+                  ("stdit", "fused"): FUSED_BLOCK,
                   ("stdit", "cb"): FUSED_BLOCK,
-                  ("stdit", "cb_sym"): {**FUSED_BLOCK, "quantize_rows": 1}}
+                  ("stdit", "cb_sym"): SM8_BLOCK}
 
 
 def fail(msg: str):
@@ -575,7 +602,9 @@ def check_case(name, case, kernel_fn, plain_fn, records, cost=None,
                     over.any()) else 0.0
                 parts.append(f"{int(over.sum())} beyond {CODE_MAX_DIFF} "
                              f"(slack there {float(slack[over].max()) if over.any() else 0.0:.3g}, "
-                             f"largest slack {float(slack.max()):.3g})")
+                             f"largest slack {float(slack.max()):.3g}, "
+                             f"largest excess over the slack "
+                             f"{excess if over.any() else 'none'})")
                 if excess > 0 or frac > CODE_MISMATCH_FRAC:
                     fail(f"{name}/{case}: codes differ beyond one softmax "
                          f"flip (by {excess}) or too often ({frac})")
@@ -878,13 +907,187 @@ def phase_kernels(records):
     gemm_edge_cases(records, randn, randi8, rands)
     asym_cases(records)
     cb_cases(records)
+    epilogue_cases(records)
+    attn8_cases(records)
     row_edge_cases(records)
     k5_edge_cases(records)
     int8_pv_draws()
 
 
+def epilogue_cases(records):
+    """The residual (+ gate) epilogue (`o = res + gate * out` in f32 after
+    the bias) at the `sm8_epi` arm's shapes, on draws of their own
+    generator: K2 in every mode it composes with (sym x sym at the spatial
+    proj with the adaLN gate of each batch row, G = 2; fc2's gw_x on three
+    k-groups; both zero-point epilogues; the residual alone, as the cross
+    proj takes it; a gate of 4 rows of 250 straddling the 128-row tiles;
+    a last M tile whose second warpgroup's rows all lie past M),
+    each identical to its plain version and timed back to back beside the
+    same call without it; K5 in its three act x weight modes with residual
+    and gate, identical to the K4 -> K2 + residual route in the same run
+    (`check_k5`), and at a ragged M tile with 3 gate rows of 100."""
+    import torch
+    from viditq_tpu_torch.kernels import fused_matmul as FM
+    dev = "cuda"
+    g = torch.Generator(device=dev).manual_seed(5)
+
+    def randn(*shape, dtype=torch.bfloat16, scale=1.0):
+        return (torch.randn(shape, generator=g, device=dev) * scale).to(dtype)
+
+    def rands(*shape, lo=1e-4, hi=1e-3):
+        return lo + (hi - lo) * torch.rand(shape, generator=g, device=dev)
+
+    def randw(k, n):
+        """int8 weight [k, n], K-major, with zero points and column sums"""
+        w = torch.randint(-128, 128, (n, k), generator=g, device=dev,
+                          dtype=torch.int8).t()
+        wz = torch.randint(-20, 20, (1, n), generator=g, device=dev).float()
+        return w, wz, w.float().sum(dim=0, keepdim=True)
+
+    B, T, S, C = 2, 16, 1024, 1152
+    M = B * T * S
+    print("phase kernels: residual (+ gate) epilogue (sm8_epi shapes)",
+          flush=True)
+    res = randn(M, C)
+    gate = randn(B, C, scale=0.5)
+    for case, (k, G, mode, with_gate) in (
+            ("sym proj +res+gate [32768,1152]x[1152,1152] G=2",
+             (C, 1, "sym", True)),
+            ("gw_x fc2 +res+gate [32768,4608]x[4608,1152] 3 groups",
+             (4 * C, 3, "sym", True)),
+            ("asym zp +res+gate [32768,1152]x[1152,1152]",
+             (C, 1, "asym", True)),
+            ("sym x asym-weight zp +res+gate [32768,1152]x[1152,1152]",
+             (C, 1, "symx", True)),
+            ("sym cross proj +res [32768,1152]x[1152,1152]",
+             (C, 1, "sym", False))):
+        w, wz, wc = randw(k, C)
+        ws, b = rands(1, C), randn(C, dtype=torch.float32, scale=0.1)
+        if mode == "sym":
+            xq = torch.randint(-127, 128, (M, k), generator=g, device=dev,
+                               dtype=torch.int8)
+            kw = dict(group_scales=G > 1)
+            xs = rands(M, G, lo=1e-3, hi=2e-2)
+        else:
+            xq, xs, xz, xr = FM.quantize_rows(randn(M, k) + 0.2,
+                                              sym=mode == "symx",
+                                              need_rowsum=True)
+            kw = dict(x_zp=xz, x_rowsum=xr, w_zp=wz, w_colsum=wc)
+        epi = dict(residual=res, gate=gate if with_gate else None)
+        check_case("int8_consumer_matmul", case,
+                   lambda: FM.int8_consumer_matmul(xq, xs, w, ws, b, **kw,
+                                                   **epi),
+                   lambda: FM.int8_consumer_matmul_plain(xq, xs, w, ws, b,
+                                                         **kw, **epi),
+                   records, cost=(M * k + k * C + 4 * M * G + 16 * C
+                                  + 2 * M * C + 2 * M * C
+                                  + 2 * B * C * with_gate,
+                                  {"int8": 2 * M * C * k}), exact=True)
+        with_and_without("int8_consumer_matmul", case,
+                         lambda: FM.int8_consumer_matmul(xq, xs, w, ws, b,
+                                                         **kw, **epi),
+                         lambda: FM.int8_consumer_matmul(xq, xs, w, ws, b,
+                                                         **kw),
+                         what="residual")
+        del xq, xs
+    # a gate whose rows straddle the 128-row tiles (4 gates of 250 rows),
+    # and a last M tile whose second warpgroup's 64 rows all lie past M
+    # (its residual box wholly outside the tensor, zero-filled by TMA)
+    for m, G, sym in ((1000, 4, False), (300, 3, True)):
+        xq, xs, xz, xr = FM.quantize_rows(randn(m, C) + 0.2, sym=sym,
+                                          need_rowsum=True)
+        w, wz, wc = randw(C, C)
+        ws, b = rands(1, C), randn(C, dtype=torch.float32, scale=0.1)
+        kw = dict(residual=randn(m, C), gate=randn(G, C))
+        if not sym:
+            kw.update(x_zp=xz, x_rowsum=xr, w_zp=wz, w_colsum=wc)
+        check_case("int8_consumer_matmul",
+                   f"edge {'sym' if sym else 'asym'} +res+gate M={m} G={G} "
+                   f"({'rows past M' if sym else 'gate rows straddle tiles'})",
+                   lambda: FM.int8_consumer_matmul(xq, xs, w, ws, b, **kw),
+                   lambda: FM.int8_consumer_matmul_plain(xq, xs, w, ws, b,
+                                                         **kw),
+                   records, cost=(k7b_cost(m, C, C, 2)[0] + 2 * m * C,
+                                  {"int8": 2 * m * C * C}), exact=True)
+
+    # K5 with residual and gate: q_linear-shaped, each act x weight mode
+    x = randn(M, C)
+    for case, (sym, sym_w) in (
+            ("sym +res+gate [32768,1152]x[1152,1152] G=2", (True, True)),
+            ("sym x asym-weight +res+gate [32768,1152]x[1152,1152] G=2",
+             (True, False)),
+            ("asym +res+gate [32768,1152]x[1152,1152] G=2", (False, False))):
+        w, wz, wc = randw(C, C)
+        ws, b = rands(1, C), randn(C, dtype=torch.float32, scale=0.1)
+        check_k5(records, case, x, w, ws, b, sym=sym, sym_w=sym_w, w_zp=wz,
+                 w_colsum=wc, residual=res, gate=gate)
+        with_and_without("fused_dynq_int8_matmul", case,
+                         lambda: FM.fused_dynq_int8_matmul(
+                             x, w, ws, b, sym=sym, sym_w=sym_w, w_zp=wz,
+                             w_colsum=wc, residual=res, gate=gate),
+                         lambda: FM.fused_dynq_int8_matmul(
+                             x, w, ws, b, sym=sym, sym_w=sym_w, w_zp=wz,
+                             w_colsum=wc), what="residual")
+    del x
+    m = 300
+    w, wz, wc = randw(C, C)
+    check_k5(records, "edge asym +res+gate M=300 G=3 (ragged M tile)",
+             randn(m, C), w, rands(1, C), randn(C, dtype=torch.float32),
+             timed=False, sym=False, sym_w=False, w_zp=wz, w_colsum=wc,
+             residual=randn(m, C), gate=randn(3, C))
+
+
+def attn8_cases(records):
+    """The attn8 plan's attention quantizers at its main-path shapes, on
+    draws of their own generator: K8 (one launch for q and k) at the
+    spatial, temporal and cross sites, identical to its plain version; K3
+    with int8_qk (K8, then int8 PV and the emission, as the attn8 arm runs
+    every site) at the three sites against the plain versions, codes to
+    the code tolerance, past one code by `int8_pv_slack` (C12) of the
+    quantized q and k, the largest excess over that slack printed."""
+    import torch
+    from viditq_tpu_torch.kernels import attention as A
+    dev = "cuda"
+    g = torch.Generator(device=dev).manual_seed(6)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+
+    B, T, S, H, D, P = 2, 16, 1024, 16, 72, 120
+    sc = D ** -0.5
+    print("phase kernels: attn8 (K8 and K3 int8_qk)", flush=True)
+    mask = torch.ones((B, P), dtype=torch.int32, device=dev)
+    mask[1, 100:] = 0
+    sites = {"spatial": (B * T, S, S, 0, None),
+             "temporal": (B, T * S, T * S, T, None),
+             "cross": (B, T * S, P, 0, mask)}
+    for site, (nb, nq, kv, seg, m) in sites.items():
+        q, k, v = randn(nb, nq, H, D), randn(nb, kv, H, D), randn(nb, kv, H, D)
+        qk_bytes = 4 * (q.numel() + k.numel())
+        check_case("qk_headwise_quant",
+                   f"{site} q {list(q.shape)} k {list(k.shape)}",
+                   lambda: A.qk_headwise_quant(q, k),
+                   lambda: A.qk_headwise_quant_plain(q, k), records,
+                   cost=(qk_bytes, {}), exact=True, b2b=True)
+        vb = A.seg_v_block(nq, seg) if seg else None
+        kw = dict(seg_len=seg, kv_mask=m, int8_qk=True, int8_pv=True,
+                  v_block=vb, emit=True)
+        rows = ([seg] * nb if seg else [kv] * nb if m is None
+                else [int(r) for r in (m != 0).sum(dim=1).tolist()])
+        nbytes, ops = attn_bound(nb, nq, H, D, rows, True, True, kv)
+        nbytes += qk_bytes + (0 if m is None else 4 * nb * kv)
+        qd, kd = A.qk_headwise_quant_plain(q, k)
+        check_case("attention_bnhd", f"{site} attn8 int8_qk int8_pv emit",
+                   lambda: A.attention_bnhd(q, k, v, sc, **kw),
+                   lambda: A.attention_bnhd_plain(q, k, v, sc, **kw),
+                   records, cost=(nbytes, ops),
+                   slack_fn=lambda want, qd=qd, kd=kd, v=v, seg=seg, m=m,
+                   vb=vb: int8_pv_slack(qd, kd, v, sc, seg, m, vb, want[1]))
+        del q, k, v, qd, kd
+
+
 def k5_route(x, w, ws, b, out_dtype=None, sym=True, sym_w=True, w_zp=None,
-             w_colsum=None, col_scale=None):
+             w_colsum=None, col_scale=None, residual=None, gate=None):
     """K5's function as the port served it before its own kernel: K4's row
     quantize (with the column scale), then K2 on the codes (two launches).
     K2 takes K % 64 == 0: a narrower sym K runs on codes and weights padded
@@ -905,7 +1108,8 @@ def k5_route(x, w, ws, b, out_dtype=None, sym=True, sym_w=True, w_zp=None,
         w = k_major(F.pad(w, (0, 0, 0, pad)))
     return FM.int8_consumer_matmul(
         q, s, w, ws, b, out_dtype or torch.bfloat16, x_zp=zp, x_rowsum=rs,
-        w_zp=None if sym_w else w_zp, w_colsum=w_colsum)
+        w_zp=None if sym_w else w_zp, w_colsum=w_colsum, residual=residual,
+        gate=gate)
 
 
 def check_k5(records, case, x, w, ws, b, timed=True, **kw):
@@ -935,8 +1139,11 @@ def check_k5(records, case, x, w, ws, b, timed=True, **kw):
     n = w.shape[1]
     out_bytes = 4 if kw.get("out_dtype") == torch.float32 else 2
     tables = 2 + (not kw.get("sym_w", True)) + (not kw.get("sym", True))
+    res, gate = kw.get("residual"), kw.get("gate")
     cost = (x.element_size() * m * k + k * n + 4 * tables * n
             + 4 * k * (kw.get("col_scale") is not None)
+            + (0 if res is None else 2 * m * n)
+            + (0 if gate is None else 2 * gate.numel())
             + out_bytes * m * n, {"int8": 2 * m * n * k})
     xb, wb = x.to(torch.bfloat16), w.to(torch.bfloat16)
     check_case(name, case, lambda: FM.fused_dynq_int8_matmul(x, w, ws, b, **kw),
@@ -1119,10 +1326,10 @@ def cb_col_scales(g, k, edge=False):
     return torch.full_like(cs, 1.0) / cs
 
 
-def with_and_without(name, case, fn, fn_without):
-    """One line: the call back to back with its column scale and without
-    it, on the same inputs (device time per call)."""
-    print(f"  back to back {name} {case}: with col_scale "
+def with_and_without(name, case, fn, fn_without, what="col_scale"):
+    """One line: the call back to back with its column scale (or `what`)
+    and without it, on the same inputs (device time per call)."""
+    print(f"  back to back {name} {case}: with {what} "
           f"{cuda_ms_back_to_back(fn):.4f} ms, without "
           f"{cuda_ms_back_to_back(fn_without):.4f} ms", flush=True)
 
@@ -1602,6 +1809,8 @@ TINY = dict(hidden_size=64, depth=2, num_heads=4, caption_channels=32,
             model_max_length=8)
 TINY_STDIT_CFG = {"model": dict(type="STDiT", **TINY), "num_frames": 2,
                   "image_size": (128, 256), "dtype": "bf16"}
+TINY_STDIT_EPI_CFG = {**TINY_STDIT_CFG, "model": dict(
+    type="STDiT", fuse_epilogue=True, **TINY)}
 # 96x96 latent: 2304 tokens, so block 0 streams its kv (9 blocks of 256)
 TINY_SIGMA_CFG = {"model": dict(type="PixArt", kv_compress_sampling="conv",
                                 kv_compress_scale=2, kv_compress_layers=(1,),
@@ -1632,18 +1841,28 @@ def quant_plan(plan=SM8_PLAN, recipe=None):
     return qplan
 
 
+def arm_build(arm):
+    """(plan, recipe, model arguments) of an arm's model: the bf16 arm
+    runs the sm8 arm's model in fp mode."""
+    return (ARM_PLANS.get(arm, SM8_PLAN), PLAN_RECIPES.get(arm),
+            tuple(sorted(ARM_MODEL.get(arm, {}).items())))
+
+
 def build_model(cfg, device, scale=0.02, plan=SM8_PLAN, recipe=None,
-                calib=None):
+                calib=None, model_kw=()):
     """The workload's model through `utils/workload.build_model` under a
-    plan (`quant_plan(plan, recipe)`), random weights (normal x scale, seed
-    0: the same fp weights under every plan), min-max tables, packed int8
-    slabs. A CB plan is calibrated in the PTQ phase order first: one
-    sq_stat forward on calib = (x, y, mask) at each of CB_STAT_T."""
+    plan (`quant_plan(plan, recipe)`), with the model arguments model_kw
+    ((name, value) pairs) in the config's `model` dict, random weights
+    (normal x scale, seed 0: the same fp weights under every plan), min-max
+    tables, packed int8 slabs. A CB plan is calibrated in the PTQ phase
+    order first: one sq_stat forward on calib = (x, y, mask) at each of
+    CB_STAT_T."""
     from viditq_tpu_torch.quant.calibrate import (calibrate_weight_tables,
                                                   smooth_quant_stats)
     from viditq_tpu_torch.quant.native_pack import pack_native_weights
     from viditq_tpu_torch.utils.workload import build_model as wl_build
     qplan = quant_plan(plan, recipe)
+    cfg = {**cfg, "model": {**cfg["model"], **dict(model_kw)}}
     model = wl_build(cfg, qplan.resolver(), device=device)
     random_init_(model, 0, scale)
     if qplan.default_layer.smooth_quant.enable:
@@ -1670,8 +1889,9 @@ def check_k_major(model) -> int:
 
 
 def phase_reference():
-    """Tiny models (STDiT under sm8, the fused reference W8A8, the native
-    W8A8 and the W4A8 CB recipe asym and sym, PixArt-Σ under sm8): the
+    """Tiny models (STDiT under sm8, with `fuse_epilogue`, under attn8,
+    the fused reference W8A8, the native W8A8 and the W4A8 CB recipe asym
+    and sym, PixArt-Σ under sm8): the
     card's kernels against the CPU's plain versions on the same weights and
     inputs (a CB model calibrated on the CPU first), for one forward
     (float32 output; t = 700, CB's second timerange) and a 3-step CFG
@@ -1687,6 +1907,9 @@ def phase_reference():
     ddim = IDDPM(num_sampling_steps=3, cfg_scale=4.0)
     for name, cfg, sampler, plan, recipe in (
             ("sm8 STDiT", TINY_STDIT_CFG, ddim, SM8_PLAN, None),
+            ("sm8_epi STDiT (fuse_epilogue)", TINY_STDIT_EPI_CFG, ddim,
+             SM8_PLAN, None),
+            ("attn8 STDiT", TINY_STDIT_CFG, ddim, ATTN8_PLAN, None),
             ("fused asym STDiT", TINY_STDIT_CFG, ddim, FUSED_PLAN, None),
             ("w8a8 STDiT", TINY_STDIT_CFG, ddim, W8A8_PLAN, "native"),
             ("cb STDiT (W4A8 CB)", TINY_STDIT_CFG, ddim, CB_PLAN, "cb"),
@@ -1759,18 +1982,20 @@ def run_slice(name, cfg, z_scale, n_prompt):
     along, moved = {}, {}
     model, model_plan = None, None
     for arm in arms:
-        plan = (ARM_PLANS.get(arm, SM8_PLAN), PLAN_RECIPES.get(arm))
+        plan = arm_build(arm)
         if plan != model_plan:
             model = None
             torch.cuda.empty_cache()
             t0 = time.time()
             model = build_model(cfg, "cuda", plan=plan[0], recipe=plan[1],
-                                calib=(torch.cat([z, z]), y, mask))
+                                calib=(torch.cat([z, z]), y, mask),
+                                model_kw=plan[2])
             torch.cuda.synchronize()
             model_plan = plan
             print(f"phase slice {name}: {cfg['model']['type']} at latent "
                   f"{latent}, CFG batch 2, plan {plan[0].name}"
-                  f"{f' ({plan[1]})' if plan[1] else ''}, built + "
+                  f"{f' ({plan[1]})' if plan[1] else ''}"
+                  f"{f' {dict(plan[2])}' if plan[2] else ''}, built + "
                   f"calibrated + packed in {time.time() - t0:.1f} s, "
                   f"{check_k_major(model)} K-major int8 weights", flush=True)
         # the warm-up forward's context names its timestep (t = 999: a CB
@@ -1783,7 +2008,7 @@ def run_slice(name, cfg, z_scale, n_prompt):
                         y, mask, qctx=qctx)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        smooth = quant_plan(*plan).default_layer.smooth_quant
+        smooth = quant_plan(*plan[:2]).default_layer.smooth_quant
         tr_steps, hook = None, None
         if arm != "bf16" and smooth.enable:
             # the CFG forwards of the run in each CB timerange
@@ -1859,6 +2084,13 @@ def run_slice(name, cfg, z_scale, n_prompt):
         print(f"  {name}: one CFG forward on the latent moved by {dz:.3g} "
               f"(one bf16 step in some entries) moves the output by: "
               f"{'; '.join(f'{a} {r:.4g}' for a, r in moved.items())}",
+              flush=True)
+    if "sm8_epi" in outs:
+        # the same plan and weights, the residual adds in the epilogues
+        # (rounded once in f32, not twice in bf16)
+        print(f"  {name}: sm8_epi {ms['sm8_epi']:.1f} ms/step against sm8 "
+              f"{ms['sm8']:.1f}; final latents apart by rel "
+              f"{float((outs['sm8_epi'] - outs['sm8']).norm() / outs['sm8'].norm()):.4g}",
               flush=True)
     for arm in arms[1:]:
         rel = float((outs[arm] - outs["bf16"]).norm() / outs["bf16"].norm())

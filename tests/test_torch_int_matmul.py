@@ -188,8 +188,8 @@ def test_quantized_linear_native_impls_are_one_dataflow():
 
 @pytest.mark.parametrize("kw,err", [
     (dict(residual=torch.zeros(48, 32)), AssertionError),
-    (dict(impl="fused", residual=torch.zeros(48, 32)),
-     NotImplementedError),  # K5's residual epilogue is not ported
+    # the fused impl takes the residual: K5's epilogue (no rejection)
+    (dict(impl="fused", residual=torch.ones(48, 32)), None),
     (dict(impl="triton"), ValueError),
 ], ids=["residual", "fused-residual", "unknown-impl"])
 def test_quantized_linear_native_rejects(kw, err):
@@ -197,5 +197,12 @@ def test_quantized_linear_native_rejects(kw, err):
     x = t(rng.standard_normal((48, 64)).astype(np.float32))
     packed = {k: t(np.asarray(v)) for k, v in
               _packed(rng, 64, 32, False).items()}
+    if err is None:
+        got = IM.quantized_linear_native(x, packed, out_dtype=torch.float32,
+                                         **kw)
+        out = IM.quantized_linear_native(x, packed, out_dtype=torch.float32,
+                                         impl="fused")
+        assert torch.equal(got, out + kw["residual"])
+        return
     with pytest.raises(err):
         IM.quantized_linear_native(x, packed, **kw)

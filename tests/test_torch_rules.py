@@ -83,17 +83,39 @@ def test_cpu_plain_results_match_direct_plain_calls():
                    for a, b in zip(got, want))
 
 
-@pytest.mark.parametrize("call", [
-    lambda x, sh, sc, w, ws: FM.int8_consumer_matmul(
-        *FM.quantize_rows(x[0])[:2], w, ws, residual=torch.zeros(32, 128)),
-    lambda x, sh, sc, w, ws: FM.fused_dynq_int8_matmul(
-        x[0], w, ws, gate=torch.ones(1, 128)),
-    lambda x, sh, sc, w, ws: A.attention_bnhd(
-        *(x.reshape(2, 32, 4, 16),) * 3, 0.25, int8_qk=True),
-], ids=["k2-residual", "k5-gate", "k3-int8_qk"])
+def _k2_residual(x, sh, sc, w, ws):
+    q, s = FM.quantize_rows(x[0])[:2]
+    res = sc.reshape(2, 64).repeat(16, 2)
+    got = FM.int8_consumer_matmul(q, s, w, ws, residual=res)
+    out = FM.int8_consumer_matmul(q, s, w, ws, out_dtype=torch.float32)
+    return got, (out + res).to(torch.bfloat16)
+
+
+def _k5_gate(x, sh, sc, w, ws):
+    res, gate = sh.reshape(2, 64).repeat(16, 2), sc.reshape(2, 64).repeat(
+        1, 2)
+    got = FM.fused_dynq_int8_matmul(x[0], w, ws, residual=res, gate=gate)
+    out = FM.fused_dynq_int8_matmul(x[0], w, ws, out_dtype=torch.float32)
+    return got, (out * gate.repeat_interleave(16, 0) + res).to(torch.bfloat16)
+
+
+def _k3_int8_qk(x, sh, sc, w, ws):
+    q = x.reshape(2, 32, 4, 16)
+    k = sh.reshape(2, 1, 4, 16).repeat(1, 8, 1, 1) * x[:, :8].reshape(
+        2, 8, 4, 16)
+    got = A.attention_bnhd(q, k, k, 0.25, int8_qk=True)
+    qd, kd = A.qk_headwise_quant(q, k)
+    return got, A.attention_bnhd(qd, kd, k, 0.25)
+
+
+@pytest.mark.parametrize("call", [_k2_residual, _k5_gate, _k3_int8_qk],
+                         ids=["k2-residual", "k5-gate", "k3-int8_qk"])
 def test_unported_modes_raise(call):
-    with pytest.raises(NotImplementedError):
-        call(*_inputs())
+    # these modes raised NotImplementedError until they were ported; each
+    # now computes what its formula says: K2 and K5 `res + gate * out` in
+    # f32 before the one cast, K3 on q and k quantize-dequantized by K8
+    got, want = call(*_inputs())
+    assert got.dtype == want.dtype and torch.equal(got, want)
 
 
 def test_unported_plans_raise_at_model_construction():

@@ -129,18 +129,20 @@ def randomize(params, seed: int = 0, scale: float = 0.1):
 
 def build_jax(plan_path=SM8, scan_blocks: bool = False, seed: int = 0,
               kind: str = "stdit", plan_fn=None, weight_scale: float = 0.1,
-              sq_stat_t=(), act_scales=None, **overrides):
+              sq_stat_t=(), act_scales=None, dtype=jnp.float32,
+              **overrides):
     """(JAX model, variables as numpy trees) with calibrated, packed
     tables. plan_fn: a transform of the loaded plan (`native_plan`);
     weight_scale: the standard deviation of the parameter draws;
     sq_stat_t: the timesteps of the CB statistic forwards run first (the
     PTQ phase order: sq_stat, calibrate, pack), on the kernel path;
     act_scales: instead, a quant tree whose `act_scale` leaves to take
-    (the statistic of a model on the same weights and inputs)."""
+    (the statistic of a model on the same weights and inputs); dtype: the
+    model's activation dtype."""
     jcls, _, cfg, _ = KINDS[kind]
     plan = j_load(plan_path)
     resolver = (plan_fn(plan) if plan_fn else plan).resolver()
-    model = jcls(resolver=resolver, dtype=jnp.float32,
+    model = jcls(resolver=resolver, dtype=dtype,
                  scan_blocks=scan_blocks, **{**cfg, **overrides})
     x, t, y, mask = inputs(kind=kind)
     if "input_size" in overrides:
@@ -198,13 +200,14 @@ def jax_sq_stat(model, variables, args, t_ids):
 
 
 def build_port(plan_path=SM8, variables=None, fp_only: bool = False,
-               kind: str = "stdit", plan_fn=None, **overrides):
+               kind: str = "stdit", plan_fn=None, dtype=torch.float32,
+               **overrides):
     """The port's model; loads the JAX variables through the bridge
     (params only with fp_only, to calibrate and pack in the port)."""
     _, pcls, cfg, _ = KINDS[kind]
     plan = load_quant_config(plan_path)
     model = pcls(resolver=(plan_fn(plan) if plan_fn else plan).resolver(),
-                 dtype=torch.float32, **{**cfg, **overrides})
+                 dtype=dtype, **{**cfg, **overrides})
     if variables is not None:
         sd = state_dict_from_flax(variables["params"],
                                   None if fp_only else variables["quant"])

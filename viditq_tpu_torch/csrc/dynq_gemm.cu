@@ -2,16 +2,22 @@
 // . W[K, N]), x bf16 or f32, the row codes made inside the GEMM.
 //
 // Replaces the TPU kernel `fused_dynq_int8_matmul` / `_dynq_mm_kernel`
-// (viditq_tpu/kernels/fused_matmul.py:144-309) without its residual/gate
-// epilogue. Per row: with a column scale (`has_csc`, :167-168: the layer's
-// channel-balancing 1/cs), x * cs[k] in f32 first (RowQuant::balance, as
-// K4 applies it); the statistic over the whole K, the codes of K4's
+// (viditq_tpu/kernels/fused_matmul.py:144-309). Per row: with a column
+// scale (`has_csc`, :167-168: the layer's channel-balancing 1/cs), x *
+// cs[k] in f32 first (RowQuant::balance, as K4 applies it); the statistic
+// over the whole K, the codes of K4's
 // quantizer (common.cuh RowQuant: the same IEEE divisions and
 // round(x * (1/s)); quant_rows.cu), the code row sum where the epilogue
 // needs it (asym acts, or sym acts on asym weights); then the int8 GEMM with
 // exact int32 sums and K2's epilogues (int8_mma.cuh: int8_gemm_epilogue for
 // sym x sym, ZpEpilogue for the zero-point modes), the f32 bias added before
-// the cast. So the output equals K4 then K2 bit for bit.
+// the cast; with a residual (+ gate), `o = res + gate * out` after the
+// bias (int8_mma.cuh ResGate, :192-205; bf16 x and out, no column scale).
+// So the output equals K4 then K2 bit for bit. The residual epilogue reads
+// each lane's residual and gate pairs from global memory in the epilogue
+// (no shared memory is left at K = 1152 to stage them, as K2 does): at
+// q_linear's shape on an H100 it costs 0.22 ms a call (PERF.md); no model
+// path of the port sends a residual to K5.
 //
 // Bound on the card: the bytes at kv_linear and, at q_linear ([32768, 1152]
 // x [1152, 1152]), about evenly bytes (x in and out in bf16: 151 MB, 0.045
@@ -94,16 +100,16 @@ __device__ __forceinline__ int code_at(int r, int k) {
 
 // the epilogue's row tables point at the unit's rows in shared memory (its
 // row(r) is then read with the row's index in the tile)
-template <bool GW, int OUT_KIND>
+template <bool GW, int OUT_KIND, bool RES>
 __device__ __forceinline__ void bind_rows(
-    vq::i8mma::int8_gemm_epilogue<GW, OUT_KIND>& e, const float* s,
+    vq::i8mma::int8_gemm_epilogue<GW, OUT_KIND, RES>& e, const float* s,
     const float*, const float*) {
   e.xs = s;
 }
-template <bool F32_OUT, bool BIAS_AFTER_CAST, bool SYM_X>
+template <bool F32_OUT, bool BIAS_AFTER_CAST, bool SYM_X, bool RES>
 __device__ __forceinline__ void bind_rows(
-    vq::i8mma::ZpEpilogue<F32_OUT, BIAS_AFTER_CAST, SYM_X>& e, const float* s,
-    const float* z, const float* r) {
+    vq::i8mma::ZpEpilogue<F32_OUT, BIAS_AFTER_CAST, SYM_X, RES>& e,
+    const float* s, const float* z, const float* r) {
   e.xs = s;
   e.xzp = SYM_X ? nullptr : z;
   e.xrs = r;
@@ -513,8 +519,16 @@ __global__ void __launch_bounds__(THREADS, 1)
             for (int h = 0; h < 2; ++h) {
               const int i = 4 * nt + 2 * h;
               const typename Epi::Row& rw = h ? row_hi : row_lo;
-              p[h][j] = pack2(epi.value(acc[i], 0.0f, rw, c0),
-                              epi.value(acc[i + 1], 0.0f, rw, c1));
+              float2 res = make_float2(0.0f, 0.0f);
+              float2 gate = make_float2(1.0f, 1.0f);
+              if constexpr (Epi::RES) {
+                const int row = m0 + lr + 8 * h;
+                if (row < M && n0 + c < N)
+                  epi.rg.load2(row, n0 + c, N, res, gate);
+              }
+              p[h][j] = pack2(epi.value(acc[i], 0.0f, rw, c0, res.x, gate.x),
+                              epi.value(acc[i + 1], 0.0f, rw, c1, res.y,
+                                        gate.y));
             }
           }
           const int col = n0 + 8 * (nt0 + t4);  // N % 16 == 0: 8 in or out
@@ -565,13 +579,47 @@ cudaError_t launch_cs(const T* x, const float* cs, const int8_t* wt,
   return cudaGetLastError();
 }
 
-// the instantiation with or without column scales (cs null: none)
+// the instantiation with or without column scales (cs null: none); the
+// residual epilogue takes none
 template <typename T, bool SYM, bool ROWSUM, typename Epi>
 cudaError_t launch(const T* x, const float* cs, const int8_t* wt,
                    const Epi& epi, int K, int nsplit, cudaStream_t st) {
-  if (cs != nullptr)
-    return launch_cs<T, SYM, ROWSUM, true>(x, cs, wt, epi, K, nsplit, st);
-  return launch_cs<T, SYM, ROWSUM, false>(x, cs, wt, epi, K, nsplit, st);
+  if constexpr (Epi::RES) {
+    if (cs != nullptr) return cudaErrorInvalidValue;
+    return launch_cs<T, SYM, ROWSUM, false>(x, cs, wt, epi, K, nsplit, st);
+  } else {
+    if (cs != nullptr)
+      return launch_cs<T, SYM, ROWSUM, true>(x, cs, wt, epi, K, nsplit, st);
+    return launch_cs<T, SYM, ROWSUM, false>(x, cs, wt, epi, K, nsplit, st);
+  }
+}
+
+// the residual epilogue's launches (bf16 x and out): mode as launch_mode's
+cudaError_t launch_res(const __nv_bfloat16* x, const int8_t* wt,
+                       const float* ws, const float* wzp, const float* wcs,
+                       const float* b, void* out, int M, int N, int K,
+                       int mode, int nsplit, const vq::i8mma::ResGate& rg,
+                       cudaStream_t st) {
+  using vq::i8mma::int8_gemm_epilogue;
+  using vq::i8mma::ZpEpilogue;
+  using T = __nv_bfloat16;
+  const float kf = static_cast<float>(K);
+  if (mode == 0)
+    return launch<T, true, false>(
+        x, nullptr, wt,
+        int8_gemm_epilogue<false, 0, true>{nullptr, 1, ws, b, out, M, N, rg},
+        K, nsplit, st);
+  if (mode == 1)
+    return launch<T, true, true>(
+        x, nullptr, wt,
+        ZpEpilogue<false, false, true, true>{nullptr, nullptr, nullptr, ws,
+                                             wzp, wcs, b, out, M, N, kf, rg},
+        K, nsplit, st);
+  return launch<T, false, true>(
+      x, nullptr, wt,
+      ZpEpilogue<false, false, false, true>{nullptr, nullptr, nullptr, ws, wzp,
+                                            wcs, b, out, M, N, kf, rg},
+      K, nsplit, st);
 }
 
 // mode 0: sym acts x sym weights; 1: sym acts x asym weights; 2: asym acts
@@ -628,24 +676,34 @@ cudaError_t launch_mode(const T* x, const float* cs, const int8_t* wt,
 // K-major weight), ws [N] f32, wzp [N] f32 or null (sym weights), wcs [N]
 // f32 (asym acts) or null, bias [N] f32 or null; out [M, N] f32 when
 // f32_out, else bf16. sym_x: sym act codes (else asym with zero points).
-// nsplit: runs of N tiles an M tile's work is split into (>= 1). Takes
-// 0 < K <= 1152, 16-byte aligned rows of x and cs, and N % 16 == 0; any M.
+// nsplit: runs of N tiles an M tile's work is split into (>= 1). res [M, N]
+// bf16 or null: the residual epilogue, with gate [G, N] bf16 or null and
+// rows_per_gate = M / G (bf16 x and out, no cs). Takes 0 < K <= 1152,
+// 16-byte aligned rows of x and cs, and N % 16 == 0; any M.
 VQ_EXPORT int vq_dynq_gemm(const void* x, const void* cs, const void* Wt,
                            const void* ws, const void* wzp, const void* wcs,
                            const void* bias, void* out, int M, int N, int K,
                            int is_bf16, int sym_x, int f32_out, int nsplit,
-                           void* stream) {
+                           const void* res, const void* gate,
+                           int rows_per_gate, void* stream) {
   const size_t row_bytes = static_cast<size_t>(K) * (is_bf16 ? 2 : 4);
+  vq::i8mma::ResGate rg;
   if (K <= 0 || K > MAX_KT * BK || N <= 0 || N % 16 != 0 || nsplit < 1 ||
       (!sym_x && wcs == nullptr) || row_bytes % 16 != 0 ||
       reinterpret_cast<uintptr_t>(x) % 16 != 0 ||
-      reinterpret_cast<uintptr_t>(cs) % 16 != 0)
+      reinterpret_cast<uintptr_t>(cs) % 16 != 0 ||
+      !vq::i8mma::res_gate(res, gate, rows_per_gate, &rg) ||
+      (res != nullptr && (!is_bf16 || f32_out || cs != nullptr)))
     return cudaErrorInvalidValue;
   if (M <= 0) return 0;
   const int mode = !sym_x ? 2 : wzp != nullptr ? 1 : 0;
   const auto p = [](const void* v) { return static_cast<const float*>(v); };
   const int8_t* w = static_cast<const int8_t*>(Wt);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (res != nullptr)
+    return static_cast<int>(launch_res(
+        static_cast<const __nv_bfloat16*>(x), w, p(ws), p(wzp), p(wcs),
+        p(bias), out, M, N, K, mode, nsplit, rg, st));
   const cudaError_t e =
       is_bf16 ? launch_mode(static_cast<const __nv_bfloat16*>(x), p(cs), w,
                             p(ws), p(wzp), p(wcs), p(bias), out, M, N, K,

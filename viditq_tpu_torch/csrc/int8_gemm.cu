@@ -17,18 +17,28 @@
 //   asym acts (:359-362):
 //          c = float(acc) - xzp[m]*wcs[n] - wzp[n]*xrs[m] + (K*xzp[m])*wzp[n]
 //          out = (c * xs[m]) * ws[n] + b[n]
+//   residual (+ gate), on plain, gw_x and both zero-point modes (:383-390):
+//          o = out * gate[m / (M/G), n] (with a gate), then o + res[m, n]
 // every product and sum rounded in f32 in that order (-fmad=false), the
 // bias added in f32 before the output's cast (:363-364; K7b rounds it to
-// the output type first). gw_x and the emission take sym x sym only.
+// the output type first). gw_x and the emission take sym x sym only; the
+// residual epilogue takes bf16 out and no emission (:438-440).
 //
 // Bound on the card: the int8 tensor cores at the main path's shapes
 // (M = 32768, K/N in 1152..4608: ~100-300 int8 ops per byte moved). The
 // product is the TMA + s8 wgmma core of int8_mma.cuh (K-major weight,
 // 128x192 tiles; 128x128 in gw_x, whose f32 accumulator doubles the
 // registers a thread holds); its epilogues are the core's
-// (int8_mma.cuh: int8_gemm_epilogue, and ZpEpilogue, which K7b's is too). The emission's
-// row max spans a whole 1536-column group, wider than a tile, hence the f32
-// scratch and the second pass.
+// (int8_mma.cuh: int8_gemm_epilogue, and ZpEpilogue, which K7b's is too).
+// The emission's row max spans a whole 1536-column group, wider than a
+// tile, hence the f32 scratch and the second pass. The residual epilogue
+// reads one more [M, N] bf16 tensor (at the spatial proj the bytes, 0.057
+// ms, then bound it): each warpgroup's residual tile arrives by TMA in its
+// output staging boxes while the main loop runs, and its gate row in
+// shared memory, so the epilogue reads both from shared memory (a first
+// version that loaded them from global memory in the epilogue cost 0.2 ms
+// more a call on an H100: the loads' latency, serialized in the unrolled
+// loop).
 #include <type_traits>
 
 #include "int8_mma.cuh"
@@ -40,13 +50,14 @@ using vq::i8mma::int8_gemm_epilogue;
 // The zero-point-corrected modes: int8_mma.cuh's ZpEpilogue (shared with
 // K7b), the f32 bias added before the cast. ASYM_X = asym acts (xzp given),
 // else sym acts x asym weights. Out: bf16 or f32.
-template <bool ASYM_X, bool F32_OUT>
+template <bool ASYM_X, bool F32_OUT, bool RES = false>
 cudaError_t launch_gemm_zp(const int8_t* A, const int8_t* Wt,
                            const float* const* f, void* out, int M, int N,
-                           int K, cudaStream_t st) {
-  const vq::i8mma::ZpEpilogue<F32_OUT, false, !ASYM_X> epi{
+                           int K, const vq::i8mma::ResGate& rg,
+                           cudaStream_t st) {
+  const vq::i8mma::ZpEpilogue<F32_OUT, false, !ASYM_X, RES> epi{
       f[0], f[1], f[2], f[3], f[4], f[5], f[6], out, M, N,
-      static_cast<float>(K)};
+      static_cast<float>(K), rg};
   return vq::i8mma::launch_tma(A, Wt, epi, K, K, st);
 }
 
@@ -124,11 +135,13 @@ __global__ void group_quant_kernel(const float* __restrict__ y,
   if (lane == 0) scales[static_cast<size_t>(row) * G + grp] = s;
 }
 
-template <bool GW, int OUT_KIND>
+template <bool GW, int OUT_KIND, bool RES = false>
 cudaError_t launch_gemm(const int8_t* A, const int8_t* Wt, const float* xs,
                         int G, const float* ws, const float* bias, void* out,
-                        int M, int N, int K, cudaStream_t st) {
-  const int8_gemm_epilogue<GW, OUT_KIND> epi{xs, G, ws, bias, out, M, N};
+                        int M, int N, int K, const vq::i8mma::ResGate& rg,
+                        cudaStream_t st) {
+  const int8_gemm_epilogue<GW, OUT_KIND, RES> epi{xs, G, ws, bias,
+                                                  out, M, N, rg};
   return vq::i8mma::launch_tma(A, Wt, epi, K, K / G, st);
 }
 
@@ -138,33 +151,46 @@ cudaError_t launch_gemm(const int8_t* A, const int8_t* Wt, const float* xs,
 // transposed), xs [M, G] f32 (G == 1 unless group_wise), ws [N] f32, bias
 // [N] f32 or null. out_kind 0: out [M, N] bf16; 1: out [M, N] f32; 2: out
 // [M, N] f32 = gelu(result) (emission scratch). K % 64 == 0, N % 16 == 0,
-// 16-byte aligned A and Wt, and with group_wise (K / G) % 64 == 0.
+// 16-byte aligned A and Wt, and with group_wise (K / G) % 64 == 0. res
+// [M, N] bf16 or null: the residual epilogue (out_kind 0), with gate [G,
+// N] bf16 or null, rows_per_gate = M / G.
 VQ_EXPORT int vq_int8_gemm(const void* A, const void* Wt, const void* xs,
                            int G, const void* ws, const void* bias, void* out,
                            int M, int N, int K, int group_wise, int out_kind,
-                           void* stream) {
+                           const void* res, const void* gate,
+                           int rows_per_gate, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int8_t* a = static_cast<const int8_t*>(A);
   const int8_t* w = static_cast<const int8_t*>(Wt);
-  if (!vq::i8mma::tma_ok(a, w, K)) return cudaErrorInvalidValue;
+  vq::i8mma::ResGate rg;
+  if (!vq::i8mma::tma_ok(a, w, K) ||
+      !vq::i8mma::res_gate(res, gate, rows_per_gate, &rg) ||
+      (res != nullptr && out_kind != 0))
+    return cudaErrorInvalidValue;
   const float* x_s = static_cast<const float*>(xs);
   const float* w_s = static_cast<const float*>(ws);
   const float* b = static_cast<const float*>(bias);
   cudaError_t e;
-  if (group_wise) {
+  if (res != nullptr) {
+    e = group_wise
+            ? launch_gemm<true, 0, true>(a, w, x_s, G, w_s, b, out, M, N, K,
+                                         rg, st)
+            : launch_gemm<false, 0, true>(a, w, x_s, 1, w_s, b, out, M, N, K,
+                                          rg, st);
+  } else if (group_wise) {
     if (out_kind == 0)
-      e = launch_gemm<true, 0>(a, w, x_s, G, w_s, b, out, M, N, K, st);
+      e = launch_gemm<true, 0>(a, w, x_s, G, w_s, b, out, M, N, K, rg, st);
     else if (out_kind == 1)
-      e = launch_gemm<true, 1>(a, w, x_s, G, w_s, b, out, M, N, K, st);
+      e = launch_gemm<true, 1>(a, w, x_s, G, w_s, b, out, M, N, K, rg, st);
     else
-      e = launch_gemm<true, 2>(a, w, x_s, G, w_s, b, out, M, N, K, st);
+      e = launch_gemm<true, 2>(a, w, x_s, G, w_s, b, out, M, N, K, rg, st);
   } else {
     if (out_kind == 0)
-      e = launch_gemm<false, 0>(a, w, x_s, 1, w_s, b, out, M, N, K, st);
+      e = launch_gemm<false, 0>(a, w, x_s, 1, w_s, b, out, M, N, K, rg, st);
     else if (out_kind == 1)
-      e = launch_gemm<false, 1>(a, w, x_s, 1, w_s, b, out, M, N, K, st);
+      e = launch_gemm<false, 1>(a, w, x_s, 1, w_s, b, out, M, N, K, rg, st);
     else
-      e = launch_gemm<false, 2>(a, w, x_s, 1, w_s, b, out, M, N, K, st);
+      e = launch_gemm<false, 2>(a, w, x_s, 1, w_s, b, out, M, N, K, rg, st);
   }
   return static_cast<int>(e);
 }
@@ -174,27 +200,38 @@ VQ_EXPORT int vq_int8_gemm(const void* A, const void* Wt, const void* xs,
 // or null (zeros); ws [N] f32; wzp [N] f32 or null (sym weights); wcs [N]
 // f32 (needed with xzp) or null; bias [N] f32 or null; out [M, N] f32 when
 // f32_out, else bf16. K % 64 == 0, N % 16 == 0, A and Wt 16-byte aligned.
+// res, gate, rows_per_gate: the residual epilogue as vq_int8_gemm's (bf16
+// out).
 VQ_EXPORT int vq_int8_gemm_zp(const void* A, const void* Wt, const void* xs,
                               const void* xzp, const void* xrs,
                               const void* ws, const void* wzp,
                               const void* wcs, const void* bias, void* out,
                               int M, int N, int K, int f32_out,
-                              void* stream) {
+                              const void* res, const void* gate,
+                              int rows_per_gate, void* stream) {
   const int8_t* a = static_cast<const int8_t*>(A);
   const int8_t* w = static_cast<const int8_t*>(Wt);
+  vq::i8mma::ResGate rg;
   if (!vq::i8mma::tma_ok(a, w, K) || (xzp == nullptr && wzp == nullptr) ||
-      (xzp != nullptr && wcs == nullptr))
+      (xzp != nullptr && wcs == nullptr) ||
+      !vq::i8mma::res_gate(res, gate, rows_per_gate, &rg) ||
+      (res != nullptr && f32_out))
     return cudaErrorInvalidValue;
   const auto p = [](const void* v) { return static_cast<const float*>(v); };
   const float* f[7] = {p(xs), p(xzp), p(xrs), p(ws), p(wzp), p(wcs), p(bias)};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t e;
-  if (xzp != nullptr)
-    e = f32_out ? launch_gemm_zp<true, true>(a, w, f, out, M, N, K, st)
-                : launch_gemm_zp<true, false>(a, w, f, out, M, N, K, st);
+  if (res != nullptr)
+    e = xzp != nullptr
+            ? launch_gemm_zp<true, false, true>(a, w, f, out, M, N, K, rg, st)
+            : launch_gemm_zp<false, false, true>(a, w, f, out, M, N, K, rg,
+                                                 st);
+  else if (xzp != nullptr)
+    e = f32_out ? launch_gemm_zp<true, true>(a, w, f, out, M, N, K, rg, st)
+                : launch_gemm_zp<true, false>(a, w, f, out, M, N, K, rg, st);
   else
-    e = f32_out ? launch_gemm_zp<false, true>(a, w, f, out, M, N, K, st)
-                : launch_gemm_zp<false, false>(a, w, f, out, M, N, K, st);
+    e = f32_out ? launch_gemm_zp<false, true>(a, w, f, out, M, N, K, rg, st)
+                : launch_gemm_zp<false, false>(a, w, f, out, M, N, K, rg, st);
   return static_cast<int>(e);
 }
 

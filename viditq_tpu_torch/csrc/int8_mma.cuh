@@ -35,6 +35,10 @@
 //   loop; the tile is staged per warpgroup in 128-byte-swizzled boxes and
 //   leaves by TMA stores that overlap the next tile's main loop (element
 //   stores where the output rows fit no tensor map: N * size % 16 != 0).
+//   With a residual (Epi::RES, K2's `res + gate * out`), the residual tile
+//   arrives by TMA in those staging boxes while the main loop runs (the
+//   output's layout: bf16) and each value is written where its residual
+//   was read.
 // - What bounds it now: the epilogue does not overlap the tensor cores (both
 //   consumer warpgroups finish a tile together), which costs most where K
 //   is short (K = 1152: nine k-tiles a tile), and the ring's depth (with a
@@ -74,7 +78,7 @@ constexpr int CONSUMER_REGS = 232;  // setmaxnreg: 2 x 128 x 232 +
 constexpr int PRODUCER_REGS = 40;   // 128 x 40 = 384 x 168 registers
 constexpr int LAUNCH_REGS = 168;    // per thread at launch (384 threads)
 
-template <int BN, typename Out>
+template <int BN, typename Out, bool RES = false>
 struct Layout {
   static constexpr int A_BYTES = BM * BK;
   static constexpr int STAGE_BYTES = A_BYTES + BN * BK;
@@ -89,14 +93,17 @@ struct Layout {
   // each consumer warpgroup's copy of the tile's per-column epilogue
   // parameters (Epi::Col, at most 16 bytes a column)
   static constexpr int COL_BYTES = 2 * BN * 16;
+  // RES: each consumer warpgroup's gate row of the tile, f32 a column
+  static constexpr int GATE_BYTES = RES ? 2 * BN * 4 : 0;
   static constexpr int BAR_BYTES = 128;
-  static constexpr int FIT =
-      (SMEM_LIMIT - 1024 - COL_BYTES - BAR_BYTES - STG_BYTES) / STAGE_BYTES;
+  static constexpr int FIT = (SMEM_LIMIT - 1024 - COL_BYTES - GATE_BYTES -
+                              BAR_BYTES - STG_BYTES) /
+                             STAGE_BYTES;
   static constexpr int STAGES = FIT < 4 ? FIT : 4;
   // + 1024: the dynamic shared memory base is aligned up to 1024 bytes
   // (the 128-byte swizzle atom)
-  static constexpr int SMEM_BYTES =
-      1024 + STAGES * STAGE_BYTES + STG_BYTES + COL_BYTES + BAR_BYTES;
+  static constexpr int SMEM_BYTES = 1024 + STAGES * STAGE_BYTES + STG_BYTES +
+                                    COL_BYTES + GATE_BYTES + BAR_BYTES;
   static_assert(STAGES >= 2, "ring too shallow");
   static_assert(STAGE_BYTES % 1024 == 0 && A_BYTES % 1024 == 0,
                 "swizzled tiles must stay 1024-byte aligned");
@@ -260,6 +267,39 @@ __device__ __forceinline__ void fold_group(const Epi& epi, float (&facc)[R],
     facc[i] = facc[i] + static_cast<float>(acc[i]) * ((i & 2) ? s1 : s0);
 }
 
+// ---- the residual (+ gate) epilogue --------------------------------------
+//
+// K2's and K5's `o = res + gate * out` (fused_matmul.py:383-390, :192-205):
+// after the dequant and the bias, in f32, o = o * gate[row / rows_per_gate,
+// col] where there is a gate, then o = o + res[row, col], then the
+// epilogue's one cast to the output type. res [M, N] and gate [G, N] are
+// bf16 (the model's residual stream and adaLN gate). An epilogue with RES
+// holds one as `rg`; the kernels read a lane's two columns of a row as one
+// 4-byte load (a quad's four lanes: 16 contiguous bytes), the gate's G rows
+// from L2. It costs one more [M, N] bf16 read and saves the raw output's
+// write and read by a separate add.
+struct ResGate {
+  const __nv_bfloat16* res;   // [M, N], row-major
+  const __nv_bfloat16* gate;  // [G, N] or null (residual only)
+  int rows_per_gate;          // M / G
+  // the gate at columns col, col + 1 of row (row < M, col < N, col even)
+  __device__ __forceinline__ float2 gate2(int row, int col, int N) const {
+    return __bfloat1622float2(__ldg(reinterpret_cast<const __nv_bfloat162*>(
+        gate + static_cast<size_t>(row / rows_per_gate) * N + col)));
+  }
+  // res and gate at columns col, col + 1 of row, as gate2 takes them
+  __device__ __forceinline__ void load2(int row, int col, int N, float2& r,
+                                        float2& g) const {
+    r = __bfloat1622float2(__ldg(reinterpret_cast<const __nv_bfloat162*>(
+        res + static_cast<size_t>(row) * N + col)));
+    g = gate != nullptr ? gate2(row, col, N) : make_float2(1.0f, 1.0f);
+  }
+  __device__ __forceinline__ float apply(float o, float r, float g) const {
+    if (gate != nullptr) o = o * g;
+    return o + r;
+  }
+};
+
 // ---- the symmetric epilogue ----------------------------------------------
 
 __device__ __forceinline__ float gelu_tanh(float o) {
@@ -270,12 +310,15 @@ __device__ __forceinline__ float gelu_tanh(float o) {
 
 // K2's sym x sym epilogues (int8_gemm.cu: plain, gw_x, the emission's
 // GELU), the plain one also K5's (dynq_gemm.cu). OUT_KIND: 0 = bf16 out,
-// 1 = f32 out, 2 = f32 gelu(out) (emission scratch).
-template <bool GW_, int OUT_KIND>
+// 1 = f32 out, 2 = f32 gelu(out) (emission scratch). RES: the residual
+// (+ gate) epilogue after the bias (not with the emission).
+template <bool GW_, int OUT_KIND, bool RES_ = false>
 struct int8_gemm_epilogue {
   using Out = typename std::conditional<OUT_KIND == 0, __nv_bfloat16,
                                         float>::type;
   static constexpr bool GW = GW_;
+  static constexpr bool RES = RES_;
+  static_assert(!(RES && OUT_KIND == 2), "the emission takes no residual");
   static constexpr int BN = GW ? 128 : 192;
   struct Row {
     float xs;  // the row's scale (G == 1)
@@ -286,6 +329,7 @@ struct int8_gemm_epilogue {
   const float* bias;
   void* out;
   int M, N;
+  ResGate rg;  // RES only
 
   __device__ __forceinline__ Row row(int r) const {
     return {(GW || r >= M) ? 0.0f : xs[r]};
@@ -300,8 +344,10 @@ struct int8_gemm_epilogue {
   __device__ __forceinline__ float group_scale(int r, int grp) const {
     return r < M ? xs[static_cast<size_t>(r) * G + grp] : 0.0f;
   }
+  // res, gate: the residual and gate of this entry (RES only)
   __device__ __forceinline__ Out value(int acc, float facc, const Row& r,
-                                       const Col& c) const {
+                                       const Col& c, float res = 0.0f,
+                                       float gate = 1.0f) const {
     float o;
     if constexpr (GW) {
       o = facc * c.ws;
@@ -309,6 +355,7 @@ struct int8_gemm_epilogue {
       o = static_cast<float>(acc) * (r.xs * c.ws);
     }
     if (bias != nullptr) o = o + c.b;
+    if constexpr (RES) o = rg.apply(o, res, gate);
     if constexpr (OUT_KIND == 0) {
       return __float2bfloat16_rn(o);
     } else if constexpr (OUT_KIND == 1) {
@@ -332,11 +379,15 @@ struct int8_gemm_epilogue {
 //              weights, fused_matmul.py:357)
 // then the bias. BIAS_AFTER_CAST (K7b): a bf16 output rounds o, adds the
 // bias rounded to bf16 and rounds again. Otherwise (K2, :363-364) the f32
-// bias is added before the one cast. An f32 output adds it in f32.
-template <bool F32_OUT, bool BIAS_AFTER_CAST, bool SYM_X>
+// bias is added before the one cast. An f32 output adds it in f32. RES
+// (K2 and K5): the residual (+ gate) epilogue after the bias, before the
+// cast.
+template <bool F32_OUT, bool BIAS_AFTER_CAST, bool SYM_X, bool RES_ = false>
 struct ZpEpilogue {
   using Out = typename std::conditional<F32_OUT, float, __nv_bfloat16>::type;
   static constexpr bool GW = false;
+  static constexpr bool RES = RES_;
+  static_assert(!(RES && BIAS_AFTER_CAST), "K7b takes no residual");
   static constexpr int BN = 192;
   const float* xs;
   const float* xzp;
@@ -347,7 +398,8 @@ struct ZpEpilogue {
   const float* bias;
   void* out;
   int M, N;
-  float kf;  // the true K
+  float kf;    // the true K
+  ResGate rg;  // RES only
 
   struct alignas(16) Row {
     float xs, xz, xr, kx;  // kx = (float)K * xz, the JAX order's product
@@ -370,7 +422,8 @@ struct ZpEpilogue {
             wcs != nullptr ? wcs[c] : 0.0f, b};
   }
   __device__ __forceinline__ Out value(int acc, float, const Row& r,
-                                       const Col& c) const {
+                                       const Col& c, float res = 0.0f,
+                                       float gate = 1.0f) const {
     float o;
     if constexpr (SYM_X) {
       o = (static_cast<float>(acc) - c.wz * r.xr) * (r.xs * c.ws);
@@ -380,15 +433,19 @@ struct ZpEpilogue {
       v = v + r.kx * c.wz;
       o = v * r.xs * c.ws;
     }
-    if constexpr (F32_OUT) {
-      return bias != nullptr ? o + c.b : o;
-    } else if constexpr (BIAS_AFTER_CAST) {
+    if constexpr (BIAS_AFTER_CAST && !F32_OUT) {
       __nv_bfloat16 v = __float2bfloat16_rn(o);
       if (bias != nullptr)
         v = __float2bfloat16_rn(__bfloat162float(v) + c.b);
       return v;
     } else {
-      return __float2bfloat16_rn(bias != nullptr ? o + c.b : o);
+      if (bias != nullptr) o = o + c.b;
+      if constexpr (RES) o = rg.apply(o, res, gate);
+      if constexpr (F32_OUT) {
+        return o;
+      } else {
+        return __float2bfloat16_rn(o);
+      }
     }
   }
 };
@@ -399,8 +456,15 @@ struct ZpEpilogue {
 // scales: an f32 accumulator folded at every k-group boundary), fields
 // `out`, `M`, `N`, a per-row context `Row row(int r)` (r may be >= M),
 // a per-column context `Col col(int c)` (c may be >= N),
-// `float group_scale(int r, int grp)` (GW) and
-// `Out value(int acc, float facc, const Row&, const Col&)`.
+// `float group_scale(int r, int grp)` (GW),
+// `Out value(int acc, float facc, const Row&, const Col&, float res,
+// float gate)` and `RES` (then `ResGate rg`, a bf16 output and map_res,
+// the residual's map in the output's boxes: each consumer warpgroup's
+// residual tile arrives by TMA in its staging boxes while the main loop
+// runs, and its gate row in shared memory; the epilogue reads each
+// entry's residual where it then writes the output, and hands both to
+// value; a warpgroup whose 64 rows straddle two gate rows reads the gate
+// from L2).
 // kg: the k-group width (GW; a multiple of 32). tma_out: map_out is the
 // output's map (rows of 16-byte multiples at a 16-byte aligned base) and
 // the tiles leave by TMA stores; else by element stores.
@@ -408,20 +472,26 @@ template <typename Epi>
 __global__ void __launch_bounds__(THREADS, 1)
     tma_gemm_kernel(const __grid_constant__ CUtensorMap map_a,
                     const __grid_constant__ CUtensorMap map_w,
-                    const __grid_constant__ CUtensorMap map_out, const Epi epi,
+                    const __grid_constant__ CUtensorMap map_out,
+                    const __grid_constant__ CUtensorMap map_res, const Epi epi,
                     int K, int kg, int tma_out) {
   using Out = typename Epi::Out;
   constexpr int BN = Epi::BN;
   constexpr int R = BN / 2;  // accumulator registers a thread
-  using L = Layout<BN, Out>;
+  using L = Layout<BN, Out, Epi::RES>;
+  static_assert(!Epi::RES || sizeof(Out) == 2,
+                "the residual tile is staged in the bf16 output's boxes");
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
   const uint32_t ring = smem_u32(smem);
   uint8_t* col_base = smem + L::STAGES * L::STAGE_BYTES + L::STG_BYTES;
-  const uint32_t bars = smem_u32(col_base + L::COL_BYTES);
+  float* gate_base = reinterpret_cast<float*>(col_base + L::COL_BYTES);
+  const uint32_t bars = smem_u32(col_base + L::COL_BYTES + L::GATE_BYTES);
   auto full = [&](int s) { return bars + 8 * s; };
   auto empty = [&](int s) { return bars + 8 * (L::STAGES + s); };
+  // RES: consumer warpgroup w's residual tile has arrived
+  auto res_bar = [&](int w) { return bars + 8 * (2 * L::STAGES + w); };
   const int M = epi.M;
   const int N = epi.N;
   const int tiles_n = (N + BN - 1) / BN;
@@ -432,6 +502,10 @@ __global__ void __launch_bounds__(THREADS, 1)
     for (int s = 0; s < L::STAGES; ++s) {
       mbar_init(full(s), 1);
       mbar_init(empty(s), 2);  // one arrival per consumer warpgroup
+    }
+    if constexpr (Epi::RES) {
+      mbar_init(res_bar(0), 1);
+      mbar_init(res_bar(1), 1);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
@@ -482,8 +556,10 @@ __global__ void __launch_bounds__(THREADS, 1)
     using Col = typename Epi::Col;
     static_assert(sizeof(Col) <= 16, "column parameters above 16 bytes");
     Col* cols = reinterpret_cast<Col*>(col_base) + wg * BN;
+    float* gate_cols = gate_base + wg * BN;  // RES
     int stage = 0;
     uint32_t phase = 0;
+    uint32_t res_phase = 0;  // RES
     for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
       const int m0 = tile / tiles_n * BM;
       const int n0 = tile % tiles_n * BN;
@@ -494,6 +570,31 @@ __global__ void __launch_bounds__(THREADS, 1)
       const typename Epi::Row row_lo = epi.row(r0);
       const typename Epi::Row row_hi = epi.row(r0 + 8);
       for (int c = tid; c < BN; c += 128) cols[c] = epi.col(n0 + c);
+      // RES: this warpgroup's residual tile into its staging boxes (once
+      // the previous tile's stores have read them) and, where its 64 rows
+      // share one gate row, that row into shared memory
+      bool gate_rows_one = true;
+      if constexpr (Epi::RES) {
+        const int wrow0 = m0 + 64 * wg;
+        if (epi.rg.gate != nullptr) {
+          const int rpg = epi.rg.rows_per_gate;
+          const int grow = wrow0 / rpg;
+          gate_rows_one = grow == min(wrow0 + 63, M - 1) / rpg;
+          if (gate_rows_one)
+            for (int c = tid; c < BN; c += 128)
+              gate_cols[c] =
+                  n0 + c < N ? __bfloat162float(epi.rg.gate[
+                                   static_cast<size_t>(grow) * N + n0 + c])
+                             : 0.0f;
+        }
+        if (leader) {
+          bulk_wait_read();
+          mbar_expect_tx(res_bar(wg), L::BOXES * L::BOX_BYTES);
+          for (int b = 0; b < L::BOXES; ++b)
+            tma_load(smem_u32(stg + b * L::BOX_BYTES), &map_res, res_bar(wg),
+                     n0 + b * L::BOXC, wrow0);
+        }
+      }
       int acc[R];
       float facc[Epi::GW ? R : 1];
       if constexpr (Epi::GW) {
@@ -564,6 +665,10 @@ __global__ void __launch_bounds__(THREADS, 1)
       // ---- epilogue: values into the staging boxes, then TMA stores
       if (leader && tma_out) bulk_wait_read();  // the last stores read stg
       named_sync(1 + wg, 128);  // ... and cols are written
+      if constexpr (Epi::RES) {  // the residual tile is in stg
+        mbar_wait(res_bar(wg), res_phase);
+        res_phase ^= 1;
+      }
 #pragma unroll
       for (int nt = 0; nt < BN / 8; ++nt) {
         // registers 4nt .. 4nt+3: columns c, c+1 of rows r0 and r0 + 8
@@ -576,9 +681,19 @@ __global__ void __launch_bounds__(THREADS, 1)
           const typename Epi::Row& rw = h ? row_hi : row_lo;
           const float f0 = Epi::GW ? facc[Epi::GW ? i : 0] : 0.0f;
           const float f1 = Epi::GW ? facc[Epi::GW ? i + 1 : 0] : 0.0f;
-          store2(stg_at(acc_row(warp, g, i), c),
-                 epi.value(acc[i], f0, rw, c0),
-                 epi.value(acc[i + 1], f1, rw, c1));
+          Out* at = stg_at(acc_row(warp, g, i), c);
+          float2 res = make_float2(0.0f, 0.0f), gate = make_float2(1.0f, 1.0f);
+          if constexpr (Epi::RES) {
+            res = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(at));
+            if (epi.rg.gate != nullptr) {
+              if (gate_rows_one)
+                gate = *reinterpret_cast<const float2*>(gate_cols + c);
+              else if (r0 + 8 * h < M && n0 + c < N)
+                gate = epi.rg.gate2(r0 + 8 * h, n0 + c, N);
+            }
+          }
+          store2(at, epi.value(acc[i], f0, rw, c0, res.x, gate.x),
+                 epi.value(acc[i + 1], f1, rw, c1, res.y, gate.y));
         }
       }
       fence_proxy_async();  // the staging writes, visible to TMA
@@ -630,6 +745,7 @@ __global__ void __launch_bounds__(EDGE_THREADS)
     edge_gemm_kernel(const int8_t* __restrict__ A,
                      const int8_t* __restrict__ Wt, const Epi epi, int K) {
   static_assert(!Epi::GW, "the byte-wise kernel has no group-wise mode");
+  static_assert(!Epi::RES, "the byte-wise kernel has no residual epilogue");
   __shared__ __align__(16) int8_t as[EDGE_TILE * EDGE_LDS];
   __shared__ __align__(16) int8_t bs[EDGE_TILE * EDGE_LDS];
   const int M = epi.M;
@@ -778,11 +894,25 @@ inline bool tma_ok(const void* A, const void* Wt, int K) {
          reinterpret_cast<uintptr_t>(Wt) % 16 == 0;
 }
 
+// the residual epilogue's tables as the entry points take them, checked:
+// res [M, N] bf16 (4-byte aligned) or null (no residual epilogue), gate
+// [G, N] bf16 (4-byte aligned) or null, rows_per_gate = M / G > 0 (the
+// caller holds M % G == 0)
+inline bool res_gate(const void* res, const void* gate, int rows_per_gate,
+                     ResGate* rg) {
+  *rg = {static_cast<const __nv_bfloat16*>(res),
+         static_cast<const __nv_bfloat16*>(gate), rows_per_gate};
+  return res == nullptr ||
+         (reinterpret_cast<uintptr_t>(res) % 4 == 0 &&
+          reinterpret_cast<uintptr_t>(gate) % 4 == 0 &&
+          (gate == nullptr || rows_per_gate > 0));
+}
+
 // A [M, K] int8 row-major, Wt [N, K] int8 (the K-major weight); M, N in epi
 template <typename Epi>
 cudaError_t launch_tma(const int8_t* A, const int8_t* Wt, const Epi& epi,
                        int K, int kg, cudaStream_t st) {
-  using L = Layout<Epi::BN, typename Epi::Out>;
+  using L = Layout<Epi::BN, typename Epi::Out, Epi::RES>;
   auto kernel = tma_gemm_kernel<Epi>;
   static cudaError_t prepared = cudaErrorNotReady;
   if (prepared == cudaErrorNotReady) {
@@ -802,17 +932,26 @@ cudaError_t launch_tma(const int8_t* A, const int8_t* Wt, const Epi& epi,
       !encode_map(&map_w, Wt, epi.N, K, Epi::BN))
     return cudaErrorInvalidValue;
   using Out = typename Epi::Out;
-  CUtensorMap map_out;
+  CUtensorMap map_out{};
   const int tma_out =
       (static_cast<size_t>(epi.N) * sizeof(Out)) % 16 == 0 &&
       reinterpret_cast<uintptr_t>(epi.out) % 16 == 0 &&
       encode_out_map<Out>(&map_out, epi.out, epi.M, epi.N);
+  // RES: the residual in the output's boxes (the staging layout); it takes
+  // the output's TMA stores and a 16-byte aligned residual
+  CUtensorMap map_res = map_out;
+  if constexpr (Epi::RES) {
+    if (!tma_out || reinterpret_cast<uintptr_t>(epi.rg.res) % 16 != 0 ||
+        !encode_out_map<Out>(&map_res, const_cast<__nv_bfloat16*>(epi.rg.res),
+                             epi.M, epi.N))
+      return cudaErrorInvalidValue;
+  }
   int dev = 0, sms = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   const int tiles = (epi.M + BM - 1) / BM * ((epi.N + Epi::BN - 1) / Epi::BN);
   kernel<<<tiles < sms ? tiles : sms, THREADS, L::SMEM_BYTES, st>>>(
-      map_a, map_w, map_out, epi, K, kg, tma_out);
+      map_a, map_w, map_out, map_res, epi, K, kg, tma_out);
   return cudaGetLastError();
 }
 

@@ -36,12 +36,14 @@ SIGNATURES = {
     "vq_ln_mod_quant": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I,
                         _P],
     "vq_quant_rows": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "vq_int8_gemm": [_P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "vq_int8_gemm": [_P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P,
+                     _I, _P],
     "vq_int8_gemm_zp": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                        _I, _P],
+                        _I, _P, _P, _I, _P],
     "vq_group_quant": [_P, _P, _P, _P, _I, _I, _I, _P],
     "vq_dynq_gemm": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                     _I, _P],
+                     _I, _P, _P, _I, _P],
+    "vq_qk_headwise_quant": [_P, _P, _P, _P, _I, _I, _I, _P],
     "vq_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
                      _I, _P],
     "vq_attention_seg": [_P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _I,

@@ -29,6 +29,7 @@ COUNTERS: Dict[str, Counter] = {
         "attention_bnhd_stream",     # K6
         "dynamic_quant_rows",        # K7a
         "int8_matmul",               # K7b
+        "qk_headwise_quant",         # K8
     )
 }
 

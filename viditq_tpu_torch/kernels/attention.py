@@ -31,7 +31,12 @@ order `KV_PERM` (`v_codes_transposed`). K3's seg mode runs a kernel of its
 own: a block per 16-row tile across all heads, its emission inside
 the kernel, its int8 PV on v codes per tile and channel in the order
 `KV_PERM[:16]` (`v_codes_tiles`); shapes that `seg_tiled` refuses take a
-row kernel, whose emission takes two launches. `int8_qk` is not ported.
+row kernel, whose emission takes two launches.
+
+int8_qk (the attn8 plan's q/k quantizers) runs K8, `qk_headwise_quant`
+(csrc/qk_quant.cu: one launch for q and k), on q and k before every mode,
+as the JAX package applies `_fake_quant_tokens_headwise` (attention.py:
+481-490, :625-627): the products stay bf16, on dequantized values.
 
 The oracles `attention_bnhd_xla` / `attention_bnhd_xla_quant`
 (attention.py:409-478) are ported too; the tests hold both packages'
@@ -46,8 +51,8 @@ from typing import Optional
 import torch
 
 from viditq_tpu_torch.kernels import _build
-from viditq_tpu_torch.kernels._common import (col_scale_arg, on_cuda, rdiv,
-                                              require)
+from viditq_tpu_torch.kernels._common import (col_scale_arg, divc, on_cuda,
+                                              rdiv, require)
 from viditq_tpu_torch.kernels._counters import COUNTERS, count_plain
 from viditq_tpu_torch.kernels.fused_matmul import (balance_cols,
                                                    quantize_rows,
@@ -55,6 +60,7 @@ from viditq_tpu_torch.kernels.fused_matmul import (balance_cols,
 
 LOG2E = float(math.log2(math.e))
 KERNEL_HEAD_DIMS = (16, 72)  # instantiations in csrc/attention*.cu
+QK_MAX_D = 192  # K8's widest head (csrc/qk_quant.cu: 48 KB of staging)
 # seg mode's tiled kernel (csrc/attention.cu attn_seg_tiled): a block
 # holds SEG_TILE rows of all heads (H/2 warps), so seg_len must divide
 # SEG_TILE and H be even, at most SEG_MAX_HEADS; its v-quantize pass holds a
@@ -117,6 +123,43 @@ def seg_v_block(n: int, seg_len: int) -> int:
     cap = max(seg_len, 256)
     return next(k * seg_len for k in range(cap // seg_len, 0, -1)
                 if n % (k * seg_len) == 0)
+
+
+def headwise_fake_quant(t: torch.Tensor) -> torch.Tensor:
+    """Per-(token, head) sym int8 quantize-dequantize of t [..., D] over
+    its last axis in f32 (`_fake_quant_tokens_headwise`, attention.py:
+    481-490): sc = max(max |t|, 1e-6), round(t * (127 / sc)) * (sc / 127),
+    both divisions true ones, cast back to t's dtype."""
+    tf = t.float()
+    sc = torch.clamp(tf.abs().amax(dim=-1, keepdim=True), min=1e-6)
+    return (torch.round(tf * rdiv(127.0, sc)) * divc(sc, 127.0)).to(t.dtype)
+
+
+def qk_headwise_quant_plain(q: torch.Tensor, k: torch.Tensor):
+    count_plain("qk_headwise_quant", q)
+    return headwise_fake_quant(q), headwise_fake_quant(k)
+
+
+def qk_headwise_quant(q: torch.Tensor, k: torch.Tensor):
+    """K8: the attention's int8 q/k quantizers, q [B, N, H, D] and k
+    [B, M, H, D] -> (q, k) quantize-dequantized per (token, head) in their
+    own dtype (`headwise_fake_quant`). On the card one launch of
+    csrc/qk_quant.cu takes both (bf16, D % 8 == 0, D <= QK_MAX_D)."""
+    if not on_cuda(q, k):
+        return qk_headwise_quant_plain(q, k)
+    D = q.shape[-1]
+    require(q.dtype == k.dtype == torch.bfloat16,
+            "the CUDA q/k quantizer takes bfloat16 q and k")
+    require(k.shape[-1] == D and D % 8 == 0 and D <= QK_MAX_D,
+            f"head dim {D}: K8 takes D % 8 == 0 and D <= {QK_MAX_D}")
+    q1, k1 = _aligned(q), _aligned(k)
+    qo, ko = torch.empty_like(q1), torch.empty_like(k1)
+    _build.check(_build.lib().vq_qk_headwise_quant(
+        q1.data_ptr(), k1.data_ptr(), qo.data_ptr(), ko.data_ptr(),
+        q1.numel() // D, k1.numel() // D, D, _build.stream_ptr(q)),
+        "vq_qk_headwise_quant")
+    COUNTERS["qk_headwise_quant"].launches += 1
+    return qo, ko
 
 
 def _v_quant(v: torch.Tensor, v_block: int):
@@ -205,7 +248,12 @@ def attention_bnhd_plain(q, k, v, scale: float, seg_len: int = 0,
                          kv_mask: Optional[torch.Tensor] = None,
                          int8_pv: bool = False, v_block: Optional[int] = None,
                          emit: bool = False, emit_sym: bool = True,
-                         need_rowsum: bool = False, col_scale=None):
+                         need_rowsum: bool = False, col_scale=None,
+                         int8_qk: bool = False):
+    """K3's plain version; int8_qk: K8's plain version on q and k
+    first."""
+    if int8_qk:
+        q, k = qk_headwise_quant_plain(q, k)
     count_plain("attention_bnhd", q)
     B, N, H, D = q.shape
     M = k.shape[1]
@@ -390,10 +438,12 @@ def attention_bnhd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     folded into the output; v is grouped per `v_block` tokens in seg mode
     (default `seg_v_block(N, seg_len)`) and over the whole kv axis
     otherwise. Without seg_len and with M > ONESHOT_MAX_M the call goes to
-    K6 (`attention_bnhd_stream`), as in the JAX package."""
-    if int8_qk:
-        raise NotImplementedError("int8_qk is not ported")
+    K6 (`attention_bnhd_stream`), as in the JAX package. int8_qk: q and k
+    per-(token, head) int8 quantize-dequantized by K8 (`qk_headwise_quant`)
+    first, in every mode."""
     require(col_scale is None or emit, "col_scale applies to the emission")
+    if int8_qk:
+        q, k = qk_headwise_quant(q, k)
     B, N, H, D = q.shape
     M = k.shape[1]
     C = H * D
@@ -558,10 +608,14 @@ def attention_bnhd_xla(q, k, v, scale: float, seg_len: int = 0,
 
 def attention_bnhd_xla_quant(q, k, v, scale: float, seg_len: int = 0,
                              kv_mask: Optional[torch.Tensor] = None,
-                             int8_pv: bool = False,
+                             int8_qk: bool = False, int8_pv: bool = False,
                              v_block: Optional[int] = None):
-    """Oracle of the int8-PV math (round(e*127) codes, per-channel v over
-    v_block-token groups). int8_qk is not ported."""
+    """Oracle of the int8 attention math: per-token sym q/k quantize-
+    dequantize over the head dim, kept in f32 (int8_qk), round(e*127)
+    codes, per-channel v over v_block-token groups (int8_pv)."""
+    if int8_qk:  # q and k stay f32, as in JAX, and v is promoted with them
+        q, k, v = (headwise_fake_quant(q.float()),
+                   headwise_fake_quant(k.float()), v.float())
     if not int8_pv:
         return attention_bnhd_xla(q, k, v, scale, seg_len, kv_mask)
     B, N, H, D = q.shape

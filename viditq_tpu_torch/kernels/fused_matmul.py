@@ -7,22 +7,27 @@ hand-written kernel from `viditq_tpu_torch/csrc` or raises. There is no
 fallback between the two.
 
   K1 `ln_modulate_quantize`   csrc/ln_mod_quant.cu
-  K2 `int8_consumer_matmul`   csrc/int8_gemm.cu (plain, gw_x, emit, and the
-     zero-point-corrected epilogues of asymmetric acts or weights)
+  K2 `int8_consumer_matmul`   csrc/int8_gemm.cu (plain, gw_x, emit, the
+     zero-point-corrected epilogues of asymmetric acts or weights, and the
+     residual (+ gate) epilogue on all but the emission)
   K4 `quantize_rows`          csrc/quant_rows.cu (optionally tanh-GELU first)
   K5 `fused_dynq_int8_matmul` csrc/dynq_gemm.cu: one launch that quantizes
      each M tile's rows into shared memory and runs K2's GEMM and epilogues
      on them; its output equals K4 followed by K2 bit for bit (same row
-     quantizer, same epilogue). It takes K <= 1152 (`K5_MAX_K`: the tile's
-     codes stay resident in shared memory) and raises on wider K.
+     quantizer, same epilogue, the residual (+ gate) one included). It
+     takes K <= 1152 (`K5_MAX_K`: the tile's codes stay resident in shared
+     memory) and raises on wider K.
 
 Both act quantizers are ported, symmetric and asymmetric (shifted-signed
 codes with a zero point and the code row sum), and both weight kinds, and
 the column scales of channel balancing (`col_scale`: the consuming
 layer's smooth-quant 1/cs, multiplied in f32 before the row statistic, and
 after the GELU where there is one): K4's, K5's (`has_csc`) and K2's
-emission (`has_ecs`). The residual/gate epilogue and zero points in K2's
-group-wise and emitting modes raise NotImplementedError.
+emission (`has_ecs`). The residual (+ gate) epilogue, `o = res + gate *
+out` after the bias in f32 (`_consumer_kernel`, `fused_matmul.py:383-390`;
+`_dynq_mm_kernel`, `:192-205`), runs inside K2 and K5; on the card it takes
+bf16 residual, gate and output. Zero points in K2's group-wise and emitting
+modes raise NotImplementedError.
 
 The three quantize forms stay as the JAX sites write them (C6):
 K1/K4/K5 `round(x * (1/s))` with `s = max(absmax/127, 1e-6)` or, asym,
@@ -116,6 +121,56 @@ def _unsupported(**modes):
 
 def _out_ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
+
+
+def residual_gate(out: torch.Tensor, residual, gate) -> torch.Tensor:
+    """The residual (+ gate) epilogue of K2 and K5 in f32, after the bias:
+    out [M, N] times gate[row // (M / G)] where a gate [G, N] is given,
+    then plus residual [M, N] (each as f32); out itself without a
+    residual."""
+    if residual is None:
+        return out
+    M, N = out.shape
+    if gate is not None:
+        G = gate.shape[0]
+        out = (out.reshape(G, M // G, N)
+               * gate.float().reshape(G, 1, N)).reshape(M, N)
+    return out + residual.reshape(M, N).float()
+
+
+def _check_residual(M: int, N: int, residual, gate, emit=None) -> None:
+    """The JAX wrappers' preconditions of the residual (+ gate) epilogue
+    (`fused_matmul.py:438-440`, `select_mm_blocks`): a gate needs the
+    residual, the emission takes neither, the gate's G rows split M
+    evenly."""
+    if residual is None and gate is None:
+        return
+    require(residual is not None,
+            "gate is applied inside the residual epilogue; pass residual")
+    require(emit is None, "int8 emission replaces the output epilogue")
+    require(residual.numel() == M * N,
+            f"residual must have {M} x {N} elements")
+    if gate is not None:
+        G = gate.shape[0]
+        require(gate.dim() == 2 and gate.shape[1] == N and M % G == 0,
+                f"gate must be [G, {N}] with M={M} a multiple of G")
+
+
+def _res_gate_args(M: int, N: int, out_dtype, residual, gate):
+    """The residual epilogue's kernel arguments on CUDA tensors: (res,
+    gate, rows_per_gate) as contiguous bf16 tensors (None and 0 without a
+    residual); raises on what the kernels do not take."""
+    if residual is None:
+        return None, None, 0
+    require(out_dtype == torch.bfloat16 and residual.dtype == torch.bfloat16
+            and (gate is None or gate.dtype == torch.bfloat16),
+            "the residual epilogue takes a bf16 residual, gate and output on "
+            "the card")
+    res = residual.reshape(M, N).contiguous()
+    if res.data_ptr() % 16:  # K2 reads it by TMA
+        res = res.clone()
+    g = None if gate is None else gate.contiguous()
+    return res, g, 0 if g is None else M // g.shape[0]
 
 
 def balance_cols(y: torch.Tensor, col_scale) -> torch.Tensor:
@@ -274,11 +329,12 @@ def int8_consumer_matmul_plain(x_q, x_scale, w_q, w_scale, bias=None,
                                out_dtype=torch.bfloat16,
                                group_scales: bool = False, emit=None,
                                x_zp=None, x_rowsum=None, w_zp=None,
-                               w_colsum=None):
+                               w_colsum=None, residual=None, gate=None):
     count_plain("int8_consumer_matmul", x_q)
     _check_zero_points(x_zp, x_rowsum, w_zp, w_colsum, group_scales, emit)
     M, K = x_q.shape
     N = w_q.shape[1]
+    _check_residual(M, N, residual, gate, emit)
     ws = w_scale.reshape(1, N).float()
     if group_scales:
         G = x_scale.shape[1]
@@ -300,7 +356,7 @@ def int8_consumer_matmul_plain(x_q, x_scale, w_q, w_scale, bias=None,
     if bias is not None:
         out = out + bias.reshape(1, N).float()
     if emit is None:
-        return out.to(out_dtype)
+        return residual_gate(out, residual, gate).to(out_dtype)
     if emit.get("gelu"):
         out = gelu_tanh(out)
     out = balance_cols(out, emit.get("col_scale"))
@@ -341,18 +397,27 @@ def int8_consumer_matmul(x_q: torch.Tensor, x_scale: torch.Tensor,
     scales (`has_ecs`, `fused_matmul.py:372-374`) and quantize each row per
     group of `emit_groups(N, K)` columns; returns (codes [M, N] int8,
     scales [M, G] f32). The TPU kernel's lane-padded [M, G*128] scale
-    layout is not kept: the port stores [M, G]."""
-    _unsupported(residual=residual, gate=gate)
+    layout is not kept: the port stores [M, G].
+
+    residual [M, N] (and gate [G, N], G dividing M): instead of the output,
+    `residual + gate[row // (M / G)] * output` taken in f32 after the bias
+    (`residual_gate`), then one cast; not with the emission. On the card
+    residual, gate and the output are bf16."""
     tables = (x_zp, x_rowsum, w_zp, w_colsum)
     ecs = (emit or {}).get("col_scale")
-    if not on_cuda(x_q, x_scale, w_q, w_scale, bias, ecs, *tables):
+    if not on_cuda(x_q, x_scale, w_q, w_scale, bias, ecs, residual, gate,
+                   *tables):
         return int8_consumer_matmul_plain(x_q, x_scale, w_q, w_scale, bias,
                                           out_dtype, group_scales, emit,
-                                          *tables)
+                                          *tables, residual=residual,
+                                          gate=gate)
     _check_zero_points(*tables, group_scales, emit)
+    M, N = x_q.shape[0], w_q.shape[1]
+    _check_residual(M, N, residual, gate, emit)
+    rg = _res_gate_args(M, N, out_dtype, residual, gate)
     if x_zp is not None or w_zp is not None:
         out = k2_gemm_zp(x_q, x_scale, w_q, w_scale, bias, out_dtype,
-                         *tables)
+                         *tables, rg)
         COUNTERS["int8_consumer_matmul"].launches += 1
         return out
     if emit is None:
@@ -362,7 +427,7 @@ def int8_consumer_matmul(x_q: torch.Tensor, x_scale: torch.Tensor,
     else:
         bn = emit_groups(w_q.shape[1], x_q.shape[1])
         kind = 2 if emit.get("gelu") else 1
-    out = k2_gemm(x_q, x_scale, w_q, w_scale, bias, group_scales, kind)
+    out = k2_gemm(x_q, x_scale, w_q, w_scale, bias, group_scales, kind, rg)
     COUNTERS["int8_consumer_matmul"].launches += 1
     return out if emit is None else group_quant(out, bn, ecs)
 
@@ -383,9 +448,10 @@ def _require_gemm_operands(x_q, w_q):
 
 
 def k2_gemm_zp(x_q, x_scale, w_q, w_scale, bias, out_dtype, x_zp, x_rowsum,
-               w_zp, w_colsum) -> torch.Tensor:
+               w_zp, w_colsum, rg=(None, None, 0)) -> torch.Tensor:
     """The launch of K2's zero-point-corrected epilogue on CUDA tensors (no
-    count); a missing table is a null pointer the kernel reads as zeros."""
+    count); a missing table is a null pointer the kernel reads as zeros. rg:
+    the residual epilogue's (res, gate, rows_per_gate), `_res_gate_args`."""
     M, K, N = _require_gemm_operands(x_q, w_q)
     require(out_dtype in (torch.bfloat16, torch.float32),
             f"unsupported out_dtype {out_dtype}")
@@ -402,15 +468,16 @@ def k2_gemm_zp(x_q, x_scale, w_q, w_scale, bias, out_dtype, x_zp, x_rowsum,
     _build.check(lib.vq_int8_gemm_zp(
         x_q.data_ptr(), w_q.data_ptr(), *(_out_ptr(t) for t in rows),
         *(_out_ptr(t) for t in cols), out.data_ptr(), M, N, K,
-        int(out_dtype == torch.float32), _build.stream_ptr(x_q)),
-        "vq_int8_gemm_zp")
+        int(out_dtype == torch.float32), _out_ptr(rg[0]), _out_ptr(rg[1]),
+        rg[2], _build.stream_ptr(x_q)), "vq_int8_gemm_zp")
     return out
 
 
 def k2_gemm(x_q, x_scale, w_q, w_scale, bias, group_scales: bool,
-            kind: int) -> torch.Tensor:
+            kind: int, rg=(None, None, 0)) -> torch.Tensor:
     """The GEMM launch of K2 on CUDA tensors (no count): kind 0 bf16 out, 1
-    f32 out, 2 f32 tanh-GELU out (the emission's scratch)."""
+    f32 out, 2 f32 tanh-GELU out (the emission's scratch); rg: the residual
+    epilogue's (res, gate, rows_per_gate) with kind 0."""
     M, K, N = _require_gemm_operands(x_q, w_q)
     G = x_scale.shape[1] if group_scales else 1
     require(x_scale.shape == (M, G) and x_scale.dtype == torch.float32,
@@ -428,7 +495,8 @@ def k2_gemm(x_q, x_scale, w_q, w_scale, bias, group_scales: bool,
     _build.check(lib.vq_int8_gemm(
         x_q.data_ptr(), w_q.data_ptr(), xs.data_ptr(), G, ws.data_ptr(),
         None if b is None else b.data_ptr(), out.data_ptr(), M, N, K,
-        int(group_scales), kind, _build.stream_ptr(x_q)), "vq_int8_gemm")
+        int(group_scales), kind, _out_ptr(rg[0]), _out_ptr(rg[1]), rg[2],
+        _build.stream_ptr(x_q)), "vq_int8_gemm")
     return out
 
 
@@ -475,7 +543,8 @@ def _sm_count(index: int) -> int:
 def fused_dynq_int8_matmul_plain(x, w_q, w_scale, bias=None,
                                  out_dtype=torch.bfloat16, sym: bool = True,
                                  sym_w: bool = True, w_zp=None,
-                                 w_colsum=None, col_scale=None):
+                                 w_colsum=None, col_scale=None,
+                                 residual=None, gate=None):
     count_plain("fused_dynq_int8_matmul", x)
     q, s, zp, rs = quantize_rows_plain(x, sym,
                                        need_rowsum=not (sym and sym_w),
@@ -483,7 +552,8 @@ def fused_dynq_int8_matmul_plain(x, w_q, w_scale, bias=None,
     return int8_consumer_matmul_plain(q, s, w_q, w_scale, bias, out_dtype,
                                       x_zp=zp, x_rowsum=rs,
                                       w_zp=None if sym_w else w_zp,
-                                      w_colsum=w_colsum)
+                                      w_colsum=w_colsum, residual=residual,
+                                      gate=gate)
 
 
 def fused_dynq_int8_matmul(x: torch.Tensor, w_q: torch.Tensor,
@@ -502,20 +572,24 @@ def fused_dynq_int8_matmul(x: torch.Tensor, w_q: torch.Tensor,
     the JAX kernel; asym weights take w_zp [1, N] (the shifted zero point),
     asym acts w_colsum [1, N]. col_scale [K] (or [1, K]): the layer's
     channel-balancing 1/cs, x * col_scale in f32 before the row statistic
-    (`has_csc`, `:167-168`).
+    (`has_csc`, `:167-168`). residual [M, N] (and gate [G, N]): the
+    residual (+ gate) epilogue after the bias, as K2's (`:192-205`).
 
     On the card: one launch of csrc/dynq_gemm.cu (x bf16 or f32 in
     16-byte aligned rows, w_q K-major, N % 16 == 0), whose output equals
     `quantize_rows` then `int8_consumer_matmul` bit for bit; K above
     `K5_MAX_K` (1152) is refused with ValueError (the M tile's codes would
-    not fit in shared memory), as is any other shape it does not take."""
-    _unsupported(residual=residual, gate=gate)
+    not fit in shared memory), as is any other shape it does not take;
+    with a residual it takes bf16 x, residual, gate and output and no
+    column scale."""
     require(sym_w or w_zp is not None, "asym weights need w_zp")
     w_zp = None if sym_w else w_zp
-    if not on_cuda(x, w_q, w_scale, bias, w_zp, w_colsum, col_scale):
+    if not on_cuda(x, w_q, w_scale, bias, w_zp, w_colsum, col_scale,
+                   residual, gate):
         return fused_dynq_int8_matmul_plain(x, w_q, w_scale, bias, out_dtype,
                                             sym, sym_w, w_zp, w_colsum,
-                                            col_scale)
+                                            col_scale, residual=residual,
+                                            gate=gate)
     require(sym or w_colsum is not None, "asym acts require w_colsum")
     require(out_dtype in (torch.bfloat16, torch.float32),
             f"unsupported out_dtype {out_dtype}")
@@ -537,6 +611,10 @@ def fused_dynq_int8_matmul(x: torch.Tensor, w_q: torch.Tensor,
     for name, t in zip(("w_scale", "w_zp", "w_colsum", "bias"), cols):
         require(t is None or t.numel() == N, f"{name} must have {N} elements")
     cs = col_scale_arg(col_scale, K)
+    _check_residual(M, N, residual, gate)
+    rg = _res_gate_args(M, N, out_dtype, residual, gate)
+    require(residual is None or (bf16 and cs is None),
+            "K5's residual epilogue takes bf16 x and no column scale")
     lib = _build.lib()
     out = torch.empty((M, N), dtype=out_dtype, device=x.device)
     _build.check(lib.vq_dynq_gemm(
@@ -544,7 +622,7 @@ def fused_dynq_int8_matmul(x: torch.Tensor, w_q: torch.Tensor,
         *(_out_ptr(t) for t in cols),
         out.data_ptr(), M, N, K, bf16, int(sym),
         int(out_dtype == torch.float32),
-        k5_split(M, N, _sm_count(x.get_device())), _build.stream_ptr(x)),
-        "vq_dynq_gemm")
+        k5_split(M, N, _sm_count(x.get_device())), _out_ptr(rg[0]),
+        _out_ptr(rg[1]), rg[2], _build.stream_ptr(x)), "vq_dynq_gemm")
     COUNTERS["fused_dynq_int8_matmul"].launches += 1
     return out

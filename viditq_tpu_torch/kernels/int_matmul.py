@@ -192,7 +192,9 @@ def quantized_linear_native(x: torch.Tensor, packed: dict,
     out_dtype. col_scale [K] (the smooth-quant 1/cs of channel balancing):
     folded into K5's quantize under 'fused'; otherwise x times it in one
     f32 pass, kept in f32 for K7a (`int_matmul.py:307-308`: the JAX package
-    computes it outside its kernels too)."""
+    computes it outside its kernels too). residual [M, N] (and gate [G, N])
+    go to K5's residual (+ gate) epilogue; only impl 'fused' takes them
+    (`:294-295`)."""
     if impl not in IMPLS:
         raise ValueError(f"unknown native impl {impl!r}")
     assert residual is None or impl == "fused", \

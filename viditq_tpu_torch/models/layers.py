@@ -16,7 +16,10 @@ the TPU-only shape gates have no counterpart. Under channel balancing
 `QuantLinear` (`inv_balance`), as the JAX package folds it: K1 into the
 adaLN shift/scale vectors, the shared q/k/v K4 pass and fc2's handoff (K4
 or fc1's K2 emission) into the quantize, the attention emission before its
-row statistic. PixArt-Σ's KV-compressed
+row statistic. The attention sites take the attn8 plan's q/k quantizers
+(`int8_qk`: K8 before K3). `Mlp`, `SelfAttention` and `CrossAttention`
+take an `epilogue` (residual, gate | None) for fc2 or the proj, and then
+return the updated residual stream. PixArt-Σ's KV-compressed
 self-attention keeps the JAX package's `sdpa` route: PyTorch's
 `scaled_dot_product_attention` on CUDA tensors, where the JAX package
 called the stock Pallas flash kernel (not a kernel of its own), and a copy
@@ -202,7 +205,10 @@ class Mlp(nn.Module):
         self.fc2 = QuantLinear(hidden_features, in_features, self.spec2,
                                dtype=dtype)
 
-    def forward(self, x, qctx: Optional[QuantCtx] = None, prequant=None):
+    def forward(self, x, qctx: Optional[QuantCtx] = None, prequant=None,
+                epilogue=None):
+        """`epilogue`: (residual, gate | None) for fc2 (the block's
+        `res + gate * mlp(x)`, `QuantLinear.forward`)."""
         spec1, spec2 = self.spec1, self.spec2
         ics2 = self.fc2.inv_balance(qctx)
         fused2 = (is_fused_dynamic(spec2) and qctx is not None
@@ -222,9 +228,9 @@ class Mlp(nn.Module):
                     h.reshape(-1, self.hidden_features), sym=spec2.act.sym,
                     gelu=True, need_rowsum=not spec2.weight.sym,
                     col_scale=ics2))
-            return self.fc2(None, qctx, prequant=pre)
+            return self.fc2(None, qctx, prequant=pre, epilogue=epilogue)
         x = approx_gelu(self.fc1(x, qctx, prequant=prequant))
-        return self.fc2(x, qctx)
+        return self.fc2(x, qctx, epilogue=epilogue)
 
 
 class SelfAttention(nn.Module):
@@ -247,11 +253,14 @@ class SelfAttention(nn.Module):
         self.proj = QuantLinear(dim, dim, self.pspec, **kw)
 
     def forward(self, x, qctx: Optional[QuantCtx] = None,
-                prequant: Optional[Prequant] = None, shape=None):
+                prequant: Optional[Prequant] = None, shape=None,
+                epilogue=None):
         """x [B, N, C]; with a producer `prequant` x may be None and
         `shape` gives (B, N, C). Under CB with `qkv_share_cs` the shared
         q/k/v quantize takes their pooled 1/cs (layers.py:437-450); the
-        proj's 1/cs goes into the attention's emission (:481-530)."""
+        proj's 1/cs goes into the attention's emission (:481-530).
+        `epilogue`: (residual, gate | None) for the proj; the return value
+        is then the updated residual stream (layers.py:423-430)."""
         B, N, C = x.shape if x is not None else shape
         H = self.num_heads
         D = C // H
@@ -276,12 +285,12 @@ class SelfAttention(nn.Module):
                     int8_qk=int8_qk, int8_pv=int8_pv, v_block=v_block,
                     emit=True, emit_sym=self.pspec.act.sym,
                     need_rowsum=not self.pspec.weight.sym,
-                    col_scale=ics_p), C))
+                    col_scale=ics_p), C), epilogue=epilogue)
             return out.reshape(B, N, C)
         out = attention_bnhd(q, k, v, scale=D ** -0.5, seg_len=self.seg_len,
                              int8_qk=int8_qk, int8_pv=int8_pv,
                              v_block=v_block)
-        return self.proj(out.reshape(B, N, C), qctx)
+        return self.proj(out.reshape(B, N, C), qctx, epilogue=epilogue)
 
 
 def sdpa_xla(q, k, v, scale: float):
@@ -412,7 +421,10 @@ class CrossAttention(nn.Module):
                                      dtype=dtype, stat_layout="packed_prompt")
         self.proj = QuantLinear(dim, dim, self.pspec, dtype=dtype)
 
-    def forward(self, x, cond, mask=None, qctx: Optional[QuantCtx] = None):
+    def forward(self, x, cond, mask=None, qctx: Optional[QuantCtx] = None,
+                epilogue=None):
+        """`epilogue`: (residual, gate | None) for the proj, as
+        `SelfAttention`'s."""
         B, N, C = x.shape
         P = cond.shape[-2]
         H, D = self.num_heads, C // self.num_heads
@@ -432,11 +444,11 @@ class CrossAttention(nn.Module):
                     *args, scale=D ** -0.5, kv_mask=kv_mask, int8_qk=int8_qk,
                     int8_pv=int8_pv, emit=True, emit_sym=self.pspec.act.sym,
                     need_rowsum=not self.pspec.weight.sym,
-                    col_scale=ics_p), C))
+                    col_scale=ics_p), C), epilogue=epilogue)
             return out.reshape(B, N, C)
         out = attention_bnhd(*args, scale=D ** -0.5, kv_mask=kv_mask,
                              int8_qk=int8_qk, int8_pv=int8_pv)
-        return self.proj(out.reshape(B, N, C), qctx)
+        return self.proj(out.reshape(B, N, C), qctx, epilogue=epilogue)
 
 
 # ---------------- embedders ----------------

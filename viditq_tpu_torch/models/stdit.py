@@ -4,8 +4,13 @@
 The block stack is unrolled as an `nn.ModuleList`, so module names are the
 reference's dotted layer names (`blocks.3.attn.q`) and plans resolve per
 block. Weights from the JAX package's scanned or unrolled layouts load
-through `viditq_tpu_torch.utils.bridge`. Sequence parallelism, gradient
-checkpointing, capture mode and the pipeline stages are not ported.
+through `viditq_tpu_torch.utils.bridge`. `fuse_epilogue` (off by default,
+as in the JAX package) sends the block's residual adds of the spatial
+attention, the cross attention and the MLP into the epilogue of their
+output linear (K2 or K5 under a fused plan): the JAX package's
+`VIDITQ_FUSE_EPILOGUE` switch, here a model argument. Sequence
+parallelism, gradient checkpointing, capture mode and the pipeline stages
+are not ported.
 """
 
 from __future__ import annotations
@@ -26,14 +31,20 @@ from viditq_tpu_torch.quant.qlinear import QuantCtx
 
 class STDiTBlock(nn.Module):
     """stdit.py:36-133: spatial attn -> temporal attn -> cross attn -> MLP
-    with t2i (adaLN-single) modulation from a per-block scale_shift_table."""
+    with t2i (adaLN-single) modulation from a per-block scale_shift_table.
+    fuse_epilogue: the residual adds of the spatial proj (with gate_msa),
+    the cross proj and fc2 (with gate_mlp) as those linears' epilogues
+    (stdit.py:70-74, :86-90, :135-136, :148-150); the temporal branch keeps
+    its add."""
 
     def __init__(self, hidden_size: int, num_heads: int, d_s: int, d_t: int,
                  mlp_ratio: float = 4.0, resolver: Resolver = no_quant,
-                 prefix: str = "", dtype=torch.bfloat16):
+                 prefix: str = "", dtype=torch.bfloat16,
+                 fuse_epilogue: bool = False):
         super().__init__()
         C = hidden_size
         self.d_s, self.d_t = d_s, d_t
+        self.fuse_epilogue = fuse_epilogue
         self.dtype = dtype
         self.resolver = resolver
         self.prefix = prefix
@@ -66,8 +77,11 @@ class STDiTBlock(nn.Module):
         if pre_attn is None:
             x_s = t2i_modulate(layer_norm(x, self.dtype), shift_msa,
                                scale_msa).reshape(B * T, S, C)
-        x_s = self.attn(x_s, qctx, prequant=pre_attn, shape=(B * T, S, C))
-        x = x + gate_msa * x_s.reshape(B, N, C)
+        epi = self.fuse_epilogue
+        x_s = self.attn(x_s, qctx, prequant=pre_attn, shape=(B * T, S, C),
+                        epilogue=(x, gate_msa.reshape(B, C)) if epi else None)
+        x = (x_s.reshape(B, N, C) if epi
+             else x + gate_msa * x_s.reshape(B, N, C))
 
         # temporal branch, packed as [B, (S T), C] segments of T tokens
         x_t = x.reshape(B, T, S, C).permute(0, 2, 1, 3)
@@ -78,7 +92,10 @@ class STDiTBlock(nn.Module):
         x = x + gate_msa * x_t.reshape(B, N, C)
 
         # cross attention to prompt tokens
-        x = x + self.cross_attn(x, y, mask, qctx)
+        if epi:
+            x = self.cross_attn(x, y, mask, qctx, epilogue=(x, None))
+        else:
+            x = x + self.cross_attn(x, y, mask, qctx)
 
         # MLP
         pre_mlp = ln_mod_prequant(self.resolver, self.prefix, x, shift_mlp,
@@ -88,12 +105,17 @@ class STDiTBlock(nn.Module):
         if pre_mlp is None:
             x_in = t2i_modulate(layer_norm(x, self.dtype), shift_mlp,
                                 scale_mlp)
+        if epi:
+            return self.mlp(x_in, qctx, prequant=pre_mlp, epilogue=(
+                x, gate_mlp.reshape(B, C))).reshape(B, N, C)
         h = self.mlp(x_in, qctx, prequant=pre_mlp)
         return x + gate_mlp * h.reshape(B, N, C)
 
 
 class STDiT(nn.Module):
-    """stdit.py:137-452. input_size is the latent [T, H, W]."""
+    """stdit.py:137-452. input_size is the latent [T, H, W]. fuse_epilogue:
+    every block's residual adds in its linears' epilogues (`STDiTBlock`);
+    a workload config sets it in its `model` dict."""
 
     def __init__(self, input_size: Tuple[int, int, int] = (16, 64, 64),
                  in_channels: int = 4,
@@ -103,7 +125,8 @@ class STDiT(nn.Module):
                  pred_sigma: bool = True, caption_channels: int = 4096,
                  model_max_length: int = 120, space_scale: float = 1.0,
                  time_scale: float = 1.0, no_temporal_pos_emb: bool = False,
-                 resolver: Resolver = no_quant, dtype=torch.bfloat16):
+                 resolver: Resolver = no_quant, dtype=torch.bfloat16,
+                 fuse_epilogue: bool = False):
         super().__init__()
         self.input_size = tuple(input_size)
         self.in_channels = in_channels
@@ -134,7 +157,8 @@ class STDiT(nn.Module):
         self.blocks = nn.ModuleList([
             STDiTBlock(C, num_heads, d_s=self.num_spatial,
                        d_t=self.num_temporal, mlp_ratio=mlp_ratio,
-                       resolver=resolver, prefix=f"blocks.{i}", dtype=dtype)
+                       resolver=resolver, prefix=f"blocks.{i}", dtype=dtype,
+                       fuse_epilogue=fuse_epilogue)
             for i in range(depth)])
         self.final_layer = T2IFinalLayer(C, int(np.prod(patch_size)),
                                           self.out_channels, resolver,

@@ -33,11 +33,15 @@ Modes:
       x sym or asym per-channel int8 weights through the fused kernels —
       with a `Prequant` input from a producer kernel, the int8 consumer
       matmul (K2, optionally emitting int8 for the next layer when sym x
-      sym); otherwise the quantize-in matmul (K5);
+      sym); otherwise the quantize-in matmul (K5); a residual (+ gate)
+      `epilogue` runs inside either (`_epilogue_fusable`);
     - native (any other impl): with a `Prequant` input from
       `shared_prequant` (K7a), the int8 matmul with the zero-point-
       corrected epilogue (K7b); otherwise `quantized_linear_native` (K7a
       then K7b).
+
+An `epilogue` (residual, gate | None) the kernels do not take is applied
+after the layer with the JAX package's bf16 roundings (`apply_epilogue`).
 
 Other backends (simulate fake quant, weight-only, static acts), the
 q-diffusion split and the 'dynamic' CB scale raise at construction.
@@ -192,6 +196,19 @@ def shared_prequant(x: torch.Tensor, lspec: Optional[LayerQuantSpec],
     return Prequant(*dynamic_quant_rows(x2.contiguous(), sym=lspec.act.sym))
 
 
+def apply_epilogue(out: torch.Tensor, res: torch.Tensor,
+                   gate: Optional[torch.Tensor]) -> torch.Tensor:
+    """The residual (+ gate) epilogue outside the kernels (qlinear.py:
+    320-331): `res + gate * out` in out's dtype, each batch's gate row over
+    its M / G rows; returns out's shape and dtype."""
+    if gate is None:
+        return (res.reshape(out.shape) + out).to(out.dtype)
+    G, F = gate.shape
+    o2 = out.reshape(G, -1, F)
+    return (res.reshape(o2.shape) + gate[:, None].to(o2.dtype) * o2
+            ).reshape(out.shape).to(out.dtype)
+
+
 def _refresh_after_load(mod: "QuantLinear", _incompatible_keys) -> None:
     if mod.native:
         mod.refresh_w_zp_int()
@@ -319,16 +336,40 @@ class QuantLinear(nn.Module):
 
     # ---- forward ----
 
+    def _epilogue_fusable(self, qctx: Optional[QuantCtx]) -> bool:
+        """Whether a residual (+ gate) epilogue runs inside the int8 kernel
+        (K2 on a prequant, else K5): the conditions of JAX
+        `_epilogue_fusable` (qlinear.py:273-295), quant mode on the fused
+        native dynamic path without channel balancing or a split (capture
+        mode is not ported). JAX's environment switch has no counterpart:
+        a model passes an epilogue only where its `fuse_epilogue` flag asks
+        for one."""
+        return (qctx is not None and qctx.mode == "quant" and self.fused
+                and self.smooth is None)
+
     def forward(self, x: Optional[torch.Tensor],
                 qctx: Optional[QuantCtx] = None,
                 prequant: Optional[Prequant] = None,
-                emit: Optional[dict] = None):
+                emit: Optional[dict] = None, epilogue=None):
         """x [..., K]. `prequant`: the input already quantized (and, under
         channel balancing, rescaled) by a producer (x may then be None; the
         output is [M, features]). `emit`: {'gelu': bool, 'col_scale': next
         layer's 1/cs or None} — return the output as a group-wise
         `Prequant` for the next linear instead (K2's int8-emitting
-        epilogue)."""
+        epilogue). `epilogue`: (residual shaped like the output, gate
+        [G, features] or None) — return `residual + gate * output` (each
+        batch's gate row over its M / G rows), inside the kernel where
+        `_epilogue_fusable`, else after it (`apply_epilogue`)."""
+        if epilogue is None:
+            return self._forward(x, qctx, prequant, emit, None)
+        if emit is not None:
+            raise ValueError("emit replaces the output epilogue")
+        if self._epilogue_fusable(qctx):
+            return self._forward(x, qctx, prequant, None, epilogue)
+        return apply_epilogue(self._forward(x, qctx, prequant, None, None),
+                              *epilogue)
+
+    def _forward(self, x, qctx, prequant, emit, epilogue):
         mode = "fp" if qctx is None else qctx.mode
         quant = self.native and mode == "quant"
         if emit is not None and not (quant and self.fused
@@ -356,9 +397,9 @@ class QuantLinear(nn.Module):
                     fold = inv_cs  # into K5's quantize
                 else:
                     x = divide_cols(x, cs)
-        return self._quant(x, tr, prequant, emit, fold)
+        return self._quant(x, tr, prequant, emit, fold, epilogue)
 
-    def _quant(self, x, tr, prequant, emit, fold):
+    def _quant(self, x, tr, prequant, emit, fold, epilogue=None):
         wspec = self.lspec.weight
         tw = self.table_timerange(tr)
         w_q = self.w_int[tr]
@@ -369,6 +410,9 @@ class QuantLinear(nn.Module):
             return self._native(x, prequant, w_q, w_scale, w_zp, w_colsum)
         # sym weights: no zero point (JAX qlinear.py:603-605, 614-616)
         tables = dict(w_zp=None if wspec.sym else w_zp, w_colsum=w_colsum)
+        if epilogue is not None:  # in the kernel (qlinear.py:609-618, 632)
+            tables.update(residual=epilogue[0].reshape(-1, self.features),
+                          gate=epilogue[1])
         if prequant is not None:
             pre = dict(x_zp=prequant.zp, x_rowsum=prequant.rowsum, **tables)
             if emit is not None:
