@@ -16,7 +16,10 @@ native backend, fused, the same plan through the fused kernels
 (`w8a8_tpu_fused.yaml`), and sym (`w8a8_tpu_fused_sym.yaml`), each on its
 own model; and cb and cb_sym, ViDiT-Q's W4A8 recipe with timestep-aware
 channel balancing on the fused kernels, asym and sym, each calibrated by
-one sq_stat forward in each of its timeranges on the profiled inputs) it
+one sq_stat forward in each of its timeranges on the profiled inputs;
+cb_mp, the cb model with the t20 timestep-wise mixed precision, its union
+model's forward at t = 500; for PixArt-Σ also cb, its W4A8 plan with CB,
+calibrated at t = 500) it
 runs one warm-up CFG forward at batch 2, then one more under
 `torch.profiler`, and prints the host wall time, the device time (the sum
 of CUDA kernel time), the device's idle share (1 - device / wall) and the
@@ -97,7 +100,7 @@ def main() -> int:
     import chip_smoke as cs
     from viditq_tpu_torch.kernels import _build
     from viditq_tpu_torch.quant.qlinear import QuantCtx
-    from viditq_tpu_torch.utils.workload import latent_size
+    from viditq_tpu_torch.utils.workload import build_sampler, latent_size
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print(cs.nvidia_smi_line(), flush=True)
@@ -114,17 +117,24 @@ def main() -> int:
         mask = torch.ones((1, n_prompt), dtype=torch.int32, device="cuda")
         model, model_plan = None, None
         for arm in cs.SLICE_KERNELS[name]:
-            plan = cs.arm_build(arm)
+            plan = cs.arm_build(name, arm)
             if plan != model_plan:
                 model = None
                 torch.cuda.empty_cache()
                 model = cs.build_model(cfg, "cuda", plan=plan[0],
                                        recipe=plan[1], calib=(x, y, mask),
-                                       model_kw=plan[2])
+                                       model_kw=plan[2],
+                                       stat_t=cs.STAT_T[name])
                 model_plan = plan
+            runner = model
+            if (name, arm) in cs.MP_ARMS:
+                runner = cs.mp_report(name, arm, cfg,
+                                      cs.quant_plan(*plan[:2]),
+                                      build_sampler(cfg), model)[1]
             qctx = None if arm == "bf16" else QuantCtx(t_id=500,
                                                        mode="quant")
-            wall, by_kernel = profile_forward(model, (x, t, y, mask), qctx)
+            wall, by_kernel = profile_forward(runner, (x, t, y, mask), qctx)
+            runner = None
             device = sum(by_kernel.values())
             groups = defaultdict(float)
             for k, ms in by_kernel.items():

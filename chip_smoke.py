@@ -37,7 +37,9 @@ Phases (any failure exits non-zero):
      unaligned K, f32 input, zero rows; the shapes it refuses); the
      column-scale modes of channel balancing (CB) at the `cb` arms'
      shapes (`cb_cases`: K4 and K5 identical, K5 to the K4 -> K2 route,
-     K3's emission at the three sites, K2's emission identical), each
+     K3's emission at the three sites, K2's emission identical, K6's
+     emission through K4 and K5 at the patch embed and final linear of the
+     Σ `cb` arm), each
      timed back to back beside the same call without the column scale;
      the residual (+ gate) epilogue of K2 (every mode it composes with)
      and K5 (identical to K4 -> K2 with it) at the sm8_epi arm's shapes,
@@ -46,8 +48,10 @@ Phases (any failure exits non-zero):
   4. reference: tiny STDiT (sm8, sm8_epi, attn8, the fused reference
      W8A8, the reference W8A8 on the native backend and the W4A8 CB
      recipe, asym and sym) and
-     tiny sm8 PixArt-Σ models on the card (kernels) against the same
-     models on the CPU (plain versions);
+     tiny PixArt-Σ models (sm8 and its W4A8 CB plan) on the card (kernels)
+     against the same models on the CPU (plain versions); then the t20 MP
+     sampler retiled onto 2 steps over the tiny CB STDiT (the gather path)
+     and over a tiny native W4A8 STDiT without CB (the segmented path);
   5. slice: full-width STDiT-XL/2 (28 blocks, C=1152, random weights from
      a seed), bf16, W8A8-sm8, `sm8_epi` (the sm8 plan with the model's
      `fuse_epilogue`: the block's residual adds in K2's epilogue), `attn8`
@@ -59,15 +63,22 @@ Phases (any failure exits non-zero):
      timestep-aware channel balancing on the fused kernels (`cb`:
      `w4a8_timestep_aware_cb.yaml`, `qkv_share_cs`, calibrated by one
      sq_stat forward in each of its two timeranges; `cb_sym`: the same
-     with sym weights and acts) arms over the whole 20-step CFG DDIM
+     with sym weights and acts; `cb_mp`: the cb arm's model sampled
+     through the gather MP sampler with the t20 timestep-wise mixed
+     precision, `t20_{weight_4,act_8}_mp.yaml`: its union spans, bits by
+     layer kind, CFG forwards per span (each span's steps exactly), and
+     launches equal to cb's) arms over the whole 20-step CFG DDIM
      schedule, with ms/step, peak memory, quantized-vs-bf16 error, the
      fused arm's distance to the native one, the CB arms' steps in each
      timerange and the launch count of every kernel (the fused-kernel
-     STDiT arms held to their per-block counts), and sm8_epi against sm8;
+     STDiT arms held to their per-block counts), sm8_epi against sm8 and
+     cb_mp against cb;
   6. slice_sigma: full-width PixArt-Σ 1024 (28 blocks, C=1152, KV
-     compression x2 on blocks 14-27, caption 300x4096), bf16 and sm8 arms
-     over the whole 20-step DPM-Solver++ CFG schedule, built through
-     `utils/workload`, with the same readings.
+     compression x2 on blocks 14-27, caption 300x4096), bf16, sm8 and cb
+     (its W4A8 plan, `configs/pixart_sigma/w4a8.yaml`, on the fused
+     kernels with `qkv_share_cs`, calibrated by one sq_stat forward at t =
+     500) arms over the whole 20-step DPM-Solver++ CFG schedule, built
+     through `utils/workload`, with the same readings.
 Each arm resets the launch counts just before its run and reads them just
 after; an arm that launches a kernel outside its list, or none of one in
 it, fails. The third-to-last line is the card's name and power limit, the
@@ -103,6 +114,23 @@ CB_PLAN = ROOT / "configs/opensora/w4a8_timestep_aware_cb.yaml"
 # (benchmarks/bench_configs.py:200-219)
 CB_STAT_T = (250, 750)
 CB_ALPHA = 0.11
+# ViDiT-Q's timestep-wise mixed precision (t20 MP) over the CB recipe: per
+# range of 5 sampler steps, the attention linears W4 and fc1/fc2 W8, every
+# act 8-bit; the `cb_mp` arm samples the `cb` arm's model through the
+# gather MP sampler (the JAX package's full-recipe arm, `arm_w4a8`,
+# bench_configs.py:109-273)
+MP_WEIGHT = ROOT / "configs/opensora/mixed_precision/t20_weight_4_mp.yaml"
+MP_ACT = ROOT / "configs/opensora/mixed_precision/t20_act_8_mp.yaml"
+# PixArt-Σ's W4A8 plan (W6 per-channel asym weights, asym dynamic A8,
+# momentum CB with alpha 0.3 over one timerange, no fp list: the patch
+# embed and the final linear are quantized too); the Σ `cb` arm runs it on
+# the fused kernels with the q/k/v scale pooled, as the JAX package's
+# `sigma1024` arm (bench_configs.py:359-425)
+SIGMA_CB_PLAN = ROOT / "configs/pixart_sigma/w4a8.yaml"
+SIGMA_CB_ALPHA = 0.3
+# the CB statistic forwards of each slice: Σ's at t = 500
+# (bench_configs.py:408-425)
+STAT_T = {"stdit": CB_STAT_T, "sigma": (500,)}
 STEPS = 20  # sampler steps per arm (bench.py's n_steps): the whole schedule
 # PixArt-Σ 1024 as benchmarks/bench_configs.py:388-391 builds it; the
 # sampler of the t2i workloads (configs/workload/pixart_alpha_512.py)
@@ -360,22 +388,34 @@ SLICE_KERNELS = {
               "fused": FUSED_KERNELS,
               "sym": FUSED_KERNELS,
               "cb": FUSED_KERNELS,
+              # after cb: it samples the cb arm's model
+              "cb_mp": FUSED_KERNELS,
               "cb_sym": FUSED_KERNELS},
     "sigma": {"bf16": ("attention_bnhd", "attention_bnhd_stream"),
-              "sm8": FUSED_KERNELS + ("attention_bnhd_stream",)},
+              "sm8": FUSED_KERNELS + ("attention_bnhd_stream",),
+              "cb": FUSED_KERNELS + ("attention_bnhd_stream",)},
 }
-# the plan of each quantized arm (the bf16 arm runs the sm8 arm's model
-# in fp mode)
-ARM_PLANS = {"sm8": SM8_PLAN, "w8a8": W8A8_PLAN, "fused": FUSED_PLAN,
-             "sym": SYM_PLAN, "cb": CB_PLAN, "cb_sym": CB_PLAN,
-             "attn8": ATTN8_PLAN}
+# the plan of each quantized arm by (slice, arm) (the bf16 arm runs the
+# sm8 arm's model in fp mode)
+ARM_PLANS = {("stdit", "sm8"): SM8_PLAN, ("stdit", "w8a8"): W8A8_PLAN,
+             ("stdit", "fused"): FUSED_PLAN, ("stdit", "sym"): SYM_PLAN,
+             ("stdit", "cb"): CB_PLAN, ("stdit", "cb_sym"): CB_PLAN,
+             ("stdit", "cb_mp"): CB_PLAN, ("stdit", "attn8"): ATTN8_PLAN,
+             ("sigma", "sm8"): SM8_PLAN, ("sigma", "cb"): SIGMA_CB_PLAN}
 # model arguments an arm sets in its workload config's `model` dict: the
 # sm8 plan with the block's residual adds in the linears' epilogues
-ARM_MODEL = {"sm8_epi": {"fuse_epilogue": True}}
+ARM_MODEL = {("stdit", "sm8_epi"): {"fuse_epilogue": True}}
 # how an arm changes its loaded plan (`quant_plan`): the native backend, or
 # the CB recipe on the fused kernels with the q/k/v scale pooled
-# (bench_configs.py:153-166), asym or with sym weights and acts (:173-182)
-PLAN_RECIPES = {"w8a8": "native", "cb": "cb", "cb_sym": "cb_sym"}
+# (bench_configs.py:153-166, :376-381), asym or with sym weights and acts
+# (:173-182)
+PLAN_RECIPES = {("stdit", "w8a8"): "native", ("stdit", "cb"): "cb",
+                ("stdit", "cb_sym"): "cb_sym", ("stdit", "cb_mp"): "cb",
+                ("sigma", "cb"): "cb"}
+# arms that sample their plan's model through the timestep-wise MP sampler:
+# (the arm whose model they take and whose launches they must equal, the
+# weight and act bitwidth configs)
+MP_ARMS = {("stdit", "cb_mp"): ("cb", MP_WEIGHT, MP_ACT)}
 # launches per block and CFG forward of an arm held to its exact count:
 # the fused reference plan's (K1 at norm1 and norm2; K2 at the 9 linears
 # on a prequant (q/k/v twice, the three projs, fc2) and fc1; K3 at the
@@ -399,7 +439,8 @@ BLOCK_LAUNCHES = {("stdit", "sm8"): SM8_BLOCK,
                   ("stdit", "attn8"): {**SM8_BLOCK, "qk_headwise_quant": 3},
                   ("stdit", "fused"): FUSED_BLOCK,
                   ("stdit", "cb"): FUSED_BLOCK,
-                  ("stdit", "cb_sym"): SM8_BLOCK}
+                  ("stdit", "cb_sym"): SM8_BLOCK,
+                  ("stdit", "cb_mp"): FUSED_BLOCK}
 
 
 def fail(msg: str):
@@ -1309,7 +1350,7 @@ def asym_cases(records):
         del q, k, v
 
 
-def cb_col_scales(g, k, edge=False):
+def cb_col_scales(g, k, edge=False, alpha=CB_ALPHA):
     """1/cs as a CB model folds it, f32 [k] on the card: cs =
     smooth_quant_scale of random act maxima (0.01 to 8) and weight maxima
     (1e-3 to 0.1) at the recipe's alpha; edge: cs log-uniform over 1e-3 to
@@ -1322,7 +1363,7 @@ def cb_col_scales(g, k, edge=False):
         cs[::7] = 1.0
     else:
         cs = smooth_quant_scale(0.01 + 7.99 * u[0], 1e-3 + 0.099 * u[1],
-                                CB_ALPHA)
+                                alpha)
     return torch.full_like(cs, 1.0) / cs
 
 
@@ -1344,8 +1385,11 @@ def cb_cases(records):
     K4(col_scale) -> K2 in this run (`check_k5`); K3's emission with the
     proj's 1/cs at the spatial, temporal and cross sites (bf16 PV), asym
     by `compare_asym_rows`, sym by the code tolerance; K2's GELU emission
-    with fc2's 1/cs (cb_sym's fc1), identical. One edge column scale
-    (1e-3 to 1e3, ones) in K4 and K5."""
+    with fc2's 1/cs (cb_sym's fc1), identical; K6's asym emission through
+    K4 with the proj's 1/cs at the Σ `cb` arm's self-attention shape (N =
+    M = 4096, alpha 0.3), by `compare_asym_rows`; K5 at the Σ `cb` arm's
+    patch embed (K = 16) and final linear (N = 32), asym W6 with +cs. One
+    edge column scale (1e-3 to 1e3, ones) in K4 and K5."""
     import torch
     from viditq_tpu_torch.kernels import attention as A
     from viditq_tpu_torch.kernels import fused_matmul as FM
@@ -1465,6 +1509,62 @@ def cb_cases(records):
                              lambda: A.attention_bnhd(q, k, v, D ** -0.5,
                                                       **kw))
         del q, k, v
+
+    # K6: Σ-1024's self-attention (blocks 0-13) under the Σ cb plan, its
+    # asym emission through K4 with the proj's 1/cs
+    Ns = 4096
+    bkv = A.stream_kv_block(Ns, Ns, C)
+    q, k, v = randn(B, Ns, H, D), randn(B, Ns, H, D), randn(B, Ns, H, D)
+    ics_s = cb_col_scales(g, C, alpha=SIGMA_CB_ALPHA)
+    kw = dict(emit=True, emit_sym=False, need_rowsum=True)
+
+    def k6_plain():
+        o = A.attention_bnhd_stream_plain(q, k, v, D ** -0.5, bkv)
+        return A._bn1(B, Ns, *FM.quantize_rows_plain(
+            o.reshape(B * Ns, C), sym=False, need_rowsum=True,
+            col_scale=ics_s))
+    nbytes, ops = attn_bound(B, Ns, H, D, [Ns] * B, False, True, Ns)
+    case = "Σ cb [2,4096,16,72] col_scale asym emit (K6->K4)"
+    check_case("attention_bnhd_stream", case,
+               lambda: A.attention_bnhd_stream(q, k, v, D ** -0.5,
+                                               col_scale=ics_s, **kw),
+               k6_plain, records, cost=(nbytes + 8 * B * Ns + 4 * C, ops),
+               asym=ASYM_TOL["stream"])
+    with_and_without("attention_bnhd_stream", case,
+                     lambda: A.attention_bnhd_stream(q, k, v, D ** -0.5,
+                                                     col_scale=ics_s, **kw),
+                     lambda: A.attention_bnhd_stream(q, k, v, D ** -0.5,
+                                                     **kw))
+    del q, k, v
+
+    # K5 at the Σ cb plan's layers without a producer: the patch embed (K =
+    # 16, one short k-tile) and the final linear (N = 32), asym acts x asym
+    # W6 codes, the layer's 1/cs folded into the quantize; the K4 -> K2
+    # route takes no K % 64 != 0 asym, so K = 16 is held to the plain
+    # version alone
+    for case, (k, n) in (("Σ cb x_embedder [8192,16]x[16,1152] W6", (16, C)),
+                         ("Σ cb final_layer [8192,1152]x[1152,32] W6",
+                          (C, 32))):
+        xa = randn(B * Ns, k)
+        wa = torch.randint(-32, 32, (n, k), generator=g, device=dev,
+                           dtype=torch.int8).t()
+        kw = dict(sym=False, sym_w=False, w_zp=torch.randint(
+            -32, 32, (1, n), generator=g, device=dev).float(),
+                  w_colsum=wa.float().sum(dim=0, keepdim=True),
+                  col_scale=cb_col_scales(g, k, alpha=SIGMA_CB_ALPHA))
+        wsa, ba = rands(1, n), randn(n, dtype=torch.float32, scale=0.1)
+        if k % 64 == 0:
+            check_k5(records, case, xa, wa, wsa, ba, timed=False, **kw)
+        else:
+            check_case(
+                "fused_dynq_int8_matmul", case,
+                lambda: FM.fused_dynq_int8_matmul(xa, wa, wsa, ba, **kw),
+                lambda: FM.fused_dynq_int8_matmul_plain(xa, wa, wsa, ba,
+                                                        **kw),
+                records, cost=(2 * B * Ns * k + k * n + 16 * n + 4 * k
+                               + 2 * B * Ns * n,
+                               {"int8": 2 * B * Ns * n * k}))
+        del xa
 
     # K2: fc1's GELU emission with fc2's 1/cs (cb_sym), on W4 codes
     xq = torch.randint(-127, 128, (M, C), generator=g, device=dev,
@@ -1780,25 +1880,18 @@ def attention_edge_cases(records, randn):
 
 
 def random_init_(model, seed: int, scale: float):
-    """normal x scale for every float parameter and table (bench.py:149-152
-    uses 0.02), from a seeded generator on the model's device. A weight
-    table is drawn at the shape of one bitwidth and one timerange, and CB's
-    act statistics not at all (calibration writes them all), so every plan
-    draws the same fp weights from the same seed."""
+    """normal x scale for every float parameter (bench.py:149-152 uses
+    0.02), in `named_parameters` order from a seeded generator on the
+    model's device. The quant tables are not drawn (calibration and packing
+    write them all), so every plan draws the same fp weights from the same
+    seed, whichever layers it quantizes (PixArt-Σ's W4A8 plan quantizes the
+    patch embed, which the sm8 plan's fp list keeps)."""
     import torch
     dev = next(model.parameters()).device
     g = torch.Generator(device=dev).manual_seed(seed)
     with torch.no_grad():
-        for name, t in model.state_dict().items():
-            leaf = name.rsplit(".", 1)[-1]
-            if not t.is_floating_point() or leaf in ("act_scale",
-                                                     "cb_scale"):
-                continue
-            if leaf in ("w_delta", "w_zp"):
-                t = t[:1, :1]
-            elif leaf == "w_colsum":
-                t = t[:1]
-            t.copy_(torch.randn(t.shape, generator=g, device=dev) * scale)
+        for _, p in model.named_parameters():
+            p.copy_(torch.randn(p.shape, generator=g, device=dev) * scale)
 
 
 STDIT_CFG = {"model": dict(type="STDiT-XL/2"), "num_frames": 16,
@@ -1820,14 +1913,20 @@ TINY_SIGMA_CFG = {"model": dict(type="PixArt", kv_compress_sampling="conv",
 
 def quant_plan(plan=SM8_PLAN, recipe=None):
     """A plan YAML as an arm runs it (`PLAN_RECIPES`): as it is, on the
-    native backend, or the CB recipe on the fused kernels with the q/k/v
-    balancing scale pooled (`qkv_share_cs`), sym weights and acts for
-    'cb_sym'."""
+    native backend ('native_nocb': without its channel balancing, the
+    segmented MP sampler's case), or the CB recipe on the fused kernels
+    with the q/k/v balancing scale pooled (`qkv_share_cs`), sym weights
+    and acts for 'cb_sym'."""
     import dataclasses
     from viditq_tpu_torch.utils.config import load_quant_config
     qplan = load_quant_config(str(plan))
     if recipe == "native":
         return qplan.with_backend("native")
+    if recipe == "native_nocb":
+        qplan = qplan.with_backend("native")
+        d = qplan.default_layer
+        return dataclasses.replace(qplan, default_layer=dataclasses.replace(
+            d, smooth_quant=type(d.smooth_quant)()))
     if recipe in ("cb", "cb_sym"):
         qplan = qplan.with_backend("fused")
         d = qplan.default_layer
@@ -1841,22 +1940,25 @@ def quant_plan(plan=SM8_PLAN, recipe=None):
     return qplan
 
 
-def arm_build(arm):
-    """(plan, recipe, model arguments) of an arm's model: the bf16 arm
-    runs the sm8 arm's model in fp mode."""
-    return (ARM_PLANS.get(arm, SM8_PLAN), PLAN_RECIPES.get(arm),
-            tuple(sorted(ARM_MODEL.get(arm, {}).items())))
+def arm_build(name, arm):
+    """(plan, recipe, model arguments) of a slice's arm's model: the bf16
+    arm runs the sm8 arm's model in fp mode; an MP arm (`MP_ARMS`) builds
+    the model of the arm it takes."""
+    arm = MP_ARMS[(name, arm)][0] if (name, arm) in MP_ARMS else arm
+    key = (name, arm)
+    return (ARM_PLANS.get(key, SM8_PLAN), PLAN_RECIPES.get(key),
+            tuple(sorted(ARM_MODEL.get(key, {}).items())))
 
 
 def build_model(cfg, device, scale=0.02, plan=SM8_PLAN, recipe=None,
-                calib=None, model_kw=()):
+                calib=None, model_kw=(), stat_t=CB_STAT_T):
     """The workload's model through `utils/workload.build_model` under a
     plan (`quant_plan(plan, recipe)`), with the model arguments model_kw
     ((name, value) pairs) in the config's `model` dict, random weights
     (normal x scale, seed 0: the same fp weights under every plan), min-max
     tables, packed int8 slabs. A CB plan is calibrated in the PTQ phase
     order first: one sq_stat forward on calib = (x, y, mask) at each of
-    CB_STAT_T."""
+    stat_t (the slice's `STAT_T`)."""
     from viditq_tpu_torch.quant.calibrate import (calibrate_weight_tables,
                                                   smooth_quant_stats)
     from viditq_tpu_torch.quant.native_pack import pack_native_weights
@@ -1868,10 +1970,34 @@ def build_model(cfg, device, scale=0.02, plan=SM8_PLAN, recipe=None,
     if qplan.default_layer.smooth_quant.enable:
         if calib is None:
             fail("a channel-balancing plan needs calibration inputs")
-        smooth_quant_stats(model, *calib, CB_STAT_T)
+        smooth_quant_stats(model, *calib, stat_t)
     calibrate_weight_tables(model)
     pack_native_weights(model)
     return model.eval()
+
+
+def mp_sampler(cfg, device, qplan, sampler, weight_cfg, act_cfg=None):
+    """The timestep-wise MP sampler of a plan over the workload's models on
+    `device` (`pipelines/mixed_precision.build_mp_sampler`), from the
+    bitwidth-config YAMLs or dicts."""
+    from viditq_tpu_torch.pipelines.mixed_precision import build_mp_sampler
+    from viditq_tpu_torch.utils.config import load_bitwidth_config
+    from viditq_tpu_torch.utils.workload import build_model as wl_build
+
+    def load(c):
+        return load_bitwidth_config(str(c)) if isinstance(c, Path) else c
+    return build_mp_sampler(lambda r: wl_build(cfg, r, device=device),
+                            sampler, qplan, load(weight_cfg), load(act_cfg))
+
+
+def retile(weight_cfg, steps: int):
+    """A bitwidth config's first `steps` ranges (in the file's order) onto
+    a `steps`-step sampler, one range a step, as the JAX package's tiny
+    bench does (bench_configs.py:231-234)."""
+    from viditq_tpu_torch.utils.config import load_bitwidth_config
+    vals = [v for k, v in load_bitwidth_config(str(weight_cfg)).items()
+            if k != "fp_layers"]
+    return {f"{i}-{i}": vals[steps - 1 - i] for i in range(steps)}
 
 
 def check_k_major(model) -> int:
@@ -1888,64 +2014,180 @@ def check_k_major(model) -> int:
     return len(native)
 
 
+def tiny_inputs(cfg):
+    """x [2, 4, *latent], t = 700, y [2, 1, 8, 32] (bf16) and a mask with
+    one padded prompt, on the CPU, from seed 1."""
+    import torch
+    from viditq_tpu_torch.utils.workload import latent_size
+    rng = np.random.default_rng(1)
+    x = torch.tensor(rng.standard_normal((2, 4, *latent_size(cfg)))
+                     ).bfloat16()
+    t = torch.tensor([700, 700])
+    y = torch.tensor(rng.standard_normal((2, 1, 8, 32))).bfloat16()
+    mask = torch.ones((2, 8), dtype=torch.int32)
+    mask[1, 6:] = 0
+    return x, t, y, mask
+
+
+def tiny_pair(x, t, y, mask, cpu_fwd, gpu_fwd, sample):
+    """(forward, denoise) relative errors of the card against the CPU: the
+    two models' forward at t = 700 (CB's second timerange) and sample(model,
+    z, y, mask) from the first latent."""
+    import torch
+    from viditq_tpu_torch.quant.qlinear import QuantCtx
+    q = QuantCtx(t_id=700, mode="quant")
+    with torch.no_grad():
+        want = cpu_fwd(x, t, y, mask, qctx=q)
+        got = gpu_fwd(x.cuda(), t.cuda(), y.cuda(), mask.cuda(),
+                      qctx=q).cpu()
+    rel_fwd = float((got - want).norm() / want.norm())
+    want = sample("cpu", x[:1], y, mask[:1]).float()
+    got = sample("cuda", x[:1].cuda(), y.cuda(),
+                 mask[:1].cuda()).float().cpu()
+    return rel_fwd, float((got - want).norm() / want.norm())
+
+
+def tiny_verdict(name, latent, steps, rel_fwd, rel_dn):
+    print(f"phase reference: tiny {name} {tuple(latent)}, card vs "
+          f"CPU plain versions: forward rel err {rel_fwd:.3g}, {steps}-step "
+          f"CFG denoise rel err {rel_dn:.3g} (limit {TINY_REL_ERR})",
+          flush=True)
+    for rel in (rel_fwd, rel_dn):
+        if not np.isfinite(rel) or rel > TINY_REL_ERR:
+            fail(f"tiny {name} disagrees with its CPU reference: {rel}")
+
+
 def phase_reference():
     """Tiny models (STDiT under sm8, with `fuse_epilogue`, under attn8,
     the fused reference W8A8, the native W8A8 and the W4A8 CB recipe asym
-    and sym, PixArt-Σ under sm8): the
+    and sym, PixArt-Σ under sm8 and under its W4A8 CB plan): the
     card's kernels against the CPU's plain versions on the same weights and
     inputs (a CB model calibrated on the CPU first), for one forward
     (float32 output; t = 700, CB's second timerange) and a 3-step CFG
     denoise (DDIM for STDiT, through both CB timeranges; DPM-Solver++ for
-    PixArt-Σ). Weights are drawn at 0.1 so activations are O(1)."""
+    PixArt-Σ); then the t20 MP sampler, its ranges retiled onto a 2-step
+    DDIM, over the tiny CB model (`cb_mp`, the gather path: the union
+    model's forward and the denoise) and over the tiny W4A8 model without
+    CB on the native backend (the segmented path, K7a -> K7b: the base
+    model's forward and the denoise). Weights are drawn at 0.1 so
+    activations are O(1)."""
     import copy
-    import torch
     from viditq_tpu_torch.pipelines.inference import quant_sample
-    from viditq_tpu_torch.quant.qlinear import QuantCtx
+    from viditq_tpu_torch.pipelines.mixed_precision import GatherMPSampler
     from viditq_tpu_torch.samplers.dpm_solver import DPMSolverSampler
     from viditq_tpu_torch.samplers.iddpm import IDDPM
     from viditq_tpu_torch.utils.workload import latent_size
     ddim = IDDPM(num_sampling_steps=3, cfg_scale=4.0)
-    for name, cfg, sampler, plan, recipe in (
-            ("sm8 STDiT", TINY_STDIT_CFG, ddim, SM8_PLAN, None),
-            ("sm8_epi STDiT (fuse_epilogue)", TINY_STDIT_EPI_CFG, ddim,
-             SM8_PLAN, None),
-            ("attn8 STDiT", TINY_STDIT_CFG, ddim, ATTN8_PLAN, None),
-            ("fused asym STDiT", TINY_STDIT_CFG, ddim, FUSED_PLAN, None),
-            ("w8a8 STDiT", TINY_STDIT_CFG, ddim, W8A8_PLAN, "native"),
-            ("cb STDiT (W4A8 CB)", TINY_STDIT_CFG, ddim, CB_PLAN, "cb"),
-            ("cb_sym STDiT", TINY_STDIT_CFG, ddim, CB_PLAN, "cb_sym"),
-            ("sm8 PixArt-Σ", TINY_SIGMA_CFG,
-             DPMSolverSampler(num_sampling_steps=3, cfg_scale=4.5), SM8_PLAN,
-             None)):
-        latent = latent_size(cfg)
-        rng = np.random.default_rng(1)
-        x = torch.tensor(rng.standard_normal((2, 4, *latent))).bfloat16()
-        t = torch.tensor([700, 700])
-        y = torch.tensor(rng.standard_normal((2, 1, 8, 32))).bfloat16()
-        mask = torch.ones((2, 8), dtype=torch.int32)
-        mask[1, 6:] = 0
+    dpm = DPMSolverSampler(num_sampling_steps=3, cfg_scale=4.5)
+    for name, sl, cfg, sampler, plan, recipe in (
+            ("sm8 STDiT", "stdit", TINY_STDIT_CFG, ddim, SM8_PLAN, None),
+            ("sm8_epi STDiT (fuse_epilogue)", "stdit", TINY_STDIT_EPI_CFG,
+             ddim, SM8_PLAN, None),
+            ("attn8 STDiT", "stdit", TINY_STDIT_CFG, ddim, ATTN8_PLAN, None),
+            ("fused asym STDiT", "stdit", TINY_STDIT_CFG, ddim, FUSED_PLAN,
+             None),
+            ("w8a8 STDiT", "stdit", TINY_STDIT_CFG, ddim, W8A8_PLAN,
+             "native"),
+            ("cb STDiT (W4A8 CB)", "stdit", TINY_STDIT_CFG, ddim, CB_PLAN,
+             "cb"),
+            ("cb_sym STDiT", "stdit", TINY_STDIT_CFG, ddim, CB_PLAN,
+             "cb_sym"),
+            ("sm8 PixArt-Σ", "sigma", TINY_SIGMA_CFG, dpm, SM8_PLAN, None),
+            ("cb PixArt-Σ (W4A8 CB)", "sigma", TINY_SIGMA_CFG, dpm,
+             SIGMA_CB_PLAN, "cb")):
+        x, t, y, mask = tiny_inputs(cfg)
         cpu = build_model(cfg, "cpu", scale=0.1, plan=plan, recipe=recipe,
-                          calib=(x, y, mask))
+                          calib=(x, y, mask), stat_t=STAT_T[sl])
         gpu = copy.deepcopy(cpu).to("cuda")
         check_k_major(gpu)
-        q = QuantCtx(t_id=700, mode="quant")
-        with torch.no_grad():
-            want = cpu(x, t, y, mask, qctx=q)
-            got = gpu(x.cuda(), t.cuda(), y.cuda(), mask.cuda(),
-                      qctx=q).cpu()
-        rel_fwd = float((got - want).norm() / want.norm())
-        want = quant_sample(cpu, sampler, x[:1], y, mask[:1]).float()
-        got = quant_sample(gpu, sampler, x[:1].cuda(), y.cuda(),
-                           mask[:1].cuda()).float().cpu()
-        rel_dn = float((got - want).norm() / want.norm())
-        print(f"phase reference: tiny {name} {tuple(latent)}, card vs "
-              f"CPU plain versions: forward rel err {rel_fwd:.3g}, 3-step "
-              f"CFG denoise rel err {rel_dn:.3g} (limit {TINY_REL_ERR})",
-              flush=True)
-        for rel in (rel_fwd, rel_dn):
-            if not np.isfinite(rel) or rel > TINY_REL_ERR:
-                fail(f"tiny {name} disagrees with its CPU reference: "
-                     f"{rel}")
+        models = {"cpu": cpu, "cuda": gpu}
+        tiny_verdict(name, latent_size(cfg), 3, *tiny_pair(
+            x, t, y, mask, cpu, gpu,
+            lambda dev, *a: quant_sample(models[dev], sampler, *a)))
+    ddim2 = IDDPM(num_sampling_steps=2, cfg_scale=4.0)
+    for name, recipe in (("cb_mp STDiT (W4A8 CB + t20 MP, gather)", "cb"),
+                         ("segmented MP STDiT (W4A8 native, no CB)",
+                          "native_nocb")):
+        cfg = TINY_STDIT_CFG
+        x, t, y, mask = tiny_inputs(cfg)
+        cpu = build_model(cfg, "cpu", scale=0.1, plan=CB_PLAN, recipe=recipe,
+                          calib=(x, y, mask))
+        models = {"cpu": cpu, "cuda": copy.deepcopy(cpu).to("cuda")}
+        qplan = quant_plan(CB_PLAN, recipe)
+        runs = {dev: mp_sampler(cfg, dev, qplan, ddim2, retile(MP_WEIGHT, 2))
+                for dev in models}
+        if isinstance(runs["cpu"], GatherMPSampler) != (recipe == "cb"):
+            fail(f"tiny {name}: the MP sampler took the other path")
+        fwd = {dev: (run.prepare(models[dev])
+                     if isinstance(run, GatherMPSampler) else models[dev])
+               for dev, run in runs.items()}
+        check_k_major(fwd["cuda"])
+        tiny_verdict(name, latent_size(cfg), 2, *tiny_pair(
+            x, t, y, mask, fwd["cpu"], fwd["cuda"],
+            lambda dev, *a: runs[dev](models[dev], *a)))
+        mp_sees_the_model(name, runs["cuda"], models["cuda"], ddim2,
+                          x[:1].cuda(), y.cuda(), mask[:1].cuda())
+
+
+def mp_sees_the_model(name, run, model, sampler, z, y, mask):
+    """The card's MP trajectory is the ranges' own: its latent moves away
+    from z and away from the base model's run at the plan's bits (every
+    layer W4), as the CPU tests hold the same samplers (tests/
+    test_torch_mp.py); a check that compared two runs of one wrong model
+    would pass the card-vs-CPU verdict."""
+    import torch
+    from viditq_tpu_torch.pipelines.inference import quant_sample
+    with torch.no_grad():
+        got = run(model, z, y, mask).float()
+        base = quant_sample(model, sampler, z, y, mask).float()
+    off_z = float((got - z.float()).norm() / z.float().norm())
+    off_base = float((got - base).norm() / base.norm())
+    print(f"phase reference: tiny {name} on the card: latent vs z rel "
+          f"{off_z:.4g} (must exceed 0.01), vs the all-W4 base model's "
+          f"run {off_base:.4g} (must exceed 1e-4)", flush=True)
+    if not (off_z > 0.01 and off_base > 1e-4):
+        fail(f"tiny {name}: the MP sampler's latent does not show its "
+             f"ranges' bits")
+
+
+def mp_report(name, arm, cfg, qplan, sampler, model):
+    """An MP arm's sampler and union model over its base model (built,
+    adapted and packed on the card; the seconds are printed): the union
+    spans, each span's weight bits by layer kind (fail unless the
+    attention linears run W4 and fc1/fc2 W8 in every span), the K-major
+    int8 weights and their slabs. Returns (sampler, union model)."""
+    import torch
+    from viditq_tpu_torch.pipelines.mixed_precision import GatherMPSampler
+    from viditq_tpu_torch.quant.qlinear import QuantLinear
+    _, w_cfg, a_cfg = MP_ARMS[(name, arm)]
+    t0 = time.time()
+    run = mp_sampler(cfg, "cuda", qplan, sampler, w_cfg, a_cfg)
+    if not isinstance(run, GatherMPSampler):
+        fail(f"{name} {arm}: the MP sampler did not take the gather path")
+    union = run.prepare(model)
+    torch.cuda.synchronize()
+    secs = time.time() - t0
+    kinds = {}
+    for n, m in union.named_modules():
+        if isinstance(m, QuantLinear) and m.native:
+            kind = ".".join(p for p in n.split(".") if not p.isdigit())
+            kinds.setdefault(kind, set()).add(
+                m.lspec.weight.mp_bits or (m.lspec.weight.n_bits,))
+    slabs = sum(m.w_int.shape[0] for m in union.modules()
+                if isinstance(m, QuantLinear) and m.native)
+    print(f"  {arm}: {STEPS}-step union spans {list(run.spans)} (MP range "
+          f"{list(run.mp_idx)}, CB timerange {list(run.cb_idx)}); bits by "
+          f"span and layer kind "
+          f"{ {k: sorted(v) for k, v in sorted(kinds.items())} }; union "
+          f"model built + adapted + calibrated + packed in {secs:.1f} s, "
+          f"{check_k_major(union)} K-major int8 weights in {slabs} slabs",
+          flush=True)
+    for kind, bits in kinds.items():
+        want = 8 if ".mlp." in kind else 4
+        if bits != {(want,) * run.n_ranges}:
+            fail(f"{name} {arm}: {kind} runs bits {bits}, not W{want} in "
+                 f"every span")
+    return run, union
 
 
 def run_slice(name, cfg, z_scale, n_prompt):
@@ -1954,12 +2196,16 @@ def run_slice(name, cfg, z_scale, n_prompt):
     error against bf16; for a CB arm, the steps run in each timerange (each
     slab must serve some). The bf16 and sm8 arms share the sm8 plan's
     model; another plan's arm gets its own model, built from the same seed
-    (a CB model calibrated on this run's z, y and mask). Returns each
-    kernel's launches summed over the arms."""
+    (a CB model calibrated on this run's z, y and mask). An MP arm
+    (`MP_ARMS`) samples the model of the arm it takes through the MP
+    sampler (`mp_report`): each union span that holds sampler steps must
+    serve exactly those, and its launches must equal that arm's. Returns
+    each kernel's launches summed over the arms."""
     import torch
     from viditq_tpu_torch.kernels import _counters
     from viditq_tpu_torch.pipelines.inference import fp_sample, quant_sample
-    from viditq_tpu_torch.quant.qlinear import QuantCtx, timerange_of
+    from viditq_tpu_torch.quant.qlinear import (QuantCtx, QuantLinear,
+                                                timerange_of)
     from viditq_tpu_torch.utils.workload import build_sampler, latent_size
     latent = latent_size(cfg)
     rng = np.random.default_rng(0)
@@ -1982,14 +2228,14 @@ def run_slice(name, cfg, z_scale, n_prompt):
     along, moved = {}, {}
     model, model_plan = None, None
     for arm in arms:
-        plan = arm_build(arm)
+        plan = arm_build(name, arm)
         if plan != model_plan:
             model = None
             torch.cuda.empty_cache()
             t0 = time.time()
             model = build_model(cfg, "cuda", plan=plan[0], recipe=plan[1],
                                 calib=(torch.cat([z, z]), y, mask),
-                                model_kw=plan[2])
+                                model_kw=plan[2], stat_t=STAT_T[name])
             torch.cuda.synchronize()
             model_plan = plan
             print(f"phase slice {name}: {cfg['model']['type']} at latent "
@@ -1998,38 +2244,57 @@ def run_slice(name, cfg, z_scale, n_prompt):
                   f"{f' {dict(plan[2])}' if plan[2] else ''}, built + "
                   f"calibrated + packed in {time.time() - t0:.1f} s, "
                   f"{check_k_major(model)} K-major int8 weights", flush=True)
+        # the model the arm's forwards run: an MP arm's union model
+        runner, mp_run = model, None
+        if (name, arm) in MP_ARMS:
+            mp_run, runner = mp_report(name, arm, cfg, quant_plan(*plan[:2]),
+                                       sampler, model)
         # the warm-up forward's context names its timestep (t = 999: a CB
         # model's second timerange)
         qctx = None if arm == "bf16" else QuantCtx(t_id=999, mode="quant")
         # warm-up: one CFG forward
         with torch.no_grad():
-            fwd = model(torch.cat([z, z]), torch.tensor([999.0, 999.0],
-                                                         device="cuda"),
-                        y, mask, qctx=qctx)
+            fwd = runner(torch.cat([z, z]), torch.tensor([999.0, 999.0],
+                                                          device="cuda"),
+                         y, mask, qctx=qctx)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        smooth = quant_plan(*plan[:2]).default_layer.smooth_quant
+        smooth = next((m.smooth for m in runner.modules()
+                       if isinstance(m, QuantLinear)
+                       and m.smooth is not None), None)
         tr_steps, hook = None, None
-        if arm != "bf16" and smooth.enable:
-            # the CFG forwards of the run in each CB timerange
+        if arm != "bf16" and smooth is not None:
+            # the CFG forwards of the run in each CB timerange (an MP
+            # arm's: each union span)
             tr_steps = [0] * smooth.n_timerange
 
             def count(_mod, args, kwargs):
                 qc = kwargs.get("qctx", args[4] if len(args) > 4 else None)
                 tr_steps[timerange_of(smooth, qc.t_id)] += 1
-            hook = model.register_forward_pre_hook(count, with_kwargs=True)
+            hook = runner.register_forward_pre_hook(count, with_kwargs=True)
         _counters.reset()
         t0 = time.time()
-        out = (fp_sample if arm == "bf16" else quant_sample)(
-            model, sampler, z, y, mask)
+        if mp_run is not None:
+            out = mp_run(model, z, y, mask)
+        else:
+            out = (fp_sample if arm == "bf16" else quant_sample)(
+                model, sampler, z, y, mask)
         torch.cuda.synchronize()
         ms[arm] = (time.time() - t0) * 1e3 / STEPS
         counts[arm] = _counters.snapshot()
         if hook is not None:
             hook.remove()
-            print(f"  {arm}: CFG forwards in each CB timerange "
+            print(f"  {arm}: CFG forwards in each "
+                  f"{'union span' if mp_run else 'CB timerange'} "
                   f"{dict(zip(smooth.timerange, tr_steps))}", flush=True)
-            if min(tr_steps) == 0:
+            if mp_run is not None:
+                tmap = [int(tt) for tt in sampler.schedule.timestep_map]
+                want = [sum(lo <= tt <= hi for tt in tmap)
+                        for lo, hi in smooth.timerange]
+                if tr_steps != want:
+                    fail(f"{name} {arm}: CFG forwards by union span "
+                         f"{tr_steps} != the sampler's steps there {want}")
+            elif min(tr_steps) == 0:
                 fail(f"{name} {arm}: a timerange's slabs served no step "
                      f"({tr_steps})")
         outs[arm] = out.float()
@@ -2054,6 +2319,12 @@ def run_slice(name, cfg, z_scale, n_prompt):
         got = {k: counts[arm][k]["launches"] for k in want}
         if got != want:
             fail(f"{name} {arm} launches {got} != {want}")
+        if mp_run is not None:
+            base_arm = MP_ARMS[(name, arm)][0]
+            got, want = ({k: v["launches"] for k, v in counts[a].items()}
+                         for a in (arm, base_arm))
+            if got != want:
+                fail(f"{name} {arm} launches {got} != {base_arm}'s {want}")
         if all(a in arms for a in traced) and arm in traced:
             sample = fp_sample if arm == "bf16" else quant_sample
             along[arm] = [fwd.float()] + [
@@ -2067,6 +2338,9 @@ def run_slice(name, cfg, z_scale, n_prompt):
                                / fwd.float().norm())
             del fwd_m
         del fwd
+        if mp_run is not None:  # the union model's slabs go with it
+            runner = mp_run = None
+            torch.cuda.empty_cache()
     model = None
     torch.cuda.empty_cache()
     if along:
@@ -2092,6 +2366,13 @@ def run_slice(name, cfg, z_scale, n_prompt):
               f"{ms['sm8']:.1f}; final latents apart by rel "
               f"{float((outs['sm8_epi'] - outs['sm8']).norm() / outs['sm8'].norm()):.4g}",
               flush=True)
+    for arm in arms:
+        if (name, arm) in MP_ARMS:
+            base_arm = MP_ARMS[(name, arm)][0]
+            print(f"  {name}: {arm} {ms[arm]:.1f} ms/step against "
+                  f"{base_arm} {ms[base_arm]:.1f}; final latents apart by "
+                  f"rel {float((outs[arm] - outs[base_arm]).norm() / outs[base_arm].norm()):.4g}",
+                  flush=True)
     for arm in arms[1:]:
         rel = float((outs[arm] - outs["bf16"]).norm() / outs["bf16"].norm())
         print(f"  {name}: {STEPS} steps; bf16 {ms['bf16']:.1f} ms/step, "

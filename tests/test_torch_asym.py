@@ -294,8 +294,8 @@ def test_chip_smoke_carries_the_asym_cases_and_arms():
     # own, where the plain K5 calls K4's and K2's plain versions
     for arm in ("fused", "sym"):
         assert cs.SLICE_KERNELS["stdit"][arm] == cs.FUSED_KERNELS
-    assert cs.ARM_PLANS["fused"].name == PLANS["asym"].split("/")[-1]
-    assert cs.ARM_PLANS["sym"].name == PLANS["sym"].split("/")[-1]
+    assert cs.ARM_PLANS[("stdit", "fused")].name == PLANS["asym"].split("/")[-1]
+    assert cs.ARM_PLANS[("stdit", "sym")].name == PLANS["sym"].split("/")[-1]
     per_block = cs.BLOCK_LAUNCHES[("stdit", "fused")]
     assert per_block == {"ln_modulate_quantize": 2, "int8_consumer_matmul": 11,
                          "attention_bnhd": 3, "quantize_rows": 2,

@@ -277,7 +277,7 @@ def test_chip_smoke_carries_the_attn8_cases_and_arm():
     import chip_smoke as cs
     assert cs.SLICE_KERNELS["stdit"]["attn8"] == cs.FUSED_KERNELS + (
         "qk_headwise_quant",)
-    assert cs.ARM_PLANS["attn8"].name == ATTN8.split("/")[-1]
+    assert cs.ARM_PLANS[("stdit", "attn8")].name == ATTN8.split("/")[-1]
     per_block = cs.BLOCK_LAUNCHES[("stdit", "attn8")]
     # K8 once per attention site: 84 a forward, 1680 over the 20 steps
     assert per_block == {**cs.BLOCK_LAUNCHES[("stdit", "sm8")],

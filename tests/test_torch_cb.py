@@ -295,8 +295,8 @@ def test_chip_smoke_carries_the_cb_cases_and_arms():
     # arms' per-block launches: CB adds no launch
     for arm in ("cb", "cb_sym"):
         assert cs.SLICE_KERNELS["stdit"][arm] == cs.FUSED_KERNELS
-        assert cs.ARM_PLANS[arm].name == CB.split("/")[-1]
-        assert cs.PLAN_RECIPES[arm] == arm
+        assert cs.ARM_PLANS[("stdit", arm)].name == CB.split("/")[-1]
+        assert cs.PLAN_RECIPES[("stdit", arm)] == arm
     assert cs.BLOCK_LAUNCHES[("stdit", "cb")] == cs.BLOCK_LAUNCHES[
         ("stdit", "fused")]
     assert cs.BLOCK_LAUNCHES[("stdit", "cb_sym")] == {

@@ -383,8 +383,8 @@ def test_chip_smoke_carries_the_epilogue_cases_and_arm():
     import inspect
     import chip_smoke as cs
     assert cs.SLICE_KERNELS["stdit"]["sm8_epi"] == cs.FUSED_KERNELS
-    assert cs.arm_build("sm8_epi") == (cs.SM8_PLAN, None,
-                                       (("fuse_epilogue", True),))
+    assert cs.arm_build("stdit", "sm8_epi") == (
+        cs.SM8_PLAN, None, (("fuse_epilogue", True),))
     # the epilogues add no launch: sm8_epi is held to sm8's counts
     assert cs.BLOCK_LAUNCHES[("stdit", "sm8_epi")] == cs.BLOCK_LAUNCHES[
         ("stdit", "sm8")]

@@ -416,3 +416,101 @@ def test_chip_smoke_carries_the_row_edge_cases():
     # back beside one call
     assert "exact=not sym" in body and 'ASYM_TOL["ln"]' in body
     assert "b2b=True" in body
+
+
+def test_chip_smoke_carries_the_mp_and_sigma_cb_arms():
+    import inspect
+    import chip_smoke as cs
+    # cb_mp samples the cb arm's model through the MP sampler: the fused
+    # kernels, cb's per-block launches, held equal to cb's in the run
+    assert cs.SLICE_KERNELS["stdit"]["cb_mp"] == cs.FUSED_KERNELS
+    arms = list(cs.SLICE_KERNELS["stdit"])
+    assert arms.index("cb_mp") == arms.index("cb") + 1
+    assert cs.MP_ARMS[("stdit", "cb_mp")] == ("cb", cs.MP_WEIGHT, cs.MP_ACT)
+    assert cs.arm_build("stdit", "cb_mp") == cs.arm_build("stdit", "cb")
+    assert cs.BLOCK_LAUNCHES[("stdit", "cb_mp")] == cs.BLOCK_LAUNCHES[
+        ("stdit", "cb")]
+    for f in (cs.MP_WEIGHT, cs.MP_ACT):
+        assert f.exists()
+    run = inspect.getsource(cs.run_slice)
+    for part in ("mp_report(", "mp_run(model, z, y, mask)",
+                 "sum(lo <= tt <= hi for tt in tmap)",
+                 "'s {want}", "tr_steps != want"):
+        assert part in run, part
+    report = inspect.getsource(cs.mp_report)
+    assert "GatherMPSampler" in report and "n_ranges" in report
+    # Σ cb: the Σ W4A8 plan on the fused kernels with K6, calibrated at
+    # t = 500; keyed by slice, so no STDiT arm's plan changed
+    assert cs.SLICE_KERNELS["sigma"]["cb"] == cs.FUSED_KERNELS + (
+        "attention_bnhd_stream",)
+    assert cs.arm_build("sigma", "cb") == (cs.SIGMA_CB_PLAN, "cb", ())
+    assert cs.arm_build("stdit", "cb") == (cs.CB_PLAN, "cb", ())
+    assert cs.STAT_T == {"stdit": (250, 750), "sigma": (500,)}
+    d = cs.quant_plan(cs.SIGMA_CB_PLAN, "cb").default_layer
+    assert (d.backend, d.impl, d.weight.n_bits) == ("native", "fused", 6)
+    assert d.smooth_quant.qkv_share_cs and d.smooth_quant.alpha == (
+        cs.SIGMA_CB_ALPHA,)
+    assert "stat_t=STAT_T[name]" in run
+    # K6's +cs emission through K4 at the Σ shape, beside the same call
+    # without the scale
+    src = inspect.getsource(cs.cb_cases)
+    # and K5 at its patch embed (K = 16) and final linear (N = 32)
+    for part in ("Σ cb [2,4096,16,72] col_scale asym emit (K6->K4)",
+                 "col_scale=ics_s", 'ASYM_TOL["stream"]',
+                 'with_and_without("attention_bnhd_stream"',
+                 "Σ cb x_embedder [8192,16]x[16,1152] W6",
+                 "Σ cb final_layer [8192,1152]x[1152,32] W6",
+                 "fused_dynq_int8_matmul_plain(xa, wa, wsa, ba,"):
+        assert part in src, part
+    # the tiny cb_mp (gather), segmented-MP and Σ-cb models card vs CPU
+    ref = inspect.getsource(cs.phase_reference)
+    for part in ('SIGMA_CB_PLAN, "cb")', '"native_nocb")',
+                 "retile(MP_WEIGHT, 2)", "tiny_verdict(", "GatherMPSampler"):
+        assert part in ref, part
+    assert "TINY_REL_ERR" in inspect.getsource(cs.tiny_verdict)
+    # chip_profile profiles every arm of both slices, cb_mp's union model
+    prof = (Path(cs.__file__).parent / "chip_profile.py").read_text()
+    for part in ("cs.arm_build(name, arm)", "cs.MP_ARMS",
+                 "cs.mp_report(", "profile_forward(runner",
+                 "stat_t=cs.STAT_T[name]"):
+        assert part in prof, part
+
+
+def test_chip_smoke_mp_helpers_on_the_cpu():
+    import chip_smoke as cs
+    from viditq_tpu_torch.pipelines import mixed_precision as mp
+    from viditq_tpu_torch.samplers.iddpm import IDDPM
+    # retiling the t20 ranges onto 2 steps, as the JAX bench's tiny mode
+    w = cs.retile(cs.MP_WEIGHT, 2)
+    assert list(w) == ["0-0", "1-1"]
+    assert w["1-1"]["model.blocks.0.attn.q"] == 4
+    assert w["0-0"]["model.blocks.27.mlp.fc2"] == 8
+    sampler = IDDPM(num_sampling_steps=2)
+    for recipe, kind in (("cb", mp.GatherMPSampler),
+                         ("native_nocb", mp.SegmentedMPSampler)):
+        run = cs.mp_sampler(cs.TINY_STDIT_CFG, "cpu",
+                            cs.quant_plan(cs.CB_PLAN, recipe), sampler, w)
+        assert isinstance(run, kind), recipe
+    run = cs.mp_sampler(cs.STDIT_CFG, "cpu", cs.quant_plan(cs.CB_PLAN, "cb"),
+                        IDDPM(num_sampling_steps=cs.STEPS), cs.MP_WEIGHT,
+                        cs.MP_ACT)
+    assert run.spans == ((0, 236), (237, 499), (500, 500), (501, 762),
+                         (763, 1000))
+
+
+def test_chip_smoke_draws_the_same_fp_weights_under_every_plan():
+    # the Σ W4A8 plan quantizes the patch embed and the final linear, which
+    # the sm8 plan keeps in fp: their quant tables must not move the draws
+    # of the parameters after them (every arm's error is against bf16 on
+    # the sm8 plan's model)
+    import chip_smoke as cs
+    from viditq_tpu_torch.utils.workload import build_model
+    models = []
+    for plan, recipe in ((cs.SM8_PLAN, None), (cs.SIGMA_CB_PLAN, "cb")):
+        m = build_model(cs.TINY_SIGMA_CFG,
+                        cs.quant_plan(plan, recipe).resolver(), device="cpu")
+        cs.random_init_(m, 0, 0.02)
+        models.append(dict(m.named_parameters()))
+    assert models[0].keys() == models[1].keys()
+    for k, p in models[0].items():
+        assert torch.equal(p, models[1][k]), k

@@ -14,6 +14,12 @@ phase order of a channel-balancing (CB) plan (`pipelines/ptq.py:127-150`):
      `qkv_share_cs`), then `w_delta`/`w_zp` per timerange on kernel * cs;
   3. `native_pack.pack_native_weights`: the int8 slabs.
 
+On a timestep-wise mixed-precision union model (`pipelines/
+mixed_precision.py`, its act statistics gathered from the CB model by CB
+timerange) the same calibration gives every union span its cb_scale with
+its CB range's alpha, and tables at every bitwidth of `bits_tuple`, which
+the packing reads at each span's `mp_bits`.
+
 Scanned stacks and AdaRound alphas are not ported (the port's models are
 unrolled).
 """

@@ -9,7 +9,7 @@ layer lists (`remain_fp.txt`, bitwidth-config YAMLs like
 
 from __future__ import annotations
 
-from typing import Iterable, Sequence
+from typing import Iterable, Mapping, Optional, Sequence
 
 from viditq_tpu_torch.quant.spec import LayerQuantSpec
 
@@ -47,10 +47,19 @@ def any_pattern_in(text: str, patterns: Iterable[str]) -> bool:
 
 
 def resolve_layer_spec(name: str, default: LayerQuantSpec,
-                       fp_patterns: Sequence[str] = ()) -> LayerQuantSpec:
-    """Resolve the effective LayerQuantSpec for a dotted layer name: the
-    default, disabled where the fp list matches (reference `--part_fp` +
-    remain_fp.txt, t2v/scripts/ptq.py:199-205)."""
+                       fp_patterns: Sequence[str] = (),
+                       overrides: Optional[Mapping[str, LayerQuantSpec]]
+                       = None) -> LayerQuantSpec:
+    """Resolve the effective LayerQuantSpec for a dotted layer name. Order
+    (JAX naming.py:48-65): an override whose pattern matches (the first in
+    the mapping's order; `pattern_in` semantics, so a module prefix such
+    as `blocks.0.attn` covers `blocks.0.attn.q`) > the fp list, which
+    disables quantization (reference `--part_fp` + remain_fp.txt,
+    t2v/scripts/ptq.py:199-205) > the default."""
+    if overrides:
+        for pat, spec in overrides.items():
+            if pattern_in(name, pat):
+                return spec
     if any_pattern_in(name, fp_patterns):
         return default.disabled()
     return default

@@ -9,8 +9,16 @@ tables, or timerange 0's under `frozen_tr0_weights` (native_pack.py:
 208-286). Same code formula as the JAX package (`round(w / d)`, clipped):
 symmetric codes are signed with zero point 0; asymmetric codes are
 shifted by 2^(b-1) into signed int8 (4-bit codes too: one code a byte, as
-the full-native path reads them). Mixed-precision slabs and the int4
-nibble packing of weight-only layers are not ported.
+the full-native path reads them).
+
+Timerange-gathered mixed precision (native_pack.py:111-126, 208-286): a
+layer whose spec carries `mp_bits` packs timerange tr at mp_bits[tr] (its
+tables at that bitwidth, shift 2^(bits-1), 2^bits levels) and fills its
+per-timerange dequant tables `w_mp_scale` = d and `w_mp_zp` = z - shift (0
+for sym). Every other layer packs each timerange at `n_bits`. The port
+packs each module from its own spec, so the JAX package's check that a
+packing resolver agrees with the model's slots has no counterpart. The
+int4 nibble packing of weight-only layers is not ported.
 """
 
 from __future__ import annotations
@@ -27,21 +35,29 @@ def pack_native_weights(model: nn.Module) -> nn.Module:
         if not isinstance(mod, QuantLinear) or not mod.native:
             continue
         wspec = mod.lspec.weight
-        bi = wspec.bit_idx
-        shift = float(2 ** (wspec.n_bits - 1))
+        n_tr = mod.w_int.shape[0]
+        bits_tr = wspec.mp_bits or (wspec.n_bits,) * n_tr
         kernel = mod.kernel.float()
-        for tr in range(mod.w_int.shape[0]):
+        for tr in range(n_tr):
+            bits = bits_tr[tr]
+            bi = wspec.bits_tuple.index(bits)
+            shift = float(2 ** (bits - 1))
             w_eff = (kernel if mod.smooth is None
                      else kernel * mod.cb_scale[tr][:, None])
             tw = mod.table_timerange(tr)
             d = mod.w_delta[bi, tw].reshape(1, -1)
             if wspec.sym:
                 code = torch.clamp(torch.round(w_eff / d), -shift, shift - 1)
+                zp = torch.zeros_like(d)
             else:
                 z = mod.w_zp[bi, tw].reshape(1, -1)
                 code = torch.clamp(torch.round(w_eff / d) + z, 0,
-                                   float(2 ** wspec.n_bits) - 1) - shift
+                                   float(2 ** bits) - 1) - shift
+                zp = z - shift
             mod.w_int[tr].copy_(code.to(torch.int8))
             mod.w_colsum[tr].copy_(code.sum(dim=0, keepdim=True))
+            if mod.mp:
+                mod.w_mp_scale[tr].copy_(d)
+                mod.w_mp_zp[tr].copy_(zp)
         mod.refresh_w_zp_int()
     return model

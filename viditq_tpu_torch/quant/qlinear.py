@@ -21,6 +21,16 @@ emission, K2's emission), whose parent reads this layer's 1/cs through
 `inv_balance`; otherwise a true f32 division. The weight tables of every
 timerange are timerange 0's under `frozen_tr0_weights`.
 
+Timerange-gathered mixed precision (qlinear.py:423-440, 575-582): a
+native layer whose weight spec carries `mp_bits` (one bitwidth per
+timerange, from `pipelines/mixed_precision.py`'s union of the CB
+timeranges and the MP step ranges) packs each timerange's slab at its own
+bits and holds saved per-timerange dequant tables `w_mp_scale` and
+`w_mp_zp` [n_timerange, 1, N] (the zero point with the signed shift of
+its bits folded in, 0 for sym weights). `_quant` reads those for the
+call's timerange in place of the `w_delta`/`w_zp_int` pair; every table
+is a view `[tr]` of the stored one, so no forward copies a slab.
+
 Modes:
   * fp (no spec, an fp-listed layer, `qctx is None` or mode 'fp'):
     `x @ kernel + bias` in the model dtype;
@@ -252,6 +262,12 @@ class QuantLinear(nn.Module):
             self.register_buffer("sq_init",
                                  torch.zeros(n_tr, dtype=torch.bool),
                                  persistent=False)
+        self.mp = self.native and lspec.weight.mp_bits is not None
+        if self.mp and len(lspec.weight.mp_bits) != n_tr:
+            raise ValueError(
+                f"mp_bits length {len(lspec.weight.mp_bits)} != "
+                f"n_timerange {n_tr} (mp_bits are per smooth-quant "
+                f"timerange)")
         if self.native:
             wshape = (lspec.weight.n_bitwidth, n_tr, 1, features)
             self.register_buffer("w_delta", torch.full(wshape, -1.0))
@@ -267,6 +283,10 @@ class QuantLinear(nn.Module):
                                  torch.zeros((n_tr, 1, features)))
             self.register_buffer("w_zp_int", torch.zeros((n_tr, features)),
                                  persistent=False)
+        if self.mp:
+            self.register_buffer("w_mp_scale",
+                                 torch.ones((n_tr, 1, features)))
+            self.register_buffer("w_mp_zp", torch.zeros((n_tr, 1, features)))
         self.register_load_state_dict_post_hook(_refresh_after_load)
 
     def dense(self, x: torch.Tensor,
@@ -401,10 +421,14 @@ class QuantLinear(nn.Module):
 
     def _quant(self, x, tr, prequant, emit, fold, epilogue=None):
         wspec = self.lspec.weight
-        tw = self.table_timerange(tr)
         w_q = self.w_int[tr]
-        w_scale = self.w_delta[wspec.bit_idx, tw].reshape(1, -1)
-        w_zp = self.w_zp_int[tw].reshape(1, -1)
+        if self.mp:  # this timerange's bits (qlinear.py:575-582)
+            w_scale = self.w_mp_scale[tr]
+            w_zp = self.w_mp_zp[tr]
+        else:
+            tw = self.table_timerange(tr)
+            w_scale = self.w_delta[wspec.bit_idx, tw].reshape(1, -1)
+            w_zp = self.w_zp_int[tw].reshape(1, -1)
         w_colsum = self.w_colsum[tr]
         if not self.fused:
             return self._native(x, prequant, w_q, w_scale, w_zp, w_colsum)

@@ -55,8 +55,9 @@ class QuantSpec:
     # calibrated timestep slots.
     timestep_wise: bool = False
     n_timestep: int = 1
-    # Timerange-gathered mixed precision (not ported): weight bits per
-    # smooth-quant timerange.
+    # Timerange-gathered mixed precision: weight bits per smooth-quant
+    # timerange (each timerange's slab packs at its own bits; the layer
+    # then holds per-timerange dequant tables, `QuantLinear.w_mp_scale`).
     mp_bits: Optional[Tuple[int, ...]] = None
 
     def __post_init__(self):
@@ -101,6 +102,19 @@ class QuantSpec:
         """
         b = self.n_bits if n_bits is None else n_bits
         return 2 ** b if not self.sym else 2 ** (b - 1) - 1
+
+    def with_bits(self, n_bits: int) -> "QuantSpec":
+        """Reference `bitwidth_refactor` (base_quantizer.py:319-325; JAX
+        spec.py:112-125). A static quantizer's calibrated tables carry
+        entries only for `bits_tuple`, so an uncalibrated bitwidth is
+        refused; a dynamic quantizer computes its qparams online and
+        switches freely."""
+        if not self.dynamic and n_bits not in self.bits_tuple:
+            raise ValueError(
+                f"with_bits({n_bits}): not among calibrated bitwidths "
+                f"{self.bits_tuple}; set mixed_precision to calibrate "
+                f"multi-bit tables first")
+        return dataclasses.replace(self, n_bits=n_bits)
 
 
 @dataclasses.dataclass(frozen=True)

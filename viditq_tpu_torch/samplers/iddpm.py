@@ -90,3 +90,18 @@ class IDDPM:
                                   in_channels=self.in_channels,
                                   step_indices=step_indices)
         return torch.chunk(out, 2, dim=0)[0]
+
+    def denoise_range(self, model_apply: ModelApply, x2: torch.Tensor,
+                      y: torch.Tensor, mask: Optional[torch.Tensor],
+                      step_indices: Sequence[int],
+                      qctx_factory: Optional[QctxFactory] = None
+                      ) -> torch.Tensor:
+        """DDIM over `step_indices` (descending) on an already CFG-doubled
+        state x2 [2n, C, ...]; returns the doubled state. The building
+        block of timestep-wise mixed precision's segmented path, each range
+        on its own model (iddpm.py:113-125; reference
+        quant_txt2video_mp.py:188-556)."""
+        model_fn = self.make_cfg_model_fn(model_apply, y, mask, qctx_factory)
+        return gd.ddim_sample_loop(model_fn, x2, self.schedule,
+                                   in_channels=self.in_channels,
+                                   step_indices=step_indices)

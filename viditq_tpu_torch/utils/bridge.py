@@ -19,9 +19,11 @@ returns the tensors the port's model of the same configuration loads with
     (the same flatten order); the depthwise KV-compress conv kernel
     (`attn.sr.kernel`, [r, r, 1, C]) keeps its layout, which
     `DepthwiseQuantConv` uses as it is;
-  * the packed quant leaves (`w_delta`, `w_zp`, `w_int`, `w_colsum`) and
-    the channel-balancing tables (`act_scale`, `cb_scale`) become buffers
-    of the same names and shapes (one slab per timerange);
+  * the packed quant leaves (`w_delta`, `w_zp`, `w_int`, `w_colsum`), the
+    channel-balancing tables (`act_scale`, `cb_scale`) and the per-range
+    dequant tables of timestep-wise mixed precision (`w_mp_scale`,
+    `w_mp_zp`, the JAX package's union variables) become buffers of the
+    same names and shapes (one slab per timerange);
   * a `cbshare__<child>` leaf, the copy of a child layer's `cb_scale` that
     a flax parent keeps because it cannot read its children's variables
     (qlinear.py:113-145), must equal that child's table (else ValueError)

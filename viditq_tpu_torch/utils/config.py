@@ -4,15 +4,17 @@ The port's copy of the plan surface of `viditq_tpu/utils/config.py`: parses
 the YAML layout shipped by ViDiT-Q (`t2v/configs/quant/opensora/*.yaml`)
 into the same frozen `QuantSpec`/`LayerQuantSpec` values the JAX package
 resolves, plus a plain `QuantPlanConfig` whose `resolver()` maps dotted
-layer names to specs. Only the keys an inference plan reads are parsed;
-the reconstruction (`optimization`) and resume keys are not ported.
+layer names to specs, and the timestep-wise mixed-precision bitwidth
+YAMLs (`load_bitwidth_config`). Only the keys an inference plan reads are
+parsed; the reconstruction (`optimization`) and resume keys are not
+ported.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import yaml
 
@@ -103,13 +105,16 @@ class QuantPlanConfig:
     softmax_scope: Tuple[str, ...] = ()
     attn_act_scope: Tuple[str, ...] = ()
 
-    def resolver(self):
+    def resolver(self, overrides: Optional[Mapping[str, LayerQuantSpec]]
+                 = None):
         """Layer-name -> LayerQuantSpec resolver for model construction and
-        offline calibration (same rules as the JAX package's)."""
+        offline calibration (same rules as the JAX package's,
+        config.py:180-212): `overrides` {pattern: spec} win over the fp
+        list and the default (`resolve_layer_spec`)."""
 
         def resolve(name: str) -> LayerQuantSpec:
             spec = resolve_layer_spec(name, self.default_layer,
-                                      self.fp_patterns)
+                                      self.fp_patterns, overrides)
             if (self.softmax_scope and spec.softmax is not None
                     and not any_pattern_in(name, self.softmax_scope)):
                 spec = dataclasses.replace(spec, softmax=None)
@@ -118,6 +123,25 @@ class QuantPlanConfig:
                 spec = dataclasses.replace(spec, attn_act=None)
             return spec
         return resolve
+
+    def uses_native(self) -> bool:
+        """True when the layers run the native int backend ('native', and
+        'fused', which is native with impl 'fused'): packed int slabs must
+        exist before a quantized run (JAX config.py:214-221; the per-layer
+        backend overrides it also reads are not ported)."""
+        return self.default_layer.backend == "native"
+
+    def with_bits(self, w_bits: Optional[int] = None,
+                  a_bits: Optional[int] = None) -> "QuantPlanConfig":
+        """The plan with other active bitwidths (reference set_layer_bit /
+        bitwidth_refactor; JAX config.py:236-245): `QuantSpec.with_bits`
+        of the default weight and act specs."""
+        d = self.default_layer
+        return dataclasses.replace(self, default_layer=dataclasses.replace(
+            d,
+            weight=(d.weight.with_bits(w_bits) if w_bits and d.weight
+                    else d.weight),
+            act=d.act.with_bits(a_bits) if a_bits and d.act else d.act))
 
     def with_backend(self, backend: str) -> "QuantPlanConfig":
         """The plan with another default backend
@@ -196,3 +220,11 @@ def load_quant_config(path: str) -> QuantPlanConfig:
     return QuantPlanConfig(default_layer=default, fp_patterns=fp_patterns,
                            softmax_scope=scope(sm_cfg),
                            attn_act_scope=scope(aa_cfg))
+
+
+def load_bitwidth_config(path: str) -> Dict[str, Any]:
+    """A timestep-wise mixed-precision YAML: {'19-15': {layer: bits, ...},
+    ..., 'fp_layers': [...]} (reference t20_*_mp.yaml,
+    gaussian_diffusion.py:740-767; JAX config.py:349-354)."""
+    with open(path) as f:
+        return yaml.safe_load(f)
