@@ -18,13 +18,20 @@ own model; and cb and cb_sym, ViDiT-Q's W4A8 recipe with timestep-aware
 channel balancing on the fused kernels, asym and sym, each calibrated by
 one sq_stat forward in each of its timeranges on the profiled inputs;
 cb_mp, the cb model with the t20 timestep-wise mixed precision, its union
-model's forward at t = 500; for PixArt-Σ also cb, its W4A8 plan with CB,
-calibrated at t = 500) it
-runs one warm-up CFG forward at batch 2, then one more under
-`torch.profiler`, and prints the host wall time, the device time (the sum
-of CUDA kernel time), the device's idle share (1 - device / wall) and the
-device time by kernel group and by kernel. Needs CUDA; builds the kernels
-as `chip_smoke.py` does.
+model's forward at t = 500; the reference plans as written: sim_w8a8 and
+sim_w6a6 (`viditq_w{8a8,6a6}.yaml`, simulate), naive (`w8a8_naive.yaml`,
+static acts, simulate), naive_fused (its tables on the native backend: K2
+on static codes) and hybrid (`w8a8_tpu_hybrid.yaml`); for PixArt-Σ also
+cb, its W4A8 plan with CB, calibrated at t = 500, and naive, its
+`w8a8_naive.yaml`; each static-act model calibrated by `run_ptq` over the
+model's fp trajectory of the first profiled latent, at t = 500 its act
+slot) it runs one warm-up CFG step, then one more under `torch.profiler`:
+a forward at batch 2, or, for an arm whose plan sets `cfg_split`
+(`chip_smoke.arm_sampler`: sim_w8a8 and hybrid), a batch-1 forward on the
+cond prompt and one on the null prompt. It prints the host wall time,
+the device time (the sum of CUDA kernel time), the device's idle share
+(1 - device / wall) and the device time by kernel group and by kernel.
+Needs CUDA; builds the kernels as `chip_smoke.py` does.
 """
 
 from __future__ import annotations
@@ -72,16 +79,21 @@ def group_of(name: str) -> str:
     return "PyTorch elementwise / other"
 
 
-def profile_forward(model, args, qctx):
+def profile_forward(model, calls, qctx):
+    """Profile the model's forwards on each argument tuple of `calls`."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+
+    def step():
+        for args in calls:
+            model(*args, qctx=qctx)
     with torch.no_grad():
-        model(*args, qctx=qctx)
+        step()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.time()
-            model(*args, qctx=qctx)
+            step()
             torch.cuda.synchronize()
             wall = (time.time() - t0) * 1e3
     by_kernel = defaultdict(float)
@@ -99,8 +111,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     import chip_smoke as cs
     from viditq_tpu_torch.kernels import _build
-    from viditq_tpu_torch.quant.qlinear import QuantCtx
-    from viditq_tpu_torch.utils.workload import build_sampler, latent_size
+    from viditq_tpu_torch.utils.workload import latent_size
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print(cs.nvidia_smi_line(), flush=True)
@@ -116,8 +127,10 @@ def main() -> int:
                          dtype=torch.bfloat16, device="cuda")
         mask = torch.ones((1, n_prompt), dtype=torch.int32, device="cuda")
         model, model_plan = None, None
+        tables = {}
         for arm in cs.SLICE_KERNELS[name]:
             plan = cs.arm_build(name, arm)
+            sampler = cs.arm_sampler(name, arm, cfg)
             if plan != model_plan:
                 model = None
                 torch.cuda.empty_cache()
@@ -126,20 +139,24 @@ def main() -> int:
                                        model_kw=plan[2],
                                        stat_t=cs.STAT_T[name])
                 model_plan = plan
+                slot_map = cs.arm_static_setup(name, arm, model, sampler,
+                                               x[:1], y, mask, tables)[0]
             runner = model
             if (name, arm) in cs.MP_ARMS:
                 runner = cs.mp_report(name, arm, cfg,
                                       cs.quant_plan(*plan[:2]),
-                                      build_sampler(cfg), model)[1]
-            qctx = None if arm == "bf16" else QuantCtx(t_id=500,
-                                                       mode="quant")
-            wall, by_kernel = profile_forward(runner, (x, t, y, mask), qctx)
+                                      sampler, model)[1]
+            calls = ([(x[:1], t[:1], y[i:i + 1], mask) for i in (0, 1)]
+                     if sampler.cfg_split else [(x, t, y, mask)])
+            qctx = cs.qctx_for(arm, 500, slot_map)
+            wall, by_kernel = profile_forward(runner, calls, qctx)
             runner = None
             device = sum(by_kernel.values())
             groups = defaultdict(float)
             for k, ms in by_kernel.items():
                 groups[group_of(k)] += ms
-            print(f"{name} {arm}: one CFG forward, wall {wall:.1f} ms, "
+            print(f"{name} {arm}: one CFG step ({len(calls)} forward"
+                  f"{'s' if len(calls) > 1 else ''}), wall {wall:.1f} ms, "
                   f"device {device:.1f} ms, idle share "
                   f"{max(0.0, 1 - device / wall):.3f}", flush=True)
             for grp, ms in sorted(groups.items(), key=lambda kv: -kv[1]):

@@ -49,9 +49,14 @@ Phases (any failure exits non-zero):
      W8A8, the reference W8A8 on the native backend and the W4A8 CB
      recipe, asym and sym) and
      tiny PixArt-Σ models (sm8 and its W4A8 CB plan) on the card (kernels)
-     against the same models on the CPU (plain versions); then the t20 MP
-     sampler retiled onto 2 steps over the tiny CB STDiT (the gather path)
-     and over a tiny native W4A8 STDiT without CB (the segmented path);
+     against the same models on the CPU (plain versions); the reference
+     plans as written (STDiT under viditq_w8a8 and viditq_w6a6 on the
+     simulate backend, w8a8_naive with static acts, simulate and under
+     impl 'fused' (K2 on static codes), the hybrid plan; PixArt-Σ under
+     its w8a8_naive), each static-act model calibrated by `run_ptq` on the
+     CPU first; then the t20 MP sampler retiled onto 2 steps over the tiny
+     CB STDiT (the gather path) and over a tiny native W4A8 STDiT without
+     CB (the segmented path);
   5. slice: full-width STDiT-XL/2 (28 blocks, C=1152, random weights from
      a seed), bf16, W8A8-sm8, `sm8_epi` (the sm8 plan with the model's
      `fuse_epilogue`: the block's residual adds in K2's epilogue), `attn8`
@@ -67,8 +72,21 @@ Phases (any failure exits non-zero):
      through the gather MP sampler with the t20 timestep-wise mixed
      precision, `t20_{weight_4,act_8}_mp.yaml`: its union spans, bits by
      layer kind, CFG forwards per span (each span's steps exactly), and
-     launches equal to cb's) arms over the whole 20-step CFG DDIM
-     schedule, with ms/step, peak memory, quantized-vs-bf16 error, the
+     launches equal to cb's) arms; then ViDiT-Q's reference plans as
+     written: `sim_w8a8` and `sim_w6a6` (`viditq_w{8a8,6a6}.yaml`, the
+     simulate backend: fake quant in plain PyTorch, per token position,
+     K3 alone), `naive` (`w8a8_naive.yaml`: static per-tensor acts, its
+     tables from `run_ptq`'s a_calib pass over 10 of the 20 steps of the
+     trajectory `get_calib_data` captures from the model's fp sampling of
+     the slice's inputs), `naive_fused` (naive's tables on the native
+     backend under impl 'fused': codes made in plain PyTorch, K2 at every
+     quantized linear) and `hybrid` (`w8a8_tpu_hybrid.yaml`: the MLPs K7a
+     -> K7b, the attention linears weight-only int8), over the whole
+     20-step CFG DDIM schedule (a reference-plan arm with its plan's
+     `cfg_split` key, `AS_WRITTEN`: sim_w8a8 and hybrid two batch-1
+     forwards a step; every other arm one batch-2 CFG forward), with
+     ms/step, peak memory, quantized-vs-bf16 error (sim_w6a6: finite and above
+     sim_w8a8's; sim_w8a8 against the native w8a8 printed), the
      fused arm's distance to the native one, the CB arms' steps in each
      timerange and the launch count of every kernel (the fused-kernel
      STDiT arms held to their per-block counts), sm8_epi against sm8 and
@@ -77,11 +95,14 @@ Phases (any failure exits non-zero):
      compression x2 on blocks 14-27, caption 300x4096), bf16, sm8 and cb
      (its W4A8 plan, `configs/pixart_sigma/w4a8.yaml`, on the fused
      kernels with `qkv_share_cs`, calibrated by one sq_stat forward at t =
-     500) arms over the whole 20-step DPM-Solver++ CFG schedule, built
-     through `utils/workload`, with the same readings.
+     500) and naive (`configs/pixart_sigma/w8a8_naive.yaml`, static acts
+     with running statistics, calibrated as STDiT's naive) arms over the
+     whole 20-step DPM-Solver++ CFG schedule, built through
+     `utils/workload`, with the same readings.
 Each arm resets the launch counts just before its run and reads them just
 after; an arm that launches a kernel outside its list, or none of one in
-it, fails. The third-to-last line is the card's name and power limit, the
+it, fails; the arms held to per-block counts (`BLOCK_LAUNCHES`) must hit
+them exactly. The third-to-last line is the card's name and power limit, the
 second-to-last a JSON object with one entry per kernel (launches summed
 over all arms of both slices), the last {"ok": true, "device": {...}}.
 """
@@ -131,6 +152,17 @@ SIGMA_CB_ALPHA = 0.3
 # the CB statistic forwards of each slice: Σ's at t = 500
 # (bench_configs.py:408-425)
 STAT_T = {"stdit": CB_STAT_T, "sigma": (500,)}
+# ViDiT-Q's reference plans as written (no `backend:` key: the simulate
+# backend, fake quant as the reference runs it): W8A8 and W6A6 with asym
+# per-channel weights and asym dynamic per-token acts, the naive W8A8 with
+# static per-tensor acts (calibrated by `run_ptq`'s a_calib pass), and the
+# hybrid plan (the MLPs native K7a -> K7b, the attention linears
+# weight-only int8); PixArt-Σ's naive W8A8 (static acts, running stats)
+SIM_W8A8_PLAN = ROOT / "configs/opensora/viditq_w8a8.yaml"
+SIM_W6A6_PLAN = ROOT / "configs/opensora/viditq_w6a6.yaml"
+NAIVE_PLAN = ROOT / "configs/opensora/w8a8_naive.yaml"
+HYBRID_PLAN = ROOT / "configs/opensora/w8a8_tpu_hybrid.yaml"
+SIGMA_NAIVE_PLAN = ROOT / "configs/pixart_sigma/w8a8_naive.yaml"
 STEPS = 20  # sampler steps per arm (bench.py's n_steps): the whole schedule
 # PixArt-Σ 1024 as benchmarks/bench_configs.py:388-391 builds it; the
 # sampler of the t2i workloads (configs/workload/pixart_alpha_512.py)
@@ -390,10 +422,20 @@ SLICE_KERNELS = {
               "cb": FUSED_KERNELS,
               # after cb: it samples the cb arm's model
               "cb_mp": FUSED_KERNELS,
-              "cb_sym": FUSED_KERNELS},
+              "cb_sym": FUSED_KERNELS,
+              # the reference plans as written: the simulate arms run K3
+              # alone (the fake quant is plain PyTorch, as JAX's is XLA)
+              "sim_w8a8": ("attention_bnhd",),
+              "sim_w6a6": ("attention_bnhd",),
+              "naive": ("attention_bnhd",),
+              # naive's tables on the native backend: K2 on static codes
+              "naive_fused": ("int8_consumer_matmul", "attention_bnhd"),
+              "hybrid": ("dynamic_quant_rows", "int8_matmul",
+                         "attention_bnhd")},
     "sigma": {"bf16": ("attention_bnhd", "attention_bnhd_stream"),
               "sm8": FUSED_KERNELS + ("attention_bnhd_stream",),
-              "cb": FUSED_KERNELS + ("attention_bnhd_stream",)},
+              "cb": FUSED_KERNELS + ("attention_bnhd_stream",),
+              "naive": ("attention_bnhd", "attention_bnhd_stream")},
 }
 # the plan of each quantized arm by (slice, arm) (the bf16 arm runs the
 # sm8 arm's model in fp mode)
@@ -401,7 +443,13 @@ ARM_PLANS = {("stdit", "sm8"): SM8_PLAN, ("stdit", "w8a8"): W8A8_PLAN,
              ("stdit", "fused"): FUSED_PLAN, ("stdit", "sym"): SYM_PLAN,
              ("stdit", "cb"): CB_PLAN, ("stdit", "cb_sym"): CB_PLAN,
              ("stdit", "cb_mp"): CB_PLAN, ("stdit", "attn8"): ATTN8_PLAN,
-             ("sigma", "sm8"): SM8_PLAN, ("sigma", "cb"): SIGMA_CB_PLAN}
+             ("stdit", "sim_w8a8"): SIM_W8A8_PLAN,
+             ("stdit", "sim_w6a6"): SIM_W6A6_PLAN,
+             ("stdit", "naive"): NAIVE_PLAN,
+             ("stdit", "naive_fused"): NAIVE_PLAN,
+             ("stdit", "hybrid"): HYBRID_PLAN,
+             ("sigma", "sm8"): SM8_PLAN, ("sigma", "cb"): SIGMA_CB_PLAN,
+             ("sigma", "naive"): SIGMA_NAIVE_PLAN}
 # model arguments an arm sets in its workload config's `model` dict: the
 # sm8 plan with the block's residual adds in the linears' epilogues
 ARM_MODEL = {("stdit", "sm8_epi"): {"fuse_epilogue": True}}
@@ -411,12 +459,26 @@ ARM_MODEL = {("stdit", "sm8_epi"): {"fuse_epilogue": True}}
 # (:173-182)
 PLAN_RECIPES = {("stdit", "w8a8"): "native", ("stdit", "cb"): "cb",
                 ("stdit", "cb_sym"): "cb_sym", ("stdit", "cb_mp"): "cb",
-                ("sigma", "cb"): "cb"}
+                ("stdit", "naive_fused"): "fused", ("sigma", "cb"): "cb"}
+# a static-act arm that takes another arm's act tables (and weight tables)
+# instead of calibrating its own: naive_fused runs naive's on the card's
+# int8 kernels
+TABLES_FROM = {("stdit", "naive_fused"): "naive"}
+# the arms that run their plan as written, the sampler's `cfg_split` key
+# included (the JAX CLI applies it, viditq_tpu/cli.py:95); the earlier
+# arms sample the joint CFG batch, as the JAX bench does
+AS_WRITTEN = {("stdit", "sim_w8a8"), ("stdit", "sim_w6a6"),
+              ("stdit", "naive"), ("stdit", "naive_fused"),
+              ("stdit", "hybrid"), ("sigma", "naive")}
+# the 6-bit arm, held to be finite and farther from bf16 than its 8-bit
+# sibling rather than below SLICE_REL_ERR
+LOW_BIT_ARMS = {("stdit", "sim_w6a6"): "sim_w8a8"}
 # arms that sample their plan's model through the timestep-wise MP sampler:
 # (the arm whose model they take and whose launches they must equal, the
 # weight and act bitwidth configs)
 MP_ARMS = {("stdit", "cb_mp"): ("cb", MP_WEIGHT, MP_ACT)}
-# launches per block and CFG forward of an arm held to its exact count:
+# launches per block and model forward of an arm held to its exact count
+# (a step of a `cfg_split` arm makes two forwards):
 # the fused reference plan's (K1 at norm1 and norm2; K2 at the 9 linears
 # on a prequant (q/k/v twice, the three projs, fc2) and fc1; K3 at the
 # three sites; K4 for the temporal q/k/v and at the GELU handoff; K5, one
@@ -434,7 +496,19 @@ FUSED_BLOCK = {"ln_modulate_quantize": 2, "int8_consumer_matmul": 11,
                "attention_bnhd": 3, "quantize_rows": 2,
                "fused_dynq_int8_matmul": 2}
 SM8_BLOCK = {**FUSED_BLOCK, "quantize_rows": 1}
-BLOCK_LAUNCHES = {("stdit", "sm8"): SM8_BLOCK,
+# the reference plans: K3 at the three sites in every arm; naive_fused K2
+# at each of the 13 quantized linears (q/k/v/proj twice, q_linear,
+# kv_linear and the cross proj, fc1, fc2); hybrid K7a -> K7b at fc1 and fc2
+SIM_BLOCK = {"attention_bnhd": 3}
+BLOCK_LAUNCHES = {("stdit", "sim_w8a8"): SIM_BLOCK,
+                  ("stdit", "sim_w6a6"): SIM_BLOCK,
+                  ("stdit", "naive"): SIM_BLOCK,
+                  ("stdit", "naive_fused"): {"int8_consumer_matmul": 13,
+                                             "attention_bnhd": 3},
+                  ("stdit", "hybrid"): {"dynamic_quant_rows": 2,
+                                        "int8_matmul": 2,
+                                        "attention_bnhd": 3},
+                  ("stdit", "sm8"): SM8_BLOCK,
                   ("stdit", "sm8_epi"): SM8_BLOCK,
                   ("stdit", "attn8"): {**SM8_BLOCK, "qk_headwise_quant": 3},
                   ("stdit", "fused"): FUSED_BLOCK,
@@ -1913,15 +1987,16 @@ TINY_SIGMA_CFG = {"model": dict(type="PixArt", kv_compress_sampling="conv",
 
 def quant_plan(plan=SM8_PLAN, recipe=None):
     """A plan YAML as an arm runs it (`PLAN_RECIPES`): as it is, on the
-    native backend ('native_nocb': without its channel balancing, the
+    native backend or with impl 'fused' ('fused'), on the native backend
+    ('native_nocb': without its channel balancing, the
     segmented MP sampler's case), or the CB recipe on the fused kernels
     with the q/k/v balancing scale pooled (`qkv_share_cs`), sym weights
     and acts for 'cb_sym'."""
     import dataclasses
     from viditq_tpu_torch.utils.config import load_quant_config
     qplan = load_quant_config(str(plan))
-    if recipe == "native":
-        return qplan.with_backend("native")
+    if recipe in ("native", "fused"):
+        return qplan.with_backend(recipe)
     if recipe == "native_nocb":
         qplan = qplan.with_backend("native")
         d = qplan.default_layer
@@ -1974,6 +2049,86 @@ def build_model(cfg, device, scale=0.02, plan=SM8_PLAN, recipe=None,
     calibrate_weight_tables(model)
     pack_native_weights(model)
     return model.eval()
+
+
+def static_acts(qplan) -> bool:
+    """Whether a plan's layers quantize their acts statically (act tables
+    from an a_calib pass)."""
+    d = qplan.default_layer
+    return d.act is not None and d.act_quant and not d.act.dynamic
+
+
+# the calibrated tables a static-act arm hands another (`TABLES_FROM`)
+STATIC_TABLES = ("a_delta", "a_zp", "a_min", "a_max", "a_init", "w_delta",
+                 "w_zp")
+
+
+def calibrate_static(model, qplan, sampler, z, y, mask, tables=None):
+    """A static-act model's tables: `tables` (another model's, on the same
+    weights) where given, else `run_ptq` (sq_stat where CB, weight tables,
+    the a_calib pass over `calib_data.n_steps` steps subsampled from the
+    trajectory `get_calib_data` captures from the model's own fp sampling
+    of (z, y, mask)), then the packed slabs. Returns (act slot map, the
+    calibrated timesteps or None, seconds)."""
+    import torch
+    from viditq_tpu_torch.pipelines.inference import get_calib_data
+    from viditq_tpu_torch.pipelines.ptq import run_ptq
+    from viditq_tpu_torch.quant.native_pack import pack_native_weights
+    t0 = time.time()
+    if tables is not None:
+        model.load_state_dict(tables["state"], strict=False)
+        slot_map, calib_ts = tables["slot_map"], None
+    else:
+        res = run_ptq(model, get_calib_data(model, sampler, z, y, mask),
+                      qplan)
+        slot_map, calib_ts = res.act_slot_map, res.calib_ts
+    pack_native_weights(model)
+    if z.is_cuda:
+        torch.cuda.synchronize()
+    return slot_map, calib_ts, time.time() - t0
+
+
+def static_tables(model, slot_map) -> dict:
+    """A calibrated static-act model's tables, for `calibrate_static`."""
+    return {"slot_map": slot_map, "state": {
+        k: v.clone() for k, v in model.state_dict().items()
+        if k.rpartition(".")[2] in STATIC_TABLES}}
+
+
+def arm_sampler(name, arm, cfg):
+    """A slice's arm's sampler (`utils/workload.build_sampler`): an arm of
+    `AS_WRITTEN` takes its plan's `cfg_split`, every other arm samples the
+    joint CFG batch."""
+    from viditq_tpu_torch.utils.workload import build_sampler
+    split = ((name, arm) in AS_WRITTEN
+             and quant_plan(*arm_build(name, arm)[:2]).cfg_split)
+    return build_sampler(cfg, cfg_split=split)
+
+
+def arm_static_setup(name, arm, model, sampler, z, y, mask, tables):
+    """The static act tables of an arm's freshly built model
+    (`calibrate_static`: those of the arm `TABLES_FROM` names, from
+    `tables`, else `run_ptq`'s on the arm's sampler), recorded in `tables`
+    under the arm for the arms after it. Returns (act slot map, calibrated
+    timesteps, seconds); (None, None, 0.0) for a plan with dynamic acts."""
+    qplan = quant_plan(*arm_build(name, arm)[:2])
+    if not static_acts(qplan):
+        return None, None, 0.0
+    src = TABLES_FROM.get((name, arm))
+    slot_map, calib_ts, secs = calibrate_static(
+        model, qplan, sampler, z, y, mask, tables=tables.get(src))
+    tables[arm] = static_tables(model, slot_map)
+    return slot_map, calib_ts, secs
+
+
+def qctx_for(arm, t: int, slot_map):
+    """The context of an arm's forward at timestep t: none for bf16, else
+    'quant' with, under static acts, t's act-table slot."""
+    from viditq_tpu_torch.quant.qlinear import QuantCtx
+    if arm == "bf16":
+        return None
+    return QuantCtx(t_id=t, mode="quant",
+                    act_slot=0 if slot_map is None else int(slot_map[t]))
 
 
 def mp_sampler(cfg, device, qplan, sampler, weight_cfg, act_cfg=None):
@@ -2029,13 +2184,15 @@ def tiny_inputs(cfg):
     return x, t, y, mask
 
 
-def tiny_pair(x, t, y, mask, cpu_fwd, gpu_fwd, sample):
+def tiny_pair(x, t, y, mask, cpu_fwd, gpu_fwd, sample, slot_map=None):
     """(forward, denoise) relative errors of the card against the CPU: the
-    two models' forward at t = 700 (CB's second timerange) and sample(model,
-    z, y, mask) from the first latent."""
+    two models' forward at t = 700 (CB's second timerange; with a static
+    act slot map, its slot) and sample(model, z, y, mask) from the first
+    latent."""
     import torch
     from viditq_tpu_torch.quant.qlinear import QuantCtx
-    q = QuantCtx(t_id=700, mode="quant")
+    q = QuantCtx(t_id=700, mode="quant",
+                 act_slot=0 if slot_map is None else int(slot_map[700]))
     with torch.no_grad():
         want = cpu_fwd(x, t, y, mask, qctx=q)
         got = gpu_fwd(x.cuda(), t.cuda(), y.cuda(), mask.cuda(),
@@ -2060,11 +2217,17 @@ def tiny_verdict(name, latent, steps, rel_fwd, rel_dn):
 def phase_reference():
     """Tiny models (STDiT under sm8, with `fuse_epilogue`, under attn8,
     the fused reference W8A8, the native W8A8 and the W4A8 CB recipe asym
-    and sym, PixArt-Σ under sm8 and under its W4A8 CB plan): the
+    and sym, PixArt-Σ under sm8 and under its W4A8 CB plan; then the
+    reference plans as written: STDiT under viditq_w8a8 and viditq_w6a6
+    (simulate), w8a8_naive (static acts, simulate; and on the native
+    backend under impl 'fused', K2 on static codes) and the hybrid plan,
+    PixArt-Σ under its w8a8_naive, each static-act model calibrated by
+    `run_ptq` on the CPU model's fp trajectory first): the
     card's kernels against the CPU's plain versions on the same weights and
     inputs (a CB model calibrated on the CPU first), for one forward
     (float32 output; t = 700, CB's second timerange) and a 3-step CFG
-    denoise (DDIM for STDiT, through both CB timeranges; DPM-Solver++ for
+    denoise (DDIM for STDiT, through both CB timeranges, with cond and
+    null apart where the plan sets `cfg_split`; DPM-Solver++ for
     PixArt-Σ); then the t20 MP sampler, its ranges retiled onto a 2-step
     DDIM, over the tiny CB model (`cb_mp`, the gather path: the union
     model's forward and the denoise) and over the tiny W4A8 model without
@@ -2078,6 +2241,8 @@ def phase_reference():
     from viditq_tpu_torch.samplers.iddpm import IDDPM
     from viditq_tpu_torch.utils.workload import latent_size
     ddim = IDDPM(num_sampling_steps=3, cfg_scale=4.0)
+    # the reference plans that set `cfg_split` sample with it (AS_WRITTEN)
+    ddim_split = IDDPM(num_sampling_steps=3, cfg_scale=4.0, cfg_split=True)
     dpm = DPMSolverSampler(num_sampling_steps=3, cfg_scale=4.5)
     for name, sl, cfg, sampler, plan, recipe in (
             ("sm8 STDiT", "stdit", TINY_STDIT_CFG, ddim, SM8_PLAN, None),
@@ -2094,16 +2259,36 @@ def phase_reference():
              "cb_sym"),
             ("sm8 PixArt-Σ", "sigma", TINY_SIGMA_CFG, dpm, SM8_PLAN, None),
             ("cb PixArt-Σ (W4A8 CB)", "sigma", TINY_SIGMA_CFG, dpm,
-             SIGMA_CB_PLAN, "cb")):
+             SIGMA_CB_PLAN, "cb"),
+            ("sim_w8a8 STDiT (viditq_w8a8, simulate, cfg_split)", "stdit",
+             TINY_STDIT_CFG, ddim_split, SIM_W8A8_PLAN, None),
+            ("sim_w6a6 STDiT (viditq_w6a6, simulate)", "stdit",
+             TINY_STDIT_CFG, ddim, SIM_W6A6_PLAN, None),
+            ("naive STDiT (w8a8_naive, static acts, simulate)", "stdit",
+             TINY_STDIT_CFG, ddim, NAIVE_PLAN, None),
+            ("naive_fused STDiT (K2 on static codes)", "stdit",
+             TINY_STDIT_CFG, ddim, NAIVE_PLAN, "fused"),
+            ("hybrid STDiT (K7a -> K7b MLP, weight-only attention, "
+             "cfg_split)", "stdit", TINY_STDIT_CFG, ddim_split, HYBRID_PLAN,
+             None),
+            ("naive PixArt-Σ (w8a8_naive, static acts, running stats)",
+             "sigma", TINY_SIGMA_CFG, dpm, SIGMA_NAIVE_PLAN, None)):
         x, t, y, mask = tiny_inputs(cfg)
         cpu = build_model(cfg, "cpu", scale=0.1, plan=plan, recipe=recipe,
                           calib=(x, y, mask), stat_t=STAT_T[sl])
+        slot_map = None
+        qplan = quant_plan(plan, recipe)
+        if static_acts(qplan):  # calibrated on the CPU, as a CB model is
+            slot_map = calibrate_static(cpu, qplan, sampler, x[:1], y,
+                                        mask[:1])[0]
         gpu = copy.deepcopy(cpu).to("cuda")
         check_k_major(gpu)
         models = {"cpu": cpu, "cuda": gpu}
         tiny_verdict(name, latent_size(cfg), 3, *tiny_pair(
             x, t, y, mask, cpu, gpu,
-            lambda dev, *a: quant_sample(models[dev], sampler, *a)))
+            lambda dev, *a: quant_sample(models[dev], sampler, *a,
+                                         act_slot_map=slot_map),
+            slot_map=slot_map))
     ddim2 = IDDPM(num_sampling_steps=2, cfg_scale=4.0)
     for name, recipe in (("cb_mp STDiT (W4A8 CB + t20 MP, gather)", "cb"),
                          ("segmented MP STDiT (W4A8 native, no CB)",
@@ -2196,7 +2381,9 @@ def run_slice(name, cfg, z_scale, n_prompt):
     error against bf16; for a CB arm, the steps run in each timerange (each
     slab must serve some). The bf16 and sm8 arms share the sm8 plan's
     model; another plan's arm gets its own model, built from the same seed
-    (a CB model calibrated on this run's z, y and mask). An MP arm
+    (a CB model calibrated on this run's z, y and mask; a static-act
+    model by `arm_static_setup`, its act slot map passed to
+    `quant_sample`). An arm samples with `arm_sampler`. An MP arm
     (`MP_ARMS`) samples the model of the arm it takes through the MP
     sampler (`mp_report`): each union span that holds sampler steps must
     serve exactly those, and its launches must equal that arm's. Returns
@@ -2204,9 +2391,8 @@ def run_slice(name, cfg, z_scale, n_prompt):
     import torch
     from viditq_tpu_torch.kernels import _counters
     from viditq_tpu_torch.pipelines.inference import fp_sample, quant_sample
-    from viditq_tpu_torch.quant.qlinear import (QuantCtx, QuantLinear,
-                                                timerange_of)
-    from viditq_tpu_torch.utils.workload import build_sampler, latent_size
+    from viditq_tpu_torch.quant.qlinear import QuantLinear, timerange_of
+    from viditq_tpu_torch.utils.workload import latent_size
     latent = latent_size(cfg)
     rng = np.random.default_rng(0)
     z = torch.tensor(rng.standard_normal((1, 4, *latent)) * z_scale,
@@ -2218,7 +2404,6 @@ def run_slice(name, cfg, z_scale, n_prompt):
     z_moved = (z.float() * (1.0 + 1e-3 * torch.tensor(
         rng.standard_normal(z.shape), dtype=torch.float32,
         device="cuda"))).to(torch.bfloat16)
-    sampler = build_sampler(cfg)
     arms = tuple(SLICE_KERNELS[name])
     counts, outs, ms = {}, {}, {}
     # the fused and native asym arms and bf16 along the schedule: after
@@ -2227,8 +2412,11 @@ def run_slice(name, cfg, z_scale, n_prompt):
     traced = ("bf16", "w8a8", "fused")
     along, moved = {}, {}
     model, model_plan = None, None
+    # the static-act arms' tables, for the arm `TABLES_FROM` hands them
+    tables = {}
     for arm in arms:
         plan = arm_build(name, arm)
+        sampler = arm_sampler(name, arm, cfg)
         if plan != model_plan:
             model = None
             torch.cuda.empty_cache()
@@ -2244,14 +2432,25 @@ def run_slice(name, cfg, z_scale, n_prompt):
                   f"{f' {dict(plan[2])}' if plan[2] else ''}, built + "
                   f"calibrated + packed in {time.time() - t0:.1f} s, "
                   f"{check_k_major(model)} K-major int8 weights", flush=True)
+            slot_map, calib_ts, secs = arm_static_setup(
+                name, arm, model, sampler, z, y, mask, tables)
+            if slot_map is not None:
+                src = TABLES_FROM.get((name, arm))
+                print(f"  {arm}: static act tables "
+                      + (f"of {src}" if src else
+                         f"from run_ptq's a_calib pass over "
+                         f"{len(calib_ts)} of the {STEPS} steps of "
+                         f"this model's fp trajectory (timesteps "
+                         f"{sorted(int(c) for c in calib_ts)})")
+                      + f", packed, in {secs:.1f} s", flush=True)
         # the model the arm's forwards run: an MP arm's union model
         runner, mp_run = model, None
         if (name, arm) in MP_ARMS:
             mp_run, runner = mp_report(name, arm, cfg, quant_plan(*plan[:2]),
                                        sampler, model)
         # the warm-up forward's context names its timestep (t = 999: a CB
-        # model's second timerange)
-        qctx = None if arm == "bf16" else QuantCtx(t_id=999, mode="quant")
+        # model's second timerange) and, under static acts, its slot
+        qctx = qctx_for(arm, 999, slot_map)
         # warm-up: one CFG forward
         with torch.no_grad():
             fwd = runner(torch.cat([z, z]), torch.tensor([999.0, 999.0],
@@ -2276,9 +2475,11 @@ def run_slice(name, cfg, z_scale, n_prompt):
         t0 = time.time()
         if mp_run is not None:
             out = mp_run(model, z, y, mask)
+        elif arm == "bf16":
+            out = fp_sample(model, sampler, z, y, mask)
         else:
-            out = (fp_sample if arm == "bf16" else quant_sample)(
-                model, sampler, z, y, mask)
+            out = quant_sample(model, sampler, z, y, mask,
+                               act_slot_map=slot_map)
         torch.cuda.synchronize()
         ms[arm] = (time.time() - t0) * 1e3 / STEPS
         counts[arm] = _counters.snapshot()
@@ -2315,7 +2516,9 @@ def run_slice(name, cfg, z_scale, n_prompt):
             if (v["launches"] > 0) != (k in SLICE_KERNELS[name][arm]):
                 fail(f"{name} {arm} arm launched {k} {v['launches']} times")
         per_block = BLOCK_LAUNCHES.get((name, arm), {})
-        want = {k: n * len(model.blocks) * STEPS for k, n in per_block.items()}
+        fwd_a_step = 2 if sampler.cfg_split else 1
+        want = {k: n * len(model.blocks) * STEPS * fwd_a_step
+                for k, n in per_block.items()}
         got = {k: counts[arm][k]["launches"] for k in want}
         if got != want:
             fail(f"{name} {arm} launches {got} != {want}")
@@ -2373,13 +2576,31 @@ def run_slice(name, cfg, z_scale, n_prompt):
                   f"{base_arm} {ms[base_arm]:.1f}; final latents apart by "
                   f"rel {float((outs[arm] - outs[base_arm]).norm() / outs[base_arm].norm()):.4g}",
                   flush=True)
+    if "sim_w8a8" in outs and "w8a8" in outs:
+        # the reference's fake-quant semantics (per token position over
+        # batch x channels, cond and null apart under the plan's
+        # cfg_split) against the int8 path (per-row scales) on the same
+        # weights (ROADMAP C10); not gated
+        print(f"  {name}: sim_w8a8 vs w8a8 (native int8) final-latent rel "
+              f"err {float((outs['sim_w8a8'] - outs['w8a8']).norm() / outs['w8a8'].norm()):.4g}",
+              flush=True)
+    rels = {}
     for arm in arms[1:]:
         rel = float((outs[arm] - outs["bf16"]).norm() / outs["bf16"].norm())
+        rels[arm] = rel
+        sib = LOW_BIT_ARMS.get((name, arm))
         print(f"  {name}: {STEPS} steps; bf16 {ms['bf16']:.1f} ms/step, "
               f"{arm} {ms[arm]:.1f} ms/step; {arm} vs bf16 final-latent rel "
-              f"err {rel:.4g} (limit {SLICE_REL_ERR})", flush=True)
-        if rel > SLICE_REL_ERR:
+              f"err {rel:.4g} ("
+              + (f"finite and above {sib}'s" if sib
+                 else f"limit {SLICE_REL_ERR}") + ")", flush=True)
+        if sib is None and rel > SLICE_REL_ERR:
             fail(f"{name}: {arm} vs bf16 relative error {rel}")
+    for (sl, arm), sib in LOW_BIT_ARMS.items():
+        if sl == name and not (np.isfinite(rels[arm])
+                               and rels[arm] > rels[sib]):
+            fail(f"{name}: {arm} vs bf16 relative error {rels[arm]} is not "
+                 f"finite and above {sib}'s {rels[sib]}")
     return {k: sum(counts[arm][k]["launches"] for arm in arms)
             for k in counts[arms[0]]}
 

@@ -1,8 +1,9 @@
 """Rules of the PyTorch port (`viditq_tpu_torch`) that hold without a GPU:
 it never imports jax/flax, its wrappers run their plain versions on CPU
 tensors without counting kernel launches, the modes the port does not
-implement raise instead of computing something else, plans resolve as in
-the JAX package, and every CUDA source is bound and checked on the card."""
+implement raise instead of computing something else (and the modes it
+has ported since compute), plans resolve as in the JAX package, and
+every CUDA source is bound and checked on the card."""
 
 import ast
 import dataclasses
@@ -119,18 +120,55 @@ def test_unported_modes_raise(call):
 
 
 def test_unported_plans_raise_at_model_construction():
-    from viditq_tpu_torch.quant.qlinear import QuantLinear
+    # simulate, static acts, weight-only and the q-diffusion split raised
+    # NotImplementedError until they were ported: each now builds its path
+    # and computes what the JAX package computes (the parity cases:
+    # tests/test_torch_simulate.py, test_torch_static.py); what still
+    # raises is below
+    from viditq_tpu_torch.quant.calibrate import finalize_act_tables
+    from viditq_tpu_torch.quant.qlinear import QuantCtx, QuantLinear
     from viditq_tpu_torch.utils.config import load_quant_config
     spec = load_quant_config(
         "configs/opensora/w8a8_tpu_fused_sm8.yaml").default_layer
     static = dataclasses.replace(spec, act=dataclasses.replace(
         spec.act, dynamic=False))
-    for bad in (dataclasses.replace(spec, backend="simulate"), static,
-                dataclasses.replace(spec, act_quant=False),
-                dataclasses.replace(spec, split=2)):
+    simulate = dataclasses.replace(spec, backend="simulate")
+    for case, path in ((simulate, "simulate"), (static, "native_static"),
+                       (dataclasses.replace(spec, act_quant=False),
+                        "weight_only"),
+                       (dataclasses.replace(simulate, split=2), "simulate")):
+        lin = QuantLinear(64, 64, case, dtype=torch.float32)
+        assert lin.path == path
+        with torch.no_grad():
+            lin.kernel.normal_()
+            lin.w_delta.fill_(0.05)
+            lin.w_zp.zero_()
+            x = torch.randn(2, 8, 64)
+            if lin.static_act:  # per-token tables from one a_calib pass
+                lin(x, QuantCtx(mode="a_calib"))
+                finalize_act_tables(lin)
+            out = lin(x, QuantCtx())
+        assert out.shape == (2, 8, 64) and torch.isfinite(out).all()
+    QuantLinear(64, 64, spec)  # the sm8 layer spec is ported
+    # still raising: stochastic rounding, AdaRound, the grid-search scale
+    # method (the PTQ slice) and the 'dynamic' CB type on native (as JAX)
+    for bad in (dataclasses.replace(simulate, weight=dataclasses.replace(
+                    spec.weight, round_mode="stochastic")),
+                dataclasses.replace(simulate, weight=dataclasses.replace(
+                    spec.weight, round_mode="learned_hard_sigmoid")),
+                dataclasses.replace(simulate, weight=dataclasses.replace(
+                    spec.weight, scale_method="grid_search_lp")),
+                dataclasses.replace(simulate, act=dataclasses.replace(
+                    spec.act, scale_method="grid_search_lp"))):
         with pytest.raises(NotImplementedError):
             QuantLinear(64, 64, bad)
-    QuantLinear(64, 64, spec)  # the sm8 layer spec is ported
+    with pytest.raises(NotImplementedError):
+        QuantLinear(64, 64, load_quant_config(
+            "configs/opensora/w4a8_adaround.yaml").default_layer)
+    dyn_cb = dataclasses.replace(spec, smooth_quant=type(spec.smooth_quant)(
+        enable=True, channel_wise_scale_type="dynamic"))
+    with pytest.raises(ValueError, match="momentum"):
+        QuantLinear(64, 64, dyn_cb)
     # so is the native backend with any other impl
     for impl in (None, "xla", "mixed", "pallas"):
         assert not QuantLinear(64, 64, dataclasses.replace(
@@ -143,20 +181,37 @@ def test_with_backend_resolves_like_jax():
     from viditq_tpu_torch.utils.config import load_quant_config
     for plan in ("configs/opensora/w8a8_dynamic.yaml",
                  "configs/opensora/w8a8_tpu_fused_sm8.yaml"):
-        for backend in ("native", "fused"):
+        # 'simulate' raised until the simulate backend was ported
+        for backend in ("native", "fused", "simulate"):
             jres = j_load(plan).with_backend(backend).resolver()
             pres = load_quant_config(plan).with_backend(backend).resolver()
             for name in LAYERS:
                 assert (dataclasses.asdict(pres(name))
                         == dataclasses.asdict(jres(name))), (plan, name)
-    with pytest.raises(NotImplementedError):
-        load_quant_config(plan).with_backend("simulate")
+    assert load_quant_config(plan).with_backend(
+        "simulate").default_layer.backend == "simulate"
 
 
 def test_hybrid_plan_overrides_raise_at_load():
+    # the hybrid plans raised at load until `backend_overrides` was
+    # ported: they now resolve per module group as in the JAX package
+    from test_torch_quant import LAYERS
+    from viditq_tpu.utils.config import load_quant_config as j_load
     from viditq_tpu_torch.utils.config import load_quant_config
-    with pytest.raises(NotImplementedError):
-        load_quant_config("configs/opensora/w8a8_tpu_hybrid_sym.yaml")
+    for plan in ("configs/opensora/w8a8_tpu_hybrid.yaml",
+                 "configs/opensora/w8a8_tpu_hybrid_sym.yaml"):
+        jp, pp = j_load(plan), load_quant_config(plan)
+        assert pp.backend_overrides == jp.backend_overrides == (
+            ("mlp", "native"), ("attn", "weight_only"),
+            ("attn_temp", "weight_only"), ("cross_attn", "weight_only"))
+        assert pp.uses_native() and jp.uses_native()
+        jres, pres = jp.resolver(), pp.resolver()
+        for name in LAYERS:
+            assert (dataclasses.asdict(pres(name))
+                    == dataclasses.asdict(jres(name))), (plan, name)
+        mlp, attn = pres("blocks.5.mlp.fc2"), pres("blocks.5.attn_temp.v")
+        assert (mlp.backend, mlp.act_quant) == ("native", True)
+        assert (attn.backend, attn.act_quant) == ("native", False)
 
 
 def test_every_kernel_source_is_bound_and_checked_on_the_card():
@@ -514,3 +569,73 @@ def test_chip_smoke_draws_the_same_fp_weights_under_every_plan():
     assert models[0].keys() == models[1].keys()
     for k, p in models[0].items():
         assert torch.equal(p, models[1][k]), k
+
+
+def test_chip_smoke_carries_the_reference_plan_arms():
+    import chip_smoke as cs
+    from viditq_tpu_torch.samplers.iddpm import IDDPM
+    stdit = cs.SLICE_KERNELS["stdit"]
+    # the simulate arms launch K3 alone; naive_fused K2 on static codes;
+    # hybrid K7a -> K7b at the MLP; each held to its per-block count
+    for arm in ("sim_w8a8", "sim_w6a6", "naive"):
+        assert stdit[arm] == ("attention_bnhd",)
+        assert cs.BLOCK_LAUNCHES[("stdit", arm)] == {"attention_bnhd": 3}
+    assert cs.BLOCK_LAUNCHES[("stdit", "naive_fused")] == {
+        "int8_consumer_matmul": 13, "attention_bnhd": 3}
+    assert cs.BLOCK_LAUNCHES[("stdit", "hybrid")] == {
+        "dynamic_quant_rows": 2, "int8_matmul": 2, "attention_bnhd": 3}
+    assert cs.SLICE_KERNELS["sigma"]["naive"] == ("attention_bnhd",
+                                                   "attention_bnhd_stream")
+    # the plans as written (naive_fused: naive's tables on impl 'fused')
+    for (sl, arm), plan in (
+            (("stdit", "sim_w8a8"), "opensora/viditq_w8a8.yaml"),
+            (("stdit", "sim_w6a6"), "opensora/viditq_w6a6.yaml"),
+            (("stdit", "naive"), "opensora/w8a8_naive.yaml"),
+            (("stdit", "hybrid"), "opensora/w8a8_tpu_hybrid.yaml"),
+            (("sigma", "naive"), "pixart_sigma/w8a8_naive.yaml")):
+        got = cs.arm_build(sl, arm)
+        assert got[0] == cs.ROOT / "configs" / plan and got[1] is None
+    assert cs.arm_build("stdit", "naive_fused")[1] == "fused"
+    assert cs.TABLES_FROM == {("stdit", "naive_fused"): "naive"}
+    assert cs.LOW_BIT_ARMS == {("stdit", "sim_w6a6"): "sim_w8a8"}
+    d = cs.quant_plan(cs.NAIVE_PLAN, "fused").default_layer
+    assert (d.backend, d.impl, d.act.dynamic) == ("native", "fused", False)
+    assert cs.static_acts(cs.quant_plan(cs.SIGMA_NAIVE_PLAN))
+    assert not cs.static_acts(cs.quant_plan(cs.SIM_W8A8_PLAN))
+    # the sampler: an arm that runs its plan as written takes the plan's
+    # cfg_split (viditq_w8a8 and the hybrid plan set it), the earlier arms
+    # the joint CFG batch
+    for arm, split in (("sim_w8a8", True), ("hybrid", True),
+                       ("sim_w6a6", False), ("naive", False),
+                       ("w8a8", False), ("bf16", False)):
+        assert cs.arm_sampler("stdit", arm, cs.TINY_STDIT_CFG).cfg_split \
+            == split, arm
+    # the static-act set-up on tiny CPU models: naive calibrates through
+    # run_ptq over the fp trajectory, naive_fused takes naive's tables, a
+    # dynamic-act arm has none; a forward's context carries t's slot
+    x, _, y, mask = cs.tiny_inputs(cs.TINY_STDIT_CFG)
+    sampler = IDDPM(num_sampling_steps=3, cfg_scale=4.0)
+    tables, models, got = {}, {}, {}
+    for arm in ("naive", "naive_fused", "sim_w8a8"):
+        plan, recipe, _ = cs.arm_build("stdit", arm)
+        models[arm] = cs.build_model(cs.TINY_STDIT_CFG, "cpu", scale=0.1,
+                                     plan=plan, recipe=recipe)
+        got[arm] = cs.arm_static_setup("stdit", arm, models[arm], sampler,
+                                       x[:1], y, mask[:1], tables)
+    slot_map, calib_ts, _ = got["naive"]
+    assert sorted(calib_ts) == sorted(
+        int(t) for t in sampler.schedule.timestep_map)
+    assert got["naive_fused"][1] is None
+    np.testing.assert_array_equal(got["naive_fused"][0], slot_map)
+    assert got["sim_w8a8"] == (None, None, 0.0)
+    assert set(tables) == {"naive", "naive_fused"}
+    lin = {a: models[a].blocks[0].mlp.fc1 for a in models}
+    assert lin["naive"].path == "simulate"
+    assert lin["naive_fused"].path == "native_static"
+    for k in ("a_delta", "a_zp", "w_delta"):
+        assert torch.equal(getattr(lin["naive_fused"], k),
+                           getattr(lin["naive"], k)), k
+    assert cs.qctx_for("bf16", 999, None) is None
+    q = cs.qctx_for("naive", 999, slot_map)
+    assert (q.t_id, q.mode, q.act_slot) == (999, "quant", slot_map[999])
+    assert cs.qctx_for("sim_w8a8", 999, None).act_slot == 0

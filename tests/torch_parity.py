@@ -203,14 +203,17 @@ def build_port(plan_path=SM8, variables=None, fp_only: bool = False,
                kind: str = "stdit", plan_fn=None, dtype=torch.float32,
                **overrides):
     """The port's model; loads the JAX variables through the bridge
-    (params only with fp_only, to calibrate and pack in the port)."""
+    (params only with fp_only, to calibrate and pack in the port; with
+    them the static act ranges of `qstats`, where the JAX model has
+    any)."""
     _, pcls, cfg, _ = KINDS[kind]
     plan = load_quant_config(plan_path)
     model = pcls(resolver=(plan_fn(plan) if plan_fn else plan).resolver(),
                  dtype=dtype, **{**cfg, **overrides})
     if variables is not None:
-        sd = state_dict_from_flax(variables["params"],
-                                  None if fp_only else variables["quant"])
+        sd = state_dict_from_flax(
+            variables["params"], None if fp_only else variables["quant"],
+            None if fp_only else variables.get("qstats"))
         model.load_state_dict(sd, strict=not fp_only)
     return model.eval()
 

@@ -17,7 +17,9 @@ the TPU-only shape gates have no counterpart. Under channel balancing
 adaLN shift/scale vectors, the shared q/k/v K4 pass and fc2's handoff (K4
 or fc1's K2 emission) into the quantize, the attention emission before its
 row statistic. The attention sites take the attn8 plan's q/k quantizers
-(`int8_qk`: K8 before K3). `Mlp`, `SelfAttention` and `CrossAttention`
+(`int8_qk`: K8 before K3); an attention quantizer combination the
+kernels do not take runs the JAX package's fake-quant fallback in plain
+PyTorch (`fake_quant_attention`). `Mlp`, `SelfAttention` and `CrossAttention`
 take an `epilogue` (residual, gate | None) for fc2 or the proj, and then
 return the updated residual stream. PixArt-Σ's KV-compressed
 self-attention keeps the JAX package's `sdpa` route: PyTorch's
@@ -117,12 +119,32 @@ def attn_quant_exec_flags(spec, qctx):
 
 
 def _exec_flags(spec, qctx):
+    """(int8_qk, int8_pv) of an attention site whose quantizers the kernels
+    take, None for a combination that runs the fake-quant fallback
+    (`fake_quant_attention`, layers.py:536-570)."""
     int8_qk, int8_pv, ok = attn_quant_exec_flags(spec, qctx)
-    if not ok:
-        raise NotImplementedError(
-            "this attention quantizer combination runs only as fake quant "
-            "in the JAX package, which is not ported")
-    return int8_qk, int8_pv
+    return (int8_qk, int8_pv) if ok else None
+
+
+def fake_quant_attention(q, k, v, spec, scale: float, kv_mask=None):
+    """The JAX package's attention for quantizer combinations its kernel
+    does not take (layers.py:543-570, :740-770), in plain PyTorch as JAX
+    runs it in XLA: q, k, v [B, H, N, D] fake-quantized by `attn_act`
+    (dynamic, per token position over batch, heads and channels); with a
+    `softmax` spec the probabilities computed explicitly (f32 scores,
+    softmax cast to q's dtype), fake-quantized and multiplied by v, else
+    `sdpa`. kv_mask [B, M]: 1 = attend."""
+    aa, sm = spec.attn_act, spec.softmax
+    if aa is not None:
+        q, k, v = (qcore.fake_quant_dynamic(t, aa) for t in (q, k, v))
+    if sm is None:
+        return sdpa(q, k, v, scale, kv_mask=kv_mask)
+    attn = torch.einsum("bhnd,bhmd->bhnm", (q * scale).float(), k.float())
+    if kv_mask is not None:
+        attn = attn + _mask_bias(kv_mask)
+    attn = torch.softmax(attn, dim=-1).to(q.dtype)
+    attn = qcore.fake_quant_dynamic(attn, sm)
+    return torch.einsum("bhnm,bhmd->bhnd", attn, v)
 
 
 def ln_mod_prequant(resolver: Resolver, prefix: str, inp, shift, scale,
@@ -237,16 +259,21 @@ class SelfAttention(nn.Module):
     """Separate-q/k/v multi-head self-attention (layers.py:387-576, the
     layout-native branch). seg_len > 0: block-diagonal attention in
     segments of seg_len tokens (STDiT temporal attention; the CB act
-    statistic of its linears views their input in those segments)."""
+    statistic of its linears views their input in those segments).
+    token_layout / d_t / d_s: the token view of its linears' token-wise
+    act quantization (STDiT's spatial attention: 'spatial')."""
 
     def __init__(self, dim: int, num_heads: int, resolver: Resolver = no_quant,
-                 prefix: str = "", dtype=torch.bfloat16, seg_len: int = 0):
+                 prefix: str = "", dtype=torch.bfloat16, seg_len: int = 0,
+                 token_layout: Optional[str] = None, d_t: int = 1,
+                 d_s: int = 1):
         super().__init__()
         self.num_heads = num_heads
         self.seg_len = seg_len
         self.specs = [resolver(f"{prefix}.{n}") for n in ("q", "k", "v")]
         self.pspec = resolver(f"{prefix}.proj")
-        kw = dict(dtype=dtype, seg_len=seg_len)
+        kw = dict(dtype=dtype, seg_len=seg_len, token_layout=token_layout,
+                  d_t=d_t, d_s=d_s)
         self.q = QuantLinear(dim, dim, self.specs[0], **kw)
         self.k = QuantLinear(dim, dim, self.specs[1], **kw)
         self.v = QuantLinear(dim, dim, self.specs[2], **kw)
@@ -274,7 +301,19 @@ class SelfAttention(nn.Module):
         q = self.q(x, qctx, prequant=pre).reshape(B, N, H, D)
         k = self.k(x, qctx, prequant=pre).reshape(B, N, H, D)
         v = self.v(x, qctx, prequant=pre).reshape(B, N, H, D)
-        int8_qk, int8_pv = _exec_flags(self.specs[0], qctx)
+        flags = _exec_flags(self.specs[0], qctx)
+        if flags is None:
+            # segments unpacked into the batch (layers.py:537-542)
+            G = N // self.seg_len if self.seg_len > 0 else 1
+            n = N // G
+
+            def heads(t):
+                return t.reshape(B * G, n, H, D).transpose(1, 2)
+            out = fake_quant_attention(heads(q), heads(k), heads(v),
+                                       self.specs[0], D ** -0.5)
+            return self.proj(out.transpose(1, 2).reshape(B, N, C), qctx,
+                             epilogue=epilogue)
+        int8_qk, int8_pv = flags
         v_block = (seg_v_block(N, self.seg_len)
                    if int8_pv and self.seg_len > 0 else None)
         ics_p = self.proj.inv_balance(qctx)
@@ -293,22 +332,33 @@ class SelfAttention(nn.Module):
         return self.proj(out.reshape(B, N, C), qctx, epilogue=epilogue)
 
 
-def sdpa_xla(q, k, v, scale: float):
+def _mask_bias(kv_mask):
+    """[B, M] (1 = attend) -> the additive f32 bias [B, 1, 1, M]."""
+    return torch.where(kv_mask[:, None, None, :] != 0, 0.0,
+                       float("-inf")).float()
+
+
+def sdpa_xla(q, k, v, scale: float, kv_mask=None):
     """Attention over [B, H, N, D] with an f32 softmax (layers.py:171-184):
     scores in f32, probabilities cast to q's dtype before the PV."""
     attn = torch.einsum("bhnd,bhmd->bhnm", (q * scale).float(), k.float())
+    if kv_mask is not None:
+        attn = attn + _mask_bias(kv_mask)
     attn = torch.softmax(attn, dim=-1).to(q.dtype)
     return torch.einsum("bhnm,bhmd->bhnd", attn, v)
 
 
-def sdpa(q, k, v, scale: float):
-    """layers.py:206-236 without a mask (its one caller here, the
-    KV-compressed attention, has none): PyTorch's fused attention on CUDA
-    tensors (the JAX package's stock flash kernel there is not its own
-    kernel), the f32 softmax oracle on CPU tensors."""
+def sdpa(q, k, v, scale: float, kv_mask=None):
+    """layers.py:206-236 (kv_mask [B, M], 1 = attend): PyTorch's fused
+    attention on CUDA tensors (the JAX package's stock flash kernel there
+    is not its own kernel), the f32 softmax oracle on CPU tensors. Its
+    callers are the KV-compressed attention and the fake-quant fallback
+    (`fake_quant_attention`)."""
     if not q.is_cuda:
-        return sdpa_xla(q, k, v, scale)
-    return F.scaled_dot_product_attention(q, k, v, scale=scale)
+        return sdpa_xla(q, k, v, scale, kv_mask)
+    mask = None if kv_mask is None else (kv_mask != 0)[:, None, None, :]
+    return F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                          scale=scale)
 
 
 class DepthwiseQuantConv(nn.Module):
@@ -415,10 +465,12 @@ class CrossAttention(nn.Module):
         self.qspec = resolver(f"{prefix}.q_linear")
         self.pspec = resolver(f"{prefix}.proj")
         self.q_linear = QuantLinear(dim, dim, self.qspec, dtype=dtype)
-        # the CB statistic on the reference's packed [1, B*P, C] prompts
+        # the CB statistic on the reference's packed [1, B*P, C] prompts;
+        # token-wise acts on the 'cross_kv' view
         self.kv_linear = QuantLinear(dim, 2 * dim,
                                      resolver(f"{prefix}.kv_linear"),
-                                     dtype=dtype, stat_layout="packed_prompt")
+                                     dtype=dtype, stat_layout="packed_prompt",
+                                     token_layout="cross_kv")
         self.proj = QuantLinear(dim, dim, self.pspec, dtype=dtype)
 
     def forward(self, x, cond, mask=None, qctx: Optional[QuantCtx] = None,
@@ -434,7 +486,16 @@ class CrossAttention(nn.Module):
         kv_mask = (mask.to(torch.int32) if mask is not None
                    else torch.ones((B, P), dtype=torch.int32,
                                    device=x.device))
-        int8_qk, int8_pv = _exec_flags(self.qspec, qctx)
+        flags = _exec_flags(self.qspec, qctx)
+        if flags is None:
+            out = fake_quant_attention(
+                q.reshape(B, N, H, D).transpose(1, 2),
+                k.reshape(B, P, H, D).transpose(1, 2),
+                v.reshape(B, P, H, D).transpose(1, 2), self.qspec,
+                D ** -0.5, kv_mask=kv_mask)
+            return self.proj(out.transpose(1, 2).reshape(B, N, C), qctx,
+                             epilogue=epilogue)
+        int8_qk, int8_pv = flags
         args = (q.reshape(B, N, H, D), k.reshape(B, P, H, D),
                 v.reshape(B, P, H, D))
         ics_p = self.proj.inv_balance(qctx)

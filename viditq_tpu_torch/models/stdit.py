@@ -49,8 +49,10 @@ class STDiTBlock(nn.Module):
         self.resolver = resolver
         self.prefix = prefix
         self.scale_shift_table = nn.Parameter(torch.zeros(6, C))
+        # spatial: [(B T), S, C], token-wise acts on the [B, T*S, C] view
         self.attn = SelfAttention(C, num_heads, resolver, f"{prefix}.attn",
-                                  dtype)
+                                  dtype, token_layout="spatial", d_t=d_t,
+                                  d_s=d_s)
         self.attn_temp = SelfAttention(C, num_heads, resolver,
                                        f"{prefix}.attn_temp", dtype,
                                        seg_len=d_t)

@@ -1,6 +1,7 @@
-"""Offline calibration (port of `calibrate_weight_tables`,
-`viditq_tpu/quant/calibrate.py:101-283`, min-max weight tables), and the
-smooth-quant statistic pass that precedes it under channel balancing.
+"""Offline calibration (port of `calibrate_weight_tables` and
+`finalize_act_tables`, `viditq_tpu/quant/calibrate.py:101-313`: min-max
+weight and static act tables), and the smooth-quant statistic pass that
+precedes them under channel balancing.
 
 The JAX function maps (params, quant) trees to a new quant tree; the port
 fills the buffers of every `QuantLinear` of a model in place. The PTQ
@@ -12,7 +13,9 @@ phase order of a channel-balancing (CB) plan (`pipelines/ptq.py:127-150`):
   2. `calibrate_weight_tables`: `cb_scale` = smooth_quant_scale(act_scale,
      weight absmax, alpha) per timerange (pooled over q/k/v under
      `qkv_share_cs`), then `w_delta`/`w_zp` per timerange on kernel * cs;
-  3. `native_pack.pack_native_weights`: the int8 slabs.
+  3. `native_pack.pack_native_weights`: the int8 slabs (native layers);
+  4. for static acts, 'a_calib' forwards (`pipelines/ptq.py`), then
+     `finalize_act_tables`: `a_delta`/`a_zp` from the blended ranges.
 
 On a timestep-wise mixed-precision union model (`pipelines/
 mixed_precision.py`, its act statistics gathered from the CB model by CB
@@ -74,9 +77,10 @@ def calibrate_weight_tables(model: nn.Module) -> nn.Module:
     layers = [(n, m) for n, m in model.named_modules()
               if isinstance(m, QuantLinear)]
     # cs first: pooled siblings' tables depend on each other's kernels
-    # (calibrate.py:154-219); fp-listed layers get theirs too
+    # (calibrate.py:154-219); fp-listed layers get theirs too. The
+    # 'dynamic' CB type has no table: its forward computes cs.
     for name, mod in layers:
-        if mod.smooth is None:
+        if not mod.momentum_cb:
             continue
         smooth = mod.smooth
         wmax = _pooled_absmax(model, name, mod)
@@ -85,7 +89,7 @@ def calibrate_weight_tables(model: nn.Module) -> nn.Module:
                                     smooth.alpha_for_range(tr))
             for tr in range(smooth.n_timerange)]))
     for _, mod in layers:
-        if not mod.native:
+        if not hasattr(mod, "w_delta"):
             continue
         wspec = mod.lspec.weight
         kernel = mod.kernel.float()
@@ -94,8 +98,8 @@ def calibrate_weight_tables(model: nn.Module) -> nn.Module:
         for b in wspec.bits_tuple:
             d_tr, z_tr = [], []
             for tr in range(n_tr):
-                w_eff = (kernel if mod.smooth is None
-                         else kernel * mod.cb_scale[tr][:, None])
+                w_eff = (kernel * mod.cb_scale[tr][:, None]
+                         if mod.momentum_cb else kernel)
                 d, z = core.compute_qparams(w_eff, wspec, n_bits=b)
                 d_tr.append(d)
                 z_tr.append(z)
@@ -103,4 +107,21 @@ def calibrate_weight_tables(model: nn.Module) -> nn.Module:
             zps.append(torch.stack(z_tr))
         mod.w_delta.copy_(torch.stack(deltas))
         mod.w_zp.copy_(torch.stack(zps))
+    return model
+
+
+@torch.no_grad()
+def finalize_act_tables(model: nn.Module) -> nn.Module:
+    """Every static-act layer's a_delta/a_zp [n_bw, n_ts, 1, *group] from
+    its blended a_min/a_max, at every bitwidth of `bits_tuple`
+    (calibrate.py:286-313; 'min_max' only, as every reference act plan)."""
+    for _, mod in model.named_modules():
+        if not (isinstance(mod, QuantLinear) and mod.static_act):
+            continue
+        aspec = mod.lspec.act
+        d, z = zip(*(core.qparams_minmax(mod.a_min, mod.a_max, aspec,
+                                         n_bits=b)
+                     for b in aspec.bits_tuple))
+        mod.a_delta = torch.stack(d)
+        mod.a_zp = torch.stack(z)
     return model

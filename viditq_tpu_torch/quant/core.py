@@ -1,12 +1,14 @@
 """Quantizer math: min-max qparams (port of `viditq_tpu/quant/core.py`).
 
-What the weight tables of an inference plan and the simulate-semantics
-PixArt-Σ `sr` conv need: group-wise min/max with the reference's sign
-clamps, the 'min_max' scale init (reference
-`qdiff/quantizer/base_quantizer.py:168-228`), fake quant with
-nearest rounding, static or dynamic, and the channel-balancing scale. Same formulas,
-same float32 arithmetic order as the JAX package, so the tables are equal
-bit for bit on equal inputs.
+Group-wise min/max with the reference's sign clamps, the momentum blend
+of static act ranges, the 'min_max' scale init (reference
+`qdiff/quantizer/base_quantizer.py:168-228`), the shape of one group's
+table slice, fake quant with nearest rounding (the forward of
+'nearest_ste' too: the port has no training path, so no straight-through
+gradient), static or dynamic, and the channel-balancing scale. Same
+formulas, same float32 arithmetic order as the JAX package. The
+'grid_search_lp' scale method and the 'stochastic' and AdaRound
+('learned_hard_sigmoid') roundings raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from viditq_tpu_torch.kernels._common import divc
 from viditq_tpu_torch.quant.spec import QuantSpec
 
 EPS_DELTA = 1e-6      # base_quantizer.py:220
@@ -45,16 +48,47 @@ def minmax(x: torch.Tensor, spec: QuantSpec
     return x_min, x_max
 
 
+def update_running_minmax(state: Optional[Tuple[torch.Tensor, torch.Tensor]],
+                          x_min: torch.Tensor, x_max: torch.Tensor,
+                          momentum: float, initialized: bool
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Momentum accumulation of act ranges (base_quantizer.py:196-207; JAX
+    core.py:92-110): the first observation is stored as it is, later ones
+    blended as old * momentum + new * (1 - momentum)."""
+    if state is None or not initialized:
+        return x_min, x_max
+    old_min, old_max = state
+    return (old_min * momentum + x_min * (1.0 - momentum),
+            old_max * momentum + x_max * (1.0 - momentum))
+
+
+def group_shape_of(x_shape: Tuple[int, ...], spec: QuantSpec
+                   ) -> Tuple[int, ...]:
+    """Broadcastable shape of one (delta, zero_point) group slice of an
+    array of shape x_shape (JAX core.py:353-363)."""
+    if spec.granularity == "tensor":
+        return (1,) * len(x_shape)
+    if spec.granularity == "channel":
+        keep = spec.channel_axis % len(x_shape)
+        return tuple(n if a == keep else 1 for a, n in enumerate(x_shape))
+    if spec.granularity == "token":
+        keep = len(x_shape) - 2
+        return tuple(n if a == keep else 1 for a, n in enumerate(x_shape))
+    raise ValueError(spec.granularity)
+
+
 def qparams_minmax(x_min: torch.Tensor, x_max: torch.Tensor,
                    spec: QuantSpec, n_bits: Optional[int] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """'min_max' scale init (base_quantizer.py:213-228)."""
+    """'min_max' scale init (base_quantizer.py:213-228). The divisions by
+    the level count are true divisions on every device (`divc`: on CUDA,
+    `tensor / c` multiplies by 1 / c)."""
     n_levels = spec.n_levels(n_bits)
     if spec.sym:
         absmax = torch.maximum(x_min.abs(), x_max.abs())
-        delta = absmax / n_levels
+        delta = divc(absmax, float(n_levels))
     else:
-        delta = (x_max - x_min) / (n_levels - 1)
+        delta = divc(x_max - x_min, float(n_levels - 1))
     delta = torch.clamp(delta, min=EPS_DELTA)
     if spec.always_zero or spec.sym:
         zero_point = torch.zeros_like(delta)
@@ -103,11 +137,19 @@ def fake_quant_dynamic(x: torch.Tensor, spec: QuantSpec) -> torch.Tensor:
 
 
 def smooth_quant_scale(a_absmax: torch.Tensor, w_absmax: torch.Tensor,
-                       alpha: float) -> torch.Tensor:
+                       alpha) -> torch.Tensor:
     """Per-channel channel-balancing scale cs = a_max^alpha /
     w_max^(1-alpha) (quant_layer.py:108-140; JAX `core.py:366-378`), with
     the reference's clamps: act 1e-5 (quant_layer.py:130-134), weight
-    1e-12. The one definition calibration, packing and the forward use."""
+    1e-12. The one definition calibration, packing and the forward use.
+    alpha: a Python float (1 - alpha then taken in double, as JAX takes a
+    weakly typed constant) or a float32 tensor (1 - alpha in float32). Each
+    power is taken in float64 and rounded to float32: PyTorch's float32 pow
+    is an ulp off the rounded result at ~2% of entries, XLA's at ~0.02%."""
     a = torch.clamp(a_absmax.float(), min=1e-5)
     w = torch.clamp(w_absmax.float(), min=1e-12)
-    return (a ** alpha) / (w ** (1 - alpha))
+
+    def power(base, e):
+        e = torch.as_tensor(e, dtype=torch.float32, device=base.device)
+        return (base.double() ** e.double()).float()
+    return power(a, alpha) / power(w, 1 - alpha)

@@ -51,8 +51,9 @@ class QuantSpec:
     # tables carry a leading [n_bitwidth] axis and `bit_idx` selects at run
     # time (reference `mixed_precision` + `bit_idx`, base_quantizer.py:32-36).
     mixed_precision: Optional[Tuple[int, ...]] = None
-    # Timestep-wise act tables (static acts; not ported): number of
-    # calibrated timestep slots.
+    # Timestep-wise static act tables: the number of calibrated timestep
+    # slots (the calibration step count under `timestep_wise`, else 1);
+    # `QuantCtx.act_slot` selects one.
     timestep_wise: bool = False
     n_timestep: int = 1
     # Timerange-gathered mixed precision: weight bits per smooth-quant
@@ -123,10 +124,10 @@ class SmoothQuantSpec:
     `qdiff/models/quant_layer.py:79-97`): per input channel k a balancing
     scale cs[k] = a_max[k]^alpha / w_max[k]^(1-alpha) divides the layer's
     input and multiplies its weight rows, one cs per timerange of the
-    diffusion schedule. The port runs the momentum types
-    ('momentum_act_max': a_max is a momentum average of the per-channel
-    input maxima over calibration forwards) on the native backend; the
-    'dynamic' type needs the simulate backend, which is not ported."""
+    diffusion schedule. The momentum types ('momentum_act_max': a_max is a
+    momentum average of the per-channel input maxima over calibration
+    forwards) run on every backend; the 'dynamic' type (a_max of the live
+    input, every forward) only on the simulate backend."""
 
     enable: bool = False
     channel_wise_scale_type: str = "momentum_act_max"
@@ -178,20 +179,24 @@ class LayerQuantSpec:
     smooth_quant: SmoothQuantSpec = SmoothQuantSpec()
     weight_quant: bool = True            # reference set_quant_state(weight_quant, ...)
     act_quant: bool = True
-    # 'simulate' = fake quant; 'native' = real int8 execution (per-row act
-    # scales, prepacked weights). The port runs only native.
+    # 'simulate' = fake quant (the reference's semantics); 'native' = real
+    # int8 execution (per-row act scales, prepacked weights), or int8-stored
+    # weights dequantized into a dense product where act_quant is off.
     backend: str = "simulate"
     # Native execution implementation: 'fused' = the producer/consumer int8
-    # kernel dataflow (kernels/fused_matmul.py), the only one ported.
+    # kernel dataflow (kernels/fused_matmul.py); any other impl runs the
+    # K7a -> K7b dataflow (kernels/int_matmul.py).
     impl: Optional[str] = None
     # Optional attention-internal quantizers (reference quant_block.py:
     # 181-236): post-projection q/k/v (attn_act) and the softmax output.
     attn_act: Optional[QuantSpec] = None
     softmax: Optional[QuantSpec] = None
-    # Token layout for token-wise act quantization (simulate backend only).
+    # Token layout for token-wise act quantization (unused by the resolver:
+    # the models set `QuantLinear.token_layout` per call site).
     token_layout: Optional[str] = None
-    # q-diffusion channel split (reference quant_layer.py:72): 0 = off;
-    # exclusive with smooth quant.
+    # q-diffusion channel split (reference quant_layer.py:72,159-172):
+    # input channels [:split] and [split:] quantized as separate groups, on
+    # the simulate backend; 0 = off; exclusive with smooth quant.
     split: int = 0
 
     def __post_init__(self):

@@ -9,10 +9,10 @@ a Python loop over the tableau. Ported: the discrete VP schedule, skip
 types time_uniform / logSNR / time_quadratic, multistep orders 1-3 with
 warm-up and `lower_order_final`, algorithm types dpmsolver / dpmsolver++,
 noise-prediction models, CFG with `cfg_split`, the full time range
-(t_T = 1 to t_0 = 1/N). Singlestep methods, dynamic thresholding,
-`denoise_to_zero` and other model types raise NotImplementedError; the
-continuous schedule, custom betas or time ranges and trajectory capture
-are not ported.
+(t_T = 1 to t_0 = 1/N), the calibration-trajectory capture. Singlestep
+methods, dynamic thresholding, `denoise_to_zero` and other model types
+raise NotImplementedError; the continuous schedule and custom betas or
+time ranges are not ported.
 
 Numerics: the solver state is combined in float32 and cast back to the
 latent's dtype after each update, as in the JAX package; the tableau is
@@ -223,7 +223,11 @@ class DPMSolver:
     def sample(self, x: torch.Tensor, steps: int = 20, order: int = 2,
                skip_type: str = "time_uniform", method: str = "multistep",
                lower_order_final: bool = True,
-               denoise_to_zero: bool = False) -> torch.Tensor:
+               denoise_to_zero: bool = False,
+               capture_trajectory: bool = False):
+        """The multistep solver; with capture_trajectory also {'xs': the
+        input of each model evaluation [steps, B, ...], 'ts': its model
+        timestep [steps, B] float32} (dpm_solver.py:506-574)."""
         if method != "multistep":
             raise NotImplementedError(f"method {method!r} is not ported")
         if denoise_to_zero:
@@ -235,15 +239,25 @@ class DPMSolver:
                                     skip_type, lower_order_final,
                                     self.algorithm_type, self.solver_type)
         coeffs = [[float(c) for c in row] for row in tab.astype(np.float32)]
-        m = self._model_value(x, float(ts[0]), 0)
+        xs, tms = [], []
+
+        def value(x, t_cont, idx):
+            if capture_trajectory:
+                xs.append(x)
+                tms.append(torch.full((x.shape[0],), float(np.float32(
+                    model_input_timestep(t_cont, self.ns.total_N))),
+                    device=x.device))
+            return self._model_value(x, t_cont, idx)
+        m = value(x, float(ts[0]), 0)
         b0 = b1 = b2 = m  # stale slots have zero coefficients
         for i in range(steps):
             c = coeffs[i]
             x = (c[0] * x.float() + c[1] * b0 + c[2] * b1 + c[3] * b2
                  ).to(x.dtype)
             if i < steps - 1:  # no model eval after the final update
-                b0, b1, b2 = self._model_value(x, float(ts[i + 1]), i + 1), \
-                    b0, b1
+                b0, b1, b2 = value(x, float(ts[i + 1]), i + 1), b0, b1
+        if capture_trajectory:
+            return x, {"xs": torch.stack(xs), "ts": torch.stack(tms)}
         return x
 
 
@@ -282,9 +296,11 @@ class DPMSolverSampler:
         self.lower_order_final = lower_order_final
         self.ns = NoiseScheduleVP()
 
-    def sample(self, model_apply, z, y, mask=None, qctx_factory=None):
+    def sample(self, model_apply, z, y, mask=None, qctx_factory=None,
+               return_trajectory: bool = False):
         """z: [n, C, ...]; y: [2n, 1, L, C_cap] = [cond; null]. Returns
-        the final latent [n, C, ...] in z's dtype."""
+        the final latent [n, C, ...] in z's dtype, and with
+        return_trajectory the solver's {xs, ts} (not CFG-doubled)."""
         c = self.in_channels
         s = self.cfg_scale
 
@@ -308,4 +324,5 @@ class DPMSolverSampler:
                            self.solver_type)
         return solver.sample(z, steps=self.steps, order=self.order,
                              skip_type=self.skip_type,
-                             lower_order_final=self.lower_order_final)
+                             lower_order_final=self.lower_order_final,
+                             capture_trajectory=return_trajectory)

@@ -111,18 +111,25 @@ def _coef(arr: np.ndarray, i: int, like: torch.Tensor) -> torch.Tensor:
 
 def ddim_sample_loop(model_fn: ModelFn, z: torch.Tensor, schedule: Schedule,
                      in_channels: int = 4,
-                     step_indices: Optional[Sequence[int]] = None
-                     ) -> torch.Tensor:
+                     step_indices: Optional[Sequence[int]] = None,
+                     capture_trajectory: bool = False):
     """Deterministic DDIM, eta = 0 (gaussian_diffusion.py:148-198). z:
-    [B, C, ...] initial noise, already CFG-doubled by the caller."""
+    [B, C, ...] initial noise, already CFG-doubled by the caller. With
+    capture_trajectory, also {'xs': each step's input [n_steps, B, ...],
+    'ts': its timestep [n_steps, B]}: the reference's calib_data
+    (:679-689)."""
     n = schedule.n_steps
     B = z.shape[0]
     steps = (range(n - 1, -1, -1) if step_indices is None
              else [int(i) for i in step_indices])
     x = z
+    xs, ts = [], []
     for i in steps:
         t_orig = torch.full((B,), int(schedule.timestep_map[i]),
                             dtype=torch.int32, device=z.device)
+        if capture_trajectory:
+            xs.append(x)
+            ts.append(t_orig)
         eps = model_fn(x, t_orig, i)[:, :in_channels]
         sr = _coef(schedule.sqrt_recip_alphas_cumprod, i, x)
         srm1 = _coef(schedule.sqrt_recipm1_alphas_cumprod, i, x)
@@ -133,4 +140,6 @@ def ddim_sample_loop(model_fn: ModelFn, z: torch.Tensor, schedule: Schedule,
         mean = (torch.sqrt(acp_prev) * pred_xstart
                 + torch.sqrt(torch.clamp(1 - acp_prev, min=0.0)) * eps2)
         x = mean.to(x.dtype)
+    if capture_trajectory:
+        return x, {"xs": torch.stack(xs), "ts": torch.stack(ts)}
     return x

@@ -22,12 +22,17 @@ ModelApply = Callable[..., torch.Tensor]
 QctxFactory = Callable[[int, int], Optional[QuantCtx]]
 
 
-def default_qctx_factory(mode: str = "quant") -> QctxFactory:
-    """Per-step context: the original-scale timestep and the mode (the act
-    slot map of static-act plans is not ported)."""
+def default_qctx_factory(mode: str = "quant",
+                         act_slot_map: Optional[Sequence[int]] = None
+                         ) -> QctxFactory:
+    """Per-step context: the original-scale timestep, the mode and, from
+    `act_slot_map` ([1000] original timestep -> static act-table slot,
+    `pipelines/ptq.act_slot_map_from_ts`; JAX iddpm.py:28-37), the slot
+    (0 without a map)."""
 
     def factory(t_id, step_idx):
-        return QuantCtx(t_id=int(t_id), mode=mode)
+        slot = 0 if act_slot_map is None else int(act_slot_map[int(t_id)])
+        return QuantCtx(t_id=int(t_id), mode=mode, act_slot=slot)
     return factory
 
 
@@ -79,16 +84,21 @@ class IDDPM:
     def sample(self, model_apply: ModelApply, z: torch.Tensor,
                y: torch.Tensor, mask: Optional[torch.Tensor] = None,
                qctx_factory: Optional[QctxFactory] = None,
-               step_indices: Optional[Sequence[int]] = None):
+               step_indices: Optional[Sequence[int]] = None,
+               return_trajectory: bool = False):
         """DDIM with CFG. z: [n, C, ...] (pre-CFG); y: [2n, 1, L, C_cap] =
         [cond; null]; mask: [n, L] or [2n, L]. Returns the cond half of the
-        final sample. step_indices: run only these (descending) spaced
-        steps."""
+        final sample, and with return_trajectory the CFG-doubled {xs, ts}
+        of every step (iddpm.py:86-111). step_indices: run only these
+        (descending) spaced steps."""
         z2 = torch.cat([z, z], dim=0)
         model_fn = self.make_cfg_model_fn(model_apply, y, mask, qctx_factory)
         out = gd.ddim_sample_loop(model_fn, z2, self.schedule,
                                   in_channels=self.in_channels,
-                                  step_indices=step_indices)
+                                  step_indices=step_indices,
+                                  capture_trajectory=return_trajectory)
+        if return_trajectory:
+            return torch.chunk(out[0], 2, dim=0)[0], out[1]
         return torch.chunk(out, 2, dim=0)[0]
 
     def denoise_range(self, model_apply: ModelApply, x2: torch.Tensor,

@@ -1,9 +1,9 @@
 """Bridge from the JAX package's variable trees to the port's state dict.
 
-`state_dict_from_flax(params, quant)` takes the `params` and `quant`
-collections of a `viditq_tpu` model as nested dicts of numpy arrays and
-returns the tensors the port's model of the same configuration loads with
-`load_state_dict(..., strict=True)`:
+`state_dict_from_flax(params, quant, qstats)` takes the `params`, `quant`
+and (optionally) `qstats` collections of a `viditq_tpu` model as nested
+dicts of numpy arrays and returns the tensors the port's model of the
+same configuration loads with `load_state_dict(..., strict=True)`:
 
   * module paths become the port's dotted names: a list container named
     `blocks_3` becomes `blocks.3` (calibrate.py:30-45's rule);
@@ -23,7 +23,12 @@ returns the tensors the port's model of the same configuration loads with
     channel-balancing tables (`act_scale`, `cb_scale`) and the per-range
     dequant tables of timestep-wise mixed precision (`w_mp_scale`,
     `w_mp_zp`, the JAX package's union variables) become buffers of the
-    same names and shapes (one slab per timerange);
+    same names and shapes (one slab per timerange; a weight-only layer's
+    nibble-packed W4 slab [n_tr, (K+1)//2, N] too);
+  * the static act tables (`a_delta`, `a_zp`, [n_bw, n_ts, 1, *group])
+    and, from `qstats`, their calibration state (`a_min`, `a_max`,
+    `a_init`); the other `qstats` leaves (the CB statistic's `sq_init`)
+    are the port's unsaved state and are left out;
   * a `cbshare__<child>` leaf, the copy of a child layer's `cb_scale` that
     a flax parent keeps because it cannot read its children's variables
     (qlinear.py:113-145), must equal that child's table (else ValueError)
@@ -103,12 +108,20 @@ def drop_cbshare(flat: Dict[tuple, np.ndarray]) -> Dict[tuple, np.ndarray]:
     return out
 
 
+# the `qstats` leaves the port saves: the static act ranges
+ACT_STATS = ("a_min", "a_max", "a_init")
+
+
 def state_dict_from_flax(params: Mapping,
-                         quant: Optional[Mapping] = None
+                         quant: Optional[Mapping] = None,
+                         qstats: Optional[Mapping] = None
                          ) -> Dict[str, torch.Tensor]:
     runs = scanned_runs(params)
     out: Dict[str, torch.Tensor] = {}
-    for flat in (_flatten(params), drop_cbshare(_flatten(quant or {}))):
+    stats = {k: v for k, v in _flatten(qstats or {}).items()
+             if k[-1] in ACT_STATS}
+    for flat in (_flatten(params), drop_cbshare(_flatten(quant or {})),
+                 stats):
         for path, arr in flat.items():
             if path[0] in runs:
                 # scanned run: leading depth axis on every leaf

@@ -4,10 +4,11 @@ The port's copy of the plan surface of `viditq_tpu/utils/config.py`: parses
 the YAML layout shipped by ViDiT-Q (`t2v/configs/quant/opensora/*.yaml`)
 into the same frozen `QuantSpec`/`LayerQuantSpec` values the JAX package
 resolves, plus a plain `QuantPlanConfig` whose `resolver()` maps dotted
-layer names to specs, and the timestep-wise mixed-precision bitwidth
-YAMLs (`load_bitwidth_config`). Only the keys an inference plan reads are
-parsed; the reconstruction (`optimization`) and resume keys are not
-ported.
+layer names to specs (with the plan's per-group `backend_overrides`, the
+hybrid plans), and the timestep-wise mixed-precision bitwidth YAMLs
+(`load_bitwidth_config`). Only the keys an inference plan and its
+calibration read are parsed; the reconstruction (`optimization`) and
+resume keys are not ported.
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ from typing import Any, Dict, Mapping, Optional, Tuple
 import yaml
 
 from viditq_tpu_torch.quant.naming import (any_pattern_in, load_fp_list,
-                                           resolve_layer_spec)
+                                           pattern_in, resolve_layer_spec)
 from viditq_tpu_torch.quant.spec import (LayerQuantSpec, QuantSpec,
                                          SmoothQuantSpec)
 
@@ -95,11 +96,22 @@ def parse_smooth_spec(cfg: Dict[str, Any]) -> SmoothQuantSpec:
 @dataclasses.dataclass(frozen=True)
 class QuantPlanConfig:
     """One parsed quant YAML (the reference 'ptq_config'), as far as the
-    port reads it: the default layer spec, the fp list and the scopes of the
-    attention-internal quantizers."""
+    port reads it: the default layer spec, the fp list, the per-group
+    backend overrides, the scopes of the attention-internal quantizers,
+    the sampler's `cfg_split` and the calibration keys
+    (viditq_tpu/utils/config.py:143-177)."""
 
     default_layer: LayerQuantSpec
     fp_patterns: Tuple[str, ...] = ()
+    # per-group execution overrides (pattern, mode), mode one of 'native',
+    # 'fused', 'weight_only' or 'simulate': the hybrid plans (full int8 on
+    # the MLPs, int8-stored weights with bf16 compute elsewhere)
+    backend_overrides: Tuple[Tuple[str, str], ...] = ()
+    cfg_split: bool = False
+    mixed_precision: Optional[Tuple[int, ...]] = None
+    timestep_wise: bool = False
+    calib_n_steps: int = 10
+    calib_batch_size: int = 4
     # restrict the attention-internal quantizers to matching layer-name
     # patterns (e.g. softmax int8 on the temporal/cross attentions only)
     softmax_scope: Tuple[str, ...] = ()
@@ -110,7 +122,10 @@ class QuantPlanConfig:
         """Layer-name -> LayerQuantSpec resolver for model construction and
         offline calibration (same rules as the JAX package's,
         config.py:180-212): `overrides` {pattern: spec} win over the fp
-        list and the default (`resolve_layer_spec`)."""
+        list and the default (`resolve_layer_spec`); then the first
+        `backend_overrides` pattern that matches sets the layer's backend:
+        'weight_only' is native with act_quant off, 'fused' native with
+        impl 'fused'."""
 
         def resolve(name: str) -> LayerQuantSpec:
             spec = resolve_layer_spec(name, self.default_layer,
@@ -121,15 +136,28 @@ class QuantPlanConfig:
             if (self.attn_act_scope and spec.attn_act is not None
                     and not any_pattern_in(name, self.attn_act_scope)):
                 spec = dataclasses.replace(spec, attn_act=None)
+            for pat, mode in self.backend_overrides:
+                if pattern_in(name, pat):
+                    if mode == "weight_only":
+                        spec = dataclasses.replace(spec, backend="native",
+                                                   act_quant=False)
+                    elif mode == "fused":
+                        spec = dataclasses.replace(spec, backend="native",
+                                                   impl="fused")
+                    else:
+                        spec = dataclasses.replace(spec, backend=mode)
+                    break
             return spec
         return resolve
 
     def uses_native(self) -> bool:
-        """True when the layers run the native int backend ('native', and
-        'fused', which is native with impl 'fused'): packed int slabs must
-        exist before a quantized run (JAX config.py:214-221; the per-layer
-        backend overrides it also reads are not ported)."""
-        return self.default_layer.backend == "native"
+        """True when any layer runs the native int backend, by the default
+        or by a backend override (JAX config.py:214-221): packed int slabs
+        must exist before a quantized run."""
+        if self.default_layer.backend == "native":
+            return True
+        return any(mode in ("native", "weight_only", "fused", "static")
+                   for _, mode in self.backend_overrides)
 
     def with_bits(self, w_bits: Optional[int] = None,
                   a_bits: Optional[int] = None) -> "QuantPlanConfig":
@@ -145,11 +173,10 @@ class QuantPlanConfig:
 
     def with_backend(self, backend: str) -> "QuantPlanConfig":
         """The plan with another default backend
-        (viditq_tpu/utils/config.py:223-234): 'native' (the int8 execution
-        of the layer's impl) or 'fused' (native with impl 'fused', as the
-        YAML `backend: fused`). 'simulate' (fake quant) is not ported."""
-        if backend == "simulate":
-            raise NotImplementedError("the simulate backend is not ported")
+        (viditq_tpu/utils/config.py:223-234): 'simulate' (fake quant, the
+        reference's semantics), 'native' (the int8 execution of the
+        layer's impl) or 'fused' (native with impl 'fused', as the YAML
+        `backend: fused`). Per-group `backend_overrides` still win."""
         if backend == "fused":
             return dataclasses.replace(
                 self, default_layer=dataclasses.replace(
@@ -159,18 +186,21 @@ class QuantPlanConfig:
                 self.default_layer, backend=backend))
 
 
-def load_quant_config(path: str) -> QuantPlanConfig:
-    """Load a reference-format quant YAML (t2v/scripts/ptq.py:60-148)."""
+def load_quant_config(path: str, timestep_wise: bool = False
+                      ) -> QuantPlanConfig:
+    """Load a reference-format quant YAML (t2v/scripts/ptq.py:60-148).
+    timestep_wise: static act tables with one slot per calibration step
+    (the YAML's `calib_data.n_steps`; the JAX CLI's `--timestep_wise`);
+    otherwise one slot."""
     with open(path) as f:
         cfg = yaml.safe_load(f)
-    if cfg.get("backend_overrides"):
-        raise NotImplementedError(
-            "per-layer backend overrides (hybrid plans) are not ported")
     mp = cfg.get("mixed_precision")
     quant = cfg["quant"]
-    n_ts = int(cfg.get("calib_data", {}).get("n_steps", 10))
+    calib = cfg.get("calib_data", {})
+    n_ts = int(calib.get("n_steps", 10))
     wspec = parse_weight_spec(quant["weight"], mp)
-    aspec = parse_act_spec(quant["activation"], mp, n_timestep=n_ts)
+    aspec = parse_act_spec(quant["activation"], mp,
+                           timestep_wise=timestep_wise, n_timestep=n_ts)
     smooth = parse_smooth_spec(quant["activation"])
     # optional attention-internal quantizers ('softmax:' / 'attn_act:'
     # under the act quantizer)
@@ -217,9 +247,17 @@ def load_quant_config(path: str) -> QuantPlanConfig:
     def scope(q_cfg):
         return tuple(q_cfg.get("scope") or ()) if isinstance(q_cfg, dict) \
             else ()
-    return QuantPlanConfig(default_layer=default, fp_patterns=fp_patterns,
-                           softmax_scope=scope(sm_cfg),
-                           attn_act_scope=scope(aa_cfg))
+    backend_ov = tuple((str(k), str(v)) for k, v in
+                       (cfg.get("backend_overrides") or {}).items())
+    return QuantPlanConfig(
+        default_layer=default, fp_patterns=fp_patterns,
+        backend_overrides=backend_ov,
+        cfg_split=bool(cfg.get("cfg_split", False)),
+        mixed_precision=tuple(mp) if mp else None,
+        timestep_wise=timestep_wise,
+        calib_n_steps=int(calib.get("n_steps", 10)),
+        calib_batch_size=int(calib.get("batch_size", 4)),
+        softmax_scope=scope(sm_cfg), attn_act_scope=scope(aa_cfg))
 
 
 def load_bitwidth_config(path: str) -> Dict[str, Any]:
