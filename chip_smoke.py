@@ -98,13 +98,35 @@ Phases (any failure exits non-zero):
      500) and naive (`configs/pixart_sigma/w8a8_naive.yaml`, static acts
      with running statistics, calibrated as STDiT's naive) arms over the
      whole 20-step DPM-Solver++ CFG schedule, built through
-     `utils/workload`, with the same readings.
-Each arm resets the launch counts just before its run and reads them just
-after; an arm that launches a kernel outside its list, or none of one in
-it, fails; the arms held to per-block counts (`BLOCK_LAUNCHES`) must hit
-them exactly. The third-to-last line is the card's name and power limit, the
-second-to-last a JSON object with one entry per kernel (launches summed
-over all arms of both slices), the last {"ok": true, "device": {...}}.
+     `utils/workload`, with the same readings;
+  7. cli: the port's command line (`viditq_tpu_torch.cli.main`, in this
+     process) on STDiT-XL/2 16x512x512 (a copy of
+     `configs/workload/opensora_16x512x512.py` at 20 steps, in a temporary
+     directory), `--num_samples 1`: the seeded weights
+     (`utils/workload.random_init_`, seed 0, x 0.02) written as a
+     reference-layout `.pth` (fused qkv, Linear weights [out, in]) and
+     converted by `split-ckpt` (every tensor equal to the drawn one);
+     `inference` and `get-calib-data`; `ptq` and `quant-generate` under the
+     sm8 plan as written (its `cfg_split`: two batch-1 forwards a step; the
+     launches exactly `SM8_BLOCK` x 28 x 20 x 2, the samples equal to the
+     in-process `quant_sample` within `CLI_SAME_REL`); `ptq` under
+     `w8a8_naive.yaml` on the CLI's own `calib_data.npz` and its
+     `quant-generate` (the file loaded into a fresh model: every table
+     equal to an in-process `run_ptq`'s on the same data, the act slot map
+     round trip; the samples equal to that model's `quant_sample` within
+     `CLI_SAME_REL`); both within `SLICE_REL_ERR` of `inference`'s
+     samples; then `get-sensitivity --backend native` (K7a, K7b, K3; each
+     score as a relative error against the fp samples' mean square,
+     within `SLICE_REL_ERR`), `sweep-alpha` and `smooth-quant-list` at
+     full width cut to 4 blocks and 4 steps. Each command's seconds, peak
+     memory, launches and files.
+Each arm and each CLI command resets the launch counts just before its run
+and reads them just after; one that launches a kernel outside its list,
+or none of one in it, fails; the arms held to per-block counts
+(`BLOCK_LAUNCHES`) must hit them exactly. The third-to-last line is the
+card's name and power limit, the second-to-last a JSON object with one
+entry per kernel (launches summed over all arms of both slices and the
+CLI's commands), the last {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -1953,21 +1975,6 @@ def attention_edge_cases(records, randn):
                    slack_fn=slack_fn)
 
 
-def random_init_(model, seed: int, scale: float):
-    """normal x scale for every float parameter (bench.py:149-152 uses
-    0.02), in `named_parameters` order from a seeded generator on the
-    model's device. The quant tables are not drawn (calibration and packing
-    write them all), so every plan draws the same fp weights from the same
-    seed, whichever layers it quantizes (PixArt-Σ's W4A8 plan quantizes the
-    patch embed, which the sm8 plan's fp list keeps)."""
-    import torch
-    dev = next(model.parameters()).device
-    g = torch.Generator(device=dev).manual_seed(seed)
-    with torch.no_grad():
-        for _, p in model.named_parameters():
-            p.copy_(torch.randn(p.shape, generator=g, device=dev) * scale)
-
-
 STDIT_CFG = {"model": dict(type="STDiT-XL/2"), "num_frames": 16,
              "image_size": (512, 512), "scheduler": dict(
                  type="iddpm", num_sampling_steps=STEPS, cfg_scale=4.0),
@@ -2038,6 +2045,7 @@ def build_model(cfg, device, scale=0.02, plan=SM8_PLAN, recipe=None,
                                                   smooth_quant_stats)
     from viditq_tpu_torch.quant.native_pack import pack_native_weights
     from viditq_tpu_torch.utils.workload import build_model as wl_build
+    from viditq_tpu_torch.utils.workload import random_init_
     qplan = quant_plan(plan, recipe)
     cfg = {**cfg, "model": {**cfg["model"], **dict(model_kw)}}
     model = wl_build(cfg, qplan.resolver(), device=device)
@@ -2605,6 +2613,289 @@ def run_slice(name, cfg, z_scale, n_prompt):
             for k in counts[arms[0]]}
 
 
+# the CLI phase: STDiT-XL/2 16x512x512 through `viditq_tpu_torch.cli`
+CLI_WORKLOAD = ROOT / "configs/workload/opensora_16x512x512.py"
+CLI_STEPS = 20
+# the analysis commands at full width with the depth and steps cut (one
+# sweep of every quantized layer's alphas at every block otherwise)
+CLI_ANALYSIS_DEPTH, CLI_ANALYSIS_STEPS = 4, 4
+# a command's kernels: the arm of `SLICE_KERNELS["stdit"]` it runs as
+CLI_KERNELS = {"inference": "bf16", "get-calib-data": "bf16",
+               "ptq sm8": None, "quant-generate sm8": "sm8",
+               "ptq naive": "naive", "quant-generate naive": "naive",
+               "get-sensitivity": "w8a8",
+               "inference (analysis cut)": "bf16", "sweep-alpha": "bf16",
+               "smooth-quant-list": "bf16"}
+CLI_SAME_REL = 1e-3  # CLI samples against the in-process path
+
+
+def cli_workload(tmp: Path, steps: int, depth=None) -> str:
+    """A copy of the 16x512x512 workload config with `steps` sampler steps
+    (and the full-width STDiT at `depth` blocks) in tmp."""
+    src = CLI_WORKLOAD.read_text()
+    want = "num_sampling_steps=100"
+    if want not in src:
+        fail(f"{CLI_WORKLOAD}: no '{want}' to cut")
+    src = src.replace(want, f"num_sampling_steps={steps}")
+    name = f"stdit_{steps}steps"
+    if depth is not None:
+        old = 'type="STDiT-XL/2",'
+        if old not in src:
+            fail(f"{CLI_WORKLOAD}: no '{old}' to cut")
+        src = src.replace(old, f'type="STDiT", depth={depth}, '
+                          'hidden_size=1152, num_heads=16, '
+                          'patch_size=(1, 2, 2),')
+        name += f"_{depth}blocks"
+    path = tmp / f"{name}.py"
+    path.write_text(src)
+    return str(path)
+
+
+def run_cli(label, argv, counts):
+    """One CLI command in this process: seconds, peak memory and the
+    launches of its kernels (reset just before, read just after; a kernel
+    outside its `CLI_KERNELS` arm, or none of one in it, fails). Returns
+    what the command returned."""
+    import torch
+    from viditq_tpu_torch import cli
+    from viditq_tpu_torch.kernels import _counters
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _counters.reset()
+    t0 = time.time()
+    out = cli.main(argv)
+    torch.cuda.synchronize()
+    secs = time.time() - t0
+    snap = _counters.snapshot()
+    launched = {k: v["launches"] for k, v in snap.items() if v["launches"]}
+    arm = CLI_KERNELS[label]
+    want = set(SLICE_KERNELS["stdit"][arm]) if arm else set()
+    if set(launched) != want:
+        fail(f"cli {label}: launched {launched}, want every one of "
+             f"{sorted(want)} and no other")
+    if any(v["plain_cuda"] for v in snap.values()):
+        fail(f"cli {label}: a plain version ran on CUDA tensors")
+    for k, n in launched.items():
+        counts[k] = counts.get(k, 0) + n
+    print(f"  cli {label}: {secs:.1f} s, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB, launches "
+          f"{launched}", flush=True)
+    return out, launched
+
+
+def file_mib(path) -> str:
+    return f"{Path(path).stat().st_size / 2 ** 20:.1f} MiB"
+
+
+def phase_cli():
+    """The port's CLI at STDiT-XL/2's full width (module header, phase 7).
+    Returns each kernel's launches summed over the commands."""
+    import tempfile
+
+    import torch
+    from viditq_tpu_torch import cli
+    from viditq_tpu_torch.pipelines.inference import quant_sample
+    from viditq_tpu_torch.pipelines.ptq import run_ptq
+    from viditq_tpu_torch.quant.calibrate import calibrate_weight_tables
+    from viditq_tpu_torch.quant.native_pack import pack_native_weights
+    from viditq_tpu_torch.quant.qlinear import QuantLinear
+    from viditq_tpu_torch.utils import ckpt, workload
+    from viditq_tpu_torch.utils.config import load_quant_config
+
+    counts = {}
+    t_phase = time.time()
+    with tempfile.TemporaryDirectory(prefix="viditq_cli_") as tmpd:
+        tmp = Path(tmpd)
+        config = cli_workload(tmp, CLI_STEPS)
+        cfg = workload.load_py_config(config)
+        # 1. a reference-layout .pth of the seeded weights, then split-ckpt
+        t0 = time.time()
+        model = workload.build_model(cfg, device="cuda")
+        workload.random_init_(model, cli.INIT_SEED, cli.INIT_SCALE)
+        drawn = {k: p.detach().cpu().clone()
+                 for k, p in model.named_parameters()}
+        ref = ckpt.reference_state_dict(drawn, ckpt.patch_of(model))
+        model = None
+        pth, params = tmp / "stdit_xl2.pth", tmp / "params.pt"
+        torch.save({"state_dict": ref}, pth)
+        t_write = time.time() - t0
+        t0 = time.time()
+        cli.main(["split-ckpt", "--src", str(pth), "--dst", str(params)])
+        t_split = time.time() - t0
+        got = ckpt.load_params(str(params))
+        if got.keys() != drawn.keys():
+            fail(f"cli split-ckpt: keys {sorted(set(got) ^ set(drawn))[:5]}")
+        bad = [k for k, v in drawn.items() if not torch.equal(got[k], v)]
+        if bad:
+            fail(f"cli split-ckpt: {len(bad)} tensors differ, e.g. {bad[:3]}")
+        print(f"  cli split-ckpt: reference .pth ({len(ref)} tensors, "
+              f"{file_mib(pth)}) drawn and written in {t_write:.1f} s, "
+              f"converted in {t_split:.1f} s to {file_mib(params)}; "
+              f"{len(drawn)} tensors equal the drawn weights", flush=True)
+        del ref, got
+        pth.unlink()
+        base = ["--config", config, "--ckpt_path", str(params)]
+        common = base + ["--num_samples", "1"]
+        # 2. fp samples and the calibration trajectory
+        out, _ = run_cli("inference", ["inference", "--save_dir",
+                                       str(tmp / "fp"), *common], counts)
+        fp = torch.from_numpy(np.load(out["out"])["samples"]).float()
+        print(f"  cli inference: {out['sample_seconds'] * 1e3 / CLI_STEPS:.1f}"
+              f" ms/step, fp_samples.npz {file_mib(out['out'])}", flush=True)
+        out, _ = run_cli("get-calib-data", ["get-calib-data", "--save_dir",
+                                            str(tmp / "cal"), *common],
+                         counts)
+        calib = out["out"]
+        print(f"  cli get-calib-data: calib_data.npz {file_mib(calib)}",
+              flush=True)
+
+        def rel(a, b):
+            return float((a - b).norm() / b.norm())
+
+        # 3. sm8: ptq, quant-generate; against the in-process path
+        sm8 = ["--ptq_config", str(SM8_PLAN)]
+        out, _ = run_cli("ptq sm8", ["ptq", "--save_dir", str(tmp / "sm8"),
+                                     "--calib_data", calib, *base, *sm8],
+                         counts)
+        qck = out["out"]
+        out = None
+        out, launched = run_cli(
+            "quant-generate sm8", ["quant-generate", "--save_dir",
+                                   str(tmp / "sm8"), "--quant_ckpt", qck,
+                                   *common, *sm8], counts)
+        q_sm8 = torch.from_numpy(np.load(out["out"])["samples"]).float()
+        ms_sm8 = out["sample_seconds"] * 1e3 / CLI_STEPS
+        plan = load_quant_config(str(SM8_PLAN))
+        sampler = workload.build_sampler(cfg, cfg_split=plan.cfg_split)
+        fwd_a_step = 2 if sampler.cfg_split else 1
+        model = workload.build_model(cfg, plan.resolver(), device="cuda")
+        want = {k: n * len(model.blocks) * CLI_STEPS * fwd_a_step
+                for k, n in BLOCK_LAUNCHES[("stdit", "sm8")].items()}
+        if launched != want:
+            fail(f"cli quant-generate sm8: launches {launched} != {want}")
+        ckpt.load_params_into(model, str(params))
+        calibrate_weight_tables(model)
+        pack_native_weights(model)
+        args = cli.build_parser().parse_args(["quant-generate", *common, *sm8])
+        y, mask = cli._load_embeds(args, cfg, 1)
+        z = cli.noise((1, 4, *workload.latent_size(cfg)), args.seed, "cuda")
+        want_s = quant_sample(model, sampler, z, y, mask).float().cpu()
+        model = None
+        same = rel(q_sm8, want_s)
+        r_sm8 = rel(q_sm8, fp)
+        print(f"  cli quant-generate sm8: {ms_sm8:.1f} ms/step ({fwd_a_step} "
+              f"forwards a step: the plan's cfg_split), quant_samples.npz "
+              f"{file_mib(out['out'])}, quant_ckpt.npz {file_mib(qck)}; "
+              f"against the in-process path max |diff| "
+              f"{float((q_sm8 - want_s).abs().max()):.3g}, rel {same:.3g} "
+              f"(limit {CLI_SAME_REL}); vs inference rel err {r_sm8:.4g} "
+              f"(limit {SLICE_REL_ERR})", flush=True)
+        if same > CLI_SAME_REL:
+            fail(f"cli sm8 samples differ from the in-process path: {same}")
+        if not (r_sm8 <= SLICE_REL_ERR):
+            fail(f"cli sm8 vs inference relative error {r_sm8}")
+        # 4. naive: static tables from the CLI's own calib data; the file
+        # loaded into a fresh model against an in-process run_ptq
+        naive = ["--ptq_config", str(NAIVE_PLAN)]
+        out, _ = run_cli("ptq naive", ["ptq", "--save_dir",
+                                       str(tmp / "naive"), "--calib_data",
+                                       calib, *base, *naive], counts)
+        qck = out["out"]
+        out, _ = run_cli("quant-generate naive",
+                         ["quant-generate", "--save_dir", str(tmp / "naive"),
+                          "--quant_ckpt", qck, *common, *naive], counts)
+        q_naive = torch.from_numpy(np.load(out["out"])["samples"]).float()
+        ms_naive = out["sample_seconds"] * 1e3 / CLI_STEPS
+        plan = load_quant_config(str(NAIVE_PLAN))
+
+        def naive_model():
+            m = workload.build_model(cfg, plan.resolver(), device="cuda")
+            return ckpt.load_params_into(m, str(params))
+        model = naive_model()
+        res = run_ptq(model, cli.load_calib_data(calib, "cuda"), plan)
+        loaded = naive_model()
+        meta = ckpt.load_quant_ckpt(qck, loaded)
+        if not np.array_equal(meta["act_slot_map"], res.act_slot_map):
+            fail("cli ptq naive: the act slot map did not round trip")
+
+        def tables(m):
+            return {(name, tab): getattr(mod, tab)
+                    for name, mod in m.named_modules()
+                    if isinstance(mod, QuantLinear)
+                    for tab in ckpt.QUANT_TABLES if hasattr(mod, tab)}
+        want_t, got_t = tables(model), tables(loaded)
+        if want_t.keys() != got_t.keys():
+            fail(f"cli ptq naive: loaded tables "
+                 f"{sorted(set(want_t) ^ set(got_t))[:5]} differ in name")
+        bad = [k for k, v in want_t.items() if not torch.equal(got_t[k], v)]
+        if bad:
+            fail(f"cli ptq naive: {len(bad)} loaded tables differ from an "
+                 f"in-process run_ptq's, e.g. {bad[:3]}")
+        loaded = got_t = None
+        if plan.uses_native():
+            pack_native_weights(model)
+        sampler = workload.build_sampler(cfg, cfg_split=plan.cfg_split)
+        want_s = quant_sample(model, sampler, z, y, mask,
+                              act_slot_map=res.act_slot_map).float().cpu()
+        model = None
+        same = rel(q_naive, want_s)
+        r_naive = rel(q_naive, fp)
+        print(f"  cli ptq naive: quant_ckpt.npz {file_mib(qck)}, loaded into "
+              f"a fresh model: {len(want_t)} tables equal an in-process "
+              f"run_ptq's, slot map of {len(meta['calib_ts'])} calibrated "
+              f"timesteps", flush=True)
+        print(f"  cli quant-generate naive: {ms_naive:.1f} ms/step; against "
+              f"the in-process path max |diff| "
+              f"{float((q_naive - want_s).abs().max()):.3g}, rel {same:.3g} "
+              f"(limit {CLI_SAME_REL}); vs inference rel err {r_naive:.4g} "
+              f"(limit {SLICE_REL_ERR})", flush=True)
+        if same > CLI_SAME_REL:
+            fail(f"cli naive samples differ from the in-process path: {same}")
+        if not (r_naive <= SLICE_REL_ERR):
+            fail(f"cli naive vs inference relative error {r_naive}")
+        res = want_t = None
+        # 5. the analysis commands, depth and steps cut
+        cut = cli_workload(tmp, CLI_ANALYSIS_STEPS, CLI_ANALYSIS_DEPTH)
+        an = ["--config", cut, "--num_samples", "1", "--ptq_config",
+              str(W8A8_PLAN)]
+        out, _ = run_cli("get-sensitivity",
+                         ["get-sensitivity", "--save_dir", str(tmp / "sens"),
+                          "--targets", "attn,mlp", "--backend", "native",
+                          *an], counts)
+        sc = out["scores"]
+        # each score (the mean square of the move from the fp generation)
+        # as a relative error against the fp samples' mean square
+        out, _ = run_cli("inference (analysis cut)",
+                         ["inference", "--save_dir", str(tmp / "fp_cut"),
+                          "--config", cut, "--num_samples", "1"], counts)
+        ms_fp = float((torch.from_numpy(np.load(out["out"])["samples"])
+                       .double() ** 2).mean())
+        sens_rel = {k: float(np.sqrt(v / ms_fp)) for k, v in sc.items()}
+        print(f"  cli get-sensitivity: scores {sc}, fp mean square "
+              f"{ms_fp:.6g}: rel err {sens_rel} (limit {SLICE_REL_ERR})",
+              flush=True)
+        if set(sc) != {"attn", "mlp"} or not all(
+                0 < r <= SLICE_REL_ERR for r in sens_rel.values()):
+            fail(f"cli get-sensitivity scores {sc}: rel err {sens_rel}")
+        out, _ = run_cli("sweep-alpha", ["sweep-alpha", "--save_dir",
+                                         str(tmp / "sweep"), *an], counts)
+        best = out["best"]
+        if len(best) < 13 * CLI_ANALYSIS_DEPTH or not all(
+                0.47 <= a <= 0.9 for a in best.values()):
+            fail(f"cli sweep-alpha: {len(best)} layers, {best}")
+        out, _ = run_cli("smooth-quant-list",
+                         ["smooth-quant-list", "--save_dir",
+                          str(tmp / "sq"), *an], counts)
+        print(f"  cli analysis ({CLI_ANALYSIS_DEPTH} blocks, "
+              f"{CLI_ANALYSIS_STEPS} steps): sensitivity rel err {sens_rel}; "
+              f"best alpha of "
+              f"{len(best)} layers in [{min(best.values())}, "
+              f"{max(best.values())}]; {len(out['picks'])} CB candidates",
+              flush=True)
+    print(f"phase cli: {time.time() - t_phase:.1f} s", flush=True)
+    return counts
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2628,6 +2919,8 @@ def main() -> int:
     phase_reference()
     launches = run_slice("stdit", STDIT_CFG, 0.5, 120)
     for k, n in run_slice("sigma", SIGMA_CFG, 1.0, 300).items():
+        launches[k] += n
+    for k, n in phase_cli().items():
         launches[k] += n
 
     kernels = []

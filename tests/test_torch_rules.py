@@ -559,12 +559,12 @@ def test_chip_smoke_draws_the_same_fp_weights_under_every_plan():
     # of the parameters after them (every arm's error is against bf16 on
     # the sm8 plan's model)
     import chip_smoke as cs
-    from viditq_tpu_torch.utils.workload import build_model
+    from viditq_tpu_torch.utils.workload import build_model, random_init_
     models = []
     for plan, recipe in ((cs.SM8_PLAN, None), (cs.SIGMA_CB_PLAN, "cb")):
         m = build_model(cs.TINY_SIGMA_CFG,
                         cs.quant_plan(plan, recipe).resolver(), device="cpu")
-        cs.random_init_(m, 0, 0.02)
+        random_init_(m, 0, 0.02)
         models.append(dict(m.named_parameters()))
     assert models[0].keys() == models[1].keys()
     for k, p in models[0].items():
@@ -639,3 +639,52 @@ def test_chip_smoke_carries_the_reference_plan_arms():
     q = cs.qctx_for("naive", 999, slot_map)
     assert (q.t_id, q.mode, q.act_slot) == (999, "quant", slot_map[999])
     assert cs.qctx_for("sim_w8a8", 999, None).act_slot == 0
+
+
+def test_cli_help_imports_no_jax():
+    # a fresh interpreter: the command line's --help of the program and
+    # of each command must not pull in jax, flax or the JAX package
+    import subprocess
+    import sys
+    code = (
+        "import runpy, sys\n"
+        "for argv in ([], ['split-ckpt'], ['ptq'], ['quant-generate'],\n"
+        "             ['get-sensitivity']):\n"
+        "    sys.argv = ['viditq_tpu_torch.cli', *argv, '--help']\n"
+        "    try:\n"
+        "        runpy.run_module('viditq_tpu_torch.cli', run_name='__main__',\n"
+        "                         alter_sys=True)\n"
+        "    except SystemExit:\n"
+        "        pass\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'flax', 'viditq_tpu'))\n"
+        "print('BAD', bad)\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, cwd=PKG.parent, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "BAD []" in out.stdout, out.stdout[-2000:]
+    assert "quant-generate-mp" in out.stdout
+
+
+def test_cli_runs_on_the_card_unless_told_otherwise(monkeypatch, tmp_path):
+    from viditq_tpu_torch import cli
+    parser = cli.build_parser()
+    subs = next(a for a in parser._actions
+                if a.__class__.__name__ == "_SubParsersAction").choices
+    assert set(subs) == {"split-ckpt", "inference", "get-calib-data", "ptq",
+                         "quant-generate", "quant-generate-mp",
+                         "get-sensitivity", "sweep-alpha",
+                         "smooth-quant-list"}
+    for name, sp in subs.items():
+        if name != "split-ckpt":  # converts files on the host
+            assert sp.get_default("device") == "cuda", name
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    tiny = "configs/workload/opensora_tiny.py"
+    plan = ["--ptq_config", "configs/opensora/w8a8_dynamic.yaml"]
+    for argv in (["inference"], ["get-calib-data"],
+                 ["ptq", "--calib_data", "none.npz", *plan],
+                 ["quant-generate", *plan], ["get-sensitivity", *plan],
+                 ["sweep-alpha", *plan], ["smooth-quant-list", *plan]):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            cli.main([*argv, "--config", tiny, "--save_dir",
+                      str(tmp_path)])

@@ -13,9 +13,12 @@ model's forwards in a calibration mode and fills them in place:
      `finalize_act_tables` (a_delta/a_zp).
 
 Packing the native slabs (`quant.native_pack.pack_native_weights`)
-follows, as in the JAX flow. Resuming from saved weight tables
-(`resume_with_w_quantized`) and the reconstruction and analysis passes
-after the act tables are not ported.
+follows, as in the JAX flow. With `resume_w_quantized` (the plan's
+`resume_with_w_quantized`, or the CLI flag) phase 2 takes the weight
+tables of a saved quant checkpoint instead (JAX ptq.py:184-218). The
+reconstruction pass after the act tables (AdaRound,
+`quant/reconstruction.py`) is not ported: `check_no_reconstruction`
+refuses a plan that asks for it.
 """
 
 from __future__ import annotations
@@ -69,14 +72,75 @@ def _mask_slice(mask, b0: int, bs: int, nb: int):
     return mask[torch.as_tensor(rows, device=mask.device)]
 
 
+# the weight quantizer's tables a resumed PTQ run takes from the file
+RESUMED_TABLES = ("w_delta", "w_zp", "w_alpha")
+
+
 @torch.no_grad()
-def run_ptq(model: nn.Module, calib_data: Dict, plan) -> PTQResult:
+def resume_w_quantized(model: nn.Module, path: str) -> int:
+    """Overwrite the model's weight tables (w_delta, w_zp) with those of a
+    saved quant checkpoint (either package's); the act-side tables keep
+    this run's values (`_merge_resumed_weight_tables`, JAX ptq.py:
+    184-218). Raises ValueError for a layer the model/plan lacks, a table
+    of another shape, or a file without weight tables; an AdaRound alpha
+    (w_alpha) raises NotImplementedError. Returns the tables loaded."""
+    from viditq_tpu_torch.utils.ckpt import read_quant_ckpt
+    tables, _ = read_quant_ckpt(path)
+    mods = dict(model.named_modules())
+    n = 0
+    for name, tabs in tables.items():
+        for tab, arr in tabs.items():
+            if tab not in RESUMED_TABLES:
+                continue  # act-side tables come from this run
+            if tab == "w_alpha":
+                raise NotImplementedError(
+                    f"resume_with_w_quantized: {name}.w_alpha is an AdaRound "
+                    "table (quant/reconstruction.py is not ported, ROADMAP "
+                    "queue 5)")
+            cur = getattr(mods.get(name), tab, None)
+            if not isinstance(cur, torch.Tensor):
+                raise ValueError(
+                    f"resume_with_w_quantized: checkpoint layer {name} not "
+                    "in this model/plan — plan mismatch")
+            if tuple(cur.shape) != tuple(arr.shape):
+                raise ValueError(
+                    f"resume_with_w_quantized: {name}.{tab} shape "
+                    f"{arr.shape} != model's {tuple(cur.shape)} (different "
+                    "bit list / timerange count?)")
+            cur.copy_(torch.from_numpy(np.array(arr)))
+            n += 1
+    if n == 0:
+        raise ValueError(f"resume_with_w_quantized: {path} holds no weight "
+                         "tables")
+    return n
+
+
+def check_no_reconstruction(plan) -> None:
+    """A plan whose YAML asks for optimization-based reconstruction
+    (`quant.weight.optimization.params` with AdaRound rounding, the
+    reference's use_optimization gate, t2i/scripts/ptq.py:320-359; JAX
+    cli.py:243-268) raises: `quant/reconstruction.py` is not ported."""
+    wopt, wspec = plan.weight_opt, plan.default_layer.weight
+    if (wopt is not None and wopt.enabled and wspec is not None
+            and wspec.round_mode == "learned_hard_sigmoid"):
+        raise NotImplementedError(
+            "reconstruction (AdaRound, quant/reconstruction.py) is not "
+            "ported (ROADMAP queue 5)")
+
+
+@torch.no_grad()
+def run_ptq(model: nn.Module, calib_data: Dict, plan,
+            resume_w_quantized_path: Optional[str] = None) -> PTQResult:
     """Calibrate `model` in place. calib_data: {'xs': [n_steps, NB, ...],
     'ts': [n_steps, NB], 'y': [NB, 1, L, C_cap], 'mask': [B0, L] or None}
     (`pipelines.inference.get_calib_data`); `plan` gives the step count
-    and batch (`calib_n_steps`, `calib_batch_size`). Returns the slot map
-    the quantized sampler takes (`quant_sample(..., act_slot_map=...)`;
-    None without static acts) and the calibrated timesteps."""
+    and batch (`calib_n_steps`, `calib_batch_size`).
+    resume_w_quantized_path: a quant checkpoint whose weight tables phase
+    2 takes instead of calibrating them (default the plan's
+    `resume_w_path`; as in JAX, the balancing scale `cb_scale` is then
+    left as it is). Returns the slot map the quantized sampler takes
+    (`quant_sample(..., act_slot_map=...)`; None without static acts) and
+    the calibrated timesteps."""
     xs, ts, y = calib_data["xs"], calib_data["ts"], calib_data["y"]
     mask = calib_data.get("mask")
     n_total, nb = xs.shape[0], xs.shape[1]
@@ -97,8 +161,12 @@ def run_ptq(model: nn.Module, calib_data: Dict, plan) -> PTQResult:
     # phase 1: the momentum CB act statistics (ptq.py:219-264)
     if any(m.momentum_cb for m in layers):
         forwards("sq_stat")
-    # phase 2: the weight tables, offline (ptq.py:266-293)
-    calibrate_weight_tables(model)
+    # phase 2: the weight tables, offline (ptq.py:266-293), or resumed
+    resume = resume_w_quantized_path or getattr(plan, "resume_w_path", None)
+    if resume:
+        resume_w_quantized(model, resume)
+    else:
+        calibrate_weight_tables(model)
     # phase 3: static act ranges per timestep slot (ptq.py:296-361)
     calib_ts = np.array([int(ts[s, 0]) for s in step_idx])
     slot_map = None

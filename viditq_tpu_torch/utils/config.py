@@ -6,9 +6,12 @@ into the same frozen `QuantSpec`/`LayerQuantSpec` values the JAX package
 resolves, plus a plain `QuantPlanConfig` whose `resolver()` maps dotted
 layer names to specs (with the plan's per-group `backend_overrides`, the
 hybrid plans), and the timestep-wise mixed-precision bitwidth YAMLs
-(`load_bitwidth_config`). Only the keys an inference plan and its
-calibration read are parsed; the reconstruction (`optimization`) and
-resume keys are not ported.
+(`load_bitwidth_config`). The reconstruction sections
+(`quant.{weight,activation}.optimization`) are parsed as data only: the
+PTQ flow refuses a plan that asks for reconstruction
+(`pipelines/ptq.check_no_reconstruction`). `resume_with_w_quantized`
+names a quant checkpoint whose weight tables PTQ reuses
+(`pipelines/ptq.resume_w_quantized`).
 """
 
 from __future__ import annotations
@@ -94,6 +97,55 @@ def parse_smooth_spec(cfg: Dict[str, Any]) -> SmoothQuantSpec:
 
 
 @dataclasses.dataclass(frozen=True)
+class OptimizationConfig:
+    """A parsed `quant.{weight,activation}.optimization` section, the
+    reference's reconstruction knobs (t2i/scripts/ptq.py:320-359; JAX
+    config.py:96-120): a learning rate for the AdaRound alphas or the
+    deltas turns reconstruction on."""
+
+    iters: int = 2000
+    lambda_coeff: float = 1.0
+    warmup: float = 0.0
+    alpha_lr: Optional[float] = None
+    delta_lr: Optional[float] = None
+    joint_weight_act: bool = False
+    # 'layer' (reference model_recon) or 'block' (block_reconstruction)
+    granularity: str = "layer"
+
+    @property
+    def enabled(self) -> bool:
+        return self.alpha_lr is not None or self.delta_lr is not None
+
+
+def parse_optimization(sec) -> Optional[OptimizationConfig]:
+    """JAX config.py:123-140."""
+    if not isinstance(sec, dict):
+        return None
+    loss = sec.get("loss") or {}
+    params = sec.get("params") or {}
+
+    def lr(name):
+        p = params.get(name)
+        return float(p["lr"]) if isinstance(p, dict) and "lr" in p else None
+    return OptimizationConfig(
+        iters=int(sec.get("iters", 2000)),
+        lambda_coeff=float(loss.get("lambda_coeff", 1.0)),
+        warmup=float(loss.get("warmup", 0.0)),
+        alpha_lr=lr("alpha"), delta_lr=lr("delta"),
+        joint_weight_act=bool(sec.get("joint_weight_act_opt", False)),
+        granularity=str(sec.get("granularity", "layer")))
+
+
+def _resume_w_path(sec) -> Optional[str]:
+    """`resume_with_w_quantized: {path: ...}` (JAX config.py:343-347):
+    None for the shipped configs' `path: None`."""
+    p = sec.get("path") if isinstance(sec, dict) else sec
+    if p in (None, "", "None", "none"):
+        return None
+    return str(p)
+
+
+@dataclasses.dataclass(frozen=True)
 class QuantPlanConfig:
     """One parsed quant YAML (the reference 'ptq_config'), as far as the
     port reads it: the default layer spec, the fp list, the per-group
@@ -116,6 +168,12 @@ class QuantPlanConfig:
     # patterns (e.g. softmax int8 on the temporal/cross attentions only)
     softmax_scope: Tuple[str, ...] = ()
     attn_act_scope: Tuple[str, ...] = ()
+    weight_opt: Optional[OptimizationConfig] = None
+    act_opt: Optional[OptimizationConfig] = None
+    # a prior quant checkpoint whose weight tables PTQ takes instead of
+    # calibrating them (the YAML's resume_with_w_quantized.path; JAX
+    # config.py:165-171)
+    resume_w_path: Optional[str] = None
 
     def resolver(self, overrides: Optional[Mapping[str, LayerQuantSpec]]
                  = None):
@@ -186,12 +244,15 @@ class QuantPlanConfig:
                 self.default_layer, backend=backend))
 
 
-def load_quant_config(path: str, timestep_wise: bool = False
-                      ) -> QuantPlanConfig:
-    """Load a reference-format quant YAML (t2v/scripts/ptq.py:60-148).
-    timestep_wise: static act tables with one slot per calibration step
-    (the YAML's `calib_data.n_steps`; the JAX CLI's `--timestep_wise`);
-    otherwise one slot."""
+def load_quant_config(path: str,
+                      smooth_quant_alpha: Optional[float] = None,
+                      timestep_wise: bool = False) -> QuantPlanConfig:
+    """Load a reference-format quant YAML (t2v/scripts/ptq.py:60-148; JAX
+    config.py:248-341). The `part_fp_list` layers stay fp.
+    smooth_quant_alpha: every CB timerange's alpha (where the plan
+    enables CB); timestep_wise: static act tables with one slot per
+    calibration step (the YAML's `calib_data.n_steps`; the JAX CLI's
+    `--timestep_wise`), otherwise one."""
     with open(path) as f:
         cfg = yaml.safe_load(f)
     mp = cfg.get("mixed_precision")
@@ -202,6 +263,10 @@ def load_quant_config(path: str, timestep_wise: bool = False
     aspec = parse_act_spec(quant["activation"], mp,
                            timestep_wise=timestep_wise, n_timestep=n_ts)
     smooth = parse_smooth_spec(quant["activation"])
+    if smooth_quant_alpha is not None and smooth.enable:
+        smooth = dataclasses.replace(
+            smooth, alpha=tuple(float(smooth_quant_alpha)
+                                for _ in smooth.alpha))
     # optional attention-internal quantizers ('softmax:' / 'attn_act:'
     # under the act quantizer)
     act_q_cfg = quant["activation"]["quantizer"]
@@ -255,9 +320,13 @@ def load_quant_config(path: str, timestep_wise: bool = False
         cfg_split=bool(cfg.get("cfg_split", False)),
         mixed_precision=tuple(mp) if mp else None,
         timestep_wise=timestep_wise,
-        calib_n_steps=int(calib.get("n_steps", 10)),
+        calib_n_steps=n_ts,
         calib_batch_size=int(calib.get("batch_size", 4)),
-        softmax_scope=scope(sm_cfg), attn_act_scope=scope(aa_cfg))
+        softmax_scope=scope(sm_cfg), attn_act_scope=scope(aa_cfg),
+        weight_opt=parse_optimization(quant["weight"].get("optimization")),
+        act_opt=parse_optimization(
+            quant["activation"].get("optimization")),
+        resume_w_path=_resume_w_path(cfg.get("resume_with_w_quantized")))
 
 
 def load_bitwidth_config(path: str) -> Dict[str, Any]:

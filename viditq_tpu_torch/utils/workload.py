@@ -1,16 +1,21 @@
-"""Workload entry: model and sampler construction from a workload config
-(port of `viditq_tpu/utils/workload.py:41-110`).
+"""Workload entry: config files, model and sampler construction (port of
+`viditq_tpu/utils/workload.py:25-110`).
 
-A workload config is the JAX package's dict (`model = dict(type=...)`,
-`scheduler = dict(type=...)`, `image_size` or `num_frames`, `dtype`).
+A workload config is a python file exec'd into a plain dict
+(`load_py_config`; `model = dict(type=...)`, `scheduler = dict(type=...)`,
+`image_size` or `num_frames`, `dtype`), as in the JAX package.
 `build_model` puts the model on the card unless the caller passes
 `device="cpu"`; without CUDA it raises rather than fall back to the CPU.
-The CLI's sampler aliases (`override_type`) and the VAE are not ported.
+`build_sampler` takes the CLI's `--sampler_type` aliases; the samplers
+the port lacks raise. `random_init_` is the port's seeded parameter
+draw (the JAX CLI's flax init has no counterpart here). The VAE is not
+ported.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+import runpy
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -20,6 +25,12 @@ from viditq_tpu_torch.models import MODELS, SCHEDULERS, build_module
 _DTYPES = {"fp16": torch.bfloat16, "bf16": torch.bfloat16,
            "fp32": torch.float32, "float16": torch.bfloat16,
            "float32": torch.float32}
+
+
+def load_py_config(path: str) -> Dict[str, Any]:
+    """A python config file's top-level names, but the private ones."""
+    ns = runpy.run_path(path)
+    return {k: v for k, v in ns.items() if not k.startswith("_")}
 
 
 def model_dtype(cfg: Dict[str, Any]):
@@ -61,10 +72,55 @@ def build_model(cfg: Dict[str, Any], resolver=None, dtype=None,
     return model.to(dev).eval()  # the static sincos tables start on the host
 
 
-def build_sampler(cfg: Dict[str, Any], cfg_split: bool = False):
-    """The config's scheduler ('iddpm' or 'dpm-solver'), CFG 4.0 unless the
-    config sets it."""
+def random_init_(model, seed: int = 0, scale: float = 0.02):
+    """normal x scale for every float parameter (bench.py:149-152 uses
+    0.02), in `named_parameters` order from a seeded generator on the
+    model's device. The quant tables are not drawn (calibration and packing
+    write them all), so every plan draws the same fp weights from the same
+    seed, whichever layers it quantizes. The draws are not those of the
+    JAX package's flax initialisers."""
+    dev = next(model.parameters()).device
+    g = torch.Generator(device=dev).manual_seed(seed)
+    with torch.no_grad():
+        for _, p in model.named_parameters():
+            p.copy_(torch.randn(p.shape, generator=g, device=dev) * scale)
+    return model
+
+
+# --sampler_type (reference t2i quant_txt2img.py:138-182): 'ddim' keeps
+# the config's scheduler (the IDDPM wrapper samples DDIM); these names
+# replace it
+SAMPLER_ALIASES = {"dpms": "dpm-solver", "dpm-solver": "dpm-solver",
+                   "sa-solver": "sa-solver", "lcm": "lcm", "edm": "edm"}
+SAMPLER_TYPES = ("ddim", "iddpm", "dpms", "dpm-solver", "sa-solver", "lcm",
+                 "edm")
+
+
+def build_sampler(cfg: Dict[str, Any], cfg_split: bool = False,
+                  override_type: Optional[str] = None):
+    """The config's scheduler ('iddpm', sampled by DDIM, or 'dpm-solver'),
+    CFG 4.0 unless the config sets it. override_type: the CLI's
+    `--sampler_type` (JAX workload.py:66-90): a solver name replaces the
+    scheduler, keeping its step count, scale and channels. The samplers
+    the port lacks raise NotImplementedError: the IDDPM's ancestral loop
+    ('iddpm', ROADMAP D6) and SA-Solver, LCM and EDM (queue item 7)."""
     scfg = dict(cfg.get("scheduler", {"type": "iddpm"}))
     scfg.setdefault("cfg_scale", 4.0)
+    if override_type is not None and override_type not in SAMPLER_TYPES:
+        raise ValueError(f"unknown sampler type {override_type!r}")
+    target = SAMPLER_ALIASES.get(override_type)
+    if target is not None and scfg.get("type") != target:
+        scfg = {"type": target,
+                **{k: scfg[k] for k in
+                   ("num_sampling_steps", "cfg_scale", "in_channels")
+                   if k in scfg}}
+    kind = scfg.get("type", "iddpm")
+    if kind in ("sa-solver", "lcm", "edm"):
+        raise NotImplementedError(
+            f"sampler {kind!r} is not ported (ROADMAP queue item 7)")
+    if override_type == "iddpm" and kind == "iddpm":
+        raise NotImplementedError(
+            "the IDDPM ancestral sampling loop is not ported (ROADMAP D6); "
+            "--sampler_type ddim samples the same scheduler by DDIM")
     scfg["cfg_split"] = cfg_split
     return build_module(scfg, SCHEDULERS)
