@@ -44,7 +44,13 @@ Phases (any failure exits non-zero):
      the residual (+ gate) epilogue of K2 (every mode it composes with)
      and K5 (identical to K4 -> K2 with it) at the sm8_epi arm's shapes,
      and the attn8 arm's K8 (identical) and K3 with int8_qk at its three
-     sites;
+     sites; K3's float32 mode (`csrc/attention_f32.cu`, AdaRound's float32
+     block) at the reconstruction's three sites (spatial [32, 1024, 16,
+     72], temporal seg 16 [2, 16384, 16, 72], cross to 120 prompt tokens
+     with 20 padded) and its edge cases, to `F32_REL_ERR`, timed one call
+     and back to back beside SDPA in float32, and its gradient (JAX's
+     custom_vjp: the plain f32 attention's recompute) equal to the plain
+     attention's autograd gradient;
   4. reference: tiny STDiT (sm8, sm8_epi, attn8, the fused reference
      W8A8, the reference W8A8 on the native backend and the W4A8 CB
      recipe, asym and sym) and
@@ -119,14 +125,29 @@ Phases (any failure exits non-zero):
      score as a relative error against the fp samples' mean square,
      within `SLICE_REL_ERR`), `sweep-alpha` and `smooth-quant-list` at
      full width cut to 4 blocks and 4 steps. Each command's seconds, peak
-     memory, launches and files.
+     memory, launches and files;
+  8. recon: AdaRound in the same directory, on phase cli's weights,
+     calib_data.npz and fp samples: `ptq` under a copy of
+     `w4a8_adaround.yaml` with `RECON_ITERS` iterations a block (block
+     granularity, asym: each block's input re-captured through the
+     reconstructed blocks before it; the float32 block's forward on K3's
+     float32 mode, 3 launches a block forward), with the ms per iteration
+     per block, the 28 re-capture forwards' seconds, the peak memory and
+     the extrapolation to the plan's 2000 iterations x 28 blocks; then
+     `quant-generate` from its checkpoint on the simulate backend and with
+     `--backend native` (K7a/K7b on slabs packed with the learned rounding),
+     and the same plan with nearest rounding: each sample's rel err against
+     the fp samples and against nearest rounding, the two backends within
+     `RECON_BACKEND_REL`; then layer granularity and
+     `mlp_block_reconstruction` at full width on `RECON_LAYER_DEPTH` blocks
+     (JAX's layer granularity holds every layer's I/O at once).
 Each arm and each CLI command resets the launch counts just before its run
 and reads them just after; one that launches a kernel outside its list,
 or none of one in it, fails; the arms held to per-block counts
 (`BLOCK_LAUNCHES`) must hit them exactly. The third-to-last line is the
 card's name and power limit, the second-to-last a JSON object with one
 entry per kernel (launches summed over all arms of both slices and the
-CLI's commands), the last {"ok": true, "device": {...}}.
+CLI's and recon's commands), the last {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -203,7 +224,7 @@ SIGMA_CFG = {
 # bound: the larger of bytes / HBM rate and the sum over operation types
 # of operations / peak rate
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12}
+PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
 
 # tolerances (acceptance criteria of the port): int8 codes differ by at
 # most 1 at no more than 0.1% of entries (a float reduction precedes every
@@ -212,6 +233,10 @@ PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12}
 CODE_MAX_DIFF = 1
 CODE_MISMATCH_FRAC = 1e-3
 REL_ERR = 1e-2
+# K3's float32 mode against its plain version: f32 outputs of the same
+# bf16 q.k and f32 softmax and PV, summed in another order (the first run's
+# readings: rel 1e-7 to 8e-7, max abs 1.2e-6 on unit-normal inputs)
+F32_REL_ERR = 1e-5
 # asym row quantizers (codes, scale, zp, rowsum), every row compared by
 # `compare_asym_rows`: per producer, the largest relative error of a row's
 # scale and the largest share of rows whose scale or zero point differ at
@@ -410,6 +435,8 @@ REPLACES = {
     "ln_modulate_quantize": "viditq_tpu/kernels/fused_matmul.py:673",
     "int8_consumer_matmul": "viditq_tpu/kernels/fused_matmul.py:394",
     "attention_bnhd": "viditq_tpu/kernels/attention.py:599",
+    # the same TPU kernel's float32 inputs (AdaRound's float32 block)
+    "attention_bnhd_f32": "viditq_tpu/kernels/attention.py:599",
     "quantize_rows": "viditq_tpu/kernels/fused_matmul.py:606",
     "fused_dynq_int8_matmul": "viditq_tpu/kernels/fused_matmul.py:209",
     "attention_bnhd_stream": "viditq_tpu/kernels/attention.py:236",
@@ -422,6 +449,7 @@ SOURCES = {
     "ln_modulate_quantize": "viditq_tpu_torch/csrc/ln_mod_quant.cu",
     "int8_consumer_matmul": "viditq_tpu_torch/csrc/int8_gemm.cu",
     "attention_bnhd": "viditq_tpu_torch/csrc/attention.cu",
+    "attention_bnhd_f32": "viditq_tpu_torch/csrc/attention_f32.cu",
     "quantize_rows": "viditq_tpu_torch/csrc/quant_rows.cu",
     "fused_dynq_int8_matmul": "viditq_tpu_torch/csrc/dynq_gemm.cu",
     "attention_bnhd_stream": "viditq_tpu_torch/csrc/attention_stream.cu",
@@ -683,9 +711,10 @@ def int8_pv_slack(q, k, v, sc, seg_len, kv_mask, v_block, scales):
 
 def check_case(name, case, kernel_fn, plain_fn, records, cost=None,
                library_fn=None, library_note="", exact=False, asym=None,
-               slack_fn=None, b2b=False):
+               slack_fn=None, b2b=False, rel_err=REL_ERR):
     """Run kernel and plain version on the same inputs, compare every
-    output (identical with exact; asym = ASYM_TOL[producer]: the outputs
+    output (float outputs to rel_err; identical with exact; asym =
+    ASYM_TOL[producer]: the outputs
     of an asym row quantizer by `compare_asym_rows`, its row sums
     unshifted; slack_fn(plain outputs): per-entry codes an int8-PV
     emission may differ beyond one, `int8_pv_slack`), time both and the
@@ -749,8 +778,8 @@ def check_case(name, case, kernel_fn, plain_fn, records, cost=None,
                 fail(f"{name}/{case}: codes differ (max {mx}, frac {frac})")
             max_abs = max(max_abs, mx)
         else:
-            if rel > REL_ERR:
-                fail(f"{name}/{case}: relative error {rel} > {REL_ERR}")
+            if rel > rel_err:
+                fail(f"{name}/{case}: relative error {rel} > {rel_err}")
             max_abs = max(max_abs, mx)
         worst_frac = max(worst_frac, frac)
         worst_rel = max(worst_rel, rel)
@@ -978,6 +1007,7 @@ def phase_kernels(records):
             library_note=" (scaled_dot_product_attention)")
 
     attention_edge_cases(records, randn)
+    f32_attention_cases(records)
 
     # K5 (one launch of csrc/dynq_gemm.cu): cross_attn.kv_linear and
     # cross_attn.q_linear, sym x sym (the sm8 and sym arms, Σ sm8)
@@ -1975,6 +2005,103 @@ def attention_edge_cases(records, randn):
                    slack_fn=slack_fn)
 
 
+def f32_attention_cases(records):
+    """K3's float32 mode (csrc/attention_f32.cu), the forward of
+    reconstruction's float32 block, at its three sites with the CFG pair
+    of one minibatch (2 rows): spatial full attention [32, 1024, 16, 72],
+    temporal seg 16 [2, 16384, 16, 72] and cross attention to 120 prompt
+    tokens, the last 20 of one row padded; then its edge cases (head dim 16
+    with ragged q and kv tiles, seg 5 with a ragged last tile, seg 48 over
+    several tiles). Each against its plain version to F32_REL_ERR, timed
+    one call and back to back, beside SDPA in float32 (TF32 off). Its
+    bound: q/k/v read and the output written in f32 (the mask as int32),
+    q.k as bf16 operations (its operands are rounded to bf16) and the PV as
+    f32 operations on the CUDA cores. Then the autograd case: the wrapped
+    kernel's gradient against the plain f32 attention's, both backwards
+    the same plain code."""
+    import torch
+    import torch.nn.functional as F
+    from viditq_tpu_torch.kernels import attention as A
+    g = torch.Generator(device="cuda").manual_seed(15)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device="cuda")
+
+    H, D = 16, 72
+    mask = torch.ones((2, 120), dtype=torch.int32, device="cuda")
+    mask[1, 100:] = 0
+    mask16 = torch.ones((3, 50), dtype=torch.int32, device="cuda")
+    mask16[2, 43:] = 0
+    cases = (("spatial [32,1024,16,72]", (32, 1024, 1024, H, D), 0, None),
+             ("temporal seg 16 [2,16384,16,72]", (2, 16384, 16384, H, D),
+              16, None),
+             ("cross [2,16384,16,72] kv 120 masked", (2, 16384, 120, H, D),
+              0, mask),
+             ("edge D=16 [3,77,4,16] kv 50 masked", (3, 77, 50, 4, 16), 0,
+              mask16),
+             ("edge seg 5 [2,80,4,16]", (2, 80, 80, 4, 16), 5, None),
+             ("edge seg 48 [1,192,2,72]", (1, 192, 192, 2, 72), 48, None))
+    for case, (B, N, M, h, d), seg, m in cases:
+        q, k, v = randn(B, N, h, d), randn(B, M, h, d), randn(B, M, h, d)
+        sc = d ** -0.5
+        rows = ([seg] * B if seg else [M] * B if m is None
+                else [int(r) for r in (m != 0).sum(1)])
+        prods = 2 * h * N * d * sum(rows)
+        nbytes = 4 * (2 * B * N * h * d + 2 * B * M * h * d)
+        if m is not None:
+            nbytes += 4 * B * M
+        edge = case.startswith("edge")
+        lib = None
+        if not edge:
+            if seg:
+                qh, kh, vh = (t.reshape(B * N // seg, seg, h, d)
+                              .transpose(1, 2).contiguous()
+                              for t in (q, k, v))
+                am = None
+            else:
+                qh, kh, vh = (t.transpose(1, 2).contiguous()
+                              for t in (q, k, v))
+                am = None if m is None else (m != 0)[:, None, None, :]
+            lib = (lambda qh=qh, kh=kh, vh=vh, am=am:
+                   F.scaled_dot_product_attention(qh, kh, vh, attn_mask=am,
+                                                  scale=sc))
+        check_case(
+            "attention_bnhd_f32", case,
+            lambda q=q, k=k, v=v, seg=seg, m=m, sc=sc:
+                A.attention_bnhd(q, k, v, sc, seg_len=seg, kv_mask=m),
+            lambda q=q, k=k, v=v, seg=seg, m=m, sc=sc:
+                A.attention_bnhd_plain(q, k, v, sc, seg_len=seg, kv_mask=m),
+            records, cost=(nbytes, {"bf16": prods, "f32": prods}),
+            library_fn=lib, library_note=" (SDPA float32)",
+            rel_err=F32_REL_ERR, b2b=not edge)
+        del q, k, v, lib
+    # autograd: the same backward (JAX's custom_vjp: a recompute through
+    # the plain f32 attention) on the same inputs gives the same gradient
+    for case, (B, N, M), seg, m in (
+            ("spatial", (32, 1024, 1024), 0, None),
+            ("temporal seg 16", (2, 16384, 16384), 16, None),
+            ("cross masked", (2, 16384, 120), 0, mask)):
+        q, k, v = (randn(B, n, H, D).requires_grad_() for n in (N, M, M))
+        gout = randn(B, N, H, D)
+        t0 = time.time()
+        out = A.attention_bnhd(q, k, v, D ** -0.5, seg_len=seg, kv_mask=m)
+        got = torch.autograd.grad(out, (q, k, v), gout)
+        torch.cuda.synchronize()
+        secs = time.time() - t0
+        qkv = [t.detach().requires_grad_() for t in (q, k, v)]
+        want = torch.autograd.grad(A.attention_bnhd_xla(
+            *qkv, D ** -0.5, seg, m), qkv, gout)
+        diff = max(float((a - b).abs().max()) for a, b in zip(got, want))
+        print(f"  attention_bnhd_f32 grad {case:18s} forward (kernel) + "
+              f"backward (plain f32) {secs * 1e3:.1f} ms; max |d grad| vs "
+              f"the plain attention's autograd {diff:.3g} (limit 0)",
+              flush=True)
+        if diff != 0 or not all(torch.isfinite(a).all() for a in got):
+            fail(f"attention_bnhd_f32 {case}: the wrapped kernel's gradient "
+                 f"differs from the plain attention's by {diff}")
+        del q, k, v, out, got, want, qkv
+
+
 STDIT_CFG = {"model": dict(type="STDiT-XL/2"), "num_frames": 16,
              "image_size": (512, 512), "scheduler": dict(
                  type="iddpm", num_sampling_steps=STEPS, cfg_scale=4.0),
@@ -2625,8 +2752,33 @@ CLI_KERNELS = {"inference": "bf16", "get-calib-data": "bf16",
                "ptq naive": "naive", "quant-generate naive": "naive",
                "get-sensitivity": "w8a8",
                "inference (analysis cut)": "bf16", "sweep-alpha": "bf16",
-               "smooth-quant-list": "bf16"}
+               "smooth-quant-list": "bf16",
+               # phase recon: the capture forwards in bf16 (K3), the
+               # float32 block's forwards (K3's float32 mode); sampling
+               # on the simulate backend (K3) and the native one (K7a,
+               # K7b, K3); layer granularity captures in bf16 only
+               "ptq adaround": ("attention_bnhd", "attention_bnhd_f32"),
+               "quant-generate adaround": "sim_w8a8",
+               "quant-generate adaround native": "w8a8",
+               "quant-generate nearest": "sim_w8a8",
+               "ptq adaround layer": ("attention_bnhd",)}
 CLI_SAME_REL = 1e-3  # CLI samples against the in-process path
+# phase recon: AdaRound (`w4a8_adaround.yaml`) through `ptq` at full width,
+# its iterations cut from the plan's 2000 a block to RECON_ITERS (a copy of
+# the YAML in the phase's temporary directory); layer granularity and the
+# MLP pair at full width on RECON_LAYER_DEPTH blocks (JAX's layer
+# granularity holds every layer's captured I/O at once: ~1.5 GB a block
+# here, ~42 GB at 28)
+ADAROUND_PLAN = ROOT / "configs/opensora/w4a8_adaround.yaml"
+RECON_ITERS = 2
+RECON_LAYER_ITERS = 20
+RECON_LAYER_DEPTH = 2
+RECON_DEPTH = 28  # STDiT-XL/2's blocks, each reconstructed
+# the simulate and the native backend's samples of the same checkpoint:
+# the native acts are quantized per row (K7a), the simulate acts per token
+# position over the batch (ROADMAP C10), and the W4 weights dequantize in
+# bf16 on one and in the int32 epilogue on the other, over 20 steps
+RECON_BACKEND_REL = 5e-2
 
 
 def cli_workload(tmp: Path, steps: int, depth=None) -> str:
@@ -2654,8 +2806,8 @@ def cli_workload(tmp: Path, steps: int, depth=None) -> str:
 def run_cli(label, argv, counts):
     """One CLI command in this process: seconds, peak memory and the
     launches of its kernels (reset just before, read just after; a kernel
-    outside its `CLI_KERNELS` arm, or none of one in it, fails). Returns
-    what the command returned."""
+    outside its `CLI_KERNELS` arm or kernel list, or none of one in it,
+    fails). Returns what the command returned."""
     import torch
     from viditq_tpu_torch import cli
     from viditq_tpu_torch.kernels import _counters
@@ -2669,7 +2821,8 @@ def run_cli(label, argv, counts):
     snap = _counters.snapshot()
     launched = {k: v["launches"] for k, v in snap.items() if v["launches"]}
     arm = CLI_KERNELS[label]
-    want = set(SLICE_KERNELS["stdit"][arm]) if arm else set()
+    want = (set(SLICE_KERNELS["stdit"][arm]) if isinstance(arm, str)
+            else set(arm or ()))
     if set(launched) != want:
         fail(f"cli {label}: launched {launched}, want every one of "
              f"{sorted(want)} and no other")
@@ -2892,8 +3045,160 @@ def phase_cli():
               f"{len(best)} layers in [{min(best.values())}, "
               f"{max(best.values())}]; {len(out['picks'])} CB candidates",
               flush=True)
-    print(f"phase cli: {time.time() - t_phase:.1f} s", flush=True)
+        print(f"phase cli: {time.time() - t_phase:.1f} s", flush=True)
+        phase_recon(tmp, config, str(params), calib, fp, counts)
     return counts
+
+
+def adaround_plan_copy(tmp: Path, name: str, **change) -> str:
+    """A copy of `w4a8_adaround.yaml` in tmp: `iters` and `granularity`
+    set in its optimisation section, or `nearest=True`: nearest rounding
+    and no optimisation section (the same plan without AdaRound)."""
+    import yaml
+    y = yaml.safe_load(ADAROUND_PLAN.read_text())
+    y["part_fp_list"] = str(ROOT / "configs/opensora/remain_fp.txt")
+    w = y["quant"]["weight"]
+    if change.pop("nearest", False):
+        w["optimization"] = None
+        w["quantizer"]["round_mode"] = "nearest"
+    if w["optimization"] is not None:
+        w["optimization"].update(change)
+    path = tmp / name
+    path.write_text(yaml.safe_dump(y, sort_keys=False))
+    return str(path)
+
+
+def phase_recon(tmp: Path, config: str, params: str, calib: str, fp,
+                counts: dict):
+    """AdaRound through the port's CLI at STDiT-XL/2's full width (module
+    header, phase 8), in phase cli's directory, on its weights, its
+    calib_data.npz and its fp samples: `ptq` under `w4a8_adaround.yaml`
+    (block granularity, asym, RECON_ITERS iterations a block), then
+    `quant-generate` from its checkpoint on the simulate and the native
+    backend, and the same plan with nearest rounding; layer granularity
+    and `mlp_block_reconstruction` on RECON_LAYER_DEPTH blocks. Adds each
+    command's launches to counts."""
+    import torch
+    from viditq_tpu_torch.quant import reconstruction as recon
+    from viditq_tpu_torch.utils import workload
+    from viditq_tpu_torch.utils.config import load_quant_config
+
+    t_phase = time.time()
+    plan = adaround_plan_copy(tmp, "w4a8_adaround_cut.yaml",
+                              iters=RECON_ITERS)
+    near = adaround_plan_copy(tmp, "w4a8_nearest.yaml", nearest=True)
+    base = ["--config", config, "--ckpt_path", params]
+    out, launched = run_cli("ptq adaround",
+                            ["ptq", "--save_dir", str(tmp / "ada"),
+                             "--calib_data", calib, "--ptq_config", plan,
+                             *base], counts)
+    qck, tim = out["out"], out["recon_timings"]
+    block_s, capture_s = tim["block_s"], tim["capture_s"]
+    n_blocks = len(block_s)
+    if n_blocks != RECON_DEPTH or len(capture_s) != RECON_DEPTH:
+        fail(f"recon: {n_blocks} blocks reconstructed, {len(capture_s)} "
+             f"captures, want {RECON_DEPTH} each")
+    ms_iter = [1e3 * b / RECON_ITERS for b in block_s]
+    full_iters = load_quant_config(str(ADAROUND_PLAN)).weight_opt.iters
+    med = float(np.median(ms_iter))
+    est_h = (full_iters * med / 1e3 * RECON_DEPTH + sum(capture_s)) / 3600
+    n_f32 = launched["attention_bnhd_f32"]
+    cap_ms = float(np.median(capture_s)) * 1e3
+    print(f"  recon: {RECON_ITERS} iterations x {RECON_DEPTH} blocks (the "
+          f"f32 block's forward + backward on the 2 CFG rows): ms per "
+          f"iteration per block median {med:.1f}, min {min(ms_iter):.1f}, "
+          f"max {max(ms_iter):.1f} (block 0 {ms_iter[0]:.1f}); the "
+          f"{RECON_DEPTH} asym re-capture forwards {sum(capture_s):.2f} s "
+          f"({cap_ms:.0f} ms each); the whole reconstruction "
+          f"{out['recon_seconds']:.1f} s; K3 float32 launches {n_f32} "
+          f"({n_f32 // (RECON_DEPTH * RECON_ITERS)} a block forward); the "
+          f"plan's {full_iters} iterations x {RECON_DEPTH} blocks "
+          f"extrapolate to {est_h:.2f} h on this card", flush=True)
+    if launched["attention_bnhd_f32"] != 3 * RECON_DEPTH * RECON_ITERS:
+        fail(f"recon: {launched['attention_bnhd_f32']} float32 K3 launches, "
+             f"want 3 sites x {RECON_DEPTH} blocks x {RECON_ITERS} "
+             "iterations")
+    samples = {}
+    common = base + ["--num_samples", "1"]
+    for label, extra in (
+            ("quant-generate adaround", ["--ptq_config", plan,
+                                         "--quant_ckpt", qck]),
+            ("quant-generate adaround native", [
+                "--ptq_config", plan, "--quant_ckpt", qck, "--backend",
+                "native"]),
+            ("quant-generate nearest", ["--ptq_config", near])):
+        out, _ = run_cli(label, ["quant-generate", "--save_dir",
+                                 str(tmp / label.replace(" ", "_")),
+                                 *common, *extra], counts)
+        samples[label] = torch.from_numpy(
+            np.load(out["out"])["samples"]).float()
+        if (samples[label].shape != fp.shape
+                or not torch.isfinite(samples[label]).all()):
+            fail(f"recon {label}: samples {tuple(samples[label].shape)}, "
+                 "finite and of the fp samples' shape wanted")
+        print(f"  recon {label}: {out['sample_seconds'] * 1e3 / CLI_STEPS:.1f}"
+              f" ms/step", flush=True)
+
+    def rel(a, b):
+        return float((a - b).norm() / b.norm())
+    sim, nat, nrst = (samples[k] for k in (
+        "quant-generate adaround", "quant-generate adaround native",
+        "quant-generate nearest"))
+    r_back = rel(nat, sim)
+    print(f"  recon samples rel err: simulate vs fp {rel(sim, fp):.4g}, "
+          f"native vs fp {rel(nat, fp):.4g}, nearest rounding vs fp "
+          f"{rel(nrst, fp):.4g}; AdaRound vs nearest rounding: simulate "
+          f"{rel(sim, nrst):.4g}, native {rel(nat, nrst):.4g}; native vs "
+          f"simulate {r_back:.4g} (limit {RECON_BACKEND_REL})", flush=True)
+    if not r_back <= RECON_BACKEND_REL:
+        fail(f"recon: the native and simulate samples of the AdaRound "
+             f"checkpoint differ by {r_back}")
+    if not (rel(sim, nrst) > 0 and rel(nat, nrst) > 0):
+        fail("recon: the learned rounding did not reach the samples")
+    # layer granularity and the MLP pair, the depth cut
+    cut = cli_workload(tmp, CLI_STEPS, RECON_LAYER_DEPTH)
+    lplan = adaround_plan_copy(tmp, "w4a8_adaround_layer.yaml",
+                               iters=RECON_LAYER_ITERS, granularity="layer")
+    out, _ = run_cli("ptq adaround layer",
+                     ["ptq", "--save_dir", str(tmp / "ada_layer"),
+                      "--calib_data", calib, "--ptq_config", lplan,
+                      "--config", cut], counts)
+    print(f"  recon layer granularity ({RECON_LAYER_DEPTH} blocks, "
+          f"{RECON_LAYER_ITERS} iterations a layer): "
+          f"{out['recon_seconds']:.1f} s", flush=True)
+    qplan = load_quant_config(lplan)
+    model = workload.build_model(workload.load_py_config(cut),
+                                 qplan.resolver(), device="cuda")
+    workload.random_init_(model, 0, 0.02)
+    from viditq_tpu_torch.cli import load_calib_data
+    cal = load_calib_data(calib, "cuda")
+    io = recon.capture_layer_io(model, (cal["xs"][0], cal["ts"][0].float(),
+                                        cal["y"], cal["mask"]))
+    mlp = model.blocks[0].mlp
+    x1, y2 = io["blocks.0.mlp.fc1"][0], io["blocks.0.mlp.fc2"][1]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    res = recon.mlp_block_reconstruction(
+        mlp.fc1.kernel, mlp.fc1.bias, mlp.fc2.kernel, mlp.fc2.bias, x1, y2,
+        mlp.fc1.lspec, recon.ReconConfig(
+            iters=RECON_LAYER_ITERS, batch_size=qplan.calib_batch_size,
+            lr_alpha=qplan.weight_opt.alpha_lr,
+            lambda_coeff=qplan.weight_opt.lambda_coeff,
+            warmup=qplan.weight_opt.warmup))
+    torch.cuda.synchronize()
+    losses = res["recon_losses"]
+    if not torch.isfinite(losses).all() or not all(
+            torch.isfinite(res[n]["w_alpha"]).all() for n in ("fc1", "fc2")):
+        fail("recon: mlp_block_reconstruction gave non-finite values")
+    print(f"  recon mlp_block_reconstruction (block 0 fc1 -> fc2, "
+          f"{x1.shape[0] * x1.shape[1]} captured rows, "
+          f"{RECON_LAYER_ITERS} iterations): {time.time() - t0:.2f} s, peak "
+          f"memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB, "
+          f"loss {float(losses[0]):.4g} -> {float(losses[-1]):.4g}",
+          flush=True)
+    del model, io, res, cal
+    print(f"phase recon: {time.time() - t_phase:.1f} s", flush=True)
 
 
 def main() -> int:

@@ -150,21 +150,32 @@ def test_unported_plans_raise_at_model_construction():
             out = lin(x, QuantCtx())
         assert out.shape == (2, 8, 64) and torch.isfinite(out).all()
     QuantLinear(64, 64, spec)  # the sm8 layer spec is ported
-    # still raising: stochastic rounding, AdaRound, the grid-search scale
-    # method (the PTQ slice) and the 'dynamic' CB type on native (as JAX)
-    for bad in (dataclasses.replace(simulate, weight=dataclasses.replace(
-                    spec.weight, round_mode="stochastic")),
-                dataclasses.replace(simulate, weight=dataclasses.replace(
-                    spec.weight, round_mode="learned_hard_sigmoid")),
-                dataclasses.replace(simulate, weight=dataclasses.replace(
-                    spec.weight, scale_method="grid_search_lp")),
-                dataclasses.replace(simulate, act=dataclasses.replace(
-                    spec.act, scale_method="grid_search_lp"))):
-        with pytest.raises(NotImplementedError):
-            QuantLinear(64, 64, bad)
-    with pytest.raises(NotImplementedError):
-        QuantLinear(64, 64, load_quant_config(
-            "configs/opensora/w4a8_adaround.yaml").default_layer)
+    # stochastic rounding, AdaRound, the grid-search scale method and the
+    # AdaRound plan raised NotImplementedError until they were ported:
+    # each now builds, calibrates and runs its simulate path (the parity
+    # cases: tests/test_torch_quant_modes.py, test_torch_recon.py); the
+    # 'dynamic' CB type on native still raises (as JAX)
+    from viditq_tpu_torch.quant.calibrate import calibrate_weight_tables
+    for case in (dataclasses.replace(simulate, weight=dataclasses.replace(
+                     spec.weight, round_mode="stochastic")),
+                 dataclasses.replace(simulate, weight=dataclasses.replace(
+                     spec.weight, round_mode="learned_hard_sigmoid")),
+                 dataclasses.replace(simulate, weight=dataclasses.replace(
+                     spec.weight, scale_method="grid_search_lp")),
+                 dataclasses.replace(simulate, act=dataclasses.replace(
+                     spec.act, scale_method="grid_search_lp")),
+                 load_quant_config(
+                     "configs/opensora/w4a8_adaround.yaml").default_layer):
+        lin = QuantLinear(64, 64, case, dtype=torch.float32)
+        assert lin.path == "simulate"
+        assert lin.adaround == (case.weight.round_mode
+                                == "learned_hard_sigmoid")
+        with torch.no_grad():
+            lin.kernel.normal_()
+        calibrate_weight_tables(lin)
+        out = lin(torch.randn(2, 8, 64), QuantCtx(
+            generator=torch.Generator().manual_seed(0)))
+        assert out.shape == (2, 8, 64) and torch.isfinite(out).all()
     dyn_cb = dataclasses.replace(spec, smooth_quant=type(spec.smooth_quant)(
         enable=True, channel_wise_scale_type="dynamic"))
     with pytest.raises(ValueError, match="momentum"):
@@ -674,9 +685,11 @@ def test_cli_runs_on_the_card_unless_told_otherwise(monkeypatch, tmp_path):
     assert set(subs) == {"split-ckpt", "inference", "get-calib-data", "ptq",
                          "quant-generate", "quant-generate-mp",
                          "get-sensitivity", "sweep-alpha",
-                         "smooth-quant-list"}
+                         "smooth-quant-list", "calibrate-ptqd-k"}
     for name, sp in subs.items():
-        if name != "split-ckpt":  # converts files on the host
+        # split-ckpt converts files and calibrate-ptqd-k fits k_t to saved
+        # trajectories, both on the host: no model
+        if name not in ("split-ckpt", "calibrate-ptqd-k"):
             assert sp.get_default("device") == "cuda", name
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     tiny = "configs/workload/opensora_tiny.py"

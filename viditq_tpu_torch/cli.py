@@ -13,6 +13,8 @@ Command map to the reference scripts:
   get-sensitivity   <- t2v/scripts/get_sensitivity.py
   sweep-alpha       <- t2v/scripts/sweep_alpha.py
   smooth-quant-list <- t2v/scripts/get_smooth_quant_list.py
+  calibrate-ptqd-k  <- t2v/scripts/calibrate_ptqd_k.py (k_t from matched
+                       trajectories)
 
 The commands take the JAX CLI's flags and write its files and keys:
 `fp_samples.npz` and `quant_samples.npz` (`samples`), `calib_data.npz`
@@ -28,9 +30,16 @@ cpu` is given; without CUDA the model build raises. Without
 `utils/workload.random_init_`), not the JAX package's flax init, so such
 runs do not match the JAX CLI's.
 
+`ptq` on a plan that asks for reconstruction (`quant.weight.optimization`
+with AdaRound rounding, `configs/opensora/w4a8_adaround.yaml`) runs it after
+the calibration, as the JAX CLI does (cli.py:240-268): block granularity
+(`quant/reconstruction.model_block_reconstruction`, asym) or layer
+granularity (`capture_layer_io`, `model_reconstruction`) on the first
+calibration step's rows (x, t, y, mask); the learned `w_alpha` tables go
+into `quant_ckpt.npz`.
+
 Not ported: get-text-embeds and the 'clip' metric (T5/CLIP weights),
-extract-features (the VAE), train, calibrate-ptqd-k (the PTQD
-correction) and export (StableHLO).
+extract-features (the VAE), train and export (StableHLO).
 """
 
 from __future__ import annotations
@@ -238,7 +247,8 @@ def load_calib_data(path: str, device: str):
 
 def cmd_ptq(args):
     import yaml
-    from viditq_tpu_torch.pipelines.ptq import check_no_reconstruction, run_ptq
+    from viditq_tpu_torch.pipelines.ptq import run_ptq
+    from viditq_tpu_torch.quant import reconstruction as recon
     from viditq_tpu_torch.utils import ckpt as ckpt_utils
     from viditq_tpu_torch.utils.logging import log_invocation, setup_logger
     logger = setup_logger(args.save_dir, "ptq_run")
@@ -257,18 +267,39 @@ def cmd_ptq(args):
     with open(os.path.join(args.save_dir, "quant_config_snapshot.yaml"),
               "w") as f:
         yaml.safe_dump(plan_yaml, f, sort_keys=False)
-    check_no_reconstruction(plan)
     calib = load_calib_data(args.calib_data, args.device)
     res, secs = _timed(lambda: run_ptq(
         model, calib, plan,
         resume_w_quantized_path=args.resume_with_w_quantized), args.device)
+    done = {"seconds": secs}
+    if recon.wants_reconstruction(plan):
+        # the reference's optimisation pass after the calibration (JAX
+        # cli.py:240-268), on the first calibration step's rows
+        rcfg = recon.recon_config(plan)
+        recon_args = (calib["xs"][0], calib["ts"][0].float(), calib["y"],
+                      calib["mask"])
+        wopt = plan.weight_opt
+        logger.info("reconstruction: granularity=%s iters=%d",
+                    wopt.granularity, wopt.iters)
+        timings = {}
+
+        def run():
+            if wopt.granularity == "block":
+                return recon.model_block_reconstruction(
+                    model, recon_args, rcfg, mask=calib["mask"],
+                    timings=timings)
+            io = recon.capture_layer_io(model, recon_args)
+            return recon.model_reconstruction(model, io, rcfg)
+        _, done["recon_seconds"] = _timed(run, args.device)
+        done["recon_timings"] = timings
+        logger.info("reconstructed in %.3f s", done["recon_seconds"])
     out = os.path.join(args.save_dir, "quant_ckpt.npz")
     meta = {"act_slot_map": res.act_slot_map, "calib_ts": res.calib_ts,
             "ptq_config": args.ptq_config}
     ckpt_utils.save_quant_ckpt(out, model, meta)
     logger.info("calibrated in %.3f s", secs)
     print(f"saved quant params -> {out}")
-    return {"out": out, "seconds": secs}
+    return {"out": out, **done}
 
 
 def prepare_quant_model(model, plan, quant_ckpt=None):
@@ -451,6 +482,19 @@ def cmd_smooth_quant_list(args):
     return {"out": out, "picks": picks}
 
 
+def cmd_calibrate_ptqd_k(args):
+    """k_t per step from matched fp and quantized trajectories (`outs`
+    [n_steps, ...] in each npz) -> ptqd_k.npy (JAX cli.py:629-635)."""
+    from viditq_tpu_torch.pipelines.analysis import calibrate_ptqd_k
+    k = calibrate_ptqd_k(np.load(args.fp_trajectory)["outs"],
+                         np.load(args.quant_trajectory)["outs"])
+    os.makedirs(args.save_dir, exist_ok=True)
+    out = os.path.join(args.save_dir, "ptqd_k.npy")
+    np.save(out, k)
+    print(f"k_t per step: {k}")
+    return {"out": out, "k": k}
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="viditq_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -514,6 +558,12 @@ def build_parser() -> argparse.ArgumentParser:
                         "reused (skips weight calibration; the YAML "
                         "resume_with_w_quantized.path key works too)")
     s.set_defaults(fn=cmd_ptq)
+
+    s = sub.add_parser("calibrate-ptqd-k")
+    s.add_argument("--fp_trajectory", required=True)
+    s.add_argument("--quant_trajectory", required=True)
+    s.add_argument("--save_dir", default="outputs")
+    s.set_defaults(fn=cmd_calibrate_ptqd_k)
     return p
 
 

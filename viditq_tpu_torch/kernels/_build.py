@@ -46,6 +46,8 @@ SIGNATURES = {
     "vq_qk_headwise_quant": [_P, _P, _P, _P, _I, _I, _I, _P],
     "vq_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
                      _I, _P],
+    "vq_attention_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
+                         _P],
     "vq_attention_seg": [_P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _I,
                          _I, _I, _I, _I, _F, _I, _I, _P],
     "vq_attention_seg_rows": [_P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P,

@@ -24,6 +24,7 @@ COUNTERS: Dict[str, Counter] = {
         "ln_modulate_quantize",      # K1
         "int8_consumer_matmul",      # K2
         "attention_bnhd",            # K3
+        "attention_bnhd_f32",        # K3's float32 mode
         "quantize_rows",             # K4
         "fused_dynq_int8_matmul",    # K5
         "attention_bnhd_stream",     # K6

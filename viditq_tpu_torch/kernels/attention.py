@@ -23,7 +23,17 @@ times it, before the row statistic.
 
 On CPU tensors each runs its plain version (`attention_bnhd_plain`,
 `attention_bnhd_stream_plain`); on CUDA tensors it launches
-csrc/attention.cu or csrc/attention_stream.cu (bf16 inputs) or raises.
+csrc/attention.cu or csrc/attention_stream.cu (bf16 inputs), or for f32
+q/k/v (the float32 block of AdaRound reconstruction) K3's float32 mode,
+csrc/attention_f32.cu (full, kv-masked and seg; float PV, no emission), or
+raises.
+
+Gradients (JAX `custom_vjp`, attention.py:530-557): where q, k or v
+requires grad, `attention_bnhd` runs its forward as above and its backward
+recomputes through `attention_bnhd_xla`, the plain attention with an f32
+softmax and q.k in f32 (no bf16 rounding), as the JAX package does: the
+straight-through convention for the int8 modes. The emitting form
+(emit=True, JAX `attention_bnhd_int8out`) has no gradient.
 Both kernels' full and kv-masked modes run on one core
 (csrc/attn_core.cuh: wgmma products over kv tiles of `KV_TILE` rows fed by
 a cp.async ring); their int8 PV reads v's codes transposed per head in the
@@ -417,6 +427,28 @@ def _attention_stream_cuda(q, k, v, scale, bkv, kv_mask, int8_pv):
     return out.reshape(B, N, H, D)
 
 
+class _AttentionVJP(torch.autograd.Function):
+    """K3/K6's forward with the JAX package's backward: a recompute through
+    `attention_bnhd_xla` (attention.py:542-554)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_mask, scale, seg_len, int8_pv, v_block,
+                int8_qk):
+        ctx.save_for_backward(q, k, v, kv_mask)
+        ctx.scale, ctx.seg_len = scale, seg_len
+        return _attention_bnhd(q, k, v, scale, seg_len, kv_mask, int8_pv,
+                               v_block, False, int8_qk)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, kv_mask = ctx.saved_tensors
+        with torch.enable_grad():
+            qkv = [t.detach().requires_grad_() for t in (q, k, v)]
+            out = attention_bnhd_xla(*qkv, ctx.scale, ctx.seg_len, kv_mask)
+            dq, dk, dv = torch.autograd.grad(out, qkv, g)
+        return dq, dk, dv, None, None, None, None, None, None
+
+
 def attention_bnhd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    scale: float, seg_len: int = 0,
                    kv_mask: Optional[torch.Tensor] = None,
@@ -440,8 +472,22 @@ def attention_bnhd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     otherwise. Without seg_len and with M > ONESHOT_MAX_M the call goes to
     K6 (`attention_bnhd_stream`), as in the JAX package. int8_qk: q and k
     per-(token, head) int8 quantize-dequantized by K8 (`qk_headwise_quant`)
-    first, in every mode."""
+    first, in every mode. Differentiable where q, k or v requires grad
+    (`_AttentionVJP`; not with emit)."""
     require(col_scale is None or emit, "col_scale applies to the emission")
+    if (not emit and torch.is_grad_enabled()
+            and any(t.requires_grad for t in (q, k, v))):
+        return _AttentionVJP.apply(q, k, v, kv_mask, scale, seg_len, int8_pv,
+                                   v_block, int8_qk)
+    return _attention_bnhd(q, k, v, scale, seg_len, kv_mask, int8_pv,
+                           v_block, emit, int8_qk, emit_sym, need_rowsum,
+                           col_scale)
+
+
+def _attention_bnhd(q, k, v, scale, seg_len=0, kv_mask=None, int8_pv=False,
+                    v_block=None, emit=False, int8_qk=False, emit_sym=True,
+                    need_rowsum=False, col_scale=None):
+    """attention_bnhd's dispatch (JAX `_attention_bnhd_impl`)."""
     if int8_qk:
         q, k = qk_headwise_quant(q, k)
     B, N, H, D = q.shape
@@ -463,6 +509,10 @@ def attention_bnhd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return attention_bnhd_plain(q, k, v, scale, seg_len, kv_mask,
                                     int8_pv, v_block, emit, emit_sym,
                                     need_rowsum, col_scale)
+    if q.dtype == torch.float32:
+        require(not (int8_pv or emit),
+                "K3's float32 mode takes the float PV and no emission")
+        return _attention_f32_cuda(q, k, v, scale, seg_len, kv_mask)
     require(q.dtype == k.dtype == v.dtype == torch.bfloat16,
             "the CUDA attention kernel takes bfloat16 q/k/v")
     require(D in KERNEL_HEAD_DIMS, f"head dim {D} not in {KERNEL_HEAD_DIMS}")
@@ -505,6 +555,30 @@ def attention_bnhd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         None if rowsum is None else rowsum.data_ptr(), rows, C, stream),
         "vq_attn_row_quant")
     return _bn1(B, N, codes, scales, zp, rowsum)
+
+
+def _attention_f32_cuda(q, k, v, scale, seg_len, kv_mask):
+    """K3's float32 mode on the card (csrc/attention_f32.cu): f32 q/k/v ->
+    f32 output, full, kv-masked or seg."""
+    B, N, H, D = q.shape
+    M = k.shape[1]
+    C = H * D
+    require(k.dtype == v.dtype == torch.float32,
+            "K3's float32 mode takes float32 q, k and v")
+    require(D in KERNEL_HEAD_DIMS, f"head dim {D} not in {KERNEL_HEAD_DIMS}")
+    q3 = _aligned(q.reshape(B, N, C))
+    k3 = _aligned(k.reshape(B, M, C))
+    v3 = _aligned(v.reshape(B, M, C))
+    mask = None
+    if kv_mask is not None:
+        mask = kv_mask.to(torch.int32).reshape(B, M).contiguous()
+    out = torch.empty((B, N, C), dtype=torch.float32, device=q.device)
+    _build.check(_build.lib().vq_attention_f32(
+        q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), _ptr(mask),
+        out.data_ptr(), B, N, M, H, D, seg_len, float(scale * LOG2E),
+        _build.stream_ptr(q)), "vq_attention_f32")
+    COUNTERS["attention_bnhd_f32"].launches += 1
+    return out.reshape(B, N, H, D)
 
 
 def _ptr(t: Optional[torch.Tensor]):

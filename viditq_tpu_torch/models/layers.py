@@ -170,7 +170,7 @@ def ln_mod_prequant(resolver: Resolver, prefix: str, inp, shift, scale,
     smooth = s0.smooth_quant
     if smooth.enable and len(spec_names) > 1 and not smooth.qkv_share_cs:
         return None  # per-layer cs: one shared pass can't serve
-    if qctx is None or qctx.mode != "quant":
+    if qctx is None or qctx.mode != "quant" or qctx.capture:
         return None
     if smooth.enable:
         ics = consumer.inv_balance(qctx)
@@ -186,7 +186,7 @@ def attn_emit_int8_ok(pspec, qctx, has_col_scale: bool = False) -> bool:
     (layers.py:362-384, without the TPU device check). has_col_scale: the
     caller holds the proj's 1/cs; a CB proj emits only then, with the
     rescale folded into the emission."""
-    return not (qctx is None or qctx.mode != "quant"
+    return not (qctx is None or qctx.mode != "quant" or qctx.capture
                 or pspec is None or pspec.backend != "native"
                 or pspec.impl != "fused" or pspec.act is None
                 or not pspec.act.dynamic
@@ -233,8 +233,10 @@ class Mlp(nn.Module):
         `res + gate * mlp(x)`, `QuantLinear.forward`)."""
         spec1, spec2 = self.spec1, self.spec2
         ics2 = self.fc2.inv_balance(qctx)
+        # capture mode: fc2 sees its real (post-GELU) input (layers.py:
+        # 116-119)
         fused2 = (is_fused_dynamic(spec2) and qctx is not None
-                  and qctx.mode == "quant"
+                  and qctx.mode == "quant" and not qctx.capture
                   and (not spec2.smooth_quant.enable or ics2 is not None))
         if fused2:
             emit1 = (prequant is not None and spec2.act.sym
@@ -510,6 +512,20 @@ class CrossAttention(nn.Module):
         out = attention_bnhd(*args, scale=D ** -0.5, kv_mask=kv_mask,
                              int8_qk=int8_qk, int8_pv=int8_pv)
         return self.proj(out.reshape(B, N, C), qctx, epilogue=epilogue)
+
+
+def float32_copy(module: nn.Module) -> nn.Module:
+    """A copy of module (parameters and tables) whose every layer computes
+    in float32: the float32 block of AdaRound reconstruction (JAX
+    `_standalone_block` builds the block with dtype=float32,
+    reconstruction.py:431-461). The copy's parameters need no gradient."""
+    import copy
+    out = copy.deepcopy(module)
+    for m in out.modules():
+        if getattr(m, "dtype", None) is not None:
+            m.dtype = torch.float32
+    out.requires_grad_(False)
+    return out
 
 
 # ---------------- embedders ----------------

@@ -7,8 +7,12 @@ blocks' self-attention downsamples k and v on the token grid
 through K6. The block stack is unrolled (`blocks.{i}`), so plans resolve
 per block; weights from the JAX package's unrolled, single-scan or
 multi-run scanned layouts load through `viditq_tpu_torch.utils.bridge`.
-The micro-condition embedders (`SizeEmbedder`), qk-norm, capture mode,
-gradient checkpointing and the pipeline stages are not ported.
+Capture mode reads each block's input, output and shared context from the
+block's own call (`quant/reconstruction.py`, where the JAX package sows,
+pixart.py:42-43, :87-88, :199-201), and `standalone_block` is block i alone
+in float32 for reconstruction. The micro-condition embedders
+(`SizeEmbedder`), qk-norm, gradient checkpointing and the pipeline stages
+are not ported.
 """
 
 from __future__ import annotations
@@ -21,8 +25,8 @@ from torch import nn
 from viditq_tpu_torch.models.layers import (
     CaptionEmbedder, CrossAttention, KVCompressSelfAttention, Mlp, PatchEmbed,
     Resolver, SelfAttention, T2IFinalLayer, TBlock, TimestepEmbedder,
-    get_2d_sincos_pos_embed, layer_norm, ln_mod_prequant, no_quant,
-    t2i_modulate)
+    float32_copy, get_2d_sincos_pos_embed, layer_norm, ln_mod_prequant,
+    no_quant, t2i_modulate)
 from viditq_tpu_torch.quant.qlinear import QuantCtx
 
 
@@ -167,6 +171,14 @@ class PixArt(nn.Module):
         x = self.final_layer(x, t, qctx)
         return unpatchify(x, h, w, self.patch_size,
                           self.out_channels).float()
+
+    def standalone_block(self, i: int):
+        """(block i computing in float32 on a copy of its parameters and
+        tables, its extra argument: the token grid (h, w) of the model's
+        input size) (JAX `_standalone_block`, reconstruction.py:451-461).
+        Call it as block(x, y, t0, mask, extra, qctx)."""
+        grid = self.input_size // self.patch_size
+        return float32_copy(self.blocks[i]), (grid, grid)
 
 
 def unpatchify(x, h: int, w: int, p: int, c: int):

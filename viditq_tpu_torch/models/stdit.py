@@ -8,9 +8,14 @@ through `viditq_tpu_torch.utils.bridge`. `fuse_epilogue` (off by default,
 as in the JAX package) sends the block's residual adds of the spatial
 attention, the cross attention and the MLP into the epilogue of their
 output linear (K2 or K5 under a fused plan): the JAX package's
-`VIDITQ_FUSE_EPILOGUE` switch, here a model argument. Sequence
-parallelism, gradient checkpointing, capture mode and the pipeline stages
-are not ported.
+`VIDITQ_FUSE_EPILOGUE` switch, here a model argument. Capture mode
+(`QuantCtx.capture`, for reconstruction) reads each block's input, its
+output and its shared context (y, t0) from the block's own call
+(`quant/reconstruction.py` hooks each `STDiTBlock`, where the JAX package
+sows `block_in`, `block_out`, `block_ctx_y` and `block_ctx_t0`, stdit.py:
+48-51, :153-154, :262-265); `standalone_block` is block i alone in float32
+for reconstruction's gradients. Sequence parallelism, gradient
+checkpointing and the pipeline stages are not ported.
 """
 
 from __future__ import annotations
@@ -24,8 +29,8 @@ from torch import nn
 from viditq_tpu_torch.models.layers import (
     CaptionEmbedder, CrossAttention, Mlp, PatchEmbed3D, Resolver,
     SelfAttention, T2IFinalLayer, TBlock, TimestepEmbedder,
-    get_1d_sincos_pos_embed, get_2d_sincos_pos_embed, layer_norm,
-    ln_mod_prequant, no_quant, t2i_modulate)
+    float32_copy, get_1d_sincos_pos_embed, get_2d_sincos_pos_embed,
+    layer_norm, ln_mod_prequant, no_quant, t2i_modulate)
 from viditq_tpu_torch.quant.qlinear import QuantCtx
 
 
@@ -79,7 +84,8 @@ class STDiTBlock(nn.Module):
         if pre_attn is None:
             x_s = t2i_modulate(layer_norm(x, self.dtype), shift_msa,
                                scale_msa).reshape(B * T, S, C)
-        epi = self.fuse_epilogue
+        # capture mode: each linear's own output, the residual adds apart
+        epi = self.fuse_epilogue and not (qctx is not None and qctx.capture)
         x_s = self.attn(x_s, qctx, prequant=pre_attn, shape=(B * T, S, C),
                         epilogue=(x, gate_msa.reshape(B, C)) if epi else None)
         x = (x_s.reshape(B, N, C) if epi
@@ -193,6 +199,16 @@ class STDiT(nn.Module):
             x = block(x, y, t0, mask, tpe if i == 0 else None, qctx)
         x = self.final_layer(x, t, qctx)
         return self.unpatchify(x).float()
+
+    def standalone_block(self, i: int):
+        """(block i computing in float32 on a copy of its parameters and
+        tables, its extra argument): the temporal position table in
+        float32 for block 0, else None (JAX `_standalone_block`,
+        reconstruction.py:441-450). Call it as block(x, y, t0, mask,
+        extra, qctx)."""
+        tpe = (None if self.no_temporal_pos_emb or i != 0
+               else self.pos_embed_temporal.float())
+        return float32_copy(self.blocks[i]), tpe
 
     def unpatchify(self, x):
         """[B, N, T_p*H_p*W_p*C_out] -> [B, C_out, T, H, W]."""

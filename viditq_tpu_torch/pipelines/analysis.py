@@ -21,8 +21,12 @@ reads, qlinear.py:480-481), keyed by its dotted name; the hook runs the
 layer's statistic as the input arrives and keeps only the result, so a
 full-size model never holds every input at once. The layout-native STDiT
 hands some layers their rows in another order than the JAX model; every
-statistic here is over rows, so the order does not matter. The PTQD
-correction is not ported.
+statistic here is over rows, so the order does not matter.
+
+  * PTQD: `calibrate_ptqd_k`, the per-step correlated-noise coefficient
+    of matched fp and quantized trajectories (reference
+    calibrate_ptqd_k.py:220-272), and `apply_ptqd_correction`, the opt-in
+    division of a model output by (1 + k_t) (JAX analysis.py:423-447).
 """
 
 from __future__ import annotations
@@ -433,3 +437,27 @@ def parse_mp_ranges(mp_cfg: Mapping) -> List[Tuple[Tuple[int, int], Dict]]:
         hi, lo = (int(v) for v in key.split("-"))
         out.append(((hi, lo), dict(val)))
     return sorted(out, key=lambda r: -r[0][0])
+
+
+# ---------------- PTQD ----------------
+
+def calibrate_ptqd_k(fp_outs, quant_outs) -> np.ndarray:
+    """Per-step correlated-noise coefficient k_t, float32 [n_steps]:
+    fp_outs / quant_outs [n_steps, ...] are the model eps outputs of matched
+    fp and quantized trajectories; quant noise is modelled as (1 + k) * fp
+    plus an uncorrelated part, k the least-squares fit per step in float64
+    (JAX analysis.py:423-439)."""
+    ks = []
+    for f, q in zip(fp_outs, quant_outs):
+        f = np.asarray(f, np.float64).ravel()
+        q = np.asarray(q, np.float64).ravel()
+        ks.append(float(q @ f) / (float(f @ f) + 1e-12) - 1.0)
+    return np.asarray(ks, np.float32)
+
+
+def apply_ptqd_correction(model_out: torch.Tensor, k_t, step_idx
+                          ) -> torch.Tensor:
+    """The opt-in PTQD correction: model_out / (1 + k_t[step_idx]) (JAX
+    analysis.py:442-447)."""
+    k = torch.as_tensor(np.asarray(k_t), device=model_out.device)[step_idx]
+    return model_out / (1.0 + k)

@@ -17,8 +17,8 @@ follows, as in the JAX flow. With `resume_w_quantized` (the plan's
 `resume_with_w_quantized`, or the CLI flag) phase 2 takes the weight
 tables of a saved quant checkpoint instead (JAX ptq.py:184-218). The
 reconstruction pass after the act tables (AdaRound,
-`quant/reconstruction.py`) is not ported: `check_no_reconstruction`
-refuses a plan that asks for it.
+`quant/reconstruction.py`), where the plan asks for it, is the CLI's
+`ptq` command's next step (`cli.cmd_ptq`), as in the JAX package.
 """
 
 from __future__ import annotations
@@ -78,12 +78,12 @@ RESUMED_TABLES = ("w_delta", "w_zp", "w_alpha")
 
 @torch.no_grad()
 def resume_w_quantized(model: nn.Module, path: str) -> int:
-    """Overwrite the model's weight tables (w_delta, w_zp) with those of a
-    saved quant checkpoint (either package's); the act-side tables keep
-    this run's values (`_merge_resumed_weight_tables`, JAX ptq.py:
-    184-218). Raises ValueError for a layer the model/plan lacks, a table
-    of another shape, or a file without weight tables; an AdaRound alpha
-    (w_alpha) raises NotImplementedError. Returns the tables loaded."""
+    """Overwrite the model's weight tables (w_delta, w_zp and AdaRound's
+    w_alpha) with those of a saved quant checkpoint (either package's); the
+    act-side tables keep this run's values (`_merge_resumed_weight_tables`,
+    JAX ptq.py:184-218). Raises ValueError for a layer the model/plan
+    lacks, a table of another shape, or a file without weight tables.
+    Returns the tables loaded."""
     from viditq_tpu_torch.utils.ckpt import read_quant_ckpt
     tables, _ = read_quant_ckpt(path)
     mods = dict(model.named_modules())
@@ -92,11 +92,6 @@ def resume_w_quantized(model: nn.Module, path: str) -> int:
         for tab, arr in tabs.items():
             if tab not in RESUMED_TABLES:
                 continue  # act-side tables come from this run
-            if tab == "w_alpha":
-                raise NotImplementedError(
-                    f"resume_with_w_quantized: {name}.w_alpha is an AdaRound "
-                    "table (quant/reconstruction.py is not ported, ROADMAP "
-                    "queue 5)")
             cur = getattr(mods.get(name), tab, None)
             if not isinstance(cur, torch.Tensor):
                 raise ValueError(
@@ -113,19 +108,6 @@ def resume_w_quantized(model: nn.Module, path: str) -> int:
         raise ValueError(f"resume_with_w_quantized: {path} holds no weight "
                          "tables")
     return n
-
-
-def check_no_reconstruction(plan) -> None:
-    """A plan whose YAML asks for optimization-based reconstruction
-    (`quant.weight.optimization.params` with AdaRound rounding, the
-    reference's use_optimization gate, t2i/scripts/ptq.py:320-359; JAX
-    cli.py:243-268) raises: `quant/reconstruction.py` is not ported."""
-    wopt, wspec = plan.weight_opt, plan.default_layer.weight
-    if (wopt is not None and wopt.enabled and wspec is not None
-            and wspec.round_mode == "learned_hard_sigmoid"):
-        raise NotImplementedError(
-            "reconstruction (AdaRound, quant/reconstruction.py) is not "
-            "ported (ROADMAP queue 5)")
 
 
 @torch.no_grad()

@@ -23,8 +23,10 @@ timerange) the same calibration gives every union span its cb_scale with
 its CB range's alpha, and tables at every bitwidth of `bits_tuple`, which
 the packing reads at each span's `mp_bits`.
 
-Scanned stacks and AdaRound alphas are not ported (the port's models are
-unrolled).
+A layer that rounds its weights by AdaRound also gets its `w_alpha`
+[K, N]: h(alpha) equal to the rounding rest of its first timerange's
+effective weight over the active bitwidth's scale (calibrate.py:146-149).
+Scanned stacks are not ported (the port's models are unrolled).
 """
 
 from __future__ import annotations
@@ -73,7 +75,8 @@ def _pooled_absmax(model: nn.Module, name: str, mod: QuantLinear):
 def calibrate_weight_tables(model: nn.Module) -> nn.Module:
     """Fill every CB layer's cb_scale [n_tr, K] from its act_scale, then
     every quantized layer's w_delta/w_zp [n_bw, n_tr, 1, F] from its fp
-    kernel (times cs of each timerange under CB)."""
+    kernel (times cs of each timerange under CB), and an AdaRound layer's
+    w_alpha [K, F]."""
     layers = [(n, m) for n, m in model.named_modules()
               if isinstance(m, QuantLinear)]
     # cs first: pooled siblings' tables depend on each other's kernels
@@ -107,6 +110,11 @@ def calibrate_weight_tables(model: nn.Module) -> nn.Module:
             zps.append(torch.stack(z_tr))
         mod.w_delta.copy_(torch.stack(deltas))
         mod.w_zp.copy_(torch.stack(zps))
+        if mod.adaround:
+            w0 = kernel * mod.cb_scale[0][:, None] if mod.momentum_cb \
+                else kernel
+            mod.w_alpha.copy_(core.adaround_init_alpha(
+                w0, mod.w_delta[wspec.bit_idx, 0]))
     return model
 
 

@@ -1,14 +1,18 @@
-"""Quantizer math: min-max qparams (port of `viditq_tpu/quant/core.py`).
+"""Quantizer math (port of `viditq_tpu/quant/core.py`).
 
 Group-wise min/max with the reference's sign clamps, the momentum blend
-of static act ranges, the 'min_max' scale init (reference
-`qdiff/quantizer/base_quantizer.py:168-228`), the shape of one group's
-table slice, fake quant with nearest rounding (the forward of
-'nearest_ste' too: the port has no training path, so no straight-through
-gradient), static or dynamic, and the channel-balancing scale. Same
-formulas, same float32 arithmetic order as the JAX package. The
-'grid_search_lp' scale method and the 'stochastic' and AdaRound
-('learned_hard_sigmoid') roundings raise NotImplementedError.
+of static act ranges, the 'min_max' and 'grid_search_lp' scale inits
+(reference `qdiff/quantizer/base_quantizer.py:168-249`), the shape of one
+group's table slice, fake quant, static or dynamic, in every rounding mode
+of the reference (`_int_code`: 'nearest'; 'nearest_ste', the same forward
+with the straight-through gradient of `round_ste`; 'stochastic', floor
+plus a Bernoulli draw of the rest; AdaRound's 'learned_hard_sigmoid',
+floor plus the soft target h(alpha) under reconstruction or alpha >= 0 at
+inference), AdaRound's alpha init and soft targets, and the
+channel-balancing scale. Same formulas, same float32 arithmetic order as
+the JAX package. Stochastic rounding draws its uniforms from an explicit
+`torch.Generator` in place of JAX's threefry key, so it matches JAX in
+distribution, not draw for draw; a rest of exactly 0 or 1 rounds the same.
 """
 
 from __future__ import annotations
@@ -17,10 +21,33 @@ from typing import Optional, Tuple
 
 import torch
 
-from viditq_tpu_torch.kernels._common import divc
+from viditq_tpu_torch.kernels._common import divc, rdiv
 from viditq_tpu_torch.quant.spec import QuantSpec
 
 EPS_DELTA = 1e-6      # base_quantizer.py:220
+EPS_GRID = 1e-4       # base_quantizer.py:302
+EPS_ZP = 1e-5         # base_quantizer.py:232
+# AdaRound's stretched sigmoid (base_quantizer.py:91-110)
+ADAROUND_GAMMA = -0.1
+ADAROUND_ZETA = 1.1
+
+
+def clip(x: torch.Tensor, lo: Optional[float] = None,
+         hi: Optional[float] = None) -> torch.Tensor:
+    """torch.clamp(x, lo, hi) with JAX's gradient where one is taken:
+    `jnp.clip`, `jnp.maximum` and `jnp.minimum` pass half the gradient
+    where a value sits on a bound, `torch.clamp` all of it
+    (torch.maximum/minimum split ties as JAX's do). The forward is
+    clamp's."""
+    if not (torch.is_grad_enabled() and x.requires_grad):
+        return torch.clamp(x, lo, hi)
+    if lo is not None:
+        x = torch.maximum(x, torch.full((), lo, dtype=x.dtype,
+                                        device=x.device))
+    if hi is not None:
+        x = torch.minimum(x, torch.full((), hi, dtype=x.dtype,
+                                        device=x.device))
+    return x
 
 
 def _reduce_dims(ndim: int, spec: QuantSpec) -> Tuple[int, ...]:
@@ -43,8 +70,8 @@ def minmax(x: torch.Tensor, spec: QuantSpec
     (base_quantizer.py:168-194)."""
     dims = _reduce_dims(x.ndim, spec)
     x = x.float()
-    x_min = torch.clamp(torch.amin(x, dim=dims, keepdim=True), max=0.0)
-    x_max = torch.clamp(torch.amax(x, dim=dims, keepdim=True), min=0.0)
+    x_min = clip(torch.amin(x, dim=dims, keepdim=True), hi=0.0)
+    x_max = clip(torch.amax(x, dim=dims, keepdim=True), lo=0.0)
     return x_min, x_max
 
 
@@ -89,7 +116,7 @@ def qparams_minmax(x_min: torch.Tensor, x_max: torch.Tensor,
         delta = divc(absmax, float(n_levels))
     else:
         delta = divc(x_max - x_min, float(n_levels - 1))
-    delta = torch.clamp(delta, min=EPS_DELTA)
+    delta = clip(delta, lo=EPS_DELTA)
     if spec.always_zero or spec.sym:
         zero_point = torch.zeros_like(delta)
     else:
@@ -97,43 +124,152 @@ def qparams_minmax(x_min: torch.Tensor, x_max: torch.Tensor,
     return delta, zero_point
 
 
+def _quantize_with_range(x, x_max, x_min, n_bits: int, n_levels: int,
+                         always_zero: bool):
+    """The grid search's inner quantize (base_quantizer.py:292-316; JAX
+    core.py:131-145), x and one candidate's range."""
+    if always_zero:
+        delta = divc(x_max, float(2 ** n_bits - 1))
+        zero_point = torch.zeros_like(delta)
+    else:
+        delta = divc(x_max - x_min, float(2 ** n_bits - 1))
+        zero_point = torch.round(-x_min / (delta + EPS_ZP))
+    x_int = torch.round(x / (delta + EPS_GRID))
+    x_quant = clip(x_int + zero_point, 0, n_levels - 1)
+    return (x_quant - zero_point) * delta
+
+
+def qparams_grid_search(x: torch.Tensor, x_min: torch.Tensor,
+                        x_max: torch.Tensor, spec: QuantSpec,
+                        n_bits: Optional[int] = None, n_steps: int = 100
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """'grid_search_lp' scale init (base_quantizer.py:230-249; JAX
+    core.py:148-187): the range (x_min, x_max) shrunk by s in {0, 1/n, ...,
+    (n-1)/n}, each candidate fake-quantized, and the one candidate of least
+    L2 loss over the whole tensor (the reference's single global argmin;
+    the first of equal losses) gives every group its tables. One candidate
+    is in flight at a time, as JAX's `lax.map` keeps it."""
+    b = spec.n_bits if n_bits is None else n_bits
+    n_levels = spec.n_levels(n_bits)
+    x = x.float()
+    scalings = (torch.arange(n_steps, dtype=torch.float32, device=x.device)
+                / n_steps)
+    losses = torch.stack([
+        torch.sum((x - _quantize_with_range(x, x_max * s, x_min * s, b,
+                                            n_levels, spec.always_zero))
+                  ** 2) for s in scalings])
+    s_best = scalings[torch.argmin(losses)]
+    best_max, best_min = x_max * s_best, x_min * s_best
+    if spec.always_zero:
+        delta = divc(best_max, float(2 ** b - 1))
+        zero_point = torch.zeros_like(delta)
+    else:
+        delta = divc(best_max - best_min, float(2 ** b - 1))
+        zero_point = torch.round(-best_min / (delta + EPS_ZP))
+    return delta, zero_point
+
+
 def compute_qparams(x: torch.Tensor, spec: QuantSpec,
                     n_bits: Optional[int] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Calibrate one (delta, zero_point) slice from data ('min_max' only;
-    the grid search is not ported)."""
-    if spec.scale_method != "min_max":
-        raise NotImplementedError(
-            f"scale_method {spec.scale_method!r} is not ported")
+    """Calibrate one (delta, zero_point) slice from data by the spec's
+    scale method (JAX core.py:190-203)."""
     x_min, x_max = minmax(x, spec)
-    return qparams_minmax(x_min, x_max, spec, n_bits)
+    if spec.scale_method == "min_max":
+        return qparams_minmax(x_min, x_max, spec, n_bits)
+    if spec.scale_method == "grid_search_lp":
+        return qparams_grid_search(x, x_min, x_max, spec, n_bits)
+    raise NotImplementedError(spec.scale_method)
+
+
+def round_ste(x: torch.Tensor) -> torch.Tensor:
+    """Straight-through rounding (base_quantizer.py:361-365): round(x) in
+    the forward, the identity's gradient in the backward. JAX's `x +
+    stop_gradient(round(x) - x)` equals round(x) bit for bit (round(x) - x
+    is exact, and so is the sum), so where no gradient is taken the
+    forward is round(x) alone, without the two extra passes."""
+    if not (torch.is_grad_enabled() and x.requires_grad):
+        return torch.round(x)
+    return x + (torch.round(x) - x).detach()
+
+
+def adaround_soft_targets(alpha: torch.Tensor) -> torch.Tensor:
+    """h(alpha) = clip(sigmoid(alpha) * (zeta - gamma) + gamma, 0, 1)
+    (base_quantizer.py:108-110)."""
+    return clip(torch.sigmoid(alpha) * (ADAROUND_ZETA - ADAROUND_GAMMA)
+                + ADAROUND_GAMMA, 0, 1)
+
+
+def adaround_init_alpha(x: torch.Tensor, delta: torch.Tensor
+                        ) -> torch.Tensor:
+    """AdaRound's alpha with h(alpha) equal to the rounding rest of x /
+    delta, clipped to [1e-4, 1 - 1e-4] (base_quantizer.py:255-264). The
+    constant over the rest is a true division, as JAX's; the log is
+    PyTorch's, an ulp from XLA's at a few percent of entries."""
+    rest = x / delta - torch.floor(x / delta)
+    rest = torch.clamp(rest, 1e-4, 1 - 1e-4)
+    return -torch.log(rdiv(ADAROUND_ZETA - ADAROUND_GAMMA,
+                           rest - ADAROUND_GAMMA) - 1.0)
+
+
+def _int_code(x: torch.Tensor, delta: torch.Tensor, spec: QuantSpec, *,
+              generator: Optional[torch.Generator] = None,
+              alpha: Optional[torch.Tensor] = None,
+              soft_targets: bool = True) -> torch.Tensor:
+    """x / delta rounded by the spec's mode, unclamped (JAX core.py:
+    211-237)."""
+    scaled = x / delta
+    mode = spec.round_mode
+    if mode == "nearest":
+        return torch.round(scaled)
+    if mode == "nearest_ste":
+        return round_ste(scaled)
+    if mode == "stochastic":
+        if generator is None:
+            raise ValueError("stochastic rounding needs a generator")
+        floor = torch.floor(scaled)
+        rest = scaled - floor
+        u = torch.rand(scaled.shape, generator=generator,
+                       device=scaled.device, dtype=scaled.dtype)
+        return floor + (u < rest).to(scaled.dtype)
+    if mode == "learned_hard_sigmoid":
+        if alpha is None:
+            raise ValueError("learned_hard_sigmoid needs alpha")
+        floor = torch.floor(scaled)
+        if soft_targets:
+            return floor + adaround_soft_targets(alpha)
+        return floor + (alpha >= 0).to(scaled.dtype)
+    raise ValueError(f"Wrong rounding mode {mode}")
 
 
 def fake_quant(x: torch.Tensor, delta: torch.Tensor,
                zero_point: torch.Tensor, spec: QuantSpec,
-               n_bits: Optional[int] = None) -> torch.Tensor:
+               n_bits: Optional[int] = None, *,
+               generator: Optional[torch.Generator] = None,
+               alpha: Optional[torch.Tensor] = None,
+               soft_targets: bool = True) -> torch.Tensor:
     """Quantize-dequantize with given parameters, in float32, returned in
-    x's dtype (core.py:260-280). Rounding 'nearest' and 'nearest_ste' (the
-    same forward; the port has no training path); code x / delta as a
-    division."""
-    if spec.round_mode not in ("nearest", "nearest_ste"):
-        raise NotImplementedError(
-            f"round_mode {spec.round_mode!r} is not ported")
+    x's dtype (core.py:260-280), rounded by the spec's mode (`_int_code`:
+    the generator of stochastic rounding, AdaRound's alpha and whether its
+    targets are soft)."""
     n_levels = spec.n_levels(n_bits)
     delta = delta.float()
     zero_point = zero_point.float()
-    x_int = torch.round(x.float() / delta) + zero_point
+    x_int = _int_code(x.float(), delta, spec, generator=generator,
+                      alpha=alpha, soft_targets=soft_targets) + zero_point
     if spec.sym:
-        x_quant = torch.clamp(x_int, -n_levels - 1, n_levels)
+        x_quant = clip(x_int, -n_levels - 1, n_levels)
     else:
-        x_quant = torch.clamp(x_int, 0, n_levels - 1)
+        x_quant = clip(x_int, 0, n_levels - 1)
     return ((x_quant - zero_point) * delta).to(x.dtype)
 
 
-def fake_quant_dynamic(x: torch.Tensor, spec: QuantSpec) -> torch.Tensor:
+def fake_quant_dynamic(x: torch.Tensor, spec: QuantSpec, *,
+                       generator: Optional[torch.Generator] = None
+                       ) -> torch.Tensor:
     """Calibrate from the live tensor, then fake-quant (core.py:283-291)."""
     delta, zero_point = compute_qparams(x, spec)
-    return fake_quant(x, delta, zero_point, spec)
+    return fake_quant(x, delta, zero_point, spec, generator=generator)
 
 
 def smooth_quant_scale(a_absmax: torch.Tensor, w_absmax: torch.Tensor,

@@ -6,7 +6,10 @@ Fills each quantized `QuantLinear`'s `w_int` [n_tr, K, N] int8 slabs, its
 kernel and the calibrated `w_delta`/`w_zp`. One slab per channel-balancing
 timerange, of kernel * cs[tr] (`cb_scale`), quantized with timerange tr's
 tables, or timerange 0's under `frozen_tr0_weights` (native_pack.py:
-208-286). Same code formula as the JAX package (`round(w / d)`, clipped):
+208-286). Same code formula as the JAX package (`round(w / d)`, clipped;
+a layer with AdaRound's `w_alpha` rounds by it, `floor(w / d) + (alpha >=
+0)`, native_pack.py:136-146, :200-205, so the native paths keep what the
+reconstruction learned):
 symmetric codes are signed with zero point 0; asymmetric codes are
 shifted by 2^(b-1) into signed int8 (4-bit codes too: one code a byte, as
 the full-native path reads them). Static-act native layers pack as the
@@ -48,19 +51,20 @@ def pack_native_weights(model: nn.Module) -> nn.Module:
                      if mod.momentum_cb else kernel)
             tw = mod.table_timerange(tr)
             d = mod.w_delta[bi, tw].reshape(1, -1)
+            rounded = _round_codes(w_eff, d, mod.w_alpha if mod.adaround
+                                   else None)
             if wspec.sym:
-                code = torch.clamp(torch.round(w_eff / d), -shift, shift - 1)
+                code = torch.clamp(rounded, -shift, shift - 1)
                 zp = torch.zeros_like(d)
             elif mod.pack4:
                 z = mod.w_zp[bi, tw].reshape(1, -1)
-                code = torch.clamp(torch.round(w_eff / d) + z, 0,
-                                   float(2 ** bits) - 1)
+                code = torch.clamp(rounded + z, 0, float(2 ** bits) - 1)
                 mod.w_int[tr].copy_(_nibbles(code))
                 mod.w_colsum[tr].copy_(code.sum(dim=0, keepdim=True))
                 continue
             else:
                 z = mod.w_zp[bi, tw].reshape(1, -1)
-                code = torch.clamp(torch.round(w_eff / d) + z, 0,
+                code = torch.clamp(rounded + z, 0,
                                    float(2 ** bits) - 1) - shift
                 zp = z - shift
             mod.w_int[tr].copy_(code.to(torch.int8))
@@ -70,6 +74,15 @@ def pack_native_weights(model: nn.Module) -> nn.Module:
                 mod.w_mp_zp[tr].copy_(zp)
         mod.refresh_w_zp_int()
     return model
+
+
+def _round_codes(w_eff: torch.Tensor, d: torch.Tensor, w_alpha):
+    """Nearest, or AdaRound's learned hard rounding where alphas exist
+    (native_pack.py:200-205)."""
+    scaled = w_eff / d
+    if w_alpha is None:
+        return torch.round(scaled)
+    return torch.floor(scaled) + (w_alpha >= 0).to(scaled.dtype)
 
 
 def _nibbles(code: torch.Tensor) -> torch.Tensor:

@@ -87,9 +87,19 @@ Modes (`QuantCtx.mode`):
       [split:] as two groups, acts dynamic (qlinear.py:765-782).
 
 An `epilogue` (residual, gate) the kernels do not take is applied after
-the layer with the JAX package's bf16 roundings (`apply_epilogue`). The
-'stochastic' and AdaRound roundings and the grid-search scale method
-raise NotImplementedError at construction.
+the layer with the JAX package's bf16 roundings (`apply_epilogue`).
+
+Rounding (`core._int_code`): a layer whose weight spec rounds by AdaRound
+('learned_hard_sigmoid') holds `w_alpha` [K, N] (qlinear.py:362-366),
+initialised by `calibrate_weight_tables` and optimised by
+`quant/reconstruction.py`; the simulate path rounds its weight with the
+soft targets h(alpha) where `QuantCtx.soft_targets` (reconstruction) and
+with alpha >= 0 otherwise (inference), and the packing of the native paths
+rounds with alpha >= 0 (`native_pack`). Stochastic rounding takes its
+uniforms from `QuantCtx.generator`. The simulate path keeps its autograd
+graph: gradients reach `w_alpha` (and the input) through the
+straight-through and soft roundings; the calibration and packing passes run
+under `torch.no_grad`.
 """
 
 from __future__ import annotations
@@ -125,12 +135,21 @@ class QuantCtx:
     """Per-call quantization context (qlinear.py:47-76): the diffusion
     timestep (it selects the CB timerange), the static act-table slot and
     the execution mode. Both indices are Python ints, so reading them
-    forces no device sync. The capture mode and the rounding rng are not
-    ported."""
+    forces no device sync. `soft_targets`: AdaRound rounds with h(alpha)
+    (reconstruction) instead of alpha >= 0 (inference). `capture`: every
+    quantized layer sees its own input in the model dtype, so the producer
+    fusions that hand a layer a quantized input or fold its output into a
+    residual stand aside (qlinear.py:273-295, layers.py:116-119, :343,
+    :374); the capture itself is forward hooks on the layers and blocks
+    (`quant/reconstruction.py`), where the JAX package sows. `generator`:
+    the uniforms of stochastic rounding (JAX's `rng` key)."""
 
     t_id: int = 0
     mode: str = "quant"
     act_slot: int = 0
+    soft_targets: bool = False
+    capture: bool = False
+    generator: Optional[torch.Generator] = None
 
     def __post_init__(self):
         if self.mode not in MODES:
@@ -237,19 +256,6 @@ def _check_ported(lspec: LayerQuantSpec) -> None:
         raise ValueError(
             f"native dynamic-act backend requires 8-bit acts, got "
             f"{lspec.act.n_bits}; use backend='simulate' for A<8")
-    used = [lspec.weight] if lspec.weight_quant else []
-    if lspec.act_quant and not is_native_dynamic(lspec):
-        used.append(lspec.act)  # the dynamic kernels read no act rounding
-    for q in used:
-        if q is None:
-            continue
-        if q.round_mode not in ("nearest", "nearest_ste"):
-            raise NotImplementedError(
-                f"round_mode {q.round_mode!r} (stochastic rounding and "
-                f"AdaRound belong to the PTQ slice) is not ported")
-        if q.scale_method != "min_max":
-            raise NotImplementedError(
-                f"scale_method {q.scale_method!r} is not ported")
 
 
 def shared_prequant(x: torch.Tensor, lspec: Optional[LayerQuantSpec],
@@ -355,6 +361,13 @@ class QuantLinear(nn.Module):
             wshape = (lspec.weight.n_bitwidth, n_tr, 1, features)
             self.register_buffer("w_delta", torch.full(wshape, -1.0))
             self.register_buffer("w_zp", torch.full(wshape, -1.0))
+        self.adaround = (self.path is not None and lspec.weight_quant
+                         and lspec.weight is not None
+                         and lspec.weight.round_mode
+                         == "learned_hard_sigmoid")
+        if self.adaround:
+            self.register_buffer("w_alpha",
+                                 torch.zeros((in_features, features)))
         # two unsigned 4-bit codes a byte on the weight-only path (asym
         # W4; sym codes are signed and stay one a byte)
         self.pack4 = (self.path == "weight_only" and lspec.weight.n_bits == 4
@@ -521,12 +534,12 @@ class QuantLinear(nn.Module):
         """Whether a residual (+ gate) epilogue runs inside the int8 kernel
         (K2 on a prequant, else K5): the conditions of JAX
         `_epilogue_fusable` (qlinear.py:273-295), quant mode on the fused
-        native dynamic path without channel balancing or a split (capture
-        mode is not ported). JAX's environment switch has no counterpart:
-        a model passes an epilogue only where its `fuse_epilogue` flag asks
-        for one."""
+        native dynamic path without channel balancing or a split, not in
+        capture mode. JAX's environment switch has no counterpart: a model
+        passes an epilogue only where its `fuse_epilogue` flag asks for
+        one."""
         return (qctx is not None and qctx.mode == "quant" and self.fused
-                and self.smooth is None)
+                and self.smooth is None and not qctx.capture)
 
     def forward(self, x: Optional[torch.Tensor],
                 qctx: Optional[QuantCtx] = None,
@@ -789,10 +802,12 @@ class QuantLinear(nn.Module):
                 if qctx.mode == "a_calib":
                     amin, amax = self._calibrate_slot(xv, slot)
                     d, z = core.qparams_minmax(amin, amax, aspec)
+                    xv = core.fake_quant(xv, d, z, aspec)
                 else:
                     d = self.a_delta[aspec.bit_idx, slot]
                     z = self.a_zp[aspec.bit_idx, slot]
-                xv = core.fake_quant(xv, d, z, aspec)
+                    xv = core.fake_quant(xv, d, z, aspec,
+                                         generator=qctx.generator)
             x = xv.reshape(orig)
         w_eff = self.kernel.float()
         if cs is not None:
@@ -806,5 +821,8 @@ class QuantLinear(nn.Module):
                 tw = self.table_timerange(tr)
                 d = self.w_delta[wspec.bit_idx, tw]
                 z = self.w_zp[wspec.bit_idx, tw]
-            w_eff = core.fake_quant(w_eff, d, z, wspec)
+            w_eff = core.fake_quant(
+                w_eff, d, z, wspec, generator=qctx.generator,
+                alpha=self.w_alpha if self.adaround else None,
+                soft_targets=qctx.soft_targets)
         return self.dense(x, w_eff)

@@ -231,9 +231,10 @@ def load_params_into(model: nn.Module, path_or_sd) -> nn.Module:
 # ---------------- quant checkpoints (the JAX package's format) ----------
 
 # the tables of a layer that a PTQ run writes (qlinear.py:352-478; the
-# static act ranges a_min/a_max/a_init are calibration state, not saved)
-QUANT_TABLES = ("w_delta", "w_zp", "act_scale", "cb_scale", "a_delta",
-                "a_zp")
+# static act ranges a_min/a_max/a_init are calibration state, not saved;
+# w_alpha: AdaRound's rounding logits)
+QUANT_TABLES = ("w_delta", "w_zp", "w_alpha", "act_scale", "cb_scale",
+                "a_delta", "a_zp")
 # packed from the tables after a load; a JAX file may hold them
 PACKED = ("w_int", "w_colsum", "w_mp_scale", "w_mp_zp")
 CBSHARE = "cbshare__"
