@@ -50,7 +50,12 @@ Phases (any failure exits non-zero):
      with 20 padded) and its edge cases, to `F32_REL_ERR`, timed one call
      and back to back beside SDPA in float32, and its gradient (JAX's
      custom_vjp: the plain f32 attention's recompute) equal to the plain
-     attention's autograd gradient;
+     attention's autograd gradient; K6's float32 mode
+     (`csrc/attention_stream_f32.cu`, the float32 block at kv lengths above
+     the one-shot range) at PixArt-Σ 1024's self-attention [2, 4096, 16,
+     72], full and kv-masked, and at M = 2304 edge cases, the same way, and
+     its refusal of int8 PV and emission; K8 -> K6 with int8_qk at Σ's
+     self-attention, bf16 and int8 PV, emitting through K4;
   4. reference: tiny STDiT (sm8, sm8_epi, attn8, the fused reference
      W8A8, the reference W8A8 on the native backend and the W4A8 CB
      recipe, asym and sym) and
@@ -60,7 +65,9 @@ Phases (any failure exits non-zero):
      simulate backend, w8a8_naive with static acts, simulate and under
      impl 'fused' (K2 on static codes), the hybrid plan; PixArt-Σ under
      its w8a8_naive), each static-act model calibrated by `run_ptq` on the
-     CPU first; then the t20 MP sampler retiled onto 2 steps over the tiny
+     CPU first; a tiny PixArtMS with the micro-condition, qk_norm and the
+     'ave' KV sampling under sm8; then the t20 MP sampler retiled onto 2
+     steps over the tiny
      CB STDiT (the gather path) and over a tiny native W4A8 STDiT without
      CB (the segmented path);
   5. slice: full-width STDiT-XL/2 (28 blocks, C=1152, random weights from
@@ -140,14 +147,30 @@ Phases (any failure exits non-zero):
      the fp samples and against nearest rounding, the two backends within
      `RECON_BACKEND_REL`; then layer granularity and
      `mlp_block_reconstruction` at full width on `RECON_LAYER_DEPTH` blocks
-     (JAX's layer granularity holds every layer's I/O at once).
+     (JAX's layer granularity holds every layer's I/O at once);
+  9. recon_sigma: AdaRound through the CLI on PixArt-Σ 1024 at full depth
+     and width (a copy of `configs/workload/pixart_alpha_512.py` changed to
+     `SIGMA_CFG`'s values; the Σ slice's seeded weights in a `--ckpt_path`
+     file): `inference`, `get-calib-data`, `ptq` under a copy of
+     `w4a8_adaround.yaml` with `sr` added to its fp list and `RECON_ITERS`
+     iterations a block (the float32 blocks' self-attention on K6's
+     float32 mode in blocks 0-13 at N = M = 4096, `sdpa` in the
+     KV-compressed blocks 14-27, cross attention on K3's float32 mode: the
+     launches held to `SIGMA_RECON_LAUNCHES` exactly), with the ms per
+     iteration per block (all, blocks 0-13, blocks 14-27), the re-capture
+     seconds, the peak memory and the extrapolation to the plan's 2000
+     iterations x 28 blocks; then `quant-generate` from its checkpoint on
+     the simulate and the native backend and the plan with nearest
+     rounding, each against the fp samples, native against simulate
+     within `RECON_BACKEND_REL`.
 Each arm and each CLI command resets the launch counts just before its run
 and reads them just after; one that launches a kernel outside its list,
 or none of one in it, fails; the arms held to per-block counts
 (`BLOCK_LAUNCHES`) must hit them exactly. The third-to-last line is the
 card's name and power limit, the second-to-last a JSON object with one
 entry per kernel (launches summed over all arms of both slices and the
-CLI's and recon's commands), the last {"ok": true, "device": {...}}.
+CLI's, recon's and recon_sigma's commands), the last {"ok": true,
+"device": {...}}.
 """
 
 from __future__ import annotations
@@ -440,6 +463,9 @@ REPLACES = {
     "quantize_rows": "viditq_tpu/kernels/fused_matmul.py:606",
     "fused_dynq_int8_matmul": "viditq_tpu/kernels/fused_matmul.py:209",
     "attention_bnhd_stream": "viditq_tpu/kernels/attention.py:236",
+    # the same TPU kernel's float32 inputs (AdaRound's float32 block at kv
+    # lengths above the one-shot range)
+    "attention_bnhd_stream_f32": "viditq_tpu/kernels/attention.py:236",
     "dynamic_quant_rows": "viditq_tpu/kernels/int_matmul.py:72",
     "int8_matmul": "viditq_tpu/kernels/int_matmul.py:142",
     # an XLA pass outside any pallas_call (`_fake_quant_tokens_headwise`)
@@ -453,6 +479,8 @@ SOURCES = {
     "quantize_rows": "viditq_tpu_torch/csrc/quant_rows.cu",
     "fused_dynq_int8_matmul": "viditq_tpu_torch/csrc/dynq_gemm.cu",
     "attention_bnhd_stream": "viditq_tpu_torch/csrc/attention_stream.cu",
+    "attention_bnhd_stream_f32":
+        "viditq_tpu_torch/csrc/attention_stream_f32.cu",
     "dynamic_quant_rows": "viditq_tpu_torch/csrc/int_matmul.cu",
     "int8_matmul": "viditq_tpu_torch/csrc/int_matmul.cu",
     "qk_headwise_quant": "viditq_tpu_torch/csrc/qk_quant.cu",
@@ -1034,7 +1062,14 @@ def phase_kernels(records):
             ("asym [32768,4608] f32 (18 KB rows)", (M, 4 * C, False,
                                                     torch.float32)),
             ("sym [4096,16384] (32 KB rows)", (4096, 16384, True,
-                                               torch.bfloat16))):
+                                               torch.bfloat16)),
+            # PixArt-Σ 1024's native rows (phase recon_sigma's
+            # quant-generate): 2 x 4096 tokens, 2 x 300 prompt tokens
+            ("Σ asym [8192,1152]", (B * 4096, C, False, torch.bfloat16)),
+            ("Σ asym [8192,4608] (fc2 input)", (B * 4096, 4 * C, False,
+                                                torch.bfloat16)),
+            ("Σ asym [600,1152] (kv_linear input)", (B * 300, C, False,
+                                                     torch.bfloat16))):
         xa = randn(m_rows, k, dtype=dt) + 0.2
         esize = torch.empty((), dtype=dt).element_size()
         check_case("dynamic_quant_rows", case,
@@ -1044,8 +1079,9 @@ def phase_kernels(records):
                    exact=True, b2b=case == "asym [32768,1152]")
         del xa
 
-    # K7b at the w8a8 arm's four shapes (asym x asym, bf16 out, bias),
-    # identical to the plain version
+    # K7b at the w8a8 arm's four shapes and at PixArt-Σ 1024's (phase
+    # recon_sigma's native quant-generate: 8192 token rows, 600 prompt
+    # rows), asym x asym, bf16 out, bias, identical to the plain version
     def k7b_inputs(m_rows, k, n):
         xq_, xs_, xz_, xr_ = IM.dynamic_quant_rows(randn(m_rows, k))
         wq_ = randw(k, n)
@@ -1059,7 +1095,11 @@ def phase_kernels(records):
             ("q/k/v/proj [32768,1152]x[1152,1152]", (M, C, C)),
             ("fc1 [32768,1152]x[1152,4608]", (M, C, 4 * C)),
             ("fc2 [32768,4608]x[4608,1152]", (M, 4 * C, C)),
-            ("kv_linear [240,1152]x[1152,2304]", (B * P, C, 2 * C)))):
+            ("kv_linear [240,1152]x[1152,2304]", (B * P, C, 2 * C)),
+            ("Σ q/k/v/proj [8192,1152]x[1152,1152]", (B * 4096, C, C)),
+            ("Σ fc1 [8192,1152]x[1152,4608]", (B * 4096, C, 4 * C)),
+            ("Σ fc2 [8192,4608]x[4608,1152]", (B * 4096, 4 * C, C)),
+            ("Σ kv_linear [600,1152]x[1152,2304]", (B * 300, C, 2 * C)))):
         *tabs, bb = k7b_inputs(m_rows, k, n)
         xq_, wq_ = tabs[0], tabs[1]
         check_case("int8_matmul", case,
@@ -1068,8 +1108,9 @@ def phase_kernels(records):
                    cost=k7b_cost(m_rows, k, n, 2),
                    library_fn=(lambda: torch._int_mm(xq_, wq_)) if i == 0
                    else None, library_note=INT_MM_NOTE, exact=True)
-        yardsticks(f"int8_matmul {case.split()[0]}", xq_, wq_,
-                   lambda: IM.int8_matmul(*tabs, bias=bb))
+        if not case.startswith("Σ"):
+            yardsticks(f"int8_matmul {case.split()[0]}", xq_, wq_,
+                       lambda: IM.int8_matmul(*tabs, bias=bb))
 
     gemm_edge_cases(records, randn, randi8, rands)
     asym_cases(records)
@@ -1211,9 +1252,12 @@ def attn8_cases(records):
     with int8_qk (K8, then int8 PV and the emission, as the attn8 arm runs
     every site) at the three sites against the plain versions, codes to
     the code tolerance, past one code by `int8_pv_slack` (C12) of the
-    quantized q and k, the largest excess over that slack printed."""
+    quantized q and k, the largest excess over that slack printed; then K8
+    -> K6 with int8_qk at PixArt-Σ's self-attention, bf16 and int8 PV, its
+    emission through K4."""
     import torch
     from viditq_tpu_torch.kernels import attention as A
+    from viditq_tpu_torch.kernels import fused_matmul as FM
     dev = "cuda"
     g = torch.Generator(device=dev).manual_seed(6)
 
@@ -1222,7 +1266,7 @@ def attn8_cases(records):
 
     B, T, S, H, D, P = 2, 16, 1024, 16, 72, 120
     sc = D ** -0.5
-    print("phase kernels: attn8 (K8 and K3 int8_qk)", flush=True)
+    print("phase kernels: attn8 (K8, K3 and K6 int8_qk)", flush=True)
     mask = torch.ones((B, P), dtype=torch.int32, device=dev)
     mask[1, 100:] = 0
     sites = {"spatial": (B * T, S, S, 0, None),
@@ -1251,6 +1295,33 @@ def attn8_cases(records):
                    slack_fn=lambda want, qd=qd, kd=kd, v=v, seg=seg, m=m,
                    vb=vb: int8_pv_slack(qd, kd, v, sc, seg, m, vb, want[1]))
         del q, k, v, qd, kd
+    # K8 -> K6 with int8_qk at PixArt-Σ 1024's self-attention (no Σ arm
+    # runs the attn8 plan), with the bf16 PV and with the int8 PV, each
+    # emitting through K4: codes to the code tolerance, past one code (int8
+    # PV) by `int8_pv_slack` of the quantized q and k
+    Ns, C = 4096, H * D
+    bkv = A.stream_kv_block(Ns, Ns, C)
+    q, k, v = randn(B, Ns, H, D), randn(B, Ns, H, D), randn(B, Ns, H, D)
+    qd, kd = A.qk_headwise_quant_plain(q, k)
+    for int8_pv in (False, True):
+        def plain(int8_pv=int8_pv):
+            qq, kk = A.qk_headwise_quant_plain(q, k)
+            o = A.attention_bnhd_stream_plain(qq, kk, v, sc, bkv, None,
+                                              int8_pv)
+            return A._bn1(B, Ns, *FM.quantize_rows_plain(
+                o.reshape(B * Ns, C)))
+        nbytes, ops = attn_bound(B, Ns, H, D, [Ns] * B, int8_pv, True, Ns)
+        check_case("attention_bnhd_stream",
+                   f"Σ [2,4096,16,72] int8_qk {'int8' if int8_pv else 'bf16'}"
+                   f"_pv emit (K8->K6->K4)",
+                   lambda int8_pv=int8_pv: A.attention_bnhd(
+                       q, k, v, sc, int8_qk=True, int8_pv=int8_pv,
+                       emit=True), plain, records,
+                   cost=(nbytes + 4 * (q.numel() + k.numel()), ops),
+                   slack_fn=(lambda want: int8_pv_slack(
+                       qd, kd, v, sc, 0, None, None, want[1]))
+                   if int8_pv else None)
+    del q, k, v, qd, kd
 
 
 def k5_route(x, w, ws, b, out_dtype=None, sym=True, sym_w=True, w_zp=None,
@@ -2007,18 +2078,24 @@ def attention_edge_cases(records, randn):
 
 def f32_attention_cases(records):
     """K3's float32 mode (csrc/attention_f32.cu), the forward of
-    reconstruction's float32 block, at its three sites with the CFG pair
-    of one minibatch (2 rows): spatial full attention [32, 1024, 16, 72],
-    temporal seg 16 [2, 16384, 16, 72] and cross attention to 120 prompt
-    tokens, the last 20 of one row padded; then its edge cases (head dim 16
+    reconstruction's float32 block, at its three STDiT sites with the CFG
+    pair of one minibatch (2 rows): spatial full attention [32, 1024, 16,
+    72], temporal seg 16 [2, 16384, 16, 72] and cross attention to 120
+    prompt tokens, the last 20 of one row padded; at PixArt-Σ 1024's cross
+    attention (4096 queries, 300 prompt tokens, the last 100 of one row
+    padded: phase recon_sigma's float32 blocks); then its edge cases (head dim 16
     with ragged q and kv tiles, seg 5 with a ragged last tile, seg 48 over
     several tiles). Each against its plain version to F32_REL_ERR, timed
     one call and back to back, beside SDPA in float32 (TF32 off). Its
     bound: q/k/v read and the output written in f32 (the mask as int32),
     q.k as bf16 operations (its operands are rounded to bf16) and the PV as
-    f32 operations on the CUDA cores. Then the autograd case: the wrapped
-    kernel's gradient against the plain f32 attention's, both backwards
-    the same plain code."""
+    f32 operations on the CUDA cores. Then K6's float32 mode
+    (csrc/attention_stream_f32.cu) the same way at PixArt-Σ's
+    self-attention (full, kv-masked) and at M = 2304 (ragged q tiles and a
+    kv block masked whole; head dim 16), and its refusal of the int8 PV
+    and of emission. Then the autograd cases, K3's four sites and K6's
+    two: the wrapped kernel's gradient against the plain f32 attention's,
+    both backwards the same plain code."""
     import torch
     import torch.nn.functional as F
     from viditq_tpu_torch.kernels import attention as A
@@ -2030,6 +2107,8 @@ def f32_attention_cases(records):
     H, D = 16, 72
     mask = torch.ones((2, 120), dtype=torch.int32, device="cuda")
     mask[1, 100:] = 0
+    mask300 = torch.ones((2, 300), dtype=torch.int32, device="cuda")
+    mask300[1, 200:] = 0
     mask16 = torch.ones((3, 50), dtype=torch.int32, device="cuda")
     mask16[2, 43:] = 0
     cases = (("spatial [32,1024,16,72]", (32, 1024, 1024, H, D), 0, None),
@@ -2037,6 +2116,8 @@ def f32_attention_cases(records):
               16, None),
              ("cross [2,16384,16,72] kv 120 masked", (2, 16384, 120, H, D),
               0, mask),
+             ("Σ cross [2,4096,16,72] kv 300 masked", (2, 4096, 300, H, D),
+              0, mask300),
              ("edge D=16 [3,77,4,16] kv 50 masked", (3, 77, 50, 4, 16), 0,
               mask16),
              ("edge seg 5 [2,80,4,16]", (2, 80, 80, 4, 16), 5, None),
@@ -2075,12 +2156,74 @@ def f32_attention_cases(records):
             library_fn=lib, library_note=" (SDPA float32)",
             rel_err=F32_REL_ERR, b2b=not edge)
         del q, k, v, lib
+    # K6's float32 mode (csrc/attention_stream_f32.cu): PixArt-Σ 1024's
+    # self-attention in the float32 block, full and kv-masked (the later kv
+    # rows of one batch row), then at M = 2304 with ragged q tiles and a kv
+    # block masked whole, head dim 16, and a ragged last kv tile (M = 2100:
+    # 52 rows, partly masked); the plain version's kv block is the numerics
+    # rule's where one divides the lengths, else the one given
+    smask = torch.ones((2, 4096), dtype=torch.int32, device="cuda")
+    smask[1, 1500:] = 0
+    emask = torch.ones((2, 2304), dtype=torch.int32, device="cuda")
+    emask[1, 256:512] = 0
+    emask16 = torch.ones((3, 2304), dtype=torch.int32, device="cuda")
+    emask16[2, 43:] = 0
+    rmask = torch.ones((2, 2100), dtype=torch.int32, device="cuda")
+    rmask[1, 2070:] = 0
+    for case, (B, N, M, h, d), m, bkv in (
+            ("Σ self [2,4096,16,72]", (2, 4096, 4096, H, D), None, None),
+            ("Σ self [2,4096,16,72] kv masked", (2, 4096, 4096, H, D),
+             smask, None),
+            ("edge N=1000 M=2304, kv block 1 masked whole",
+             (2, 1000, 2304, H, D), emask, 256),
+            ("edge D=16 [3,77,4,16] M=2304 masked", (3, 77, 2304, 4, 16),
+             emask16, 256),
+            ("edge N=200 M=2100, a ragged last kv tile, masked",
+             (2, 200, 2100, H, D), rmask, 300)):
+        q, k, v = randn(B, N, h, d), randn(B, M, h, d), randn(B, M, h, d)
+        sc = d ** -0.5
+        bkv = bkv or A.stream_kv_block(N, M, h * d)
+        rows = [M] * B if m is None else [int(r) for r in (m != 0).sum(1)]
+        prods = 2 * h * N * d * sum(rows)
+        nbytes = 4 * (2 * B * N * h * d + 2 * B * M * h * d)
+        if m is not None:
+            nbytes += 4 * B * M
+        edge = case.startswith("edge")
+        lib = None
+        if not edge:
+            qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+            am = None if m is None else (m != 0)[:, None, None, :]
+            lib = (lambda qh=qh, kh=kh, vh=vh, am=am, sc=sc:
+                   F.scaled_dot_product_attention(qh, kh, vh, attn_mask=am,
+                                                  scale=sc))
+        check_case(
+            "attention_bnhd_stream_f32", case,
+            lambda q=q, k=k, v=v, m=m, sc=sc:
+                A.attention_bnhd(q, k, v, sc, kv_mask=m),
+            lambda q=q, k=k, v=v, m=m, sc=sc, bkv=bkv:
+                A.attention_bnhd_stream_plain(q, k, v, sc, bkv, m),
+            records, cost=(nbytes, {"bf16": prods, "f32": prods}),
+            library_fn=lib, library_note=" (SDPA float32)",
+            rel_err=F32_REL_ERR, b2b=not edge)
+        del q, k, v, lib
+    # the float32 modes take the float PV and no emission, as K3's
+    q, k, v = randn(1, 128, H, D), randn(1, 2304, H, D), randn(1, 2304, H, D)
+    for kw in (dict(int8_pv=True), dict(emit=True)):
+        try:
+            A.attention_bnhd_stream(q, k, v, D ** -0.5, **kw)
+        except ValueError:
+            continue
+        fail(f"attention_bnhd_stream_f32 took {kw}")
+    print("  attention_bnhd_stream_f32 refuses int8_pv and emit", flush=True)
     # autograd: the same backward (JAX's custom_vjp: a recompute through
     # the plain f32 attention) on the same inputs gives the same gradient
     for case, (B, N, M), seg, m in (
             ("spatial", (32, 1024, 1024), 0, None),
             ("temporal seg 16", (2, 16384, 16384), 16, None),
-            ("cross masked", (2, 16384, 120), 0, mask)):
+            ("cross masked", (2, 16384, 120), 0, mask),
+            ("Σ cross masked", (2, 4096, 300), 0, mask300),
+            ("Σ self (K6)", (2, 4096, 4096), 0, None),
+            ("Σ self kv masked (K6)", (2, 4096, 4096), 0, smask)):
         q, k, v = (randn(B, n, H, D).requires_grad_() for n in (N, M, M))
         gout = randn(B, N, H, D)
         t0 = time.time()
@@ -2092,12 +2235,14 @@ def f32_attention_cases(records):
         want = torch.autograd.grad(A.attention_bnhd_xla(
             *qkv, D ** -0.5, seg, m), qkv, gout)
         diff = max(float((a - b).abs().max()) for a, b in zip(got, want))
-        print(f"  attention_bnhd_f32 grad {case:18s} forward (kernel) + "
+        name = ("attention_bnhd_stream_f32"
+                if seg == 0 and M > A.ONESHOT_MAX_M else "attention_bnhd_f32")
+        print(f"  {name} grad {case:18s} forward (kernel) + "
               f"backward (plain f32) {secs * 1e3:.1f} ms; max |d grad| vs "
               f"the plain attention's autograd {diff:.3g} (limit 0)",
               flush=True)
         if diff != 0 or not all(torch.isfinite(a).all() for a in got):
-            fail(f"attention_bnhd_f32 {case}: the wrapped kernel's gradient "
+            fail(f"{name} {case}: the wrapped kernel's gradient "
                  f"differs from the plain attention's by {diff}")
         del q, k, v, out, got, want, qkv
 
@@ -2117,6 +2262,21 @@ TINY_SIGMA_CFG = {"model": dict(type="PixArt", kv_compress_sampling="conv",
                                 kv_compress_scale=2, kv_compress_layers=(1,),
                                 **TINY),
                   "image_size": 768, "dtype": "bf16"}
+# the tiny Σ with PixArtMS's options: the micro-condition (C = 192 in 12
+# heads of 16: its three embeddings of C // 3 channels fill C, and K2
+# takes K % 64 == 0), qk_norm and the 'ave' sampling on block 1
+TINY_SIGMA_MS_CFG = {"model": dict(
+    type="PixArt", micro_condition=True, qk_norm=True,
+    kv_compress_sampling="ave", kv_compress_scale=2, kv_compress_layers=(1,),
+    **{**TINY, "hidden_size": 192, "num_heads": 12}),
+    "image_size": 768, "dtype": "bf16"}
+TINY_DATA_INFO = {"img_hw": [[768.0, 768.0]], "aspect_ratio": [[1.0]]}
+# its weights at 0.1 x sqrt(64 / C): the activations, and so the bf16
+# noise floor TINY_REL_ERR is set for, of the C = 64 tiny models (on the
+# CPU, this model's bf16 against its float32: forward 9.4e-3, 3-step
+# denoise 2.6e-2 at this scale, 2.1e-2 and 6.4e-2 at 0.1; the C = 64 tiny
+# Σ's 9.2e-3 and 2.3e-2)
+TINY_MS_SCALE = 0.1 * (64 / 192) ** 0.5
 
 
 def quant_plan(plan=SM8_PLAN, recipe=None):
@@ -2357,7 +2517,8 @@ def phase_reference():
     (simulate), w8a8_naive (static acts, simulate; and on the native
     backend under impl 'fused', K2 on static codes) and the hybrid plan,
     PixArt-Σ under its w8a8_naive, each static-act model calibrated by
-    `run_ptq` on the CPU model's fp trajectory first): the
+    `run_ptq` on the CPU model's fp trajectory first; a PixArtMS with the
+    micro-condition, qk_norm and the 'ave' KV sampling under sm8): the
     card's kernels against the CPU's plain versions on the same weights and
     inputs (a CB model calibrated on the CPU first), for one forward
     (float32 output; t = 700, CB's second timerange) and a 3-step CFG
@@ -2370,6 +2531,8 @@ def phase_reference():
     model's forward and the denoise). Weights are drawn at 0.1 so
     activations are O(1)."""
     import copy
+
+    import torch
     from viditq_tpu_torch.pipelines.inference import quant_sample
     from viditq_tpu_torch.pipelines.mixed_precision import GatherMPSampler
     from viditq_tpu_torch.samplers.dpm_solver import DPMSolverSampler
@@ -2424,6 +2587,25 @@ def phase_reference():
             lambda dev, *a: quant_sample(models[dev], sampler, *a,
                                          act_slot_map=slot_map),
             slot_map=slot_map))
+    # PixArtMS's options (micro-condition, qk_norm, 'ave'): the model takes
+    # data_info, so the samplers get the model with it bound
+    cfg = TINY_SIGMA_MS_CFG
+    x, t, y, mask = tiny_inputs(cfg)
+    cpu = build_model(cfg, "cpu", scale=TINY_MS_SCALE)
+    models = {"cpu": cpu, "cuda": copy.deepcopy(cpu).to("cuda")}
+    check_k_major(models["cuda"])
+
+    def with_info(model):
+        def fwd(x, t, y, mask=None, qctx=None):
+            return model(x, t, y, mask, qctx=qctx, data_info={
+                k: torch.tensor(v, device=x.device)
+                for k, v in TINY_DATA_INFO.items()})
+        return fwd
+    tiny_verdict("sm8 PixArtMS (micro_condition, qk_norm, 'ave')",
+                 latent_size(cfg), 3, *tiny_pair(
+                     x, t, y, mask, with_info(cpu), with_info(models["cuda"]),
+                     lambda dev, *a: quant_sample(with_info(models[dev]), dpm,
+                                                  *a)))
     ddim2 = IDDPM(num_sampling_steps=2, cfg_scale=4.0)
     for name, recipe in (("cb_mp STDiT (W4A8 CB + t20 MP, gather)", "cb"),
                          ("segmented MP STDiT (W4A8 native, no CB)",
@@ -2761,7 +2943,24 @@ CLI_KERNELS = {"inference": "bf16", "get-calib-data": "bf16",
                "quant-generate adaround": "sim_w8a8",
                "quant-generate adaround native": "w8a8",
                "quant-generate nearest": "sim_w8a8",
-               "ptq adaround layer": ("attention_bnhd",)}
+               "ptq adaround layer": ("attention_bnhd",),
+               # phase recon_sigma: PixArt-Σ 1024 (blocks 0-13 stream their
+               # kv: K6; blocks 14-27 compress it and run `sdpa`); its
+               # float32 blocks' forwards on K6's and K3's float32 modes
+               "inference sigma": ("attention_bnhd", "attention_bnhd_stream"),
+               "get-calib-data sigma": ("attention_bnhd",
+                                        "attention_bnhd_stream"),
+               "ptq adaround sigma": ("attention_bnhd",
+                                      "attention_bnhd_stream",
+                                      "attention_bnhd_f32",
+                                      "attention_bnhd_stream_f32"),
+               "quant-generate adaround sigma": ("attention_bnhd",
+                                                 "attention_bnhd_stream"),
+               "quant-generate adaround native sigma": (
+                   "dynamic_quant_rows", "int8_matmul", "attention_bnhd",
+                   "attention_bnhd_stream"),
+               "quant-generate nearest sigma": ("attention_bnhd",
+                                                "attention_bnhd_stream")}
 CLI_SAME_REL = 1e-3  # CLI samples against the in-process path
 # phase recon: AdaRound (`w4a8_adaround.yaml`) through `ptq` at full width,
 # its iterations cut from the plan's 2000 a block to RECON_ITERS (a copy of
@@ -2779,6 +2978,56 @@ RECON_DEPTH = 28  # STDiT-XL/2's blocks, each reconstructed
 # position over the batch (ROADMAP C10), and the W4 weights dequantize in
 # bf16 on one and in the int32 epilogue on the other, over 20 steps
 RECON_BACKEND_REL = 5e-2
+
+
+# phase recon_sigma: PixArt-Σ 1024 through the CLI, its workload config a
+# copy of the 512 t2i one changed to SIGMA_CFG's values, its AdaRound plan
+# `w4a8_adaround.yaml` with `sr` added to the fp list (the KV-compress conv
+# quantizes its weight with no alpha: an AdaRound plan that reaches it
+# raises, tests/test_torch_recon_sigma.py)
+SIGMA_WORKLOAD = ROOT / "configs/workload/pixart_alpha_512.py"
+SIGMA_FP_EXTRA = ("sr",)
+# launches of the float32 block's attention per iteration, one forward an
+# iteration (quant/reconstruction.py `block_reconstruction`): K6's float32
+# mode at the self-attention of blocks 0-13 (N = M = 4096), K3's at the
+# cross attention of every block (300 prompt tokens, kv-masked); blocks
+# 14-27's KV-compressed self-attention runs `sdpa` (layers.py
+# `KVCompressSelfAttention`, as the JAX package's runs its stock flash
+# kernel), no kernel of the port
+SIGMA_RECON_LAUNCHES = {"attention_bnhd_stream_f32": 14,
+                        "attention_bnhd_f32": 28}
+
+
+def sigma_workload(tmp: Path) -> str:
+    """A copy of the 512 t2i workload config changed to SIGMA_CFG's values
+    (PixArtMS-XL/2 at 1024, 300 caption tokens, conv KV compression x2 on
+    blocks 14-27; DPM-Solver++, 20 steps, CFG 4.5) in tmp."""
+    src = SIGMA_WORKLOAD.read_text()
+    m = SIGMA_CFG["model"]
+    for old, new in (
+            ("image_size = 512", f"image_size = {SIGMA_CFG['image_size']}"),
+            ('type="PixArt-XL/2",\n    model_max_length=120,',
+             f'type="{m["type"]}",\n    model_max_length='
+             f'{m["model_max_length"]},\n    kv_compress_sampling='
+             f'"{m["kv_compress_sampling"]}",\n    kv_compress_scale='
+             f'{m["kv_compress_scale"]},\n    kv_compress_layers='
+             f'{tuple(m["kv_compress_layers"])},'),
+            ('type="t5", model_max_length=120',
+             f'type="t5", model_max_length={m["model_max_length"]}')):
+        if old not in src:
+            fail(f"{SIGMA_WORKLOAD}: no '{old}' to change")
+        src = src.replace(old, new)
+    path = tmp / "pixart_sigma_1024.py"
+    path.write_text(src)
+    from viditq_tpu_torch.utils import workload
+    cfg = workload.load_py_config(str(path))
+    sched = SIGMA_CFG["scheduler"]
+    if (cfg["scheduler"]["type"] != sched["type"]
+            or cfg["scheduler"]["num_sampling_steps"] != STEPS
+            or cfg["scheduler"]["cfg_scale"] != sched["cfg_scale"]
+            or cfg["dtype"] != SIGMA_CFG["dtype"]):
+        fail(f"{SIGMA_WORKLOAD}: its sampler or dtype is not SIGMA_CFG's")
+    return str(path)
 
 
 def cli_workload(tmp: Path, steps: int, depth=None) -> str:
@@ -3050,13 +3299,21 @@ def phase_cli():
     return counts
 
 
-def adaround_plan_copy(tmp: Path, name: str, **change) -> str:
+def adaround_plan_copy(tmp: Path, name: str, fp_extra=(), **change) -> str:
     """A copy of `w4a8_adaround.yaml` in tmp: `iters` and `granularity`
     set in its optimisation section, or `nearest=True`: nearest rounding
-    and no optimisation section (the same plan without AdaRound)."""
+    and no optimisation section (the same plan without AdaRound);
+    fp_extra: patterns its fp list takes beside remain_fp.txt's (a file in
+    tmp)."""
     import yaml
     y = yaml.safe_load(ADAROUND_PLAN.read_text())
-    y["part_fp_list"] = str(ROOT / "configs/opensora/remain_fp.txt")
+    fp = ROOT / "configs/opensora/remain_fp.txt"
+    if fp_extra:
+        lines = [ln.strip() for ln in fp.read_text().splitlines()
+                 if ln.strip()]
+        fp = tmp / f"{Path(name).stem}_fp.txt"
+        fp.write_text("\n".join(lines + list(fp_extra)) + "\n")
+    y["part_fp_list"] = str(fp)
     w = y["quant"]["weight"]
     if change.pop("nearest", False):
         w["optimization"] = None
@@ -3066,6 +3323,50 @@ def adaround_plan_copy(tmp: Path, name: str, **change) -> str:
     path = tmp / name
     path.write_text(yaml.safe_dump(y, sort_keys=False))
     return str(path)
+
+
+def recon_samples(phase: str, tmp: Path, common, plan: str, near: str,
+                  qck: str, fp, counts: dict, suffix: str = "") -> None:
+    """`quant-generate` from an AdaRound checkpoint on the simulate and the
+    native backend and under the same plan with nearest rounding (CLI
+    labels "quant-generate adaround", "... adaround native", "...
+    nearest", each with suffix): each sample's ms/step and rel err against
+    the fp samples and against nearest rounding; the two backends within
+    RECON_BACKEND_REL, and the learned rounding reaching both."""
+    import torch
+    samples = []
+    for label, extra in (
+            ("adaround", ["--ptq_config", plan, "--quant_ckpt", qck]),
+            ("adaround native", ["--ptq_config", plan, "--quant_ckpt", qck,
+                                 "--backend", "native"]),
+            ("nearest", ["--ptq_config", near])):
+        label = f"quant-generate {label}{suffix}"
+        out, _ = run_cli(label, ["quant-generate", "--save_dir",
+                                 str(tmp / label.replace(" ", "_")),
+                                 *common, *extra], counts)
+        smp = torch.from_numpy(np.load(out["out"])["samples"]).float()
+        if smp.shape != fp.shape or not torch.isfinite(smp).all():
+            fail(f"{phase} {label}: samples {tuple(smp.shape)}, finite and "
+                 "of the fp samples' shape wanted")
+        samples.append(smp)
+        print(f"  {phase} {label}: "
+              f"{out['sample_seconds'] * 1e3 / out['steps']:.1f} ms/step",
+              flush=True)
+
+    def rel(a, b):
+        return float((a - b).norm() / b.norm())
+    sim, nat, nrst = samples
+    r_back = rel(nat, sim)
+    print(f"  {phase} samples rel err: simulate vs fp {rel(sim, fp):.4g}, "
+          f"native vs fp {rel(nat, fp):.4g}, nearest rounding vs fp "
+          f"{rel(nrst, fp):.4g}; AdaRound vs nearest rounding: simulate "
+          f"{rel(sim, nrst):.4g}, native {rel(nat, nrst):.4g}; native vs "
+          f"simulate {r_back:.4g} (limit {RECON_BACKEND_REL})", flush=True)
+    if not r_back <= RECON_BACKEND_REL:
+        fail(f"{phase}: the native and simulate samples of the AdaRound "
+             f"checkpoint differ by {r_back}")
+    if not (rel(sim, nrst) > 0 and rel(nat, nrst) > 0):
+        fail(f"{phase}: the learned rounding did not reach the samples")
 
 
 def phase_recon(tmp: Path, config: str, params: str, calib: str, fp,
@@ -3118,43 +3419,8 @@ def phase_recon(tmp: Path, config: str, params: str, calib: str, fp,
         fail(f"recon: {launched['attention_bnhd_f32']} float32 K3 launches, "
              f"want 3 sites x {RECON_DEPTH} blocks x {RECON_ITERS} "
              "iterations")
-    samples = {}
-    common = base + ["--num_samples", "1"]
-    for label, extra in (
-            ("quant-generate adaround", ["--ptq_config", plan,
-                                         "--quant_ckpt", qck]),
-            ("quant-generate adaround native", [
-                "--ptq_config", plan, "--quant_ckpt", qck, "--backend",
-                "native"]),
-            ("quant-generate nearest", ["--ptq_config", near])):
-        out, _ = run_cli(label, ["quant-generate", "--save_dir",
-                                 str(tmp / label.replace(" ", "_")),
-                                 *common, *extra], counts)
-        samples[label] = torch.from_numpy(
-            np.load(out["out"])["samples"]).float()
-        if (samples[label].shape != fp.shape
-                or not torch.isfinite(samples[label]).all()):
-            fail(f"recon {label}: samples {tuple(samples[label].shape)}, "
-                 "finite and of the fp samples' shape wanted")
-        print(f"  recon {label}: {out['sample_seconds'] * 1e3 / CLI_STEPS:.1f}"
-              f" ms/step", flush=True)
-
-    def rel(a, b):
-        return float((a - b).norm() / b.norm())
-    sim, nat, nrst = (samples[k] for k in (
-        "quant-generate adaround", "quant-generate adaround native",
-        "quant-generate nearest"))
-    r_back = rel(nat, sim)
-    print(f"  recon samples rel err: simulate vs fp {rel(sim, fp):.4g}, "
-          f"native vs fp {rel(nat, fp):.4g}, nearest rounding vs fp "
-          f"{rel(nrst, fp):.4g}; AdaRound vs nearest rounding: simulate "
-          f"{rel(sim, nrst):.4g}, native {rel(nat, nrst):.4g}; native vs "
-          f"simulate {r_back:.4g} (limit {RECON_BACKEND_REL})", flush=True)
-    if not r_back <= RECON_BACKEND_REL:
-        fail(f"recon: the native and simulate samples of the AdaRound "
-             f"checkpoint differ by {r_back}")
-    if not (rel(sim, nrst) > 0 and rel(nat, nrst) > 0):
-        fail("recon: the learned rounding did not reach the samples")
+    recon_samples("recon", tmp, base + ["--num_samples", "1"], plan, near,
+                  qck, fp, counts)
     # layer granularity and the MLP pair, the depth cut
     cut = cli_workload(tmp, CLI_STEPS, RECON_LAYER_DEPTH)
     lplan = adaround_plan_copy(tmp, "w4a8_adaround_layer.yaml",
@@ -3201,6 +3467,98 @@ def phase_recon(tmp: Path, config: str, params: str, calib: str, fp,
     print(f"phase recon: {time.time() - t_phase:.1f} s", flush=True)
 
 
+def phase_recon_sigma() -> dict:
+    """AdaRound through the port's CLI on PixArt-Σ 1024 at full depth and
+    width (module header, phase 9), in a temporary directory: the Σ slice's
+    weights (normal x 0.02, seed 0) in a `--ckpt_path` file; `inference`
+    (the fp samples) and `get-calib-data`; `ptq` under a copy of
+    `w4a8_adaround.yaml` with `sr` fp-listed and RECON_ITERS iterations a
+    block (block granularity, asym, the 2 CFG rows of one sample), its
+    float32 blocks' attention launches held to SIGMA_RECON_LAUNCHES
+    exactly; `quant-generate` from its checkpoint on the simulate and the
+    native backend, and the plan with nearest rounding. Returns each
+    kernel's launches summed over the commands."""
+    import tempfile
+
+    import torch
+    from viditq_tpu_torch import cli
+    from viditq_tpu_torch.utils import ckpt, workload
+    from viditq_tpu_torch.utils.config import load_quant_config
+
+    counts = {}
+    t_phase = time.time()
+    with tempfile.TemporaryDirectory(prefix="viditq_recon_sigma_") as tmpd:
+        tmp = Path(tmpd)
+        config = sigma_workload(tmp)
+        cfg = workload.load_py_config(config)
+        model = workload.build_model(cfg, device="cuda")
+        workload.random_init_(model, 0, 0.02)
+        params = tmp / "sigma_params.pt"
+        ckpt.save_params(str(params), dict(model.named_parameters()))
+        depth = len(model.blocks)
+        stream = sum(not b.kv_compress for b in model.blocks)
+        model = None
+        if (stream, depth) != (
+                SIGMA_RECON_LAUNCHES["attention_bnhd_stream_f32"],
+                SIGMA_RECON_LAUNCHES["attention_bnhd_f32"]) or (
+                    depth != RECON_DEPTH):
+            fail(f"recon_sigma: {depth} blocks, {stream} without KV "
+                 f"compression; want {SIGMA_RECON_LAUNCHES}")
+        base = ["--config", config, "--ckpt_path", str(params)]
+        common = base + ["--num_samples", "1"]
+        out, _ = run_cli("inference sigma", ["inference", "--save_dir",
+                                             str(tmp / "fp"), *common],
+                         counts)
+        fp = torch.from_numpy(np.load(out["out"])["samples"]).float()
+        print(f"  recon_sigma inference: "
+              f"{out['sample_seconds'] * 1e3 / STEPS:.1f} ms/step", flush=True)
+        out, _ = run_cli("get-calib-data sigma",
+                         ["get-calib-data", "--save_dir", str(tmp / "cal"),
+                          *common], counts)
+        calib = out["out"]
+        plan = adaround_plan_copy(tmp, "sigma_adaround_cut.yaml",
+                                  fp_extra=SIGMA_FP_EXTRA, iters=RECON_ITERS)
+        near = adaround_plan_copy(tmp, "sigma_nearest.yaml",
+                                  fp_extra=SIGMA_FP_EXTRA, nearest=True)
+        out, launched = run_cli("ptq adaround sigma",
+                                ["ptq", "--save_dir", str(tmp / "ada"),
+                                 "--calib_data", calib, "--ptq_config", plan,
+                                 *base], counts)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        qck, tim = out["out"], out["recon_timings"]
+        block_s, capture_s = tim["block_s"], tim["capture_s"]
+        if len(block_s) != RECON_DEPTH or len(capture_s) != RECON_DEPTH:
+            fail(f"recon_sigma: {len(block_s)} blocks reconstructed, "
+                 f"{len(capture_s)} captures, want {RECON_DEPTH} each")
+        want = {k: n * RECON_ITERS for k, n in SIGMA_RECON_LAUNCHES.items()}
+        got = {k: launched.get(k, 0) for k in want}
+        if got != want:
+            fail(f"recon_sigma: float32 attention launches {got}, want "
+                 f"{want}")
+        ms_iter = [1e3 * b / RECON_ITERS for b in block_s]
+        full_iters = load_quant_config(str(ADAROUND_PLAN)).weight_opt.iters
+        est_h = (full_iters * sum(ms_iter) / 1e3 + sum(capture_s)) / 3600
+        print(f"  recon_sigma: {RECON_ITERS} iterations x {RECON_DEPTH} "
+              f"blocks (the f32 block's forward + backward on the 2 CFG "
+              f"rows): ms per iteration per block median "
+              f"{float(np.median(ms_iter)):.1f} (blocks 0-{stream - 1}, K6 "
+              f"float32: {float(np.median(ms_iter[:stream])):.1f}; blocks "
+              f"{stream}-{depth - 1}, KV compressed: "
+              f"{float(np.median(ms_iter[stream:])):.1f}; block 0 "
+              f"{ms_iter[0]:.1f}); the {RECON_DEPTH} asym re-capture "
+              f"forwards {sum(capture_s):.2f} s "
+              f"({float(np.median(capture_s)) * 1e3:.0f} ms each); the whole "
+              f"reconstruction {out['recon_seconds']:.1f} s; peak memory "
+              f"{peak:.2f} GiB; float32 launches {got} (exactly "
+              f"{SIGMA_RECON_LAUNCHES} x {RECON_ITERS}); the plan's "
+              f"{full_iters} iterations x {RECON_DEPTH} blocks extrapolate "
+              f"to {est_h:.2f} h on this card", flush=True)
+        recon_samples("recon_sigma", tmp, common, plan, near, qck, fp,
+                      counts, suffix=" sigma")
+    print(f"phase recon_sigma: {time.time() - t_phase:.1f} s", flush=True)
+    return counts
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3226,6 +3584,8 @@ def main() -> int:
     for k, n in run_slice("sigma", SIGMA_CFG, 1.0, 300).items():
         launches[k] += n
     for k, n in phase_cli().items():
+        launches[k] += n
+    for k, n in phase_recon_sigma().items():
         launches[k] += n
 
     kernels = []

@@ -300,13 +300,36 @@ def test_workload_build_sampler():
                                 dict(qk_norm=True),
                                 dict(kv_compress_sampling="ave",
                                      kv_compress_scale=2,
+                                     kv_compress_layers=(0,)),
+                                dict(kv_compress_sampling="uniform_every",
+                                     kv_compress_scale=2,
                                      kv_compress_layers=(0,))],
-                         ids=["micro_condition", "qk_norm", "kv-ave"])
+                         ids=["micro_condition", "qk_norm", "kv-ave",
+                              "kv-uniform_every"])
 def test_unported_pixart_options_raise(kw):
+    """PixArt's options that raised NotImplementedError before they were
+    ported now build and run one tiny forward (C = 48: the micro-condition
+    takes C // 3 channels for each of three sizes); their parity with the
+    JAX package is in tests/test_torch_pixart_options.py."""
+    import torch
     from viditq_tpu_torch.models.pixart import PixArt
-    with pytest.raises(NotImplementedError):
-        PixArt(input_size=8, hidden_size=32, depth=1, num_heads=2,
-               caption_channels=8, **kw)
+    from viditq_tpu_torch.utils import workload
+    model = PixArt(input_size=8, hidden_size=48, depth=1, num_heads=3,
+                   caption_channels=8, model_max_length=4,
+                   dtype=torch.float32, **kw)
+    workload.random_init_(model, 0, 0.1)
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(2, 4, 8, 8, generator=g)
+    y = torch.randn(2, 1, 4, 8, generator=g)
+    info = {"img_hw": torch.tensor([[64.0, 64.0]]),
+            "aspect_ratio": torch.tensor([[1.0]])}
+    with torch.no_grad():
+        out = model(x, torch.tensor([10, 500]), y,
+                    torch.ones(2, 4, dtype=torch.int32), data_info=info)
+    assert out.shape == (2, 8, 8, 8) and torch.isfinite(out).all()
+    if kw.get("micro_condition"):
+        with pytest.raises(ValueError):
+            model(x, torch.tensor([10, 500]), y)  # data_info is required
 
 
 def test_chip_smoke_carries_the_attention_edge_cases():

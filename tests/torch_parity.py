@@ -127,6 +127,13 @@ def randomize(params, seed: int = 0, scale: float = 0.1):
         params)
 
 
+def data_info(batch: int = 2):
+    """PixArtMS's micro-condition inputs as numpy arrays: each row's image
+    size [B, 2] and aspect ratio [B, 1]."""
+    hw = np.array([[1024.0, 768.0], [512.0, 896.0]], np.float32)[:batch]
+    return {"img_hw": hw, "aspect_ratio": hw[:, :1] / hw[:, 1:]}
+
+
 def build_jax(plan_path=SM8, scan_blocks: bool = False, seed: int = 0,
               kind: str = "stdit", plan_fn=None, weight_scale: float = 0.1,
               sq_stat_t=(), act_scales=None, dtype=jnp.float32,
@@ -138,7 +145,8 @@ def build_jax(plan_path=SM8, scan_blocks: bool = False, seed: int = 0,
     PTQ phase order: sq_stat, calibrate, pack), on the kernel path;
     act_scales: instead, a quant tree whose `act_scale` leaves to take
     (the statistic of a model on the same weights and inputs); dtype: the
-    model's activation dtype."""
+    model's activation dtype. A micro-condition model is initialised
+    with `data_info()`."""
     jcls, _, cfg, _ = KINDS[kind]
     plan = j_load(plan_path)
     resolver = (plan_fn(plan) if plan_fn else plan).resolver()
@@ -149,8 +157,10 @@ def build_jax(plan_path=SM8, scan_blocks: bool = False, seed: int = 0,
         x = x[..., :overrides["input_size"], :overrides["input_size"]]
     # jitted: only the variables' shapes and constant initial tables are
     # kept (the parameters are drawn below)
+    extra = ({"data_info": data_info(x.shape[0])}
+             if overrides.get("micro_condition") else {})
     v = dict(jax.jit(functools.partial(model.init, qctx=JQuantCtx(
-        mode="fp")))(jax.random.PRNGKey(0), x, t, y, mask))
+        mode="fp")))(jax.random.PRNGKey(0), x, t, y, mask, **extra))
     params = randomize(v["params"], seed, weight_scale)
     quant = v["quant"]
     if sq_stat_t:

@@ -58,6 +58,8 @@ SIGNATURES = {
     "vq_attn_row_quant": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
     "vq_attention_stream": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                             _F, _I, _P],
+    "vq_attention_stream_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
+                                _P],
     "vq_dyn_quant_rows": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "vq_int8_matmul": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                        _I, _P],

@@ -28,6 +28,7 @@ COUNTERS: Dict[str, Counter] = {
         "quantize_rows",             # K4
         "fused_dynq_int8_matmul",    # K5
         "attention_bnhd_stream",     # K6
+        "attention_bnhd_stream_f32",  # K6's float32 mode
         "dynamic_quant_rows",        # K7a
         "int8_matmul",               # K7b
         "qk_headwise_quant",         # K8

@@ -24,9 +24,11 @@ times it, before the row statistic.
 On CPU tensors each runs its plain version (`attention_bnhd_plain`,
 `attention_bnhd_stream_plain`); on CUDA tensors it launches
 csrc/attention.cu or csrc/attention_stream.cu (bf16 inputs), or for f32
-q/k/v (the float32 block of AdaRound reconstruction) K3's float32 mode,
-csrc/attention_f32.cu (full, kv-masked and seg; float PV, no emission), or
-raises.
+q/k/v (the float32 block of AdaRound reconstruction) the float32 modes:
+K3's, csrc/attention_f32.cu (full, kv-masked and seg), and K6's,
+csrc/attention_stream_f32.cu (full and kv-masked; its running max moves
+once per 64-row kv tile, since in f32 the kv block moves only rounding),
+both with the float PV and no emission; or raises.
 
 Gradients (JAX `custom_vjp`, attention.py:530-557): where q, k or v
 requires grad, `attention_bnhd` runs its forward as above and its backward
@@ -367,16 +369,22 @@ def attention_bnhd_stream(q, k, v, scale: float,
                           bkv: Optional[int] = None, emit_sym: bool = True,
                           need_rowsum: bool = False, col_scale=None):
     """K6: kv-streaming attention for M > ONESHOT_MAX_M (see the module
-    docstring). bkv defaults to `stream_kv_block`. With emit=True returns
+    docstring). bkv defaults to `stream_kv_block` (f32 CUDA tensors run
+    K6's float32 mode, which takes none). With emit=True returns
     (int8 codes [B, N, H*D], scales, zp | None, rowsum | None [B, N, 1])
     from K4 (emit_sym, need_rowsum, col_scale: its sym, need_rowsum and
     col_scale; attention.py:705-709)."""
     B, N, H, D = q.shape
     M = k.shape[1]
     C = H * D
+    cuda = on_cuda(q, k, v, kv_mask)
+    if cuda and q.dtype == torch.float32:
+        require(not (int8_pv or emit),
+                "K6's float32 mode takes the float PV and no emission")
+        return _attention_stream_f32_cuda(q, k, v, scale, kv_mask)
     if bkv is None:
         bkv = stream_kv_block(N, M, C, v_int8_in=int8_pv)
-    if not on_cuda(q, k, v, kv_mask):
+    if not cuda:
         out = attention_bnhd_stream_plain(q, k, v, scale, bkv, kv_mask,
                                           int8_pv)
     else:
@@ -424,6 +432,30 @@ def _attention_stream_cuda(q, k, v, scale, bkv, kv_mask, int8_pv):
         B, N, M, H, D, bkv, float(scale * LOG2E), int(int8_pv), stream),
         "vq_attention_stream")
     COUNTERS["attention_bnhd_stream"].launches += 1
+    return out.reshape(B, N, H, D)
+
+
+def _attention_stream_f32_cuda(q, k, v, scale, kv_mask):
+    """K6's float32 mode on the card (csrc/attention_stream_f32.cu): f32
+    q/k/v -> f32 output, full or kv-masked, any kv length."""
+    B, N, H, D = q.shape
+    M = k.shape[1]
+    C = H * D
+    require(k.dtype == v.dtype == torch.float32,
+            "K6's float32 mode takes float32 q, k and v")
+    require(D in KERNEL_HEAD_DIMS, f"head dim {D} not in {KERNEL_HEAD_DIMS}")
+    q3 = _aligned(q.reshape(B, N, C))
+    k3 = _aligned(k.reshape(B, M, C))
+    v3 = _aligned(v.reshape(B, M, C))
+    mask = None
+    if kv_mask is not None:
+        mask = kv_mask.to(torch.int32).reshape(B, M).contiguous()
+    out = torch.empty((B, N, C), dtype=torch.float32, device=q.device)
+    _build.check(_build.lib().vq_attention_stream_f32(
+        q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), _ptr(mask),
+        out.data_ptr(), B, N, M, H, D, float(scale * LOG2E),
+        _build.stream_ptr(q)), "vq_attention_stream_f32")
+    COUNTERS["attention_bnhd_stream_f32"].launches += 1
     return out.reshape(B, N, H, D)
 
 

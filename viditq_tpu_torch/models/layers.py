@@ -263,15 +263,22 @@ class SelfAttention(nn.Module):
     segments of seg_len tokens (STDiT temporal attention; the CB act
     statistic of its linears views their input in those segments).
     token_layout / d_t / d_s: the token view of its linears' token-wise
-    act quantization (STDiT's spatial attention: 'spatial')."""
+    act quantization (STDiT's spatial attention: 'spatial'). qk_norm: q
+    and k each through an affine LayerNorm over a head's channels before
+    the attention, on every path (the kernels, the fake-quant fallback)."""
 
     def __init__(self, dim: int, num_heads: int, resolver: Resolver = no_quant,
                  prefix: str = "", dtype=torch.bfloat16, seg_len: int = 0,
                  token_layout: Optional[str] = None, d_t: int = 1,
-                 d_s: int = 1):
+                 d_s: int = 1, qk_norm: bool = False):
         super().__init__()
         self.num_heads = num_heads
         self.seg_len = seg_len
+        self.qk_norm = qk_norm
+        if qk_norm:
+            # per head, over its D channels (layers.py:510-512, :546-548)
+            self.q_norm = AffineLayerNorm(dim // num_heads, dtype=dtype)
+            self.k_norm = AffineLayerNorm(dim // num_heads, dtype=dtype)
         self.specs = [resolver(f"{prefix}.{n}") for n in ("q", "k", "v")]
         self.pspec = resolver(f"{prefix}.proj")
         kw = dict(dtype=dtype, seg_len=seg_len, token_layout=token_layout,
@@ -303,6 +310,8 @@ class SelfAttention(nn.Module):
         q = self.q(x, qctx, prequant=pre).reshape(B, N, H, D)
         k = self.k(x, qctx, prequant=pre).reshape(B, N, H, D)
         v = self.v(x, qctx, prequant=pre).reshape(B, N, H, D)
+        if self.qk_norm:
+            q, k = self.q_norm(q), self.k_norm(k)
         flags = _exec_flags(self.specs[0], qctx)
         if flags is None:
             # segments unpacked into the batch (layers.py:537-542)
@@ -401,29 +410,46 @@ class DepthwiseQuantConv(nn.Module):
         return out + self.bias.to(self.dtype)
 
 
+def nearest_index(m: int, n: int, device=None) -> torch.Tensor:
+    """The source indices `jax.image.resize(..., "nearest")` keeps when it
+    shrinks an axis of m entries to n: floor((i + 1/2) * m / n) in float32
+    (half-pixel centres; jax/_src/image/scale.py `_resize_nearest`). At
+    m = r * n that is r * i + r // 2: rows 1, 3, 5, 7 of 8 at r = 2."""
+    i = torch.arange(n, dtype=torch.float32, device=device)
+    return torch.floor((i + 0.5) * m / n).long()
+
+
 class KVCompressSelfAttention(nn.Module):
     """PixArt-Σ self-attention with KV compression (layers.py:579-653):
     q/k/v/proj linears (each quantizes its own input under a fused plan:
-    K5), k and v downsampled on the token grid, and `sdpa` over N queries
-    and N / r^2 keys. Sampling 'conv' (the released Σ config: the shared
-    depthwise `sr` conv, then the affine `norm`) and 'uniform' are ported;
-    'ave' and 'uniform_every' raise NotImplementedError."""
+    K5), optionally q and k through an affine LayerNorm over all C channels
+    (`qk_norm`, layers.py:628-630), k and v downsampled, and `sdpa` over N
+    queries and the kept keys. Samplings (layers.py:588-608): 'conv' (the
+    released Σ config: the shared depthwise `sr` conv, then the affine
+    `norm`), 'uniform' (every r-th row and column of the token grid),
+    'uniform_every' (every r-th token of the flat sequence) and 'ave',
+    which despite its name is `jax.image.resize(..., "nearest")` of the
+    grid to (H/r, W/r): no average (`nearest_index`)."""
 
-    SAMPLINGS = ("conv", "uniform")
+    SAMPLINGS = ("conv", "uniform", "uniform_every", "ave")
 
     def __init__(self, dim: int, num_heads: int, sampling: Optional[str],
                  sr_ratio: int, resolver: Resolver = no_quant,
-                 prefix: str = "", dtype=torch.bfloat16):
+                 prefix: str = "", dtype=torch.bfloat16,
+                 qk_norm: bool = False):
         super().__init__()
         if sr_ratio > 1 and sampling not in self.SAMPLINGS:
-            raise NotImplementedError(
-                f"KV-compress sampling {sampling!r} is not ported")
+            raise ValueError(sampling)
         self.num_heads = num_heads
         self.sampling = sampling
         self.sr_ratio = sr_ratio
+        self.qk_norm = qk_norm
         self.q, self.k, self.v, self.proj = (
             QuantLinear(dim, dim, resolver(f"{prefix}.{n}"), dtype=dtype)
             for n in ("q", "k", "v", "proj"))
+        if qk_norm:
+            self.q_norm = AffineLayerNorm(dim, dtype=dtype)
+            self.k_norm = AffineLayerNorm(dim, dtype=dtype)
         if sr_ratio > 1 and sampling == "conv":
             self.sr = DepthwiseQuantConv(dim, sr_ratio,
                                          resolver(f"{prefix}.sr"), dtype)
@@ -434,9 +460,14 @@ class KVCompressSelfAttention(nn.Module):
         r = self.sr_ratio
         if self.sampling is None or r == 1:
             return t
+        if self.sampling == "uniform_every":
+            return t[:, ::r]
         grid = t.reshape(B, H, W, C)
         if self.sampling == "uniform":
             grid = grid[:, ::r, ::r]
+        elif self.sampling == "ave":
+            grid = grid[:, nearest_index(H, H // r, t.device)][
+                :, :, nearest_index(W, W // r, t.device)]
         else:
             grid = self.norm(self.sr(grid, qctx))
         return grid.reshape(B, -1, C)
@@ -446,7 +477,10 @@ class KVCompressSelfAttention(nn.Module):
         H, D = self.num_heads, C // self.num_heads
         h, w = HW if HW is not None else (math.isqrt(N),) * 2
         q = self.q(x, qctx)
-        k = self._downsample(self.k(x, qctx), h, w, qctx)
+        k = self.k(x, qctx)
+        if self.qk_norm:
+            q, k = self.q_norm(q), self.k_norm(k)
+        k = self._downsample(k, h, w, qctx)
         v = self._downsample(self.v(x, qctx), h, w, qctx)
         M = k.shape[1]
         out = sdpa(q.reshape(B, N, H, D).transpose(1, 2),
@@ -569,6 +603,20 @@ class TBlock(nn.Module):
 
     def forward(self, t):
         return self.linear(F.silu(t))
+
+
+class SizeEmbedder(TimestepEmbedder):
+    """blocks.py:477-508 (layers.py:820-838), PixArt-Σ's micro-condition:
+    s [B, d] (or [B], or one row for the batch) tiled to bs rows, each
+    scalar embedded as a timestep is (fc1 -> SiLU -> fc2, fp), the d
+    embeddings concatenated: [bs, d * hidden_size]."""
+
+    def forward(self, s, bs: int):
+        if s.dim() == 1:
+            s = s[:, None]
+        if s.shape[0] != bs:
+            s = s.repeat(bs // s.shape[0], 1)
+        return super().forward(s.reshape(-1)).reshape(s.shape[0], -1)
 
 
 class CaptionEmbedder(nn.Module):

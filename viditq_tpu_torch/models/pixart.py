@@ -10,9 +10,11 @@ multi-run scanned layouts load through `viditq_tpu_torch.utils.bridge`.
 Capture mode reads each block's input, output and shared context from the
 block's own call (`quant/reconstruction.py`, where the JAX package sows,
 pixart.py:42-43, :87-88, :199-201), and `standalone_block` is block i alone
-in float32 for reconstruction. The micro-condition embedders
-(`SizeEmbedder`), qk-norm, gradient checkpointing and the pipeline stages
-are not ported.
+in float32 for reconstruction. PixArtMS's options are ported: the
+micro-condition (`micro_condition`: the `csize_embedder` and `ar_embedder`
+of `data_info`'s image size and aspect ratio added to the timestep
+embedding), `qk_norm` and every KV-compress sampling. Gradient
+checkpointing and the pipeline stages are not ported.
 """
 
 from __future__ import annotations
@@ -24,9 +26,9 @@ from torch import nn
 
 from viditq_tpu_torch.models.layers import (
     CaptionEmbedder, CrossAttention, KVCompressSelfAttention, Mlp, PatchEmbed,
-    Resolver, SelfAttention, T2IFinalLayer, TBlock, TimestepEmbedder,
-    float32_copy, get_2d_sincos_pos_embed, layer_norm, ln_mod_prequant,
-    no_quant, t2i_modulate)
+    Resolver, SelfAttention, SizeEmbedder, T2IFinalLayer, TBlock,
+    TimestepEmbedder, float32_copy, get_2d_sincos_pos_embed, layer_norm,
+    ln_mod_prequant, no_quant, t2i_modulate)
 from viditq_tpu_torch.quant.qlinear import QuantCtx
 
 
@@ -36,7 +38,8 @@ class PixArtBlock(nn.Module):
     def __init__(self, hidden_size: int, num_heads: int,
                  mlp_ratio: float = 4.0, sampling: Optional[str] = None,
                  sr_ratio: int = 1, resolver: Resolver = no_quant,
-                 prefix: str = "", dtype=torch.bfloat16):
+                 prefix: str = "", dtype=torch.bfloat16,
+                 qk_norm: bool = False):
         super().__init__()
         C = hidden_size
         self.dtype = dtype
@@ -47,10 +50,11 @@ class PixArtBlock(nn.Module):
         if self.kv_compress:
             self.attn = KVCompressSelfAttention(
                 C, num_heads, sampling, sr_ratio, resolver,
-                f"{prefix}.attn", dtype)
+                f"{prefix}.attn", dtype, qk_norm=qk_norm)
         else:
             self.attn = SelfAttention(C, num_heads, resolver,
-                                      f"{prefix}.attn", dtype)
+                                      f"{prefix}.attn", dtype,
+                                      qk_norm=qk_norm)
         self.cross_attn = CrossAttention(C, num_heads, resolver,
                                          f"{prefix}.cross_attn", dtype)
         self.mlp = Mlp(C, int(C * mlp_ratio), resolver, f"{prefix}.mlp",
@@ -94,7 +98,9 @@ class PixArtBlock(nn.Module):
 class PixArt(nn.Module):
     """pixart.py:95-270. `input_size` is the latent's spatial size
     (image_size // 8); blocks listed in `kv_compress_layers` compress k/v
-    by `kv_compress_scale` with `kv_compress_sampling`."""
+    by `kv_compress_scale` with `kv_compress_sampling`; `qk_norm`
+    normalises every self-attention's q and k; `micro_condition` adds the
+    embeddings of `data_info` to the timestep's (pixart.py:154-160)."""
 
     def __init__(self, input_size: int = 64, patch_size: int = 2,
                  in_channels: int = 4, hidden_size: int = 1152,
@@ -108,11 +114,7 @@ class PixArt(nn.Module):
                  kv_compress_layers: Sequence[int] = (),
                  resolver: Resolver = no_quant, dtype=torch.bfloat16):
         super().__init__()
-        if micro_condition:
-            raise NotImplementedError(
-                "the micro-condition (SizeEmbedder) path is not ported")
-        if qk_norm:
-            raise NotImplementedError("qk_norm is not ported")
+        self.micro_condition = micro_condition
         self.input_size = input_size
         self.patch_size = patch_size
         self.hidden_size = hidden_size
@@ -128,6 +130,9 @@ class PixArt(nn.Module):
         self.x_embedder = PatchEmbed(patch_size, in_channels, C, resolver,
                                      dtype=dtype)
         self.t_embedder = TimestepEmbedder(C, dtype=dtype)
+        if micro_condition:
+            self.csize_embedder = SizeEmbedder(C // 3, dtype=dtype)
+            self.ar_embedder = SizeEmbedder(C // 3, dtype=dtype)
         self.t_block = TBlock(C, dtype)
         self.y_embedder = CaptionEmbedder(caption_channels, C,
                                           model_max_length, dtype)
@@ -138,17 +143,19 @@ class PixArt(nn.Module):
                 C, num_heads, mlp_ratio,
                 sampling=kv_compress_sampling if sr > 1 else None,
                 sr_ratio=sr, resolver=resolver, prefix=f"blocks.{i}",
-                dtype=dtype))
+                dtype=dtype, qk_norm=qk_norm))
         self.blocks = nn.ModuleList(blocks)
         self.final_layer = T2IFinalLayer(C, patch_size ** 2,
                                          self.out_channels, resolver,
                                          dtype=dtype)
 
     def forward(self, x, timestep, y, mask=None,
-                qctx: Optional[QuantCtx] = None):
+                qctx: Optional[QuantCtx] = None, data_info=None):
         """x: [B, C, H, W] at the input_size grid; timestep: [B]; y:
         [B, 1, L, C_cap] or [B, L, C_cap]; mask: [B, L] or the CFG-doubled
-        [2B, L]. Returns [B, C_out, H, W] float32."""
+        [2B, L]; data_info (micro_condition): {"img_hw": [B or 1, 2],
+        "aspect_ratio": [B or 1, 1]}, as the JAX model's (a keyword here:
+        the samplers pass qctx fifth). Returns [B, C_out, H, W] float32."""
         B = x.shape[0]
         C = self.hidden_size
         h = x.shape[-2] // self.patch_size
@@ -156,6 +163,13 @@ class PixArt(nn.Module):
         x = (self.x_embedder(x.to(self.dtype), qctx)
              + self.pos_embed.to(self.dtype))
         t = self.t_embedder(timestep)
+        if self.micro_condition:
+            if data_info is None:
+                raise ValueError("micro_condition needs data_info")
+            size, ar = (torch.as_tensor(data_info[k], device=x.device)
+                        for k in ("img_hw", "aspect_ratio"))
+            t = t + torch.cat([self.csize_embedder(size, B),
+                               self.ar_embedder(ar, B)], dim=1)
         t0 = self.t_block(t)
         y = self.y_embedder(y.to(self.dtype))
         if y.dim() == 4:
