@@ -10,233 +10,233 @@
 //   s = bf16(q * scale*log2e) . bf16(k)        (f32 sums)
 //   m = rowmax(s); e = exp2(s - m); r = sum(e)
 //   o = sum(e * v) * (1/r)                     (all f32)
-// The products of the bf16-rounded operands are exact in f32, so q.k is the
-// bf16 mode's; the softmax and the PV stay f32 (no rounding of e or v). The
-// plain version normalises e before the PV (e * (1/r)); the kernel scales
-// the f32 sum once per output, a difference of f32 rounding only.
 //
-// Modes: full (every kv row), kv-masked (mask [B, M] int32, 1 = attend:
-// masked rows score -inf) and seg (block-diagonal: a q row attends to the kv
-// rows of its own segment of `seg` tokens; k/v co-indexed with q).
+// Full and kv-masked attention (mask [B, M] int32, 1 = attend) run the
+// float32 core (csrc/attn_f32_core.cuh: q.k on the bf16 tensor cores, the
+// PV as three TF32 products, one pass), as K6's float32 mode does.
 //
-// Design: a simple kernel on the CUDA cores. A block owns 64 q rows of one
-// (batch row, head): 256 threads as 16 x 16, a thread 4 q rows (ty + 16 i)
-// by 4 kv columns (tx + 16 j) of each 64-row kv tile, and 4 rows by
-// ceil(D / 16) output channels (tx + 16 j). q (pre-scaled, rounded to bf16)
-// sits in shared memory for the block's life; k (rounded to bf16) and v
-// tiles are staged per tile. Two passes over the block's kv range: the row
-// max, then exp2, the row sum and the PV (the probabilities of a tile
-// staged in shared memory where the k tile was). The 16 threads of a row
-// are one half-warp, so the row max and sum reduce by shuffles. In seg mode
-// the kv range of a block is the segments its rows belong to (one tile at
-// seg 16), and scores across segments are -inf. Bound on the card:
-// operations, 4*N*M*D per (b, h) on the f32 CUDA cores at the spatial site
-// (N = M = 1024), bytes at the seg and cross sites.
+// Seg mode (block-diagonal: a q row attends to the kv rows of its own
+// segment of `seg` tokens; k/v co-indexed with q) has a kernel of its own.
+// Its work is small (at STDiT's temporal site, [2, 16384, 16, 72] at seg
+// 16: 2.4 GFLOP, 0.04 ms on the f32 CUDA cores) against its bytes (q/k/v/o
+// in f32, 604 MB: 0.180 ms), so it is designed for the byte bound:
+// - a warp owns a unit: one head and a group of whole segments (32 / seg
+//   of them, up to 32 q rows) or, for seg > 32, 32 q rows of one segment;
+//   a lane owns one q row, pre-scaled and rounded to bf16 in registers;
+// - the unit's k and v rows of its head land in the warp's slice of shared
+//   memory by 16-byte cp.async (a segment's rows in pieces of 32 for seg >
+//   32); every other read and the output write are 16-byte vectors too;
+// - scores only on the diagonal seg x seg blocks: a lane walks its own
+//   segment's kv rows in chunks of 16, the scores of a chunk in registers,
+//   then one exp2 pass and the PV as f32 FMAs; at seg <= 16 a segment is
+//   one chunk, so its max is known after its single q.k and the softmax is
+//   the plain version's (one pass, no rescale); longer segments rescale
+//   once a chunk, as the core does a tile;
+// - consecutive warps take consecutive heads of the same tokens, so a
+//   block reads whole stretches of q/k/v rows.
 
-#include "common.cuh"
+#include "attn_f32_core.cuh"
 
 namespace vq {
-namespace attn_f32 {
+namespace attn_seg_f32 {
 
-constexpr int BQ = 64;       // q rows per block
-constexpr int BKV = 64;      // kv rows per tile
-constexpr int THREADS = 256;
+constexpr int WARPS = 4;
+constexpr int THREADS = 32 * WARPS;
+constexpr int ROWS = 32;   // q rows of a unit, kv rows of a staged piece
+constexpr int CHUNK = 16;  // kv rows scored at once by a lane
 
 template <int D>
-struct Smem {
-  static constexpr int KP = (D + 1 > BKV + 1) ? D + 1 : BKV + 1;  // k or p
-  static constexpr int FLOATS = BQ * D + BKV * KP + BKV * D;
-  static constexpr int BYTES = FLOATS * 4 + BKV * 4;               // + mask
+struct Seg {
+  static_assert(D % 4 == 0, "head dim must be a multiple of 4");
+  static constexpr int RS = D + 4;  // floats a staged row (16-byte aligned)
+  static constexpr int WARP_FLOATS = 2 * ROWS * RS;  // k, then v
+  static constexpr int BYTES = WARPS * WARP_FLOATS * 4;
 };
 
 __device__ __forceinline__ float bf16_round(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
 
+// q/k/v/out [B, N, H*D] f32, 16-byte aligned; seg divides N
 template <int D>
-__global__ void __launch_bounds__(THREADS)
-attn_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                const float* __restrict__ v, const int* __restrict__ mask,
-                float* __restrict__ out, int N, int M, int H, int seg,
-                float scale2) {
-  constexpr int KP = Smem<D>::KP;
-  constexpr int DJ = (D + 15) / 16;
-  extern __shared__ float smem[];
-  float* Qs = smem;                 // [BQ][D]
-  float* Ks = Qs + BQ * D;          // [BKV][KP]; the probabilities [BKV][KP]
-  float* Vs = Ks + BKV * KP;        // [BKV][D]
-  int* Ms = reinterpret_cast<int*>(Vs + BKV * D);  // [BKV] valid kv rows
+__global__ void __launch_bounds__(THREADS, 2)
+    attn_seg_f32_kernel(const float* __restrict__ q,
+                        const float* __restrict__ k,
+                        const float* __restrict__ v,
+                        float* __restrict__ out, int B, int N, int H,
+                        int seg, float scale2) {
+  using T = Seg<D>;
+  constexpr int CH = D / 4;
+  extern __shared__ __align__(16) float sm[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  float* Ks = sm + warp * T::WARP_FLOATS;
+  float* Vs = Ks + ROWS * T::RS;
 
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const int n0 = blockIdx.x * BQ;
-  const int h = blockIdx.y, b = blockIdx.z;
+  // the unit: (b, q chunk, head), head fastest
+  const bool short_seg = seg <= ROWS;
+  const int per_seg = short_seg ? 0 : (seg + ROWS - 1) / ROWS;
+  const int unit_rows = short_seg ? (ROWS / seg) * seg : ROWS;
+  const int n_chunks = short_seg ? (N + unit_rows - 1) / unit_rows
+                                 : (N / seg) * per_seg;
+  const long long u = static_cast<long long>(blockIdx.x) * WARPS + warp;
+  if (u >= static_cast<long long>(B) * n_chunks * H) return;
+  const int h = static_cast<int>(u % H);
+  const int qc = static_cast<int>((u / H) % n_chunks);
+  const int b = static_cast<int>(u / (static_cast<long long>(H) * n_chunks));
+  int r0, n_rows, kv_lo, kv_hi;
+  if (short_seg) {
+    r0 = qc * unit_rows;
+    n_rows = min(unit_rows, N - r0);
+    kv_lo = r0;
+    kv_hi = r0 + n_rows;
+  } else {
+    const int s0 = (qc / per_seg) * seg, c = qc % per_seg;
+    r0 = s0 + c * ROWS;
+    n_rows = min(ROWS, seg - c * ROWS);
+    kv_lo = s0;
+    kv_hi = s0 + seg;
+  }
   const int C = H * D;
-  const float* qb = q + (static_cast<size_t>(b) * N) * C + h * D;
-  const float* kb = k + (static_cast<size_t>(b) * M) * C + h * D;
-  const float* vb = v + (static_cast<size_t>(b) * M) * C + h * D;
+  const size_t base = static_cast<size_t>(b) * N * C + h * D;
+  const bool has_row = lane < n_rows;
+  const int row = r0 + lane;
 
-  for (int i = tid; i < BQ * D; i += THREADS) {
-    const int r = i / D, d = i % D;
-    const int n = n0 + r;
-    Qs[i] = n < N ? bf16_round(qb[static_cast<size_t>(n) * C + d] * scale2)
-                  : 0.0f;
-  }
-  // the block's kv range: all of it, or the segments of its rows
-  int kv_lo = 0, kv_hi = M;
-  if (seg > 0) {
-    const int last = min(n0 + BQ, N) - 1;
-    kv_lo = (n0 / seg) * seg;
-    kv_hi = min(N, (last / seg + 1) * seg);
-  }
+  float qv[D];  // this lane's q row: bf16(q * scale2)
+  float m_run = -INFINITY, r = 0.0f;
+  float acc[D];
+#pragma unroll
+  for (int d = 0; d < D; ++d) acc[d] = 0.0f;
 
-  // stage k tile t (and v and the valid flags): rows past kv_hi are zero
-  auto load_tile = [&](int t0, bool with_v) {
-    for (int i = tid; i < BKV * D; i += THREADS) {
-      const int r = i / D, d = i % D;
-      const int m = t0 + r;
-      const bool in = m < kv_hi;
-      Ks[r * KP + d] =
-          in ? bf16_round(kb[static_cast<size_t>(m) * C + d]) : 0.0f;
-      if (with_v) Vs[i] = in ? vb[static_cast<size_t>(m) * C + d] : 0.0f;
+  for (int p0 = kv_lo; p0 < kv_hi; p0 += ROWS) {
+    const int p_rows = min(ROWS, kv_hi - p0);
+    __syncwarp();  // every lane is done with the last piece
+    for (int i = lane; i < p_rows * CH; i += 32) {
+      const int rr = i / CH, c = i % CH;
+      const size_t off = base + static_cast<size_t>(p0 + rr) * C + 4 * c;
+      const uint32_t dst = (rr * T::RS + 4 * c) * 4;
+      attn_f32::f32_cp_async16(smem_u32(Ks) + dst, k + off);
+      attn_f32::f32_cp_async16(smem_u32(Vs) + dst, v + off);
     }
-    for (int r = tid; r < BKV; r += THREADS) {
-      const int m = t0 + r;
-      Ms[r] = m < kv_hi && (mask == nullptr ||
-                            mask[static_cast<size_t>(b) * M + m] != 0);
-    }
-  };
-  // this thread's 4 x 4 scores of the staged tile; -inf where masked
-  auto scores = [&](int t0, float (&s)[4][4]) {
+    attn_f32::f32_cp_async_commit();
+    if (p0 == kv_lo) {  // the q row loads overlap the first piece's
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.0f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float a[4], kk[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = Qs[(ty + 16 * i) * D + d];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) kk[j] = Ks[(tx + 16 * j) * KP + d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = __fmaf_rn(a[i], kk[j], s[i][j]);
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = tx + 16 * j;
-      const bool ok = Ms[c] != 0;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const bool same = seg == 0 ||
-                          (n0 + ty + 16 * i) / seg == (t0 + c) / seg;
-        if (!(ok && same)) s[i][j] = -INFINITY;
+      for (int c = 0; c < CH; ++c) {
+        float4 x = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        if (has_row)
+          x = *reinterpret_cast<const float4*>(
+              q + base + static_cast<size_t>(row) * C + 4 * c);
+        qv[4 * c] = bf16_round(x.x * scale2);
+        qv[4 * c + 1] = bf16_round(x.y * scale2);
+        qv[4 * c + 2] = bf16_round(x.z * scale2);
+        qv[4 * c + 3] = bf16_round(x.w * scale2);
       }
     }
-  };
+    attn_f32::f32_cp_async_wait_all();
+    __syncwarp();
+    // k rounded to bf16 in place, once for the warp
+    for (int i = lane; i < p_rows * CH; i += 32) {
+      float4* x = reinterpret_cast<float4*>(Ks + (i / CH) * T::RS +
+                                            4 * (i % CH));
+      const float4 y = *x;
+      *x = make_float4(bf16_round(y.x), bf16_round(y.y), bf16_round(y.z),
+                       bf16_round(y.w));
+    }
+    __syncwarp();
 
-  // pass 1: the row max
-  float mx[4] = {-INFINITY, -INFINITY, -INFINITY, -INFINITY};
-  for (int t0 = kv_lo; t0 < kv_hi; t0 += BKV) {
-    __syncthreads();
-    load_tile(t0, false);
-    __syncthreads();
-    float s[4][4];
-    scores(t0, s);
+    // this lane's kv rows in the piece: its own segment's (none without a
+    // q row)
+    const int w_lo = short_seg ? (lane / seg) * seg : 0;
+    const int w_len = !has_row ? 0 : short_seg ? seg : p_rows;
+    for (int c0 = 0; c0 < w_len; c0 += CHUNK) {
+      float s[CHUNK];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+      for (int jj = 0; jj < CHUNK; ++jj) s[jj] = 0.0f;
+      // s = q . k over the chunk's rows (bf16 operands: exact products)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) mx[i] = fmaxf(mx[i], s[i][j]);
-  }
+      for (int c = 0; c < CH; ++c) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int o = 8; o > 0; o >>= 1)
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], o));
-
-  // pass 2: e = exp2(s - m), the row sum and the PV
-  float r[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-  float acc[4][DJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) acc[i][j] = 0.0f;
-  for (int t0 = kv_lo; t0 < kv_hi; t0 += BKV) {
-    __syncthreads();
-    load_tile(t0, true);
-    __syncthreads();
-    float s[4][4];
-    scores(t0, s);
-    __syncthreads();  // every thread is done with the k tile
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float e = exp2f(s[i][j] - mx[i]);
-        r[i] += e;
-        Ks[(ty + 16 * i) * KP + tx + 16 * j] = e;
+        for (int jj = 0; jj < CHUNK; ++jj) {
+          if (c0 + jj < w_len) {
+            const float4 x = *reinterpret_cast<const float4*>(
+                Ks + (w_lo + c0 + jj) * T::RS + 4 * c);
+            float a = __fmaf_rn(qv[4 * c], x.x, s[jj]);
+            a = __fmaf_rn(qv[4 * c + 1], x.y, a);
+            a = __fmaf_rn(qv[4 * c + 2], x.z, a);
+            s[jj] = __fmaf_rn(qv[4 * c + 3], x.w, a);
+          }
+        }
       }
-    __syncthreads();
-#pragma unroll 4
-    for (int c = 0; c < BKV; ++c) {
-      float p[4];
+      float tm = -INFINITY;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) p[i] = Ks[(ty + 16 * i) * KP + c];
+      for (int jj = 0; jj < CHUNK; ++jj)
+        if (c0 + jj < w_len) tm = fmaxf(tm, s[jj]);
+      const float m_new = fmaxf(m_run, tm);
+      const float corr = exp2f(m_run - m_new);
+      m_run = m_new;
+      float part = 0.0f;
 #pragma unroll
-      for (int j = 0; j < DJ; ++j) {
-        const int d = tx + 16 * j;
-        if (D % 16 == 0 || d < D) {
-          const float vv = Vs[c * D + d];
+      for (int jj = 0; jj < CHUNK; ++jj) {
+        s[jj] = c0 + jj < w_len ? exp2f(s[jj] - m_new) : 0.0f;
+        part += s[jj];
+      }
+      r = r * corr + part;
+      if (c0 > 0 || p0 > kv_lo) {
 #pragma unroll
-          for (int i = 0; i < 4; ++i) acc[i][j] = __fmaf_rn(p[i], vv, acc[i][j]);
+        for (int d = 0; d < D; ++d) acc[d] *= corr;
+      }
+#pragma unroll
+      for (int jj = 0; jj < CHUNK; ++jj) {
+        if (c0 + jj < w_len) {
+#pragma unroll
+          for (int c = 0; c < CH; ++c) {
+            const float4 x = *reinterpret_cast<const float4*>(
+                Vs + (w_lo + c0 + jj) * T::RS + 4 * c);
+            acc[4 * c] = __fmaf_rn(s[jj], x.x, acc[4 * c]);
+            acc[4 * c + 1] = __fmaf_rn(s[jj], x.y, acc[4 * c + 1]);
+            acc[4 * c + 2] = __fmaf_rn(s[jj], x.z, acc[4 * c + 2]);
+            acc[4 * c + 3] = __fmaf_rn(s[jj], x.w, acc[4 * c + 3]);
+          }
         }
       }
     }
   }
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int o = 8; o > 0; o >>= 1)
-      r[i] += __shfl_xor_sync(0xffffffffu, r[i], o);
 
-  float* ob = out + (static_cast<size_t>(b) * N) * C + h * D;
+  if (!has_row) return;
+  const float inv = 1.0f / r;
+  float* orow = out + base + static_cast<size_t>(row) * C;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int n = n0 + ty + 16 * i;
-    if (n >= N) continue;
-    const float inv = 1.0f / r[i];
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) {
-      const int d = tx + 16 * j;
-      if (D % 16 == 0 || d < D)
-        ob[static_cast<size_t>(n) * C + d] = acc[i][j] * inv;
-    }
-  }
+  for (int c = 0; c < CH; ++c)
+    *reinterpret_cast<float4*>(orow + 4 * c) =
+        make_float4(acc[4 * c] * inv, acc[4 * c + 1] * inv,
+                    acc[4 * c + 2] * inv, acc[4 * c + 3] * inv);
 }
 
 template <int D>
 cudaError_t launch(const float* q, const float* k, const float* v,
-                   const int* mask, float* out, int B, int N, int M, int H,
-                   int seg, float scale2, cudaStream_t st) {
-  auto kernel = attn_f32_kernel<D>;
-  const int smem = Smem<D>::BYTES;
+                   float* out, int B, int N, int H, int seg, float scale2,
+                   cudaStream_t st) {
+  auto kernel = attn_seg_f32_kernel<D>;
+  const int smem = Seg<D>::BYTES;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  dim3 grid((N + BQ - 1) / BQ, H, B);
-  kernel<<<grid, THREADS, smem, st>>>(q, k, v, mask, out, N, M, H, seg,
-                                      scale2);
+  const long long n_chunks =
+      seg <= ROWS ? (N + (ROWS / seg) * seg - 1) / ((ROWS / seg) * seg)
+                  : static_cast<long long>(N / seg) * ((seg + ROWS - 1) / ROWS);
+  const long long units = static_cast<long long>(B) * n_chunks * H;
+  const long long blocks = (units + WARPS - 1) / WARPS;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  kernel<<<static_cast<unsigned>(blocks), THREADS, smem, st>>>(
+      q, k, v, out, B, N, H, seg, scale2);
   return cudaGetLastError();
 }
 
-}  // namespace attn_f32
+}  // namespace attn_seg_f32
 }  // namespace vq
 
-// q [B, N, H*D], k/v [B, M, H*D], out [B, N, H*D], all f32; mask [B, M]
-// int32 or null; seg > 0: block-diagonal in segments of seg tokens (M == N,
-// no mask). scale2 = scale * log2(e).
+// q [B, N, H*D], k/v [B, M, H*D], out [B, N, H*D], all f32 and 16-byte
+// aligned; mask [B, M] int32 or null; seg > 0: block-diagonal in segments
+// of seg tokens (M == N, N % seg == 0, no mask). scale2 = scale * log2(e).
 VQ_EXPORT int vq_attention_f32(const void* q, const void* k, const void* v,
                                const void* mask, void* out, int B, int N,
                                int M, int H, int D, int seg, float scale2,
@@ -245,19 +245,23 @@ VQ_EXPORT int vq_attention_f32(const void* q, const void* k, const void* v,
   const float* qp = static_cast<const float*>(q);
   const float* kp = static_cast<const float*>(k);
   const float* vp = static_cast<const float*>(v);
-  const int* mp = static_cast<const int*>(mask);
   float* op = static_cast<float*>(out);
-  if (seg > 0 && (M != N || mask != nullptr))
+  if (seg == 0)
+    return static_cast<int>(vq::attn_f32::launch_core_any(
+        qp, kp, vp, static_cast<const int*>(mask), op, B, N, M, H, D,
+        scale2, st));
+  if (seg < 0 || M != N || N % seg != 0 || mask != nullptr || B <= 0 ||
+      N <= 0 || H <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err;
   switch (D) {
     case 16:
-      err = vq::attn_f32::launch<16>(qp, kp, vp, mp, op, B, N, M, H, seg,
-                                     scale2, st);
+      err = vq::attn_seg_f32::launch<16>(qp, kp, vp, op, B, N, H, seg, scale2,
+                                         st);
       break;
     case 72:
-      err = vq::attn_f32::launch<72>(qp, kp, vp, mp, op, B, N, M, H, seg,
-                                     scale2, st);
+      err = vq::attn_seg_f32::launch<72>(qp, kp, vp, op, B, N, H, seg, scale2,
+                                         st);
       break;
     default:
       err = cudaErrorInvalidValue;

@@ -26,9 +26,12 @@ On CPU tensors each runs its plain version (`attention_bnhd_plain`,
 csrc/attention.cu or csrc/attention_stream.cu (bf16 inputs), or for f32
 q/k/v (the float32 block of AdaRound reconstruction) the float32 modes:
 K3's, csrc/attention_f32.cu (full, kv-masked and seg), and K6's,
-csrc/attention_stream_f32.cu (full and kv-masked; its running max moves
-once per 64-row kv tile, since in f32 the kv block moves only rounding),
-both with the float PV and no emission; or raises.
+csrc/attention_stream_f32.cu (full and kv-masked), both with the float PV
+and no emission; or raises. Their full and kv-masked modes are one core
+(csrc/attn_f32_core.cuh): one pass whose running max moves once per 64-row
+kv tile (in f32 the kv block moves only rounding), q.k on the bf16 tensor
+cores, the PV as three TF32 products (`pv_tf32` is its plain emulation,
+for the tests); K3's seg mode is a kernel of its own, on the CUDA cores.
 
 Gradients (JAX `custom_vjp`, attention.py:530-557): where q, k or v
 requires grad, `attention_bnhd` runs its forward as above and its backward
@@ -363,6 +366,73 @@ def attention_bnhd_stream_plain(q, k, v, scale: float, bkv: int,
     return o.permute(0, 2, 1, 3).to(q.dtype)
 
 
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """f32 x rounded to TF32 (10 stored mantissa bits) to nearest, ties
+    away from zero, kept as f32: PTX `cvt.rna.tf32.f32` (finite x)."""
+    bits = x.float().contiguous().view(torch.int32)
+    mag = ((bits & 0x7FFFFFFF) + 0x1000) & ~0x1FFF
+    return (mag | (bits & -2 ** 31)).view(torch.float32)
+
+
+def split_tf32(x: torch.Tensor):
+    """x = hi + lo + (a residue below 2^-21 |x|), both TF32 values: the
+    float32 core's operand split (csrc/attn_f32_core.cuh split_tf32)."""
+    hi = tf32_round(x)
+    return hi, tf32_round(x - hi)
+
+
+def pv_tf32(e: torch.Tensor, v: torch.Tensor, products: int = 3):
+    """The float32 core's PV, plain: e [B, H, N, m] times v [B, m, H, D]
+    -> [B, H, N, D] as TF32 products with f32 sums (each product of two
+    TF32 values is exact in f32). products=3: e_hi.v_hi + e_hi.v_lo +
+    e_lo.v_hi, the kernel's; products=1: e_hi.v_hi alone, one TF32
+    product. Its sums round to nearest; the tensor cores' truncate, which
+    the kernel confines to one kv tile. For the tests: no path runs it."""
+    eh, el = split_tf32(e)
+    vh, vl = split_tf32(v)
+    pv = torch.einsum("bhnm,bmhd->bhnd", eh, vh)
+    if products == 3:
+        pv = pv + (torch.einsum("bhnm,bmhd->bhnd", eh, vl)
+                   + torch.einsum("bhnm,bmhd->bhnd", el, vh))
+    elif products != 1:
+        raise ValueError(f"products is 1 or 3, not {products}")
+    return pv
+
+
+def attention_f32_emulation(q, k, v, scale: float,
+                            kv_mask: Optional[torch.Tensor] = None,
+                            products: int = 3):
+    """The float32 core's full and kv-masked attention (csrc/
+    attn_f32_core.cuh), plain: f32 [B, N, H, D] -> [B, N, H, D], K6's
+    recurrence over kv tiles of KV_TILE rows (the last one ragged) with
+    the PV as `pv_tf32` takes it; tiles masked whole skipped. For the
+    tests: no path runs it."""
+    B, N, H, D = q.shape
+    M = k.shape[1]
+    qf = (q.float() * (scale * LOG2E)).to(torch.bfloat16).float()
+    kf = k.float().to(torch.bfloat16).float()
+    m = torch.full((B, H, N, 1), float("-inf"), device=q.device)
+    r = torch.zeros((B, H, N, 1), device=q.device)
+    acc = torch.zeros((B, H, N, D), device=q.device)
+    for j in range(0, M, KV_TILE):
+        sl = slice(j, j + KV_TILE)
+        if kv_mask is not None and not kv_mask[:, sl].any():
+            continue
+        s = torch.einsum("bnhd,bmhd->bhnm", qf, kf[:, sl])
+        if kv_mask is not None:
+            s = s + torch.where(kv_mask[:, None, None, sl] != 0, 0.0,
+                                float("-inf"))
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        m_safe = torch.where(m_new == float("-inf"), 0.0, m_new)
+        e = torch.exp2(s - m_safe)
+        corr = torch.exp2(m - m_safe)
+        r = r * corr + e.sum(dim=-1, keepdim=True)
+        acc = acc * corr + pv_tf32(e, v[:, sl].float(), products)
+        m = m_new
+    o = acc * rdiv(1.0, torch.clamp(r, min=1e-30))
+    return o.permute(0, 2, 1, 3)
+
+
 def attention_bnhd_stream(q, k, v, scale: float,
                           kv_mask: Optional[torch.Tensor] = None,
                           int8_pv: bool = False, emit: bool = False,
@@ -436,8 +506,9 @@ def _attention_stream_cuda(q, k, v, scale, bkv, kv_mask, int8_pv):
 
 
 def _attention_stream_f32_cuda(q, k, v, scale, kv_mask):
-    """K6's float32 mode on the card (csrc/attention_stream_f32.cu): f32
-    q/k/v -> f32 output, full or kv-masked, any kv length."""
+    """K6's float32 mode on the card (csrc/attention_stream_f32.cu, the
+    float32 core): f32 q/k/v -> f32 output, full or kv-masked, any kv
+    length."""
     B, N, H, D = q.shape
     M = k.shape[1]
     C = H * D
@@ -591,7 +662,8 @@ def _attention_bnhd(q, k, v, scale, seg_len=0, kv_mask=None, int8_pv=False,
 
 def _attention_f32_cuda(q, k, v, scale, seg_len, kv_mask):
     """K3's float32 mode on the card (csrc/attention_f32.cu): f32 q/k/v ->
-    f32 output, full, kv-masked or seg."""
+    f32 output, full or kv-masked (the float32 core, as K6's), or seg (its
+    own kernel)."""
     B, N, H, D = q.shape
     M = k.shape[1]
     C = H * D
