@@ -6,8 +6,9 @@ Run from the root of a checkout on a machine with one card:
 
     python3 chip_profile.py
 
-For each slice of `chip_smoke.py` (STDiT-XL/2 16x512x512 and PixArt-Σ
-1024, full width, random weights) and each of its arms (bf16 and sm8 on the
+For each slice of `chip_smoke.py` (STDiT-XL/2 16x512x512, PixArt-Σ
+1024, Latte-XL/2 and DiT-XL/2 16x256x256, MMDiT 1024; full width, random
+weights; `--slices latte,dit` keeps the ones named) and each of its arms (bf16 and sm8 on the
 sm8 plan's model; for STDiT also sm8_epi, the sm8 plan with the block's
 residual adds in the linears' epilogues (`fuse_epilogue`), attn8
 (`w8a8_tpu_fused_attn8.yaml`: int8 q/k and PV at every attention site),
@@ -23,7 +24,9 @@ sim_w6a6 (`viditq_w{8a8,6a6}.yaml`, simulate), naive (`w8a8_naive.yaml`,
 static acts, simulate), naive_fused (its tables on the native backend: K2
 on static codes) and hybrid (`w8a8_tpu_hybrid.yaml`); for PixArt-Σ also
 cb, its W4A8 plan with CB, calibrated at t = 500, and naive, its
-`w8a8_naive.yaml`; each static-act model calibrated by `run_ptq` over the
+`w8a8_naive.yaml`; Latte's bf16, cb (the W4A8 CB recipe) and cb_mp (its
+four-range MP, the union model at t = 500), DiT's bf16 and sm8, MMDiT's
+bf16 and w4a8 (`configs/mmdit/w4a8_tpu_fused.yaml`); each static-act model calibrated by `run_ptq` over the
 model's fp trajectory of the first profiled latent, at t = 500 its act
 slot) it runs one warm-up CFG step, then one more under `torch.profiler`:
 a forward at batch 2, or, for an arm whose plan sets `cfg_split`
@@ -49,6 +52,20 @@ plain f32 attention's recompute, timed as a profiler range around
 `_AttentionVJP.backward`), the other GEMMs (cuBLAS, TF32 off) and the
 rest. --package-root imports `viditq_tpu_torch` from DIR (an unpacked
 parent commit, say) so two versions are profiled by the same script.
+
+    python3 chip_profile.py --mp-draws
+
+measures, instead of time, how far `quant-generate-mp`'s samples lie from
+fp on STDiT-XL/2 16x512x512 (20 DDIM steps, the CLI's seeded weights):
+the in-process twins of `chip_smoke.py` phase `cli`'s two MP commands
+(`viditq_w4a8.yaml` on the simulate backend with weight tables from the
+parameters; `w8a8_naive.yaml` with static act tables from `run_ptq` on
+the draw's own fp trajectory), each with the t20 MP configs and without
+them (the plan's own bits), on four input draws: the CLI's (its seeded
+latent, its N(0, 1) caption embeds), the CLI's with the embeds x 0.1, the
+CLI's with the latent x 0.5 and the embeds x 0.1, and `chip_smoke.py`'s
+STDiT slice's (`slice_inputs`: latent x 0.5, embeds x 0.1, another seed).
+It prints each relative error against fp sampling of the same draw.
 """
 
 from __future__ import annotations
@@ -79,8 +96,8 @@ GROUPS = (
     ("dyn_quant_rows", "K7a row quantize (native)"),
     ("int8_matmul", "K7b int8 GEMM (native)"),
     ("quant_rows", "K4 row quantize"),
-    ("flash", "SDPA (KV-compressed attention)"),
-    ("fmha", "SDPA (KV-compressed attention)"),
+    ("flash", "SDPA (Σ KV-compressed, MMDiT joint attention)"),
+    ("fmha", "SDPA (Σ KV-compressed, MMDiT joint attention)"),
     ("nvjet", "cuBLAS GEMM"),
     ("gemm", "cuBLAS GEMM"),
     ("xmma", "cuBLAS GEMM"),
@@ -239,6 +256,78 @@ def recon_main() -> int:
     return 0
 
 
+def mp_draws_main() -> int:
+    """The CLI's MP samples against fp over input draws (module
+    docstring)."""
+    import json
+    import tempfile
+
+    import numpy as np
+    import torch
+    import chip_smoke as cs
+    from viditq_tpu_torch import cli
+    from viditq_tpu_torch.kernels import _build
+    from viditq_tpu_torch.pipelines.inference import fp_sample, quant_sample
+    from viditq_tpu_torch.quant.calibrate import calibrate_weight_tables
+    from viditq_tpu_torch.utils import workload
+    from viditq_tpu_torch.utils.config import load_quant_config
+    print(cs.nvidia_smi_line(), flush=True)
+    _build.lib()
+    with tempfile.TemporaryDirectory(prefix="viditq_mp_draws_") as tmpd:
+        config = cs.cli_workload(Path(tmpd), cs.CLI_STEPS)
+        args = cli.build_parser().parse_args(["inference", "--config",
+                                              config])
+        cfg = workload.load_py_config(config)
+    z = cli._latent(args, cfg, 1)
+    y, mask = cli._load_embeds(args, cfg, 1)
+    draws = {"cli": (z, y, mask), "cli, y x 0.1": (z, y * 0.1, mask),
+             "cli, z x 0.5, y x 0.1": (z * 0.5, y * 0.1, mask),
+             "slice": cs.slice_inputs("stdit", cfg, 0.5, 120,
+                                      np.random.default_rng(0))}
+
+    def seeded(plan=None):
+        model = workload.build_model(cfg, plan and plan.resolver(),
+                                     device="cuda")
+        workload.random_init_(model, cli.INIT_SEED, cli.INIT_SCALE)
+        return model
+
+    def rel(a, b):
+        return float((a.float().cpu() - b).norm() / b.norm())
+
+    fp_sampler = workload.build_sampler(cfg)
+    model = seeded()
+    fp = {k: fp_sample(model, fp_sampler, *d).float().cpu()
+          for k, d in draws.items()}
+    model = None
+    out = {}
+    for label, path in (("viditq_w4a8", cs.VIDITQ_W4A8_PLAN),
+                        ("naive", cs.NAIVE_PLAN)):
+        plan = load_quant_config(str(path))
+        sampler = workload.build_sampler(cfg, cfg_split=plan.cfg_split)
+        for draw, d in draws.items():
+            t0 = time.time()
+            model = seeded(plan)
+            slot_map = None
+            if label == "naive":  # get-calib-data, then ptq
+                slot_map = cs.calibrate_static(model, plan, fp_sampler,
+                                               *d)[0]
+            else:  # no checkpoint: weight tables from the parameters
+                calibrate_weight_tables(model)
+            run = cs.mp_sampler(cfg, "cuda", plan, sampler, cs.MP_WEIGHT,
+                                cs.MP_ACT, act_slot_map=slot_map)
+            mp = rel(run(model, *d), fp[draw])
+            own = rel(quant_sample(model, sampler, *d, act_slot_map=slot_map),
+                      fp[draw])
+            model = run = None
+            torch.cuda.empty_cache()
+            out[f"{label} | {draw}"] = {"mp": mp, "plan_bits": own}
+            print(f"mp-draws {label}, draws {draw!r}: rel err from fp with "
+                  f"the t20 MP {mp:.5g}, at the plan's own bits {own:.5g} "
+                  f"({time.time() - t0:.1f} s)", flush=True)
+    print(json.dumps({"mp_draws": out}), flush=True)
+    return 0
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -250,23 +339,27 @@ def main() -> int:
     sys.path.insert(1 if "--package-root" in args else 0, str(ROOT))
     if "--recon" in args:
         return recon_main()
+    if "--mp-draws" in args:
+        return mp_draws_main()
     import chip_smoke as cs
     from viditq_tpu_torch.kernels import _build
-    from viditq_tpu_torch.utils.workload import latent_size
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print(cs.nvidia_smi_line(), flush=True)
     _build.lib()
-    for name, cfg, n_prompt in (("stdit", cs.STDIT_CFG, 120),
-                                ("sigma", cs.SIGMA_CFG, 300)):
-        latent = latent_size(cfg)
-        rng = np.random.default_rng(0)
-        x = torch.tensor(rng.standard_normal((2, 4, *latent)),
-                         dtype=torch.bfloat16, device="cuda")
+    slices = (("stdit", cs.STDIT_CFG, 120), ("sigma", cs.SIGMA_CFG, 300),
+              ("latte", cs.LATTE_CFG, 1), ("dit", cs.DIT_CFG, None),
+              ("mmdit", cs.MMDIT_CFG, 77))
+    if "--slices" in args:
+        keep = args[args.index("--slices") + 1].split(",")
+        slices = tuple(s for s in slices if s[0] in keep)
+    for name, cfg, n_prompt in slices:
         t = torch.tensor([500.0, 500.0], device="cuda")
-        y = torch.tensor(rng.standard_normal((2, 1, n_prompt, 4096)) * 0.1,
-                         dtype=torch.bfloat16, device="cuda")
-        mask = torch.ones((1, n_prompt), dtype=torch.int32, device="cuda")
+        # the slice's own draws (`chip_smoke.slice_inputs`), one latent in
+        # both CFG rows
+        z, y, mask = cs.slice_inputs(name, cfg, 1.0, n_prompt,
+                                     np.random.default_rng(0))
+        x = torch.cat([z, z])
         model, model_plan = None, None
         tables = {}
         for arm in cs.SLICE_KERNELS[name]:

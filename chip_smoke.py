@@ -59,12 +59,19 @@ Phases (any failure exits non-zero):
      the one-shot range) at PixArt-Σ 1024's self-attention [2, 4096, 16,
      72], full and kv-masked, and at M = 2304 edge cases, the same way, and
      its refusal of int8 PV and emission; K8 -> K6 with int8_qk at Σ's
-     self-attention, bf16 and int8 PV, emitting through K4;
+     self-attention, bf16 and int8 PV, emitting through K4; the other
+     backbones' shapes (`backbone_cases`): K3 full at Latte-XL/2's temporal
+     [512, 16, 16, 72] and spatial [32, 256, 16, 72] blocks (bf16 beside
+     SDPA, and the cb arm's asym emission with the proj's 1/cs), K6 at
+     DiT-XL/2's [2, 4096, 16, 72] (bf16, and sm8's emission through K4),
+     K1 at MMDiT's image stream [2, 4096, 1152];
   4. reference: tiny STDiT (sm8, sm8_epi, attn8, the fused reference
      W8A8, the reference W8A8 on the native backend and the W4A8 CB
      recipe, asym and sym) and
-     tiny PixArt-Σ models (sm8 and its W4A8 CB plan) on the card (kernels)
-     against the same models on the CPU (plain versions); the reference
+     tiny PixArt-Σ models (sm8 and its W4A8 CB plan), tiny DiT (sm8),
+     Latte (W4A8 CB) and MMDiT (its W4A8 plan, 3-step rectified flow) on
+     the card (kernels) against the same models on the CPU (plain
+     versions); the reference
      plans as written (STDiT under viditq_w8a8 and viditq_w6a6 on the
      simulate backend, w8a8_naive with static acts, simulate and under
      impl 'fused' (K2 on static codes), the hybrid plan; PixArt-Σ under
@@ -116,6 +123,18 @@ Phases (any failure exits non-zero):
      with running statistics, calibrated as STDiT's naive) arms over the
      whole 20-step DPM-Solver++ CFG schedule, built through
      `utils/workload`, with the same readings;
+  6b. latte, dit, mmdit: the other backbones at full width (random
+     weights x 0.02, seed 0; `LATTE_CFG`, `DIT_CFG`, `MMDIT_CFG`, the JAX
+     bench's `arm_latte` and `arm_mmdit`): Latte-XL/2 16x256x256 (caption
+     pooled to one token) bf16, `cb` (the W4A8 CB recipe, sq_stat at t =
+     250 and 750) and `cb_mp` (its four-range MP, `latte_mp_weight`:
+     attention 8/4/4/8 bits, MLP 8, through the gather path); DiT-XL/2
+     16x256x256 on a class label (`ClassEncoder`) bf16 and sm8 (K6 over
+     4096 tokens); MMDiT 1024 (24 blocks, 77 caption tokens) bf16 and
+     w4a8 (`configs/mmdit/w4a8_tpu_fused.yaml`) through `RectifiedFlow`
+     (`models/mmdit.rectified_flow_sample`, 20 steps, CFG 4.0), each arm
+     with the readings of phase slice and its launches held to
+     `BLOCK_LAUNCHES`;
   7. cli: the port's command line (`viditq_tpu_torch.cli.main`, in this
      process) on STDiT-XL/2 16x512x512 (a copy of
      `configs/workload/opensora_16x512x512.py` at 20 steps, in a temporary
@@ -132,7 +151,11 @@ Phases (any failure exits non-zero):
      equal to an in-process `run_ptq`'s on the same data, the act slot map
      round trip; the samples equal to that model's `quant_sample` within
      `CLI_SAME_REL`); both within `SLICE_REL_ERR` of `inference`'s
-     samples; then `get-sensitivity --backend native` (K7a, K7b, K3; each
+     samples; `quant-generate-mp` with the t20 MP configs under
+     `viditq_w4a8.yaml` as written (simulate, weight tables from the
+     parameters) and under `w8a8_naive.yaml` on the naive checkpoint
+     (static act tables, its slot map), each within `CLI_SAME_REL` of the
+     in-process segmented sampler and `SLICE_REL_ERR` of `inference`; then `get-sensitivity --backend native` (K7a, K7b, K3; each
      score as a relative error against the fp samples' mean square,
      within `SLICE_REL_ERR`), `sweep-alpha` and `smooth-quant-list` at
      full width cut to 4 blocks and 4 steps. Each command's seconds, peak
@@ -179,6 +202,7 @@ CLI's, recon's and recon_sigma's commands), the last {"ok": true,
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -221,7 +245,8 @@ SIGMA_CB_PLAN = ROOT / "configs/pixart_sigma/w4a8.yaml"
 SIGMA_CB_ALPHA = 0.3
 # the CB statistic forwards of each slice: Σ's at t = 500
 # (bench_configs.py:408-425)
-STAT_T = {"stdit": CB_STAT_T, "sigma": (500,)}
+STAT_T = {"stdit": CB_STAT_T, "sigma": (500,), "latte": CB_STAT_T,
+          "dit": (), "mmdit": ()}
 # ViDiT-Q's reference plans as written (no `backend:` key: the simulate
 # backend, fake quant as the reference runs it): W8A8 and W6A6 with asym
 # per-channel weights and asym dynamic per-token acts, the naive W8A8 with
@@ -246,6 +271,48 @@ SIGMA_CFG = {
                       cfg_scale=4.5),
     "dtype": "bf16",
 }
+
+# the other backbones at full width (the JAX bench's `arm_latte` and
+# `arm_mmdit`, benchmarks/bench_configs.py:456-653): Latte-XL/2 and DiT-XL/2
+# at 16x256x256 (latent 16x32x32: T = 16 frames of S = 256 tokens), Latte
+# on a caption of 4096 channels pooled to one token, DiT on ImageNet's 1000
+# labels (`ClassEncoder`, the null label the CFG's unconditional row), both
+# 20-step DDIM at CFG 4.0; MMDiT at 1024x1024 (latent 4x128x128, patch 2:
+# 4096 image tokens), 24 blocks, 77 caption tokens of 4096, an all-ones
+# mask, 20-step rectified flow at CFG 4.0
+LATTE_CFG = {"model": dict(type="Latte-XL/2", condition="text",
+                           caption_channels=4096),
+             "num_frames": 16, "image_size": (256, 256),
+             "scheduler": dict(type="iddpm", num_sampling_steps=STEPS,
+                               cfg_scale=4.0),
+             "dtype": "bf16"}
+DIT_CLASSES = 1000
+DIT_CFG = {**LATTE_CFG, "model": dict(type="DiT-XL/2",
+                                      condition=f"label_{DIT_CLASSES}")}
+MMDIT_CFG = {"model": dict(type="MMDiT", input_size=128, patch_size=2,
+                           in_channels=4, hidden_size=1152, depth=24,
+                           num_heads=16, caption_channels=4096,
+                           model_max_length=77),
+             "image_size": 1024, "dtype": "bf16"}
+MMDIT_PLAN = ROOT / "configs/mmdit/w4a8_tpu_fused.yaml"
+MMDIT_CFG_SCALE = 4.0
+# Latte's four-range timestep MP (bench_configs.py:529-535): each block's
+# attention linears at 8/4/4/8 bits over the step ranges 19-15 / 14-10 /
+# 9-5 / 4-0 (by module prefix, `blocks.N.attn`), its MLP at 8
+LATTE_ATTN_BITS = (("19-15", 8), ("14-10", 4), ("9-5", 4), ("4-0", 8))
+
+
+def latte_mp_weight(depth: int = 28) -> dict:
+    cfg = {"fp_layers": []}
+    for rng, bits in LATTE_ATTN_BITS:
+        cfg[rng] = {**{f"blocks.{i}.attn": bits for i in range(depth)},
+                    **{f"blocks.{i}.mlp": 8 for i in range(depth)}}
+    return cfg
+
+
+# ViDiT-Q's W4A8 plan as written (the simulate backend, CB), which phase
+# cli runs through `quant-generate-mp` with the t20 MP configs
+VIDITQ_W4A8_PLAN = ROOT / "configs/opensora/viditq_w4a8.yaml"
 
 # published peaks of one H100 SXM (dense; NVIDIA's data sheet) for the
 # bound: the larger of bytes / HBM rate and the sum over operation types
@@ -507,6 +574,8 @@ SOURCES = {
 # kernels each slice's main path launches, per arm (and no other)
 FUSED_KERNELS = ("ln_modulate_quantize", "int8_consumer_matmul",
                  "attention_bnhd", "quantize_rows", "fused_dynq_int8_matmul")
+DIT_BLOCK_KERNELS = ("int8_consumer_matmul", "quantize_rows",
+                     "fused_dynq_int8_matmul")
 SLICE_KERNELS = {
     "stdit": {"bf16": ("attention_bnhd",),
               "sm8": FUSED_KERNELS,
@@ -533,6 +602,20 @@ SLICE_KERNELS = {
               "sm8": FUSED_KERNELS + ("attention_bnhd_stream",),
               "cb": FUSED_KERNELS + ("attention_bnhd_stream",),
               "naive": ("attention_bnhd", "attention_bnhd_stream")},
+    # no producer in a DiT block: q/k/v share one K4 pass, fc1 runs K5
+    # (no K1); Latte's spatial and temporal blocks both on K3 full
+    "latte": {"bf16": ("attention_bnhd",),
+              "cb": DIT_BLOCK_KERNELS + ("attention_bnhd",),
+              "cb_mp": DIT_BLOCK_KERNELS + ("attention_bnhd",)},
+    # DiT attends over T*S = 4096 tokens: K6 (its emission through K4)
+    "dit": {"bf16": ("attention_bnhd_stream",),
+            "sm8": DIT_BLOCK_KERNELS + ("attention_bnhd_stream",)},
+    # MMDiT's joint attention is `sdpa` (PyTorch's fused attention) and its
+    # text stream fp: no port kernel in bf16; under W4A8 the image stream's
+    # K1 -> K2 (q/k/v), K5 (proj), K1 -> K2 emission -> K2 (the MLP)
+    "mmdit": {"bf16": (),
+              "w4a8": ("ln_modulate_quantize", "int8_consumer_matmul",
+                       "fused_dynq_int8_matmul")},
 }
 # the plan of each quantized arm by (slice, arm) (the bf16 arm runs the
 # sm8 arm's model in fp mode)
@@ -546,7 +629,10 @@ ARM_PLANS = {("stdit", "sm8"): SM8_PLAN, ("stdit", "w8a8"): W8A8_PLAN,
              ("stdit", "naive_fused"): NAIVE_PLAN,
              ("stdit", "hybrid"): HYBRID_PLAN,
              ("sigma", "sm8"): SM8_PLAN, ("sigma", "cb"): SIGMA_CB_PLAN,
-             ("sigma", "naive"): SIGMA_NAIVE_PLAN}
+             ("sigma", "naive"): SIGMA_NAIVE_PLAN,
+             ("latte", "bf16"): CB_PLAN, ("latte", "cb"): CB_PLAN,
+             ("dit", "sm8"): SM8_PLAN,
+             ("mmdit", "bf16"): MMDIT_PLAN, ("mmdit", "w4a8"): MMDIT_PLAN}
 # model arguments an arm sets in its workload config's `model` dict: the
 # sm8 plan with the block's residual adds in the linears' epilogues
 ARM_MODEL = {("stdit", "sm8_epi"): {"fuse_epilogue": True}}
@@ -556,7 +642,8 @@ ARM_MODEL = {("stdit", "sm8_epi"): {"fuse_epilogue": True}}
 # (:173-182)
 PLAN_RECIPES = {("stdit", "w8a8"): "native", ("stdit", "cb"): "cb",
                 ("stdit", "cb_sym"): "cb_sym", ("stdit", "cb_mp"): "cb",
-                ("stdit", "naive_fused"): "fused", ("sigma", "cb"): "cb"}
+                ("stdit", "naive_fused"): "fused", ("sigma", "cb"): "cb",
+                ("latte", "bf16"): "cb", ("latte", "cb"): "cb"}
 # a static-act arm that takes another arm's act tables (and weight tables)
 # instead of calibrating its own: naive_fused runs naive's on the card's
 # int8 kernels
@@ -573,7 +660,14 @@ LOW_BIT_ARMS = {("stdit", "sim_w6a6"): "sim_w8a8"}
 # arms that sample their plan's model through the timestep-wise MP sampler:
 # (the arm whose model they take and whose launches they must equal, the
 # weight and act bitwidth configs)
-MP_ARMS = {("stdit", "cb_mp"): ("cb", MP_WEIGHT, MP_ACT)}
+MP_ARMS = {("stdit", "cb_mp"): ("cb", MP_WEIGHT, MP_ACT),
+           ("latte", "cb_mp"): ("cb", latte_mp_weight(), None)}
+# an MP arm's weight bits by layer kind and MP range (ascending in t, the
+# order of `_mp_tspans`), which its union model must pack in every span
+MP_BITS = {("stdit", "cb_mp"): lambda kind, r: 8 if ".mlp." in kind else 4,
+           ("latte", "cb_mp"): lambda kind, r: (
+               8 if ".mlp." in kind
+               else [b for _, b in LATTE_ATTN_BITS][::-1][r])}
 # launches per block and model forward of an arm held to its exact count
 # (a step of a `cfg_split` arm makes two forwards):
 # the fused reference plan's (K1 at norm1 and norm2; K2 at the 9 linears
@@ -597,6 +691,8 @@ SM8_BLOCK = {**FUSED_BLOCK, "quantize_rows": 1}
 # at each of the 13 quantized linears (q/k/v/proj twice, q_linear,
 # kv_linear and the cross proj, fc1, fc2); hybrid K7a -> K7b at fc1 and fc2
 SIM_BLOCK = {"attention_bnhd": 3}
+LATTE_BLOCK = {"quantize_rows": 2, "int8_consumer_matmul": 5,
+               "attention_bnhd": 1, "fused_dynq_int8_matmul": 1}
 BLOCK_LAUNCHES = {("stdit", "sim_w8a8"): SIM_BLOCK,
                   ("stdit", "sim_w6a6"): SIM_BLOCK,
                   ("stdit", "naive"): SIM_BLOCK,
@@ -611,7 +707,21 @@ BLOCK_LAUNCHES = {("stdit", "sim_w8a8"): SIM_BLOCK,
                   ("stdit", "fused"): FUSED_BLOCK,
                   ("stdit", "cb"): FUSED_BLOCK,
                   ("stdit", "cb_sym"): SM8_BLOCK,
-                  ("stdit", "cb_mp"): FUSED_BLOCK}
+                  ("stdit", "cb_mp"): FUSED_BLOCK,
+                  # DiT blocks: K4 for q/k/v, K2 at q/k/v and at the proj
+                  # on the attention's emission, K5 at fc1, K4's GELU
+                  # handoff, K2 at fc2; DiT's K6 emits through a third K4
+                  ("latte", "cb"): LATTE_BLOCK,
+                  ("latte", "cb_mp"): LATTE_BLOCK,
+                  ("dit", "sm8"): {"quantize_rows": 3,
+                                   "int8_consumer_matmul": 5,
+                                   "attention_bnhd_stream": 1,
+                                   "fused_dynq_int8_matmul": 1},
+                  # the image stream: K1 twice, K2 at q/k/v, fc1 (emission)
+                  # and fc2, K5 at the proj
+                  ("mmdit", "w4a8"): {"ln_modulate_quantize": 2,
+                                      "int8_consumer_matmul": 5,
+                                      "fused_dynq_int8_matmul": 1}}
 
 
 def fail(msg: str):
@@ -1138,6 +1248,7 @@ def phase_kernels(records):
     attn8_cases(records)
     row_edge_cases(records)
     k5_edge_cases(records)
+    backbone_cases(records)
     int8_pv_draws()
 
 
@@ -1806,6 +1917,83 @@ def cb_cases(records):
                                                      emit={"gelu": True}))
 
 
+def backbone_cases(records):
+    """The kernels of the other backbones at the shapes no earlier path
+    gives them, each mode its arm runs: K3 full at Latte-XL/2's temporal
+    blocks ([2 x 256 sequences, 16 frames, 16, 72]: one 16-row tile of a
+    taller q tile, C19) and spatial blocks ([2 x 16, 256, 16, 72]), bf16 PV
+    (the bf16 arm, beside SDPA) and the `cb` arm's asym emission with the
+    proj's 1/cs (`compare_asym_rows`); K6 at DiT-XL/2's full attention
+    ([2, 4096, 16, 72], kv blocks as Σ's self-attention), bf16 PV and the
+    sm8 arm's sym emission through K4; K1 at MMDiT's image stream ([2,
+    4096, 1152], sym, no row sums: the W4A8 plan's sym weights)."""
+    import torch
+    import torch.nn.functional as F
+    from viditq_tpu_torch.kernels import attention as A
+    from viditq_tpu_torch.kernels import fused_matmul as FM
+    dev = "cuda"
+    g = torch.Generator(device=dev).manual_seed(7)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device=dev) * scale).to(
+            torch.bfloat16)
+
+    H, D, C, T, S, B = 16, 72, 1152, 16, 256, 2
+    sc = D ** -0.5
+    ics = cb_col_scales(g, C)
+    print("phase kernels: the other backbones' shapes (Latte, DiT, MMDiT)",
+          flush=True)
+    for site, nb, n in (("Latte temporal", B * S, T),
+                        ("Latte spatial", B * T, S)):
+        q, k, v = randn(nb, n, H, D), randn(nb, n, H, D), randn(nb, n, H, D)
+        shape = f"[{nb},{n},{H},{D}]"
+        qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        check_case("attention_bnhd", f"{site} {shape} bf16",
+                   lambda: A.attention_bnhd(q, k, v, sc),
+                   lambda: A.attention_bnhd_plain(q, k, v, sc), records,
+                   cost=attn_bound(nb, n, H, D, [n] * nb, False, False, n),
+                   library_fn=lambda: F.scaled_dot_product_attention(
+                       qh, kh, vh, scale=sc),
+                   library_note=" (scaled_dot_product_attention)", b2b=True)
+        kw = dict(emit=True, emit_sym=False, need_rowsum=True,
+                  col_scale=ics)
+        nbytes, ops = attn_bound(nb, n, H, D, [n] * nb, False, True, n)
+        check_case("attention_bnhd", f"{site} {shape} cb col_scale asym emit",
+                   lambda: A.attention_bnhd(q, k, v, sc, **kw),
+                   lambda: A.attention_bnhd_plain(q, k, v, sc, **kw),
+                   records, cost=(nbytes + 8 * nb * n + 4 * C, ops),
+                   asym=ASYM_TOL["attn"], b2b=True)
+        del q, k, v, qh, kh, vh
+    N = T * S
+    q, k, v = randn(B, N, H, D), randn(B, N, H, D), randn(B, N, H, D)
+    bkv = A.stream_kv_block(N, N, C)
+    qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    check_case("attention_bnhd_stream", f"DiT [2,{N},16,72] bkv {bkv} bf16",
+               lambda: A.attention_bnhd_stream(q, k, v, sc),
+               lambda: A.attention_bnhd_stream_plain(q, k, v, sc, bkv),
+               records, cost=attn_bound(B, N, H, D, [N] * B, False, False, N),
+               library_fn=lambda: F.scaled_dot_product_attention(
+                   qh, kh, vh, scale=sc),
+               library_note=" (scaled_dot_product_attention)")
+
+    def k6_emit_plain():
+        o = A.attention_bnhd_stream_plain(q, k, v, sc, bkv)
+        return A._bn1(B, N, *FM.quantize_rows_plain(o.reshape(B * N, C)))
+    check_case("attention_bnhd_stream",
+               f"DiT [2,{N},16,72] sm8 emit (K6->K4)",
+               lambda: A.attention_bnhd_stream(q, k, v, sc, emit=True),
+               k6_emit_plain, records,
+               cost=attn_bound(B, N, H, D, [N] * B, False, True, N))
+    del q, k, v, qh, kh, vh
+    x = randn(B, N, C)
+    sh, scl = randn(B, 1, C, scale=0.1), randn(B, 1, C, scale=0.1)
+    check_case("ln_modulate_quantize", f"MMDiT img [2,{N},1152] sym",
+               lambda: FM.ln_modulate_quantize(x, sh, scl),
+               lambda: FM.ln_modulate_quantize_plain(x, sh, scl), records,
+               cost=(2 * B * N * C + 2 * 2 * B * C + B * N * C + 4 * B * N,
+                     {}), b2b=True)
+
+
 def int8_pv_draws():
     """C12: K3's seg-mode int8-PV emission at the temporal sm8 site on
     C12_DRAWS draws of its own generator, each held to the per-entry
@@ -2302,6 +2490,18 @@ TINY_SIGMA_MS_CFG = {"model": dict(
     **{**TINY, "hidden_size": 192, "num_heads": 12}),
     "image_size": 768, "dtype": "bf16"}
 TINY_DATA_INFO = {"img_hw": [[768.0, 768.0]], "aspect_ratio": [[1.0]]}
+# the other backbones, tiny: DiT at a 2x16x16 latent (128 tokens) on
+# labels of TINY_DIT_CLASSES classes, as the full-width DiT, Latte at
+# 2x32x32 (spatial blocks over 256 tokens, temporal over 2), MMDiT at 32x32
+# (256 image tokens, 8 caption tokens)
+TINY_DIT_CLASSES = 10
+TINY_DIT_CFG = {"model": dict(type="DiT",
+                              condition=f"label_{TINY_DIT_CLASSES}", **TINY),
+                "num_frames": 2, "image_size": (128, 128), "dtype": "bf16"}
+TINY_LATTE_CFG = {"model": dict(type="Latte", **TINY), "num_frames": 2,
+                  "image_size": (256, 256), "dtype": "bf16"}
+TINY_MMDIT_CFG = {"model": dict(type="MMDiT", pooled_channels=32, **TINY),
+                  "image_size": 256, "dtype": "bf16"}
 # its weights at 0.1 x sqrt(64 / C): the activations, and so the bf16
 # noise floor TINY_REL_ERR is set for, of the C = 64 tiny models (on the
 # CPU, this model's bf16 against its float32: forward 9.4e-3, 3-step
@@ -2421,11 +2621,33 @@ def static_tables(model, slot_map) -> dict:
         if k.rpartition(".")[2] in STATIC_TABLES}}
 
 
+class RectifiedFlow:
+    """MMDiT's sampler (`models/mmdit.rectified_flow_sample`) behind the
+    samplers' `sample(model, z, y, mask, qctx_factory)`, so
+    `pipelines/inference.fp_sample` and `quant_sample` drive it: joint
+    CFG batch, `num_steps` Euler steps from t = 1 to 0."""
+
+    cfg_split = False
+
+    def __init__(self, num_steps: int, cfg_scale: float):
+        self.num_steps = num_steps
+        self.cfg_scale = cfg_scale
+
+    def sample(self, model, z, y, mask=None, qctx_factory=None):
+        from viditq_tpu_torch.models.mmdit import rectified_flow_sample
+        return rectified_flow_sample(model, z, y, mask,
+                                     num_steps=self.num_steps,
+                                     cfg_scale=self.cfg_scale,
+                                     qctx_factory=qctx_factory)
+
+
 def arm_sampler(name, arm, cfg):
-    """A slice's arm's sampler (`utils/workload.build_sampler`): an arm of
-    `AS_WRITTEN` takes its plan's `cfg_split`, every other arm samples the
-    joint CFG batch."""
+    """A slice's arm's sampler (`utils/workload.build_sampler`; MMDiT's
+    rectified flow): an arm of `AS_WRITTEN` takes its plan's `cfg_split`,
+    every other arm samples the joint CFG batch."""
     from viditq_tpu_torch.utils.workload import build_sampler
+    if name == "mmdit":
+        return RectifiedFlow(STEPS, MMDIT_CFG_SCALE)
     split = ((name, arm) in AS_WRITTEN
              and quant_plan(*arm_build(name, arm)[:2]).cfg_split)
     return build_sampler(cfg, cfg_split=split)
@@ -2457,10 +2679,12 @@ def qctx_for(arm, t: int, slot_map):
                     act_slot=0 if slot_map is None else int(slot_map[t]))
 
 
-def mp_sampler(cfg, device, qplan, sampler, weight_cfg, act_cfg=None):
+def mp_sampler(cfg, device, qplan, sampler, weight_cfg, act_cfg=None,
+               act_slot_map=None):
     """The timestep-wise MP sampler of a plan over the workload's models on
     `device` (`pipelines/mixed_precision.build_mp_sampler`), from the
-    bitwidth-config YAMLs or dicts."""
+    bitwidth-config YAMLs or dicts; act_slot_map: static act tables'
+    slots."""
     from viditq_tpu_torch.pipelines.mixed_precision import build_mp_sampler
     from viditq_tpu_torch.utils.config import load_bitwidth_config
     from viditq_tpu_torch.utils.workload import build_model as wl_build
@@ -2468,7 +2692,8 @@ def mp_sampler(cfg, device, qplan, sampler, weight_cfg, act_cfg=None):
     def load(c):
         return load_bitwidth_config(str(c)) if isinstance(c, Path) else c
     return build_mp_sampler(lambda r: wl_build(cfg, r, device=device),
-                            sampler, qplan, load(weight_cfg), load(act_cfg))
+                            sampler, qplan, load(weight_cfg), load(act_cfg),
+                            act_slot_map=act_slot_map)
 
 
 def retile(weight_cfg, steps: int):
@@ -2519,15 +2744,29 @@ def tiny_pair(x, t, y, mask, cpu_fwd, gpu_fwd, sample, slot_map=None):
     from viditq_tpu_torch.quant.qlinear import QuantCtx
     q = QuantCtx(t_id=700, mode="quant",
                  act_slot=0 if slot_map is None else int(slot_map[700]))
+    cuda = (lambda v: None if v is None else v.cuda())  # noqa: E731
     with torch.no_grad():
         want = cpu_fwd(x, t, y, mask, qctx=q)
-        got = gpu_fwd(x.cuda(), t.cuda(), y.cuda(), mask.cuda(),
+        got = gpu_fwd(x.cuda(), t.cuda(), y.cuda(), cuda(mask),
                       qctx=q).cpu()
     rel_fwd = float((got - want).norm() / want.norm())
-    want = sample("cpu", x[:1], y, mask[:1]).float()
-    got = sample("cuda", x[:1].cuda(), y.cuda(),
-                 mask[:1].cuda()).float().cpu()
+    mask1 = None if mask is None else mask[:1]
+    want = sample("cpu", x[:1], y, mask1).float()
+    got = sample("cuda", x[:1].cuda(), y.cuda(), cuda(mask1)).float().cpu()
     return rel_fwd, float((got - want).norm() / want.norm())
+
+
+@contextlib.contextmanager
+def recording(model):
+    """The model's outputs (float32, on the CPU) of every forward made
+    inside the block, in order."""
+    outs = []
+    hook = model.register_forward_hook(
+        lambda mod, args, out: outs.append(out.detach().float().cpu()))
+    try:
+        yield outs
+    finally:
+        hook.remove()
 
 
 def tiny_verdict(name, latent, steps, rel_fwd, rel_dn):
@@ -2559,11 +2798,14 @@ def phase_reference():
     DDIM, over the tiny CB model (`cb_mp`, the gather path: the union
     model's forward and the denoise) and over the tiny W4A8 model without
     CB on the native backend (the segmented path, K7a -> K7b: the base
-    model's forward and the denoise). Weights are drawn at 0.1 so
-    activations are O(1)."""
+    model's forward and the denoise); then tiny DiT (sm8, on a label),
+    Latte (W4A8 CB) and MMDiT (its W4A8 plan, a 3-step rectified flow),
+    whose model outputs at every step of the denoise are held as well.
+    Weights are drawn at 0.1 so activations are O(1)."""
     import copy
 
     import torch
+    from viditq_tpu_torch.models.text_encoder import ClassEncoder
     from viditq_tpu_torch.pipelines.inference import quant_sample
     from viditq_tpu_torch.pipelines.mixed_precision import GatherMPSampler
     from viditq_tpu_torch.samplers.dpm_solver import DPMSolverSampler
@@ -2660,6 +2902,46 @@ def phase_reference():
             lambda dev, *a: runs[dev](models[dev], *a)))
         mp_sees_the_model(name, runs["cuda"], models["cuda"], ddim2,
                           x[:1].cuda(), y.cuda(), mask[:1].cuda())
+    # the other backbones: DiT under sm8 on a label (K4, K2, K5, K3), Latte
+    # under the W4A8 CB recipe (its temporal blocks' K3 at N = M = 2), MMDiT
+    # under its W4A8 plan (K1, K2 with fc1's emission, K5), 3-step samplers.
+    # DDIM from t = 999 leaves a latent of ~200 z, whose bf16 rounding can
+    # hide what the model adds (the tiny DiT's latents read equal), so the
+    # model's outputs at every step of the denoise are held too: card
+    # against CPU, nonzero and within TINY_REL_ERR
+    rf = RectifiedFlow(3, MMDIT_CFG_SCALE)
+    for name, sl, cfg, sampler, plan, recipe in (
+            ("sm8 DiT (label)", "dit", TINY_DIT_CFG, ddim, SM8_PLAN, None),
+            ("cb Latte (W4A8 CB)", "latte", TINY_LATTE_CFG, ddim, CB_PLAN,
+             "cb"),
+            ("w4a8 MMDiT", "mmdit", TINY_MMDIT_CFG, rf, MMDIT_PLAN, None)):
+        x, t, y, mask = tiny_inputs(cfg)
+        if sl == "dit":  # a label and the CFG's null label (`ClassEncoder`)
+            enc = ClassEncoder(TINY_DIT_CLASSES)
+            y, mask = torch.cat([enc.encode([3])["y"], enc.null(1)]), None
+        if sl == "mmdit":
+            x = x.float()  # its Euler update runs in float32
+        cpu = build_model(cfg, "cpu", scale=0.1, plan=plan, recipe=recipe,
+                          calib=(x, y, mask), stat_t=STAT_T[sl])
+        models = {"cpu": cpu, "cuda": copy.deepcopy(cpu).to("cuda")}
+        check_k_major(models["cuda"])
+        outs = {}
+
+        def sample(dev, *a, _s=sampler, _m=models, _o=outs):
+            with recording(_m[dev]) as _o[dev]:
+                return quant_sample(_m[dev], _s, *a)
+        rels = tiny_pair(x, t, y, mask, cpu, models["cuda"], sample)
+        tiny_verdict(name, latent_size(cfg), 3, *rels)
+        want, got = (torch.cat([o.flatten() for o in outs[d]])
+                     for d in ("cpu", "cuda"))
+        rel = (float((got - want).norm() / want.norm())
+               if got.shape == want.shape else float("nan"))
+        print(f"phase reference: tiny {name}: the model's outputs at the "
+              f"{len(outs['cuda'])} forwards of the denoise, card vs CPU, "
+              f"rel err {rel:.3g} (must be nonzero and within "
+              f"{TINY_REL_ERR})", flush=True)
+        if not 0 < rel <= TINY_REL_ERR:
+            fail(f"tiny {name}: the denoise's model outputs read {rel}")
 
 
 def mp_sees_the_model(name, run, model, sampler, z, y, mask):
@@ -2686,9 +2968,11 @@ def mp_sees_the_model(name, run, model, sampler, z, y, mask):
 def mp_report(name, arm, cfg, qplan, sampler, model):
     """An MP arm's sampler and union model over its base model (built,
     adapted and packed on the card; the seconds are printed): the union
-    spans, each span's weight bits by layer kind (fail unless the
-    attention linears run W4 and fc1/fc2 W8 in every span), the K-major
-    int8 weights and their slabs. Returns (sampler, union model)."""
+    spans, each span's weight bits by layer kind (fail unless every kind
+    runs `MP_BITS`' bits of its span's MP range: STDiT's t20 the attention
+    linears W4 and fc1/fc2 W8 in every span, Latte's attention 8/4/4/8),
+    the K-major int8 weights and their slabs. Fails unless the sampler
+    takes the gather path. Returns (sampler, union model)."""
     import torch
     from viditq_tpu_torch.pipelines.mixed_precision import GatherMPSampler
     from viditq_tpu_torch.quant.qlinear import QuantLinear
@@ -2708,7 +2992,8 @@ def mp_report(name, arm, cfg, qplan, sampler, model):
                 m.lspec.weight.mp_bits or (m.lspec.weight.n_bits,))
     slabs = sum(m.w_int.shape[0] for m in union.modules()
                 if isinstance(m, QuantLinear) and m.native)
-    print(f"  {arm}: {STEPS}-step union spans {list(run.spans)} (MP range "
+    print(f"  {arm}: the gather path (`GatherMPSampler`, one union "
+          f"model); {STEPS}-step union spans {list(run.spans)} (MP range "
           f"{list(run.mp_idx)}, CB timerange {list(run.cb_idx)}); bits by "
           f"span and layer kind "
           f"{ {k: sorted(v) for k, v in sorted(kinds.items())} }; union "
@@ -2716,11 +3001,34 @@ def mp_report(name, arm, cfg, qplan, sampler, model):
           f"{check_k_major(union)} K-major int8 weights in {slabs} slabs",
           flush=True)
     for kind, bits in kinds.items():
-        want = 8 if ".mlp." in kind else 4
-        if bits != {(want,) * run.n_ranges}:
-            fail(f"{name} {arm}: {kind} runs bits {bits}, not W{want} in "
-                 f"every span")
+        want = tuple(MP_BITS[(name, arm)](kind, r) for r in run.mp_idx)
+        if len(want) != run.n_ranges or bits != {want}:
+            fail(f"{name} {arm}: {kind} runs bits {bits} by span, not "
+                 f"{want}")
     return run, union
+
+
+def slice_inputs(name, cfg, z_scale, n_prompt, rng):
+    """A slice's sampling inputs on the card from `rng`: z [1, 4, *latent]
+    (x z_scale; bf16, float32 for MMDiT, whose Euler update runs in
+    float32), the CFG's [cond; null] condition y and the prompt mask: for
+    the text slices y [2, 1, n_prompt, 4096] x 0.1 and an all-ones mask
+    [1, n_prompt]; for DiT one ImageNet label and the null label
+    (`ClassEncoder`), no mask."""
+    import torch
+    from viditq_tpu_torch.models.text_encoder import ClassEncoder
+    from viditq_tpu_torch.utils.workload import latent_size
+    z = torch.tensor(rng.standard_normal((1, 4, *latent_size(cfg))) * z_scale,
+                     dtype=torch.float32 if name == "mmdit"
+                     else torch.bfloat16, device="cuda")
+    if name == "dit":
+        enc = ClassEncoder(DIT_CLASSES)
+        y = torch.cat([enc.encode([int(rng.integers(DIT_CLASSES))])["y"],
+                       enc.null(1)]).cuda()
+        return z, y, None
+    y = torch.tensor(rng.standard_normal((2, 1, n_prompt, 4096)) * 0.1,
+                     dtype=torch.bfloat16, device="cuda")
+    return z, y, torch.ones((1, n_prompt), dtype=torch.int32, device="cuda")
 
 
 def run_slice(name, cfg, z_scale, n_prompt):
@@ -2743,11 +3051,7 @@ def run_slice(name, cfg, z_scale, n_prompt):
     from viditq_tpu_torch.utils.workload import latent_size
     latent = latent_size(cfg)
     rng = np.random.default_rng(0)
-    z = torch.tensor(rng.standard_normal((1, 4, *latent)) * z_scale,
-                     dtype=torch.bfloat16, device="cuda")
-    y = torch.tensor(rng.standard_normal((2, 1, n_prompt, 4096)) * 0.1,
-                     dtype=torch.bfloat16, device="cuda")
-    mask = torch.ones((1, n_prompt), dtype=torch.int32, device="cuda")
+    z, y, mask = slice_inputs(name, cfg, z_scale, n_prompt, rng)
     # the latent moved by 1e-3 relative: one bf16 step in some entries
     z_moved = (z.float() * (1.0 + 1e-3 * torch.tensor(
         rng.standard_normal(z.shape), dtype=torch.float32,
@@ -2963,6 +3267,9 @@ CLI_ANALYSIS_DEPTH, CLI_ANALYSIS_STEPS = 4, 4
 CLI_KERNELS = {"inference": "bf16", "get-calib-data": "bf16",
                "ptq sm8": None, "quant-generate sm8": "sm8",
                "ptq naive": "naive", "quant-generate naive": "naive",
+               # the segmented MP sampler on the simulate backend: K3 alone
+               "quant-generate-mp viditq_w4a8": "sim_w8a8",
+               "quant-generate-mp naive": "naive",
                "get-sensitivity": "w8a8",
                "inference (analysis cut)": "bf16", "sweep-alpha": "bf16",
                "smooth-quant-list": "bf16",
@@ -3128,6 +3435,7 @@ def phase_cli():
     import torch
     from viditq_tpu_torch import cli
     from viditq_tpu_torch.pipelines.inference import quant_sample
+    from viditq_tpu_torch.pipelines.mixed_precision import SegmentedMPSampler
     from viditq_tpu_torch.pipelines.ptq import run_ptq
     from viditq_tpu_torch.quant.calibrate import calibrate_weight_tables
     from viditq_tpu_torch.quant.native_pack import pack_native_weights
@@ -3287,7 +3595,56 @@ def phase_cli():
         if not (r_naive <= SLICE_REL_ERR):
             fail(f"cli naive vs inference relative error {r_naive}")
         res = want_t = None
-        # 5. the analysis commands, depth and steps cut
+        # 5. mixed precision through quant-generate-mp with the t20 configs:
+        # ViDiT-Q's W4A8 plan as written (the simulate backend, its
+        # cfg_split; weight tables from the parameters), and the naive plan
+        # on step 4's checkpoint (its static act tables and slot map); each
+        # against the in-process segmented sampler on the same model
+        mp = ["--time_mp_config_weight", str(MP_WEIGHT),
+              "--time_mp_config_act", str(MP_ACT)]
+        for label, plan_path, ckpt_file in (
+                ("quant-generate-mp viditq_w4a8", VIDITQ_W4A8_PLAN, None),
+                ("quant-generate-mp naive", NAIVE_PLAN, qck)):
+            extra = ["--quant_ckpt", ckpt_file] if ckpt_file else []
+            out, _ = run_cli(label, ["quant-generate-mp", "--save_dir",
+                                     str(tmp / f"mp_{label.split()[-1]}"),
+                                     "--ptq_config", str(plan_path), *mp,
+                                     *extra, *common], counts)
+            got_s = torch.from_numpy(np.load(out["out"])["samples"]).float()
+            ms_mp = out["sample_seconds"] * 1e3 / CLI_STEPS
+            plan = load_quant_config(str(plan_path))
+            model = workload.build_model(cfg, plan.resolver(), device="cuda")
+            ckpt.load_params_into(model, str(params))
+            slot_map = None
+            if ckpt_file:
+                slot_map = ckpt.load_quant_ckpt(ckpt_file, model)[
+                    "act_slot_map"]
+            else:
+                calibrate_weight_tables(model)
+            sampler = workload.build_sampler(cfg, cfg_split=plan.cfg_split)
+            run = mp_sampler(cfg, "cuda", plan, sampler, MP_WEIGHT, MP_ACT,
+                             act_slot_map=slot_map)
+            if not isinstance(run, SegmentedMPSampler) or run.native_repack:
+                fail(f"cli {label}: not the segmented simulate path")
+            want_s = run(model, z, y, mask).float().cpu()
+            n_ranges = len(run.segments)
+            model = run = None
+            same, r_mp = rel(got_s, want_s), rel(got_s, fp)
+            acts = ("dynamic acts" if slot_map is None else
+                    f"static acts, the slot map of "
+                    f"{len(set(slot_map.tolist()))} calibrated steps onto "
+                    f"{plan.default_layer.act.n_timestep} table slot(s)")
+            print(f"  cli {label}: {ms_mp:.1f} ms/step (the segmented path, "
+                  f"{n_ranges} ranges, {acts}, cfg_split "
+                  f"{sampler.cfg_split}); against the in-process path rel "
+                  f"{same:.3g} (limit {CLI_SAME_REL}); vs inference rel err "
+                  f"{r_mp:.4g} (limit {SLICE_REL_ERR})", flush=True)
+            if same > CLI_SAME_REL:
+                fail(f"cli {label} samples differ from the in-process path: "
+                     f"{same}")
+            if not (r_mp <= SLICE_REL_ERR):
+                fail(f"cli {label} vs inference relative error {r_mp}")
+        # 6. the analysis commands, depth and steps cut
         cut = cli_workload(tmp, CLI_ANALYSIS_STEPS, CLI_ANALYSIS_DEPTH)
         an = ["--config", cut, "--num_samples", "1", "--ptq_config",
               str(W8A8_PLAN)]
@@ -3608,12 +3965,18 @@ def main() -> int:
     print(f"phase build: {time.time() - t0:.1f} s "
           f"({_build.library_path().name})", flush=True)
 
+    t_start = time.time()
     records = {}
     phase_kernels(records)
     phase_reference()
     launches = run_slice("stdit", STDIT_CFG, 0.5, 120)
     for k, n in run_slice("sigma", SIGMA_CFG, 1.0, 300).items():
         launches[k] += n
+    for name, cfg, n_prompt in (("latte", LATTE_CFG, 1),
+                                ("dit", DIT_CFG, None),
+                                ("mmdit", MMDIT_CFG, 77)):
+        for k, n in run_slice(name, cfg, 0.5, n_prompt).items():
+            launches[k] += n
     for k, n in phase_cli().items():
         launches[k] += n
     for k, n in phase_recon_sigma().items():
@@ -3635,6 +3998,8 @@ def main() -> int:
             "bound_by": head["bound_by"],
             "library_ms": head["library_ms"],
         })
+    print(f"chip_smoke: the phases after the build in "
+          f"{time.time() - t_start:.1f} s", flush=True)
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -20,7 +20,9 @@ relative of JAX's (the denoise tolerance), and the port with JAX's
 PixArt under `configs/pixart/w8a8.yaml` (DPM-Solver) against JAX's. Then
 the port alone: `resume_with_w_quantized` (flag and YAML key), the sm8
 plan's samples against the in-process path, `quant-generate-mp` against
-the in-process `build_mp_sampler` run, and the `--sampler_type` aliases.
+the in-process `build_mp_sampler` run (native CB, the simulate backend,
+and static act tables from `ptq`), and the
+`--sampler_type` aliases.
 """
 
 import contextlib
@@ -41,7 +43,9 @@ from viditq_tpu.utils import ckpt as j_ckpt
 from viditq_tpu.utils import workload as j_workload
 from viditq_tpu_torch import cli
 from viditq_tpu_torch.pipelines.inference import quant_sample
-from viditq_tpu_torch.pipelines.mixed_precision import build_mp_sampler
+from viditq_tpu_torch.pipelines.mixed_precision import (GatherMPSampler,
+                                                         SegmentedMPSampler,
+                                                         build_mp_sampler)
 from viditq_tpu_torch.pipelines.ptq import resume_w_quantized
 from viditq_tpu_torch.quant.calibrate import calibrate_weight_tables
 from viditq_tpu_torch.quant.native_pack import pack_native_weights
@@ -330,45 +334,100 @@ def test_sm8_quant_generate_matches_in_process(stdit, tmp_path):
     assert out["steps"] == 3
 
 
-def test_quant_generate_mp_matches_in_process(stdit, tmp_path):
-    # the t20 configs tile 20 sampler steps: the tiny workload at 20
-    cfg_path = str(tmp_path / "tiny20.py")
+@pytest.fixture(scope="module")
+def tiny20(stdit, tmp_path_factory):
+    """(config path, common flags, calib_data.npz path) of the tiny
+    workload at 20 sampler steps (the t20 configs tile 20) on the stdit
+    fixture's weights, its calibration data from `get-calib-data`."""
+    tmp = tmp_path_factory.mktemp("tiny20")
+    cfg_path = str(tmp / "tiny20.py")
     with open(STDIT_CFG) as f:
         src = f.read()
     with open(cfg_path, "w") as f:
         f.write(src.replace("num_sampling_steps=3", "num_sampling_steps=20"))
     common = ["--config", cfg_path, "--ckpt_path", stdit["params"],
               "--device", "cpu"]
-    q = ["--ptq_config", CB, "--backend", "native"]
-    cli.main(["get-calib-data", "--save_dir", str(tmp_path / "cal"),
+    cli.main(["get-calib-data", "--save_dir", str(tmp / "cal"),
               "--num_samples", "1", *common])
-    cli.main(["ptq", "--save_dir", str(tmp_path / "q"), "--calib_data",
-              str(tmp_path / "cal" / "calib_data.npz"), *common, *q])
-    qck = str(tmp_path / "q" / "quant_ckpt.npz")
-    cli.main(["quant-generate-mp", "--save_dir", str(tmp_path / "mp"),
-              "--num_samples", "1", "--quant_ckpt", qck,
-              "--time_mp_config_weight", MP_W, "--time_mp_config_act", MP_A,
-              *common, *q])
+    return cfg_path, common, str(tmp / "cal" / "calib_data.npz")
+
+
+def _mp_in_process(cfg_path, plan_path, params, qck=None, backend=None):
+    """The in-process MP run `quant-generate-mp` makes: the params' model,
+    the quant checkpoint's tables (else min-max weight tables from the
+    params) and slabs, `build_mp_sampler` with the checkpoint's act slot
+    map, the plan's `cfg_split`. Returns (samples, sampler)."""
     y, mask = _embeds(cfg_path)
     z = cli.noise((1, 4, 4, 8, 8), SEED, "cpu")
-    cfg, plan, model = _in_process(cfg_path, CB, stdit["params"],
-                                   backend="native")
-    ckpt.load_quant_ckpt(qck, model)
-    pack_native_weights(model)
+    cfg, plan, model = _in_process(cfg_path, plan_path, params,
+                                   backend=backend)
+    slot_map = None
+    if qck is None:
+        calibrate_weight_tables(model)
+    else:
+        slot_map = ckpt.load_quant_ckpt(qck, model).get("act_slot_map")
+    if plan.uses_native():
+        pack_native_weights(model)
     run = build_mp_sampler(
         lambda r: workload.build_model(cfg, r, device="cpu"),
         workload.build_sampler(cfg, cfg_split=plan.cfg_split), plan,
-        load_bitwidth_config(MP_W),
-        load_bitwidth_config(MP_A))
-    want = run(model, z, y, mask)
+        load_bitwidth_config(MP_W), load_bitwidth_config(MP_A),
+        act_slot_map=slot_map)
+    return run(model, z, y, mask).float().numpy(), run
+
+
+def test_quant_generate_mp_matches_in_process(stdit, tiny20, tmp_path):
+    cfg_path, common, calib = tiny20
+    q = ["--ptq_config", CB, "--backend", "native"]
+    mp_cfgs = ["--time_mp_config_weight", MP_W, "--time_mp_config_act",
+               MP_A]
+    cli.main(["ptq", "--save_dir", str(tmp_path / "q"), "--calib_data",
+              calib, *common, *q])
+    qck = str(tmp_path / "q" / "quant_ckpt.npz")
+    cli.main(["quant-generate-mp", "--save_dir", str(tmp_path / "mp"),
+              "--num_samples", "1", "--quant_ckpt", qck, *mp_cfgs, *common,
+              *q])
+    want, run = _mp_in_process(cfg_path, CB, stdit["params"], qck,
+                               backend="native")
+    assert isinstance(run, GatherMPSampler)
     got = _samples(str(tmp_path / "mp"))
     assert np.isfinite(got).all()
-    assert np.array_equal(got, want.float().numpy())
-    # on the simulate backend (the plan as written) MP is not ported
-    with pytest.raises(NotImplementedError, match="simulate"):
-        cli.main(["quant-generate-mp", "--save_dir", str(tmp_path / "sim"),
-                  "--num_samples", "1", "--ptq_config", CB,
-                  "--time_mp_config_weight", MP_W, *common])
+    assert np.array_equal(got, want)
+    # on the simulate backend (the plan as written, its cfg_split; weight
+    # tables from the params, no checkpoint): the segmented path
+    cli.main(["quant-generate-mp", "--save_dir", str(tmp_path / "sim"),
+              "--num_samples", "1", "--ptq_config", CB, *mp_cfgs, *common])
+    want, run = _mp_in_process(cfg_path, CB, stdit["params"])
+    assert isinstance(run, SegmentedMPSampler) and not run.native_repack
+    got = _samples(str(tmp_path / "sim"))
+    assert np.isfinite(got).all()
+    assert np.array_equal(got, want)
+
+
+def test_quant_generate_mp_static_tables_match_in_process(stdit, tiny20,
+                                                          tmp_path):
+    """`ptq` under w8a8_naive.yaml (static act tables) on the CLI's own
+    calibration data, then `quant-generate-mp` from its checkpoint (the
+    plan as written: the simulate backend): the act slot map of the
+    checkpoint's meta reaches every range's forwards (the native backend's
+    static MP: tests/test_torch_mp.py)."""
+    cfg_path, common, calib = tiny20
+    mp_cfgs = ["--time_mp_config_weight", MP_W, "--time_mp_config_act",
+               MP_A]
+    cli.main(["ptq", "--save_dir", str(tmp_path / "q"), "--calib_data",
+              calib, "--ptq_config", NAIVE, *common])
+    qck = str(tmp_path / "q" / "quant_ckpt.npz")
+    assert ckpt.read_quant_ckpt(qck)[1]["act_slot_map"] is not None
+    out = str(tmp_path / "mp")
+    cli.main(["quant-generate-mp", "--save_dir", out, "--num_samples", "1",
+              "--quant_ckpt", qck, "--ptq_config", NAIVE, *mp_cfgs,
+              *common])
+    want, run = _mp_in_process(cfg_path, NAIVE, stdit["params"], qck)
+    assert isinstance(run, SegmentedMPSampler) and not run.native_repack
+    assert run.act_slot_map is not None
+    got = _samples(out)
+    assert np.isfinite(got).all()
+    assert np.array_equal(got, want)
 
 
 @pytest.mark.parametrize("override", [None, "ddim", "dpms", "dpm-solver"])

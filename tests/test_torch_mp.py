@@ -3,8 +3,10 @@ recipe) in the PyTorch port against the JAX package: the range parsing and
 the union partition of the MP step ranges and the CB timeranges, the gather
 sampler's per-layer bits, its prepared union model (per-span slabs at each
 span's bits and their dequant tables) and its 2-step CFG DDIM, the
-segmented fallback on a native plan without CB, the rules that send a plan
-to one path or refuse it, and the `mp_bits` packing of one layer.
+segmented fallback on a native plan without CB, on the simulate backend
+(ViDiT-Q's W4A8 plan as written) and with static act tables in two
+timestep slots (simulate and native), the rules that send a plan to one
+path or refuse it, and the `mp_bits` packing of one layer.
 
 The JAX models run their kernel path in interpret mode (tests/
 torch_parity.py); its gather sampler runs without `static_segments`
@@ -42,6 +44,7 @@ from viditq_tpu.models.stdit import STDiT as JSTDiT
 from viditq_tpu.pipelines import analysis as j_analysis
 from viditq_tpu.pipelines import mixed_precision as jmp
 from viditq_tpu.samplers import IDDPM as JIDDPM
+from viditq_tpu.quant import QuantCtx as JQuantCtx
 from viditq_tpu.utils.config import load_quant_config as j_load
 from viditq_tpu_torch.models.stdit import STDiT
 from viditq_tpu_torch.pipelines import analysis
@@ -399,16 +402,105 @@ def test_gather_rules_match_jax(case):
     assert got is None and want is None
 
 
-def test_simulate_plan_raises():
-    plan = cb_plan(True)(load_quant_config(CB))
-    sim = dataclasses.replace(plan, default_layer=dataclasses.replace(
-        plan.default_layer, backend="simulate"))
-    assert not sim.uses_native() and plan.uses_native()
-    assert mp.build_mp_sampler_gather(_ctor, IDDPM(num_sampling_steps=2),
-                                      sim, MP_W, None) is None
-    with pytest.raises(NotImplementedError, match="simulate"):
-        mp.build_mp_sampler(_ctor, IDDPM(num_sampling_steps=2), sim, MP_W,
-                            None)
+# ViDiT-Q's W4A8 plan as written (the simulate backend, momentum CB), and
+# the naive W8A8 with static per-tensor acts
+VIDITQ_W4A8 = "configs/opensora/viditq_w4a8.yaml"
+NAIVE = "configs/opensora/w8a8_naive.yaml"
+
+
+def _static2(native):
+    """The naive plan with two timestep slots of static act tables, on
+    the simulate backend or the native one (the JAX impl 'pallas'; the
+    port's K7a -> K7b dataflow takes the static codes into K7b)."""
+    def transform(plan):
+        if native:
+            plan = native_plan("pallas")(plan)
+        d = plan.default_layer
+        return dataclasses.replace(plan, default_layer=dataclasses.replace(
+            d, act=dataclasses.replace(d.act, timestep_wise=True,
+                                       n_timestep=2)))
+    return transform
+
+
+def _jax_static_tables(jmodel, jv, transform):
+    """One 'a_calib' forward into each of the two slots (inputs of two
+    seeds, the second at twice the scale) and the finished tables: the
+    JAX variables with them."""
+    from viditq_tpu.quant.calibrate import finalize_act_tables
+    qstats = jv["qstats"]
+    calib = jax.jit(lambda v, slot, *a: jmodel.apply(
+        v, *a, qctx=JQuantCtx(mode="a_calib", act_slot=slot),
+        mutable=["qstats"])[1]["qstats"])
+    for slot, seed in ((0, 5), (1, 6)):
+        x, t, y, mask = inputs(seed=seed)
+        qstats = calib({**jv, "qstats": qstats}, jnp.int32(slot),
+                       x * (1 + slot), t, y, mask)
+    plan = transform(j_load(NAIVE))
+    quant = finalize_act_tables(jv["quant"], qstats, plan.resolver())
+    return {**jv, "quant": jax.tree.map(np.asarray, quant),
+            "qstats": jax.tree.map(np.asarray, qstats)}
+
+
+def _segmented_pair(plan_path, transform, jv, mp_w, slot_map=None):
+    """(port, JAX) 2-step CFG DDIM through each package's segmented MP
+    sampler (JAX `force_segmented`, its default `native_repack`) on the
+    same base model."""
+    jplan, plan = (transform(p) for p in (j_load(plan_path),
+                                          load_quant_config(plan_path)))
+    z, y, mask = _mp_inputs()
+    jrun = jmp.build_mp_sampler(_jctor, JIDDPM(num_sampling_steps=2), jplan,
+                                mp_w, None, act_slot_map=slot_map,
+                                force_segmented=True)
+    with jax_kernel_path():
+        want = np.asarray(jrun(jv, jnp.asarray(z), jnp.asarray(y),
+                               jnp.asarray(mask)))
+    run = mp.build_mp_sampler(_ctor, IDDPM(num_sampling_steps=2), plan,
+                              mp_w, None, act_slot_map=slot_map)
+    assert isinstance(run, mp.SegmentedMPSampler)
+    assert run.native_repack == plan.uses_native()
+    base = build_port(plan_path, jv, plan_fn=transform)
+    got = run(base, _t(z), _t(y), _t(mask)).numpy()
+    assert np.isfinite(got).all() and rel_err(got, z) > 0.01
+    return got, want, run, base
+
+
+def test_segmented_simulate_matches_jax():
+    """ViDiT-Q's W4A8 plan as written (the simulate backend: fake quant
+    from the shared tables at each range's bits, its CB statistic from
+    two sq_stat forwards) through the segmented path, against JAX's."""
+    ident = (lambda plan: plan)  # noqa: E731
+    _, jv = build_jax(VIDITQ_W4A8, sq_stat_t=CB_STAT_T)
+    assert not load_quant_config(VIDITQ_W4A8).uses_native()
+    got, want, run, base = _segmented_pair(VIDITQ_W4A8, ident, jv, MP_W)
+    assert rel_err(got, want) < DENOISE_TOL
+    # the ranges' own bits ran: all-W4 is another trajectory
+    w4 = mp.build_mp_sampler(_ctor, IDDPM(num_sampling_steps=2),
+                             load_quant_config(VIDITQ_W4A8), {"1-0": {}},
+                             None)
+    z, y, mask = _mp_inputs()
+    assert rel_err(w4(base, _t(z), _t(y), _t(mask)).numpy(), got) > 1e-4
+
+
+@pytest.mark.parametrize("native", [False, True],
+                         ids=["simulate", "native"])
+def test_static_act_mp_matches_jax(native):
+    """Static act tables in two timestep slots, the slot of each step from
+    the act slot map (t > 500: slot 1), through the segmented path; the
+    gather path refuses static acts in both packages."""
+    transform = _static2(native)
+    jmodel, jv = build_jax(NAIVE, plan_fn=transform)
+    jv = _jax_static_tables(jmodel, jv, transform)
+    slot_map = (np.arange(1000) > 500).astype(np.int32)
+    got, want, run, base = _segmented_pair(NAIVE, transform, jv, MP_W,
+                                           slot_map)
+    assert rel_err(got, want) < DENOISE_TOL
+    assert base.blocks[0].attn.q.a_delta.shape[1] == 2
+    # the map reaches every range's forwards: slot 0 throughout moves it
+    one = mp.build_mp_sampler(_ctor, IDDPM(num_sampling_steps=2),
+                              transform(load_quant_config(NAIVE)), MP_W,
+                              None, act_slot_map=np.zeros(1000, np.int32))
+    z, y, mask = _mp_inputs()
+    assert rel_err(one(base, _t(z), _t(y), _t(mask)).numpy(), got) > 1e-4
 
 
 def test_plan_surface_matches_jax():

@@ -534,7 +534,8 @@ def test_chip_smoke_carries_the_mp_and_sigma_cb_arms():
         "attention_bnhd_stream",)
     assert cs.arm_build("sigma", "cb") == (cs.SIGMA_CB_PLAN, "cb", ())
     assert cs.arm_build("stdit", "cb") == (cs.CB_PLAN, "cb", ())
-    assert cs.STAT_T == {"stdit": (250, 750), "sigma": (500,)}
+    assert cs.STAT_T == {"stdit": (250, 750), "sigma": (500,),
+                         "latte": (250, 750), "dit": (), "mmdit": ()}
     d = cs.quant_plan(cs.SIGMA_CB_PLAN, "cb").default_layer
     assert (d.backend, d.impl, d.weight.n_bits) == ("native", "fused", 6)
     assert d.smooth_quant.qkv_share_cs and d.smooth_quant.alpha == (
@@ -563,6 +564,55 @@ def test_chip_smoke_carries_the_mp_and_sigma_cb_arms():
                  "cs.mp_report(", "profile_forward(runner",
                  "stat_t=cs.STAT_T[name]"):
         assert part in prof, part
+
+
+def test_chip_smoke_carries_the_backbone_arms():
+    import inspect
+    import chip_smoke as cs
+    from viditq_tpu_torch.models import MODELS
+    from viditq_tpu_torch.pipelines import mixed_precision as mp
+    from viditq_tpu_torch.samplers.iddpm import IDDPM
+    # Latte-XL/2 under the W4A8 CB recipe and its four-range MP (the cb
+    # arm's model, its launches), DiT-XL/2 sm8 on a label, MMDiT W4A8
+    for cfg, kind in ((cs.LATTE_CFG, "Latte-XL/2"), (cs.DIT_CFG, "DiT-XL/2"),
+                      (cs.MMDIT_CFG, "MMDiT")):
+        assert cfg["model"]["type"] == kind and kind in MODELS
+    assert list(cs.SLICE_KERNELS["latte"]) == ["bf16", "cb", "cb_mp"]
+    assert list(cs.SLICE_KERNELS["dit"]) == ["bf16", "sm8"]
+    assert list(cs.SLICE_KERNELS["mmdit"]) == ["bf16", "w4a8"]
+    assert cs.arm_build("latte", "cb_mp") == cs.arm_build("latte", "cb") \
+        == cs.arm_build("latte", "bf16") == (cs.CB_PLAN, "cb", ())
+    assert cs.arm_build("mmdit", "w4a8")[0] == cs.MMDIT_PLAN
+    assert cs.BLOCK_LAUNCHES[("latte", "cb_mp")] == cs.BLOCK_LAUNCHES[
+        ("latte", "cb")]
+    w = cs.latte_mp_weight()
+    assert [k for k in w if k != "fp_layers"] == ["19-15", "14-10", "9-5",
+                                                  "4-0"]
+    assert w["14-10"]["blocks.27.attn"] == 4 and w["4-0"]["blocks.3.attn"] \
+        == 8 and w["9-5"]["blocks.0.mlp"] == 8
+    # the gather path on the full-width schedule, bits by span as MP_BITS
+    run = cs.mp_sampler(cs.LATTE_CFG, "cpu", cs.quant_plan(cs.CB_PLAN, "cb"),
+                        IDDPM(num_sampling_steps=cs.STEPS), w)
+    assert isinstance(run, mp.GatherMPSampler)
+    bits = run.resolver("blocks.5.attn.proj").weight.mp_bits
+    assert bits == tuple(cs.MP_BITS[("latte", "cb_mp")]("blocks.attn.proj",
+                                                        r)
+                         for r in run.mp_idx) == (8, 4, 4, 4, 8)
+    assert isinstance(cs.arm_sampler("mmdit", "w4a8", cs.MMDIT_CFG),
+                      cs.RectifiedFlow)
+    # the kernels at the new shapes, the tiny models card vs CPU, and
+    # quant-generate-mp with a simulate plan and with static tables
+    src = inspect.getsource(cs.backbone_cases)
+    for part in ("Latte temporal", "Latte spatial", "DiT [2,", "MMDiT img",
+                 'ASYM_TOL["attn"]', "scaled_dot_product_attention"):
+        assert part in src, part
+    ref = inspect.getsource(cs.phase_reference)
+    for part in ("TINY_DIT_CFG", "TINY_LATTE_CFG", "TINY_MMDIT_CFG"):
+        assert part in ref, part
+    cli_src = inspect.getsource(cs.phase_cli)
+    for part in ("quant-generate-mp viditq_w4a8", "quant-generate-mp naive",
+                 "act_slot_map=slot_map", "CLI_SAME_REL"):
+        assert part in cli_src, part
 
 
 def test_chip_smoke_mp_helpers_on_the_cpu():

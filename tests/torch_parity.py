@@ -1,5 +1,6 @@
-"""Shared set-up of the PyTorch-port parity tests: a tiny STDiT and a tiny
-PixArt-Σ built in both packages on the same weights.
+"""Shared set-up of the PyTorch-port parity tests: a tiny STDiT, PixArt-Σ,
+DiT (text and label conditions), Latte and MMDiT built in both packages on
+the same weights.
 
 The JAX model is initialised, its parameters are replaced by numpy draws
 from a seed, and its tables are calibrated and packed by the JAX package;
@@ -9,7 +10,13 @@ really takes its kernel path: T*S = 256 tokens (the producer's N % 256),
 S = 128 spatial tokens (the attention's n % 128), hidden*mlp_ratio = 256.
 The tiny Σ takes a 96x96 latent: N = 48*48 = 2304 tokens, above the
 one-shot kv range, so block 0's self-attention streams its kv in 9 blocks
-of 256 (K6); block 1 compresses k/v with the 2x2 `sr` conv.
+of 256 (K6); block 1 compresses k/v with the 2x2 `sr` conv. DiT and
+Latte take square latents (their spatial table is a square grid): DiT a
+2x16x16 one and attends over all 128 tokens; Latte a 2x32x32 one, its
+spatial blocks over S = 256 tokens (the JAX kernel), its temporal blocks
+over T = 2 (the JAX package's XLA attention there, the port's K3). The tiny MMDiT
+takes a 32x32 latent (256 image tokens, the producer's N % 256) and 8
+caption tokens.
 """
 
 import contextlib
@@ -23,12 +30,17 @@ import numpy as np
 import torch
 from jax.experimental.pallas import tpu as pltpu
 
+from viditq_tpu.models.dit import DiT as JDiT
+from viditq_tpu.models.dit import Latte as JLatte
+from viditq_tpu.models.mmdit import MMDiT as JMMDiT
 from viditq_tpu.models.pixart import PixArt as JPixArt
 from viditq_tpu.models.stdit import STDiT as JSTDiT
 from viditq_tpu.quant import QuantCtx as JQuantCtx
 from viditq_tpu.quant import calibrate_weight_tables as j_calibrate
 from viditq_tpu.quant.native_pack import pack_native_weights as j_pack
 from viditq_tpu.utils.config import load_quant_config as j_load
+from viditq_tpu_torch.models.dit import DiT, Latte
+from viditq_tpu_torch.models.mmdit import MMDiT
 from viditq_tpu_torch.models.pixart import PixArt
 from viditq_tpu_torch.models.stdit import STDiT
 from viditq_tpu_torch.utils.bridge import state_dict_from_flax
@@ -56,9 +68,30 @@ TINY_SIGMA = dict(input_size=96, hidden_size=64, depth=2, num_heads=4,
                   caption_channels=32, model_max_length=8,
                   kv_compress_sampling="conv", kv_compress_scale=2,
                   kv_compress_layers=(1,))
+# DiT's spatial position table is a square grid (dit.py:108-110); Latte's
+# spatial blocks need S = 256 tokens for the JAX kernel, DiT's full
+# attention 2 x 64
+DIT_LATENT = (2, 16, 16)
+LATTE_LATENT = (2, 32, 32)
+TINY_DIT = dict(input_size=DIT_LATENT, hidden_size=64, depth=2, num_heads=4,
+                caption_channels=32, model_max_length=8)
+# the label condition's classes: y holds labels in [0, N_CLASSES], the
+# last the CFG's null label
+N_CLASSES = 10
+MMDIT_LATENT = (32, 32)
+TINY_MMDIT = dict(input_size=32, hidden_size=64, depth=2, num_heads=4,
+                  caption_channels=32, pooled_channels=32,
+                  model_max_length=8)
 # (JAX class, port class, configuration, latent) of each tiny model
 KINDS = {"stdit": (JSTDiT, STDiT, TINY, LATENT),
-         "sigma": (JPixArt, PixArt, TINY_SIGMA, SIGMA_LATENT)}
+         "sigma": (JPixArt, PixArt, TINY_SIGMA, SIGMA_LATENT),
+         "dit": (JDiT, DiT, TINY_DIT, DIT_LATENT),
+         "dit_label": (JDiT, DiT, {**TINY_DIT,
+                                   "condition": f"label_{N_CLASSES}"},
+                       DIT_LATENT),
+         "latte": (JLatte, Latte, {**TINY_DIT, "input_size": LATTE_LATENT},
+                   LATTE_LATENT),
+         "mmdit": (JMMDiT, MMDiT, TINY_MMDIT, MMDIT_LATENT)}
 
 
 @contextlib.contextmanager
@@ -109,12 +142,16 @@ def cb_plan(share: bool = True, sym: bool = False):
 
 
 def inputs(batch: int = 2, seed: int = 0, kind: str = "stdit"):
-    """x [B, 4, *latent], t [B], y [B, 1, L, 32], mask [B, L] (one padded
-    prompt) as numpy arrays."""
+    """x [B, 4, *latent], t [B], y [B, 1, L, 32] (the label kind: int
+    labels [B], the last batch row's the null label), mask [B, L] (one
+    padded prompt) as numpy arrays."""
     rng = np.random.default_rng(seed)
     x = rng.standard_normal((batch, 4, *KINDS[kind][3])).astype(np.float32)
     t = np.full((batch,), 500, np.int32)
     y = rng.standard_normal((batch, 1, 8, 32)).astype(np.float32)
+    if kind == "dit_label":
+        y = rng.integers(0, N_CLASSES, batch).astype(np.int32)
+        y[-1] = N_CLASSES
     mask = np.ones((batch, 8), np.int32)
     mask[-1, 5:] = 0
     return x, t, y, mask
@@ -150,8 +187,9 @@ def build_jax(plan_path=SM8, scan_blocks: bool = False, seed: int = 0,
     jcls, _, cfg, _ = KINDS[kind]
     plan = j_load(plan_path)
     resolver = (plan_fn(plan) if plan_fn else plan).resolver()
-    model = jcls(resolver=resolver, dtype=dtype,
-                 scan_blocks=scan_blocks, **{**cfg, **overrides})
+    if scan_blocks:  # STDiT's and PixArt's option
+        overrides = {**overrides, "scan_blocks": True}
+    model = jcls(resolver=resolver, dtype=dtype, **{**cfg, **overrides})
     x, t, y, mask = inputs(kind=kind)
     if "input_size" in overrides:
         x = x[..., :overrides["input_size"], :overrides["input_size"]]
@@ -232,3 +270,28 @@ def rel_err(got, want) -> float:
     got = np.asarray(got, np.float64)
     want = np.asarray(want, np.float64)
     return float(np.linalg.norm(got - want) / np.linalg.norm(want))
+
+
+def quant_ckpt_crosses(jv, port_fp, path, port_path):
+    """A JAX-written quant checkpoint of jv's tables loads into the port's
+    model of the same plan (port_fp, fp weights only) with every table
+    equal to the bridged one, and the port's file of that model has the
+    JAX file's keys but the packed slabs, with equal arrays."""
+    from viditq_tpu.utils import ckpt as j_ckpt
+    from viditq_tpu_torch.utils import ckpt
+    from viditq_tpu_torch.utils.bridge import state_dict_from_flax
+    j_ckpt.save_quant_ckpt(path, jv["quant"], {"act_slot_map": None})
+    assert ckpt.load_quant_ckpt(path, port_fp)["act_slot_map"] is None
+    bridged = state_dict_from_flax(jv["params"], jv["quant"])
+    got = {k: v for k, v in port_fp.state_dict().items()
+           if k.rpartition(".")[2] in ckpt.QUANT_TABLES}
+    assert got
+    for k, v in got.items():
+        assert torch.equal(v, bridged[k]), k
+    ckpt.save_quant_ckpt(port_path, port_fp, {"act_slot_map": None})
+    keys, port = set(np.load(path).files), np.load(port_path)
+    packed = {k for k in keys if k.split("::")[-1] in ckpt.PACKED}
+    assert set(port.files) == keys - packed
+    for k in set(port.files) - {"__meta__"}:
+        assert np.array_equal(port[k], np.load(path)[k]), k
+    return keys

@@ -338,15 +338,12 @@ def cmd_quant_generate(args, mp: bool = False):
         from viditq_tpu_torch.pipelines.mixed_precision import (
             build_mp_sampler)
         from viditq_tpu_torch.utils.config import load_bitwidth_config
-        if act_slot_map is not None:
-            raise NotImplementedError(
-                "mixed precision with static act tables is not ported")
         mp_w = load_bitwidth_config(args.time_mp_config_weight)
         mp_a = (load_bitwidth_config(args.time_mp_config_act)
                 if args.time_mp_config_act else None)
         run = build_mp_sampler(
             lambda r: workload.build_model(cfg, r, device=args.device),
-            sampler, plan, mp_w, mp_a)
+            sampler, plan, mp_w, mp_a, act_slot_map=act_slot_map)
         samples, secs = _timed(lambda: run(model, z, y, mask), args.device)
     else:
         samples, secs = _timed(lambda: inf.quant_sample(

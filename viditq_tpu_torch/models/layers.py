@@ -1,5 +1,5 @@
-"""DiT layers on the STDiT and PixArt paths (port of
-`viditq_tpu/models/layers.py`).
+"""DiT layers of the port's backbones: STDiT, PixArt, DiT, Latte and MMDiT
+(port of `viditq_tpu/models/layers.py`).
 
 Linear layers that a plan may quantize are `QuantLinear`s built with the
 spec their dotted name resolves to, exactly as in the JAX package, so the
@@ -58,6 +58,11 @@ def no_quant(name: str) -> Optional[LayerQuantSpec]:
 def t2i_modulate(x, shift, scale):
     """blocks.py:51."""
     return x * (1 + scale) + shift
+
+
+def modulate(norm_x, shift, scale):
+    """adaLN modulate with per-sample [B, C] vectors (layers.py:39)."""
+    return norm_x * (1 + scale[:, None]) + shift[:, None]
 
 
 def layer_norm(x: torch.Tensor, dtype, eps: float = 1e-6) -> torch.Tensor:
@@ -213,19 +218,22 @@ class Mlp(nn.Module):
     and quantizes it per fc2's act spec (sym or asym, with the code row
     sum for asym weights), and fc2 consumes that prequant (K2). Under CB,
     fc2's 1/cs (fc2 is the handoff's only consumer) is applied after the
-    GELU in either producer."""
+    GELU in either producer. token_layout / d_t / d_s: the token view of
+    fc1's and fc2's token-wise act quantization (Latte's blocks)."""
 
     def __init__(self, in_features: int, hidden_features: int,
                  resolver: Resolver = no_quant, prefix: str = "",
-                 dtype=torch.bfloat16):
+                 dtype=torch.bfloat16, token_layout: Optional[str] = None,
+                 d_t: int = 1, d_s: int = 1):
         super().__init__()
         self.hidden_features = hidden_features
         self.spec1 = resolver(f"{prefix}.fc1")
         self.spec2 = resolver(f"{prefix}.fc2")
+        kw = dict(dtype=dtype, token_layout=token_layout, d_t=d_t, d_s=d_s)
         self.fc1 = QuantLinear(in_features, hidden_features, self.spec1,
-                               dtype=dtype)
+                               **kw)
         self.fc2 = QuantLinear(hidden_features, in_features, self.spec2,
-                               dtype=dtype)
+                               **kw)
 
     def forward(self, x, qctx: Optional[QuantCtx] = None, prequant=None,
                 epilogue=None):
@@ -634,6 +642,22 @@ class CaptionEmbedder(nn.Module):
         return self.fc2(approx_gelu(self.fc1(caption.to(self.dtype))))
 
 
+class LabelEmbedder(nn.Module):
+    """Class-label embedding with the CFG null slot (blocks.py:447-474,
+    layers.py:866-878): a float32 table of num_classes + 1 rows, row
+    num_classes the null label, cast to the model dtype."""
+
+    def __init__(self, num_classes: int, hidden_size: int,
+                 dtype=torch.bfloat16):
+        super().__init__()
+        self.dtype = dtype
+        self.embedding = nn.Parameter(torch.zeros(num_classes + 1,
+                                                  hidden_size))
+
+    def forward(self, labels):
+        return self.embedding[labels.long()].to(self.dtype)
+
+
 class PatchEmbed(nn.Module):
     """2D patchify conv (layers.py:881-913) lowered like PatchEmbed3D: each
     p x p patch is one row of p*p*C_in values in the conv kernel's
@@ -702,6 +726,25 @@ class T2IFinalLayer(nn.Module):
         shift, scale = mods[:, 0:1], mods[:, 1:2]
         x = t2i_modulate(layer_norm(x, self.dtype), shift, scale)
         return self.linear(x, qctx)
+
+
+class FinalLayer(nn.Module):
+    """DiT's final layer with its own adaLN head (blocks.py:363-378,
+    layers.py:976-991): shift and scale from `adaLN_linear` on SiLU(c),
+    modulate the non-affine LN of x, then `linear`; both fp."""
+
+    def __init__(self, hidden_size: int, num_patch: int, out_channels: int,
+                 dtype=torch.bfloat16):
+        super().__init__()
+        self.dtype = dtype
+        self.adaLN_linear = QuantLinear(hidden_size, 2 * hidden_size,
+                                        dtype=dtype)
+        self.linear = QuantLinear(hidden_size, num_patch * out_channels,
+                                  dtype=dtype)
+
+    def forward(self, x, c):
+        shift, scale = torch.chunk(self.adaLN_linear(F.silu(c)), 2, dim=-1)
+        return self.linear(modulate(layer_norm(x, self.dtype), shift, scale))
 
 
 # ---------------- sincos position embeddings (numpy, static) ----------------

@@ -17,16 +17,22 @@ sampler steps. Two forms run it here, as in the JAX package:
   package had to slice the slabs per span offline to avoid that copy,
   `static_segments`, and keeps a switch for it; the port has this one
   form);
-* segmented (`build_mp_sampler` without CB): each step range runs
-  `IDDPM.denoise_range` on a model of its own resolver, which shares the
-  base model's parameters and tables and packs its slabs at the range's
-  bits just before its steps; the range's model is released after them,
-  so no range holds fp weights of its own, and every call builds and
-  packs each range's model again.
+* segmented (`build_mp_sampler` where the gather path does not take
+  the configs: no CB, static or varying acts, the simulate backend): each
+  step range runs `IDDPM.denoise_range` on a model of its own resolver,
+  which shares the base model's parameters and calibrated tables (weight
+  tables, CB tables, AdaRound's `w_alpha`, static act tables) and, under
+  `native_repack` (a native plan), packs its slabs at the range's bits
+  just before its steps; a simulate plan's ranges fake-quantize from the
+  shared tables at their bits. The range's model is released after its
+  steps, so no range holds fp weights of its own, and every call builds
+  (and packs) each range's model again.
 
 Both take a base model calibrated at the plan's bits (every bitwidth of
-`mixed_precision`; under CB its act statistics too). The simulate backend
-is not ported: a non-native plan raises NotImplementedError.
+`mixed_precision`; under CB its act statistics, under static acts its act
+tables too), and the act slot map of static act tables (`act_slot_map`,
+from `run_ptq` or a quant checkpoint's meta). JAX's `static_segments`
+switch (a TPU bisect form of the gather path) is not ported.
 """
 
 from __future__ import annotations
@@ -251,7 +257,8 @@ def build_mp_sampler_gather(model_ctor: ModelCtor, sampler: IDDPM, plan,
     other than 8 bits, varying act bits, CB off or not momentum, bits
     outside the calibrated `mixed_precision` list. A gapped or overlapping
     weight tiling raises ValueError. Every layer kind overridden in some
-    range carries `mp_bits` in every block."""
+    range carries `mp_bits` in every block. Static acts take the segmented
+    path, which carries their slot map."""
     base = plan.default_layer
     if not (plan.uses_native() and base.weight is not None
             and base.weight_quant and base.act_quant
@@ -307,30 +314,44 @@ def build_mp_sampler_gather(model_ctor: ModelCtor, sampler: IDDPM, plan,
 class SegmentedMPSampler:
     """The per-range MP sampler (`build_mp_sampler`'s fallback): call it as
     `run(model, z, y, mask)` on a base model calibrated at every bitwidth
-    of the plan's `mixed_precision`. Each call builds every range's model
-    and packs its slabs again (nothing is kept between calls)."""
+    of the plan's `mixed_precision`. Each range's model shares the base's
+    parameters and takes its calibrated tables (the JAX segments share one
+    `variables` tree, mixed_precision.py:521-541); with `native_repack`
+    (`build_mp_sampler` sets it to `plan.uses_native()`) its slabs are
+    packed at the range's bits, else (the simulate backend) it
+    fake-quantizes from the shared tables. Every forward's context
+    takes its static act slot from `act_slot_map` (JAX
+    `default_qctx_factory(act_slot_map=)`, :521). Each call builds every
+    range's model (and packs its slabs) again: nothing is kept between
+    calls."""
 
-    # the calibrated tables a range's model takes from the base model
-    TABLES = ("w_delta", "w_zp", "act_scale", "cb_scale")
+    # the calibrated tables a range's model takes from the base model: the
+    # weight and CB tables, AdaRound's rounding, the static act tables
+    TABLES = ("w_delta", "w_zp", "w_alpha", "act_scale", "cb_scale",
+              "a_delta", "a_zp", "a_min", "a_max", "a_init")
 
     def __init__(self, model_ctor: ModelCtor, sampler: IDDPM,
-                 segments: Sequence[Tuple[Callable, List[int]]]):
+                 segments: Sequence[Tuple[Callable, List[int]]],
+                 act_slot_map=None, native_repack: bool = True):
         self.model_ctor = model_ctor
         self.sampler = sampler
         self.segments = list(segments)
+        self.act_slot_map = act_slot_map
+        self.native_repack = native_repack
 
     @torch.no_grad()
     def __call__(self, model: nn.Module, z, y, mask=None):
         tables = {k: v for k, v in model.state_dict().items()
                   if k.rpartition(".")[2] in self.TABLES}
-        qf = default_qctx_factory("quant")
+        qf = default_qctx_factory("quant", act_slot_map=self.act_slot_map)
         x2 = torch.cat([z, z], dim=0)
         for resolver, steps in self.segments:
-            seg = share_parameters(self.model_ctor(resolver), model)
+            seg = share_parameters(self.model_ctor(resolver), model).eval()
             own = seg.state_dict()
             seg.load_state_dict({k: v for k, v in tables.items()
                                  if k in own}, strict=False)
-            pack_native_weights(seg.eval())
+            if self.native_repack:
+                pack_native_weights(seg)
             x2 = self.sampler.denoise_range(seg, x2, y, mask, steps,
                                             qctx_factory=qf)
             del seg
@@ -338,29 +359,29 @@ class SegmentedMPSampler:
 
 
 def build_mp_sampler(model_ctor: ModelCtor, sampler: IDDPM, plan,
-                     mp_weight_cfg: Mapping, mp_act_cfg: Optional[Mapping]):
+                     mp_weight_cfg: Mapping, mp_act_cfg: Optional[Mapping],
+                     act_slot_map=None):
     """An MP sampler, `run(model, z, y, mask)` (mixed_precision.py:
     480-546): the gather path where `build_mp_sampler_gather` represents
     the configs (its union model is built once and kept), else the
-    segmented path (which builds and packs each range's model on every
-    call). The plan must run the native backend (the simulate backend is
-    not ported)."""
-    if not plan.uses_native():
-        raise NotImplementedError(
-            "mixed precision on the simulate backend is not ported")
+    segmented path (which builds each range's model on every call and, on
+    a native plan, packs its slabs). `act_slot_map`: the static act
+    tables' slot of each timestep."""
     run = build_mp_sampler_gather(model_ctor, sampler, plan, mp_weight_cfg,
                                   mp_act_cfg)
     if run is not None:
         return run
     return SegmentedMPSampler(model_ctor, sampler, _build_segments(
-        sampler, plan, mp_weight_cfg, mp_act_cfg))
+        sampler, plan, mp_weight_cfg, mp_act_cfg), act_slot_map,
+        plan.uses_native())
 
 
 def mp_quant_sample(model_ctor: ModelCtor, model: nn.Module, sampler: IDDPM,
                     z, y, mask, plan, mp_weight_cfg: Mapping,
-                    mp_act_cfg: Optional[Mapping]):
+                    mp_act_cfg: Optional[Mapping], act_slot_map=None):
     """Generate with per-step-range bit allocation, one-shot
     (mixed_precision.py:549-559); for repeated generation build once with
     `build_mp_sampler`."""
     return build_mp_sampler(model_ctor, sampler, plan, mp_weight_cfg,
-                            mp_act_cfg)(model, z, y, mask)
+                            mp_act_cfg, act_slot_map=act_slot_map)(
+                                model, z, y, mask)

@@ -13,9 +13,17 @@ same configuration loads with `load_state_dict(..., strict=True)`:
     `blocks_0` and `blocks_14` (pixart.py:203-242). A container is scanned
     when its `scale_shift_table` has a leading depth axis (3 dims; a
     block's own table is [6, C]); run `blocks_{s}` holds blocks s, s+1, ...;
-  * flax Dense kernels stay [K, N] (the port keeps that layout);
+  * flax Dense kernels stay [K, N] (the port keeps that layout), so the
+    fp heads of DiT, Latte and MMDiT come across by name: each block's
+    `adaLN_linear`, `final_layer.adaLN_linear`, MMDiT's
+    `context_embedder`, `y_embedder_fc1`, `y_embedder`, `final_adaLN`
+    and `final_linear`, and the label table `y_embedder.embedding`;
+    MMDiT's per-stream modules keep their flax names (`img_attn.q`,
+    `img_attn_proj`, `txt_mlp.fc1`), which the port's modules take too
+    (their plan names, `blocks.N.img_attn.proj`, only pick the spec);
   * a patchify conv kernel (`x_embedder.proj`, [pt, ph, pw, C_in, D] or
-    [ph, pw, C_in, D]) becomes the port's patch matrix [pt*ph*pw*C_in, D]
+    [ph, pw, C_in, D]: STDiT, DiT and Latte's 3D, PixArt and MMDiT's 2D)
+    becomes the port's patch matrix [pt*ph*pw*C_in, D]
     (the same flatten order); the depthwise KV-compress conv kernel
     (`attn.sr.kernel`, [r, r, 1, C]) keeps its layout, which
     `DepthwiseQuantConv` uses as it is;
