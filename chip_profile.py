@@ -66,6 +66,19 @@ latent, its N(0, 1) caption embeds), the CLI's with the embeds x 0.1, the
 CLI's with the latent x 0.5 and the embeds x 0.1, and `chip_smoke.py`'s
 STDiT slice's (`slice_inputs`: latent x 0.5, embeds x 0.1, another seed).
 It prints each relative error against fp sampling of the same draw.
+
+    python3 chip_profile.py --slices pixart_alpha
+
+profiles PixArt-α 512 (`configs/workload/pixart_alpha_512.py`: 28 blocks,
+C = 1152, 1024 tokens, 120 caption tokens; the CLI's seeded weights,
+latent and caption draws) through its samplers instead of one forward:
+bf16, and w8a8 (`configs/pixart/w8a8.yaml` on the native backend,
+calibrated by `run_ptq` on the bf16 model's multistep trajectory), each on
+the multistep DPM-Solver++ (the config's), SA-Solver as the CLI builds it
+(eta 0) and SA-Solver with eta 1 (a stochastic step a step: the draws and
+their host work). One whole 20-step run each, after a warm-up run: its
+wall and device ms per step, idle share and groups, the samplers' host
+work (tableaus, the loop's Python) inside the wall.
 """
 
 from __future__ import annotations
@@ -278,7 +291,7 @@ def mp_draws_main() -> int:
         args = cli.build_parser().parse_args(["inference", "--config",
                                               config])
         cfg = workload.load_py_config(config)
-    z = cli._latent(args, cfg, 1)
+    z = cli._latent(args, cfg, 1)[0]
     y, mask = cli._load_embeds(args, cfg, 1)
     draws = {"cli": (z, y, mask), "cli, y x 0.1": (z, y * 0.1, mask),
              "cli, z x 0.5, y x 0.1": (z * 0.5, y * 0.1, mask),
@@ -328,6 +341,91 @@ def mp_draws_main() -> int:
     return 0
 
 
+def profile_sampling(run, steps):
+    """One whole sampling run profiled after a warm-up run: (wall ms,
+    device ms by kernel) per step, the sampler's host work included."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with torch.no_grad():
+        run()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.time()
+            run()
+            torch.cuda.synchronize()
+            wall = (time.time() - t0) * 1e3
+    by_kernel = defaultdict(float)
+    for ev in prof.key_averages():
+        if ev.device_type.name == "CUDA" and ev.self_device_time_total > 0:
+            by_kernel[ev.key] += ev.self_device_time_total / 1e3 / steps
+    return wall / steps, by_kernel
+
+
+def print_groups(label, wall, by_kernel, top=8):
+    device = sum(by_kernel.values())
+    groups = defaultdict(float)
+    for k, ms in by_kernel.items():
+        groups[group_of(k)] += ms
+    print(f"{label}, wall {wall:.1f} ms, device {device:.1f} ms, idle "
+          f"share {max(0.0, 1 - device / wall):.3f}", flush=True)
+    for grp, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
+        print(f"    {ms:9.2f} ms  {grp}")
+    print("  top kernels:")
+    for k, ms in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:top]:
+        print(f"    {ms:9.2f} ms  {k[:110]}")
+
+
+def pixart_alpha_main() -> int:
+    """PixArt-α 512 through its samplers (module docstring)."""
+    import torch
+    import chip_smoke as cs
+    from viditq_tpu_torch import cli
+    from viditq_tpu_torch.kernels import _build
+    from viditq_tpu_torch.pipelines.inference import (fp_sample,
+                                                      get_calib_data,
+                                                      quant_sample)
+    from viditq_tpu_torch.pipelines.ptq import run_ptq
+    from viditq_tpu_torch.quant.native_pack import pack_native_weights
+    from viditq_tpu_torch.samplers import SASolverSampler
+    from viditq_tpu_torch.utils import workload
+    from viditq_tpu_torch.utils.config import load_quant_config
+    print(cs.nvidia_smi_line(), flush=True)
+    _build.lib()
+    config = str(cs.PIXART_WORKLOAD)
+    cfg = workload.load_py_config(config)
+    args = cli.build_parser().parse_args(["inference", "--config", config])
+    y, mask = cli._load_embeds(args, cfg, 1)
+    shape = (1, 4, *workload.latent_size(cfg))
+    z = cli.noise(shape, args.seed, "cuda")
+    plan = load_quant_config(str(cs.PIXART_PLAN)).with_backend("native")
+
+    def seeded(resolver=None):
+        model = workload.build_model(cfg, resolver, device="cuda")
+        return workload.random_init_(model, cli.INIT_SEED, cli.INIT_SCALE)
+    fp_model, q_model = seeded(), seeded(plan.resolver())
+    multistep = workload.build_sampler(cfg)
+    run_ptq(q_model, get_calib_data(fp_model, multistep, z, y, mask), plan)
+    pack_native_weights(q_model)
+    steps = multistep.steps
+    samplers = {"multistep (dpms)": multistep,
+                "sa-solver": workload.build_sampler(
+                    cfg, override_type="sa-solver"),
+                "sa-solver eta 1 (stochastic)": SASolverSampler(
+                    steps, cfg_scale=multistep.cfg_scale, eta=1.0)}
+    for arm, model, sample in (("bf16", fp_model, fp_sample),
+                               ("w8a8", q_model, quant_sample)):
+        for name, sampler in samplers.items():
+            def run(_m=model, _s=sampler, _f=sample):
+                return _f(_m, _s, z, y, mask,
+                          generator=cli.sampler_generator(shape, args.seed,
+                                                          "cuda"))
+            wall, by_kernel = profile_sampling(run, steps)
+            print_groups(f"pixart_alpha {arm} {name}: one step of a "
+                         f"{steps}-step run", wall, by_kernel)
+    return 0
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -341,6 +439,9 @@ def main() -> int:
         return recon_main()
     if "--mp-draws" in args:
         return mp_draws_main()
+    if "--slices" in args and args[args.index("--slices") + 1] == \
+            "pixart_alpha":
+        return pixart_alpha_main()
     import chip_smoke as cs
     from viditq_tpu_torch.kernels import _build
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -385,19 +486,9 @@ def main() -> int:
             qctx = cs.qctx_for(arm, 500, slot_map)
             wall, by_kernel = profile_forward(runner, calls, qctx)
             runner = None
-            device = sum(by_kernel.values())
-            groups = defaultdict(float)
-            for k, ms in by_kernel.items():
-                groups[group_of(k)] += ms
-            print(f"{name} {arm}: one CFG step ({len(calls)} forward"
-                  f"{'s' if len(calls) > 1 else ''}), wall {wall:.1f} ms, "
-                  f"device {device:.1f} ms, idle share "
-                  f"{max(0.0, 1 - device / wall):.3f}", flush=True)
-            for grp, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
-                print(f"    {ms:9.2f} ms  {grp}")
-            print("  top kernels:")
-            for k, ms in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]:
-                print(f"    {ms:9.2f} ms  {k[:110]}")
+            print_groups(f"{name} {arm}: one CFG step ({len(calls)} forward"
+                         f"{'s' if len(calls) > 1 else ''})", wall,
+                         by_kernel)
         model = None
         torch.cuda.empty_cache()
     return 0

@@ -189,14 +189,32 @@ Phases (any failure exits non-zero):
      iterations x 28 blocks; then `quant-generate` from its checkpoint on
      the simulate and the native backend and the plan with nearest
      rounding, each against the fp samples, native against simulate
-     within `RECON_BACKEND_REL`.
+     within `RECON_BACKEND_REL`;
+  10. samplers (run between phases recon and recon_sigma; its STDiT part
+     inside phase cli, after the sm8 commands, on their weights and
+     checkpoint): `inference` and `quant-generate --sampler_type iddpm`
+     (IDDPM's ancestral loop, learned-range variance) on STDiT-XL/2
+     16x512x512 at 20 steps, sm8 launches as DDIM's, within
+     `SLICE_REL_ERR` of bf16 and further than `SAMPLER_DIFF` from the DDIM
+     sample; then PixArt-α 512 at full width (`PIXART_WORKLOAD`: 28
+     blocks, C = 1152, 1024 tokens, 120 caption tokens; the CLI's seeded
+     weights): `get-calib-data` (the config's multistep DPM-Solver++) and
+     `ptq` under `configs/pixart/w8a8.yaml` on the native backend, then
+     `inference` and `quant-generate` with --sampler_type dpms, sa-solver,
+     lcm, edm and a copy of the config whose DPM-Solver is singlestep of
+     order 3 with thresholding and denoise_to_zero, each at 20 steps: K3
+     launched exactly `SAMPLER_FORWARDS` forwards' worth, ms/step and ms
+     a forward, w8a8 within `SLICE_REL_ERR` of bf16, each bf16 sample
+     further than `SAMPLER_DIFF` from the multistep one; then each new
+     loop shape on the tiny sm8 STDiT, card against CPU, nonzero and
+     within `TINY_REL_ERR`.
 Each arm and each CLI command resets the launch counts just before its run
 and reads them just after; one that launches a kernel outside its list,
 or none of one in it, fails; the arms held to per-block counts
 (`BLOCK_LAUNCHES`) must hit them exactly. The third-to-last line is the
 card's name and power limit, the second-to-last a JSON object with one
 entry per kernel (launches summed over all arms of both slices and the
-CLI's, recon's and recon_sigma's commands), the last {"ok": true,
+CLI's, recon's, samplers' and recon_sigma's commands), the last {"ok": true,
 "device": {...}}.
 """
 
@@ -3298,8 +3316,41 @@ CLI_KERNELS = {"inference": "bf16", "get-calib-data": "bf16",
                    "dynamic_quant_rows", "int8_matmul", "attention_bnhd",
                    "attention_bnhd_stream"),
                "quant-generate nearest sigma": ("attention_bnhd",
-                                                "attention_bnhd_stream")}
+                                                "attention_bnhd_stream"),
+               # phase samplers: STDiT's ancestral loop in phase cli's
+               # directory; PixArt-α 512 (1024 tokens: K3 alone in bf16)
+               # under `configs/pixart/w8a8.yaml` on the native backend
+               # (K7a -> K7b), each sampler's inference and quant-generate
+               "inference iddpm": "bf16",
+               "quant-generate sm8 iddpm": "sm8",
+               "get-calib-data pixart": ("attention_bnhd",),
+               "ptq pixart": ("attention_bnhd",),
+               **{f"{cmd} pixart {name}": kernels
+                  for name in ("dpms", "sa-solver", "lcm", "edm",
+                               "singlestep")
+                  for cmd, kernels in (
+                      ("inference", ("attention_bnhd",)),
+                      ("quant-generate", ("dynamic_quant_rows",
+                                          "int8_matmul",
+                                          "attention_bnhd")))}}
 CLI_SAME_REL = 1e-3  # CLI samples against the in-process path
+# phase samplers: PixArt-α 512 (`configs/workload/pixart_alpha_512.py`:
+# PixArt-XL/2, 28 blocks, C = 1152, 1024 tokens, 120 caption tokens;
+# DPM-Solver++ multistep, 20 steps, CFG 4.5) and its W8A8 plan on the native
+# backend, calibrated on PIXART_CALIB_SAMPLES samples
+PIXART_WORKLOAD = ROOT / "configs/workload/pixart_alpha_512.py"
+PIXART_PLAN = ROOT / "configs/pixart/w8a8.yaml"
+PIXART_DEPTH = 28
+PIXART_CALIB_SAMPLES = 2
+# each sampler's model evaluations in its 20 steps (a CFG forward at batch
+# 2 each; LCM's the cond prompt's alone): multistep and SA-Solver
+# (few_steps, PEC) one a step; EDM's Heun two a step but the last;
+# singlestep order 3 one an order (20) and denoise_to_zero's one
+SAMPLER_FORWARDS = {"dpms": 20, "sa-solver": 20, "lcm": 20, "edm": 39,
+                    "singlestep": 21}
+# a sampler's bf16 sample must sit further than this from the DDIM (STDiT)
+# or multistep (PixArt-α) one of the same seed: no quiet fallback
+SAMPLER_DIFF = 1e-2
 # phase recon: AdaRound (`w4a8_adaround.yaml`) through `ptq` at full width,
 # its iterations cut from the plan's 2000 a block to RECON_ITERS (a copy of
 # the YAML in the phase's temporary directory); layer granularity and the
@@ -3535,6 +3586,7 @@ def phase_cli():
             fail(f"cli sm8 samples differ from the in-process path: {same}")
         if not (r_sm8 <= SLICE_REL_ERR):
             fail(f"cli sm8 vs inference relative error {r_sm8}")
+        samplers_stdit(tmp, common, sm8, qck, fp, want, counts)
         # 4. naive: static tables from the CLI's own calib data; the file
         # loaded into a fresh model against an in-process run_ptq
         naive = ["--ptq_config", str(NAIVE_PLAN)]
@@ -3684,6 +3736,160 @@ def phase_cli():
               flush=True)
         print(f"phase cli: {time.time() - t_phase:.1f} s", flush=True)
         phase_recon(tmp, config, str(params), calib, fp, counts)
+    return counts
+
+
+def samplers_stdit(tmp: Path, common, sm8, qck, fp, sm8_launches, counts):
+    """Phase samplers on STDiT-XL/2 16x512x512 (in phase cli's directory,
+    on its weights and sm8 checkpoint, module header, phase 10):
+    `inference` and `quant-generate` with `--sampler_type iddpm`, IDDPM's
+    ancestral loop over the same 20 steps; the sm8 launches as DDIM's."""
+    import torch
+    t0 = time.time()
+    anc = ["--sampler_type", "iddpm"]
+    out, _ = run_cli("inference iddpm", ["inference", "--save_dir",
+                                         str(tmp / "fp_iddpm"), *common,
+                                         *anc], counts)
+    fp_anc = torch.from_numpy(np.load(out["out"])["samples"]).float()
+    ms_fp = out["sample_seconds"] * 1e3 / CLI_STEPS
+    out, launched = run_cli(
+        "quant-generate sm8 iddpm", ["quant-generate", "--save_dir",
+                                     str(tmp / "sm8_iddpm"), "--quant_ckpt",
+                                     qck, *common, *sm8, *anc], counts)
+    q_anc = torch.from_numpy(np.load(out["out"])["samples"]).float()
+    ms_q = out["sample_seconds"] * 1e3 / CLI_STEPS
+    if launched != sm8_launches:
+        fail(f"samplers iddpm sm8: launches {launched} != {sm8_launches}")
+    r = float((q_anc - fp_anc).norm() / fp_anc.norm())
+    d = float((fp_anc - fp).norm() / fp.norm())
+    print(f"phase samplers: STDiT-XL/2 16x512x512 ancestral (iddpm, "
+          f"{CLI_STEPS} steps): bf16 {ms_fp:.1f} ms/step, sm8 {ms_q:.1f} "
+          f"ms/step; sm8 vs bf16 rel err {r:.4g} (limit {SLICE_REL_ERR}); "
+          f"bf16 ancestral vs bf16 DDIM rel {d:.4g} (must exceed "
+          f"{SAMPLER_DIFF}); {time.time() - t0:.1f} s", flush=True)
+    if not r <= SLICE_REL_ERR:
+        fail(f"samplers iddpm sm8 vs bf16 relative error {r}")
+    if not d > SAMPLER_DIFF:
+        fail(f"samplers iddpm: the ancestral sample is DDIM's ({d})")
+
+
+def pixart_workloads(tmp: Path):
+    """(the PixArt-α 512 config, a copy of it whose DPM-Solver is
+    singlestep of order 3 with dynamic thresholding and denoise_to_zero),
+    both in tmp."""
+    from viditq_tpu_torch.utils import workload
+    src = PIXART_WORKLOAD.read_text()
+    old = 'type="dpm-solver",'
+    if old not in src:
+        fail(f"{PIXART_WORKLOAD}: no '{old}' to change")
+    cfg = workload.load_py_config(str(PIXART_WORKLOAD))
+    if (cfg["scheduler"]["num_sampling_steps"] != CLI_STEPS
+            or cfg["model"]["type"] != "PixArt-XL/2"):
+        fail(f"{PIXART_WORKLOAD}: not PixArt-XL/2 at {CLI_STEPS} steps")
+    single = tmp / "pixart_alpha_512_singlestep.py"
+    single.write_text(src.replace(old, old + (
+        '\n    method="singlestep",\n    order=3,\n    thresholding=True,'
+        '\n    denoise_to_zero=True,')))
+    return str(PIXART_WORKLOAD), str(single)
+
+
+def phase_samplers():
+    """Phase samplers on PixArt-α 512 at full width through the CLI, and
+    the tiny models card against CPU (module header, phase 10). Returns
+    each kernel's launches summed over the commands."""
+    import copy
+    import tempfile
+
+    import torch
+    from viditq_tpu_torch.pipelines.inference import quant_sample
+    from viditq_tpu_torch.samplers import (IDDPM, DPMSolverSampler,
+                                           EDMSampler, LCMScheduler,
+                                           SASolverSampler)
+    from viditq_tpu_torch.utils.workload import latent_size
+
+    counts = {}
+    t_phase = time.time()
+    with tempfile.TemporaryDirectory(prefix="viditq_samplers_") as tmpd:
+        tmp = Path(tmpd)
+        config, single = pixart_workloads(tmp)
+        out, _ = run_cli("get-calib-data pixart", [
+            "get-calib-data", "--save_dir", str(tmp / "cal"), "--config",
+            config, "--num_samples", str(PIXART_CALIB_SAMPLES)], counts)
+        plan = ["--ptq_config", str(PIXART_PLAN), "--backend", "native"]
+        out, _ = run_cli("ptq pixart", [
+            "ptq", "--save_dir", str(tmp / "ptq"), "--calib_data",
+            out["out"], "--config", config, *plan], counts)
+        qck = out["out"]
+        multistep = None
+        for name, cfg_path, st in (("dpms", config, "dpms"),
+                                   ("sa-solver", config, "sa-solver"),
+                                   ("lcm", config, "lcm"),
+                                   ("edm", config, "edm"),
+                                   ("singlestep", single, "dpms")):
+            common = ["--config", cfg_path, "--num_samples", "1",
+                      "--sampler_type", st]
+            runs = {}
+            for arm, cmd, extra in (
+                    ("bf16", "inference", []),
+                    ("w8a8", "quant-generate", ["--quant_ckpt", qck, *plan])):
+                out, launched = run_cli(f"{cmd} pixart {name}", [
+                    cmd, "--save_dir", str(tmp / f"{arm}_{name}"), *common,
+                    *extra], counts)
+                want = SAMPLER_FORWARDS[name] * 2 * PIXART_DEPTH
+                if launched["attention_bnhd"] != want:
+                    fail(f"samplers pixart {name} {arm}: "
+                         f"{launched['attention_bnhd']} K3 launches, want "
+                         f"{want} ({SAMPLER_FORWARDS[name]} forwards)")
+                runs[arm] = (torch.from_numpy(
+                    np.load(out["out"])["samples"]).float(),
+                    out["sample_seconds"] * 1e3 / out["steps"])
+            (fp, ms_fp), (q, ms_q) = runs["bf16"], runs["w8a8"]
+            multistep = fp if multistep is None else multistep
+            r = float((q - fp).norm() / fp.norm())
+            d = float((fp - multistep).norm() / multistep.norm())
+            per_fwd = CLI_STEPS / SAMPLER_FORWARDS[name]
+            print(f"phase samplers: PixArt-α 512 {name} ({CLI_STEPS} steps, "
+                  f"{SAMPLER_FORWARDS[name]} forwards): bf16 {ms_fp:.1f} "
+                  f"ms/step ({ms_fp * per_fwd:.1f} ms a forward), w8a8 "
+                  f"{ms_q:.1f} ms/step ({ms_q * per_fwd:.1f}); w8a8 vs bf16 "
+                  f"rel err {r:.4g} (limit {SLICE_REL_ERR}); bf16 vs "
+                  f"multistep rel {d:.4g}"
+                  + ("" if name == "dpms" else
+                     f" (must exceed {SAMPLER_DIFF})"), flush=True)
+            if not r <= SLICE_REL_ERR:
+                fail(f"samplers pixart {name}: w8a8 vs bf16 rel err {r}")
+            if name != "dpms" and not d > SAMPLER_DIFF:
+                fail(f"samplers pixart {name}: the multistep sample ({d})")
+    # each new loop shape on the tiny STDiT (sm8), card against CPU; the
+    # latent in float32, the draws from one CPU generator for both runs.
+    # EDM's last step and denoise_to_zero return the denoiser's CFG mix
+    # itself, where the scale multiplies the kernels' rounding (at s = 4:
+    # EDM 0.0963, singlestep 0.0264 in an exploratory chip run, the
+    # forward 0.00268): those two run unguided, s = 1
+    cfg = TINY_STDIT_CFG
+    x, t, y, mask = tiny_inputs(cfg)
+    cpu = build_model(cfg, "cpu", scale=0.1, plan=SM8_PLAN)
+    models = {"cpu": cpu, "cuda": copy.deepcopy(cpu).to("cuda")}
+    check_k_major(models["cuda"])
+    for name, sampler, st in (
+            ("ancestral (iddpm)", IDDPM(3), "iddpm"),
+            ("DPM-Solver singlestep order 3, thresholding, denoise_to_zero"
+             ", CFG 1", DPMSolverSampler(3, cfg_scale=1.0,
+                                         method="singlestep", order=3,
+                                         thresholding=True,
+                                         denoise_to_zero=True), "ddim"),
+            ("SA-Solver (eta 1)", SASolverSampler(3, eta=1.0), "ddim"),
+            ("LCM", LCMScheduler(3), "ddim"),
+            ("EDM, CFG 1", EDMSampler(3, cfg_scale=1.0), "ddim")):
+        def sample(dev, z, yy, m, _s=sampler, _st=st):
+            return quant_sample(models[dev], _s, z.float(), yy, m,
+                                sampler_type=_st,
+                                generator=torch.Generator().manual_seed(0))
+        rels = tiny_pair(x, t, y, mask, cpu, models["cuda"], sample)
+        tiny_verdict(f"sm8 STDiT, {name}", latent_size(cfg), 3, *rels)
+        if not all(r > 0 for r in rels):
+            fail(f"tiny {name}: a card-vs-CPU reading is 0: {rels}")
+    print(f"phase samplers: {time.time() - t_phase:.1f} s", flush=True)
     return counts
 
 
@@ -3978,6 +4184,8 @@ def main() -> int:
         for k, n in run_slice(name, cfg, 0.5, n_prompt).items():
             launches[k] += n
     for k, n in phase_cli().items():
+        launches[k] += n
+    for k, n in phase_samplers().items():
         launches[k] += n
     for k, n in phase_recon_sigma().items():
         launches[k] += n

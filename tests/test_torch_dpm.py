@@ -72,5 +72,27 @@ def test_sampler_lower_order_final_auto_follows_step_count():
                                 dict(denoise_to_zero=True),
                                 dict(model_type="v")])
 def test_unported_sampler_options_raise(kw):
-    with pytest.raises(NotImplementedError):
-        pdpm.DPMSolverSampler(**kw)
+    # these options raised NotImplementedError until they were ported: each
+    # now samples a toy CFG model as the JAX sampler does (to 1e-5; every
+    # option's grid: tests/test_torch_samplers.py); the values JAX rejects
+    # still raise
+    def toy_j(x, t, y, mask, qctx):
+        return 0.3 * x + 0.05 * (t / 1000.0).reshape(-1, 1, 1, 1) \
+            + 0.1 * y.mean(axis=(1, 2, 3)).reshape(-1, 1, 1, 1)
+
+    def toy_p(x, t, y, mask, qctx):
+        return 0.3 * x + 0.05 * (t / 1000.0).reshape(-1, 1, 1, 1) \
+            + 0.1 * y.mean(dim=(1, 2, 3)).reshape(-1, 1, 1, 1)
+    rng = np.random.default_rng(1)
+    z = rng.standard_normal((1, 4, 8, 8)).astype(np.float32)
+    y = rng.standard_normal((2, 1, 3, 5)).astype(np.float32)
+    kw = dict(num_sampling_steps=8, **kw)
+    want = np.asarray(jdpm.DPMSolverSampler(**kw).sample(
+        toy_j, jnp.asarray(z), jnp.asarray(y)), np.float64)
+    got = pdpm.DPMSolverSampler(**kw).sample(toy_p, torch.from_numpy(z),
+                                             torch.from_numpy(y))
+    err = np.linalg.norm(got.numpy() - want) / np.linalg.norm(want)
+    assert err < 1e-5, err
+    for bad in (dict(method="bogus"), dict(model_type="bogus")):
+        with pytest.raises(ValueError):
+            pdpm.DPMSolverSampler(**bad)

@@ -30,6 +30,15 @@ cpu` is given; without CUDA the model build raises. Without
 `utils/workload.random_init_`), not the JAX package's flax init, so such
 runs do not match the JAX CLI's.
 
+`--sampler_type` picks the loop (JAX cli.py:60-62, the reference's
+`quant_txt2img.py:138-182`): 'ddim' and 'iddpm' (the ancestral loop) keep
+the config's scheduler, 'dpms'/'dpm-solver', 'sa-solver', 'lcm' and 'edm'
+replace a scheduler of another type (`utils/workload.build_sampler`);
+`inference`, `get-calib-data`, `quant-generate` and `get-sensitivity`
+sample by it (mixed precision and the block-group sensitivity stay on
+DDIM, as in JAX). The stochastic samplers draw from `sampler_generator`:
+--seed on --device, after the latent.
+
 `ptq` on a plan that asks for reconstruction (`quant.weight.optimization`
 with AdaRound rounding, `configs/opensora/w4a8_adaround.yaml`) runs it after
 the calibration, as the JAX CLI does (cli.py:240-268): block granularity
@@ -103,6 +112,17 @@ def noise(shape, seed: int, device: str):
                        dtype=torch.float32)
 
 
+def sampler_generator(shape, seed: int, device: str):
+    """The stochastic samplers' generator (the ancestral loop, SA-Solver
+    with tau > 0, LCM): seeded with seed on the device and advanced past
+    the latent's draw (`noise` of shape), so one seed gives the latent and
+    then the sampler's draws as one stream."""
+    import torch
+    g = torch.Generator(device=device).manual_seed(seed)
+    torch.randn(shape, generator=g, device=device, dtype=torch.float32)
+    return g
+
+
 def _plan(args):
     from viditq_tpu_torch.utils.config import load_quant_config
     plan = load_quant_config(
@@ -164,7 +184,10 @@ def _load_embeds(args, cfg, n_default=2):
 
 
 def _latent(args, cfg, n):
-    return noise((n, 4, *workload.latent_size(cfg)), args.seed, args.device)
+    """(z, the samplers' generator) of n samples from --seed."""
+    shape = (n, 4, *workload.latent_size(cfg))
+    return (noise(shape, args.seed, args.device),
+            sampler_generator(shape, args.seed, args.device))
 
 
 def _np(t) -> np.ndarray:
@@ -210,9 +233,10 @@ def cmd_inference(args):
     cfg, _, _, model, sampler = _setup(args)
     n = args.num_samples
     y, mask = _load_embeds(args, cfg, n)
-    z = _latent(args, cfg, n)
-    samples, secs = _timed(lambda: inf.fp_sample(model, sampler, z, y, mask),
-                           args.device)
+    z, gen = _latent(args, cfg, n)
+    samples, secs = _timed(lambda: inf.fp_sample(
+        model, sampler, z, y, mask, sampler_type=args.sampler_type,
+        generator=gen), args.device)
     return _save_samples(args, "fp_samples.npz", samples, secs,
                          _steps(sampler))
 
@@ -222,8 +246,10 @@ def cmd_get_calib_data(args):
     cfg, _, _, model, sampler = _setup(args)
     n = args.num_samples
     y, mask = _load_embeds(args, cfg, n)
-    z = _latent(args, cfg, n)
-    calib = inf.get_calib_data(model, sampler, z, y, mask)
+    z, gen = _latent(args, cfg, n)
+    calib = inf.get_calib_data(model, sampler, z, y, mask,
+                               sampler_type=args.sampler_type,
+                               generator=gen)
     os.makedirs(args.save_dir, exist_ok=True)
     out = os.path.join(args.save_dir, "calib_data.npz")
     np.savez(out, xs=_np(calib["xs"]), ts=_np(calib["ts"]),
@@ -332,7 +358,7 @@ def cmd_quant_generate(args, mp: bool = False):
     cfg, plan, _, model, sampler = _setup(args, quant=True)
     n = args.num_samples
     y, mask = _load_embeds(args, cfg, n)
-    z = _latent(args, cfg, n)
+    z, gen = _latent(args, cfg, n)
     act_slot_map = prepare_quant_model(model, plan, args.quant_ckpt)
     if mp:
         from viditq_tpu_torch.pipelines.mixed_precision import (
@@ -347,8 +373,8 @@ def cmd_quant_generate(args, mp: bool = False):
         samples, secs = _timed(lambda: run(model, z, y, mask), args.device)
     else:
         samples, secs = _timed(lambda: inf.quant_sample(
-            model, sampler, z, y, mask, act_slot_map=act_slot_map),
-            args.device)
+            model, sampler, z, y, mask, act_slot_map=act_slot_map,
+            sampler_type=args.sampler_type, generator=gen), args.device)
     logger.info("sampled in %.3f s", secs)
     return _save_samples(args, "quant_samples.npz", samples, secs,
                          _steps(sampler))
@@ -374,6 +400,7 @@ def cmd_get_sensitivity(args):
     generation; every model built takes the first one's parameters."""
     import torch
     from viditq_tpu_torch.pipelines import analysis
+    from viditq_tpu_torch.pipelines.inference import quant_sample
     from viditq_tpu_torch.quant.calibrate import calibrate_weight_tables
     from viditq_tpu_torch.quant.native_pack import pack_native_weights
     from viditq_tpu_torch.samplers.iddpm import default_qctx_factory
@@ -382,7 +409,7 @@ def cmd_get_sensitivity(args):
     metric_fn = metric_fns[metric_names[0]]
     cfg, plan, _, model, sampler = _setup(args, quant=True)
     y, mask = _load_embeds(args, cfg, 1)
-    z = _latent(args, cfg, 1)
+    z = _latent(args, cfg, 1)[0]
     base = plan.default_layer
     params = {k: v.detach() for k, v in model.named_parameters()}
     del model
@@ -398,8 +425,11 @@ def cmd_get_sensitivity(args):
         return m
 
     def run_with_resolver(resolver):
-        return sampler.sample(build(resolver), z, y, mask,
-                              qctx_factory=qctx_factory)
+        # every target's run from the same draws (JAX cli.py:432)
+        return quant_sample(build(resolver), sampler, z, y, mask,
+                            sampler_type=args.sampler_type,
+                            generator=sampler_generator(
+                                z.shape, args.seed, args.device))
 
     groups = (args.targets.split(",") if args.targets
               else list(analysis.QUANT_GROUPS))
@@ -449,7 +479,7 @@ def _probe(args):
     import torch
     cfg, _, resolver, model, _ = _setup(args, quant=True)
     y, mask = _load_embeds(args, cfg, 1)
-    z = _latent(args, cfg, 1)
+    z = _latent(args, cfg, 1)[0]
     t0 = torch.full((1,), 500.0, device=args.device)
     return model, resolver, (z, t0, y[:1], mask)
 

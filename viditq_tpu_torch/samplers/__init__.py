@@ -1,9 +1,22 @@
-"""Samplers: the DDIM loop with the IDDPM CFG wrapper and multistep
-DPM-Solver, registered by the JAX package's scheduler names."""
+"""Samplers, registered by the JAX package's scheduler names: the IDDPM
+wrapper (DDIM and the ancestral loop), the DPM-Solver family, SA-Solver,
+LCM and EDM (port of `viditq_tpu/samplers/__init__.py`; the training
+losses of `diffusion_losses.py` are not ported)."""
 
 from viditq_tpu_torch.models.registry import SCHEDULERS, register
-from viditq_tpu_torch.samplers.dpm_solver import DPMSolverSampler
-from viditq_tpu_torch.samplers.iddpm import IDDPM
+from viditq_tpu_torch.samplers.dpm_solver import (  # noqa: F401
+    DPMSolver, DPMSolverSampler, NoiseScheduleVP, dpm_solver_pp_2m)
+from viditq_tpu_torch.samplers.extra_solvers import (  # noqa: F401
+    EDMSampler, LCMScheduler, SASolverSampler)
+from viditq_tpu_torch.samplers.gaussian_diffusion import (  # noqa: F401
+    Schedule, ddim_sample_loop, get_named_beta_schedule, make_schedule,
+    p_sample_loop, space_timesteps)
+from viditq_tpu_torch.samplers.iddpm import (  # noqa: F401
+    IDDPM, default_qctx_factory)
+from viditq_tpu_torch.samplers.sa_solver import SASolver  # noqa: F401
 
 register(SCHEDULERS, "iddpm")(IDDPM)
 register(SCHEDULERS, "dpm-solver")(DPMSolverSampler)
+register(SCHEDULERS, "sa-solver")(SASolverSampler)
+register(SCHEDULERS, "lcm")(LCMScheduler)
+register(SCHEDULERS, "edm")(EDMSampler)

@@ -1,5 +1,6 @@
 """IDDPM scheduler wrapper with classifier-free guidance (port of
-`viditq_tpu/samplers/iddpm.py`, DDIM sampling).
+`viditq_tpu/samplers/iddpm.py`): DDIM, or the ancestral loop with the
+learned-range variance (`sampler_type="iddpm"`, OpenSora's own).
 
 The CFG batch layout is the reference's: z is doubled, y is [cond; null]
 along the batch, and eps is mixed as uncond + s * (cond - uncond).
@@ -83,20 +84,35 @@ class IDDPM:
 
     def sample(self, model_apply: ModelApply, z: torch.Tensor,
                y: torch.Tensor, mask: Optional[torch.Tensor] = None,
+               sampler_type: str = "ddim",
+               generator: Optional[torch.Generator] = None,
                qctx_factory: Optional[QctxFactory] = None,
                step_indices: Optional[Sequence[int]] = None,
-               return_trajectory: bool = False):
-        """DDIM with CFG. z: [n, C, ...] (pre-CFG); y: [2n, 1, L, C_cap] =
-        [cond; null]; mask: [n, L] or [2n, L]. Returns the cond half of the
-        final sample, and with return_trajectory the CFG-doubled {xs, ts}
-        of every step (iddpm.py:86-111). step_indices: run only these
-        (descending) spaced steps."""
+               return_trajectory: bool = False,
+               noise_fn: Optional[gd.NoiseFn] = None):
+        """CFG sampling by DDIM ('ddim') or the ancestral loop ('iddpm',
+        its draws from generator or noise_fn). z: [n, C, ...] (pre-CFG);
+        y: [2n, 1, L, C_cap] = [cond; null]; mask: [n, L] or [2n, L].
+        Returns the cond half of the final sample, and with
+        return_trajectory the CFG-doubled {xs, ts} of every step
+        (iddpm.py:86-111). step_indices: run only these (descending)
+        spaced steps of DDIM."""
         z2 = torch.cat([z, z], dim=0)
         model_fn = self.make_cfg_model_fn(model_apply, y, mask, qctx_factory)
-        out = gd.ddim_sample_loop(model_fn, z2, self.schedule,
-                                  in_channels=self.in_channels,
-                                  step_indices=step_indices,
-                                  capture_trajectory=return_trajectory)
+        if sampler_type == "ddim":
+            out = gd.ddim_sample_loop(model_fn, z2, self.schedule,
+                                      in_channels=self.in_channels,
+                                      step_indices=step_indices,
+                                      capture_trajectory=return_trajectory)
+        elif sampler_type == "iddpm":
+            if step_indices is not None:
+                raise ValueError("step_indices runs a range of DDIM only")
+            out = gd.p_sample_loop(model_fn, z2, self.schedule, generator,
+                                   in_channels=self.in_channels,
+                                   capture_trajectory=return_trajectory,
+                                   noise_fn=noise_fn)
+        else:
+            raise ValueError(f"unknown sampler_type {sampler_type!r}")
         if return_trajectory:
             return torch.chunk(out[0], 2, dim=0)[0], out[1]
         return torch.chunk(out, 2, dim=0)[0]

@@ -6,10 +6,9 @@ A workload config is a python file exec'd into a plain dict
 `image_size` or `num_frames`, `dtype`), as in the JAX package.
 `build_model` puts the model on the card unless the caller passes
 `device="cpu"`; without CUDA it raises rather than fall back to the CPU.
-`build_sampler` takes the CLI's `--sampler_type` aliases; the samplers
-the port lacks raise. `random_init_` is the port's seeded parameter
-draw (the JAX CLI's flax init has no counterpart here). The VAE is not
-ported.
+`build_sampler` takes the CLI's `--sampler_type` choices. `random_init_`
+is the port's seeded parameter draw (the JAX CLI's flax init has no
+counterpart here). The VAE is not ported.
 """
 
 from __future__ import annotations
@@ -87,9 +86,8 @@ def random_init_(model, seed: int = 0, scale: float = 0.02):
     return model
 
 
-# --sampler_type (reference t2i quant_txt2img.py:138-182): 'ddim' keeps
-# the config's scheduler (the IDDPM wrapper samples DDIM); these names
-# replace it
+# --sampler_type (reference t2i quant_txt2img.py:138-182): 'ddim' and
+# 'iddpm' keep the config's scheduler; these names replace it
 SAMPLER_ALIASES = {"dpms": "dpm-solver", "dpm-solver": "dpm-solver",
                    "sa-solver": "sa-solver", "lcm": "lcm", "edm": "edm"}
 SAMPLER_TYPES = ("ddim", "iddpm", "dpms", "dpm-solver", "sa-solver", "lcm",
@@ -98,12 +96,13 @@ SAMPLER_TYPES = ("ddim", "iddpm", "dpms", "dpm-solver", "sa-solver", "lcm",
 
 def build_sampler(cfg: Dict[str, Any], cfg_split: bool = False,
                   override_type: Optional[str] = None):
-    """The config's scheduler ('iddpm', sampled by DDIM, or 'dpm-solver'),
-    CFG 4.0 unless the config sets it. override_type: the CLI's
-    `--sampler_type` (JAX workload.py:66-90): a solver name replaces the
-    scheduler, keeping its step count, scale and channels. The samplers
-    the port lacks raise NotImplementedError: the IDDPM's ancestral loop
-    ('iddpm', ROADMAP D6) and SA-Solver, LCM and EDM (queue item 7)."""
+    """The config's scheduler, CFG 4.0 unless the config sets it.
+    override_type: the CLI's `--sampler_type` (JAX workload.py:70-95):
+    'ddim' and 'iddpm' keep the config's scheduler (the IDDPM wrapper
+    samples by either loop, the name going to its `sample`); a solver name
+    replaces a scheduler of another type, keeping its step count, scale
+    and channels. `cfg_split` reaches the IDDPM and DPM-Solver samplers
+    only: SA-Solver, LCM and EDM take none."""
     scfg = dict(cfg.get("scheduler", {"type": "iddpm"}))
     scfg.setdefault("cfg_scale", 4.0)
     if override_type is not None and override_type not in SAMPLER_TYPES:
@@ -114,13 +113,6 @@ def build_sampler(cfg: Dict[str, Any], cfg_split: bool = False,
                 **{k: scfg[k] for k in
                    ("num_sampling_steps", "cfg_scale", "in_channels")
                    if k in scfg}}
-    kind = scfg.get("type", "iddpm")
-    if kind in ("sa-solver", "lcm", "edm"):
-        raise NotImplementedError(
-            f"sampler {kind!r} is not ported (ROADMAP queue item 7)")
-    if override_type == "iddpm" and kind == "iddpm":
-        raise NotImplementedError(
-            "the IDDPM ancestral sampling loop is not ported (ROADMAP D6); "
-            "--sampler_type ddim samples the same scheduler by DDIM")
-    scfg["cfg_split"] = cfg_split
+    if scfg.get("type", "iddpm") in ("iddpm", "dpm-solver"):
+        scfg["cfg_split"] = cfg_split
     return build_module(scfg, SCHEDULERS)
