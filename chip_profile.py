@@ -53,6 +53,19 @@ plain f32 attention's recompute, timed as a profiler range around
 rest. --package-root imports `viditq_tpu_torch` from DIR (an unpacked
 parent commit, say) so two versions are profiled by the same script.
 
+    python3 chip_profile.py --train
+
+profiles one training step instead (`chip_smoke.py` phase train's
+`train` command, in process): STDiT-XL/2 16x512x512 with gradient
+checkpointing, random weights (normal x 0.02, seed 0), a synthetic batch
+of 2, `make_train_step` with AdamW and clipping at 1.0; one step warmed up
+and one profiled. It prints the step's wall ms, its device ms, the idle
+share and the device ms by group: the forward and the blocks' recompute
+(each without K3), K3 (both), the plain attention backward (JAX's
+custom_vjp recompute, a profiler range around `_AttentionVJP.backward`),
+the rest of the backward, AdamW with clipping, and the EMA (the step's
+phases timed by CUDA events between them).
+
     python3 chip_profile.py --mp-draws
 
 measures, instead of time, how far `quant-generate-mp`'s samples lie from
@@ -269,6 +282,144 @@ def recon_main() -> int:
     return 0
 
 
+def train_main() -> int:
+    """One checkpointed STDiT-XL/2 train step by group (module
+    docstring). The step's phases (forward, backward, AdamW with clipping,
+    EMA) are timed by CUDA events recorded on the stream between them;
+    inside the backward the profiler splits out the blocks' recompute and
+    the plain attention backward by their ranges, K3 by its kernels'
+    names."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+    import chip_smoke as cs
+    from viditq_tpu_torch.kernels import _build, _counters
+    from viditq_tpu_torch.kernels import attention as A
+    from viditq_tpu_torch.models import stdit
+    from viditq_tpu_torch.parallel import training as tr
+    from viditq_tpu_torch.pipelines.train import synthetic_batch
+    from viditq_tpu_torch.samplers.gaussian_diffusion import make_schedule
+    from viditq_tpu_torch.utils import workload
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(cs.nvidia_smi_line(), flush=True)
+    _build.lib()
+    recompute, attn_bwd = "block recompute", \
+        "attention backward (plain recompute)"
+    phase, marks = ["fwd"], {}
+
+    def mark(name):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks[name] = ev
+
+    def model_forward(fn):
+        def run(*a, **k):
+            mark("start")
+            out = fn(*a, **k)
+            mark("forward")
+            phase[0] = "bwd"  # what runs blocks next is the recompute
+            return out
+        return run
+
+    def block_forward(fn):
+        def run(*a, **k):
+            if phase[0] == "fwd":
+                return fn(*a, **k)
+            with record_function(recompute):
+                return fn(*a, **k)
+        return run
+
+    def optimizer_step(fn):
+        def run(*a, **k):
+            mark("backward")
+            out = fn(*a, **k)
+            mark("optimizer")
+            return out
+        return run
+
+    def ema_update(fn):
+        def run(*a, **k):
+            out = fn(*a, **k)
+            mark("ema")
+            return out
+        return run
+
+    def ranged(fn, label):
+        def run(*a, **k):
+            with record_function(label):
+                return fn(*a, **k)
+        return run
+    A._AttentionVJP.backward = staticmethod(
+        ranged(A._AttentionVJP.backward, attn_bwd))
+    tr.Optimizer.step = optimizer_step(tr.Optimizer.step)
+    tr.update_ema = ema_update(tr.update_ema)
+    stdit.STDiT.forward = model_forward(stdit.STDiT.forward)
+    stdit.STDiTBlock.forward = block_forward(stdit.STDiTBlock.forward)
+    cfg = dict(cs.STDIT_CFG, model=dict(cs.STDIT_CFG["model"],
+                                        grad_checkpoint=True))
+    model = workload.build_model(cfg, device="cuda")
+    workload.random_init_(model, 0, 0.02)
+    sched = make_schedule(timestep_respacing=[1000])
+    batch = synthetic_batch(0, 0, 2, (4, *workload.latent_size(cfg)),
+                            (1, 120, 4096), sched.n_steps, "cuda")
+    params = tr.trainable(model)
+    opt = tr.make_optimizer(lr=1e-4, grad_clip=1.0)
+    state, ema = opt.init(params), tr.init_ema(params)
+    step = tr.make_train_step(model, sched, opt)
+    gen = torch.Generator("cuda").manual_seed(1)
+    step(ema, state, batch, gen)
+    torch.cuda.synchronize()
+    phase[0] = "fwd"
+    _counters.reset()
+    torch.cuda.reset_peak_memory_stats()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        step(ema, state, batch, gen)
+        torch.cuda.synchronize()
+        wall = (time.time() - t0) * 1e3
+    k3 = _counters.snapshot()["attention_bnhd"]["launches"]
+    order = ("start", "forward", "backward", "optimizer", "ema")
+    span = {b: marks[a].elapsed_time(marks[b])
+            for a, b in zip(order, order[1:])}
+    by_kernel = defaultdict(float)
+    for ev in prof.key_averages():
+        if (ev.device_type.name == "CUDA"
+                and ev.key not in (recompute, attn_bwd)
+                and ev.self_device_time_total > 0):
+            by_kernel[ev.key] += ev.self_device_time_total / 1e3
+    device = sum(by_kernel.values())
+
+    def is_k3(name):
+        return "attn" in name.lower()
+    k3_ms = sum(ms for n, ms in by_kernel.items() if is_k3(n))
+    re = range_kernels(prof, recompute)
+    re_ms = sum(ms for n, ms in re.items() if not is_k3(n))
+    re_k3 = sum(ms for n, ms in re.items() if is_k3(n))
+    bwd_ms = sum(range_kernels(prof, attn_bwd).values())
+    groups = {
+        "forward (without K3)": span["forward"] - (k3_ms - re_k3),
+        "recompute (without K3)": re_ms,
+        f"K3 (forward and recompute, {k3} launches)": k3_ms,
+        attn_bwd: bwd_ms,
+        "the rest of the backward": span["backward"] - re_ms - re_k3
+        - bwd_ms,
+        "AdamW + clipping": span["optimizer"],
+        "EMA": span["ema"]}
+    print(f"train STDiT-XL/2 16x512x512, batch 2, grad_checkpoint: one "
+          f"step, wall {wall:.1f} ms, device {device:.1f} ms (the CUDA "
+          f"events' span {sum(span.values()):.1f}), idle share "
+          f"{max(0.0, 1 - device / wall):.3f}, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB",
+          flush=True)
+    for grp, ms in groups.items():
+        print(f"    {ms:9.2f} ms  {grp}")
+    print("  top kernels:")
+    for k, ms in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12]:
+        print(f"    {ms:9.2f} ms  {k[:110]}")
+    return 0
+
+
 def mp_draws_main() -> int:
     """The CLI's MP samples against fp over input draws (module
     docstring)."""
@@ -437,6 +588,8 @@ def main() -> int:
     sys.path.insert(1 if "--package-root" in args else 0, str(ROOT))
     if "--recon" in args:
         return recon_main()
+    if "--train" in args:
+        return train_main()
     if "--mp-draws" in args:
         return mp_draws_main()
     if "--slices" in args and args[args.index("--slices") + 1] == \

@@ -54,7 +54,10 @@ Phases (any failure exits non-zero):
      bound beside its time in an earlier run (`F32_EARLIER_MS`), and its
      gradient (JAX's custom_vjp: the plain f32 attention's recompute)
      equal to the plain attention's autograd gradient, the forward and the
-     backward timed apart; K6's float32 mode
+     backward timed apart; K3's bf16 modes under autograd at the train
+     path's three sites (`bf16_grad_cases`: the forward within REL_ERR of
+     its plain version, dq/dk/dv equal to the plain attention's
+     gradients); K6's float32 mode
      (`csrc/attention_stream_f32.cu`, the same core at kv lengths above
      the one-shot range) at PixArt-Σ 1024's self-attention [2, 4096, 16,
      72], full and kv-masked, and at M = 2304 edge cases, the same way, and
@@ -80,7 +83,8 @@ Phases (any failure exits non-zero):
      'ave' KV sampling under sm8; then the t20 MP sampler retiled onto 2
      steps over the tiny
      CB STDiT (the gather path) and over a tiny native W4A8 STDiT without
-     CB (the segmented path);
+     CB (the segmented path); one train step of the tiny STDiT with
+     gradient checkpointing (loss and gradients within TINY_REL_ERR);
   5. slice: full-width STDiT-XL/2 (28 blocks, C=1152, random weights from
      a seed), bf16, W8A8-sm8, `sm8_epi` (the sm8 plan with the model's
      `fuse_epilogue`: the block's residual adds in K2's epilogue), `attn8`
@@ -207,14 +211,28 @@ Phases (any failure exits non-zero):
      a forward, w8a8 within `SLICE_REL_ERR` of bf16, each bf16 sample
      further than `SAMPLER_DIFF` from the multistep one; then each new
      loop shape on the tiny sm8 STDiT, card against CPU, nonzero and
-     within `TINY_REL_ERR`.
+     within `TINY_REL_ERR`;
+  11. train (after recon_sigma, its own temporary directory): the `train`
+     command at full width on STDiT-XL/2 16x512x512 with gradient
+     checkpointing (a copy of the CLI's workload config with the model's
+     `grad_checkpoint`), synthetic batches of 2: `--num_steps 4
+     --ckpt_every 2 --grad_clip 1.0`, the same resumed from its step-2
+     checkpoint (every parameter and EMA tensor equal to the uninterrupted
+     run's, bitwise), one `--grad_accum 2` step; in process, 6 steps at lr
+     1e-4 on one batch and one noise draw (the loss falls) and 2 QAT steps
+     (JAX's QAT spec: W8 per-channel and A8 dynamic per-token, 'nearest_ste',
+     five layers fp; finite losses, the fake-quantized weights move). Each
+     with its seconds, ms per step after the first (the checkpoint writes
+     apart), peak memory, losses and K3 launches, exactly 168 a
+     micro-step (28 blocks x 3 sites, forward and recompute).
 Each arm and each CLI command resets the launch counts just before its run
 and reads them just after; one that launches a kernel outside its list,
 or none of one in it, fails; the arms held to per-block counts
 (`BLOCK_LAUNCHES`) must hit them exactly. The third-to-last line is the
 card's name and power limit, the second-to-last a JSON object with one
 entry per kernel (launches summed over all arms of both slices and the
-CLI's, recon's, samplers' and recon_sigma's commands), the last {"ok": true,
+CLI's, recon's, samplers', recon_sigma's and train's commands), the last
+{"ok": true,
 "device": {...}}.
 """
 
@@ -1183,6 +1201,7 @@ def phase_kernels(records):
 
     attention_edge_cases(records, randn)
     f32_attention_cases(records)
+    bf16_grad_cases()
 
     # K5 (one launch of csrc/dynq_gemm.cu): cross_attn.kv_linear and
     # cross_attn.q_linear, sym x sym (the sm8 and sym arms, Σ sm8)
@@ -2484,6 +2503,61 @@ def f32_attention_cases(records):
         del q, k, v, out, got, want, qkv
 
 
+def bf16_grad_cases():
+    """K3's bf16 modes under autograd at the train path's three sites
+    (phase train: STDiT-XL/2 16x512x512 at batch 2): spatial [32, 1024,
+    16, 72], temporal seg 16 [2, 16384, 16, 72] and cross to 120 prompt
+    tokens, the last 20 of one row padded. The forward (the kernel) against
+    its plain version within REL_ERR; dq, dk and dv (JAX's custom_vjp: a
+    recompute through the plain f32-softmax attention) equal to the plain
+    attention's autograd gradients on the same inputs; after one untimed
+    pass the kernel forward and the plain backward timed apart."""
+    import torch
+    from viditq_tpu_torch.kernels import attention as A
+    g = torch.Generator(device="cuda").manual_seed(20)
+    H, D = 16, 72
+    mask = torch.ones((2, 120), dtype=torch.int32, device="cuda")
+    mask[1, 100:] = 0
+    for case, (B, N, M), seg, m in (
+            ("spatial [32,1024,16,72]", (32, 1024, 1024), 0, None),
+            ("temporal seg 16 [2,16384,16,72]", (2, 16384, 16384), 16,
+             None),
+            ("cross [2,16384,16,72] kv 120 masked", (2, 16384, 120), 0,
+             mask)):
+        q, k, v = (torch.randn((B, n, H, D), generator=g, device="cuda")
+                   .bfloat16().requires_grad_() for n in (N, M, M))
+        gout = torch.randn((B, N, H, D), generator=g,
+                           device="cuda").bfloat16()
+        for _ in range(2):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+            ev[0].record()
+            out = A.attention_bnhd(q, k, v, D ** -0.5, seg_len=seg, kv_mask=m)
+            ev[1].record()
+            got = torch.autograd.grad(out, (q, k, v), gout)
+            ev[2].record()
+            ev[2].synchronize()
+        fwd_ms, bwd_ms = ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2])
+        plain = A.attention_bnhd_plain(q.detach(), k.detach(), v.detach(),
+                                       D ** -0.5, seg_len=seg, kv_mask=m)
+        _, _, rel = compare(out.detach(), plain, False)
+        qkv = [t.detach().requires_grad_() for t in (q, k, v)]
+        want = torch.autograd.grad(A.attention_bnhd_xla(
+            *qkv, D ** -0.5, seg, m), qkv, gout)
+        diff = max(float((a.float() - b.float()).abs().max())
+                   for a, b in zip(got, want))
+        print(f"  attention_bnhd bf16 grad {case:36s} forward (kernel) "
+              f"{fwd_ms:.3f} ms, rel err vs plain {rel:.3g} (limit "
+              f"{REL_ERR}); backward (plain recompute) {bwd_ms:.3f} ms; max "
+              f"|d grad| vs the plain attention's autograd {diff:.3g} "
+              f"(limit 0)", flush=True)
+        if rel > REL_ERR:
+            fail(f"attention_bnhd bf16 grad {case}: forward rel err {rel}")
+        if diff != 0 or not all(torch.isfinite(a).all() for a in got):
+            fail(f"attention_bnhd bf16 grad {case}: the wrapped kernel's "
+                 f"gradient differs from the plain attention's by {diff}")
+        del q, k, v, out, got, want, qkv, plain
+
+
 STDIT_CFG = {"model": dict(type="STDiT-XL/2"), "num_frames": 16,
              "image_size": (512, 512), "scheduler": dict(
                  type="iddpm", num_sampling_steps=STEPS, cfg_scale=4.0),
@@ -2960,6 +3034,57 @@ def phase_reference():
               f"{TINY_REL_ERR})", flush=True)
         if not 0 < rel <= TINY_REL_ERR:
             fail(f"tiny {name}: the denoise's model outputs read {rel}")
+    tiny_train_step()
+
+
+def tiny_train_step():
+    """One train step's loss and gradients of the tiny STDiT (bf16 compute,
+    float32 parameters, gradient checkpointing on) on the card against the
+    same step on the CPU, on one batch and noise draw: the loss and the
+    concatenated gradient within TINY_REL_ERR; the card's K3 launches
+    exactly 3 a block, twice (forward and recompute)."""
+    import copy
+
+    import torch
+    from viditq_tpu_torch.kernels import _counters
+    from viditq_tpu_torch.samplers.gaussian_diffusion import (
+        make_schedule, training_losses)
+    from viditq_tpu_torch.utils.workload import build_model as wl_build
+    from viditq_tpu_torch.utils.workload import random_init_
+    cfg = {**TINY_STDIT_CFG, "model": {**TINY_STDIT_CFG["model"],
+                                       "grad_checkpoint": True}}
+    x, _, y, mask = tiny_inputs(cfg)
+    cpu = random_init_(wl_build(cfg, device="cpu"), 0, 0.1)
+    models = {"cpu": cpu, "cuda": copy.deepcopy(cpu).to("cuda")}
+    sched = make_schedule(timestep_respacing=[1000])
+    noise = torch.randn(x.shape, generator=torch.Generator().manual_seed(2))
+    t = torch.tensor([10, 900])
+    res = {}
+    for dev, model in models.items():
+        xd, td, yd, md, nd = (a.to(dev) for a in (x.float(), t, y.float(),
+                                                  mask, noise))
+        _counters.reset()
+        loss = training_losses(lambda xt, tt: model(xt, tt, yd, md), xd, td,
+                               nd, sched, 4)
+        grads = torch.autograd.grad(loss, list(model.parameters()),
+                                    materialize_grads=True)
+        launched = _counters.snapshot()["attention_bnhd"]["launches"]
+        res[dev] = (float(loss.detach()), torch.cat(
+            [a.float().flatten().cpu() for a in grads]), launched)
+    rel_loss = abs(res["cuda"][0] / res["cpu"][0] - 1)
+    gc, gg = res["cpu"][1], res["cuda"][1]
+    rel_grad = float((gg - gc).norm() / gc.norm())
+    want = 3 * 2 * len(models["cuda"].blocks)
+    print(f"phase reference: tiny STDiT train step (grad_checkpoint), card "
+          f"vs CPU: loss {res['cuda'][0]:.6f} vs {res['cpu'][0]:.6f}, rel "
+          f"err {rel_loss:.3g}; gradient rel err {rel_grad:.3g} (limit "
+          f"{TINY_REL_ERR}); K3 launches {res['cuda'][2]} (want {want})",
+          flush=True)
+    if not (rel_loss <= TINY_REL_ERR and rel_grad <= TINY_REL_ERR
+            and torch.isfinite(gg).all()):
+        fail(f"tiny train step: loss {rel_loss}, gradient {rel_grad}")
+    if res["cuda"][2] != want:
+        fail(f"tiny train step: K3 launched {res['cuda'][2]}, want {want}")
 
 
 def mp_sees_the_model(name, run, model, sampler, z, y, mask):
@@ -3332,7 +3457,13 @@ CLI_KERNELS = {"inference": "bf16", "get-calib-data": "bf16",
                       ("inference", ("attention_bnhd",)),
                       ("quant-generate", ("dynamic_quant_rows",
                                           "int8_matmul",
-                                          "attention_bnhd")))}}
+                                          "attention_bnhd")))},
+               # phase train: the fp STDiT under autograd, K3's bf16
+               # modes at its three sites (the backward is the plain
+               # recompute, no kernel)
+               "train": ("attention_bnhd",),
+               "train resume": ("attention_bnhd",),
+               "train grad_accum 2": ("attention_bnhd",)}
 CLI_SAME_REL = 1e-3  # CLI samples against the in-process path
 # phase samplers: PixArt-α 512 (`configs/workload/pixart_alpha_512.py`:
 # PixArt-XL/2, 28 blocks, C = 1152, 1024 tokens, 120 caption tokens;
@@ -4153,6 +4284,206 @@ def phase_recon_sigma() -> dict:
     return counts
 
 
+# phase train: the `train` command at full width on STDiT-XL/2 16x512x512
+# with gradient checkpointing (a copy of the CLI's workload config with
+# model grad_checkpoint=True), synthetic batches of 2 (x 2 under
+# --grad_accum 2); K3 runs at each block's three sites in the forward and
+# again in the recompute: 28 x 3 x 2 launches a micro-step
+TRAIN_STEPS = 4
+TRAIN_CKPT_EVERY = 2
+TRAIN_K3_PER_MICRO_STEP = 168
+TRAIN_FIXED_STEPS, TRAIN_FIXED_LR = 6, 1e-4
+QAT_STEPS = 2
+# JAX's QAT test spec (tests/test_parallel.py:77-122): W8 per-channel and
+# A8 dynamic per-token, both rounding 'nearest_ste', five layers fp (the
+# shipped w8a8_dynamic.yaml rounds weights 'nearest', whose gradient is 0)
+QAT_FP = ("x_embedder", "t_block", "t_embedder", "y_embedder",
+          "final_layer")
+
+
+def train_workload(tmp: Path) -> str:
+    """A copy of the 16x512x512 workload config with the model's
+    grad_checkpoint on, in tmp."""
+    src = CLI_WORKLOAD.read_text()
+    old = 'type="STDiT-XL/2",'
+    if old not in src:
+        fail(f"{CLI_WORKLOAD}: no '{old}' to change")
+    path = tmp / "stdit_train.py"
+    path.write_text(src.replace(old, old + " grad_checkpoint=True,"))
+    return str(path)
+
+
+def qat_resolver():
+    from viditq_tpu_torch.quant.naming import resolve_layer_spec
+    from viditq_tpu_torch.quant.spec import LayerQuantSpec, QuantSpec
+    spec = LayerQuantSpec(
+        weight=QuantSpec(n_bits=8, granularity="channel", channel_axis=-1,
+                         round_mode="nearest_ste"),
+        act=QuantSpec(n_bits=8, granularity="token",
+                      round_mode="nearest_ste", dynamic=True))
+    return lambda name: resolve_layer_spec(name, spec, QAT_FP)
+
+
+def train_report(label, out, launched, micro_steps):
+    """A train command's readings; its K3 launches held to
+    TRAIN_K3_PER_MICRO_STEP a micro-step exactly."""
+    import torch
+    want = {"attention_bnhd": TRAIN_K3_PER_MICRO_STEP * micro_steps}
+    losses = out["losses"]
+    ms = out["ms_per_step"]
+    print(f"  train {label}: {len(losses)} steps in {out['seconds']:.2f} s, "
+          f"ms per step after the first "
+          f"{'n/a' if ms is None else f'{ms:.1f}'}, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB, losses "
+          f"{[round(v, 5) for v in losses]}, launches {launched} (want "
+          f"{want})", flush=True)
+    if launched != want:
+        fail(f"train {label}: launches {launched}, want {want}")
+    if not np.isfinite(losses).all():
+        fail(f"train {label}: losses {losses}")
+
+
+def in_process_steps(label, model, step_fn, batch, n, counts):
+    """n steps of step_fn(ema, opt_state, batch) on one batch, the launches
+    counted (reset just before, read just after) and held to
+    TRAIN_K3_PER_MICRO_STEP a step; returns the losses."""
+    import torch
+    from viditq_tpu_torch.kernels import _counters
+    from viditq_tpu_torch.parallel import training as tr
+    params = tr.trainable(model)
+    opt = tr.make_optimizer(lr=TRAIN_FIXED_LR)
+    state, ema = opt.init(params), tr.init_ema(params)
+    step = step_fn(opt)
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    _counters.reset()
+    t0 = time.time()
+    losses = [step(ema, state, batch) for _ in range(n)]
+    torch.cuda.synchronize()
+    secs = time.time() - t0
+    snap = _counters.snapshot()
+    launched = {k: v["launches"] for k, v in snap.items() if v["launches"]}
+    want = {"attention_bnhd": TRAIN_K3_PER_MICRO_STEP * n}
+    losses = [float(v) for v in losses]
+    print(f"  train {label}: {n} steps in {secs:.2f} s, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB, losses "
+          f"{[round(v, 5) for v in losses]}, launches {launched}",
+          flush=True)
+    if launched != want or any(v["plain_cuda"] for v in snap.values()):
+        fail(f"train {label}: launches {launched}, want {want}")
+    if not np.isfinite(losses).all():
+        fail(f"train {label}: losses {losses}")
+    for k, v in launched.items():
+        counts[k] = counts.get(k, 0) + v
+    return losses
+
+
+def phase_train() -> dict:
+    """Training at full width (module header, phase 11): through the CLI,
+    `train` TRAIN_STEPS steps with a checkpoint every TRAIN_CKPT_EVERY and
+    clipping at 1.0, the same resumed from its step-2 checkpoint (every
+    parameter and the EMA equal to the uninterrupted run's, bitwise), one
+    `--grad_accum 2` step; in process, TRAIN_FIXED_STEPS steps at lr 1e-4
+    on one batch and one noise draw (the loss falls: the gradients train)
+    and QAT_STEPS QAT steps under JAX's QAT spec (finite losses, the
+    fake-quantized weights move). Returns each kernel's launches."""
+    import tempfile
+
+    import torch
+    from viditq_tpu_torch.parallel import training as tr
+    from viditq_tpu_torch.pipelines.train import synthetic_batch
+    from viditq_tpu_torch.quant import core
+    from viditq_tpu_torch.quant.calibrate import calibrate_weight_tables
+    from viditq_tpu_torch.quant.qlinear import QuantCtx
+    from viditq_tpu_torch.samplers.gaussian_diffusion import make_schedule
+    from viditq_tpu_torch.utils import workload
+
+    counts = {}
+    t_phase = time.time()
+    with tempfile.TemporaryDirectory(prefix="viditq_train_") as tmpd:
+        tmp = Path(tmpd)
+        config = train_workload(tmp)
+        common = ["--config", config, "--grad_clip", "1.0"]
+        full, launched = run_cli("train", [
+            "train", "--num_steps", str(TRAIN_STEPS), "--ckpt_every",
+            str(TRAIN_CKPT_EVERY), "--save_dir", str(tmp / "a"), *common],
+            counts)
+        train_report("4 steps, a checkpoint every 2", full, launched,
+                     TRAIN_STEPS)
+        ckpt2 = tmp / "a" / f"train_state_{TRAIN_CKPT_EVERY}.pt"
+        print(f"  train checkpoint {ckpt2.name}: {file_mib(ckpt2)}",
+              flush=True)
+        res, launched = run_cli("train resume", [
+            "train", "--num_steps", str(TRAIN_STEPS), "--resume_from",
+            str(ckpt2), "--save_dir", str(tmp / "b"), *common], counts)
+        train_report("resumed at step 2", res, launched,
+                     TRAIN_STEPS - TRAIN_CKPT_EVERY)
+        diffs = {k: max(float((v.detach() - res[k][n].detach()).abs().max())
+                        for n, v in full[k].items())
+                 for k in ("params", "ema")}
+        same = all(torch.equal(v, res[k][n]) for k in ("params", "ema")
+                   for n, v in full[k].items())
+        print(f"  train resume against the uninterrupted run: every "
+              f"parameter and EMA tensor equal: {same} (max |diff| "
+              f"{diffs}); losses {res['losses']} against "
+              f"{full['losses'][TRAIN_CKPT_EVERY:]}", flush=True)
+        if not same or res["losses"] != full["losses"][TRAIN_CKPT_EVERY:]:
+            fail("train: the resumed run differs from the uninterrupted one")
+        full = res = None
+        acc, launched = run_cli("train grad_accum 2", [
+            "train", "--num_steps", "1", "--grad_accum", "2", "--save_dir",
+            str(tmp / "c"), *common], counts)
+        train_report("--grad_accum 2, one step", acc, launched, 2)
+        acc = None
+        torch.cuda.empty_cache()
+        # in process: one batch and one noise draw, repeated
+        cfg = workload.load_py_config(config)
+        sched = make_schedule(timestep_respacing=[1000])
+        latent = (4, *workload.latent_size(cfg))
+        cap = (1, cfg["model"].get("model_max_length", 120),
+               cfg["model"].get("caption_channels", 4096))
+        batch = synthetic_batch(0, 0, 2, latent, cap, sched.n_steps, "cuda")
+        noise = torch.randn((2, *latent), generator=torch.Generator(
+            "cuda").manual_seed(1), device="cuda")
+        model = workload.build_model(cfg, device="cuda")
+        workload.random_init_(model, 0, 0.02)
+        fp_losses = in_process_steps(
+            f"one batch, lr {TRAIN_FIXED_LR}", model,
+            lambda opt: tr.make_train_step(
+                model, sched, opt, noise_fn=lambda shape, i: noise),
+            batch, TRAIN_FIXED_STEPS, counts)
+        if not fp_losses[-1] < fp_losses[0]:
+            fail(f"train: the loss on one batch does not fall: {fp_losses}")
+        model = workload.build_model(cfg, qat_resolver(), device="cuda")
+        workload.random_init_(model, 0, 0.02)
+        calibrate_weight_tables(model)
+        fc1 = model.blocks[0].mlp.fc1
+        spec = fc1.lspec.weight
+
+        def fake_w():
+            return core.fake_quant(fc1.kernel.detach().float(),
+                                   fc1.w_delta[spec.bit_idx, 0],
+                                   fc1.w_zp[spec.bit_idx, 0], spec)
+        w0 = fake_w()
+        qat_losses = in_process_steps(
+            "QAT (W8A8 nearest_ste, simulate)", model,
+            lambda opt: tr.make_qat_step(
+                model, sched, opt, QuantCtx(mode="quant", t_id=500),
+                noise_fn=lambda shape, i: noise),
+            batch, QAT_STEPS, counts)
+        moved = float((fake_w() != w0).float().mean())
+        print(f"  train QAT: blocks.0.mlp.fc1's fake-quantized weights "
+              f"moved: {moved:.4%} of them; the first loss {qat_losses[0]!r} "
+              f"against the fp model's {fp_losses[0]!r} on the same weights",
+              flush=True)
+        if moved == 0 or qat_losses[0] == fp_losses[0]:
+            fail("train QAT: the fake quantizers or the weights did not "
+                 "move")
+        model = None
+    print(f"phase train: {time.time() - t_phase:.1f} s", flush=True)
+    return counts
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4188,6 +4519,8 @@ def main() -> int:
     for k, n in phase_samplers().items():
         launches[k] += n
     for k, n in phase_recon_sigma().items():
+        launches[k] += n
+    for k, n in phase_train().items():
         launches[k] += n
 
     kernels = []

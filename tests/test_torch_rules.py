@@ -32,13 +32,14 @@ def _imported_roots(src: str):
 
 
 def test_port_never_imports_jax_or_flax():
-    # an import check cannot work here: the image preloads jax
+    # an import check cannot work here: the image preloads jax (nor optax
+    # and orbax, the JAX package's training and checkpoint libraries)
     files = sorted(PKG.rglob("*.py")) + [PKG.parent / "chip_smoke.py",
                                          PKG.parent / "chip_profile.py"]
     assert len(files) > 10
     bad = {str(f.relative_to(PKG.parent)): sorted(
         r for r in set(_imported_roots(f.read_text()))
-        if r in ("jax", "flax", "jaxlib", "optax", "viditq_tpu"))
+        if r in ("jax", "flax", "jaxlib", "optax", "orbax", "viditq_tpu"))
         for f in files}
     assert not {k: v for k, v in bad.items() if v}, bad
 
@@ -758,7 +759,7 @@ def test_cli_runs_on_the_card_unless_told_otherwise(monkeypatch, tmp_path):
     assert set(subs) == {"split-ckpt", "inference", "get-calib-data", "ptq",
                          "quant-generate", "quant-generate-mp",
                          "get-sensitivity", "sweep-alpha",
-                         "smooth-quant-list", "calibrate-ptqd-k"}
+                         "smooth-quant-list", "calibrate-ptqd-k", "train"}
     for name, sp in subs.items():
         # split-ckpt converts files and calibrate-ptqd-k fits k_t to saved
         # trajectories, both on the host: no model
@@ -770,7 +771,8 @@ def test_cli_runs_on_the_card_unless_told_otherwise(monkeypatch, tmp_path):
     for argv in (["inference"], ["get-calib-data"],
                  ["ptq", "--calib_data", "none.npz", *plan],
                  ["quant-generate", *plan], ["get-sensitivity", *plan],
-                 ["sweep-alpha", *plan], ["smooth-quant-list", *plan]):
+                 ["sweep-alpha", *plan], ["smooth-quant-list", *plan],
+                 ["train"]):
         with pytest.raises(RuntimeError, match="CUDA"):
             cli.main([*argv, "--config", tiny, "--save_dir",
                       str(tmp_path)])

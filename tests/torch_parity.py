@@ -46,6 +46,15 @@ from viditq_tpu_torch.models.stdit import STDiT
 from viditq_tpu_torch.utils.bridge import state_dict_from_flax
 from viditq_tpu_torch.utils.config import load_quant_config
 
+# One ATen thread a process. The parity tests run tiny tensors, and the
+# suite runs as several pytest-xdist workers on a few cores: ATen's
+# default of one OpenMP thread a core oversubscribes the CPU, and the
+# workers' threads spin-wait against each other (on 6 workers and 8
+# cores the suite's summed test time fell from 7752 s to 3915 s with
+# this, 49 tests added). Every worker imports this module when it
+# collects.
+torch.set_num_threads(1)
+
 SM8 = "configs/opensora/w8a8_tpu_fused_sm8.yaml"
 SYM = "configs/opensora/w8a8_tpu_fused_sym.yaml"
 # the reference semantics (asym per-channel weights, asym dynamic per-token

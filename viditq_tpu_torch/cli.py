@@ -15,6 +15,7 @@ Command map to the reference scripts:
   smooth-quant-list <- t2v/scripts/get_smooth_quant_list.py
   calibrate-ptqd-k  <- t2v/scripts/calibrate_ptqd_k.py (k_t from matched
                        trajectories)
+  train             <- t2v/scripts/train.py (synthetic batches)
 
 The commands take the JAX CLI's flags and write its files and keys:
 `fp_samples.npz` and `quant_samples.npz` (`samples`), `calib_data.npz`
@@ -47,8 +48,19 @@ granularity (`capture_layer_io`, `model_reconstruction`) on the first
 calibration step's rows (x, t, y, mask); the learned `w_alpha` tables go
 into `quant_ckpt.npz`.
 
+`train` (JAX cli.py:569-626) trains the workload's model on synthetic
+batches (`pipelines/train.train_loop`: latents (4, *latent_size),
+captions (1, model_max_length, caption_channels), batch 2 x --grad_accum)
+from the seeded draw of the parameters, with `--resume_from` a
+`train_state_<step>.pt` of `--ckpt_every` (the port's one format: the
+JAX `--ckpt_format` choices are flax msgpack and orbax, not ported). A
+config's `model=dict(grad_checkpoint=True)` recomputes each block in the
+backward pass. `--dp/--sp/--tp` above 1 (parallelism, queue item 6) and
+`--data_path` (the CSV dataset and the VAE, item 7) raise.
+
 Not ported: get-text-embeds and the 'clip' metric (T5/CLIP weights),
-extract-features (the VAE), train and export (StableHLO).
+extract-features (the VAE), training from `--data_path`, and export
+(StableHLO).
 """
 
 from __future__ import annotations
@@ -522,6 +534,65 @@ def cmd_calibrate_ptqd_k(args):
     return {"out": out, "k": k}
 
 
+def cmd_train(args):
+    """Synthetic-data training (module docstring). Returns the last
+    checkpoint written ('out', None without --ckpt_every), 'seconds' of
+    the loop, 'ckpt_seconds' of its checkpoint writes, 'ms_per_step'
+    after the first step without those writes (the device synchronised
+    after the first step and at the end), 'losses' (every step's), and the
+    final 'params' and 'ema'."""
+    import torch
+    from viditq_tpu_torch.pipelines.train import train_loop
+    if args.dp * args.sp * args.tp > 1:
+        raise NotImplementedError(
+            "--dp/--sp/--tp above 1: parallelism is not ported yet (queue "
+            "item 6)")
+    if args.data_path:
+        raise NotImplementedError(
+            "--data_path: the CSV dataset and the VAE are not ported yet "
+            "(queue item 7: data and the VAE)")
+    if args.no_vae or args.vae_ckpt:
+        raise ValueError("--no_vae and --vae_ckpt apply to --data_path "
+                         "training only")
+    cfg = workload.load_py_config(args.config)
+    model = workload.build_model(cfg, device=args.device)
+    workload.random_init_(model, INIT_SEED, INIT_SCALE)
+    mcfg = cfg.get("model", {})
+    cap_shape = (1, mcfg.get("model_max_length", 120),
+                 mcfg.get("caption_channels", 4096))
+    sync = (torch.cuda.synchronize if str(args.device).startswith("cuda")
+            else (lambda: None))
+    marks = []
+
+    def mark(i):
+        if not marks:  # after the first step only: no per-step sync
+            sync()
+            marks.append(time.perf_counter())
+
+    sync()
+    t0 = time.perf_counter()
+    out = train_loop(model, None, latent_shape=(4, *workload.latent_size(
+        cfg)), caption_shape=cap_shape, num_steps=args.num_steps,
+        lr=args.lr, ckpt_every=args.ckpt_every, save_dir=args.save_dir,
+        grad_accum=args.grad_accum, grad_clip=args.grad_clip,
+        warmup_steps=args.warmup_steps, resume_from=args.resume_from,
+        on_step_end=mark)
+    sync()
+    t1 = time.perf_counter()
+    steps = len(out["step_losses"])
+    losses = out["step_losses"].float().cpu().tolist()
+    saves = out["ckpt_seconds"]
+    later = sum(v for i, v in saves.items() if i > args.num_steps - steps)
+    print(f"trained {steps} steps in {t1 - t0:.3f} s "
+          f"({sum(saves.values()):.3f} s of checkpoint writes); final loss "
+          f"{losses[-1] if losses else float('nan'):.4f}")
+    return {"out": out["ckpt"], "seconds": t1 - t0,
+            "ckpt_seconds": sum(saves.values()),
+            "ms_per_step": (1e3 * (t1 - marks[0] - later) / (steps - 1)
+                            if steps > 1 else None),
+            "losses": losses, "params": out["params"], "ema": out["ema"]}
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="viditq_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -585,6 +656,33 @@ def build_parser() -> argparse.ArgumentParser:
                         "reused (skips weight calibration; the YAML "
                         "resume_with_w_quantized.path key works too)")
     s.set_defaults(fn=cmd_ptq)
+
+    s = sub.add_parser("train")
+    s.add_argument("--config", required=True)
+    s.add_argument("--num_steps", type=int, default=100)
+    s.add_argument("--lr", type=float, default=1e-4)
+    s.add_argument("--ckpt_every", type=int, default=0)
+    s.add_argument("--save_dir", default="outputs/train")
+    s.add_argument("--dp", type=int, default=1)
+    s.add_argument("--sp", type=int, default=1)
+    s.add_argument("--tp", type=int, default=1)
+    s.add_argument("--data_path", default=None,
+                   help="CSV dataset (not ported: queue item 7); omit for "
+                        "synthetic batches")
+    s.add_argument("--epochs", type=int, default=1)
+    s.add_argument("--batch_size", type=int, default=2)
+    s.add_argument("--grad_accum", type=int, default=1)
+    s.add_argument("--grad_clip", type=float, default=0.0)
+    s.add_argument("--warmup_steps", type=int, default=0)
+    s.add_argument("--resume_from", default=None,
+                   help="train_state_*.pt checkpoint to resume")
+    s.add_argument("--no_vae", action="store_true",
+                   help="with --data_path only")
+    s.add_argument("--vae_ckpt", default=None, help="with --data_path only")
+    s.add_argument("--device", default=DEFAULT_DEVICE,
+                   help="torch device of the model (the card; 'cpu' runs "
+                        "the kernels' plain versions)")
+    s.set_defaults(fn=cmd_train)
 
     s = sub.add_parser("calibrate-ptqd-k")
     s.add_argument("--fp_trajectory", required=True)

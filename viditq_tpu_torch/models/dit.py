@@ -9,7 +9,8 @@ no residual epilogue, as the JAX block does: under a fused plan q/k/v
 share one K4 pass, and fc2 takes K4's GELU handoff. The block stack is
 unrolled (`blocks.{i}`, each with `adaLN_linear`), so plans resolve per
 block and the JAX package's trees load through `utils/bridge.py`.
-Gradient checkpointing is not ported.
+`grad_checkpoint` recomputes each block in the backward pass (dit.py:139,
+:177).
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ import torch.nn.functional as F
 
 from viditq_tpu_torch.models.layers import (
     CaptionEmbedder, FinalLayer, LabelEmbedder, Mlp, PatchEmbed3D, Resolver,
-    SelfAttention, TimestepEmbedder, get_1d_sincos_pos_embed,
+    SelfAttention, TimestepEmbedder, call_block, get_1d_sincos_pos_embed,
     get_2d_sincos_pos_embed, layer_norm, modulate, no_quant)
 from viditq_tpu_torch.quant.qlinear import QuantCtx, QuantLinear
 
@@ -72,8 +73,10 @@ class DiT(nn.Module):
                  learn_sigma: bool = True, condition: str = "text",
                  no_temporal_pos_emb: bool = False,
                  caption_channels: int = 512, model_max_length: int = 77,
-                 resolver: Resolver = no_quant, dtype=torch.bfloat16):
+                 resolver: Resolver = no_quant, dtype=torch.bfloat16,
+                 grad_checkpoint: bool = False):
         super().__init__()
+        self.grad_checkpoint = grad_checkpoint
         self.input_size = tuple(input_size)
         self.patch_size = tuple(patch_size)
         self.hidden_size = hidden_size
@@ -142,7 +145,7 @@ class DiT(nn.Module):
         x = x.reshape(B, T * S, C)
         cond = self._embed_condition(self.t_embedder(timestep), y)
         for block in self.blocks:
-            x = block(x, cond, qctx)
+            x = call_block(block, self.grad_checkpoint, x, cond, qctx)
         return self.unpatchify(self.final_layer(x, cond)).float()
 
     def unpatchify(self, x):
@@ -181,12 +184,13 @@ class Latte(DiT):
         cond_t = cond.repeat_interleave(S, dim=0)  # (b s) d
         for i, block in enumerate(self.blocks):
             if i % 2 == 0:
-                x = block(x.reshape(B * T, S, C), cond_s, qctx)
+                x = call_block(block, self.grad_checkpoint,
+                               x.reshape(B * T, S, C), cond_s, qctx)
                 continue
             xb = x.reshape(B, T, S, C).transpose(1, 2).reshape(B * S, T, C)
             if i == 1:
                 xb = xb + self.pos_embed_temporal.to(self.dtype)
-            xb = block(xb, cond_t, qctx)
+            xb = call_block(block, self.grad_checkpoint, xb, cond_t, qctx)
             x = xb.reshape(B, S, T, C).transpose(1, 2)
         x = x.reshape(B, T * S, C)
         return self.unpatchify(self.final_layer(x, cond)).float()

@@ -556,6 +556,16 @@ class CrossAttention(nn.Module):
         return self.proj(out.reshape(B, N, C), qctx, epilogue=epilogue)
 
 
+def call_block(block: nn.Module, grad_checkpoint: bool, *args):
+    """block(*args); with grad_checkpoint and autograd recording, its
+    activations are not kept but recomputed in the backward pass from its
+    inputs (the JAX models' `nn.remat` of each block)."""
+    if grad_checkpoint and torch.is_grad_enabled():
+        from torch.utils.checkpoint import checkpoint
+        return checkpoint(block, *args, use_reentrant=False)
+    return block(*args)
+
+
 def float32_copy(module: nn.Module) -> nn.Module:
     """A copy of module (parameters and tables) whose every layer computes
     in float32: the float32 block of AdaRound reconstruction (JAX

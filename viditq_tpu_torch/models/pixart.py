@@ -13,8 +13,9 @@ pixart.py:42-43, :87-88, :199-201), and `standalone_block` is block i alone
 in float32 for reconstruction. PixArtMS's options are ported: the
 micro-condition (`micro_condition`: the `csize_embedder` and `ar_embedder`
 of `data_info`'s image size and aspect ratio added to the timestep
-embedding), `qk_norm` and every KV-compress sampling. Gradient
-checkpointing and the pipeline stages are not ported.
+embedding), `qk_norm` and every KV-compress sampling. `grad_checkpoint`
+recomputes each block in the backward pass (pixart.py:212-245). The
+pipeline stages are not ported.
 """
 
 from __future__ import annotations
@@ -27,8 +28,8 @@ from torch import nn
 from viditq_tpu_torch.models.layers import (
     CaptionEmbedder, CrossAttention, KVCompressSelfAttention, Mlp, PatchEmbed,
     Resolver, SelfAttention, SizeEmbedder, T2IFinalLayer, TBlock,
-    TimestepEmbedder, float32_copy, get_2d_sincos_pos_embed, layer_norm,
-    ln_mod_prequant, no_quant, t2i_modulate)
+    TimestepEmbedder, call_block, float32_copy, get_2d_sincos_pos_embed,
+    layer_norm, ln_mod_prequant, no_quant, t2i_modulate)
 from viditq_tpu_torch.quant.qlinear import QuantCtx
 
 
@@ -112,8 +113,10 @@ class PixArt(nn.Module):
                  kv_compress_sampling: Optional[str] = None,
                  kv_compress_scale: int = 1,
                  kv_compress_layers: Sequence[int] = (),
-                 resolver: Resolver = no_quant, dtype=torch.bfloat16):
+                 resolver: Resolver = no_quant, dtype=torch.bfloat16,
+                 grad_checkpoint: bool = False):
         super().__init__()
+        self.grad_checkpoint = grad_checkpoint
         self.micro_condition = micro_condition
         self.input_size = input_size
         self.patch_size = patch_size
@@ -181,7 +184,8 @@ class PixArt(nn.Module):
                 mask = mask.repeat(B // mask.shape[0], 1)
             y = y * mask[..., None].to(y.dtype)
         for block in self.blocks:
-            x = block(x, y, t0, mask, (h, w), qctx)
+            x = call_block(block, self.grad_checkpoint, x, y, t0, mask,
+                           (h, w), qctx)
         x = self.final_layer(x, t, qctx)
         return unpatchify(x, h, w, self.patch_size,
                           self.out_channels).float()

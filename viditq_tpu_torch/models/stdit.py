@@ -14,8 +14,9 @@ output and its shared context (y, t0) from the block's own call
 (`quant/reconstruction.py` hooks each `STDiTBlock`, where the JAX package
 sows `block_in`, `block_out`, `block_ctx_y` and `block_ctx_t0`, stdit.py:
 48-51, :153-154, :262-265); `standalone_block` is block i alone in float32
-for reconstruction's gradients. Sequence parallelism, gradient
-checkpointing and the pipeline stages are not ported.
+for reconstruction's gradients. `grad_checkpoint` recomputes each block
+in the backward pass (stdit.py:273-290, `models/layers.call_block`).
+Sequence parallelism and the pipeline stages are not ported.
 """
 
 from __future__ import annotations
@@ -28,7 +29,7 @@ from torch import nn
 
 from viditq_tpu_torch.models.layers import (
     CaptionEmbedder, CrossAttention, Mlp, PatchEmbed3D, Resolver,
-    SelfAttention, T2IFinalLayer, TBlock, TimestepEmbedder,
+    SelfAttention, T2IFinalLayer, TBlock, TimestepEmbedder, call_block,
     float32_copy, get_1d_sincos_pos_embed, get_2d_sincos_pos_embed,
     layer_norm, ln_mod_prequant, no_quant, t2i_modulate)
 from viditq_tpu_torch.quant.qlinear import QuantCtx
@@ -123,7 +124,8 @@ class STDiTBlock(nn.Module):
 class STDiT(nn.Module):
     """stdit.py:137-452. input_size is the latent [T, H, W]. fuse_epilogue:
     every block's residual adds in its linears' epilogues (`STDiTBlock`);
-    a workload config sets it in its `model` dict."""
+    grad_checkpoint: each block recomputed in the backward pass; a
+    workload config sets either in its `model` dict."""
 
     def __init__(self, input_size: Tuple[int, int, int] = (16, 64, 64),
                  in_channels: int = 4,
@@ -134,8 +136,9 @@ class STDiT(nn.Module):
                  model_max_length: int = 120, space_scale: float = 1.0,
                  time_scale: float = 1.0, no_temporal_pos_emb: bool = False,
                  resolver: Resolver = no_quant, dtype=torch.bfloat16,
-                 fuse_epilogue: bool = False):
+                 fuse_epilogue: bool = False, grad_checkpoint: bool = False):
         super().__init__()
+        self.grad_checkpoint = grad_checkpoint
         self.input_size = tuple(input_size)
         self.in_channels = in_channels
         self.patch_size = tuple(patch_size)
@@ -196,7 +199,8 @@ class STDiT(nn.Module):
         tpe = (None if self.no_temporal_pos_emb
                else self.pos_embed_temporal.to(self.dtype))
         for i, block in enumerate(self.blocks):
-            x = block(x, y, t0, mask, tpe if i == 0 else None, qctx)
+            x = call_block(block, self.grad_checkpoint, x, y, t0, mask,
+                           tpe if i == 0 else None, qctx)
         x = self.final_layer(x, t, qctx)
         return self.unpatchify(x).float()
 

@@ -1,5 +1,5 @@
-"""Diffusion schedule, the DDIM loop and IDDPM's ancestral loop (port of
-`viditq_tpu/samplers/gaussian_diffusion.py`).
+"""Diffusion schedule, the DDIM loop, IDDPM's ancestral loop and the
+training step's MSE loss (port of `viditq_tpu/samplers/gaussian_diffusion.py`).
 
 The respaced schedule is precomputed into numpy float64 arrays exactly as
 in the JAX package; the JAX `lax.scan` denoise loops become Python loops
@@ -142,6 +142,12 @@ def randn(x: torch.Tensor, generator: Optional[torch.Generator],
                        dtype=dtype).to(x.device)
 
 
+def _split_eps(model_out: torch.Tensor, c: int):
+    """eps/rest split at the latent channel count (gaussian_diffusion.py:
+    142-145; the rest has 0 channels for an eps-only model)."""
+    return model_out[:, :c], model_out[:, c:]
+
+
 def _coef(arr: np.ndarray, i: int, like: torch.Tensor) -> torch.Tensor:
     """Schedule coefficient at step i as a float32 tensor broadcastable
     against `like` (a dimensioned tensor, so it promotes bf16 x to f32 as
@@ -248,3 +254,34 @@ def p_sample_loop(model_fn: ModelFn, z: torch.Tensor, schedule: Schedule,
     if capture_trajectory:
         return x, trajectory(xs, ts)
     return x
+
+
+def noised(schedule: Schedule, x_start: torch.Tensor, t: torch.Tensor,
+           noise: torch.Tensor) -> torch.Tensor:
+    """q(x_t | x_0) in float32: sqrt(acp[t]) x_0 + sqrt(1 - acp[t]) noise,
+    t the spaced-step ids [B]."""
+    acp = torch.as_tensor(schedule.alphas_cumprod, dtype=torch.float32,
+                          device=x_start.device)[t]
+    shape = (-1,) + (1,) * (x_start.dim() - 1)
+    return (torch.sqrt(acp).reshape(shape) * x_start
+            + torch.sqrt(1 - acp).reshape(shape) * noise)
+
+
+def model_timesteps(schedule: Schedule, t: torch.Tensor) -> torch.Tensor:
+    """The original-scale timesteps [B] int32 the model receives at
+    spaced steps t."""
+    return torch.as_tensor(schedule.timestep_map, dtype=torch.int32,
+                           device=t.device)[t]
+
+
+def training_losses(model_fn, x_start: torch.Tensor, t: torch.Tensor,
+                    noise: torch.Tensor, schedule: Schedule,
+                    in_channels: int = 4) -> torch.Tensor:
+    """The simple-MSE diffusion loss (gaussian_diffusion.py:246-261): x_t
+    built in float32, the model at `timestep_map[t]`, the mean over the
+    whole batch of (eps - noise)^2 in float32, eps the output's first
+    in_channels. model_fn(x_t, t_orig) -> output."""
+    model_out = model_fn(noised(schedule, x_start, t, noise),
+                         model_timesteps(schedule, t))
+    eps, _ = _split_eps(model_out, in_channels)
+    return torch.mean((eps.float() - noise) ** 2)

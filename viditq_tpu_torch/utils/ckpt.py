@@ -15,6 +15,13 @@
 * `save_params`/`load_params`: the port's parameters as a `torch.save`
   file, read back with `weights_only=True`. The JAX package's msgpack is
   not read (its reader is flax).
+* `save_train_state`/`load_train_state`: a resumable training checkpoint,
+  the parameters, their EMA and the optimizer state (its step count is
+  the learning-rate schedule's) in one `torch.save` file, read back with
+  `weights_only=True`, and beside it the JAX package's
+  `<path>.meta.json` of counters (epoch, step, global_step, the data
+  sampler's state; ckpt.py:192-224). The JAX package's msgpack and orbax
+  train states are not read (flax and orbax formats).
 * `save_quant_ckpt`/`load_quant_ckpt`: the JAX package's quant checkpoint
   format exactly (ckpt.py:286-310), so a file crosses between the
   packages: an npz of `"<dotted layer>::<table>"` arrays (the layer names
@@ -32,6 +39,7 @@
 from __future__ import annotations
 
 import io
+import json
 import os
 import pickle
 from typing import Dict, Mapping, Optional, Sequence, Tuple
@@ -226,6 +234,29 @@ def load_params_into(model: nn.Module, path_or_sd) -> nn.Module:
     res = model.load_state_dict(sd, strict=False)
     assert not res.unexpected_keys
     return model
+
+
+def save_train_state(path: str, params: Mapping[str, torch.Tensor],
+                     ema: Mapping[str, torch.Tensor], opt_state,
+                     meta: Optional[Dict] = None) -> None:
+    """One training checkpoint (the reference booster's save, train.py:
+    243-257): {'params', 'ema', 'opt_state'} by `torch.save`, the counters
+    in `<path>.meta.json`."""
+    torch.save({"params": {k: v.detach() for k, v in params.items()},
+                "ema": dict(ema), "opt_state": opt_state}, path)
+    with open(path + ".meta.json", "w") as f:
+        json.dump(meta or {}, f)
+
+
+def load_train_state(path: str, device=None) -> tuple:
+    """(params, ema, opt_state, meta) of a `save_train_state` file, its
+    tensors on device; meta {} without a sidecar."""
+    state = torch.load(path, map_location=device, weights_only=True)
+    meta = {}
+    if os.path.exists(path + ".meta.json"):
+        with open(path + ".meta.json") as f:
+            meta = json.load(f)
+    return state["params"], state["ema"], state["opt_state"], meta
 
 
 # ---------------- quant checkpoints (the JAX package's format) ----------
