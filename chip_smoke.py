@@ -224,14 +224,40 @@ Phases (any failure exits non-zero):
      five layers fp; finite losses, the fake-quantized weights move). Each
      with its seconds, ms per step after the first (the checkpoint writes
      apart), peak memory, losses and K3 launches, exactly 168 a
-     micro-step (28 blocks x 3 sites, forward and recompute).
+     micro-step (28 blocks x 3 sites, forward and recompute). The models
+     of `train` and of the in-process steps start from JAX's
+     initialisers (`utils/workload.jax_init_`, ROADMAP C20);
+  12. parallel (last; `phase_parallel`): two ranks spawned on the one
+     card (`parallel_rank`, `torch.multiprocessing` spawn) in a gloo group
+     (`init_method` a file; every collective staged through the host,
+     `parallel/comm.py`: NCCL refuses two ranks on one device), the
+     parent's models freed first: sequence parallelism at sp = 2 on
+     STDiT-XL/2 16x512x512 at `PAR_SP_DEPTH` blocks of full width, one
+     batch-2 forward a run, Ulysses in bf16
+     and under the sm8 plan, each against the same computation in one
+     process (the same linears, K3 over all 16 heads, `whole_attention`;
+     K3 at 8 heads `2 * PAR_SP_DEPTH` launches a rank, `ulysses_heads`),
+     and
+     ring in bf16 against Ulysses; the GPipe pipeline at pp = 2 with
+     `PAR_N_MB` microbatches on STDiT-XL/2 (bf16, sm8) and PixArt-α 512
+     (bf16), against the forward at stage 'all'; one train step at dp = 2
+     (ZeRO moments) and at tp = 2 (`PAR_TRAIN_DEPTH` blocks) through
+     `pipelines/train.train_loop`
+     (STDiT-XL/2 with gradient checkpointing, batch 2, JAX's initialisers),
+     the loss, the update and the first moments against the one-process
+     step rank 0 runs first, each rank's peak memory; then NCCL at world
+     size 1 in this process: a pp forward and a train step
+     (`PAR_TRAIN_DEPTH` blocks) through the same code against the same work
+     without a mesh. The ranks' ms are not scaling numbers
+     (they share the card and the host's loopback).
 Each arm and each CLI command resets the launch counts just before its run
 and reads them just after; one that launches a kernel outside its list,
 or none of one in it, fails; the arms held to per-block counts
 (`BLOCK_LAUNCHES`) must hit them exactly. The third-to-last line is the
 card's name and power limit, the second-to-last a JSON object with one
 entry per kernel (launches summed over all arms of both slices and the
-CLI's, recon's, samplers', recon_sigma's and train's commands), the last
+CLI's, recon's, samplers', recon_sigma's and train's commands and both
+ranks of phase parallel), the last
 {"ok": true,
 "device": {...}}.
 """
@@ -4446,7 +4472,7 @@ def phase_train() -> dict:
         noise = torch.randn((2, *latent), generator=torch.Generator(
             "cuda").manual_seed(1), device="cuda")
         model = workload.build_model(cfg, device="cuda")
-        workload.random_init_(model, 0, 0.02)
+        workload.jax_init_(model, 0)  # the train command's draw (C20)
         fp_losses = in_process_steps(
             f"one batch, lr {TRAIN_FIXED_LR}", model,
             lambda opt: tr.make_train_step(
@@ -4455,7 +4481,7 @@ def phase_train() -> dict:
         if not fp_losses[-1] < fp_losses[0]:
             fail(f"train: the loss on one batch does not fall: {fp_losses}")
         model = workload.build_model(cfg, qat_resolver(), device="cuda")
-        workload.random_init_(model, 0, 0.02)
+        workload.jax_init_(model, 0)
         calibrate_weight_tables(model)
         fc1 = model.blocks[0].mlp.fc1
         spec = fc1.lspec.weight
@@ -4481,6 +4507,489 @@ def phase_train() -> dict:
                  "move")
         model = None
     print(f"phase train: {time.time() - t_phase:.1f} s", flush=True)
+    return counts
+
+
+# ---------------- phase parallel ----------------
+
+PAR_WORLD = 2              # ranks sharing the one card over gloo
+PAR_TIMEOUT_S = 900        # the parent's wait for the ranks
+PAR_REL_ERR = 1e-2         # an arm against its one-process reference
+# ring attention (float32 softmax, JAX's jnp) against Ulysses (K3: q and k
+# rounded to bf16) in a bf16 model: the bf16 noise floor of TINY_REL_ERR
+PAR_RING_REL = 3e-2
+PAR_LOSS_REL = 1e-3
+# one AdamW step (lr 1e-4): the update against the one-process step's, in
+# norm and direction. The first update is ~lr * sign(g) an element, so a
+# gradient within bf16 noise of 0 (tp sums two bf16 partial products of a
+# row-parallel layer) flips its element's step: 0.1 in norm is ~0.25% of
+# the elements flipped (the CPU rehearsal's tiny bf16 model: 0.064, cosine
+# 0.998)
+PAR_UPDATE_REL, PAR_UPDATE_COS = 1e-1, 0.99
+# the train arms clip at a norm no step reaches: the norm is still taken
+# over the mesh, and the first moments, (1 - b1) times the gradient, keep
+# its scale (a clipped gradient's is 1 - b1 whatever its scale)
+PAR_CLIP = 1e6
+# the first moments against the one-process step's: the whole in norm,
+# and each tensor's norm (those above PAR_MU_FLOOR of the largest) within
+# PAR_MU_REL of its reference's, so a gradient summed twice over tp or
+# not averaged over dp (a factor 2) fails
+PAR_MU_REL, PAR_MU_FLOOR = 5e-2, 1e-3
+PAR_N_MB = 2               # pipeline microbatches (batch 2: one a stage)
+# the train arms' blocks (dp, tp, NCCL), at full width: under tp every
+# row-parallel output and every column-parallel input gradient is a
+# host-staged all-reduce of a [2, 16384, 1152] activation (16 a block a
+# step under checkpointing; 72.6 s at 28 blocks on an H100 80GB HBM3 at
+# 700 W), and the whole script nears its time limit at 28 (1038 s), so
+# they run half the stack; each one-process reference the same depth
+PAR_TRAIN_DEPTH = 14
+# the sp arms' blocks at full width: each Ulysses attention moves ~230 MB
+# a rank through the host (its all-to-alls and the output's all-gather:
+# ~0.55 s each, 31 s a 28-block forward on an H100 80GB HBM3 at 700 W),
+# so they run a quarter of the stack; each rank's K3 launches a forward
+# are its spatial and temporal attention at 8 of the 16 heads and its
+# cross attention at 16
+PAR_SP_DEPTH = 7
+
+
+def caption_shape(cfg) -> tuple:
+    m = cfg["model"]
+    return (1, m.get("model_max_length", 120),
+            m.get("caption_channels", 4096))
+
+
+def par_inputs(cfg, scale: float):
+    """(x, t, y, mask) of one batch-2 CFG forward on the card, seed 0: x
+    the workload's latent x scale, t 500, y x 0.1, an all-ones mask."""
+    import torch
+    from viditq_tpu_torch.utils.workload import latent_size
+    rng = np.random.default_rng(0)
+    _, n_prompt, cap = caption_shape(cfg)
+    x = torch.tensor(rng.standard_normal((2, 4, *latent_size(cfg))) * scale,
+                     dtype=torch.bfloat16, device="cuda")
+    y = torch.tensor(rng.standard_normal((2, 1, n_prompt, cap)) * 0.1,
+                     dtype=torch.bfloat16, device="cuda")
+    t = torch.full((2,), 500.0, device="cuda")
+    mask = torch.ones((2, n_prompt), dtype=torch.int32, device="cuda")
+    return x, t, y, mask
+
+
+@contextlib.contextmanager
+def whole_attention():
+    """The sp branch computed in one process: Ulysses' and ring's
+    attention as `attention_bnhd` over all heads (K3 bf16), no
+    collectives."""
+    from viditq_tpu_torch.kernels.attention import attention_bnhd
+    from viditq_tpu_torch.parallel import ring, ulysses
+
+    def local(q, k, v, mesh, scale=None):
+        return attention_bnhd(q, k, v, scale=scale)
+    saved = ulysses.ulysses_attention, ring.ring_attention
+    ulysses.ulysses_attention = ring.ring_attention = local
+    try:
+        yield
+    finally:
+        ulysses.ulysses_attention, ring.ring_attention = saved
+
+
+@contextlib.contextmanager
+def ulysses_heads(seen: dict):
+    """Counts Ulysses' local attention calls by their head count."""
+    from viditq_tpu_torch.parallel import ulysses
+    real = ulysses.attention_bnhd
+
+    def spy(q, k, v, **kw):
+        seen[q.shape[2]] = seen.get(q.shape[2], 0) + 1
+        return real(q, k, v, **kw)
+    ulysses.attention_bnhd = spy
+    try:
+        yield
+    finally:
+        ulysses.attention_bnhd = real
+
+
+def _par_compare(label, got, want, tol, report):
+    import torch
+    g, w = got.float(), want.float()
+    rel = float((g - w).norm() / w.norm())
+    err = float((g - w).abs().max())
+    report["lines"].append(f"  parallel {label}: max |diff| {err!r}, rel "
+                           f"err {rel!r} (limit {tol})")
+    if not (torch.isfinite(g).all() and rel <= tol):
+        raise RuntimeError(f"parallel {label}: rel err {rel} > {tol}")
+    return rel
+
+
+SP_SM8_KERNELS = ("int8_consumer_matmul", "attention_bnhd",
+                  "quantize_rows", "fused_dynq_int8_matmul")
+
+
+def _par_run(label, fn, report, counts, kernels):
+    """fn() on every rank between barriers, its launches counted (reset
+    just before, read just after) and held to exactly `kernels`, and its
+    seconds, on this rank."""
+    import torch
+    import torch.distributed as dist
+    from viditq_tpu_torch.kernels import _counters
+    dist.barrier()
+    torch.cuda.synchronize()
+    _counters.reset()
+    t0 = time.time()
+    out = fn()
+    torch.cuda.synchronize()
+    secs = time.time() - t0
+    snap = _counters.snapshot()
+    launched = {k: v["launches"] for k, v in snap.items() if v["launches"]}
+    if any(v["plain_cuda"] for v in snap.values()):
+        raise RuntimeError(f"parallel {label}: a plain version ran on CUDA")
+    if set(launched) != set(kernels):
+        raise RuntimeError(f"parallel {label}: launches {launched}, want "
+                           f"each of {kernels} and no other")
+    for k, v in launched.items():
+        counts[k] = counts.get(k, 0) + v
+    report["lines"].append(f"  parallel {label}: {secs:.2f} s on rank 0 "
+                           f"(two ranks share the card over gloo: not a "
+                           f"scaling number), launches {launched}")
+    dist.barrier()
+    return out, launched
+
+
+def _par_sp(report, counts):
+    """Ulysses (bf16, sm8) and ring (bf16) at sp = 2 on STDiT-XL/2."""
+    import torch
+    import torch.distributed as dist
+    from viditq_tpu_torch.parallel.mesh import make_mesh
+    from viditq_tpu_torch.quant.qlinear import QuantCtx
+    lead = dist.get_rank() == 0
+    mesh = make_mesh(sp=PAR_WORLD)
+    cfg = xl_cfg(PAR_SP_DEPTH)
+    x, t, y, mask = par_inputs(cfg, 0.5)
+    ulysses_bf16 = None
+    for mode in ("ulysses", "ring"):
+        model = build_model(cfg, "cuda", model_kw=(
+            ("sp_mesh", mesh), ("sp_mode", mode if mode == "ring"
+                                else "auto")))
+        arms = (("bf16", None), ("sm8", QuantCtx(mode="quant", t_id=500)))
+        for arm, qctx in arms if mode == "ulysses" else arms[:1]:
+            with torch.no_grad():
+                ref = None
+                if lead and mode == "ulysses":
+                    with whole_attention():
+                        ref = model(x, t, y, mask, qctx)
+                seen = {}
+                with ulysses_heads(seen):
+                    got, launched = _par_run(
+                        f"sp {mode} {arm}, {PAR_SP_DEPTH} blocks",
+                        lambda: model(x, t, y, mask, qctx),
+                        report, counts, SP_SM8_KERNELS if qctx is not None
+                        else ("attention_bnhd",))
+            want8 = 2 * PAR_SP_DEPTH if mode == "ulysses" else 0
+            k3 = 3 * PAR_SP_DEPTH if mode == "ulysses" else PAR_SP_DEPTH
+            report["lines"].append(
+                f"  parallel sp {mode} {arm}: Ulysses' attention calls by "
+                f"head count {seen} (want {{8: {want8}}}), K3 "
+                f"{launched.get('attention_bnhd', 0)} (want {k3})")
+            if seen.get(8, 0) != want8 or launched.get(
+                    "attention_bnhd", 0) != k3:
+                raise RuntimeError(f"sp {mode} {arm}: K3 launches")
+            if lead and mode == "ulysses":
+                _par_compare(f"sp ulysses {arm} against one process (the "
+                             f"same linears, K3 over 16 heads)", got, ref,
+                             PAR_REL_ERR, report)
+            if lead and arm == "bf16":
+                if mode == "ulysses":
+                    ulysses_bf16 = got
+                else:
+                    _par_compare("sp ring bf16 against sp ulysses bf16", got,
+                                 ulysses_bf16, PAR_RING_REL, report)
+        model = None
+        torch.cuda.empty_cache()
+
+
+def _par_pp(report, counts):
+    """pp = 2: STDiT-XL/2 bf16 and sm8, PixArt-α 512 bf16."""
+    import torch
+    import torch.distributed as dist
+    from viditq_tpu_torch.parallel.mesh import make_mesh
+    from viditq_tpu_torch.parallel.pipeline import PipelinedModel
+    from viditq_tpu_torch.quant.qlinear import QuantCtx
+    from viditq_tpu_torch.utils import workload
+    lead = dist.get_rank() == 0
+    mesh = make_mesh(pp=PAR_WORLD)
+    for kind, cfg, scale in (
+            ("stdit", STDIT_CFG, 0.5),
+            ("pixart", workload.load_py_config(str(PIXART_WORKLOAD)), 1.0)):
+        model = build_model(cfg, "cuda")
+        x, t, y, mask = par_inputs(cfg, scale)
+        arms = [("bf16", None)]
+        if kind == "stdit":
+            arms.append(("sm8", QuantCtx(mode="quant", t_id=500)))
+        for arm, qctx in arms:
+            with torch.no_grad():
+                ref = model(x, t, y, mask, qctx) if lead else None
+                pm = PipelinedModel(model, mesh, PAR_N_MB)
+                got, _ = _par_run(f"pp {kind} {arm}",
+                                  lambda: pm(x, t, y, mask, qctx), report,
+                                  counts, FUSED_KERNELS if qctx is not None
+                                  else ("attention_bnhd",))
+            if lead:
+                _par_compare(f"pp {kind} {arm} ({PAR_N_MB} microbatches) "
+                             f"against one process at stage 'all'", got,
+                             ref, PAR_REL_ERR, report)
+        model = None
+        torch.cuda.empty_cache()
+
+
+def _update_agreement(got, want, init):
+    """(relative distance, cosine) of two parameter updates."""
+    import torch
+    dot = nw = ng = dd = 0.0
+    for n, w0 in init.items():
+        a = (got[n].double() - w0.double())
+        b = (want[n].double() - w0.double())
+        dot += float((a * b).sum())
+        ng += float((a * a).sum())
+        nw += float((b * b).sum())
+        dd += float(((a - b) ** 2).sum())
+    return (dd / nw) ** 0.5, dot / (ng * nw) ** 0.5
+
+
+def xl_cfg(depth, **model_kw) -> dict:
+    """STDIT_CFG with model_kw in its model dict, cut to `depth` blocks of
+    STDiT-XL/2's width."""
+    model = {**STDIT_CFG["model"], **model_kw}
+    model.update(type="STDiT", depth=depth, hidden_size=1152, num_heads=16,
+                 patch_size=(1, 2, 2))
+    return {**STDIT_CFG, "model": model}
+
+
+def _train_once(mesh, tmp, depth):
+    """One train_loop step of STDiT-XL/2 16x512x512 (`xl_cfg(depth)`, with
+    gradient checkpointing) on synthetic batch 2 from JAX's initialisers
+    (seed 0), clipped at PAR_CLIP: (loss, whole parameters on the host,
+    initial ones, whole first moments on the host)."""
+    from viditq_tpu_torch.parallel.training import gather_state, trainable
+    from viditq_tpu_torch.pipelines.train import train_loop
+    from viditq_tpu_torch.utils import workload
+    cfg = xl_cfg(depth, grad_checkpoint=True)
+    model = workload.jax_init_(workload.build_model(cfg, device="cuda"), 0)
+    init = {n: p.detach().to("cpu", copy=True)
+            for n, p in trainable(model).items()}
+    out = train_loop(model, None, latent_shape=(4, *workload.latent_size(
+        cfg)), caption_shape=caption_shape(cfg), num_steps=1,
+        lr=TRAIN_FIXED_LR, grad_clip=PAR_CLIP, save_dir=str(tmp),
+        log_every=0, mesh=mesh)
+    params, st = out["params"], out["opt_state"]
+    if mesh is not None:  # the tp shards and ZeRO slices joined (of
+        # the first moments alone: each tensor crosses the host)
+        params, _, st = gather_state(params, {}, {
+            "count": st["count"], "mu": st["mu"], "nu": {}}, mesh)
+    return (float(out["step_losses"][0]),
+            {n: p.detach().cpu() for n, p in params.items()}, init,
+            {n: m.cpu() for n, m in st["mu"].items()})
+
+
+def _moment_agreement(got, want):
+    """(relative distance of the whole first moments, the worst |norm /
+    reference norm - 1| of a tensor above PAR_MU_FLOOR of the largest)."""
+    norms = {n: float(w.double().norm()) for n, w in want.items()}
+    top = max(norms.values())
+    dd = sum(float((got[n].double() - w.double()).square().sum())
+             for n, w in want.items())
+    worst = max(abs(float(got[n].double().norm()) / v - 1)
+                for n, v in norms.items() if v > PAR_MU_FLOOR * top)
+    return (dd / sum(v * v for v in norms.values())) ** 0.5, worst
+
+
+def _par_train(report, counts, tmp):
+    """One step at dp = 2 (ZeRO moments) and at tp = 2 through
+    pipelines/train.train_loop, each against the one-process step on the
+    same batch and noise (run first by rank 0 alone)."""
+    import torch
+    import torch.distributed as dist
+    from viditq_tpu_torch.parallel.mesh import make_mesh
+    lead = dist.get_rank() == 0
+    depth = PAR_TRAIN_DEPTH
+    for axes in ({"dp": PAR_WORLD}, {"tp": PAR_WORLD}):
+        label = "train " + " ".join(f"{k}={v}" for k, v in axes.items())
+        label += f", {depth} blocks"
+        mesh = make_mesh(**axes)
+        ref = None
+        if lead:
+            torch.cuda.reset_peak_memory_stats()
+            ref = _train_once(None, tmp, depth)
+            report["lines"].append(
+                f"  parallel {label}: the one-process step's loss "
+                f"{ref[0]!r}, peak memory "
+                f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+            torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        got, _ = _par_run(label, lambda: _train_once(mesh, tmp, depth),
+                          report, counts, ("attention_bnhd",))
+        peak = torch.tensor([torch.cuda.max_memory_allocated() / 2 ** 30])
+        peaks = [torch.zeros(1) for _ in range(PAR_WORLD)]
+        dist.all_gather(peaks, peak)
+        torch.cuda.empty_cache()
+        if not lead:
+            continue
+        loss_rel = abs(got[0] - ref[0]) / abs(ref[0])
+        rel, cos = _update_agreement(got[1], ref[1], ref[2])
+        mu_rel, mu_norm = _moment_agreement(got[3], ref[3])
+        report["lines"].append(
+            f"  parallel {label}: loss {got[0]!r} against {ref[0]!r} (rel "
+            f"{loss_rel!r}, limit {PAR_LOSS_REL}); the update against the "
+            f"one-process step's: rel {rel!r} (limit {PAR_UPDATE_REL}), "
+            f"cosine {cos!r} (limit {PAR_UPDATE_COS}); the first moments: "
+            f"rel {mu_rel!r}, worst tensor norm off by {mu_norm!r} (limits "
+            f"{PAR_MU_REL}); peak memory by rank "
+            f"{[round(float(p), 2) for p in peaks]} GiB")
+        if not (loss_rel <= PAR_LOSS_REL and rel <= PAR_UPDATE_REL
+                and cos >= PAR_UPDATE_COS and mu_rel <= PAR_MU_REL
+                and mu_norm <= PAR_MU_REL):
+            raise RuntimeError(f"parallel {label} differs from one process: "
+                               f"{report['lines'][-1]}")
+        ref = got = None
+
+
+def parallel_rank(rank: int, world: int, init_file: str, results) -> None:
+    """One rank of phase parallel (spawned): gloo over `init_file`, the
+    arms in turn; puts (rank, 'ok', report) or (rank, 'error', traceback)
+    on results."""
+    import tempfile
+    import traceback
+    import torch
+    import torch.distributed as dist
+    try:
+        sys.path.insert(0, str(ROOT))
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        from viditq_tpu_torch.parallel.mesh import init_distributed
+        init_distributed("gloo", device="cuda",
+                         init_method=f"file://{init_file}", rank=rank,
+                         world_size=world)
+        report, counts = {"lines": []}, {}
+        _par_sp(report, counts)
+        _par_pp(report, counts)
+        with tempfile.TemporaryDirectory(prefix="viditq_par_") as tmp:
+            _par_train(report, counts, tmp)
+        report["counts"] = counts
+        dist.destroy_process_group()
+        results.put((rank, "ok", report))
+    except BaseException:
+        results.put((rank, "error", traceback.format_exc()))
+        raise
+
+
+def _par_nccl(counts) -> None:
+    """World size 1 on NCCL (`init_distributed` picks it for the card):
+    one pp forward and one train step through the code of the gloo arms,
+    the collectives degenerate; each against the same work without a
+    mesh."""
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    from viditq_tpu_torch.parallel.mesh import init_distributed, make_mesh
+    from viditq_tpu_torch.parallel.pipeline import PipelinedModel
+    with tempfile.TemporaryDirectory(prefix="viditq_nccl_") as tmp:
+        init_distributed(device="cuda", init_method=f"file://{tmp}/pg",
+                         rank=0, world_size=1)
+        try:
+            backend = dist.get_backend()
+            if backend != "nccl":
+                fail(f"parallel nccl: the default group runs {backend}")
+            model = build_model(STDIT_CFG, "cuda")
+            x, t, y, mask = par_inputs(STDIT_CFG, 0.5)
+            with torch.no_grad():
+                ref = model(x, t, y, mask)
+                pm = PipelinedModel(model, make_mesh(pp=1), PAR_N_MB)
+                torch.cuda.synchronize()
+                _counters_reset()
+                got = pm(x, t, y, mask)
+                torch.cuda.synchronize()
+                _counts_into(counts)
+            model = None
+            torch.cuda.empty_cache()
+            rel = float((got - ref).norm() / ref.norm())
+            print(f"  parallel nccl world 1 (backend {backend}): pp forward "
+                  f"against stage 'all': rel err {rel!r} (limit "
+                  f"{PAR_REL_ERR})", flush=True)
+            if not rel <= PAR_REL_ERR:
+                fail(f"parallel nccl pp: rel err {rel}")
+            one = _train_once(None, tmp, PAR_TRAIN_DEPTH)
+            torch.cuda.empty_cache()
+            _counters_reset()
+            got = _train_once(make_mesh(dp=1), tmp, PAR_TRAIN_DEPTH)
+            _counts_into(counts)
+            rel, cos = _update_agreement(got[1], one[1], one[2])
+            mu_rel, mu_norm = _moment_agreement(got[3], one[3])
+            print(f"  parallel nccl world 1: train step loss {got[0]!r} "
+                  f"against {one[0]!r} without a mesh; update rel {rel!r}, "
+                  f"cosine {cos!r}; first moments rel {mu_rel!r}, worst "
+                  f"tensor norm off by {mu_norm!r}", flush=True)
+            if not (abs(got[0] - one[0]) <= PAR_LOSS_REL * abs(one[0])
+                    and rel <= PAR_UPDATE_REL and cos >= PAR_UPDATE_COS
+                    and mu_rel <= PAR_MU_REL and mu_norm <= PAR_MU_REL):
+                fail("parallel nccl: the train step differs")
+        finally:
+            dist.destroy_process_group()
+
+
+def _counters_reset() -> None:
+    from viditq_tpu_torch.kernels import _counters
+    _counters.reset()
+
+
+def _counts_into(counts) -> None:
+    from viditq_tpu_torch.kernels import _counters
+    for k, v in _counters.snapshot().items():
+        if v["plain_cuda"]:
+            fail(f"parallel: the plain version of {k} ran on CUDA")
+        counts[k] = counts.get(k, 0) + v["launches"]
+
+
+def phase_parallel() -> dict:
+    """Parallelism on the card (module header, phase 12): PAR_WORLD ranks
+    spawned over gloo on the one card (`parallel_rank`), then NCCL at world
+    size 1 in this process. Returns each kernel's launches (both ranks')."""
+    import gc
+    import tempfile
+    import torch
+    import torch.multiprocessing as mp
+    gc.collect()
+    torch.cuda.empty_cache()  # the parent's models are gone
+    t_phase = time.time()
+    counts = {}
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    with tempfile.TemporaryDirectory(prefix="viditq_pg_") as tmp:
+        procs = [ctx.Process(target=parallel_rank,
+                             args=(r, PAR_WORLD, f"{tmp}/pg", results))
+                 for r in range(PAR_WORLD)]
+        for p in procs:
+            p.start()
+        got = {}
+        try:
+            for _ in range(PAR_WORLD):
+                rank, status, val = results.get(timeout=PAR_TIMEOUT_S)
+                if status != "ok":
+                    fail(f"parallel rank {rank}:\n{val}")
+                got[rank] = val
+        finally:
+            for p in procs:
+                p.join(timeout=60)
+                if p.is_alive():
+                    p.terminate()
+                    p.join(timeout=30)
+        if any(p.exitcode != 0 for p in procs):
+            fail(f"parallel: rank exit codes {[p.exitcode for p in procs]}")
+    for line in got[0]["lines"]:
+        print(line, flush=True)
+    for r in range(PAR_WORLD):
+        for k, v in got[r]["counts"].items():
+            counts[k] = counts.get(k, 0) + v
+    _par_nccl(counts)
+    print(f"phase parallel: {time.time() - t_phase:.1f} s", flush=True)
     return counts
 
 
@@ -4521,6 +5030,8 @@ def main() -> int:
     for k, n in phase_recon_sigma().items():
         launches[k] += n
     for k, n in phase_train().items():
+        launches[k] += n
+    for k, n in phase_parallel().items():
         launches[k] += n
 
     kernels = []

@@ -77,8 +77,9 @@ def test_grad_accum_with_warmup(tmp_path):
     the first step's rate is 0, so the parameters are the initial draw;
     the second moves them."""
     cfg = workload.load_py_config(CFG)
-    init = workload.random_init_(workload.build_model(cfg, device="cpu"),
-                                 cli.INIT_SEED, cli.INIT_SCALE)
+    # the train command's draw: JAX's initialisers (ROADMAP C20)
+    init = workload.jax_init_(workload.build_model(cfg, device="cpu"),
+                              cli.INIT_SEED)
     one = _train(tmp_path / "a", "--num_steps", "1", "--grad_accum", "2",
                  "--warmup_steps", "2")
     two = _train(tmp_path / "b", "--num_steps", "2", "--grad_accum", "2",
@@ -108,14 +109,20 @@ def test_config_grad_checkpoint_trains_the_same(full, tmp_path):
         assert torch.equal(v, gc["params"][n]), n
 
 
+# --dp/--sp/--tp above 1 outside torchrun: the world size (1) is not
+# dp x sp x tp (parallel training itself: tests/test_torch_train_parallel.py)
 @pytest.mark.parametrize("extra,error,match", [
-    (("--dp", "2"), NotImplementedError, "item 6"),
-    (("--sp", "2"), NotImplementedError, "item 6"),
-    (("--tp", "2"), NotImplementedError, "item 6"),
+    (("--dp", "2"), SystemExit, "world size 1 differs"),
+    (("--sp", "2"), SystemExit, "world size 1 differs"),
+    (("--tp", "2"), SystemExit, "world size 1 differs"),
     (("--data_path", "clips.csv"), NotImplementedError, "item 7"),
     (("--no_vae",), ValueError, "--data_path"),
     (("--vae_ckpt", "vae.msgpack"), ValueError, "--data_path"),
-])
+], ids=["extra0-NotImplementedError-item 6",
+        "extra1-NotImplementedError-item 6",
+        "extra2-NotImplementedError-item 6",
+        "extra3-NotImplementedError-item 7",
+        "extra4-ValueError---data_path", "extra5-ValueError---data_path"])
 def test_train_refuses_what_is_not_ported(tmp_path, extra, error, match):
     with pytest.raises(error, match=match):
         _train(tmp_path, "--num_steps", "1", *extra)

@@ -51,12 +51,19 @@ into `quant_ckpt.npz`.
 `train` (JAX cli.py:569-626) trains the workload's model on synthetic
 batches (`pipelines/train.train_loop`: latents (4, *latent_size),
 captions (1, model_max_length, caption_channels), batch 2 x --grad_accum)
-from the seeded draw of the parameters, with `--resume_from` a
+from JAX's initialisers (`utils/workload.jax_init_`, seed 0: the JAX
+command starts from `model.init`), with `--resume_from` a
 `train_state_<step>.pt` of `--ckpt_every` (the port's one format: the
 JAX `--ckpt_format` choices are flax msgpack and orbax, not ported). A
 config's `model=dict(grad_checkpoint=True)` recomputes each block in the
-backward pass. `--dp/--sp/--tp` above 1 (parallelism, queue item 6) and
-`--data_path` (the CSV dataset and the VAE, item 7) raise.
+backward pass. `--dp/--sp/--tp` above 1 run under torchrun (`python -m
+torch.distributed.run --nproc_per_node <dp*sp*tp> -m viditq_tpu_torch.cli
+train ...`; a world size that differs from dp*sp*tp refuses): the mesh of
+`parallel/mesh.py` over nccl on the card or gloo with `--device cpu`, the
+batch over dp with ZeRO-sharded moments, the blocks' linears over tp;
+the model carries no sp mesh, as in JAX (cli.py:580), so sp ranks
+compute the same replica. `--data_path` (the CSV dataset and the VAE,
+item 7) raises.
 
 Not ported: get-text-embeds and the 'clip' metric (T5/CLIP weights),
 extract-features (the VAE), training from `--data_path`, and export
@@ -535,7 +542,8 @@ def cmd_calibrate_ptqd_k(args):
 
 
 def cmd_train(args):
-    """Synthetic-data training (module docstring). Returns the last
+    """Synthetic-data training (module docstring), over a mesh under
+    torchrun when --dp * --sp * --tp > 1. Returns the last
     checkpoint written ('out', None without --ckpt_every), 'seconds' of
     the loop, 'ckpt_seconds' of its checkpoint writes, 'ms_per_step'
     after the first step without those writes (the device synchronised
@@ -543,10 +551,13 @@ def cmd_train(args):
     final 'params' and 'ema'."""
     import torch
     from viditq_tpu_torch.pipelines.train import train_loop
-    if args.dp * args.sp * args.tp > 1:
-        raise NotImplementedError(
-            "--dp/--sp/--tp above 1: parallelism is not ported yet (queue "
-            "item 6)")
+    world = args.dp * args.sp * args.tp
+    launched = int(os.environ.get("WORLD_SIZE", "1"))
+    if launched != world:
+        raise SystemExit(
+            f"train: the world size {launched} differs from --dp x --sp x "
+            f"--tp = {world}: run it under torchrun (python -m "
+            f"torch.distributed.run --nproc_per_node {world} ...)")
     if args.data_path:
         raise NotImplementedError(
             "--data_path: the CSV dataset and the VAE are not ported yet "
@@ -554,13 +565,24 @@ def cmd_train(args):
     if args.no_vae or args.vae_ckpt:
         raise ValueError("--no_vae and --vae_ckpt apply to --data_path "
                          "training only")
+    mesh, device = None, args.device
+    if world > 1:
+        from viditq_tpu_torch.parallel.mesh import (init_distributed,
+                                                    make_mesh)
+        init_distributed(device=device)
+        if torch.device(device).type == "cuda":
+            device = f"cuda:{torch.cuda.current_device()}"
+        # the model carries no sp mesh, as in JAX (cli.py:580): the sp
+        # ranks compute the same replica (ROADMAP C21)
+        mesh = make_mesh(dp=args.dp, sp=args.sp, tp=args.tp)
     cfg = workload.load_py_config(args.config)
-    model = workload.build_model(cfg, device=args.device)
-    workload.random_init_(model, INIT_SEED, INIT_SCALE)
+    model = workload.build_model(cfg, device=device)
+    if not args.resume_from:  # else the checkpoint's parameters
+        workload.jax_init_(model, INIT_SEED)
     mcfg = cfg.get("model", {})
     cap_shape = (1, mcfg.get("model_max_length", 120),
                  mcfg.get("caption_channels", 4096))
-    sync = (torch.cuda.synchronize if str(args.device).startswith("cuda")
+    sync = (torch.cuda.synchronize if str(device).startswith("cuda")
             else (lambda: None))
     marks = []
 
@@ -576,9 +598,11 @@ def cmd_train(args):
         lr=args.lr, ckpt_every=args.ckpt_every, save_dir=args.save_dir,
         grad_accum=args.grad_accum, grad_clip=args.grad_clip,
         warmup_steps=args.warmup_steps, resume_from=args.resume_from,
-        on_step_end=mark)
+        on_step_end=mark, mesh=mesh)
     sync()
     t1 = time.perf_counter()
+    if mesh is not None:
+        torch.distributed.destroy_process_group()
     steps = len(out["step_losses"])
     losses = out["step_losses"].float().cpu().tolist()
     saves = out["ckpt_seconds"]

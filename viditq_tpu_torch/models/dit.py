@@ -42,7 +42,8 @@ class DiTBlock(nn.Module):
         super().__init__()
         C = hidden_size
         self.dtype = dtype
-        self.adaLN_linear = QuantLinear(C, 6 * C, dtype=dtype)
+        self.adaLN_linear = QuantLinear(C, 6 * C, dtype=dtype,
+                                        kernel_init="lecun_normal")
         kw = dict(token_layout=token_layout, d_t=d_t, d_s=d_s)
         self.attn = SelfAttention(C, num_heads, resolver, f"{prefix}.attn",
                                   dtype, **kw)

@@ -153,7 +153,7 @@ def fake_quant_attention(q, k, v, spec, scale: float, kv_mask=None):
 
 
 def ln_mod_prequant(resolver: Resolver, prefix: str, inp, shift, scale,
-                    spec_names, qctx, consumer: QuantLinear
+                    spec_names, qctx, consumer: QuantLinear, sp_mesh=None
                     ) -> Optional[Prequant]:
     """Fused LN + adaLN modulate + row quantize producer (layers.py:310-359):
     one K1 pass emits the int8 codes (and, for asym acts or weights, the
@@ -164,7 +164,10 @@ def ln_mod_prequant(resolver: Resolver, prefix: str, inp, shift, scale,
     spec_names[0]) folds into the adaLN vectors, since
     LN(x)*(1+scale)*ics + shift*ics = LN(x)*((1+scale)*ics) + shift*ics:
     shift*ics and (1+scale)*ics - 1 in f32, rounded to the vectors' dtype
-    (layers.py:349-354). K1 itself is unchanged."""
+    (layers.py:349-354). K1 itself is unchanged. None under an sp mesh
+    (layers.py:325-326)."""
+    if sp_mesh is not None:
+        return None
     specs = [resolver(f"{prefix}.{n}") for n in spec_names]
     s0 = specs[0]
     if (s0 is None or any(s != s0 for s in specs)
@@ -273,14 +276,30 @@ class SelfAttention(nn.Module):
     token_layout / d_t / d_s: the token view of its linears' token-wise
     act quantization (STDiT's spatial attention: 'spatial'). qk_norm: q
     and k each through an affine LayerNorm over a head's channels before
-    the attention, on every path (the kernels, the fake-quant fallback)."""
+    the attention, on every path (the kernels, the fake-quant fallback).
+
+    sp_mesh (a `parallel.mesh.Mesh`) / sp_mode: sequence parallelism
+    (layers.py:415-419, :460-479). With an sp axis of size > 1 dividing N
+    and, for Ulysses, H, the attention runs through `ulysses_attention`
+    ('ulysses'; 'auto' where sp divides H) or `ring_attention` ('ring';
+    'auto' otherwise) on the q/k/v of the linears, and the proj takes its
+    float output: as in JAX the branch returns before the plan's attention
+    quantizers (softmax, attention acts, int8 q.k and PV) and the int8
+    emission are read, and before qk_norm. Under tensor parallelism
+    (`parallel/training.tp_shard_`) `num_heads` is this rank's share and
+    the linears' widths follow it."""
 
     def __init__(self, dim: int, num_heads: int, resolver: Resolver = no_quant,
                  prefix: str = "", dtype=torch.bfloat16, seg_len: int = 0,
                  token_layout: Optional[str] = None, d_t: int = 1,
-                 d_s: int = 1, qk_norm: bool = False):
+                 d_s: int = 1, qk_norm: bool = False, sp_mesh=None,
+                 sp_mode: str = "auto"):
         super().__init__()
+        if sp_mode not in ("auto", "ulysses", "ring"):
+            raise ValueError(f"unknown sp_mode {sp_mode!r}")
         self.num_heads = num_heads
+        self.head_dim = dim // num_heads
+        self.sp_mesh, self.sp_mode = sp_mesh, sp_mode
         self.seg_len = seg_len
         self.qk_norm = qk_norm
         if qk_norm:
@@ -305,9 +324,9 @@ class SelfAttention(nn.Module):
         proj's 1/cs goes into the attention's emission (:481-530).
         `epilogue`: (residual, gate | None) for the proj; the return value
         is then the updated residual stream (layers.py:423-430)."""
-        B, N, C = x.shape if x is not None else shape
-        H = self.num_heads
-        D = C // H
+        B, N, _ = x.shape if x is not None else shape
+        H, D = self.num_heads, self.head_dim
+        C = H * D  # the q/k/v width (this rank's heads under tp)
         pre = prequant
         s0 = self.specs[0]
         if (pre is None and all(s == s0 for s in self.specs)
@@ -318,6 +337,15 @@ class SelfAttention(nn.Module):
         q = self.q(x, qctx, prequant=pre).reshape(B, N, H, D)
         k = self.k(x, qctx, prequant=pre).reshape(B, N, H, D)
         v = self.v(x, qctx, prequant=pre).reshape(B, N, H, D)
+        sp = 1 if self.sp_mesh is None else self.sp_mesh.shape["sp"]
+        ring = self.sp_mode == "ring" or (self.sp_mode == "auto"
+                                          and H % sp != 0)
+        if sp > 1 and N % sp == 0 and (ring or H % sp == 0):
+            from viditq_tpu_torch.parallel.ring import ring_attention
+            from viditq_tpu_torch.parallel.ulysses import ulysses_attention
+            out = (ring_attention if ring else ulysses_attention)(
+                q, k, v, self.sp_mesh, scale=D ** -0.5)
+            return self.proj(out.reshape(B, N, C), qctx, epilogue=epilogue)
         if self.qk_norm:
             q, k = self.q_norm(q), self.k_norm(k)
         flags = _exec_flags(self.specs[0], qctx)
@@ -500,12 +528,15 @@ class KVCompressSelfAttention(nn.Module):
 
 class CrossAttention(nn.Module):
     """Multi-head cross-attention to 0-masked prompt tokens
-    (layers.py:656-740, the layout-native branch)."""
+    (layers.py:656-740, the layout-native branch). Under tensor
+    parallelism `num_heads` is this rank's share, and `kv_linear` holds
+    the same heads of k and of v (`parallel.mesh.shard_params`)."""
 
     def __init__(self, dim: int, num_heads: int, resolver: Resolver = no_quant,
                  prefix: str = "", dtype=torch.bfloat16):
         super().__init__()
         self.num_heads = num_heads
+        self.head_dim = dim // num_heads
         self.qspec = resolver(f"{prefix}.q_linear")
         self.pspec = resolver(f"{prefix}.proj")
         self.q_linear = QuantLinear(dim, dim, self.qspec, dtype=dtype)
@@ -521,9 +552,10 @@ class CrossAttention(nn.Module):
                 epilogue=None):
         """`epilogue`: (residual, gate | None) for the proj, as
         `SelfAttention`'s."""
-        B, N, C = x.shape
+        B, N, _ = x.shape
         P = cond.shape[-2]
-        H, D = self.num_heads, C // self.num_heads
+        H, D = self.num_heads, self.head_dim
+        C = H * D
         q = self.q_linear(x, qctx)
         kv = self.kv_linear(cond, qctx)
         k, v = torch.split(kv, C, dim=-1)
@@ -604,8 +636,10 @@ class TimestepEmbedder(nn.Module):
         super().__init__()
         self.freq_size = freq_size
         self.dtype = dtype
-        self.fc1 = QuantLinear(freq_size, hidden_size, dtype=dtype)
-        self.fc2 = QuantLinear(hidden_size, hidden_size, dtype=dtype)
+        self.fc1 = QuantLinear(freq_size, hidden_size, dtype=dtype,
+                               kernel_init="lecun_normal")
+        self.fc2 = QuantLinear(hidden_size, hidden_size, dtype=dtype,
+                               kernel_init="lecun_normal")
 
     def forward(self, t):
         emb = timestep_embedding(t, self.freq_size).to(self.dtype)
@@ -617,7 +651,8 @@ class TBlock(nn.Module):
 
     def __init__(self, hidden_size: int, dtype=torch.bfloat16):
         super().__init__()
-        self.linear = QuantLinear(hidden_size, 6 * hidden_size, dtype=dtype)
+        self.linear = QuantLinear(hidden_size, 6 * hidden_size, dtype=dtype,
+                                  kernel_init="lecun_normal")
 
     def forward(self, t):
         return self.linear(F.silu(t))
@@ -645,8 +680,10 @@ class CaptionEmbedder(nn.Module):
         super().__init__()
         self.dtype = dtype
         self.y_embedding = nn.Parameter(torch.zeros(token_num, in_channels))
-        self.fc1 = QuantLinear(in_channels, hidden_size, dtype=dtype)
-        self.fc2 = QuantLinear(hidden_size, hidden_size, dtype=dtype)
+        self.fc1 = QuantLinear(in_channels, hidden_size, dtype=dtype,
+                               kernel_init="lecun_normal")
+        self.fc2 = QuantLinear(hidden_size, hidden_size, dtype=dtype,
+                               kernel_init="lecun_normal")
 
     def forward(self, caption):
         return self.fc2(approx_gelu(self.fc1(caption.to(self.dtype))))
@@ -680,7 +717,7 @@ class PatchEmbed(nn.Module):
         self.patch_size = patch_size
         self.proj = QuantLinear(patch_size * patch_size * in_channels,
                                 embed_dim, resolver(f"{prefix}.proj"),
-                                dtype=dtype)
+                                dtype=dtype, kernel_init="lecun_normal")
 
     def forward(self, x, qctx: Optional[QuantCtx] = None):
         # x: [B, C, H, W] -> [B, h*w, D]
@@ -706,7 +743,7 @@ class PatchEmbed3D(nn.Module):
         self.patch_size = tuple(patch_size)
         self.proj = QuantLinear(int(np.prod(patch_size)) * in_channels,
                                 embed_dim, resolver(f"{prefix}.proj"),
-                                dtype=dtype)
+                                dtype=dtype, kernel_init="lecun_normal")
 
     def forward(self, x, qctx: Optional[QuantCtx] = None):
         # x: [B, C, T, H, W] -> [B, t*h*w, D]
@@ -748,9 +785,10 @@ class FinalLayer(nn.Module):
         super().__init__()
         self.dtype = dtype
         self.adaLN_linear = QuantLinear(hidden_size, 2 * hidden_size,
-                                        dtype=dtype)
+                                        dtype=dtype,
+                                        kernel_init="lecun_normal")
         self.linear = QuantLinear(hidden_size, num_patch * out_channels,
-                                  dtype=dtype)
+                                  dtype=dtype, kernel_init="lecun_normal")
 
     def forward(self, x, c):
         shift, scale = torch.chunk(self.adaLN_linear(F.silu(c)), 2, dim=-1)

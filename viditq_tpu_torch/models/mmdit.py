@@ -67,7 +67,8 @@ class MMDiTBlock(nn.Module):
         self.dtype = dtype
         self.resolver = resolver
         self.prefix = prefix
-        self.adaLN_linear = QuantLinear(C, 12 * C, dtype=dtype)
+        self.adaLN_linear = QuantLinear(C, 12 * C, dtype=dtype,
+                                        kernel_init="lecun_normal")
         self.img_attn = _StreamAttnProj(C, resolver, f"{prefix}.img_attn",
                                         dtype)
         self.txt_attn = _StreamAttnProj(C, resolver, f"{prefix}.txt_attn",
@@ -158,16 +159,17 @@ class MMDiT(nn.Module):
             persistent=False)
         self.x_embedder = PatchEmbed(patch_size, in_channels, C, resolver,
                                      dtype=dtype)
-        self.context_embedder = QuantLinear(caption_channels, C, dtype=dtype)
+        dense = dict(dtype=dtype, kernel_init="lecun_normal")
+        self.context_embedder = QuantLinear(caption_channels, C, **dense)
         self.t_embedder = TimestepEmbedder(C, dtype=dtype)
-        self.y_embedder_fc1 = QuantLinear(pooled_channels, C, dtype=dtype)
-        self.y_embedder = QuantLinear(C, C, dtype=dtype)
+        self.y_embedder_fc1 = QuantLinear(pooled_channels, C, **dense)
+        self.y_embedder = QuantLinear(C, C, **dense)
         self.blocks = nn.ModuleList([
             MMDiTBlock(C, num_heads, mlp_ratio, resolver, f"blocks.{i}",
                        dtype) for i in range(depth)])
-        self.final_adaLN = QuantLinear(C, 2 * C, dtype=dtype)
+        self.final_adaLN = QuantLinear(C, 2 * C, **dense)
         self.final_linear = QuantLinear(C, patch_size ** 2 * in_channels,
-                                        dtype=dtype)
+                                        **dense)
 
     def _pos_embed(self, h: int, w: int):
         if h * w == self.pos_embed.shape[1] and h == w:

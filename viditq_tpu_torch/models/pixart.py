@@ -14,8 +14,9 @@ in float32 for reconstruction. PixArtMS's options are ported: the
 micro-condition (`micro_condition`: the `csize_embedder` and `ar_embedder`
 of `data_info`'s image size and aspect ratio added to the timestep
 embedding), `qk_norm` and every KV-compress sampling. `grad_checkpoint`
-recomputes each block in the backward pass (pixart.py:212-245). The
-pipeline stages are not ported.
+recomputes each block in the backward pass (pixart.py:212-245).
+`forward(..., stage="embed" | "final")` splits the forward around the
+block stack for the pipeline (`parallel/pipeline.py`), as STDiT's does.
 """
 
 from __future__ import annotations
@@ -117,6 +118,9 @@ class PixArt(nn.Module):
                  grad_checkpoint: bool = False):
         super().__init__()
         self.grad_checkpoint = grad_checkpoint
+        self.depth = depth
+        self.kv_compress_scale = kv_compress_scale
+        self.kv_compress_layers = tuple(kv_compress_layers)
         self.micro_condition = micro_condition
         self.input_size = input_size
         self.patch_size = patch_size
@@ -153,18 +157,22 @@ class PixArt(nn.Module):
                                          dtype=dtype)
 
     def forward(self, x, timestep, y, mask=None,
-                qctx: Optional[QuantCtx] = None, data_info=None):
+                qctx: Optional[QuantCtx] = None, data_info=None,
+                stage: str = "all", x_tokens=None):
         """x: [B, C, H, W] at the input_size grid; timestep: [B]; y:
         [B, 1, L, C_cap] or [B, L, C_cap]; mask: [B, L] or the CFG-doubled
         [2B, L]; data_info (micro_condition): {"img_hw": [B or 1, 2],
         "aspect_ratio": [B or 1, 1]}, as the JAX model's (a keyword here:
-        the samplers pass qctx fifth). Returns [B, C_out, H, W] float32."""
+        the samplers pass qctx fifth). Returns [B, C_out, H, W] float32.
+        stage 'embed': (x_tokens, t0, y, mask, (h, w)), the block stack's
+        inputs; 'final': the head on the stack's output x_tokens (y and
+        mask unused) (pixart.py:139-164, :197)."""
         B = x.shape[0]
         C = self.hidden_size
         h = x.shape[-2] // self.patch_size
         w = x.shape[-1] // self.patch_size
-        x = (self.x_embedder(x.to(self.dtype), qctx)
-             + self.pos_embed.to(self.dtype))
+        if stage not in ("all", "embed", "final"):
+            raise ValueError(f"unknown stage {stage!r}")
         t = self.t_embedder(timestep)
         if self.micro_condition:
             if data_info is None:
@@ -173,6 +181,11 @@ class PixArt(nn.Module):
                         for k in ("img_hw", "aspect_ratio"))
             t = t + torch.cat([self.csize_embedder(size, B),
                                self.ar_embedder(ar, B)], dim=1)
+        if stage == "final":
+            return unpatchify(self.final_layer(x_tokens, t, qctx), h, w,
+                              self.patch_size, self.out_channels).float()
+        x = (self.x_embedder(x.to(self.dtype), qctx)
+             + self.pos_embed.to(self.dtype))
         t0 = self.t_block(t)
         y = self.y_embedder(y.to(self.dtype))
         if y.dim() == 4:
@@ -183,6 +196,8 @@ class PixArt(nn.Module):
             elif mask.shape[0] != B:
                 mask = mask.repeat(B // mask.shape[0], 1)
             y = y * mask[..., None].to(y.dtype)
+        if stage == "embed":
+            return x, t0, y, mask, (h, w)
         for block in self.blocks:
             x = call_block(block, self.grad_checkpoint, x, y, t0, mask,
                            (h, w), qctx)

@@ -16,7 +16,18 @@ sows `block_in`, `block_out`, `block_ctx_y` and `block_ctx_t0`, stdit.py:
 48-51, :153-154, :262-265); `standalone_block` is block i alone in float32
 for reconstruction's gradients. `grad_checkpoint` recomputes each block
 in the backward pass (stdit.py:273-290, `models/layers.call_block`).
-Sequence parallelism and the pipeline stages are not ported.
+
+Sequence parallelism (stdit.py:42-43, :104-126): `sp_mesh`, a
+`parallel.mesh.Mesh`, and `sp_mode` reach every block's self-attentions
+(`layers.SelfAttention`), the K1 producers stand aside
+(`layers.ln_mod_prequant`), and the temporal branch leaves the packed
+segment form: its attention runs on [(B S), T, C] with
+`token_layout="temporal"`, which is also the token view of its linears'
+act statistic and per-token quantization (stdit.py:117-126). The stages
+(stdit.py:212-233, :261-262): `forward(..., stage="embed")` stops before
+the block stack and returns (x_tokens, t0, y, mask, tpe); `stage="final"`
+takes the stack's output as `x_tokens` and runs the head; the pipeline
+(`parallel/pipeline.py`) runs the blocks between.
 """
 
 from __future__ import annotations
@@ -46,22 +57,28 @@ class STDiTBlock(nn.Module):
     def __init__(self, hidden_size: int, num_heads: int, d_s: int, d_t: int,
                  mlp_ratio: float = 4.0, resolver: Resolver = no_quant,
                  prefix: str = "", dtype=torch.bfloat16,
-                 fuse_epilogue: bool = False):
+                 fuse_epilogue: bool = False, sp_mesh=None,
+                 sp_mode: str = "auto"):
         super().__init__()
         C = hidden_size
         self.d_s, self.d_t = d_s, d_t
+        self.sp_mesh = sp_mesh
         self.fuse_epilogue = fuse_epilogue
         self.dtype = dtype
         self.resolver = resolver
         self.prefix = prefix
         self.scale_shift_table = nn.Parameter(torch.zeros(6, C))
         # spatial: [(B T), S, C], token-wise acts on the [B, T*S, C] view
+        sp = dict(sp_mesh=sp_mesh, sp_mode=sp_mode)
         self.attn = SelfAttention(C, num_heads, resolver, f"{prefix}.attn",
                                   dtype, token_layout="spatial", d_t=d_t,
-                                  d_s=d_s)
+                                  d_s=d_s, **sp)
+        # packed [B, (S T), C] segments; under sp [(B S), T, C] rows
+        temporal = (dict(seg_len=d_t) if sp_mesh is None else
+                    dict(token_layout="temporal", d_t=d_t, d_s=d_s, **sp))
         self.attn_temp = SelfAttention(C, num_heads, resolver,
                                        f"{prefix}.attn_temp", dtype,
-                                       seg_len=d_t)
+                                       **temporal)
         self.cross_attn = CrossAttention(C, num_heads, resolver,
                                          f"{prefix}.cross_attn", dtype)
         self.mlp = Mlp(C, int(C * mlp_ratio), resolver, f"{prefix}.mlp",
@@ -80,7 +97,7 @@ class STDiTBlock(nn.Module):
         # the K1 producer replaces LN + modulate + the q/k/v quantize
         pre_attn = ln_mod_prequant(self.resolver, self.prefix, x, shift_msa,
                                    scale_msa, ("attn.q", "attn.k", "attn.v"),
-                                   qctx, self.attn.q)
+                                   qctx, self.attn.q, self.sp_mesh)
         x_s = None
         if pre_attn is None:
             x_s = t2i_modulate(layer_norm(x, self.dtype), shift_msa,
@@ -93,10 +110,12 @@ class STDiTBlock(nn.Module):
              else x + gate_msa * x_s.reshape(B, N, C))
 
         # temporal branch, packed as [B, (S T), C] segments of T tokens
+        # (under sp: [(B S), T, C] rows)
         x_t = x.reshape(B, T, S, C).permute(0, 2, 1, 3)
         if tpe is not None:
             x_t = x_t + tpe.to(self.dtype)[None]
-        x_t = self.attn_temp(x_t.reshape(B, S * T, C), qctx)
+        x_t = self.attn_temp(x_t.reshape(B, S * T, C) if self.sp_mesh is None
+                             else x_t.reshape(B * S, T, C), qctx)
         x_t = x_t.reshape(B, S, T, C).permute(0, 2, 1, 3)
         x = x + gate_msa * x_t.reshape(B, N, C)
 
@@ -109,7 +128,7 @@ class STDiTBlock(nn.Module):
         # MLP
         pre_mlp = ln_mod_prequant(self.resolver, self.prefix, x, shift_mlp,
                                   scale_mlp, ("mlp.fc1",), qctx,
-                                  self.mlp.fc1)
+                                  self.mlp.fc1, self.sp_mesh)
         x_in = None
         if pre_mlp is None:
             x_in = t2i_modulate(layer_norm(x, self.dtype), shift_mlp,
@@ -125,7 +144,8 @@ class STDiT(nn.Module):
     """stdit.py:137-452. input_size is the latent [T, H, W]. fuse_epilogue:
     every block's residual adds in its linears' epilogues (`STDiTBlock`);
     grad_checkpoint: each block recomputed in the backward pass; a
-    workload config sets either in its `model` dict."""
+    workload config sets either in its `model` dict. sp_mesh / sp_mode:
+    sequence parallelism (module docstring)."""
 
     def __init__(self, input_size: Tuple[int, int, int] = (16, 64, 64),
                  in_channels: int = 4,
@@ -136,9 +156,11 @@ class STDiT(nn.Module):
                  model_max_length: int = 120, space_scale: float = 1.0,
                  time_scale: float = 1.0, no_temporal_pos_emb: bool = False,
                  resolver: Resolver = no_quant, dtype=torch.bfloat16,
-                 fuse_epilogue: bool = False, grad_checkpoint: bool = False):
+                 fuse_epilogue: bool = False, grad_checkpoint: bool = False,
+                 sp_mesh=None, sp_mode: str = "auto"):
         super().__init__()
         self.grad_checkpoint = grad_checkpoint
+        self.depth = depth
         self.input_size = tuple(input_size)
         self.in_channels = in_channels
         self.patch_size = tuple(patch_size)
@@ -169,17 +191,27 @@ class STDiT(nn.Module):
             STDiTBlock(C, num_heads, d_s=self.num_spatial,
                        d_t=self.num_temporal, mlp_ratio=mlp_ratio,
                        resolver=resolver, prefix=f"blocks.{i}", dtype=dtype,
-                       fuse_epilogue=fuse_epilogue)
+                       fuse_epilogue=fuse_epilogue, sp_mesh=sp_mesh,
+                       sp_mode=sp_mode)
             for i in range(depth)])
         self.final_layer = T2IFinalLayer(C, int(np.prod(patch_size)),
                                           self.out_channels, resolver,
                                           dtype=dtype)
 
     def forward(self, x, timestep, y, mask=None,
-                qctx: Optional[QuantCtx] = None):
+                qctx: Optional[QuantCtx] = None, stage: str = "all",
+                x_tokens=None):
         """x: [B, C, T, H, W]; timestep: [B]; y: [B, 1, L, C_cap] or
         [B, L, C_cap]; mask: [B, L] or the CFG-doubled [2B, L]. Returns
-        [B, C_out, T, H, W] float32."""
+        [B, C_out, T, H, W] float32. stage 'embed': (x_tokens [B, T*S, C],
+        t0, y, mask, tpe), the block stack's inputs; 'final': the head on
+        the stack's output x_tokens (x, y and mask unused)."""
+        if stage == "final":
+            t = self.t_embedder(timestep)
+            return self.unpatchify(self.final_layer(x_tokens, t,
+                                                    qctx)).float()
+        if stage not in ("all", "embed"):
+            raise ValueError(f"unknown stage {stage!r}")
         B = x.shape[0]
         T, S, C = self.num_temporal, self.num_spatial, self.hidden_size
         x = self.x_embedder(x.to(self.dtype), qctx)
@@ -198,6 +230,8 @@ class STDiT(nn.Module):
             y = y * mask[..., None].to(y.dtype)
         tpe = (None if self.no_temporal_pos_emb
                else self.pos_embed_temporal.to(self.dtype))
+        if stage == "embed":
+            return x, t0, y, mask, tpe
         for i, block in enumerate(self.blocks):
             x = call_block(block, self.grad_checkpoint, x, y, t0, mask,
                            tpe if i == 0 else None, qctx)

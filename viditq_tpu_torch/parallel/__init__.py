@@ -1,2 +1,5 @@
-"""Training steps (port of `viditq_tpu/parallel/`; the meshes, sequence
-and pipeline parallelism are not ported yet)."""
+"""Parallelism and the training steps (port of `viditq_tpu/parallel/`):
+the mesh and its collectives over `torch.distributed` (`mesh`, `comm`),
+Ulysses and ring sequence-parallel attention (`ulysses`, `ring`), the
+GPipe pipeline over the block stack (`pipeline`), and the dp/tp training
+step with ZeRO-sharded moments (`training`)."""

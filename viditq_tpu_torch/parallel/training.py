@@ -1,13 +1,30 @@
-"""The diffusion training step (port of `viditq_tpu/parallel/training.py`)
-on one device.
+"""The diffusion training step (port of `viditq_tpu/parallel/training.py`),
+on one device or over a `parallel.mesh.Mesh`.
 
 The JAX step is a pure function of (params, ema, opt_state, batch, rng)
 compiled over a mesh. Here the model owns its parameters: a step runs
 the forward and backward, then updates the parameters (float32
 `nn.Parameter`s, whatever the model's compute dtype), the EMA and the
 optimizer state in place, and returns the loss as a device tensor (no
-host read). The meshes (`shardings_for_state`, `batch_sharding`) are not
-ported.
+host read).
+
+Over a mesh (`make_train_step(..., mesh=)`, the JAX step jitted with
+`shardings_for_state` and `batch_sharding`, training.py:193-230): the
+step takes the global batch on every rank and draws the global noise,
+then each dp rank keeps its slice of both (`batch_sharding`), so dp = n
+computes what dp = 1 does: the local gradients are averaged over dp, the
+loss likewise. ZeRO: each AdamW moment whose first axis divides by dp
+holds this rank's slice of it (`shardings_for_state`); the rank updates
+that slice of the parameter and the slices are all-gathered (every other
+moment, and its update, is whole on every rank). The clip norm is the
+whole gradient's. tp: `tp_shard_` cuts the blocks' linears by the
+Megatron rules (`parallel.mesh.param_sharding_rules`): q/k/v, fc1,
+q_linear and kv_linear column-parallel, proj and fc2 row-parallel (their
+partial products summed over tp, the bias added once), each rank H/tp
+heads; the moments follow the local shard (JAX shards them over dp
+alone: the same numbers). A quantized plan at tp > 1 raises. The sp axis
+replicates: the `train` command's model carries no sp mesh (as in JAX,
+ROADMAP C21), so its sp ranks compute the same step.
 
 `Optimizer` is the optax chain the JAX package builds, in its order:
 global-norm clipping as optax computes it (g * max_norm / ||g|| when
@@ -30,6 +47,9 @@ import numpy as np
 import torch
 from torch import nn
 
+from viditq_tpu_torch.parallel import comm
+from viditq_tpu_torch.parallel.mesh import (Mesh, batch_slice, gather_params,
+                                            shard_params, tp_layout)
 from viditq_tpu_torch.samplers.diffusion_losses import (
     LossSecondMomentResampler, training_losses_full)
 from viditq_tpu_torch.samplers.gaussian_diffusion import (Schedule,
@@ -53,11 +73,14 @@ def init_ema(params) -> Dict[str, torch.Tensor]:
     return {n: p.detach().float().clone() for n, p in params.items()}
 
 
-def clip_by_global_norm_(grads, max_norm: float) -> torch.Tensor:
+def clip_by_global_norm_(grads, max_norm: float, norm=None) -> torch.Tensor:
     """optax.clip_by_global_norm on a list of tensors, in place: each g
     becomes g / ||g|| * max_norm when ||g|| >= max_norm (and stays g
-    exactly otherwise). Returns ||g|| (a device scalar)."""
-    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    exactly otherwise). norm: ||g|| of the whole gradient when `grads` is
+    a shard of it. Returns ||g|| (a device scalar)."""
+    if norm is None:
+        norm = torch.linalg.vector_norm(
+            torch.stack(torch._foreach_norm(grads)))
     keep = norm < max_norm
     one = torch.ones_like(norm)
     torch._foreach_div_(grads, torch.where(keep, one, norm))
@@ -94,16 +117,21 @@ class Optimizer:
                        for n, p in params.items()}}
 
     @torch.no_grad()
-    def step(self, params: Params, state: dict) -> dict:
+    def step(self, params: Params, state: dict, grads=None,
+             norm=None) -> dict:
         """One update of params from their `.grad` (None reads as zeros,
-        JAX's gradient of an unused parameter); updates state in place and
-        returns it."""
+        JAX's gradient of an unused parameter), or from `grads` by name;
+        updates state in place and returns it. norm: the whole gradient's
+        norm for the clip, where params and grads are shards."""
         names = list(params)
         p = [params[n] for n in names]
-        g = [params[n].grad if params[n].grad is not None
-             else torch.zeros_like(params[n]) for n in names]
+        if grads is not None:
+            g = [grads[n] for n in names]
+        else:
+            g = [params[n].grad if params[n].grad is not None
+                 else torch.zeros_like(params[n]) for n in names]
         if self.grad_clip:
-            clip_by_global_norm_(g, self.grad_clip)
+            clip_by_global_norm_(g, self.grad_clip, norm)
         lr = self.learning_rate(state["count"])
         count = state["count"] + 1
         mu = [state["mu"][n] for n in names]
@@ -174,12 +202,165 @@ def _split(batch: dict, n: int):
              for k, v in batch.items()} for i in range(n)]
 
 
+# ---------------- over a mesh ----------------
+
+def zero_slice(shape, mesh: Optional[Mesh]) -> Optional[slice]:
+    """This dp rank's rows of a ZeRO-sharded moment of `shape` (its first
+    axis divides by dp > 1, training.py:209-213), else None (whole)."""
+    dp = 1 if mesh is None else mesh.shape["dp"]
+    if dp == 1 or not len(shape) or shape[0] % dp or shape[0] < dp:
+        return None
+    n = shape[0] // dp
+    r = mesh.coord["dp"]
+    return slice(r * n, (r + 1) * n)
+
+
+def shardings_for_state(mesh: Mesh, params):
+    """(tp layouts, moment slices) by parameter name: each parameter's
+    `mesh.tp_layout` (None: replicated) and the ZeRO slice of its moments
+    (None: whole) (training.py:193-220); params are this rank's."""
+    return ({n: (tp_layout(n) if mesh.shape["tp"] > 1 else None)
+             for n in params},
+            {n: zero_slice(p.shape, mesh) for n, p in params.items()})
+
+
+def batch_sharding(mesh: Mesh, batch: dict) -> dict:
+    """This dp rank's rows of every batch entry (training.py:223-230)."""
+    return {k: None if v is None else batch_slice(v, mesh)
+            for k, v in batch.items()}
+
+
+def init_state(optimizer: Optimizer, params, mesh: Optional[Mesh]) -> dict:
+    """The optimizer state over a mesh: each moment this rank's ZeRO slice
+    of its parameter (or the whole)."""
+    def zeros(p):
+        sl = zero_slice(p.shape, mesh)
+        return torch.zeros_like(p if sl is None else p[sl],
+                                dtype=torch.float32)
+    return {"count": 0, "mu": {n: zeros(p) for n, p in params.items()},
+            "nu": {n: zeros(p) for n, p in params.items()}}
+
+
+def tp_shard_(model: nn.Module, mesh: Mesh) -> nn.Module:
+    """The model cut to this rank's tp shard, in place: the blocks'
+    linears by `mesh.shard_params` (their Parameters replaced), marked
+    column- or row-parallel, and every attention and MLP of the blocks
+    narrowed to this rank's heads and hidden channels. A quantized plan
+    raises: only the fp step runs under tp."""
+    from viditq_tpu_torch.models.layers import (CrossAttention,
+                                                KVCompressSelfAttention,
+                                                Mlp, SelfAttention)
+    from viditq_tpu_torch.quant.qlinear import QuantLinear
+    n = mesh.shape["tp"]
+    if n == 1 or any(getattr(m, "tp_mode", None) is not None
+                     for m in model.modules()):  # once
+        return model
+    for name, m in model.named_modules():
+        if isinstance(m, QuantLinear) and m.path is not None:
+            raise ValueError(
+                f"{name}: a quantized plan under tensor parallelism (tp > "
+                "1) is not ported (queue item 6, parallelism: tp runs the "
+                "fp train step)")
+    full = {k: p.detach() for k, p in model.named_parameters()}
+    for k, t in shard_params(full, mesh).items():
+        if t.shape != full[k].shape:
+            mname, _, leaf = k.rpartition(".")
+            mod = model.get_submodule(mname)
+            old = getattr(mod, leaf)
+            setattr(mod, leaf, nn.Parameter(
+                t.contiguous(), requires_grad=old.requires_grad))
+    group = mesh.group("tp")
+    for name, m in model.named_modules():
+        if not name.startswith("blocks."):
+            continue
+        if isinstance(m, QuantLinear):
+            lay = tp_layout(name + ".kernel")
+            if lay is not None:
+                m.tp_mode = "row" if lay[1] == "row" else "col"
+                m.tp_group = group
+                m.in_features, m.features = m.kernel.shape
+        elif isinstance(m, (SelfAttention, CrossAttention)):
+            if m.num_heads % n:
+                raise ValueError(f"{name}: heads {m.num_heads} not "
+                                 f"divisible by tp={n}")
+            m.num_heads //= n
+        elif isinstance(m, Mlp):
+            m.hidden_features //= n
+        elif isinstance(m, KVCompressSelfAttention):
+            raise ValueError(f"{name}: KV-compressed attention under tp")
+    return model
+
+
+@torch.no_grad()
+def mesh_update(optimizer: Optimizer, params: Params, state: dict,
+                mesh: Mesh) -> None:
+    """One optimizer update over a mesh from the parameters' `.grad`
+    (already averaged over dp): the clip norm over the whole gradient (tp
+    shards' squares summed over tp), each ZeRO-sliced parameter updated
+    in its slice and all-gathered over dp."""
+    layouts, slices = shardings_for_state(mesh, params)
+    grads = {n: p.grad if p.grad is not None else torch.zeros_like(p)
+             for n, p in params.items()}
+    norm = None
+    if optimizer.grad_clip:
+        dev = next(iter(params.values())).device
+        sq_tp = torch.zeros((), device=dev)
+        sq = torch.zeros((), device=dev)
+        for n, g in grads.items():
+            if layouts[n] is not None:
+                sq_tp += g.float().square().sum()
+            else:
+                sq += g.float().square().sum()
+        norm = (comm.all_reduce_(sq_tp, mesh.group("tp")) + sq).sqrt()
+    views = {n: p.data if slices[n] is None else p.data[slices[n]]
+             for n, p in params.items()}
+    gviews = {n: g if slices[n] is None else g[slices[n]]
+              for n, g in grads.items()}
+    optimizer.step(views, state, grads=gviews, norm=norm)
+    dp_group = mesh.group("dp")
+    for n, p in params.items():
+        if slices[n] is not None:
+            p.data.copy_(comm.all_gather(views[n].clone(), dp_group, 0))
+
+
+def gather_state(params, ema, opt_state, mesh: Mesh):
+    """(params, ema, opt_state) whole on every rank, as one process holds
+    them: ZeRO slices all-gathered over dp, tp shards over tp (every rank
+    must call it)."""
+    def whole_moments(d):
+        out = {}
+        for n, t in d.items():
+            if zero_slice(params[n].shape, mesh) is not None:
+                t = comm.all_gather(t, mesh.group("dp"), 0)
+            out[n] = t
+        return gather_params(out, mesh)
+    p = gather_params({n: v.detach() for n, v in params.items()}, mesh)
+    return (p, gather_params(ema, mesh),
+            {"count": opt_state["count"], "mu": whole_moments(
+                opt_state["mu"]), "nu": whole_moments(opt_state["nu"])})
+
+
+def shard_state(ema, opt_state, mesh: Mesh):
+    """A whole (ema, opt_state) cut to this rank's: tp shards, then the
+    moments' ZeRO slices (the inverse of `gather_state`)."""
+    def moments(d):
+        out = {}
+        for n, t in shard_params(d, mesh).items():
+            sl = zero_slice(t.shape, mesh)
+            out[n] = t if sl is None else t[sl].clone()
+        return out
+    return (shard_params(ema, mesh),
+            {"count": opt_state["count"], "mu": moments(opt_state["mu"]),
+             "nu": moments(opt_state["nu"])})
+
+
 def make_train_step(model: nn.Module, schedule: Schedule,
                     optimizer: Optimizer, in_channels: int = 4,
                     ema_decay: float = 0.9999, loss_type: str = "mse",
                     schedule_sampler: Optional[str] = None,
                     grad_accum: int = 1,
-                    noise_fn: Optional[NoiseFn] = None):
+                    noise_fn: Optional[NoiseFn] = None,
+                    mesh: Optional[Mesh] = None):
     """train_step(ema, opt_state, batch, generator) -> loss (training.py:
     51-158): batch {'x0': [B, C, ...], 't': [B] spaced-step ids, 'y',
     'mask' (or None)} on the model's device.
@@ -194,11 +375,21 @@ def make_train_step(model: nn.Module, schedule: Schedule,
     generator, sampler_state) -> (loss, sampler_state): t importance-drawn
     from the state (then the noise, from the same generator), the
     per-sample losses weighted by 1 / (T p), the state updated with them;
-    `train_step.init_sampler_state(device)` is its initial state."""
+    `train_step.init_sampler_state(device)` is its initial state.
+
+    mesh: the step over a mesh (module docstring): the batch is the global
+    one on every rank, the model already `tp_shard_`ed, the optimizer
+    state from `init_state`; the loss returned is the global batch's."""
     if schedule_sampler not in (None, "uniform", "loss-second-moment"):
         raise NotImplementedError(
             f"unknown schedule sampler: {schedule_sampler}")
+    if mesh is not None and schedule_sampler == "loss-second-moment":
+        raise NotImplementedError("loss-second-moment sampling over a mesh")
+    if mesh is not None and mesh.shape["pp"] > 1:
+        raise ValueError("a pp axis trains through "
+                         "parallel/pipeline.make_pp_train_step")
     params = trainable(model)
+    dp = 1 if mesh is None else mesh.shape["dp"]
 
     def per_sample_loss(batch, t, noise):
         def model_fn(x_t, tt):
@@ -211,7 +402,10 @@ def make_train_step(model: nn.Module, schedule: Schedule,
                                     in_channels)["loss"]
 
     def apply_update(ema, opt_state):
-        optimizer.step(params, opt_state)
+        if mesh is None:
+            optimizer.step(params, opt_state)
+        else:
+            mesh_update(optimizer, params, opt_state, mesh)
         for p in params.values():
             p.grad = None
         update_ema(ema, params, ema_decay)
@@ -242,8 +436,12 @@ def make_train_step(model: nn.Module, schedule: Schedule,
         micro = _split(batch, grad_accum) if grad_accum > 1 else [batch]
         loss_sum = None
         for i, mb in enumerate(micro):
+            # the global (micro)batch's noise, then this dp rank's rows
             noise = _draw(mb["x0"].shape, generator, i, noise_fn,
                           mb["x0"].device)
+            if dp > 1:
+                mb, noise = batch_sharding(mesh, mb), batch_slice(noise,
+                                                                  mesh)
             loss = torch.mean(per_sample_loss(mb, mb["t"], noise))
             loss.backward()
             loss = loss.detach()
@@ -254,6 +452,14 @@ def make_train_step(model: nn.Module, schedule: Schedule,
                     if p.grad is not None:
                         p.grad.div_(grad_accum)
             loss_sum = loss_sum / grad_accum
+        if dp > 1:  # the local means' mean: the global batch's
+            with torch.no_grad():
+                group = mesh.group("dp")
+                for p in params.values():
+                    if p.grad is None:
+                        p.grad = torch.zeros_like(p)
+                    comm.all_reduce_(p.grad, group).div_(dp)
+                loss_sum = comm.all_reduce_(loss_sum.clone(), group) / dp
         apply_update(ema, opt_state)
         return loss_sum
 

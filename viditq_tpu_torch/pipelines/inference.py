@@ -61,11 +61,37 @@ def quant_sample(model, sampler, z, y, mask=None,
                  step_indices: Optional[Sequence[int]] = None,
                  act_slot_map: Optional[Sequence[int]] = None,
                  sampler_type: str = "ddim",
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 mesh=None):
     """Quantized inference (reference quant_txt2video.py:29-237): every
     forward gets a 'quant' QuantCtx for its timestep and, under a
-    static-act plan, its table slot (`act_slot_map`, from `run_ptq`)."""
-    return sampler.sample(model, z, y, mask, **_kwargs(
-        sampler, sampler_type, generator, step_indices,
-        qctx_factory=default_qctx_factory("quant",
-                                          act_slot_map=act_slot_map)))
+    static-act plan, its table slot (`act_slot_map`, from `run_ptq`).
+
+    mesh: a `parallel.mesh.Mesh` whose dp axis shards the batch, as the
+    JAX package's sampling jitted with z, y and mask sharded over dp
+    (tests/test_parallel_inference.py:30). Each dp rank samples its rows
+    of z, of y's cond and null halves and of mask; a dynamic act statistic
+    that pools batch rows pools every dp rank's (`quant.core.pooled_over`),
+    as GSPMD keeps the global batch; the samples are gathered, so every
+    rank returns the whole batch. The other axes replicate. A generator
+    is refused there: a rank would draw its slice's noise, not the global
+    batch's."""
+    kw = _kwargs(sampler, sampler_type, generator, step_indices,
+                 qctx_factory=default_qctx_factory(
+                     "quant", act_slot_map=act_slot_map))
+    if mesh is None or mesh.shape["dp"] == 1:
+        return sampler.sample(model, z, y, mask, **kw)
+    from viditq_tpu_torch.parallel.mesh import batch_slice, gather_batch
+    from viditq_tpu_torch.quant.core import pooled_over
+    if generator is not None:
+        raise ValueError("batch-sharded sampling draws no noise: run a "
+                         "deterministic sampler without a generator")
+
+    def rows(t):  # a [cond; null] tensor by halves
+        if t is None or t.shape[0] == z.shape[0]:
+            return batch_slice(t, mesh)
+        return torch.cat([batch_slice(h, mesh) for h in t.chunk(2)])
+    with pooled_over(mesh.group("dp")):
+        out = sampler.sample(model, batch_slice(z, mesh), rows(y),
+                             rows(mask), **kw)
+    return gather_batch(out, mesh)

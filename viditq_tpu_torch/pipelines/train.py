@@ -14,8 +14,12 @@ its noise come from generators seeded by (seed, i) and (seed, 10000 + i)
 (`parallel/training.step_generator`, the JAX package's fold_in of the
 step, :65-75, :144), so a resumed run draws what the uninterrupted one
 drew; the draws are torch's, not threefry's. The running loss stays on
-the device and is read on the host at log steps only. Not ported: the
-meshes (queue item 6), the orbax format, the VAE encoding (item 7).
+the device and is read on the host at log steps only. `mesh` (a
+`parallel.mesh.Mesh`, train.py:104-127): the model is cut to this rank's
+tp shard, the state and each global batch are sharded as
+`parallel/training.py` describes, and the checkpoints are one whole state
+written by rank 0 (gathered from every rank), which resumes at any world
+size. Not ported: the orbax format, the VAE encoding (item 7).
 """
 
 from __future__ import annotations
@@ -27,9 +31,11 @@ from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from viditq_tpu_torch.parallel.training import (
-    init_ema, make_optimizer, make_train_step, step_generator, trainable)
+    gather_state, init_ema, init_state, make_optimizer, make_train_step,
+    shard_state, step_generator, tp_shard_, trainable)
 from viditq_tpu_torch.samplers.gaussian_diffusion import make_schedule
 from viditq_tpu_torch.utils import ckpt as ckpt_utils
 
@@ -76,7 +82,8 @@ def train_loop(model, dataset_iter, *, latent_shape, caption_shape,
                grad_clip: float = 0.0, warmup_steps: int = 0,
                loss_type: str = "mse", start_step: int = 0, epoch: int = 0,
                sampler=None, consumed_items: int = 0,
-               on_step_end: Optional[Callable[[int], None]] = None):
+               on_step_end: Optional[Callable[[int], None]] = None,
+               mesh=None):
     """Train `model` (its parameters in place) for steps start_step ..
     num_steps - 1. dataset_iter yields {'x0', 't', 'y', 'mask'} batches
     (numpy or tensors), or None for synthetic batches of 2 * grad_accum
@@ -92,29 +99,39 @@ def train_loop(model, dataset_iter, *, latent_shape, caption_shape,
     {'params', 'ema', 'opt_state', 'losses' (the logged averages),
     'step_losses' (each step's loss, a device tensor), 'meta',
     'ckpt' (the last checkpoint written, or None), 'ckpt_seconds' ({step
-    index: the host seconds its checkpoint write took})}."""
+    index: the host seconds its checkpoint write took})}. Over a mesh the
+    parameters, EMA and optimizer state returned are this rank's shards
+    (`parallel/training.gather_state` joins them) and the losses the
+    global batch's; rank 0 alone logs and writes."""
     device = next(model.parameters()).device
     schedule = make_schedule(num_sampling_steps=None,
                              timestep_respacing=[1000])
-    params = trainable(model)
+    lead = mesh is None or not dist.is_initialized() or dist.get_rank() == 0
     optimizer = make_optimizer(lr=lr, grad_clip=grad_clip,
                                warmup_steps=warmup_steps)
-    opt_state = (resume_opt_state if resume_opt_state is not None
-                 else optimizer.init(params))
-    ema = resume_ema if resume_ema is not None else init_ema(params)
     meta = {}
-    if resume_from:
+    if resume_from:  # one whole state, whatever the world size
         p_saved, ema, opt_state, meta = ckpt_utils.load_train_state(
             resume_from, device)
         with torch.no_grad():
-            for n, p in params.items():
+            for n, p in trainable(model).items():
                 p.copy_(p_saved[n])
         if use_meta_counters:
             start_step = int(meta.get("step", start_step))
             epoch = int(meta.get("epoch", epoch))
+    if mesh is not None:
+        tp_shard_(model, mesh)
+    params = trainable(model)
+    if resume_from:
+        if mesh is not None:
+            ema, opt_state = shard_state(ema, opt_state, mesh)
+    else:
+        opt_state = (resume_opt_state if resume_opt_state is not None
+                     else init_state(optimizer, params, mesh))
+        ema = resume_ema if resume_ema is not None else init_ema(params)
     step_fn = make_train_step(model, schedule, optimizer,
                               ema_decay=ema_decay, loss_type=loss_type,
-                              grad_accum=grad_accum)
+                              grad_accum=grad_accum, mesh=mesh)
 
     def synth(i):
         return synthetic_batch(i, seed, 2 * grad_accum, latent_shape,
@@ -138,11 +155,12 @@ def train_loop(model, dataset_iter, *, latent_shape, caption_shape,
             avg = float(running_loss) / max(log_count, 1)
             rate = (i + 1 - start_step) / max(time.time() - t_start, 1e-9)
             losses.append(avg)
-            _log_jsonl(save_dir, {"step": i + 1, "epoch": epoch,
-                                  "loss": float(loss), "avg_loss": avg,
-                                  "it_per_s": rate})
-            print(f"step {i+1}/{num_steps} loss {float(loss):.4f} "
-                  f"avg {avg:.4f} ({rate:.2f} it/s)", flush=True)
+            if lead:
+                _log_jsonl(save_dir, {"step": i + 1, "epoch": epoch,
+                                      "loss": float(loss), "avg_loss": avg,
+                                      "it_per_s": rate})
+                print(f"step {i+1}/{num_steps} loss {float(loss):.4f} "
+                      f"avg {avg:.4f} ({rate:.2f} it/s)", flush=True)
             running_loss, log_count = torch.zeros((), device=device), 0
         if ckpt_every and (i + 1) % ckpt_every == 0:
             os.makedirs(save_dir, exist_ok=True)
@@ -155,8 +173,11 @@ def train_loop(model, dataset_iter, *, latent_shape, caption_shape,
             last_ckpt = os.path.join(save_dir,
                                      f"train_state_{global_step}.pt")
             t_save = time.time()
-            ckpt_utils.save_train_state(last_ckpt, params, ema, opt_state,
-                                        smeta)
+            state = ((params, ema, opt_state) if mesh is None
+                     else gather_state(params, ema, opt_state, mesh))
+            if lead:
+                ckpt_utils.save_train_state(last_ckpt, *state, smeta)
+            state = None
             ckpt_seconds[i] = time.time() - t_save
         if on_step_end is not None:
             on_step_end(i)

@@ -10,16 +10,22 @@ plus a Bernoulli draw of the rest; AdaRound's 'learned_hard_sigmoid',
 floor plus the soft target h(alpha) under reconstruction or alpha >= 0 at
 inference), AdaRound's alpha init and soft targets, and the
 channel-balancing scale. Same formulas, same float32 arithmetic order as
-the JAX package. Stochastic rounding draws its uniforms from an explicit
-`torch.Generator` in place of JAX's threefry key, so it matches JAX in
-distribution, not draw for draw; a rest of exactly 0 or 1 rounds the same.
+the JAX package. Under `pooled_over(group)` (batch-sharded sampling) a
+dynamic act statistic that pools a view's batch rows takes every rank's
+rows, as GSPMD computes it on JAX's global batch. Stochastic rounding
+draws its uniforms from an explicit `torch.Generator` in place of JAX's
+threefry key, so it matches JAX in distribution, not draw for draw; a
+rest of exactly 0 or 1 rounds the same.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 from typing import Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from viditq_tpu_torch.kernels._common import divc, rdiv
 from viditq_tpu_torch.quant.spec import QuantSpec
@@ -30,6 +36,24 @@ EPS_ZP = 1e-5         # base_quantizer.py:232
 # AdaRound's stretched sigmoid (base_quantizer.py:91-110)
 ADAROUND_GAMMA = -0.1
 ADAROUND_ZETA = 1.1
+# the process group whose ranks hold the other rows of the batch
+_POOL: contextvars.ContextVar = contextvars.ContextVar("pool", default=None)
+
+
+@contextlib.contextmanager
+def pooled_over(group):
+    """Within it, `fake_quant_dynamic` pools its statistics over the batch
+    rows of every rank of `group` (None: this rank's rows alone)."""
+    token = _POOL.set(group)
+    try:
+        yield
+    finally:
+        _POOL.reset(token)
+
+
+def pool_group():
+    """The group of the innermost `pooled_over`, or None."""
+    return _POOL.get()
 
 
 def clip(x: torch.Tensor, lo: Optional[float] = None,
@@ -64,14 +88,21 @@ def _reduce_dims(ndim: int, spec: QuantSpec) -> Tuple[int, ...]:
     raise ValueError(spec.granularity)
 
 
-def minmax(x: torch.Tensor, spec: QuantSpec
+def minmax(x: torch.Tensor, spec: QuantSpec, group=None, batch_axis: int = 0
            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Group-wise (min, max), x_min <= 0 <= x_max, keepdims
-    (base_quantizer.py:168-194)."""
+    (base_quantizer.py:168-194). With a group, a reduction over the batch
+    rows (axis batch_axis of x) spans every rank's rows: one all-reduce
+    max of (-min, max)."""
     dims = _reduce_dims(x.ndim, spec)
     x = x.float()
     x_min = clip(torch.amin(x, dim=dims, keepdim=True), hi=0.0)
     x_max = clip(torch.amax(x, dim=dims, keepdim=True), lo=0.0)
+    if group is not None and batch_axis % x.ndim in dims:
+        from viditq_tpu_torch.parallel.comm import all_reduce_
+        both = all_reduce_(torch.stack([-x_min, x_max]), group,
+                           dist.ReduceOp.MAX)
+        x_min, x_max = -both[0], both[1]
     return x_min, x_max
 
 
@@ -141,14 +172,15 @@ def _quantize_with_range(x, x_max, x_min, n_bits: int, n_levels: int,
 
 def qparams_grid_search(x: torch.Tensor, x_min: torch.Tensor,
                         x_max: torch.Tensor, spec: QuantSpec,
-                        n_bits: Optional[int] = None, n_steps: int = 100
-                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+                        n_bits: Optional[int] = None, n_steps: int = 100,
+                        group=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """'grid_search_lp' scale init (base_quantizer.py:230-249; JAX
     core.py:148-187): the range (x_min, x_max) shrunk by s in {0, 1/n, ...,
     (n-1)/n}, each candidate fake-quantized, and the one candidate of least
     L2 loss over the whole tensor (the reference's single global argmin;
     the first of equal losses) gives every group its tables. One candidate
-    is in flight at a time, as JAX's `lax.map` keeps it."""
+    is in flight at a time, as JAX's `lax.map` keeps it. With a group the
+    losses are summed over its ranks' rows too."""
     b = spec.n_bits if n_bits is None else n_bits
     n_levels = spec.n_levels(n_bits)
     x = x.float()
@@ -158,6 +190,9 @@ def qparams_grid_search(x: torch.Tensor, x_min: torch.Tensor,
         torch.sum((x - _quantize_with_range(x, x_max * s, x_min * s, b,
                                             n_levels, spec.always_zero))
                   ** 2) for s in scalings])
+    if group is not None:
+        from viditq_tpu_torch.parallel.comm import all_reduce_
+        all_reduce_(losses, group)
     s_best = scalings[torch.argmin(losses)]
     best_max, best_min = x_max * s_best, x_min * s_best
     if spec.always_zero:
@@ -170,15 +205,18 @@ def qparams_grid_search(x: torch.Tensor, x_min: torch.Tensor,
 
 
 def compute_qparams(x: torch.Tensor, spec: QuantSpec,
-                    n_bits: Optional[int] = None
+                    n_bits: Optional[int] = None, group=None,
+                    batch_axis: int = 0
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Calibrate one (delta, zero_point) slice from data by the spec's
-    scale method (JAX core.py:190-203)."""
-    x_min, x_max = minmax(x, spec)
+    scale method (JAX core.py:190-203); a group pools the batch rows of
+    its ranks (`minmax`)."""
+    x_min, x_max = minmax(x, spec, group, batch_axis)
     if spec.scale_method == "min_max":
         return qparams_minmax(x_min, x_max, spec, n_bits)
     if spec.scale_method == "grid_search_lp":
-        return qparams_grid_search(x, x_min, x_max, spec, n_bits)
+        return qparams_grid_search(x, x_min, x_max, spec, n_bits,
+                                   group=group)
     raise NotImplementedError(spec.scale_method)
 
 
@@ -265,10 +303,13 @@ def fake_quant(x: torch.Tensor, delta: torch.Tensor,
 
 
 def fake_quant_dynamic(x: torch.Tensor, spec: QuantSpec, *,
-                       generator: Optional[torch.Generator] = None
-                       ) -> torch.Tensor:
-    """Calibrate from the live tensor, then fake-quant (core.py:283-291)."""
-    delta, zero_point = compute_qparams(x, spec)
+                       generator: Optional[torch.Generator] = None,
+                       batch_axis: int = 0) -> torch.Tensor:
+    """Calibrate from the live tensor, then fake-quant (core.py:283-291).
+    batch_axis: the axis of x that holds the batch rows, which
+    `pooled_over` pools across ranks."""
+    delta, zero_point = compute_qparams(x, spec, group=pool_group(),
+                                        batch_axis=batch_axis)
     return fake_quant(x, delta, zero_point, spec, generator=generator)
 
 

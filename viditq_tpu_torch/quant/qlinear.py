@@ -119,6 +119,7 @@ from viditq_tpu_torch.kernels.fused_matmul import (fused_dynq_int8_matmul,
 from viditq_tpu_torch.kernels.int_matmul import (dynamic_quant_rows,
                                                  int8_matmul,
                                                  quantized_linear_native)
+from viditq_tpu_torch.parallel.comm import copy_to_group, reduce_from_group
 from viditq_tpu_torch.quant import core
 from viditq_tpu_torch.quant.spec import (LayerQuantSpec, QuantSpec,
                                          SmoothQuantSpec)
@@ -307,15 +308,23 @@ class QuantLinear(nn.Module):
     0 views the input as segments of seg_len tokens (STDiT's packed
     temporal attention); 'packed_prompt' views it as one [1, B*P, C] row
     (cross_attn.kv_linear). token_layout / d_t / d_s: the token view of
-    token-wise act quantization (qlinear.py:184-241)."""
+    token-wise act quantization (qlinear.py:184-241). kernel_init: the
+    distribution the JAX module draws the kernel from, read by
+    `utils/workload.jax_init_`: 'xavier_uniform' (a QuantLinear,
+    qlinear.py:211) or 'lecun_normal' (where the JAX model builds a flax
+    `nn.Dense` or a patchify conv)."""
 
     def __init__(self, in_features: int, features: int,
                  lspec: Optional[LayerQuantSpec] = None,
                  use_bias: bool = True, dtype=torch.bfloat16,
                  seg_len: int = 0, stat_layout: Optional[str] = None,
                  token_layout: Optional[str] = None, d_t: int = 1,
-                 d_s: int = 1):
+                 d_s: int = 1, kernel_init: str = "xavier_uniform"):
         super().__init__()
+        self.kernel_init = kernel_init
+        # tensor parallelism (`parallel/training.tp_shard_`): 'col' sums
+        # the input's gradient over tp_group, 'row' the output itself
+        self.tp_mode, self.tp_group = None, None
         self.in_features = in_features
         self.features = features
         self.lspec = lspec
@@ -457,6 +466,8 @@ class QuantLinear(nn.Module):
               kernel: Optional[torch.Tensor] = None) -> torch.Tensor:
         kernel = self.kernel if kernel is None else kernel
         y = torch.matmul(x.to(self.dtype), kernel.to(self.dtype))
+        if self.tp_mode == "row":  # the partial products summed, then b
+            y = reduce_from_group(y, self.tp_group)
         if self.bias is not None:
             y = y + self.bias.to(self.dtype)
         return y
@@ -502,7 +513,12 @@ class QuantLinear(nn.Module):
     def dynamic_balance(self, x: torch.Tensor, tr: int) -> torch.Tensor:
         """cs of the 'dynamic' CB type (qlinear.py:518-526): from this
         input's per-channel act maxima (stat view) and the kernel's, with
-        timerange tr's alpha as a float32 scalar, as JAX gathers it."""
+        timerange tr's alpha as a float32 scalar, as JAX gathers it. Its
+        statistic is not pooled across the ranks of `core.pooled_over`."""
+        if core.pool_group() is not None:
+            raise NotImplementedError(
+                "the 'dynamic' channel-balance type under batch-sharded "
+                "sampling (its act maxima would span one rank's rows)")
         alpha = torch.tensor(self.smooth.alpha_for_range(tr),
                              dtype=torch.float32, device=self.kernel.device)
         return core.smooth_quant_scale(
@@ -554,6 +570,8 @@ class QuantLinear(nn.Module):
         [G, features] or None) — return `residual + gate * output` (each
         batch's gate row over its M / G rows), inside the kernel where
         `_epilogue_fusable`, else after it (`apply_epilogue`)."""
+        if self.tp_mode == "col" and x is not None:
+            x = copy_to_group(x, self.tp_group)
         if epilogue is None:
             return self._forward(x, qctx, prequant, emit, None)
         if emit is not None:
@@ -796,7 +814,9 @@ class QuantLinear(nn.Module):
             orig = x.shape
             xv = self.token_view(x, dynamic=aspec.dynamic)
             if aspec.dynamic:
-                xv = core.fake_quant_dynamic(xv, aspec)
+                # the packed cross_kv view holds the batch in its tokens
+                xv = core.fake_quant_dynamic(xv, aspec, batch_axis=(
+                    1 if self.token_layout == "cross_kv" else 0))
             else:
                 slot = self.act_slot(qctx)
                 if qctx.mode == "a_calib":

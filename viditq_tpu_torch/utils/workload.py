@@ -7,8 +7,10 @@ A workload config is a python file exec'd into a plain dict
 `build_model` puts the model on the card unless the caller passes
 `device="cpu"`; without CUDA it raises rather than fall back to the CPU.
 `build_sampler` takes the CLI's `--sampler_type` choices. `random_init_`
-is the port's seeded parameter draw (the JAX CLI's flax init has no
-counterpart here). The VAE is not ported.
+is the port's seeded parameter draw for inference (bench.py's N(0, 0.02));
+`jax_init_` draws each parameter from the distribution its JAX module's
+initialiser uses (flax's `model.init`), where training starts. The VAE is
+not ported.
 """
 
 from __future__ import annotations
@@ -83,6 +85,75 @@ def random_init_(model, seed: int = 0, scale: float = 0.02):
     with torch.no_grad():
         for _, p in model.named_parameters():
             p.copy_(torch.randn(p.shape, generator=g, device=dev) * scale)
+    return model
+
+
+# flax's truncated normal (variance_scaling 'truncated_normal'): a unit
+# normal cut at +-2, rescaled by this to keep the asked variance
+TRUNC_STD = 0.87962566103423978
+
+
+def _jax_draw(module, leaf: str, p: torch.Tensor, g: torch.Generator):
+    """The draw of parameter `leaf` of `module` from its JAX initialiser."""
+    from viditq_tpu_torch.models.layers import (AffineLayerNorm,
+                                                CaptionEmbedder,
+                                                DepthwiseQuantConv,
+                                                LabelEmbedder)
+    from viditq_tpu_torch.quant.qlinear import QuantLinear
+
+    def normal(std):
+        return torch.randn(p.shape, generator=g, device=p.device) * std
+    if leaf == "bias" or (isinstance(module, AffineLayerNorm)
+                          and leaf == "scale"):
+        # every bias zeros_init; the affine LayerNorm's scale ones
+        return (torch.ones_like(p) if leaf == "scale"
+                else torch.zeros_like(p))
+    if isinstance(module, QuantLinear) and leaf == "kernel":
+        fan_in, fan_out = p.shape  # the JAX [in, out] layout
+        if module.kernel_init == "xavier_uniform":
+            limit = (6.0 / (fan_in + fan_out)) ** 0.5
+            return (torch.rand(p.shape, generator=g, device=p.device)
+                    * 2 - 1) * limit
+        if module.kernel_init == "lecun_normal":
+            t = torch.empty_like(p)
+            torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=g)
+            return t * (fan_in ** -0.5 / TRUNC_STD)
+        raise ValueError(f"unknown kernel_init {module.kernel_init!r}")
+    if isinstance(module, DepthwiseQuantConv) and leaf == "kernel":
+        return torch.full_like(p, 1.0 / module.ratio ** 2)  # layers.py:258
+    if leaf == "scale_shift_table":
+        return normal(p.shape[-1] ** -0.5)  # stdit.py:55, layers.py:963
+    if isinstance(module, CaptionEmbedder) and leaf == "y_embedding":
+        return normal(p.shape[-1] ** -0.5)  # layers.py:857
+    if isinstance(module, LabelEmbedder) and leaf == "embedding":
+        return normal(0.02)  # layers.py:876
+    raise NotImplementedError(
+        f"no JAX initialiser known for {type(module).__name__}.{leaf}")
+
+
+def jax_init_(model, seed: int = 0):
+    """Every parameter drawn from the distribution of its JAX module's
+    initialiser, as the JAX `train` command starts from `model.init`
+    (pipelines/train.py:78-83): QuantLinear kernels xavier-uniform over
+    their [in, out] fans (qlinear.py:211), where the JAX model builds a
+    flax `nn.Dense` or patchify conv lecun-normal (flax's truncated normal,
+    `kernel_init`), biases zero, the affine LayerNorm's scale one, the
+    KV-compress `sr` kernel the constant 1 / r^2, the adaLN tables
+    N(0, C^-1/2), the null caption N(0, C_cap^-1/2), the label table
+    N(0, 0.02). The draws come from a generator seeded by seed on the
+    model's device, in `named_parameters` order (torch's, not threefry's:
+    the distributions are JAX's, the values are not). The quant tables are
+    buffers and keep their initial constants."""
+    dev = next(model.parameters()).device
+    g = torch.Generator(device=dev).manual_seed(seed)
+    owners = {}
+    for mname, mod in model.named_modules():
+        for leaf, _ in mod.named_parameters(recurse=False):
+            owners[f"{mname}.{leaf}" if mname else leaf] = (mod, leaf)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            mod, leaf = owners[name]
+            p.copy_(_jax_draw(mod, leaf, p, g))
     return model
 
 
