@@ -17,7 +17,9 @@ Phases (any failure exits non-zero):
      PyTorch call computes the same function, that call's time (for the
      int8 GEMMs also torch._int_mm on a row-major weight and cuBLAS bf16
      at the same shape, and K2's emission split into its GEMM and its
-     group quantize; K1, K4, K3's seg mode and K7a also back to back);
+     group quantize, and its emission after either zero-point epilogue,
+     asym acts and sym acts x asym weights, identical to its plain
+     version; K1, K4, K3's seg mode and K7a also back to back);
      then K3 and K6 at the edge cases of their shared core (`EDGE_CASES`: ragged q
      and kv tiles, a kv block masked whole, head dim 16) and of K3's two
      seg kernels (seg 2 to 16 with ragged last tiles and asym emission on
@@ -92,7 +94,9 @@ Phases (any failure exits non-zero):
      attention site), reference W8A8 (`w8a8_dynamic.yaml` on the
      native backend: K7a/K7b), the fused reference W8A8
      (`w8a8_tpu_fused.yaml`: K1-K5 asym), fused sym W8A8
-     (`w8a8_tpu_fused_sym.yaml`) and ViDiT-Q's W4A8 recipe with
+     (`w8a8_tpu_fused_sym.yaml`), `fc1_asym` (the sym plan with fc1's
+     dynamic acts asym, `Fc1AsymPlan`: fc1's int8 emission after K2's
+     zero-point epilogue, launches as sym's) and ViDiT-Q's W4A8 recipe with
      timestep-aware channel balancing on the fused kernels (`cb`:
      `w4a8_timestep_aware_cb.yaml`, `qkv_share_cs`, calibrated by one
      sq_stat forward in each of its two timeranges; `cb_sym`: the same
@@ -249,15 +253,30 @@ Phases (any failure exits non-zero):
      size 1 in this process: a pp forward and a train step
      (`PAR_TRAIN_DEPTH` blocks) through the same code against the same work
      without a mesh. The ranks' ms are not scaling numbers
-     (they share the card and the host's loopback).
+     (they share the card and the host's loopback);
+  13. data (after parallel; `phase_data`, its own temporary directory; no
+     Pillow: the clips are .y4m, numpy-decoded, already at the target
+     size): `DATA_CLIPS` clips of 16x512x512 read by `DatasetFromCSV`; the
+     16x512x512 workload's `VideoAutoencoderKL` at full width (128/256/
+     512/512, JAX's initialisers, float32, TF32 off) encodes [2, 3, 16,
+     512, 512] to [2, 4, 16, 64, 64] and decodes it, each timed (CUDA
+     events after a warm-up) with its peak memory, the same weights
+     against the CPU on [1, 3, 2, 64, 64] within `VAE_REL_ERR`; one
+     decode of `VideoAutoencoderKLTemporalDecoder` at 16 frames;
+     `extract-features` over two clips through `cli.main` (its latents
+     the in-process encode's within `VAE_REL_ERR`); `train --data_path`
+     on STDiT-XL/2 16x512x512 with grad_checkpoint, 2 steps at batch 2,
+     the VAE encoding each batch inside the loop, and `--no_vae` over
+     .npz latents (a config copy at the latent size), each with ms per
+     step, peak memory and K3 at 168 a micro-step.
 Each arm and each CLI command resets the launch counts just before its run
 and reads them just after; one that launches a kernel outside its list,
 or none of one in it, fails; the arms held to per-block counts
 (`BLOCK_LAUNCHES`) must hit them exactly. The third-to-last line is the
 card's name and power limit, the second-to-last a JSON object with one
 entry per kernel (launches summed over all arms of both slices and the
-CLI's, recon's, samplers', recon_sigma's and train's commands and both
-ranks of phase parallel), the last
+CLI's, recon's, samplers', recon_sigma's and train's commands, both
+ranks of phase parallel and phase data's commands), the last
 {"ok": true,
 "device": {...}}.
 """
@@ -647,6 +666,9 @@ SLICE_KERNELS = {
                        "attention_bnhd"),
               "fused": FUSED_KERNELS,
               "sym": FUSED_KERNELS,
+              # the sym plan with fc1's acts asym: fc1's emission after
+              # K2's zero-point epilogue
+              "fc1_asym": FUSED_KERNELS,
               "cb": FUSED_KERNELS,
               # after cb: it samples the cb arm's model
               "cb_mp": FUSED_KERNELS,
@@ -683,6 +705,7 @@ SLICE_KERNELS = {
 # sm8 arm's model in fp mode)
 ARM_PLANS = {("stdit", "sm8"): SM8_PLAN, ("stdit", "w8a8"): W8A8_PLAN,
              ("stdit", "fused"): FUSED_PLAN, ("stdit", "sym"): SYM_PLAN,
+             ("stdit", "fc1_asym"): SYM_PLAN,
              ("stdit", "cb"): CB_PLAN, ("stdit", "cb_sym"): CB_PLAN,
              ("stdit", "cb_mp"): CB_PLAN, ("stdit", "attn8"): ATTN8_PLAN,
              ("stdit", "sim_w8a8"): SIM_W8A8_PLAN,
@@ -703,6 +726,7 @@ ARM_MODEL = {("stdit", "sm8_epi"): {"fuse_epilogue": True}}
 # (bench_configs.py:153-166, :376-381), asym or with sym weights and acts
 # (:173-182)
 PLAN_RECIPES = {("stdit", "w8a8"): "native", ("stdit", "cb"): "cb",
+                ("stdit", "fc1_asym"): "fc1_asym",
                 ("stdit", "cb_sym"): "cb_sym", ("stdit", "cb_mp"): "cb",
                 ("stdit", "naive_fused"): "fused", ("sigma", "cb"): "cb",
                 ("latte", "bf16"): "cb", ("latte", "cb"): "cb"}
@@ -767,6 +791,8 @@ BLOCK_LAUNCHES = {("stdit", "sim_w8a8"): SIM_BLOCK,
                   ("stdit", "sm8_epi"): SM8_BLOCK,
                   ("stdit", "attn8"): {**SM8_BLOCK, "qk_headwise_quant": 3},
                   ("stdit", "fused"): FUSED_BLOCK,
+                  # as sym: K1 at norm2 makes fc1's asym codes, K2 emits
+                  ("stdit", "fc1_asym"): SM8_BLOCK,
                   ("stdit", "cb"): FUSED_BLOCK,
                   ("stdit", "cb_sym"): SM8_BLOCK,
                   ("stdit", "cb_mp"): FUSED_BLOCK,
@@ -1102,6 +1128,32 @@ def phase_kernels(records):
     del scratch
     yardsticks("int8_consumer_matmul emit", xq, w1,
                lambda: FM.int8_consumer_matmul(xq, xs, w1, ws1, b1, emit=emit))
+    # the emission after a zero-point epilogue (fc1 with asym acts feeding
+    # a sym x sym fc2; sym acts x asym weights too): identical to its plain
+    # version, as the sym emission is
+    for case, sym in (("emit asym acts [32768,1152]x[1152,4608]", False),
+                      ("emit sym x asym-weight [32768,1152]x[1152,4608]",
+                       True)):
+        zq, zs, zz, zr = FM.quantize_rows(randn(M, C) + 0.2, sym=sym,
+                                          need_rowsum=True)
+        wz = (None if not sym else torch.randint(
+            -20, 20, (1, 4 * C), generator=g, device=dev).float())
+        kw = dict(x_zp=zz, x_rowsum=zr, w_zp=wz,
+                  w_colsum=w1.float().sum(dim=0, keepdim=True))
+        check_case("int8_consumer_matmul", case,
+                   lambda: FM.int8_consumer_matmul(zq, zs, w1, ws1, b1,
+                                                   emit=emit, **kw),
+                   lambda: FM.int8_consumer_matmul_plain(zq, zs, w1, ws1, b1,
+                                                         emit=emit, **kw),
+                   records, cost=k2_cost(M, C, 4 * C, 3, M * 4 * C
+                                         + 4 * M * 3), exact=True, b2b=True)
+        zgemm_ms = cuda_ms(lambda: FM.k2_gemm_zp(zq, zs, w1, ws1, b1, 2,
+                                                 zz, zr, wz,
+                                                 kw["w_colsum"]))
+        print(f"  emission with zero points split: GEMM + zero-point "
+              f"epilogue + GELU to the f32 scratch {zgemm_ms:.3f} ms, then "
+              f"the group quantize above", flush=True)
+        del zq, zs, zz, zr
     xq2, xs2 = randi8(M, 4 * C), rands(M, 3)
     w2, ws2 = randw(4 * C, C), rands(1, C, lo=1e-5, hi=1e-4)
     check_case("int8_consumer_matmul", "gw_x [32768,4608]x[4608,1152]",
@@ -2628,16 +2680,39 @@ TINY_MMDIT_CFG = {"model": dict(type="MMDiT", pooled_channels=32, **TINY),
 TINY_MS_SCALE = 0.1 * (64 / 192) ** 0.5
 
 
+class Fc1AsymPlan:
+    """A plan whose MLP fc1 layers take asymmetric dynamic acts, every
+    other layer the plan's default: with a sym x sym fc2, fc1 emits its
+    int8 codes after K2's zero-point epilogue. Everything but the
+    resolver is the plan's."""
+
+    def __init__(self, plan):
+        import dataclasses
+        d = plan.default_layer
+        self.plan = plan
+        self.fc1 = dataclasses.replace(d, act=dataclasses.replace(d.act,
+                                                                  sym=False))
+
+    def __getattr__(self, name):
+        return getattr(self.plan, name)
+
+    def resolver(self):
+        return self.plan.resolver({"mlp.fc1": self.fc1})
+
+
 def quant_plan(plan=SM8_PLAN, recipe=None):
     """A plan YAML as an arm runs it (`PLAN_RECIPES`): as it is, on the
     native backend or with impl 'fused' ('fused'), on the native backend
     ('native_nocb': without its channel balancing, the
-    segmented MP sampler's case), or the CB recipe on the fused kernels
+    segmented MP sampler's case), the CB recipe on the fused kernels
     with the q/k/v balancing scale pooled (`qkv_share_cs`), sym weights
-    and acts for 'cb_sym'."""
+    and acts for 'cb_sym', or with fc1's acts asym ('fc1_asym',
+    `Fc1AsymPlan`)."""
     import dataclasses
     from viditq_tpu_torch.utils.config import load_quant_config
     qplan = load_quant_config(str(plan))
+    if recipe == "fc1_asym":
+        return Fc1AsymPlan(qplan)
     if recipe in ("native", "fused"):
         return qplan.with_backend(recipe)
     if recipe == "native_nocb":
@@ -3489,7 +3564,11 @@ CLI_KERNELS = {"inference": "bf16", "get-calib-data": "bf16",
                # recompute, no kernel)
                "train": ("attention_bnhd",),
                "train resume": ("attention_bnhd",),
-               "train grad_accum 2": ("attention_bnhd",)}
+               "train grad_accum 2": ("attention_bnhd",),
+               # phase data: the VAE runs no port kernel (cuDNN
+               # convolutions, where the JAX package runs XLA's)
+               "extract-features": (), "train data": ("attention_bnhd",),
+               "train data no_vae": ("attention_bnhd",)}
 CLI_SAME_REL = 1e-3  # CLI samples against the in-process path
 # phase samplers: PixArt-α 512 (`configs/workload/pixart_alpha_512.py`:
 # PixArt-XL/2, 28 blocks, C = 1152, 1024 tokens, 120 caption tokens;
@@ -4541,8 +4620,10 @@ PAR_N_MB = 2               # pipeline microbatches (batch 2: one a stage)
 # host-staged all-reduce of a [2, 16384, 1152] activation (16 a block a
 # step under checkpointing; 72.6 s at 28 blocks on an H100 80GB HBM3 at
 # 700 W), and the whole script nears its time limit at 28 (1038 s), so
-# they run half the stack; each one-process reference the same depth
-PAR_TRAIN_DEPTH = 14
+# they run a quarter of the stack (half until phase data came: 1071.7 s
+# at 14 with it, dp 28.5 s and tp 49.4 s a step there); each one-process
+# reference the same depth
+PAR_TRAIN_DEPTH = 7
 # the sp arms' blocks at full width: each Ulysses attention moves ~230 MB
 # a rank through the host (its all-to-alls and the output's all-gather:
 # ~0.55 s each, 31 s a 28-block forward on an H100 80GB HBM3 at 700 W),
@@ -4993,6 +5074,220 @@ def phase_parallel() -> dict:
     return counts
 
 
+# ---------------- phase data ----------------
+
+DATA_FRAMES, DATA_SIZE = 16, 512   # the 16x512x512 workload's clips
+DATA_CLIPS = 4                     # train --data_path: 2 steps at batch 2
+DATA_BATCH = 2
+# the card's VAE against the same weights on the CPU (float32, TF32 off:
+# the convolutions' and group norms' sums in another order)
+VAE_REL_ERR = 1e-3
+
+
+def write_y4m(path, frames) -> None:
+    """frames uint8 [T, H, W, 3] -> a YUV4MPEG2 4:2:0 file (BT.601 limited
+    range, the chroma averaged over 2x2), numpy only."""
+    f = frames.astype(np.float32)
+    r, g, b = f[..., 0], f[..., 1], f[..., 2]
+    y = 16 + (65.481 * r + 128.553 * g + 24.966 * b) / 255.0
+    u = 128 + (-37.797 * r - 74.203 * g + 112.0 * b) / 255.0
+    v = 128 + (112.0 * r - 93.786 * g - 18.214 * b) / 255.0
+    T, H, W = frames.shape[:3]
+
+    def sub(c):
+        return c.reshape(T, H // 2, 2, W // 2, 2).mean(axis=(2, 4))
+    planes = [np.clip(np.rint(c), 0, 255).astype(np.uint8)
+              for c in (y, sub(u), sub(v))]
+    with open(path, "wb") as fh:
+        fh.write(f"YUV4MPEG2 W{W} H{H} F8:1 Ip A1:1 C420\n".encode())
+        for t in range(T):
+            fh.write(b"FRAME\n")
+            for pl in planes:
+                fh.write(pl[t].tobytes())
+
+
+def data_clips(tmp: Path, n: int, rng) -> str:
+    """n clips of DATA_FRAMES x DATA_SIZE^2 (smooth random content: a
+    coarse draw upsampled, so the VAE sees structure) as .y4m files and
+    their CSV (rows `path,text`)."""
+    rows = []
+    s = DATA_SIZE // 16
+    for i in range(n):
+        base = rng.integers(0, 256, (DATA_FRAMES, s, s, 3), dtype=np.uint8)
+        frames = np.repeat(np.repeat(base, 16, axis=1), 16, axis=2)
+        path = tmp / f"clip{i}.y4m"
+        write_y4m(path, frames)
+        rows.append(f"{path},clip {i}")
+    csv = tmp / f"clips{n}.csv"
+    csv.write_text("\n".join(rows))
+    return str(csv)
+
+
+def latent_clips(tmp: Path, n: int, rng) -> tuple:
+    """--no_vae's data: n .npz items whose 'video' is [DATA_FRAMES, h, w,
+    4] uint8 at the latent size (normalized by the dataset to [-1, 1],
+    the x0 as it is), their CSV, and a copy of the train config whose
+    image_size is that size with the model's input_size given."""
+    h = DATA_SIZE // 8
+    rows = []
+    for i in range(n):
+        path = tmp / f"latent{i}.npz"
+        np.savez(path, video=rng.integers(0, 256, (DATA_FRAMES, h, h, 4),
+                                          dtype=np.uint8))
+        rows.append(f"{path},latent {i}")
+    csv = tmp / "latents.csv"
+    csv.write_text("\n".join(rows))
+    src = Path(train_workload(tmp)).read_text()
+    for old, new in ((f"image_size = ({DATA_SIZE}, {DATA_SIZE})",
+                      f"image_size = ({h}, {h})"),
+                     ("grad_checkpoint=True,", "grad_checkpoint=True, "
+                      f"input_size=({DATA_FRAMES}, {h}, {h}),")):
+        if old not in src:
+            fail(f"train config: no '{old}' to change")
+        src = src.replace(old, new)
+    config = tmp / "stdit_train_latents.py"
+    config.write_text(src)
+    return str(csv), str(config)
+
+
+def timed_vae(label, fn, reps: int = 1):
+    """fn()'s output, its ms (CUDA events, after one warm-up call) and the
+    peak memory of a call."""
+    import torch
+    with torch.no_grad():
+        fn()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(reps):
+            out = fn()
+        b.record()
+        b.synchronize()
+    ms = a.elapsed_time(b) / reps
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"  {label}: {ms:.1f} ms, peak memory {peak:.2f} GiB, out "
+          f"{list(out.shape)}", flush=True)
+    if not torch.isfinite(out).all():
+        fail(f"data {label}: the output is not finite")
+    return out, ms
+
+
+def phase_data() -> dict:
+    """Data, the VAE and the two commands that use them (module header,
+    phase 13). Imports no Pillow: the clips are .y4m at the target size.
+    Returns each kernel's launches."""
+    import tempfile
+
+    import torch
+    from viditq_tpu_torch.data.datasets import DatasetFromCSV
+    from viditq_tpu_torch.models.vae import VideoAutoencoderKLTemporalDecoder
+    from viditq_tpu_torch.utils import workload
+
+    counts = {}
+    t_phase = time.time()
+    rng = np.random.default_rng(5)
+    with tempfile.TemporaryDirectory(prefix="viditq_data_") as tmpd:
+        tmp = Path(tmpd)
+        t0 = time.time()
+        csv = data_clips(tmp, DATA_CLIPS, rng)
+        ds = DatasetFromCSV(csv, num_frames=DATA_FRAMES,
+                            image_size=(DATA_SIZE, DATA_SIZE))
+        items = [ds[i] for i in range(DATA_BATCH)]
+        x = torch.from_numpy(np.stack([it["video"] for it in items])).cuda()
+        print(f"phase data: {DATA_CLIPS} .y4m clips of {DATA_FRAMES}x"
+              f"{DATA_SIZE}x{DATA_SIZE} written and {DATA_BATCH} read "
+              f"(DatasetFromCSV) in {time.time() - t0:.1f} s: pixels "
+              f"{list(x.shape)} in [{float(x.min()):.3f}, "
+              f"{float(x.max()):.3f}]; Pillow imported: "
+              f"{'PIL' in sys.modules}", flush=True)
+        # the full-width VAE of the 16x512x512 workload (micro-batches of
+        # 128 frames: one here), JAX's initialisers, float32
+        cfg = workload.load_py_config(str(CLI_WORKLOAD))
+        vae = workload.build_vae(cfg, device="cuda")
+        workload.jax_init_(vae, 0)
+        z, enc_ms = timed_vae(f"VideoAutoencoderKL encode [{DATA_BATCH}, 3, "
+                              f"{DATA_FRAMES}, {DATA_SIZE}, {DATA_SIZE}]",
+                              lambda: vae.encode(x))
+        want = [DATA_BATCH, 4, DATA_FRAMES, DATA_SIZE // 8, DATA_SIZE // 8]
+        if list(z.shape) != want:
+            fail(f"data: latent {list(z.shape)}, want {want}")
+        rec, _ = timed_vae("VideoAutoencoderKL decode", lambda: vae.decode(z))
+        if tuple(rec.shape) != tuple(x.shape):
+            fail(f"data: decoded {list(rec.shape)}, want {list(x.shape)}")
+        del rec
+        # the same weights on the CPU on a small input (2 frames of 64^2)
+        small = x[:1, :, :2, :64, :64]
+        cpu = workload.build_vae(cfg, device="cpu")
+        cpu.load_state_dict({k: v.cpu() for k, v in vae.state_dict().items()})
+        with torch.no_grad():
+            zc, zg = cpu.encode(small.cpu()), vae.encode(small).cpu()
+            dc, dg = cpu.decode(zc), vae.decode(zc.cuda()).cpu()
+        rels = [float((g - c).norm() / c.norm()) for g, c in ((zg, zc),
+                                                                (dg, dc))]
+        print(f"  VAE card vs CPU on [1, 3, 2, 64, 64]: encode rel err "
+              f"{rels[0]:.3g}, decode {rels[1]:.3g} (limit {VAE_REL_ERR})",
+              flush=True)
+        if max(rels) > VAE_REL_ERR:
+            fail(f"data: the VAE on the card differs from the CPU: {rels}")
+        cpu = None
+        vae.module.decoder = None
+        torch.cuda.empty_cache()
+        temporal = VideoAutoencoderKLTemporalDecoder(
+            num_frames=DATA_FRAMES).cuda().eval()
+        workload.jax_init_(temporal, 0)
+        timed_vae(f"VideoAutoencoderKLTemporalDecoder decode [1, 4, "
+                  f"{DATA_FRAMES}, {DATA_SIZE // 8}, {DATA_SIZE // 8}]",
+                  lambda: temporal.decode(z[:1]))
+        temporal = None
+        torch.cuda.empty_cache()
+        # extract-features over two clips: the encoder drawn as above
+        # (jax_init_ seed 0 draws the encoder first), so its latents are
+        # this encode's
+        two = tmp / "two.csv"
+        two.write_text("\n".join(Path(csv).read_text().splitlines()[:2]))
+        feat, _ = run_cli("extract-features", [
+            "extract-features", "--csv", str(two), "--num_frames",
+            str(DATA_FRAMES), "--image_size", str(DATA_SIZE), "--batch_size",
+            str(DATA_BATCH), "--save_dir", str(tmp / "feat")], counts)
+        lat = torch.from_numpy(np.load(feat["out"], allow_pickle=True)[
+            "latents"])
+        rel = float((lat - z.cpu()).norm() / z.cpu().norm())
+        print(f"  extract-features: {feat['seconds']:.2f} s encoding "
+              f"{feat['n']} clips ({DATA_BATCH} a batch), latents "
+              f"{list(lat.shape)}, rel err to the in-process encode "
+              f"{rel:.3g} (limit {VAE_REL_ERR})", flush=True)
+        if rel > VAE_REL_ERR:
+            fail(f"data: extract-features latents differ by {rel}")
+        vae = z = x = None
+        torch.cuda.empty_cache()
+        # train --data_path on STDiT-XL/2 16x512x512 (grad_checkpoint):
+        # one epoch over DATA_CLIPS clips at batch 2, each batch's pixels
+        # encoded inside the loop; then --no_vae over latents
+        config = train_workload(tmp)
+        steps = DATA_CLIPS // DATA_BATCH
+        out, launched = run_cli("train data", [
+            "train", "--config", config, "--data_path", csv, "--batch_size",
+            str(DATA_BATCH), "--save_dir", str(tmp / "train")], counts)
+        train_report(f"--data_path, {steps} steps with the VAE encode",
+                     out, launched, steps)
+        lcsv, lconfig = latent_clips(tmp, DATA_CLIPS, rng)
+        out_nv, launched = run_cli("train data no_vae", [
+            "train", "--config", lconfig, "--data_path", lcsv, "--no_vae",
+            "--batch_size", str(DATA_BATCH), "--save_dir",
+            str(tmp / "train_nv")], counts)
+        train_report(f"--data_path --no_vae, {steps} steps over latents",
+                     out_nv, launched, steps)
+        print(f"  train --data_path: {out['ms_per_step']:.1f} ms a step with "
+              f"the encode, {out_nv['ms_per_step']:.1f} without (--no_vae); "
+              f"the encode alone {enc_ms:.1f} ms", flush=True)
+        out = out_nv = None
+    torch.cuda.empty_cache()
+    print(f"phase data: {time.time() - t_phase:.1f} s", flush=True)
+    return counts
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5032,6 +5327,8 @@ def main() -> int:
     for k, n in phase_train().items():
         launches[k] += n
     for k, n in phase_parallel().items():
+        launches[k] += n
+    for k, n in phase_data().items():
         launches[k] += n
 
     kernels = []

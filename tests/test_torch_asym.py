@@ -275,7 +275,9 @@ def test_cuda_k2_zero_points_refuse_group_scales_and_emission(zp_gemm_args):
     args, kw = zp_gemm_args
     with pytest.raises(ValueError, match="group-wise"):
         FM.int8_consumer_matmul(*args, group_scales=True, **kw)
-    with pytest.raises(NotImplementedError):
+    # the emission with zero points raised NotImplementedError until it
+    # was ported: it now reaches the zero-point GEMM's launch
+    with pytest.raises(_Launched):
         FM.int8_consumer_matmul(*args, emit={"gelu": True}, **kw)
     with pytest.raises(ValueError, match="w_colsum"):
         FM.int8_consumer_matmul(*args, **{**kw, "w_colsum": None})

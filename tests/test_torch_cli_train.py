@@ -3,8 +3,9 @@ here with `--device cpu`) on the tiny STDiT workload
 (`configs/workload/opensora_tiny.py`): its log, its checkpoints and
 their meta, a resume that reproduces the uninterrupted run exactly,
 gradient accumulation with warmup (whose first step is the identity),
-a config's `grad_checkpoint`, the refusals of what is not ported, and
-its flags against the JAX CLI's.
+a config's `grad_checkpoint`, training over a CSV dataset (`--data_path`,
+the VAE encoding each batch), the refusals, and its flags against the JAX
+CLI's.
 """
 
 import ast
@@ -115,18 +116,41 @@ def test_config_grad_checkpoint_trains_the_same(full, tmp_path):
     (("--dp", "2"), SystemExit, "world size 1 differs"),
     (("--sp", "2"), SystemExit, "world size 1 differs"),
     (("--tp", "2"), SystemExit, "world size 1 differs"),
-    (("--data_path", "clips.csv"), NotImplementedError, "item 7"),
     (("--no_vae",), ValueError, "--data_path"),
     (("--vae_ckpt", "vae.msgpack"), ValueError, "--data_path"),
 ], ids=["extra0-NotImplementedError-item 6",
         "extra1-NotImplementedError-item 6",
         "extra2-NotImplementedError-item 6",
-        "extra3-NotImplementedError-item 7",
         "extra4-ValueError---data_path", "extra5-ValueError---data_path"])
 def test_train_refuses_what_is_not_ported(tmp_path, extra, error, match):
     with pytest.raises(error, match=match):
         _train(tmp_path, "--num_steps", "1", *extra)
     assert not os.path.exists(tmp_path / "train_log.jsonl")
+
+
+def test_train_data_path_runs(tmp_path, capsys):
+    """`--data_path` (it raised until the dataset and the VAE were ported):
+    an epoch over a CSV of 6 clips at batch 2 is 3 steps, each batch's
+    pixels encoded by the VAE drawn from JAX's initialisers (with the JAX
+    CLI's warning); the checkpoint's meta holds the sampler's place, and a
+    second epoch continues the step count (parity with the JAX command:
+    tests/test_torch_cli_data.py)."""
+    rows = []
+    for i in range(6):
+        p = tmp_path / f"clip{i}.npz"
+        np.savez(p, video=np.random.default_rng(i).integers(
+            0, 255, (4, 64, 64, 3), np.uint8))
+        rows.append(f"{p},clip {i}")
+    (tmp_path / "d.csv").write_text("\n".join(rows))
+    out = _train(tmp_path / "run", "--data_path", str(tmp_path / "d.csv"),
+                 "--epochs", "2", "--ckpt_every", "3")
+    assert "RANDOM-weight VAE" in capsys.readouterr().err
+    assert len(out["losses"]) == 6 and np.isfinite(out["losses"]).all()
+    assert out["out"] == str(tmp_path / "run" / "train_state_6.pt")
+    assert out["ms_per_step"] > 0
+    with open(out["out"] + ".meta.json") as f:
+        assert json.load(f) == {"epoch": 1, "step": 3, "global_step": 6,
+                                "sampler": {"epoch": 1, "start_index": 6}}
 
 
 def _jax_train_flags():

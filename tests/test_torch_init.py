@@ -118,3 +118,51 @@ def test_train_starts_from_the_jax_init(tmp_path):
         assert torch.equal(seen["params"][n], p), n
     table = fresh.blocks[0].scale_shift_table
     assert abs(float(table.detach().std()) - table.shape[-1] ** -0.5) < 0.05
+
+
+@pytest.mark.parametrize("kind", ["video_encoder", "temporal_decoder"])
+def test_jax_init_matches_flax_vae(kind):
+    """The VAE's leaves against `vae.init`'s: the full-width
+    VideoAutoencoderKL's encoder (what `train` and `extract-features`
+    build; JAX's `train` inits `method=vae.encode`) and a narrow temporal
+    decoder (the (3, 1, 1) convs and mix_factor): shapes equal, constants
+    equal, lecun-normal kernels within their cut, means and standard
+    deviations within 6 standard errors."""
+    from viditq_tpu.models import vae as JV
+    from viditq_tpu_torch.models import vae as V
+    from viditq_tpu_torch.utils.bridge import vae_state_dict_from_flax
+    if kind == "video_encoder":
+        jm, method = JV.VideoAutoencoderKL(), "encode"
+        probe = np.zeros((1, 3, 1, 8, 8), np.float32)
+        port = V.VideoAutoencoderKL(decoder=False)
+    else:
+        jm, method = JV.VideoAutoencoderKLTemporalDecoder(
+            num_frames=2, block_out_channels=(32, 32), layers_per_block=1), None
+        probe = np.zeros((1, 4, 2, 4, 4), np.float32)
+        port = V.VideoAutoencoderKLTemporalDecoder(
+            num_frames=2, block_out_channels=(32, 32), layers_per_block=1)
+    v = jax.jit(lambda: jm.init(jax.random.PRNGKey(0), probe,
+                                method=method))()
+    want = vae_state_dict_from_flax(jax.tree.map(np.asarray, v["params"]))
+    workload.jax_init_(port, seed=0)
+    params = dict(port.named_parameters())
+    assert set(params) == set(want)
+    kinds = {"constant": 0, "normal": 0}
+    for name, ref in want.items():
+        ref, got = ref.double(), params[name].detach().double()
+        assert got.shape == ref.shape, name
+        n = ref.numel()
+        sigma = float(ref.std()) if n > 1 else 0.0
+        if sigma == 0.0:
+            assert torch.equal(got, ref), name
+            kinds["constant"] += 1
+            continue
+        assert abs(float(got.mean() - ref.mean())) <= (
+            SIGMAS * sigma * (2.0 / n) ** 0.5), name
+        assert abs(float(got.std()) - sigma) <= SIGMAS * sigma / n ** 0.5, \
+            name
+        cut = 2 * ref[0].numel() ** -0.5 / workload.TRUNC_STD
+        assert float(got.abs().max()) <= cut * (1 + 1e-6), name
+        assert float(ref.abs().max()) <= cut * (1 + 1e-6), name
+        kinds["normal"] += 1
+    assert kinds["constant"] and kinds["normal"]

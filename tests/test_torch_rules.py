@@ -101,6 +101,22 @@ def _k5_gate(x, sh, sc, w, ws):
     return got, (out * gate.repeat_interleave(16, 0) + res).to(torch.bfloat16)
 
 
+def _k2_zp_emit(x, sh, sc, w, ws):
+    # asym acts, their zero-point epilogue, then the GELU and the one
+    # group's row quantize (fused_matmul.py:352-378)
+    q, s, zp, rs = FM.quantize_rows(x[0] + 0.3, sym=False)
+    kw = dict(x_zp=zp, x_rowsum=rs, w_colsum=w.float().sum(0, keepdim=True))
+    got = FM.int8_consumer_matmul(q, s, w, ws, emit={"gelu": True}, **kw)
+    y = FM.gelu_tanh(FM.int8_consumer_matmul(q, s, w, ws,
+                                             out_dtype=torch.float32, **kw))
+    scale = torch.clamp(y.abs().amax(-1, keepdim=True) * (1.0 / 127.0),
+                        min=1e-6)
+    codes = torch.clamp(torch.round(y * (torch.ones_like(scale) / scale)),
+                        -128, 127).to(torch.int8)
+    return torch.cat([got[0].float(), got[1]], 1), torch.cat(
+        [codes.float(), scale], 1)
+
+
 def _k3_int8_qk(x, sh, sc, w, ws):
     q = x.reshape(2, 32, 4, 16)
     k = sh.reshape(2, 1, 4, 16).repeat(1, 8, 1, 1) * x[:, :8].reshape(
@@ -110,12 +126,15 @@ def _k3_int8_qk(x, sh, sc, w, ws):
     return got, A.attention_bnhd(qd, kd, k, 0.25)
 
 
-@pytest.mark.parametrize("call", [_k2_residual, _k5_gate, _k3_int8_qk],
-                         ids=["k2-residual", "k5-gate", "k3-int8_qk"])
+@pytest.mark.parametrize("call", [_k2_residual, _k5_gate, _k3_int8_qk,
+                                  _k2_zp_emit],
+                         ids=["k2-residual", "k5-gate", "k3-int8_qk",
+                              "k2-zp-emit"])
 def test_unported_modes_raise(call):
     # these modes raised NotImplementedError until they were ported; each
     # now computes what its formula says: K2 and K5 `res + gate * out` in
-    # f32 before the one cast, K3 on q and k quantize-dequantized by K8
+    # f32 before the one cast, K3 on q and k quantize-dequantized by K8,
+    # K2's emission after its zero-point epilogue (codes beside scales)
     got, want = call(*_inputs())
     assert got.dtype == want.dtype and torch.equal(got, want)
 
@@ -759,7 +778,8 @@ def test_cli_runs_on_the_card_unless_told_otherwise(monkeypatch, tmp_path):
     assert set(subs) == {"split-ckpt", "inference", "get-calib-data", "ptq",
                          "quant-generate", "quant-generate-mp",
                          "get-sensitivity", "sweep-alpha",
-                         "smooth-quant-list", "calibrate-ptqd-k", "train"}
+                         "smooth-quant-list", "calibrate-ptqd-k", "train",
+                         "extract-features"}
     for name, sp in subs.items():
         # split-ckpt converts files and calibrate-ptqd-k fits k_t to saved
         # trajectories, both on the host: no model
@@ -776,3 +796,10 @@ def test_cli_runs_on_the_card_unless_told_otherwise(monkeypatch, tmp_path):
         with pytest.raises(RuntimeError, match="CUDA"):
             cli.main([*argv, "--config", tiny, "--save_dir",
                       str(tmp_path)])
+    clip = tmp_path / "clip.npz"
+    np.savez(clip, video=np.zeros((2, 16, 16, 3), np.uint8))
+    (tmp_path / "d.csv").write_text(f"{clip},a clip")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli.main(["extract-features", "--csv", str(tmp_path / "d.csv"),
+                  "--num_frames", "2", "--image_size", "16", "--save_dir",
+                  str(tmp_path)])

@@ -613,8 +613,8 @@ def test_stateful_sampler_order_matches_jax(n, seed, epoch, rank, world,
 
 def test_make_encode_batch_paths():
     """Null captions of null_caption_shape with an all-ones mask; the
-    batch's own captions; a text encoder's; a VAE raises (queue item
-    7)."""
+    batch's own captions; a text encoder's; a VAE's posterior mean of the
+    batch's pixels (a VAE raised until it was ported)."""
     video = np.zeros((2, 4, *LATENT), np.float32)
     enc = make_encode_batch(null_caption_shape=(1, 8, 32))
     out = enc({"video": video}, 3)
@@ -630,8 +630,19 @@ def test_make_encode_batch_paths():
     out = make_encode_batch(text_encoder=Text())(
         {"video": video, "text": ["a", "b"]}, 0)
     assert bool(out["y"].all())
-    with pytest.raises(NotImplementedError, match="item 7"):
-        make_encode_batch(vae=object())
+    from viditq_tpu_torch.models.vae import Encoder, VideoAutoencoderKL
+    vae = VideoAutoencoderKL(decoder=False).eval()
+    vae.module.encoder = Encoder(block_out_channels=(32, 32),
+                                 layers_per_block=1)
+    pixels = np.random.default_rng(2).uniform(
+        -1, 1, (2, 3, 2, 8, 8)).astype(np.float32)
+    out = make_encode_batch(vae=vae, null_caption_shape=(1, 8, 32))(
+        {"video": pixels}, 3)
+    with torch.no_grad():
+        want = vae.encode(torch.from_numpy(pixels))
+    assert out["x0"].shape == (2, 4, 2, 4, 4) and not out["x0"].requires_grad
+    assert torch.equal(out["x0"], want)
+    assert out["y"].shape == (2, 1, 8, 32)
 
 
 def test_loss_second_moment_step(pair):

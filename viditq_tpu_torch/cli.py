@@ -15,7 +15,10 @@ Command map to the reference scripts:
   smooth-quant-list <- t2v/scripts/get_smooth_quant_list.py
   calibrate-ptqd-k  <- t2v/scripts/calibrate_ptqd_k.py (k_t from matched
                        trajectories)
-  train             <- t2v/scripts/train.py (synthetic batches)
+  train             <- t2v/scripts/train.py (synthetic batches, or a CSV
+                       dataset encoded by the VAE inside the loop)
+  extract-features  <- t2i/tools/extract_features.py (VAE latents of a
+                       CSV dataset)
 
 The commands take the JAX CLI's flags and write its files and keys:
 `fp_samples.npz` and `quant_samples.npz` (`samples`), `calib_data.npz`
@@ -62,12 +65,25 @@ train ...`; a world size that differs from dp*sp*tp refuses): the mesh of
 `parallel/mesh.py` over nccl on the card or gloo with `--device cpu`, the
 batch over dp with ZeRO-sharded moments, the blocks' linears over tp;
 the model carries no sp mesh, as in JAX (cli.py:580), so sp ranks
-compute the same replica. `--data_path` (the CSV dataset and the VAE,
-item 7) raises.
+compute the same replica. `--data_path` (JAX cli.py:593-617) trains over
+a CSV dataset of `path,text` rows (`data/datasets.DatasetFromCSV` at the
+config's num_frames and image_size; `pipelines/train.train_entry`, epochs
+of `--batch_size` items from the resumable sampler), each batch's pixels
+encoded to the VAE's posterior mean inside the loop (the config's `vae`,
+encoder only, `utils/workload.build_vae`), with null captions of the
+model's shape; `--no_vae` takes each item's 'video' as the latent as it
+is; `--vae_ckpt` is the port's params file of the VAE (`utils/ckpt.
+save_params`; a file of the whole autoencoder serves the encoder), else
+the VAE is drawn from JAX's initialisers (`utils/workload.jax_init_`, seed
+0) with the JAX CLI's warning.
 
-Not ported: get-text-embeds and the 'clip' metric (T5/CLIP weights),
-extract-features (the VAE), training from `--data_path`, and export
-(StableHLO).
+`extract-features` (JAX cli.py:533-567) encodes a CSV dataset's clips
+(`--num_frames` > 0: `VideoAutoencoderKL`) or images (`AutoencoderKL`) at
+`--image_size` to their posterior means and writes `features.npz`
+(`latents`, `texts`), the VAE as `train`'s.
+
+Not ported: get-text-embeds and the 'clip' metric (T5/CLIP weights), and
+export (StableHLO).
 """
 
 from __future__ import annotations
@@ -541,16 +557,74 @@ def cmd_calibrate_ptqd_k(args):
     return {"out": out, "k": k}
 
 
+RANDOM_VAE_NOTE = {
+    "extract-features": "[viditq] no VAE ckpt; using random-init VAE "
+                        "(structural run)",
+    "train": "[viditq] training with a RANDOM-weight VAE (pass --vae_ckpt "
+             "for real latents)"}
+
+
+def init_vae(vae, vae_ckpt, cmd: str):
+    """The VAE's parameters from `vae_ckpt` (the port's params file; it may
+    hold more, e.g. the decoder of an encoder-only build), else JAX's
+    initialisers from seed 0 with the JAX CLI's warning."""
+    from viditq_tpu_torch.utils import ckpt as ckpt_utils
+    if vae_ckpt:
+        return ckpt_utils.load_params_into(vae, vae_ckpt, extra_ok=True)
+    print(RANDOM_VAE_NOTE[cmd], file=sys.stderr)
+    return workload.jax_init_(vae, INIT_SEED)
+
+
+def cmd_extract_features(args):
+    """VAE latents of a dataset CSV -> features.npz (JAX cli.py:533-567;
+    reference t2i/tools/extract_features.py). Returns the file ('out'),
+    the encode loop's 'seconds' and the number of latents ('n')."""
+    import torch
+    from viditq_tpu_torch.data.datasets import (DatasetFromCSV,
+                                                StatefulSampler,
+                                                batch_iterator)
+    video = args.num_frames > 0
+    ds = DatasetFromCSV(args.csv, num_frames=args.num_frames or None,
+                        image_size=(args.image_size, args.image_size),
+                        root=args.data_root)
+    vae = workload.build_vae(
+        {"vae": {"type": "VideoAutoencoderKL" if video else "AutoencoderKL"}},
+        device=args.device, decoder=False)
+    init_vae(vae, args.vae_ckpt, "extract-features")
+
+    def run():
+        latents, texts = [], []
+        sampler = StatefulSampler(len(ds), shuffle=False)
+        with torch.no_grad():
+            for batch in batch_iterator(ds, sampler, args.batch_size):
+                x = torch.from_numpy(batch["video"]).to(args.device)
+                latents.append(_np(vae.encode(x)))
+                texts.extend(batch["text"])
+        return latents, texts
+    (latents, texts), seconds = _timed(run, args.device)
+    os.makedirs(args.save_dir, exist_ok=True)
+    out = os.path.join(args.save_dir, "features.npz")
+    np.savez(out, latents=np.concatenate(latents),
+             texts=np.asarray(texts, dtype=object) if texts else
+             np.zeros(0))
+    n = sum(lat.shape[0] for lat in latents)
+    print(f"saved {n} latents -> {out} ({seconds:.3f} s)")
+    return {"out": out, "seconds": seconds, "n": n}
+
+
 def cmd_train(args):
-    """Synthetic-data training (module docstring), over a mesh under
-    torchrun when --dp * --sp * --tp > 1. Returns the last
+    """Synthetic-data training, or a CSV dataset's with --data_path (module
+    docstring), over a mesh under torchrun when --dp * --sp * --tp > 1.
+    Returns the last
     checkpoint written ('out', None without --ckpt_every), 'seconds' of
     the loop, 'ckpt_seconds' of its checkpoint writes, 'ms_per_step'
     after the first step without those writes (the device synchronised
-    after the first step and at the end), 'losses' (every step's), and the
-    final 'params' and 'ema'."""
+    after the first step and at the end), 'losses' (every step's run), and
+    the final 'params' and 'ema' (all None where a resumed --data_path run
+    finds its epochs done)."""
     import torch
-    from viditq_tpu_torch.pipelines.train import train_loop
+    from viditq_tpu_torch.pipelines.train import (make_encode_batch,
+                                                  train_entry, train_loop)
     world = args.dp * args.sp * args.tp
     launched = int(os.environ.get("WORLD_SIZE", "1"))
     if launched != world:
@@ -558,11 +632,7 @@ def cmd_train(args):
             f"train: the world size {launched} differs from --dp x --sp x "
             f"--tp = {world}: run it under torchrun (python -m "
             f"torch.distributed.run --nproc_per_node {world} ...)")
-    if args.data_path:
-        raise NotImplementedError(
-            "--data_path: the CSV dataset and the VAE are not ported yet "
-            "(queue item 7: data and the VAE)")
-    if args.no_vae or args.vae_ckpt:
+    if not args.data_path and (args.no_vae or args.vae_ckpt):
         raise ValueError("--no_vae and --vae_ckpt apply to --data_path "
                          "training only")
     mesh, device = None, args.device
@@ -586,33 +656,60 @@ def cmd_train(args):
             else (lambda: None))
     marks = []
 
-    def mark(i):
+    def mark(i):  # i: the global step index
         if not marks:  # after the first step only: no per-step sync
             sync()
-            marks.append(time.perf_counter())
+            marks.append((i, time.perf_counter()))
 
+    kw = dict(latent_shape=(4, *workload.latent_size(cfg)),
+              caption_shape=cap_shape, lr=args.lr,
+              ckpt_every=args.ckpt_every, save_dir=args.save_dir,
+              grad_accum=args.grad_accum, grad_clip=args.grad_clip,
+              warmup_steps=args.warmup_steps, on_step_end=mark, mesh=mesh)
+    if args.data_path:
+        from viditq_tpu_torch.data.datasets import DatasetFromCSV
+        dataset = DatasetFromCSV(args.data_path,
+                                 num_frames=cfg.get("num_frames"),
+                                 image_size=tuple(cfg.get("image_size",
+                                                          (256, 256))))
+        vae = None
+        if not args.no_vae:
+            vae = workload.build_vae(cfg, device=device, decoder=False)
+            init_vae(vae, args.vae_ckpt, "train")
+        encode = make_encode_batch(vae, null_caption_shape=cap_shape)
+
+        def run():
+            return train_entry(model, dataset, epochs=args.epochs,
+                               batch_size=args.batch_size,
+                               encode_batch=encode,
+                               resume_from=args.resume_from, **kw)
+    else:
+        def run():
+            return train_loop(model, None, num_steps=args.num_steps,
+                              resume_from=args.resume_from, **kw)
     sync()
     t0 = time.perf_counter()
-    out = train_loop(model, None, latent_shape=(4, *workload.latent_size(
-        cfg)), caption_shape=cap_shape, num_steps=args.num_steps,
-        lr=args.lr, ckpt_every=args.ckpt_every, save_dir=args.save_dir,
-        grad_accum=args.grad_accum, grad_clip=args.grad_clip,
-        warmup_steps=args.warmup_steps, resume_from=args.resume_from,
-        on_step_end=mark, mesh=mesh)
+    out = run()
     sync()
     t1 = time.perf_counter()
     if mesh is not None:
         torch.distributed.destroy_process_group()
+    if out is None:
+        print("nothing to train: the resume checkpoint already covers "
+              "the requested epochs")
+        return {"out": None, "seconds": t1 - t0, "ckpt_seconds": 0.0,
+                "ms_per_step": None, "losses": [], "params": None,
+                "ema": None}
     steps = len(out["step_losses"])
     losses = out["step_losses"].float().cpu().tolist()
     saves = out["ckpt_seconds"]
-    later = sum(v for i, v in saves.items() if i > args.num_steps - steps)
+    later = sum(v for i, v in saves.items() if i > marks[0][0])
     print(f"trained {steps} steps in {t1 - t0:.3f} s "
           f"({sum(saves.values()):.3f} s of checkpoint writes); final loss "
           f"{losses[-1] if losses else float('nan'):.4f}")
     return {"out": out["ckpt"], "seconds": t1 - t0,
             "ckpt_seconds": sum(saves.values()),
-            "ms_per_step": (1e3 * (t1 - marks[0] - later) / (steps - 1)
+            "ms_per_step": (1e3 * (t1 - marks[0][1] - later) / (steps - 1)
                             if steps > 1 else None),
             "losses": losses, "params": out["params"], "ema": out["ema"]}
 
@@ -691,8 +788,8 @@ def build_parser() -> argparse.ArgumentParser:
     s.add_argument("--sp", type=int, default=1)
     s.add_argument("--tp", type=int, default=1)
     s.add_argument("--data_path", default=None,
-                   help="CSV dataset (not ported: queue item 7); omit for "
-                        "synthetic batches")
+                   help="CSV dataset (path,text rows; the VAE encodes each "
+                        "batch); omit for synthetic batches")
     s.add_argument("--epochs", type=int, default=1)
     s.add_argument("--batch_size", type=int, default=2)
     s.add_argument("--grad_accum", type=int, default=1)
@@ -701,12 +798,32 @@ def build_parser() -> argparse.ArgumentParser:
     s.add_argument("--resume_from", default=None,
                    help="train_state_*.pt checkpoint to resume")
     s.add_argument("--no_vae", action="store_true",
-                   help="with --data_path only")
-    s.add_argument("--vae_ckpt", default=None, help="with --data_path only")
+                   help="with --data_path only: the items' 'video' are "
+                        "the latents")
+    s.add_argument("--vae_ckpt", default=None,
+                   help="with --data_path only: the VAE's params file "
+                        "(.pt); else JAX's initialisers from seed 0")
     s.add_argument("--device", default=DEFAULT_DEVICE,
                    help="torch device of the model (the card; 'cpu' runs "
                         "the kernels' plain versions)")
     s.set_defaults(fn=cmd_train)
+
+    s = sub.add_parser("extract-features")
+    s.add_argument("--csv", required=True)
+    s.add_argument("--data_root", default="")
+    s.add_argument("--image_size", type=int, default=256)
+    s.add_argument("--num_frames", type=int, default=0,
+                   help="0 = image dataset (AutoencoderKL), else frames a "
+                        "clip (VideoAutoencoderKL)")
+    s.add_argument("--batch_size", type=int, default=4)
+    s.add_argument("--vae_ckpt", default=None,
+                   help="the VAE's params file (.pt); else JAX's "
+                        "initialisers from seed 0")
+    s.add_argument("--save_dir", default="outputs/features")
+    s.add_argument("--device", default=DEFAULT_DEVICE,
+                   help="torch device of the VAE (the card; 'cpu' for the "
+                        "CPU)")
+    s.set_defaults(fn=cmd_extract_features)
 
     s = sub.add_parser("calibrate-ptqd-k")
     s.add_argument("--fp_trajectory", required=True)

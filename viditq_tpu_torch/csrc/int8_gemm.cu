@@ -17,12 +17,15 @@
 //   asym acts (:359-362):
 //          c = float(acc) - xzp[m]*wcs[n] - wzp[n]*xrs[m] + (K*xzp[m])*wzp[n]
 //          out = (c * xs[m]) * ws[n] + b[n]
+//   emit with zero points (:352-372): either zero-point epilogue, the bias,
+//          then gelu_tanh into the f32 scratch (ZpEpilogue's GELU), and the
+//          same group_quant_kernel pass
 //   residual (+ gate), on plain, gw_x and both zero-point modes (:383-390):
 //          o = out * gate[m / (M/G), n] (with a gate), then o + res[m, n]
 // every product and sum rounded in f32 in that order (-fmad=false), the
 // bias added in f32 before the output's cast (:363-364; K7b rounds it to
-// the output type first). gw_x and the emission take sym x sym only; the
-// residual epilogue takes bf16 out and no emission (:438-440).
+// the output type first). gw_x takes sym x sym only; the residual epilogue
+// takes bf16 out and no emission (:438-440).
 //
 // Bound on the card: the int8 tensor cores at the main path's shapes
 // (M = 32768, K/N in 1152..4608: ~100-300 int8 ops per byte moved). The
@@ -49,13 +52,14 @@ using vq::i8mma::int8_gemm_epilogue;
 
 // The zero-point-corrected modes: int8_mma.cuh's ZpEpilogue (shared with
 // K7b), the f32 bias added before the cast. ASYM_X = asym acts (xzp given),
-// else sym acts x asym weights. Out: bf16 or f32.
-template <bool ASYM_X, bool F32_OUT, bool RES = false>
+// else sym acts x asym weights. Out: bf16 or f32; GELU: f32 gelu(out), the
+// emission's scratch.
+template <bool ASYM_X, bool F32_OUT, bool RES = false, bool GELU = false>
 cudaError_t launch_gemm_zp(const int8_t* A, const int8_t* Wt,
                            const float* const* f, void* out, int M, int N,
                            int K, const vq::i8mma::ResGate& rg,
                            cudaStream_t st) {
-  const vq::i8mma::ZpEpilogue<F32_OUT, false, !ASYM_X, RES> epi{
+  const vq::i8mma::ZpEpilogue<F32_OUT, false, !ASYM_X, RES, GELU> epi{
       f[0], f[1], f[2], f[3], f[4], f[5], f[6], out, M, N,
       static_cast<float>(K), rg};
   return vq::i8mma::launch_tma(A, Wt, epi, K, K, st);
@@ -198,24 +202,25 @@ VQ_EXPORT int vq_int8_gemm(const void* A, const void* Wt, const void* xs,
 // The zero-point-corrected modes: A, Wt as vq_int8_gemm; xs [M] f32; xzp
 // [M] f32 (asym acts) or null (sym acts: then wzp is needed); xrs [M] f32
 // or null (zeros); ws [N] f32; wzp [N] f32 or null (sym weights); wcs [N]
-// f32 (needed with xzp) or null; bias [N] f32 or null; out [M, N] f32 when
-// f32_out, else bf16. K % 64 == 0, N % 16 == 0, A and Wt 16-byte aligned.
-// res, gate, rows_per_gate: the residual epilogue as vq_int8_gemm's (bf16
-// out).
+// f32 (needed with xzp) or null; bias [N] f32 or null. out_kind 0: out
+// [M, N] bf16; 1: f32; 2: f32 gelu(result) (the emission's scratch, which
+// vq_group_quant then quantizes). K % 64 == 0, N % 16 == 0, A and Wt
+// 16-byte aligned. res, gate, rows_per_gate: the residual epilogue as
+// vq_int8_gemm's (out_kind 0).
 VQ_EXPORT int vq_int8_gemm_zp(const void* A, const void* Wt, const void* xs,
                               const void* xzp, const void* xrs,
                               const void* ws, const void* wzp,
                               const void* wcs, const void* bias, void* out,
-                              int M, int N, int K, int f32_out,
+                              int M, int N, int K, int out_kind,
                               const void* res, const void* gate,
                               int rows_per_gate, void* stream) {
   const int8_t* a = static_cast<const int8_t*>(A);
   const int8_t* w = static_cast<const int8_t*>(Wt);
   vq::i8mma::ResGate rg;
   if (!vq::i8mma::tma_ok(a, w, K) || (xzp == nullptr && wzp == nullptr) ||
-      (xzp != nullptr && wcs == nullptr) ||
+      (xzp != nullptr && wcs == nullptr) || out_kind < 0 || out_kind > 2 ||
       !vq::i8mma::res_gate(res, gate, rows_per_gate, &rg) ||
-      (res != nullptr && f32_out))
+      (res != nullptr && out_kind != 0))
     return cudaErrorInvalidValue;
   const auto p = [](const void* v) { return static_cast<const float*>(v); };
   const float* f[7] = {p(xs), p(xzp), p(xrs), p(ws), p(wzp), p(wcs), p(bias)};
@@ -227,11 +232,19 @@ VQ_EXPORT int vq_int8_gemm_zp(const void* A, const void* Wt, const void* xs,
             : launch_gemm_zp<false, false, true>(a, w, f, out, M, N, K, rg,
                                                  st);
   else if (xzp != nullptr)
-    e = f32_out ? launch_gemm_zp<true, true>(a, w, f, out, M, N, K, rg, st)
-                : launch_gemm_zp<true, false>(a, w, f, out, M, N, K, rg, st);
+    e = out_kind == 2
+            ? launch_gemm_zp<true, true, false, true>(a, w, f, out, M, N, K,
+                                                      rg, st)
+        : out_kind == 1
+            ? launch_gemm_zp<true, true>(a, w, f, out, M, N, K, rg, st)
+            : launch_gemm_zp<true, false>(a, w, f, out, M, N, K, rg, st);
   else
-    e = f32_out ? launch_gemm_zp<false, true>(a, w, f, out, M, N, K, rg, st)
-                : launch_gemm_zp<false, false>(a, w, f, out, M, N, K, rg, st);
+    e = out_kind == 2
+            ? launch_gemm_zp<false, true, false, true>(a, w, f, out, M, N, K,
+                                                       rg, st)
+        : out_kind == 1
+            ? launch_gemm_zp<false, true>(a, w, f, out, M, N, K, rg, st)
+            : launch_gemm_zp<false, false>(a, w, f, out, M, N, K, rg, st);
   return static_cast<int>(e);
 }
 

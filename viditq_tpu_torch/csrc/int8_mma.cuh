@@ -381,13 +381,17 @@ struct int8_gemm_epilogue {
 // bias rounded to bf16 and rounds again. Otherwise (K2, :363-364) the f32
 // bias is added before the one cast. An f32 output adds it in f32. RES
 // (K2 and K5): the residual (+ gate) epilogue after the bias, before the
-// cast.
-template <bool F32_OUT, bool BIAS_AFTER_CAST, bool SYM_X, bool RES_ = false>
+// cast. GELU (K2's emission with zero points, fused_matmul.py:352-371):
+// f32 gelu_tanh(o) after the bias, the emission's scratch.
+template <bool F32_OUT, bool BIAS_AFTER_CAST, bool SYM_X, bool RES_ = false,
+          bool GELU = false>
 struct ZpEpilogue {
   using Out = typename std::conditional<F32_OUT, float, __nv_bfloat16>::type;
   static constexpr bool GW = false;
   static constexpr bool RES = RES_;
   static_assert(!(RES && BIAS_AFTER_CAST), "K7b takes no residual");
+  static_assert(!GELU || (F32_OUT && !RES && !BIAS_AFTER_CAST),
+                "the GELU scratch is K2's f32 emission, without a residual");
   static constexpr int BN = 192;
   const float* xs;
   const float* xzp;
@@ -441,7 +445,9 @@ struct ZpEpilogue {
     } else {
       if (bias != nullptr) o = o + c.b;
       if constexpr (RES) o = rg.apply(o, res, gate);
-      if constexpr (F32_OUT) {
+      if constexpr (GELU) {
+        return gelu_tanh(o);
+      } else if constexpr (F32_OUT) {
         return o;
       } else {
         return __float2bfloat16_rn(o);

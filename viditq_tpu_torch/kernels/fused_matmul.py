@@ -9,7 +9,8 @@ fallback between the two.
   K1 `ln_modulate_quantize`   csrc/ln_mod_quant.cu
   K2 `int8_consumer_matmul`   csrc/int8_gemm.cu (plain, gw_x, emit, the
      zero-point-corrected epilogues of asymmetric acts or weights, and the
-     residual (+ gate) epilogue on all but the emission)
+     residual (+ gate) epilogue on all but the emission; the emission
+     after either zero-point epilogue)
   K4 `quantize_rows`          csrc/quant_rows.cu (optionally tanh-GELU first)
   K5 `fused_dynq_int8_matmul` csrc/dynq_gemm.cu: one launch that quantizes
      each M tile's rows into shared memory and runs K2's GEMM and epilogues
@@ -26,8 +27,8 @@ after the GELU where there is one): K4's, K5's (`has_csc`) and K2's
 emission (`has_ecs`). The residual (+ gate) epilogue, `o = res + gate *
 out` after the bias in f32 (`_consumer_kernel`, `fused_matmul.py:383-390`;
 `_dynq_mm_kernel`, `:192-205`), runs inside K2 and K5; on the card it takes
-bf16 residual, gate and output. Zero points in K2's group-wise and emitting
-modes raise NotImplementedError.
+bf16 residual, gate and output. K2's group-wise mode takes sym x sym
+only, as in JAX.
 
 The three quantize forms stay as the JAX sites write them (C6):
 K1/K4/K5 `round(x * (1/s))` with `s = max(absmax/127, 1e-6)` or, asym,
@@ -111,12 +112,6 @@ def gelu_tanh(o: torch.Tensor) -> torch.Tensor:
     """tanh-GELU in the JAX kernel's operation order (o^3 as (o*o)*o)."""
     return 0.5 * o * (1.0 + torch.tanh(
         _SQRT_2_OVER_PI * (o + 0.044715 * (o * o * o))))
-
-
-def _unsupported(**modes):
-    for name, val in modes.items():
-        if val is not None and val is not False:
-            raise NotImplementedError(f"{name} is not ported")
 
 
 def _out_ptr(t: Optional[torch.Tensor]):
@@ -313,12 +308,11 @@ def _zp_epilogue(acc, M, N, K, xs, ws, x_zp, x_rowsum, w_zp, w_colsum):
     return corrected * xs * ws
 
 
-def _check_zero_points(x_zp, x_rowsum, w_zp, w_colsum, group_scales, emit):
+def _check_zero_points(x_zp, x_rowsum, w_zp, w_colsum, group_scales):
     """The JAX wrapper's preconditions (`fused_matmul.py:437-454`)."""
     if x_zp is None and w_zp is None:
         return
     require(not group_scales, "group-wise x_scale requires sym x sym")
-    _unsupported(**{"emission with zero points": emit is not None})
     require(x_zp is not None or x_rowsum is not None,
             "sym acts on asym weights need x_rowsum for the w_zp term")
     require(x_zp is None or w_colsum is not None,
@@ -331,7 +325,7 @@ def int8_consumer_matmul_plain(x_q, x_scale, w_q, w_scale, bias=None,
                                x_zp=None, x_rowsum=None, w_zp=None,
                                w_colsum=None, residual=None, gate=None):
     count_plain("int8_consumer_matmul", x_q)
-    _check_zero_points(x_zp, x_rowsum, w_zp, w_colsum, group_scales, emit)
+    _check_zero_points(x_zp, x_rowsum, w_zp, w_colsum, group_scales)
     M, K = x_q.shape
     N = w_q.shape[1]
     _check_residual(M, N, residual, gate, emit)
@@ -390,7 +384,8 @@ def int8_consumer_matmul(x_q: torch.Tensor, x_scale: torch.Tensor,
     [M, 1] marks asym acts (then w_colsum [1, N] is needed), w_zp [1, N]
     asym weights (then, with sym acts, x_rowsum [M, 1]); either selects
     the zero-point-corrected epilogue, bf16 or f32 out, bias added in f32
-    before the cast. Group-wise scales and the emission take sym x sym.
+    before the cast, or the emission after it (`fused_matmul.py:352-372`).
+    Group-wise scales take sym x sym.
 
     emit {'gelu': bool, 'col_scale': [N] or None}: instead of the output,
     apply tanh-GELU, multiply by the next layer's channel-balancing column
@@ -411,15 +406,10 @@ def int8_consumer_matmul(x_q: torch.Tensor, x_scale: torch.Tensor,
                                           out_dtype, group_scales, emit,
                                           *tables, residual=residual,
                                           gate=gate)
-    _check_zero_points(*tables, group_scales, emit)
+    _check_zero_points(*tables, group_scales)
     M, N = x_q.shape[0], w_q.shape[1]
     _check_residual(M, N, residual, gate, emit)
     rg = _res_gate_args(M, N, out_dtype, residual, gate)
-    if x_zp is not None or w_zp is not None:
-        out = k2_gemm_zp(x_q, x_scale, w_q, w_scale, bias, out_dtype,
-                         *tables, rg)
-        COUNTERS["int8_consumer_matmul"].launches += 1
-        return out
     if emit is None:
         require(out_dtype in (torch.bfloat16, torch.float32),
                 f"unsupported out_dtype {out_dtype}")
@@ -427,7 +417,11 @@ def int8_consumer_matmul(x_q: torch.Tensor, x_scale: torch.Tensor,
     else:
         bn = emit_groups(w_q.shape[1], x_q.shape[1])
         kind = 2 if emit.get("gelu") else 1
-    out = k2_gemm(x_q, x_scale, w_q, w_scale, bias, group_scales, kind, rg)
+    if x_zp is not None or w_zp is not None:
+        out = k2_gemm_zp(x_q, x_scale, w_q, w_scale, bias, kind, *tables, rg)
+    else:
+        out = k2_gemm(x_q, x_scale, w_q, w_scale, bias, group_scales, kind,
+                      rg)
     COUNTERS["int8_consumer_matmul"].launches += 1
     return out if emit is None else group_quant(out, bn, ecs)
 
@@ -447,14 +441,14 @@ def _require_gemm_operands(x_q, w_q):
     return M, K, N
 
 
-def k2_gemm_zp(x_q, x_scale, w_q, w_scale, bias, out_dtype, x_zp, x_rowsum,
+def k2_gemm_zp(x_q, x_scale, w_q, w_scale, bias, kind: int, x_zp, x_rowsum,
                w_zp, w_colsum, rg=(None, None, 0)) -> torch.Tensor:
     """The launch of K2's zero-point-corrected epilogue on CUDA tensors (no
-    count); a missing table is a null pointer the kernel reads as zeros. rg:
-    the residual epilogue's (res, gate, rows_per_gate), `_res_gate_args`."""
+    count); a missing table is a null pointer the kernel reads as zeros.
+    kind as `k2_gemm`'s: 0 bf16 out, 1 f32 out, 2 f32 tanh-GELU out (the
+    emission's scratch). rg: the residual epilogue's (res, gate,
+    rows_per_gate), `_res_gate_args`, with kind 0."""
     M, K, N = _require_gemm_operands(x_q, w_q)
-    require(out_dtype in (torch.bfloat16, torch.float32),
-            f"unsupported out_dtype {out_dtype}")
     rows = [f32_flat(t) if t is not None else None
             for t in (x_scale, x_zp, x_rowsum)]
     cols = [f32_flat(t) if t is not None else None
@@ -464,12 +458,13 @@ def k2_gemm_zp(x_q, x_scale, w_q, w_scale, bias, out_dtype, x_zp, x_rowsum,
     for name, t in zip(("w_scale", "w_zp", "w_colsum", "bias"), cols):
         require(t is None or t.numel() == N, f"{name} must have {N} elements")
     lib = _build.lib()
-    out = torch.empty((M, N), dtype=out_dtype, device=x_q.device)
+    out = torch.empty((M, N), dtype=torch.bfloat16 if kind == 0
+                      else torch.float32, device=x_q.device)
     _build.check(lib.vq_int8_gemm_zp(
         x_q.data_ptr(), w_q.data_ptr(), *(_out_ptr(t) for t in rows),
-        *(_out_ptr(t) for t in cols), out.data_ptr(), M, N, K,
-        int(out_dtype == torch.float32), _out_ptr(rg[0]), _out_ptr(rg[1]),
-        rg[2], _build.stream_ptr(x_q)), "vq_int8_gemm_zp")
+        *(_out_ptr(t) for t in cols), out.data_ptr(), M, N, K, kind,
+        _out_ptr(rg[0]), _out_ptr(rg[1]), rg[2], _build.stream_ptr(x_q)),
+        "vq_int8_gemm_zp")
     return out
 
 

@@ -19,7 +19,8 @@ the device and is read on the host at log steps only. `mesh` (a
 tp shard, the state and each global batch are sharded as
 `parallel/training.py` describes, and the checkpoints are one whole state
 written by rank 0 (gathered from every rank), which resumes at any world
-size. Not ported: the orbax format, the VAE encoding (item 7).
+size. `make_encode_batch(vae=...)` encodes pixel batches to latents inside
+the loop. Not ported: the orbax format.
 """
 
 from __future__ import annotations
@@ -192,19 +193,23 @@ def make_encode_batch(vae=None, text_encoder=None,
                       schedule_steps: int = 1000, seed: int = 7,
                       null_caption_shape=None):
     """Raw {'video', 'text'} batches -> train batches (reference train.py:
-    218-224 under no_grad): encode(batch, step) -> {'x0', 't', 'y',
-    'mask'}, t drawn from a generator seeded by (seed, step). text_encoder:
-    an object with .encode(prompts) -> {'y', 'mask'}; without one, the
-    batch's own 'y'/'mask', else zero embeds of null_caption_shape [1, L,
-    C] with an all-ones mask. The VAE is not ported (queue item 7):
-    passing one raises."""
-    if vae is not None:
-        raise NotImplementedError(
-            "VAE encoding in training is not ported yet (queue item 7: "
-            "data and the VAE); pass latents as the batch's 'video'")
+    218-224 under no_grad; JAX train.py:188-220): encode(batch, step) ->
+    {'x0', 't', 'y', 'mask'}, t drawn from a generator seeded by (seed,
+    step). vae: a module with .encode (`models/vae.py`, e.g.
+    `utils/workload.build_vae(cfg, device, decoder=False)`): the batch's
+    pixels [B, 3, T, H, W] go to the VAE's device and x0 is their
+    posterior mean, under no_grad (JAX encodes with rng None); without
+    one, 'video' is x0 as it is. text_encoder: an object with
+    .encode(prompts) -> {'y', 'mask'}; without one, the batch's own
+    'y'/'mask', else zero embeds of null_caption_shape [1, L, C] with an
+    all-ones mask, on x0's device."""
 
     def encode(batch, step: int):
         x = torch.as_tensor(np.asarray(batch["video"]))
+        if vae is not None:
+            p = next(vae.parameters())
+            with torch.no_grad():
+                x = vae.encode(x.to(p.device, p.dtype))
         if text_encoder is not None:
             enc = text_encoder.encode(batch["text"])
             y, mask = enc["y"], enc.get("mask")
@@ -212,9 +217,9 @@ def make_encode_batch(vae=None, text_encoder=None,
             y, mask = batch.get("y"), batch.get("mask")
             if y is None and null_caption_shape is not None:
                 y = torch.zeros((x.shape[0],) + tuple(null_caption_shape),
-                                dtype=x.dtype)
+                                dtype=x.dtype, device=x.device)
                 mask = torch.ones((x.shape[0], null_caption_shape[-2]),
-                                  dtype=torch.int32)
+                                  dtype=torch.int32, device=x.device)
         g = step_generator(seed, step, "cpu")
         t = torch.randint(0, schedule_steps, (x.shape[0],), generator=g)
         out = {"x0": x, "t": t, "y": y}
@@ -236,8 +241,11 @@ def train_entry(model, dataset, *, latent_shape, caption_shape,
     set_start_index, mid-epoch resume from the checkpoint's meta).
     encode_batch(raw_batch, step) maps items to train batches
     (make_encode_batch); None passes them through. loop_kw goes to
-    train_loop (lr, grad_accum, ckpt_every, ...). Returns the last epoch's
-    train_loop result, or None when the checkpoint covers every epoch."""
+    train_loop (lr, grad_accum, ckpt_every, ...); its on_step_end gets the
+    global step index (epoch * steps per epoch + step). Returns the last
+    epoch's train_loop result with 'step_losses' (every step run) and
+    'ckpt_seconds' (keyed by global step index) over all epochs, or None
+    when the checkpoint covers every epoch."""
     from viditq_tpu_torch.data.datasets import (StatefulSampler,
                                                 batch_iterator)
 
@@ -257,10 +265,14 @@ def train_entry(model, dataset, *, latent_shape, caption_shape,
             start_epoch, start_step, consumed = start_epoch + 1, 0, 0
             sampler.set_start_index(0)
 
-    out = None
+    out, step_losses, ckpt_seconds = None, [], {}
+    user_end = loop_kw.pop("on_step_end", None)
     for epoch in range(start_epoch, epochs):
         sampler.set_epoch(epoch)
         epoch_start = start_step
+        base = epoch * n_per_epoch
+        on_end = (None if user_end is None
+                  else (lambda i, b=base: user_end(b + i)))
 
         def batches():
             # the encode step index starts at the resume point, so its
@@ -277,11 +289,18 @@ def train_entry(model, dataset, *, latent_shape, caption_shape,
                          epoch=epoch, sampler=sampler,
                          consumed_items=consumed,
                          resume_from=resume_from if epoch == start_epoch
-                         else None, use_meta_counters=False, **loop_kw)
+                         else None, use_meta_counters=False,
+                         on_step_end=on_end, **loop_kw)
+        step_losses.append(out["step_losses"])
+        ckpt_seconds.update({base + i: v
+                             for i, v in out["ckpt_seconds"].items()})
         # later epochs start clean (reference train.py:284-286) and carry
         # the EMA and the optimizer state (the parameters are the model's)
         resume_from, start_step, consumed = None, 0, 0
         sampler.set_start_index(0)
         loop_kw["resume_ema"] = out["ema"]
         loop_kw["resume_opt_state"] = out["opt_state"]
+    if out is not None:
+        out["step_losses"] = torch.cat(step_losses)
+        out["ckpt_seconds"] = ckpt_seconds
     return out

@@ -65,8 +65,8 @@ Modes (`QuantCtx.mode`):
   * quant: by the layer's `path` (`layer_path`):
     - 'native' (dynamic int8 acts): impl 'fused' runs the fused kernels —
       with a `Prequant` input from a producer kernel, the int8 consumer
-      matmul (K2, optionally emitting int8 for the next layer when sym x
-      sym); otherwise the quantize-in matmul (K5); a residual (+ gate)
+      matmul (K2, optionally emitting int8 for the next layer when that
+      layer is sym x sym, after either zero-point epilogue); otherwise the quantize-in matmul (K5); a residual (+ gate)
       `epilogue` runs inside either (`_epilogue_fusable`). Any other impl:
       with a `Prequant` input from `shared_prequant` (K7a), the int8
       matmul with the zero-point-corrected epilogue (K7b); otherwise

@@ -41,6 +41,15 @@ same configuration loads with `load_state_dict(..., strict=True)`:
     a flax parent keeps because it cannot read its children's variables
     (qlinear.py:113-145), must equal that child's table (else ValueError)
     and is dropped: the port's parents read the child's table.
+
+`vae_state_dict_from_flax(params)` does the same for the VAE's `params`
+(`viditq_tpu/models/vae.py`; `models/vae.py` keeps its module names):
+flax conv kernels [kh, kw, in, out] become [out, in, kh, kw], the
+temporal (3, 1, 1) convs' [3, 1, 1, in, out] become [out, in, 3, 1, 1],
+Dense kernels are transposed, each GroupNorm's `gn.scale`/`gn.bias`
+become `weight`/`bias`, `mix_factor` stays as it is. It does not go
+through the backbone's `_convert`, which flattens every kernel above two
+dims for the patchify convs.
 """
 
 from __future__ import annotations
@@ -141,4 +150,24 @@ def state_dict_from_flax(params: Mapping,
                 continue
             k, v = _convert(_dotted(path), arr)
             out[k] = v
+    return out
+
+
+def vae_state_dict_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """A JAX VAE's params tree (AutoencoderKL, VideoAutoencoderKL,
+    VideoAutoencoderKLTemporalDecoder, or any of their Encoder / Decoder /
+    TemporalDecoder) -> the state dict of the port's module of the same
+    configuration (module docstring)."""
+    out: Dict[str, torch.Tensor] = {}
+    for path, arr in _flatten(params).items():
+        *mods, leaf = path
+        if mods and mods[-1] == "gn":  # GroupNorm's inner flax module
+            mods = mods[:-1]
+            leaf = {"scale": "weight", "bias": "bias"}[leaf]
+        elif leaf == "kernel":
+            leaf = "weight"
+            # flax [*spatial, in, out] -> torch [out, in, *spatial]
+            arr = np.moveaxis(arr, (-1, -2), (0, 1))
+        out[".".join((*mods, leaf))] = torch.from_numpy(
+            np.array(arr, dtype=np.float32, copy=True))
     return out

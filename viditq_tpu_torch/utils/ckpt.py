@@ -219,14 +219,18 @@ def load_params(path: str) -> Dict[str, torch.Tensor]:
     return torch.load(path, map_location="cpu", weights_only=True)
 
 
-def load_params_into(model: nn.Module, path_or_sd) -> nn.Module:
+def load_params_into(model: nn.Module, path_or_sd,
+                     extra_ok: bool = False) -> nn.Module:
     """Copy a `save_params` file (or a state dict of parameters) into the
-    model's parameters: every parameter must be in it and nothing else
-    (the quant tables are not parameters)."""
+    model's parameters: every parameter must be in it and, unless
+    extra_ok (e.g. a whole VAE's file into its encoder), nothing else (the
+    quant tables are not parameters)."""
     is_path = isinstance(path_or_sd, (str, os.PathLike))
     sd = load_params(path_or_sd) if is_path else path_or_sd
     want = {n for n, _ in model.named_parameters()}
     missing, extra = want - set(sd), set(sd) - want
+    if extra_ok:
+        sd, extra = {k: v for k, v in sd.items() if k in want}, set()
     if missing or extra:
         raise KeyError(f"{path_or_sd if is_path else 'parameters'}: "
                        f"missing {sorted(missing)[:5]}, "

@@ -9,8 +9,9 @@ A workload config is a python file exec'd into a plain dict
 `build_sampler` takes the CLI's `--sampler_type` choices. `random_init_`
 is the port's seeded parameter draw for inference (bench.py's N(0, 0.02));
 `jax_init_` draws each parameter from the distribution its JAX module's
-initialiser uses (flax's `model.init`), where training starts. The VAE is
-not ported.
+initialiser uses (flax's `model.init`), where training starts, and where
+a VAE without a checkpoint starts. `build_vae` builds the config's VAE
+(`models/vae.py`).
 """
 
 from __future__ import annotations
@@ -55,10 +56,7 @@ def build_model(cfg: Dict[str, Any], resolver=None, dtype=None,
     """The config's model on `device` (the card by default), in eval mode,
     with its fp weights at their initial values and its quant tables
     uncalibrated (calibrate and pack before a quantized run)."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("CUDA is not available; pass device='cpu' to "
-                           "build the model on the CPU")
+    dev = _device(device)
     mcfg = dict(cfg["model"])
     for key in ("from_pretrained", "enable_flashattn",
                 "enable_layernorm_kernel"):
@@ -71,6 +69,42 @@ def build_model(cfg: Dict[str, Any], resolver=None, dtype=None,
     with dev:
         model = build_module(mcfg, MODELS)
     return model.to(dev).eval()  # the static sincos tables start on the host
+
+
+def _device(device: str) -> torch.device:
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("CUDA is not available; pass device='cpu' to "
+                           "build the model on the CPU")
+    return dev
+
+
+def build_vae(cfg: Dict[str, Any], device: str = "cuda",
+              decoder: bool = True):
+    """The config's `vae` (JAX workload.py:98-110), in float32 on `device`
+    (the card by default), in eval mode, with PyTorch's default parameters
+    (draw them with `jax_init_` or load a checkpoint):
+    'VideoAutoencoderKL' (the default) with the config's
+    `micro_batch_size`, 'VideoAutoencoderKLTemporalDecoder' at the
+    config's `num_frames` (16 without one), any other kind a frame
+    `AutoencoderKL`. decoder=False builds the KL autoencoders' encoder
+    alone (training encodes only)."""
+    from viditq_tpu_torch.models.vae import (
+        AutoencoderKL, VideoAutoencoderKL, VideoAutoencoderKLTemporalDecoder)
+    dev = _device(device)
+    vcfg = dict(cfg.get("vae", {"type": "VideoAutoencoderKL"}))
+    kind = vcfg.pop("type", "VideoAutoencoderKL")
+    with dev:
+        if kind == "VideoAutoencoderKL":
+            vae = VideoAutoencoderKL(
+                micro_batch_size=vcfg.get("micro_batch_size"),
+                decoder=decoder)
+        elif kind == "VideoAutoencoderKLTemporalDecoder":
+            vae = VideoAutoencoderKLTemporalDecoder(
+                num_frames=cfg.get("num_frames", 16))
+        else:
+            vae = AutoencoderKL(decoder=decoder)
+    return vae.eval()
 
 
 def random_init_(model, seed: int = 0, scale: float = 0.02):
@@ -103,11 +137,26 @@ def _jax_draw(module, leaf: str, p: torch.Tensor, g: torch.Generator):
 
     def normal(std):
         return torch.randn(p.shape, generator=g, device=p.device) * std
+
+    def lecun_normal(fan_in):
+        t = torch.empty_like(p)
+        torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=g)
+        return t * (fan_in ** -0.5 / TRUNC_STD)
     if leaf == "bias" or (isinstance(module, AffineLayerNorm)
                           and leaf == "scale"):
         # every bias zeros_init; the affine LayerNorm's scale ones
         return (torch.ones_like(p) if leaf == "scale"
                 else torch.zeros_like(p))
+    # the VAE's flax modules (models/vae.py): nn.Conv and nn.Dense kernels
+    # lecun-normal over their fan in (kh * kw * C_in, C_in), GroupNorm's
+    # scale ones, the temporal blocks' mix_factor the constant 0.5
+    if (isinstance(module, (torch.nn.Conv2d, torch.nn.Conv3d,
+                            torch.nn.Linear)) and leaf == "weight"):
+        return lecun_normal(p[0].numel())
+    if isinstance(module, torch.nn.GroupNorm) and leaf == "weight":
+        return torch.ones_like(p)
+    if leaf == "mix_factor":
+        return torch.full_like(p, 0.5)
     if isinstance(module, QuantLinear) and leaf == "kernel":
         fan_in, fan_out = p.shape  # the JAX [in, out] layout
         if module.kernel_init == "xavier_uniform":
@@ -115,9 +164,7 @@ def _jax_draw(module, leaf: str, p: torch.Tensor, g: torch.Generator):
             return (torch.rand(p.shape, generator=g, device=p.device)
                     * 2 - 1) * limit
         if module.kernel_init == "lecun_normal":
-            t = torch.empty_like(p)
-            torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=g)
-            return t * (fan_in ** -0.5 / TRUNC_STD)
+            return lecun_normal(fan_in)
         raise ValueError(f"unknown kernel_init {module.kernel_init!r}")
     if isinstance(module, DepthwiseQuantConv) and leaf == "kernel":
         return torch.full_like(p, 1.0 / module.ratio ** 2)  # layers.py:258
@@ -140,7 +187,9 @@ def jax_init_(model, seed: int = 0):
     `kernel_init`), biases zero, the affine LayerNorm's scale one, the
     KV-compress `sr` kernel the constant 1 / r^2, the adaLN tables
     N(0, C^-1/2), the null caption N(0, C_cap^-1/2), the label table
-    N(0, 0.02). The draws come from a generator seeded by seed on the
+    N(0, 0.02); the VAE's (`models/vae.py`) conv and Dense kernels
+    lecun-normal, its GroupNorm scales one, its `mix_factor` 0.5. The
+    draws come from a generator seeded by seed on the
     model's device, in `named_parameters` order (torch's, not threefry's:
     the distributions are JAX's, the values are not). The quant tables are
     buffers and keep their initial constants."""
