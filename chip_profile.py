@@ -26,7 +26,14 @@ on static codes) and hybrid (`w8a8_tpu_hybrid.yaml`); for PixArt-Σ also
 cb, its W4A8 plan with CB, calibrated at t = 500, and naive, its
 `w8a8_naive.yaml`; Latte's bf16, cb (the W4A8 CB recipe) and cb_mp (its
 four-range MP, the union model at t = 500), DiT's bf16 and sm8, MMDiT's
-bf16 and w4a8 (`configs/mmdit/w4a8_tpu_fused.yaml`); each static-act model calibrated by `run_ptq` over the
+bf16 and w4a8 (`configs/mmdit/w4a8_tpu_fused.yaml`); STDiT's
+w4a8_fused (`w4a8_tpu_fused.yaml`) and hybrid_sym, DiT-L/2's bf16 and sm8
+(slice `dit_l`), and the simulate-backend plan slices at
+`chip_smoke.PLAN_DEPTH` blocks (`stdit_plans`, the reference arms above
+among them; `alpha`, PixArt-alpha 512; `sigma_plans`), which run only
+when `--slices` names them; `--arms a,b` keeps the arms named (an arm
+that takes another's model or tables, `MP_ARMS`, `TABLES_FROM`, then
+builds its own); each static-act model calibrated by `run_ptq` over the
 model's fp trajectory of the first profiled latent, at t = 500 its act
 slot) it runs one warm-up CFG step, then one more under `torch.profiler`:
 a forward at batch 2, or, for an arm whose plan sets `cfg_split`
@@ -603,10 +610,15 @@ def main() -> int:
     _build.lib()
     slices = (("stdit", cs.STDIT_CFG, 120), ("sigma", cs.SIGMA_CFG, 300),
               ("latte", cs.LATTE_CFG, 1), ("dit", cs.DIT_CFG, None),
-              ("mmdit", cs.MMDIT_CFG, 77))
+              ("dit_l", cs.DIT_L_CFG, None), ("mmdit", cs.MMDIT_CFG, 77))
+    plan_slices = (("stdit_plans", cs.plan_cfg(cs.STDIT_CFG), 120),
+                   ("alpha", cs.plan_cfg(cs.ALPHA_CFG), 120),
+                   ("sigma_plans", cs.plan_cfg(cs.SIGMA_CFG), 300))
     if "--slices" in args:
         keep = args[args.index("--slices") + 1].split(",")
-        slices = tuple(s for s in slices if s[0] in keep)
+        slices = tuple(s for s in slices + plan_slices if s[0] in keep)
+    arms_kept = (args[args.index("--arms") + 1].split(",")
+                 if "--arms" in args else None)
     for name, cfg, n_prompt in slices:
         t = torch.tensor([500.0, 500.0], device="cuda")
         # the slice's own draws (`chip_smoke.slice_inputs`), one latent in
@@ -617,6 +629,8 @@ def main() -> int:
         model, model_plan = None, None
         tables = {}
         for arm in cs.SLICE_KERNELS[name]:
+            if arms_kept is not None and arm not in arms_kept:
+                continue
             plan = cs.arm_build(name, arm)
             sampler = cs.arm_sampler(name, arm, cfg)
             if plan != model_plan:

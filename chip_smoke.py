@@ -36,7 +36,8 @@ Phases (any failure exits non-zero):
      each with the main cases' tolerance; K5 in every mode identical to
      the K4 -> K2 route composed in the same run, timed beside it and
      cuBLAS bf16, also at `K5_EDGE_CASES` (ragged tiles, narrow and
-     unaligned K, f32 input, zero rows; the shapes it refuses); the
+     unaligned K, f32 input, zero rows, wide K and N % 16 != 0), and at
+     fc2's [32768, 4608] x [4608, 1152] (`k5_wide_cases`); the
      column-scale modes of channel balancing (CB) at the `cb` arms'
      shapes (`cb_cases`: K4 and K5 identical, K5 to the K4 -> K2 route,
      K3's emission at the three sites, K2's emission identical, K6's
@@ -104,7 +105,13 @@ Phases (any failure exits non-zero):
      through the gather MP sampler with the t20 timestep-wise mixed
      precision, `t20_{weight_4,act_8}_mp.yaml`: its union spans, bits by
      layer kind, CFG forwards per span (each span's steps exactly), and
-     launches equal to cb's) arms; then ViDiT-Q's reference plans as
+     launches equal to cb's), `w4a8_fused` (`w4a8_tpu_fused.yaml`: 4-bit
+     sym codes on the fused kernels, two batch-1 forwards a step) and
+     `hybrid_sym` arms; `hybrid` (`w8a8_tpu_hybrid.yaml`: the MLPs K7a ->
+     K7b, the attention linears weight-only int8);
+  5a. stdit_plans, alpha, sigma_plans: the simulate-backend plans at
+     `PLAN_DEPTH` blocks of full width (`plan_cfg`; each slice with its
+     bf16 arm at that depth): ViDiT-Q's reference plans as
      written: `sim_w8a8` and `sim_w6a6` (`viditq_w{8a8,6a6}.yaml`, the
      simulate backend: fake quant in plain PyTorch, per token position,
      K3 alone), `naive` (`w8a8_naive.yaml`: static per-tensor acts, its
@@ -112,13 +119,19 @@ Phases (any failure exits non-zero):
      trajectory `get_calib_data` captures from the model's fp sampling of
      the slice's inputs), `naive_fused` (naive's tables on the native
      backend under impl 'fused': codes made in plain PyTorch, K2 at every
-     quantized linear) and `hybrid` (`w8a8_tpu_hybrid.yaml`: the MLPs K7a
-     -> K7b, the attention linears weight-only int8), over the whole
-     20-step CFG DDIM schedule (a reference-plan arm with its plan's
-     `cfg_split` key, `AS_WRITTEN`: sim_w8a8 and hybrid two batch-1
-     forwards a step; every other arm one batch-2 CFG forward), with
-     ms/step, peak memory, quantized-vs-bf16 error (sim_w6a6: finite and above
-     sim_w8a8's; sim_w8a8 against the native w8a8 printed), the
+     quantized linear), the CB and smooth-quant plans
+     (`w{4a8,6a6}_naive_cb.yaml`, `w{4a8,6a6,8a8}_smooth_quant.yaml`) and
+     the PTQD pair (`w{6a6,8a8}_ptqd.yaml`, then `calibrate-ptqd-k`
+     through `cli.main` on the fp and quantized outputs along the fp
+     trajectory, `ptqd_k_check`); PixArt-α 512's `w8a8_sq_static` (a
+     static slot a calibration step), `w8a8_q_diffusion` (fc2's and the
+     cross proj's channel split, `SplitPlan`), `w4a8` and `w8a8_naive`;
+     PixArt-Σ's `w8a8` and `w4a8_naive`; all over the whole
+     20-step CFG schedule (a plan arm with its plan's
+     `cfg_split` key, `AS_WRITTEN`: sim_w8a8, hybrid and w4a8_fused two
+     batch-1 forwards a step; the earlier arms one batch-2 CFG forward),
+     with ms/step, peak memory, quantized-vs-bf16 error (`LOW_BIT_ARMS`:
+     none), the
      fused arm's distance to the native one, the CB arms' steps in each
      timerange and the launch count of every kernel (the fused-kernel
      STDiT arms held to their per-block counts), sm8_epi against sm8 and
@@ -131,14 +144,16 @@ Phases (any failure exits non-zero):
      with running statistics, calibrated as STDiT's naive) arms over the
      whole 20-step DPM-Solver++ CFG schedule, built through
      `utils/workload`, with the same readings;
-  6b. latte, dit, mmdit: the other backbones at full width (random
+  6b. latte, dit, dit_l, mmdit: the other backbones at full width (random
      weights x 0.02, seed 0; `LATTE_CFG`, `DIT_CFG`, `MMDIT_CFG`, the JAX
      bench's `arm_latte` and `arm_mmdit`): Latte-XL/2 16x256x256 (caption
      pooled to one token) bf16, `cb` (the W4A8 CB recipe, sq_stat at t =
      250 and 750) and `cb_mp` (its four-range MP, `latte_mp_weight`:
      attention 8/4/4/8 bits, MLP 8, through the gather path); DiT-XL/2
      16x256x256 on a class label (`ClassEncoder`) bf16 and sm8 (K6 over
-     4096 tokens); MMDiT 1024 (24 blocks, 77 caption tokens) bf16 and
+     4096 tokens); DiT-L/2 (`DIT_L_CFG`: the registry's `DiT` at 24
+     blocks of 1024, 16 heads of 64) the same way (K6 at D = 64, K5 at K =
+     1024, K2 at fc2's K = 4096); MMDiT 1024 (24 blocks, 77 caption tokens) bf16 and
      w4a8 (`configs/mmdit/w4a8_tpu_fused.yaml`) through `RectifiedFlow`
      (`models/mmdit.rectified_flow_sample`, 20 steps, CFG 4.0), each arm
      with the readings of phase slice and its launches held to
@@ -327,7 +342,8 @@ SIGMA_CB_ALPHA = 0.3
 # the CB statistic forwards of each slice: Σ's at t = 500
 # (bench_configs.py:408-425)
 STAT_T = {"stdit": CB_STAT_T, "sigma": (500,), "latte": CB_STAT_T,
-          "dit": (), "mmdit": ()}
+          "dit": (), "dit_l": (), "mmdit": (),
+          "stdit_plans": CB_STAT_T, "alpha": (500,), "sigma_plans": (500,)}
 # ViDiT-Q's reference plans as written (no `backend:` key: the simulate
 # backend, fake quant as the reference runs it): W8A8 and W6A6 with asym
 # per-channel weights and asym dynamic per-token acts, the naive W8A8 with
@@ -339,7 +355,39 @@ SIM_W6A6_PLAN = ROOT / "configs/opensora/viditq_w6a6.yaml"
 NAIVE_PLAN = ROOT / "configs/opensora/w8a8_naive.yaml"
 HYBRID_PLAN = ROOT / "configs/opensora/w8a8_tpu_hybrid.yaml"
 SIGMA_NAIVE_PLAN = ROOT / "configs/pixart_sigma/w8a8_naive.yaml"
+# the rest of the shipped plans: STDiT's W4A8 on the fused kernels
+# (4-bit sym codes in the int8 range, sym dynamic A8, int8 PV at temporal
+# and cross, cfg_split), the hybrid plan's sym variant, the CB and smooth-
+# quant plans on simulate, the PTQD pair (static per-tensor asym acts,
+# mixed_precision [4, 6, 8], meant for `calibrate-ptqd-k`); PixArt-alpha's
+# static plans (timestep-wise slots; the q-diffusion split), its W4A8 (W6
+# as written) and naive W8A8; PixArt-Sigma's W8A8 (dynamic + smooth quant)
+# and W4A8 naive (static tensor acts, running_stat)
+W4A8_FUSED_PLAN = ROOT / "configs/opensora/w4a8_tpu_fused.yaml"
+HYBRID_SYM_PLAN = ROOT / "configs/opensora/w8a8_tpu_hybrid_sym.yaml"
+NAIVE_CB_W4A8_PLAN = ROOT / "configs/opensora/w4a8_naive_cb.yaml"
+NAIVE_CB_W6A6_PLAN = ROOT / "configs/opensora/w6a6_naive_cb.yaml"
+SQ_PLANS = {b: ROOT / f"configs/opensora/{b}_smooth_quant.yaml"
+            for b in ("w4a8", "w6a6", "w8a8")}
+PTQD_PLANS = {b: ROOT / f"configs/opensora/{b}_ptqd.yaml"
+              for b in ("w6a6", "w8a8")}
+ALPHA_SQ_STATIC_PLAN = ROOT / "configs/pixart/w8a8_sq_static.yaml"
+ALPHA_Q_DIFFUSION_PLAN = ROOT / "configs/pixart/w8a8_q_diffusion.yaml"
+ALPHA_W4A8_PLAN = ROOT / "configs/pixart/w4a8.yaml"
+ALPHA_NAIVE_PLAN = ROOT / "configs/pixart/w8a8_naive.yaml"
+SIGMA_W8A8_PLAN = ROOT / "configs/pixart_sigma/w8a8.yaml"
+SIGMA_W4A8_NAIVE_PLAN = ROOT / "configs/pixart_sigma/w4a8_naive.yaml"
+# the q-diffusion plan's channel split (its reference applies it through
+# command-line flags; `SplitPlan`): every block's fc2 and cross proj
+# quantize their input's first and second parts apart, at 3/8 of K as the
+# tiny-model test does
+Q_DIFFUSION_SPLIT = 3 / 8
 STEPS = 20  # sampler steps per arm (bench.py's n_steps): the whole schedule
+# blocks of the simulate-backend plan arms at full width: their time is
+# per-block fake-quant glue (0.68-0.85 s a step at 28 blocks), so fewer
+# blocks check the same per-block dataflow; each such slice runs its own
+# bf16 arm at the same depth
+PLAN_DEPTH = 4
 # PixArt-Σ 1024 as benchmarks/bench_configs.py:388-391 builds it; the
 # sampler of the t2i workloads (configs/workload/pixart_alpha_512.py)
 SIGMA_CFG = {
@@ -370,6 +418,40 @@ LATTE_CFG = {"model": dict(type="Latte-XL/2", condition="text",
 DIT_CLASSES = 1000
 DIT_CFG = {**LATTE_CFG, "model": dict(type="DiT-XL/2",
                                       condition=f"label_{DIT_CLASSES}")}
+# DiT-L/2 (Peebles & Xie, "Scalable Diffusion Models with Transformers",
+# Table 1: 24 blocks, hidden 1024, 16 heads of 64), the registry's `DiT` at
+# the paper's widths on DiT-XL/2's 16x32x32 latent: its attention runs K6
+# at D = 64 over 4096 tokens, its linears K5 (K = 1024) and K2 (fc2 K = 4096)
+DIT_L_CFG = {**LATTE_CFG, "model": dict(
+    type="DiT", depth=24, hidden_size=1024, patch_size=(1, 2, 2),
+    num_heads=16, condition=f"label_{DIT_CLASSES}")}
+# PixArt-alpha 512 as `configs/workload/pixart_alpha_512.py` builds it (1024
+# tokens, 120 caption tokens of 4096, 20-step DPM-Solver++ at CFG 4.5)
+ALPHA_CFG = {"model": dict(type="PixArt-XL/2", caption_channels=4096,
+                           model_max_length=120),
+             "image_size": 512,
+             "scheduler": dict(type="dpm-solver", num_sampling_steps=STEPS,
+                               cfg_scale=4.5),
+             "dtype": "bf16"}
+
+
+def plan_cfg(cfg, depth=PLAN_DEPTH):
+    """A slice's config cut to `depth` blocks of its XL/2 widths (the
+    registry's generic `STDiT` / `PixArt`); PixArt-Sigma keeps KV
+    compression on the later half of the blocks, as at 28 (14-27)."""
+    model = dict(cfg["model"])
+    kind = model.pop("type")
+    base = {"STDiT-XL/2": "STDiT", "PixArt-XL/2": "PixArt",
+            "PixArtMS-XL/2": "PixArt"}[kind]
+    if kind == "PixArtMS-XL/2":
+        model.setdefault("micro_condition", False)
+    if "kv_compress_layers" in model:
+        model["kv_compress_layers"] = tuple(range(depth // 2, depth))
+    model.update(type=base, depth=depth, hidden_size=1152, num_heads=16,
+                 patch_size=(1, 2, 2) if base == "STDiT" else 2)
+    return {**cfg, "model": model}
+
+
 MMDIT_CFG = {"model": dict(type="MMDiT", input_size=128, patch_size=2,
                            in_channels=4, hidden_size=1152, depth=24,
                            num_heads=16, caption_channels=4096,
@@ -610,12 +692,18 @@ K5_EDGE_CASES = (
                                         zero_rows=(0, 5, 255))),
     ("sym [256,1152], zero rows", dict(M=256, K=1152, N=1152,
                                        zero_rows=(0, 5, 255))),
-    ("K=1152 symx (the widest K taken)", dict(M=500, K=1152, N=576,
+    ("K=1152 symx (the widest K whose codes stay resident)",
+     dict(M=500, K=1152, N=576, mode="symx")),
+    ("K=1168 sym (the wide schedule: 10 k-tiles, the last ragged)",
+     dict(M=300, K=1168, N=192)),
+    ("K=2304 symx, ragged M tile (wide)", dict(M=240, K=2304, N=2304,
                                                mode="symx")),
-    ("K=1168 refused (the next K TMA takes)",
-     dict(M=64, K=1168, N=192, refused=True)),
-    ("K=1004 refused (rows not 16-byte aligned)",
-     dict(M=64, K=1004, N=192, refused=True)),
+    ("K=4608 f32 x asym, zero rows (wide)",
+     dict(M=300, K=4608, N=576, mode="asym", f32=True, zero_rows=(0, 5))),
+    ("K=1004 sym (rows not 16 bytes: padded, W^T byte-wise)",
+     dict(M=64, K=1004, N=192)),
+    ("N=1000 asym f32 out (N padded to 1008)",
+     dict(M=1000, K=1152, N=1000, mode="asym", f32_out=True)),
 )
 INT_MM_NOTE = (" (torch._int_mm on the K-major weight: int32 product only, "
                "no epilogue)")
@@ -673,15 +761,43 @@ SLICE_KERNELS = {
               # after cb: it samples the cb arm's model
               "cb_mp": FUSED_KERNELS,
               "cb_sym": FUSED_KERNELS,
-              # the reference plans as written: the simulate arms run K3
-              # alone (the fake quant is plain PyTorch, as JAX's is XLA)
-              "sim_w8a8": ("attention_bnhd",),
-              "sim_w6a6": ("attention_bnhd",),
-              "naive": ("attention_bnhd",),
-              # naive's tables on the native backend: K2 on static codes
-              "naive_fused": ("int8_consumer_matmul", "attention_bnhd"),
               "hybrid": ("dynamic_quant_rows", "int8_matmul",
-                         "attention_bnhd")},
+                         "attention_bnhd"),
+              # the W4A8 plan on the fused kernels, the hybrid plan's sym
+              # variant
+              "w4a8_fused": FUSED_KERNELS,
+              "hybrid_sym": ("dynamic_quant_rows", "int8_matmul",
+                             "attention_bnhd")},
+    # the simulate-backend plans at PLAN_DEPTH blocks (`plan_cfg`): the
+    # fake quant is plain PyTorch (as JAX's is XLA), so they run K3 alone;
+    # naive_fused runs naive's tables on the native backend (K2 on static
+    # codes)
+    "stdit_plans": {"bf16": ("attention_bnhd",),
+                    "sim_w8a8": ("attention_bnhd",),
+                    "sim_w6a6": ("attention_bnhd",),
+                    "naive": ("attention_bnhd",),
+                    "naive_fused": ("int8_consumer_matmul",
+                                    "attention_bnhd"),
+                    "naive_cb_w4a8": ("attention_bnhd",),
+                    "naive_cb_w6a6": ("attention_bnhd",),
+                    "sq_w4a8": ("attention_bnhd",),
+                    "sq_w6a6": ("attention_bnhd",),
+                    "sq_w8a8": ("attention_bnhd",),
+                    "ptqd_w6a6": ("attention_bnhd",),
+                    "ptqd_w8a8": ("attention_bnhd",)},
+    # PixArt-alpha 512 (1024 tokens: self and cross attention on K3)
+    "alpha": {"bf16": ("attention_bnhd",),
+              "sq_static": ("attention_bnhd",),
+              "q_diffusion": ("attention_bnhd",),
+              "alpha_w4a8": ("attention_bnhd",),
+              "alpha_naive": ("attention_bnhd",)},
+    # PixArt-Sigma 1024 at PLAN_DEPTH: K6 in the uncompressed blocks, K3
+    # at cross attention (the compressed blocks' self-attention is SDPA)
+    "sigma_plans": {"bf16": ("attention_bnhd", "attention_bnhd_stream"),
+                    "sigma_w8a8": ("attention_bnhd",
+                                   "attention_bnhd_stream"),
+                    "sigma_w4a8_naive": ("attention_bnhd",
+                                         "attention_bnhd_stream")},
     "sigma": {"bf16": ("attention_bnhd", "attention_bnhd_stream"),
               "sm8": FUSED_KERNELS + ("attention_bnhd_stream",),
               "cb": FUSED_KERNELS + ("attention_bnhd_stream",),
@@ -694,6 +810,9 @@ SLICE_KERNELS = {
     # DiT attends over T*S = 4096 tokens: K6 (its emission through K4)
     "dit": {"bf16": ("attention_bnhd_stream",),
             "sm8": DIT_BLOCK_KERNELS + ("attention_bnhd_stream",)},
+    # DiT-L/2: the same kernels at head dim 64 (K6), K = 1024 / 4096
+    "dit_l": {"bf16": ("attention_bnhd_stream",),
+              "sm8": DIT_BLOCK_KERNELS + ("attention_bnhd_stream",)},
     # MMDiT's joint attention is `sdpa` (PyTorch's fused attention) and its
     # text stream fp: no port kernel in bf16; under W4A8 the image stream's
     # K1 -> K2 (q/k/v), K5 (proj), K1 -> K2 emission -> K2 (the MLP)
@@ -708,15 +827,28 @@ ARM_PLANS = {("stdit", "sm8"): SM8_PLAN, ("stdit", "w8a8"): W8A8_PLAN,
              ("stdit", "fc1_asym"): SYM_PLAN,
              ("stdit", "cb"): CB_PLAN, ("stdit", "cb_sym"): CB_PLAN,
              ("stdit", "cb_mp"): CB_PLAN, ("stdit", "attn8"): ATTN8_PLAN,
-             ("stdit", "sim_w8a8"): SIM_W8A8_PLAN,
-             ("stdit", "sim_w6a6"): SIM_W6A6_PLAN,
-             ("stdit", "naive"): NAIVE_PLAN,
-             ("stdit", "naive_fused"): NAIVE_PLAN,
              ("stdit", "hybrid"): HYBRID_PLAN,
+             ("stdit", "w4a8_fused"): W4A8_FUSED_PLAN,
+             ("stdit", "hybrid_sym"): HYBRID_SYM_PLAN,
+             ("stdit_plans", "sim_w8a8"): SIM_W8A8_PLAN,
+             ("stdit_plans", "sim_w6a6"): SIM_W6A6_PLAN,
+             ("stdit_plans", "naive"): NAIVE_PLAN,
+             ("stdit_plans", "naive_fused"): NAIVE_PLAN,
+             ("stdit_plans", "naive_cb_w4a8"): NAIVE_CB_W4A8_PLAN,
+             ("stdit_plans", "naive_cb_w6a6"): NAIVE_CB_W6A6_PLAN,
+             **{("stdit_plans", f"sq_{b}"): p for b, p in SQ_PLANS.items()},
+             **{("stdit_plans", f"ptqd_{b}"): p
+                for b, p in PTQD_PLANS.items()},
+             ("alpha", "sq_static"): ALPHA_SQ_STATIC_PLAN,
+             ("alpha", "q_diffusion"): ALPHA_Q_DIFFUSION_PLAN,
+             ("alpha", "alpha_w4a8"): ALPHA_W4A8_PLAN,
+             ("alpha", "alpha_naive"): ALPHA_NAIVE_PLAN,
+             ("sigma_plans", "sigma_w8a8"): SIGMA_W8A8_PLAN,
+             ("sigma_plans", "sigma_w4a8_naive"): SIGMA_W4A8_NAIVE_PLAN,
              ("sigma", "sm8"): SM8_PLAN, ("sigma", "cb"): SIGMA_CB_PLAN,
              ("sigma", "naive"): SIGMA_NAIVE_PLAN,
              ("latte", "bf16"): CB_PLAN, ("latte", "cb"): CB_PLAN,
-             ("dit", "sm8"): SM8_PLAN,
+             ("dit", "sm8"): SM8_PLAN, ("dit_l", "sm8"): SM8_PLAN,
              ("mmdit", "bf16"): MMDIT_PLAN, ("mmdit", "w4a8"): MMDIT_PLAN}
 # model arguments an arm sets in its workload config's `model` dict: the
 # sm8 plan with the block's residual adds in the linears' epilogues
@@ -728,21 +860,39 @@ ARM_MODEL = {("stdit", "sm8_epi"): {"fuse_epilogue": True}}
 PLAN_RECIPES = {("stdit", "w8a8"): "native", ("stdit", "cb"): "cb",
                 ("stdit", "fc1_asym"): "fc1_asym",
                 ("stdit", "cb_sym"): "cb_sym", ("stdit", "cb_mp"): "cb",
-                ("stdit", "naive_fused"): "fused", ("sigma", "cb"): "cb",
+                ("stdit_plans", "naive_fused"): "fused",
+                ("alpha", "sq_static"): "timestep_wise",
+                ("alpha", "q_diffusion"): "q_diffusion",
+                ("sigma", "cb"): "cb",
                 ("latte", "bf16"): "cb", ("latte", "cb"): "cb"}
 # a static-act arm that takes another arm's act tables (and weight tables)
 # instead of calibrating its own: naive_fused runs naive's on the card's
 # int8 kernels
-TABLES_FROM = {("stdit", "naive_fused"): "naive"}
+TABLES_FROM = {("stdit_plans", "naive_fused"): "naive"}
 # the arms that run their plan as written, the sampler's `cfg_split` key
 # included (the JAX CLI applies it, viditq_tpu/cli.py:95); the earlier
 # arms sample the joint CFG batch, as the JAX bench does
-AS_WRITTEN = {("stdit", "sim_w8a8"), ("stdit", "sim_w6a6"),
-              ("stdit", "naive"), ("stdit", "naive_fused"),
-              ("stdit", "hybrid"), ("sigma", "naive")}
-# the 6-bit arm, held to be finite and farther from bf16 than its 8-bit
-# sibling rather than below SLICE_REL_ERR
-LOW_BIT_ARMS = {("stdit", "sim_w6a6"): "sim_w8a8"}
+AS_WRITTEN = {("stdit", "hybrid"), ("sigma", "naive"),
+              ("stdit", "w4a8_fused"), ("stdit", "hybrid_sym"),
+              *(("stdit_plans", a) for a in SLICE_KERNELS["stdit_plans"]
+                if a != "bf16"),
+              *(("alpha", a) for a in SLICE_KERNELS["alpha"] if a != "bf16"),
+              *(("sigma_plans", a) for a in SLICE_KERNELS["sigma_plans"]
+                if a != "bf16")}
+# the 4- and 6-bit arms above SLICE_REL_ERR on random weights, each held
+# to be finite and farther from bf16 than its 8-bit sibling instead: none
+# (sim_w6a6 took it at 28 blocks; at PLAN_DEPTH it and every 4- and 6-bit
+# plan arm read 0.02-0.09 on an H100, PERF.md)
+LOW_BIT_ARMS = {}
+# the PTQD arms: after sampling, the fp and quantized model outputs along
+# the fp trajectory go through `calibrate-ptqd-k` (`ptqd_k_check`)
+PTQD_ARMS = {("stdit_plans", "ptqd_w6a6"), ("stdit_plans", "ptqd_w8a8")}
+# launches per model forward of the arms whose blocks differ: PixArt-Sigma
+# at PLAN_DEPTH runs K6 in its uncompressed half and K3 at every block's
+# cross attention (the compressed blocks' self-attention is SDPA)
+FORWARD_LAUNCHES = {("sigma_plans", a): {
+    "attention_bnhd": PLAN_DEPTH, "attention_bnhd_stream": PLAN_DEPTH // 2}
+    for a in SLICE_KERNELS["sigma_plans"] if a != "bf16"}
 # arms that sample their plan's model through the timestep-wise MP sampler:
 # (the arm whose model they take and whose launches they must equal, the
 # weight and act bitwidth configs)
@@ -779,14 +929,22 @@ SM8_BLOCK = {**FUSED_BLOCK, "quantize_rows": 1}
 SIM_BLOCK = {"attention_bnhd": 3}
 LATTE_BLOCK = {"quantize_rows": 2, "int8_consumer_matmul": 5,
                "attention_bnhd": 1, "fused_dynq_int8_matmul": 1}
-BLOCK_LAUNCHES = {("stdit", "sim_w8a8"): SIM_BLOCK,
-                  ("stdit", "sim_w6a6"): SIM_BLOCK,
-                  ("stdit", "naive"): SIM_BLOCK,
-                  ("stdit", "naive_fused"): {"int8_consumer_matmul": 13,
-                                             "attention_bnhd": 3},
-                  ("stdit", "hybrid"): {"dynamic_quant_rows": 2,
-                                        "int8_matmul": 2,
-                                        "attention_bnhd": 3},
+DIT_SM8_BLOCK = {"quantize_rows": 3, "int8_consumer_matmul": 5,
+                 "attention_bnhd_stream": 1, "fused_dynq_int8_matmul": 1}
+HYBRID_BLOCK = {"dynamic_quant_rows": 2, "int8_matmul": 2,
+                "attention_bnhd": 3}
+BLOCK_LAUNCHES = {**{("stdit_plans", a): SIM_BLOCK
+                     for a in SLICE_KERNELS["stdit_plans"]
+                     if a not in ("bf16", "naive_fused")},
+                  ("stdit_plans", "naive_fused"): {
+                      "int8_consumer_matmul": 13, "attention_bnhd": 3},
+                  # PixArt: self and cross attention a block
+                  **{("alpha", a): {"attention_bnhd": 2}
+                     for a in SLICE_KERNELS["alpha"] if a != "bf16"},
+                  ("stdit", "hybrid"): HYBRID_BLOCK,
+                  ("stdit", "hybrid_sym"): HYBRID_BLOCK,
+                  # as sm8: K4 once (temporal q/k/v), fc1's emission
+                  ("stdit", "w4a8_fused"): SM8_BLOCK,
                   ("stdit", "sm8"): SM8_BLOCK,
                   ("stdit", "sm8_epi"): SM8_BLOCK,
                   ("stdit", "attn8"): {**SM8_BLOCK, "qk_headwise_quant": 3},
@@ -801,10 +959,8 @@ BLOCK_LAUNCHES = {("stdit", "sim_w8a8"): SIM_BLOCK,
                   # handoff, K2 at fc2; DiT's K6 emits through a third K4
                   ("latte", "cb"): LATTE_BLOCK,
                   ("latte", "cb_mp"): LATTE_BLOCK,
-                  ("dit", "sm8"): {"quantize_rows": 3,
-                                   "int8_consumer_matmul": 5,
-                                   "attention_bnhd_stream": 1,
-                                   "fused_dynq_int8_matmul": 1},
+                  ("dit", "sm8"): DIT_SM8_BLOCK,
+                  ("dit_l", "sm8"): DIT_SM8_BLOCK,
                   # the image stream: K1 twice, K2 at q/k/v, fc1 (emission)
                   # and fc2, K5 at the proj
                   ("mmdit", "w4a8"): {"ln_modulate_quantize": 2,
@@ -1363,6 +1519,9 @@ def phase_kernels(records):
     attn8_cases(records)
     row_edge_cases(records)
     k5_edge_cases(records)
+    k5_wide_cases(records)
+    head_dim_cases(records)
+    dit_l_cases(records)
     backbone_cases(records)
     int8_pv_draws()
 
@@ -1583,16 +1742,24 @@ def k5_route(x, w, ws, b, out_dtype=None, sym=True, sym_w=True, w_zp=None,
     q, s, zp, rs = FM.quantize_rows(x, sym, need_rowsum=not (sym and sym_w),
                                     col_scale=col_scale)
     K = x.shape[1]
+    N = w.shape[1]
     if K % 64:
         if not sym:
             fail("the K4 -> K2 route takes asym acts at K % 64 == 0 only")
         pad = -K % 64
         q = F.pad(q, (0, pad))
         w = k_major(F.pad(w, (0, 0, 0, pad)))
-    return FM.int8_consumer_matmul(
+    pn = -N % 16  # K2 takes N % 16 == 0: zero weight columns, sliced off
+    if pn:
+        w = k_major(F.pad(w, (0, pn)))
+        ws, w_zp, w_colsum, b, residual, gate = (
+            None if t is None else F.pad(t, (0, pn))
+            for t in (ws, w_zp, w_colsum, b, residual, gate))
+    out = FM.int8_consumer_matmul(
         q, s, w, ws, b, out_dtype or torch.bfloat16, x_zp=zp, x_rowsum=rs,
         w_zp=None if sym_w else w_zp, w_colsum=w_colsum, residual=residual,
         gate=gate)
+    return out[:, :N].contiguous() if pn else out
 
 
 def check_k5(records, case, x, w, ws, b, timed=True, **kw):
@@ -1641,15 +1808,48 @@ def check_k5(records, case, x, w, ws, b, timed=True, **kw):
               f"to back {lib:.4f} ms", flush=True)
 
 
+def k5_wide_cases(records):
+    """K5 at fc2's shape, [32768, 4608] x [4608, 1152], wider than its
+    resident codes (the wide schedule): each act x weight mode, with and
+    without the residual (+ gate) epilogue, identical to the K4 -> K2 route
+    and timed beside it and cuBLAS bf16 (`check_k5`). No shipped plan
+    sends fc2 to K5 (JAX's MLP hands fc2 its codes, `emit1`), so these are
+    kernel cases."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(23)
+    M, K, N = 32768, 4608, 1152
+    print("phase kernels: K5 wide K (fc2's shape)", flush=True)
+    x = (torch.randn((M, K), generator=g, device="cuda") * 2.0
+         + 0.2).to(torch.bfloat16)
+    w = torch.randint(-128, 128, (N, K), generator=g, device="cuda",
+                      dtype=torch.int8).t()
+    ws = 1e-4 + 9e-4 * torch.rand((1, N), generator=g, device="cuda")
+    b = torch.randn(N, generator=g, device="cuda") * 0.1
+    wz = torch.randint(-20, 20, (1, N), generator=g, device="cuda").float()
+    wc = w.float().sum(dim=0, keepdim=True)
+    res = torch.randn((M, N), generator=g, device="cuda").to(torch.bfloat16)
+    gate = (torch.randn((2, N), generator=g, device="cuda")
+            * 0.5).to(torch.bfloat16)
+    for mode in ("sym", "symx", "asym"):
+        kw = dict(sym=mode != "asym", sym_w=mode == "sym")
+        if mode != "sym":
+            kw.update(w_zp=wz, w_colsum=wc)
+        for epi in (False, True):
+            extra = dict(residual=res, gate=gate) if epi else {}
+            check_k5(records, f"fc2 {mode}{' +res+gate' if epi else ''} "
+                     f"[32768,4608]x[4608,1152]", x, w, ws, b, **kw, **extra)
+
+
 def k5_edge_cases(records):
     """K5 at the shapes K5_EDGE_CASES lists, on draws of their own
     generator, each identical to the K4 -> K2 route and within tolerance of
-    its plain version (`check_k5`); a shape the kernel does not take must
-    be refused with ValueError before any launch."""
+    its plain version (`check_k5`): ragged tiles, narrow, wide and
+    unaligned K, N % 16 != 0, f32 input, zero rows."""
     import torch
-    from viditq_tpu_torch.kernels import _counters
     from viditq_tpu_torch.kernels import fused_matmul as FM
     g = torch.Generator(device="cuda").manual_seed(3)
+    if not any(p["K"] > FM.K5_MAX_K for _, p in K5_EDGE_CASES):
+        fail("K5_EDGE_CASES lost its wide-K cases")
     print("phase kernels: K5 edge cases", flush=True)
     for case, p in K5_EDGE_CASES:
         m, k, n, mode = p["M"], p["K"], p["N"], p.get("mode", "sym")
@@ -1669,17 +1869,6 @@ def k5_edge_cases(records):
                       w_colsum=w.float().sum(dim=0, keepdim=True))
         if p.get("f32_out"):
             kw["out_dtype"] = torch.float32
-        if p.get("refused"):
-            before = _counters.snapshot()
-            try:
-                FM.fused_dynq_int8_matmul(x, w, ws, b, **kw)
-            except ValueError as e:
-                if _counters.snapshot() != before:
-                    fail(f"K5 {case}: a refused call launched a kernel")
-                print(f"  fused_dynq_int8_matmul edge {case}: refused "
-                      f"({e})", flush=True)
-                continue
-            fail(f"K5 {case}: [{m},{k}]x[{k},{n}] was not refused")
         check_k5(records, f"edge {case}", x, w, ws, b, timed=False, **kw)
 
 
@@ -2107,6 +2296,163 @@ def backbone_cases(records):
                lambda: FM.ln_modulate_quantize_plain(x, sh, scl), records,
                cost=(2 * B * N * C + 2 * 2 * B * C + B * N * C + 4 * B * N,
                      {}), b2b=True)
+
+
+# head dims K3, K6, K8 and the float32 modes take beside 16 and 72 (DiT-L/2's 64; 32 and 128 instantiated; 40 padded to 64 by the
+# wrappers), each at 16 heads (H * D <= 2048, JAX's gate)
+HEAD_DIM_CASES = (32, 40, 64, 128)
+
+
+def head_dim_cases(records):
+    """K3 full (bf16 PV beside SDPA, int8 PV, the asym emission with the
+    proj's 1/cs and row sums), K3 seg 16 (bf16 and int8 PV, the asym
+    emission), K6 (bf16 beside SDPA, int8 PV), K8 (identical) and the
+    float32 modes (K3 full and seg, K6, to F32_REL_ERR) at each head dim
+    of HEAD_DIM_CASES, 16 heads, against their plain versions at the true
+    D: D = 40 runs the wrappers' zero-channel padding to 64, which every
+    row statistic and row sum must not see."""
+    import torch
+    import torch.nn.functional as F
+    from viditq_tpu_torch.kernels import attention as A
+    g = torch.Generator(device="cuda").manual_seed(23)
+    H, B = 16, 2
+    print("phase kernels: head dims "
+          f"{', '.join(map(str, HEAD_DIM_CASES))} (K3, K6, K8, float32)",
+          flush=True)
+
+    def randn(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=g, device="cuda").to(dtype)
+
+    def sdpa(q, k, v, sc):
+        qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        return lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=sc)
+
+    for D in HEAD_DIM_CASES:
+        C, sc = H * D, D ** -0.5
+        tag = f"D={D}{' (padded to 64)' if D not in A.KERNEL_HEAD_DIMS else ''}"
+        ics = cb_col_scales(g, C)
+        # K3 full, N = M = 1024
+        N = 1024
+        q, k, v = randn(B, N, H, D), randn(B, N, H, D), randn(B, N, H, D)
+        full = attn_bound(B, N, H, D, [N] * B, False, False, N)
+        check_case("attention_bnhd", f"{tag} full [2,{N},16,{D}] bf16",
+                   lambda: A.attention_bnhd(q, k, v, sc),
+                   lambda: A.attention_bnhd_plain(q, k, v, sc), records,
+                   cost=full, library_fn=sdpa(q, k, v, sc),
+                   library_note=" (scaled_dot_product_attention)", b2b=True)
+        check_case("attention_bnhd", f"{tag} full int8 PV",
+                   lambda: A.attention_bnhd(q, k, v, sc, int8_pv=True),
+                   lambda: A.attention_bnhd_plain(q, k, v, sc, int8_pv=True),
+                   records,
+                   cost=attn_bound(B, N, H, D, [N] * B, True, False, N))
+        kw = dict(emit=True, emit_sym=False, need_rowsum=True,
+                  col_scale=ics)
+        nbytes, ops = attn_bound(B, N, H, D, [N] * B, False, True, N)
+        check_case("attention_bnhd", f"{tag} full asym emit +cs rowsum",
+                   lambda: A.attention_bnhd(q, k, v, sc, **kw),
+                   lambda: A.attention_bnhd_plain(q, k, v, sc, **kw),
+                   records, cost=(nbytes + 8 * B * N + 4 * C, ops),
+                   asym=ASYM_TOL["attn"])
+        qd, kd = A.qk_headwise_quant(q, k)
+        check_case("qk_headwise_quant", f"{tag} q, k [2,{N},16,{D}]",
+                   lambda: A.qk_headwise_quant(q, k),
+                   lambda: A.qk_headwise_quant_plain(q, k), records,
+                   cost=(4 * 2 * B * N * C, {}), exact=True)
+        del qd, kd
+        # K3 seg 16 (the temporal site's segments), N = 2048
+        N = 2048
+        q, k, v = randn(B, N, H, D), randn(B, N, H, D), randn(B, N, H, D)
+        seg = attn_bound(B, N, H, D, [16] * B, False, False, N)
+        for label, kw in (("bf16", {}), ("int8 PV", dict(
+                int8_pv=True, v_block=A.seg_v_block(N, 16)))):
+            check_case("attention_bnhd", f"{tag} seg 16 [2,{N},16,{D}] "
+                       f"{label}",
+                       lambda kw=kw: A.attention_bnhd(q, k, v, sc, seg_len=16,
+                                                      **kw),
+                       lambda kw=kw: A.attention_bnhd_plain(
+                           q, k, v, sc, seg_len=16, **kw), records, cost=seg)
+        kw = dict(emit=True, emit_sym=False, need_rowsum=True)
+        check_case("attention_bnhd", f"{tag} seg 16 asym emit rowsum",
+                   lambda: A.attention_bnhd(q, k, v, sc, seg_len=16, **kw),
+                   lambda: A.attention_bnhd_plain(q, k, v, sc, seg_len=16,
+                                                  **kw),
+                   records, cost=(seg[0] + 8 * B * N, seg[1]),
+                   asym=ASYM_TOL["attn"])
+        # K6, N = M = 2304 (kv blocks of 256)
+        N = 2304
+        q, k, v = randn(B, N, H, D), randn(B, N, H, D), randn(B, N, H, D)
+        bkv = A.stream_kv_block(N, N, C)
+        check_case("attention_bnhd_stream",
+                   f"{tag} [2,{N},16,{D}] bkv {bkv} bf16",
+                   lambda: A.attention_bnhd_stream(q, k, v, sc),
+                   lambda: A.attention_bnhd_stream_plain(q, k, v, sc, bkv),
+                   records,
+                   cost=attn_bound(B, N, H, D, [N] * B, False, False, N),
+                   library_fn=sdpa(q, k, v, sc),
+                   library_note=" (scaled_dot_product_attention)", b2b=True)
+        bkv8 = A.stream_kv_block(N, N, C, v_int8_in=True)
+        check_case("attention_bnhd_stream", f"{tag} [2,{N},16,{D}] int8 PV",
+                   lambda: A.attention_bnhd_stream(q, k, v, sc,
+                                                   int8_pv=True),
+                   lambda: A.attention_bnhd_stream_plain(q, k, v, sc, bkv8,
+                                                         None, True),
+                   records,
+                   cost=attn_bound(B, N, H, D, [N] * B, True, False, N))
+        del q, k, v
+        # the float32 modes: K3 full N = M = 1024 and seg 16 at 2048, K6 at
+        # N = M = 2304
+        for name, (N, segl) in (("attention_bnhd_f32", (1024, 0)),
+                                ("attention_bnhd_f32", (2048, 16)),
+                                ("attention_bnhd_stream_f32", (2304, 0))):
+            q, k, v = (randn(B, N, H, D, dtype=torch.float32)
+                       for _ in range(3))
+            prods = 2 * H * N * D * (segl or N) * B
+            check_case(name, f"{tag} f32 {'seg 16 ' if segl else ''}"
+                       f"[2,{N},16,{D}]",
+                       lambda: A.attention_bnhd(q, k, v, sc, seg_len=segl),
+                       lambda: (A.attention_bnhd_plain(q, k, v, sc,
+                                                       seg_len=segl)
+                                if name == "attention_bnhd_f32" else
+                                A.attention_bnhd_stream_plain(
+                                    q, k, v, sc, A.stream_kv_block(N, N, C))),
+                       records, cost=(4 * 4 * B * N * C,
+                                      {"bf16": prods, "tf32": 3 * prods}),
+                       rel_err=F32_REL_ERR)
+            del q, k, v
+
+
+def dit_l_cases(records):
+    """The DiT-L/2 path's attention at its own shape (16 heads of 64 over
+    T*S = 4096 tokens: K6), bf16 beside SDPA and sm8's sym emission through
+    K4, each back to back."""
+    import torch
+    import torch.nn.functional as F
+    from viditq_tpu_torch.kernels import attention as A
+    from viditq_tpu_torch.kernels import fused_matmul as FM
+    g = torch.Generator(device="cuda").manual_seed(24)
+    B, N, H, D = 2, 4096, 16, 64
+    C, sc = H * D, D ** -0.5
+    q, k, v = (torch.randn((B, N, H, D), generator=g, device="cuda")
+               .to(torch.bfloat16) for _ in range(3))
+    bkv = A.stream_kv_block(N, N, C)
+    qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    check_case("attention_bnhd_stream", f"DiT-L/2 [2,{N},16,64] bkv {bkv} "
+               "bf16", lambda: A.attention_bnhd_stream(q, k, v, sc),
+               lambda: A.attention_bnhd_stream_plain(q, k, v, sc, bkv),
+               records, cost=attn_bound(B, N, H, D, [N] * B, False, False, N),
+               library_fn=lambda: F.scaled_dot_product_attention(
+                   qh, kh, vh, scale=sc),
+               library_note=" (scaled_dot_product_attention)", b2b=True)
+
+    def k6_emit_plain():
+        o = A.attention_bnhd_stream_plain(q, k, v, sc, bkv)
+        return A._bn1(B, N, *FM.quantize_rows_plain(o.reshape(B * N, C)))
+    check_case("attention_bnhd_stream",
+               f"DiT-L/2 [2,{N},16,64] sm8 emit (K6->K4)",
+               lambda: A.attention_bnhd_stream(q, k, v, sc, emit=True),
+               k6_emit_plain, records,
+               cost=attn_bound(B, N, H, D, [N] * B, False, True, N),
+               b2b=True)
 
 
 def int8_pv_draws():
@@ -2700,19 +3046,85 @@ class Fc1AsymPlan:
         return self.plan.resolver({"mlp.fc1": self.fc1})
 
 
+class SplitPlan:
+    """A plan whose resolver splits every block's fc2 and cross proj input
+    at Q_DIFFUSION_SPLIT of its channels (the q-diffusion plan's channel
+    split: the two parts quantized apart); everything else the plan's."""
+
+    SITES = {"mlp.fc2": 4 * 1152, "cross_attn.proj": 1152}
+
+    def __init__(self, plan):
+        self.plan = plan
+
+    def __getattr__(self, name):
+        return getattr(self.plan, name)
+
+    def resolver(self):
+        import dataclasses
+        d = self.plan.default_layer
+        return self.plan.resolver({
+            site: dataclasses.replace(d, split=int(k * Q_DIFFUSION_SPLIT))
+            for site, k in self.SITES.items()})
+
+
+def ptqd_k_check(name, arm, model, sampler, z, y, mask, slot_map):
+    """The flow the PTQD plans exist for, at the arm's model: the fp
+    trajectory of one DDIM run (`get_calib_data`), the fp and quantized
+    model outputs at each of its steps recorded by a forward hook
+    (`recording`) as [n_steps, ...] arrays under `outs`, then
+    `calibrate-ptqd-k` through `cli.main`. The k_t must be finite, one a
+    step, and equal to `calibrate_ptqd_k` on the same arrays."""
+    import tempfile
+    import torch
+    from viditq_tpu_torch import cli
+    from viditq_tpu_torch.pipelines.analysis import calibrate_ptqd_k
+    from viditq_tpu_torch.pipelines.inference import get_calib_data
+    t0 = time.time()
+    cal = get_calib_data(model, sampler, z, y, mask)
+    with torch.no_grad(), recording(model) as outs:
+        for x, t in zip(cal["xs"], cal["ts"]):
+            model(x, t.float(), cal["y"], cal["mask"])
+            model(x, t.float(), cal["y"], cal["mask"],
+                  qctx=qctx_for(arm, int(t[0]), slot_map))
+    fp, qt = (torch.stack(outs[i::2]).numpy() for i in (0, 1))
+    with tempfile.TemporaryDirectory() as tmp:
+        for tag, arr in (("fp", fp), ("q", qt)):
+            np.savez(f"{tmp}/{tag}.npz", outs=arr)
+        out = cli.main(["calibrate-ptqd-k", "--fp_trajectory",
+                        f"{tmp}/fp.npz", "--quant_trajectory",
+                        f"{tmp}/q.npz", "--save_dir", f"{tmp}/k"])
+        k = np.load(out["out"])
+    n = len(cal["ts"])
+    print(f"  {arm}: calibrate-ptqd-k through cli.main on [{n}, "
+          f"{', '.join(map(str, fp.shape[1:]))}] fp and quantized outputs "
+          f"along the fp trajectory: k_t {np.array2string(k, precision=4)} "
+          f"({time.time() - t0:.1f} s)", flush=True)
+    if k.shape != (n,) or not np.isfinite(k).all():
+        fail(f"{name} {arm}: k_t {k} is not one finite value a step")
+    if not np.array_equal(k, calibrate_ptqd_k(fp, qt)):
+        fail(f"{name} {arm}: the command's k_t differ from "
+             "calibrate_ptqd_k on the same arrays")
+
+
 def quant_plan(plan=SM8_PLAN, recipe=None):
     """A plan YAML as an arm runs it (`PLAN_RECIPES`): as it is, on the
     native backend or with impl 'fused' ('fused'), on the native backend
     ('native_nocb': without its channel balancing, the
     segmented MP sampler's case), the CB recipe on the fused kernels
     with the q/k/v balancing scale pooled (`qkv_share_cs`), sym weights
-    and acts for 'cb_sym', or with fc1's acts asym ('fc1_asym',
-    `Fc1AsymPlan`)."""
+    and acts for 'cb_sym', with fc1's acts asym ('fc1_asym',
+    `Fc1AsymPlan`), with a static act slot a calibration step
+    ('timestep_wise', the CLI's --timestep_wise) or with the q-diffusion
+    channel split ('q_diffusion', `SplitPlan`)."""
     import dataclasses
     from viditq_tpu_torch.utils.config import load_quant_config
     qplan = load_quant_config(str(plan))
     if recipe == "fc1_asym":
         return Fc1AsymPlan(qplan)
+    if recipe == "timestep_wise":  # a static slot a calibration step
+        return load_quant_config(str(plan), timestep_wise=True)
+    if recipe == "q_diffusion":
+        return SplitPlan(qplan)
     if recipe in ("native", "fused"):
         return qplan.with_backend(recipe)
     if recipe == "native_nocb":
@@ -3265,7 +3677,7 @@ def slice_inputs(name, cfg, z_scale, n_prompt, rng):
     z = torch.tensor(rng.standard_normal((1, 4, *latent_size(cfg))) * z_scale,
                      dtype=torch.float32 if name == "mmdit"
                      else torch.bfloat16, device="cuda")
-    if name == "dit":
+    if name in ("dit", "dit_l"):
         enc = ClassEncoder(DIT_CLASSES)
         y = torch.cat([enc.encode([int(rng.integers(DIT_CLASSES))])["y"],
                        enc.null(1)]).cuda()
@@ -3411,10 +3823,11 @@ def run_slice(name, cfg, z_scale, n_prompt):
         for k, v in counts[arm].items():
             if (v["launches"] > 0) != (k in SLICE_KERNELS[name][arm]):
                 fail(f"{name} {arm} arm launched {k} {v['launches']} times")
-        per_block = BLOCK_LAUNCHES.get((name, arm), {})
+        per_fwd = FORWARD_LAUNCHES.get((name, arm)) or {
+            k: n * len(model.blocks)
+            for k, n in BLOCK_LAUNCHES.get((name, arm), {}).items()}
         fwd_a_step = 2 if sampler.cfg_split else 1
-        want = {k: n * len(model.blocks) * STEPS * fwd_a_step
-                for k, n in per_block.items()}
+        want = {k: n * STEPS * fwd_a_step for k, n in per_fwd.items()}
         got = {k: counts[arm][k]["launches"] for k in want}
         if got != want:
             fail(f"{name} {arm} launches {got} != {want}")
@@ -3424,6 +3837,8 @@ def run_slice(name, cfg, z_scale, n_prompt):
                          for a in (arm, base_arm))
             if got != want:
                 fail(f"{name} {arm} launches {got} != {base_arm}'s {want}")
+        if (name, arm) in PTQD_ARMS:
+            ptqd_k_check(name, arm, model, sampler, z, y, mask, slot_map)
         if all(a in arms for a in traced) and arm in traced:
             sample = fp_sample if arm == "bf16" else quant_sample
             along[arm] = [fwd.float()] + [
@@ -3472,14 +3887,6 @@ def run_slice(name, cfg, z_scale, n_prompt):
                   f"{base_arm} {ms[base_arm]:.1f}; final latents apart by "
                   f"rel {float((outs[arm] - outs[base_arm]).norm() / outs[base_arm].norm()):.4g}",
                   flush=True)
-    if "sim_w8a8" in outs and "w8a8" in outs:
-        # the reference's fake-quant semantics (per token position over
-        # batch x channels, cond and null apart under the plan's
-        # cfg_split) against the int8 path (per-row scales) on the same
-        # weights (ROADMAP C10); not gated
-        print(f"  {name}: sim_w8a8 vs w8a8 (native int8) final-latent rel "
-              f"err {float((outs['sim_w8a8'] - outs['w8a8']).norm() / outs['w8a8'].norm()):.4g}",
-              flush=True)
     rels = {}
     for arm in arms[1:]:
         rel = float((outs[arm] - outs["bf16"]).norm() / outs["bf16"].norm())
@@ -3507,7 +3914,9 @@ CLI_STEPS = 20
 # the analysis commands at full width with the depth and steps cut (one
 # sweep of every quantized layer's alphas at every block otherwise)
 CLI_ANALYSIS_DEPTH, CLI_ANALYSIS_STEPS = 4, 4
-# a command's kernels: the arm of `SLICE_KERNELS["stdit"]` it runs as
+# a command's kernels: the STDiT arm (`STDIT_ARM_KERNELS`: the slices
+# stdit and stdit_plans) it runs as
+STDIT_ARM_KERNELS = {**SLICE_KERNELS["stdit_plans"], **SLICE_KERNELS["stdit"]}
 CLI_KERNELS = {"inference": "bf16", "get-calib-data": "bf16",
                "ptq sm8": None, "quant-generate sm8": "sm8",
                "ptq naive": "naive", "quant-generate naive": "naive",
@@ -3695,7 +4104,7 @@ def run_cli(label, argv, counts):
     snap = _counters.snapshot()
     launched = {k: v["launches"] for k, v in snap.items() if v["launches"]}
     arm = CLI_KERNELS[label]
-    want = (set(SLICE_KERNELS["stdit"][arm]) if isinstance(arm, str)
+    want = (set(STDIT_ARM_KERNELS[arm]) if isinstance(arm, str)
             else set(arm or ()))
     if set(launched) != want:
         fail(f"cli {label}: launched {launched}, want every one of "
@@ -5311,10 +5720,16 @@ def main() -> int:
     phase_kernels(records)
     phase_reference()
     launches = run_slice("stdit", STDIT_CFG, 0.5, 120)
-    for k, n in run_slice("sigma", SIGMA_CFG, 1.0, 300).items():
-        launches[k] += n
+    for name, cfg, z_scale, n_prompt in (
+            ("sigma", SIGMA_CFG, 1.0, 300),
+            ("stdit_plans", plan_cfg(STDIT_CFG), 0.5, 120),
+            ("alpha", plan_cfg(ALPHA_CFG), 1.0, 120),
+            ("sigma_plans", plan_cfg(SIGMA_CFG), 1.0, 300)):
+        for k, n in run_slice(name, cfg, z_scale, n_prompt).items():
+            launches[k] += n
     for name, cfg, n_prompt in (("latte", LATTE_CFG, 1),
                                 ("dit", DIT_CFG, None),
+                                ("dit_l", DIT_L_CFG, None),
                                 ("mmdit", MMDIT_CFG, 77)):
         for k, n in run_slice(name, cfg, 0.5, n_prompt).items():
             launches[k] += n

@@ -265,8 +265,13 @@ def test_cuda_k8_reaches_the_launch_and_refuses_what_it_does_not_take(
         A.qk_headwise_quant(q, k)
     with pytest.raises(ValueError, match="bfloat16"):
         A.qk_headwise_quant(q.float(), k.float())
-    with pytest.raises(ValueError, match="head dim"):
+    # D % 8 != 0 runs padded with zero channels (it was refused once);
+    # only a head wider than JAX's attention gate (H * D <= 2048) refuses
+    with pytest.raises(Launched):
         A.qk_headwise_quant(q[..., :12], k[..., :12])
+    wide = card(np.zeros((1, 2, 1, A.QK_MAX_D + 8), np.float32)).bfloat16()
+    with pytest.raises(ValueError, match="head dim"):
+        A.qk_headwise_quant(wide, wide)
     # the attention's int8_qk goes through K8 first
     with pytest.raises(Launched):
         A.attention_bnhd(q, k, k, 0.25, int8_qk=True)

@@ -270,11 +270,9 @@ def test_cuda_k5_is_one_launch_of_its_own(no_launch, mode, K):
 
 
 @pytest.mark.parametrize("bad,match", [
-    (dict(K=1168), "K <= 1152"), (dict(K=2304), "K <= 1152"),
-    (dict(N=200), "N % 16"), (dict(row_major=True), "K-major"),
-    (dict(dtype=torch.float16), "bfloat16 or float32"),
-    (dict(K=1004), "16-byte aligned")],
-    ids=["K1168", "K2304", "N200", "row-major-w", "fp16-x", "K1004"])
+    (dict(row_major=True), "K-major"),
+    (dict(dtype=torch.float16), "bfloat16 or float32")],
+    ids=["row-major-w", "fp16-x"])
 def test_cuda_k5_refuses_what_its_kernel_does_not_take(no_launch, bad,
                                                        match):
     args, kw = _card_args(**bad)
@@ -283,6 +281,48 @@ def test_cuda_k5_refuses_what_its_kernel_does_not_take(no_launch, bad,
     with pytest.raises(ValueError, match="w_colsum"):
         FM.fused_dynq_int8_matmul(*_card_args()[0], sym=False, sym_w=False,
                                   w_zp=_card_args()[1]["w_zp"])
+
+
+@pytest.mark.parametrize("shape", [
+    dict(K=1168), dict(K=2304), dict(K=4608), dict(N=200), dict(N=1000),
+    dict(K=1004)], ids=["K1168", "K2304", "K4608", "N200", "N1000", "K1004"])
+@pytest.mark.parametrize("mode", ["sym", "asym"])
+def test_cuda_k5_takes_every_k_and_n(no_launch, shape, mode):
+    """Shapes beyond the resident schedule (K <= 1152, N % 16 == 0,
+    16-byte rows) reach K5's launch, and nothing else launches on the
+    way (the padding of N and of x's rows is plain tensor work)."""
+    args, kw = _card_args(**shape)
+    _counters.reset()
+    with pytest.raises(_Launched):
+        FM.fused_dynq_int8_matmul(*args, sym=mode == "sym",
+                                  sym_w=mode == "sym", **kw)
+    assert all(v == {"launches": 0, "plain_cuda": 0}
+               for v in _counters.snapshot().values())
+
+
+@pytest.mark.parametrize("K,N", [(4608, 1152), (1152, 1000), (1004, 192)])
+@pytest.mark.parametrize("mode", ["sym", "symx", "asym"])
+def test_k5_wide_k_and_padded_n_match_jax(K, N, mode):
+    """JAX's K5 in interpret mode at fc2's K, at N % 16 != 0 and at rows
+    that are not 16 bytes, against the port's plain version (the card
+    holds its kernel to the same plain version bit for bit)."""
+    rng = np.random.default_rng(K + N)
+    M = 40
+    x = rng.standard_normal((M, K)).astype(np.float32)
+    w = rng.integers(-128, 128, (K, N)).astype(np.int8)
+    ws = rng.uniform(1e-4, 1e-3, (1, N)).astype(np.float32)
+    wzp = (rng.integers(-20, 20, (1, N)).astype(np.float32)
+           if mode != "sym" else np.zeros((1, N), np.float32))
+    wcs = w.astype(np.float32).sum(0, keepdims=True)
+    sym, sym_w = mode != "asym", mode == "sym"
+    want = interp(jfm.fused_dynq_int8_matmul, jnp.asarray(x), jnp.asarray(w),
+                  jnp.asarray(ws), jnp.asarray(wzp), jnp.asarray(wcs),
+                  sym=sym, sym_w=sym_w, out_dtype=jnp.float32)
+    got = FM.fused_dynq_int8_matmul(t(x), k_major(t(w)), t(ws), None,
+                                    torch.float32, sym=sym, sym_w=sym_w,
+                                    w_zp=t(wzp), w_colsum=t(wcs))
+    assert got.shape == (M, N)
+    assert rel_err(got, want) < 1e-6
 
 
 def test_chip_smoke_carries_the_k5_cases():
@@ -295,17 +335,25 @@ def test_chip_smoke_carries_the_k5_cases():
     assert any(p.get("zero_rows") and p.get("mode") == "asym" for p in cases)
     assert any(p.get("zero_rows") and p.get("mode", "sym") == "sym"
                for p in cases)
-    assert any(p["K"] == FM.K5_MAX_K and not p.get("refused")
+    assert any(p["K"] == FM.K5_MAX_K for p in cases)
+    # the shapes the kernel once refused compute: wide K (f32 x too), rows
+    # that are not 16 bytes, N % 16 != 0
+    assert not any(p.get("refused") for p in cases)
+    assert any(p["K"] > FM.K5_MAX_K and p.get("f32") for p in cases)
+    assert any(p["K"] > FM.K5_MAX_K and p.get("mode") == "symx"
                for p in cases)
-    assert any(p["K"] > FM.K5_MAX_K and p.get("refused") for p in cases)
-    assert any(p["K"] * 2 % 16 and p.get("refused") for p in cases)
+    assert any(p["K"] * 2 % 16 for p in cases)
+    assert any(p["N"] % 16 for p in cases)
+    wide = inspect.getsource(cs.k5_wide_cases)
+    assert "M, K, N = 32768, 4608, 1152" in wide
+    assert '("sym", "symx", "asym")' in wide and "residual=res" in wide
     assert {"sym", "symx", "asym"} <= {p.get("mode", "sym") for p in cases}
     assert cs.SOURCES["fused_dynq_int8_matmul"] == \
         "viditq_tpu_torch/csrc/dynq_gemm.cu"
     main = inspect.getsource(cs.phase_kernels)
     asym = inspect.getsource(cs.asym_cases)
     assert "check_k5(records, case" in main and "k5_edge_cases(records)" \
-        in main
+        in main and "k5_wide_cases(records)" in main
     for case in ('"asym kv_linear', '"asym q_linear',
                  '"sym x asym-weight kv_linear'):
         assert case in asym, case

@@ -555,7 +555,10 @@ def test_chip_smoke_carries_the_mp_and_sigma_cb_arms():
     assert cs.arm_build("sigma", "cb") == (cs.SIGMA_CB_PLAN, "cb", ())
     assert cs.arm_build("stdit", "cb") == (cs.CB_PLAN, "cb", ())
     assert cs.STAT_T == {"stdit": (250, 750), "sigma": (500,),
-                         "latte": (250, 750), "dit": (), "mmdit": ()}
+                         "latte": (250, 750), "dit": (), "mmdit": (),
+                         # DiT-L/2 and the plan slices
+                         "dit_l": (), "stdit_plans": (250, 750),
+                         "alpha": (500,), "sigma_plans": (500,)}
     d = cs.quant_plan(cs.SIGMA_CB_PLAN, "cb").default_layer
     assert (d.backend, d.impl, d.weight.n_bits) == ("native", "fused", 6)
     assert d.smooth_quant.qkv_share_cs and d.smooth_quant.alpha == (
@@ -678,13 +681,16 @@ def test_chip_smoke_draws_the_same_fp_weights_under_every_plan():
 def test_chip_smoke_carries_the_reference_plan_arms():
     import chip_smoke as cs
     from viditq_tpu_torch.samplers.iddpm import IDDPM
-    stdit = cs.SLICE_KERNELS["stdit"]
+    # the reference plans' simulate arms run at PLAN_DEPTH blocks, in a slice
+    # of their own with a bf16 arm at that depth
+    plans = cs.SLICE_KERNELS["stdit_plans"]
     # the simulate arms launch K3 alone; naive_fused K2 on static codes;
     # hybrid K7a -> K7b at the MLP; each held to its per-block count
     for arm in ("sim_w8a8", "sim_w6a6", "naive"):
-        assert stdit[arm] == ("attention_bnhd",)
-        assert cs.BLOCK_LAUNCHES[("stdit", arm)] == {"attention_bnhd": 3}
-    assert cs.BLOCK_LAUNCHES[("stdit", "naive_fused")] == {
+        assert plans[arm] == ("attention_bnhd",)
+        assert cs.BLOCK_LAUNCHES[("stdit_plans", arm)] == {
+            "attention_bnhd": 3}
+    assert cs.BLOCK_LAUNCHES[("stdit_plans", "naive_fused")] == {
         "int8_consumer_matmul": 13, "attention_bnhd": 3}
     assert cs.BLOCK_LAUNCHES[("stdit", "hybrid")] == {
         "dynamic_quant_rows": 2, "int8_matmul": 2, "attention_bnhd": 3}
@@ -692,16 +698,18 @@ def test_chip_smoke_carries_the_reference_plan_arms():
                                                    "attention_bnhd_stream")
     # the plans as written (naive_fused: naive's tables on impl 'fused')
     for (sl, arm), plan in (
-            (("stdit", "sim_w8a8"), "opensora/viditq_w8a8.yaml"),
-            (("stdit", "sim_w6a6"), "opensora/viditq_w6a6.yaml"),
-            (("stdit", "naive"), "opensora/w8a8_naive.yaml"),
+            (("stdit_plans", "sim_w8a8"), "opensora/viditq_w8a8.yaml"),
+            (("stdit_plans", "sim_w6a6"), "opensora/viditq_w6a6.yaml"),
+            (("stdit_plans", "naive"), "opensora/w8a8_naive.yaml"),
             (("stdit", "hybrid"), "opensora/w8a8_tpu_hybrid.yaml"),
             (("sigma", "naive"), "pixart_sigma/w8a8_naive.yaml")):
         got = cs.arm_build(sl, arm)
         assert got[0] == cs.ROOT / "configs" / plan and got[1] is None
-    assert cs.arm_build("stdit", "naive_fused")[1] == "fused"
-    assert cs.TABLES_FROM == {("stdit", "naive_fused"): "naive"}
-    assert cs.LOW_BIT_ARMS == {("stdit", "sim_w6a6"): "sim_w8a8"}
+    assert cs.arm_build("stdit_plans", "naive_fused")[1] == "fused"
+    assert cs.TABLES_FROM == {("stdit_plans", "naive_fused"): "naive"}
+    # every plan arm is held to SLICE_REL_ERR at PLAN_DEPTH (sim_w6a6 took
+    # the low-bit rule at 28 blocks)
+    assert cs.LOW_BIT_ARMS == {}
     d = cs.quant_plan(cs.NAIVE_PLAN, "fused").default_layer
     assert (d.backend, d.impl, d.act.dynamic) == ("native", "fused", False)
     assert cs.static_acts(cs.quant_plan(cs.SIGMA_NAIVE_PLAN))
@@ -709,10 +717,12 @@ def test_chip_smoke_carries_the_reference_plan_arms():
     # the sampler: an arm that runs its plan as written takes the plan's
     # cfg_split (viditq_w8a8 and the hybrid plan set it), the earlier arms
     # the joint CFG batch
-    for arm, split in (("sim_w8a8", True), ("hybrid", True),
-                       ("sim_w6a6", False), ("naive", False),
-                       ("w8a8", False), ("bf16", False)):
-        assert cs.arm_sampler("stdit", arm, cs.TINY_STDIT_CFG).cfg_split \
+    for sl, arm, split in (("stdit_plans", "sim_w8a8", True),
+                           ("stdit", "hybrid", True),
+                           ("stdit_plans", "sim_w6a6", False),
+                           ("stdit_plans", "naive", False),
+                           ("stdit", "w8a8", False), ("stdit", "bf16", False)):
+        assert cs.arm_sampler(sl, arm, cs.TINY_STDIT_CFG).cfg_split \
             == split, arm
     # the static-act set-up on tiny CPU models: naive calibrates through
     # run_ptq over the fp trajectory, naive_fused takes naive's tables, a
@@ -721,11 +731,11 @@ def test_chip_smoke_carries_the_reference_plan_arms():
     sampler = IDDPM(num_sampling_steps=3, cfg_scale=4.0)
     tables, models, got = {}, {}, {}
     for arm in ("naive", "naive_fused", "sim_w8a8"):
-        plan, recipe, _ = cs.arm_build("stdit", arm)
+        plan, recipe, _ = cs.arm_build("stdit_plans", arm)
         models[arm] = cs.build_model(cs.TINY_STDIT_CFG, "cpu", scale=0.1,
                                      plan=plan, recipe=recipe)
-        got[arm] = cs.arm_static_setup("stdit", arm, models[arm], sampler,
-                                       x[:1], y, mask[:1], tables)
+        got[arm] = cs.arm_static_setup("stdit_plans", arm, models[arm],
+                                       sampler, x[:1], y, mask[:1], tables)
     slot_map, calib_ts, _ = got["naive"]
     assert sorted(calib_ts) == sorted(
         int(t) for t in sampler.schedule.timestep_map)
@@ -803,3 +813,118 @@ def test_cli_runs_on_the_card_unless_told_otherwise(monkeypatch, tmp_path):
         cli.main(["extract-features", "--csv", str(tmp_path / "d.csv"),
                   "--num_frames", "2", "--image_size", "16", "--save_dir",
                   str(tmp_path)])
+
+
+# the rest of the shipped plans' arms by (slice, arm): the plan each runs
+NEW_PLAN_ARMS = {
+    ("stdit", "w4a8_fused"): "opensora/w4a8_tpu_fused.yaml",
+    ("stdit", "hybrid_sym"): "opensora/w8a8_tpu_hybrid_sym.yaml",
+    ("stdit_plans", "naive_cb_w4a8"): "opensora/w4a8_naive_cb.yaml",
+    ("stdit_plans", "naive_cb_w6a6"): "opensora/w6a6_naive_cb.yaml",
+    ("stdit_plans", "sq_w4a8"): "opensora/w4a8_smooth_quant.yaml",
+    ("stdit_plans", "sq_w6a6"): "opensora/w6a6_smooth_quant.yaml",
+    ("stdit_plans", "sq_w8a8"): "opensora/w8a8_smooth_quant.yaml",
+    ("stdit_plans", "ptqd_w6a6"): "opensora/w6a6_ptqd.yaml",
+    ("stdit_plans", "ptqd_w8a8"): "opensora/w8a8_ptqd.yaml",
+    ("alpha", "sq_static"): "pixart/w8a8_sq_static.yaml",
+    ("alpha", "q_diffusion"): "pixart/w8a8_q_diffusion.yaml",
+    ("alpha", "alpha_w4a8"): "pixart/w4a8.yaml",
+    ("alpha", "alpha_naive"): "pixart/w8a8_naive.yaml",
+    ("sigma_plans", "sigma_w8a8"): "pixart_sigma/w8a8.yaml",
+    ("sigma_plans", "sigma_w4a8_naive"): "pixart_sigma/w4a8_naive.yaml",
+}
+
+
+@pytest.mark.parametrize("key", sorted(NEW_PLAN_ARMS))
+def test_chip_smoke_carries_each_shipped_plan_arm(key):
+    import chip_smoke as cs
+    sl, arm = key
+    assert arm in cs.SLICE_KERNELS[sl]
+    assert cs.arm_build(sl, arm)[0] == cs.ROOT / "configs" / \
+        NEW_PLAN_ARMS[key]
+    # sampled as written (its plan's cfg_split), its launches held exactly
+    assert key in cs.AS_WRITTEN
+    assert key in cs.BLOCK_LAUNCHES or key in cs.FORWARD_LAUNCHES
+    assert set(cs.BLOCK_LAUNCHES.get(key) or cs.FORWARD_LAUNCHES[key]) \
+        <= set(cs.SLICE_KERNELS[sl][arm])
+    sib = cs.LOW_BIT_ARMS.get(key)
+    assert sib is None or sib in cs.SLICE_KERNELS[sl]
+
+
+def test_chip_smoke_runs_every_shipped_plan():
+    """Every plan YAML of the STDiT and PixArt families runs on the card:
+    as an arm, or in phase cli / recon / samplers."""
+    import chip_smoke as cs
+    used = {v for v in vars(cs).values() if isinstance(v, Path)}
+    used |= set(cs.ARM_PLANS.values())
+    for fam in ("opensora", "pixart", "pixart_sigma"):
+        for plan in sorted((cs.ROOT / "configs" / fam).glob("*.yaml")):
+            assert plan in used, plan
+
+
+def test_chip_smoke_plan_slices_and_ptqd():
+    import inspect
+    import chip_smoke as cs
+    from viditq_tpu_torch.utils.config import load_quant_config
+    main = inspect.getsource(cs.main)
+    for name in ("stdit_plans", "alpha", "sigma_plans", "dit_l"):
+        assert f'"{name}"' in main, name
+    # the simulate-backend slices: PLAN_DEPTH blocks at XL/2 width, their
+    # own bf16 arm first; PixArt-Sigma keeps KV compression on its later half
+    for cfg in (cs.STDIT_CFG, cs.ALPHA_CFG, cs.SIGMA_CFG):
+        m = cs.plan_cfg(cfg)["model"]
+        assert (m["depth"], m["hidden_size"], m["num_heads"]) == (
+            cs.PLAN_DEPTH, 1152, 16)
+    assert cs.plan_cfg(cs.SIGMA_CFG)["model"]["kv_compress_layers"] == \
+        tuple(range(cs.PLAN_DEPTH // 2, cs.PLAN_DEPTH))
+    assert cs.PLAN_DEPTH < 28
+    for sl in ("stdit_plans", "alpha", "sigma_plans"):
+        assert next(iter(cs.SLICE_KERNELS[sl])) == "bf16"
+    assert cs.FORWARD_LAUNCHES[("sigma_plans", "sigma_w8a8")] == {
+        "attention_bnhd": cs.PLAN_DEPTH,
+        "attention_bnhd_stream": cs.PLAN_DEPTH // 2}
+    # the PTQD arms run calibrate-ptqd-k through cli.main on the recorded
+    # outputs along the fp trajectory
+    assert cs.PTQD_ARMS == {("stdit_plans", "ptqd_w6a6"),
+                            ("stdit_plans", "ptqd_w8a8")}
+    src = inspect.getsource(cs.ptqd_k_check)
+    for part in ('"calibrate-ptqd-k"', "cli.main(", "recording(model)",
+                 "get_calib_data(", "calibrate_ptqd_k(fp, qt)"):
+        assert part in src, part
+    assert "ptqd_k_check(" in inspect.getsource(cs.run_slice)
+    # the recipes: a static slot a calibration step, the q-diffusion split
+    ts = cs.quant_plan(cs.ALPHA_SQ_STATIC_PLAN, "timestep_wise")
+    assert ts.default_layer.act.timestep_wise
+    split = cs.quant_plan(cs.ALPHA_Q_DIFFUSION_PLAN, "q_diffusion")
+    res = split.resolver()
+    assert res("blocks.3.mlp.fc2").split == 1728
+    assert res("blocks.3.cross_attn.proj").split == 432
+    assert res("blocks.3.attn.proj").split == \
+        load_quant_config(str(cs.ALPHA_Q_DIFFUSION_PLAN)).resolver()(
+            "blocks.3.attn.proj").split
+
+
+def test_chip_smoke_carries_the_head_dim_and_dit_l_cases():
+    import inspect
+    import chip_smoke as cs
+    from viditq_tpu_torch.kernels import attention as A
+    assert cs.HEAD_DIM_CASES == (32, 40, 64, 128)
+    assert 40 not in A.KERNEL_HEAD_DIMS  # the padded width
+    assert A.KERNEL_HEAD_DIMS == (16, 32, 64, 72, 128)
+    src = inspect.getsource(cs.head_dim_cases)
+    for part in ("A.attention_bnhd(q, k, v, sc)", "int8_pv=True",
+                 "emit_sym=False, need_rowsum=True", "col_scale=ics",
+                 "seg_len=16", "A.attention_bnhd_stream(q, k, v, sc)",
+                 "A.qk_headwise_quant(q, k)", "exact=True",
+                 '"attention_bnhd_f32"', '"attention_bnhd_stream_f32"',
+                 "F32_REL_ERR", "sdpa(q, k, v, sc)"):
+        assert part in src, part
+    main = inspect.getsource(cs.phase_kernels)
+    assert "head_dim_cases(records)" in main and "dit_l_cases(records)" \
+        in main
+    m = cs.DIT_L_CFG["model"]
+    assert (m["type"], m["depth"], m["hidden_size"], m["num_heads"],
+            m["patch_size"]) == ("DiT", 24, 1024, 16, (1, 2, 2))
+    assert cs.SLICE_KERNELS["dit_l"] == cs.SLICE_KERNELS["dit"]
+    assert cs.BLOCK_LAUNCHES[("dit_l", "sm8")] == \
+        cs.BLOCK_LAUNCHES[("dit", "sm8")]

@@ -262,7 +262,12 @@ def test_kv16_is_the_s8_k16_fragment_order():
     (16, 32, False, None, False), (3, 16, False, None, False),
     (1, 1088, True, 1088, False)])
 def test_seg_tiled_dispatch_rule(H, seg, int8_pv, v_block, tiled):
-    assert A.seg_tiled(H, seg, int8_pv, v_block) == tiled
+    assert A.seg_tiled(H, seg, int8_pv, v_block, 72) == tiled
+    # the tiled kernel's widths; D = 128 (two heads a warp would hold 128
+    # accumulators a thread) takes the row kernel
+    for D in (16, 32, 64):
+        assert A.seg_tiled(H, seg, int8_pv, v_block, D) == tiled
+    assert not A.seg_tiled(H, seg, int8_pv, v_block, 128)
 
 
 def test_seg_int8_pv_beyond_1040_kv_rows_matches_jax():
@@ -390,7 +395,7 @@ def test_seg_launch_paths_write_no_f32_scratch(launches, H, seg, int8_pv,
     q, k, v = (_card(B, N, H, D) for _ in range(3))
     A.attention_bnhd(q, k, v, 0.1, seg_len=seg, int8_pv=int8_pv, emit=emit,
                      emit_sym=emit_sym, need_rowsum=not emit_sym)
-    tiled = A.seg_tiled(H, seg, int8_pv, A.seg_v_block(N, seg))
+    tiled = A.seg_tiled(H, seg, int8_pv, A.seg_v_block(N, seg), D)
     vquant = "vq_attn_vquant_tiles" if tiled else "vq_attn_vquant"
     attn = (["vq_attention_seg"] if tiled else
             ["vq_attention_seg_rows"] * (2 if emit else 1))

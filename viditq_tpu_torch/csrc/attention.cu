@@ -46,7 +46,8 @@
 // wgmma, the kv mask staged per tile, the output staged through shared
 // memory and written with 16-byte stores. The int8 PV runs on s8 wgmma
 // with exact int32 sums, so its kv range is not bounded. D is a template
-// parameter: 72 (STDiT-XL) and 16 (the tiny reference model).
+// parameter: 72 (STDiT-XL, PixArt), 64 (DiT-L/2), 16, 32 and 128; the
+// wrappers pad any other D up to the next of these.
 //
 // Seg mode. Bound on the card: bytes. At the main path ([2, 16384, 16,
 // 72], seg 16) q, k and v are read once and o written once: 8*B*N*C bytes
@@ -90,17 +91,24 @@
 // mma.sync m16n8k32 s8, so its kv range is not bounded either. A block
 // holds one head, so its emission takes two launches: per-(row, head)
 // output ranges, then the codes from the row's range (no f32 output).
+//
+// Build: the kernels' instantiations are spread over translation units so
+// that the build compiles them in parallel. This file holds the C entry
+// points and head dim 16's kernels; parts/attention_d{32,64,72,128}.cu
+// include it with VQ_K3_PART set to their head dim and instantiate that
+// dim's launchers alone (`VQ_K3_LAUNCHERS`), which the entry points here
+// declare extern.
 #include "attn_core.cuh"
 
-namespace {
+namespace vq {
+namespace k3 {
 
-using namespace vq;
 using namespace vq::attn;
 
 // ---------------------------------------------------------------- full modes
 
 template <int D, bool INT8>
-__global__ void __launch_bounds__(THREADS, 2)
+__global__ void __launch_bounds__(THREADS, D > 72 ? 1 : 2)
     attn_kernel_full(const __nv_bfloat16* __restrict__ q,
                      const __nv_bfloat16* __restrict__ k,
                      const void* __restrict__ v,
@@ -236,6 +244,14 @@ __global__ void __launch_bounds__(THREADS, 2)
 
 // -------------------------------------------------------- v quantize, emission
 
+// kv row of byte k of a 32-byte chunk of v^T: the k32 fragment order of
+// pack_codes (kernels/attention.py KV_PERM)
+__device__ __forceinline__ int kv_perm(int k) {
+  return (k >> 4) * 16 + ((k & 3) >> 1) * 8 + ((k & 15) >> 2) * 2 + (k & 1);
+}
+
+#ifndef VQ_K3_PART  // (the entry points' own kernels, to the row quant)
+
 // Per (b, group, channel): vs = max(absmax over the group's vgroup tokens,
 // 1e-6); codes = round(v * (127/vs)) (attention.py:176-180, :636-642),
 // written in v's layout [B, M, C] unless vq is null (scales only).
@@ -263,12 +279,6 @@ __global__ void vquant_kernel(const __nv_bfloat16* __restrict__ v,
     vq[base + static_cast<size_t>(r) * C] =
         static_cast<int8_t>(static_cast<int>(rintf(x * mul)));
   }
-}
-
-// kv row of byte k of a 32-byte chunk of v^T: the k32 fragment order of
-// pack_codes (kernels/attention.py KV_PERM)
-__device__ __forceinline__ int kv_perm(int k) {
-  return (k >> 4) * 16 + ((k & 3) >> 1) * 8 + ((k & 15) >> 2) * 2 + (k & 1);
 }
 
 // codes of v [B, M, H*D] against the per-channel scales vs [B, 1, H*D],
@@ -363,6 +373,8 @@ __global__ void row_quant_kernel(const float* __restrict__ o,
     rq.store<false>(row, lane, sum, scales, zp, rowsum);
   }
 }
+
+#endif  // VQ_K3_PART
 
 template <int D, bool INT8>
 cudaError_t launch_full(const void* q, const void* k, const void* v,
@@ -818,6 +830,7 @@ __global__ void __launch_bounds__(MAX_WARPS * 32)
 constexpr int VQ_CH = 64;
 constexpr int VQ_THREADS = 256;
 
+#ifndef VQ_K3_PART
 __global__ void __launch_bounds__(VQ_THREADS)
     vquant_tiles_kernel(const __nv_bfloat16* __restrict__ v,
                         int8_t* __restrict__ vt, float* __restrict__ vs,
@@ -917,6 +930,8 @@ __global__ void __launch_bounds__(VQ_THREADS)
   }
 }
 
+#endif  // VQ_K3_PART
+
 // ------------------------------------------------------- the row kernel
 
 constexpr int SEG_BQ = 64;   // q rows per block: 4 warps x 16
@@ -948,9 +963,14 @@ __global__ void __launch_bounds__(128)
   constexpr int LDK = DP + 8;             // bf16 row strides (bank spread)
   constexpr int LDV = SEG_BKV + 8;
   constexpr int LDV8 = SEG_BKV + 16;      // int8 v^T row stride (bytes)
-  __shared__ __align__(16) __nv_bfloat16 Qs[SEG_BQ * LDK];
+  // q is staged once, read into registers and left behind a barrier
+  // before the first bf16 v^T tile is written: the two share one buffer
+  // (at D = 128 the three would pass the 48 KB of static shared memory)
+  constexpr int QV = SEG_BQ * LDK > DV * LDV ? SEG_BQ * LDK : DV * LDV;
+  __shared__ __align__(16) __nv_bfloat16 QVs[INT8 ? SEG_BQ * LDK : QV];
   __shared__ __align__(16) __nv_bfloat16 Ks[SEG_BKV * LDK];
-  __shared__ __align__(16) __nv_bfloat16 Vt[INT8 ? 8 : DV * LDV];
+  __nv_bfloat16* const Qs = QVs;
+  __nv_bfloat16* const Vt = QVs;
   __shared__ __align__(16) int8_t Vt8[INT8 ? DV * LDV8 : 16];
 
   const int b = blockIdx.z;
@@ -1281,13 +1301,59 @@ cudaError_t launch_rows(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-}  // namespace
+}  // namespace k3
+}  // namespace vq
+
+// One head dim's launchers: the full modes and the row kernel at every
+// dim, the tiled kernel at dims up to 72. PRE: empty (the explicit
+// instantiations, in the dim's own translation unit) or extern (their
+// declarations, here).
+#define VQ_K3_FULL(PRE, DD, I8)                                             \
+  PRE template cudaError_t vq::k3::launch_full<DD, I8>(                     \
+      const void*, const void*, const void*, const float*, const int*,      \
+      void*, int, int, int, int, int, float, cudaStream_t);
+#define VQ_K3_TILED(PRE, DD, I8, EM)                                        \
+  PRE template cudaError_t vq::k3::launch_tiled<DD, I8, EM>(                \
+      const void*, const void*, const void*, const float*, int, int, void*, \
+      const float*, void*, void*, void*, void*, int, int, int, int, float,  \
+      cudaStream_t);
+#define VQ_K3_ROWS(PRE, DD, I8, MO)                                         \
+  PRE template cudaError_t vq::k3::launch_rows<DD, I8, MO>(                 \
+      const void*, const void*, const void*, const float*, int, int, void*, \
+      const float*, void*, void*, void*, void*, void*, int, int, int, int,  \
+      float, cudaStream_t);
+#define VQ_K3_MODES(PRE, DD, I8)                                            \
+  VQ_K3_FULL(PRE, DD, I8)                                                   \
+  VQ_K3_ROWS(PRE, DD, I8, 0) VQ_K3_ROWS(PRE, DD, I8, 1)                     \
+  VQ_K3_ROWS(PRE, DD, I8, 2) VQ_K3_ROWS(PRE, DD, I8, 3)
+#define VQ_K3_TILED_MODES(PRE, DD, I8)                                      \
+  VQ_K3_TILED(PRE, DD, I8, 0) VQ_K3_TILED(PRE, DD, I8, 1)                   \
+  VQ_K3_TILED(PRE, DD, I8, 2)
+#define VQ_K3_LAUNCHERS(PRE, DD, TILED)                                     \
+  VQ_K3_MODES(PRE, DD, false) VQ_K3_MODES(PRE, DD, true)                    \
+  TILED(PRE, DD, false) TILED(PRE, DD, true)
+#define VQ_K3_NONE(PRE, DD, I8)
+
+#ifdef VQ_K3_PART
+#if VQ_K3_PART == 128
+VQ_K3_LAUNCHERS(, 128, VQ_K3_NONE)
+#else
+VQ_K3_LAUNCHERS(, VQ_K3_PART, VQ_K3_TILED_MODES)
+#endif
+#else  // the entry points
+
+VQ_K3_LAUNCHERS(extern, 32, VQ_K3_TILED_MODES)
+VQ_K3_LAUNCHERS(extern, 64, VQ_K3_TILED_MODES)
+VQ_K3_LAUNCHERS(extern, 72, VQ_K3_TILED_MODES)
+VQ_K3_LAUNCHERS(extern, 128, VQ_K3_NONE)
+
+using namespace vq::k3;
 
 // q [B, N, H*D], k [B, M, H*D] bf16; v bf16 [B, M, H*D], or (int8_pv)
 // the codes vt [B, H, D, Mp] from vq_attn_vquant_t (Mp = M rounded up to
 // 64) with scales vs [B, 1, H*D]; mask [B, M] int32 or null; out
-// [B, N, H*D] f32 (out_f32) or bf16. D in {16, 72}; every pointer 16-byte
-// aligned.
+// [B, N, H*D] f32 (out_f32) or bf16. D in {16, 32, 64, 72, 128}; every
+// pointer 16-byte aligned.
 VQ_EXPORT int vq_attention(const void* q, const void* k, const void* v,
                            const void* vs, const void* mask, void* out,
                            int out_f32, int B, int N, int M, int H, int D,
@@ -1304,8 +1370,14 @@ VQ_EXPORT int vq_attention(const void* q, const void* k, const void* v,
     break;
     VQ_ATTN_CASE(16, 0)
     VQ_ATTN_CASE(16, 1)
+    VQ_ATTN_CASE(32, 0)
+    VQ_ATTN_CASE(32, 1)
+    VQ_ATTN_CASE(64, 0)
+    VQ_ATTN_CASE(64, 1)
     VQ_ATTN_CASE(72, 0)
     VQ_ATTN_CASE(72, 1)
+    VQ_ATTN_CASE(128, 0)
+    VQ_ATTN_CASE(128, 1)
 #undef VQ_ATTN_CASE
     default:
       err = cudaErrorInvalidValue;
@@ -1373,7 +1445,8 @@ VQ_EXPORT int vq_attn_row_quant(const void* o, const void* cs, void* q,
 // The tiled kernel: q, k [B, N, H*D] bf16; v bf16 [B, N, H*D], or (int8_pv)
 // codes vt [B, ceil(N/16), H*D, 16] with scales vs [B, n_vgroups, H*D] from
 // vq_attn_vquant_tiles; seg divides 16 (and N); H even, at most 32; D in
-// {16, 72}. emit 0: out [B, N, H*D] bf16; 1 (sym) or 2 (asym): codes
+// {16, 32, 64, 72} (D = 128's two heads a warp would hold 128 accumulators:
+// the row kernel takes it). emit 0: out [B, N, H*D] bf16; 1 (sym) or 2 (asym): codes
 // [B*N, H*D] int8, scales [B*N] f32, zp [B*N] f32 (asym), rowsum [B*N] f32
 // or null, of the outputs times cs [H*D] f32 (the column scales) where cs
 // is not null. Every pointer 16-byte aligned.
@@ -1400,18 +1473,18 @@ VQ_EXPORT int vq_attention_seg(const void* q, const void* k, const void* v,
                                         csp, codes, scales, zp, rowsum, B, N, \
                                         H, shift, scale2, st);                \
     break;
-    VQ_SEG_CASE(16, 0, 0)
-    VQ_SEG_CASE(16, 0, 1)
-    VQ_SEG_CASE(16, 0, 2)
-    VQ_SEG_CASE(16, 1, 0)
-    VQ_SEG_CASE(16, 1, 1)
-    VQ_SEG_CASE(16, 1, 2)
-    VQ_SEG_CASE(72, 0, 0)
-    VQ_SEG_CASE(72, 0, 1)
-    VQ_SEG_CASE(72, 0, 2)
-    VQ_SEG_CASE(72, 1, 0)
-    VQ_SEG_CASE(72, 1, 1)
-    VQ_SEG_CASE(72, 1, 2)
+#define VQ_SEG_MODES(DD) \
+  VQ_SEG_CASE(DD, 0, 0)     \
+  VQ_SEG_CASE(DD, 0, 1)     \
+  VQ_SEG_CASE(DD, 0, 2)     \
+  VQ_SEG_CASE(DD, 1, 0)     \
+  VQ_SEG_CASE(DD, 1, 1)     \
+  VQ_SEG_CASE(DD, 1, 2)
+    VQ_SEG_MODES(16)
+    VQ_SEG_MODES(32)
+    VQ_SEG_MODES(64)
+    VQ_SEG_MODES(72)
+#undef VQ_SEG_MODES
 #undef VQ_SEG_CASE
     default:
       err = cudaErrorInvalidValue;
@@ -1421,8 +1494,9 @@ VQ_EXPORT int vq_attention_seg(const void* q, const void* k, const void* v,
 
 // The row kernel: q, k [B, N, H*D] bf16; v bf16 [B, N, H*D] or (int8_pv)
 // codes [B, N, H*D] with scales [B, n_vgroups, H*D] from vq_attn_vquant;
-// N % seg == 0; D in {16, 72}. mode 0: out [B, N, H*D] bf16; 1: stats
-// [B*N, H] float2 (each head's max(o, 0), min(o, 0)); 2 (sym) / 3 (asym),
+// N % seg == 0; D in {16, 32, 64, 72, 128}. mode 0: out [B, N, H*D] bf16;
+// 1: stats [B*N, H] float2 (each head's max(o, 0), min(o, 0)); 2 (sym) / 3
+// (asym),
 // after mode 1 on the same inputs: codes [B*N, H*D] int8, scales [B*N],
 // zp [B*N] (asym), rowsum [B*N] f32 zeroed by the caller, or null. cs
 // [H*D] f32 or null: modes 1-3 take the outputs times these column scales.
@@ -1454,8 +1528,14 @@ VQ_EXPORT int vq_attention_seg_rows(const void* q, const void* k,
   VQ_ROWS_CASE(DD, I8, 3)
     VQ_ROWS_MODES(16, 0)
     VQ_ROWS_MODES(16, 1)
+    VQ_ROWS_MODES(32, 0)
+    VQ_ROWS_MODES(32, 1)
+    VQ_ROWS_MODES(64, 0)
+    VQ_ROWS_MODES(64, 1)
     VQ_ROWS_MODES(72, 0)
     VQ_ROWS_MODES(72, 1)
+    VQ_ROWS_MODES(128, 0)
+    VQ_ROWS_MODES(128, 1)
 #undef VQ_ROWS_MODES
 #undef VQ_ROWS_CASE
     default:
@@ -1482,3 +1562,5 @@ VQ_EXPORT int vq_attn_vquant_tiles(const void* v, void* vt, void* vs, int B,
       static_cast<float*>(vs), N, C, vgroup);
   return static_cast<int>(cudaGetLastError());
 }
+
+#endif  // VQ_K3_PART

@@ -255,14 +255,17 @@ VQ_EXPORT int vq_attention_f32(const void* q, const void* k, const void* v,
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err;
   switch (D) {
-    case 16:
-      err = vq::attn_seg_f32::launch<16>(qp, kp, vp, op, B, N, H, seg, scale2,
-                                         st);
-      break;
-    case 72:
-      err = vq::attn_seg_f32::launch<72>(qp, kp, vp, op, B, N, H, seg, scale2,
-                                         st);
-      break;
+#define VQ_SEG_F32_CASE(DD)                                                  \
+  case DD:                                                                   \
+    err = vq::attn_seg_f32::launch<DD>(qp, kp, vp, op, B, N, H, seg, scale2, \
+                                       st);                                  \
+    break;
+    VQ_SEG_F32_CASE(16)
+    VQ_SEG_F32_CASE(32)
+    VQ_SEG_F32_CASE(64)
+    VQ_SEG_F32_CASE(72)
+    VQ_SEG_F32_CASE(128)
+#undef VQ_SEG_F32_CASE
     default:
       err = cudaErrorInvalidValue;
   }

@@ -46,7 +46,7 @@ using namespace vq;
 using namespace vq::attn;
 
 template <int D, bool INT8>
-__global__ void __launch_bounds__(THREADS, 2)
+__global__ void __launch_bounds__(THREADS, D > 72 ? 1 : 2)
     attn_stream_kernel(const __nv_bfloat16* __restrict__ q,
                        const __nv_bfloat16* __restrict__ k,
                        const void* __restrict__ v,
@@ -185,8 +185,8 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 // q [B, N, H*D], k [B, M, H*D] bf16; v bf16 [B, M, H*D], or (int8_pv) the
 // codes from vq_attn_vquant_t at Mp = M ([B, H, D, M] int8, kv_perm order)
 // with scales vs [B, 1, H*D]; mask [B, M] int32 or null; out [B, N, H*D]
-// bf16. D in {16, 72}; bkv a multiple of 64 dividing M; every pointer
-// 16-byte aligned.
+// bf16. D in {16, 32, 64, 72, 128}; bkv a multiple of 64 dividing M; every
+// pointer 16-byte aligned.
 VQ_EXPORT int vq_attention_stream(const void* q, const void* k, const void* v,
                                   const void* vs, const void* mask, void* out,
                                   int B, int N, int M, int H, int D, int bkv,
@@ -205,8 +205,14 @@ VQ_EXPORT int vq_attention_stream(const void* q, const void* k, const void* v,
     break;
     VQ_STREAM_CASE(16, 0)
     VQ_STREAM_CASE(16, 1)
+    VQ_STREAM_CASE(32, 0)
+    VQ_STREAM_CASE(32, 1)
+    VQ_STREAM_CASE(64, 0)
+    VQ_STREAM_CASE(64, 1)
     VQ_STREAM_CASE(72, 0)
     VQ_STREAM_CASE(72, 1)
+    VQ_STREAM_CASE(128, 0)
+    VQ_STREAM_CASE(128, 1)
 #undef VQ_STREAM_CASE
     default:
       err = cudaErrorInvalidValue;

@@ -69,6 +69,9 @@ struct Tile {
   static constexpr int KS = DP / 16;             // k16 steps of QK^T
   static constexpr int NO = D / 2;               // bf16-PV sums a thread
   static constexpr int NO8 = DP / 2;             // s8-PV sums a thread (N = DP)
+  // columns of one PV wgmma (D = 128 takes two of 64)
+  static constexpr int PW = D > 72 ? 64 : D;
+  static constexpr int PW8 = DP > 80 ? 64 : DP;
   static constexpr int Q_BYTES = QCH * BQ * 16;
   static constexpr int K_BYTES = QCH * BKV * 16;
   static constexpr int VB_BYTES = CH * BKV * 16;          // bf16 v tile
@@ -77,8 +80,15 @@ struct Tile {
   static constexpr int STAGE_BYTES = K_BYTES + V_BYTES + BKV * 4;
   static constexpr int SMEM_BYTES = Q_BYTES + STAGES * STAGE_BYTES;
   static_assert(D % 8 == 0, "head dim must be a multiple of 8");
+  static_assert(D % PW == 0 && DP % PW8 == 0, "PV widths");
   static_assert(BQ * D * 4 <= STAGES * STAGE_BYTES, "output staging");
 };
+
+// n consecutive accumulators of a flat array, as one wgmma's operand
+template <int n, typename V>
+__device__ __forceinline__ V (&part(V* p))[n] {
+  return *reinterpret_cast<V(*)[n]>(p);
+}
 
 // descriptor strides (bytes) of the operand layouts above
 constexpr uint32_t ROW8 = 128;  // next 8 rows inside a chunk column
@@ -224,6 +234,89 @@ __device__ __forceinline__ void wgmma_rs_s8(int (&d)[8],
       "{%8, %9, %10, %11}, %12, p;\n}\n"
       : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
         "+r"(d[5]), "+r"(d[6]), "+r"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+        "r"(scale_d));
+}
+
+
+// the PV products at the other head widths (32, and 64 for D = 64 and as
+// the two halves of D = 128)
+__device__ __forceinline__ void wgmma_rs_bf16_tb(float (&d)[16],
+    const uint32_t (&a)[4], uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
+        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+        "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_rs_bf16_tb(float (&d)[32],
+    const uint32_t (&a)[4], uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
+        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+        "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_rs_s8(int (&d)[16],
+    const uint32_t (&a)[4], uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, "
+      "{%16, %17, %18, %19}, %20, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+        "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]),
+        "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+        "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_rs_s8(int (&d)[32],
+    const uint32_t (&a)[4], uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, "
+      "{%32, %33, %34, %35}, %36, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+        "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]),
+        "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]),
+        "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]), "+r"(d[25]),
+        "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]),
+        "+r"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
         "r"(scale_d));
 }
@@ -433,13 +526,26 @@ template <int D>
 __device__ __forceinline__ void pv_bf16(float (&o)[Tile<D>::NO],
                                         const uint32_t (&p)[BKV / 16][4],
                                         Slot<D> slot, int scale_d) {
+  using T = Tile<D>;
   const uint32_t va = smem_u32(slot.v());
   wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < BKV / 16; ++kk)
-    wgmma_rs_bf16_tb(
-        o, p[kk], make_desc(va + kk * 16 * 16, Desc<D>::V_LBO, Desc<D>::V_SBO),
-        kk > 0 ? 1 : scale_d);
+  for (int kk = 0; kk < BKV / 16; ++kk) {
+    if constexpr (T::PW == D) {
+      wgmma_rs_bf16_tb(o, p[kk],
+                       make_desc(va + kk * 16 * 16, Desc<D>::V_LBO,
+                                 Desc<D>::V_SBO),
+                       kk > 0 ? 1 : scale_d);
+    } else {
+#pragma unroll
+      for (int c = 0; c < D / T::PW; ++c)  // the columns c*PW .. of o
+        wgmma_rs_bf16_tb(
+            part<T::PW / 2>(o + c * (T::PW / 2)), p[kk],
+            make_desc(va + kk * 16 * 16 + c * (T::PW / 8) * Desc<D>::V_SBO,
+                      Desc<D>::V_LBO, Desc<D>::V_SBO),
+            kk > 0 ? 1 : scale_d);
+    }
+  }
   wgmma_commit();
   wgmma_wait<0>();
 }
@@ -479,13 +585,25 @@ template <int D>
 __device__ __forceinline__ void pv_s8(int (&acc)[Tile<D>::NO8],
                                       const uint32_t (&a)[BKV / 32][4],
                                       Slot<D> slot, int scale_d) {
+  using T = Tile<D>;
   const uint32_t va = smem_u32(slot.v());
   wgmma_fence();
 #pragma unroll
-  for (int ch = 0; ch < BKV / 32; ++ch)
-    wgmma_rs_s8(acc, a[ch],
-                make_desc(va + ch * 2 * Desc<D>::V8_LBO, Desc<D>::V8_LBO, ROW8),
-                ch > 0 ? 1 : scale_d);
+  for (int ch = 0; ch < BKV / 32; ++ch) {
+    if constexpr (T::PW8 == T::DP) {
+      wgmma_rs_s8(acc, a[ch],
+                  make_desc(va + ch * 2 * Desc<D>::V8_LBO, Desc<D>::V8_LBO,
+                            ROW8),
+                  ch > 0 ? 1 : scale_d);
+    } else {
+#pragma unroll
+      for (int c = 0; c < T::DP / T::PW8; ++c)  // d rows c*PW8 .. of v^T
+        wgmma_rs_s8(part<T::PW8 / 2>(acc + c * (T::PW8 / 2)), a[ch],
+                    make_desc(va + ch * 2 * Desc<D>::V8_LBO + c * T::PW8 * 16,
+                              Desc<D>::V8_LBO, ROW8),
+                    ch > 0 ? 1 : scale_d);
+    }
+  }
   wgmma_commit();
   wgmma_wait<0>();
 }

@@ -82,6 +82,9 @@ struct Core {
   static constexpr int KP = (D + 15) / 16 * 16;  // D padded to k16 steps
   static constexpr int KS = KP / 16;             // k16 steps of q.k
   static constexpr int NO = D / 2;               // PV sums a thread
+  // columns of one PV product: D = 128 runs two of 64 one after the
+  // other, so one half's sums are live at a time (registers)
+  static constexpr int PW = D > 72 ? 64 : D;
   static constexpr int CH = D / 4;               // 16-byte chunks a row
   static constexpr int RAW = D + 4;  // floats a raw row (16-byte aligned)
   static constexpr int RAW_K = 0;
@@ -215,6 +218,48 @@ __device__ __forceinline__ void wgmma_pv(float (&d)[8],
       "{%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+// the PV at the other head widths (32; 64 for D = 64 and as the two
+// halves of D = 128)
+__device__ __forceinline__ void wgmma_pv(float (&d)[16],
+                                         const uint32_t (&a)[4], uint64_t b,
+                                         int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
+        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_pv(float (&d)[32],
+                                         const uint32_t (&a)[4], uint64_t b,
+                                         int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
+        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
 }
 
@@ -426,23 +471,29 @@ __global__ void __launch_bounds__(THREADS, 1)
       split_tf32(s[4 * nt + 3], ph[nt][3], pl[nt][3]);
     }
     // pv = e . v over the tile from zero, three products a step; then
-    // acc = acc * corr + pv on the CUDA cores
-    float pv[T::NO];
-    wgmma_fence();
+    // acc = acc * corr + pv on the CUDA cores; PW columns (d rows of v^T)
+    // at a time
 #pragma unroll
-    for (int nt = 0; nt < BKV / 8; ++nt) {
-      const uint32_t c = nt * 2 * T::V_LBO;
-      const uint64_t dh = f32_desc(sa + T::S_VH + c, T::V_LBO, 128);
-      const uint64_t dl = f32_desc(sa + T::S_VL + c, T::V_LBO, 128);
-      wgmma_pv(pv, pl[nt], dh, nt > 0 ? 1 : 0);
-      wgmma_pv(pv, ph[nt], dl, 1);
-      wgmma_pv(pv, ph[nt], dh, 1);
+    for (int part = 0; part < D / T::PW; ++part) {
+      float pv[T::PW / 2];
+      wgmma_fence();
+#pragma unroll
+      for (int nt = 0; nt < BKV / 8; ++nt) {
+        const uint32_t c = nt * 2 * T::V_LBO + part * T::PW * 16;
+        const uint64_t dh = f32_desc(sa + T::S_VH + c, T::V_LBO, 128);
+        const uint64_t dl = f32_desc(sa + T::S_VL + c, T::V_LBO, 128);
+        wgmma_pv(pv, pl[nt], dh, nt > 0 ? 1 : 0);
+        wgmma_pv(pv, ph[nt], dl, 1);
+        wgmma_pv(pv, ph[nt], dh, 1);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+#pragma unroll
+      for (int i = 0; i < T::PW / 2; ++i) {
+        float& a = acc[part * (T::PW / 2) + i];
+        a = a * corr[(i >> 1) & 1] + pv[i];
+      }
     }
-    wgmma_commit();
-    wgmma_wait<0>();
-#pragma unroll
-    for (int i = 0; i < T::NO; ++i)
-      acc[i] = acc[i] * corr[(i >> 1) & 1] + pv[i];
   }
 
   // o = acc * (1 / max(r, 1e-30))
@@ -481,10 +532,15 @@ cudaError_t launch_core_any(const float* q, const float* k, const float* v,
                             int H, int D, float scale2, cudaStream_t st) {
   if (B <= 0 || N <= 0 || M <= 0 || H <= 0) return cudaErrorInvalidValue;
   switch (D) {
-    case 16:
-      return launch_core<16>(q, k, v, mask, out, B, N, M, H, scale2, st);
-    case 72:
-      return launch_core<72>(q, k, v, mask, out, B, N, M, H, scale2, st);
+#define VQ_CORE_CASE(DD) \
+  case DD:               \
+    return launch_core<DD>(q, k, v, mask, out, B, N, M, H, scale2, st);
+    VQ_CORE_CASE(16)
+    VQ_CORE_CASE(32)
+    VQ_CORE_CASE(64)
+    VQ_CORE_CASE(72)
+    VQ_CORE_CASE(128)
+#undef VQ_CORE_CASE
     default:
       return cudaErrorInvalidValue;
   }

@@ -43,9 +43,19 @@
 //   columns after an exchange in its quad. x is loaded and the output
 //   stored with evict-first hints (each is touched once), which keeps the
 //   weight's k-tiles, read by every unit, in L2.
-// - Shared memory bounds the shapes: 128 x K bytes of codes, so K <= 1152
-//   (nine k-tiles; with the ring, the column parameters and the row tables,
-//   230,016 of 232,448 bytes). Wider K is refused (the wrapper raises).
+// - Shared memory holds 128 x K bytes of codes up to K = 1152 (nine
+//   k-tiles; with the ring, the column parameters and the row tables,
+//   230,016 of 232,448 bytes). Wider K (fc2's 4608, which JAX's K5 takes
+//   with full-K blocks) runs the wide schedule, a simple one: a first sweep
+//   of the M tile's rows for each row's statistic over the whole K
+//   (`row_stats`), then for every N tile a k loop that quantizes each
+//   128-byte k-tile with the known scale into one of two code slots
+//   (`quantize_ktile`) and feeds the same wgmma, the row sums summed on the
+//   way. Its codes, and so its output, are those of the resident schedule;
+//   x is read once more an N tile (from L2 where it stays there).
+// - Rows of x that are not 16-byte aligned (K = 1004 in bf16) and N % 16 !=
+//   0 are padded by the wrapper (`ldx`; zero columns of W^T); the padding is
+//   kept out of every row statistic and row sum (codes past K are zero).
 // - Few M tiles (kv_linear: 240 rows, two tiles) would leave most SMs idle:
 //   the wrapper splits each M tile's N tiles into `nsplit` runs, one unit
 //   each (kv_linear: 12 runs of one tile), and each unit quantizes its M
@@ -63,6 +73,10 @@
 //   slabs a block, read by TMA as K2 reads A, quantized a unit ahead by the
 //   producer warpgroup or by the consumers between their wgmmas (register
 //   spills), with 192- or 128-column tiles.
+//
+// Build: the f32-x instantiations compile in a translation unit of their
+// own (parts/dynq_gemm_f32.cu includes this file with VQ_K5_F32 set and
+// defines `vq_k5_launch_f32`), in parallel with the bf16 ones here.
 #include <cstring>
 
 #include "int8_mma.cuh"
@@ -199,7 +213,7 @@ template <typename T, bool SYM, bool ROWSUM, bool CS>
 __device__ __forceinline__ void quantize_rows(
     const T* __restrict__ x, const float* __restrict__ cs, uint8_t* codes,
     float* row_s, float* row_z, float* row_r, int m0, int lr0, int n, int M,
-    int K, int nkt, int lane) {
+    int K, int ldx, int nkt, int lane) {
   constexpr int VEC = 16 / sizeof(T);
   constexpr int VPC = CH / VEC;
   const int nchunk = (K + CH - 1) / CH;
@@ -234,7 +248,7 @@ __device__ __forceinline__ void quantize_rows(
   uint4 next[CPT][VPC];
   auto load_row = [&](int lr) {
     const int row = m0 + lr;
-    const T* xr = x + static_cast<size_t>(row) * K;
+    const T* xr = x + static_cast<size_t>(row) * ldx;
 #pragma unroll
     for (int i = 0; i < CPT; ++i)
       load_chunk<T>(next[i], xr, lane + 32 * i, K, row < M);
@@ -345,16 +359,125 @@ __device__ __forceinline__ void quantize_rows(
   }
 }
 
+// Wide K (K > MAX_KT * BK: the M tile's codes do not fit in shared memory).
+// First sweep: one warp takes tile rows lr0 .. lr0 + 15 and writes each
+// row's scale and zero point from the statistic over the whole K (the same
+// values and the same min/max as quantize_rows: x * cs[k] where CS, the
+// range holding 0, so the 16-byte padding of a row past K moves nothing).
+template <typename T, bool SYM, bool CS>
+__device__ __forceinline__ void row_stats(const T* __restrict__ x,
+                                          const float* __restrict__ cs,
+                                          float* row_s, float* row_z, int m0,
+                                          int lr0, int M, int K, int ldx,
+                                          int lane) {
+  constexpr int VEC = 16 / sizeof(T);
+  constexpr int VPC = CH / VEC;
+  const int nchunk = (K + CH - 1) / CH;
+  for (int j = 0; j < 16; ++j) {
+    const int lr = lr0 + j;
+    const int row = m0 + lr;
+    const T* xr = x + static_cast<size_t>(row) * ldx;
+    float lo = 0.0f, hi = 0.0f;
+    for (int c = lane; c < nchunk; c += 32) {
+      uint4 raw[VPC];
+      load_chunk<T>(raw, xr, c, K, row < M);
+#pragma unroll
+      for (int e = 0; e < CH; ++e) {
+        float v = vq::elem<T>(raw[e / VEC], e % VEC);
+        if constexpr (CS) {
+          const int col = c * CH + e;
+          v = vq::RowQuant::balance(v, col < K ? __ldg(cs + col) : 0.0f);
+        }
+        if constexpr (SYM) {
+          hi = fmaxf(hi, fabsf(v));
+        } else {
+          lo = fminf(lo, v);
+          hi = fmaxf(hi, v);
+        }
+      }
+    }
+    hi = vq::warp_max(hi);
+    if constexpr (!SYM) lo = vq::warp_min(lo);
+    const vq::RowQuant rq =
+        SYM ? vq::RowQuant::sym(hi) : vq::RowQuant::asym(lo, hi);
+    if (lane == 0) {
+      row_s[lr] = rq.s;
+      row_z[lr] = rq.zp;
+    }
+  }
+}
+
+// Wide K, then per k-tile: one warp writes the codes of k-tile kt of tile
+// rows lr0 .. lr0 + 15 into one code slot (the layout of code_at with k
+// inside the tile), each lane chunk lane % 8 of rows lr0 + lane / 8 + 4i,
+// with the row's known scale (inv = 1 / s, the quantizer's own division);
+// codes past K and of dead rows are zero. rsum[i]: this lane's running
+// code sum of its row i.
+template <typename T, bool SYM, bool ROWSUM, bool CS>
+__device__ __forceinline__ void quantize_ktile(
+    const T* __restrict__ x, const float* __restrict__ cs, uint8_t* slot,
+    const float* row_s, const float* row_z, int m0, int lr0, int M, int K,
+    int ldx, int kt, int lane, int (&rsum)[4]) {
+  constexpr int VEC = 16 / sizeof(T);
+  constexpr int VPC = CH / VEC;
+  const int jc = lane & 7;
+  const int c = kt * (BK / CH) + jc;  // the chunk's index in the row
+#pragma unroll 1
+  for (int i = 0; i < 4; ++i) {
+    const int lr = lr0 + (lane >> 3) + 4 * i;
+    const int row = m0 + lr;
+    uint32_t w[4] = {0u, 0u, 0u, 0u};
+    if (row < M && c * CH < K) {
+      uint4 raw[VPC];
+      load_chunk<T>(raw, x + static_cast<size_t>(row) * ldx, c, K, true);
+      const float s = row_s[lr];
+      const vq::RowQuant rq{s, 1.0f / s, row_z[lr]};
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        float f[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int el = 4 * q + e;
+          f[e] = vq::elem<T>(raw[el / VEC], el % VEC);
+          if constexpr (CS) {
+            const int col = c * CH + el;
+            f[e] = vq::RowQuant::balance(f[e],
+                                         col < K ? __ldg(cs + col) : 0.0f);
+          }
+        }
+        w[q] = rq.pack4<SYM>(f);
+      }
+      const int nv = min(CH, K - c * CH);  // codes of this chunk in the row
+      if (nv < CH) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int b = nv - 4 * q;
+          w[q] &= b >= 4 ? 0xffffffffu : b <= 0 ? 0u : (1u << (8 * b)) - 1u;
+        }
+      }
+      if constexpr (ROWSUM) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) rsum[i] = vq::sum_s8x4(w[q], rsum[i]);
+      }
+    }
+    *reinterpret_cast<uint4*>(slot + code_at(lr, jc * CH)) =
+        make_uint4(w[0], w[1], w[2], w[3]);
+  }
+}
+
 // A persistent block walks the units blockIdx.x, + gridDim.x, ...; unit u
 // is M tile u / nsplit and its run u % nsplit of ceil(tiles_n / nsplit) N
 // tiles. ROWSUM: the epilogue reads the code row sums. tma_w: map_w is
-// W^T's map, else the producer warpgroup loads W^T.
-template <typename T, bool SYM, bool ROWSUM, bool CS, typename Epi>
+// W^T's map, else the producer warpgroup loads W^T. ldx: x's row stride
+// (elements, 16-byte rows). WIDE (K > MAX_KT * BK): the row statistics
+// first, then each N tile quantizes k-tile by k-tile into two code slots
+// (x is read once for the statistic and once an N tile).
+template <typename T, bool SYM, bool ROWSUM, bool CS, bool WIDE, typename Epi>
 __global__ void __launch_bounds__(THREADS, 1)
     dynq_gemm_kernel(const T* __restrict__ x, const float* __restrict__ cs,
                      const __grid_constant__ CUtensorMap map_w,
                      const int8_t* __restrict__ wt, const Epi epi, int K,
-                     int nsplit, int tma_w) {
+                     int ldx, int nsplit, int tma_w) {
   using Out = typename Epi::Out;
   using namespace vq;
   using namespace vq::i8mma;
@@ -367,7 +490,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   const int nkt = (K + BK - 1) / BK;
   uint8_t* codes = smem;
   const uint32_t codes_u = smem_u32(codes);
-  uint8_t* ring_p = codes + nkt * CODE_TILE;
+  uint8_t* ring_p = codes + (WIDE ? 2 : nkt) * CODE_TILE;
   const uint32_t ring = smem_u32(ring_p);
   uint8_t* col_base = ring_p + STAGES * STAGE_BYTES;
   float* row_s = reinterpret_cast<float*>(col_base + COL_BYTES);
@@ -451,32 +574,51 @@ __global__ void __launch_bounds__(THREADS, 1)
     for (int unit = blockIdx.x; unit < units; unit += gridDim.x) {
       const int m0 = unit / nsplit * BM;
       const int part = unit % nsplit;
-      // this warpgroup's rows of the unit's codes (its own wgmmas of the
-      // previous unit, the only readers of them, have completed)
-      quantize_rows<T, SYM, ROWSUM, CS>(x, cs, codes, row_s, row_z, row_r,
-                                        m0, 64 * wg + 16 * warp, 16, M, K,
-                                        nkt, lane);
+      // this warpgroup's rows of the unit's codes, or (WIDE) their scales
+      // and zero points (its own wgmmas of the previous unit, the only
+      // readers of them, have completed)
+      if constexpr (WIDE)
+        row_stats<T, SYM, CS>(x, cs, row_s, row_z, m0, 64 * wg + 16 * warp,
+                              M, K, ldx, lane);
+      else
+        quantize_rows<T, SYM, ROWSUM, CS>(x, cs, codes, row_s, row_z, row_r,
+                                          m0, 64 * wg + 16 * warp, 16, M, K,
+                                          ldx, nkt, lane);
       fence_proxy_async();  // the codes, visible to wgmma
       named_sync(1 + wg, 128);
       typename Epi::Row row_lo, row_hi;
-      {  // the epilogue's row parameters, read from the tile's row tables
+      // the epilogue's row parameters, read from the tile's row tables
+      // (WIDE: once an N tile, after its k loop has summed the codes)
+      const auto read_rows = [&]() {
         Epi e = epi;
         bind_rows(e, row_s, row_z, row_r);
         e.M = min(BM, M - m0);
         row_lo = e.row(lr);
         row_hi = e.row(lr + 8);
-      }
+      };
+      if constexpr (!WIDE) read_rows();
       const int tn_end = min((part + 1) * run, tiles_n);
       for (int tn = part * run; tn < tn_end; ++tn) {
         const int n0 = tn * BN;
         for (int c = tid; c < BN; c += 128) cols[c] = epi.col(n0 + c);
         int acc[R];
+        int rsum[4] = {0, 0, 0, 0};  // WIDE: this lane's rows' code sums
         bool fresh = true;  // the next wgmma overwrites acc
         int prev = -1;      // the slot whose wgmmas may still be in flight
         for (int kt = 0; kt < nkt; ++kt) {
           const int k0 = kt * BK;
+          uint32_t a = codes_u + kt * CODE_TILE + wg * 64 * BK;
+          if constexpr (WIDE) {
+            // slot kt & 1 was last read by k-tile kt - 2's wgmmas, done
+            // at the wait below of iteration kt - 1
+            quantize_ktile<T, SYM, ROWSUM, CS>(
+                x, cs, codes + (kt & 1) * CODE_TILE, row_s, row_z, m0,
+                64 * wg + 16 * warp, M, K, ldx, kt, lane, rsum);
+            fence_proxy_async();
+            named_sync(1 + wg, 128);
+            a = codes_u + (kt & 1) * CODE_TILE + wg * 64 * BK;
+          }
           mbar_wait(full(stage), phase);
-          const uint32_t a = codes_u + kt * CODE_TILE + wg * 64 * BK;
           const uint32_t b = ring + stage * STAGE_BYTES;
           wgmma_fence();
 #pragma unroll
@@ -498,13 +640,29 @@ __global__ void __launch_bounds__(THREADS, 1)
         wgmma_wait<0>();
         fence_regs(acc);
         if (leader) mbar_arrive(empty(prev));
+        (void)rsum;  // read only by the wide schedule's row sums
+        if constexpr (WIDE && ROWSUM) {
+          // the rows' code sums: lanes l, l ^ 1, .. l ^ 7 hold one row's
+          // eight chunks of every k-tile
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            int v = rsum[i];
+            v += __shfl_xor_sync(0xffffffffu, v, 1);
+            v += __shfl_xor_sync(0xffffffffu, v, 2);
+            v += __shfl_xor_sync(0xffffffffu, v, 4);
+            if ((lane & 7) == 0)
+              row_r[64 * wg + 16 * warp + (lane >> 3) + 4 * i] =
+                  static_cast<float>(v);
+          }
+        }
 
         // ---- epilogue: values from registers to the output. A quad's four
         // lanes hold columns 2*t4, 2*t4 + 1 of each 8-column block; an
         // exchange in the quad (`quad_transpose`) gives lane t4 all eight
         // columns of block nt0 + t4, stored as one contiguous run (16 bytes
         // of bf16, 32 of f32) instead of four 2-column pieces
-        named_sync(1 + wg, 128);  // cols are written
+        named_sync(1 + wg, 128);  // cols (and WIDE's row sums) are written
+        if constexpr (WIDE) read_rows();
 #pragma unroll
         for (int nt0 = 0; nt0 < BN / 8; nt0 += 4) {
           Pair<Out> p[2][4];
@@ -547,10 +705,11 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
 }
 
-template <typename T, bool SYM, bool ROWSUM, bool CS, typename Epi>
-cudaError_t launch_cs(const T* x, const float* cs, const int8_t* wt,
-                      const Epi& epi, int K, int nsplit, cudaStream_t st) {
-  auto kernel = dynq_gemm_kernel<T, SYM, ROWSUM, CS, Epi>;
+template <typename T, bool SYM, bool ROWSUM, bool CS, bool WIDE, typename Epi>
+cudaError_t launch_wide(const T* x, const float* cs, const int8_t* wt,
+                        const Epi& epi, int K, int ldx, int nsplit,
+                        cudaStream_t st) {
+  auto kernel = dynq_gemm_kernel<T, SYM, ROWSUM, CS, WIDE, Epi>;
   static cudaError_t prepared = cudaErrorNotReady;
   if (prepared == cudaErrorNotReady) {
     cudaFuncAttributes fa;
@@ -574,32 +733,49 @@ cudaError_t launch_cs(const T* x, const float* cs, const int8_t* wt,
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   const int units = (epi.M + BM - 1) / BM * nsplit;
   const int nkt = (K + BK - 1) / BK;
-  kernel<<<units < sms ? units : sms, THREADS, smem_bytes(nkt), st>>>(
-      x, cs, map_w, wt, epi, K, nsplit, tma_w);
+  kernel<<<units < sms ? units : sms, THREADS, smem_bytes(WIDE ? 2 : nkt),
+           st>>>(x, cs, map_w, wt, epi, K, ldx, nsplit, tma_w);
   return cudaGetLastError();
+}
+
+// resident codes up to MAX_KT k-tiles, else the wide schedule
+template <typename T, bool SYM, bool ROWSUM, bool CS, typename Epi>
+cudaError_t launch_cs(const T* x, const float* cs, const int8_t* wt,
+                      const Epi& epi, int K, int ldx, int nsplit,
+                      cudaStream_t st) {
+  if (K > MAX_KT * BK)
+    return launch_wide<T, SYM, ROWSUM, CS, true>(x, cs, wt, epi, K, ldx,
+                                                 nsplit, st);
+  return launch_wide<T, SYM, ROWSUM, CS, false>(x, cs, wt, epi, K, ldx,
+                                                nsplit, st);
 }
 
 // the instantiation with or without column scales (cs null: none); the
 // residual epilogue takes none
 template <typename T, bool SYM, bool ROWSUM, typename Epi>
 cudaError_t launch(const T* x, const float* cs, const int8_t* wt,
-                   const Epi& epi, int K, int nsplit, cudaStream_t st) {
+                   const Epi& epi, int K, int ldx, int nsplit,
+                   cudaStream_t st) {
   if constexpr (Epi::RES) {
     if (cs != nullptr) return cudaErrorInvalidValue;
-    return launch_cs<T, SYM, ROWSUM, false>(x, cs, wt, epi, K, nsplit, st);
+    return launch_cs<T, SYM, ROWSUM, false>(x, cs, wt, epi, K, ldx, nsplit,
+                                            st);
   } else {
     if (cs != nullptr)
-      return launch_cs<T, SYM, ROWSUM, true>(x, cs, wt, epi, K, nsplit, st);
-    return launch_cs<T, SYM, ROWSUM, false>(x, cs, wt, epi, K, nsplit, st);
+      return launch_cs<T, SYM, ROWSUM, true>(x, cs, wt, epi, K, ldx, nsplit,
+                                             st);
+    return launch_cs<T, SYM, ROWSUM, false>(x, cs, wt, epi, K, ldx, nsplit,
+                                            st);
   }
 }
 
+#ifndef VQ_K5_F32
 // the residual epilogue's launches (bf16 x and out): mode as launch_mode's
 cudaError_t launch_res(const __nv_bfloat16* x, const int8_t* wt,
                        const float* ws, const float* wzp, const float* wcs,
                        const float* b, void* out, int M, int N, int K,
-                       int mode, int nsplit, const vq::i8mma::ResGate& rg,
-                       cudaStream_t st) {
+                       int ldx, int mode, int nsplit,
+                       const vq::i8mma::ResGate& rg, cudaStream_t st) {
   using vq::i8mma::int8_gemm_epilogue;
   using vq::i8mma::ZpEpilogue;
   using T = __nv_bfloat16;
@@ -608,27 +784,29 @@ cudaError_t launch_res(const __nv_bfloat16* x, const int8_t* wt,
     return launch<T, true, false>(
         x, nullptr, wt,
         int8_gemm_epilogue<false, 0, true>{nullptr, 1, ws, b, out, M, N, rg},
-        K, nsplit, st);
+        K, ldx, nsplit, st);
   if (mode == 1)
     return launch<T, true, true>(
         x, nullptr, wt,
         ZpEpilogue<false, false, true, true>{nullptr, nullptr, nullptr, ws,
                                              wzp, wcs, b, out, M, N, kf, rg},
-        K, nsplit, st);
+        K, ldx, nsplit, st);
   return launch<T, false, true>(
       x, nullptr, wt,
       ZpEpilogue<false, false, false, true>{nullptr, nullptr, nullptr, ws, wzp,
                                             wcs, b, out, M, N, kf, rg},
-      K, nsplit, st);
+      K, ldx, nsplit, st);
 }
+
+#endif  // VQ_K5_F32
 
 // mode 0: sym acts x sym weights; 1: sym acts x asym weights; 2: asym acts
 template <typename T>
 cudaError_t launch_mode(const T* x, const float* cs, const int8_t* wt,
                         const float* ws, const float* wzp, const float* wcs,
                         const float* b,
-                        void* out, int M, int N, int K, int mode, bool f32,
-                        int nsplit, cudaStream_t st) {
+                        void* out, int M, int N, int K, int ldx, int mode,
+                        bool f32, int nsplit, cudaStream_t st) {
   using vq::i8mma::int8_gemm_epilogue;
   using vq::i8mma::ZpEpilogue;
   const float kf = static_cast<float>(K);
@@ -637,11 +815,11 @@ cudaError_t launch_mode(const T* x, const float* cs, const int8_t* wt,
       return launch<T, true, false>(
           x, cs, wt,
           int8_gemm_epilogue<false, 1>{nullptr, 1, ws, b, out, M, N}, K,
-          nsplit, st);
+          ldx, nsplit, st);
     return launch<T, true, false>(
         x, cs, wt,
         int8_gemm_epilogue<false, 0>{nullptr, 1, ws, b, out, M, N}, K,
-        nsplit, st);
+        ldx, nsplit, st);
   }
   if (mode == 1) {
     if (f32)
@@ -649,27 +827,42 @@ cudaError_t launch_mode(const T* x, const float* cs, const int8_t* wt,
                              ZpEpilogue<true, false, true>{
                                  nullptr, nullptr, nullptr, ws, wzp, wcs, b,
                                  out, M, N, kf},
-                             K, nsplit, st);
+                             K, ldx, nsplit, st);
     return launch<T, true, true>(x, cs, wt,
                            ZpEpilogue<false, false, true>{
                                nullptr, nullptr, nullptr, ws, wzp, wcs, b,
                                out, M, N, kf},
-                           K, nsplit, st);
+                           K, ldx, nsplit, st);
   }
   if (f32)
     return launch<T, false, true>(x, cs, wt,
                             ZpEpilogue<true, false, false>{
                                 nullptr, nullptr, nullptr, ws, wzp, wcs, b,
                                 out, M, N, kf},
-                            K, nsplit, st);
+                            K, ldx, nsplit, st);
   return launch<T, false, true>(x, cs, wt,
                           ZpEpilogue<false, false, false>{
                               nullptr, nullptr, nullptr, ws, wzp, wcs, b, out,
                               M, N, kf},
-                          K, nsplit, st);
+                          K, ldx, nsplit, st);
 }
 
 }  // namespace
+
+// launch_mode on f32 x: defined in parts/dynq_gemm_f32.cu
+cudaError_t vq_k5_launch_f32(const float* x, const float* cs,
+                             const int8_t* wt, const float* ws,
+                             const float* wzp, const float* wcs,
+                             const float* b, void* out, int M, int N, int K,
+                             int ldx, int mode, bool f32, int nsplit,
+                             cudaStream_t st)
+#ifdef VQ_K5_F32
+{
+  return launch_mode(x, cs, wt, ws, wzp, wcs, b, out, M, N, K, ldx, mode,
+                     f32, nsplit, st);
+}
+#else
+    ;
 
 // x [M, K] (bf16 when is_bf16, else f32), cs [K] f32 (the column scales x
 // is multiplied by before the quantize) or null, Wt [N, K] int8 (the
@@ -678,17 +871,20 @@ cudaError_t launch_mode(const T* x, const float* cs, const int8_t* wt,
 // f32_out, else bf16. sym_x: sym act codes (else asym with zero points).
 // nsplit: runs of N tiles an M tile's work is split into (>= 1). res [M, N]
 // bf16 or null: the residual epilogue, with gate [G, N] bf16 or null and
-// rows_per_gate = M / G (bf16 x and out, no cs). Takes 0 < K <= 1152,
-// 16-byte aligned rows of x and cs, and N % 16 == 0; any M.
+// rows_per_gate = M / G (bf16 x and out, no cs). ldx: x's row stride in
+// elements (>= K; the rows and cs 16-byte aligned, cs ldx long: the
+// wrapper pads x's rows past K, and cs, with zeros). Takes any K > 0 (the
+// codes resident up to 1152, the wide schedule above) and N % 16 == 0 (the
+// wrapper pads N); any M.
 VQ_EXPORT int vq_dynq_gemm(const void* x, const void* cs, const void* Wt,
                            const void* ws, const void* wzp, const void* wcs,
                            const void* bias, void* out, int M, int N, int K,
-                           int is_bf16, int sym_x, int f32_out, int nsplit,
-                           const void* res, const void* gate,
+                           int ldx, int is_bf16, int sym_x, int f32_out,
+                           int nsplit, const void* res, const void* gate,
                            int rows_per_gate, void* stream) {
-  const size_t row_bytes = static_cast<size_t>(K) * (is_bf16 ? 2 : 4);
+  const size_t row_bytes = static_cast<size_t>(ldx) * (is_bf16 ? 2 : 4);
   vq::i8mma::ResGate rg;
-  if (K <= 0 || K > MAX_KT * BK || N <= 0 || N % 16 != 0 || nsplit < 1 ||
+  if (K <= 0 || ldx < K || N <= 0 || N % 16 != 0 || nsplit < 1 ||
       (!sym_x && wcs == nullptr) || row_bytes % 16 != 0 ||
       reinterpret_cast<uintptr_t>(x) % 16 != 0 ||
       reinterpret_cast<uintptr_t>(cs) % 16 != 0 ||
@@ -703,13 +899,14 @@ VQ_EXPORT int vq_dynq_gemm(const void* x, const void* cs, const void* Wt,
   if (res != nullptr)
     return static_cast<int>(launch_res(
         static_cast<const __nv_bfloat16*>(x), w, p(ws), p(wzp), p(wcs),
-        p(bias), out, M, N, K, mode, nsplit, rg, st));
+        p(bias), out, M, N, K, ldx, mode, nsplit, rg, st));
   const cudaError_t e =
       is_bf16 ? launch_mode(static_cast<const __nv_bfloat16*>(x), p(cs), w,
-                            p(ws), p(wzp), p(wcs), p(bias), out, M, N, K,
+                            p(ws), p(wzp), p(wcs), p(bias), out, M, N, K, ldx,
                             mode, f32_out != 0, nsplit, st)
-              : launch_mode(static_cast<const float*>(x), p(cs), w, p(ws),
-                            p(wzp), p(wcs), p(bias), out, M, N, K, mode,
-                            f32_out != 0, nsplit, st);
+              : vq_k5_launch_f32(static_cast<const float*>(x), p(cs), w,
+                                 p(ws), p(wzp), p(wcs), p(bias), out, M, N,
+                                 K, ldx, mode, f32_out != 0, nsplit, st);
   return static_cast<int>(e);
 }
+#endif  // VQ_K5_F32

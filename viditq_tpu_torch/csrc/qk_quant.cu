@@ -18,13 +18,16 @@
 // 16-byte loads of neighbouring threads on neighbouring addresses, each
 // thread then quantizes its own row in place (the absmax over bf16 pairs,
 // exact) and the block stores the rows back the same way. The staging,
-// 18 KB a block at D = 72, leaves room for 12 blocks an SM.
+// 18 KB a block at D = 72, leaves room for 12 blocks an SM; heads above
+// 192 take blocks of 32 rows.
 #include "common.cuh"
 
 namespace {
 
-constexpr int ROWS = 128;   // rows (threads) a block
-constexpr int MAX_D = 192;  // ROWS * D * 2 bytes of staging: at most 48 KB
+constexpr int ROWS = 128;   // rows (threads) a block up to NARROW_D
+constexpr int NARROW_D = 192;  // ROWS * D * 2 bytes of staging: <= 48 KB
+constexpr int WIDE_ROWS = 32;  // rows a block above it (128 KB at D = 2048)
+constexpr int MAX_D = 2048;    // H * D <= 2048, the attention's own gate
 
 __device__ __forceinline__ uint32_t pair_word(float a, float b) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(a, b);
@@ -37,17 +40,18 @@ __global__ void __launch_bounds__(ROWS)
                     __nv_bfloat16* __restrict__ qo,
                     __nv_bfloat16* __restrict__ ko, int rows_q, int rows_k,
                     int D, int blocks_q) {
-  extern __shared__ uint4 stage[];  // ROWS rows of D / 8 chunks
+  extern __shared__ uint4 stage[];  // R rows of D / 8 chunks
+  const int R = blockDim.x;         // rows a block, one a thread
   const bool is_q = static_cast<int>(blockIdx.x) < blocks_q;
   const int blk = is_q ? blockIdx.x : blockIdx.x - blocks_q;
   const int rows = is_q ? rows_q : rows_k;
   const uint4* src = reinterpret_cast<const uint4*>(is_q ? q : k);
   uint4* dst = reinterpret_cast<uint4*>(is_q ? qo : ko);
   const int cpr = D / 8;  // 16-byte chunks a row
-  const int row0 = blk * ROWS;
-  const int n = min(ROWS, rows - row0);
+  const int row0 = blk * R;
+  const int n = min(R, rows - row0);
   const size_t base = static_cast<size_t>(row0) * cpr;
-  for (int j = threadIdx.x; j < n * cpr; j += ROWS) stage[j] = src[base + j];
+  for (int j = threadIdx.x; j < n * cpr; j += R) stage[j] = src[base + j];
   __syncthreads();
   if (static_cast<int>(threadIdx.x) < n) {
     uint4* row = stage + threadIdx.x * cpr;
@@ -77,14 +81,15 @@ __global__ void __launch_bounds__(ROWS)
     }
   }
   __syncthreads();
-  for (int j = threadIdx.x; j < n * cpr; j += ROWS) dst[base + j] = stage[j];
+  for (int j = threadIdx.x; j < n * cpr; j += R) dst[base + j] = stage[j];
 }
 
 }  // namespace
 
 // q [rows_q, D], k [rows_k, D] bf16 -> qo, ko (same shapes) bf16: the
-// headwise quantize-dequantize of every row. D % 8 == 0, D <= 192; every
-// pointer 16-byte aligned.
+// headwise quantize-dequantize of every row. D % 8 == 0 (the wrapper pads
+// other D with zeros, which move no row's absmax), D <= 2048; every
+// pointer 16-byte aligned. Blocks of 128 rows up to D = 192, of 32 above.
 VQ_EXPORT int vq_qk_headwise_quant(const void* q, const void* k, void* qo,
                                    void* ko, int rows_q, int rows_k, int D,
                                    void* stream) {
@@ -94,11 +99,17 @@ VQ_EXPORT int vq_qk_headwise_quant(const void* q, const void* k, void* qo,
   if (D <= 0 || D % 8 != 0 || D > MAX_D || rows_q < 0 || rows_k < 0 ||
       !aligned(q) || !aligned(k) || !aligned(qo) || !aligned(ko))
     return cudaErrorInvalidValue;
-  const int blocks_q = (rows_q + ROWS - 1) / ROWS;
-  const int blocks = blocks_q + (rows_k + ROWS - 1) / ROWS;
+  const int R = D <= NARROW_D ? ROWS : WIDE_ROWS;
+  const int smem = R * D * 2;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        qk_quant_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const int blocks_q = (rows_q + R - 1) / R;
+  const int blocks = blocks_q + (rows_k + R - 1) / R;
   if (blocks == 0) return 0;
-  qk_quant_kernel<<<blocks, ROWS, ROWS * D * 2,
-                    static_cast<cudaStream_t>(stream)>>>(
+  qk_quant_kernel<<<blocks, R, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<__nv_bfloat16*>(qo), static_cast<__nv_bfloat16*>(ko), rows_q,

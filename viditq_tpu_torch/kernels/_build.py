@@ -42,7 +42,7 @@ SIGNATURES = {
                         _I, _P, _P, _I, _P],
     "vq_group_quant": [_P, _P, _P, _P, _I, _I, _I, _P],
     "vq_dynq_gemm": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                     _I, _P, _P, _I, _P],
+                     _I, _I, _P, _P, _I, _P],
     "vq_qk_headwise_quant": [_P, _P, _P, _P, _I, _I, _I, _P],
     "vq_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
                      _I, _P],
@@ -67,7 +67,11 @@ SIGNATURES = {
 
 
 def sources():
-    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+    """Every source of the library: csrc's, and csrc/parts' translation
+    units, which instantiate a csrc source's kernels apart so that the
+    build compiles them in parallel (each includes that source)."""
+    return (sorted(CSRC.glob("*.cu")) + sorted((CSRC / "parts").glob("*.cu"))
+            + sorted(CSRC.glob("*.cuh")))
 
 
 def _nvcc() -> str:

@@ -74,16 +74,24 @@ from viditq_tpu_torch.kernels.fused_matmul import (balance_cols,
                                                    quantize_rows_f32)
 
 LOG2E = float(math.log2(math.e))
-KERNEL_HEAD_DIMS = (16, 72)  # instantiations in csrc/attention*.cu
-QK_MAX_D = 192  # K8's widest head (csrc/qk_quant.cu: 48 KB of staging)
+# head dims instantiated in csrc/attention*.cu, attn_core.cuh and
+# attn_f32_core.cuh; a CUDA call at any other D up to the widest is padded
+# with zero channels to the next of them (`_padded_heads`)
+KERNEL_HEAD_DIMS = (16, 32, 64, 72, 128)
+# JAX's gate of its attention kernels (attention.py:834): H * D * 2 bytes
+# <= 4096, so H * D <= MAX_HD
+MAX_HD = 2048
+QK_MAX_D = MAX_HD  # K8's widest head (csrc/qk_quant.cu)
 # seg mode's tiled kernel (csrc/attention.cu attn_seg_tiled): a block
 # holds SEG_TILE rows of all heads (H/2 warps), so seg_len must divide
-# SEG_TILE and H be even, at most SEG_MAX_HEADS; its v-quantize pass holds a
-# v group in shared memory (at most SEG_MAX_V_BLOCK rows). Other shapes run
-# the row kernel (attn_seg_rows).
+# SEG_TILE and H be even, at most SEG_MAX_HEADS, at a head dim of
+# SEG_TILED_HEAD_DIMS; its v-quantize pass holds a v group in shared memory
+# (at most SEG_MAX_V_BLOCK rows). Other shapes run the row kernel
+# (attn_seg_rows).
 SEG_TILE = 16
 SEG_MAX_HEADS = 32
 SEG_MAX_V_BLOCK = 1024
+SEG_TILED_HEAD_DIMS = (16, 32, 64, 72)
 # full/masked attention over more kv rows than this streams them (K6)
 ONESHOT_MAX_M = 2048
 KV_TILE = 64  # kv rows per tile of csrc/attn_core.cuh
@@ -95,12 +103,42 @@ KV_PERM = tuple((k // 16) * 16 + (k % 4 // 2) * 8 + (k % 16 // 4) * 2
 
 
 def seg_tiled(heads: int, seg_len: int, int8_pv: bool,
-              v_block: Optional[int]) -> bool:
+              v_block: Optional[int], head_dim: int) -> bool:
     """Whether seg mode runs the tiled kernel on the card (else the row
     kernel): a shape rule, the same for every input."""
     return (SEG_TILE % seg_len == 0 and heads % 2 == 0
-            and heads <= SEG_MAX_HEADS
+            and heads <= SEG_MAX_HEADS and head_dim in SEG_TILED_HEAD_DIMS
             and (not int8_pv or v_block <= SEG_MAX_V_BLOCK))
+
+
+def _padded_heads(fn, q, k, v, col_scale=None, emit=False, emit_sym=True):
+    """fn (an attention dispatch taking q, k, v and col_scale) at the next
+    instantiated head dim (KERNEL_HEAD_DIMS): q, k and v padded with zero
+    channels per head, the column scales with zeros. The padded channels'
+    outputs are exactly 0, so they move no softmax, no v scale (each
+    channel its own) and no row statistic (the sym absmax and the asym
+    range both hold 0); sym codes there are 0 and asym ones the zero
+    point, which the row sum loses again (H * pad * zp, exact integers in
+    f32). The output, or the emitted codes, are sliced back to D. Raises
+    above JAX's gate (H * D > MAX_HD) and above the widest instantiation."""
+    B, N, H, D = q.shape
+    require(H * D <= MAX_HD, f"H * D = {H * D} above {MAX_HD}, JAX's gate")
+    require(D <= KERNEL_HEAD_DIMS[-1], f"head dim {D}: the CUDA attention "
+            f"kernels take D <= {KERNEL_HEAD_DIMS[-1]}")
+    Dp = next(w for w in KERNEL_HEAD_DIMS if w >= D)
+
+    def pad(t):
+        return torch.nn.functional.pad(t, (0, Dp - D))
+    cs = (None if col_scale is None
+          else pad(col_scale.reshape(H, D).float()).reshape(H * Dp))
+    out = fn(pad(q), pad(k), pad(v), cs)
+    if not emit:
+        return out[..., :D].contiguous()
+    codes, scales, zp, rowsum = out
+    codes = codes.reshape(B, N, H, Dp)[..., :D].reshape(B, N, H * D)
+    if rowsum is not None and not emit_sym:
+        rowsum = rowsum - float(H * (Dp - D)) * zp
+    return codes, scales, zp, rowsum
 
 
 def stream_kv_block(n: int, m: int, c: int, v_int8_in: bool = False) -> int:
@@ -159,14 +197,20 @@ def qk_headwise_quant(q: torch.Tensor, k: torch.Tensor):
     """K8: the attention's int8 q/k quantizers, q [B, N, H, D] and k
     [B, M, H, D] -> (q, k) quantize-dequantized per (token, head) in their
     own dtype (`headwise_fake_quant`). On the card one launch of
-    csrc/qk_quant.cu takes both (bf16, D % 8 == 0, D <= QK_MAX_D)."""
+    csrc/qk_quant.cu takes both (bf16, D <= QK_MAX_D; D % 8 != 0 padded
+    with zero channels)."""
     if not on_cuda(q, k):
         return qk_headwise_quant_plain(q, k)
     D = q.shape[-1]
     require(q.dtype == k.dtype == torch.bfloat16,
             "the CUDA q/k quantizer takes bfloat16 q and k")
-    require(k.shape[-1] == D and D % 8 == 0 and D <= QK_MAX_D,
-            f"head dim {D}: K8 takes D % 8 == 0 and D <= {QK_MAX_D}")
+    require(k.shape[-1] == D and D <= QK_MAX_D,
+            f"head dim {D}: K8 takes D <= {QK_MAX_D}")
+    if D % 8:  # zero channels: no row's absmax moves; sliced off again
+        pad = -D % 8
+        qo, ko = qk_headwise_quant(torch.nn.functional.pad(q, (0, pad)),
+                                   torch.nn.functional.pad(k, (0, pad)))
+        return qo[..., :D].contiguous(), ko[..., :D].contiguous()
     q1, k1 = _aligned(q), _aligned(k)
     qo, ko = torch.empty_like(q1), torch.empty_like(k1)
     _build.check(_build.lib().vq_qk_headwise_quant(
@@ -448,12 +492,17 @@ def attention_bnhd_stream(q, k, v, scale: float,
     M = k.shape[1]
     C = H * D
     cuda = on_cuda(q, k, v, kv_mask)
+    if bkv is None and not (cuda and q.dtype == torch.float32):
+        bkv = stream_kv_block(N, M, C, v_int8_in=int8_pv)
+    if cuda and D not in KERNEL_HEAD_DIMS:  # at the true D's kv block
+        return _padded_heads(
+            lambda q_, k_, v_, cs_: attention_bnhd_stream(
+                q_, k_, v_, scale, kv_mask, int8_pv, emit, bkv, emit_sym,
+                need_rowsum, cs_), q, k, v, col_scale, emit, emit_sym)
     if cuda and q.dtype == torch.float32:
         require(not (int8_pv or emit),
                 "K6's float32 mode takes the float PV and no emission")
         return _attention_stream_f32_cuda(q, k, v, scale, kv_mask)
-    if bkv is None:
-        bkv = stream_kv_block(N, M, C, v_int8_in=int8_pv)
     if not cuda:
         out = attention_bnhd_stream_plain(q, k, v, scale, bkv, kv_mask,
                                           int8_pv)
@@ -612,6 +661,12 @@ def _attention_bnhd(q, k, v, scale, seg_len=0, kv_mask=None, int8_pv=False,
         return attention_bnhd_plain(q, k, v, scale, seg_len, kv_mask,
                                     int8_pv, v_block, emit, emit_sym,
                                     need_rowsum, col_scale)
+    if D not in KERNEL_HEAD_DIMS:
+        return _padded_heads(
+            lambda q_, k_, v_, cs_: _attention_bnhd(
+                q_, k_, v_, scale, seg_len, kv_mask, int8_pv, v_block, emit,
+                False, emit_sym, need_rowsum, cs_), q, k, v, col_scale, emit,
+            emit_sym)
     if q.dtype == torch.float32:
         require(not (int8_pv or emit),
                 "K3's float32 mode takes the float PV and no emission")
@@ -721,7 +776,7 @@ def _attention_seg_cuda(q3, k3, v3, H, scale2, seg_len, int8_pv, v_block,
     D = C // H
     lib = _build.lib()
     stream = _build.stream_ptr(q3)
-    tiled = seg_tiled(H, seg_len, int8_pv, v_block)
+    tiled = seg_tiled(H, seg_len, int8_pv, v_block, D)
     vs, v_arg = None, v3
     vgroup, n_vgroups = N, 1
     if int8_pv:

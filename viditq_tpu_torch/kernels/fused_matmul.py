@@ -514,8 +514,21 @@ def group_quant(y: torch.Tensor, bn: int, col_scale=None):
 # ---------------------------------------------------------------------------
 
 # the kernel's tiles (csrc/dynq_gemm.cu BM, BN) and the widest K whose codes
-# of one M tile stay resident in shared memory (MAX_KT k-tiles of 128)
+# of one M tile stay resident in shared memory (MAX_KT k-tiles of 128);
+# wider K runs the kernel's wide schedule
 K5_BM, K5_BN, K5_MAX_K = 128, 192, 1152
+
+
+def k5_padded(n: int, mult: int) -> int:
+    """n rounded up to a multiple of mult (K5's padded N and row stride)."""
+    return -(-n // mult) * mult
+
+
+def _pad_cols(t: Optional[torch.Tensor], n: int):
+    """t [.., m] zero-padded to [.., n] (K5's padded N or row stride)."""
+    if t is None or t.shape[-1] == n:
+        return t
+    return torch.nn.functional.pad(t, (0, n - t.shape[-1]))
 
 
 def k5_split(m: int, n: int, sms: int) -> int:
@@ -570,13 +583,15 @@ def fused_dynq_int8_matmul(x: torch.Tensor, w_q: torch.Tensor,
     (`has_csc`, `:167-168`). residual [M, N] (and gate [G, N]): the
     residual (+ gate) epilogue after the bias, as K2's (`:192-205`).
 
-    On the card: one launch of csrc/dynq_gemm.cu (x bf16 or f32 in
-    16-byte aligned rows, w_q K-major, N % 16 == 0), whose output equals
-    `quantize_rows` then `int8_consumer_matmul` bit for bit; K above
-    `K5_MAX_K` (1152) is refused with ValueError (the M tile's codes would
-    not fit in shared memory), as is any other shape it does not take;
-    with a residual it takes bf16 x, residual, gate and output and no
-    column scale."""
+    On the card: one launch of csrc/dynq_gemm.cu (x bf16 or f32, w_q
+    K-major), whose output equals `quantize_rows` then
+    `int8_consumer_matmul` bit for bit, at any K and N as JAX's K5 takes
+    them: above `K5_MAX_K` (1152) the kernel's wide schedule; rows of x
+    that are not 16 bytes (or not 16-byte aligned) are copied into padded
+    rows, and N % 16 != 0 is padded with zero weight columns, the padding
+    kept out of every row statistic and sliced off the output. With a
+    residual it takes bf16 x, residual, gate and output and no column
+    scale."""
     require(sym_w or w_zp is not None, "asym weights need w_zp")
     w_zp = None if sym_w else w_zp
     if not on_cuda(x, w_q, w_scale, bias, w_zp, w_colsum, col_scale,
@@ -595,29 +610,41 @@ def fused_dynq_int8_matmul(x: torch.Tensor, w_q: torch.Tensor,
     require(w_q.dtype == torch.int8, "w_q must be int8")
     require_k_major(w_q)
     bf16 = is_bf16(x)
-    require(0 < K <= K5_MAX_K,
-            f"K5's kernel takes 0 < K <= {K5_MAX_K} (K={K}): the M tile's "
-            f"codes stay in shared memory")
-    require(N % 16 == 0, f"K5's kernel needs N % 16 == 0 (N={N})")
-    require(K * x.element_size() % 16 == 0 and x.data_ptr() % 16 == 0,
-            "K5's kernel reads x in 16-byte aligned rows")
+    require(K > 0 and N > 0, f"K5 needs K, N > 0 (K={K}, N={N})")
     cols = [None if t is None else f32_flat(t)
             for t in (w_scale, w_zp, w_colsum, bias)]
     for name, t in zip(("w_scale", "w_zp", "w_colsum", "bias"), cols):
         require(t is None or t.numel() == N, f"{name} must have {N} elements")
     cs = col_scale_arg(col_scale, K)
     _check_residual(M, N, residual, gate)
-    rg = _res_gate_args(M, N, out_dtype, residual, gate)
     require(residual is None or (bf16 and cs is None),
             "K5's residual epilogue takes bf16 x and no column scale")
+    # x's rows 16 bytes long and aligned (the padding zero, past K);
+    # N a multiple of 16 (zero weight columns, sliced off the output)
+    ldx = k5_padded(K, 16 // x.element_size())
+    if ldx != K or x.data_ptr() % 16:
+        x = _pad_cols(x, ldx).contiguous()
+        if x.data_ptr() % 16:
+            x = x.clone()
+    cs = _pad_cols(cs, ldx)
+    Np = k5_padded(N, 16)
+    if Np != N:
+        wt = w_q.new_zeros((Np, K))
+        wt[:N] = w_q.t()
+        w_q = wt.t()
+        cols = [_pad_cols(t, Np) for t in cols]
+        if residual is not None:
+            residual = _pad_cols(residual.reshape(M, N), Np)
+        gate = _pad_cols(gate, Np)
+    rg = _res_gate_args(M, Np, out_dtype, residual, gate)
     lib = _build.lib()
-    out = torch.empty((M, N), dtype=out_dtype, device=x.device)
+    out = torch.empty((M, Np), dtype=out_dtype, device=x.device)
     _build.check(lib.vq_dynq_gemm(
         x.data_ptr(), _out_ptr(cs), w_q.data_ptr(),
         *(_out_ptr(t) for t in cols),
-        out.data_ptr(), M, N, K, bf16, int(sym),
+        out.data_ptr(), M, Np, K, ldx, bf16, int(sym),
         int(out_dtype == torch.float32),
-        k5_split(M, N, _sm_count(x.get_device())), _out_ptr(rg[0]),
+        k5_split(M, Np, _sm_count(x.get_device())), _out_ptr(rg[0]),
         _out_ptr(rg[1]), rg[2], _build.stream_ptr(x)), "vq_dynq_gemm")
     COUNTERS["fused_dynq_int8_matmul"].launches += 1
-    return out
+    return out if Np == N else out[:, :N].contiguous()

@@ -7,11 +7,13 @@ resolves, plus a plain `QuantPlanConfig` whose `resolver()` maps dotted
 layer names to specs (with the plan's per-group `backend_overrides`, the
 hybrid plans), and the timestep-wise mixed-precision bitwidth YAMLs
 (`load_bitwidth_config`). The reconstruction sections
-(`quant.{weight,activation}.optimization`) are parsed as data only: the
-PTQ flow refuses a plan that asks for reconstruction
-(`pipelines/ptq.check_no_reconstruction`). `resume_with_w_quantized`
-names a quant checkpoint whose weight tables PTQ reuses
-(`pipelines/ptq.resume_w_quantized`).
+(`quant.{weight,activation}.optimization`) are parsed into the plan's
+`weight_opt` / `act_opt` (`OptimizationConfig`); a plan that asks for
+reconstruction (`quant/reconstruction.wants_reconstruction`) gets
+AdaRound block or layer reconstruction after `run_ptq` in the `ptq`
+command (`quant/reconstruction.py`).
+`resume_with_w_quantized` names a quant checkpoint whose weight tables
+PTQ reuses (`pipelines/ptq.resume_w_quantized`).
 """
 
 from __future__ import annotations
