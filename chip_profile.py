@@ -28,7 +28,9 @@ cb, its W4A8 plan with CB, calibrated at t = 500, and naive, its
 four-range MP, the union model at t = 500), DiT's bf16 and sm8, MMDiT's
 bf16 and w4a8 (`configs/mmdit/w4a8_tpu_fused.yaml`); STDiT's
 w4a8_fused (`w4a8_tpu_fused.yaml`) and hybrid_sym, DiT-L/2's bf16 and sm8
-(slice `dit_l`), and the simulate-backend plan slices at
+(slice `dit_l`), the wide-head slices' bf16 and sm8 (`stdit_h6`:
+STDiT-XL/2 in 6 heads of 192; `dit_l_h4`: DiT-L/2 in 4 heads of 256), and
+the simulate-backend plan slices at
 `chip_smoke.PLAN_DEPTH` blocks (`stdit_plans`, the reference arms above
 among them; `alpha`, PixArt-alpha 512; `sigma_plans`), which run only
 when `--slices` names them; `--arms a,b` keeps the arms named (an arm
@@ -610,7 +612,9 @@ def main() -> int:
     _build.lib()
     slices = (("stdit", cs.STDIT_CFG, 120), ("sigma", cs.SIGMA_CFG, 300),
               ("latte", cs.LATTE_CFG, 1), ("dit", cs.DIT_CFG, None),
-              ("dit_l", cs.DIT_L_CFG, None), ("mmdit", cs.MMDIT_CFG, 77))
+              ("dit_l", cs.DIT_L_CFG, None), ("mmdit", cs.MMDIT_CFG, 77),
+              ("stdit_h6", cs.STDIT_H6_CFG, 120),
+              ("dit_l_h4", cs.DIT_L_H4_CFG, None))
     plan_slices = (("stdit_plans", cs.plan_cfg(cs.STDIT_CFG), 120),
                    ("alpha", cs.plan_cfg(cs.ALPHA_CFG), 120),
                    ("sigma_plans", cs.plan_cfg(cs.SIGMA_CFG), 300))

@@ -342,7 +342,8 @@ SIGMA_CB_ALPHA = 0.3
 # the CB statistic forwards of each slice: Σ's at t = 500
 # (bench_configs.py:408-425)
 STAT_T = {"stdit": CB_STAT_T, "sigma": (500,), "latte": CB_STAT_T,
-          "dit": (), "dit_l": (), "mmdit": (),
+          "dit": (), "dit_l": (), "mmdit": (), "stdit_h6": (),
+          "dit_l_h4": (),
           "stdit_plans": CB_STAT_T, "alpha": (500,), "sigma_plans": (500,)}
 # ViDiT-Q's reference plans as written (no `backend:` key: the simulate
 # backend, fake quant as the reference runs it): W8A8 and W6A6 with asym
@@ -425,6 +426,10 @@ DIT_CFG = {**LATTE_CFG, "model": dict(type="DiT-XL/2",
 DIT_L_CFG = {**LATTE_CFG, "model": dict(
     type="DiT", depth=24, hidden_size=1024, patch_size=(1, 2, 2),
     num_heads=16, condition=f"label_{DIT_CLASSES}")}
+# heads wider than 128 inside a real model: no public model of the repo's
+# families has them, so DiT-L/2 with its head split changed and nothing
+# else (4 heads of 256; the weight shapes are DiT-L/2's): K6 at D = 256
+DIT_L_H4_CFG = {**DIT_L_CFG, "model": dict(DIT_L_CFG["model"], num_heads=4)}
 # PixArt-alpha 512 as `configs/workload/pixart_alpha_512.py` builds it (1024
 # tokens, 120 caption tokens of 4096, 20-step DPM-Solver++ at CFG 4.5)
 ALPHA_CFG = {"model": dict(type="PixArt-XL/2", caption_channels=4096,
@@ -813,6 +818,11 @@ SLICE_KERNELS = {
     # DiT-L/2: the same kernels at head dim 64 (K6), K = 1024 / 4096
     "dit_l": {"bf16": ("attention_bnhd_stream",),
               "sm8": DIT_BLOCK_KERNELS + ("attention_bnhd_stream",)},
+    # the wide heads: STDiT-XL/2 in 6 heads of 192 (K3 full, seg on the
+    # tiled kernel, masked), DiT-L/2 in 4 heads of 256 (K6)
+    "stdit_h6": {"bf16": ("attention_bnhd",), "sm8": FUSED_KERNELS},
+    "dit_l_h4": {"bf16": ("attention_bnhd_stream",),
+                 "sm8": DIT_BLOCK_KERNELS + ("attention_bnhd_stream",)},
     # MMDiT's joint attention is `sdpa` (PyTorch's fused attention) and its
     # text stream fp: no port kernel in bf16; under W4A8 the image stream's
     # K1 -> K2 (q/k/v), K5 (proj), K1 -> K2 emission -> K2 (the MLP)
@@ -961,6 +971,9 @@ BLOCK_LAUNCHES = {**{("stdit_plans", a): SIM_BLOCK
                   ("latte", "cb_mp"): LATTE_BLOCK,
                   ("dit", "sm8"): DIT_SM8_BLOCK,
                   ("dit_l", "sm8"): DIT_SM8_BLOCK,
+                  # the wide heads: the same launches as 16 heads
+                  ("stdit_h6", "sm8"): SM8_BLOCK,
+                  ("dit_l_h4", "sm8"): DIT_SM8_BLOCK,
                   # the image stream: K1 twice, K2 at q/k/v, fc1 (emission)
                   # and fc2, K5 at the proj
                   ("mmdit", "w4a8"): {"ln_modulate_quantize": 2,
@@ -1522,6 +1535,7 @@ def phase_kernels(records):
     k5_wide_cases(records)
     head_dim_cases(records)
     dit_l_cases(records)
+    wide_path_cases(records)
     backbone_cases(records)
     int8_pv_draws()
 
@@ -2298,44 +2312,55 @@ def backbone_cases(records):
                      {}), b2b=True)
 
 
-# head dims K3, K6, K8 and the float32 modes take beside 16 and 72 (DiT-L/2's 64; 32 and 128 instantiated; 40 padded to 64 by the
-# wrappers), each at 16 heads (H * D <= 2048, JAX's gate)
-HEAD_DIM_CASES = (32, 40, 64, 128)
+# head dims K3, K6, K8 and the float32 modes take beside 16 and 72, as
+# (D, H) at H * D <= 2048 (JAX's gate): DiT-L/2's 64, 32 and 128 at 16
+# heads; the wide instantiations 192 at 6 heads and 256 at 8; 40, 136 and
+# 200 padded to 64, 192 and 256 by the wrappers
+HEAD_DIM_CASES = ((32, 16), (40, 16), (64, 16), (128, 16), (192, 6),
+                  (256, 8), (136, 6), (200, 8))
 
 
 def head_dim_cases(records):
     """K3 full (bf16 PV beside SDPA, int8 PV, the asym emission with the
-    proj's 1/cs and row sums), K3 seg 16 (bf16 and int8 PV, the asym
-    emission), K6 (bf16 beside SDPA, int8 PV), K8 (identical) and the
-    float32 modes (K3 full and seg, K6, to F32_REL_ERR) at each head dim
-    of HEAD_DIM_CASES, 16 heads, against their plain versions at the true
-    D: D = 40 runs the wrappers' zero-channel padding to 64, which every
-    row statistic and row sum must not see."""
+    proj's 1/cs and row sums), K3 masked (the cross site: kv 120 with a
+    padded prompt, int8 PV and the sym emission), K3 seg 16 on the tiled
+    kernel (bf16 and int8 PV, the asym emission, the int8-PV sym emission
+    within `int8_pv_slack`) and seg 32 on the row kernel (bf16, the asym
+    emission with row sums, the int8-PV sym emission), K6 (bf16 beside
+    SDPA, int8 PV, the emission through K4), K8 (identical) and the
+    float32 modes (K3 full, masked and seg, K6, to F32_REL_ERR) at each
+    (D, H) of HEAD_DIM_CASES, against their plain versions at the true D:
+    a D the kernels do not instantiate runs the wrappers' zero-channel
+    padding, which every row statistic and row sum must not see."""
     import torch
     import torch.nn.functional as F
     from viditq_tpu_torch.kernels import attention as A
+    from viditq_tpu_torch.kernels import fused_matmul as FM
     g = torch.Generator(device="cuda").manual_seed(23)
-    H, B = 16, 2
+    B = 2
     print("phase kernels: head dims "
-          f"{', '.join(map(str, HEAD_DIM_CASES))} (K3, K6, K8, float32)",
-          flush=True)
+          f"{', '.join(f'{d} x {h}' for d, h in HEAD_DIM_CASES)} (K3, K6, "
+          "K8, float32)", flush=True)
 
     def randn(*shape, dtype=torch.bfloat16):
         return torch.randn(shape, generator=g, device="cuda").to(dtype)
 
-    def sdpa(q, k, v, sc):
+    def sdpa(q, k, v, sc, m=None):
         qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-        return lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=sc)
+        am = None if m is None else (m != 0)[:, None, None, :]
+        return lambda: F.scaled_dot_product_attention(qh, kh, vh,
+                                                      attn_mask=am, scale=sc)
 
-    for D in HEAD_DIM_CASES:
+    for D, H in HEAD_DIM_CASES:
         C, sc = H * D, D ** -0.5
-        tag = f"D={D}{' (padded to 64)' if D not in A.KERNEL_HEAD_DIMS else ''}"
+        Dp = next(w for w in A.KERNEL_HEAD_DIMS if w >= D)
+        tag = f"D={D}{f' (padded to {Dp})' if Dp != D else ''}"
         ics = cb_col_scales(g, C)
         # K3 full, N = M = 1024
         N = 1024
         q, k, v = randn(B, N, H, D), randn(B, N, H, D), randn(B, N, H, D)
         full = attn_bound(B, N, H, D, [N] * B, False, False, N)
-        check_case("attention_bnhd", f"{tag} full [2,{N},16,{D}] bf16",
+        check_case("attention_bnhd", f"{tag} full [2,{N},{H},{D}] bf16",
                    lambda: A.attention_bnhd(q, k, v, sc),
                    lambda: A.attention_bnhd_plain(q, k, v, sc), records,
                    cost=full, library_fn=sdpa(q, k, v, sc),
@@ -2354,23 +2379,49 @@ def head_dim_cases(records):
                    records, cost=(nbytes + 8 * B * N + 4 * C, ops),
                    asym=ASYM_TOL["attn"])
         qd, kd = A.qk_headwise_quant(q, k)
-        check_case("qk_headwise_quant", f"{tag} q, k [2,{N},16,{D}]",
+        check_case("qk_headwise_quant", f"{tag} q, k [2,{N},{H},{D}]",
                    lambda: A.qk_headwise_quant(q, k),
                    lambda: A.qk_headwise_quant_plain(q, k), records,
                    cost=(4 * 2 * B * N * C, {}), exact=True)
         del qd, kd
-        # K3 seg 16 (the temporal site's segments), N = 2048
+        # K3 masked: the cross site, 1024 queries over a prompt of 120
+        # (the second one padded from 100), int8 PV and the sym emission
+        P = 120
+        kc, vc = randn(B, P, H, D), randn(B, P, H, D)
+        pm = torch.ones((B, P), dtype=torch.int32, device="cuda")
+        pm[1, 100:] = 0
+        kw = dict(kv_mask=pm, int8_pv=True, emit=True)
+        nbytes, ops = attn_bound(B, N, H, D, [P, 100], True, True, P)
+        check_case("attention_bnhd", f"{tag} masked kv {P} int8 PV emit",
+                   lambda: A.attention_bnhd(q, kc, vc, sc, **kw),
+                   lambda: A.attention_bnhd_plain(q, kc, vc, sc, **kw),
+                   records, cost=(nbytes + 4 * B * P, ops),
+                   slack_fn=lambda want: int8_pv_slack(
+                       q, kc, vc, sc, 0, pm, None, want[1]))
+        check_case("attention_bnhd", f"{tag} masked kv {P} bf16",
+                   lambda: A.attention_bnhd(q, kc, vc, sc, kv_mask=pm),
+                   lambda: A.attention_bnhd_plain(q, kc, vc, sc,
+                                                  kv_mask=pm), records,
+                   cost=attn_bound(B, N, H, D, [P, 100], False, False, P),
+                   library_fn=sdpa(q, kc, vc, sc, pm),
+                   library_note=" (scaled_dot_product_attention)")
+        # K3 seg 16 (the temporal site's segments), N = 2048: the tiled
+        # kernel where `seg_tiled` takes the shape
         N = 2048
         q, k, v = randn(B, N, H, D), randn(B, N, H, D), randn(B, N, H, D)
         seg = attn_bound(B, N, H, D, [16] * B, False, False, N)
+        vb16 = A.seg_v_block(N, 16)
+        kern = ("tiled" if A.seg_tiled(H, 16, True, vb16, Dp)
+                else "row kernel")
         for label, kw in (("bf16", {}), ("int8 PV", dict(
-                int8_pv=True, v_block=A.seg_v_block(N, 16)))):
-            check_case("attention_bnhd", f"{tag} seg 16 [2,{N},16,{D}] "
-                       f"{label}",
+                int8_pv=True, v_block=vb16))):
+            check_case("attention_bnhd", f"{tag} seg 16 [2,{N},{H},{D}] "
+                       f"{label} ({kern})",
                        lambda kw=kw: A.attention_bnhd(q, k, v, sc, seg_len=16,
                                                       **kw),
                        lambda kw=kw: A.attention_bnhd_plain(
-                           q, k, v, sc, seg_len=16, **kw), records, cost=seg)
+                           q, k, v, sc, seg_len=16, **kw), records, cost=seg,
+                       b2b=not kw)
         kw = dict(emit=True, emit_sym=False, need_rowsum=True)
         check_case("attention_bnhd", f"{tag} seg 16 asym emit rowsum",
                    lambda: A.attention_bnhd(q, k, v, sc, seg_len=16, **kw),
@@ -2378,12 +2429,49 @@ def head_dim_cases(records):
                                                   **kw),
                    records, cost=(seg[0] + 8 * B * N, seg[1]),
                    asym=ASYM_TOL["attn"])
+        kw = dict(int8_pv=True, v_block=vb16, emit=True)
+        check_case("attention_bnhd", f"{tag} seg 16 int8 PV emit",
+                   lambda: A.attention_bnhd(q, k, v, sc, seg_len=16, **kw),
+                   lambda: A.attention_bnhd_plain(q, k, v, sc, seg_len=16,
+                                                  **kw),
+                   records,
+                   cost=attn_bound(B, N, H, D, [16] * B, True, True, N),
+                   slack_fn=lambda want: int8_pv_slack(
+                       q, k, v, sc, 16, None, vb16, want[1]))
+        # seg 32: the row kernel (the tiled one takes segs dividing 16):
+        # bf16 PV, its asym emission with row sums (two launches), and the
+        # int8 PV's sym emission within `int8_pv_slack` (C12: a softmax code
+        # flipped at its rounding tie moves an output, and can move a row's
+        # asym scale past ASYM_TOL, which holds the bf16-PV emission)
+        seg32 = attn_bound(B, N, H, D, [32] * B, False, False, N)
+        vb32 = A.seg_v_block(N, 32)
+        check_case("attention_bnhd", f"{tag} seg 32 bf16 (row kernel)",
+                   lambda: A.attention_bnhd(q, k, v, sc, seg_len=32),
+                   lambda: A.attention_bnhd_plain(q, k, v, sc, seg_len=32),
+                   records, cost=seg32)
+        kw = dict(emit=True, emit_sym=False, need_rowsum=True)
+        check_case("attention_bnhd", f"{tag} seg 32 asym emit rowsum (row "
+                   "kernel)",
+                   lambda: A.attention_bnhd(q, k, v, sc, seg_len=32, **kw),
+                   lambda: A.attention_bnhd_plain(q, k, v, sc, seg_len=32,
+                                                  **kw),
+                   records, cost=(seg32[0] + 8 * B * N, seg32[1]),
+                   asym=ASYM_TOL["attn"])
+        kw = dict(int8_pv=True, v_block=vb32, emit=True)
+        check_case("attention_bnhd", f"{tag} seg 32 int8 PV emit (row "
+                   "kernel)",
+                   lambda: A.attention_bnhd(q, k, v, sc, seg_len=32, **kw),
+                   lambda: A.attention_bnhd_plain(q, k, v, sc, seg_len=32,
+                                                  **kw), records,
+                   cost=attn_bound(B, N, H, D, [32] * B, True, True, N),
+                   slack_fn=lambda want: int8_pv_slack(
+                       q, k, v, sc, 32, None, vb32, want[1]))
         # K6, N = M = 2304 (kv blocks of 256)
         N = 2304
         q, k, v = randn(B, N, H, D), randn(B, N, H, D), randn(B, N, H, D)
         bkv = A.stream_kv_block(N, N, C)
         check_case("attention_bnhd_stream",
-                   f"{tag} [2,{N},16,{D}] bkv {bkv} bf16",
+                   f"{tag} [2,{N},{H},{D}] bkv {bkv} bf16",
                    lambda: A.attention_bnhd_stream(q, k, v, sc),
                    lambda: A.attention_bnhd_stream_plain(q, k, v, sc, bkv),
                    records,
@@ -2391,31 +2479,48 @@ def head_dim_cases(records):
                    library_fn=sdpa(q, k, v, sc),
                    library_note=" (scaled_dot_product_attention)", b2b=True)
         bkv8 = A.stream_kv_block(N, N, C, v_int8_in=True)
-        check_case("attention_bnhd_stream", f"{tag} [2,{N},16,{D}] int8 PV",
+        check_case("attention_bnhd_stream",
+                   f"{tag} [2,{N},{H},{D}] int8 PV",
                    lambda: A.attention_bnhd_stream(q, k, v, sc,
                                                    int8_pv=True),
                    lambda: A.attention_bnhd_stream_plain(q, k, v, sc, bkv8,
                                                          None, True),
                    records,
                    cost=attn_bound(B, N, H, D, [N] * B, True, False, N))
+
+        def k6_emit_plain(q=q, k=k, v=v, bkv=bkv, C=C):
+            o = A.attention_bnhd_stream_plain(q, k, v, sc, bkv)
+            return A._bn1(B, N, *FM.quantize_rows_plain(o.reshape(B * N, C)))
+        check_case("attention_bnhd_stream",
+                   f"{tag} [2,{N},{H},{D}] sym emit (K6->K4)",
+                   lambda: A.attention_bnhd_stream(q, k, v, sc, emit=True),
+                   k6_emit_plain, records,
+                   cost=attn_bound(B, N, H, D, [N] * B, False, True, N))
         del q, k, v
-        # the float32 modes: K3 full N = M = 1024 and seg 16 at 2048, K6 at
-        # N = M = 2304
-        for name, (N, segl) in (("attention_bnhd_f32", (1024, 0)),
-                                ("attention_bnhd_f32", (2048, 16)),
-                                ("attention_bnhd_stream_f32", (2304, 0))):
-            q, k, v = (randn(B, N, H, D, dtype=torch.float32)
-                       for _ in range(3))
-            prods = 2 * H * N * D * (segl or N) * B
+        # the float32 modes: K3 full N = M = 1024, masked over kv 120 and
+        # seg 16 at 2048, K6 at N = M = 2304
+        for name, (N, segl, kvl) in (("attention_bnhd_f32", (1024, 0, 1024)),
+                                     ("attention_bnhd_f32", (1024, 0, P)),
+                                     ("attention_bnhd_f32", (2048, 16, 2048)),
+                                     ("attention_bnhd_stream_f32",
+                                      (2304, 0, 2304))):
+            q = randn(B, N, H, D, dtype=torch.float32)
+            k, v = (randn(B, kvl, H, D, dtype=torch.float32)
+                    for _ in range(2))
+            m = pm if kvl == P else None
+            prods = 2 * H * N * D * (segl or kvl) * B
             check_case(name, f"{tag} f32 {'seg 16 ' if segl else ''}"
-                       f"[2,{N},16,{D}]",
-                       lambda: A.attention_bnhd(q, k, v, sc, seg_len=segl),
+                       f"{f'masked kv {P} ' if m is not None else ''}"
+                       f"[2,{N},{H},{D}]",
+                       lambda: A.attention_bnhd(q, k, v, sc, seg_len=segl,
+                                                kv_mask=m),
                        lambda: (A.attention_bnhd_plain(q, k, v, sc,
-                                                       seg_len=segl)
+                                                       seg_len=segl,
+                                                       kv_mask=m)
                                 if name == "attention_bnhd_f32" else
                                 A.attention_bnhd_stream_plain(
                                     q, k, v, sc, A.stream_kv_block(N, N, C))),
-                       records, cost=(4 * 4 * B * N * C,
+                       records, cost=(4 * B * (2 * N + 2 * kvl) * C,
                                       {"bf16": prods, "tf32": 3 * prods}),
                        rel_err=F32_REL_ERR)
             del q, k, v
@@ -2449,6 +2554,96 @@ def dit_l_cases(records):
         return A._bn1(B, N, *FM.quantize_rows_plain(o.reshape(B * N, C)))
     check_case("attention_bnhd_stream",
                f"DiT-L/2 [2,{N},16,64] sm8 emit (K6->K4)",
+               lambda: A.attention_bnhd_stream(q, k, v, sc, emit=True),
+               k6_emit_plain, records,
+               cost=attn_bound(B, N, H, D, [N] * B, False, True, N),
+               b2b=True)
+
+
+def wide_path_cases(records):
+    """The wide-head slices' attention at their own shapes, each back to
+    back: `stdit_h6` (STDiT-XL/2 in 6 heads of 192): spatial [32, 1024]
+    full in bf16 (beside SDPA) and sm8's sym emission, temporal [2, 16384]
+    seg 16 in bf16 (beside SDPA) and sm8's int8 PV with the emission, cross
+    [2, 16384] over the 120-token prompt (the second padded from 100) in
+    bf16 and sm8's int8 PV with the emission; `dit_l_h4` (DiT-L/2 in 4
+    heads of 256): K6 over [2, 4096] in bf16 (beside SDPA) and sm8's
+    emission through K4."""
+    import torch
+    import torch.nn.functional as F
+    from viditq_tpu_torch.kernels import attention as A
+    from viditq_tpu_torch.kernels import fused_matmul as FM
+    g = torch.Generator(device="cuda").manual_seed(25)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g,
+                           device="cuda").to(torch.bfloat16)
+
+    def sdpa(q, k, v, sc, seg=0, m=None):
+        if seg:
+            n_b = q.shape[0] * q.shape[1] // seg
+            q, k, v = (t.reshape(n_b, seg, *t.shape[2:]) for t in (q, k, v))
+        qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        am = None if m is None else (m != 0)[:, None, None, :]
+        return lambda: F.scaled_dot_product_attention(qh, kh, vh,
+                                                      attn_mask=am, scale=sc)
+
+    B, T, S, H, D, P = 2, 16, 1024, 6, 192, 120
+    C, sc = H * D, D ** -0.5
+    print(f"phase kernels: stdit_h6 and dit_l_h4 attention shapes "
+          f"(D = {D}, 256)", flush=True)
+    mask = torch.ones((B, P), dtype=torch.int32, device="cuda")
+    mask[1, 100:] = 0
+    sites = {
+        "spatial": (randn(B * T, S, H, D), randn(B * T, S, H, D),
+                    randn(B * T, S, H, D), 0, None, False),
+        "temporal": (randn(B, T * S, H, D), randn(B, T * S, H, D),
+                     randn(B, T * S, H, D), T, None, True),
+        "cross": (randn(B, T * S, H, D), randn(B, P, H, D),
+                  randn(B, P, H, D), 0, mask, True)}
+    for site, (q, k, v, seg, m, sm8_int8) in sites.items():
+        nb, nq, kv = q.shape[0], q.shape[1], k.shape[1]
+        kv_rows = ([seg] * nb if seg else [kv] * nb if m is None
+                   else [int(r) for r in (m != 0).sum(dim=1).tolist()])
+        for arm, int8_pv, emit in (("bf16", False, False),
+                                   ("sm8", sm8_int8, True)):
+            vb = A.seg_v_block(nq, seg) if (seg and int8_pv) else None
+            kw = dict(seg_len=seg, kv_mask=m, int8_pv=int8_pv, emit=emit,
+                      v_block=vb)
+            nbytes, ops = attn_bound(nb, nq, H, D, kv_rows, int8_pv, emit, kv)
+            if m is not None:
+                nbytes += 4 * nb * kv
+            check_case(
+                "attention_bnhd",
+                f"stdit_h6 {site} [{nb},{nq},{H},{D}] {arm}"
+                f"{' int8_pv' if int8_pv else ''}{' emit' if emit else ''}",
+                lambda kw=kw, q=q, k=k, v=v: A.attention_bnhd(q, k, v, sc,
+                                                              **kw),
+                lambda kw=kw, q=q, k=k, v=v: A.attention_bnhd_plain(
+                    q, k, v, sc, **kw), records, cost=(nbytes, ops),
+                library_fn=None if int8_pv or emit else sdpa(q, k, v, sc,
+                                                             seg, m),
+                library_note=" (scaled_dot_product_attention)",
+                slack_fn=(lambda want, q=q, k=k, v=v, seg=seg, m=m, vb=vb:
+                          int8_pv_slack(q, k, v, sc, seg, m, vb, want[1]))
+                if int8_pv and emit else None, b2b=True)
+    del sites
+    B, N, H, D = 2, 4096, 4, 256
+    C, sc = H * D, D ** -0.5
+    q, k, v = randn(B, N, H, D), randn(B, N, H, D), randn(B, N, H, D)
+    bkv = A.stream_kv_block(N, N, C)
+    check_case("attention_bnhd_stream", f"dit_l_h4 [2,{N},{H},{D}] bkv "
+               f"{bkv} bf16", lambda: A.attention_bnhd_stream(q, k, v, sc),
+               lambda: A.attention_bnhd_stream_plain(q, k, v, sc, bkv),
+               records, cost=attn_bound(B, N, H, D, [N] * B, False, False, N),
+               library_fn=sdpa(q, k, v, sc),
+               library_note=" (scaled_dot_product_attention)", b2b=True)
+
+    def k6_emit_plain():
+        o = A.attention_bnhd_stream_plain(q, k, v, sc, bkv)
+        return A._bn1(B, N, *FM.quantize_rows_plain(o.reshape(B * N, C)))
+    check_case("attention_bnhd_stream",
+               f"dit_l_h4 [2,{N},{H},{D}] sm8 emit (K6->K4)",
                lambda: A.attention_bnhd_stream(q, k, v, sc, emit=True),
                k6_emit_plain, records,
                cost=attn_bound(B, N, H, D, [N] * B, False, True, N),
@@ -2986,6 +3181,12 @@ STDIT_CFG = {"model": dict(type="STDiT-XL/2"), "num_frames": 16,
              "image_size": (512, 512), "scheduler": dict(
                  type="iddpm", num_sampling_steps=STEPS, cfg_scale=4.0),
              "dtype": "bf16"}
+# STDiT-XL/2 with its head split changed and nothing else (6 heads of 192;
+# 28 blocks at C = 1152, its weight shapes): K3 full, seg and masked at
+# D = 192 inside a real model
+STDIT_H6_CFG = {**STDIT_CFG, "model": dict(
+    type="STDiT", depth=28, hidden_size=1152, patch_size=(1, 2, 2),
+    num_heads=6)}
 TINY = dict(hidden_size=64, depth=2, num_heads=4, caption_channels=32,
             model_max_length=8)
 TINY_STDIT_CFG = {"model": dict(type="STDiT", **TINY), "num_frames": 2,
@@ -3677,7 +3878,7 @@ def slice_inputs(name, cfg, z_scale, n_prompt, rng):
     z = torch.tensor(rng.standard_normal((1, 4, *latent_size(cfg))) * z_scale,
                      dtype=torch.float32 if name == "mmdit"
                      else torch.bfloat16, device="cuda")
-    if name in ("dit", "dit_l"):
+    if name in ("dit", "dit_l", "dit_l_h4"):
         enc = ClassEncoder(DIT_CLASSES)
         y = torch.cat([enc.encode([int(rng.integers(DIT_CLASSES))])["y"],
                        enc.null(1)]).cuda()
@@ -5029,17 +5230,19 @@ PAR_N_MB = 2               # pipeline microbatches (batch 2: one a stage)
 # host-staged all-reduce of a [2, 16384, 1152] activation (16 a block a
 # step under checkpointing; 72.6 s at 28 blocks on an H100 80GB HBM3 at
 # 700 W), and the whole script nears its time limit at 28 (1038 s), so
-# they run a quarter of the stack (half until phase data came: 1071.7 s
-# at 14 with it, dp 28.5 s and tp 49.4 s a step there); each one-process
-# reference the same depth
-PAR_TRAIN_DEPTH = 7
+# they run a seventh of the stack (half until phase data came: 1071.7 s
+# at 14 with it, dp 28.5 s and tp 49.4 s a step there; a quarter until
+# the wide-head slices came: 1073 s at 7 with them on a slow host, dp
+# 19.8 s and tp 23.2 s a step there); each one-process reference the same
+# depth
+PAR_TRAIN_DEPTH = 4
 # the sp arms' blocks at full width: each Ulysses attention moves ~230 MB
 # a rank through the host (its all-to-alls and the output's all-gather:
 # ~0.55 s each, 31 s a 28-block forward on an H100 80GB HBM3 at 700 W),
-# so they run a quarter of the stack; each rank's K3 launches a forward
-# are its spatial and temporal attention at 8 of the 16 heads and its
-# cross attention at 16
-PAR_SP_DEPTH = 7
+# so they run a seventh of the stack (a quarter until the wide-head
+# slices came); each rank's K3 launches a forward are its spatial and
+# temporal attention at 8 of the 16 heads and its cross attention at 16
+PAR_SP_DEPTH = 4
 
 
 def caption_shape(cfg) -> tuple:
@@ -5730,7 +5933,9 @@ def main() -> int:
     for name, cfg, n_prompt in (("latte", LATTE_CFG, 1),
                                 ("dit", DIT_CFG, None),
                                 ("dit_l", DIT_L_CFG, None),
-                                ("mmdit", MMDIT_CFG, 77)):
+                                ("mmdit", MMDIT_CFG, 77),
+                                ("stdit_h6", STDIT_H6_CFG, 120),
+                                ("dit_l_h4", DIT_L_H4_CFG, None)):
         for k, n in run_slice(name, cfg, 0.5, n_prompt).items():
             launches[k] += n
     for k, n in phase_cli().items():

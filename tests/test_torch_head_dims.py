@@ -1,10 +1,12 @@
 """K3, K6 and K8 at the head dims the card's kernels take
-(16, 32, 64, 72 and 128 instantiated; any other D up to 128 padded with
-zero channels to the next of them), against the JAX package's kernels in
-interpret mode on the same numpy inputs: D = 32, 64, 128 and the padded 40.
-The port's plain versions run at the true D (the card holds each kernel to
-them, chip_smoke.py `head_dim_cases`); the CUDA wrappers' padding itself
-is checked here by intercepting the launch (no card). Then DiT-L/2's head
+(16, 32, 64, 72, 128, 192 and 256 instantiated; any other D up to 256
+padded with zero channels to the next of them), against the JAX package's
+kernels in interpret mode on the same numpy inputs: D = 32, 64, 128 and the
+padded 40 (192 and 256: tests/test_torch_head_dims_wide.py). The port's
+plain versions run at the true D (the card holds each kernel to them,
+chip_smoke.py `head_dim_cases`); the CUDA wrappers' padding itself is
+checked here by intercepting the launch (no card), up to 256 and the
+raises above it. Then DiT-L/2's head
 dim on a model: a tiny DiT of 2 blocks, hidden 128, 2 heads of 64, fp and
 sm8 forwards against JAX's on its kernel path.
 
@@ -120,12 +122,12 @@ def widths(monkeypatch):
 
 
 @pytest.mark.parametrize("D,Dp", [(40, 64), (24, 32), (100, 128),
-                                  (8, 16)])
+                                  (8, 16), (136, 192), (200, 256)])
 def test_cuda_attention_pads_other_head_dims(widths, D, Dp):
     """A CUDA call at a head dim the kernels do not instantiate reaches its
     kernel's operands at the next instantiated one, in every mode (K3 full
-    and seg, K6, the float32 modes); H * D above JAX's gate and D above the
-    widest instantiation refuse."""
+    and seg, K6, the float32 modes); H * D above JAX's gate, D above the
+    widest instantiation (256) and padded heads above the gate refuse."""
     def card(*shape, dtype=torch.bfloat16):
         return torch.zeros(shape, dtype=dtype).as_subclass(_OnCard)
     H4 = 4
@@ -146,9 +148,12 @@ def test_cuda_attention_pads_other_head_dims(widths, D, Dp):
     with pytest.raises(ValueError, match="JAX's gate"):  # 17 * 121 > 2048
         A.attention_bnhd(card(2, 256, 17, 121), card(2, 256, 17, 121),
                          card(2, 256, 17, 121), 0.1)
-    with pytest.raises(ValueError, match="D <= 128"):
-        A.attention_bnhd(card(2, 256, 1, 136), card(2, 256, 1, 136),
-                         card(2, 256, 1, 136), 0.1)
+    with pytest.raises(ValueError, match="D <= 256"):
+        A.attention_bnhd(card(2, 256, 1, 264), card(2, 256, 1, 264),
+                         card(2, 256, 1, 264), 0.1)
+    with pytest.raises(ValueError, match="pads to 256"):  # 10 * 256 > 2048
+        A.attention_bnhd(card(2, 256, 10, 200), card(2, 256, 10, 200),
+                         card(2, 256, 10, 200), 0.1)
 
 
 def test_padded_heads_emission_drops_the_pad_from_row_sums():

@@ -32,7 +32,10 @@ Tolerances, each stated where it is held:
   4.3e-8 from its unsharded one), and so does the port (the dp ranks'
   maxima all-reduced): 1e-5 from the port's single process (measured
   0.0), and DP_SAMPLE_JAX from JAX's dp x sp sharded sampling on the same
-  weights (measured 8.6e-3). That limit is the int8 noise floor of two
+  weights (measured 8.6e-3). The same plan under the 'dynamic'
+  channel-balance type pools each layer's per-channel act maxima (a mean
+  over batch rows) the same way, its row sums all-reduced: 1e-5 from one
+  process (the mean's sums in another order), DP_SAMPLE_JAX from JAX's. That limit is the int8 noise floor of two
   steps (JAX's XLA f32 attention against the kernels' bf16 q.k, ROADMAP
   C15, flips rounding boundaries that the steps carry on): the port's
   single process sits as far from JAX's unsharded sampling (8.6e-3).
@@ -315,18 +318,24 @@ def _jax_dp_sample(jm, jv, z, y_c, mask, steps, dp):
         *(jax.device_put(a, sh) for a in (z, y, mask))))
 
 
-def _jax_w8a8(cfg, z, y_c, mask):
+def _jax_w8a8(cfg, z, y_c, mask, dynamic_cb=False):
     """JAX's W8A8 STDiT of tests/test_parallel_inference.py:21-30 on numpy
     weights x 0.1, its weight tables calibrated: (model, variables, the
-    port's state)."""
+    port's state); dynamic_cb: every layer channel-balanced by the
+    'dynamic' type (torch_dist.token_w8a8_resolver's)."""
+    from torch_dist import DYNCB_ALPHA
     from viditq_tpu.quant import LayerQuantSpec as JLQS
     from viditq_tpu.quant import QuantSpec as JQS
     from viditq_tpu.quant import calibrate_weight_tables as j_calibrate
     from viditq_tpu.quant import resolve_layer_spec as j_resolve
+    from viditq_tpu.quant.spec import SmoothQuantSpec as JSQS
     spec = JLQS(weight=JQS(n_bits=8, granularity="channel", channel_axis=-1,
                            round_mode="nearest"),
                 act=JQS(n_bits=8, granularity="token",
-                        round_mode="nearest_ste", dynamic=True))
+                        round_mode="nearest_ste", dynamic=True),
+                smooth_quant=JSQS(enable=dynamic_cb,
+                                  channel_wise_scale_type="dynamic",
+                                  alpha=DYNCB_ALPHA))
     fp = ("x_embedder", "t_block", "t_embedder", "y_embedder",
           "final_layer")
     jm = JSTDiT(dtype=jnp.float32, resolver=lambda n: j_resolve(n, spec, fp),
@@ -340,13 +349,14 @@ def _jax_w8a8(cfg, z, y_c, mask):
     return jm, v, sd
 
 
-@pytest.mark.parametrize("plan", [SM8, "token_w8a8"])
+@pytest.mark.parametrize("plan", [SM8, "token_w8a8", "token_w8a8_dyncb"])
 def test_dp_sharded_quant_sampling(pool, plan):
     """`quant_sample` with the batch sharded over dp on a dp=2 x sp=2 mesh
     (tests/test_parallel_inference.py:30, the sp ranks replicas) against
     one process on the whole batch, and under JAX's W8A8 against JAX's
     GSPMD-sharded sampling on the same weights: the token scales pooled
-    over the global batch in both."""
+    over the global batch in both, and under the 'dynamic' channel-balance
+    type (token_w8a8_dyncb) its per-channel act maxima too."""
     from torch_dist import dp_sample, r_dp_sample
     cfg = dict(input_size=(4, 8, 8), hidden_size=64, depth=2, num_heads=4,
                caption_channels=32, model_max_length=8)
@@ -363,7 +373,8 @@ def test_dp_sharded_quant_sampling(pool, plan):
         sd = {n: (rng.standard_normal(p.shape) * 0.1).astype(np.float32)
               for n, p in model.named_parameters()}
     else:
-        jm, jv, sd = _jax_w8a8(cfg, z, y_c, mask)
+        jm, jv, sd = _jax_w8a8(cfg, z, y_c, mask,
+                               dynamic_cb=plan == "token_w8a8_dyncb")
     got = pool.run(r_dp_sample, cfg, sd, plan, z, y_c, mask, 2,
                    {"dp": 2, "sp": 2})
     for g in got[1:]:

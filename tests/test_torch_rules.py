@@ -558,7 +558,9 @@ def test_chip_smoke_carries_the_mp_and_sigma_cb_arms():
                          "latte": (250, 750), "dit": (), "mmdit": (),
                          # DiT-L/2 and the plan slices
                          "dit_l": (), "stdit_plans": (250, 750),
-                         "alpha": (500,), "sigma_plans": (500,)}
+                         "alpha": (500,), "sigma_plans": (500,),
+                         # the wide-head slices (no CB arm)
+                         "stdit_h6": (), "dit_l_h4": ()}
     d = cs.quant_plan(cs.SIGMA_CB_PLAN, "cb").default_layer
     assert (d.backend, d.impl, d.weight.n_bits) == ("native", "fused", 6)
     assert d.smooth_quant.qkv_share_cs and d.smooth_quant.alpha == (
@@ -908,20 +910,41 @@ def test_chip_smoke_carries_the_head_dim_and_dit_l_cases():
     import inspect
     import chip_smoke as cs
     from viditq_tpu_torch.kernels import attention as A
-    assert cs.HEAD_DIM_CASES == (32, 40, 64, 128)
-    assert 40 not in A.KERNEL_HEAD_DIMS  # the padded width
-    assert A.KERNEL_HEAD_DIMS == (16, 32, 64, 72, 128)
+    assert cs.HEAD_DIM_CASES == ((32, 16), (40, 16), (64, 16), (128, 16),
+                                 (192, 6), (256, 8), (136, 6), (200, 8))
+    for d in (40, 136, 200):  # the padded widths
+        assert d not in A.KERNEL_HEAD_DIMS
+    assert A.KERNEL_HEAD_DIMS == (16, 32, 64, 72, 128, 192, 256)
+    assert all(d * h <= A.MAX_HD for d, h in cs.HEAD_DIM_CASES)
     src = inspect.getsource(cs.head_dim_cases)
     for part in ("A.attention_bnhd(q, k, v, sc)", "int8_pv=True",
                  "emit_sym=False, need_rowsum=True", "col_scale=ics",
                  "seg_len=16", "A.attention_bnhd_stream(q, k, v, sc)",
                  "A.qk_headwise_quant(q, k)", "exact=True",
                  '"attention_bnhd_f32"', '"attention_bnhd_stream_f32"',
-                 "F32_REL_ERR", "sdpa(q, k, v, sc)"):
+                 "F32_REL_ERR", "sdpa(q, k, v, sc)", "kv_mask=pm",
+                 "seg_len=32", "int8_pv_slack(", "(row kernel)"):
         assert part in src, part
     main = inspect.getsource(cs.phase_kernels)
     assert "head_dim_cases(records)" in main and "dit_l_cases(records)" \
-        in main
+        in main and "wide_path_cases(records)" in main
+    # the wide-head slices: STDiT-XL/2 and DiT-L/2 with the head split
+    # changed and nothing else, bf16 and sm8, launches as at 16 heads
+    for cfg, base, heads in ((cs.STDIT_H6_CFG, dict(
+            depth=28, hidden_size=1152, patch_size=(1, 2, 2)), 6),
+            (cs.DIT_L_H4_CFG, cs.DIT_L_CFG["model"], 4)):
+        m = cfg["model"]
+        assert m["num_heads"] == heads and all(
+            m[k] == base[k] for k in ("depth", "hidden_size", "patch_size"))
+    assert cs.STDIT_H6_CFG["image_size"] == cs.STDIT_CFG["image_size"]
+    assert cs.SLICE_KERNELS["stdit_h6"] == {
+        "bf16": ("attention_bnhd",), "sm8": cs.FUSED_KERNELS}
+    assert cs.SLICE_KERNELS["dit_l_h4"] == cs.SLICE_KERNELS["dit"]
+    assert cs.BLOCK_LAUNCHES[("stdit_h6", "sm8")] == cs.SM8_BLOCK
+    assert cs.BLOCK_LAUNCHES[("dit_l_h4", "sm8")] == \
+        cs.BLOCK_LAUNCHES[("dit", "sm8")]
+    run = inspect.getsource(cs.main)
+    assert '"stdit_h6"' in run and '"dit_l_h4"' in run
     m = cs.DIT_L_CFG["model"]
     assert (m["type"], m["depth"], m["hidden_size"], m["num_heads"],
             m["patch_size"]) == ("DiT", 24, 1024, 16, (1, 2, 2))

@@ -118,14 +118,14 @@ def _mesh(ranks=None, **axes):
 
 def build(kind, cfg, state=None, plan=None, **kw):
     """The port's model of kind ('stdit' or 'pixart') in float32 under the
-    plan (a YAML path, 'token_w8a8' or None for fp), loading state (numpy
-    by name)."""
+    plan (a YAML path, one of TOKEN_PLANS or None for fp), loading state
+    (numpy by name)."""
     import torch
     from viditq_tpu_torch.models.pixart import PixArt
     from viditq_tpu_torch.models.stdit import STDiT
     from viditq_tpu_torch.utils.config import load_quant_config
-    if plan == "token_w8a8":
-        kw["resolver"] = token_w8a8_resolver()
+    if plan in TOKEN_PLANS:
+        kw["resolver"] = token_w8a8_resolver(plan == "token_w8a8_dyncb")
     elif plan is not None:
         kw["resolver"] = load_quant_config(plan).resolver()
     model = {"stdit": STDiT, "pixart": PixArt}[kind](
@@ -290,25 +290,36 @@ def r_train_loop(cfg, state, axes, steps, save_dir, resume=None, clip=1.0,
             {n: _np(v) for n, v in p.items()}, out["ckpt"])
 
 
-def token_w8a8_resolver():
+# the simulate-backend W8A8 plans built in code: the JAX test's, and the
+# same with the 'dynamic' channel-balance type
+TOKEN_PLANS = ("token_w8a8", "token_w8a8_dyncb")
+DYNCB_ALPHA = (0.5,)
+
+
+def token_w8a8_resolver(dynamic_cb: bool = False):
     """The JAX test's W8A8 (tests/test_parallel_inference.py:21-30):
     per-channel W8, dynamic per-token A8 on the simulate backend, five
-    layers fp."""
+    layers fp; dynamic_cb: each layer channel-balanced by the 'dynamic'
+    type (cs from the live input's maxima, alpha DYNCB_ALPHA)."""
     from viditq_tpu_torch.quant.naming import resolve_layer_spec
-    from viditq_tpu_torch.quant.spec import LayerQuantSpec, QuantSpec
+    from viditq_tpu_torch.quant.spec import (LayerQuantSpec, QuantSpec,
+                                             SmoothQuantSpec)
     spec = LayerQuantSpec(
         weight=QuantSpec(n_bits=8, granularity="channel", channel_axis=-1,
                          round_mode="nearest"),
         act=QuantSpec(n_bits=8, granularity="token",
-                      round_mode="nearest_ste", dynamic=True))
+                      round_mode="nearest_ste", dynamic=True),
+        smooth_quant=SmoothQuantSpec(
+            enable=dynamic_cb, channel_wise_scale_type="dynamic",
+            alpha=DYNCB_ALPHA))
     fp = ("x_embedder", "t_block", "t_embedder", "y_embedder",
           "final_layer")
     return lambda name: resolve_layer_spec(name, spec, fp)
 
 
 def dp_sample(cfg, state, plan, z, y_c, mask, steps, mesh=None):
-    """2-step CFG DDIM under plan ('token_w8a8' or a YAML path, the weight
-    tables in state or calibrated) through `quant_sample`, the batch
+    """2-step CFG DDIM under plan (one of TOKEN_PLANS or a YAML path, the
+    weight tables in state or calibrated) through `quant_sample`, the batch
     sharded over the mesh's dp axis where one is given (one process: no
     mesh); the whole samples."""
     import torch
@@ -317,7 +328,7 @@ def dp_sample(cfg, state, plan, z, y_c, mask, steps, mesh=None):
     from viditq_tpu_torch.quant.native_pack import pack_native_weights
     from viditq_tpu_torch.samplers.iddpm import IDDPM
     model = build("stdit", cfg, state, plan)
-    if plan != "token_w8a8":
+    if plan not in TOKEN_PLANS:
         pack_native_weights(calibrate_weight_tables(model))
     z, y_c, mask = (_t(a) for a in (z, y_c, mask))
     y = torch.cat([y_c, y_c * 0])  # [cond; null]

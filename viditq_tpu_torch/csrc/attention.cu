@@ -46,8 +46,9 @@
 // wgmma, the kv mask staged per tile, the output staged through shared
 // memory and written with 16-byte stores. The int8 PV runs on s8 wgmma
 // with exact int32 sums, so its kv range is not bounded. D is a template
-// parameter: 72 (STDiT-XL, PixArt), 64 (DiT-L/2), 16, 32 and 128; the
-// wrappers pad any other D up to the next of these.
+// parameter: 72 (STDiT-XL, PixArt), 64 (DiT-L/2), 16, 32, 128, 192 and
+// 256 (two blocks a head, each with half its output columns: attn_core.cuh
+// `block_cols`); the wrappers pad any other D up to the next of these.
 //
 // Seg mode. Bound on the card: bytes. At the main path ([2, 16384, 16,
 // 72], seg 16) q, k and v are read once and o written once: 8*B*N*C bytes
@@ -84,9 +85,14 @@
 //   staged in shared memory and leave, as every output does, in 16-byte
 //   stores of whole rows. No f32 output and no second pass.
 //
+// At D = 192 and 256 a warp owns half a head (`seg_parts`): the head's
+// q.k whole, the PV, output and emission of half its columns (48 or 64
+// sums a thread), so H <= 8 (16 warps).
+//
 // `attn_seg_rows` (the earlier design) takes every other shape (a seg that
-// does not divide 16, such as 1088, or H odd): one block of 4 warps per
-// (64 q rows, head, batch), k (and v transposed) staged per 64-row tile,
+// does not divide 16, such as 1088, H odd, or D = 128): one block of 4
+// warps per (64 q rows, head, batch; at D = 192 and 256 a 64-column part of
+// the head, `rows_cols`, the q fragments read from q itself), k (and v transposed) staged per 64-row tile,
 // two passes (the max and r, then PV). Its int8 PV sums in int32 on
 // mma.sync m16n8k32 s8, so its kv range is not bounded either. A block
 // holds one head, so its emission takes two launches: per-(row, head)
@@ -94,7 +100,7 @@
 //
 // Build: the kernels' instantiations are spread over translation units so
 // that the build compiles them in parallel. This file holds the C entry
-// points and head dim 16's kernels; parts/attention_d{32,64,72,128}.cu
+// points and head dim 16's kernels; parts/attention_d{32,64,72,128,192,256}.cu
 // include it with VQ_K3_PART set to their head dim and instantiate that
 // dim's launchers alone (`VQ_K3_LAUNCHERS`), which the entry points here
 // declare extern.
@@ -115,29 +121,31 @@ __global__ void __launch_bounds__(THREADS, D > 72 ? 1 : 2)
                      const float* __restrict__ vscale,
                      const int* __restrict__ mask, void* __restrict__ out,
                      int out_f32, int N, int M, int H, float scale2) {
-  using T = Tile<D>;
+  constexpr int DV = block_cols(D);  // this block's output columns
+  using T = Tile<D, DV>;
   extern __shared__ __align__(128) uint8_t smem[];
   uint8_t* qs = smem;
   uint8_t* ring = smem + T::Q_BYTES;
   const Lane ln;
   const int b = blockIdx.z;
-  const int h = blockIdx.y;
+  const int h = blockIdx.y / (D / DV);
+  const int c0 = blockIdx.y % (D / DV) * DV;  // the head's first column here
   const int q0 = blockIdx.x * BQ;
   const int C = H * D;
   const bool masked = mask != nullptr;
-  zero_pads<D, INT8>(ring);
+  zero_pads<D, DV, INT8>(ring);
   load_q<D>(qs, q, b, h, q0, N, C, scale2);
 
   const int nt = (M + BKV - 1) / BKV;  // kv tiles
   const int Mp = nt * BKV;             // the v^T codes' padded kv length
   const int steps = 2 * nt;
   auto slot_of = [&](int step) {
-    return Slot<D>(ring + (step % STAGES) * T::STAGE_BYTES);
+    return Slot<D, DV>(ring + (step % STAGES) * T::STAGE_BYTES);
   };
   auto prefetch = [&](int step) {
     if (step < steps)
-      load_tile<D, INT8>(slot_of(step), k, v, mask, b, h, (step % nt) * BKV,
-                         M, M, Mp, C, H, step >= nt);
+      load_tile<D, DV, INT8>(slot_of(step), k, v, mask, b, h, c0,
+                             (step % nt) * BKV, M, M, Mp, C, H, step >= nt);
     cp_async_commit();
   };
 #pragma unroll
@@ -158,9 +166,9 @@ __global__ void __launch_bounds__(THREADS, D > 72 ? 1 : 2)
     fence_proxy_async();
     __syncthreads();
     prefetch(step + STAGES - 1);
-    const Slot<D> slot = slot_of(step);
+    const Slot<D, DV> slot = slot_of(step);
     float s[32];
-    scores<D>(s, qs, slot, ln, (step % nt) * BKV, M, masked);
+    scores<D, DV>(s, qs, slot, ln, (step % nt) * BKV, M, masked);
     if (step < nt) {
       // pass 1: the exact row max (bf16 PV: and the row sum, online)
 #pragma unroll
@@ -207,13 +215,13 @@ __global__ void __launch_bounds__(THREADS, D > 72 ? 1 : 2)
       }
       uint32_t a[BKV / 32][4];
       pack_codes(a, s);
-      pv_s8<D>(acc, a, slot, step > nt ? 1 : 0);
+      pv_s8<D, DV>(acc, a, slot, step > nt ? 1 : 0);
     } else {
       uint32_t p[BKV / 16][4];
       pack_p(p, s, [&](float x, int hh) {
         return exp2f(x - m_run[hh]) * inv_r[hh];
       });
-      pv_bf16<D>(o, p, slot, 1);
+      pv_bf16<D, DV>(o, p, slot, 1);
     }
   }
   cp_async_wait<0>();
@@ -223,7 +231,7 @@ __global__ void __launch_bounds__(THREADS, D > 72 ? 1 : 2)
       const int hh = (i >> 1) & 1;
       const int d = 8 * (i >> 2) + 2 * ln.t4 + (i & 1);
       return (static_cast<float>(acc[i]) * inv_r[hh]) *
-             vscale[static_cast<size_t>(b) * C + h * D + d];
+             vscale[static_cast<size_t>(b) * C + h * D + c0 + d];
     } else {
       return o[i];
     }
@@ -236,10 +244,11 @@ __global__ void __launch_bounds__(THREADS, D > 72 ? 1 : 2)
           static_cast<float>(1.0 / (127.0 * 127.0)) / quad_sum(r_run[hh]);
   }
   if (out_f32)
-    store_out<D>(ring, static_cast<float*>(out), ln, b, h, q0, N, C, value);
+    store_out<DV>(ring, static_cast<float*>(out), ln, b, h * D + c0, q0, N,
+                  C, value);
   else
-    store_out<D>(ring, static_cast<__nv_bfloat16*>(out), ln, b, h, q0, N, C,
-                 value);
+    store_out<DV>(ring, static_cast<__nv_bfloat16*>(out), ln, b, h * D + c0,
+                  q0, N, C, value);
 }
 
 // -------------------------------------------------------- v quantize, emission
@@ -382,10 +391,10 @@ cudaError_t launch_full(const void* q, const void* k, const void* v,
                         int out_f32, int B, int N, int M, int H, float scale2,
                         cudaStream_t st) {
   auto kernel = attn_kernel_full<D, INT8>;
-  const int smem = Tile<D>::SMEM_BYTES;
+  const int smem = Tile<D, block_cols(D)>::SMEM_BYTES;
   cudaError_t err = set_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  dim3 grid((N + BQ - 1) / BQ, H, B);
+  dim3 grid((N + BQ - 1) / BQ, H * (D / block_cols(D)), B);
   kernel<<<grid, THREADS, smem, st>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k), v, vs, mask, out, out_f32, N, M,
@@ -466,6 +475,18 @@ constexpr int TR = 16;         // rows of a tile (one m16 row block)
 constexpr int HPW = 2;         // heads a warp
 constexpr int MAX_WARPS = 16;  // H <= 32
 
+// A warp's share of the heads at head dim D: up to 72, HPW whole heads;
+// at 192 and 256 half a head (its q.k whole, the PV and output of half its
+// columns), so a warp holds 48 or 64 output sums a thread, as D = 72's
+// two heads hold 72. (128's two heads would hold 128: the row kernel
+// takes it.)
+__host__ __device__ constexpr int seg_parts(int D) { return D > 128 ? 2 : 1; }
+
+// warps of a tiled block over H heads of D (0: the shape is not taken)
+__host__ __device__ constexpr int seg_warps(int D, int H) {
+  return seg_parts(D) > 1 ? H * seg_parts(D) : H % HPW == 0 ? H / HPW : 0;
+}
+
 // tile row held by byte k of a channel's 16 v codes: the k index of the s8
 // mma's A operand packed from the score accumulators holds that column
 // (kernels/attention.py KV_PERM[:16])
@@ -502,7 +523,9 @@ __global__ void __launch_bounds__(MAX_WARPS * 32)
                    int N, int H, int seg_shift, float scale2) {
   constexpr int KS = D / 16;         // k16 steps of QK^T
   constexpr bool K8 = D % 16 != 0;   // and one k8 step (D = 72)
-  constexpr int NT = D / 8;          // n8 tiles of PV
+  constexpr int PARTS = seg_parts(D);
+  constexpr int HW = PARTS > 1 ? 1 : HPW;  // heads a warp
+  constexpr int NT = D / PARTS / 8;        // n8 tiles of a warp's PV
   extern __shared__ __align__(128) uint8_t smem[];
   const int C = H * D;
   const SegSmem L(C, INT8);
@@ -525,6 +548,12 @@ __global__ void __launch_bounds__(MAX_WARPS * 32)
   const int warps = blockDim.x >> 5;
   const size_t row0 = static_cast<size_t>(b) * N + n0;
   const int rb = 2 * C;  // bytes of a bf16 row
+  // the first column of the warp's head j, and of its output columns in
+  // that head
+  auto head_col = [&](int j) {
+    return (PARTS > 1 ? warp / PARTS : warp * HPW + j) * D;
+  };
+  const int c0 = PARTS > 1 ? warp % PARTS * (D / PARTS) : 0;
 
   if (tid == 0) {
     mbar_init(bar, 1);
@@ -563,12 +592,12 @@ __global__ void __launch_bounds__(MAX_WARPS * 32)
   mbar_wait(bar, 0);
   __syncthreads();
 
-  // o[j][nt][e]: head warp*HPW + j, row g + 8*(e >> 1), column
-  // nt*8 + 2*t4 + (e & 1) of the head
-  float o[HPW][NT][4];
+  // o[j][nt][e]: the warp's head j, row g + 8*(e >> 1), column
+  // c0 + nt*8 + 2*t4 + (e & 1) of the head
+  float o[HW][NT][4];
 #pragma unroll
-  for (int j = 0; j < HPW; ++j) {
-    const int cq = (warp * HPW + j) * D;  // the head's first column
+  for (int j = 0; j < HW; ++j) {
+    const int cq = head_col(j);  // the head's first column
     float s[2][4];
 #pragma unroll
     for (int nt = 0; nt < 2; ++nt)
@@ -640,11 +669,11 @@ __global__ void __launch_bounds__(MAX_WARPS * 32)
       for (int nt = 0; nt < NT; ++nt) {
         int acc[4] = {0, 0, 0, 0};
         mma_s8_k16(acc, a0, a1,
-                   ld32(vs + (cq + nt * 8 + g) * TR + 4 * t4));
+                   ld32(vs + (cq + c0 + nt * 8 + g) * TR + 4 * t4));
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int hh = e >> 1;
-          const int c = cq + nt * 8 + 2 * t4 + (e & 1);
+          const int c = cq + c0 + nt * 8 + 2 * t4 + (e & 1);
           o[j][nt][e] =
               (static_cast<float>(acc[e]) * tq[hh]) *
               vscale[(static_cast<size_t>(b) * n_vgroups + grp[hh]) * C + c];
@@ -667,30 +696,33 @@ __global__ void __launch_bounds__(MAX_WARPS * 32)
 #pragma unroll
       for (int nt = 0; nt + 1 < NT; nt += 2) {
         uint32_t bv[4];
-        ldmatrix_x4_t(bv, smem_u32(vrow + (cq + (nt + (mi >> 1)) * 8) * 2));
+        ldmatrix_x4_t(bv,
+                      smem_u32(vrow + (cq + c0 + (nt + (mi >> 1)) * 8) * 2));
         mma_bf16(o[j][nt], p, bv[0], bv[1]);
         mma_bf16(o[j][nt + 1], p, bv[2], bv[3]);
       }
       if constexpr (NT % 2 == 1) {
         uint32_t bv[2];
-        ldmatrix_x2_t(bv, smem_u32(vrow + (cq + (NT - 1) * 8) * 2));
+        ldmatrix_x2_t(bv, smem_u32(vrow + (cq + c0 + (NT - 1) * 8) * 2));
         mma_bf16(o[j][NT - 1], p, bv[0], bv[1]);
       }
     }
   }
 
   if constexpr (EMIT == 0) {
-    // each warp stages its heads' bf16 rows in their own q columns (read
-    // by no other warp), then the block writes whole rows
+    // each warp stages its bf16 outputs in their own q columns, then the
+    // block writes whole rows; a head's q columns are read by no other
+    // warp, except by the other half's warp at D > 128 (a barrier first)
+    if constexpr (PARTS > 1) __syncthreads();
 #pragma unroll
-    for (int j = 0; j < HPW; ++j)
+    for (int j = 0; j < HW; ++j)
 #pragma unroll
       for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
         for (int hh = 0; hh < 2; ++hh)
           *reinterpret_cast<uint32_t*>(
               qs + (g + 8 * hh) * L.rs +
-              ((warp * HPW + j) * D + nt * 8 + 2 * t4) * 2) =
+              (head_col(j) + c0 + nt * 8 + 2 * t4) * 2) =
               pack_bf16(o[j][nt][2 * hh], o[j][nt][2 * hh + 1]);
     __syncthreads();
     const int vec = rb / 16;
@@ -704,12 +736,12 @@ __global__ void __launch_bounds__(MAX_WARPS * 32)
   } else {
     if (cs != nullptr) {  // the proj's 1/cs, before the row statistic
 #pragma unroll
-      for (int j = 0; j < HPW; ++j)
+      for (int j = 0; j < HW; ++j)
 #pragma unroll
         for (int nt = 0; nt < NT; ++nt) {
           // columns c, c + 1 of the head: c even, so an aligned float2
           const float2 s = __ldg(reinterpret_cast<const float2*>(
-              cs + (warp * HPW + j) * D + nt * 8 + 2 * t4));
+              cs + head_col(j) + c0 + nt * 8 + 2 * t4));
 #pragma unroll
           for (int hh = 0; hh < 2; ++hh) {
             o[j][nt][2 * hh] = RowQuant::balance(o[j][nt][2 * hh], s.x);
@@ -723,7 +755,7 @@ __global__ void __launch_bounds__(MAX_WARPS * 32)
     float hi[2] = {0.0f, 0.0f};
     float lo[2] = {0.0f, 0.0f};
 #pragma unroll
-    for (int j = 0; j < HPW; ++j)
+    for (int j = 0; j < HW; ++j)
 #pragma unroll
       for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
@@ -768,7 +800,7 @@ __global__ void __launch_bounds__(MAX_WARPS * 32)
     }
     int sum[2] = {0, 0};
 #pragma unroll
-    for (int j = 0; j < HPW; ++j)
+    for (int j = 0; j < HW; ++j)
 #pragma unroll
       for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
@@ -782,7 +814,7 @@ __global__ void __launch_bounds__(MAX_WARPS * 32)
             sum[hh] += c2[e];
           }
           *reinterpret_cast<uint16_t*>(
-              qs + (g + 8 * hh) * L.rs + (warp * HPW + j) * D + nt * 8 +
+              qs + (g + 8 * hh) * L.rs + head_col(j) + c0 + nt * 8 +
               2 * t4) =
               static_cast<uint16_t>(static_cast<uint8_t>(c2[0]) |
                                     (static_cast<uint8_t>(c2[1]) << 8));
@@ -937,13 +969,22 @@ __global__ void __launch_bounds__(VQ_THREADS)
 constexpr int SEG_BQ = 64;   // q rows per block: 4 warps x 16
 constexpr int SEG_BKV = 64;  // kv rows per tile
 
+// Output columns of a row-kernel block at head dim D: the head whole up to
+// 128; at 192 and 256 a block per 64 of them (the grid's y axis runs over
+// (head, part)), each taking the head's q.k whole, so a thread holds 32
+// output sums (and 32 int32) where the whole head would hold 128 (256).
+__host__ __device__ constexpr int rows_cols(int D) {
+  return D > 128 ? 64 : D;
+}
+
 // MODE 0: bf16 out. Emission in two launches, since a block holds one
-// head of its rows: MODE 1 writes each (row, head)'s max(o, 0) and
-// min(o, 0) to stats [B*N, H]; MODE 2 (sym) / 3 (asym) computes o again
-// (the same arithmetic, the same values), takes the row's range over all
-// heads from stats and writes its codes, the scale and zero point (head
-// 0's blocks) and adds its code sum to rowsum (zeroed by the caller;
-// integer partial sums, exact in f32 in any order).
+// head of its rows (or a 64-column part of one, `rows_cols`): MODE 1
+// writes each (row, head part)'s max(o, 0) and min(o, 0) to stats [B*N,
+// gridDim.y]; MODE 2 (sym) / 3 (asym) computes o again (the same
+// arithmetic, the same values), takes the row's range over all heads from
+// stats and writes its codes, the scale and zero point (the first head's
+// blocks) and adds its code sum to rowsum (zeroed by the caller; integer
+// partial sums, exact in f32 in any order).
 template <int D, bool INT8, int MODE>
 __global__ void __launch_bounds__(128)
     attn_seg_rows(const __nv_bfloat16* __restrict__ q,
@@ -958,23 +999,29 @@ __global__ void __launch_bounds__(128)
                   float scale2) {
   constexpr int DP = (D + 15) / 16 * 16;  // QK contraction, zero padded
   constexpr int KS = DP / 16;             // k16 steps of QK^T
-  constexpr int NT = (D + 7) / 8;         // n8 tiles of the PV output
+  constexpr int DW = rows_cols(D);        // the block's output columns
+  constexpr bool WIDE = DW < D;           // q fragments straight from q
+  constexpr int NT = (DW + 7) / 8;        // n8 tiles of the PV output
   constexpr int DV = NT * 8;
   constexpr int LDK = DP + 8;             // bf16 row strides (bank spread)
   constexpr int LDV = SEG_BKV + 8;
   constexpr int LDV8 = SEG_BKV + 16;      // int8 v^T row stride (bytes)
   // q is staged once, read into registers and left behind a barrier
   // before the first bf16 v^T tile is written: the two share one buffer
-  // (at D = 128 the three would pass the 48 KB of static shared memory)
-  constexpr int QV = SEG_BQ * LDK > DV * LDV ? SEG_BQ * LDK : DV * LDV;
-  __shared__ __align__(16) __nv_bfloat16 QVs[INT8 ? SEG_BQ * LDK : QV];
+  // (at D = 128 the three would pass the 48 KB of static shared memory);
+  // wider heads read their q fragments from q itself (no staging: k's
+  // tile alone is 33 KB at 256)
+  constexpr int QS = WIDE ? 8 : SEG_BQ * LDK;
+  constexpr int QV = QS > DV * LDV ? QS : DV * LDV;
+  __shared__ __align__(16) __nv_bfloat16 QVs[INT8 ? QS : QV];
   __shared__ __align__(16) __nv_bfloat16 Ks[SEG_BKV * LDK];
   __nv_bfloat16* const Qs = QVs;
   __nv_bfloat16* const Vt = QVs;
   __shared__ __align__(16) int8_t Vt8[INT8 ? DV * LDV8 : 16];
 
   const int b = blockIdx.z;
-  const int h = blockIdx.y;
+  const int h = blockIdx.y / (D / DW);
+  const int c0 = blockIdx.y % (D / DW) * DW;  // the head's first column here
   const int q0 = blockIdx.x * SEG_BQ;
   const int C = H * D;
   const int tid = threadIdx.x;
@@ -985,27 +1032,43 @@ __global__ void __launch_bounds__(128)
   const int row_lo = q0 + warp * 16 + g;  // accumulator rows g and g+8
   const int rows[2] = {row_lo, row_lo + 8};
 
-  for (int idx = tid; idx < SEG_BQ * DP; idx += 128) {
-    const int r = idx / DP;
-    const int d = idx - r * DP;
-    const int n = q0 + r;
-    float val = 0.0f;
-    if (n < N && d < D) {
-      const float qf =
-          __bfloat162float(q[(static_cast<size_t>(b) * N + n) * C + h * D + d]);
-      val = qf * scale2;
-    }
-    Qs[r * LDK + d] = __float2bfloat16_rn(val);
-  }
-  __syncthreads();
+  // qa[ks]: rows g, g + 8 of the warp at columns 16 ks + 2t (+ 8), as
+  // bf16(q * scale2)
   uint32_t qa[KS][4];
+  if constexpr (WIDE) {
 #pragma unroll
-  for (int ks = 0; ks < KS; ++ks) {
-    const __nv_bfloat16* p = Qs + (warp * 16 + g) * LDK + ks * 16 + t * 2;
-    qa[ks][0] = ld32(p);
-    qa[ks][1] = ld32(p + 8 * LDK);
-    qa[ks][2] = ld32(p + 8);
-    qa[ks][3] = ld32(p + 8 * LDK + 8);
+    for (int ks = 0; ks < KS; ++ks)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int n = rows[i & 1];
+        qa[ks][i] = n < N ? scaled(ld32(q + (static_cast<size_t>(b) * N + n) *
+                                                C + h * D + ks * 16 + 2 * t +
+                                            8 * (i >> 1)),
+                                   scale2)
+                          : 0u;
+      }
+  } else {
+    for (int idx = tid; idx < SEG_BQ * DP; idx += 128) {
+      const int r = idx / DP;
+      const int d = idx - r * DP;
+      const int n = q0 + r;
+      float val = 0.0f;
+      if (n < N && d < D) {
+        const float qf = __bfloat162float(
+            q[(static_cast<size_t>(b) * N + n) * C + h * D + d]);
+        val = qf * scale2;
+      }
+      Qs[r * LDK + d] = __float2bfloat16_rn(val);
+    }
+    __syncthreads();
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+      const __nv_bfloat16* p = Qs + (warp * 16 + g) * LDK + ks * 16 + t * 2;
+      qa[ks][0] = ld32(p);
+      qa[ks][1] = ld32(p + 8 * LDK);
+      qa[ks][2] = ld32(p + 8);
+      qa[ks][3] = ld32(p + 8 * LDK + 8);
+    }
   }
 
   const int qlast = min(q0 + SEG_BQ, N) - 1;
@@ -1099,9 +1162,10 @@ __global__ void __launch_bounds__(128)
         const int d = idx / SEG_BKV;
         const int n = kv0 + (c >> 5) * 32 + kv_perm(c & 31);
         Vt8[d * LDV8 + c] =
-            (n < hi && d < D)
+            (n < hi && d < DW)
                 ? static_cast<const int8_t*>(
-                      v)[(static_cast<size_t>(b) * N + n) * C + h * D + d]
+                      v)[(static_cast<size_t>(b) * N + n) * C + h * D + c0 +
+                         d]
                 : int8_t{0};
       }
     } else {
@@ -1110,9 +1174,9 @@ __global__ void __launch_bounds__(128)
         const int d = idx - c * DV;
         const int n = kv0 + c;
         float val = 0.0f;
-        if (n < hi && d < D)
+        if (n < hi && d < DW)
           val = __bfloat162float(static_cast<const __nv_bfloat16*>(
-              v)[(static_cast<size_t>(b) * N + n) * C + h * D + d]);
+              v)[(static_cast<size_t>(b) * N + n) * C + h * D + c0 + d]);
         Vt[d * LDV + c] = __float2bfloat16_rn(val);
       }
     }
@@ -1178,15 +1242,15 @@ __global__ void __launch_bounds__(128)
           o[nt][2 * hh + j] =
               (static_cast<float>(acc[nt][2 * hh + j]) * tq) *
               vscale[(static_cast<size_t>(b) * n_vgroups + grp) * C + h * D +
-                     nt * 8 + t * 2 + j];
+                     c0 + nt * 8 + t * 2 + j];
     }
   }
   if (MODE != 0 && cs != nullptr) {  // the proj's 1/cs, in both emission
                                      // launches, before the statistic
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt) {
-      const float2 s = __ldg(
-          reinterpret_cast<const float2*>(cs + h * D + nt * 8 + t * 2));
+      const float2 s = __ldg(reinterpret_cast<const float2*>(
+          cs + h * D + c0 + nt * 8 + t * 2));
 #pragma unroll
       for (int hh = 0; hh < 2; ++hh) {
         o[nt][2 * hh] = RowQuant::balance(o[nt][2 * hh], s.x);
@@ -1197,7 +1261,7 @@ __global__ void __launch_bounds__(128)
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
     const int n = rows[hh];
-    const size_t orow = (static_cast<size_t>(b) * N + n) * C + h * D;
+    const size_t orow = (static_cast<size_t>(b) * N + n) * C + h * D + c0;
     if constexpr (MODE == 0) {
       if (n >= N) continue;
 #pragma unroll
@@ -1216,11 +1280,13 @@ __global__ void __launch_bounds__(128)
       hi = quad_max(hi);
       lo = -quad_max(-lo);
       if (t == 0 && n < N)
-        stats[(static_cast<size_t>(b) * N + n) * H + h] = make_float2(hi, lo);
+        stats[(static_cast<size_t>(b) * N + n) * gridDim.y + blockIdx.y] =
+            make_float2(hi, lo);
     } else {
-      const size_t srow = (static_cast<size_t>(b) * N + min(n, N - 1)) * H;
+      const size_t srow =
+          (static_cast<size_t>(b) * N + min(n, N - 1)) * gridDim.y;
       float hi = 0.0f, lo = 0.0f;
-      for (int hd = 0; hd < H; ++hd) {
+      for (int hd = 0; hd < static_cast<int>(gridDim.y); ++hd) {
         const float2 st = stats[srow + hd];
         hi = fmaxf(hi, st.x);
         lo = fminf(lo, st.y);
@@ -1254,7 +1320,7 @@ __global__ void __launch_bounds__(128)
       if (t != 0 || n >= N) continue;
       const size_t row = static_cast<size_t>(b) * N + n;
       if (rowsums != nullptr) atomicAdd(rowsums + row, static_cast<float>(sum));
-      if (h == 0) {
+      if (blockIdx.y == 0) {
         scales[row] = rq.s;
         if constexpr (MODE == 3) zps[row] = rq.zp;
       }
@@ -1274,7 +1340,7 @@ cudaError_t launch_tiled(const void* q, const void* k, const void* v,
   cudaError_t err = set_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   dim3 grid((N + TR - 1) / TR, B);
-  kernel<<<grid, H / HPW * 32, smem, st>>>(
+  kernel<<<grid, seg_warps(D, H) * 32, smem, st>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k), v, vs, vgroup, n_vgroups,
       static_cast<__nv_bfloat16*>(out), cs, static_cast<int8_t*>(codes),
@@ -1290,7 +1356,7 @@ cudaError_t launch_rows(const void* q, const void* k, const void* v,
                         void* scales, void* zp,
                         void* rowsum, int B, int N, int H, int seg,
                         float scale2, cudaStream_t st) {
-  dim3 grid((N + SEG_BQ - 1) / SEG_BQ, H, B);
+  dim3 grid((N + SEG_BQ - 1) / SEG_BQ, H * (D / rows_cols(D)), B);
   attn_seg_rows<D, INT8, MODE><<<grid, 128, 0, st>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k), v, vs, vgroup, n_vgroups,
@@ -1305,7 +1371,7 @@ cudaError_t launch_rows(const void* q, const void* k, const void* v,
 }  // namespace vq
 
 // One head dim's launchers: the full modes and the row kernel at every
-// dim, the tiled kernel at dims up to 72. PRE: empty (the explicit
+// dim, the tiled kernel at every dim but 128. PRE: empty (the explicit
 // instantiations, in the dim's own translation unit) or extern (their
 // declarations, here).
 #define VQ_K3_FULL(PRE, DD, I8)                                             \
@@ -1346,14 +1412,16 @@ VQ_K3_LAUNCHERS(extern, 32, VQ_K3_TILED_MODES)
 VQ_K3_LAUNCHERS(extern, 64, VQ_K3_TILED_MODES)
 VQ_K3_LAUNCHERS(extern, 72, VQ_K3_TILED_MODES)
 VQ_K3_LAUNCHERS(extern, 128, VQ_K3_NONE)
+VQ_K3_LAUNCHERS(extern, 192, VQ_K3_TILED_MODES)
+VQ_K3_LAUNCHERS(extern, 256, VQ_K3_TILED_MODES)
 
 using namespace vq::k3;
 
 // q [B, N, H*D], k [B, M, H*D] bf16; v bf16 [B, M, H*D], or (int8_pv)
 // the codes vt [B, H, D, Mp] from vq_attn_vquant_t (Mp = M rounded up to
 // 64) with scales vs [B, 1, H*D]; mask [B, M] int32 or null; out
-// [B, N, H*D] f32 (out_f32) or bf16. D in {16, 32, 64, 72, 128}; every
-// pointer 16-byte aligned.
+// [B, N, H*D] f32 (out_f32) or bf16. D in {16, 32, 64, 72, 128, 192,
+// 256}; every pointer 16-byte aligned.
 VQ_EXPORT int vq_attention(const void* q, const void* k, const void* v,
                            const void* vs, const void* mask, void* out,
                            int out_f32, int B, int N, int M, int H, int D,
@@ -1378,6 +1446,10 @@ VQ_EXPORT int vq_attention(const void* q, const void* k, const void* v,
     VQ_ATTN_CASE(72, 1)
     VQ_ATTN_CASE(128, 0)
     VQ_ATTN_CASE(128, 1)
+    VQ_ATTN_CASE(192, 0)
+    VQ_ATTN_CASE(192, 1)
+    VQ_ATTN_CASE(256, 0)
+    VQ_ATTN_CASE(256, 1)
 #undef VQ_ATTN_CASE
     default:
       err = cudaErrorInvalidValue;
@@ -1444,9 +1516,10 @@ VQ_EXPORT int vq_attn_row_quant(const void* o, const void* cs, void* q,
 
 // The tiled kernel: q, k [B, N, H*D] bf16; v bf16 [B, N, H*D], or (int8_pv)
 // codes vt [B, ceil(N/16), H*D, 16] with scales vs [B, n_vgroups, H*D] from
-// vq_attn_vquant_tiles; seg divides 16 (and N); H even, at most 32; D in
-// {16, 32, 64, 72} (D = 128's two heads a warp would hold 128 accumulators:
-// the row kernel takes it). emit 0: out [B, N, H*D] bf16; 1 (sym) or 2 (asym): codes
+// vq_attn_vquant_tiles; seg divides 16 (and N); D in {16, 32, 64, 72} at H
+// even, at most 32, or D in {192, 256} at H at most 8 (`seg_warps`; D =
+// 128's two heads a warp would hold 128 accumulators: the row kernel takes
+// it). emit 0: out [B, N, H*D] bf16; 1 (sym) or 2 (asym): codes
 // [B*N, H*D] int8, scales [B*N] f32, zp [B*N] f32 (asym), rowsum [B*N] f32
 // or null, of the outputs times cs [H*D] f32 (the column scales) where cs
 // is not null. Every pointer 16-byte aligned.
@@ -1460,7 +1533,8 @@ VQ_EXPORT int vq_attention_seg(const void* q, const void* k, const void* v,
   int shift = 0;
   while ((1 << shift) < seg) ++shift;
   if (seg <= 0 || (1 << shift) != seg || seg > TR || N % seg != 0 ||
-      H % HPW != 0 || H / HPW > MAX_WARPS || emit < 0 || emit > 2)
+      seg_warps(D, H) == 0 || seg_warps(D, H) > MAX_WARPS || emit < 0 ||
+      emit > 2)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* vsp = static_cast<const float*>(vs);
@@ -1484,6 +1558,8 @@ VQ_EXPORT int vq_attention_seg(const void* q, const void* k, const void* v,
     VQ_SEG_MODES(32)
     VQ_SEG_MODES(64)
     VQ_SEG_MODES(72)
+    VQ_SEG_MODES(192)
+    VQ_SEG_MODES(256)
 #undef VQ_SEG_MODES
 #undef VQ_SEG_CASE
     default:
@@ -1494,10 +1570,10 @@ VQ_EXPORT int vq_attention_seg(const void* q, const void* k, const void* v,
 
 // The row kernel: q, k [B, N, H*D] bf16; v bf16 [B, N, H*D] or (int8_pv)
 // codes [B, N, H*D] with scales [B, n_vgroups, H*D] from vq_attn_vquant;
-// N % seg == 0; D in {16, 32, 64, 72, 128}. mode 0: out [B, N, H*D] bf16;
-// 1: stats [B*N, H] float2 (each head's max(o, 0), min(o, 0)); 2 (sym) / 3
-// (asym),
-// after mode 1 on the same inputs: codes [B*N, H*D] int8, scales [B*N],
+// N % seg == 0; D in {16, 32, 64, 72, 128, 192, 256}. mode 0: out [B, N,
+// H*D] bf16; 1: stats [B*N, H * D / rows_cols(D)] float2 (each head's, or
+// each 64-column part's at D > 128, max(o, 0), min(o, 0)); 2 (sym) / 3
+// (asym), after mode 1 on the same inputs: codes [B*N, H*D] int8, scales [B*N],
 // zp [B*N] (asym), rowsum [B*N] f32 zeroed by the caller, or null. cs
 // [H*D] f32 or null: modes 1-3 take the outputs times these column scales.
 VQ_EXPORT int vq_attention_seg_rows(const void* q, const void* k,
@@ -1536,6 +1612,10 @@ VQ_EXPORT int vq_attention_seg_rows(const void* q, const void* k,
     VQ_ROWS_MODES(72, 1)
     VQ_ROWS_MODES(128, 0)
     VQ_ROWS_MODES(128, 1)
+    VQ_ROWS_MODES(192, 0)
+    VQ_ROWS_MODES(192, 1)
+    VQ_ROWS_MODES(256, 0)
+    VQ_ROWS_MODES(256, 1)
 #undef VQ_ROWS_MODES
 #undef VQ_ROWS_CASE
     default:

@@ -33,7 +33,18 @@
 //   the plain version's (one pass, no rescale); longer segments rescale
 //   once a chunk, as the core does a tile;
 // - consecutive warps take consecutive heads of the same tokens, so a
-//   block reads whole stretches of q/k/v rows.
+//   block reads whole stretches of q/k/v rows;
+// - heads wider than 128 (D = 192, 256): a unit is also one 64-column part
+//   of its head's output (consecutive warps take a head's parts): a lane
+//   holds 64 output sums where the whole head would hold D (spilling at
+//   128 already) beside D of q, and reads its q row in 64-column pieces for
+//   each chunk's q.k (the same d order, so the same sums); the unit's k
+//   rows are staged whole, its v rows at its 64 columns.
+//
+// Build: parts/attention_f32_wide.cu includes this file with
+// VQ_F32_WIDE_PART set and instantiates the D = 192 and 256 launches of the
+// float32 core and of the seg kernel alone, which the entry point here
+// declares, so that the build compiles them in parallel with the others.
 
 #include "attn_f32_core.cuh"
 
@@ -45,11 +56,20 @@ constexpr int THREADS = 32 * WARPS;
 constexpr int ROWS = 32;   // q rows of a unit, kv rows of a staged piece
 constexpr int CHUNK = 16;  // kv rows scored at once by a lane
 
+// output columns of a unit at head dim D (the head whole up to 128)
+__host__ __device__ constexpr int seg_f32_cols(int D) {
+  return D > 128 ? 64 : D;
+}
+
 template <int D>
 struct Seg {
   static_assert(D % 4 == 0, "head dim must be a multiple of 4");
-  static constexpr int RS = D + 4;  // floats a staged row (16-byte aligned)
-  static constexpr int WARP_FLOATS = 2 * ROWS * RS;  // k, then v
+  static constexpr int DV = seg_f32_cols(D);
+  static constexpr int PARTS = D / DV;
+  static constexpr int RS = D + 4;    // floats a staged k row (16-byte
+                                      // aligned)
+  static constexpr int RSV = DV + 4;  // and v row
+  static constexpr int WARP_FLOATS = ROWS * (RS + RSV);  // k, then v
   static constexpr int BYTES = WARPS * WARP_FLOATS * 4;
 };
 
@@ -59,7 +79,7 @@ __device__ __forceinline__ float bf16_round(float x) {
 
 // q/k/v/out [B, N, H*D] f32, 16-byte aligned; seg divides N
 template <int D>
-__global__ void __launch_bounds__(THREADS, 2)
+__global__ void __launch_bounds__(THREADS, D > 128 ? 1 : 2)
     attn_seg_f32_kernel(const float* __restrict__ q,
                         const float* __restrict__ k,
                         const float* __restrict__ v,
@@ -67,19 +87,24 @@ __global__ void __launch_bounds__(THREADS, 2)
                         int seg, float scale2) {
   using T = Seg<D>;
   constexpr int CH = D / 4;
+  constexpr int DV = T::DV;       // the unit's output columns
+  constexpr int CHV = DV / 4;
+  constexpr bool WIDE = DV < D;   // q read in DV-column pieces
   extern __shared__ __align__(16) float sm[];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   float* Ks = sm + warp * T::WARP_FLOATS;
   float* Vs = Ks + ROWS * T::RS;
 
-  // the unit: (b, q chunk, head), head fastest
+  // the unit: (b, q chunk, head, part), part fastest, then head
   const bool short_seg = seg <= ROWS;
   const int per_seg = short_seg ? 0 : (seg + ROWS - 1) / ROWS;
   const int unit_rows = short_seg ? (ROWS / seg) * seg : ROWS;
   const int n_chunks = short_seg ? (N + unit_rows - 1) / unit_rows
                                  : (N / seg) * per_seg;
-  const long long u = static_cast<long long>(blockIdx.x) * WARPS + warp;
-  if (u >= static_cast<long long>(B) * n_chunks * H) return;
+  const long long u0 = static_cast<long long>(blockIdx.x) * WARPS + warp;
+  if (u0 >= static_cast<long long>(B) * n_chunks * H * T::PARTS) return;
+  const int c0 = static_cast<int>(u0 % T::PARTS) * DV;
+  const long long u = u0 / T::PARTS;
   const int h = static_cast<int>(u % H);
   const int qc = static_cast<int>((u / H) % n_chunks);
   const int b = static_cast<int>(u / (static_cast<long long>(H) * n_chunks));
@@ -101,36 +126,46 @@ __global__ void __launch_bounds__(THREADS, 2)
   const bool has_row = lane < n_rows;
   const int row = r0 + lane;
 
-  float qv[D];  // this lane's q row: bf16(q * scale2)
-  float m_run = -INFINITY, r = 0.0f;
-  float acc[D];
+  // this lane's q row, bf16(q * scale2): whole, or (WIDE) the DV columns
+  // of one piece at a time
+  constexpr int QN = WIDE ? DV : D;
+  float qv[QN];
+  auto load_q = [&](int d0) {
 #pragma unroll
-  for (int d = 0; d < D; ++d) acc[d] = 0.0f;
+    for (int c = 0; c < QN / 4; ++c) {
+      float4 x = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (has_row)
+        x = *reinterpret_cast<const float4*>(
+            q + base + static_cast<size_t>(row) * C + d0 + 4 * c);
+      qv[4 * c] = bf16_round(x.x * scale2);
+      qv[4 * c + 1] = bf16_round(x.y * scale2);
+      qv[4 * c + 2] = bf16_round(x.z * scale2);
+      qv[4 * c + 3] = bf16_round(x.w * scale2);
+    }
+  };
+  float m_run = -INFINITY, r = 0.0f;
+  float acc[DV];
+#pragma unroll
+  for (int d = 0; d < DV; ++d) acc[d] = 0.0f;
 
   for (int p0 = kv_lo; p0 < kv_hi; p0 += ROWS) {
     const int p_rows = min(ROWS, kv_hi - p0);
     __syncwarp();  // every lane is done with the last piece
     for (int i = lane; i < p_rows * CH; i += 32) {
       const int rr = i / CH, c = i % CH;
-      const size_t off = base + static_cast<size_t>(p0 + rr) * C + 4 * c;
-      const uint32_t dst = (rr * T::RS + 4 * c) * 4;
-      attn_f32::f32_cp_async16(smem_u32(Ks) + dst, k + off);
-      attn_f32::f32_cp_async16(smem_u32(Vs) + dst, v + off);
+      attn_f32::f32_cp_async16(
+          smem_u32(Ks) + (rr * T::RS + 4 * c) * 4,
+          k + base + static_cast<size_t>(p0 + rr) * C + 4 * c);
+    }
+    for (int i = lane; i < p_rows * CHV; i += 32) {
+      const int rr = i / CHV, c = i % CHV;
+      attn_f32::f32_cp_async16(
+          smem_u32(Vs) + (rr * T::RSV + 4 * c) * 4,
+          v + base + static_cast<size_t>(p0 + rr) * C + c0 + 4 * c);
     }
     attn_f32::f32_cp_async_commit();
-    if (p0 == kv_lo) {  // the q row loads overlap the first piece's
-#pragma unroll
-      for (int c = 0; c < CH; ++c) {
-        float4 x = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-        if (has_row)
-          x = *reinterpret_cast<const float4*>(
-              q + base + static_cast<size_t>(row) * C + 4 * c);
-        qv[4 * c] = bf16_round(x.x * scale2);
-        qv[4 * c + 1] = bf16_round(x.y * scale2);
-        qv[4 * c + 2] = bf16_round(x.z * scale2);
-        qv[4 * c + 3] = bf16_round(x.w * scale2);
-      }
-    }
+    if (!WIDE && p0 == kv_lo) load_q(0);  // overlaps the first piece
+
     attn_f32::f32_cp_async_wait_all();
     __syncwarp();
     // k rounded to bf16 in place, once for the warp
@@ -147,50 +182,63 @@ __global__ void __launch_bounds__(THREADS, 2)
     // q row)
     const int w_lo = short_seg ? (lane / seg) * seg : 0;
     const int w_len = !has_row ? 0 : short_seg ? seg : p_rows;
-    for (int c0 = 0; c0 < w_len; c0 += CHUNK) {
+    for (int k0 = 0; k0 < w_len; k0 += CHUNK) {
       float s[CHUNK];
 #pragma unroll
       for (int jj = 0; jj < CHUNK; ++jj) s[jj] = 0.0f;
-      // s = q . k over the chunk's rows (bf16 operands: exact products)
+      // s = q . k over the chunk's rows (bf16 operands: exact products),
+      // in ascending d, in pieces of q's DV columns where WIDE (one piece
+      // live at a time)
+      auto qk = [&](int d0) {
 #pragma unroll
-      for (int c = 0; c < CH; ++c) {
+        for (int c = 0; c < QN / 4; ++c) {
 #pragma unroll
-        for (int jj = 0; jj < CHUNK; ++jj) {
-          if (c0 + jj < w_len) {
-            const float4 x = *reinterpret_cast<const float4*>(
-                Ks + (w_lo + c0 + jj) * T::RS + 4 * c);
-            float a = __fmaf_rn(qv[4 * c], x.x, s[jj]);
-            a = __fmaf_rn(qv[4 * c + 1], x.y, a);
-            a = __fmaf_rn(qv[4 * c + 2], x.z, a);
-            s[jj] = __fmaf_rn(qv[4 * c + 3], x.w, a);
+          for (int jj = 0; jj < CHUNK; ++jj) {
+            if (k0 + jj < w_len) {
+              const float4 x = *reinterpret_cast<const float4*>(
+                  Ks + (w_lo + k0 + jj) * T::RS + d0 + 4 * c);
+              float a = __fmaf_rn(qv[4 * c], x.x, s[jj]);
+              a = __fmaf_rn(qv[4 * c + 1], x.y, a);
+              a = __fmaf_rn(qv[4 * c + 2], x.z, a);
+              s[jj] = __fmaf_rn(qv[4 * c + 3], x.w, a);
+            }
           }
         }
+      };
+      if constexpr (WIDE) {
+#pragma unroll 1
+        for (int d0 = 0; d0 < D; d0 += QN) {
+          load_q(d0);
+          qk(d0);
+        }
+      } else {
+        qk(0);
       }
       float tm = -INFINITY;
 #pragma unroll
       for (int jj = 0; jj < CHUNK; ++jj)
-        if (c0 + jj < w_len) tm = fmaxf(tm, s[jj]);
+        if (k0 + jj < w_len) tm = fmaxf(tm, s[jj]);
       const float m_new = fmaxf(m_run, tm);
       const float corr = exp2f(m_run - m_new);
       m_run = m_new;
       float part = 0.0f;
 #pragma unroll
       for (int jj = 0; jj < CHUNK; ++jj) {
-        s[jj] = c0 + jj < w_len ? exp2f(s[jj] - m_new) : 0.0f;
+        s[jj] = k0 + jj < w_len ? exp2f(s[jj] - m_new) : 0.0f;
         part += s[jj];
       }
       r = r * corr + part;
-      if (c0 > 0 || p0 > kv_lo) {
+      if (k0 > 0 || p0 > kv_lo) {
 #pragma unroll
-        for (int d = 0; d < D; ++d) acc[d] *= corr;
+        for (int d = 0; d < DV; ++d) acc[d] *= corr;
       }
 #pragma unroll
       for (int jj = 0; jj < CHUNK; ++jj) {
-        if (c0 + jj < w_len) {
+        if (k0 + jj < w_len) {
 #pragma unroll
-          for (int c = 0; c < CH; ++c) {
+          for (int c = 0; c < CHV; ++c) {
             const float4 x = *reinterpret_cast<const float4*>(
-                Vs + (w_lo + c0 + jj) * T::RS + 4 * c);
+                Vs + (w_lo + k0 + jj) * T::RSV + 4 * c);
             acc[4 * c] = __fmaf_rn(s[jj], x.x, acc[4 * c]);
             acc[4 * c + 1] = __fmaf_rn(s[jj], x.y, acc[4 * c + 1]);
             acc[4 * c + 2] = __fmaf_rn(s[jj], x.z, acc[4 * c + 2]);
@@ -203,9 +251,9 @@ __global__ void __launch_bounds__(THREADS, 2)
 
   if (!has_row) return;
   const float inv = 1.0f / r;
-  float* orow = out + base + static_cast<size_t>(row) * C;
+  float* orow = out + base + static_cast<size_t>(row) * C + c0;
 #pragma unroll
-  for (int c = 0; c < CH; ++c)
+  for (int c = 0; c < CHV; ++c)
     *reinterpret_cast<float4*>(orow + 4 * c) =
         make_float4(acc[4 * c] * inv, acc[4 * c + 1] * inv,
                     acc[4 * c + 2] * inv, acc[4 * c + 3] * inv);
@@ -223,7 +271,8 @@ cudaError_t launch(const float* q, const float* k, const float* v,
   const long long n_chunks =
       seg <= ROWS ? (N + (ROWS / seg) * seg - 1) / ((ROWS / seg) * seg)
                   : static_cast<long long>(N / seg) * ((seg + ROWS - 1) / ROWS);
-  const long long units = static_cast<long long>(B) * n_chunks * H;
+  const long long units =
+      static_cast<long long>(B) * n_chunks * H * Seg<D>::PARTS;
   const long long blocks = (units + WARPS - 1) / WARPS;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
   kernel<<<static_cast<unsigned>(blocks), THREADS, smem, st>>>(
@@ -233,6 +282,29 @@ cudaError_t launch(const float* q, const float* k, const float* v,
 
 }  // namespace attn_seg_f32
 }  // namespace vq
+
+#define VQ_SEG_F32_LAUNCH(PRE, DD)                                        \
+  PRE template cudaError_t vq::attn_seg_f32::launch<DD>(                  \
+      const float*, const float*, const float*, float*, int, int, int,   \
+      int, float, cudaStream_t);
+
+#ifdef VQ_F32_WIDE_PART
+VQ_SEG_F32_LAUNCH(, 192)
+VQ_SEG_F32_LAUNCH(, 256)
+
+cudaError_t vq::attn_f32::launch_core_wide(
+    const float* q, const float* k, const float* v, const int* mask,
+    float* out, int B, int N, int M, int H, int D, float scale2,
+    cudaStream_t st) {
+  if (D == 192)
+    return launch_core<192>(q, k, v, mask, out, B, N, M, H, scale2, st);
+  if (D == 256)
+    return launch_core<256>(q, k, v, mask, out, B, N, M, H, scale2, st);
+  return cudaErrorInvalidValue;
+}
+#else  // the entry point
+VQ_SEG_F32_LAUNCH(extern, 192)
+VQ_SEG_F32_LAUNCH(extern, 256)
 
 // q [B, N, H*D], k/v [B, M, H*D], out [B, N, H*D], all f32 and 16-byte
 // aligned; mask [B, M] int32 or null; seg > 0: block-diagonal in segments
@@ -265,9 +337,13 @@ VQ_EXPORT int vq_attention_f32(const void* q, const void* k, const void* v,
     VQ_SEG_F32_CASE(64)
     VQ_SEG_F32_CASE(72)
     VQ_SEG_F32_CASE(128)
+    VQ_SEG_F32_CASE(192)
+    VQ_SEG_F32_CASE(256)
 #undef VQ_SEG_F32_CASE
     default:
       err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);
 }
+
+#endif  // VQ_F32_WIDE_PART

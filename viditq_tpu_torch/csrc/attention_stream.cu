@@ -37,12 +37,19 @@
 // rescale is applied to the accumulator before the block's PV tiles are
 // added to it (acc * corr + pv with pv summed into acc, one f32 register
 // set fewer); the int8 PV keeps its block sum apart, exact, and adds
-// float(sum) * vs/127^2 once per block.
+// float(sum) * vs/127^2 once per block. Heads wider than 128 split their
+// output columns over two blocks (attn_core.cuh, `block_cols`): each walks
+// the whole recurrence, the same max, corr and row sum, for its half.
+//
+// Build: parts/attention_stream_wide.cu includes this file with
+// VQ_K6_PART set and instantiates the launchers of D = 192 and 256 alone,
+// which the entry point here declares extern, so that the build compiles
+// them in parallel with the others.
 #include "attn_core.cuh"
 
-namespace {
+namespace vq {
+namespace k6 {
 
-using namespace vq;
 using namespace vq::attn;
 
 template <int D, bool INT8>
@@ -54,31 +61,34 @@ __global__ void __launch_bounds__(THREADS, D > 72 ? 1 : 2)
                        const int* __restrict__ mask,
                        __nv_bfloat16* __restrict__ out, int N, int M, int H,
                        int bkv, float scale2) {
-  using T = Tile<D>;
+  constexpr int DV = block_cols(D);  // this block's output columns
+  using T = Tile<D, DV>;
   extern __shared__ __align__(128) uint8_t smem[];
   uint8_t* qs = smem;
   uint8_t* ring = smem + T::Q_BYTES;
   const Lane ln;
   const int b = blockIdx.z;
-  const int h = blockIdx.y;
+  const int h = blockIdx.y / (D / DV);
+  const int c0 = blockIdx.y % (D / DV) * DV;  // the head's first column here
   const int q0 = blockIdx.x * BQ;
   const int C = H * D;
   const bool masked = mask != nullptr;
-  zero_pads<D, INT8>(ring);
+  zero_pads<D, DV, INT8>(ring);
   load_q<D>(qs, q, b, h, q0, N, C, scale2);
 
   const int nb = bkv / BKV;         // tiles per kv block
   const int steps = 2 * (M / BKV);  // every block walked twice
   auto slot_of = [&](int step) {
-    return Slot<D>(ring + (step % STAGES) * T::STAGE_BYTES);
+    return Slot<D, DV>(ring + (step % STAGES) * T::STAGE_BYTES);
   };
   auto kv_of = [&](int step) {
     return ((step / (2 * nb)) * nb + (step % (2 * nb)) % nb) * BKV;
   };
   auto prefetch = [&](int step) {
     if (step < steps)
-      load_tile<D, INT8>(slot_of(step), k, v, mask, b, h, kv_of(step), M, M,
-                         M, C, H, step % (2 * nb) >= nb);
+      load_tile<D, DV, INT8>(slot_of(step), k, v, mask, b, h, c0,
+                             kv_of(step), M, M, M, C, H,
+                             step % (2 * nb) >= nb);
     cp_async_commit();
   };
 #pragma unroll
@@ -98,10 +108,10 @@ __global__ void __launch_bounds__(THREADS, D > 72 ? 1 : 2)
     fence_proxy_async();
     __syncthreads();
     prefetch(step + STAGES - 1);
-    const Slot<D> slot = slot_of(step);
+    const Slot<D, DV> slot = slot_of(step);
     const int w = step % (2 * nb);
     float s[32];
-    scores<D>(s, qs, slot, ln, kv_of(step), M, masked);
+    scores<D, DV>(s, qs, slot, ln, kv_of(step), M, masked);
     if (w < nb) {
       // pass 1: the row max over the whole kv block
       if (w == 0) bm[0] = bm[1] = -INFINITY;
@@ -132,11 +142,11 @@ __global__ void __launch_bounds__(THREADS, D > 72 ? 1 : 2)
     if constexpr (INT8) {
       uint32_t a[BKV / 32][4];
       pack_codes(a, s);
-      pv_s8<D>(pvi, a, slot, w > nb ? 1 : 0);
+      pv_s8<D, DV>(pvi, a, slot, w > nb ? 1 : 0);
     } else {
       uint32_t p[BKV / 16][4];
       pack_p(p, s, [](float x, int) { return x; });
-      pv_bf16<D>(acc, p, slot, 1);
+      pv_bf16<D, DV>(acc, p, slot, 1);
     }
     if (w == 2 * nb - 1) {
 #pragma unroll
@@ -145,7 +155,7 @@ __global__ void __launch_bounds__(THREADS, D > 72 ? 1 : 2)
         m_run[hh] = m_new[hh];
       }
       if constexpr (INT8) {
-        const float* vsr = vscale + static_cast<size_t>(b) * C + h * D;
+        const float* vsr = vscale + static_cast<size_t>(b) * C + h * D + c0;
 #pragma unroll
         for (int i = 0; i < T::NO; ++i) {
           const int d = 8 * (i >> 2) + 2 * ln.t4 + (i & 1);
@@ -160,8 +170,8 @@ __global__ void __launch_bounds__(THREADS, D > 72 ? 1 : 2)
   cp_async_wait<0>();
   const float inv[2] = {1.0f / fmaxf(r_run[0], 1e-30f),
                         1.0f / fmaxf(r_run[1], 1e-30f)};
-  store_out<D>(ring, out, ln, b, h, q0, N, C,
-               [&](int i) { return acc[i] * inv[(i >> 1) & 1]; });
+  store_out<DV>(ring, out, ln, b, h * D + c0, q0, N, C,
+                [&](int i) { return acc[i] * inv[(i >> 1) & 1]; });
 }
 
 template <int D, bool INT8>
@@ -169,10 +179,10 @@ cudaError_t launch(const void* q, const void* k, const void* v,
                    const float* vs, const int* mask, void* out, int B, int N,
                    int M, int H, int bkv, float scale2, cudaStream_t st) {
   auto kernel = attn_stream_kernel<D, INT8>;
-  const int smem = Tile<D>::SMEM_BYTES;
+  const int smem = Tile<D, block_cols(D)>::SMEM_BYTES;
   cudaError_t err = set_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  dim3 grid((N + BQ - 1) / BQ, H, B);
+  dim3 grid((N + BQ - 1) / BQ, H * (D / block_cols(D)), B);
   kernel<<<grid, THREADS, smem, st>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k), v, vs, mask,
@@ -180,18 +190,32 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-}  // namespace
+}  // namespace k6
+}  // namespace vq
+
+#define VQ_K6_LAUNCH(PRE, DD, I8)                                       \
+  PRE template cudaError_t vq::k6::launch<DD, I8>(                      \
+      const void*, const void*, const void*, const float*, const int*,  \
+      void*, int, int, int, int, int, float, cudaStream_t);
+#define VQ_K6_WIDE(PRE)                                                 \
+  VQ_K6_LAUNCH(PRE, 192, false) VQ_K6_LAUNCH(PRE, 192, true)           \
+  VQ_K6_LAUNCH(PRE, 256, false) VQ_K6_LAUNCH(PRE, 256, true)
+
+#ifdef VQ_K6_PART
+VQ_K6_WIDE()
+#else  // the entry point
+VQ_K6_WIDE(extern)
 
 // q [B, N, H*D], k [B, M, H*D] bf16; v bf16 [B, M, H*D], or (int8_pv) the
 // codes from vq_attn_vquant_t at Mp = M ([B, H, D, M] int8, kv_perm order)
 // with scales vs [B, 1, H*D]; mask [B, M] int32 or null; out [B, N, H*D]
-// bf16. D in {16, 32, 64, 72, 128}; bkv a multiple of 64 dividing M; every
-// pointer 16-byte aligned.
+// bf16. D in {16, 32, 64, 72, 128, 192, 256}; bkv a multiple of 64
+// dividing M; every pointer 16-byte aligned.
 VQ_EXPORT int vq_attention_stream(const void* q, const void* k, const void* v,
                                   const void* vs, const void* mask, void* out,
                                   int B, int N, int M, int H, int D, int bkv,
                                   float scale2, int int8_pv, void* stream) {
-  if (bkv <= 0 || bkv % BKV != 0 || M % bkv != 0)
+  if (bkv <= 0 || bkv % vq::attn::BKV != 0 || M % bkv != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* vsp = static_cast<const float*>(vs);
@@ -200,8 +224,8 @@ VQ_EXPORT int vq_attention_stream(const void* q, const void* k, const void* v,
   switch (D * 2 + (int8_pv ? 1 : 0)) {
 #define VQ_STREAM_CASE(DD, I8)                                              \
   case DD * 2 + I8:                                                         \
-    err = launch<DD, I8 != 0>(q, k, v, vsp, mp, out, B, N, M, H, bkv,       \
-                              scale2, st);                                  \
+    err = vq::k6::launch<DD, I8 != 0>(q, k, v, vsp, mp, out, B, N, M, H,    \
+                                      bkv, scale2, st);                     \
     break;
     VQ_STREAM_CASE(16, 0)
     VQ_STREAM_CASE(16, 1)
@@ -213,9 +237,15 @@ VQ_EXPORT int vq_attention_stream(const void* q, const void* k, const void* v,
     VQ_STREAM_CASE(72, 1)
     VQ_STREAM_CASE(128, 0)
     VQ_STREAM_CASE(128, 1)
+    VQ_STREAM_CASE(192, 0)
+    VQ_STREAM_CASE(192, 1)
+    VQ_STREAM_CASE(256, 0)
+    VQ_STREAM_CASE(256, 1)
 #undef VQ_STREAM_CASE
     default:
       err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);
 }
+
+#endif  // VQ_K6_PART

@@ -52,6 +52,13 @@
 //   an SM (211 registers a thread) the conversion and its two barriers a
 //   tile leave the tensor cores idle (PERF.md §6).
 // - A kv tile masked whole (or past M) adds e = 0 with corr = 1: skipped.
+// - Heads wider than 128 (D = 192, 256): a block owns 64 of the head's
+//   output columns (`f32_cols`; the grid's y axis runs over (head, part)).
+//   Its q.k and online softmax run over the whole head, the same
+//   arithmetic in every part's block; its raw v, v^T hi/lo, PV and output
+//   hold its 64 columns. So a thread holds 32 output sums beside its q
+//   fragments (64 registers at 256), and the raw k (66.5 KB at 256), raw v
+//   and converted tiles fit 150 KB, for the q.k taken once a part.
 //
 // Bound on the card: operations. At N = M = 4096 (PixArt-Σ's
 // self-attention) or N = M = 1024 over 32 batch rows (STDiT's spatial), 16
@@ -70,28 +77,37 @@ constexpr int BQ = 64 * WGS;        // q rows a block: 64 a warpgroup
 constexpr int BKV = 64;             // kv rows a tile
 constexpr int THREADS = 128 * WGS;
 
+// output columns of a block at head dim D (above 128: a block per 64)
+__host__ __device__ constexpr int f32_cols(int D) {
+  return D > 128 ? 64 : D;
+}
+
 // Shared memory: the raw tile, then the converted operands.
 // Layouts (no swizzle; a core matrix is 8 rows of 16 bytes, contiguous):
 // k as [8-d chunk][kv row][16 bytes] bf16 (K-major B of q.k, the chunk
-// past D zero), v^T hi and lo as [4-kv chunk][d row][16 bytes] tf32
-// (K-major B of the PV; chunk 2s holds kv rows 8s + {0, 2, 4, 6}, chunk
-// 2s + 1 rows 8s + {1, 3, 5, 7}), then the valid flags.
-template <int D>
+// past D zero), v^T hi and lo of the block's DV columns as [4-kv
+// chunk][d row][16 bytes] tf32 (K-major B of the PV; chunk 2s holds kv
+// rows 8s + {0, 2, 4, 6}, chunk 2s + 1 rows 8s + {1, 3, 5, 7}), then the
+// valid flags.
+template <int D, int DV = f32_cols(D)>
 struct Core {
-  static_assert(D % 8 == 0, "head dim must be a multiple of 8");
+  static_assert(D % 8 == 0 && D % DV == 0, "head dim must be a multiple "
+                "of 8, and of the block's columns");
   static constexpr int KP = (D + 15) / 16 * 16;  // D padded to k16 steps
   static constexpr int KS = KP / 16;             // k16 steps of q.k
-  static constexpr int NO = D / 2;               // PV sums a thread
-  // columns of one PV product: D = 128 runs two of 64 one after the
+  static constexpr int NO = DV / 2;              // PV sums a thread
+  // columns of one PV product: DV = 128 runs two of 64 one after the
   // other, so one half's sums are live at a time (registers)
-  static constexpr int PW = D > 72 ? 64 : D;
-  static constexpr int CH = D / 4;               // 16-byte chunks a row
-  static constexpr int RAW = D + 4;  // floats a raw row (16-byte aligned)
+  static constexpr int PW = DV > 72 ? 64 : DV;
+  static constexpr int CH = D / 4;               // 16-byte chunks a k row
+  static constexpr int CHV = DV / 4;             // and a v row
+  static constexpr int RAWK = D + 4;  // floats a raw row (16-byte aligned)
+  static constexpr int RAWV = DV + 4;
   static constexpr int RAW_K = 0;
-  static constexpr int RAW_V = RAW_K + BKV * RAW * 4;
-  static constexpr int RAW_M = RAW_V + BKV * RAW * 4;
+  static constexpr int RAW_V = RAW_K + BKV * RAWK * 4;
+  static constexpr int RAW_M = RAW_V + BKV * RAWV * 4;
   static constexpr int K_LBO = BKV * 16;  // next 8-d chunk of k
-  static constexpr int V_LBO = D * 16;    // next 4-kv chunk of v^T
+  static constexpr int V_LBO = DV * 16;   // next 4-kv chunk of v^T
   static constexpr int S_K = 0;
   static constexpr int S_VH = S_K + (KP / 8) * K_LBO;
   static constexpr int S_VL = S_VH + (BKV / 4) * V_LBO;
@@ -100,7 +116,8 @@ struct Core {
   static constexpr int STAGE0 = (RAW_M + BKV * 4 + 127) / 128 * 128;
   static constexpr int BYTES = STAGE0 + STAGE;
   static constexpr int K_ITEMS = BKV * (D / 8);   // 16-byte k chunks
-  static constexpr int V_ITEMS = (BKV / 4) * D;   // v^T rows of 16 bytes
+  static constexpr int V_ITEMS = (BKV / 4) * DV;  // v^T rows of 16 bytes
+  static_assert(BYTES <= 232448, "shared memory of a block");
 };
 
 __device__ __forceinline__ uint32_t f32_bf16x2(float lo, float hi) {
@@ -263,7 +280,8 @@ __device__ __forceinline__ void wgmma_pv(float (&d)[32],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
 }
 
-// the raw kv tile at t0 (k, v rows < M; the mask entries) by cp.async
+// the raw kv tile at t0 (k, v rows < M; the mask entries) by cp.async;
+// vb points at the block's first v column
 template <int D>
 __device__ __forceinline__ void issue_tile(uint8_t* smem, const float* kb,
                                            const float* vb,
@@ -272,14 +290,29 @@ __device__ __forceinline__ void issue_tile(uint8_t* smem, const float* kb,
   using T = Core<D>;
   const uint32_t rk = smem_u32(smem + T::RAW_K);
   const uint32_t rv = smem_u32(smem + T::RAW_V);
-  for (int i = threadIdx.x; i < BKV * T::CH; i += THREADS) {
-    const int r = i / T::CH, c = i % T::CH;
-    const int m = t0 + r;
-    if (m < M) {
-      const size_t off = static_cast<size_t>(m) * C + c * 4;
-      const uint32_t dst = (r * T::RAW + c * 4) * 4;
-      f32_cp_async16(rk + dst, kb + off);
-      f32_cp_async16(rv + dst, vb + off);
+  if constexpr (T::CHV == T::CH) {
+    for (int i = threadIdx.x; i < BKV * T::CH; i += THREADS) {
+      const int r = i / T::CH, c = i % T::CH;
+      const int m = t0 + r;
+      if (m < M) {
+        const size_t off = static_cast<size_t>(m) * C + c * 4;
+        const uint32_t dst = (r * T::RAWK + c * 4) * 4;
+        f32_cp_async16(rk + dst, kb + off);
+        f32_cp_async16(rv + dst, vb + off);
+      }
+    }
+  } else {
+    for (int i = threadIdx.x; i < BKV * T::CH; i += THREADS) {
+      const int r = i / T::CH, c = i % T::CH;
+      if (t0 + r < M)
+        f32_cp_async16(rk + (r * T::RAWK + c * 4) * 4,
+                       kb + static_cast<size_t>(t0 + r) * C + c * 4);
+    }
+    for (int i = threadIdx.x; i < BKV * T::CHV; i += THREADS) {
+      const int r = i / T::CHV, c = i % T::CHV;
+      if (t0 + r < M)
+        f32_cp_async16(rv + (r * T::RAWV + c * 4) * 4,
+                       vb + static_cast<size_t>(t0 + r) * C + c * 4);
     }
   }
   const int tid = threadIdx.x;
@@ -313,8 +346,8 @@ __device__ __forceinline__ bool convert_tile(uint8_t* smem, uint8_t* stage,
       const int r = i % BKV, c = i / BKV;
       float4 x0 = make_float4(0.0f, 0.0f, 0.0f, 0.0f), x1 = x0;
       if (t0 + r < M) {
-        x0 = *reinterpret_cast<const float4*>(rawk + r * T::RAW + 8 * c);
-        x1 = *reinterpret_cast<const float4*>(rawk + r * T::RAW + 8 * c + 4);
+        x0 = *reinterpret_cast<const float4*>(rawk + r * T::RAWK + 8 * c);
+        x1 = *reinterpret_cast<const float4*>(rawk + r * T::RAWK + 8 * c + 4);
       }
       *reinterpret_cast<uint4*>(stage + T::S_K + c * T::K_LBO + r * 16) =
           make_uint4(f32_bf16x2(x0.x, x0.y), f32_bf16x2(x0.z, x0.w),
@@ -326,13 +359,14 @@ __device__ __forceinline__ bool convert_tile(uint8_t* smem, uint8_t* stage,
   for (int s = 0; s < (T::V_ITEMS + THREADS - 1) / THREADS; ++s) {
     const int i = tid + s * THREADS;
     if (i < T::V_ITEMS) {
-      const int d = i % D, ch = i / D;
+      constexpr int DV = T::NO * 2;
+      const int d = i % DV, ch = i / DV;
       const int r0 = (ch >> 1) * 8 + (ch & 1);
       uint32_t hi[4], lo[4];
 #pragma unroll
       for (int p = 0; p < 4; ++p) {
         const int r = r0 + 2 * p;
-        split_tf32(t0 + r < M ? rawv[r * T::RAW + d] : 0.0f, hi[p], lo[p]);
+        split_tf32(t0 + r < M ? rawv[r * T::RAWV + d] : 0.0f, hi[p], lo[p]);
       }
       *reinterpret_cast<uint4*>(stage + T::S_VH + ch * T::V_LBO + d * 16) =
           make_uint4(hi[0], hi[1], hi[2], hi[3]);
@@ -344,14 +378,21 @@ __device__ __forceinline__ bool convert_tile(uint8_t* smem, uint8_t* stage,
   return true;
 }
 
+// The core's launch at D = 192 and 256, instantiated once, in
+// parts/attention_f32_wide.cu (its own translation unit, which the build
+// compiles in parallel with the others).
+cudaError_t launch_core_wide(const float* q, const float* k, const float* v,
+                             const int* mask, float* out, int B, int N, int M,
+                             int H, int D, float scale2, cudaStream_t st);
+
 // The kernel and its launch have internal linkage: the two sources that
-// launch the core each hold their own instance.
+// launch the core each hold their own instance of the narrower dims.
 namespace {
 
 // q [B, N, H*D], k/v [B, M, H*D], out [B, N, H*D], all f32, 16-byte
 // aligned; mask [B, M] int32 (1 = attend) or null; scale2 = scale*log2(e).
-// Grid (ceil(N / BQ), H, B), THREADS threads, Core<D>::BYTES of shared
-// memory.
+// Grid (ceil(N / BQ), H * D / f32_cols(D), B), THREADS threads,
+// Core<D>::BYTES of shared memory.
 template <int D>
 __global__ void __launch_bounds__(THREADS, 1)
     attn_f32_core_kernel(const float* __restrict__ q,
@@ -361,15 +402,18 @@ __global__ void __launch_bounds__(THREADS, 1)
                          float* __restrict__ out, int N, int M, int H,
                          float scale2) {
   using T = Core<D>;
+  constexpr int DV = f32_cols(D);  // this block's output columns
   extern __shared__ __align__(128) uint8_t smem[];
   const int tid = threadIdx.x, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
   const int row0 = (tid >> 5) * 16 + g;  // rows row0, row0 + 8 of the block
-  const int n0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
+  const int n0 = blockIdx.x * BQ, b = blockIdx.z;
+  const int h = blockIdx.y / (D / DV);
+  const int c0 = blockIdx.y % (D / DV) * DV;  // the head's first column here
   const int C = H * D;
   const float* qb = q + static_cast<size_t>(b) * N * C + h * D;
   const float* kb = k + static_cast<size_t>(b) * M * C + h * D;
-  const float* vb = v + static_cast<size_t>(b) * M * C + h * D;
+  const float* vb = v + static_cast<size_t>(b) * M * C + h * D + c0;
   const int* maskb =
       mask == nullptr ? nullptr : mask + static_cast<size_t>(b) * M;
   uint8_t* st = smem + T::STAGE0;
@@ -474,7 +518,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     // acc = acc * corr + pv on the CUDA cores; PW columns (d rows of v^T)
     // at a time
 #pragma unroll
-    for (int part = 0; part < D / T::PW; ++part) {
+    for (int part = 0; part < DV / T::PW; ++part) {
       float pv[T::PW / 2];
       wgmma_fence();
 #pragma unroll
@@ -497,7 +541,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
 
   // o = acc * (1 / max(r, 1e-30))
-  float* ob = out + static_cast<size_t>(b) * N * C + h * D;
+  float* ob = out + static_cast<size_t>(b) * N * C + h * D + c0;
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
     const float r = f32_quad_sum(r_part[hh]);
@@ -506,7 +550,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     if (n >= N) continue;
     float* orow = ob + static_cast<size_t>(n) * C + 2 * t;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
+    for (int j = 0; j < DV / 8; ++j)
       *reinterpret_cast<float2*>(orow + 8 * j) = make_float2(
           acc[4 * j + 2 * hh] * inv, acc[4 * j + 2 * hh + 1] * inv);
   }
@@ -521,11 +565,12 @@ cudaError_t launch_core(const float* q, const float* k, const float* v,
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  dim3 grid((N + BQ - 1) / BQ, H, B);
+  dim3 grid((N + BQ - 1) / BQ, H * (D / f32_cols(D)), B);
   kernel<<<grid, THREADS, smem, st>>>(q, k, v, mask, out, N, M, H, scale2);
   return cudaGetLastError();
 }
 
+#ifndef VQ_F32_WIDE_PART
 // the C entry points' dispatch over the head dims the port instantiates
 cudaError_t launch_core_any(const float* q, const float* k, const float* v,
                             const int* mask, float* out, int B, int N, int M,
@@ -541,10 +586,14 @@ cudaError_t launch_core_any(const float* q, const float* k, const float* v,
     VQ_CORE_CASE(72)
     VQ_CORE_CASE(128)
 #undef VQ_CORE_CASE
+    case 192:
+    case 256:
+      return launch_core_wide(q, k, v, mask, out, B, N, M, H, D, scale2, st);
     default:
       return cudaErrorInvalidValue;
   }
 }
+#endif
 
 }  // namespace
 

@@ -76,8 +76,10 @@ from viditq_tpu_torch.kernels.fused_matmul import (balance_cols,
 LOG2E = float(math.log2(math.e))
 # head dims instantiated in csrc/attention*.cu, attn_core.cuh and
 # attn_f32_core.cuh; a CUDA call at any other D up to the widest is padded
-# with zero channels to the next of them (`_padded_heads`)
-KERNEL_HEAD_DIMS = (16, 32, 64, 72, 128)
+# with zero channels to the next of them (`_padded_heads`). Heads wider
+# than 128 split their output columns over blocks (or warps), each taking
+# the whole head's q.k (csrc/attn_core.cuh `block_cols`).
+KERNEL_HEAD_DIMS = (16, 32, 64, 72, 128, 192, 256)
 # JAX's gate of its attention kernels (attention.py:834): H * D * 2 bytes
 # <= 4096, so H * D <= MAX_HD
 MAX_HD = 2048
@@ -92,6 +94,13 @@ SEG_TILE = 16
 SEG_MAX_HEADS = 32
 SEG_MAX_V_BLOCK = 1024
 SEG_TILED_HEAD_DIMS = (16, 32, 64, 72)
+# ... and at the wide head dims, a warp a half head (`seg_parts`): H <=
+# SEG_WIDE_MAX_HEADS, any H
+SEG_WIDE_HEAD_DIMS = (192, 256)
+SEG_WIDE_MAX_HEADS = 8
+# the row kernel's output columns a block at head dims above 128
+# (`rows_cols`): its emission's range statistic is one per such part
+SEG_ROWS_WIDE_COLS = 64
 # full/masked attention over more kv rows than this streams them (K6)
 ONESHOT_MAX_M = 2048
 KV_TILE = 64  # kv rows per tile of csrc/attn_core.cuh
@@ -106,9 +115,18 @@ def seg_tiled(heads: int, seg_len: int, int8_pv: bool,
               v_block: Optional[int], head_dim: int) -> bool:
     """Whether seg mode runs the tiled kernel on the card (else the row
     kernel): a shape rule, the same for every input."""
-    return (SEG_TILE % seg_len == 0 and heads % 2 == 0
-            and heads <= SEG_MAX_HEADS and head_dim in SEG_TILED_HEAD_DIMS
+    heads_ok = ((heads % 2 == 0 and heads <= SEG_MAX_HEADS
+                 and head_dim in SEG_TILED_HEAD_DIMS)
+                or (heads <= SEG_WIDE_MAX_HEADS
+                    and head_dim in SEG_WIDE_HEAD_DIMS))
+    return (SEG_TILE % seg_len == 0 and heads_ok
             and (not int8_pv or v_block <= SEG_MAX_V_BLOCK))
+
+
+def seg_rows_parts(head_dim: int) -> int:
+    """Blocks a head of the seg row kernel (csrc/attention.cu
+    `rows_cols`): 1, or one a SEG_ROWS_WIDE_COLS columns above 128."""
+    return head_dim // SEG_ROWS_WIDE_COLS if head_dim > 128 else 1
 
 
 def _padded_heads(fn, q, k, v, col_scale=None, emit=False, emit_sym=True):
@@ -120,12 +138,16 @@ def _padded_heads(fn, q, k, v, col_scale=None, emit=False, emit_sym=True):
     range both hold 0); sym codes there are 0 and asym ones the zero
     point, which the row sum loses again (H * pad * zp, exact integers in
     f32). The output, or the emitted codes, are sliced back to D. Raises
-    above JAX's gate (H * D > MAX_HD) and above the widest instantiation."""
+    above JAX's gate (H * D > MAX_HD), above the widest instantiation, and
+    where the padded heads pass the gate (H * Dp > MAX_HD)."""
     B, N, H, D = q.shape
     require(H * D <= MAX_HD, f"H * D = {H * D} above {MAX_HD}, JAX's gate")
     require(D <= KERNEL_HEAD_DIMS[-1], f"head dim {D}: the CUDA attention "
-            f"kernels take D <= {KERNEL_HEAD_DIMS[-1]}")
+            f"kernels take D <= {KERNEL_HEAD_DIMS[-1]} (wider heads would "
+            "sum q.k over D in pieces whose q tile exceeds shared memory)")
     Dp = next(w for w in KERNEL_HEAD_DIMS if w >= D)
+    require(H * Dp <= MAX_HD, f"head dim {D} pads to {Dp}: H * {Dp} = "
+            f"{H * Dp} above {MAX_HD}")
 
     def pad(t):
         return torch.nn.functional.pad(t, (0, Dp - D))
@@ -801,8 +823,9 @@ def _attention_seg_cuda(q3, k3, v3, H, scale2, seg_len, int8_pv, v_block,
         _build.check(lib.vq_attention_seg(*ins, *outs, mode, stream),
                      "vq_attention_seg")
     else:
-        stats = (torch.empty((B * N, H, 2), dtype=torch.float32,
-                             device=q3.device) if emit else None)
+        stats = (torch.empty((B * N, H * seg_rows_parts(D), 2),
+                             dtype=torch.float32, device=q3.device)
+                 if emit else None)
         for m in ((1, mode + 1) if emit else (0,)):
             _build.check(lib.vq_attention_seg_rows(*ins, _ptr(stats), *outs,
                                                    m, stream),

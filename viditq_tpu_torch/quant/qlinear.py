@@ -110,6 +110,7 @@ from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from viditq_tpu_torch.kernels._common import rdiv
@@ -119,7 +120,8 @@ from viditq_tpu_torch.kernels.fused_matmul import (fused_dynq_int8_matmul,
 from viditq_tpu_torch.kernels.int_matmul import (dynamic_quant_rows,
                                                  int8_matmul,
                                                  quantized_linear_native)
-from viditq_tpu_torch.parallel.comm import copy_to_group, reduce_from_group
+from viditq_tpu_torch.parallel.comm import (all_reduce_, copy_to_group,
+                                            reduce_from_group)
 from viditq_tpu_torch.quant import core
 from viditq_tpu_torch.quant.spec import (LayerQuantSpec, QuantSpec,
                                          SmoothQuantSpec)
@@ -207,6 +209,28 @@ def abs_max_per_channel(x: torch.Tensor) -> torch.Tensor:
     quant_layer.py:117,120)."""
     m = x.float().abs().amax(dim=-2)
     return m.reshape(-1, m.shape[-1]).mean(dim=0)
+
+
+def pooled_abs_max_per_channel(x: torch.Tensor, group,
+                               packed: bool = False) -> torch.Tensor:
+    """`abs_max_per_channel` of the global batch when x holds one rank's
+    rows of it (group: the ranks sharing the batch; None: x's alone), for
+    the 'dynamic' CB type. Each row's maxima over the token axis are the
+    same on any rank, so the global mean over rows is the ranks' summed row
+    maxima over their summed row count (one all-reduce). The sums are taken
+    in float64 and the mean rounded to float32 once, so it is the same
+    float32 value whichever rank holds which rows: an ulp of cs moves the
+    int8 codes it divides, and sampling carries the moves on. packed: x is
+    one row whose token axis spans the batch (the packed prompt view),
+    pooled by max, its maximum over every rank's tokens."""
+    m = x.float().abs().amax(dim=-2)
+    m = m.reshape(-1, m.shape[-1])
+    if packed and group is not None:
+        return all_reduce_(m.amax(dim=0), group, dist.ReduceOp.MAX)
+    both = torch.cat([m.double().sum(dim=0), m.new_full((1,), m.shape[0],
+                                                         dtype=torch.float64)])
+    both = all_reduce_(both, group)
+    return (both[:-1] / both[-1]).float()
 
 
 def divide_cols(x: torch.Tensor, cs: torch.Tensor) -> torch.Tensor:
@@ -513,16 +537,16 @@ class QuantLinear(nn.Module):
     def dynamic_balance(self, x: torch.Tensor, tr: int) -> torch.Tensor:
         """cs of the 'dynamic' CB type (qlinear.py:518-526): from this
         input's per-channel act maxima (stat view) and the kernel's, with
-        timerange tr's alpha as a float32 scalar, as JAX gathers it. Its
-        statistic is not pooled across the ranks of `core.pooled_over`."""
-        if core.pool_group() is not None:
-            raise NotImplementedError(
-                "the 'dynamic' channel-balance type under batch-sharded "
-                "sampling (its act maxima would span one rank's rows)")
+        timerange tr's alpha as a float32 scalar, as JAX gathers it. Under
+        `core.pooled_over` (batch-sharded sampling) the act maxima span
+        every rank's rows (`pooled_abs_max_per_channel`), as JAX's GSPMD
+        keeps the batch whole."""
         alpha = torch.tensor(self.smooth.alpha_for_range(tr),
                              dtype=torch.float32, device=self.kernel.device)
         return core.smooth_quant_scale(
-            abs_max_per_channel(self.stat_view(x)),
+            pooled_abs_max_per_channel(
+                self.stat_view(x), core.pool_group(),
+                self.seg_len == 0 and self.stat_layout == "packed_prompt"),
             self.kernel.float().abs().amax(dim=-1), alpha)
 
     def inv_balance(self, qctx: Optional[QuantCtx]) -> Optional[torch.Tensor]:
