@@ -105,6 +105,7 @@ work (tableaus, the loop's Python) inside the wall.
 
 from __future__ import annotations
 
+import re
 import sys
 import time
 from collections import defaultdict
@@ -142,6 +143,12 @@ GROUPS = (
 
 def group_of(name: str) -> str:
     low = name.lower()
+    # the wide heads' kernel (D = 192, 256) is K3's full modes or K6: its
+    # third template argument is STREAM
+    wide = re.search(r"attn_wide_kernel<\d+, \w+, (\w+)>", low)
+    if wide:
+        return ("K6 attention (stream)" if wide.group(1) == "true"
+                else "K3 attention (one-shot)")
     for frag, grp in GROUPS:
         if frag in low:
             return grp

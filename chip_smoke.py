@@ -2522,7 +2522,11 @@ def head_dim_cases(records):
                                     q, k, v, sc, A.stream_kv_block(N, N, C))),
                        records, cost=(4 * B * (2 * N + 2 * kvl) * C,
                                       {"bf16": prods, "tf32": 3 * prods}),
-                       rel_err=F32_REL_ERR)
+                       rel_err=F32_REL_ERR,
+                       library_fn=None if segl or m is not None
+                       else sdpa(q, k, v, sc),
+                       library_note=" (scaled_dot_product_attention "
+                       "float32, TF32 off)")
             del q, k, v
 
 
@@ -2567,8 +2571,16 @@ def wide_path_cases(records):
     seg 16 in bf16 (beside SDPA) and sm8's int8 PV with the emission, cross
     [2, 16384] over the 120-token prompt (the second padded from 100) in
     bf16 and sm8's int8 PV with the emission; `dit_l_h4` (DiT-L/2 in 4
-    heads of 256): K6 over [2, 4096] in bf16 (beside SDPA) and sm8's
-    emission through K4."""
+    heads of 256): K6 over [2, 4096] in bf16 (beside SDPA), its int8 PV
+    and sm8's emission through K4. Then the edges of the wide kernels'
+    tiling (blocks of 64 q rows, kv tiles of 64 whose scores two
+    warpgroups split at 32 columns), each back to back beside its bound,
+    at 192 and 256: a partial last q block and kv tile ([2, 1000] over
+    1000, bf16 and int8 PV), a kv range below one tile (kv 40, the second
+    row's from 30 masked; a warpgroup's 32 columns all masked; bf16 and
+    the int8 PV with the sym emission), and the CPU parity tests' shapes
+    (tests/test_torch_head_dims_wide.py: K3 full and masked at N = 200, K6
+    over kv 2176 in 17 blocks of 128 with one masked whole in each row)."""
     import torch
     import torch.nn.functional as F
     from viditq_tpu_torch.kernels import attention as A
@@ -2638,6 +2650,14 @@ def wide_path_cases(records):
                records, cost=attn_bound(B, N, H, D, [N] * B, False, False, N),
                library_fn=sdpa(q, k, v, sc),
                library_note=" (scaled_dot_product_attention)", b2b=True)
+    bkv8 = A.stream_kv_block(N, N, C, v_int8_in=True)
+    check_case("attention_bnhd_stream", f"dit_l_h4 [2,{N},{H},{D}] bkv "
+               f"{bkv8} int8 PV",
+               lambda: A.attention_bnhd_stream(q, k, v, sc, int8_pv=True),
+               lambda: A.attention_bnhd_stream_plain(q, k, v, sc, bkv8,
+                                                     None, True),
+               records, cost=attn_bound(B, N, H, D, [N] * B, True, False, N),
+               b2b=True)
 
     def k6_emit_plain():
         o = A.attention_bnhd_stream_plain(q, k, v, sc, bkv)
@@ -2648,6 +2668,78 @@ def wide_path_cases(records):
                k6_emit_plain, records,
                cost=attn_bound(B, N, H, D, [N] * B, False, True, N),
                b2b=True)
+    del q, k, v
+    # the edges of the wide tiling
+    for D, H in ((192, 6), (256, 4)):
+        sc = D ** -0.5
+        for N, M in ((1000, 1000), (1024, 40)):
+            q, k, v = randn(B, N, H, D), randn(B, M, H, D), randn(B, M, H, D)
+            m = None
+            if M < 64:
+                m = torch.ones((B, M), dtype=torch.int32, device="cuda")
+                m[1, 30:] = 0
+            rows = [M] * B if m is None else [M, 30]
+            extra = 0 if m is None else 4 * B * M
+            for label, kw in (("bf16", {}), ("int8 PV", dict(int8_pv=True)),
+                              ("int8 PV emit", dict(int8_pv=True,
+                                                    emit=True))):
+                if m is None and "emit" in label:
+                    continue
+                nbytes, ops = attn_bound(B, N, H, D, rows, bool(kw),
+                                         "emit" in label, M)
+                check_case(
+                    "attention_bnhd",
+                    f"wide edge D={D} [2,{N},{H}] kv {M}"
+                    f"{' masked' if m is not None else ''} {label}",
+                    lambda kw=kw, q=q, k=k, v=v, m=m: A.attention_bnhd(
+                        q, k, v, sc, kv_mask=m, **kw),
+                    lambda kw=kw, q=q, k=k, v=v, m=m: A.attention_bnhd_plain(
+                        q, k, v, sc, kv_mask=m, **kw), records,
+                    cost=(nbytes + extra, ops),
+                    slack_fn=(lambda want, q=q, k=k, v=v, m=m: int8_pv_slack(
+                        q, k, v, sc, 0, m, None, want[1]))
+                    if "emit" in label else None, b2b=True)
+        # tests/test_torch_head_dims_wide.py's shapes: K3 [2, 200] full and
+        # over kv 72 masked, K6 over kv 2176 in blocks of 128 with one
+        # masked whole in each row
+        for N, M in ((200, 200), (200, 72)):
+            q, k, v = randn(B, N, 2, D), randn(B, M, 2, D), randn(B, M, 2, D)
+            m = None
+            if M < N:
+                m = torch.ones((B, M), dtype=torch.int32, device="cuda")
+                m[1, 17:] = 0
+            for i8 in (False, True):
+                check_case(
+                    "attention_bnhd",
+                    f"wide edge D={D} [2,{N},2] kv {M}"
+                    f"{' masked' if m is not None else ''}"
+                    f"{' int8 PV' if i8 else ''}",
+                    lambda q=q, k=k, v=v, m=m, i8=i8: A.attention_bnhd(
+                        q, k, v, sc, kv_mask=m, int8_pv=i8),
+                    lambda q=q, k=k, v=v, m=m, i8=i8: A.attention_bnhd_plain(
+                        q, k, v, sc, kv_mask=m, int8_pv=i8), records,
+                    cost=attn_bound(B, N, 2, D, [M, 17 if m is not None
+                                                 else M], i8, False, M),
+                    b2b=True)
+        N, M = 256, A.ONESHOT_MAX_M + 128
+        q, k, v = randn(B, N, 1, D), randn(B, M, 1, D), randn(B, M, 1, D)
+        m = torch.ones((B, M), dtype=torch.int32, device="cuda")
+        m[0, 5 * 128:6 * 128] = 0
+        m[1, :128] = 0
+        m[1, 1000:1003] = 0
+        bkv = A.stream_kv_block(N, M, D)
+        for i8 in (False, True):
+            check_case(
+                "attention_bnhd_stream",
+                f"wide edge D={D} K6 [2,{N},1] kv {M} bkv {bkv} masked"
+                f"{' int8 PV' if i8 else ''}",
+                lambda i8=i8: A.attention_bnhd_stream(q, k, v, sc, kv_mask=m,
+                                                      int8_pv=i8),
+                lambda i8=i8: A.attention_bnhd_stream_plain(q, k, v, sc, bkv,
+                                                            m, i8),
+                records, cost=attn_bound(B, N, 1, D, [M - 128, M - 131], i8,
+                                         False, M),
+                b2b=True)
 
 
 def int8_pv_draws():

@@ -1,7 +1,10 @@
 """K3, K6, K8 and the float32 modes at the head dims above 128 that the
-card's kernels instantiate (192 and 256: a head's output columns split
-over blocks or warps, each taking the whole q.k), against the JAX
-package's kernels in interpret mode on the same numpy inputs; the CUDA
+card's kernels instantiate (192 and 256: K3 full/masked and K6 split each
+kv tile's scores and a head's output columns over the warpgroups of one
+block of 64 q rows, K3 seg a head over two warps), against the JAX
+package's kernels in interpret mode on the same numpy inputs, also at the
+edges of that tiling (N = 200: a partial last q block; a kv range that
+ends inside a tile; K6 over 17 kv blocks with one masked whole); the CUDA
 wrappers' padding of the other dims in (128, 256] to them, and the raise
 above 256, are held in tests/test_torch_head_dims.py; two tiny models
 whose heads are that wide in tests/test_torch_wide_models.py.
@@ -48,15 +51,22 @@ def _mask(M):
     return mask
 
 
+# mode, q rows N, kv rows M: the _n200 modes put N = 200 (a partial last
+# block of 64 q rows, and of 128), the masked one over kv 72 (a partial
+# second kv tile)
+K3_MODES = {"full": (128, 128), "seg": (128, 128), "mask": (128, 24),
+            "full_n200": (200, 200), "mask_n200": (200, 72)}
+
+
 @pytest.mark.parametrize("D", WIDE_DIMS)
-@pytest.mark.parametrize("mode", ["full", "seg", "mask"])
+@pytest.mark.parametrize("mode", list(K3_MODES))
 def test_k3_at_wide_head_dim_matches_jax(D, mode):
     """Every K3 mode: the float PV and the int8 PV, the sym emission of the
     int8 PV and the asym emission with row sums."""
-    N = 128
-    q, k, v = _qkv(D, N, 24 if mode == "mask" else N, seed=D)
+    N, M = K3_MODES[mode]
+    q, k, v = _qkv(D, N, M, seed=D if N == 128 else D + N)
     seg = 16 if mode == "seg" else 0
-    mask = _mask(24) if mode == "mask" else None
+    mask = _mask(M) if mode.startswith("mask") else None
     sc = D ** -0.5
     jm = None if mask is None else _j(mask)
     tm = None if mask is None else t(mask)
@@ -86,18 +96,36 @@ def test_k3_at_wide_head_dim_matches_jax(D, mode):
                [w.reshape(-1, w.shape[-1]) for w in want], scale_rtol=1e-5)
 
 
-@pytest.mark.parametrize("D", WIDE_DIMS)
-def test_k6_at_wide_head_dim_matches_jax(D):
-    """K6 (kv beyond the one-shot range) on one batch row and one head,
-    the float PV and the int8 PV."""
-    q, k, v = _qkv(D, 256, jattn.ONESHOT_MAX_M + 256, seed=100 + D,
-                   heads=1)
-    q, k, v = q[:1], k[:1], v[:1]
+@pytest.mark.parametrize("D,masked", [
+    pytest.param(192, False, id="192"), pytest.param(256, False, id="256"),
+    pytest.param(192, True, id="192-kv2176-masked"),
+    pytest.param(256, True, id="256-kv2176-masked")])
+def test_k6_at_wide_head_dim_matches_jax(D, masked):
+    """K6 (kv beyond the one-shot range) on one head, the float PV and the
+    int8 PV: on one batch row over kv 2304 (9 blocks of 256); masked, on
+    two over kv 2176, which K6 walks in 17 blocks of 128 (the kv block
+    divides the kv length in both packages' rule, `stream_kv_block`), one
+    of them masked whole in each row (the first block of row 1, so its
+    running max starts at -inf, and the sixth of row 0)."""
+    M = jattn.ONESHOT_MAX_M + (128 if masked else 256)
+    q, k, v = _qkv(D, 256, M, seed=100 + D, heads=1)
+    mask = None
+    if masked:
+        assert A.stream_kv_block(256, M, D) == 128
+        mask = np.ones((2, M), np.int32)
+        mask[0, 5 * 128:6 * 128] = 0
+        mask[1, :128] = 0
+        mask[1, 1000:1003] = 0
+    else:
+        q, k, v = q[:1], k[:1], v[:1]
     sc = D ** -0.5
+    jm = None if mask is None else _j(mask)
+    tm = None if mask is None else t(mask)
     for int8_pv in (False, True):
         want = interp(jattn.attention_bnhd, _j(q), _j(k), _j(v), sc,
-                      int8_pv=int8_pv)
-        got = A.attention_bnhd(t(q), t(k), t(v), sc, int8_pv=int8_pv)
+                      kv_mask=jm, int8_pv=int8_pv)
+        got = A.attention_bnhd(t(q), t(k), t(v), sc, kv_mask=tm,
+                               int8_pv=int8_pv)
         assert got.shape == want.shape
         assert rel_err(got, want) < 1e-3
 

@@ -47,8 +47,10 @@
 // memory and written with 16-byte stores. The int8 PV runs on s8 wgmma
 // with exact int32 sums, so its kv range is not bounded. D is a template
 // parameter: 72 (STDiT-XL, PixArt), 64 (DiT-L/2), 16, 32, 128, 192 and
-// 256 (two blocks a head, each with half its output columns: attn_core.cuh
-// `block_cols`); the wrappers pad any other D up to the next of these.
+// 256; the wrappers pad any other D up to the next of these. At 192 and
+// 256 the full modes run attn_wide.cuh's kernel instead (a block of 64 q
+// rows, each tile's scores computed once, 32 kv columns a warpgroup, the
+// PV's output columns split over the two warpgroups; TMA loads).
 //
 // Seg mode. Bound on the card: bytes. At the main path ([2, 16384, 16,
 // 72], seg 16) q, k and v are read once and o written once: 8*B*N*C bytes
@@ -105,6 +107,7 @@
 // dim's launchers alone (`VQ_K3_LAUNCHERS`), which the entry points here
 // declare extern.
 #include "attn_core.cuh"
+#include "attn_wide.cuh"
 
 namespace vq {
 namespace k3 {
@@ -121,31 +124,29 @@ __global__ void __launch_bounds__(THREADS, D > 72 ? 1 : 2)
                      const float* __restrict__ vscale,
                      const int* __restrict__ mask, void* __restrict__ out,
                      int out_f32, int N, int M, int H, float scale2) {
-  constexpr int DV = block_cols(D);  // this block's output columns
-  using T = Tile<D, DV>;
+  using T = Tile<D>;
   extern __shared__ __align__(128) uint8_t smem[];
   uint8_t* qs = smem;
   uint8_t* ring = smem + T::Q_BYTES;
   const Lane ln;
   const int b = blockIdx.z;
-  const int h = blockIdx.y / (D / DV);
-  const int c0 = blockIdx.y % (D / DV) * DV;  // the head's first column here
+  const int h = blockIdx.y;
   const int q0 = blockIdx.x * BQ;
   const int C = H * D;
   const bool masked = mask != nullptr;
-  zero_pads<D, DV, INT8>(ring);
+  zero_pads<D, INT8>(ring);
   load_q<D>(qs, q, b, h, q0, N, C, scale2);
 
   const int nt = (M + BKV - 1) / BKV;  // kv tiles
   const int Mp = nt * BKV;             // the v^T codes' padded kv length
   const int steps = 2 * nt;
   auto slot_of = [&](int step) {
-    return Slot<D, DV>(ring + (step % STAGES) * T::STAGE_BYTES);
+    return Slot<D>(ring + (step % STAGES) * T::STAGE_BYTES);
   };
   auto prefetch = [&](int step) {
     if (step < steps)
-      load_tile<D, DV, INT8>(slot_of(step), k, v, mask, b, h, c0,
-                             (step % nt) * BKV, M, M, Mp, C, H, step >= nt);
+      load_tile<D, INT8>(slot_of(step), k, v, mask, b, h,
+                         (step % nt) * BKV, M, M, Mp, C, H, step >= nt);
     cp_async_commit();
   };
 #pragma unroll
@@ -166,9 +167,9 @@ __global__ void __launch_bounds__(THREADS, D > 72 ? 1 : 2)
     fence_proxy_async();
     __syncthreads();
     prefetch(step + STAGES - 1);
-    const Slot<D, DV> slot = slot_of(step);
+    const Slot<D> slot = slot_of(step);
     float s[32];
-    scores<D, DV>(s, qs, slot, ln, (step % nt) * BKV, M, masked);
+    scores<D>(s, qs, slot, ln, (step % nt) * BKV, M, masked);
     if (step < nt) {
       // pass 1: the exact row max (bf16 PV: and the row sum, online)
 #pragma unroll
@@ -215,13 +216,13 @@ __global__ void __launch_bounds__(THREADS, D > 72 ? 1 : 2)
       }
       uint32_t a[BKV / 32][4];
       pack_codes(a, s);
-      pv_s8<D, DV>(acc, a, slot, step > nt ? 1 : 0);
+      pv_s8<D>(acc, a, slot, step > nt ? 1 : 0);
     } else {
       uint32_t p[BKV / 16][4];
       pack_p(p, s, [&](float x, int hh) {
         return exp2f(x - m_run[hh]) * inv_r[hh];
       });
-      pv_bf16<D, DV>(o, p, slot, 1);
+      pv_bf16<D>(o, p, slot, 1);
     }
   }
   cp_async_wait<0>();
@@ -231,7 +232,7 @@ __global__ void __launch_bounds__(THREADS, D > 72 ? 1 : 2)
       const int hh = (i >> 1) & 1;
       const int d = 8 * (i >> 2) + 2 * ln.t4 + (i & 1);
       return (static_cast<float>(acc[i]) * inv_r[hh]) *
-             vscale[static_cast<size_t>(b) * C + h * D + c0 + d];
+             vscale[static_cast<size_t>(b) * C + h * D + d];
     } else {
       return o[i];
     }
@@ -244,11 +245,11 @@ __global__ void __launch_bounds__(THREADS, D > 72 ? 1 : 2)
           static_cast<float>(1.0 / (127.0 * 127.0)) / quad_sum(r_run[hh]);
   }
   if (out_f32)
-    store_out<DV>(ring, static_cast<float*>(out), ln, b, h * D + c0, q0, N,
-                  C, value);
+    store_out<D>(ring, static_cast<float*>(out), ln, b, h * D, q0, N, C,
+                 value);
   else
-    store_out<DV>(ring, static_cast<__nv_bfloat16*>(out), ln, b, h * D + c0,
-                  q0, N, C, value);
+    store_out<D>(ring, static_cast<__nv_bfloat16*>(out), ln, b, h * D, q0,
+                 N, C, value);
 }
 
 // -------------------------------------------------------- v quantize, emission
@@ -390,16 +391,21 @@ cudaError_t launch_full(const void* q, const void* k, const void* v,
                         const float* vs, const int* mask, void* out,
                         int out_f32, int B, int N, int M, int H, float scale2,
                         cudaStream_t st) {
-  auto kernel = attn_kernel_full<D, INT8>;
-  const int smem = Tile<D, block_cols(D)>::SMEM_BYTES;
-  cudaError_t err = set_smem(kernel, smem);
-  if (err != cudaSuccess) return err;
-  dim3 grid((N + BQ - 1) / BQ, H * (D / block_cols(D)), B);
-  kernel<<<grid, THREADS, smem, st>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k), v, vs, mask, out, out_f32, N, M,
-      H, scale2);
-  return cudaGetLastError();
+  if constexpr (D > 128) {
+    return wide::launch<D, INT8, false>(q, k, v, vs, mask, out, out_f32, B,
+                                        N, M, H, 0, scale2, st);
+  } else {
+    auto kernel = attn_kernel_full<D, INT8>;
+    const int smem = Tile<D>::SMEM_BYTES;
+    cudaError_t err = set_smem(kernel, smem);
+    if (err != cudaSuccess) return err;
+    dim3 grid((N + BQ - 1) / BQ, H, B);
+    kernel<<<grid, THREADS, smem, st>>>(
+        static_cast<const __nv_bfloat16*>(q),
+        static_cast<const __nv_bfloat16*>(k), v, vs, mask, out, out_f32, N,
+        M, H, scale2);
+    return cudaGetLastError();
+  }
 }
 
 

@@ -37,15 +37,19 @@
 // rescale is applied to the accumulator before the block's PV tiles are
 // added to it (acc * corr + pv with pv summed into acc, one f32 register
 // set fewer); the int8 PV keeps its block sum apart, exact, and adds
-// float(sum) * vs/127^2 once per block. Heads wider than 128 split their
-// output columns over two blocks (attn_core.cuh, `block_cols`): each walks
-// the whole recurrence, the same max, corr and row sum, for its half.
+// float(sum) * vs/127^2 once per block. Heads wider than 128 (D = 192,
+// 256) run the same recurrence on attn_wide.cuh's kernel: a block of 64 q
+// rows whose two warpgroups compute each tile's scores once, 32 kv columns
+// each, meet at each block's max, and split the PV and its output columns
+// over probabilities (or codes) they share in shared memory; a producer
+// warp's TMA loads fill its ring.
 //
 // Build: parts/attention_stream_wide.cu includes this file with
 // VQ_K6_PART set and instantiates the launchers of D = 192 and 256 alone,
 // which the entry point here declares extern, so that the build compiles
 // them in parallel with the others.
 #include "attn_core.cuh"
+#include "attn_wide.cuh"
 
 namespace vq {
 namespace k6 {
@@ -61,34 +65,31 @@ __global__ void __launch_bounds__(THREADS, D > 72 ? 1 : 2)
                        const int* __restrict__ mask,
                        __nv_bfloat16* __restrict__ out, int N, int M, int H,
                        int bkv, float scale2) {
-  constexpr int DV = block_cols(D);  // this block's output columns
-  using T = Tile<D, DV>;
+  using T = Tile<D>;
   extern __shared__ __align__(128) uint8_t smem[];
   uint8_t* qs = smem;
   uint8_t* ring = smem + T::Q_BYTES;
   const Lane ln;
   const int b = blockIdx.z;
-  const int h = blockIdx.y / (D / DV);
-  const int c0 = blockIdx.y % (D / DV) * DV;  // the head's first column here
+  const int h = blockIdx.y;
   const int q0 = blockIdx.x * BQ;
   const int C = H * D;
   const bool masked = mask != nullptr;
-  zero_pads<D, DV, INT8>(ring);
+  zero_pads<D, INT8>(ring);
   load_q<D>(qs, q, b, h, q0, N, C, scale2);
 
   const int nb = bkv / BKV;         // tiles per kv block
   const int steps = 2 * (M / BKV);  // every block walked twice
   auto slot_of = [&](int step) {
-    return Slot<D, DV>(ring + (step % STAGES) * T::STAGE_BYTES);
+    return Slot<D>(ring + (step % STAGES) * T::STAGE_BYTES);
   };
   auto kv_of = [&](int step) {
     return ((step / (2 * nb)) * nb + (step % (2 * nb)) % nb) * BKV;
   };
   auto prefetch = [&](int step) {
     if (step < steps)
-      load_tile<D, DV, INT8>(slot_of(step), k, v, mask, b, h, c0,
-                             kv_of(step), M, M, M, C, H,
-                             step % (2 * nb) >= nb);
+      load_tile<D, INT8>(slot_of(step), k, v, mask, b, h, kv_of(step), M,
+                         M, M, C, H, step % (2 * nb) >= nb);
     cp_async_commit();
   };
 #pragma unroll
@@ -108,10 +109,10 @@ __global__ void __launch_bounds__(THREADS, D > 72 ? 1 : 2)
     fence_proxy_async();
     __syncthreads();
     prefetch(step + STAGES - 1);
-    const Slot<D, DV> slot = slot_of(step);
+    const Slot<D> slot = slot_of(step);
     const int w = step % (2 * nb);
     float s[32];
-    scores<D, DV>(s, qs, slot, ln, kv_of(step), M, masked);
+    scores<D>(s, qs, slot, ln, kv_of(step), M, masked);
     if (w < nb) {
       // pass 1: the row max over the whole kv block
       if (w == 0) bm[0] = bm[1] = -INFINITY;
@@ -142,11 +143,11 @@ __global__ void __launch_bounds__(THREADS, D > 72 ? 1 : 2)
     if constexpr (INT8) {
       uint32_t a[BKV / 32][4];
       pack_codes(a, s);
-      pv_s8<D, DV>(pvi, a, slot, w > nb ? 1 : 0);
+      pv_s8<D>(pvi, a, slot, w > nb ? 1 : 0);
     } else {
       uint32_t p[BKV / 16][4];
       pack_p(p, s, [](float x, int) { return x; });
-      pv_bf16<D, DV>(acc, p, slot, 1);
+      pv_bf16<D>(acc, p, slot, 1);
     }
     if (w == 2 * nb - 1) {
 #pragma unroll
@@ -155,7 +156,7 @@ __global__ void __launch_bounds__(THREADS, D > 72 ? 1 : 2)
         m_run[hh] = m_new[hh];
       }
       if constexpr (INT8) {
-        const float* vsr = vscale + static_cast<size_t>(b) * C + h * D + c0;
+        const float* vsr = vscale + static_cast<size_t>(b) * C + h * D;
 #pragma unroll
         for (int i = 0; i < T::NO; ++i) {
           const int d = 8 * (i >> 2) + 2 * ln.t4 + (i & 1);
@@ -170,24 +171,29 @@ __global__ void __launch_bounds__(THREADS, D > 72 ? 1 : 2)
   cp_async_wait<0>();
   const float inv[2] = {1.0f / fmaxf(r_run[0], 1e-30f),
                         1.0f / fmaxf(r_run[1], 1e-30f)};
-  store_out<DV>(ring, out, ln, b, h * D + c0, q0, N, C,
-                [&](int i) { return acc[i] * inv[(i >> 1) & 1]; });
+  store_out<D>(ring, out, ln, b, h * D, q0, N, C,
+               [&](int i) { return acc[i] * inv[(i >> 1) & 1]; });
 }
 
 template <int D, bool INT8>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const float* vs, const int* mask, void* out, int B, int N,
                    int M, int H, int bkv, float scale2, cudaStream_t st) {
-  auto kernel = attn_stream_kernel<D, INT8>;
-  const int smem = Tile<D, block_cols(D)>::SMEM_BYTES;
-  cudaError_t err = set_smem(kernel, smem);
-  if (err != cudaSuccess) return err;
-  dim3 grid((N + BQ - 1) / BQ, H * (D / block_cols(D)), B);
-  kernel<<<grid, THREADS, smem, st>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k), v, vs, mask,
-      static_cast<__nv_bfloat16*>(out), N, M, H, bkv, scale2);
-  return cudaGetLastError();
+  if constexpr (D > 128) {
+    return wide::launch<D, INT8, true>(q, k, v, vs, mask, out, 0, B, N, M,
+                                       H, bkv, scale2, st);
+  } else {
+    auto kernel = attn_stream_kernel<D, INT8>;
+    const int smem = Tile<D>::SMEM_BYTES;
+    cudaError_t err = set_smem(kernel, smem);
+    if (err != cudaSuccess) return err;
+    dim3 grid((N + BQ - 1) / BQ, H, B);
+    kernel<<<grid, THREADS, smem, st>>>(
+        static_cast<const __nv_bfloat16*>(q),
+        static_cast<const __nv_bfloat16*>(k), v, vs, mask,
+        static_cast<__nv_bfloat16*>(out), N, M, H, bkv, scale2);
+    return cudaGetLastError();
+  }
 }
 
 }  // namespace k6

@@ -47,19 +47,11 @@
 //   zero past the kv range), so no score reads device memory.
 // - The output is staged through the ring's shared memory and written with
 //   16-byte stores, one contiguous head row at a time.
-// - Heads wider than 128 (D = 192, 256): a block owns half of a head's
-//   output columns (`block_cols`; the grid's y axis runs over (head,
-//   half)). Its q.k and softmax run over the whole head, the same
-//   arithmetic in both halves' blocks, so both see the same probabilities;
-//   its v tiles, PV and output hold its DV = D/2 columns alone (96: one
-//   m64n96 product, bf16 or s8; 128: two of 64). So a thread's
-//   accumulators stay at D = 128's (64 f32, or 64 f32 + 64 int32 in K6's
-//   int8 PV) and q, k and three ring slots fit shared memory (208.75 KB
-//   at 256, one block an SM), for the q.k and exp2 taken twice. Their q.k
-//   runs in chains of QK_CHAIN k16 steps, each from zero, added on the
-//   CUDA cores: one chain of 12 or 16 steps let the tensor cores'
-//   truncating f32 sums move the scores by several times D = 64's, and K6's
-//   emission codes through K4 past the 0.1% mismatch limit (PERF.md §6).
+// - Heads wider than 128 (D = 192, 256) take another layout of the same
+//   arithmetic (attn_wide.cuh): a block of 64 q rows whose two consumer
+//   warpgroups split each tile's scores by kv columns and the PV by output
+//   columns over probabilities shared in shared memory, fed by a producer
+//   warpgroup. The kernels here take D <= 128.
 #pragma once
 
 #include <math.h>
@@ -73,32 +65,19 @@ constexpr int BQ = 128;      // q rows per block: two warpgroups of 64
 constexpr int BKV = 64;      // kv rows per tile
 constexpr int STAGES = 3;    // ring slots
 constexpr int THREADS = 256;
-constexpr int QK_CHAIN = 4;  // k16 steps of a q.k chain above D = 128
 
-// Output columns of one block at head dim D. Up to 128 a block owns its
-// head whole; D = 192 and 256 split the head's columns over two blocks
-// (the grid's y axis runs over (head, half)), each computing the whole
-// q.k and the softmax (the same arithmetic, so the same values) and the
-// PV and output of its half: a warpgroup's 64 x 256 f32 accumulator would
-// be 128 registers a thread, and q, k and v at 256 would not fit three
-// ring slots in shared memory (PERF.md §6).
-__host__ __device__ constexpr int block_cols(int D) {
-  return D > 128 ? D / 2 : D;
-}
-
-template <int D, int DV = D>
+template <int D>
 struct Tile {
   static constexpr int CH = D / 8;               // 16-byte chunks of a head row
   static constexpr int DP = (D + 15) / 16 * 16;  // QK^T depth, zero padded
   static constexpr int QCH = DP / 8;             // chunks of a padded row
   static constexpr int KS = DP / 16;             // k16 steps of QK^T
-  static constexpr int VCH = DV / 8;             // 16-byte v chunks of the
-                                                 // block's columns
-  static constexpr int DVP = (DV + 15) / 16 * 16;  // s8-PV width, padded
-  static constexpr int NO = DV / 2;               // bf16-PV sums a thread
+  static constexpr int VCH = D / 8;              // 16-byte v chunks
+  static constexpr int DVP = (D + 15) / 16 * 16;   // s8-PV width, padded
+  static constexpr int NO = D / 2;                // bf16-PV sums a thread
   static constexpr int NO8 = DVP / 2;             // s8-PV sums a thread
-  // columns of one PV wgmma (128 takes two of 64; 96 is one)
-  static constexpr int PW = DV > 72 && DV % 64 == 0 ? 64 : DV;
+  // columns of one PV wgmma (128 takes two of 64)
+  static constexpr int PW = D > 72 && D % 64 == 0 ? 64 : D;
   static constexpr int PW8 = DVP > 80 && DVP % 64 == 0 ? 64 : DVP;
   static constexpr int Q_BYTES = QCH * BQ * 16;
   static constexpr int K_BYTES = QCH * BKV * 16;
@@ -107,10 +86,10 @@ struct Tile {
   static constexpr int V_BYTES = VB_BYTES > V8_BYTES ? VB_BYTES : V8_BYTES;
   static constexpr int STAGE_BYTES = K_BYTES + V_BYTES + BKV * 4;
   static constexpr int SMEM_BYTES = Q_BYTES + STAGES * STAGE_BYTES;
-  static_assert(D % 8 == 0 && D % DV == 0, "head dim must be a multiple "
-                "of 8, and of the block's columns");
-  static_assert(DV % PW == 0 && DVP % PW8 == 0, "PV widths");
-  static_assert(BQ * DV * 4 <= STAGES * STAGE_BYTES, "output staging");
+  static_assert(D % 8 == 0 && D <= 128, "head dim must be a multiple "
+                "of 8, at most 128 (attn_wide.cuh takes 192 and 256)");
+  static_assert(D % PW == 0 && DVP % PW8 == 0, "PV widths");
+  static_assert(BQ * D * 4 <= STAGES * STAGE_BYTES, "output staging");
   static_assert(SMEM_BYTES <= 232448, "shared memory of a block");
 };
 
@@ -122,7 +101,7 @@ __device__ __forceinline__ V (&part(V* p))[n] {
 
 // descriptor strides (bytes) of the operand layouts above
 constexpr uint32_t ROW8 = 128;  // next 8 rows inside a chunk column
-template <int D, int DV = D>
+template <int D>
 struct Desc {
   static constexpr uint32_t Q_LBO = BQ * 16;   // next k chunk of q
   static constexpr uint32_t K_LBO = BKV * 16;  // next k chunk of k
@@ -130,7 +109,7 @@ struct Desc {
   static constexpr uint32_t V_LBO = ROW8;
   static constexpr uint32_t V_SBO = BKV * 16;
   // K-major int8 v^T: leading = next 16 kv bytes, stride = next 8 d rows
-  static constexpr uint32_t V8_LBO = Tile<D, DV>::DVP * 16;
+  static constexpr uint32_t V8_LBO = Tile<D>::DVP * 16;
 };
 
 // no-swizzle wgmma matrix descriptor
@@ -351,63 +330,6 @@ __device__ __forceinline__ void wgmma_rs_s8(int (&d)[32],
         "r"(scale_d));
 }
 
-// the PV products of a 96-column block (D = 192 in two blocks)
-__device__ __forceinline__ void wgmma_rs_bf16_tb(float (&d)[48],
-    const uint32_t (&a)[4], uint64_t b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47"
-      "}, "
-      "{%48, %49, %50, %51}, %52, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
-        "r"(scale_d));
-}
-
-__device__ __forceinline__ void wgmma_rs_s8(int (&d)[48],
-    const uint32_t (&a)[4], uint64_t b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n96k32.s32.s8.s8 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47"
-      "}, "
-      "{%48, %49, %50, %51}, %52, p;\n}\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
-        "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
-        "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
-        "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
-        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
-        "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
-        "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]),
-        "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
-        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]),
-        "+r"(d[45]), "+r"(d[46]), "+r"(d[47])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
-        "r"(scale_d));
-}
-
 // The calling thread's place in the block: warpgroup wg (64 q rows), warp
 // w in it (16 rows), lane quad g (rows g, g + 8) and t4 (columns 2*t4, +1 of
 // every 8-column group of an accumulator).
@@ -454,7 +376,7 @@ __device__ __forceinline__ void load_q(uint8_t* qs,
                                        const __nv_bfloat16* __restrict__ q,
                                        int b, int h, int q0, int N, int C,
                                        float scale2) {
-  using T = Tile<D, block_cols(D)>;
+  using T = Tile<D>;
   for (int idx = threadIdx.x; idx < T::QCH * BQ; idx += THREADS) {
     const int r = idx % BQ;
     const int c = idx / BQ;
@@ -477,13 +399,13 @@ __device__ __forceinline__ void load_q(uint8_t* qs,
 }
 
 // zero the parts of every ring slot that no copy writes: the k chunks past
-// D, and (int8 v^T) the d rows past the block's columns
-template <int D, int DV, bool INT8>
+// D, and (int8 v^T) the d rows past D
+template <int D, bool INT8>
 __device__ __forceinline__ void zero_pads(uint8_t* ring) {
-  using T = Tile<D, DV>;
+  using T = Tile<D>;
   constexpr int KPAD = (T::QCH - T::CH) * BKV;           // 16-byte units
-  constexpr int VPAD = INT8 ? (BKV / 16) * (T::DVP - DV) : 0;
-  constexpr int VP = VPAD > 0 ? T::DVP - DV : 1;  // pad d rows a v^T chunk
+  constexpr int VPAD = INT8 ? (BKV / 16) * (T::DVP - D) : 0;
+  constexpr int VP = VPAD > 0 ? T::DVP - D : 1;  // pad d rows a v^T chunk
   if constexpr (KPAD + VPAD > 0) {
     for (int idx = threadIdx.x; idx < STAGES * (KPAD + VPAD);
          idx += THREADS) {
@@ -496,7 +418,7 @@ __device__ __forceinline__ void zero_pads(uint8_t* ring) {
       } else {
         const int j = i - KPAD;
         const int kc = j / VP;
-        const int d = DV + j % VP;
+        const int d = D + j % VP;
         dst = slot + T::K_BYTES + kc * (T::DVP * 16) + d * 16;
       }
       *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
@@ -504,35 +426,33 @@ __device__ __forceinline__ void zero_pads(uint8_t* ring) {
   }
 }
 
-// Ring slot of one kv tile: k [BKV rows][DP], v of the block's DV columns
-// (bf16 [DV chunks][BKV rows] or int8 v^T [BKV/16 chunks][DVP rows]), mask
-// [BKV] int32.
-template <int D, int DV = D>
+// Ring slot of one kv tile: k [BKV rows][DP], v (bf16 [D chunks][BKV rows]
+// or int8 v^T [BKV/16 chunks][DVP rows]), mask [BKV] int32.
+template <int D>
 struct Slot {
   uint8_t* base;
   __device__ __forceinline__ explicit Slot(uint8_t* p) : base(p) {}
   __device__ __forceinline__ uint8_t* k() const { return base; }
   __device__ __forceinline__ uint8_t* v() const {
-    return base + Tile<D, DV>::K_BYTES;
+    return base + Tile<D>::K_BYTES;
   }
   __device__ __forceinline__ const int* mask() const {
-    return reinterpret_cast<const int*>(base + Tile<D, DV>::K_BYTES +
-                                        Tile<D, DV>::V_BYTES);
+    return reinterpret_cast<const int*>(base + Tile<D>::K_BYTES +
+                                        Tile<D>::V_BYTES);
   }
 };
 
-// Start the copies of kv rows kv0 .. kv0+BKV-1 of (b, h) into a slot (v's
-// columns c0 .. c0+DV-1 of the head); rows at or past hi are zero-filled
-// (k, bf16 v) or masked (mask = 0). k and v are [B, M, C] bf16; vt is int8
-// v^T [B, H, D, Mp] (kv_perm order, zero past M); with_v = false copies k
-// and the mask only.
-template <int D, int DV, bool INT8>
+// Start the copies of kv rows kv0 .. kv0+BKV-1 of (b, h) into a slot; rows
+// at or past hi are zero-filled (k, bf16 v) or masked (mask = 0). k and v
+// are [B, M, C] bf16; vt is int8 v^T [B, H, D, Mp] (kv_perm order, zero
+// past M); with_v = false copies k and the mask only.
+template <int D, bool INT8>
 __device__ __forceinline__ void load_tile(
-    Slot<D, DV> slot, const __nv_bfloat16* __restrict__ k,
+    Slot<D> slot, const __nv_bfloat16* __restrict__ k,
     const void* __restrict__ v,
-    const int* __restrict__ mask, int b, int h, int c0, int kv0, int hi,
+    const int* __restrict__ mask, int b, int h, int kv0, int hi,
     int M, int Mp, int C, int H, bool with_v) {
-  using T = Tile<D, DV>;
+  using T = Tile<D>;
   const int tid = threadIdx.x;
   const uint32_t ks = smem_u32(slot.k());
   for (int idx = tid; idx < T::CH * BKV; idx += THREADS) {
@@ -556,10 +476,10 @@ __device__ __forceinline__ void load_tile(
   if constexpr (INT8) {
     const int8_t* vt =
         static_cast<const int8_t*>(v) +
-        ((static_cast<size_t>(b) * H + h) * D + c0) * Mp + kv0;
-    for (int idx = tid; idx < DV * (BKV / 16); idx += THREADS) {
-      const int d = idx % DV;
-      const int kc = idx / DV;
+        ((static_cast<size_t>(b) * H + h) * D) * Mp + kv0;
+    for (int idx = tid; idx < D * (BKV / 16); idx += THREADS) {
+      const int d = idx % D;
+      const int kc = idx / D;
       cp_async16(vs + kc * (T::DVP * 16) + d * 16,
                  vt + static_cast<size_t>(d) * Mp + kc * 16, 16);
     }
@@ -572,7 +492,7 @@ __device__ __forceinline__ void load_tile(
       const bool ok = n < hi;
       cp_async16(vs + c * (BKV * 16) + r * 16,
                  vb + (static_cast<size_t>(b) * M + (ok ? n : 0)) * C +
-                     h * D + c0 + c * 8,
+                     h * D + c * 8,
                  ok ? 16 : 0);
     }
   }
@@ -596,37 +516,14 @@ __device__ __forceinline__ void qk_chain(float (&d)[32], uint32_t qa,
 // s = this warpgroup's 64 q rows . the slot's 64 k rows (f32), then -inf
 // at columns at or past hi and where the staged mask is 0. s[4*nt + e] is
 // row row0 + 8*(e >> 1), column kv0 + 8*nt + 2*t4 + (e & 1).
-template <int D, int DV>
+template <int D>
 __device__ __forceinline__ void scores(float (&s)[32], const uint8_t* qs,
-                                       Slot<D, DV> slot, const Lane& ln,
+                                       Slot<D> slot, const Lane& ln,
                                        int kv0, int hi, bool masked) {
-  using T = Tile<D, DV>;
+  using T = Tile<D>;
   const uint32_t qa = smem_u32(qs) + ln.wg * (64 * 16);
   const uint32_t ka = smem_u32(slot.k());
-  if constexpr (T::KS <= QK_CHAIN * 2) {
-    qk_chain<0, T::KS>(s, qa, ka);
-  } else {
-    // heads wider than 128: the tensor cores' f32 sums lose toward zero up
-    // to an ulp an instruction, so a chain of 12 or 16 k16 steps moves the
-    // scores by several times D = 64's (and the codes and bf16
-    // probabilities rounded from them); chains of QK_CHAIN steps from
-    // zero, added on the CUDA cores (rounded to nearest), keep that error
-    // at D = 64's
-    float s2[32];
-    qk_chain<0, QK_CHAIN>(s, qa, ka);
-    qk_chain<QK_CHAIN, QK_CHAIN>(s2, qa, ka);
-#pragma unroll
-    for (int i = 0; i < 32; ++i) s[i] += s2[i];
-    qk_chain<2 * QK_CHAIN, QK_CHAIN>(s2, qa, ka);
-#pragma unroll
-    for (int i = 0; i < 32; ++i) s[i] += s2[i];
-    if constexpr (T::KS > 3 * QK_CHAIN) {
-      static_assert(T::KS == 4 * QK_CHAIN, "q.k chains");
-      qk_chain<3 * QK_CHAIN, QK_CHAIN>(s2, qa, ka);
-#pragma unroll
-      for (int i = 0; i < 32; ++i) s[i] += s2[i];
-    }
-  }
+  qk_chain<0, T::KS>(s, qa, ka);
   if (masked || kv0 + BKV > hi) {
     const int* mk = slot.mask();
 #pragma unroll
@@ -645,23 +542,23 @@ __device__ __forceinline__ void scores(float (&s)[32], const uint8_t* qs,
 // o += p . v over the slot's 64 kv rows; p[kk] is the A fragment of kv
 // rows 16*kk .. 16*kk+15 (pack_bf16 of the score layout); scale_d = 0
 // overwrites o
-template <int D, int DV>
-__device__ __forceinline__ void pv_bf16(float (&o)[Tile<D, DV>::NO],
+template <int D>
+__device__ __forceinline__ void pv_bf16(float (&o)[Tile<D>::NO],
                                         const uint32_t (&p)[BKV / 16][4],
-                                        Slot<D, DV> slot, int scale_d) {
-  using T = Tile<D, DV>;
-  using Ds = Desc<D, DV>;
+                                        Slot<D> slot, int scale_d) {
+  using T = Tile<D>;
+  using Ds = Desc<D>;
   const uint32_t va = smem_u32(slot.v());
   wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < BKV / 16; ++kk) {
-    if constexpr (T::PW == DV) {
+    if constexpr (T::PW == D) {
       wgmma_rs_bf16_tb(o, p[kk],
                        make_desc(va + kk * 16 * 16, Ds::V_LBO, Ds::V_SBO),
                        kk > 0 ? 1 : scale_d);
     } else {
 #pragma unroll
-      for (int c = 0; c < DV / T::PW; ++c)  // the columns c*PW .. of o
+      for (int c = 0; c < D / T::PW; ++c)  // the columns c*PW .. of o
         wgmma_rs_bf16_tb(
             part<T::PW / 2>(o + c * (T::PW / 2)), p[kk],
             make_desc(va + kk * 16 * 16 + c * (T::PW / 8) * Ds::V_SBO,
@@ -704,12 +601,12 @@ __device__ __forceinline__ void pack_codes(uint32_t (&a)[BKV / 32][4],
 
 // acc += codes . vq over the slot's 64 kv rows (exact int32); scale_d = 0
 // overwrites acc
-template <int D, int DV>
-__device__ __forceinline__ void pv_s8(int (&acc)[Tile<D, DV>::NO8],
+template <int D>
+__device__ __forceinline__ void pv_s8(int (&acc)[Tile<D>::NO8],
                                       const uint32_t (&a)[BKV / 32][4],
-                                      Slot<D, DV> slot, int scale_d) {
-  using T = Tile<D, DV>;
-  using Ds = Desc<D, DV>;
+                                      Slot<D> slot, int scale_d) {
+  using T = Tile<D>;
+  using Ds = Desc<D>;
   const uint32_t va = smem_u32(slot.v());
   wgmma_fence();
 #pragma unroll

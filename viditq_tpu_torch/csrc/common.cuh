@@ -199,6 +199,26 @@ __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
+// barrier `id` of `threads` threads (a multiple of 32) of the block
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// pin the accumulators after a wgmma wait, so no read of them is scheduled
+// before it. Only where no wgmma is in flight: touching registers an
+// in-flight wgmma writes makes ptxas wait for it (serializing the loop)
+template <int R>
+__device__ __forceinline__ void fence_regs(int (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+template <int R>
+__device__ __forceinline__ void fence_regs(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
 // --- mbarriers (the int8 GEMM core's ring, the seg attention's bulk loads)
 
 __device__ __forceinline__ void mbar_init(uint32_t bar, int count) {

@@ -63,9 +63,8 @@
 
 #include <type_traits>
 
-#include <cuda.h>  // CUtensorMap and its enums; the encoder comes from libcuda
-
 #include "common.cuh"
+#include "tma.cuh"
 
 namespace vq {
 namespace i8mma {
@@ -109,16 +108,8 @@ struct Layout {
                 "swizzled tiles must stay 1024-byte aligned");
 };
 
-// ---- TMA and wgmma primitives (the mbarriers are in common.cuh) --------
-
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int k0, int row0) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(k0), "r"(row0)
-      : "memory");
-}
+// ---- TMA and wgmma primitives (the mbarriers are in common.cuh, the
+// tensor-map encoder and the TMA load in tma.cuh) --------
 
 // shared -> global tile store of one box; completion tracked by bulk group
 __device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src,
@@ -143,10 +134,6 @@ __device__ __forceinline__ void bulk_wait() {
   asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
-__device__ __forceinline__ void named_sync(int id, int threads) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
-}
-
 // K-major operand of 8-row x 128-byte swizzled core groups: stride between
 // 8-row groups 1024 bytes; the leading offset is unused by this layout
 __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
@@ -154,15 +141,6 @@ __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
          (static_cast<uint64_t>(1) << 16) |
          (static_cast<uint64_t>(1024 >> 4) << 32) |
          (static_cast<uint64_t>(1) << 62);
-}
-
-// pin the accumulators after a wgmma wait, so no read of them is scheduled
-// before it. Only where no wgmma is in flight: touching registers an
-// in-flight wgmma writes makes ptxas wait for it (serializing the loop)
-template <int R>
-__device__ __forceinline__ void fence_regs(int (&d)[R]) {
-#pragma unroll
-  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
 
 // d (+)= a . b^T over k32, both from shared memory; scale_d = 0 overwrites
@@ -830,33 +808,6 @@ __global__ void __launch_bounds__(EDGE_THREADS)
 }
 
 // ---- host side -----------------------------------------------------------
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from libcuda through the runtime's entry-point
-// query, so the library links nothing beyond the CUDA runtime
-inline EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    const cudaError_t e = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
 
 // the map of a row-major int8 [rows, K] matrix in boxes of [box_rows, BK]
 // bytes, 128-byte swizzle, zero fill outside

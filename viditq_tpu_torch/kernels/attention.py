@@ -77,8 +77,9 @@ LOG2E = float(math.log2(math.e))
 # head dims instantiated in csrc/attention*.cu, attn_core.cuh and
 # attn_f32_core.cuh; a CUDA call at any other D up to the widest is padded
 # with zero channels to the next of them (`_padded_heads`). Heads wider
-# than 128 split their output columns over blocks (or warps), each taking
-# the whole head's q.k (csrc/attn_core.cuh `block_cols`).
+# than 128 run K3 full/masked and K6 on csrc/attn_wide.cuh (a block's two
+# warpgroups split each tile's scores by kv columns and the PV by output
+# columns), K3 seg on two warps a head.
 KERNEL_HEAD_DIMS = (16, 32, 64, 72, 128, 192, 256)
 # JAX's gate of its attention kernels (attention.py:834): H * D * 2 bytes
 # <= 4096, so H * D <= MAX_HD
